@@ -1,0 +1,62 @@
+"""Random-number-generator adapters.
+
+Where the JAX package takes a ``jax.random`` key, the port takes ``rng``:
+an int (or numpy integer) seed, a ``torch.Generator``, or None.  These
+helpers normalize whatever the user passed.
+
+The CUDA kernels draw their own random numbers from a counter-based
+generator seeded with two 32-bit words.  :func:`seed_words` draws those
+words on the host from a CPU generator, so drawing a seed never waits for
+the device.
+"""
+
+import numbers as _numbers
+
+import torch
+
+__all__ = ["as_generator", "seed_words", "device_generator"]
+
+# module-level default stream for rng=None: advancing it on every use makes
+# repeated convenience calls draw FRESH samples (a fixed seed would silently
+# return identical batches)
+_default_gen = None
+
+
+def _next_default_seed() -> int:
+    global _default_gen
+    if _default_gen is None:
+        _default_gen = torch.Generator().manual_seed(0)
+    return int(torch.randint(0, 2**63 - 1, (1,), generator=_default_gen))
+
+
+def as_generator(rng) -> torch.Generator:
+    """Return a CPU ``torch.Generator`` for ``rng`` (None | int | numpy
+    integer | ``torch.Generator``).  A generator is returned as it is, so
+    successive draws from it advance one stream; None advances the module
+    default stream."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    if rng is None:
+        return torch.Generator().manual_seed(_next_default_seed())
+    if isinstance(rng, _numbers.Integral):
+        return torch.Generator().manual_seed(int(rng))
+    raise TypeError(
+        "rng must be None, an int or a torch.Generator, got %r" % type(rng))
+
+
+def seed_words(rng) -> tuple:
+    """Two 32-bit seed words for a kernel launch, drawn on the host from
+    :func:`as_generator` of ``rng`` (advancing it)."""
+    gen = as_generator(rng)
+    if gen.device.type != "cpu":
+        raise ValueError("seed words are drawn from a CPU generator")
+    w = torch.randint(0, 2**32, (2,), generator=gen, dtype=torch.int64)
+    return int(w[0]), int(w[1])
+
+
+def device_generator(seed, device) -> torch.Generator:
+    """A generator on ``device`` seeded from two 32-bit ``seed`` words: the
+    plain (non-kernel) versions of the random kernels draw from it."""
+    s0, s1 = seed
+    return torch.Generator(device=device).manual_seed(
+        ((int(s0) & 0xFFFFFFFF) << 32 | (int(s1) & 0xFFFFFFFF)) & (2**63 - 1))

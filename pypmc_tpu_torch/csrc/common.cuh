@@ -1,0 +1,282 @@
+// Device code shared by the four mixture kernels of pypmc_tpu_torch:
+// the packed mixture layout, a Philox-4x32-10 counter generator, uniform,
+// Box-Muller and Marsaglia-Tsang draws, the whitened component log-pdf and
+// the weighted log-sum-exp.
+//
+// Particles are carried transposed, xT (D, N) row-major, so that thread n
+// reads x[i] = xT[i * N + n]: neighbouring threads read neighbouring
+// addresses.  Every kernel keeps one particle's coordinates in registers;
+// loops over the dimension are unrolled to DMAX (8, 16 or 32) with a guard
+// on the runtime D, so the per-particle arrays never leave registers.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace pmc {
+
+constexpr int kThreads = 128;   // threads per block, one particle each
+
+// Packed mixture operands, one flat float32 buffer per mixture
+// (built by pypmc_tpu_torch.density.core._kernel_operands):
+//   mu (K, D) | U = L^{-1} (K, D, D) | log_norm (K) | weights (K) |
+//   dof (K) | psi = digamma((D + dof) / 2) (K) |
+//   L (K, D, D) | cumw (K)
+// The evaluation kernels read only the part before L.
+struct MixLayout {
+  int K, D;
+  __host__ __device__ int mu() const { return 0; }
+  __host__ __device__ int U() const { return K * D; }
+  __host__ __device__ int ln() const { return K * D + K * D * D; }
+  __host__ __device__ int w() const { return ln() + K; }
+  __host__ __device__ int dof() const { return ln() + 2 * K; }
+  __host__ __device__ int psi() const { return ln() + 3 * K; }
+  __host__ __device__ int L() const { return ln() + 4 * K; }
+  __host__ __device__ int cumw() const { return L() + K * D * D; }
+  __host__ __device__ int eval_size() const { return L(); }
+  __host__ __device__ int size() const { return cumw() + K; }
+};
+
+__device__ __forceinline__ void load_to_shared(float* dst, const float* src,
+                                               int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// ---------------------------------------------------------------------
+// Philox-4x32-10 (Salmon et al., SC'11).  Key = the two host seed words,
+// counter = (particle index lo, hi, draw block, 0): a particle's stream
+// depends only on the seed and its global index, never on the launch
+// configuration.
+// ---------------------------------------------------------------------
+struct Philox {
+  uint32_t k0, k1, c0, c1, c2;
+  uint32_t b0, b1, b2, b3;
+  int pos;
+
+  __device__ Philox(uint32_t s0, uint32_t s1, uint64_t n)
+      : k0(s0), k1(s1), c0(static_cast<uint32_t>(n)),
+        c1(static_cast<uint32_t>(n >> 32)), c2(0), pos(4) {}
+
+  __device__ void refill() {
+    uint32_t x0 = c0, x1 = c1, x2 = c2, x3 = 0u, a = k0, b = k1;
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+      const uint32_t hi0 = __umulhi(0xD2511F53u, x0);
+      const uint32_t lo0 = 0xD2511F53u * x0;
+      const uint32_t hi1 = __umulhi(0xCD9E8D57u, x2);
+      const uint32_t lo1 = 0xCD9E8D57u * x2;
+      x0 = hi1 ^ x1 ^ a;
+      x1 = lo1;
+      x2 = hi0 ^ x3 ^ b;
+      x3 = lo0;
+      a += 0x9E3779B9u;
+      b += 0xBB67AE85u;
+    }
+    b0 = x0; b1 = x1; b2 = x2; b3 = x3;
+    pos = 0;
+    ++c2;
+  }
+
+  __device__ uint32_t next() {
+    if (pos == 4) refill();
+    const uint32_t v = pos == 0 ? b0 : pos == 1 ? b1 : pos == 2 ? b2 : b3;
+    ++pos;
+    return v;
+  }
+
+  // [0, 1): the categorical draw against tail-sum thresholds
+  __device__ float uniform() {
+    return static_cast<float>(next() >> 8) * (1.0f / 16777216.0f);
+  }
+  // (0, 1]: safe for log
+  __device__ float uniform_pos() {
+    return static_cast<float>((next() >> 8) + 1u) * (1.0f / 16777216.0f);
+  }
+  // two independent standard normals (Box-Muller, both halves)
+  __device__ void normal_pair(float& z0, float& z1) {
+    const float r = sqrtf(-2.0f * logf(uniform_pos()));
+    float s, c;
+    sincospif(2.0f * uniform(), &s, &c);
+    z0 = r * c;
+    z1 = r * s;
+  }
+};
+
+// log of a chi-square draw with ``dof`` degrees of freedom: Marsaglia-Tsang
+// for Gamma(a + 1), a = dof / 2, with the shape boost U^(1/a) applied in log
+// space.  Each round accepts with probability >= 0.951, so the loop runs
+// until acceptance; the cap only stops a non-finite dof from spinning.
+__device__ __forceinline__ float log_chi2(float dof, Philox& rng) {
+  const float a = 0.5f * dof;
+  const float d = a + 1.0f - 1.0f / 3.0f;
+  const float c = 1.0f / sqrtf(9.0f * d);
+  float log_g = logf(d);
+  float z, z_next = 0.0f;
+  for (int r = 0; r < 100; ++r) {
+    if ((r & 1) == 0) rng.normal_pair(z, z_next); else z = z_next;
+    const float u = rng.uniform_pos();
+    const float one_plus_cz = 1.0f + c * z;
+    if (one_plus_cz > 0.0f) {
+      const float log_v = 3.0f * logf(one_plus_cz);
+      // margin d (1 - v + log v) = d (log_v - expm1(log_v)): no
+      // catastrophic cancellation for large d
+      if (logf(u) < 0.5f * z * z + d * (log_v - expm1f(log_v))) {
+        log_g = logf(d) + log_v;
+        break;
+      }
+    }
+  }
+  return CUDART_LN2_F + log_g + logf(rng.uniform_pos()) / a;
+}
+
+// ---------------------------------------------------------------------
+// evaluation
+// ---------------------------------------------------------------------
+
+// Squared Mahalanobis distance of x to component (mu, U = L^{-1}), with the
+// whitened difference diff = U (x - mu) left in ``diff`` (lower-triangular
+// product, FP32 FMA).
+template <int DMAX>
+__device__ __forceinline__ float whiten(const float* U, const float* mu,
+                                        const float (&x)[DMAX], int D,
+                                        float (&diff)[DMAX]) {
+  float xm[DMAX];
+#pragma unroll
+  for (int j = 0; j < DMAX; ++j) xm[j] = j < D ? x[j] - mu[j] : 0.0f;
+  float maha = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    float s = 0.0f;
+    if (i < D) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) s = fmaf(U[i * D + j], xm[j], s);
+    }
+    diff[i] = s;
+    maha = fmaf(s, s, maha);
+  }
+  return maha;
+}
+
+__device__ __forceinline__ float component_logpdf(float maha, float log_norm,
+                                                  float dof, int D,
+                                                  bool student_t) {
+  if (student_t)
+    return log_norm - 0.5f * (dof + static_cast<float>(D)) * log1pf(maha / dof);
+  return log_norm - 0.5f * maha;
+}
+
+// streaming weighted log-sum-exp, log sum_k w_k exp(v_k)
+struct WeightedLse {
+  float m = -INFINITY, s = 0.0f;
+  __device__ void add(float v, float w) {
+    if (v > m) {
+      s = s * expf(m - v) + w;
+      m = v;
+    } else {
+      s = fmaf(w, expf(v - m), s);
+    }
+  }
+  __device__ float value() const { return logf(s) + m; }
+};
+
+// mixture log-density of one particle; ``mix`` is the packed layout
+template <int DMAX>
+__device__ float mixture_logpdf(const float* mix, int K, int D, bool student_t,
+                                const float (&x)[DMAX]) {
+  const MixLayout L{K, D};
+  WeightedLse acc;
+  float diff[DMAX];
+  for (int k = 0; k < K; ++k) {
+    const float maha = whiten<DMAX>(mix + L.U() + k * D * D,
+                                    mix + L.mu() + k * D, x, D, diff);
+    acc.add(component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D,
+                             student_t),
+            mix[L.w() + k]);
+  }
+  return acc.value();
+}
+
+template <int DMAX>
+__device__ __forceinline__ void load_particle(const float* xT, long long N,
+                                              long long n, int D,
+                                              float (&x)[DMAX]) {
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) x[i] = i < D ? xT[i * N + n] : 0.0f;
+}
+
+template <int DMAX>
+__device__ __forceinline__ void store_particle(float* xT, long long N,
+                                               long long n, int D,
+                                               const float (&x)[DMAX]) {
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i)
+    if (i < D) xT[i * N + n] = x[i];
+}
+
+// ---------------------------------------------------------------------
+// proposal draw
+// ---------------------------------------------------------------------
+
+// Draw one particle from the mixture: the component by inverse CDF on the
+// TAIL-SUM thresholds cumw[k] = 1 - sum_{j>k} w_j (a dead component has an
+// empty interval and is never drawn), then x = mu + scale * L z with
+// Box-Muller normals z and, for Student-t, scale = sqrt(dof / chi2(dof)).
+template <int DMAX>
+__device__ int propose_particle(const float* mix, int K, int D, bool student_t,
+                                Philox& rng, float (&x)[DMAX]) {
+  const MixLayout L{K, D};
+  const float u = rng.uniform();
+  int lat = 0;
+  for (int k = 0; k < K - 1; ++k) lat += u >= mix[L.cumw() + k] ? 1 : 0;
+
+  float z[DMAX];
+#pragma unroll
+  for (int i = 0; i < DMAX; i += 2) {
+    z[i] = 0.0f;
+    if (i + 1 < DMAX) z[i + 1] = 0.0f;
+    if (i < D) {
+      float z0, z1;
+      rng.normal_pair(z0, z1);
+      z[i] = z0;
+      if (i + 1 < DMAX) z[i + 1] = z1;
+    }
+  }
+  float scale = 1.0f;
+  if (student_t) {
+    const float dof = mix[L.dof() + lat];
+    scale = expf(0.5f * (logf(dof) - log_chi2(dof, rng)));
+  }
+  const float* Lk = mix + L.L() + lat * D * D;
+  const float* mu = mix + L.mu() + lat * D;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    float s = 0.0f;
+    if (i < D) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) s = fmaf(Lk[i * D + j], z[j], s);
+    }
+    x[i] = i < D ? fmaf(scale, s, mu[i]) : 0.0f;
+  }
+  return lat;
+}
+
+// Dispatch a kernel template on DMAX for the runtime dimension D.
+#define PMC_DISPATCH_D(D, ...)                      \
+  do {                                              \
+    if ((D) <= 8) {                                 \
+      constexpr int DMAX = 8;                       \
+      __VA_ARGS__;                                  \
+    } else if ((D) <= 16) {                         \
+      constexpr int DMAX = 16;                      \
+      __VA_ARGS__;                                  \
+    } else if ((D) <= 32) {                         \
+      constexpr int DMAX = 32;                      \
+      __VA_ARGS__;                                  \
+    } else {                                        \
+      return static_cast<int>(cudaErrorInvalidValue); \
+    }                                               \
+  } while (0)
+
+}  // namespace pmc

@@ -1,0 +1,93 @@
+// fused_pmc_stats: every sufficient statistic of one PMC update in one
+// pass over weighted particles xT (D, N), w (N,) -> the flat entry vector
+// of stats.cuh (s0, s0c, t1, sd, lower g per component; sum w, sum w^2,
+// sum w log w).
+//
+// Replaces the Pallas kernel pypmc_tpu/ops/pallas_kernels.py:1150
+// (fused_pmc_stats, body _pmc_stats_kernel).
+//
+// Bound on the H100: per particle it reads D + 1 floats and does the K
+// whitened evaluations (K D (D + 1) / 2 FMAs) plus, in the statistics
+// phase, K (3 + D + D (D + 1) / 2) entries of two multiplies each -- about
+// 2,000 FP32 operations and as many shared-memory reads for 44 bytes at
+// K = 10, D = 10: FP32- and shared-memory-bound, not bandwidth-bound.  No
+// tensor cores: the statistics are K separate (D, D) blocks at D = 10.
+// Design: see stats.cuh.  The TPU kernel accumulated across a sequential
+// grid and formed the whole (K D, K D) Gram matrix; here each block keeps
+// float64 accumulators of only the K lower-triangular diagonal blocks, and
+// a second kernel reduces the per-block rows in a fixed order.
+#include "stats.cuh"
+
+namespace pmc {
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
+                 const float* __restrict__ mix, double* __restrict__ partial,
+                 long long N, int K, int D, int student_t, int dof_stats) {
+  extern __shared__ float smem[];
+  const StatsLayout S{K, D};
+  const int n_mix = MixLayout{K, D}.eval_size();
+  float* tile = smem + n_mix;
+  double* acc = reinterpret_cast<double*>(
+      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_mix));
+  uint16_t* table = reinterpret_cast<uint16_t*>(acc + S.entries());
+  load_to_shared(smem, mix, n_mix);
+  stats_setup(S, tile, acc, table);
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const long long n_tiles = (N + kThreads - 1) / kThreads;
+  for (long long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long long n = tile_i * kThreads + t;
+    float x[DMAX];
+    float w = 0.0f;
+    if (n < N) {
+      load_particle<DMAX>(xT, N, n, D, x);
+      w = wts[n];
+    } else {
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+    }
+    const float log_q = stats_evaluate<DMAX>(smem, S, student_t != 0, x, tile, t);
+    stats_finish(smem, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
+    __syncthreads();
+    stats_accumulate(S, tile, acc, table);
+    __syncthreads();
+  }
+  stats_write_partial(S, acc, partial);
+}
+
+}  // namespace pmc
+
+// partial: (n_blocks, S) float64 scratch; stats: (S,) float32 output
+extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
+                                   const float* mix, double* partial,
+                                   float* stats, long long N, int K, int D,
+                                   int student_t, int dof_stats, int n_blocks,
+                                   void* stream) {
+  using namespace pmc;
+  const StatsLayout S{K, D};
+  const size_t smem = stats_smem_bytes(S, MixLayout{K, D}.eval_size());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PMC_DISPATCH_D(D, {
+    cudaFuncSetAttribute(pmc_stats_kernel<DMAX>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    pmc_stats_kernel<DMAX><<<n_blocks, kThreads, smem, s>>>(
+        xT, w, mix, partial, N, K, D, student_t, dof_stats);
+  });
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_reduce(partial, stats, n_blocks, S.entries(), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// shared memory the statistics kernels ask for (checked against the
+// Python-side limit in ops/_build.py)
+extern "C" long long pmc_stats_smem_bytes(int K, int Kt, int D, int is_step) {
+  using namespace pmc;
+  const int params = is_step ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()
+                             : MixLayout{K, D}.eval_size();
+  return static_cast<long long>(stats_smem_bytes(StatsLayout{K, D}, params));
+}

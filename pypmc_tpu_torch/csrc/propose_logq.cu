@@ -1,0 +1,70 @@
+// fused_propose_logq: draw N particles from a Gaussian or Student-t mixture
+// and evaluate the proposal log-density (and optionally a mixture target's)
+// on them -> xT (D, N), latent (N,), log_q (N,) [, log_p (N,)].
+//
+// Replaces the Pallas kernel pypmc_tpu/ops/pallas_kernels.py:924
+// (fused_propose_logq, body _propose_logq_kernel, _propose_tile).
+//
+// Bound on the H100: it reads nothing per particle and writes D + 3 words;
+// the work is the draw (Philox, Box-Muller, for Student-t a Marsaglia-Tsang
+// loop: transcendentals on the SFU) plus (K + K_target) whitened
+// evaluations at D (D + 1) / 2 FMAs each -- FP32-FMA- and SFU-bound, with
+// the store stream far below the card's bandwidth.  No tensor cores at
+// D = 10.  Design: one thread per particle with a Philox stream keyed by the
+// seed and counted by the particle's global index (so the samples do not
+// depend on the launch configuration), the sample kept in registers and
+// evaluated there (it is written to device memory once and never re-read),
+// both mixtures' operands in shared memory.
+#include "common.cuh"
+
+namespace pmc {
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+propose_logq_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
+                    const float* __restrict__ tmix, float* __restrict__ xT,
+                    int* __restrict__ latent, float* __restrict__ log_q,
+                    float* __restrict__ log_p, long long N, int K, int Kt, int D,
+                    int student_t, int t_student_t) {
+  extern __shared__ float smem[];
+  const int n_mix = MixLayout{K, D}.size();
+  float* tsm = smem + n_mix;
+  load_to_shared(smem, mix, n_mix);
+  if (log_p != nullptr) load_to_shared(tsm, tmix, MixLayout{Kt, D}.eval_size());
+  __syncthreads();
+  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
+    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    float x[DMAX];
+    latent[n] = propose_particle<DMAX>(smem, K, D, student_t != 0, rng, x);
+    store_particle<DMAX>(xT, N, n, D, x);
+    log_q[n] = mixture_logpdf<DMAX>(smem, K, D, student_t != 0, x);
+    if (log_p != nullptr)
+      log_p[n] = mixture_logpdf<DMAX>(tsm, Kt, D, t_student_t != 0, x);
+  }
+}
+
+}  // namespace pmc
+
+// tmix/log_p are null without a target
+extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
+                                      const float* mix, const float* tmix,
+                                      float* xT, int* latent, float* log_q,
+                                      float* log_p, long long N, int K, int Kt,
+                                      int D, int student_t, int t_student_t,
+                                      int n_blocks, void* stream) {
+  using namespace pmc;
+  size_t floats = MixLayout{K, D}.size();
+  if (log_p != nullptr) floats += MixLayout{Kt, D}.eval_size();
+  const size_t smem = sizeof(float) * floats;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PMC_DISPATCH_D(D, {
+    cudaFuncSetAttribute(propose_logq_kernel<DMAX>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    propose_logq_kernel<DMAX><<<n_blocks, kThreads, smem, s>>>(
+        s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
+        t_student_t);
+  });
+  return static_cast<int>(cudaGetLastError());
+}

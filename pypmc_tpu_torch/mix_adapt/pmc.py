@@ -1,0 +1,345 @@
+"""Population Monte Carlo (PMC) mixture updates, functional core.
+
+Counterpart of the functional core of :mod:`pypmc_tpu.mix_adapt.pmc` (the
+reference's ``pypmc/mix_adapt/pmc.pyx``): the Rao-Blackwellized
+responsibilities, the [Cap+08] eq. (14) sufficient statistics, the Student-t
+gamma pass and the [HOD12] eq. (16) degree-of-freedom update over stacked
+mixture parameters.  Component death is a validity mask; the dof root-solve
+is a fixed-iteration bisection over all components at once.
+
+Every reduction over the particle axis passes through a ``reduce`` hook,
+the counterpart of the JAX package's ``psum``: the identity in one process.
+"""
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .. import _rng
+from ..density import core as _core
+from ..ops import kernels as _k
+from ..ops.lse import logsumexp, regularize
+
+__all__ = ["calculate_rho_rb", "calculate_rho_rb_T", "pmc_update", "PMCResult",
+           "pmc_step_mixture_target", "pmc_log_likelihood"]
+
+
+def _identity(x):
+    return x
+
+
+def calculate_rho_rb_T(params: _core.MixtureParams, samples_T):
+    """Rao-Blackwellized responsibilities ``rho (K, N)`` for transposed
+    particles ``samples_T (D, N)``: ``rho[k,n] = w_k q_k(x_n) / q(x_n)``,
+    computed in log space; exactly zero for dead components."""
+    logpdfs = _core.component_logpdfs(params, samples_T.T)  # (N, K)
+    log_denom = logsumexp(logpdfs, params.weights, axis=-1)
+    rho = torch.exp(logpdfs - log_denom[:, None]) * params.weights[None, :]
+    return torch.where(params.weights[None, :] > 0, rho, torch.zeros_like(rho)).T
+
+
+def calculate_rho_rb(params: _core.MixtureParams, samples):
+    """Row-major variant of :func:`calculate_rho_rb_T`: ``rho (N, K)``."""
+    return calculate_rho_rb_T(params, samples.T).T
+
+
+def _rho_non_rb_T(params: _core.MixtureParams, latent, n_components: int):
+    """One-hot responsibilities (K, N) from latent variables
+    (``pmc.pyx:45-51``), zeroed for dead components."""
+    ks = torch.arange(n_components, device=latent.device)[:, None]
+    onehot = (latent[None, :] == ks).to(params.weights.dtype)
+    return torch.where(params.weights[:, None] > 0, onehot, torch.zeros_like(onehot))
+
+
+def _cov_sums_T(samples_T, c_T, mu):
+    """``(K, D, D)`` centered second-moment sums
+    ``S_k = sum_n c_kn (x_n - mu_k)(x_n - mu_k)^T``, one component at a
+    time so that only a ``(D, N)`` intermediate exists."""
+    return torch.stack([
+        torch.einsum("n,in,jn->ij", c_k, samples_T - mu_k[:, None],
+                     samples_T - mu_k[:, None])
+        for c_k, mu_k in zip(c_T, mu)])
+
+
+_FUSED_MODES = ("auto", "dense", "blocked", "off")
+
+
+def _check_fused_arg(fused):
+    """Reject a mistyped ``fused=`` value instead of treating it as
+    ``"auto"``."""
+    if fused not in _FUSED_MODES:
+        raise ValueError("fused must be one of %s, got %r" % (_FUSED_MODES, fused))
+
+
+def _check_fused_feasible(fused, fused_mode, requirements):
+    """A forced ``fused="dense"`` that fails its gate must not silently
+    reroute onto the unfused path, and the K-blocked kernels are not ported
+    yet."""
+    if fused == "blocked":
+        raise NotImplementedError(
+            "fused='blocked': the K-blocked kernels are not ported to CUDA yet")
+    if fused == "dense" and fused_mode != fused:
+        raise ValueError(
+            "fused=%r was forced but is infeasible for these operands; the "
+            "%r kernel requires %s." % (fused, fused, requirements))
+
+
+class PMCResult(NamedTuple):
+    """Result of one :func:`pmc_update`.
+
+    ``rho`` holds the ``(K, N)`` responsibilities, or None when the update
+    ran on the fused single-pass path (they are reduced per tile and never
+    formed); :func:`calculate_rho_rb_T` on the PRE-update parameters
+    recomputes them."""
+
+    params: _core.MixtureParams
+    rho: Optional[torch.Tensor]
+    updated_ok: torch.Tensor     # (K,) bool; updated components that stayed valid
+    live: torch.Tensor           # (K,) bool; live components before the update
+
+
+def pmc_update(
+    params: _core.MixtureParams,
+    samples,
+    weights=None,
+    latent=None,
+    rb: bool = True,
+    mincount: int = 0,
+    dof_solver_steps: int = 100,
+    mindof: float = 1e-5,
+    maxdof: float = 1e3,
+    reduce: Optional[Callable] = None,
+    transposed: bool = False,
+    fused: str = "auto",
+) -> PMCResult:
+    """One (M-)PMC update of a Gaussian or Student-t mixture ([Cap+08] eq.
+    14, [HOD12] for the dof).
+
+    :param params: stacked mixture parameters (Gaussian iff ``params.dof``
+        is None).
+    :param samples: ``(N, D)`` samples drawn from the current mixture, or
+        ``(D, N)`` with ``transposed=True``.
+    :param weights: ``(N,)`` unnormalized importance weights, or None for
+        equal weights.
+    :param latent: ``(N,)`` int indices of the generating components, or
+        None (requires ``rb=True``).
+    :param rb: Rao-Blackwellized responsibilities (True) or one-hot from
+        ``latent`` (False).
+    :param mincount: kill components that generated fewer than this many
+        samples (requires ``latent``).
+    :param dof_solver_steps: bisection iterations for the Student-t dof
+        update; 0 disables the dof update.
+    :param mindof, maxdof: search interval for the dof root-solve.
+    :param reduce: sum of a statistic over all particle shards (the JAX
+        package's ``psum``); None is the identity of one process.
+    :param transposed: whether ``samples`` is ``(D, N)``.
+    :param fused: ``"auto"`` / ``"dense"`` run every statistic in one pass
+        (kernel ``fused_pmc_stats`` on CUDA float32, its plain version on
+        the CPU; ``rb=True`` only), ``"off"`` the unfused tensor path;
+        ``"blocked"`` raises ``NotImplementedError``.
+    """
+    reduce = _identity if reduce is None else reduce
+    samples_T = samples if transposed else samples.T
+    samples_T = samples_T.contiguous()
+    dim, N = samples_T.shape
+    K = params.K
+    dtype = samples_T.dtype
+
+    if weights is None:
+        w = torch.ones((N,), dtype=dtype, device=samples_T.device)
+        weight_normalization = reduce(torch.tensor(float(N), dtype=dtype,
+                                                   device=samples_T.device))
+    else:
+        w = weights.to(dtype).contiguous()
+        weight_normalization = reduce(torch.sum(w))
+
+    live = params.weights > 0
+    if latent is not None and mincount > 0:
+        count = reduce(torch.bincount(latent.long(), minlength=K))
+        live = live & (count >= mincount)
+
+    _check_fused_arg(fused)
+    dof_stats = params.is_student_t and bool(dof_solver_steps)
+    fused_mode = "dense" if fused in ("auto", "dense") and rb else None
+    _check_fused_feasible(fused, fused_mode, "rb=True")
+
+    if fused_mode:
+        # one pass: responsibilities, gamma and every statistic per tile;
+        # second moments arrive in whitened coordinates
+        stats = _k.fused_pmc_stats(samples_T, w, _core._kernel_operands(params),
+                                   dof_stats)
+        alpha, mu, cov, const = _moments_from_whitened_stats(
+            params, stats, weight_normalization, reduce, dof_stats)
+        rho = None
+    else:
+        if rb:
+            rho = calculate_rho_rb_T(params, samples_T)
+        else:
+            rho = _rho_non_rb_T(params, latent, K)
+
+        wrho = w[None, :] * rho
+        alpha_unnorm = reduce(torch.sum(wrho, dim=1))
+        inv_unnorm_alpha = 1.0 / regularize(alpha_unnorm)
+        alpha = alpha_unnorm / weight_normalization
+
+        if params.is_student_t:
+            # gamma pass with the OLD parameters (``pmc.pyx:601-610``)
+            maha_old = _core.mahalanobis_all_T(params, samples_T)
+            nu = params.dof[:, None]
+            gamma = (nu + dim) / (nu + maha_old)
+            c_mu = wrho * gamma
+            mu_norm = 1.0 / regularize(reduce(torch.sum(c_mu, dim=1)))
+            mu = reduce(c_mu @ samples_T.T) * mu_norm[:, None]
+            cov = reduce(_cov_sums_T(samples_T, c_mu, mu)) * inv_unnorm_alpha[:, None, None]
+        else:
+            mu = reduce(wrho @ samples_T.T) * inv_unnorm_alpha[:, None]
+            cov = reduce(_cov_sums_T(samples_T, wrho, mu)) * inv_unnorm_alpha[:, None, None]
+
+        const = None
+        if dof_stats:
+            nu_old = params.dof[:, None]
+            b = maha_old
+            xi = rho * (torch.log(0.5 * (b + nu_old))
+                        - torch.special.digamma(0.5 * (dim + nu_old))) \
+                + (1.0 - rho) * (torch.log(0.5 * nu_old)
+                                 - torch.special.digamma(0.5 * nu_old))
+            delta = rho * (dim + nu_old) / (b + nu_old) + (1.0 - rho)
+            const = 1.0 - reduce((xi + delta) @ w) / weight_normalization
+
+    new_params, ok = _masked_update(params, alpha, mu, cov, const, live,
+                                    dof_solver_steps, mindof, maxdof)
+    return PMCResult(params=new_params, rho=rho, updated_ok=ok, live=live)
+
+
+def _masked_update(params, alpha, mu, cov, const, live, dof_solver_steps,
+                   mindof, maxdof):
+    """Solve the dofs (when the dof-condition constant ``const`` is given),
+    zero the weights of components that are not ``live``, and apply the
+    update with the PSD-validity fallback of
+    :func:`~pypmc_tpu_torch.density.core.update_masked`."""
+    new_dofs = params.dof
+    if const is not None:
+        new_dofs = _solve_dofs(const, params.dof, dof_solver_steps, mindof, maxdof)
+    new_weights = torch.where(live, alpha, torch.zeros_like(alpha))
+    return _core.update_masked(params, mu, cov, new_weights, new_dofs=new_dofs,
+                               update_mask=live)
+
+
+def _moments_from_whitened_stats(params, stats, weight_normalization, reduce,
+                                 dof_stats):
+    """Map the fused statistics (whitened coordinates) to the [Cap+08] eq.
+    (14) moment updates and the [HOD12] dof-condition constant through the
+    known Cholesky factors -- exact linear algebra, no extra particle pass."""
+    dtype = params.means.dtype
+    alpha_unnorm = reduce(stats["s0"].to(dtype))
+    s0c = reduce(stats["s0c"].to(dtype))
+    sd = reduce(stats["sd"].to(dtype))
+    g = reduce(stats["g"].to(dtype))
+    inv_unnorm_alpha = 1.0 / regularize(alpha_unnorm)
+    alpha = alpha_unnorm / weight_normalization
+    d_shift = (params.chol @ sd[:, :, None])[:, :, 0] / regularize(s0c)[:, None]
+    mu = params.means + d_shift
+    sxx = params.chol @ g @ params.chol.transpose(1, 2)
+    cov = (sxx - s0c[:, None, None] * d_shift[:, None, :] * d_shift[:, :, None]) \
+        * inv_unnorm_alpha[:, None, None]
+    const = None
+    if dof_stats:
+        nu_old = params.dof
+        c2 = torch.log(0.5 * nu_old) - torch.special.digamma(0.5 * nu_old) + 1.0
+        sxd = reduce(stats["t1"].to(dtype)) + c2 * (weight_normalization - alpha_unnorm)
+        const = 1.0 - sxd / weight_normalization
+    return alpha, mu, cov, const
+
+
+def _solve_dofs(const, old_dofs, dof_solver_steps, mindof, maxdof):
+    """Per-component [HOD12] eq. (16) first-order condition solved by
+    fixed-iteration bisection over all K components at once (the condition
+    is monotone decreasing in nu); brackets without a sign change clamp to
+    the interval ends (``pmc.pyx:700-710``)."""
+    def condition(nu):
+        return const + torch.log(0.5 * nu) - torch.special.digamma(0.5 * nu)
+
+    lo = torch.full_like(const, mindof)
+    hi = torch.full_like(const, maxdof)
+    f_lo, f_hi = condition(lo), condition(hi)
+    for _ in range(dof_solver_steps):
+        mid = 0.5 * (lo + hi)
+        go_right = condition(mid) > 0     # decreasing: root right of mid
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    root = 0.5 * (lo + hi)
+    root = torch.where(f_lo < 0, torch.full_like(root, mindof), root)
+    root = torch.where(f_hi > 0, torch.full_like(root, maxdof), root)
+    return torch.where(torch.isfinite(root), root, old_dofs)
+
+
+def pmc_step_mixture_target(
+    params: _core.MixtureParams,
+    target_params: _core.MixtureParams,
+    key,
+    n: int,
+    dof_solver_steps: int = 100,
+    mindof: float = 1e-5,
+    maxdof: float = 1e3,
+    reduce: Optional[Callable] = None,
+    fused: str = "auto",
+):
+    """One complete (M-)PMC step against a MIXTURE target -- propose,
+    evaluate proposal and target, weight, Rao-Blackwellized
+    responsibilities, gamma pass and every sufficient statistic -- in one
+    pass: kernel ``fused_is_pmc_step`` on CUDA float32, its plain version on
+    the CPU.  ``fused="off"`` composes :func:`~pypmc_tpu_torch.density.core.propose_logq_T`
+    with :func:`pmc_update` (same math, two passes); ``"blocked"`` raises
+    ``NotImplementedError``.
+
+    ``key`` is an int seed or a ``torch.Generator`` (advanced by two seed
+    words).
+
+    :returns: ``(result, samples_T (D, n), weights (n,), latent (n,),
+        sw (3,))`` with ``sw`` the global ``[sum w, sum w^2, sum w log w]``.
+    """
+    reduce = _identity if reduce is None else reduce
+    _check_fused_arg(fused)
+    dof_stats = params.is_student_t and bool(dof_solver_steps)
+    fused_mode = "dense" if fused in ("auto", "dense") else None
+    _check_fused_feasible(fused, fused_mode, "a mixture target")
+
+    if not fused_mode:
+        samples_T, latent, log_q, log_p = _core.propose_logq_T(
+            params, key, n, target_params)
+        w = torch.exp(log_p - log_q)
+        result = pmc_update(
+            params, samples_T, w, rb=True,
+            dof_solver_steps=dof_solver_steps if params.is_student_t else 0,
+            mindof=mindof, maxdof=maxdof, reduce=reduce, transposed=True)
+        sw = reduce(torch.stack([w.sum(), (w * w).sum(),
+                                 torch.special.xlogy(w, w).sum()]))
+        return result, samples_T, w, latent, sw
+
+    samples_T, latent, w, stats = _k.fused_is_pmc_step(
+        _rng.seed_words(key), _core._kernel_operands(params),
+        _core._kernel_operands(target_params), n, dof_stats)
+    sw = reduce(stats["sw"].to(params.means.dtype))
+    live = params.weights > 0
+    alpha, mu, cov, const = _moments_from_whitened_stats(
+        params, stats, sw[0], reduce, dof_stats)
+    new_params, ok = _masked_update(params, alpha, mu, cov, const, live,
+                                    dof_solver_steps, mindof, maxdof)
+    result = PMCResult(params=new_params, rho=None, updated_ok=ok, live=live)
+    return result, samples_T, w, latent, sw
+
+
+def pmc_log_likelihood(params: _core.MixtureParams, samples,
+                       normalized_weights=None, reduce: Optional[Callable] = None,
+                       transposed: bool = False):
+    """Log likelihood according to eq. (5) in [Cap+08] (``pmc.pyx:371-391``):
+    the weighted mean of ``log q(x_n)``."""
+    reduce = _identity if reduce is None else reduce
+    if transposed:
+        log_q = _core.mixture_logpdf_T(params, samples)
+    else:
+        log_q = _core.mixture_logpdf(params, samples)
+    if normalized_weights is None:
+        return reduce(torch.sum(log_q)) / reduce(torch.tensor(
+            float(log_q.shape[0]), dtype=log_q.dtype, device=log_q.device))
+    return reduce(torch.sum(log_q * normalized_weights))

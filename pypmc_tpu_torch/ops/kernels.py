@@ -1,0 +1,376 @@
+"""The four CUDA kernels of the PMC main path, each beside its plain
+PyTorch version.
+
+============================  =====================================  ==========================
+wrapper                       CUDA source                            replaces (Pallas, TPU)
+============================  =====================================  ==========================
+:func:`fused_logq`            ``csrc/logq.cu``                       ``pallas_kernels.py:788``
+:func:`fused_propose_logq`    ``csrc/propose_logq.cu``               ``pallas_kernels.py:924``
+:func:`fused_pmc_stats`       ``csrc/pmc_stats.cu``                  ``pallas_kernels.py:1150``
+:func:`fused_is_pmc_step`     ``csrc/is_pmc_step.cu``                ``pallas_kernels.py:1336``
+============================  =====================================  ==========================
+
+Dispatch has one gate, :func:`use_kernel`: a float32 tensor on CUDA goes to
+the kernel, a tensor on the CPU to the plain version, and a CUDA tensor of
+any other dtype raises ``TypeError``.  A CUDA tensor never reaches a plain
+version through a wrapper, and a failed build or launch raises.  The plain
+versions (``plain_*``) compute the same outputs with tensor operations in
+any dtype; the CPU path of the whole package runs through them, and on the
+card the tests and ``chip_smoke.py`` compare the kernels with them.  The
+random kernels draw from a Philox stream per particle; their plain versions
+draw from a ``torch.Generator`` seeded with the same two words, so the two
+agree in distribution, not in value.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+import dataclasses
+import math
+
+import torch
+
+from .. import _rng
+from . import _build
+from .lse import logsumexp
+from .random import student_t_scale
+
+__all__ = ["MixtureOperands", "use_kernel", "fused_logq", "fused_propose_logq",
+           "fused_pmc_stats", "fused_is_pmc_step", "plain_logq",
+           "plain_propose", "plain_propose_logq", "plain_pmc_stats",
+           "plain_is_pmc_step", "launch_counts", "reset_launch_counts"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtureOperands:
+    """A mixture packed for the kernels: one flat buffer laid out as
+    ``MixLayout`` in ``csrc/common.cuh``::
+
+        mu (K, D) | U = L^{-1} (K, D, D) | log_norm (K) | weights (K) |
+        dof (K) | psi = digamma((D + dof) / 2) (K) | L (K, D, D) | cumw (K)
+
+    (``dof`` is 1 and ``psi`` 0 for a Gaussian mixture; ``cumw`` holds the
+    tail-sum inverse-CDF thresholds).  Built by
+    :func:`pypmc_tpu_torch.density.core._kernel_operands`."""
+
+    packed: torch.Tensor
+    K: int
+    dim: int
+    student_t: bool
+
+    def fields(self):
+        """Views of the packed buffer by name."""
+        K, D = self.K, self.dim
+        sizes = [("mu", (K, D)), ("U", (K, D, D)), ("log_norm", (K,)),
+                 ("weights", (K,)), ("dof", (K,)), ("psi", (K,)),
+                 ("L", (K, D, D)), ("cumw", (K,))]
+        out, off = {}, 0
+        for name, shape in sizes:
+            size = math.prod(shape)
+            out[name] = self.packed[off:off + size].view(shape)
+            off += size
+        return out
+
+
+def use_kernel(*tensors) -> bool:
+    """The one dispatch gate: True for float32 tensors on CUDA (the kernel
+    runs), False for tensors on the CPU (the plain version runs).  Raises
+    ``TypeError`` for a CUDA tensor of another dtype or another device type,
+    and ``ValueError`` for tensors on different devices."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError("tensors on different devices: %s"
+                         % sorted({str(t.device) for t in tensors}))
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise TypeError("no kernels for device type %r" % device.type)
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError("the CUDA kernels take float32 tensors, got %s"
+                            % t.dtype)
+    return True
+
+
+def _check(t, shape, dtype=torch.float32):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("expected shape %s, got %s" % (tuple(shape), tuple(t.shape)))
+    if t.dtype != dtype:
+        raise TypeError("expected %s, got %s" % (dtype, t.dtype))
+    if not t.is_contiguous():
+        raise ValueError("expected a contiguous tensor")
+
+
+def _check_operands(ops: MixtureOperands):
+    _check(ops.packed, (_build._full_floats(ops.K, ops.dim),))
+
+
+def _blocks(device, n, per_sm):
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-n // _build.THREADS), per_sm * n_sm))
+
+
+def _stats_blocks(device, n, smem):
+    # as many blocks as fit on every SM at once: an SM holds 2048 threads
+    # and 228 KB of shared memory, of which each block also reserves 1 KB
+    per_sm = max(1, min(2048 // _build.THREADS, 228 * 1024 // (smem + 1024)))
+    return _blocks(device, n, per_sm)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError("%s: CUDA error %d at launch" % (name, err))
+
+
+def _entries(K, D):
+    return K * (3 + D + D * (D + 1) // 2) + 3
+
+
+def _unpack_stats(flat, K, D, n_sw):
+    """The kernels' flat statistics vector (``csrc/stats.cuh``) as the
+    dict of :func:`plain_pmc_stats`."""
+    P = 3 + D + D * (D + 1) // 2
+    per = flat[:K * P].view(K, P)
+    rows, cols = torch.tril_indices(D, D, device=flat.device)
+    g = flat.new_zeros((K, D, D))
+    g[:, rows, cols] = per[:, 3 + D:]
+    g[:, cols, rows] = per[:, 3 + D:]
+    return {"s0": per[:, 0], "s0c": per[:, 1], "sd": per[:, 3:3 + D], "g": g,
+            "sw": flat[K * P:K * P + n_sw], "t1": per[:, 2]}
+
+
+# --------------------------------------------------------------------- #
+# plain versions                                                        #
+# --------------------------------------------------------------------- #
+
+def _component_logpdfs_T(xT, f, dim, student_t):
+    """``(diff (K, D, N), maha (K, N), ind (K, N))`` with ``diff = U_k (x
+    - mu_k)`` and ``ind`` the component log-densities."""
+    diff = f["U"] @ (xT[None, :, :] - f["mu"][:, :, None])
+    maha = torch.sum(diff * diff, dim=1)
+    ln = f["log_norm"][:, None]
+    if student_t:
+        nu = f["dof"][:, None]
+        ind = ln - 0.5 * (nu + dim) * torch.log1p(maha / nu)
+    else:
+        ind = ln - 0.5 * maha
+    return diff, maha, ind
+
+
+def plain_logq(xT, ops: MixtureOperands):
+    """Plain version of :func:`fused_logq`."""
+    f = ops.fields()
+    _, _, ind = _component_logpdfs_T(xT, f, ops.dim, ops.student_t)
+    return logsumexp(ind, f["weights"][:, None], axis=0)
+
+
+def plain_propose(gen, ops: MixtureOperands, n: int):
+    """Draw ``n`` particles from the packed mixture with generator ``gen``
+    (on the operands' device): ``(xT (D, n), latent (n,) int32)``.  The
+    component comes from one uniform in [0, 1) against the tail-sum
+    thresholds, so a dead component is never drawn."""
+    f = ops.fields()
+    dtype, device = ops.packed.dtype, ops.packed.device
+    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
+    latent = torch.sum(u[None, :] >= f["cumw"][:-1, None], dim=0,
+                       dtype=torch.int32)
+    z = torch.randn((ops.dim, n), generator=gen, dtype=dtype, device=device)
+    if ops.student_t:
+        z = z * student_t_scale(gen, f["dof"][latent], (n,))[None, :]
+    xT = torch.empty((ops.dim, n), dtype=dtype, device=device)
+    for k in range(ops.K):
+        idx = torch.nonzero(latent == k).squeeze(1)
+        xT[:, idx] = f["mu"][k][:, None] + f["L"][k] @ z[:, idx]
+    return xT, latent
+
+
+def plain_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
+    """Plain version of :func:`fused_propose_logq`."""
+    gen = _rng.device_generator(seed, ops.packed.device)
+    xT, latent = plain_propose(gen, ops, n)
+    log_q = plain_logq(xT, ops)
+    if target is None:
+        return xT, latent, log_q
+    return xT, latent, log_q, plain_logq(xT, target)
+
+
+def plain_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False, n_sw=2):
+    """Plain version of :func:`fused_pmc_stats`: the dict ``s0, s0c (K,)``,
+    ``sd (K, D)``, ``g (K, D, D)``, ``sw (n_sw,)``, ``t1 (K,)``."""
+    f = ops.fields()
+    D = ops.dim
+    diff, maha, ind = _component_logpdfs_T(xT, f, D, ops.student_t)
+    wk = f["weights"][:, None]
+    lse = logsumexp(ind, wk, axis=0)
+    # log-space responsibilities; exactly 0 for a dead component
+    rho = torch.where(wk > 0, torch.exp(ind - lse[None, :]) * wk,
+                      torch.zeros_like(ind))
+    wrho = rho * w[None, :]
+    if ops.student_t:
+        nu = f["dof"][:, None]
+        gamma = (nu + D) / (nu + maha)
+        c = wrho * gamma
+    else:
+        c = wrho
+    cdiff = diff * c[:, None, :]
+    if dof_stats and ops.student_t:
+        brk = torch.log(0.5 * (maha + nu)) - f["psi"][:, None] + gamma
+        t1 = torch.sum(wrho * brk, dim=1)
+    else:
+        t1 = torch.zeros_like(f["weights"])
+    # xlogy(w, w) = w log w, and exactly 0 where w == 0
+    sw = torch.stack([w.sum(), (w * w).sum(), torch.special.xlogy(w, w).sum()])[:n_sw]
+    return {"s0": wrho.sum(1), "s0c": c.sum(1), "sd": cdiff.sum(2),
+            "g": cdiff @ diff.transpose(1, 2), "sw": sw, "t1": t1}
+
+
+def plain_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
+                      n: int, dof_stats=False):
+    """Plain version of :func:`fused_is_pmc_step`."""
+    xT, latent, log_q, log_p = plain_propose_logq(seed, ops, n, target)
+    w = torch.exp(log_p - log_q)
+    return xT, latent, w, plain_pmc_stats(xT, w, ops, dof_stats, n_sw=3)
+
+
+# --------------------------------------------------------------------- #
+# kernel wrappers                                                       #
+# --------------------------------------------------------------------- #
+
+def fused_logq(xT, ops: MixtureOperands):
+    """Mixture log-density ``(N,)`` of transposed particles ``xT (D, N)``
+    (kernel ``csrc/logq.cu``)."""
+    if not use_kernel(xT, ops.packed):
+        return plain_logq(xT, ops)
+    D, N = xT.shape
+    _check(xT, (ops.dim, N))
+    _check_operands(ops)
+    _build.check_limits("fused_logq", ops.K, D)
+    lib = _build.load()
+    out = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_logq(
+            xT.data_ptr(), ops.packed.data_ptr(), out.data_ptr(), N, ops.K, D,
+            int(ops.student_t), _blocks(xT.device, N, 16), _stream(xT.device))
+    _raise_on(err, "fused_logq")
+    fused_logq.launches += 1
+    return out
+
+
+def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
+    """Draw ``n`` particles and evaluate the proposal (and optionally a
+    mixture target) on them: ``(xT (D, n), latent (n,) int32, log_q (n,))``
+    plus ``log_p (n,)`` with a target (kernel ``csrc/propose_logq.cu``).
+    ``seed`` is two 32-bit words."""
+    tensors = [ops.packed] + ([] if target is None else [target.packed])
+    if not use_kernel(*tensors):
+        return plain_propose_logq(seed, ops, n, target)
+    _check_operands(ops)
+    Kt = 0
+    if target is not None:
+        _check_operands(target)
+        if target.dim != ops.dim:
+            raise ValueError("target dimension %d != proposal dimension %d"
+                             % (target.dim, ops.dim))
+        Kt = target.K
+    D, device = ops.dim, ops.packed.device
+    _build.check_limits("fused_propose_logq", ops.K, D, Kt)
+    lib = _build.load()
+    xT = torch.empty((D, n), dtype=torch.float32, device=device)
+    latent = torch.empty((n,), dtype=torch.int32, device=device)
+    log_q = torch.empty((n,), dtype=torch.float32, device=device)
+    log_p = None if target is None else torch.empty_like(log_q)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_propose_logq(
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            None if target is None else target.packed.data_ptr(),
+            xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
+            None if log_p is None else log_p.data_ptr(), n, ops.K, Kt, D,
+            int(ops.student_t), int(target is not None and target.student_t),
+            _blocks(device, n, 16), _stream(device))
+    _raise_on(err, "fused_propose_logq")
+    fused_propose_logq.launches += 1
+    if target is None:
+        return xT, latent, log_q
+    return xT, latent, log_q, log_p
+
+
+def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
+    """Every sufficient statistic of one PMC update in one pass over
+    weighted particles (kernel ``csrc/pmc_stats.cu``); the dict of
+    :func:`plain_pmc_stats` with ``sw (2,) = [sum w, sum w^2]``."""
+    if not use_kernel(xT, w, ops.packed):
+        return plain_pmc_stats(xT, w, ops, dof_stats)
+    D, N = xT.shape
+    _check(xT, (ops.dim, N))
+    _check(w, (N,))
+    _check_operands(ops)
+    _build.check_limits("fused_pmc_stats", ops.K, D)
+    lib = _build.load()
+    S = _entries(ops.K, D)
+    n_blocks = _stats_blocks(xT.device, N, _build.smem_bytes("fused_pmc_stats", ops.K, D))
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
+    flat = torch.empty((S,), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_pmc_stats(
+            xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(),
+            partial.data_ptr(), flat.data_ptr(), N, ops.K, D,
+            int(ops.student_t), int(dof_stats), n_blocks, _stream(xT.device))
+    _raise_on(err, "fused_pmc_stats")
+    fused_pmc_stats.launches += 1
+    return _unpack_stats(flat, ops.K, D, 2)
+
+
+def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
+                      n: int, dof_stats=False):
+    """The particle work of one PMC step against a mixture target in one
+    pass (kernel ``csrc/is_pmc_step.cu``): ``(xT (D, n), latent (n,),
+    w (n,), stats)`` with ``stats`` as :func:`fused_pmc_stats` except
+    ``sw (3,) = [sum w, sum w^2, sum w log w]``."""
+    if not use_kernel(ops.packed, target.packed):
+        return plain_is_pmc_step(seed, ops, target, n, dof_stats)
+    _check_operands(ops)
+    _check_operands(target)
+    if target.dim != ops.dim:
+        raise ValueError("target dimension %d != proposal dimension %d"
+                         % (target.dim, ops.dim))
+    D, device = ops.dim, ops.packed.device
+    _build.check_limits("fused_is_pmc_step", ops.K, D, target.K)
+    lib = _build.load()
+    S = _entries(ops.K, D)
+    n_blocks = _stats_blocks(
+        device, n, _build.smem_bytes("fused_is_pmc_step", ops.K, D, target.K))
+    xT = torch.empty((D, n), dtype=torch.float32, device=device)
+    latent = torch.empty((n,), dtype=torch.int32, device=device)
+    w = torch.empty((n,), dtype=torch.float32, device=device)
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=device)
+    flat = torch.empty((S,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_is_pmc_step(
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            target.packed.data_ptr(), xT.data_ptr(), latent.data_ptr(),
+            w.data_ptr(), partial.data_ptr(), flat.data_ptr(), n, ops.K,
+            target.K, D, int(ops.student_t), int(target.student_t),
+            int(dof_stats), n_blocks, _stream(device))
+    _raise_on(err, "fused_is_pmc_step")
+    fused_is_pmc_step.launches += 1
+    return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
+
+
+_WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step)
+
+
+def reset_launch_counts():
+    """Set every wrapper's launch count to 0."""
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: kernel launches since the last reset}``."""
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+reset_launch_counts()

@@ -1,0 +1,146 @@
+"""pypmc_tpu_torch.mix_adapt.pmc against pypmc_tpu.mix_adapt.pmc in float64
+on identical inputs (the JAX XLA path, ``fused="off"``), and the fused step
+against a mixture target in distribution."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pypmc_tpu.density.core as jcore
+import pypmc_tpu.mix_adapt.pmc as jpmc
+from pypmc_tpu_torch.density import core
+from pypmc_tpu_torch.mix_adapt import pmc
+
+torch.set_num_threads(1)
+
+RTOL64, ATOL64 = 1e-10, 1e-12
+
+
+def mixture(rng, K, D, student_t, dead=False):
+    means = rng.normal(0, 2, (K, D))
+    a = rng.normal(0, 0.4, (K, D, D))
+    covs = np.eye(D)[None] + np.einsum("kij,klj->kil", a, a)
+    w = rng.uniform(0.5, 1.5, K)
+    if dead:
+        w[K // 2] = 0.0
+    dofs = rng.uniform(4, 12, K) if student_t else None
+    jp, _ = jcore.make_mixture(means, covs, w / w.sum(), dofs)
+    return jp, core.params_from_numpy(jp)
+
+
+def assert_params_close(got, ref, rtol=RTOL64, atol=ATOL64):
+    for f, v in core.params_to_numpy(got).items():
+        r = getattr(ref, f)
+        if v is None:
+            assert r is None
+            continue
+        np.testing.assert_allclose(v, np.asarray(r), rtol=rtol, atol=atol, err_msg=f)
+
+
+def test_calculate_rho_rb_matches_jax():
+    rng = np.random.default_rng(0)
+    jp, tp = mixture(rng, 4, 3, True, dead=True)
+    x = rng.normal(0, 3, (500, 3))
+    ref = np.asarray(jpmc.calculate_rho_rb_T(jp, jnp.asarray(x.T)))
+    got = pmc.calculate_rho_rb_T(tp, torch.tensor(x.T.copy())).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=ATOL64)
+    assert np.all(got[2] == 0)
+    np.testing.assert_allclose(pmc.calculate_rho_rb(tp, torch.tensor(x)).numpy(), ref.T,
+                               rtol=RTOL64, atol=ATOL64)
+
+
+@pytest.mark.parametrize("fused", ["auto", "off"])
+@pytest.mark.parametrize("student_t,dead,rb,mincount", [
+    (False, False, True, 0), (True, False, True, 0), (True, True, True, 0),
+    (False, False, False, 0), (True, False, False, 60)])
+def test_pmc_update_matches_jax(student_t, dead, rb, mincount, fused):
+    """``fused="auto"`` on the CPU runs the plain version of fused_pmc_stats
+    (whitened statistics); ``"off"`` the unfused path.  Both must match the
+    JAX XLA path."""
+    if fused == "auto" and not rb:
+        fused = "off"      # the fused statistics are Rao-Blackwellized only
+    rng = np.random.default_rng(1)
+    K, D, N = 4, 3, 2000
+    jp, tp = mixture(rng, K, D, student_t, dead)
+    x = rng.normal(0, 2.5, (D, N))
+    w = rng.exponential(1.0, N)
+    latent = rng.choice(K, size=N, p=np.asarray(jp.weights)).astype(np.int32)
+    ref = jpmc.pmc_update(jp, jnp.asarray(x), jnp.asarray(w), jnp.asarray(latent),
+                          rb=rb, mincount=mincount, transposed=True, fused="off")
+    got = pmc.pmc_update(tp, torch.tensor(x), torch.tensor(w), torch.tensor(latent),
+                         rb=rb, mincount=mincount, transposed=True, fused=fused)
+    assert_params_close(got.params, ref.params)
+    np.testing.assert_array_equal(got.live.numpy(), np.asarray(ref.live))
+    np.testing.assert_array_equal(got.updated_ok.numpy(), np.asarray(ref.updated_ok))
+    if dead:
+        assert float(got.params.weights[K // 2]) == 0.0
+
+
+def test_pmc_update_unweighted_row_major():
+    rng = np.random.default_rng(2)
+    jp, tp = mixture(rng, 3, 2, False)
+    x = rng.normal(0, 2, (700, 2))
+    ref = jpmc.pmc_update(jp, jnp.asarray(x), fused="off")
+    got = pmc.pmc_update(tp, torch.tensor(x))
+    assert_params_close(got.params, ref.params)
+    assert got.rho is None
+
+
+def test_solve_dofs_matches_jax():
+    const = np.array([-0.3, -0.02, -1e-4, 0.5, -5.0])
+    old = np.array([3.0, 4.0, 5.0, 6.0, 7.0])
+    ref = np.asarray(jpmc._solve_dofs(jnp.asarray(const), jnp.asarray(old), 100,
+                                      1e-5, 1e3, jnp.float64))
+    got = pmc._solve_dofs(torch.tensor(const), torch.tensor(old), 100, 1e-5, 1e3).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=ATOL64)
+    assert got[3] == 1e3      # no sign change: clamped to the interval end
+
+
+def test_fused_arguments():
+    rng = np.random.default_rng(3)
+    _, tp = mixture(rng, 2, 2, False)
+    _, tt = mixture(rng, 2, 2, False)
+    x = torch.tensor(rng.normal(size=(2, 50)))
+    with pytest.raises(ValueError, match="fused must be"):
+        pmc.pmc_update(tp, x, transposed=True, fused="fast")
+    with pytest.raises(NotImplementedError):
+        pmc.pmc_update(tp, x, transposed=True, fused="blocked")
+    with pytest.raises(ValueError, match="infeasible"):
+        pmc.pmc_update(tp, x, latent=torch.zeros(50, dtype=torch.int32), rb=False,
+                       transposed=True, fused="dense")
+    with pytest.raises(NotImplementedError):
+        pmc.pmc_step_mixture_target(tp, tt, 0, 100, fused="blocked")
+
+
+@pytest.mark.parametrize("student_t", [True, False])
+def test_step_mixture_target_fused_matches_two_pass(student_t):
+    """The plain fused step and the two-pass composition (``fused="off"``)
+    draw the same particles from the same seed, so their updates agree."""
+    rng = np.random.default_rng(4)
+    _, tp = mixture(rng, 3, 4, student_t, dead=True)
+    _, tt = mixture(rng, 2, 4, False)
+    a = pmc.pmc_step_mixture_target(tp, tt, 9, 4001)
+    b = pmc.pmc_step_mixture_target(tp, tt, 9, 4001, fused="off")
+    torch.testing.assert_close(a[1], b[1], rtol=0, atol=0)
+    torch.testing.assert_close(a[2], b[2], rtol=1e-12, atol=0)
+    torch.testing.assert_close(a[4], b[4], rtol=1e-10, atol=0)
+    for f in ("means", "cov", "weights"):
+        torch.testing.assert_close(getattr(a[0].params, f), getattr(b[0].params, f),
+                                   rtol=1e-8, atol=1e-10)
+    # the dead component is never drawn and stays dead
+    assert not (a[3] == 1).any()
+    assert float(a[0].params.weights[1]) == 0.0
+
+
+def test_pmc_log_likelihood_matches_jax():
+    rng = np.random.default_rng(5)
+    jp, tp = mixture(rng, 3, 3, True)
+    x = rng.normal(0, 2, (3, 333))
+    w = rng.dirichlet(np.ones(333))
+    for nw in (None, w):
+        ref = float(jpmc.pmc_log_likelihood(jp, jnp.asarray(x), None if nw is None
+                                            else jnp.asarray(nw), transposed=True))
+        got = float(pmc.pmc_log_likelihood(tp, torch.tensor(x), None if nw is None
+                                           else torch.tensor(nw), transposed=True))
+        np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=ATOL64)
