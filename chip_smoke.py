@@ -6,25 +6,44 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the four CUDA kernels from ``pypmc_tpu_torch/csrc``;
+2. build: the seven CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once), and each launcher's shared memory
+   against ``ops/_build.py``'s formula;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the flagship shapes (K=10 Student-t proposal, K_target=2, D=10,
-   N=2^20) and at the edges (K=1, D=1, D=7, odd N, a dead component,
-   Gaussian and Student-t proposal and target).  The random kernels are
-   checked on their own samples: the plain version recomputes every
-   deterministic output from them, and the samples' moments, component
-   frequencies, seed determinism and dead components are tested;
+   the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
+   (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
+   and Student-t, lower and upper ``fused_maha`` operands), and past the
+   register kernels (D=40 and D=128, the looped instantiation) and past
+   shared memory (operands read from device memory: K=60, D=32 and K=1,
+   D=128).  The random
+   kernels are checked on their own samples: the plain version recomputes
+   every deterministic output from them, and the samples' moments,
+   component frequencies, seed determinism and dead components are tested;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
    two runs;
-5. times: each kernel and its plain version, with CUDA events.
+5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
+   configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
+   pruning, one iteration against its float64 plain version, the
+   ``examples/variational.py`` fit and a ``VBMerge`` of
+   ``examples/mixture_reduction.py``'s 400 components, with the launch
+   counts read around each;
+6. gate: the size gate routes as the JAX package does.  A K=30, D=10
+   Student-t ``pmc_update`` (K*D > 128) runs its unfused path through
+   ``fused_rho`` and ``fused_maha`` and matches the float64 update, and a
+   forced ``fused="dense"`` raises; a D=40 ``mixture_logpdf_T`` runs
+   ``fused_logq`` and a K=400, D=10 one its unfused path, each against
+   float64; a K=400 update of 2^22 particles, where the JAX package elects
+   its K-blocked kernel, raises;
+7. times: each kernel and its plain version, with CUDA events.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
+import copy
 import json
 import math
 import re
@@ -36,6 +55,7 @@ import numpy as np
 
 N_FLAGSHIP = 1 << 20
 N_ODD = 1_000_003
+N_WIDE = 100_003        # the wide cases: a plain version's (K, D, N) float64 grows with K D
 N_SLICE = 10_000_000
 STEPS = 10
 N_PLAIN_MAX = 1 << 22   # a plain version's (K D, N) intermediates grow with N
@@ -48,12 +68,21 @@ SOURCES = {
                         "pypmc_tpu/ops/pallas_kernels.py:1150"),
     "fused_is_pmc_step": ("pypmc_tpu_torch/csrc/is_pmc_step.cu",
                           "pypmc_tpu/ops/pallas_kernels.py:1336"),
+    "fused_maha": ("pypmc_tpu_torch/csrc/maha.cu", "pypmc_tpu/ops/pallas_kernels.py:858"),
+    "fused_rho": ("pypmc_tpu_torch/csrc/rho.cu", "pypmc_tpu/ops/pallas_kernels.py:826"),
+    "fused_vb_estep": ("pypmc_tpu_torch/csrc/vb_estep.cu",
+                       "pypmc_tpu/ops/pallas_kernels.py:1493"),
 }
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
-# the kernel's own float32 rounding
+# the kernel's own float32 rounding.  "maha": D-term FP32 dot products,
+# ~D eps of the distance; "rho": exp of a log-density difference good to
+# "log"'s 2e-3 at the far tail; "vb": a VB iteration's statistics, means,
+# scatter matrices and bound, float32 particle work reduced in float64
 TOL = {"log": (2e-3, 1e-5), "w": (0.0, 1e-3), "stats": (1e-6, 1e-4),
-       "update": (1e-4, 1e-3), "dof": (0.0, 1e-2)}
+       "update": (1e-4, 1e-3), "dof": (0.0, 1e-2), "maha": (1e-5, 1e-5),
+       "rho": (2e-3, 0.0), "vb": (0.0, 1e-5)}
+VB_N, VB_K, VB_D, VB_ITERS = 1 << 22, 10, 10, 50
 
 
 class SmokeFailure(Exception):
@@ -178,9 +207,7 @@ def check_samples(name, xT, latent, arrs, report):
     xc = x - m[:, None]
     c = xc @ xc.T / N
     se_m = np.sqrt(np.diag(c) / N)
-    prod = xc[:, None, :] * xc[None, :, :] if x.shape[0] <= 10 else None
-    se_c = (prod.std(axis=2) / math.sqrt(N) if prod is not None
-            else np.sqrt(np.outer(np.diag(c), np.diag(c)) * 3.0 / N))
+    se_c = np.stack([(xc[i] * xc).std(axis=1) for i in range(x.shape[0])]) / math.sqrt(N)
     zm = float(np.max(np.abs(m - mean) / se_m))
     zc = float(np.max(np.abs(c - cov) / se_c))
     print("  %-34s mean %.2f sigma  cov %.2f sigma" % (name + " moments", zm, zc))
@@ -205,6 +232,11 @@ def kernel_case(case, device, report):
     rng = np.random.default_rng(seed)
     arrs = random_mixture(rng, K, D, student, dead)
     tarrs = random_mixture(rng, Kt, D, t_student, spread=1.0)
+    if D > 32:
+        # a target near the proposal, so that log p - log q stays within
+        # float32's exponent range in many dimensions
+        tarrs = (arrs[0][:Kt] + 0.1, arrs[1][:Kt] * 1.2, np.full(Kt, 1.0 / Kt, np.float32),
+                 None if not t_student else np.full(Kt, 10.0, np.float32))
     params, target = make_params(arrs, device), make_params(tarrs, device)
     ops, tops = core._kernel_operands(params), core._kernel_operands(target)
     ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
@@ -263,16 +295,108 @@ KERNEL_CASES = [
     (1, 2, 5, N_ODD, False, False, False, 4),
     (4, 2, 7, N_ODD, True, True, True, 5),
     (3, 1, 1, N_FLAGSHIP, False, True, False, 6),
+    (2, 2, 40, N_WIDE, False, True, False, 7),
+    # the statistics kernels' operands in device memory
+    (1, 1, 128, N_WIDE, False, False, False, 8),
 ]
 
 
-def phase_kernels(device, cases):
+def vb_operands(params):
+    """The operands the VB E-step would give this mixture: the upper
+    triangular ``A_k = chol(Sigma_k^{-1})^T`` (``|A_k (x - mu_k)|^2`` is the
+    Mahalanobis distance), the means, and ``const_k = log w_k - log det
+    Sigma_k / 2``, all float32.  As in the VB E-step, const is finite: a
+    dead component's weight counts as 1e-3."""
+    import torch
+
+    A = torch.linalg.cholesky(params.inv_sigma.double()).transpose(1, 2)
+    const = (torch.log(params.weights.double().clamp_min(1e-3))
+             - 0.5 * params.log_det.double())
+    return A.float().contiguous(), params.means.float(), const.float()
+
+
+def eval_case(case, device, report):
+    """fused_maha (lower and upper operands), fused_rho, fused_logq and
+    fused_vb_estep on one configuration against their float64 plain
+    versions; where fused_vb_estep's tile is past shared memory, its
+    wrapper must raise."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dead, zero_w, seed = case
+    rng = np.random.default_rng(seed)
+    arrs = random_mixture(rng, K, D, student, dead)
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
+    ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+    print("case K=%d D=%d N=%d %s%s%s" % (K, D, N, "t" if student else "gauss",
+                                         " dead" if dead else "", " zero-w" if zero_w else ""))
+    xT = k.fused_propose_logq((seed, 21), ops, N)[0]
+    x64 = xT.double()
+    A, m, const = vb_operands(params)
+    for tag, a in (("lower", params.inv_chol), ("upper", A)):
+        part = torch.tril(a, -1) if tag == "upper" else torch.triu(a, 1)
+        require(bool((part == 0).all()), "fused_maha operand not " + tag)
+        compare("fused_maha " + tag, k.fused_maha(xT, a, m),
+                k.plain_maha(x64, a.double(), m.double()), "maha", report)
+
+    rho, log_q = k.fused_rho(xT, ops)
+    rho_ref, log_q_ref = k.plain_rho(x64, ops64)
+    compare("fused_rho rho", rho, rho_ref, "rho", report)
+    compare("fused_rho log_q", log_q, log_q_ref, "log", report)
+    if dead:
+        require(bool((rho[K // 2] == 0).all()), "fused_rho: a dead component's rho is not 0")
+    compare("fused_logq", k.fused_logq(xT, ops), log_q_ref, "log", report)
+    del rho, log_q, rho_ref, log_q_ref
+
+    w = torch.tensor(np.abs(rng.normal(1.0, 0.2, N)), dtype=torch.float32, device=device)
+    if zero_w:
+        w[::3] = 0.0
+    reason = _build.limit_reason("fused_vb_estep", K, D)
+    if reason is not None:
+        try:
+            k.fused_vb_estep(xT, w, A, m, const)
+        except ValueError:
+            print("  fused_vb_estep raises: %s" % reason)
+            return
+        raise SmokeFailure("fused_vb_estep ran past its limit: %s" % reason)
+    got = k.fused_vb_estep(xT, w, A, m, const)
+    ref = k.plain_vb_estep(x64, w.double(), A.double(), m.double(), const.double())
+    for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+        compare("fused_vb_estep %s/N" % name, g / N, r / N, "stats", report)
+    again = k.fused_vb_estep(xT, w, A, m, const)
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            "fused_vb_estep: one input gave two outputs")
+
+
+EVAL_CASES = [
+    # K, D, N, Student-t, dead component, zero weights, seed
+    (10, 10, N_FLAGSHIP, True, False, False, 11),
+    (10, 10, N_ODD, False, True, True, 12),
+    (1, 1, N_ODD, True, False, True, 13),
+    (4, 7, N_ODD, True, True, False, 14),
+    (3, 32, N_ODD, False, False, True, 15),
+    (2, 40, N_WIDE, True, False, True, 16),
+    # operands in device memory: every evaluation kernel at K=60, D=32
+    # (fused_vb_estep's tile does not fit: it raises), fused_vb_estep at
+    # K=1, D=128
+    (60, 32, N_WIDE, False, True, False, 17),
+    (1, 128, N_WIDE, False, False, True, 18),
+]
+
+
+def phase_kernels(device, cases, eval_cases):
     import torch
     from pypmc_tpu_torch.ops import kernels as k
 
     report = []
     for case in cases:
         kernel_case(case, device, report)
+        torch.cuda.empty_cache()
+    for case in eval_cases:
+        eval_case(case, device, report)
         torch.cuda.empty_cache()
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
@@ -369,6 +493,19 @@ def phase_slice(device):
     return counts, dt / STEPS * 1e3, out
 
 
+def device_rows(prof, per):
+    """``(device ms, launches, name)`` by kernel from a torch.profiler run,
+    divided by ``per`` (the steps or iterations profiled), largest first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3 / per, e.count / per, e.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_slice(device, step_ms, steps=2):
     """Device time of the slice's steps by kernel (torch.profiler), and its
     share of the unprofiled step time."""
@@ -380,14 +517,7 @@ def profile_slice(device, step_ms, steps=2):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pmc_run_sharded(target, params, N_SLICE, steps, key=3)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us / 1e3 / steps, e.count / steps, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     busy = sum(r[0] for r in rows)
     print("  device time a step %.3f ms = %.1f%% of the %.1f ms step; %d launches a step"
           % (busy, 100 * busy / step_ms, step_ms, sum(r[1] for r in rows)))
@@ -413,7 +543,317 @@ def time_solve_dofs(device, reps=20):
 
 
 # --------------------------------------------------------------------- #
-# phase 5: times                                                        #
+# phase 5: variational Bayes                                            #
+# --------------------------------------------------------------------- #
+
+def vb_problem(device, n=VB_N):
+    """benchmarks/vb_step.py's data in float32 on the card: seed 0, K
+    centers N(0, 4^2) in D dimensions, uniform labels, unit noise, weights
+    |N(1, 0.2^2)|."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 4, size=(VB_K, VB_D))
+    lab = rng.integers(0, VB_K, size=n)
+    data = (centers[lab] + rng.normal(0, 1, size=(n, VB_D))).astype(np.float32)
+    weights = np.abs(rng.normal(1, 0.2, size=n)).astype(np.float32)
+    return torch.tensor(data, device=device), torch.tensor(weights, device=device)
+
+
+def vb_reference(vb, report):
+    """One _update_with_bound iteration of ``vb`` (on a shallow copy, so
+    ``vb`` keeps its state) against the same iteration with the float64
+    plain version of fused_vb_estep on the card, on the kernel's float32
+    operands."""
+    from pypmc_tpu_torch.mix_adapt import variational as V
+    from pypmc_tpu_torch.ops import kernels as k
+
+    it = copy.copy(vb)
+    bound = it._update_with_bound()
+    hyper = V._vb_m_step(vb.N_comp, vb.x_mean_comp, vb.S, *vb._prior()[:5])
+    e_lnlam, e_lnpi, A, const = V._vb_whitening(vb.dim, *hyper)
+    A32, m32 = A.float().double(), hyper[3].float().double()
+    stats = k.plain_vb_estep(vb._data_T.double(), vb.weights.double(), A32, m32,
+                             const.float().double())
+    e = V._vb_unwhiten(A32, m32, stats, e_lnlam, e_lnpi)
+    ref_bound = V._vb_bound(vb.weights, e, *hyper, *vb._prior())
+    compare("fused_vb_estep iteration N_comp/N", it.N_comp / vb.N, e.N_comp / vb.N, "vb", report)
+    compare("fused_vb_estep iteration x_mean", it.x_mean_comp, e.x_mean_comp, "vb", report)
+    compare("fused_vb_estep iteration S", it.S, e.S, "vb", report)
+    compare("fused_vb_estep iteration bound", ref_bound.new_tensor(bound), ref_bound, "vb", report)
+
+
+def instrumented_run(vb, name, **run_kwargs):
+    """``vb.run(**run_kwargs)`` with every iteration's host time, bound and
+    K recorded and every E-step a prune triggers counted, between a reset
+    and a read of the launch counts.  Checks that fused_vb_estep launched
+    once per iteration plus once per such E-step, and that the bound is
+    finite and, while K is unchanged, drops by no more than 1e-5
+    relative.  Returns ``(converged, record, prune E-steps, counts)``."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    record, prune_e_steps = [], []
+    update, e_step = vb._update_with_bound, vb.E_step
+
+    def timed_update():
+        t0 = time.perf_counter()
+        bound = update()
+        record.append((time.perf_counter() - t0, bound, vb.K))
+        return bound
+
+    def counted_e_step():
+        prune_e_steps.append(vb.K)
+        e_step()
+
+    vb._update_with_bound, vb.E_step = timed_update, counted_e_step
+    k.reset_launch_counts()
+    try:
+        converged = vb.run(**run_kwargs)
+        torch.cuda.synchronize()
+    finally:
+        counts = k.launch_counts()
+        del vb._update_with_bound, vb.E_step
+    bounds = [r[1] for r in record]
+    require(all(np.isfinite(bounds)), "%s: a bound is not finite" % name)
+    require(counts["fused_vb_estep"] == len(record) + len(prune_e_steps),
+            "%s: fused_vb_estep launched %d times for %d iterations and %d prune E-steps"
+            % (name, counts["fused_vb_estep"], len(record), len(prune_e_steps)))
+    for (_, b0, k0), (_, b1, k1) in zip(record, record[1:]):
+        require(k0 != k1 or b1 >= b0 - 1e-5 * abs(b0),
+                "%s: the bound dropped from %.10g to %.10g at K=%d" % (name, b0, b1, k1))
+    per_it = {n: round(c / len(record), 3) for n, c in counts.items() if c}
+    print("  %s: %d iterations (converged: %s), K %d -> %d, final bound %.10g; "
+          "%d E-steps after a prune; launches an iteration %s"
+          % (name, len(record), converged, record[0][2], vb.K, bounds[-1],
+             len(prune_e_steps), json.dumps(per_it)))
+    return converged, record, prune_e_steps, counts
+
+
+def variational_example(device):
+    """examples/variational.py: 500 draws of a 0.3/0.7 two-component
+    mixture in D=2 fitted with K=20; two components survive.  Returns the
+    launch counts of the run."""
+    import logging
+    import torch
+    from pypmc_tpu_torch.density import create_gaussian_mixture
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+
+    target = create_gaussian_mixture(
+        [np.array([5.0, 0.01]), np.array([-4.0, 1.0])],
+        [np.array([[0.01, 0.003], [0.003, 0.0025]]), np.array([[0.1, 0.0], [0.0, 0.02]])],
+        np.array([0.3, 0.7]))
+    data = torch.tensor(target.propose(500, rng=1), dtype=torch.float32, device=device)
+    vb = GaussianInference(data, 20)
+    # float32 statistics leave the converged bound moving at ~1e-7
+    # relative; run() logs each such drop (the check below bounds them)
+    log = logging.getLogger("pypmc_tpu_torch.mix_adapt.variational")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        _, _, prunes, counts = instrumented_run(vb, "examples/variational.py", iterations=100)
+    finally:
+        log.setLevel(level)
+    fit = vb.make_mixture()
+    weights = np.sort(fit.weights)
+    print("  examples/variational.py: %d components, weights %s (target [0.3, 0.7])"
+          % (len(fit), np.round(weights, 4)))
+    require(len(prunes) > 0, "variational example: no component was pruned")
+    require(len(fit) == 2 and np.all(np.abs(weights - [0.3, 0.7]) < 0.07),
+            "variational example: %d components, weights %s" % (len(fit), weights))
+    return counts
+
+
+def mixture_reduction_input():
+    """examples/mixture_reduction.py's 400-component input mixture (D=2,
+    Wishart(I, 5) covariances, seed 0) and its 10-component initial
+    guess."""
+    from scipy.stats import chi2
+    from pypmc_tpu_torch.density import create_gaussian_mixture
+
+    D, K, nu = 2, 400, 5
+    rng = np.random.default_rng(0)
+
+    def wishart_draw():
+        tmp = np.zeros((D, D))
+        for i in range(D):
+            for j in range(i + 1):
+                if i == j:
+                    tmp[i, j] = np.sqrt(chi2.rvs(nu - (i + 1) + 1, random_state=rng))
+                else:
+                    tmp[i, j] = rng.normal(0, 1)
+        return tmp @ tmp.T
+
+    covs = [wishart_draw() for _ in range(K)]
+    means = [rng.multivariate_normal(np.zeros(D), sigma) for sigma in covs]
+    return (create_gaussian_mixture(means, covs, np.ones(K)),
+            create_gaussian_mixture(means[:10], covs[:10], np.ones(10)))
+
+
+def vbmerge_example(device, report):
+    """VBMerge of the 400 components on the card in float32 against the
+    same run in float64 on the CPU: the first E-step, then the whole run
+    (iterations, surviving components, their weights, means and
+    covariances, and the final bound)."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt import VBMerge
+
+    mix, guess = mixture_reduction_input()
+    vb = VBMerge(mix, N=1000, initial_guess=guess, device=device, dtype=torch.float32)
+    ref = VBMerge(mix, N=1000, initial_guess=guess)
+    for f in ("N_comp", "x_mean_comp", "S"):
+        compare("fused_maha VBMerge E-step " + f, getattr(vb, f).cpu(), getattr(ref, f),
+                "vb", report)
+    converged, ref_converged = vb.run(), ref.run()
+    out, ref_out = vb.make_mixture(), ref.make_mixture()
+    print("  VBMerge of 400 components: converged after %s iterations (float64 CPU: %s), "
+          "%d components remain (float64 CPU: %d)"
+          % (converged, ref_converged, len(out), len(ref_out)))
+    require(converged is not None and converged == ref_converged,
+            "VBMerge: %s iterations, the float64 run %s" % (converged, ref_converged))
+    require(len(out) == len(ref_out), "VBMerge: %d components, the float64 run %d"
+            % (len(out), len(ref_out)))
+    compare("VBMerge run weights", torch.tensor(out.weights), torch.tensor(ref_out.weights),
+            "vb", report)
+    for f in ("mu", "sigma"):
+        compare("VBMerge run " + f, torch.tensor(np.stack([getattr(c, f) for c in out.components])),
+                torch.tensor(np.stack([getattr(c, f) for c in ref_out.components])), "vb", report)
+    compare("VBMerge run bound", torch.tensor(vb.likelihood_bound(), dtype=torch.float64),
+            torch.tensor(ref.likelihood_bound(), dtype=torch.float64), "vb", report)
+
+
+def phase_vb(device, report):
+    """GaussianInference at benchmarks/vb_step.py's configuration, then the
+    two examples; returns the launch counts summed over the three runs, the
+    median iteration ms and the device busy percentage."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+    from pypmc_tpu_torch.ops import kernels as k
+
+    data, w = vb_problem(device)
+    vb = GaussianInference(data, components=VB_K, weights=w, nu=VB_D + 1.0)
+    del data
+    torch.cuda.synchronize()
+    print("  data and weights on the card: %.1f MB" % (
+        (vb._data_T.numel() + vb.weights.numel()) * 4 / 1e6))
+    vb_reference(vb, report)
+    _, record, _, counts = instrumented_run(vb, "vb_step.py configuration",
+                                            iterations=VB_ITERS, prune=1.0)
+    ms = [r[0] * 1e3 for r in record]
+    print("  iteration ms (host clock): first %.3f, median of the rest %.3f"
+          % (ms[0], float(np.median(ms[1:]))))
+    for f in ("N_comp", "x_mean_comp", "S", "alpha", "W"):
+        require(bool(torch.isfinite(getattr(vb, f)).all()), "vb: %s not finite" % f)
+    mix = vb.make_mixture()
+    require(len(mix) >= 1, "vb: no component in the final mixture")
+
+    # device busy share over two further iterations
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vb._update_with_bound()
+        vb._update_with_bound()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 2
+    rows = device_rows(prof, 2)
+    busy = sum(r[0] for r in rows)
+    print("  profiled iteration: device %.3f ms of %.3f ms host (%.1f%% busy), %d launches"
+          % (busy, host_ms, 100 * busy / host_ms, sum(r[1] for r in rows)))
+    for t, c, key in rows[:6]:
+        print("    %8.3f ms  %5.0f x  %s" % (t, c, key[:90]))
+    del vb
+    torch.cuda.empty_cache()
+
+    example = variational_example(device)
+    k.reset_launch_counts()
+    vbmerge_example(device, report)
+    torch.cuda.synchronize()
+    merge = k.launch_counts()
+    print("  VBMerge launches %s" % json.dumps({n: c for n, c in merge.items() if c}))
+    require(merge["fused_maha"] > 0, "VBMerge: fused_maha not launched")
+    return ({n: counts[n] + example[n] + merge[n] for n in counts},
+            float(np.median(ms[1:])), 100 * busy / host_ms)
+
+
+# --------------------------------------------------------------------- #
+# phase 6: the size gate                                                #
+# --------------------------------------------------------------------- #
+
+def phase_gate(device, report):
+    """The size gate routes as the JAX package does: K*D > 128 takes the
+    unfused update, through fused_rho and fused_maha, and a forced dense
+    update raises; D=40 runs fused_logq; K=400, D=10 takes the unfused
+    log-density; a K=400 update of 2^22 particles, where the JAX package
+    elects its K-blocked kernel, raises."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N = 30, 10, 1 << 18
+    rng = np.random.default_rng(30)
+    arrs = random_mixture(rng, K, D, True)
+    params = make_params(arrs, device)
+    require(not k.fits("fused_pmc_stats", K, D), "gate: K=30, D=10 fits fused_pmc_stats")
+    xT = k.fused_propose_logq((30, 1), core._kernel_operands(params), N)[0]
+    w = torch.tensor(rng.exponential(1.0, N), dtype=torch.float32, device=device)
+
+    k.reset_launch_counts()
+    got = pmc_update(params, xT, w, transposed=True)
+    sync(device)
+    counts = k.launch_counts()
+    print("  K=30 D=10 Student-t pmc_update(fused='auto'): launches %s"
+          % json.dumps({n: c for n, c in counts.items() if c}))
+    require(counts["plain:fused_pmc_stats"] == 1 and counts["fused_pmc_stats"] == 0
+            and counts["fused_rho"] == 1 and counts["fused_maha"] == 1,
+            "gate: pmc_update did not take the unfused path through fused_rho and fused_maha")
+    ref = pmc_update(params.to("cpu", torch.float64), xT.cpu().double(), w.cpu().double(),
+                     transposed=True, fused="off")
+    compare("fused_rho gate rho", got.rho.cpu(), ref.rho, "rho", report)
+    for f in ("means", "cov", "weights"):
+        compare("gate update " + f, getattr(got.params, f).cpu(), getattr(ref.params, f),
+                "update", report)
+    compare("gate update dof", got.params.dof.cpu(), ref.params.dof, "dof", report)
+    try:
+        pmc_update(params, xT, w, transposed=True, fused="dense")
+    except ValueError as e:
+        require("K*D <= 128" in str(e), "gate: forced dense raised without the rule: %s" % e)
+        print("  forced fused='dense' raises: %s" % e)
+    else:
+        raise SmokeFailure("gate: a forced dense update past K*D <= 128 ran")
+    del got, ref, xT, w
+
+    for K2, D2, route in ((2, 40, "fused_logq"), (400, 10, "plain:fused_logq")):
+        p2 = make_params(random_mixture(rng, K2, D2, False), device)
+        x2 = torch.tensor(rng.normal(0, 2, (D2, 1 << 16)), dtype=torch.float32, device=device)
+        k.reset_launch_counts()
+        lq = core.mixture_logpdf_T(p2, x2)
+        sync(device)
+        c2 = k.launch_counts()
+        require(c2[route] == 1 and sum(c2.values()) == 1,
+                "gate: K=%d, D=%d mixture_logpdf_T did not take %s: %s" % (K2, D2, route, c2))
+        compare("fused_logq gate K=%d D=%d" % (K2, D2) if route == "fused_logq"
+                else "gate K=%d D=%d unfused log q" % (K2, D2), lq.cpu(),
+                core.mixture_logpdf_T(p2.to("cpu", torch.float64), x2.cpu().double()),
+                "log", report)
+        print("  K=%d D=%d mixture_logpdf_T: route %s" % (K2, D2, route))
+        counts = {n: counts[n] + c2[n] for n in counts}
+
+    p400 = make_params(random_mixture(rng, 400, 2, False), device)
+    x400 = torch.zeros((2, 1 << 22), dtype=torch.float32, device=device)
+    require(k.elects_blocked("fused_pmc_stats", 400, 2, 1 << 22), "gate: no blocked election")
+    try:
+        pmc_update(p400, x400, transposed=True)
+    except NotImplementedError as e:
+        print("  K=400 D=2 N=2^22 pmc_update raises: %s" % e)
+    else:
+        raise SmokeFailure("gate: an update the JAX package runs K-blocked ran")
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# phase 7: times                                                        #
 # --------------------------------------------------------------------- #
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -455,7 +895,23 @@ def phase_times(device):
          lambda i, n: k.plain_logq(xs[n], ops), (N_PLAIN_MAX, N_SLICE))
     pair("fused_pmc_stats", lambda i, n: k.fused_pmc_stats(xs[n], ws[n], ops, True),
          lambda i, n: k.plain_pmc_stats(xs[n], ws[n], ops, True), (N_PLAIN_MAX, N_SLICE))
+    A, m, const = vb_operands(params)
+    pair("fused_maha", lambda i, n: k.fused_maha(xs[n], A, m),
+         lambda i, n: k.plain_maha(xs[n], A, m), (N_PLAIN_MAX, N_SLICE))
+    pair("fused_rho", lambda i, n: k.fused_rho(xs[n], ops),
+         lambda i, n: k.plain_rho(xs[n], ops), (N_PLAIN_MAX, N_SLICE))
+    pair("fused_vb_estep", lambda i, n: k.fused_vb_estep(xs[n], ws[n], A, m, const),
+         lambda i, n: k.plain_vb_estep(xs[n], ws[n], A, m, const), (N_PLAIN_MAX, N_SLICE))
     del xs, ws, log_q, log_p
+    torch.cuda.empty_cache()
+    # past the register kernels: the looped D <= 128 instantiation
+    p40 = make_params(random_mixture(np.random.default_rng(40), 2, 40, False), device)
+    ops40 = core._kernel_operands(p40)
+    x40 = k.fused_propose_logq((40, 1), ops40, N_PLAIN_MAX)[0]
+    times[("fused_logq K=2 D=40", N_PLAIN_MAX, "cuda")] = cuda_ms(lambda i: k.fused_logq(x40, ops40))
+    times[("fused_logq K=2 D=40", N_PLAIN_MAX, "plain")] = cuda_ms(
+        lambda i: k.plain_logq(x40, ops40), reps=3, warmup=1)
+    del x40
     torch.cuda.empty_cache()
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
@@ -505,14 +961,22 @@ def main():
     if regs:
         print("  ptxas: %d kernels, %d-%d registers a thread, %d bytes of spill stores"
               % (len(regs), min(regs), max(regs), spills))
-    for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32)):
-        for kernel, step in (("fused_pmc_stats", 0), ("fused_is_pmc_step", 1)):
-            c = lib.pmc_stats_smem_bytes(K, Kt, D, step)
+    # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
+    for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
+                     (2, 2, 40), (60, 2, 32), (1, 1, 128)):
+        launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
+                     ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
+                     ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
+                     ("fused_is_pmc_step", lib.pmc_stats_smem_bytes(K, Kt, D, 1)),
+                     ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
+                     ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
+                     ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D))]
+        for kernel, c in launchers:
             require(c == _build.smem_bytes(kernel, K, D, Kt),
                     "shared-memory formula differs from the kernel's (%s)" % kernel)
 
     print("phase kernels:")
-    report = phase_kernels(device, KERNEL_CASES)
+    report = phase_kernels(device, KERNEL_CASES, EVAL_CASES)
 
     print("phase slice:")
     slice_reference(device, report)
@@ -523,6 +987,17 @@ def main():
     dofs_ms = time_solve_dofs(device)
     print("  _solve_dofs alone (K=10, 100 bisection steps, host clock): %.3f ms, "
           "%.1f%% of a step" % (dofs_ms, 100 * dofs_ms / step_ms))
+    del out
+    torch.cuda.empty_cache()
+
+    print("phase vb:")
+    vb_counts, vb_ms, vb_busy = phase_vb(device, report)
+    print("phase gate:")
+    gate_counts = phase_gate(device, report)
+    # every path was driven with the counts set to 0 just before it
+    counts = {n: counts[n] + vb_counts[n] + gate_counts[n] for n in counts}
+    for kname in SOURCES:
+        require(counts[kname] > 0, "%s was launched by no path" % kname)
 
     print("phase times (%s):" % card)
     times = phase_times(device)

@@ -12,9 +12,21 @@ the device.
 
 import numbers as _numbers
 
+import numpy as _np
 import torch
 
-__all__ = ["as_generator", "seed_words", "device_generator"]
+__all__ = ["as_generator", "seed_words", "device_generator", "RNG_DEFAULT",
+           "is_numpy_rng"]
+
+RNG_DEFAULT = _np.random.mtrand  # the reference's default rng of the host classes
+
+
+def is_numpy_rng(rng) -> bool:
+    """True for a numpy generator (``numpy.random``'s module, a
+    ``RandomState`` or a ``Generator``): the host classes then draw on the
+    host with the reference's semantics; an int, a ``torch.Generator`` or
+    None draws through torch."""
+    return hasattr(rng, "multinomial") and not isinstance(rng, torch.Generator)
 
 # module-level default stream for rng=None: advancing it on every use makes
 # repeated convenience calls draw FRESH samples (a fixed seed would silently

@@ -1,13 +1,20 @@
-// Device code shared by the four mixture kernels of pypmc_tpu_torch:
-// the packed mixture layout, a Philox-4x32-10 counter generator, uniform,
-// Box-Muller and Marsaglia-Tsang draws, the whitened component log-pdf and
-// the weighted log-sum-exp.
+// Device code shared by the mixture kernels of pypmc_tpu_torch: the packed
+// mixture layout, a Philox-4x32-10 counter generator, uniform, Box-Muller
+// and Marsaglia-Tsang draws, the whitened component log-pdf, the dense
+// projection of the general-matrix kernels and the weighted log-sum-exp.
 //
 // Particles are carried transposed, xT (D, N) row-major, so that thread n
 // reads x[i] = xT[i * N + n]: neighbouring threads read neighbouring
-// addresses.  Every kernel keeps one particle's coordinates in registers;
-// loops over the dimension are unrolled to DMAX (8, 16 or 32) with a guard
-// on the runtime D, so the per-particle arrays never leave registers.
+// addresses.  Every kernel keeps one particle's coordinates in a per-thread
+// array of DMAX floats.  For DMAX = 8, 16 or 32 the loops over the dimension
+// are unrolled to DMAX with a guard on the runtime D, so the arrays stay in
+// registers; the DMAX = 128 instantiation (33 <= D <= 128) loops to D, and
+// its arrays live in local memory.
+//
+// A block stages its mixture operands in shared memory when they fit there
+// beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
+// from device memory, where every thread of a warp reads the same element
+// at once (one cached load).
 #pragma once
 
 #include <cmath>
@@ -18,6 +25,15 @@
 namespace pmc {
 
 constexpr int kThreads = 128;   // threads per block, one particle each
+constexpr int kDMax = 128;      // the largest dimension (ops/_build.py D_MAX)
+constexpr size_t kSmemLimit = 232448;   // bytes of shared memory a block may use
+
+// Trip count of a loop over the dimension: DMAX (a constant, so the loop
+// unrolls) up to DMAX = 32, the runtime D above.
+template <int DMAX>
+__device__ __forceinline__ int dim_loop(int D) {
+  return DMAX <= 32 ? DMAX : D;
+}
 
 // Packed mixture operands, one flat float32 buffer per mixture
 // (built by pypmc_tpu_torch.density.core._kernel_operands):
@@ -42,6 +58,16 @@ struct MixLayout {
 __device__ __forceinline__ void load_to_shared(float* dst, const float* src,
                                                int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// The n operand floats a block reads: copied to ``smem`` if OPS_SMEM, else
+// ``src`` itself.  Call __syncthreads() before reading them.
+template <bool OPS_SMEM>
+__device__ __forceinline__ const float* stage_operands(float* smem,
+                                                       const float* src, int n) {
+  if (!OPS_SMEM) return src;
+  load_to_shared(smem, src, n);
+  return smem;
 }
 
 // ---------------------------------------------------------------------
@@ -144,14 +170,40 @@ __device__ __forceinline__ float whiten(const float* U, const float* mu,
                                         float (&diff)[DMAX]) {
   float xm[DMAX];
 #pragma unroll
-  for (int j = 0; j < DMAX; ++j) xm[j] = j < D ? x[j] - mu[j] : 0.0f;
+  for (int j = 0; j < dim_loop<DMAX>(D); ++j) xm[j] = j < D ? x[j] - mu[j] : 0.0f;
   float maha = 0.0f;
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
+  for (int i = 0; i < dim_loop<DMAX>(D); ++i) {
     float s = 0.0f;
     if (i < D) {
 #pragma unroll
       for (int j = 0; j <= i; ++j) s = fmaf(U[i * D + j], xm[j], s);
+    }
+    diff[i] = s;
+    maha = fmaf(s, s, maha);
+  }
+  return maha;
+}
+
+// Squared norm of diff = A (x - m) for one row-major (D, D) matrix A, with
+// diff left in ``diff``.  Every entry of A is read, so a lower, an upper or
+// a full matrix gives the right product (whiten above reads only the lower
+// triangle).
+template <int DMAX>
+__device__ __forceinline__ float project(const float* A, const float* m,
+                                         const float (&x)[DMAX], int D,
+                                         float (&diff)[DMAX]) {
+  float xm[DMAX];
+#pragma unroll
+  for (int j = 0; j < dim_loop<DMAX>(D); ++j) xm[j] = j < D ? x[j] - m[j] : 0.0f;
+  float maha = 0.0f;
+#pragma unroll
+  for (int i = 0; i < dim_loop<DMAX>(D); ++i) {
+    float s = 0.0f;
+    if (i < D) {
+#pragma unroll
+      for (int j = 0; j < dim_loop<DMAX>(D); ++j)
+        if (j < D) s = fmaf(A[i * D + j], xm[j], s);
     }
     diff[i] = s;
     maha = fmaf(s, s, maha);
@@ -203,7 +255,7 @@ __device__ __forceinline__ void load_particle(const float* xT, long long N,
                                               long long n, int D,
                                               float (&x)[DMAX]) {
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) x[i] = i < D ? xT[i * N + n] : 0.0f;
+  for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = i < D ? xT[i * N + n] : 0.0f;
 }
 
 template <int DMAX>
@@ -211,7 +263,7 @@ __device__ __forceinline__ void store_particle(float* xT, long long N,
                                                long long n, int D,
                                                const float (&x)[DMAX]) {
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i)
+  for (int i = 0; i < dim_loop<DMAX>(D); ++i)
     if (i < D) xT[i * N + n] = x[i];
 }
 
@@ -233,7 +285,7 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
 
   float z[DMAX];
 #pragma unroll
-  for (int i = 0; i < DMAX; i += 2) {
+  for (int i = 0; i < dim_loop<DMAX>(D); i += 2) {
     z[i] = 0.0f;
     if (i + 1 < DMAX) z[i + 1] = 0.0f;
     if (i < D) {
@@ -251,7 +303,7 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
   const float* Lk = mix + L.L() + lat * D * D;
   const float* mu = mix + L.mu() + lat * D;
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
+  for (int i = 0; i < dim_loop<DMAX>(D); ++i) {
     float s = 0.0f;
     if (i < D) {
 #pragma unroll
@@ -274,8 +326,24 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
     } else if ((D) <= 32) {                         \
       constexpr int DMAX = 32;                      \
       __VA_ARGS__;                                  \
+    } else if ((D) <= kDMax) {                      \
+      constexpr int DMAX = kDMax;                   \
+      __VA_ARGS__;                                  \
     } else {                                        \
       return static_cast<int>(cudaErrorInvalidValue); \
+    }                                               \
+  } while (0)
+
+// Instantiate a kernel template for operands in shared memory (``fit``) or
+// in device memory.
+#define PMC_DISPATCH_OPS(fit, ...)                  \
+  do {                                              \
+    if (fit) {                                      \
+      constexpr bool OPS_SMEM = true;               \
+      __VA_ARGS__;                                  \
+    } else {                                        \
+      constexpr bool OPS_SMEM = false;              \
+      __VA_ARGS__;                                  \
     }                                               \
   } while (0)
 

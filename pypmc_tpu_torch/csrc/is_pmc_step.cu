@@ -19,24 +19,24 @@
 
 namespace pmc {
 
-template <int DMAX>
+template <int DMAX, bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
-is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
-                   const float* __restrict__ tmix, float* __restrict__ xT,
+is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
+                   const float* __restrict__ tmix_src, float* __restrict__ xT,
                    int* __restrict__ latent, float* __restrict__ wts,
                    double* __restrict__ partial, long long N, int K, int Kt,
                    int D, int student_t, int t_student_t, int dof_stats) {
   extern __shared__ float smem[];
   const StatsLayout S{K, D};
   const int n_mix = MixLayout{K, D}.size();
-  const int n_params = n_mix + MixLayout{Kt, D}.eval_size();
-  float* tsm = smem + n_mix;
-  float* tile = smem + n_params;
+  const int n_staged = OPS_SMEM ? n_mix + MixLayout{Kt, D}.eval_size() : 0;
+  float* tile = smem + n_staged;
   double* acc = reinterpret_cast<double*>(
-      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_params));
+      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_staged));
   uint16_t* table = reinterpret_cast<uint16_t*>(acc + S.entries());
-  load_to_shared(smem, mix, n_mix);
-  load_to_shared(tsm, tmix, MixLayout{Kt, D}.eval_size());
+  const float* mix = stage_operands<OPS_SMEM>(smem, mix_src, n_mix);
+  const float* tmix = stage_operands<OPS_SMEM>(smem + n_mix, tmix_src,
+                                               MixLayout{Kt, D}.eval_size());
   stats_setup(S, tile, acc, table);
   __syncthreads();
 
@@ -46,19 +46,19 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
     const long long n = tile_i * kThreads + t;
     float x[DMAX];
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+    for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = 0.0f;
     if (n < N) {
       Philox rng(s0, s1, static_cast<uint64_t>(n));
-      latent[n] = propose_particle<DMAX>(smem, K, D, student_t != 0, rng, x);
+      latent[n] = propose_particle<DMAX>(mix, K, D, student_t != 0, rng, x);
       store_particle<DMAX>(xT, N, n, D, x);
     }
-    const float log_q = stats_evaluate<DMAX>(smem, S, student_t != 0, x, tile, t);
+    const float log_q = stats_evaluate<DMAX>(mix, S, student_t != 0, x, tile, t);
     float w = 0.0f;
     if (n < N) {
-      w = expf(mixture_logpdf<DMAX>(tsm, Kt, D, t_student_t != 0, x) - log_q);
+      w = expf(mixture_logpdf<DMAX>(tmix, Kt, D, t_student_t != 0, x) - log_q);
       wts[n] = w;
     }
-    stats_finish(smem, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
+    stats_finish(mix, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
     __syncthreads();
     stats_accumulate(S, tile, acc, table);
     __syncthreads();
@@ -77,17 +77,17 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      int n_blocks, void* stream) {
   using namespace pmc;
   const StatsLayout S{K, D};
-  const size_t smem = stats_smem_bytes(
-      S, MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size());
+  const int params = MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size();
+  const size_t smem = stats_launch_smem(S, params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, {
-    cudaFuncSetAttribute(is_pmc_step_kernel<DMAX>,
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    cudaFuncSetAttribute(is_pmc_step_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    is_pmc_step_kernel<DMAX><<<n_blocks, kThreads, smem, s>>>(
+    is_pmc_step_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
         s0, s1, mix, tmix, xT, latent, w, partial, N, K, Kt, D, student_t,
         t_student_t, dof_stats);
-  });
+  }));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_reduce(partial, stats, n_blocks, S.entries(), s);

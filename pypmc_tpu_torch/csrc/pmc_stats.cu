@@ -20,19 +20,20 @@
 
 namespace pmc {
 
-template <int DMAX>
+template <int DMAX, bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
 pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
-                 const float* __restrict__ mix, double* __restrict__ partial,
+                 const float* __restrict__ mix_src, double* __restrict__ partial,
                  long long N, int K, int D, int student_t, int dof_stats) {
   extern __shared__ float smem[];
   const StatsLayout S{K, D};
   const int n_mix = MixLayout{K, D}.eval_size();
-  float* tile = smem + n_mix;
+  const int n_staged = OPS_SMEM ? n_mix : 0;
+  float* tile = smem + n_staged;
   double* acc = reinterpret_cast<double*>(
-      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_mix));
+      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_staged));
   uint16_t* table = reinterpret_cast<uint16_t*>(acc + S.entries());
-  load_to_shared(smem, mix, n_mix);
+  const float* mix = stage_operands<OPS_SMEM>(smem, mix_src, n_mix);
   stats_setup(S, tile, acc, table);
   __syncthreads();
 
@@ -47,10 +48,10 @@ pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
       w = wts[n];
     } else {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+      for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = 0.0f;
     }
-    const float log_q = stats_evaluate<DMAX>(smem, S, student_t != 0, x, tile, t);
-    stats_finish(smem, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
+    const float log_q = stats_evaluate<DMAX>(mix, S, student_t != 0, x, tile, t);
+    stats_finish(mix, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
     __syncthreads();
     stats_accumulate(S, tile, acc, table);
     __syncthreads();
@@ -68,15 +69,16 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
                                    void* stream) {
   using namespace pmc;
   const StatsLayout S{K, D};
-  const size_t smem = stats_smem_bytes(S, MixLayout{K, D}.eval_size());
+  const int params = MixLayout{K, D}.eval_size();
+  const size_t smem = stats_launch_smem(S, params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, {
-    cudaFuncSetAttribute(pmc_stats_kernel<DMAX>,
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    cudaFuncSetAttribute(pmc_stats_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    pmc_stats_kernel<DMAX><<<n_blocks, kThreads, smem, s>>>(
+    pmc_stats_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
         xT, w, mix, partial, N, K, D, student_t, dof_stats);
-  });
+  }));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_reduce(partial, stats, n_blocks, S.entries(), s);
@@ -89,5 +91,5 @@ extern "C" long long pmc_stats_smem_bytes(int K, int Kt, int D, int is_step) {
   using namespace pmc;
   const int params = is_step ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()
                              : MixLayout{K, D}.eval_size();
-  return static_cast<long long>(stats_smem_bytes(StatsLayout{K, D}, params));
+  return static_cast<long long>(stats_launch_smem(StatsLayout{K, D}, params));
 }

@@ -14,8 +14,9 @@
 //   row-major lower triangle)
 // followed by three global entries sum w, sum w^2, sum w log w.
 //
-// Only the K diagonal (D, D) blocks of the Gram matrix are formed, and of
-// each only its lower triangle.  Every block adds its tiles' sums into
+// The mixture operands sit in front of the tile when they fit (OPS_SMEM, see
+// common.cuh).  Only the K diagonal (D, D) blocks of the Gram matrix are
+// formed, and of each only its lower triangle.  Every block adds its tiles' sums into
 // float64 accumulators in shared memory and writes them to its own row of a
 // (n_blocks, S) buffer; reduce_partials then sums the rows in a fixed order.
 // No float atomics: a seed gives the same statistics on every run.
@@ -54,6 +55,15 @@ __host__ __device__ inline size_t stats_acc_offset(const StatsLayout& S,
 __host__ __device__ inline size_t stats_smem_bytes(const StatsLayout& S,
                                                    int params) {
   return stats_acc_offset(S, params) + S.entries() * (sizeof(double) + 3 * sizeof(uint16_t));
+}
+// whether a statistics kernel stages its ``params`` operand floats in shared
+// memory: if they fit there beside the tile and the accumulators
+inline bool stats_ops_smem(const StatsLayout& S, int params) {
+  return stats_smem_bytes(S, params) <= kSmemLimit;
+}
+// the shared memory its launcher asks for
+inline size_t stats_launch_smem(const StatsLayout& S, int params) {
+  return stats_smem_bytes(S, stats_ops_smem(S, params) ? params : 0);
 }
 
 // the three tile rows whose product statistic entry e sums
@@ -110,7 +120,7 @@ __device__ float stats_evaluate(const float* mix, const StatsLayout& S,
     const float maha = whiten<DMAX>(mix + L.U() + k * D * D,
                                     mix + L.mu() + k * D, x, D, diff);
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i)
+    for (int i = 0; i < dim_loop<DMAX>(D); ++i)
       if (i < D) tile[(S.diff() + k * D + i) * kTileStride + t] = diff[i];
     const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k],
                                        D, student_t);
@@ -174,19 +184,22 @@ __device__ inline void stats_write_partial(const StatsLayout& S,
 
 namespace {
 
-// out[e] = sum over blocks of partial[b, e], in block order
+// out[e] = sum over blocks of partial[b, e], in block order (T = float or
+// double)
+template <typename T>
 __global__ void reduce_partials(const double* __restrict__ partial,
-                                float* __restrict__ out, int n_blocks, int S) {
+                                T* __restrict__ out, int n_blocks, int S) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= S) return;
   double s = 0.0;
   for (int b = 0; b < n_blocks; ++b) s += partial[static_cast<long long>(b) * S + e];
-  out[e] = static_cast<float>(s);
+  out[e] = static_cast<T>(s);
 }
 
-inline void launch_reduce(const double* partial, float* out, int n_blocks,
-                          int S, cudaStream_t stream) {
-  reduce_partials<<<(S + 255) / 256, 256, 0, stream>>>(partial, out, n_blocks, S);
+template <typename T>
+inline void launch_reduce(const double* partial, T* out, int n_blocks, int S,
+                          cudaStream_t stream) {
+  reduce_partials<T><<<(S + 255) / 256, 256, 0, stream>>>(partial, out, n_blocks, S);
 }
 
 }  // namespace

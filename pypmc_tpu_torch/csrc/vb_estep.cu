@@ -1,0 +1,122 @@
+// fused_vb_estep: the sufficient statistics of one variational-Bayes
+// Gaussian-mixture E-step ([Bis06] 10.46, 10.49, 10.51-10.53, 10.75) in
+// one pass over weighted particles xT (D, N), w (N,).
+//
+// Replaces the Pallas kernel pypmc_tpu/ops/pallas_kernels.py:1493
+// (fused_vb_estep, body _vb_estep_kernel).
+//
+// Operands, one flat float32 buffer: A (K, D, D) | m (K, D) | c (K), with
+// A_k = sqrt(nu_k) chol(W_k)^T (UPPER triangular, read whole by project)
+// and c_k = E[ln pi_k] + (E[ln |Lambda_k|] - D ln 2 pi - D / beta_k) / 2, so
+// that log rho_k = c_k - |A_k (x - m_k)|^2 / 2.  Per particle: the plain
+// (unweighted) log-sum-exp over k, r_k = exp(log rho_k - lse), and the
+// entries of stats.cuh with these rows:
+//   wrho = c = w r_k, t1 = w r_k log r_k, diff = A_k (x - m_k),
+// so s0 = N_k, sd = sum w r diff (whitened first moment), g = lower
+// triangle of sum w r diff diff^T (whitened second moment), and
+// sum_k t1_k = sum_n w_n sum_k r log r (10.75).  The caller un-whitens with
+// triangular solves.  A zero weight (and a particle past N) contributes
+// exactly 0.
+//
+// Bound on the H100: as fused_pmc_stats (pmc_stats.cu): K D^2 FMAs of the
+// projection and, in the statistics phase, ~3 shared-memory reads for each
+// of the K (3 + D + D (D + 1) / 2) + 3 entries a particle (683 at K = 10,
+// D = 10): shared-memory-bound.  The statistics reduce in float64 within a
+// block and over blocks in a fixed order (stats.cuh), into float64 outputs.
+#include "stats.cuh"
+
+namespace pmc {
+
+template <int DMAX, bool OPS_SMEM>
+__global__ void __launch_bounds__(kThreads)
+vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
+                const float* __restrict__ ops, double* __restrict__ partial,
+                long long N, int K, int D) {
+  extern __shared__ float smem[];
+  const StatsLayout S{K, D};
+  const int n_ops = K * D * D + K * D + K;
+  const int n_staged = OPS_SMEM ? n_ops : 0;
+  float* tile = smem + n_staged;
+  double* acc = reinterpret_cast<double*>(
+      reinterpret_cast<char*>(smem) + stats_acc_offset(S, n_staged));
+  uint16_t* table = reinterpret_cast<uint16_t*>(acc + S.entries());
+  const float* A = stage_operands<OPS_SMEM>(smem, ops, n_ops);
+  stats_setup(S, tile, acc, table);
+  __syncthreads();
+  const float* m = A + K * D * D;
+  const float* c = m + K * D;
+
+  const int t = threadIdx.x;
+  const long long n_tiles = (N + kThreads - 1) / kThreads;
+  for (long long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
+    const long long n = tile_i * kThreads + t;
+    float x[DMAX];
+    float w = 0.0f;
+    if (n < N) {
+      load_particle<DMAX>(xT, N, n, D, x);
+      w = wts[n];
+    } else {
+#pragma unroll
+      for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = 0.0f;
+    }
+    // whitened differences into the tile, log rho_k parked in the wrho row
+    WeightedLse lse;
+    float diff[DMAX];
+    for (int k = 0; k < K; ++k) {
+      const float maha = project<DMAX>(A + k * D * D, m + k * D, x, D, diff);
+#pragma unroll
+      for (int i = 0; i < dim_loop<DMAX>(D); ++i)
+        if (i < D) tile[(S.diff() + k * D + i) * kTileStride + t] = diff[i];
+      const float log_rho = c[k] - 0.5f * maha;
+      tile[(S.wrho() + k) * kTileStride + t] = log_rho;
+      lse.add(log_rho, 1.0f);
+    }
+    const float l = lse.value();
+    for (int k = 0; k < K; ++k) {
+      const float log_r = tile[(S.wrho() + k) * kTileStride + t] - l;
+      const float wr = w * expf(log_r);
+      tile[(S.wrho() + k) * kTileStride + t] = wr;
+      tile[(S.c() + k) * kTileStride + t] = wr;
+      tile[(S.t1() + k) * kTileStride + t] = wr * log_r;
+    }
+    tile[S.w() * kTileStride + t] = w;
+    tile[S.wlogw() * kTileStride + t] = w > 0.0f ? w * logf(w) : 0.0f;
+    __syncthreads();
+    stats_accumulate(S, tile, acc, table);
+    __syncthreads();
+  }
+  stats_write_partial(S, acc, partial);
+}
+
+}  // namespace pmc
+
+// ops: A | m | c as above; partial: (n_blocks, S) float64 scratch; stats:
+// (S,) float64 output in the entry order of stats.cuh
+extern "C" int pmc_fused_vb_estep(const float* xT, const float* w,
+                                  const float* ops, double* partial,
+                                  double* stats, long long N, int K, int D,
+                                  int n_blocks, void* stream) {
+  using namespace pmc;
+  const StatsLayout S{K, D};
+  const int params = K * D * D + K * D + K;
+  const size_t smem = stats_launch_smem(S, params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    cudaFuncSetAttribute(vb_estep_kernel<DMAX, OPS_SMEM>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    vb_estep_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
+        xT, w, ops, partial, N, K, D);
+  }));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_reduce(partial, stats, n_blocks, S.entries(), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// shared memory the launcher asks for (checked against ops/_build.py)
+extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
+  using namespace pmc;
+  return static_cast<long long>(
+      stats_launch_smem(StatsLayout{K, D}, K * D * D + K * D + K));
+}

@@ -10,10 +10,13 @@ and every operation is a batched computation over it.  Component death is
 ``weights == 0`` with the old (still valid) parameters kept in place.
 
 Particles are carried transposed, ``(D, N)``, as in the JAX package.  The
-mixture log-density (:func:`mixture_logpdf_T`) and the fused
-propose-and-evaluate step (:func:`propose_logq_T`) run through the kernels
-of :mod:`pypmc_tpu_torch.ops.kernels` (CUDA float32) or their plain
-versions (CPU); everything else here is tensor code on any device.
+mixture log-density (:func:`mixture_logpdf_T`), the fused
+propose-and-evaluate step (:func:`propose_logq_T`) and the Mahalanobis
+distances (:func:`mahalanobis_all_T`) run through the kernels of
+:mod:`pypmc_tpu_torch.ops.kernels` (CUDA float32) or their plain versions
+(CPU) when the mixture fits the kernel (:func:`~pypmc_tpu_torch.ops.kernels.fits`),
+and through their unfused tensor path when it does not; everything else
+here is tensor code on any device.
 """
 
 import dataclasses
@@ -97,7 +100,24 @@ class MixtureParams:
 def params_from_numpy(p, device=None, dtype=None) -> MixtureParams:
     """:class:`MixtureParams` from the eight fields of ``p``, taken as numpy
     arrays: ``p`` is a mapping or any object with those attributes (for
-    instance a :class:`pypmc_tpu.density.core.MixtureParams`)."""
+    instance a :class:`pypmc_tpu.density.core.MixtureParams`).  ``p`` may
+    also be a mixture density of either package (an object with
+    ``components`` and ``weights``, its components Gaussian or Student-t
+    with ``mu``, ``sigma`` and ``dof``): its parameters are stacked and
+    factorized by :func:`make_mixture`."""
+    if hasattr(p, "components"):
+        comps = p.components
+        stack = lambda name: torch.as_tensor(
+            np.array([getattr(c, name) for c in comps], dtype=float),
+            dtype=dtype, device=device)
+        dofs = stack("dof") if all(hasattr(c, "dof") for c in comps) else None
+        params, valid = make_mixture(stack("mu"), stack("sigma"),
+                                     torch.as_tensor(np.array(p.weights, dtype=float),
+                                                     dtype=dtype, device=device), dofs)
+        if not bool(valid.all()):
+            raise ValueError("a component's covariance is not positive definite")
+        return params
+
     def get(f):
         v = p[f] if isinstance(p, dict) else getattr(p, f)
         return None if v is None else torch.as_tensor(
@@ -180,15 +200,30 @@ def mahalanobis(x, means, inv_chol):
     return torch.sum(diff * diff, dim=-1)
 
 
+def _projected_sq_norms_T(xT, a, m):
+    """``(K, N)`` squared norms ``|a_k (x_n - m_k)|^2`` of transposed
+    particles ``xT (D, N)`` for general matrices ``a (K, D, D)`` and
+    centers ``m (K, D)``, in the particles' dtype: kernel ``fused_maha``
+    where the size gate takes the mixture, otherwise one ``(D, N)`` product
+    per component."""
+    K, D = m.shape
+    a, m = a.to(xT.dtype), m.to(xT.dtype)
+    if _k.gate("fused_maha", K, D):
+        return _k.fused_maha(xT.contiguous(), a.contiguous(), m.contiguous())
+    return torch.stack([torch.sum(torch.square(a_k @ (xT - m_k[:, None])), dim=0)
+                        for a_k, m_k in zip(a, m)])
+
+
 def mahalanobis_all_T(params: MixtureParams, xT):
     """``(K, N)`` squared Mahalanobis distances for transposed particles
-    ``xT (D, N)``."""
-    return mahalanobis(xT.T, params.means, params.inv_chol).T
+    ``xT (D, N)`` (through :func:`_projected_sq_norms_T` with the inverse
+    Cholesky factors)."""
+    return _projected_sq_norms_T(xT, params.inv_chol, params.means)
 
 
 def mahalanobis_all(params: MixtureParams, x):
     """``(N, K)`` squared Mahalanobis distances of row-major ``x (N, D)``."""
-    return mahalanobis(x, params.means, params.inv_chol)
+    return mahalanobis_all_T(params, x.T).T
 
 
 def component_logpdfs(params: MixtureParams, x):
@@ -204,8 +239,12 @@ def component_logpdfs(params: MixtureParams, x):
 def mixture_logpdf_T(params: MixtureParams, xT):
     """Mixture log-density ``log q(x_n)``, shape ``(N,)``, for transposed
     particles ``xT (D, N)``: kernel ``fused_logq`` on CUDA float32, its plain
-    version on the CPU."""
-    return _k.fused_logq(xT, _kernel_operands(params))
+    version on the CPU; where the size gate refuses the mixture (as the JAX
+    package takes XLA), the per-component log-densities and a weighted
+    log-sum-exp."""
+    if _k.gate("fused_logq", params.K, params.dim):
+        return _k.fused_logq(xT, _kernel_operands(params))
+    return logsumexp(component_logpdfs(params, xT.T), params.weights, axis=-1)
 
 
 def mixture_logpdf(params: MixtureParams, x):
@@ -244,10 +283,20 @@ def propose_logq_T(params: MixtureParams, rng, n: int, target_params=None):
     optionally a target mixture's) on them: kernel ``fused_propose_logq`` on
     CUDA float32, its plain version on the CPU.
 
+    Where the size gate refuses the mixtures, the draw is :func:`propose_T`
+    and each log-density :func:`mixture_logpdf_T`.
+
     Returns ``(samples_T (D, n), latent (n,), log_q (n,))``, plus
     ``log_p (n,)`` when ``target_params`` is given.  ``rng`` provides the
     two seed words (and is advanced when it is a generator).
     """
+    Kt = 0 if target_params is None else target_params.K
+    if not _k.gate("fused_propose_logq", params.K, params.dim, Kt):
+        samples_T, latent = propose_T(params, rng, n)
+        out = (samples_T, latent, mixture_logpdf_T(params, samples_T))
+        if target_params is None:
+            return out
+        return out + (mixture_logpdf_T(target_params, samples_T),)
     target = None if target_params is None else _kernel_operands(target_params)
     return _k.fused_propose_logq(_rng.seed_words(rng), _kernel_operands(params),
                                  n, target)

@@ -17,6 +17,7 @@ import torch
 
 from .. import _rng
 from ..density import core as _core
+from ..ops import _build
 from ..ops import kernels as _k
 from ..ops.lse import logsumexp, regularize
 
@@ -31,7 +32,11 @@ def _identity(x):
 def calculate_rho_rb_T(params: _core.MixtureParams, samples_T):
     """Rao-Blackwellized responsibilities ``rho (K, N)`` for transposed
     particles ``samples_T (D, N)``: ``rho[k,n] = w_k q_k(x_n) / q(x_n)``,
-    computed in log space; exactly zero for dead components."""
+    computed in log space; exactly zero for dead components.  Kernel
+    ``fused_rho`` where the size gate takes the mixture, otherwise tensor
+    code."""
+    if _k.gate("fused_rho", params.K, params.dim):
+        return _k.fused_rho(samples_T.contiguous(), _core._kernel_operands(params))[0]
     logpdfs = _core.component_logpdfs(params, samples_T.T)  # (N, K)
     log_denom = logsumexp(logpdfs, params.weights, axis=-1)
     rho = torch.exp(logpdfs - log_denom[:, None]) * params.weights[None, :]
@@ -71,17 +76,34 @@ def _check_fused_arg(fused):
         raise ValueError("fused must be one of %s, got %r" % (_FUSED_MODES, fused))
 
 
-def _check_fused_feasible(fused, fused_mode, requirements):
-    """A forced ``fused="dense"`` that fails its gate must not silently
-    reroute onto the unfused path, and the K-blocked kernels are not ported
-    yet."""
+def _fused_mode(fused, kernel, K, D, N, x, Kt=0, rb=True):
+    """``"dense"`` where the single-pass ``kernel`` runs, None for the
+    unfused path, for ``N`` particles on ``x``'s device.  ``"auto"`` asks
+    the size gate (:func:`~pypmc_tpu_torch.ops.kernels.gate`, the JAX
+    package's rule) and takes the unfused path where the JAX package takes
+    XLA; where the JAX package would elect its K-blocked kernel, which is
+    not ported yet, the card raises.  A forced ``"dense"`` that cannot run
+    raises with the rule or limit named instead of rerouting."""
+    _check_fused_arg(fused)
     if fused == "blocked":
         raise NotImplementedError(
             "fused='blocked': the K-blocked kernels are not ported to CUDA yet")
-    if fused == "dense" and fused_mode != fused:
-        raise ValueError(
-            "fused=%r was forced but is infeasible for these operands; the "
-            "%r kernel requires %s." % (fused, fused, requirements))
+    if fused == "off" or (fused == "auto" and not rb):
+        return None
+    if fused == "auto":
+        if _k.gate(kernel, K, D, Kt):
+            return "dense"
+        if _k.elects_blocked(kernel, K, D, N, Kt) and _k.use_kernel(x):
+            raise NotImplementedError(
+                "%s: K=%d, D=%d, N=%d takes the K-blocked kernel in the JAX "
+                "package, which is not ported to CUDA yet" % (kernel, K, D, N))
+        return None
+    reason = ("it requires rb=True" if not rb else
+              _k.refusal(kernel, K, D, Kt) or _build.limit_reason(kernel, K, D, Kt))
+    if reason is not None:
+        raise ValueError("fused='dense' was forced but is infeasible for these "
+                         "operands: %s" % reason)
+    return "dense"
 
 
 class PMCResult(NamedTuple):
@@ -135,8 +157,11 @@ def pmc_update(
     :param transposed: whether ``samples`` is ``(D, N)``.
     :param fused: ``"auto"`` / ``"dense"`` run every statistic in one pass
         (kernel ``fused_pmc_stats`` on CUDA float32, its plain version on
-        the CPU; ``rb=True`` only), ``"off"`` the unfused tensor path;
-        ``"blocked"`` raises ``NotImplementedError``.
+        the CPU; ``rb=True`` only), ``"off"`` the unfused tensor path, which
+        ``"auto"`` also takes where the JAX package takes XLA (``K*D >
+        128``; a forced ``"dense"`` raises there); ``"blocked"``, and
+        ``"auto"`` on the card where the JAX package would elect its
+        K-blocked kernel, raise ``NotImplementedError``.
     """
     reduce = _identity if reduce is None else reduce
     samples_T = samples if transposed else samples.T
@@ -158,10 +183,8 @@ def pmc_update(
         count = reduce(torch.bincount(latent.long(), minlength=K))
         live = live & (count >= mincount)
 
-    _check_fused_arg(fused)
     dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = "dense" if fused in ("auto", "dense") and rb else None
-    _check_fused_feasible(fused, fused_mode, "rb=True")
+    fused_mode = _fused_mode(fused, "fused_pmc_stats", K, dim, N, samples_T, rb=rb)
 
     if fused_mode:
         # one pass: responsibilities, gamma and every statistic per tile;
@@ -288,9 +311,10 @@ def pmc_step_mixture_target(
     evaluate proposal and target, weight, Rao-Blackwellized
     responsibilities, gamma pass and every sufficient statistic -- in one
     pass: kernel ``fused_is_pmc_step`` on CUDA float32, its plain version on
-    the CPU.  ``fused="off"`` composes :func:`~pypmc_tpu_torch.density.core.propose_logq_T`
-    with :func:`pmc_update` (same math, two passes); ``"blocked"`` raises
-    ``NotImplementedError``.
+    the CPU.  ``fused="off"``, and ``"auto"`` where the JAX package takes
+    XLA, compose :func:`~pypmc_tpu_torch.density.core.propose_logq_T` with
+    :func:`pmc_update` (same math, two passes); ``fused`` is otherwise as
+    in :func:`pmc_update`.
 
     ``key`` is an int seed or a ``torch.Generator`` (advanced by two seed
     words).
@@ -299,10 +323,9 @@ def pmc_step_mixture_target(
         sw (3,))`` with ``sw`` the global ``[sum w, sum w^2, sum w log w]``.
     """
     reduce = _identity if reduce is None else reduce
-    _check_fused_arg(fused)
     dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = "dense" if fused in ("auto", "dense") else None
-    _check_fused_feasible(fused, fused_mode, "a mixture target")
+    fused_mode = _fused_mode(fused, "fused_is_pmc_step", params.K, params.dim, n,
+                             params.means, target_params.K)
 
     if not fused_mode:
         samples_T, latent, log_q, log_p = _core.propose_logq_T(

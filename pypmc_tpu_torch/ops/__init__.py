@@ -1,5 +1,5 @@
 """Low-level operations: batched linear algebra, log-sum-exp, chi-square
-sampling, and the CUDA kernels of the PMC main path (:mod:`.kernels`)."""
+sampling, and the port's CUDA kernels (:mod:`.kernels`)."""
 
 from . import kernels
 from .linalg import CholResult, bilinear_sym, chol_inv_det, symmetrize

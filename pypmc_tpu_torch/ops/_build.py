@@ -1,17 +1,22 @@
 """Build and load the CUDA kernels of ``pypmc_tpu_torch/csrc``.
 
 The kernels are plain-C entry points compiled by ``nvcc`` for ``sm_90a``
-into one shared library and loaded with ``ctypes``.  The library is built at
-first use into ``build/`` beside the package, under a name keyed by a hash
-of the sources and flags, so a changed source is rebuilt and an unchanged
-one is loaded as it is.
+and linked into one shared library, loaded with ``ctypes``.  Each source is
+compiled by its own ``nvcc``, all started together.  The library is built
+at first use into ``build/`` beside the package, under a name keyed by a
+hash of the sources and flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is.
 
-This module also states the dense kernels' size limit.  Each thread keeps
-one particle's coordinates in registers, unrolled to at most
-:data:`D_MAX`; each block keeps the mixture operands and, for the
-statistics kernels, a tile of per-particle rows in shared memory, which must
-fit :data:`SMEM_LIMIT`.  A mixture past either limit is refused with the
-limit named; nothing falls back.
+This module also states the CUDA kernels' own size limits.  Each thread
+keeps one particle's coordinates in a per-thread array of at most
+:data:`D_MAX` floats (registers up to D = 32, local memory above).  The
+statistics kernels keep a tile of per-particle rows and their accumulators
+in shared memory, which must fit :data:`SMEM_LIMIT`; every kernel stages
+its mixture operands there too when they fit beside, and otherwise reads
+them from device memory.  :func:`limit_reason` names the limit a shape
+breaks, and the wrappers raise for such a shape.  Which shapes the
+``"auto"`` dispatchers send to a kernel at all is a separate question,
+answered by :func:`pypmc_tpu_torch.ops.kernels.fits`.
 """
 
 import ctypes
@@ -23,16 +28,17 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "smem_bytes", "check_limits",
-           "load", "build_info"]
+__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "KERNELS", "smem_bytes",
+           "limit_reason", "check_limits", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-D_MAX = 32             # register arrays are unrolled to 8, 16 or 32
-SMEM_LIMIT = 232448    # bytes of shared memory one H100 block may use
+D_MAX = 128            # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 or 128
+SMEM_LIMIT = 232448    # csrc/common.cuh kSmemLimit: shared memory one H100 block may use
 THREADS = 128          # csrc/common.cuh kThreads
 _TILE_STRIDE = THREADS + 1
 
@@ -50,37 +56,65 @@ def _full_floats(K, D):
     return _eval_floats(K, D) + K * D * D + K
 
 
-def smem_bytes(kernel, K, D, Kt=0):
-    """Shared memory one block of ``kernel`` asks for; mirrors the
-    launchers in ``csrc/*.cu`` (``Kt`` is the target's component count)."""
-    if kernel == "fused_logq":
-        return 4 * _eval_floats(K, D)
-    if kernel == "fused_propose_logq":
-        return 4 * (_full_floats(K, D) + (_eval_floats(Kt, D) if Kt else 0))
-    if kernel == "fused_pmc_stats":
-        params = _eval_floats(K, D)
-    elif kernel == "fused_is_pmc_step":
-        params = _full_floats(K, D) + _eval_floats(Kt, D)
-    else:
-        raise ValueError("unknown kernel %r" % kernel)
+KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
+           "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep")
+
+
+def _operand_floats(kernel, K, D, Kt):
+    """Floats of the mixture operands one block of ``kernel`` reads."""
+    if kernel in ("fused_logq", "fused_rho", "fused_pmc_stats"):
+        return _eval_floats(K, D)
+    if kernel == "fused_maha":
+        return K * D * D + K * D                 # A | m
+    if kernel in ("fused_propose_logq", "fused_is_pmc_step"):
+        return _full_floats(K, D) + _eval_floats(Kt, D)
+    if kernel == "fused_vb_estep":
+        return K * D * D + K * D + K             # A | m | c
+    raise ValueError("unknown kernel %r" % kernel)
+
+
+def _stats_bytes(K, D, params):
+    """``csrc/stats.cuh`` ``stats_smem_bytes``: ``params`` operand floats,
+    the tile and the accumulators with their entry table."""
     rows = K * D + 3 * K + 3
     entries = K * (3 + D + D * (D + 1) // 2) + 3
     acc_offset = (4 * (params + rows * _TILE_STRIDE) + 7) // 8 * 8
     return acc_offset + entries * (8 + 3 * 2)
 
 
-def check_limits(kernel, K, D, Kt=0):
-    """Raise ``ValueError`` naming the limit if a (K, D) mixture (with a
-    Kt-component target) does not fit the dense kernel."""
+def smem_bytes(kernel, K, D, Kt=0):
+    """Shared memory one block of ``kernel`` asks for; mirrors the
+    launchers in ``csrc/*.cu`` (``Kt`` is the target's component count).
+    The operands are staged in it when they fit beside the kernel's own
+    shared memory, and read from device memory otherwise."""
+    params = _operand_floats(kernel, K, D, Kt)
+    if kernel in ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep"):
+        staged = _stats_bytes(K, D, params)
+        return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0)
+    return 4 * params if 4 * params <= SMEM_LIMIT else 0
+
+
+def limit_reason(kernel, K, D, Kt=0):
+    """None if the CUDA kernel takes a (K, D) mixture (with a Kt-component
+    target), else the limit it breaks, named.  Depends on nothing but its
+    arguments."""
     if not 1 <= D <= D_MAX:
-        raise ValueError("%s: dimension %d is outside the dense kernels' "
-                         "limit 1 <= D <= %d" % (kernel, D, D_MAX))
+        return ("%s: dimension %d is outside the CUDA kernels' limit "
+                "1 <= D <= %d" % (kernel, D, D_MAX))
     need = smem_bytes(kernel, K, D, Kt)
     if need > SMEM_LIMIT:
-        raise ValueError(
-            "%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory a "
-            "block; the dense kernel's limit is %d (the K-blocked kernels are "
-            "not ported yet)" % (kernel, K, Kt, D, need, SMEM_LIMIT))
+        return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
+                "a block for its statistics tile; the limit is %d"
+                % (kernel, K, Kt, D, need, SMEM_LIMIT))
+    return None
+
+
+def check_limits(kernel, K, D, Kt=0):
+    """Raise ``ValueError`` naming the limit if the CUDA kernel does not
+    take a (K, D) mixture (with a Kt-component target)."""
+    reason = limit_reason(kernel, K, D, Kt)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def _nvcc():
@@ -99,6 +133,18 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _run_all(cmds):
+    """Run the commands at once; ``(log, first failing exit code or 0)``."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    log, rc = "", 0
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log += " ".join(cmd) + "\n" + out
+        rc = rc or proc.returncode
+    return log, rc
+
+
 def _build():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
@@ -109,20 +155,21 @@ def _build():
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d):\n%s" % (proc.returncode, log))
-    os.replace(tmp, lib_path)   # atomic: a concurrent build never sees a partial file
-    build_info.update(built=True, seconds=seconds, log=log)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sorted(CSRC.glob("*.cu"))]
+        log, rc = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                            for obj, src in zip(objs, sorted(CSRC.glob("*.cu")))])
+        if rc == 0:
+            so = os.path.join(tmp, "lib.so")
+            link_log, rc = _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+            log += link_log
+        lib_path.with_suffix(".log").write_text(log)
+        if rc != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s" % (rc, log))
+        os.replace(so, lib_path)   # atomic: a concurrent build never sees a partial file
+    build_info.update(built=True, seconds=time.perf_counter() - t0, log=log)
     return lib_path
 
 
@@ -142,13 +189,26 @@ def _declare(lib):
         # student_t, t_student_t, dof_stats, n_blocks, stream
         "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, L, I, I, I, I,
                                   I, I, I, P],
+        # xT, ops, out, N, K, D, n_blocks, stream
+        "pmc_fused_maha": [P, P, P, L, I, I, I, P],
+        # xT, mix, rho, log_q, N, K, D, student_t, n_blocks, stream
+        "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
+        # xT, w, ops, partial, stats, N, K, D, n_blocks, stream
+        "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]
-    lib.pmc_stats_smem_bytes.restype = ctypes.c_longlong
+    lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]     # K, Kt, D, is_step
+    lib.pmc_propose_logq_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
+    for name in ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes",
+                 "pmc_rho_smem_bytes", "pmc_vb_estep_smem_bytes"):
+        getattr(lib, name).argtypes = [I, I]
+    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
+                 "pmc_logq_smem_bytes", "pmc_maha_smem_bytes",
+                 "pmc_rho_smem_bytes", "pmc_vb_estep_smem_bytes"):
+        getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 

@@ -1,27 +1,40 @@
-"""The four CUDA kernels of the PMC main path, each beside its plain
-PyTorch version.
+"""The CUDA kernels of the port, each beside its plain PyTorch version.
 
 ============================  =====================================  ==========================
 wrapper                       CUDA source                            replaces (Pallas, TPU)
 ============================  =====================================  ==========================
 :func:`fused_logq`            ``csrc/logq.cu``                       ``pallas_kernels.py:788``
+:func:`fused_rho`             ``csrc/rho.cu``                        ``pallas_kernels.py:826``
+:func:`fused_maha`            ``csrc/maha.cu``                       ``pallas_kernels.py:858``
 :func:`fused_propose_logq`    ``csrc/propose_logq.cu``               ``pallas_kernels.py:924``
 :func:`fused_pmc_stats`       ``csrc/pmc_stats.cu``                  ``pallas_kernels.py:1150``
 :func:`fused_is_pmc_step`     ``csrc/is_pmc_step.cu``                ``pallas_kernels.py:1336``
+:func:`fused_vb_estep`        ``csrc/vb_estep.cu``                   ``pallas_kernels.py:1493``
 ============================  =====================================  ==========================
 
-Dispatch has one gate, :func:`use_kernel`: a float32 tensor on CUDA goes to
-the kernel, a tensor on the CPU to the plain version, and a CUDA tensor of
-any other dtype raises ``TypeError``.  A CUDA tensor never reaches a plain
-version through a wrapper, and a failed build or launch raises.  The plain
-versions (``plain_*``) compute the same outputs with tensor operations in
-any dtype; the CPU path of the whole package runs through them, and on the
-card the tests and ``chip_smoke.py`` compare the kernels with them.  The
-random kernels draw from a Philox stream per particle; their plain versions
-draw from a ``torch.Generator`` seeded with the same two words, so the two
-agree in distribution, not in value.
+Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
+``"auto"`` dispatcher of the package before it calls a wrapper.  It is the
+JAX package's own rule for running its Pallas kernel, so a mixture takes
+the dispatcher's unfused tensor path exactly where the JAX package takes
+its XLA path, and :func:`gate` counts that route as ``plain:<kernel>``.
+Where the JAX package would elect a K-blocked kernel (:func:`elects_blocked`),
+which the port does not have, the dispatchers raise on the card.  The
+decision depends only on the shape, so the CPU makes the card's choice.
+The device gate, :func:`use_kernel`, sits in each wrapper: a float32 tensor
+on CUDA goes to the kernel, a tensor on the CPU to the plain version, and a
+CUDA tensor of any other dtype raises ``TypeError``.  A CUDA tensor never
+reaches a plain version through a wrapper, and a shape past the CUDA
+kernel's own limits (``_build.limit_reason``), a failed build or a failed
+launch raises.  The plain versions (``plain_*``) compute the same
+outputs with tensor operations in any dtype; the CPU path of the whole
+package runs through them, and on the card the tests and
+``chip_smoke.py`` compare the kernels with them.  The random kernels draw
+from a Philox stream per particle; their plain versions draw from a
+``torch.Generator`` seeded with the same two words, so the two agree in
+distribution, not in value.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+:func:`launch_counts` reads them with the ``plain:<kernel>`` routes.
 """
 
 import dataclasses
@@ -34,10 +47,13 @@ from . import _build
 from .lse import logsumexp
 from .random import student_t_scale
 
-__all__ = ["MixtureOperands", "use_kernel", "fused_logq", "fused_propose_logq",
-           "fused_pmc_stats", "fused_is_pmc_step", "plain_logq",
-           "plain_propose", "plain_propose_logq", "plain_pmc_stats",
-           "plain_is_pmc_step", "launch_counts", "reset_launch_counts"]
+__all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked",
+           "use_kernel", "fused_logq",
+           "fused_rho", "fused_maha", "fused_propose_logq", "fused_pmc_stats",
+           "fused_is_pmc_step", "fused_vb_estep", "plain_logq", "plain_rho",
+           "plain_maha", "plain_propose", "plain_propose_logq",
+           "plain_pmc_stats", "plain_is_pmc_step", "plain_vb_estep",
+           "launch_counts", "reset_launch_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +87,93 @@ class MixtureOperands:
         return out
 
 
+# The JAX package's rules for running a Pallas kernel, by shape, at its
+# default VMEM budget (pypmc_tpu/ops/pallas_kernels.py fits_vmem,
+# fits_vmem_blocked, prefer_blocked) and the single-pass statistics
+# kernels' K*D <= 128 (pypmc_tpu/mix_adapt/pmc.py:227, :427,
+# variational.py:745).
+_VMEM_BUDGET = 6 * 1024 * 1024
+_QUANTUM_EVAL, _QUANTUM_RNG = 128, 1024
+_DENSE_KD = 128
+_BLOCKED_HBM = 12 * 1024 ** 3
+_SINGLE_PASS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
+
+
+def _pad8(n):
+    return (n + 7) // 8 * 8
+
+
+def _fits_vmem(K, D, quantum):
+    return 4 * (3 * _pad8(K * D) + 3 * _pad8(K) + 3 * _pad8(D)) * quantum <= _VMEM_BUDGET
+
+
+def _fits_vmem_blocked(K, D, quantum):
+    kb = 8 if D > 16 else 8 * max(1, 16 // D)
+    K_pad = (K + kb - 1) // kb * kb
+    if K_pad // kb > 64:
+        return False
+    fixed = 4 * (K_pad * D * (D + 1) + K_pad * D * kb * D + 8 * _pad8(K_pad))
+    per_lane = 4 * (2 * K_pad + 4 * kb + 3 * kb * D + D + 4)
+    return fixed + per_lane * quantum <= _VMEM_BUDGET
+
+
+def refusal(kernel, K, D, Kt=0):
+    """None where the JAX package runs its Pallas kernel for a (K, D)
+    mixture (with a Kt-component target), else its rule, named."""
+    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+        ok, rule = _fits_vmem(K, D, _QUANTUM_EVAL), "a VMEM fit at a 128-particle tile"
+    elif kernel == "fused_propose_logq":
+        ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
+    elif kernel in _SINGLE_PASS:
+        ok, rule = K * D <= _DENSE_KD, "K*D <= %d" % _DENSE_KD
+        if kernel == "fused_is_pmc_step" and ok:
+            ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
+    else:
+        raise ValueError("unknown kernel %r" % kernel)
+    if ok:
+        return None
+    return ("%s: K=%d, K_target=%d, D=%d is past the kernel's rule (%s), where "
+            "the JAX package takes its unfused path" % (kernel, K, Kt, D, rule))
+
+
+def fits(kernel, K, D, Kt=0) -> bool:
+    """Whether the kernel runs for a (K, D) mixture (with a Kt-component
+    target): the JAX package's own rule for its Pallas kernel (see
+    :func:`refusal`).  A shape that passes it but is past the CUDA kernel's
+    own limits (``_build.limit_reason``) raises in the wrapper on the card,
+    rather than fall back."""
+    return refusal(kernel, K, D, Kt) is None
+
+
+def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
+    """Whether the JAX package, with the single-pass ``kernel`` out of
+    reach (:func:`fits` False), elects its K-blocked variant: the mixture
+    fits the blocked kernel's VMEM and the unfused path's (K, N) matrices
+    would crowd 12 GiB.  The port has no blocked kernels yet, so its
+    dispatchers raise there on the card."""
+    if kernel not in _SINGLE_PASS:
+        return False
+    if kernel == "fused_is_pmc_step":
+        fit = _fits_vmem_blocked(K + Kt, D, _QUANTUM_RNG)
+    else:
+        fit = _fits_vmem_blocked(K, D, _QUANTUM_EVAL)
+    return fit and 12 * K * N > _BLOCKED_HBM
+
+
+_plain_routes = {}
+
+
+def gate(kernel, K, D, Kt=0) -> bool:
+    """The size gate of an ``"auto"`` dispatch: :func:`fits`, counting a
+    refusal as the route ``plain:<kernel>`` in :func:`launch_counts`."""
+    if fits(kernel, K, D, Kt):
+        return True
+    _plain_routes[kernel] += 1
+    return False
+
+
 def use_kernel(*tensors) -> bool:
-    """The one dispatch gate: True for float32 tensors on CUDA (the kernel
+    """The device gate: True for float32 tensors on CUDA (the kernel
     runs), False for tensors on the CPU (the plain version runs).  Raises
     ``TypeError`` for a CUDA tensor of another dtype or another device type,
     and ``ValueError`` for tensors on different devices."""
@@ -167,6 +268,45 @@ def plain_logq(xT, ops: MixtureOperands):
     return logsumexp(ind, f["weights"][:, None], axis=0)
 
 
+def _rho_from_logpdfs(ind, wk):
+    """Log-space responsibilities ``w_k exp(ind_k - log q)``, exactly 0 for
+    a dead component, and ``log q``."""
+    lse = logsumexp(ind, wk, axis=0)
+    rho = torch.where(wk > 0, torch.exp(ind - lse[None, :]) * wk,
+                      torch.zeros_like(ind))
+    return rho, lse
+
+
+def plain_rho(xT, ops: MixtureOperands):
+    """Plain version of :func:`fused_rho`: ``(rho (K, N), log_q (N,))``."""
+    f = ops.fields()
+    _, _, ind = _component_logpdfs_T(xT, f, ops.dim, ops.student_t)
+    return _rho_from_logpdfs(ind, f["weights"][:, None])
+
+
+def _project(xT, a, m):
+    """``a_k (x_n - m_k)``, shape ``(K, D, N)``."""
+    return a @ (xT[None, :, :] - m[:, :, None])
+
+
+def plain_maha(xT, a, m):
+    """Plain version of :func:`fused_maha`: ``(K, N)``."""
+    diff = _project(xT, a, m)
+    return torch.sum(diff * diff, dim=1)
+
+
+def plain_vb_estep(xT, w, a, m, const):
+    """Plain version of :func:`fused_vb_estep`: ``(N_comp (K,), sd (K, D),
+    g (K, D, D), log_q_Z ())``."""
+    diff = _project(xT, a, m)
+    log_rho = const[:, None] - 0.5 * torch.sum(diff * diff, dim=1)
+    log_r = log_rho - torch.logsumexp(log_rho, dim=0, keepdim=True)
+    wr = torch.exp(log_r) * w[None, :]
+    cdiff = diff * wr[:, None, :]
+    return (wr.sum(1), cdiff.sum(2), cdiff @ diff.transpose(1, 2),
+            torch.sum(wr * log_r))
+
+
 def plain_propose(gen, ops: MixtureOperands, n: int):
     """Draw ``n`` particles from the packed mixture with generator ``gen``
     (on the operands' device): ``(xT (D, n), latent (n,) int32)``.  The
@@ -203,11 +343,7 @@ def plain_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False, n_sw=2):
     f = ops.fields()
     D = ops.dim
     diff, maha, ind = _component_logpdfs_T(xT, f, D, ops.student_t)
-    wk = f["weights"][:, None]
-    lse = logsumexp(ind, wk, axis=0)
-    # log-space responsibilities; exactly 0 for a dead component
-    rho = torch.where(wk > 0, torch.exp(ind - lse[None, :]) * wk,
-                      torch.zeros_like(ind))
+    rho, _ = _rho_from_logpdfs(ind, f["weights"][:, None])
     wrho = rho * w[None, :]
     if ops.student_t:
         nu = f["dof"][:, None]
@@ -257,6 +393,98 @@ def fused_logq(xT, ops: MixtureOperands):
     _raise_on(err, "fused_logq")
     fused_logq.launches += 1
     return out
+
+
+def fused_rho(xT, ops: MixtureOperands):
+    """Rao-Blackwellized responsibilities ``rho (K, N)`` (exactly 0 for a
+    dead component) and the mixture log-density ``(N,)`` of transposed
+    particles ``xT (D, N)`` (kernel ``csrc/rho.cu``)."""
+    if not use_kernel(xT, ops.packed):
+        return plain_rho(xT, ops)
+    D, N = xT.shape
+    _check(xT, (ops.dim, N))
+    _check_operands(ops)
+    _build.check_limits("fused_rho", ops.K, D)
+    lib = _build.load()
+    rho = torch.empty((ops.K, N), dtype=torch.float32, device=xT.device)
+    log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_rho(
+            xT.data_ptr(), ops.packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
+            N, ops.K, D, int(ops.student_t), _blocks(xT.device, N, 16),
+            _stream(xT.device))
+    _raise_on(err, "fused_rho")
+    fused_rho.launches += 1
+    return rho, log_q
+
+
+def _check_projection(xT, a, m):
+    """Shapes and dtypes of :func:`fused_maha`'s and
+    :func:`fused_vb_estep`'s operands: ``(K, D)`` of ``a (K, D, D)``."""
+    D, N = xT.shape
+    _check(xT, (D, N))
+    K = a.shape[0]
+    for t, shape in ((a, (K, D, D)), (m, (K, D))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError("expected float32 of shape %s, got %s %s"
+                             % (shape, t.dtype, tuple(t.shape)))
+    return K, D
+
+
+def fused_maha(xT, a, m):
+    """``(K, N)`` squared norms ``|a_k (x_n - m_k)|^2`` of transposed
+    particles ``xT (D, N)`` for GENERAL matrices ``a (K, D, D)`` (lower,
+    upper or full) and centers ``m (K, D)`` (kernel ``csrc/maha.cu``).
+
+    The TPU kernel takes ``b_k = a_k m_k`` and a coordinate center; the
+    port takes the centers and forms ``x - m_k`` before the product."""
+    if not use_kernel(xT, a, m):
+        return plain_maha(xT, a, m)
+    K, D = _check_projection(xT, a, m)
+    N = xT.shape[1]
+    _build.check_limits("fused_maha", K, D)
+    lib = _build.load()
+    ops = torch.cat([a.reshape(-1), m.reshape(-1)])
+    out = torch.empty((K, N), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), out.data_ptr(), N,
+                                 K, D, _blocks(xT.device, N, 16), _stream(xT.device))
+    _raise_on(err, "fused_maha")
+    fused_maha.launches += 1
+    return out
+
+
+def fused_vb_estep(xT, w, a, m, const):
+    """The sufficient statistics of one VB Gaussian-mixture E-step in one
+    pass (kernel ``csrc/vb_estep.cu``): responsibilities ``r_k`` are the
+    softmax over k of ``const_k - |a_k (x - m_k)|^2 / 2``, and the returns
+    are ``N_comp = sum w r (K,)``, the whitened ``sd = sum w r diff
+    (K, D)`` and ``g = sum w r diff diff^T (K, D, D)`` with ``diff = a_k
+    (x - m_k)``, and ``log_q_Z = sum w sum_k r log r ()``.  ``a`` is any
+    ``(K, D, D)`` matrix (the VB E-step passes upper-triangular ones).  The
+    kernel's statistics are float64."""
+    if not use_kernel(xT, w, a, m, const):
+        return plain_vb_estep(xT, w, a, m, const)
+    K, D = _check_projection(xT, a, m)
+    N = xT.shape[1]
+    _check(w, (N,))
+    if tuple(const.shape) != (K,):
+        raise ValueError("expected const of shape %s, got %s" % ((K,), tuple(const.shape)))
+    _build.check_limits("fused_vb_estep", K, D)
+    lib = _build.load()
+    ops = torch.cat([a.reshape(-1), m.reshape(-1), const])
+    S = _entries(K, D)
+    n_blocks = _stats_blocks(xT.device, N, _build.smem_bytes("fused_vb_estep", K, D))
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
+    flat = torch.empty((S,), dtype=torch.float64, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_vb_estep(
+            xT.data_ptr(), w.data_ptr(), ops.data_ptr(), partial.data_ptr(),
+            flat.data_ptr(), N, K, D, n_blocks, _stream(xT.device))
+    _raise_on(err, "fused_vb_estep")
+    fused_vb_estep.launches += 1
+    stats = _unpack_stats(flat, K, D, 0)
+    return stats["s0"], stats["sd"], stats["g"], stats["t1"].sum()
 
 
 def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
@@ -359,18 +587,24 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
 
 
-_WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step)
+_WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
+             fused_maha, fused_rho, fused_vb_estep)
 
 
 def reset_launch_counts():
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count and every plain route's count to 0."""
     for fn in _WRAPPERS:
         fn.launches = 0
+        _plain_routes[fn.__name__] = 0
 
 
 def launch_counts() -> dict:
-    """``{wrapper name: kernel launches since the last reset}``."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """``{wrapper name: kernel launches, "plain:" + wrapper name: times the
+    size gate sent an "auto" dispatch past the kernel}`` since the last
+    reset."""
+    counts = {fn.__name__: fn.launches for fn in _WRAPPERS}
+    counts.update({"plain:" + name: n for name, n in _plain_routes.items()})
+    return counts
 
 
 reset_launch_counts()

@@ -1,11 +1,12 @@
-"""The four CUDA kernels of pypmc_tpu_torch against their plain versions on
+"""The CUDA kernels of pypmc_tpu_torch against their plain versions on
 the card, at small sizes.  Marked ``gpu``: without a CUDA device every test
 skips.  This file imports no JAX, so on a machine with a card and no JAX it
 runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-The checks are those of ``chip_smoke.py`` (phase 3), at N of a few 10^5.
+The checks are those of ``chip_smoke.py`` (phases 3, 5 and 6), at N of a
+few 10^5.
 """
 
 import pytest
@@ -30,9 +31,37 @@ def cuda():
     (1, 1, 1, 200_003, True, False, False, 3),
     (4, 2, 7, 200_003, True, True, True, 5),
     (2, 3, 32, 100_001, True, False, False, 8),
+    (2, 2, 40, 100_001, False, True, False, 7),
+    (1, 1, 128, 50_001, False, False, False, 9),
 ])
 def test_kernels_against_plain_versions(cuda, case):
     chip_smoke.kernel_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", [
+    # K, D, N, Student-t, dead component, zero weights, seed
+    (10, 10, 1 << 18, True, False, False, 11),
+    (10, 10, 200_003, False, True, True, 12),
+    (1, 1, 200_003, True, False, True, 13),
+    (4, 7, 200_003, True, True, False, 14),
+    (3, 32, 100_001, False, False, True, 15),
+    (2, 40, 100_001, True, False, True, 16),
+    (60, 32, 50_001, False, True, False, 17),
+    (1, 128, 50_001, False, False, True, 18),
+])
+def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
+    chip_smoke.eval_case(case, cuda, [])
+
+
+def test_vb_iteration_against_float64_plain_version(cuda):
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+
+    data, w = chip_smoke.vb_problem(cuda, 1 << 16)
+    chip_smoke.vb_reference(GaussianInference(data, components=10, weights=w, nu=11.0), [])
+
+
+def test_size_gate_routes(cuda):
+    chip_smoke.phase_gate(cuda, [])
 
 
 def test_slice_step_against_unfused_update(cuda):
@@ -48,12 +77,13 @@ def test_dispatch_and_launch_counts(cuda):
     kernels.reset_launch_counts()
     xT = core.propose_logq_T(params, 0, 1000, target)[0]
     core.mixture_logpdf_T(params, xT)
-    assert kernels.launch_counts() == {"fused_logq": 1, "fused_propose_logq": 1,
-                                       "fused_pmc_stats": 0, "fused_is_pmc_step": 0}
+    counts = kernels.launch_counts()
+    assert counts["fused_logq"] == 1 and counts["fused_propose_logq"] == 1
+    assert sum(counts.values()) == 2
     with pytest.raises(TypeError):
         kernels.fused_logq(xT.double(), kernels.MixtureOperands(
             ops.packed.double(), ops.K, ops.dim, ops.student_t))
     with pytest.raises(ValueError, match="limit"):
-        kernels.fused_logq(torch.zeros((33, 10), device=cuda), core._kernel_operands(
-            core.make_mixture(torch.zeros((1, 33), device=cuda),
-                              torch.eye(33, device=cuda)[None])[0]))
+        kernels.fused_logq(torch.zeros((129, 10), device=cuda), core._kernel_operands(
+            core.make_mixture(torch.zeros((1, 129), device=cuda),
+                              torch.eye(129, device=cuda)[None])[0]))

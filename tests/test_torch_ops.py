@@ -141,9 +141,17 @@ def test_limits_are_stated_and_enforced():
     _build.check_limits("fused_is_pmc_step", 10, 10, 2)     # the flagship fits
     with pytest.raises(ValueError, match="limit"):
         _build.check_limits("fused_is_pmc_step", 64, 40, 2)
-    with pytest.raises(ValueError, match="D <= 32"):
-        _build.check_limits("fused_logq", 1, 33)
+    with pytest.raises(ValueError, match="D <= 128"):
+        _build.check_limits("fused_logq", 1, 129)
     assert _build.smem_bytes("fused_is_pmc_step", 10, 10, 2) < _build.SMEM_LIMIT
+    # operands past shared memory are read from device memory: the
+    # evaluation kernels then ask for none, the statistics kernels for their
+    # tile and accumulators alone
+    assert _build.smem_bytes("fused_logq", 60, 32) == 0
+    _build.check_limits("fused_logq", 60, 32)
+    assert 0 < _build.smem_bytes("fused_vb_estep", 1, 128) <= _build.SMEM_LIMIT
+    assert (_build.smem_bytes("fused_vb_estep", 1, 128)
+            < _build._stats_bytes(1, 128, _build._operand_floats("fused_vb_estep", 1, 128, 0)))
 
 
 def test_package_imports_without_jax():
@@ -193,3 +201,145 @@ def test_plain_pmc_stats_matches_pallas_interpret(interpret, student_t, dead):
     for key in ("s0", "s0c", "sd", "g", "sw", "t1"):
         np.testing.assert_allclose(got[key].numpy() / N, np.asarray(ref[key]) / N,
                                    rtol=2e-3, atol=2e-3, err_msg=key)
+
+
+GATE_SHAPES = [(10, 10, 2), (1, 1, 1), (30, 10, 2), (2, 40, 2), (64, 32, 2), (400, 10, 2),
+               (370, 10, 2), (1, 128, 1), (1, 129, 1), (3, 500, 1), (128, 1, 1), (2, 64, 4),
+               (2, 64, 5), (16, 8, 2), (17, 8, 2)]
+
+
+def jax_rule(kernel, K, D, Kt):
+    """Whether the JAX package runs its Pallas kernel for this shape."""
+    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+        return pk.fits_vmem(K, D, pk.QUANTUM_EVAL)
+    if kernel == "fused_propose_logq":
+        return pk.fits_vmem(K + Kt, D, pk.QUANTUM_RNG)
+    if kernel == "fused_is_pmc_step":
+        return K * D <= 128 and pk.fits_vmem(K + Kt, D, pk.QUANTUM_RNG)
+    return K * D <= 128
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_fits_is_the_jax_rule(kernel):
+    """fits() routes a shape to the kernel exactly where the JAX package
+    runs its Pallas kernel; refusal() names the rule otherwise.  The CUDA
+    kernel's own limits are a separate check, which its wrapper makes."""
+    for K, D, Kt in GATE_SHAPES:
+        fits = kernels.fits(kernel, K, D, Kt)
+        assert fits == jax_rule(kernel, K, D, Kt), (K, D, Kt)
+        assert (kernels.refusal(kernel, K, D, Kt) is None) == fits
+        reason = _build.limit_reason(kernel, K, D, Kt)
+        if reason is None:
+            _build.check_limits(kernel, K, D, Kt)
+        else:
+            with pytest.raises(ValueError, match="limit"):
+                _build.check_limits(kernel, K, D, Kt)
+    assert kernels.fits(kernel, 10, 10, 2)
+    assert kernels.fits(kernel, 2, 40, 2)
+
+
+@pytest.mark.parametrize("kernel", ["fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"])
+def test_elects_blocked_is_the_jax_rule(kernel):
+    """Where the single-pass kernel is out, the JAX package elects its
+    K-blocked variant if the mixture fits its VMEM and the unfused (K, N)
+    matrices would crowd 12 GiB."""
+    Kt = 2
+    for K, D, N in ((30, 10, 10 ** 6), (400, 2, 3 * 10 ** 6), (400, 10, 3 * 10 ** 6),
+                    (64, 40, 1 << 25), (2000, 2, 10 ** 6), (600, 2, 2 * 10 ** 6), (4, 8, 1 << 30),
+                    (100, 2, 2 * 10 ** 7)):
+        if kernel == "fused_is_pmc_step":
+            fit = pk.fits_vmem_blocked(K + Kt, D, pk.QUANTUM_RNG)
+        else:
+            fit = pk.fits_vmem_blocked(K, D, pk.QUANTUM_EVAL)
+        want = not jax_rule(kernel, K, D, Kt) and fit and pk.prefer_blocked(K, N)
+        if not kernels.fits(kernel, K, D, Kt):
+            assert kernels.elects_blocked(kernel, K, D, N, Kt) == want, (K, D, N)
+    assert kernels.elects_blocked(kernel, 100, 2, 2 * 10 ** 7, Kt)
+    assert not kernels.elects_blocked("fused_logq", 400, 2, 3 * 10 ** 6)
+
+
+def test_gate_counts_the_plain_route():
+    kernels.reset_launch_counts()
+    assert kernels.gate("fused_logq", 10, 10)
+    assert kernels.gate("fused_logq", 2, 40)
+    assert not kernels.gate("fused_logq", 400, 10)
+    assert not kernels.gate("fused_pmc_stats", 30, 10)
+    counts = kernels.launch_counts()
+    assert counts["plain:fused_logq"] == 1 and counts["plain:fused_pmc_stats"] == 1
+    assert sum(counts.values()) == 2
+    kernels.reset_launch_counts()
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def upper_operands(rng, K, D):
+    """VB's operands: ``A_k = sqrt(nu_k) chol(W_k)^T`` (upper), means."""
+    W = np.linalg.inv(spd(rng, K, D))
+    nu = rng.uniform(D, D + 5, K)
+    A = np.sqrt(nu)[:, None, None] * np.transpose(np.linalg.cholesky(W), (0, 2, 1))
+    return A.astype(np.float32), rng.normal(0, 2, (K, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("operand", ["lower", "upper"])
+def test_plain_maha_matches_pallas_interpret(interpret, operand):
+    """A lower (inverse Cholesky) and an upper (VB's A) operand: both are
+    read whole."""
+    rng = np.random.default_rng(5)
+    K, D, N = 3, 5, 1500
+    if operand == "lower":
+        jp, tp = mixture(rng, K, D, False, dtype=np.float32)
+        a, m = np.asarray(jp.inv_chol), np.asarray(jp.means)
+    else:
+        a, m = upper_operands(rng, K, D)
+        assert np.all(np.tril(a, -1) == 0) and np.any(np.triu(a, 1) != 0)
+    xT = rng.normal(0, 2, (D, N)).astype(np.float32)
+    b2 = np.einsum("kid,kd->ki", a, m).reshape(K * D, 1)
+    ref = np.asarray(pk.fused_maha(jnp.asarray(xT), jnp.asarray(a.reshape(K * D, D)),
+                                   jnp.asarray(b2), jnp.asarray(m.mean(0)), dim=D))
+    got = kernels.fused_maha(torch.tensor(xT), torch.tensor(a), torch.tensor(m)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("student_t,dead", [(True, True), (False, False)])
+def test_plain_rho_matches_pallas_interpret(interpret, student_t, dead):
+    rng = np.random.default_rng(6)
+    jp, tp = mixture(rng, 4, 3, student_t, dead, dtype=np.float32)
+    xT = rng.normal(0, 2, (3, 1700)).astype(np.float32)
+    a2, b2, ln, w, dof, center = jcore._pallas_operands(jp, "inv_chol")
+    rho_ref, lq_ref = pk.fused_rho(jnp.asarray(xT), a2, b2, ln, w, dof, center, dim=3)
+    rho, lq = kernels.fused_rho(torch.tensor(xT), core._kernel_operands(tp))
+    np.testing.assert_allclose(rho.numpy(), np.asarray(rho_ref), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(lq.numpy(), np.asarray(lq_ref), rtol=2e-3, atol=2e-3)
+    if dead:
+        assert np.all(rho.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("zero_weights", [False, True])
+def test_plain_vb_estep_matches_pallas_interpret(interpret, zero_weights):
+    """Statistics per particle (divided by N), as for fused_pmc_stats; zero
+    weights contribute exactly nothing."""
+    rng = np.random.default_rng(7)
+    K, D, N = 3, 4, 1999
+    a, m = upper_operands(rng, K, D)
+    const = rng.normal(0, 1, K).astype(np.float32)
+    xT = (m[rng.integers(0, K, N)].T + rng.normal(0, 1, (D, N))).astype(np.float32)
+    w = rng.exponential(1.0, N).astype(np.float32)
+    if zero_weights:
+        w[::3] = 0.0
+    b2 = np.einsum("kid,kd->ki", a, m).reshape(K * D, 1)
+    ref = pk.fused_vb_estep(jnp.asarray(xT), jnp.asarray(w), jnp.asarray(a.reshape(K * D, D)),
+                            jnp.asarray(b2), jnp.asarray(const.reshape(K, 1)), dim=D)
+    args = [torch.tensor(v) for v in (xT, w, a, m, const)]
+    got = kernels.fused_vb_estep(*args)
+    for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+        np.testing.assert_allclose(g.numpy() / N, np.asarray(r) / N, rtol=2e-3, atol=2e-3,
+                                   err_msg=name)
+    if zero_weights:
+        # in float64, dropping the zero-weight particles changes only the
+        # order of the sums
+        keep = w > 0
+        full = kernels.fused_vb_estep(*[t.double() for t in args])
+        sub = kernels.fused_vb_estep(torch.tensor(xT[:, keep]).double(),
+                                     torch.tensor(w[keep]).double(),
+                                     *[t.double() for t in args[2:]])
+        for g, s in zip(full, sub):
+            torch.testing.assert_close(g, s, rtol=1e-12, atol=1e-12)

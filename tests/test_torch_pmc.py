@@ -144,3 +144,96 @@ def test_pmc_log_likelihood_matches_jax():
         got = float(pmc.pmc_log_likelihood(tp, torch.tensor(x), None if nw is None
                                            else torch.tensor(nw), transposed=True))
         np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=ATOL64)
+
+
+# ------------------------------------------------------------------ #
+# the size gate: the port takes its unfused path where JAX takes XLA   #
+# ------------------------------------------------------------------ #
+
+def test_pmc_update_past_the_kernel_limit_takes_the_unfused_path():
+    """K=30, D=10 is past the single-pass kernel's K*D <= 128, where the JAX
+    package takes its XLA update: "auto" takes the unfused update (through
+    fused_rho and fused_maha, their plain versions here), returns rho, and
+    matches the JAX XLA update; a forced "dense" raises naming the rule, as
+    the JAX package's does."""
+    from pypmc_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(6)
+    K, D, N = 30, 10, 3000
+    jp, tp = mixture(rng, K, D, True)
+    x = rng.normal(0, 2.5, (D, N))
+    w = rng.exponential(1.0, N)
+    assert not kernels.fits("fused_pmc_stats", K, D)
+    kernels.reset_launch_counts()
+    got = pmc.pmc_update(tp, torch.tensor(x), torch.tensor(w), transposed=True)
+    assert kernels.launch_counts()["plain:fused_pmc_stats"] == 1
+    ref = jpmc.pmc_update(jp, jnp.asarray(x), jnp.asarray(w), transposed=True, fused="off")
+    assert_params_close(got.params, ref.params)
+    np.testing.assert_allclose(got.rho.numpy(), np.asarray(ref.rho), rtol=RTOL64, atol=ATOL64)
+    with pytest.raises(ValueError, match=r"K\*D <= 128"):
+        pmc.pmc_update(tp, torch.tensor(x), torch.tensor(w), transposed=True, fused="dense")
+    with pytest.raises(ValueError, match=r"K\*D <= 128"):
+        jpmc.pmc_update(jp, jnp.asarray(x), jnp.asarray(w), transposed=True, fused="dense")
+
+
+def test_step_past_the_kernel_limit_composes_two_passes():
+    """fused_is_pmc_step does not take K=30, D=10 either: the step draws
+    with fused_propose_logq (which fits) and updates unfused; the update
+    matches the JAX XLA update on the port's own samples."""
+    from pypmc_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(7)
+    jp, tp = mixture(rng, 30, 10, True)
+    jt, tt = mixture(rng, 2, 10, False)
+    kernels.reset_launch_counts()
+    result, xT, w, _, _ = pmc.pmc_step_mixture_target(tp, tt, 3, 2000)
+    counts = kernels.launch_counts()
+    assert counts["plain:fused_is_pmc_step"] == 1 and counts["plain:fused_pmc_stats"] == 1
+    assert counts["plain:fused_propose_logq"] == 0
+    ref = jpmc.pmc_update(jp, jnp.asarray(xT.numpy()), jnp.asarray(w.numpy()),
+                          transposed=True, fused="off")
+    assert_params_close(result.params, ref.params, rtol=1e-8, atol=1e-10)
+    with pytest.raises(ValueError, match=r"K\*D <= 128"):
+        pmc.pmc_step_mixture_target(tp, tt, 3, 2000, fused="dense")
+
+
+def test_blocked_election_raises_on_the_card(monkeypatch):
+    """Where the JAX package elects its K-blocked kernel (K=400, N=2^22:
+    the unfused (K, N) matrices would crowd 12 GiB), the port has no
+    kernel: on the card (a kernel-bound tensor, stood in for here) "auto"
+    raises instead of running the unfused path."""
+    from pypmc_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(9)
+    _, tp = mixture(rng, 400, 2, False)
+    x = torch.zeros((2, 1 << 22), dtype=torch.float64)
+    assert kernels.elects_blocked("fused_pmc_stats", 400, 2, 1 << 22)
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    with pytest.raises(NotImplementedError, match="K-blocked"):
+        pmc.pmc_update(tp, x, transposed=True)
+
+
+@pytest.mark.parametrize("K,D", [(2, 10), (2, 40), (400, 10)])
+def test_mixture_logpdf_and_mahalanobis_on_both_sides_of_the_limit(K, D):
+    """The JAX package runs fused_logq and fused_maha at K=2 for D=10 and
+    D=40 (they fit its VMEM at a 128-particle tile) and takes XLA at K=400,
+    D=10: the port runs the kernels' plain versions for the first two and
+    its unfused tensor paths, counted as plain routes, for the third.  All
+    match JAX."""
+    from pypmc_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(8)
+    jp, tp = mixture(rng, K, D, True)
+    xT = rng.normal(0, 2, (D, 400))
+    unfused = K == 400
+    assert kernels.fits("fused_logq", K, D) == kernels.fits("fused_maha", K, D) == (not unfused)
+    kernels.reset_launch_counts()
+    lq = core.mixture_logpdf_T(tp, torch.tensor(xT))
+    maha = core.mahalanobis_all_T(tp, torch.tensor(xT))
+    counts = kernels.launch_counts()
+    assert counts["plain:fused_logq"] == counts["plain:fused_maha"] == int(unfused)
+    np.testing.assert_allclose(lq.numpy(), np.asarray(jcore.mixture_logpdf_T(jp, jnp.asarray(xT))),
+                               rtol=RTOL64, atol=ATOL64)
+    np.testing.assert_allclose(maha.numpy(),
+                               np.asarray(jcore.mahalanobis_all_T(jp, jnp.asarray(xT))),
+                               rtol=RTOL64, atol=ATOL64)
