@@ -6,19 +6,27 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the seven CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once), and each launcher's shared memory
-   against ``ops/_build.py``'s formula;
+2. build: the ten CUDA kernels from ``pypmc_tpu_torch/csrc`` (one ``nvcc``
+   a source, all at once), and each launcher's shared memory against
+   ``ops/_build.py``'s formula;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
    and Student-t, lower and upper ``fused_maha`` operands), and past the
    register kernels (D=40 and D=128, the looped instantiation) and past
    shared memory (operands read from device memory: K=60, D=32 and K=1,
-   D=128).  The random
-   kernels are checked on their own samples: the plain version recomputes
-   every deterministic output from them, and the samples' moments,
-   component frequencies, seed determinism and dead components are tested;
+   D=128), and at the pipeline's K=32, D=40.  ``fused_transform`` on given
+   normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
+   D=40).  The random kernels are checked on their own samples: the plain
+   version recomputes every deterministic output from them, and the
+   samples' moments, component frequencies, seed determinism and dead
+   components are tested.  ``fused_mcmc_pool``: its invariants (last point
+   = final state, final log-density = the float64 plain log-density there,
+   a NaN chain never moves), its pooled moments and acceptance against the
+   plain pool, and at the pipeline's D=40 with a full proposal factor a
+   chain its whitened steps against the plain pool's, with the faults the
+   checks must catch planted in the plain pool.  A per-point target that
+   reaches ``fused_logq``, mapped with ``torch.func.vmap``, is one launch;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
@@ -36,7 +44,18 @@ Phases, each of which exits non-zero on failure:
    ``fused_logq`` and a K=400, D=10 one its unfused path, each against
    float64; a K=400 update of 2^22 particles, where the JAX package elects
    its K-blocked kernel, raises;
-7. times: each kernel and its plain version, with CUDA events.
+7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
+   through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16 and
+   the tensor path below 1024 particles;
+8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
+   fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
+   a second;
+9. pipeline: ``pipeline.integrate`` at ``benchmarks/accuracy_highdim.py
+   --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
+   0.15, one ``fused_mcmc_pool`` launch a cycle) and the callable-target
+   run of ``tests/test_pipeline_api.py``;
+10. times: each kernel and its plain version, with CUDA events, beside
+    the least time the card could take (``bound``).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -72,6 +91,12 @@ SOURCES = {
     "fused_rho": ("pypmc_tpu_torch/csrc/rho.cu", "pypmc_tpu/ops/pallas_kernels.py:826"),
     "fused_vb_estep": ("pypmc_tpu_torch/csrc/vb_estep.cu",
                        "pypmc_tpu/ops/pallas_kernels.py:1493"),
+    "fused_transform": ("pypmc_tpu_torch/csrc/transform.cu",
+                        "pypmc_tpu/ops/pallas_kernels.py:1014"),
+    "fused_transform_rng": ("pypmc_tpu_torch/csrc/transform.cu",
+                            "pypmc_tpu/ops/pallas_kernels.py:881"),
+    "fused_mcmc_pool": ("pypmc_tpu_torch/csrc/mcmc_pool.cu",
+                        "pypmc_tpu/ops/pallas_kernels.py:2293"),
 }
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
@@ -81,7 +106,7 @@ SOURCES = {
 # scatter matrices and bound, float32 particle work reduced in float64
 TOL = {"log": (2e-3, 1e-5), "w": (0.0, 1e-3), "stats": (1e-6, 1e-4),
        "update": (1e-4, 1e-3), "dof": (0.0, 1e-2), "maha": (1e-5, 1e-5),
-       "rho": (2e-3, 0.0), "vb": (0.0, 1e-5)}
+       "rho": (2e-3, 0.0), "vb": (0.0, 1e-5), "pool": (1e-3, 0.0)}
 VB_N, VB_K, VB_D, VB_ITERS = 1 << 22, 10, 10, 50
 
 
@@ -212,7 +237,10 @@ def check_samples(name, xT, latent, arrs, report):
     zc = float(np.max(np.abs(c - cov) / se_c))
     print("  %-34s mean %.2f sigma  cov %.2f sigma" % (name + " moments", zm, zc))
     require(zm < 6 and zc < 6, "%s: sample moments off (%.2f, %.2f sigma)" % (name, zm, zc))
-    report.append({"output": name + " moments", "mean_sigma": zm, "cov_sigma": zc})
+    worst = int(np.argmax(np.abs(m - mean) / se_m))
+    report.append({"output": name + " moments", "mean_sigma": zm, "cov_sigma": zc,
+                   "statistical": True, "max_abs_err": float(abs(m - mean)[worst]),
+                   "tol": float(6 * se_m[worst])})
 
 
 def check_stats(prefix, got, ref, n, report):
@@ -384,7 +412,350 @@ EVAL_CASES = [
     # K=1, D=128
     (60, 32, N_WIDE, False, True, False, 17),
     (1, 128, N_WIDE, False, False, True, 18),
+    # the pipeline's VB and PMC mixtures at D=40 (32 long patches):
+    # fused_maha's full operands fill shared memory nearly to its limit
+    (32, 40, N_WIDE, True, False, False, 20),
 ]
+
+
+def component_draw(params, n, seed):
+    """``n`` components drawn as ``propose_T`` draws them: one uniform a
+    particle against the tail-sum thresholds."""
+    import torch
+    from pypmc_tpu_torch.density import core
+
+    gen = torch.Generator(device=params.device).manual_seed(seed)
+    u = torch.rand(n, generator=gen, dtype=params.means.dtype, device=params.device)
+    cumw = core._cumulative_weights(params.weights)
+    return torch.sum(u[None, :] >= cumw[:-1, None], dim=0, dtype=torch.int32)
+
+
+def transform_case(case, device, report):
+    """fused_transform against its float64 plain version on the same
+    normals, components and scales (a Student-t scale sqrt(dof / chi2))."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    K, D, N, student, seed = case
+    rng = np.random.default_rng(seed)
+    arrs = random_mixture(rng, K, D, student)
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
+    ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+    print("case fused_transform K=%d D=%d N=%d %s" % (K, D, N, "t" if student else "gauss"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    latent = torch.randint(0, K, (N,), generator=gen, device=device, dtype=torch.int32)
+    scale = (student_t_scale(gen, params.dof[latent.long()], (N,)) if student
+             else torch.rand((N,), generator=gen, device=device) + 0.5)
+    got = k.fused_transform(zT, latent, scale, ops)
+    sync(device)
+    ref = k.plain_transform(zT.double(), latent, scale.double(), ops64)
+    compare("fused_transform", got, ref, "log", report)
+    require(bool(torch.equal(got, k.fused_transform(zT, latent, scale, ops))),
+            "fused_transform: one input gave two outputs")
+
+
+def check_components(name, xT, latent, arrs):
+    """The sample mean of each component's particles against its mean, to 6
+    Monte Carlo sigma: each particle came from the component it names."""
+    x = xT.double().cpu().numpy()
+    lat = latent.cpu().numpy()
+    means, covs, w, dofs = arrs
+    worst = 0.0
+    for kk in np.flatnonzero(w > 0):
+        sel = x[:, lat == kk]
+        if sel.shape[1] < 100:
+            continue
+        var = np.diag(covs[kk]).astype(np.float64)
+        if dofs is not None:
+            var = var * dofs[kk] / (dofs[kk] - 2.0)
+        z = np.abs(sel.mean(axis=1) - means[kk]) / np.sqrt(var / sel.shape[1])
+        worst = max(worst, float(z.max()))
+    print("  %-34s worst component mean %.2f sigma" % (name + " per component", worst))
+    require(worst < 6, "%s: a component's particles are off its mean (%.2f sigma)"
+            % (name, worst))
+
+
+def transform_rng_case(case, device, report):
+    """fused_transform_rng on its own draws: the components' frequencies
+    (chi-square against the weights), the mixture's moments and each
+    component's mean; one seed gives one output, two seeds two."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dead, seed = case
+    rng = np.random.default_rng(seed)
+    arrs = random_mixture(rng, K, D, student, dead)
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
+    print("case fused_transform_rng K=%d D=%d N=%d %s%s" % (
+        K, D, N, "t" if student else "gauss", " dead" if dead else ""))
+    latent = component_draw(params, N, seed)
+    xT = k.fused_transform_rng((seed, 31), latent, ops)
+    sync(device)
+    check_samples("fused_transform_rng", xT, latent, arrs, report)
+    check_components("fused_transform_rng", xT, latent, arrs)
+    require(bool(torch.equal(xT, k.fused_transform_rng((seed, 31), latent, ops))),
+            "fused_transform_rng: one seed gave two outputs")
+    require(not bool(torch.equal(xT, k.fused_transform_rng((seed, 32), latent, ops))),
+            "fused_transform_rng: two seeds, one output")
+
+
+def bimodal_target(D, device):
+    """tests/test_rng_kernels.py's pool target: two Gaussians 0.5/0.5 at 0
+    and 4 in every coordinate, covariance 0.5 I."""
+    tm = np.zeros((2, D), np.float32)
+    tm[1] += 4.0
+    tc = np.array([np.eye(D) * 0.5] * 2, np.float32)
+    return make_params((tm, tc, np.array([0.5, 0.5], np.float32), None), device)
+
+
+def pool_inputs(tparams, starts, chol_scale, nan_chain=None):
+    """``(x0T, e0, cholr)`` of a pool with identical diagonal proposals;
+    chain ``nan_chain``'s Cholesky factor is NaN."""
+    import torch
+    from pypmc_tpu_torch.density import core
+
+    C, D = starts.shape
+    device = tparams.device
+    x0T = torch.tensor(starts.T.copy(), device=device)
+    chols = np.array([np.eye(D, dtype=np.float32) * chol_scale] * C)
+    if nan_chain is not None:
+        chols[nan_chain] = np.nan
+    cholr = torch.tensor(chols.transpose(1, 2, 0).reshape(D * D, C).copy(), device=device)
+    return x0T, core.mixture_logpdf_T(tparams, x0T), cholr
+
+
+def pool_case(case, device, report):
+    """fused_mcmc_pool's invariants: the last point is the final state,
+    ef is fused_logq(xf) to 1e-3, a chain with a NaN Cholesky counts every
+    step as NaN, accepts none and never moves; one seed gives one output,
+    two seeds two."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    C, D, steps, dof, seed = case
+    print("case fused_mcmc_pool C=%d D=%d steps=%d %s" % (
+        C, D, steps, "t(%g)" % dof if dof else "gauss"))
+    tparams = bimodal_target(D, device)
+    tops = core._kernel_operands(tparams)
+    starts = np.random.default_rng(seed).normal(2, 1, (C, D)).astype(np.float32)
+    nan_chain = C // 3
+    x0T, e0, cholr = pool_inputs(tparams, starts, 1.2 / math.sqrt(D), nan_chain)
+    points, acc, nans, xf, ef = k.fused_mcmc_pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
+    sync(device)
+    require(tuple(points.shape) == (steps, D, C), "fused_mcmc_pool: points of shape %s"
+            % (tuple(points.shape),))
+    require(bool(torch.equal(points[-1], xf)), "fused_mcmc_pool: last point != final state")
+    tops64 = k.MixtureOperands(tops.packed.double(), tops.K, tops.dim, tops.student_t)
+    compare("fused_mcmc_pool ef", ef, k.plain_logq(xf.double(), tops64), "pool", report)
+    others = torch.arange(C, device=device) != nan_chain
+    require(int(nans[nan_chain]) == steps and int(acc[nan_chain]) == 0,
+            "fused_mcmc_pool: the NaN chain counted %d NaNs, %d accepts"
+            % (int(nans[nan_chain]), int(acc[nan_chain])))
+    require(bool((points[:, :, nan_chain] == x0T[:, nan_chain]).all()),
+            "fused_mcmc_pool: the NaN chain moved")
+    require(bool((nans[others] == 0).all()) and bool(torch.isfinite(points[:, :, others]).all()),
+            "fused_mcmc_pool: NaN outside the NaN chain")
+    rate = float(acc[others].double().mean()) / steps
+    print("  %-34s mean acceptance %.3f" % ("fused_mcmc_pool", rate))
+    require(0.0 < rate < 1.0, "fused_mcmc_pool: acceptance %.3f" % rate)
+    again = k.fused_mcmc_pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
+    require(all(bool(torch.equal(a, b)) for a, b in zip((points, acc, nans, xf, ef), again)),
+            "fused_mcmc_pool: one seed gave two outputs")
+    other = k.fused_mcmc_pool((seed, 6), x0T, e0, cholr, dof, tops, steps)[0]
+    require(not bool(torch.equal(other, points)), "fused_mcmc_pool: two seeds, one output")
+
+
+POOL_MOMENT_TOL, POOL_ACCEPT_TOL, POOL_WALK_TOL = 0.25, 0.01, 0.05
+
+
+def pool_distribution_case(case, device, report):
+    """fused_mcmc_pool against its plain version (another random stream) on
+    tests/test_rng_kernels.py's bimodal target from starts at both modes:
+    pooled post-burn-in means and standard deviations within 0.25
+    (tests/test_rng_kernels.py:352-375) and mean acceptance within
+    POOL_ACCEPT_TOL.  The acceptance sees the Student-t proposal's scale,
+    which the moments do not: the plain pool run without it must differ by
+    more than the limit."""
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    C, D, steps, dof, seed = case
+    tparams = bimodal_target(D, device)
+    tops = core._kernel_operands(tparams)
+    rng = np.random.default_rng(seed)
+    starts = np.concatenate([rng.normal(0, 0.5, (C // 2, D)),
+                             rng.normal(4, 0.5, (C - C // 2, D))]).astype(np.float32)
+    x0T, e0, cholr = pool_inputs(tparams, starts, 1.2 / math.sqrt(D))
+    out = {"kernel": k.fused_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps),
+           "plain": k.plain_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps)}
+    if dof is not None:
+        out["plain without the scale"] = k.plain_mcmc_pool((seed, 8), x0T, e0, cholr, None,
+                                                           tops, steps)
+    sync(device)
+    stats = {}
+    for name, (points, acc, _, _, _) in out.items():
+        x = points[steps // 2:].permute(0, 2, 1).reshape(-1, D).double().cpu().numpy()
+        a = acc.double().cpu().numpy() / steps
+        stats[name] = (x.mean(axis=0), x.std(axis=0), float(a.mean()),
+                       float(a.std() / math.sqrt(C)))
+    dm = float(np.abs(stats["kernel"][0] - stats["plain"][0]).max())
+    ds = float(np.abs(stats["kernel"][1] - stats["plain"][1]).max())
+    da = abs(stats["kernel"][2] - stats["plain"][2])
+    # one sigma of the difference of two pools' mean acceptance
+    sigma = math.hypot(stats["kernel"][3], stats["plain"][3])
+    label = "D=%d %s" % (D, "t(%g)" % dof if dof else "gauss")
+    print("  %-34s mean %.4f  std %.4f  acceptance %.4f = %.1f sigma (kernel %.4f)" % (
+        "fused_mcmc_pool vs plain " + label, dm, ds, da, da / sigma, stats["kernel"][2]))
+    report.append({"output": "fused_mcmc_pool acceptance " + label, "statistical": True,
+                   "max_abs_err": da, "tol": POOL_ACCEPT_TOL, "sigma": sigma,
+                   "mean": dm, "std": ds})
+    require(dm < POOL_MOMENT_TOL and ds < POOL_MOMENT_TOL and da < POOL_ACCEPT_TOL,
+            "fused_mcmc_pool: moments off the plain pool (%.3f, %.3f, %.4f)" % (dm, ds, da))
+    if dof is not None:
+        fault = abs(stats["kernel"][2] - stats["plain without the scale"][2])
+        print("  %-34s acceptance %.4f" % ("planted fault: no Student-t scale", fault))
+        require(fault > POOL_ACCEPT_TOL, "the acceptance check cannot see a pool without "
+                "the Student-t scale (%.4f)" % fault)
+
+
+def walk_inputs(C, D, seed, device):
+    """A pool at the pipeline's shape whose target is nearly flat on the
+    scale of a step: a 2-component Gaussian target of standard deviation
+    1000, starts near 0, and a random full lower-triangular proposal factor
+    a chain, the Cholesky factor of I + 4 A A^T / D with A standard normal.
+    Returns ``(tops, x0T, e0, L (C, D, D))``."""
+    import torch
+    from pypmc_tpu_torch.density import core
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 1, (C, D, D))
+    L = np.linalg.cholesky(np.eye(D)[None] + 4 * a @ a.transpose(0, 2, 1) / D)
+    tm = np.zeros((2, D), np.float32)
+    tm[1] += 1.0
+    tc = np.array([np.eye(D) * 1e6] * 2, np.float32)
+    tparams = make_params((tm, tc, np.array([0.35, 0.65], np.float32), None), device)
+    x0T = torch.tensor(rng.normal(0, 1, (D, C)), dtype=torch.float32, device=device)
+    return (core._kernel_operands(tparams), x0T, core.mixture_logpdf_T(tparams, x0T),
+            torch.tensor(L, dtype=torch.float32, device=device))
+
+
+def whitened_step_cov(points, x0T, L):
+    """``(S (D, D), moves)``: the second moment of ``L_c^-1 (x_t - x_{t-1})``
+    over every step that moved, in float64."""
+    import torch
+
+    x = torch.cat([x0T[None], points]).double()
+    steps = (x[1:] - x[:-1]).permute(2, 1, 0)                    # (C, D, n)
+    w = torch.linalg.solve_triangular(L.double(), steps, upper=False)
+    moved = (steps != 0).any(dim=1)                              # (C, n)
+    w = w.permute(0, 2, 1)[moved]
+    return w.T @ w / w.shape[0], int(moved.sum())
+
+
+def pool_walk_case(case, device, report):
+    """fused_mcmc_pool against its plain version at the pipeline's pool
+    shape (D=40, a 2-component target: the DMAX=128 instantiation) with a
+    full proposal factor L_c a chain.  On a nearly flat target almost every
+    proposal is accepted, so a chain's moves are its proposals, and L_c^-1
+    times a move has second moment s I: s = 1 for a Gaussian proposal,
+    dof / (dof - 2) for Student-t.  The kernel's and the plain pool's
+    moment are held to s I and to each other within POOL_WALK_TOL s.  The
+    plain pool run with L_c transposed, with its diagonal alone and without
+    the Student-t scale -- the faults this check is there to catch -- must
+    each miss s I by more than the limit."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    C, D, steps, dof, seed = case
+    tops, x0T, e0, L = walk_inputs(C, D, seed, device)
+    s = 1.0 if dof is None else dof / (dof - 2.0)
+    eye = torch.eye(D, dtype=torch.float64, device=device)
+    as_cholr = lambda m: m.permute(1, 2, 0).reshape(D * D, C).contiguous()
+    runs = {"kernel": (k.fused_mcmc_pool, L, dof), "plain": (k.plain_mcmc_pool, L, dof),
+            "planted fault: L transposed": (k.plain_mcmc_pool, L.transpose(1, 2), dof),
+            "planted fault: diagonal of L": (k.plain_mcmc_pool, torch.diag_embed(
+                torch.diagonal(L, dim1=1, dim2=2)), dof)}
+    if dof is not None:
+        runs["planted fault: no Student-t scale"] = (k.plain_mcmc_pool, L, None)
+    label = "D=%d %s" % (D, "t(%g)" % dof if dof else "gauss")
+    print("case fused_mcmc_pool walk C=%d %s steps=%d, full L a chain" % (C, label, steps))
+    moments = {}
+    for name, (pool, chol, dof_run) in runs.items():
+        points, acc, nans, _, _ = pool((seed, 9), x0T, e0, as_cholr(chol), dof_run, tops, steps)
+        moments[name], moves = whitened_step_cov(points, x0T, L)
+        off = float((moments[name] - s * eye).abs().max()) / s
+        print("  %-34s |S - sI|/s %.4f  acceptance %.5f  %d moves" % (
+            name, off, float(acc.double().mean()) / steps, moves))
+        require(int(nans.sum()) == 0, "fused_mcmc_pool walk: NaN proposals in " + name)
+        if name.startswith("planted"):
+            require(off > POOL_WALK_TOL, "the walk check cannot see a pool with " + name)
+        else:
+            require(off < POOL_WALK_TOL, "fused_mcmc_pool walk: %s's step moment is off "
+                    "s I by %.4f s" % (name, off))
+    diff = float((moments["kernel"] - moments["plain"]).abs().max())
+    print("  %-34s |S_kernel - S_plain|/s %.4f" % ("fused_mcmc_pool vs plain", diff / s))
+    report.append({"output": "fused_mcmc_pool walk vs plain " + label, "statistical": True,
+                   "max_abs_err": diff, "tol": POOL_WALK_TOL * s})
+    require(diff < POOL_WALK_TOL * s, "fused_mcmc_pool walk: the kernel's step moment is off "
+            "the plain pool's by %.4f s" % (diff / s))
+
+
+def vmap_case(device, report):
+    """A per-point target that reaches fused_logq (``evaluate_fn`` of a
+    K=2, D=40 mixture), mapped with torch.func.vmap as the samplers map
+    per-point targets: one launch for the whole block, against the float64
+    log-density."""
+    import torch
+    from pypmc_tpu_torch.density import core, create_gaussian_mixture
+    from pypmc_tpu_torch.ops import kernels as k
+
+    rng = np.random.default_rng(19)
+    mix = create_gaussian_mixture(*random_mixture(rng, 2, 40, False)[:3])
+    x = torch.tensor(rng.normal(0, 2, (4096, 40)), dtype=torch.float32, device=device)
+    point = mix.evaluate_fn(device=device)
+    k.reset_launch_counts()
+    got = torch.func.vmap(point)(x)
+    sync(device)
+    launches = k.launch_counts()["fused_logq"]
+    require(launches == 1, "fused_logq under vmap: %d launches for one block" % launches)
+    compare("fused_logq under vmap", got.cpu(), core.mixture_logpdf_T(
+        mix.stacked_params(dtype=torch.float64, device="cpu"), x.T.cpu().double()), "log", report)
+
+
+TRANSFORM_CASES = [
+    # K, D, N, Student-t, seed
+    (10, 10, N_PLAIN_MAX, True, 41),
+    (16, 40, N_WIDE, False, 42),
+    (3, 1, N_ODD, True, 43),
+    (32, 40, N_WIDE, True, 44),          # the pipeline's PMC proposal
+]
+TRANSFORM_RNG_CASES = [
+    # K, D, N, Student-t, dead component, seed
+    (10, 10, N_FLAGSHIP, True, False, 51),
+    (10, 10, N_ODD, False, True, 52),
+    (11, 40, N_WIDE, True, False, 53),
+]
+POOL_CASES = [
+    # C, D, steps, Student-t proposal dof (None: Gaussian), seed
+    (200, 2, 64, None, 61),
+    (130, 2, 32, 3.0, 62),
+    (257, 10, 50, None, 63),
+    (96, 40, 40, None, 64),
+]
+# the pooled mean moves with the chains that hop between the modes: 4096
+# chains put the difference of two pools' means at ~0.04 (one sigma), that
+# of their mean acceptance at ~0.0008
+POOL_DISTRIBUTION_CASES = [(4096, 2, 200, None, 71), (4096, 2, 200, 5.0, 72)]
+# the pipeline's pool shape; 2050 chains x 200 steps put the noise of the
+# whitened step moment near 0.01 s at its largest entry
+POOL_WALK_CASES = [(2050, 40, 200, None, 81), (2050, 40, 200, 5.0, 82)]
 
 
 def phase_kernels(device, cases, eval_cases):
@@ -398,6 +769,19 @@ def phase_kernels(device, cases, eval_cases):
     for case in eval_cases:
         eval_case(case, device, report)
         torch.cuda.empty_cache()
+    for case in TRANSFORM_CASES:
+        transform_case(case, device, report)
+    for case in TRANSFORM_RNG_CASES:
+        transform_rng_case(case, device, report)
+    for case in POOL_CASES:
+        pool_case(case, device, report)
+    for case in POOL_DISTRIBUTION_CASES:
+        pool_distribution_case(case, device, report)
+    for case in POOL_WALK_CASES:
+        pool_walk_case(case, device, report)
+    torch.cuda.empty_cache()
+    vmap_case(device, report)
+    torch.cuda.empty_cache()
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
     from pypmc_tpu_torch.density import core
@@ -494,15 +878,18 @@ def phase_slice(device):
 
 
 def device_rows(prof, per):
-    """``(device ms, launches, name)`` by kernel from a torch.profiler run,
-    divided by ``per`` (the steps or iterations profiled), largest first."""
+    """``(device ms, launches, name)`` by kernel or copy from a
+    torch.profiler run, divided by ``per`` (the steps or iterations
+    profiled), largest first.  Only the device's own events count: an
+    operator's row carries the time of the kernels it launched, which
+    have rows of their own."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us / 1e3 / per, e.count / per, e.key))
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append((e.self_device_time_total / 1e3 / per, e.count / per, e.key))
+    require(rows, "the profiler recorded no device event")
     return sorted(rows, reverse=True)
 
 
@@ -700,7 +1087,7 @@ def vbmerge_example(device, report):
 
     mix, guess = mixture_reduction_input()
     vb = VBMerge(mix, N=1000, initial_guess=guess, device=device, dtype=torch.float32)
-    ref = VBMerge(mix, N=1000, initial_guess=guess)
+    ref = VBMerge(mix, N=1000, initial_guess=guess, device="cpu", dtype=torch.float64)
     for f in ("N_comp", "x_mean_comp", "S"):
         compare("fused_maha VBMerge E-step " + f, getattr(vb, f).cpu(), getattr(ref, f),
                 "vb", report)
@@ -853,7 +1240,245 @@ def phase_gate(device, report):
 
 
 # --------------------------------------------------------------------- #
-# phase 7: times                                                        #
+# phase 7: the transform routes                                         #
+# --------------------------------------------------------------------- #
+
+ROUTE_N = 1 << 18
+
+
+def phase_routes(device, report):
+    """propose_logq_T at D=40 against a 2-component target, past
+    fused_propose_logq's rule (K + 2 >= 13 components refuse its 1024-lane
+    tile): K=11 draws through fused_transform_rng, K=16 through
+    fused_transform (Student-t scale drawn outside, clamped), fewer than
+    1024 particles on the tensor path.  Each draw's samples are checked
+    against its mixture and each log-density against float64."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    D = 40
+    rng = np.random.default_rng(80)
+    target = make_params(random_mixture(rng, 2, D, False), device)
+    t64 = target.to("cpu", torch.float64)
+    total = None
+    for K, n, route in ((11, ROUTE_N, "fused_transform_rng"), (16, ROUTE_N, "fused_transform"),
+                        (11, 1000, "tensor")):
+        arrs = random_mixture(rng, K, D, True, spread=3.0)
+        params = make_params(arrs, device)
+        k.reset_launch_counts()
+        xT, lat, log_q, log_p = core.propose_logq_T(params, K, n, target)
+        sync(device)
+        counts = k.launch_counts()
+        launched = {name: c for name, c in counts.items() if c}
+        print("  K=%d D=%d n=%d Student-t: launches %s" % (K, D, n, json.dumps(launched)))
+        want = {"fused_transform_rng": {"plain:fused_propose_logq": 1, "fused_transform_rng": 1,
+                                        "fused_logq": 2},
+                "fused_transform": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
+                                    "fused_transform": 1, "fused_logq": 2},
+                "tensor": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
+                           "plain:fused_transform": 1, "fused_logq": 2}}[route]
+        require(launched == want, "routes: K=%d n=%d took %s, not the %s route"
+                % (K, n, launched, route))
+        x64 = xT.cpu().double()
+        compare("routes K=%d log q" % K, log_q.cpu(),
+                core.mixture_logpdf_T(params.to("cpu", torch.float64), x64), "log", report)
+        compare("routes K=%d log p" % K, log_p.cpu(), core.mixture_logpdf_T(t64, x64), "log",
+                report)
+        if n >= ROUTE_N:
+            check_samples(route + " K=%d" % K, xT, lat, arrs, report)
+            check_components(route + " K=%d" % K, xT, lat, arrs)
+        total = counts if total is None else {c: total[c] + counts[c] for c in total}
+    return total
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the chain pool                                               #
+# --------------------------------------------------------------------- #
+
+MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES = 16384, 10, 500, 4
+
+
+def mcmc_problem(device):
+    """benchmarks/mcmc_chains.py's fused configuration: its quadratic
+    target (seed 3) as a 1-component Gaussian mixture in float32, C=16384
+    starts N(0, 1) (seed 0), sigma0 = 2.38^2 / D I."""
+    rng = np.random.default_rng(3)
+    a = rng.normal(0, 0.3, size=(MCMC_D, MCMC_D))
+    cov = np.eye(MCMC_D) + a @ a.T
+    target = make_params((np.zeros((1, MCMC_D), np.float32), cov[None].astype(np.float32),
+                          np.ones(1, np.float32), None), device)
+    starts = np.random.default_rng(0).normal(0, 1, size=(MCMC_C, MCMC_D)).astype(np.float32)
+    return target, starts, np.eye(MCMC_D, dtype=np.float32) * 2.38 ** 2 / MCMC_D, cov
+
+
+def phase_mcmc(device):
+    """sample_adaptive_chains at that configuration, 500 steps x 4 cycles:
+    one warm-up, then three runs with distinct seeds, each between a reset
+    and a read of the launch counts (one fused_mcmc_pool launch a cycle);
+    chain-steps a second on the host clock, synchronized; the pooled
+    second half against the target's covariance."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.sampler import sample_adaptive_chains
+
+    target, starts, sigma0, cov = mcmc_problem(device)
+
+    def run(key):
+        return sample_adaptive_chains(target, starts, sigma0, MCMC_STEPS, MCMC_CYCLES, key=key)
+
+    run(100)
+    torch.cuda.synchronize()
+    times, counts = [], None
+    for rep in range(3):
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        samples, rates = run(rep)
+        rate = float(rates[:, -1].mean())           # synchronizes
+        times.append(time.perf_counter() - t0)
+        c = k.launch_counts()
+        # the starts' log-densities are one fused_logq
+        require(c["fused_mcmc_pool"] == MCMC_CYCLES and c["fused_logq"] == 1
+                and sum(c.values()) == MCMC_CYCLES + 1,
+                "mcmc: launches %s, not one fused_mcmc_pool a cycle" % c)
+        counts = c if counts is None else {n: counts[n] + c[n] for n in counts}
+    steps = MCMC_C * MCMC_STEPS * MCMC_CYCLES
+    x = samples[:, MCMC_STEPS * MCMC_CYCLES // 2:].reshape(-1, MCMC_D).double()
+    xc = x - x.mean(dim=0)
+    err = float(((xc.T @ xc / x.shape[0]).cpu() - torch.tensor(cov)).abs().max())
+    mean_err = float(x.mean(dim=0).abs().max())
+    print("  C=%d D=%d %d steps x %d cycles: %s s (host clock, synchronized); %.4g "
+          "chain-steps/s at the median; last-cycle acceptance %.3f; pooled second half: "
+          "mean off by %.4f, covariance by %.4f"
+          % (MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES, ", ".join("%.4f" % t for t in times),
+             steps / float(np.median(times)), rate, mean_err, err))
+    print("  launches a run %s" % json.dumps({n: c // 3 for n, c in counts.items() if c}))
+    require(0.1 < rate < 0.6, "mcmc: acceptance %.3f" % rate)
+    require(mean_err < 0.05 and err < 0.05 * float(np.abs(cov).max()),
+            "mcmc: pooled moments off the target (%.4f, %.4f)" % (mean_err, err))
+    return counts, steps / float(np.median(times))
+
+
+# --------------------------------------------------------------------- #
+# phase 9: the one-call pipeline                                        #
+# --------------------------------------------------------------------- #
+
+def highdim_target(dim, seed=7, separation=6.0):
+    """benchmarks/accuracy_highdim.py make_target: a bimodal D-dimensional
+    Gaussian mixture (weights 0.35/0.65), anisotropic rotated covariances,
+    modes ``separation`` apart along a random direction; evidence 1."""
+    from pypmc_tpu_torch.density import create_gaussian_mixture
+
+    rng = np.random.default_rng(seed)
+    direction = rng.normal(size=dim)
+    direction /= np.linalg.norm(direction)
+    means = np.stack([np.zeros(dim), separation * direction])
+    covs = []
+    for _ in range(2):
+        a = rng.normal(0, 0.15 / np.sqrt(dim), size=(dim, dim))
+        covs.append(np.eye(dim) * rng.uniform(0.5, 1.0) + a @ a.T)
+    return create_gaussian_mixture(means, np.array(covs), np.array([0.35, 0.65]))
+
+
+def highdim_starts(target, n_chains=32, seed=2024):
+    """The benchmark's overdispersed starts: mode centers plus 4x-inflated
+    mode noise."""
+    from pypmc_tpu_torch.density import recover_gaussian_mixture
+
+    rng = np.random.default_rng(seed)
+    which = rng.integers(0, 2, n_chains)
+    m, c, _ = recover_gaussian_mixture(target)
+    return np.stack([rng.multivariate_normal(m[k], 4.0 * c[k]) for k in which])
+
+
+PIPELINE = dict(dim=40, mcmc_steps=400, mcmc_cycles=12, thin=5, K_g=1, inflate=2.0,
+                pmc_steps=10, pmc_dof=8.0, n_is1=1 << 20, n_is2=1 << 22)
+
+
+def phase_pipeline(device):
+    """integrate at benchmarks/accuracy_highdim.py --dim 40 --is-samples
+    4194304, between a reset and a read of the launch counts: evidence
+    error under 1%, ESS above 0.15 (tests/test_highdim_pipeline.py:71-80),
+    one fused_mcmc_pool launch a cycle; then tests/test_pipeline_api.py's
+    callable-target run on the card."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.pipeline import integrate
+    from pypmc_tpu_torch.density import create_gaussian_mixture
+
+    cfg = dict(PIPELINE)
+    dim = cfg.pop("dim")
+    target = highdim_target(dim)
+    starts = highdim_starts(target)
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = integrate(target, dim, starts, key=2024, **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = k.launch_counts()
+    err = abs(r.evidence - 1.0) * 100.0
+    d = r.details
+    print("  D=%d: evidence %.6f +- %.6f (error %.4f%%), perplexity %.4f, ESS %.4f, "
+          "%d samples, %.1f s" % (dim, r.evidence, r.uncertainty, err, r.perplexity, r.ess,
+                                   r.n_samples, wall))
+    print("  K: patches %d, VB1 %d, VB2 %d, final %d; last-cycle acceptance %.3f"
+          % (d["patches_K"], d["vb1_K"], d["vb2_K"], d["final_K"],
+             float(np.mean(d["accept_rates"]))))
+    print("  stage seconds: %s" % json.dumps({n: round(v, 4) for n, v in d.items()
+                                              if n.endswith("_s")}))
+    print("  PMC perplexity curve %s" % np.round(d["pmc_perplexity_curve"], 4).tolist())
+    print("  launch counts %s" % json.dumps({n: c for n, c in counts.items() if c}))
+    require(np.isfinite([r.evidence, r.uncertainty, r.ess]).all(), "pipeline: not finite")
+    require(err < 1.0, "pipeline: evidence error %.4f%% >= 1%%" % err)
+    require(r.ess > 0.15, "pipeline: ESS %.4f <= 0.15" % r.ess)
+    require(r.samples.shape == (r.n_samples, dim), "pipeline: samples of shape %s"
+            % (r.samples.shape,))
+    require(counts["fused_mcmc_pool"] == cfg["mcmc_cycles"],
+            "pipeline: %d fused_mcmc_pool launches for %d cycles"
+            % (counts["fused_mcmc_pool"], cfg["mcmc_cycles"]))
+    for name in ("fused_propose_logq", "fused_logq"):
+        require(counts[name] > 0, "pipeline: %s not launched" % name)
+    # the VB E-steps take the JAX package's route: fused_vb_estep where
+    # K*D <= 128, else the unfused E-step through fused_maha (one long patch
+    # a chain at D=40: K=32)
+    vb_route = "fused_vb_estep" if k.fits("fused_vb_estep", d["vb1_K"], dim) else "fused_maha"
+    require(counts[vb_route] > 0, "pipeline: VB1 at K=%d, D=%d did not run %s"
+            % (d["vb1_K"], dim, vb_route))
+    print("  VB1 at K=%d, D=%d: E-steps through %s" % (d["vb1_K"], dim, vb_route))
+
+    # where the device time of the run goes: the same run again, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        integrate(target, dim, starts, key=2024, **cfg)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    rows = device_rows(prof, 1)
+    busy = sum(r[0] for r in rows) / 1e3
+    print("  profiled run: device %.3f s of %.3f s host (%.1f%% busy), %d launches"
+          % (busy, host_s, 100 * busy / host_s, sum(r[1] for r in rows)))
+    for ms, count, key in rows[:12]:
+        print("    %9.3f ms  %6.0f x  %s" % (ms, count, key[:90]))
+
+    # tests/test_pipeline_api.py:40-47: a per-point callable target
+    means = np.stack([np.zeros(2), np.full(2, 3.0)])
+    fn = create_gaussian_mixture(means, np.array([np.eye(2) * 0.7] * 2),
+                                 np.array([0.4, 0.6])).evaluate_fn()
+    srng = np.random.default_rng(0)
+    cstarts = np.vstack([srng.normal(0, 1.5, (6, 2)), srng.normal(3, 1.5, (6, 2))])
+    t0 = time.perf_counter()
+    rc = integrate(fn, 2, cstarts, key=0, mcmc_steps=200, mcmc_cycles=5, n_is1=1 << 13,
+                   n_is2=1 << 14, pmc_steps=2)
+    print("  callable target (D=2): evidence %.5f +- %.5f, %.1f s"
+          % (rc.evidence, rc.uncertainty, time.perf_counter() - t0))
+    require(abs(rc.evidence - 1.0) < 0.05, "pipeline: callable-target evidence %.5f"
+            % rc.evidence)
+    return counts, {"evidence": r.evidence, "error_pct": err, "ess": r.ess, "wall_s": wall}
+
+
+# --------------------------------------------------------------------- #
+# phase 10: times                                                       #
 # --------------------------------------------------------------------- #
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -920,9 +1545,82 @@ def phase_times(device):
     pair("fused_is_pmc_step", lambda i, n: k.fused_is_pmc_step((i, 2), ops, tops, n, True),
          lambda i, n: k.plain_is_pmc_step((i, 2), ops, tops, n, True),
          (N_PLAIN_MAX, N_SLICE))
+    torch.cuda.empty_cache()
+
+    # the transforms on the flagship proposal: normals, components and
+    # Student-t scales as propose_T draws them
+    gen = torch.Generator(device=device).manual_seed(9)
+    latent = component_draw(params, N_PLAIN_MAX, 9)
+    zT = torch.randn((params.dim, N_PLAIN_MAX), generator=gen, device=device)
+    from pypmc_tpu_torch.ops.random import student_t_scale
+    scale = student_t_scale(gen, params.dof[latent.long()], (N_PLAIN_MAX,))
+    pair("fused_transform", lambda i, n: k.fused_transform(zT, latent, scale, ops),
+         lambda i, n: k.plain_transform(zT, latent, scale, ops), (N_PLAIN_MAX,))
+    pair("fused_transform_rng", lambda i, n: k.fused_transform_rng((i, 3), latent, ops),
+         lambda i, n: k.plain_transform_rng((i, 3), latent, ops), (N_PLAIN_MAX,))
+    del zT, latent, scale
+    torch.cuda.empty_cache()
+
+    # the pool at benchmarks/mcmc_chains.py's fused configuration, one cycle
+    ptarget, starts, sigma0, _ = mcmc_problem(device)
+    pops = core._kernel_operands(ptarget)
+    x0T = torch.tensor(starts.T.copy(), device=device)
+    e0 = k.fused_logq(x0T, pops)
+    chol = torch.linalg.cholesky(torch.tensor(sigma0, device=device))
+    cholr = chol.reshape(-1, 1).expand(-1, MCMC_C).contiguous()
+    times[("fused_mcmc_pool", MCMC_C, "cuda")] = cuda_ms(
+        lambda i: k.fused_mcmc_pool((i, 4), x0T, e0, cholr, None, pops, MCMC_STEPS), reps=5)
+    times[("fused_mcmc_pool", MCMC_C, "plain")] = cuda_ms(
+        lambda i: k.plain_mcmc_pool((i, 4), x0T, e0, cholr, None, pops, MCMC_STEPS),
+        reps=2, warmup=1)
     for (name, n, route), ms in times.items():
         print("  %-20s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
     return times
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
+# and FP32 operations a second outside the tensor cores.
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+
+def kernel_work(name):
+    """``(shape, bytes, operations)`` of one call of ``name`` at the shape
+    phase times gives it: each input read once and each output written once,
+    and the FP32 operations of the arithmetic (an FMA counts two; the random
+    numbers' integer and transcendental work is not counted).  The flagship:
+    a K=10 Student-t proposal, a Kt=2 target, D=10, N=2^22; the pool:
+    benchmarks/mcmc_chains.py's C=16384, D=10, a 1-component target, 500
+    steps."""
+    K, Kt, D, N = 10, 2, 10, N_PLAIN_MAX
+    ev = lambda k: k * (D * (D + 1) + 2 * D)        # component log-densities a particle
+    draw = D * (D + 1) + 2 * D                      # mu + scale * (L z)
+    stats = K * (D * (D + 1) + 2 * D)               # sd and the lower Gram blocks
+    dense = K * (2 * D * D + 3 * D)                 # a (x - m), full matrices
+    work = {
+        "fused_logq": (4 * (D + 1) * N, N * ev(K)),
+        "fused_rho": (4 * (D + K + 1) * N, N * ev(K)),
+        "fused_maha": (4 * (D + K) * N, N * dense),
+        "fused_pmc_stats": (4 * (D + 1) * N, N * (ev(K) + stats)),
+        "fused_vb_estep": (4 * (D + 1) * N, N * (dense + stats)),
+        "fused_propose_logq": (4 * (D + 3) * N, N * (draw + ev(K) + ev(Kt))),
+        "fused_is_pmc_step": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
+        "fused_transform": (4 * (2 * D + 2) * N, N * draw),
+        "fused_transform_rng": (4 * (D + 1) * N, N * draw),
+    }
+    if name == "fused_mcmc_pool":
+        C, n = MCMC_C, MCMC_STEPS
+        # points out; x0, xf, cholr, e0, ef, accepts, NaN counts
+        return ("C=%d D=%d Kt=1 %d steps" % (C, D, n), 4 * (n * D * C + (2 * D + D * D + 4) * C),
+                n * C * (D * (D + 1) + D + ev(1)))
+    return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name]
+
+
+def bound(name):
+    """``(shape, least ms, "bytes" or "operations")``: the larger of the
+    bytes over the memory rate and the operations over the FP32 rate."""
+    shape, nbytes, ops = kernel_work(name)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # --------------------------------------------------------------------- #
@@ -963,14 +1661,17 @@ def main():
               % (len(regs), min(regs), max(regs), spills))
     # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
     for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
-                     (2, 2, 40), (60, 2, 32), (1, 1, 128)):
+                     (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128)):
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
                      ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
                      ("fused_is_pmc_step", lib.pmc_stats_smem_bytes(K, Kt, D, 1)),
                      ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
                      ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
-                     ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D))]
+                     ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
+                     ("fused_transform", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D))]
         for kernel, c in launchers:
             require(c == _build.smem_bytes(kernel, K, D, Kt),
                     "shared-memory formula differs from the kernel's (%s)" % kernel)
@@ -994,8 +1695,17 @@ def main():
     vb_counts, vb_ms, vb_busy = phase_vb(device, report)
     print("phase gate:")
     gate_counts = phase_gate(device, report)
+    print("phase routes:")
+    route_counts = phase_routes(device, report)
+    print("phase mcmc:")
+    mcmc_counts, _ = phase_mcmc(device)
+    torch.cuda.empty_cache()
+    print("phase pipeline:")
+    pipe_counts, _ = phase_pipeline(device)
+    torch.cuda.empty_cache()
     # every path was driven with the counts set to 0 just before it
-    counts = {n: counts[n] + vb_counts[n] + gate_counts[n] for n in counts}
+    counts = {n: sum(c[n] for c in (counts, vb_counts, gate_counts, route_counts, mcmc_counts,
+                                    pipe_counts)) for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
@@ -1004,19 +1714,35 @@ def main():
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
-        worst = max((r for r in report if "max_abs_err" in r and (
-            r["output"] == kname or r["output"].startswith(kname + " "))),
-            key=lambda r: r["max_abs_err"] / r["tol"])
-        kernels.append({
+        checks = [r for r in report if "max_abs_err" in r and (
+            r["output"] == kname or r["output"].startswith(kname + " "))]
+        # the kernel-vs-plain comparison on the same inputs; for the pool,
+        # whose points are a random walk, the kernel's and the plain pool's
+        # whitened step moments; a check against the known distribution only
+        # where the output is random numbers and nothing else
+        if kname == "fused_mcmc_pool":
+            checks = [r for r in checks if r["output"].startswith(kname + " walk vs plain")]
+        else:
+            checks = [r for r in checks if not r.get("statistical")] or checks
+        worst = max(checks, key=lambda r: r["max_abs_err"] / r["tol"])
+        n = MCMC_C if kname == "fused_mcmc_pool" else N_PLAIN_MAX
+        shape, bound_ms, bound_by = bound(kname)
+        entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[kname], "max_abs_err": worst["max_abs_err"],
+            "ms": times[(kname, n, "cuda")], "plain_ms": times[(kname, n, "plain")],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
             "max_abs_err_tol": worst["tol"], "max_abs_err_output": worst["output"],
-            "ms": times[(kname, N_PLAIN_MAX, "cuda")],
-            "plain_ms": times[(kname, N_PLAIN_MAX, "plain")], "n": N_PLAIN_MAX,
-            "ms_slice_n": times[(kname, N_SLICE, "cuda")], "slice_n": N_SLICE,
-        })
-    print("ms and plain_ms at N=%d, ms_slice_n at N=%d; max_abs_err is |kernel - plain| "
-          "of the kernel's check nearest its tolerance" % (N_PLAIN_MAX, N_SLICE))
+        }
+        if (kname, N_SLICE, "cuda") in times:
+            entry.update(ms_slice_n=times[(kname, N_SLICE, "cuda")], slice_n=N_SLICE)
+        kernels.append(entry)
+    print("ms and plain_ms at the shape given, ms_slice_n at N=%d; max_abs_err is |kernel - "
+          "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
+          "sample mean against the mixture's; for fused_mcmc_pool, the kernel's and the plain "
+          "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
+          "operations over %.3g op/s; library_ms null: no one PyTorch call computes these "
+          "functions" % (N_SLICE, PEAK_BYTES, PEAK_FP32))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

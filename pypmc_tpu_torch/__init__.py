@@ -3,14 +3,21 @@
 The module tree mirrors :mod:`pypmc_tpu`, and each ported public name
 keeps its name, arguments and return layout, with torch tensors for jax
 arrays and an int seed or a ``torch.Generator`` for a PRNG key.  Ported so
-far: the PMC main path -- ``density.core``, the functional core of
-``mix_adapt.pmc`` and ``parallel.sampler.pmc_run_sharded`` for one process
-on one device -- and variational Bayes -- ``mix_adapt.variational`` with
-the host density classes of ``density`` -- with their seven CUDA kernels in
-``ops.kernels``.  The package imports no JAX and builds its kernels only
-when a CUDA tensor first reaches one.
+far: the one-call evidence pipeline ``pipeline.integrate`` with everything
+it runs -- the adaptive-MCMC chain pool and the importance sampler
+(``sampler``), Gelman-Rubin grouping, PMC and variational Bayes
+(``mix_adapt``), the host density classes and the stacked-parameter core
+(``density``), ``tools`` and ``checkpoint`` -- and
+``parallel.pmc_run_sharded``, for one process on one device, with their
+ten CUDA kernels in ``ops.kernels``.
+
+Entry points run on the CUDA device unless the CPU is asked for
+(:func:`set_default_device`, :func:`using_device` or ``device="cpu"``;
+see :mod:`pypmc_tpu_torch._device`).  The package imports no JAX and
+builds its kernels only when a CUDA tensor first reaches one.
 """
 
-from . import density, mix_adapt, ops, parallel
+from ._device import default_device, set_default_device, using_device, working_dtype
+from . import checkpoint, density, mix_adapt, ops, parallel, pipeline, sampler, tools
 
 __version__ = "0.1.0"

@@ -69,6 +69,8 @@ def seed_words(rng) -> tuple:
 def device_generator(seed, device) -> torch.Generator:
     """A generator on ``device`` seeded from two 32-bit ``seed`` words: the
     plain (non-kernel) versions of the random kernels draw from it."""
-    s0, s1 = seed
-    return torch.Generator(device=device).manual_seed(
-        ((int(s0) & 0xFFFFFFFF) << 32 | (int(s1) & 0xFFFFFFFF)) & (2**63 - 1))
+    s0, s1 = int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF
+    # a CPU generator (mt19937) keeps only the low 32 bits of its seed:
+    # fold the high word into them, so both words move the stream there too
+    low = s1 ^ ((s0 * 0x9E3779B9) & 0xFFFFFFFF)
+    return torch.Generator(device=device).manual_seed((s0 << 32 | low) & (2**63 - 1))

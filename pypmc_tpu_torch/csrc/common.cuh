@@ -271,19 +271,9 @@ __device__ __forceinline__ void store_particle(float* xT, long long N,
 // proposal draw
 // ---------------------------------------------------------------------
 
-// Draw one particle from the mixture: the component by inverse CDF on the
-// TAIL-SUM thresholds cumw[k] = 1 - sum_{j>k} w_j (a dead component has an
-// empty interval and is never drawn), then x = mu + scale * L z with
-// Box-Muller normals z and, for Student-t, scale = sqrt(dof / chi2(dof)).
+// D standard normals into z (Box-Muller pairs; entries past D are 0).
 template <int DMAX>
-__device__ int propose_particle(const float* mix, int K, int D, bool student_t,
-                                Philox& rng, float (&x)[DMAX]) {
-  const MixLayout L{K, D};
-  const float u = rng.uniform();
-  int lat = 0;
-  for (int k = 0; k < K - 1; ++k) lat += u >= mix[L.cumw() + k] ? 1 : 0;
-
-  float z[DMAX];
+__device__ __forceinline__ void draw_normals(Philox& rng, int D, float (&z)[DMAX]) {
 #pragma unroll
   for (int i = 0; i < dim_loop<DMAX>(D); i += 2) {
     z[i] = 0.0f;
@@ -295,13 +285,19 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
       if (i + 1 < DMAX) z[i + 1] = z1;
     }
   }
-  float scale = 1.0f;
-  if (student_t) {
-    const float dof = mix[L.dof() + lat];
-    scale = expf(0.5f * (logf(dof) - log_chi2(dof, rng)));
-  }
-  const float* Lk = mix + L.L() + lat * D * D;
-  const float* mu = mix + L.mu() + lat * D;
+}
+
+// Student-t proposal scale sqrt(dof / chi2(dof)), in log space.
+__device__ __forceinline__ float student_t_scale(float dof, Philox& rng) {
+  return expf(0.5f * (logf(dof) - log_chi2(dof, rng)));
+}
+
+// x = mu + scale * (L z) for one component: L (D, D) row-major lower
+// triangular, the product in FP32 FMA.
+template <int DMAX>
+__device__ __forceinline__ void affine_transform(const float* Lk, const float* mu,
+                                                 int D, const float (&z)[DMAX],
+                                                 float scale, float (&x)[DMAX]) {
 #pragma unroll
   for (int i = 0; i < dim_loop<DMAX>(D); ++i) {
     float s = 0.0f;
@@ -311,6 +307,34 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
     }
     x[i] = i < D ? fmaf(scale, s, mu[i]) : 0.0f;
   }
+}
+
+// One draw from component ``lat`` of a mixture given by its means mu
+// (K, D), Cholesky factors L (K, D, D) and dofs (K): Box-Muller normals z,
+// for Student-t the scale sqrt(dof / chi2(dof)), then x = mu + scale * L z.
+template <int DMAX>
+__device__ __forceinline__ void draw_component(const float* mu, const float* L,
+                                               const float* dof, int lat, int D,
+                                               bool student_t, Philox& rng,
+                                               float (&x)[DMAX]) {
+  float z[DMAX];
+  draw_normals<DMAX>(rng, D, z);
+  const float scale = student_t ? student_t_scale(dof[lat], rng) : 1.0f;
+  affine_transform<DMAX>(L + lat * D * D, mu + lat * D, D, z, scale, x);
+}
+
+// Draw one particle from the mixture: the component by inverse CDF on the
+// TAIL-SUM thresholds cumw[k] = 1 - sum_{j>k} w_j (a dead component has an
+// empty interval and is never drawn), then draw_component.
+template <int DMAX>
+__device__ int propose_particle(const float* mix, int K, int D, bool student_t,
+                                Philox& rng, float (&x)[DMAX]) {
+  const MixLayout L{K, D};
+  const float u = rng.uniform();
+  int lat = 0;
+  for (int k = 0; k < K - 1; ++k) lat += u >= mix[L.cumw() + k] ? 1 : 0;
+  draw_component<DMAX>(mix + L.mu(), mix + L.L(), mix + L.dof(), lat, D,
+                       student_t, rng, x);
   return lat;
 }
 

@@ -2,6 +2,7 @@
 stacked-parameter functional core."""
 
 from . import base, core, gauss, mixture, student_t
+from ._partition import partition, patch_data
 from .base import LocalDensity, ProbabilityDensity
 from .gauss import Gauss, LocalGauss
 from .mixture import (

@@ -26,10 +26,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import _rng
+from .. import _device, _rng
 from ..ops import kernels as _k
+from ..ops import random as _random
 from ..ops.linalg import chol_inv_det, symmetrize
-from ..ops.lse import logsumexp
+from ..ops.lse import logsumexp, tiny
 
 __all__ = [
     "MixtureParams",
@@ -104,7 +105,10 @@ def params_from_numpy(p, device=None, dtype=None) -> MixtureParams:
     also be a mixture density of either package (an object with
     ``components`` and ``weights``, its components Gaussian or Student-t
     with ``mu``, ``sigma`` and ``dof``): its parameters are stacked and
-    factorized by :func:`make_mixture`."""
+    factorized by :func:`make_mixture`.  The tensors go to ``device``
+    (default: :func:`pypmc_tpu_torch.default_device`); ``dtype`` None keeps
+    the arrays' own dtype (float64 for a mixture density)."""
+    device = _device.default_device(device)
     if hasattr(p, "components"):
         comps = p.components
         stack = lambda name: torch.as_tensor(
@@ -133,14 +137,16 @@ def params_to_numpy(params: MixtureParams) -> dict:
             else getattr(params, f).detach().cpu().numpy() for f in _FIELDS}
 
 
-def make_mixture(means, covs, weights=None, dofs=None):
+def make_mixture(means, covs, weights=None, dofs=None, device=None):
     """Build :class:`MixtureParams` from raw means/covariances(/dofs).
 
     Returns ``(params, valid)`` where ``valid`` is a ``(K,)`` bool mask that
     is False for components whose covariance is not symmetric
-    positive-definite.  Weights are normalized.
+    positive-definite.  Weights are normalized.  Tensor means keep their
+    device and dtype; host means go to ``device`` (default:
+    :func:`pypmc_tpu_torch.default_device`) in the working dtype there.
     """
-    means = torch.as_tensor(means)
+    means = _device.as_tensor(means, device)
     covs = torch.as_tensor(covs, dtype=means.dtype, device=means.device)
     K = means.shape[0]
     if weights is None:
@@ -265,11 +271,47 @@ def _cumulative_weights(weights):
 
 def propose_T(params: MixtureParams, rng, n: int):
     """Draw ``n`` samples from the mixture in the transposed layout; return
-    ``(samples_T (D, n), latent (n,) int32)``.  Plain tensor code on any
-    device (the TPU kernel of this step, ``fused_transform_rng``, is not
-    ported yet)."""
-    gen = _rng.device_generator(_rng.seed_words(rng), params.device)
-    return _k.plain_propose(gen, _kernel_operands(params), n)
+    ``(samples_T (D, n), latent (n,) int32)``.
+
+    The component is one uniform per particle against the tail-sum
+    thresholds (a dead component is never drawn), drawn from a generator on
+    the mixture's device.  The transform takes the JAX package's routes
+    (``pypmc_tpu/density/core.py:308-314``): kernel ``fused_transform_rng``
+    (normals and Student-t scale drawn in the kernel) where the mixture
+    fits its rule at 1024 particles a tile and n >= 1024; else kernel
+    ``fused_transform`` on normals and a Student-t scale drawn here (the
+    chi-square clamped to ``tiny``) where it fits at 128 particles; else the
+    transform as tensor code accumulated one Cholesky column at a time.
+    ``rng`` is an int seed or a ``torch.Generator`` (advanced by two seed
+    words)."""
+    K, D = params.K, params.dim
+    dtype, device = params.means.dtype, params.device
+    seed = _rng.seed_words(rng)
+    gen = _rng.device_generator(seed, device)
+    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
+    cumw = _cumulative_weights(params.weights)
+    latent = torch.sum(u[None, :] >= cumw[:-1, None], dim=0, dtype=torch.int32)
+    if _k.gate("fused_transform_rng", K, D, n=n):
+        # the kernel's stream is keyed by the seed words with a bit flipped,
+        # so that it does not share the component draw's
+        return _k.fused_transform_rng((seed[0], seed[1] ^ 1), latent,
+                                      _kernel_operands(params)), latent
+    zT = torch.randn((D, n), generator=gen, dtype=dtype, device=device)
+    if params.is_student_t:
+        dof_n = params.dof[latent.long()]
+        chi2 = torch.clamp(_random.chisquare(gen, dof_n, (n,)), min=tiny(dtype))
+        scale = torch.sqrt(dof_n / chi2)
+    else:
+        scale = torch.ones((n,), dtype=dtype, device=device)
+    if _k.gate("fused_transform", K, D, n=n):
+        return _k.fused_transform(zT, latent, scale, _kernel_operands(params)), latent
+    # the tensor path: gather one (D, n) Cholesky column panel at a time
+    # rather than an (n, D, D) table
+    lat = latent.long()
+    acc = torch.zeros_like(zT)
+    for j in range(D):
+        acc += params.chol[:, :, j].T[:, lat] * zT[j][None, :]
+    return params.means.T[:, lat] + acc * scale[None, :], latent
 
 
 def propose(params: MixtureParams, rng, n: int):

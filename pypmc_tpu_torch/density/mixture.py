@@ -13,7 +13,7 @@ from copy import deepcopy as _deepcopy
 import numpy as _np
 import torch
 
-from .. import _rng
+from .. import _device, _rng
 from ..ops.lse import logsumexp
 from . import core as _core
 from .base import ProbabilityDensity
@@ -75,11 +75,14 @@ class MixtureDensity(ProbabilityDensity):
             return "student_t"
         return "generic"
 
-    def stacked_params(self, dtype=torch.float64, device=None):
+    def stacked_params(self, dtype=None, device=None):
         """The components stacked into a
         :class:`pypmc_tpu_torch.density.core.MixtureParams` on ``device``
-        (the CPU by default).  Only for homogeneous Gauss or Student-t
-        mixtures."""
+        (default: :func:`pypmc_tpu_torch.default_device`) in ``dtype``
+        (default: the working dtype there).  Only for homogeneous Gauss or
+        Student-t mixtures."""
+        device = _device.default_device(device)
+        dtype = dtype or _device.working_dtype(device)
         kind = self.kind
         if kind == "generic":
             raise TypeError(
@@ -102,6 +105,38 @@ class MixtureDensity(ProbabilityDensity):
             weights=weights / torch.sum(weights),
             dof=stack([c.dof for c in self.components]) if kind == "student_t" else None,
         )
+
+    def evaluate_fn(self, batched=False, device=None):
+        """A callable closed over the CURRENT stacked parameters (a snapshot:
+        later updates of this mixture are not reflected), to hand the
+        mixture to the samplers as their target.
+
+        With ``batched=False`` it maps one point ``x (D,) -> log q(x)`` (the
+        reference's ``evaluate`` contract, a tensor on the mixture's device).
+        With ``batched=True`` it is a batched, transposed target
+        (:func:`pypmc_tpu_torch.sampler.batched_target`): ``xT (D, N) ->
+        (N,)`` through :func:`~pypmc_tpu_torch.density.core.mixture_logpdf_T`,
+        and so through kernel ``fused_logq`` on the card.  The parameters
+        live on ``device`` (default: :func:`pypmc_tpu_torch.default_device`)
+        in the working dtype there."""
+        params = self.stacked_params(device=device)
+
+        def as_points(x):
+            return _device.as_tensor(x, params.device, params.means.dtype)
+
+        if batched:
+            from ..sampler._target import batched_target
+
+            @batched_target(transposed=True)
+            def log_q(xT):
+                return _core.mixture_logpdf_T(params, as_points(xT).contiguous())
+
+            return log_q
+
+        def log_q(x):
+            return _core.mixture_logpdf(params, as_points(x)[None, :])[0]
+
+        return log_q
 
     @classmethod
     def from_params(cls, params):
@@ -192,13 +227,13 @@ class MixtureDensity(ProbabilityDensity):
             return self._multi_evaluate_host(x, out, individual, components)
 
         params = self.stacked_params()
-        logpdfs = _core.component_logpdfs(params, torch.as_tensor(x, dtype=torch.float64))
-        logpdfs = logpdfs.numpy()
+        logpdfs = _core.component_logpdfs(
+            params, torch.as_tensor(x, dtype=params.means.dtype, device=params.device))
 
         if components is None:
             if individual is not None:
-                individual[:] = logpdfs
-            res = logsumexp(torch.as_tensor(logpdfs), params.weights, axis=-1).numpy()
+                individual[:] = logpdfs.cpu().numpy()
+            res = logsumexp(logpdfs, params.weights, axis=-1).cpu().numpy()
             # stacked_params normalizes the weights; evaluate() uses them as
             # stored: keep the two consistent for unnormalized weights
             w_sum = float(_np.sum(self.weights))
@@ -212,6 +247,7 @@ class MixtureDensity(ProbabilityDensity):
         else:
             assert out is None, "out cannot be combined with a components subset"
             assert individual is not None
+            logpdfs = logpdfs.cpu().numpy()
             for k in components:
                 individual[:, k] = logpdfs[:, k]
             return None
@@ -233,13 +269,15 @@ class MixtureDensity(ProbabilityDensity):
                 self.components[k].multi_evaluate(x, individual[:, k])
             return None
 
-    def propose(self, N=1, rng=_rng.RNG_DEFAULT, trace=False, shuffle=True):
-        """Propose N points (weights assumed normalized).
+    def propose(self, N=1, rng=_rng.RNG_DEFAULT, trace=False, shuffle=True,
+                device=None):
+        """Propose N points (weights assumed normalized), as numpy arrays.
 
         ``rng`` may be a numpy generator (the reference's multinomial block
         allocation, ``mixture.pyx:159-212``) or an int seed, a
         ``torch.Generator`` or None (a per-particle categorical draw through
-        :func:`pypmc_tpu_torch.density.core.propose`, already unordered, so
+        :func:`pypmc_tpu_torch.density.core.propose` on ``device``, default
+        :func:`pypmc_tpu_torch.default_device`; already unordered, so
         ``shuffle`` is a no-op there).
 
         If ``trace``, additionally return the generating component index per
@@ -250,10 +288,11 @@ class MixtureDensity(ProbabilityDensity):
 
         if not _rng.is_numpy_rng(rng):
             if self.kind != "generic":
-                samples, latent = _core.propose(self.stacked_params(), rng, int(N))
+                samples, latent = _core.propose(self.stacked_params(device=device), rng,
+                                                int(N))
                 if trace:
-                    return samples.numpy(), latent.numpy()
-                return samples.numpy()
+                    return samples.cpu().numpy(), latent.cpu().numpy()
+                return samples.cpu().numpy()
             # generic components draw on the host from a seeded numpy stream
             gen = _rng.as_generator(rng)
             rng = _np.random.RandomState(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))

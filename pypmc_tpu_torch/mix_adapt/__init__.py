@@ -1,8 +1,9 @@
-"""Proposal adaptation: the functional core of PMC and variational Bayes.
-The PMC host classes, hierarchical reduction and Gelman-Rubin grouping are
-not ported yet."""
+"""Proposal adaptation: PMC, variational Bayes and Gelman-Rubin grouping.
+The hierarchical reduction (``pypmc_tpu.mix_adapt.hierarchical``) is not
+ported yet."""
 
-from .pmc import pmc_log_likelihood, pmc_update
+from .pmc import PMC, gaussian_pmc, pmc_log_likelihood, pmc_update, student_t_pmc
+from .r_value import make_r_gaussmix, make_r_tmix, r_group, r_value
 from .variational import (
     Dirichlet_log_C,
     GaussianInference,

@@ -9,20 +9,30 @@ is a fixed-iteration bisection over all components at once.
 
 Every reduction over the particle axis passes through a ``reduce`` hook,
 the counterpart of the JAX package's ``psum``: the identity in one process.
+The reference's host API -- :class:`PMC`, :func:`gaussian_pmc`,
+:func:`student_t_pmc` -- runs these updates on the device for the host
+density classes.
 """
 
+import logging
+from copy import deepcopy as _cp
 from typing import Callable, NamedTuple, Optional
 
+import numpy as _np
 import torch
 
-from .. import _rng
+from .. import _device, _rng
 from ..density import core as _core
+from ..density.mixture import MixtureDensity
 from ..ops import _build
 from ..ops import kernels as _k
 from ..ops.lse import logsumexp, regularize
 
+logger = logging.getLogger(__name__)
+
 __all__ = ["calculate_rho_rb", "calculate_rho_rb_T", "pmc_update", "PMCResult",
-           "pmc_step_mixture_target", "pmc_log_likelihood"]
+           "pmc_step_mixture_target", "pmc_log_likelihood", "PMC", "gaussian_pmc",
+           "student_t_pmc"]
 
 
 def _identity(x):
@@ -366,3 +376,203 @@ def pmc_log_likelihood(params: _core.MixtureParams, samples,
         return reduce(torch.sum(log_q)) / reduce(torch.tensor(
             float(log_q.shape[0]), dtype=log_q.dtype, device=log_q.device))
     return reduce(torch.sum(log_q * normalized_weights))
+
+
+# --------------------------------------------------------------------- #
+# the reference's host API                                              #
+# --------------------------------------------------------------------- #
+
+def _check_pmc_args(samples, weights, latent, mincount, rb):
+    if weights is not None:
+        weights = weights.cpu().numpy() if isinstance(weights, torch.Tensor) \
+            else _np.asarray(weights)
+        assert len(weights.shape) == 1, "expected a 1-D weight vector"
+        assert len(weights) == len(samples), (
+            "weight count %s != sample count %s" % (len(weights), len(samples)))
+    if latent is None:
+        if mincount > 0:
+            raise ValueError("mincount requires latent component indices; pass latent= "
+                             "or set mincount=0")
+        if not rb:
+            raise ValueError("non-Rao-Blackwellized updates need latent component "
+                             "indices; pass latent= or keep rb=True")
+    return weights
+
+
+def _check_mixture(density):
+    if not (isinstance(density, MixtureDensity) and density.kind in ("gauss", "student_t")):
+        raise TypeError(
+            "``density`` must be a ``pypmc_tpu_torch.density.mixture.MixtureDensity`` "
+            "with ``pypmc_tpu_torch.density.gauss.Gauss`` or "
+            "``pypmc_tpu_torch.density.student_t.StudentT`` components")
+
+
+def _log_failed(result):
+    failed = (result.live & ~result.updated_ok).cpu().numpy()
+    for k in _np.flatnonzero(failed):
+        logger.warning("covariance update failed for component %i; zeroing its weight", k)
+
+
+class _Particles(object):
+    """Samples, weights and latent indices of one PMC update on the device,
+    the samples transposed: tensors keep their device, host arrays go to
+    ``device`` (default: :func:`pypmc_tpu_torch.default_device`) in the
+    working dtype there."""
+
+    def __init__(self, samples, weights, latent, device):
+        samples = _device.as_tensor(samples, device)
+        self.samples_T = samples.T.contiguous()
+        self.device, self.dtype = samples.device, samples.dtype
+        self.weights = None if weights is None else _device.as_tensor(
+            weights, self.device, self.dtype)
+        self.latent = None if latent is None else torch.as_tensor(
+            _np.asarray(latent.cpu() if isinstance(latent, torch.Tensor) else latent),
+            device=self.device)
+
+    def params(self, density):
+        return density.stacked_params(dtype=self.dtype, device=self.device)
+
+
+def _apply_pmc(density, samples, weights, latent, rb, mincount, copy, device, **kwargs):
+    _check_pmc_args(samples, weights, latent, mincount, rb)
+    if copy:
+        density = _cp(density)
+    part = _Particles(samples, weights, latent, device)
+    result = pmc_update(part.params(density), part.samples_T, part.weights, part.latent,
+                        rb=rb, mincount=int(mincount), transposed=True, **kwargs)
+    _log_failed(result)
+    density.set_params(result.params)
+    return density
+
+
+def gaussian_pmc(samples, density, weights=None, latent=None, rb=True,
+                 mincount=0, copy=True, device=None):
+    """Adapt a Gaussian mixture ``density`` with one (M-)PMC update
+    ([Cap+08], [Kil+09]) and return the updated density.
+    (Reference: ``mix_adapt/pmc.pyx:120-246``.)
+
+    :param samples: ``(N, D)`` samples proposed by ``density``; host arrays
+        go to ``device`` (default: :func:`pypmc_tpu_torch.default_device`).
+    :param density: :class:`~pypmc_tpu_torch.density.mixture.MixtureDensity`
+        with :class:`~pypmc_tpu_torch.density.gauss.Gauss` components.
+    :param weights: optional ``(N,)`` unnormalized importance weights.
+    :param latent: optional ``(N,)`` generating-component indices.
+    :param rb: Rao-Blackwellize over components (True) or use ``latent``
+        one-hot (False; requires ``latent``).
+    :param mincount: kill components with fewer than this many samples
+        (requires ``latent``).
+    :param copy: if True (default) leave ``density`` untouched and return an
+        updated copy; else update in place.
+    """
+    return _apply_pmc(density, samples, weights, latent, rb, mincount, copy, device,
+                      dof_solver_steps=0)
+
+
+def student_t_pmc(samples, density, weights=None, latent=None, rb=True,
+                  dof_solver_steps=100, mindof=1e-5, maxdof=1e3,
+                  mincount=0, copy=True, device=None):
+    """Adapt a Student-t mixture ``density`` with one (M-)PMC update
+    ([Cap+08], [Kil+09], [HOD12]) and return the updated density.
+    (Reference: ``mix_adapt/pmc.pyx:499-739``.)
+
+    :param dof_solver_steps: bisection iterations for the per-component
+        degree-of-freedom first-order condition; 0 keeps the dof fixed.
+    :param mindof, maxdof: dof search interval; the root is clamped into it.
+
+    Other parameters as in :func:`gaussian_pmc`.
+    """
+    return _apply_pmc(density, samples, weights, latent, rb, mincount, copy, device,
+                      dof_solver_steps=int(dof_solver_steps),
+                      mindof=float(mindof), maxdof=float(maxdof))
+
+
+class PMC(object):
+    """Adapt a Gaussian or Student-t mixture with repeated (M-)PMC updates
+    on the same samples, monitoring the [Cap+08] eq. (5) log-likelihood for
+    convergence.  (Reference: ``mix_adapt/pmc.pyx:248-476``.)
+
+    :param samples: ``(N, D)`` array of samples, kept once on the device,
+        transposed (host arrays go to ``device``, default
+        :func:`pypmc_tpu_torch.default_device`, in the working dtype there).
+    :param density: :class:`~pypmc_tpu_torch.density.mixture.MixtureDensity`
+        with Gauss or StudentT components (always copied).
+    :param weights, latent, rb, mincount: see :func:`gaussian_pmc`.
+
+    Additional keyword arguments are passed to the underlying PMC update
+    (e.g. ``dof_solver_steps`` for Student-t).
+    """
+
+    def __init__(self, samples, density, weights=None, latent=None, rb=True,
+                 mincount=0, device=None, **kwargs):
+        self.weights = _check_pmc_args(samples, weights, latent, mincount, rb)
+        _check_mixture(density)
+        self.density = _cp(density)
+        self.samples = samples
+        self.latent = latent
+        self.rb = rb
+        self.mincount = mincount
+        self.additional_args = kwargs
+        self._part = _Particles(samples, weights, latent, device)
+        self.normalized_weights = (None if self.weights is None
+                                   else self.weights / self.weights.sum())
+        self._normalized_weights_dev = (None if self._part.weights is None else
+                                        self._part.weights / torch.sum(self._part.weights))
+
+    def log_likelihood(self):
+        """Log likelihood of the current density, eq. (5) in [Cap+08]."""
+        return float(pmc_log_likelihood(self._part.params(self.density),
+                                        self._part.samples_T,
+                                        self._normalized_weights_dev, transposed=True))
+
+    def _update_once(self):
+        """One PMC update on the kept particles; mutates ``self.density``."""
+        kwargs = dict(self.additional_args)
+        if self.density.kind != "student_t":
+            kwargs.setdefault("dof_solver_steps", 0)
+        result = pmc_update(self._part.params(self.density), self._part.samples_T,
+                            self._part.weights, self._part.latent, rb=self.rb,
+                            mincount=int(self.mincount), transposed=True, **kwargs)
+        _log_failed(result)
+        self.density.set_params(result.params)
+
+    def run(self, iterations=1000, prune=0.0, rel_tol=1e-10, abs_tol=1e-5):
+        r"""Run PMC updates until convergence of the log-likelihood
+        (reference protocol, ``pmc.pyx:393-476``: converge only if the bound
+        increased, never on an iteration that changed the number of live
+        components; ``prune`` removes components below that weight threshold
+        after every update).
+
+        Return the number of iterations at convergence, or None.
+        """
+        old_K = None
+        bound = None
+        for i in range(1, iterations + 1):
+            if old_K == len(self.density):
+                old_bound = bound
+            else:
+                old_bound = self.log_likelihood()
+                logger.info("K changed to %i; fresh log-likelihood %g",
+                            len(self.density), old_bound)
+
+            self._update_once()
+            bound = self.log_likelihood()
+            logger.info("PMC iteration %d: log-likelihood %.15g with %i live "
+                        "component(s), weights %s",
+                        i, bound, len(self.density), self.density.weights)
+            if bound < old_bound:
+                logger.warning("log-likelihood dropped this iteration (%g -> %g)",
+                               old_bound, bound)
+            if bound == old_bound:
+                return i
+            diff = bound - old_bound
+            if diff > 0:
+                if abs(bound) < abs_tol:
+                    if abs(diff) < abs_tol:
+                        return i
+                elif abs(diff / bound) < rel_tol:
+                    return i
+
+            old_K = len(self.density)
+            self.density.prune(prune)
+            self.density.normalize()
+        return None

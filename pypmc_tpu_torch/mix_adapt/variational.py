@@ -30,6 +30,7 @@ import torch
 from scipy.special import digamma as _digamma_host
 from scipy.special import gammaln as _gammaln_host
 
+from .. import _device
 from ..density import core as _core
 from ..density.gauss import Gauss, chol_inv_det_host
 from ..density.mixture import MixtureDensity
@@ -381,7 +382,9 @@ class GaussianInference(object):
 
     :param data: ``(N, D)`` matrix-like array of samples; a torch tensor
         keeps its device and dtype (float32 on CUDA runs the kernels), any
-        other array becomes float64 on the CPU.
+        other array goes to ``device`` (default:
+        :func:`pypmc_tpu_torch.default_device`) in the working dtype there
+        (float32 on the card, float64 on the CPU).
     :param components: Integer K (detected from ``initial_guess`` if that is
         a mixture).
     :param weights: optional ``(N,)`` nonnegative finite sample weights
@@ -397,11 +400,11 @@ class GaussianInference(object):
     """
 
     def __init__(self, data, components=0, weights=None, initial_guess="first",
-                 mesh=None, **kwargs):
+                 mesh=None, device=None, **kwargs):
         if mesh is not None:
             raise NotImplementedError("mesh=: the multi-rank E-step is not ported yet")
         if not isinstance(data, torch.Tensor):
-            data = torch.as_tensor(_np.asarray(data, dtype=float))
+            data = _device.as_tensor(_np.asarray(data, dtype=float), device)
         if data.ndim == 1:
             data = data[:, None]
         self._data_T = data.T.contiguous()   # the one copy of the data, (D, N)
@@ -875,18 +878,20 @@ class VBMerge(GaussianInference):
     :param initial_guess: "first" | "random" | a Gaussian mixture seeding
         the output.
     :param device, dtype: where and in what dtype the input components are
-        held (float32 on CUDA runs the kernels).
+        held (float32 on CUDA runs the kernels); by default
+        :func:`pypmc_tpu_torch.default_device` and the working dtype there.
 
     All other keyword arguments as in
     :meth:`GaussianInference.set_variational_parameters`.
     """
 
     def __init__(self, input_mixture, N, components=0, initial_guess="first",
-                 device="cpu", dtype=torch.float64, **kwargs):
+                 device=None, dtype=None, **kwargs):
         self.input = input_mixture
         self.L = len(input_mixture.components)
         means, covs, input_weights = _unroll(input_mixture)
-        self.device = torch.device(device)
+        self.device = _device.default_device(device)
+        dtype = dtype or _device.working_dtype(self.device)
         self.mu = torch.as_tensor(means, dtype=dtype, device=self.device)
         self.sigma = torch.as_tensor(covs, dtype=dtype, device=self.device)
 

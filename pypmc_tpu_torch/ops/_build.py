@@ -57,7 +57,8 @@ def _full_floats(K, D):
 
 
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
-           "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep")
+           "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
+           "fused_transform", "fused_transform_rng", "fused_mcmc_pool")
 
 
 def _operand_floats(kernel, K, D, Kt):
@@ -70,6 +71,10 @@ def _operand_floats(kernel, K, D, Kt):
         return _full_floats(K, D) + _eval_floats(Kt, D)
     if kernel == "fused_vb_estep":
         return K * D * D + K * D + K             # A | m | c
+    if kernel in ("fused_transform", "fused_transform_rng"):
+        return K * D * (D + 1) + K               # mu | L | dof
+    if kernel == "fused_mcmc_pool":
+        return _eval_floats(K, D)                # the target's (K components)
     raise ValueError("unknown kernel %r" % kernel)
 
 
@@ -195,6 +200,15 @@ def _declare(lib):
         "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
         # xT, w, ops, partial, stats, N, K, D, n_blocks, stream
         "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, P],
+        # zT, latent, scale, ops, xT, N, K, D, n_blocks, stream
+        "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, P],
+        # s0, s1, latent, ops, xT, N, K, D, student_t, n_blocks, stream
+        "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, P],
+        # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
+        # nan_counts, xfT, ef, C, n_steps, Kt, D, student_t_prop,
+        # t_student_t, stream
+        "pmc_fused_mcmc_pool": [U, U, P, P, P, ctypes.c_float, P, P, P, P, P, P,
+                                I, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -202,12 +216,12 @@ def _declare(lib):
         fn.restype = ctypes.c_int
     lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]     # K, Kt, D, is_step
     lib.pmc_propose_logq_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
-    for name in ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes",
-                 "pmc_rho_smem_bytes", "pmc_vb_estep_smem_bytes"):
+    pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
+             "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes",
+             "pmc_mcmc_pool_smem_bytes")
+    for name in pairs:
         getattr(lib, name).argtypes = [I, I]
-    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
-                 "pmc_logq_smem_bytes", "pmc_maha_smem_bytes",
-                 "pmc_rho_smem_bytes", "pmc_vb_estep_smem_bytes"):
+    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

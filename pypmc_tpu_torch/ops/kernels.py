@@ -10,6 +10,9 @@ wrapper                       CUDA source                            replaces (P
 :func:`fused_pmc_stats`       ``csrc/pmc_stats.cu``                  ``pallas_kernels.py:1150``
 :func:`fused_is_pmc_step`     ``csrc/is_pmc_step.cu``                ``pallas_kernels.py:1336``
 :func:`fused_vb_estep`        ``csrc/vb_estep.cu``                   ``pallas_kernels.py:1493``
+:func:`fused_transform`       ``csrc/transform.cu``                  ``pallas_kernels.py:1014``
+:func:`fused_transform_rng`   ``csrc/transform.cu``                  ``pallas_kernels.py:881``
+:func:`fused_mcmc_pool`       ``csrc/mcmc_pool.cu``                  ``pallas_kernels.py:2293``
 ============================  =====================================  ==========================
 
 Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
@@ -50,10 +53,12 @@ from .random import student_t_scale
 __all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked",
            "use_kernel", "fused_logq",
            "fused_rho", "fused_maha", "fused_propose_logq", "fused_pmc_stats",
-           "fused_is_pmc_step", "fused_vb_estep", "plain_logq", "plain_rho",
+           "fused_is_pmc_step", "fused_vb_estep", "fused_transform",
+           "fused_transform_rng", "fused_mcmc_pool", "plain_logq", "plain_rho",
            "plain_maha", "plain_propose", "plain_propose_logq",
            "plain_pmc_stats", "plain_is_pmc_step", "plain_vb_estep",
-           "launch_counts", "reset_launch_counts"]
+           "plain_transform", "plain_transform_rng", "plain_mcmc_pool",
+           "mcmc_step_chunk", "launch_counts", "reset_launch_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,11 +122,44 @@ def _fits_vmem_blocked(K, D, quantum):
     return fixed + per_lane * quantum <= _VMEM_BUDGET
 
 
-def refusal(kernel, K, D, Kt=0):
+def mcmc_step_chunk(n_steps, D):
+    """The steps the JAX package's pool unrolls per grid step
+    (``pallas_kernels.py`` ``mcmc_step_chunk`` at its default cap): the
+    largest divisor of ``n_steps`` up to ``min(8, 2048 // D)``.  It sizes
+    the VMEM rule of :func:`refusal` only; the CUDA kernel loops over every
+    step."""
+    cap = min(8, max(1, 2048 // max(1, D)))
+    return max(s for s in range(1, min(cap, n_steps) + 1) if n_steps % s == 0)
+
+
+def _fits_vmem_mcmc(D, Kt, n_steps, student_t):
+    sc = mcmc_step_chunk(n_steps, D)
+    per_lane = 4 * (D * _pad8(D) + 2 * _pad8(Kt * (D + 1)) + sc * _pad8(D)
+                    + _pad8(Kt) + 10 * _pad8(D) + 16)
+    return per_lane * (_QUANTUM_RNG if student_t else _QUANTUM_EVAL) <= _VMEM_BUDGET
+
+
+def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
     """None where the JAX package runs its Pallas kernel for a (K, D)
-    mixture (with a Kt-component target), else its rule, named."""
+    mixture (with a Kt-component target), else its rule, named.
+
+    The transform kernels also take the particle count ``n`` (they run
+    only from 1024 particles; None skips that part of the rule).  For
+    ``fused_mcmc_pool``, ``K`` is the target's component count, and the
+    rule needs the steps of a cycle ``n_steps`` and whether the proposal is
+    Student-t."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         ok, rule = _fits_vmem(K, D, _QUANTUM_EVAL), "a VMEM fit at a 128-particle tile"
+    elif kernel in ("fused_transform", "fused_transform_rng"):
+        quantum = _QUANTUM_RNG if kernel == "fused_transform_rng" else _QUANTUM_EVAL
+        ok = _fits_vmem(K, D, quantum) and (n is None or n >= _QUANTUM_RNG)
+        rule = "a VMEM fit at a %d-particle tile and n >= 1024 (n=%s)" % (quantum, n)
+    elif kernel == "fused_mcmc_pool":
+        if n_steps is None:
+            raise ValueError("fused_mcmc_pool's rule needs n_steps")
+        ok = _fits_vmem_mcmc(D, K, n_steps, student_t)
+        rule = ("a VMEM fit of the pool at its minimum chain block (%d steps, "
+                "Student-t proposal %s)" % (n_steps, student_t))
     elif kernel == "fused_propose_logq":
         ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
     elif kernel in _SINGLE_PASS:
@@ -136,13 +174,14 @@ def refusal(kernel, K, D, Kt=0):
             "the JAX package takes its unfused path" % (kernel, K, Kt, D, rule))
 
 
-def fits(kernel, K, D, Kt=0) -> bool:
+def fits(kernel, K, D, Kt=0, **rule) -> bool:
     """Whether the kernel runs for a (K, D) mixture (with a Kt-component
     target): the JAX package's own rule for its Pallas kernel (see
-    :func:`refusal`).  A shape that passes it but is past the CUDA kernel's
-    own limits (``_build.limit_reason``) raises in the wrapper on the card,
-    rather than fall back."""
-    return refusal(kernel, K, D, Kt) is None
+    :func:`refusal`, which also takes ``rule``'s keywords).  A shape that
+    passes it but is past the CUDA kernel's own limits
+    (``_build.limit_reason``) raises in the wrapper on the card, rather than
+    fall back."""
+    return refusal(kernel, K, D, Kt, **rule) is None
 
 
 def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
@@ -163,10 +202,10 @@ def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
 _plain_routes = {}
 
 
-def gate(kernel, K, D, Kt=0) -> bool:
+def gate(kernel, K, D, Kt=0, **rule) -> bool:
     """The size gate of an ``"auto"`` dispatch: :func:`fits`, counting a
     refusal as the route ``plain:<kernel>`` in :func:`launch_counts`."""
-    if fits(kernel, K, D, Kt):
+    if fits(kernel, K, D, Kt, **rule):
         return True
     _plain_routes[kernel] += 1
     return False
@@ -307,24 +346,80 @@ def plain_vb_estep(xT, w, a, m, const):
             torch.sum(wr * log_r))
 
 
+def plain_transform(zT, latent, scale, ops: MixtureOperands):
+    """Plain version of :func:`fused_transform`: ``mu[latent] + (L[latent]
+    z) * scale``, ``(D, N)``, one component's particles at a time."""
+    f = ops.fields()
+    xT = torch.empty_like(zT)
+    for k in range(ops.K):
+        idx = torch.nonzero(latent == k).squeeze(1)
+        xT[:, idx] = f["mu"][k][:, None] + (f["L"][k] @ zT[:, idx]) * scale[idx]
+    return xT
+
+
+def _draw_transform(gen, latent, ops: MixtureOperands):
+    """Normals and, for Student-t, the scale ``sqrt(dof / chi2(dof))`` from
+    ``gen``, transformed for the given components."""
+    f = ops.fields()
+    n, dtype, device = latent.shape[0], ops.packed.dtype, ops.packed.device
+    z = torch.randn((ops.dim, n), generator=gen, dtype=dtype, device=device)
+    if ops.student_t:
+        scale = student_t_scale(gen, f["dof"][latent.long()], (n,))
+    else:
+        scale = torch.ones((n,), dtype=dtype, device=device)
+    return plain_transform(z, latent, scale, ops)
+
+
+def plain_transform_rng(seed, latent, ops: MixtureOperands):
+    """Plain version of :func:`fused_transform_rng`, drawing from a
+    generator seeded with the two ``seed`` words."""
+    return _draw_transform(_rng.device_generator(seed, ops.packed.device), latent, ops)
+
+
 def plain_propose(gen, ops: MixtureOperands, n: int):
     """Draw ``n`` particles from the packed mixture with generator ``gen``
     (on the operands' device): ``(xT (D, n), latent (n,) int32)``.  The
     component comes from one uniform in [0, 1) against the tail-sum
     thresholds, so a dead component is never drawn."""
     f = ops.fields()
-    dtype, device = ops.packed.dtype, ops.packed.device
-    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
+    u = torch.rand(n, generator=gen, dtype=ops.packed.dtype, device=ops.packed.device)
     latent = torch.sum(u[None, :] >= f["cumw"][:-1, None], dim=0,
                        dtype=torch.int32)
-    z = torch.randn((ops.dim, n), generator=gen, dtype=dtype, device=device)
-    if ops.student_t:
-        z = z * student_t_scale(gen, f["dof"][latent], (n,))[None, :]
-    xT = torch.empty((ops.dim, n), dtype=dtype, device=device)
-    for k in range(ops.K):
-        idx = torch.nonzero(latent == k).squeeze(1)
-        xT[:, idx] = f["mu"][k][:, None] + f["L"][k] @ z[:, idx]
-    return xT, latent
+    return _draw_transform(gen, latent, ops), latent
+
+
+def plain_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
+                    n_steps: int):
+    """Plain version of :func:`fused_mcmc_pool`: the same Metropolis steps
+    over all chains as tensor code, one step at a time, drawing from a
+    generator seeded with the two ``seed`` words."""
+    D, C = x0T.shape
+    dtype, device = x0T.dtype, x0T.device
+    gen = _rng.device_generator(seed, device)
+    chols = cholr.to(dtype).reshape(D, D, C)
+    x, e = x0T.clone(), e0.to(dtype).clone()
+    points = torch.empty((n_steps, D, C), dtype=dtype, device=device)
+    accepts = torch.zeros((C,), dtype=torch.int32, device=device)
+    nan_counts = torch.zeros_like(accepts)
+    dof = None if dof_prop is None else torch.full((C,), float(dof_prop), dtype=dtype,
+                                                   device=device)
+    for step in range(n_steps):
+        z = torch.randn((D, C), generator=gen, dtype=dtype, device=device)
+        delta = torch.einsum("dec,ec->dc", chols, z)
+        if dof is not None:
+            delta = delta * student_t_scale(gen, dof, (C,))
+        prop = x + delta
+        e_prop = plain_logq(prop, target)
+        log_u = torch.log(1.0 - torch.rand((C,), generator=gen, dtype=dtype, device=device))
+        log_rho = e_prop - e
+        is_nan = torch.isnan(log_rho)
+        accept = ~is_nan & (log_rho >= log_u)
+        x = torch.where(accept, prop, x)
+        e = torch.where(accept, e_prop, e)
+        accepts += accept.to(torch.int32)
+        nan_counts += is_nan.to(torch.int32)
+        points[step] = x
+    return points, accepts, nan_counts, x, e
 
 
 def plain_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
@@ -377,22 +472,51 @@ def plain_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
 
 def fused_logq(xT, ops: MixtureOperands):
     """Mixture log-density ``(N,)`` of transposed particles ``xT (D, N)``
-    (kernel ``csrc/logq.cu``)."""
+    (kernel ``csrc/logq.cu``).  ``torch.func.vmap`` maps it over a batch
+    of particle blocks with one launch."""
     if not use_kernel(xT, ops.packed):
         return plain_logq(xT, ops)
+    if xT.shape[0] != ops.dim:
+        raise ValueError("expected %d rows, got shape %s" % (ops.dim, tuple(xT.shape)))
+    return _logq_launch(xT, ops.packed, ops.K, bool(ops.student_t))
+
+
+# The launch is an operator so that vmap can map a per-point target that
+# reaches it (the samplers vmap per-point targets, as the JAX package vmaps
+# its Pallas kernel): its vmap rule folds the batch into the particle axis.
+@torch.library.custom_op("pypmc_tpu_torch::fused_logq", mutates_args=(),
+                         device_types="cuda")
+def _logq_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
+                 student_t: bool) -> torch.Tensor:
     D, N = xT.shape
-    _check(xT, (ops.dim, N))
+    ops = MixtureOperands(packed, K, D, student_t)
+    _check(xT, (D, N))
     _check_operands(ops)
-    _build.check_limits("fused_logq", ops.K, D)
+    _build.check_limits("fused_logq", K, D)
     lib = _build.load()
     out = torch.empty((N,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_logq(
-            xT.data_ptr(), ops.packed.data_ptr(), out.data_ptr(), N, ops.K, D,
-            int(ops.student_t), _blocks(xT.device, N, 16), _stream(xT.device))
+            xT.data_ptr(), packed.data_ptr(), out.data_ptr(), N, K, D,
+            int(student_t), _blocks(xT.device, N, 16), _stream(xT.device))
     _raise_on(err, "fused_logq")
     fused_logq.launches += 1
     return out
+
+
+def _logq_vmap(info, in_dims, xT, packed, K, student_t):
+    x_dim, ops_dim = in_dims[0], in_dims[1]
+    if ops_dim is not None:
+        raise NotImplementedError("fused_logq maps over particles, not over mixtures")
+    if x_dim is None:
+        return _logq_launch(xT, packed, K, student_t), None
+    x = xT.movedim(x_dim, 1)                # (D, B, N)
+    D, B, N = x.shape
+    out = _logq_launch(x.reshape(D, B * N).contiguous(), packed, K, student_t)
+    return out.view(B, N), 0
+
+
+_logq_launch.register_vmap(_logq_vmap)
 
 
 def fused_rho(xT, ops: MixtureOperands):
@@ -587,8 +711,114 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
 
 
+def _transform_operands(ops: MixtureOperands):
+    """``mu (K, D) | L (K, D, D) | dof (K)``, the operand buffer of
+    ``csrc/transform.cu``."""
+    f = ops.fields()
+    return torch.cat([f["mu"].reshape(-1), f["L"].reshape(-1), f["dof"]])
+
+
+def fused_transform(zT, latent, scale, ops: MixtureOperands):
+    """The mixture transform ``mu[latent] + (L[latent] z) * scale`` of
+    given normals ``zT (D, N)``, components ``latent (N,) int32`` (in [0,
+    K)) and scales ``(N,)`` -> ``(D, N)`` (kernel ``csrc/transform.cu``)."""
+    if not use_kernel(zT, scale, ops.packed):
+        return plain_transform(zT, latent, scale, ops)
+    D, N = zT.shape
+    _check(zT, (ops.dim, N))
+    _check(scale, (N,))
+    _check(latent, (N,), torch.int32)
+    _check_operands(ops)
+    _build.check_limits("fused_transform", ops.K, D)
+    lib = _build.load()
+    operands = _transform_operands(ops)
+    xT = torch.empty_like(zT)
+    with torch.cuda.device(zT.device):
+        err = lib.pmc_fused_transform(
+            zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
+            xT.data_ptr(), N, ops.K, D, _blocks(zT.device, N, 16), _stream(zT.device))
+    _raise_on(err, "fused_transform")
+    fused_transform.launches += 1
+    return xT
+
+
+def fused_transform_rng(seed, latent, ops: MixtureOperands):
+    """The mixture transform of :func:`fused_transform` with the normals
+    and, for a Student-t mixture, the scale ``sqrt(dof / chi2(dof))`` drawn
+    in the kernel from a Philox stream per particle keyed by the two
+    ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``."""
+    if not use_kernel(ops.packed):
+        return plain_transform_rng(seed, latent, ops)
+    N, D, device = latent.shape[0], ops.dim, ops.packed.device
+    _check(latent, (N,), torch.int32)
+    _check_operands(ops)
+    if latent.device != device:
+        raise ValueError("latent on %s, the mixture on %s" % (latent.device, device))
+    _build.check_limits("fused_transform_rng", ops.K, D)
+    lib = _build.load()
+    operands = _transform_operands(ops)
+    xT = torch.empty((D, N), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_transform_rng(
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, latent.data_ptr(),
+            operands.data_ptr(), xT.data_ptr(), N, ops.K, D, int(ops.student_t),
+            _blocks(device, N, 16), _stream(device))
+    _raise_on(err, "fused_transform_rng")
+    fused_transform_rng.launches += 1
+    return xT
+
+
+def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
+                    n_steps: int):
+    """Run ``C`` symmetric-proposal Metropolis chains for ``n_steps`` steps
+    against a mixture target in one launch (kernel ``csrc/mcmc_pool.cu``).
+
+    :param seed: two 32-bit words; chain c's step s draws from the Philox
+        stream (seed, c, s).
+    :param x0T: ``(D, C)`` starting points; ``e0 (C,)`` the target's
+        log-density there.
+    :param cholr: ``(D*D, C)`` lower Cholesky factors of the proposals,
+        ``cholr[d*D + e, c] = L_c[d, e]`` (entries above the diagonal are not
+        read); cast to the chains' dtype.
+    :param dof_prop: scalar Student-t proposal dof, or None for Gaussian.
+    :returns: ``(points (n_steps, D, C), accepts (C,) int32, nan_counts
+        (C,) int32, xfT (D, C), ef (C,))``: the point after each step, the
+        accepted and the NaN proposals (always rejected) per chain, and the
+        final state.
+    """
+    cholr = cholr.to(x0T.dtype)
+    if not use_kernel(x0T, e0, cholr, target.packed):
+        return plain_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target, n_steps)
+    D, C = x0T.shape
+    _check(x0T, (target.dim, C))
+    _check(e0, (C,))
+    cholr = cholr.contiguous()
+    _check(cholr, (D * D, C))
+    _check_operands(target)
+    _build.check_limits("fused_mcmc_pool", target.K, D)
+    lib = _build.load()
+    device = x0T.device
+    points = torch.empty((n_steps, D, C), dtype=torch.float32, device=device)
+    accepts = torch.empty((C,), dtype=torch.int32, device=device)
+    nan_counts = torch.empty_like(accepts)
+    xfT = torch.empty_like(x0T)
+    ef = torch.empty_like(e0)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_mcmc_pool(
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, x0T.data_ptr(), e0.data_ptr(),
+            cholr.data_ptr(), 1.0 if dof_prop is None else float(dof_prop),
+            target.packed.data_ptr(), points.data_ptr(), accepts.data_ptr(),
+            nan_counts.data_ptr(), xfT.data_ptr(), ef.data_ptr(), C, int(n_steps),
+            target.K, D, int(dof_prop is not None), int(target.student_t),
+            _stream(device))
+    _raise_on(err, "fused_mcmc_pool")
+    fused_mcmc_pool.launches += 1
+    return points, accepts, nan_counts, xfT, ef
+
+
 _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
-             fused_maha, fused_rho, fused_vb_estep)
+             fused_maha, fused_rho, fused_vb_estep, fused_transform,
+             fused_transform_rng, fused_mcmc_pool)
 
 
 def reset_launch_counts():

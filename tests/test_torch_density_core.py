@@ -8,9 +8,17 @@ import pytest
 import torch
 
 import pypmc_tpu.density.core as jcore
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 RTOL64, ATOL64 = 1e-10, 1e-12
 

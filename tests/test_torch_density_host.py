@@ -13,10 +13,18 @@ import pytest
 import torch
 
 import pypmc_tpu.density as jd
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 import pypmc_tpu_torch.density as td
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 RTOL64, ATOL64 = 1e-10, 1e-12
 MU = np.array([0.5, -1.0, 2.0])

@@ -53,6 +53,35 @@ def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
     chip_smoke.eval_case(case, cuda, [])
 
 
+@pytest.mark.parametrize("case", chip_smoke.TRANSFORM_CASES[1:] + [(10, 10, 200_003, True, 44)])
+def test_transform_against_plain_version(cuda, case):
+    chip_smoke.transform_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", [
+    # K, D, N, Student-t, dead component, seed
+    (10, 10, 1 << 18, True, False, 51),
+    (10, 10, 200_003, False, True, 52),
+    (11, 40, 100_001, True, False, 53),
+])
+def test_transform_rng_distribution(cuda, case):
+    chip_smoke.transform_rng_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.POOL_CASES)
+def test_mcmc_pool_invariants(cuda, case):
+    chip_smoke.pool_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.POOL_DISTRIBUTION_CASES)
+def test_mcmc_pool_matches_plain_pool_in_distribution(cuda, case):
+    chip_smoke.pool_distribution_case(case, cuda, [])
+
+
+def test_fused_logq_maps_under_vmap(cuda):
+    chip_smoke.vmap_case(cuda, [])
+
+
 def test_vb_iteration_against_float64_plain_version(cuda):
     from pypmc_tpu_torch.mix_adapt import GaussianInference
 

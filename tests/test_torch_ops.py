@@ -17,10 +17,18 @@ import pypmc_tpu.density.core as jcore
 import pypmc_tpu.ops.pallas_kernels as pk
 from pypmc_tpu.ops import linalg as jlinalg
 from pypmc_tpu.ops import lse as jlse
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.ops import _build, kernels, linalg, lse, random
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 RTOL64, ATOL64 = 1e-10, 1e-12
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -208,14 +216,21 @@ GATE_SHAPES = [(10, 10, 2), (1, 1, 1), (30, 10, 2), (2, 40, 2), (64, 32, 2), (40
                (2, 64, 5), (16, 8, 2), (17, 8, 2)]
 
 
-def jax_rule(kernel, K, D, Kt):
-    """Whether the JAX package runs its Pallas kernel for this shape."""
+def jax_rule(kernel, K, D, Kt, n=None, n_steps=None, student_t=False):
+    """Whether the JAX package runs its Pallas kernel for this shape (for
+    the transforms, ``density/core.py:308-314``; for the pool, ``K`` is the
+    target's component count, ``sampler/markov_chain.py:449-457``)."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         return pk.fits_vmem(K, D, pk.QUANTUM_EVAL)
     if kernel == "fused_propose_logq":
         return pk.fits_vmem(K + Kt, D, pk.QUANTUM_RNG)
     if kernel == "fused_is_pmc_step":
         return K * D <= 128 and pk.fits_vmem(K + Kt, D, pk.QUANTUM_RNG)
+    if kernel in ("fused_transform", "fused_transform_rng"):
+        quantum = pk.QUANTUM_RNG if kernel == "fused_transform_rng" else pk.QUANTUM_EVAL
+        return pk.fits_vmem(K, D, quantum) and (n is None or n >= 1024)
+    if kernel == "fused_mcmc_pool":
+        return pk.fits_vmem_mcmc(D, K, n_steps, student_t)
     return K * D <= 128
 
 
@@ -224,18 +239,49 @@ def test_fits_is_the_jax_rule(kernel):
     """fits() routes a shape to the kernel exactly where the JAX package
     runs its Pallas kernel; refusal() names the rule otherwise.  The CUDA
     kernel's own limits are a separate check, which its wrapper makes."""
+    rule = {"n_steps": 400} if kernel == "fused_mcmc_pool" else {}
     for K, D, Kt in GATE_SHAPES:
-        fits = kernels.fits(kernel, K, D, Kt)
-        assert fits == jax_rule(kernel, K, D, Kt), (K, D, Kt)
-        assert (kernels.refusal(kernel, K, D, Kt) is None) == fits
+        fits = kernels.fits(kernel, K, D, Kt, **rule)
+        assert fits == jax_rule(kernel, K, D, Kt, **rule), (K, D, Kt)
+        assert (kernels.refusal(kernel, K, D, Kt, **rule) is None) == fits
         reason = _build.limit_reason(kernel, K, D, Kt)
         if reason is None:
             _build.check_limits(kernel, K, D, Kt)
         else:
             with pytest.raises(ValueError, match="limit"):
                 _build.check_limits(kernel, K, D, Kt)
-    assert kernels.fits(kernel, 10, 10, 2)
-    assert kernels.fits(kernel, 2, 40, 2)
+    assert kernels.fits(kernel, 10, 10, 2, **rule)
+    assert kernels.fits(kernel, 2, 40, 2, **rule)
+
+
+def test_transform_and_pool_rules_over_a_grid(monkeypatch):
+    """The two transform routes (with the particle count) and the pool
+    (with the steps of a cycle and the proposal family) over a grid of
+    shapes, against fits_vmem / fits_vmem_mcmc; the pool's step chunk is
+    mcmc_step_chunk at its default cap."""
+    monkeypatch.delenv("PYPMC_TPU_MCMC_SC", raising=False)
+    for K in (1, 2, 5, 11, 12, 13, 16, 40, 64, 200):
+        for D in (1, 2, 10, 32, 40, 64, 128, 129):
+            for n in (None, 1, 1023, 1024, 1 << 22):
+                for kernel in ("fused_transform", "fused_transform_rng"):
+                    assert kernels.fits(kernel, K, D, n=n) == jax_rule(kernel, K, D, 0, n=n), \
+                        (kernel, K, D, n)
+    for Kt in (1, 2, 5, 30):
+        for D in (1, 2, 10, 40, 64, 100, 128):
+            for n_steps in (1, 7, 64, 96, 400, 500, 1000):
+                assert kernels.mcmc_step_chunk(n_steps, D) == pk.mcmc_step_chunk(n_steps, D)
+                for student_t in (False, True):
+                    assert kernels.fits("fused_mcmc_pool", Kt, D, n_steps=n_steps,
+                                        student_t=student_t) == \
+                        pk.fits_vmem_mcmc(D, Kt, n_steps, student_t), (Kt, D, n_steps, student_t)
+    # the routes of the pipeline's D=40 configuration
+    assert kernels.fits("fused_transform_rng", 11, 40, n=1024)
+    assert not kernels.fits("fused_transform_rng", 12, 40, n=1024)
+    assert kernels.fits("fused_transform", 16, 40, n=1024)
+    assert not kernels.fits("fused_propose_logq", 11, 40, 2)
+    assert kernels.fits("fused_mcmc_pool", 2, 40, n_steps=400)
+    with pytest.raises(ValueError, match="n_steps"):
+        kernels.fits("fused_mcmc_pool", 2, 40)
 
 
 @pytest.mark.parametrize("kernel", ["fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"])
@@ -269,6 +315,32 @@ def test_gate_counts_the_plain_route():
     assert sum(counts.values()) == 2
     kernels.reset_launch_counts()
     assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_fused_logq_launch_maps_under_vmap_in_one_launch():
+    """The launch's vmap rule folds the batch into the particle axis, so a
+    vmapped per-point (or per-block) call is one launch.  A stand-in CPU
+    kernel (the plain version, counting its calls) takes the CUDA launch's
+    place; the wrapper itself never reaches the launch with CPU tensors."""
+    rng = np.random.default_rng(8)
+    _, tp = mixture(rng, 3, 4, True, dtype=np.float32)
+    ops = core._kernel_operands(tp)
+    calls = []
+
+    def cpu_kernel(xT, packed, K, student_t):
+        calls.append(tuple(xT.shape))
+        return kernels.plain_logq(xT, kernels.MixtureOperands(packed, K, xT.shape[0], student_t))
+
+    kernels._logq_launch.register_kernel("cpu", cpu_kernel)
+    x = torch.tensor(rng.normal(0, 2, (50, 4)).astype(np.float32))
+    ref = kernels.plain_logq(x.T.contiguous(), ops)
+    launch = lambda xT: kernels._logq_launch(xT, ops.packed, ops.K, True)
+    per_point = torch.func.vmap(lambda p: launch(p[:, None].contiguous())[0])(x)
+    assert calls == [(4, 50)]
+    torch.testing.assert_close(per_point, ref, rtol=1e-6, atol=1e-6)
+    blocks = torch.func.vmap(launch, in_dims=2)(x.T.reshape(4, 5, 10).permute(0, 2, 1))
+    assert calls[1:] == [(4, 50)] and blocks.shape == (5, 10)
+    torch.testing.assert_close(blocks, ref.view(5, 10), rtol=1e-6, atol=1e-6)
 
 
 def upper_operands(rng, K, D):

@@ -9,10 +9,18 @@ import torch
 
 import pypmc_tpu.density.core as jcore
 import pypmc_tpu.mix_adapt.pmc as jpmc
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt import pmc
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 RTOL64, ATOL64 = 1e-10, 1e-12
 

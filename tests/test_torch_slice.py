@@ -11,11 +11,19 @@ import torch
 import pypmc_tpu.density.core as jcore
 import pypmc_tpu.mix_adapt.pmc as jpmc
 from pypmc_tpu.parallel import pmc_run_sharded as jax_pmc_run_sharded
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt.pmc import pmc_step_mixture_target
 from pypmc_tpu_torch.parallel import pmc_run_sharded, run_is_step_sharded
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 K, D = 3, 4
 

@@ -21,11 +21,19 @@ from scipy.special import digamma, gammaln
 
 from pypmc_tpu.density import create_gaussian_mixture as jax_create_gaussian_mixture
 from pypmc_tpu.mix_adapt import variational as jvb
+import pypmc_tpu_torch
 from pypmc_tpu_torch.density import create_gaussian_mixture
 from pypmc_tpu_torch.mix_adapt import variational as tvb
 from pypmc_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless the CPU is asked for: ask for it."""
+    with pypmc_tpu_torch.using_device("cpu"):
+        yield
 
 RTOL64, ATOL64 = 1e-9, 1e-11
 RTOL_MERGE = 1e-7
