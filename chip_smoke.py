@@ -6,9 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the ten CUDA kernels from ``pypmc_tpu_torch/csrc`` (one ``nvcc``
-   a source, all at once), and each launcher's shared memory against
-   ``ops/_build.py``'s formula;
+2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once), and each launcher's shared memory
+   against ``ops/_build.py``'s formula;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -43,7 +43,18 @@ Phases, each of which exits non-zero on failure:
    forced ``fused="dense"`` raises; a D=40 ``mixture_logpdf_T`` runs
    ``fused_logq`` and a K=400, D=10 one its unfused path, each against
    float64; a K=400 update of 2^22 particles, where the JAX package elects
-   its K-blocked kernel, raises;
+   its K-blocked kernel, runs ``fused_pmc_stats_blocked``;
+   blocked: the three K-blocked kernels against their float64 plain
+   versions (K=400, D=2; K=200, D=10; a ragged last chunk; K=96, D=40; K=3,
+   D=128 with the operands in device memory), the dense and K-blocked twins
+   at K=12, D=10 (the same particles from the same seed words), then the
+   large-mixture path through the entry points with the launch counts read
+   around each: ``benchmarks/blocked_stats.py``'s K=400, D=2 updates of
+   2^23 particles (Gaussian and Student-t) against the unfused update,
+   ``benchmarks/vb_step.py --components 400 --dim 2`` (N=2^22), and
+   ``examples/pmc_large_scale.py --components 200`` (D=10, 10^7 particles
+   a step, 10 steps); and ``Hierarchical`` on
+   ``examples/mixture_reduction.py``'s 400 components;
 7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
    through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16 and
    the tensor path below 1024 particles;
@@ -57,6 +68,7 @@ Phases, each of which exits non-zero on failure:
 10. times: each kernel and its plain version, with CUDA events, beside
     the least time the card could take (``bound``).
 
+Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -97,6 +109,12 @@ SOURCES = {
                             "pypmc_tpu/ops/pallas_kernels.py:881"),
     "fused_mcmc_pool": ("pypmc_tpu_torch/csrc/mcmc_pool.cu",
                         "pypmc_tpu/ops/pallas_kernels.py:2293"),
+    "fused_pmc_stats_blocked": ("pypmc_tpu_torch/csrc/pmc_stats_blocked.cu",
+                                "pypmc_tpu/ops/pallas_kernels.py:1779"),
+    "fused_vb_estep_blocked": ("pypmc_tpu_torch/csrc/vb_estep_blocked.cu",
+                               "pypmc_tpu/ops/pallas_kernels.py:1889"),
+    "fused_is_pmc_step_blocked": ("pypmc_tpu_torch/csrc/is_pmc_step_blocked.cu",
+                                  "pypmc_tpu/ops/pallas_kernels.py:2067"),
 }
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
@@ -165,9 +183,10 @@ def make_params(arrs, device):
     return params
 
 
-def flagship_problem(device):
-    """The examples/pmc_large_scale.py configuration in float32."""
-    K, D = 10, 10
+def flagship_problem(device, K=10):
+    """The examples/pmc_large_scale.py configuration in float32 (its
+    ``--components`` is K)."""
+    D = 10
     rng = np.random.default_rng(0)
     t_means = np.stack([rng.normal(0, 1, D), rng.normal(0, 1, D) + 3.0]).astype(np.float32)
     t_covs = np.array([np.eye(D) * 0.8, np.eye(D) * 1.2]).astype(np.float32)
@@ -175,7 +194,7 @@ def flagship_problem(device):
     covs = np.array([np.eye(D) * 6.0] * K).astype(np.float32)
     dofs = np.full((K,), 8.0, dtype=np.float32)
     target = make_params((t_means, t_covs, np.array([0.3, 0.7], np.float32), None), device)
-    params = make_params((means, covs, np.full((K,), 0.1, np.float32), dofs), device)
+    params = make_params((means, covs, np.full((K,), 1.0 / K, np.float32), dofs), device)
     return params, target, t_means
 
 
@@ -250,8 +269,10 @@ def check_stats(prefix, got, ref, n, report):
         compare("%s %s/N" % (prefix, key), got[key] / n, ref[key] / n, "stats", report)
 
 
-def kernel_case(case, device, report):
-    """Run all four kernels on one mixture configuration."""
+def case_mixtures(case, device):
+    """``(arrs, tarrs, params, target, ops, tops, ops64, tops64, tag)`` of
+    a kernel case: the proposal and target mixtures, their packed operands
+    and those cast to float64."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -267,10 +288,20 @@ def kernel_case(case, device, report):
                  None if not t_student else np.full(Kt, 10.0, np.float32))
     params, target = make_params(arrs, device), make_params(tarrs, device)
     ops, tops = core._kernel_operands(params), core._kernel_operands(target)
-    ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
-    tops64 = k.MixtureOperands(tops.packed.double(), Kt, D, t_student)
+    ops64 = k.MixtureOperands(ops.packed.to(torch.float64), K, D, student)
+    tops64 = k.MixtureOperands(tops.packed.to(torch.float64), Kt, D, t_student)
     tag = "K=%d Kt=%d D=%d N=%d %s%s" % (K, Kt, D, N, "t" if student else "gauss",
                                          " dead" if dead else "")
+    return arrs, tarrs, params, target, ops, tops, ops64, tops64, tag
+
+
+def kernel_case(case, device, report):
+    """Run all four kernels on one mixture configuration."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dead, seed = case
+    arrs, _, _, _, ops, tops, ops64, tops64, tag = case_mixtures(case, device)
     print("case", tag)
 
     # fused_propose_logq: its own samples, recomputed by the plain version
@@ -893,14 +924,14 @@ def device_rows(prof, per):
     return sorted(rows, reverse=True)
 
 
-def profile_slice(device, step_ms, steps=2):
-    """Device time of the slice's steps by kernel (torch.profiler), and its
-    share of the unprofiled step time."""
+def profile_slice(device, step_ms, steps=2, K=10):
+    """Device time of the slice's steps (a K-component proposal) by kernel
+    (torch.profiler), and its share of the unprofiled step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pypmc_tpu_torch.parallel import pmc_run_sharded
 
-    params, target, _ = flagship_problem(device)
+    params, target, _ = flagship_problem(device, K)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pmc_run_sharded(target, params, N_SLICE, steps, key=3)
         torch.cuda.synchronize()
@@ -933,25 +964,25 @@ def time_solve_dofs(device, reps=20):
 # phase 5: variational Bayes                                            #
 # --------------------------------------------------------------------- #
 
-def vb_problem(device, n=VB_N):
+def vb_problem(device, n=VB_N, K=VB_K, D=VB_D):
     """benchmarks/vb_step.py's data in float32 on the card: seed 0, K
     centers N(0, 4^2) in D dimensions, uniform labels, unit noise, weights
     |N(1, 0.2^2)|."""
     import torch
 
     rng = np.random.default_rng(0)
-    centers = rng.normal(0, 4, size=(VB_K, VB_D))
-    lab = rng.integers(0, VB_K, size=n)
-    data = (centers[lab] + rng.normal(0, 1, size=(n, VB_D))).astype(np.float32)
+    centers = rng.normal(0, 4, size=(K, D))
+    lab = rng.integers(0, K, size=n)
+    data = (centers[lab] + rng.normal(0, 1, size=(n, D))).astype(np.float32)
     weights = np.abs(rng.normal(1, 0.2, size=n)).astype(np.float32)
     return torch.tensor(data, device=device), torch.tensor(weights, device=device)
 
 
-def vb_reference(vb, report):
+def vb_reference(vb, report, name="fused_vb_estep"):
     """One _update_with_bound iteration of ``vb`` (on a shallow copy, so
     ``vb`` keeps its state) against the same iteration with the float64
-    plain version of fused_vb_estep on the card, on the kernel's float32
-    operands."""
+    plain version of its E-step kernel ``name`` on the card, on the
+    kernel's float32 operands."""
     from pypmc_tpu_torch.mix_adapt import variational as V
     from pypmc_tpu_torch.ops import kernels as k
 
@@ -960,22 +991,22 @@ def vb_reference(vb, report):
     hyper = V._vb_m_step(vb.N_comp, vb.x_mean_comp, vb.S, *vb._prior()[:5])
     e_lnlam, e_lnpi, A, const = V._vb_whitening(vb.dim, *hyper)
     A32, m32 = A.float().double(), hyper[3].float().double()
-    stats = k.plain_vb_estep(vb._data_T.double(), vb.weights.double(), A32, m32,
-                             const.float().double())
+    plain = getattr(k, "plain_" + name[len("fused_"):])
+    stats = plain(vb._data_T.double(), vb.weights.double(), A32, m32, const.float().double())
     e = V._vb_unwhiten(A32, m32, stats, e_lnlam, e_lnpi)
     ref_bound = V._vb_bound(vb.weights, e, *hyper, *vb._prior())
-    compare("fused_vb_estep iteration N_comp/N", it.N_comp / vb.N, e.N_comp / vb.N, "vb", report)
-    compare("fused_vb_estep iteration x_mean", it.x_mean_comp, e.x_mean_comp, "vb", report)
-    compare("fused_vb_estep iteration S", it.S, e.S, "vb", report)
-    compare("fused_vb_estep iteration bound", ref_bound.new_tensor(bound), ref_bound, "vb", report)
+    compare(name + " iteration N_comp/N", it.N_comp / vb.N, e.N_comp / vb.N, "vb", report)
+    compare(name + " iteration x_mean", it.x_mean_comp, e.x_mean_comp, "vb", report)
+    compare(name + " iteration S", it.S, e.S, "vb", report)
+    compare(name + " iteration bound", ref_bound.new_tensor(bound), ref_bound, "vb", report)
 
 
-def instrumented_run(vb, name, **run_kwargs):
+def instrumented_run(vb, name, kernel="fused_vb_estep", **run_kwargs):
     """``vb.run(**run_kwargs)`` with every iteration's host time, bound and
     K recorded and every E-step a prune triggers counted, between a reset
-    and a read of the launch counts.  Checks that fused_vb_estep launched
-    once per iteration plus once per such E-step, and that the bound is
-    finite and, while K is unchanged, drops by no more than 1e-5
+    and a read of the launch counts.  Checks that the E-step ``kernel``
+    launched once per iteration plus once per such E-step, and that the
+    bound is finite and, while K is unchanged, drops by no more than 1e-5
     relative.  Returns ``(converged, record, prune E-steps, counts)``."""
     import torch
     from pypmc_tpu_torch.ops import kernels as k
@@ -1003,9 +1034,9 @@ def instrumented_run(vb, name, **run_kwargs):
         del vb._update_with_bound, vb.E_step
     bounds = [r[1] for r in record]
     require(all(np.isfinite(bounds)), "%s: a bound is not finite" % name)
-    require(counts["fused_vb_estep"] == len(record) + len(prune_e_steps),
-            "%s: fused_vb_estep launched %d times for %d iterations and %d prune E-steps"
-            % (name, counts["fused_vb_estep"], len(record), len(prune_e_steps)))
+    require(counts[kernel] == len(record) + len(prune_e_steps),
+            "%s: %s launched %d times for %d iterations and %d prune E-steps"
+            % (name, kernel, counts[kernel], len(record), len(prune_e_steps)))
     for (_, b0, k0), (_, b1, k1) in zip(record, record[1:]):
         require(k0 != k1 or b1 >= b0 - 1e-5 * abs(b0),
                 "%s: the bound dropped from %.10g to %.10g at K=%d" % (name, b0, b1, k1))
@@ -1172,7 +1203,7 @@ def phase_gate(device, report):
     unfused update, through fused_rho and fused_maha, and a forced dense
     update raises; D=40 runs fused_logq; K=400, D=10 takes the unfused
     log-density; a K=400 update of 2^22 particles, where the JAX package
-    elects its K-blocked kernel, raises."""
+    elects its K-blocked kernel, runs fused_pmc_stats_blocked once."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
@@ -1228,15 +1259,317 @@ def phase_gate(device, report):
         counts = {n: counts[n] + c2[n] for n in counts}
 
     p400 = make_params(random_mixture(rng, 400, 2, False), device)
-    x400 = torch.zeros((2, 1 << 22), dtype=torch.float32, device=device)
+    x400 = k.fused_propose_logq((400, 1), core._kernel_operands(p400), 1 << 22)[0]
     require(k.elects_blocked("fused_pmc_stats", 400, 2, 1 << 22), "gate: no blocked election")
-    try:
-        pmc_update(p400, x400, transposed=True)
-    except NotImplementedError as e:
-        print("  K=400 D=2 N=2^22 pmc_update raises: %s" % e)
-    else:
-        raise SmokeFailure("gate: an update the JAX package runs K-blocked ran")
+    k.reset_launch_counts()
+    got = pmc_update(p400, x400, transposed=True)
+    sync(device)
+    c3 = k.launch_counts()
+    print("  K=400 D=2 N=2^22 pmc_update: launches %s"
+          % json.dumps({n: c for n, c in c3.items() if c}))
+    require(c3["fused_pmc_stats_blocked"] == 1 and sum(c3.values()) == 1,
+            "gate: the K=400 update did not run fused_pmc_stats_blocked alone: %s" % c3)
+    require(bool(torch.isfinite(got.params.means).all()), "gate: K=400 update not finite")
+    return {n: counts[n] + c3[n] for n in counts}
+
+
+# --------------------------------------------------------------------- #
+# phase blocked: the large-mixture path                                 #
+# --------------------------------------------------------------------- #
+
+BLOCKED_CASES = [
+    # K, Kt, D, N, Student-t proposal, Student-t target, dead component, seed
+    (400, 2, 2, N_PLAIN_MAX, True, False, False, 91),   # the mixture-reduction scale
+    (200, 2, 10, N_FLAGSHIP, True, False, True, 92),    # the large-scale step's proposal
+    (21, 2, 10, N_ODD, False, True, True, 93),          # a ragged last chunk, odd N
+    (96, 2, 40, N_WIDE, False, False, False, 94),       # two components a chunk
+    (3, 1, 128, N_WIDE, False, False, False, 95),       # operands in device memory
+]
+BLOCKED_N, BLOCKED_VB_ITERS = 1 << 23, 5
+
+
+def blocked_case(case, device, report):
+    """The three K-blocked kernels on one configuration against their
+    float64 plain versions: the statistics on fused_propose_logq's draws
+    and weights, the VB E-step on the same points, and the step on its own
+    samples, which must be fused_propose_logq's from the same seed words."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dead, seed = case
+    arrs, _, params, _, ops, tops, ops64, tops64, tag = case_mixtures(case, device)
+    kc, staged, _ = _build.blocked_plan("fused_pmc_stats_blocked", K, D)
+    print("case blocked %s: %d components a chunk, operands in %s memory"
+          % (tag, kc, "shared" if staged else "device"))
+    seed_a, seed_b = (seed, 11), (seed, 12)
+    xT, lat, log_q, log_p = k.fused_propose_logq(seed_a, ops, N, tops)
+    w = torch.exp(log_p - log_q)
+    x64, w64 = xT.double(), w.double()
+    got = k.fused_pmc_stats_blocked(xT, w, ops, student)
+    sync(device)
+    check_stats("fused_pmc_stats_blocked", got, k.plain_pmc_stats_blocked(x64, w64, ops64, student),
+                N, report)
+    require(bool(torch.equal(got["g"], k.fused_pmc_stats_blocked(xT, w, ops, student)["g"])),
+            "fused_pmc_stats_blocked: one input gave two outputs")
+    if dead:
+        require(float(got["s0"][K // 2]) == 0.0, "fused_pmc_stats_blocked: a dead component counted")
+    A, m, const = vb_operands(params)
+    got = k.fused_vb_estep_blocked(xT, w, A, m, const)
+    ref = k.plain_vb_estep_blocked(x64, w64, A.double(), m.double(), const.double())
+    for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+        compare("fused_vb_estep_blocked %s/N" % name, g / N, r / N, "stats", report)
+    del got, ref, log_q, log_p, w, w64
+
+    xs, ls, ws, st = k.fused_is_pmc_step_blocked(seed_a, ops, tops, N, student)
+    sync(device)
+    require(bool(torch.equal(xs, xT)) and bool(torch.equal(ls, lat)),
+            "fused_is_pmc_step_blocked: not fused_propose_logq's particles from one seed")
+    w_ref = torch.exp(k.plain_logq_blocked(x64, tops64) - k.plain_logq_blocked(x64, ops64))
+    compare("fused_is_pmc_step_blocked w", ws, w_ref, "w", report)
+    check_stats("fused_is_pmc_step_blocked", st,
+                k.plain_pmc_stats_blocked(x64, w_ref, ops64, student, n_sw=3), N, report)
+    check_samples("fused_is_pmc_step_blocked", xs, ls, arrs, report)
+    again = k.fused_is_pmc_step_blocked(seed_a, ops, tops, N, student)
+    require(bool(torch.equal(again[2], ws)) and bool(torch.equal(again[3]["g"], st["g"])),
+            "fused_is_pmc_step_blocked: one seed gave two outputs")
+    require(not bool(torch.equal(k.fused_is_pmc_step_blocked(seed_b, ops, tops, N, student)[0],
+                                 xs)), "fused_is_pmc_step_blocked: two seeds, one output")
+
+
+def twin_case(device, report):
+    """K=12, D=10, Kt=2 (K*D = 120: the dense and the K-blocked kernels
+    both take it).  The two steps from the same seed words draw the same
+    particles, and their weights and statistics agree; so do the two
+    statistics kernels and the two VB E-steps on those particles, and
+    pmc_step_mixture_target and pmc_update forced to each route."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_step_mixture_target, pmc_update
+    from pypmc_tpu_torch.ops import kernels as k
+
+    case = (12, 2, 10, N_FLAGSHIP, True, False, True, 96)
+    N = case[3]
+    _, _, params, target, ops, tops, _, _, tag = case_mixtures(case, device)
+    print("case twins", tag)
+    xd, ld, wd, sd = k.fused_is_pmc_step((96, 1), ops, tops, N, True)
+    xb, lb, wb, sb = k.fused_is_pmc_step_blocked((96, 1), ops, tops, N, True)
+    sync(device)
+    require(bool(torch.equal(xd, xb)) and bool(torch.equal(ld, lb)),
+            "twins: the dense and the K-blocked step drew different particles")
+    print("  dense and K-blocked steps: the same %d particles" % N)
+    dd = lambda st: {key: v.double() for key, v in st.items()}
+    compare("twin: fused_is_pmc_step_blocked w", wb, wd.double(), "w", report)
+    check_stats("twin: fused_is_pmc_step_blocked", sb, dd(sd), N, report)
+    check_stats("twin: fused_pmc_stats_blocked", k.fused_pmc_stats_blocked(xd, wd, ops, True),
+                dd(k.fused_pmc_stats(xd, wd, ops, True)), N, report)
+    A, m, const = vb_operands(params)
+    for name, b, d in zip(("N_comp", "sd", "g", "log_q_Z"),
+                          k.fused_vb_estep_blocked(xd, wd, A, m, const),
+                          k.fused_vb_estep(xd, wd, A, m, const)):
+        compare("twin: fused_vb_estep_blocked %s/N" % name, b / N, d.double() / N, "stats", report)
+    steps = {mode: pmc_step_mixture_target(params, target, 97, N, fused=mode)
+             for mode in ("dense", "blocked")}
+    require(bool(torch.equal(steps["dense"][1], steps["blocked"][1])),
+            "twins: the forced dense and blocked pmc_step_mixture_target drew different particles")
+    updates = {mode: pmc_update(params, xd, wd, transposed=True, fused=mode).params
+               for mode in ("dense", "blocked")}
+    for name, pair in (("step", {mode: r[0].params for mode, r in steps.items()}),
+                       ("update", updates)):
+        for f in ("means", "cov", "weights"):
+            compare("twin: %s %s" % (name, f), getattr(pair["blocked"], f),
+                    getattr(pair["dense"], f).double(), "update", report)
+        compare("twin: %s dof" % name, pair["blocked"].dof, pair["dense"].dof.double(), "dof",
+                report)
+
+
+def blocked_stats_problem(device, student_t, n):
+    """benchmarks/blocked_stats.py's K=400, D=2 case in float32: means
+    N(0, 3/sqrt(D)), covariances I + A A^T with A ~ N(0, 0.1), equal
+    weights, dof 8 for Student-t (seed 0); n samples drawn from the mixture
+    and weights |N(1, 0.2)|."""
+    import torch
+    from pypmc_tpu_torch.density import core
+
+    K, D = 400, 2
+    rng = np.random.default_rng(0)
+    means = rng.normal(0, 3.0 / np.sqrt(D), size=(K, D)).astype(np.float32)
+    a = rng.normal(0, 0.1, size=(K, D, D))
+    covs = (np.eye(D)[None] + np.einsum("kij,klj->kil", a, a)).astype(np.float32)
+    dofs = np.full((K,), 8.0, np.float32) if student_t else None
+    params = make_params((means, covs, np.full((K,), 1.0 / K, np.float32), dofs), device)
+    xT = core.propose_T(params, 1, n)[0]
+    gen = torch.Generator(device=device).manual_seed(2)
+    w = (torch.randn(n, generator=gen, device=device) * 0.2 + 1.0).abs()
+    return params, xT, w
+
+
+def blocked_update(device, report):
+    """The K=400, D=2 pmc_update of 2^23 particles, Gaussian and
+    Student-t: one fused_pmc_stats_blocked launch each and no plain route,
+    against the unfused update (fused="off") on the same tensors.  The
+    unfused update keeps (K, N) float32 matrices, 13.4 GB each at 2^23: a
+    Gaussian update's two fit the card, a Student-t update's with the dof
+    condition about seven do not, so that one is compared at 2^22."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
+    from pypmc_tpu_torch.ops import kernels as k
+
+    counts = None
+    for student_t in (False, True):
+        label = "t" if student_t else "gauss"
+        params, xT, w = blocked_stats_problem(device, student_t, BLOCKED_N)
+        torch.cuda.synchronize()
+        k.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = pmc_update(params, xT, w, transposed=True)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        c = k.launch_counts()
+        require(c["fused_pmc_stats_blocked"] == 1 and sum(c.values()) == 1,
+                "blocked %s: the K=400 update launched %s" % (label, c))
+        counts = c if counts is None else {n: counts[n] + c[n] for n in counts}
+        n_cmp = BLOCKED_N // 2 if student_t else BLOCKED_N
+        xT, w = xT[:, :n_cmp].contiguous(), w[:n_cmp].contiguous()
+        ms = {}
+        for mode in ("auto", "off"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pmc_update(params, xT, w, transposed=True, fused=mode)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+            if mode == "auto":
+                got = out.params
+            else:
+                ref = out.params
+            del out
+            torch.cuda.empty_cache()
+        print("  K=400 D=2 %s pmc_update: N=2^23 %.1f ms (first call, host clock); N=%d "
+              "K-blocked %.1f ms, unfused (fused='off') %.1f ms" % (label, first_ms, n_cmp,
+                                                                  ms["auto"], ms["off"]))
+        for f in ("means", "cov", "weights"):
+            compare("blocked update %s %s" % (label, f), getattr(got, f), getattr(ref, f).double(),
+                    "update", report)
+        if student_t:
+            compare("blocked update t dof", got.dof, ref.dof.double(), "dof", report)
+        del params, xT, w, got, ref
+        torch.cuda.empty_cache()
     return counts
+
+
+def blocked_vb(device, report):
+    """benchmarks/vb_step.py --components 400 --dim 2 (N=2^22, nu = D + 1)
+    in float32: one iteration against its float64 plain version, then
+    BLOCKED_VB_ITERS iterations without pruning, one fused_vb_estep_blocked
+    launch each, the bound finite and not dropping."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+
+    K, D = 400, 2
+    data, w = vb_problem(device, VB_N, K, D)
+    vb = GaussianInference(data, components=K, weights=w, nu=D + 1.0)
+    del data
+    require(vb._fused_eligible() == "blocked", "blocked vb: the E-step is not K-blocked")
+    vb_reference(vb, report, "fused_vb_estep_blocked")
+    _, record, _, counts = instrumented_run(
+        vb, "vb_step.py --components 400 --dim 2", kernel="fused_vb_estep_blocked",
+        iterations=BLOCKED_VB_ITERS, prune=0.0)
+    ms = [r[0] * 1e3 for r in record]
+    print("  iteration ms (host clock): first %.3f, median of the rest %.3f"
+          % (ms[0], float(np.median(ms[1:]))))
+    del vb
+    torch.cuda.empty_cache()
+    return counts
+
+
+def blocked_slice(device):
+    """examples/pmc_large_scale.py --components 200: pmc_run_sharded with a
+    K=200 Student-t proposal, 10^7 particles a step, 10 steps; one
+    fused_is_pmc_step_blocked launch a step, the evidence within 1% of 1
+    after step 1 and the mode masses within 0.05 of [0.3, 0.7]."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+
+    params, target, t_means = flagship_problem(device, K=200)
+    pmc_run_sharded(target, params, N_SLICE, 1, key=100)      # warm-up
+    torch.cuda.synchronize()
+    k.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, stats = pmc_run_sharded(target, params, N_SLICE, STEPS, key=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = k.launch_counts()
+    s = {f: getattr(stats, f).double().cpu().numpy() for f in stats._fields}
+    for i in range(STEPS):
+        print("  step %2d  ess %.4f  perplexity %.4f  evidence %.6f"
+              % (i + 1, s["ess"][i], s["perplexity"][i], s["evidence"][i]))
+    w = out.weights.double().cpu().numpy()
+    mu = out.means.double().cpu().numpy()
+    masses = [float(w[np.linalg.norm(mu - t_means[j], axis=1) < 3].sum()) for j in (0, 1)]
+    print("  K=200: %d live components, mode masses %s (target [0.3, 0.7]); launches %s"
+          % (int((w > 0).sum()), np.round(masses, 4),
+             json.dumps({n: c for n, c in counts.items() if c})))
+    print("  10 steps of %d particles: %.1f ms a step (host clock, synchronized)"
+          % (N_SLICE, dt / STEPS * 1e3))
+    require(all(np.isfinite(v).all() for v in s.values()), "blocked slice: not finite")
+    ev_err = np.abs(s["evidence"][1:] - 1.0)
+    require(np.all(ev_err < 0.01), "blocked slice: evidence off by %s" % ev_err)
+    require(abs(masses[0] - 0.3) < 0.05 and abs(masses[1] - 0.7) < 0.05,
+            "blocked slice: mode masses %s" % masses)
+    require(counts["fused_is_pmc_step_blocked"] == STEPS and counts["plain:fused_is_pmc_step"] == 0,
+            "blocked slice: %d fused_is_pmc_step_blocked launches for %d steps"
+            % (counts["fused_is_pmc_step_blocked"], STEPS))
+    return counts, dt / STEPS * 1e3
+
+
+def hierarchical_example(device, report):
+    """examples/mixture_reduction.py's hierarchical reduction of the 400
+    components from the 10-component guess on the card, beside the same run
+    in float64 on the CPU."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt import Hierarchical
+
+    mix, guess = mixture_reduction_input()
+    h = Hierarchical(mix, guess, device=device)
+    t0 = time.perf_counter()
+    steps = h.run()
+    dt = time.perf_counter() - t0
+    ref = Hierarchical(mix, guess, device="cpu", dtype=torch.float64)
+    ref_steps = ref.run()
+    print("  Hierarchical of 400 components: %s steps, %d components remain, %.1f ms "
+          "(float64 CPU: %s steps, %d components)" % (steps, len(h.g), dt * 1e3, ref_steps,
+                                                      len(ref.g)))
+    require(steps is not None and len(h.g) >= 1, "Hierarchical: no convergence")
+    require(steps == ref_steps and len(h.g) == len(ref.g),
+            "Hierarchical: the card's run differs from the float64 run")
+    for name, got, want in (("weights", h.g.weights, ref.g.weights),
+                            ("means", [c.mu for c in h.g.components],
+                             [c.mu for c in ref.g.components]),
+                            ("covariances", [c.sigma for c in h.g.components],
+                             [c.sigma for c in ref.g.components])):
+        compare("Hierarchical " + name, torch.tensor(np.asarray(got)),
+                torch.tensor(np.asarray(want)), "update", report)
+
+
+def phase_blocked(device, report):
+    """The K-blocked kernels against their plain versions and their dense
+    twins, then the three large-mixture configurations with the launch
+    counts read around each, and Hierarchical; returns the summed counts of
+    the three configurations and the K=200 step ms."""
+    import torch
+
+    for case in BLOCKED_CASES:
+        blocked_case(case, device, report)
+        torch.cuda.empty_cache()
+    twin_case(device, report)
+    torch.cuda.empty_cache()
+    update = blocked_update(device, report)
+    vb = blocked_vb(device, report)
+    step, step_ms = blocked_slice(device)
+    profile_slice(device, step_ms, K=200)
+    torch.cuda.empty_cache()
+    hierarchical_example(device, report)
+    return {n: update[n] + vb[n] + step[n] for n in update}, step_ms
 
 
 # --------------------------------------------------------------------- #
@@ -1573,8 +1906,32 @@ def phase_times(device):
     times[("fused_mcmc_pool", MCMC_C, "plain")] = cuda_ms(
         lambda i: k.plain_mcmc_pool((i, 4), x0T, e0, cholr, None, pops, MCMC_STEPS),
         reps=2, warmup=1)
+    del x0T, e0, cholr
+    torch.cuda.empty_cache()
+
+    # the K-blocked kernels at their slice shapes (kernel_work): the K=400,
+    # D=2 Student-t statistics and VB E-step, the K=200, D=10 step
+    bparams, bx, bw = blocked_stats_problem(device, True, N_PLAIN_MAX)
+    bops = core._kernel_operands(bparams)
+    pair("fused_pmc_stats_blocked", lambda i, n: k.fused_pmc_stats_blocked(bx, bw, bops, True),
+         lambda i, n: k.plain_pmc_stats_blocked(bx, bw, bops, True), (N_PLAIN_MAX,))
+    vdata, vw = vb_problem(device, N_PLAIN_MAX, 400, 2)
+    vx = vdata.T.contiguous()
+    A4, m4, c4 = vb_operands(make_params(random_mixture(np.random.default_rng(4), 400, 2, False),
+                                         device))
+    pair("fused_vb_estep_blocked", lambda i, n: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
+         lambda i, n: k.plain_vb_estep_blocked(vx, vw, A4, m4, c4), (N_PLAIN_MAX,))
+    del bx, bw, vdata, vx, vw
+    torch.cuda.empty_cache()
+    sparams, starget, _ = flagship_problem(device, K=200)
+    sops, stops = core._kernel_operands(sparams), core._kernel_operands(starget)
+    pair("fused_is_pmc_step_blocked",
+         lambda i, n: k.fused_is_pmc_step_blocked((i, 2), sops, stops, n, True),
+         lambda i, n: k.plain_is_pmc_step_blocked((i, 2), sops, stops, n, True),
+         (N_PLAIN_MAX, N_SLICE))
+    torch.cuda.empty_cache()
     for (name, n, route), ms in times.items():
-        print("  %-20s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
+        print("  %-25s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
     return times
 
 
@@ -1583,15 +1940,24 @@ def phase_times(device):
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 
 
+# the slice shapes of the K-blocked kernels (K, Kt, D) in phase times
+BLOCKED_SHAPES = {"fused_pmc_stats_blocked": (400, 0, 2), "fused_vb_estep_blocked": (400, 0, 2),
+                  "fused_is_pmc_step_blocked": (200, 2, 10)}
+
+
 def kernel_work(name):
-    """``(shape, bytes, operations)`` of one call of ``name`` at the shape
-    phase times gives it: each input read once and each output written once,
-    and the FP32 operations of the arithmetic (an FMA counts two; the random
-    numbers' integer and transcendental work is not counted).  The flagship:
-    a K=10 Student-t proposal, a Kt=2 target, D=10, N=2^22; the pool:
+    """``(shape, bytes, operations, exps)`` of one call of ``name`` at the
+    shape phase times gives it: each input read once and each output
+    written once, the FP32 operations of the arithmetic (an FMA counts two;
+    the random numbers' integer and transcendental work is not counted) and,
+    for the K-blocked kernels, the exps a (particle, component) pair needs
+    (the log-sum-exp's and the responsibility's; None elsewhere).  The
+    flagship: a K=10 Student-t proposal, a Kt=2 target, D=10, N=2^22; the
+    K-blocked kernels: BLOCKED_SHAPES at N=2^22; the pool:
     benchmarks/mcmc_chains.py's C=16384, D=10, a 1-component target, 500
     steps."""
-    K, Kt, D, N = 10, 2, 10, N_PLAIN_MAX
+    K, Kt, D = BLOCKED_SHAPES.get(name, (10, 2, 10))
+    N = N_PLAIN_MAX
     ev = lambda k: k * (D * (D + 1) + 2 * D)        # component log-densities a particle
     draw = D * (D + 1) + 2 * D                      # mu + scale * (L z)
     stats = K * (D * (D + 1) + 2 * D)               # sd and the lower Gram blocks
@@ -1606,19 +1972,23 @@ def kernel_work(name):
         "fused_is_pmc_step": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
         "fused_transform": (4 * (2 * D + 2) * N, N * draw),
         "fused_transform_rng": (4 * (D + 1) * N, N * draw),
+        "fused_pmc_stats_blocked": (4 * (D + 1) * N, N * (ev(K) + stats)),
+        "fused_vb_estep_blocked": (4 * (D + 1) * N, N * (dense + stats)),
+        "fused_is_pmc_step_blocked": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
     }
     if name == "fused_mcmc_pool":
         C, n = MCMC_C, MCMC_STEPS
         # points out; x0, xf, cholr, e0, ef, accepts, NaN counts
         return ("C=%d D=%d Kt=1 %d steps" % (C, D, n), 4 * (n * D * C + (2 * D + D * D + 4) * C),
-                n * C * (D * (D + 1) + D + ev(1)))
-    return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name]
+                n * C * (D * (D + 1) + D + ev(1)), None)
+    exps = 2 * K * N if name in BLOCKED_SHAPES else None
+    return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name] + (exps,)
 
 
 def bound(name):
     """``(shape, least ms, "bytes" or "operations")``: the larger of the
     bytes over the memory rate and the operations over the FP32 rate."""
-    shape, nbytes, ops = kernel_work(name)
+    shape, nbytes, ops, _ = kernel_work(name)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1661,7 +2031,8 @@ def main():
               % (len(regs), min(regs), max(regs), spills))
     # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
     for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
-                     (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128)):
+                     (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
+                     (96, 2, 40), (12, 2, 10), (3, 1, 128)):
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
                      ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
@@ -1671,15 +2042,33 @@ def main():
                      ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
                      ("fused_transform", lib.pmc_transform_smem_bytes(K, D)),
                      ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
-                     ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D))]
+                     ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D)),
+                     ("fused_pmc_stats_blocked", lib.pmc_pmc_stats_blocked_smem_bytes(K, D)),
+                     ("fused_vb_estep_blocked", lib.pmc_vb_estep_blocked_smem_bytes(K, D)),
+                     ("fused_is_pmc_step_blocked",
+                      lib.pmc_is_pmc_step_blocked_smem_bytes(K, Kt, D))]
         for kernel, c in launchers:
             require(c == _build.smem_bytes(kernel, K, D, Kt),
                     "shared-memory formula differs from the kernel's (%s)" % kernel)
+        for kernel, vb in (("fused_pmc_stats_blocked", 0), ("fused_vb_estep_blocked", 1)):
+            require(lib.pmc_blocked_chunk(K, D, vb) == _build.blocked_plan(kernel, K, D)[0],
+                    "chunk formula differs from the kernel's (%s)" % kernel)
 
-    print("phase kernels:")
+    clock = []
+
+    def phase(title):
+        """Print the last phase's seconds (host clock) and the next one's title."""
+        now = time.perf_counter()
+        if clock:
+            print("  phase %s: %.1f s" % (clock[0], now - clock[1]))
+        clock[:] = [title.split()[0], now]
+        if title != "end":
+            print("phase %s:" % title)
+
+    phase("kernels")
     report = phase_kernels(device, KERNEL_CASES, EVAL_CASES)
 
-    print("phase slice:")
+    phase("slice")
     slice_reference(device, report)
     counts, step_ms, out = phase_slice(device)
     require(tuple(out.means.shape) == (10, 10) and tuple(out.cov.shape) == (10, 10, 10),
@@ -1691,31 +2080,37 @@ def main():
     del out
     torch.cuda.empty_cache()
 
-    print("phase vb:")
+    phase("vb")
     vb_counts, vb_ms, vb_busy = phase_vb(device, report)
-    print("phase gate:")
+    phase("gate")
     gate_counts = phase_gate(device, report)
-    print("phase routes:")
+    torch.cuda.empty_cache()
+    phase("blocked")
+    blocked_counts, _ = phase_blocked(device, report)
+    torch.cuda.empty_cache()
+    phase("routes")
     route_counts = phase_routes(device, report)
-    print("phase mcmc:")
+    phase("mcmc")
     mcmc_counts, _ = phase_mcmc(device)
     torch.cuda.empty_cache()
-    print("phase pipeline:")
+    phase("pipeline")
     pipe_counts, _ = phase_pipeline(device)
     torch.cuda.empty_cache()
     # every path was driven with the counts set to 0 just before it
-    counts = {n: sum(c[n] for c in (counts, vb_counts, gate_counts, route_counts, mcmc_counts,
-                                    pipe_counts)) for n in counts}
+    counts = {n: sum(c[n] for c in (counts, vb_counts, gate_counts, blocked_counts,
+                                    route_counts, mcmc_counts, pipe_counts)) for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
-    print("phase times (%s):" % card)
+    phase("times (%s)" % card)
     times = phase_times(device)
+    phase("end")
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         checks = [r for r in report if "max_abs_err" in r and (
             r["output"] == kname or r["output"].startswith(kname + " "))]
+        require(checks, "%s: no check against its plain version" % kname)
         # the kernel-vs-plain comparison on the same inputs; for the pool,
         # whose points are a random walk, the kernel's and the plain pool's
         # whitened step moments; a check against the known distribution only
@@ -1727,6 +2122,7 @@ def main():
         worst = max(checks, key=lambda r: r["max_abs_err"] / r["tol"])
         n = MCMC_C if kname == "fused_mcmc_pool" else N_PLAIN_MAX
         shape, bound_ms, bound_by = bound(kname)
+        exps = kernel_work(kname)[3]
         entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[kname], "max_abs_err": worst["max_abs_err"],
@@ -1736,13 +2132,16 @@ def main():
         }
         if (kname, N_SLICE, "cuda") in times:
             entry.update(ms_slice_n=times[(kname, N_SLICE, "cuda")], slice_n=N_SLICE)
+        if exps is not None:
+            entry["exps"] = exps
         kernels.append(entry)
     print("ms and plain_ms at the shape given, ms_slice_n at N=%d; max_abs_err is |kernel - "
           "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
           "sample mean against the mixture's; for fused_mcmc_pool, the kernel's and the plain "
           "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
-          "operations over %.3g op/s; library_ms null: no one PyTorch call computes these "
-          "functions" % (N_SLICE, PEAK_BYTES, PEAK_FP32))
+          "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound); "
+          "library_ms null: no one PyTorch call computes these functions"
+          % (N_SLICE, PEAK_BYTES, PEAK_FP32))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,11 +5,12 @@ keeps its name, arguments and return layout, with torch tensors for jax
 arrays and an int seed or a ``torch.Generator`` for a PRNG key.  Ported so
 far: the one-call evidence pipeline ``pipeline.integrate`` with everything
 it runs -- the adaptive-MCMC chain pool and the importance sampler
-(``sampler``), Gelman-Rubin grouping, PMC and variational Bayes
-(``mix_adapt``), the host density classes and the stacked-parameter core
-(``density``), ``tools`` and ``checkpoint`` -- and
+(``sampler``), Gelman-Rubin grouping, PMC, variational Bayes and the
+hierarchical reduction (``mix_adapt``), the host density classes and the
+stacked-parameter core (``density``), ``tools`` and ``checkpoint`` -- and
 ``parallel.pmc_run_sharded``, for one process on one device, with their
-ten CUDA kernels in ``ops.kernels``.
+thirteen CUDA kernels in ``ops.kernels``, the K-blocked ones for mixtures
+of hundreds of components among them.
 
 Entry points run on the CUDA device unless the CPU is asked for
 (:func:`set_default_device`, :func:`using_device` or ``device="cpu"``;

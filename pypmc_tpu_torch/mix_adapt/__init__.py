@@ -1,7 +1,7 @@
-"""Proposal adaptation: PMC, variational Bayes and Gelman-Rubin grouping.
-The hierarchical reduction (``pypmc_tpu.mix_adapt.hierarchical``) is not
-ported yet."""
+"""Proposal adaptation: PMC, variational Bayes, hierarchical reduction and
+Gelman-Rubin grouping."""
 
+from .hierarchical import Hierarchical, kl_divergence_matrix, kullback_leibler
 from .pmc import PMC, gaussian_pmc, pmc_log_likelihood, pmc_update, student_t_pmc
 from .r_value import make_r_gaussmix, make_r_tmix, r_group, r_value
 from .variational import (

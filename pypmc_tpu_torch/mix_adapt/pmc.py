@@ -86,34 +86,27 @@ def _check_fused_arg(fused):
         raise ValueError("fused must be one of %s, got %r" % (_FUSED_MODES, fused))
 
 
-def _fused_mode(fused, kernel, K, D, N, x, Kt=0, rb=True):
-    """``"dense"`` where the single-pass ``kernel`` runs, None for the
-    unfused path, for ``N`` particles on ``x``'s device.  ``"auto"`` asks
-    the size gate (:func:`~pypmc_tpu_torch.ops.kernels.gate`, the JAX
-    package's rule) and takes the unfused path where the JAX package takes
-    XLA; where the JAX package would elect its K-blocked kernel, which is
-    not ported yet, the card raises.  A forced ``"dense"`` that cannot run
-    raises with the rule or limit named instead of rerouting."""
+def _fused_mode(fused, kernel, K, D, N, Kt=0, rb=True):
+    """``"dense"`` where the single-pass ``kernel`` runs, ``"blocked"``
+    where its K-blocked variant does, None for the unfused path, for ``N``
+    particles.  ``"auto"`` routes as the JAX package does
+    (:func:`~pypmc_tpu_torch.ops.kernels.route`): the dense kernel where
+    its rule takes the mixture, the K-blocked one where the JAX package
+    elects it, the unfused path otherwise.  A forced ``"dense"`` or
+    ``"blocked"`` that cannot run raises with the rule or limit named
+    instead of rerouting."""
     _check_fused_arg(fused)
-    if fused == "blocked":
-        raise NotImplementedError(
-            "fused='blocked': the K-blocked kernels are not ported to CUDA yet")
     if fused == "off" or (fused == "auto" and not rb):
         return None
     if fused == "auto":
-        if _k.gate(kernel, K, D, Kt):
-            return "dense"
-        if _k.elects_blocked(kernel, K, D, N, Kt) and _k.use_kernel(x):
-            raise NotImplementedError(
-                "%s: K=%d, D=%d, N=%d takes the K-blocked kernel in the JAX "
-                "package, which is not ported to CUDA yet" % (kernel, K, D, N))
-        return None
+        return _k.route(kernel, K, D, N, Kt)
+    name = kernel if fused == "dense" else kernel + "_blocked"
     reason = ("it requires rb=True" if not rb else
-              _k.refusal(kernel, K, D, Kt) or _build.limit_reason(kernel, K, D, Kt))
+              _k.refusal(name, K, D, Kt) or _build.limit_reason(name, K, D, Kt))
     if reason is not None:
-        raise ValueError("fused='dense' was forced but is infeasible for these "
-                         "operands: %s" % reason)
-    return "dense"
+        raise ValueError("fused=%r was forced but is infeasible for these "
+                         "operands: %s" % (fused, reason))
+    return fused
 
 
 class PMCResult(NamedTuple):
@@ -165,13 +158,14 @@ def pmc_update(
     :param reduce: sum of a statistic over all particle shards (the JAX
         package's ``psum``); None is the identity of one process.
     :param transposed: whether ``samples`` is ``(D, N)``.
-    :param fused: ``"auto"`` / ``"dense"`` run every statistic in one pass
-        (kernel ``fused_pmc_stats`` on CUDA float32, its plain version on
-        the CPU; ``rb=True`` only), ``"off"`` the unfused tensor path, which
-        ``"auto"`` also takes where the JAX package takes XLA (``K*D >
-        128``; a forced ``"dense"`` raises there); ``"blocked"``, and
-        ``"auto"`` on the card where the JAX package would elect its
-        K-blocked kernel, raise ``NotImplementedError``.
+    :param fused: ``"dense"`` runs every statistic in one pass (kernel
+        ``fused_pmc_stats`` on CUDA float32, its plain version on the CPU;
+        ``rb=True`` only, ``K*D <= 128``), ``"blocked"`` the same past it
+        (kernel ``fused_pmc_stats_blocked``, up to the JAX package's VMEM
+        fit), ``"off"`` the unfused tensor path; a forced kernel that cannot
+        run raises ``ValueError``.  ``"auto"`` routes as the JAX package
+        does: dense where it fits, K-blocked where the unfused path's (K, N)
+        matrices would crowd 12 GiB, unfused otherwise.
     """
     reduce = _identity if reduce is None else reduce
     samples_T = samples if transposed else samples.T
@@ -194,13 +188,13 @@ def pmc_update(
         live = live & (count >= mincount)
 
     dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = _fused_mode(fused, "fused_pmc_stats", K, dim, N, samples_T, rb=rb)
+    fused_mode = _fused_mode(fused, "fused_pmc_stats", K, dim, N, rb=rb)
 
     if fused_mode:
         # one pass: responsibilities, gamma and every statistic per tile;
         # second moments arrive in whitened coordinates
-        stats = _k.fused_pmc_stats(samples_T, w, _core._kernel_operands(params),
-                                   dof_stats)
+        kernel = _k.fused_pmc_stats if fused_mode == "dense" else _k.fused_pmc_stats_blocked
+        stats = kernel(samples_T, w, _core._kernel_operands(params), dof_stats)
         alpha, mu, cov, const = _moments_from_whitened_stats(
             params, stats, weight_normalization, reduce, dof_stats)
         rho = None
@@ -320,11 +314,13 @@ def pmc_step_mixture_target(
     """One complete (M-)PMC step against a MIXTURE target -- propose,
     evaluate proposal and target, weight, Rao-Blackwellized
     responsibilities, gamma pass and every sufficient statistic -- in one
-    pass: kernel ``fused_is_pmc_step`` on CUDA float32, its plain version on
-    the CPU.  ``fused="off"``, and ``"auto"`` where the JAX package takes
-    XLA, compose :func:`~pypmc_tpu_torch.density.core.propose_logq_T` with
+    call: kernel ``fused_is_pmc_step`` (``fused_is_pmc_step_blocked`` past
+    its one tile) on CUDA float32, its plain version on the CPU.
+    ``fused="off"``, and ``"auto"`` where the JAX package takes XLA,
+    compose :func:`~pypmc_tpu_torch.density.core.propose_logq_T` with
     :func:`pmc_update` (same math, two passes); ``fused`` is otherwise as
-    in :func:`pmc_update`.
+    in :func:`pmc_update`, with the K-blocked rule counting the target's
+    components too.
 
     ``key`` is an int seed or a ``torch.Generator`` (advanced by two seed
     words).
@@ -335,7 +331,7 @@ def pmc_step_mixture_target(
     reduce = _identity if reduce is None else reduce
     dof_stats = params.is_student_t and bool(dof_solver_steps)
     fused_mode = _fused_mode(fused, "fused_is_pmc_step", params.K, params.dim, n,
-                             params.means, target_params.K)
+                             target_params.K)
 
     if not fused_mode:
         samples_T, latent, log_q, log_p = _core.propose_logq_T(
@@ -349,7 +345,8 @@ def pmc_step_mixture_target(
                                  torch.special.xlogy(w, w).sum()]))
         return result, samples_T, w, latent, sw
 
-    samples_T, latent, w, stats = _k.fused_is_pmc_step(
+    kernel = _k.fused_is_pmc_step if fused_mode == "dense" else _k.fused_is_pmc_step_blocked
+    samples_T, latent, w, stats = kernel(
         _rng.seed_words(key), _core._kernel_operands(params),
         _core._kernel_operands(target_params), n, dof_stats)
     sw = reduce(stats["sw"].to(params.means.dtype))

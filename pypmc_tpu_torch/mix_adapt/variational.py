@@ -5,7 +5,9 @@ Counterpart of :mod:`pypmc_tpu.mix_adapt.variational` (the reference's
 layouts.  The E-step over the data runs in one pass through kernel
 ``fused_vb_estep`` (CUDA float32; its plain version on the CPU) wherever
 the mixture fits the kernel (:func:`~pypmc_tpu_torch.ops.kernels.fits`),
-and as tensor code over the ``(N, K)`` responsibilities otherwise; the
+through ``fused_vb_estep_blocked`` where the JAX package elects its
+K-blocked E-step, and as tensor code over the ``(N, K)`` responsibilities
+otherwise; the
 responsibilities themselves (:attr:`GaussianInference.r`) are formed only
 when asked for.  The M-step and the bound are tensor code over the K
 components.
@@ -238,17 +240,19 @@ def _vb_unwhiten(A, m, stats, e_lnlam, e_lnpi):
                      log_q_Z)
 
 
-def _vb_e_step_fused(dataT, weights, alpha, beta, nu, m, W, log_det_W):
+def _vb_e_step_fused(dataT, weights, alpha, beta, nu, m, W, log_det_W, blocked=False):
     """VB-GMM E-step with every sufficient statistic from one pass over the
-    TRANSPOSED data ``(D, N)`` (kernel ``fused_vb_estep``): no (N, K)
-    matrix is formed, and the bound's per-sample term (10.75) comes back as
-    the scalar ``log_q_Z``.  The reduced :class:`_EStepOut` carries None for
-    the (N, K) fields; ``GaussianInference.r`` forms them on demand."""
+    TRANSPOSED data ``(D, N)`` (kernel ``fused_vb_estep``, or
+    ``fused_vb_estep_blocked`` with ``blocked``): no (N, K) matrix is
+    formed, and the bound's per-sample term (10.75) comes back as the
+    scalar ``log_q_Z``.  The reduced :class:`_EStepOut` carries None for the
+    (N, K) fields; ``GaussianInference.r`` forms them on demand."""
     e_lnlam, e_lnpi, A, const = _vb_whitening(dataT.shape[0], alpha, beta, nu, m, W,
                                               log_det_W)
     dt = dataT.dtype
     A_k, m_k = A.to(dt), m.to(dt)
-    stats = _k.fused_vb_estep(dataT, weights.to(dt), A_k, m_k, const.to(dt))
+    kernel = _k.fused_vb_estep_blocked if blocked else _k.fused_vb_estep
+    stats = kernel(dataT, weights.to(dt), A_k, m_k, const.to(dt))
     # un-whiten with the operands the kernel saw
     return _vb_unwhiten(A_k.to(A.dtype), m_k.to(m.dtype), stats, e_lnlam, e_lnpi)
 
@@ -352,12 +356,12 @@ def _vb_update_bound(data, weights, N_comp, x_mean, S,
     finiteness flag -- with one host synchronization: the bound and the
     flag come back as one ``(2,)`` tensor.
 
-    ``data`` is ``(N, D)``, or ``(D, N)`` when ``fused`` (the one-pass
-    E-step takes the transposed layout).
+    ``data`` is ``(N, D)``, or ``(D, N)`` when ``fused`` (``"dense"`` or
+    ``"blocked"``: the one-pass E-step takes the transposed layout).
     """
     hyper = _vb_m_step(N_comp, x_mean, S, alpha0, beta0, nu0, m0, inv_W0)
     if fused:
-        e = _vb_e_step_fused(data, weights, *hyper)
+        e = _vb_e_step_fused(data, weights, *hyper, blocked=fused == "blocked")
     else:
         e = _vb_e_step(data, weights, *hyper)
     bound = _vb_bound(weights, e, *hyper, alpha0, beta0, nu0, m0, inv_W0, log_det_W0)
@@ -633,24 +637,19 @@ class GaussianInference(object):
     # ---------------- E / M / bound ---------------- #
 
     def _fused_eligible(self):
-        """``"dense"`` where the one-pass E-step kernel takes this mixture
-        (the size gate, :func:`~pypmc_tpu_torch.ops.kernels.gate`: the JAX
-        package's ``K*D <= 128``), None for the unfused tensor path.  Where
-        the JAX package would elect its K-blocked E-step, which is not
-        ported yet, the card raises ``NotImplementedError``."""
-        if _k.gate("fused_vb_estep", self.K, self.dim):
-            return "dense"
-        if (_k.elects_blocked("fused_vb_estep", self.K, self.dim, self.N)
-                and _k.use_kernel(self._data_T)):
-            raise NotImplementedError(
-                "fused_vb_estep: K=%d, D=%d, N=%d takes the K-blocked E-step in "
-                "the JAX package, which is not ported to CUDA yet"
-                % (self.K, self.dim, self.N))
-        return None
+        """The E-step's route, as the JAX package's
+        (:func:`~pypmc_tpu_torch.ops.kernels.route`): ``"dense"`` where the
+        one-pass kernel takes this mixture (``K*D <= 128``), ``"blocked"``
+        where the JAX package elects its K-blocked E-step (the unfused (N,
+        K) matrices would crowd 12 GiB), None for the unfused tensor
+        path."""
+        return _k.route("fused_vb_estep", self.K, self.dim, self.N)
 
     def _e_step_kernel(self):
-        if self._fused_eligible():
-            return _vb_e_step_fused(self._data_T, self.weights, *self._posterior())
+        fused = self._fused_eligible()
+        if fused:
+            return _vb_e_step_fused(self._data_T, self.weights, *self._posterior(),
+                                    blocked=fused == "blocked")
         return _vb_e_step(self.data, self.weights, *self._posterior())
 
     def E_step(self):

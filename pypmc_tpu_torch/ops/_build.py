@@ -13,8 +13,10 @@ keeps one particle's coordinates in a per-thread array of at most
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`; every kernel stages
 its mixture operands there too when they fit beside, and otherwise reads
-them from device memory.  :func:`limit_reason` names the limit a shape
-breaks, and the wrappers raise for such a shape.  Which shapes the
+them from device memory.  The K-blocked kernels walk the components in
+chunks sized from shared memory (:func:`blocked_plan`), so only D limits
+them.  :func:`limit_reason` names the limit a shape breaks, and the
+wrappers raise for such a shape.  Which shapes the
 ``"auto"`` dispatchers send to a kernel at all is a separate question,
 answered by :func:`pypmc_tpu_torch.ops.kernels.fits`.
 """
@@ -28,8 +30,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "KERNELS", "smem_bytes",
-           "limit_reason", "check_limits", "load", "build_info"]
+__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "KERNELS", "BLOCKED", "smem_bytes",
+           "blocked_plan", "limit_reason", "check_limits", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -56,13 +58,25 @@ def _full_floats(K, D):
     return _eval_floats(K, D) + K * D * D + K
 
 
+BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
+           "fused_is_pmc_step_blocked")
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
-           "fused_transform", "fused_transform_rng", "fused_mcmc_pool")
+           "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
+_BLOCKED_HALF = 228 * 1024 // 2 - 1024   # csrc/blocked.cuh kBlockedHalf
+
+
+def _blocked_floats(kernel, D):
+    """Operand floats of one component in the K-blocked kernels' chunk
+    layout (``csrc/blocked.cuh`` ``blocked_floats``)."""
+    return D * D + D + 1 if kernel == "fused_vb_estep_blocked" else _eval_floats(1, D)
 
 
 def _operand_floats(kernel, K, D, Kt):
-    """Floats of the mixture operands one block of ``kernel`` reads."""
+    """Floats of the mixture operands one block of ``kernel`` reads (for a
+    K-blocked kernel, one chunk's)."""
+    if kernel in BLOCKED:
+        return blocked_plan(kernel, K, D)[0] * _blocked_floats(kernel, D)
     if kernel in ("fused_logq", "fused_rho", "fused_pmc_stats"):
         return _eval_floats(K, D)
     if kernel == "fused_maha":
@@ -87,11 +101,32 @@ def _stats_bytes(K, D, params):
     return acc_offset + entries * (8 + 3 * 2)
 
 
+def blocked_plan(kernel, K, D):
+    """``(components a chunk, operands staged in shared memory, shared
+    memory a block)`` of a K-blocked kernel's statistics pass; mirrors
+    ``csrc/blocked.cuh`` ``blocked_plan``.  A chunk is as large as lets two
+    blocks share an SM, or one block where one component needs more; the
+    chunk's operands are staged where one component's fit beside the
+    tile."""
+    per = _blocked_floats(kernel, D)
+    staged = _stats_bytes(1, D, per) <= SMEM_LIMIT
+    f = per if staged else 0
+    budget = _BLOCKED_HALF if _stats_bytes(1, D, f) <= _BLOCKED_HALF else SMEM_LIMIT
+    kc = 1
+    while kc < K and _stats_bytes(kc + 1, D, (kc + 1) * f) <= budget:
+        kc += 1
+    return kc, staged, _stats_bytes(kc, D, kc * f)
+
+
 def smem_bytes(kernel, K, D, Kt=0):
     """Shared memory one block of ``kernel`` asks for; mirrors the
     launchers in ``csrc/*.cu`` (``Kt`` is the target's component count).
     The operands are staged in it when they fit beside the kernel's own
-    shared memory, and read from device memory otherwise."""
+    shared memory, and read from device memory otherwise.  For a K-blocked
+    kernel, its statistics pass's (the first launch reads the operands as
+    ``fused_logq``, ``fused_propose_logq`` or like them)."""
+    if kernel in BLOCKED:
+        return blocked_plan(kernel, K, D)[2]
     params = _operand_floats(kernel, K, D, Kt)
     if kernel in ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep"):
         staged = _stats_bytes(K, D, params)
@@ -209,6 +244,18 @@ def _declare(lib):
         # t_student_t, stream
         "pmc_fused_mcmc_pool": [U, U, P, P, P, ctypes.c_float, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P],
+        # xT, w, mix, chunks, log_q, partial, stats, N, K, D, kc, student_t,
+        # dof_stats, n_eval_blocks, n_blocks, stream
+        "pmc_fused_pmc_stats_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I,
+                                        P],
+        # xT, w, ops, chunks, lse, partial, stats, N, K, D, kc, n_eval_blocks,
+        # n_blocks, stream
+        "pmc_fused_vb_estep_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, P],
+        # s0, s1, mix, tmix, chunks, xT, latent, w, log_q, log_p, partial,
+        # stats, N, K, Kt, D, kc, student_t, t_student_t, dof_stats,
+        # n_eval_blocks, n_blocks, stream
+        "pmc_fused_is_pmc_step_blocked": [U, U, P, P, P, P, P, P, P, P, P, P, L, I,
+                                          I, I, I, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -216,12 +263,17 @@ def _declare(lib):
         fn.restype = ctypes.c_int
     lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]     # K, Kt, D, is_step
     lib.pmc_propose_logq_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
+    lib.pmc_is_pmc_step_blocked_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
+    lib.pmc_blocked_chunk.argtypes = [I, I, I]   # K, D, vb
+    lib.pmc_blocked_chunk.restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
              "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes",
-             "pmc_mcmc_pool_smem_bytes")
+             "pmc_mcmc_pool_smem_bytes", "pmc_pmc_stats_blocked_smem_bytes",
+             "pmc_vb_estep_blocked_smem_bytes")
     for name in pairs:
         getattr(lib, name).argtypes = [I, I]
-    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes") + pairs:
+    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
+                 "pmc_is_pmc_step_blocked_smem_bytes") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

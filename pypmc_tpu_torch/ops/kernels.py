@@ -1,28 +1,32 @@
 """The CUDA kernels of the port, each beside its plain PyTorch version.
 
-============================  =====================================  ==========================
-wrapper                       CUDA source                            replaces (Pallas, TPU)
-============================  =====================================  ==========================
-:func:`fused_logq`            ``csrc/logq.cu``                       ``pallas_kernels.py:788``
-:func:`fused_rho`             ``csrc/rho.cu``                        ``pallas_kernels.py:826``
-:func:`fused_maha`            ``csrc/maha.cu``                       ``pallas_kernels.py:858``
-:func:`fused_propose_logq`    ``csrc/propose_logq.cu``               ``pallas_kernels.py:924``
-:func:`fused_pmc_stats`       ``csrc/pmc_stats.cu``                  ``pallas_kernels.py:1150``
-:func:`fused_is_pmc_step`     ``csrc/is_pmc_step.cu``                ``pallas_kernels.py:1336``
-:func:`fused_vb_estep`        ``csrc/vb_estep.cu``                   ``pallas_kernels.py:1493``
-:func:`fused_transform`       ``csrc/transform.cu``                  ``pallas_kernels.py:1014``
-:func:`fused_transform_rng`   ``csrc/transform.cu``                  ``pallas_kernels.py:881``
-:func:`fused_mcmc_pool`       ``csrc/mcmc_pool.cu``                  ``pallas_kernels.py:2293``
-============================  =====================================  ==========================
+==================================  ===============================  ==========================
+wrapper                             CUDA source                      replaces (Pallas, TPU)
+==================================  ===============================  ==========================
+:func:`fused_logq`                  ``csrc/logq.cu``                 ``pallas_kernels.py:788``
+:func:`fused_rho`                   ``csrc/rho.cu``                  ``pallas_kernels.py:826``
+:func:`fused_maha`                  ``csrc/maha.cu``                 ``pallas_kernels.py:858``
+:func:`fused_propose_logq`          ``csrc/propose_logq.cu``         ``pallas_kernels.py:924``
+:func:`fused_pmc_stats`             ``csrc/pmc_stats.cu``            ``pallas_kernels.py:1150``
+:func:`fused_is_pmc_step`           ``csrc/is_pmc_step.cu``          ``pallas_kernels.py:1336``
+:func:`fused_vb_estep`              ``csrc/vb_estep.cu``             ``pallas_kernels.py:1493``
+:func:`fused_transform`             ``csrc/transform.cu``            ``pallas_kernels.py:1014``
+:func:`fused_transform_rng`         ``csrc/transform.cu``            ``pallas_kernels.py:881``
+:func:`fused_pmc_stats_blocked`     ``csrc/pmc_stats_blocked.cu``    ``pallas_kernels.py:1779``
+:func:`fused_vb_estep_blocked`      ``csrc/vb_estep_blocked.cu``     ``pallas_kernels.py:1889``
+:func:`fused_is_pmc_step_blocked`   ``csrc/is_pmc_step_blocked.cu``  ``pallas_kernels.py:2067``
+:func:`fused_mcmc_pool`             ``csrc/mcmc_pool.cu``            ``pallas_kernels.py:2293``
+==================================  ===============================  ==========================
 
 Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
 ``"auto"`` dispatcher of the package before it calls a wrapper.  It is the
 JAX package's own rule for running its Pallas kernel, so a mixture takes
 the dispatcher's unfused tensor path exactly where the JAX package takes
 its XLA path, and :func:`gate` counts that route as ``plain:<kernel>``.
-Where the JAX package would elect a K-blocked kernel (:func:`elects_blocked`),
-which the port does not have, the dispatchers raise on the card.  The
-decision depends only on the shape, so the CPU makes the card's choice.
+The dispatchers of the three single-pass statistics kernels ask
+:func:`route`, which also takes the K-blocked variant where the JAX package
+elects it (:func:`elects_blocked`).  The decision depends only on the
+shape, so the CPU makes the card's choice.
 The device gate, :func:`use_kernel`, sits in each wrapper: a float32 tensor
 on CUDA goes to the kernel, a tensor on the CPU to the plain version, and a
 CUDA tensor of any other dtype raises ``TypeError``.  A CUDA tensor never
@@ -50,15 +54,17 @@ from . import _build
 from .lse import logsumexp
 from .random import student_t_scale
 
-__all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked",
+__all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked", "route",
            "use_kernel", "fused_logq",
            "fused_rho", "fused_maha", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_vb_estep", "fused_transform",
-           "fused_transform_rng", "fused_mcmc_pool", "plain_logq", "plain_rho",
-           "plain_maha", "plain_propose", "plain_propose_logq",
+           "fused_transform_rng", "fused_pmc_stats_blocked", "fused_vb_estep_blocked",
+           "fused_is_pmc_step_blocked", "fused_mcmc_pool", "plain_logq", "plain_rho",
+           "plain_logq_blocked", "plain_maha", "plain_propose", "plain_propose_logq",
            "plain_pmc_stats", "plain_is_pmc_step", "plain_vb_estep",
-           "plain_transform", "plain_transform_rng", "plain_mcmc_pool",
-           "mcmc_step_chunk", "launch_counts", "reset_launch_counts"]
+           "plain_pmc_stats_blocked", "plain_vb_estep_blocked",
+           "plain_is_pmc_step_blocked", "plain_transform", "plain_transform_rng",
+           "plain_mcmc_pool", "mcmc_step_chunk", "launch_counts", "reset_launch_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +101,8 @@ class MixtureOperands:
 # The JAX package's rules for running a Pallas kernel, by shape, at its
 # default VMEM budget (pypmc_tpu/ops/pallas_kernels.py fits_vmem,
 # fits_vmem_blocked, prefer_blocked) and the single-pass statistics
-# kernels' K*D <= 128 (pypmc_tpu/mix_adapt/pmc.py:227, :427,
-# variational.py:745).
+# kernels' K*D <= 128 (pypmc_tpu/mix_adapt/pmc.py:227-241, :427-438,
+# variational.py:743-750).
 _VMEM_BUDGET = 6 * 1024 * 1024
 _QUANTUM_EVAL, _QUANTUM_RNG = 128, 1024
 _DENSE_KD = 128
@@ -162,6 +168,13 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
                 "Student-t proposal %s)" % (n_steps, student_t))
     elif kernel == "fused_propose_logq":
         ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
+    elif kernel in ("fused_pmc_stats_blocked", "fused_vb_estep_blocked"):
+        ok = _fits_vmem_blocked(K, D, _QUANTUM_EVAL)
+        rule = "a VMEM fit of the K-blocked kernel at a 128-particle tile"
+    elif kernel == "fused_is_pmc_step_blocked":
+        ok = _fits_vmem_blocked(K + Kt, D, _QUANTUM_RNG)
+        rule = ("a VMEM fit of the K-blocked kernel for K + K_target components at a "
+                "1024-particle tile")
     elif kernel in _SINGLE_PASS:
         ok, rule = K * D <= _DENSE_KD, "K*D <= %d" % _DENSE_KD
         if kernel == "fused_is_pmc_step" and ok:
@@ -186,20 +199,30 @@ def fits(kernel, K, D, Kt=0, **rule) -> bool:
 
 def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
     """Whether the JAX package, with the single-pass ``kernel`` out of
-    reach (:func:`fits` False), elects its K-blocked variant: the mixture
-    fits the blocked kernel's VMEM and the unfused path's (K, N) matrices
-    would crowd 12 GiB.  The port has no blocked kernels yet, so its
-    dispatchers raise there on the card."""
+    reach (:func:`fits` False), elects its K-blocked variant ``kernel +
+    "_blocked"`` for N particles: the mixture fits that kernel's VMEM
+    (:func:`fits`) and the unfused path's (K, N) matrices would crowd 12
+    GiB."""
     if kernel not in _SINGLE_PASS:
         return False
-    if kernel == "fused_is_pmc_step":
-        fit = _fits_vmem_blocked(K + Kt, D, _QUANTUM_RNG)
-    else:
-        fit = _fits_vmem_blocked(K, D, _QUANTUM_EVAL)
-    return fit and 12 * K * N > _BLOCKED_HBM
+    return fits(kernel + "_blocked", K, D, Kt) and 12 * K * N > _BLOCKED_HBM
 
 
 _plain_routes = {}
+
+
+def route(kernel, K, D, N, Kt=0):
+    """The route of an ``"auto"`` dispatch of the single-pass statistics
+    ``kernel`` for N particles: ``"dense"`` where it fits (:func:`fits`),
+    ``"blocked"`` where the JAX package elects the K-blocked variant
+    (:func:`elects_blocked`), else None, the unfused path, counted as the
+    route ``plain:<kernel>`` in :func:`launch_counts`."""
+    if fits(kernel, K, D, Kt):
+        return "dense"
+    if elects_blocked(kernel, K, D, N, Kt):
+        return "blocked"
+    _plain_routes[kernel] += 1
+    return None
 
 
 def gate(kernel, K, D, Kt=0, **rule) -> bool:
@@ -300,20 +323,55 @@ def _component_logpdfs_T(xT, f, dim, student_t):
     return diff, maha, ind
 
 
+# elements of a (components, D, N) intermediate of a plain K-blocked version
+_PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def _chunks(K, D, N):
+    """``(k0, k1)`` ranges over ``[0, K)`` of as many components as keep a
+    ``(components, D, N)`` intermediate within ``_PLAIN_CHUNK_ELEMENTS``."""
+    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, D * N))
+    return [(k0, min(K, k0 + chunk)) for k0 in range(0, K, chunk)]
+
+
+def _slice(f, k0, k1):
+    return {name: v[k0:k1] for name, v in f.items()}
+
+
+def _streaming_logq(xT, ops: MixtureOperands, chunks):
+    """The mixture log-density as a weighted log-sum-exp streamed over the
+    component ``chunks``; one chunk is the plain log-sum-exp."""
+    f = ops.fields()
+    out = None
+    for k0, k1 in chunks:
+        fc = _slice(f, k0, k1)
+        _, _, ind = _component_logpdfs_T(xT, fc, ops.dim, ops.student_t)
+        part = logsumexp(ind, fc["weights"][:, None], axis=0)
+        out = part if out is None else torch.logaddexp(out, part)
+    return out
+
+
 def plain_logq(xT, ops: MixtureOperands):
     """Plain version of :func:`fused_logq`."""
-    f = ops.fields()
-    _, _, ind = _component_logpdfs_T(xT, f, ops.dim, ops.student_t)
-    return logsumexp(ind, f["weights"][:, None], axis=0)
+    return _streaming_logq(xT, ops, [(0, ops.K)])
 
 
-def _rho_from_logpdfs(ind, wk):
+def plain_logq_blocked(xT, ops: MixtureOperands):
+    """:func:`plain_logq` streamed over the component chunks of
+    :func:`_chunks`: the first pass of the plain K-blocked versions, which
+    never forms a (K, N) matrix."""
+    return _streaming_logq(xT, ops, _chunks(ops.K, ops.dim, xT.shape[1]))
+
+
+def _rho_from_logpdfs(ind, wk, log_q=None):
     """Log-space responsibilities ``w_k exp(ind_k - log q)``, exactly 0 for
-    a dead component, and ``log q``."""
-    lse = logsumexp(ind, wk, axis=0)
-    rho = torch.where(wk > 0, torch.exp(ind - lse[None, :]) * wk,
+    a dead component, and ``log q`` (the log-sum-exp of ``ind`` where it is
+    not given)."""
+    if log_q is None:
+        log_q = logsumexp(ind, wk, axis=0)
+    rho = torch.where(wk > 0, torch.exp(ind - log_q[None, :]) * wk,
                       torch.zeros_like(ind))
-    return rho, lse
+    return rho, log_q
 
 
 def plain_rho(xT, ops: MixtureOperands):
@@ -334,16 +392,42 @@ def plain_maha(xT, a, m):
     return torch.sum(diff * diff, dim=1)
 
 
+def _plain_vb(xT, w, a, m, const, chunks):
+    """The VB E-step statistics over the component ``chunks``: a first
+    pass streams the log-sum-exp of the softmax where there is more than
+    one chunk, a second forms each chunk's statistics."""
+    def log_rho(k0, k1):
+        diff = _project(xT, a[k0:k1], m[k0:k1])
+        return diff, const[k0:k1, None] - 0.5 * torch.sum(diff * diff, dim=1)
+
+    lse = None
+    if len(chunks) > 1:
+        for k0, k1 in chunks:
+            part = torch.logsumexp(log_rho(k0, k1)[1], dim=0)
+            lse = part if lse is None else torch.logaddexp(lse, part)
+    parts = []
+    for k0, k1 in chunks:
+        diff, lr = log_rho(k0, k1)
+        log_r = lr - (torch.logsumexp(lr, dim=0) if lse is None else lse)[None, :]
+        wr = torch.exp(log_r) * w[None, :]
+        cdiff = diff * wr[:, None, :]
+        parts.append((wr.sum(1), cdiff.sum(2), cdiff @ diff.transpose(1, 2),
+                      torch.sum(wr * log_r)))
+    n_comp, sd, g, ent = zip(*parts)
+    return torch.cat(n_comp), torch.cat(sd), torch.cat(g), torch.stack(ent).sum()
+
+
 def plain_vb_estep(xT, w, a, m, const):
     """Plain version of :func:`fused_vb_estep`: ``(N_comp (K,), sd (K, D),
     g (K, D, D), log_q_Z ())``."""
-    diff = _project(xT, a, m)
-    log_rho = const[:, None] - 0.5 * torch.sum(diff * diff, dim=1)
-    log_r = log_rho - torch.logsumexp(log_rho, dim=0, keepdim=True)
-    wr = torch.exp(log_r) * w[None, :]
-    cdiff = diff * wr[:, None, :]
-    return (wr.sum(1), cdiff.sum(2), cdiff @ diff.transpose(1, 2),
-            torch.sum(wr * log_r))
+    return _plain_vb(xT, w, a, m, const, [(0, a.shape[0])])
+
+
+def plain_vb_estep_blocked(xT, w, a, m, const):
+    """Plain version of :func:`fused_vb_estep_blocked`: the outputs of
+    :func:`plain_vb_estep`, streamed over the component chunks of
+    :func:`_chunks`, so no (K, N) matrix is formed."""
+    return _plain_vb(xT, w, a, m, const, _chunks(a.shape[0], a.shape[1], xT.shape[1]))
 
 
 def plain_transform(zT, latent, scale, ops: MixtureOperands):
@@ -383,8 +467,9 @@ def plain_propose(gen, ops: MixtureOperands, n: int):
     thresholds, so a dead component is never drawn."""
     f = ops.fields()
     u = torch.rand(n, generator=gen, dtype=ops.packed.dtype, device=ops.packed.device)
-    latent = torch.sum(u[None, :] >= f["cumw"][:-1, None], dim=0,
-                       dtype=torch.int32)
+    latent = torch.zeros((n,), dtype=torch.int32, device=ops.packed.device)
+    for k0, k1 in _chunks(ops.K - 1, 1, n):
+        latent += torch.sum(u[None, :] >= f["cumw"][k0:k1, None], dim=0, dtype=torch.int32)
     return _draw_transform(gen, latent, ops), latent
 
 
@@ -432,30 +517,51 @@ def plain_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
     return xT, latent, log_q, plain_logq(xT, target)
 
 
+def _plain_stats(xT, w, ops: MixtureOperands, dof_stats, n_sw, chunks, log_q=None):
+    """The PMC statistics over the component ``chunks``, the
+    responsibilities ``w_k exp(ind_k - log q)`` (exactly 0 for a dead
+    component); ``log_q`` None takes it from the one chunk's log-densities."""
+    f = ops.fields()
+    D = ops.dim
+    parts = []
+    for k0, k1 in chunks:
+        fc = _slice(f, k0, k1)
+        diff, maha, ind = _component_logpdfs_T(xT, fc, D, ops.student_t)
+        rho, log_q = _rho_from_logpdfs(ind, fc["weights"][:, None], log_q)
+        wrho = rho * w[None, :]
+        if ops.student_t:
+            nu = fc["dof"][:, None]
+            gamma = (nu + D) / (nu + maha)
+            c = wrho * gamma
+        else:
+            c = wrho
+        cdiff = diff * c[:, None, :]
+        if dof_stats and ops.student_t:
+            brk = torch.log(0.5 * (maha + nu)) - fc["psi"][:, None] + gamma
+            t1 = torch.sum(wrho * brk, dim=1)
+        else:
+            t1 = torch.zeros_like(fc["weights"])
+        parts.append({"s0": wrho.sum(1), "s0c": c.sum(1), "sd": cdiff.sum(2),
+                      "g": cdiff @ diff.transpose(1, 2), "t1": t1})
+    out = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    # xlogy(w, w) = w log w, and exactly 0 where w == 0
+    out["sw"] = torch.stack([w.sum(), (w * w).sum(), torch.special.xlogy(w, w).sum()])[:n_sw]
+    return out
+
+
 def plain_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False, n_sw=2):
     """Plain version of :func:`fused_pmc_stats`: the dict ``s0, s0c (K,)``,
     ``sd (K, D)``, ``g (K, D, D)``, ``sw (n_sw,)``, ``t1 (K,)``."""
-    f = ops.fields()
-    D = ops.dim
-    diff, maha, ind = _component_logpdfs_T(xT, f, D, ops.student_t)
-    rho, _ = _rho_from_logpdfs(ind, f["weights"][:, None])
-    wrho = rho * w[None, :]
-    if ops.student_t:
-        nu = f["dof"][:, None]
-        gamma = (nu + D) / (nu + maha)
-        c = wrho * gamma
-    else:
-        c = wrho
-    cdiff = diff * c[:, None, :]
-    if dof_stats and ops.student_t:
-        brk = torch.log(0.5 * (maha + nu)) - f["psi"][:, None] + gamma
-        t1 = torch.sum(wrho * brk, dim=1)
-    else:
-        t1 = torch.zeros_like(f["weights"])
-    # xlogy(w, w) = w log w, and exactly 0 where w == 0
-    sw = torch.stack([w.sum(), (w * w).sum(), torch.special.xlogy(w, w).sum()])[:n_sw]
-    return {"s0": wrho.sum(1), "s0c": c.sum(1), "sd": cdiff.sum(2),
-            "g": cdiff @ diff.transpose(1, 2), "sw": sw, "t1": t1}
+    return _plain_stats(xT, w, ops, dof_stats, n_sw, [(0, ops.K)])
+
+
+def plain_pmc_stats_blocked(xT, w, ops: MixtureOperands, dof_stats=False, n_sw=2):
+    """Plain version of :func:`fused_pmc_stats_blocked`: the outputs of
+    :func:`plain_pmc_stats` from a log q streamed over the component chunks
+    of :func:`_chunks` and a second pass over the same chunks, so no (K, N)
+    matrix is formed."""
+    chunks = _chunks(ops.K, ops.dim, xT.shape[1])
+    return _plain_stats(xT, w, ops, dof_stats, n_sw, chunks, _streaming_logq(xT, ops, chunks))
 
 
 def plain_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
@@ -464,6 +570,19 @@ def plain_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     xT, latent, log_q, log_p = plain_propose_logq(seed, ops, n, target)
     w = torch.exp(log_p - log_q)
     return xT, latent, w, plain_pmc_stats(xT, w, ops, dof_stats, n_sw=3)
+
+
+def plain_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperands,
+                              n: int, dof_stats=False):
+    """Plain version of :func:`fused_is_pmc_step_blocked`: the particles of
+    :func:`plain_is_pmc_step` from the same seed words, with log q, log p and
+    the statistics streamed over component chunks as in
+    :func:`plain_pmc_stats_blocked`."""
+    xT, latent = plain_propose(_rng.device_generator(seed, ops.packed.device), ops, n)
+    chunks = _chunks(ops.K, ops.dim, n)
+    log_q = _streaming_logq(xT, ops, chunks)
+    w = torch.exp(plain_logq_blocked(xT, target) - log_q)
+    return xT, latent, w, _plain_stats(xT, w, ops, dof_stats, 3, chunks, log_q)
 
 
 # --------------------------------------------------------------------- #
@@ -711,6 +830,124 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
 
 
+_PMC_FIELDS = ("mu", "U", "log_norm", "weights", "dof", "psi")
+
+
+def _blocked_operands(kernel, device, n, fields):
+    """``(kc, particle blocks, chunk-major operands)`` of a K-blocked
+    kernel's statistics pass (``csrc/blocked.cuh``): chunks of ``kc``
+    components (``_build.blocked_plan``), each the slices of the ``(K, ...)``
+    ``fields`` in turn, and as many particle blocks as let every chunk's
+    blocks fit on the card at once."""
+    K, D = fields[0].shape[:2]
+    kc, _, smem = _build.blocked_plan(kernel, K, D)
+    n_blocks = max(1, _stats_blocks(device, n, smem) // -(-K // kc))
+    chunks = torch.cat([t[k0:k0 + kc].reshape(-1) for k0 in range(0, K, kc) for t in fields])
+    return kc, n_blocks, chunks
+
+
+def fused_pmc_stats_blocked(xT, w, ops: MixtureOperands, dof_stats=False):
+    """:func:`fused_pmc_stats` for mixtures past its one tile (kernel
+    ``csrc/pmc_stats_blocked.cu``): log q in a first launch, then the
+    statistics chunk by chunk of components; the same dict."""
+    if not use_kernel(xT, w, ops.packed):
+        return plain_pmc_stats_blocked(xT, w, ops, dof_stats)
+    D, N = xT.shape
+    _check(xT, (ops.dim, N))
+    _check(w, (N,))
+    _check_operands(ops)
+    _build.check_limits("fused_pmc_stats_blocked", ops.K, D)
+    lib = _build.load()
+    f = ops.fields()
+    kc, n_blocks, chunks = _blocked_operands("fused_pmc_stats_blocked", xT.device, N,
+                                             [f[name] for name in _PMC_FIELDS])
+    S = _entries(ops.K, D)
+    log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
+    flat = torch.empty((S,), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_pmc_stats_blocked(
+            xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(), chunks.data_ptr(),
+            log_q.data_ptr(), partial.data_ptr(), flat.data_ptr(), N, ops.K, D, kc,
+            int(ops.student_t), int(dof_stats), _blocks(xT.device, N, 16), n_blocks,
+            _stream(xT.device))
+    _raise_on(err, "fused_pmc_stats_blocked")
+    fused_pmc_stats_blocked.launches += 1
+    return _unpack_stats(flat, ops.K, D, 2)
+
+
+def fused_vb_estep_blocked(xT, w, a, m, const):
+    """:func:`fused_vb_estep` for mixtures past its one tile (kernel
+    ``csrc/vb_estep_blocked.cu``): the softmax's log-sum-exp in a first
+    launch, then the statistics chunk by chunk of components; the same
+    returns."""
+    if not use_kernel(xT, w, a, m, const):
+        return plain_vb_estep_blocked(xT, w, a, m, const)
+    K, D = _check_projection(xT, a, m)
+    N = xT.shape[1]
+    _check(w, (N,))
+    if tuple(const.shape) != (K,):
+        raise ValueError("expected const of shape %s, got %s" % ((K,), tuple(const.shape)))
+    _build.check_limits("fused_vb_estep_blocked", K, D)
+    lib = _build.load()
+    ops = torch.cat([a.reshape(-1), m.reshape(-1), const])
+    kc, n_blocks, chunks = _blocked_operands("fused_vb_estep_blocked", xT.device, N,
+                                             [a, m, const])
+    S = _entries(K, D)
+    lse = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
+    flat = torch.empty((S,), dtype=torch.float64, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_vb_estep_blocked(
+            xT.data_ptr(), w.data_ptr(), ops.data_ptr(), chunks.data_ptr(), lse.data_ptr(),
+            partial.data_ptr(), flat.data_ptr(), N, K, D, kc, _blocks(xT.device, N, 16),
+            n_blocks, _stream(xT.device))
+    _raise_on(err, "fused_vb_estep_blocked")
+    fused_vb_estep_blocked.launches += 1
+    stats = _unpack_stats(flat, K, D, 0)
+    return stats["s0"], stats["sd"], stats["g"], stats["t1"].sum()
+
+
+def fused_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperands,
+                              n: int, dof_stats=False):
+    """:func:`fused_is_pmc_step` for mixtures past its one tile (kernel
+    ``csrc/is_pmc_step_blocked.cu``): the draw of ``fused_propose_logq`` in
+    a first launch -- the particles of :func:`fused_is_pmc_step` from the
+    same seed words --, then the weights and the statistics chunk by chunk
+    of components; the same returns."""
+    if not use_kernel(ops.packed, target.packed):
+        return plain_is_pmc_step_blocked(seed, ops, target, n, dof_stats)
+    _check_operands(ops)
+    _check_operands(target)
+    if target.dim != ops.dim:
+        raise ValueError("target dimension %d != proposal dimension %d"
+                         % (target.dim, ops.dim))
+    D, device = ops.dim, ops.packed.device
+    _build.check_limits("fused_is_pmc_step_blocked", ops.K, D, target.K)
+    lib = _build.load()
+    f = ops.fields()
+    kc, n_blocks, chunks = _blocked_operands("fused_is_pmc_step_blocked", device, n,
+                                             [f[name] for name in _PMC_FIELDS])
+    S = _entries(ops.K, D)
+    xT = torch.empty((D, n), dtype=torch.float32, device=device)
+    latent = torch.empty((n,), dtype=torch.int32, device=device)
+    w, log_q, log_p = (torch.empty((n,), dtype=torch.float32, device=device)
+                       for _ in range(3))
+    partial = torch.empty((n_blocks, S), dtype=torch.float64, device=device)
+    flat = torch.empty((S,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_is_pmc_step_blocked(
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            target.packed.data_ptr(), chunks.data_ptr(), xT.data_ptr(), latent.data_ptr(),
+            w.data_ptr(), log_q.data_ptr(), log_p.data_ptr(), partial.data_ptr(),
+            flat.data_ptr(), n, ops.K, target.K, D, kc, int(ops.student_t),
+            int(target.student_t), int(dof_stats), _blocks(device, n, 16), n_blocks,
+            _stream(device))
+    _raise_on(err, "fused_is_pmc_step_blocked")
+    fused_is_pmc_step_blocked.launches += 1
+    return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
+
+
 def _transform_operands(ops: MixtureOperands):
     """``mu (K, D) | L (K, D, D) | dof (K)``, the operand buffer of
     ``csrc/transform.cu``."""
@@ -818,14 +1055,18 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
 
 _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
              fused_maha, fused_rho, fused_vb_estep, fused_transform,
-             fused_transform_rng, fused_mcmc_pool)
+             fused_transform_rng, fused_mcmc_pool, fused_pmc_stats_blocked,
+             fused_vb_estep_blocked, fused_is_pmc_step_blocked)
 
 
 def reset_launch_counts():
-    """Set every wrapper's launch count and every plain route's count to 0."""
+    """Set every wrapper's launch count and every plain route's count to 0
+    (a K-blocked kernel has no route of its own: its dense twin's gate
+    counts)."""
     for fn in _WRAPPERS:
         fn.launches = 0
-        _plain_routes[fn.__name__] = 0
+        if fn.__name__ not in _build.BLOCKED:
+            _plain_routes[fn.__name__] = 0
 
 
 def launch_counts() -> dict:

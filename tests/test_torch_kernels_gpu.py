@@ -5,8 +5,8 @@ runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-The checks are those of ``chip_smoke.py`` (phases 3, 5 and 6), at N of a
-few 10^5.
+The checks are those of ``chip_smoke.py`` (phases 3, 5, 6 and blocked), at
+N of a few 10^5.
 """
 
 import pytest
@@ -76,6 +76,22 @@ def test_mcmc_pool_invariants(cuda, case):
 @pytest.mark.parametrize("case", chip_smoke.POOL_DISTRIBUTION_CASES)
 def test_mcmc_pool_matches_plain_pool_in_distribution(cuda, case):
     chip_smoke.pool_distribution_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", [
+    # K, Kt, D, N, Student-t proposal, Student-t target, dead component, seed
+    (400, 2, 2, 1 << 18, True, False, False, 91),
+    (200, 2, 10, 100_003, True, False, True, 92),
+    (21, 2, 10, 200_003, False, True, True, 93),
+    (96, 2, 40, 50_001, False, False, False, 94),
+    (3, 1, 128, 50_001, False, False, False, 95),
+])
+def test_blocked_kernels_against_plain_versions(cuda, case):
+    chip_smoke.blocked_case(case, cuda, [])
+
+
+def test_dense_and_blocked_twins(cuda):
+    chip_smoke.twin_case(cuda, [])
 
 
 def test_fused_logq_maps_under_vmap(cuda):

@@ -219,7 +219,8 @@ GATE_SHAPES = [(10, 10, 2), (1, 1, 1), (30, 10, 2), (2, 40, 2), (64, 32, 2), (40
 def jax_rule(kernel, K, D, Kt, n=None, n_steps=None, student_t=False):
     """Whether the JAX package runs its Pallas kernel for this shape (for
     the transforms, ``density/core.py:308-314``; for the pool, ``K`` is the
-    target's component count, ``sampler/markov_chain.py:449-457``)."""
+    target's component count, ``sampler/markov_chain.py:449-457``; for a
+    K-blocked kernel, its VMEM fit, ``mix_adapt/pmc.py:228``, ``:430``)."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         return pk.fits_vmem(K, D, pk.QUANTUM_EVAL)
     if kernel == "fused_propose_logq":
@@ -231,6 +232,10 @@ def jax_rule(kernel, K, D, Kt, n=None, n_steps=None, student_t=False):
         return pk.fits_vmem(K, D, quantum) and (n is None or n >= 1024)
     if kernel == "fused_mcmc_pool":
         return pk.fits_vmem_mcmc(D, K, n_steps, student_t)
+    if kernel in ("fused_pmc_stats_blocked", "fused_vb_estep_blocked"):
+        return pk.fits_vmem_blocked(K, D, pk.QUANTUM_EVAL)
+    if kernel == "fused_is_pmc_step_blocked":
+        return pk.fits_vmem_blocked(K + Kt, D, pk.QUANTUM_RNG)
     return K * D <= 128
 
 

@@ -106,19 +106,33 @@ def test_solve_dofs_matches_jax():
 
 
 def test_fused_arguments():
+    """A forced "blocked" runs the K-blocked route (its plain version here)
+    and matches the dense one; past the JAX package's VMEM fit of the
+    K-blocked kernel (D=128) it raises naming the rule, as a forced "dense"
+    past its rule does."""
     rng = np.random.default_rng(3)
     _, tp = mixture(rng, 2, 2, False)
     _, tt = mixture(rng, 2, 2, False)
     x = torch.tensor(rng.normal(size=(2, 50)))
     with pytest.raises(ValueError, match="fused must be"):
         pmc.pmc_update(tp, x, transposed=True, fused="fast")
-    with pytest.raises(NotImplementedError):
-        pmc.pmc_update(tp, x, transposed=True, fused="blocked")
+    blocked = pmc.pmc_update(tp, x, transposed=True, fused="blocked")
+    dense = pmc.pmc_update(tp, x, transposed=True, fused="dense")
+    assert blocked.rho is None
+    assert_params_close(blocked.params, dense.params)
     with pytest.raises(ValueError, match="infeasible"):
         pmc.pmc_update(tp, x, latent=torch.zeros(50, dtype=torch.int32), rb=False,
                        transposed=True, fused="dense")
-    with pytest.raises(NotImplementedError):
-        pmc.pmc_step_mixture_target(tp, tt, 0, 100, fused="blocked")
+    step_b = pmc.pmc_step_mixture_target(tp, tt, 0, 100, fused="blocked")
+    step_d = pmc.pmc_step_mixture_target(tp, tt, 0, 100, fused="dense")
+    torch.testing.assert_close(step_b[1], step_d[1], rtol=0, atol=0)
+    _, wide = mixture(rng, 1, 128, False)
+    _, wide_t = mixture(rng, 1, 128, False)
+    xw = torch.tensor(rng.normal(size=(128, 50)))
+    with pytest.raises(ValueError, match="VMEM fit of the K-blocked kernel"):
+        pmc.pmc_update(wide, xw, transposed=True, fused="blocked")
+    with pytest.raises(ValueError, match="VMEM fit of the K-blocked kernel"):
+        pmc.pmc_step_mixture_target(wide, wide_t, 0, 100, fused="blocked")
 
 
 @pytest.mark.parametrize("student_t", [True, False])
@@ -207,18 +221,29 @@ def test_step_past_the_kernel_limit_composes_two_passes():
 
 def test_blocked_election_raises_on_the_card(monkeypatch):
     """Where the JAX package elects its K-blocked kernel (K=400, N=2^22:
-    the unfused (K, N) matrices would crowd 12 GiB), the port has no
-    kernel: on the card (a kernel-bound tensor, stood in for here) "auto"
-    raises instead of running the unfused path."""
+    the unfused (K, N) matrices would crowd 12 GiB), "auto" runs the
+    K-blocked route, on the card and here alike: the decision depends on
+    the shape alone.  At a small N the election is forced by lowering the
+    12 GiB budget, as the JAX package's tests patch prefer_blocked; the
+    update matches the JAX XLA update."""
     from pypmc_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(9)
-    _, tp = mixture(rng, 400, 2, False)
-    x = torch.zeros((2, 1 << 22), dtype=torch.float64)
     assert kernels.elects_blocked("fused_pmc_stats", 400, 2, 1 << 22)
-    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
-    with pytest.raises(NotImplementedError, match="K-blocked"):
-        pmc.pmc_update(tp, x, transposed=True)
+    assert not kernels.elects_blocked("fused_pmc_stats", 400, 2, 2000)
+    rng = np.random.default_rng(9)
+    jp, tp = mixture(rng, 400, 2, True)
+    x = rng.normal(0, 2.5, (2, 2000))
+    w = rng.exponential(1.0, 2000)
+    monkeypatch.setattr(kernels, "_BLOCKED_HBM", 0)
+    calls = []
+    monkeypatch.setattr(kernels, "fused_pmc_stats_blocked",
+                        lambda *a: calls.append(a) or kernels.plain_pmc_stats_blocked(*a))
+    kernels.reset_launch_counts()
+    got = pmc.pmc_update(tp, torch.tensor(x), torch.tensor(w), transposed=True)
+    assert len(calls) == 1 and got.rho is None
+    assert sum(kernels.launch_counts().values()) == 0      # no plain route
+    ref = jpmc.pmc_update(jp, jnp.asarray(x), jnp.asarray(w), transposed=True, fused="off")
+    assert_params_close(got.params, ref.params, rtol=1e-8, atol=1e-10)
 
 
 @pytest.mark.parametrize("K,D", [(2, 10), (2, 40), (400, 10)])
