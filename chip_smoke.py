@@ -7,8 +7,10 @@ Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once), and each launcher's shared memory
-   against ``ops/_build.py``'s formula;
+   ``nvcc`` a source, all at once), each launcher's shared memory against
+   ``ops/_build.py``'s formula, and the registers of the K-blocked
+   statistics pass's and the step's first pass's DMAX 8 and 16
+   instantiations, which must not spill;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -46,7 +48,8 @@ Phases, each of which exits non-zero on failure:
    its K-blocked kernel, runs ``fused_pmc_stats_blocked``;
    blocked: the three K-blocked kernels against their float64 plain
    versions (K=400, D=2; K=200, D=10; a ragged last chunk; K=96, D=40; K=3,
-   D=128 with the operands in device memory), the dense and K-blocked twins
+   D=128 with the operands in device memory; D=14 in three row bands), the
+   dense and K-blocked twins
    at K=12, D=10 (the same particles from the same seed words), then the
    large-mixture path through the entry points with the launch counts read
    around each: ``benchmarks/blocked_stats.py``'s K=400, D=2 updates of
@@ -66,7 +69,8 @@ Phases, each of which exits non-zero on failure:
    0.15, one ``fused_mcmc_pool`` launch a cycle) and the callable-target
    run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
-    the least time the card could take (``bound``).
+    the least time the card could take (``bound``), and the device time of
+    each launch of the K-blocked kernels (torch.profiler).
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -1284,6 +1288,7 @@ BLOCKED_CASES = [
     (21, 2, 10, N_ODD, False, True, True, 93),          # a ragged last chunk, odd N
     (96, 2, 40, N_WIDE, False, False, False, 94),       # two components a chunk
     (3, 1, 128, N_WIDE, False, False, False, 95),       # operands in device memory
+    (10, 2, 14, N_WIDE, True, True, False, 97),         # three row bands, a ragged chunk
 ]
 BLOCKED_N, BLOCKED_VB_ITERS = 1 << 23, 5
 
@@ -1300,8 +1305,18 @@ def blocked_case(case, device, report):
     K, Kt, D, N, student, t_student, dead, seed = case
     arrs, _, params, _, ops, tops, ops64, tops64, tag = case_mixtures(case, device)
     kc, staged, _ = _build.blocked_plan("fused_pmc_stats_blocked", K, D)
-    print("case blocked %s: %d components a chunk, operands in %s memory"
-          % (tag, kc, "shared" if staged else "device"))
+    lib = _build.load()
+    per_sm = {name: getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])(K, D)
+              for name in _build.BLOCKED}
+    draw = lib.pmc_step_draw_per_sm(K, Kt, D)
+    print("case blocked %s: %d components a chunk, operands in %s memory; statistics-pass "
+          "blocks of 4 warps an SM %s; the step's first pass %s"
+          % (tag, kc, "shared" if staged else "device", per_sm,
+             "%d blocks of 8 warps an SM" % draw if draw else "fused_propose_logq's kernel"))
+    require(min(per_sm.values()) >= 1 and draw >= 0, "blocked %s: a pass fits no SM" % tag)
+    if (K, D) == (200, 10):
+        require(draw * 8 >= 16, "blocked %s: the step's first pass runs %d warps an SM"
+                % (tag, draw * 8))
     seed_a, seed_b = (seed, 11), (seed, 12)
     xT, lat, log_q, log_p = k.fused_propose_logq(seed_a, ops, N, tops)
     w = torch.exp(log_p - log_q)
@@ -1831,6 +1846,29 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
+def launch_split(label, fn, reps=3):
+    """Device time of each launch of one kernel call (torch.profiler device
+    events, a call's mean over ``reps`` after a warm-up): the K-blocked
+    kernels' first pass, statistics pass and reduction."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(100)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    split = {}
+    # a launch's mean over the events recorded (the profiler may drop some)
+    for ms, count, key in device_rows(prof, reps):
+        key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+        if "pmc::" in key:
+            split[key.split("(")[0].replace("pmc::", "")] = ms / count
+    print("  launches of %s: %s" % (label, "; ".join("%s %.3f ms" % kv for kv in split.items())))
+    return split
+
+
 def phase_times(device):
     import torch
     from pypmc_tpu_torch.density import core
@@ -1921,6 +1959,12 @@ def phase_times(device):
                                          device))
     pair("fused_vb_estep_blocked", lambda i, n: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
          lambda i, n: k.plain_vb_estep_blocked(vx, vw, A4, m4, c4), (N_PLAIN_MAX,))
+    times[("fused_pmc_stats_blocked", N_PLAIN_MAX, "split")] = launch_split(
+        "fused_pmc_stats_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
+        lambda i: k.fused_pmc_stats_blocked(bx, bw, bops, True))
+    times[("fused_vb_estep_blocked", N_PLAIN_MAX, "split")] = launch_split(
+        "fused_vb_estep_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
+        lambda i: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4))
     del bx, bw, vdata, vx, vw
     torch.cuda.empty_cache()
     sparams, starget, _ = flagship_problem(device, K=200)
@@ -1929,9 +1973,14 @@ def phase_times(device):
          lambda i, n: k.fused_is_pmc_step_blocked((i, 2), sops, stops, n, True),
          lambda i, n: k.plain_is_pmc_step_blocked((i, 2), sops, stops, n, True),
          (N_PLAIN_MAX, N_SLICE))
+    for n in (N_PLAIN_MAX, N_SLICE):
+        times[("fused_is_pmc_step_blocked", n, "split")] = launch_split(
+            "fused_is_pmc_step_blocked K=200 D=10 N=%d" % n,
+            lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True))
     torch.cuda.empty_cache()
     for (name, n, route), ms in times.items():
-        print("  %-25s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
+        if route != "split":
+            print("  %-25s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
     return times
 
 
@@ -1993,6 +2042,30 @@ def bound(name):
     return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the kernels whose DMAX 8 and 16 instantiations must not spill: the
+# K-blocked statistics pass's register accumulation and the step's first pass
+REGISTER_KERNELS = ("blocked_reg_stats_kernel", "step_draw_kernel")
+
+
+def register_kernels(log):
+    """``(kernel, registers, spill-store bytes)`` of each DMAX 8 or 16
+    instantiation of REGISTER_KERNELS in a ``ptxas -v`` log."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        base = next((k for k in REGISTER_KERNELS if k in name), None)
+        dmax = re.search(r"ILi(\d+)E", name)
+        if base is None or dmax is None or int(dmax.group(1)) > 16:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        args = name[name.index(base) + len(base):].split("EEv")[0] + "E"
+        out.append(("%s<%s>" % (base, ", ".join(re.findall(r"L[ib](\d+)E", args))),
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0))
+    require(len(out) >= 2 * len(REGISTER_KERNELS), "ptxas reported %d register kernels" % len(out))
+    return out
+
+
 # --------------------------------------------------------------------- #
 
 def main():
@@ -2023,16 +2096,21 @@ def main():
     print("phase build: %.1f s (%s, %s)" % (time.perf_counter() - t0,
                                             _build.build_info.get("path"),
                                             "built" if _build.build_info.get("built") else "cached"))
-    log = _build.build_info.get("log", "")
+    log = _build.build_info.get("log") or open(
+        _build.build_info["path"][:-len(".so")] + ".log").read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
     if regs:
         print("  ptxas: %d kernels, %d-%d registers a thread, %d bytes of spill stores"
               % (len(regs), min(regs), max(regs), spills))
+    for kernel, reg_count, spilled in register_kernels(log):
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores" % (kernel, reg_count, spilled))
+        require(spilled == 0, "%s spills %d bytes" % (kernel, spilled))
     # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
     for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
                      (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
-                     (96, 2, 40), (12, 2, 10), (3, 1, 128)):
+                     (96, 2, 40), (12, 2, 10), (3, 1, 128), (21, 2, 10), (20, 2, 12), (8, 1, 16),
+                     (5, 1, 1), (600, 2, 10)):
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
                      ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
@@ -2053,6 +2131,8 @@ def main():
         for kernel, vb in (("fused_pmc_stats_blocked", 0), ("fused_vb_estep_blocked", 1)):
             require(lib.pmc_blocked_chunk(K, D, vb) == _build.blocked_plan(kernel, K, D)[0],
                     "chunk formula differs from the kernel's (%s)" % kernel)
+        require(lib.pmc_step_draw_smem_bytes(K, Kt, D) == _build.draw_smem_bytes(K, Kt, D),
+                "shared-memory formula differs from the kernel's (the step's first launch)")
 
     clock = []
 
@@ -2132,6 +2212,9 @@ def main():
         }
         if (kname, N_SLICE, "cuda") in times:
             entry.update(ms_slice_n=times[(kname, N_SLICE, "cuda")], slice_n=N_SLICE)
+        for sn in (n, N_SLICE):
+            if (kname, sn, "split") in times:
+                entry["launch_ms" if sn == n else "launch_ms_slice_n"] = times[(kname, sn, "split")]
         if exps is not None:
             entry["exps"] = exps
         kernels.append(entry)
@@ -2139,7 +2222,8 @@ def main():
           "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
           "sample mean against the mixture's; for fused_mcmc_pool, the kernel's and the plain "
           "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
-          "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound); "
+          "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound; "
+          "launch_ms: their launches' device times, torch.profiler); "
           "library_ms null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32))
     print(card)

@@ -6,11 +6,10 @@
 // A first launch writes each particle's normalizer to device memory (log q
 // for PMC, the unweighted log-sum-exp for VB: one float a particle), so the
 // responsibilities need no second look at the other components.  Then the
-// statistics pass walks the component axis in chunks of kc components, each
-// chunk the tile and accumulators of stats.cuh for kc components.  The grid
-// is (particle blocks, chunks); block (b, c) adds chunk c's entries over the
-// tiles of particle block b and writes them into row b of the (n_blocks, S)
-// float64 partials at the chunk's offset, chunk 0 also the three global
+// statistics pass walks the component axis in chunks of kc components.  The
+// grid is (particle blocks, chunks); block (b, c) adds chunk c's entries over
+// the tiles of particle block b and writes them into row b of the (n_blocks,
+// S) float64 partials at the chunk's offset, chunk 0 also the three global
 // entries.  Every entry of a row is written by one block, and
 // reduce_partials sums the rows in block order: no float atomics, so a seed
 // gives the same statistics on every run.  The (K, N) matrices are never
@@ -22,12 +21,36 @@
 //   PMC and step: MixLayout{kca, D}'s evaluation part (mu | U | log_norm |
 //                 weights | dof | psi);
 //   VB:           A (kca, D, D) | m (kca, D) | c (kca).
-// A block stages its chunk in shared memory when one component's operands
-// fit beside the tile (OPS_SMEM), and reads it from device memory otherwise.
-// kc is the largest chunk whose shared memory lets two blocks share an SM,
-// or one where a single component needs more (blocked_plan, mirrored by
-// ops/_build.py blocked_plan).
+//
+// Two designs, by D (blocked_plan, mirrored by ops/_build.py blocked_plan):
+//
+// D <= 16, blocked_reg_stats_kernel.  The chunk's operands are staged as
+// 16-byte component records (common.cuh stage_records).  A tile holds 64
+// particles; in phase 1 each particle has two threads, each evaluating half
+// of the chunk's components and writing, per component, D + 3 rows of the
+// tile: diff_0 .. diff_{D-1}, w rho, c = w rho gamma, t1.  In phase 2 each
+// thread owns one (component, row band) pair and one of 8 column slices
+// (columns slice + 8 m): per column it reads the component's D + 3 values
+// once into registers and updates the band's statistic entries, held in
+// float32 registers (s0, s0c, t1 with band 0, then per row i sd_i and g_i0 ..
+// g_ii).  At D <= 10 one band holds every row and a chunk has 16 components;
+// at 11 <= D <= 16 rows [0, 10), [10, 13) and [13, 16) are three bands of 4
+// components each (a warp each), so that no thread holds more than 68
+// accumulators and the DMAX 16 kernel keeps them in registers.  Every 16 tiles
+// (128 columns a slice, the float32 span of the dense kernels' tile) the
+// slices write their sums to shared memory and the 8 slices of each entry
+// are added in slice order into the float64 accumulators.  A warp's lanes
+// are 4 components times 8 slices; the tile stride makes the component's
+// rows 8 banks apart (reg_stride), so a phase-2 load hits 32 banks.
+//
+// D > 16, blocked_stats_kernel: the tile, entry table and accumulation of
+// stats.cuh for kc components; a block stages its chunk in shared memory when
+// one component's operands fit beside the tile (OPS_SMEM), and reads it from
+// device memory otherwise.  kc is the largest chunk whose shared memory lets
+// two blocks share an SM, or one where a single component needs more.
 #pragma once
+
+#include <type_traits>
 
 #include "stats.cuh"
 
@@ -49,7 +72,52 @@ struct BlockedPlan {
   size_t smem;     // shared memory a block of the statistics pass asks for
 };
 
+// ---- the register pass (D <= 16) ----
+constexpr int kRegDMax = 16;
+constexpr int kRegCols = 64;                        // particles a tile
+constexpr int kRegGroups = kThreads / kRegCols;     // threads a particle in phase 1
+constexpr int kRegSlices = 8;                       // column slices in phase 2
+constexpr int kRegPairs = kThreads / kRegSlices;    // (component, band) pairs a block
+constexpr int kRegFlush = 16;                       // tiles between two flushes
+constexpr int kRegSplit0 = 10, kRegSplit1 = 13;     // DMAX 16's bands: [0, 10), [10, 13), [13, 16)
+
+__host__ __device__ inline int reg_bands(int D) { return D > kRegSplit0 ? 3 : 1; }
+// components a chunk: a band's pairs, whole warps of 4 components
+__host__ __device__ inline int reg_chunk(int D) { return reg_bands(D) == 1 ? kRegPairs : 4; }
+// tile rows a component: diff_0 .. diff_{D-1}, w rho, c, t1, made odd
+__host__ __device__ inline int reg_rows(int D) { return (D + 3) | 1; }
+// tile row stride: reg_rows(D) * stride = 8 (mod 32), so the 4 components of
+// a warp's phase-2 loads start 8 banks apart
+__host__ __device__ inline int reg_stride(int D) {
+  const int rb = reg_rows(D);
+  int inv = 1;
+  while ((rb * inv) % 32 != 1) inv += 2;
+  return kRegCols + (8 * inv) % 32;
+}
+__host__ __device__ inline int reg_rec_floats(int D, bool vb) {
+  return vb ? vb_rec_floats(D) : rec_floats(D);
+}
+// floats of the tile, which the flush's slice sums (8 per entry) and the
+// global entries' per-particle sums reuse
+__host__ __device__ inline size_t reg_region(int kc, int D) {
+  const size_t P = StatsLayout{1, D}.per_component();
+  const size_t tile = static_cast<size_t>(kc) * reg_rows(D) * reg_stride(D);
+  const size_t scratch = kRegSlices * kc * P + 3 * kRegCols;
+  return tile > scratch ? tile : scratch;
+}
+__host__ __device__ inline size_t reg_acc_offset(int kc, int D, bool vb) {
+  const size_t floats = static_cast<size_t>(kc) * reg_rec_floats(D, vb) + reg_region(kc, D);
+  return (floats * sizeof(float) + 7) / 8 * 8;
+}
+__host__ __device__ inline size_t reg_smem_bytes(int kc, int D, bool vb) {
+  return reg_acc_offset(kc, D, vb) + StatsLayout{kc, D}.entries() * sizeof(double);
+}
+
 inline BlockedPlan blocked_plan(int K, int D, bool vb) {
+  if (D <= kRegDMax) {
+    const int kc = K < reg_chunk(D) ? K : reg_chunk(D);
+    return {kc, true, reg_smem_bytes(kc, D, vb)};
+  }
   const int per = blocked_floats(D, vb);
   const bool staged = stats_smem_bytes(StatsLayout{1, D}, per) <= kSmemLimit;
   const int f = staged ? per : 0;
@@ -161,6 +229,286 @@ blocked_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   }
 }
 
+// ---- the register pass: phase 2 and the flush of one (component, band) ----
+
+// index, in a band's accumulators, of row i's sd_i (g_i0 .. g_ii follow);
+// band 0 starts with s0, s0c, t1
+__host__ __device__ constexpr int band_base(int r0, int i) {
+  return (r0 == 0 ? 3 : 0) + (i - r0) * (i + r0 + 3) / 2;
+}
+// accumulators a thread holds: band 0's, the largest band of its DMAX
+template <int DMAX>
+__host__ __device__ constexpr int reg_acc_count() {
+  return DMAX <= 8 ? band_base(0, 8) : band_base(0, kRegSplit0);
+}
+
+// Phase 2: add the columns slice + 8 m of one component's tile rows (``rows``
+// points at its diff_0 row, column ``slice``; ``ts`` the row stride) into
+// the accumulators of rows [R0, R1).
+template <int R0, int R1, int NA>
+__device__ __forceinline__ void reg_accumulate(const float* rows, int ts, int D,
+                                               float (&a)[NA]) {
+#pragma unroll 2
+  for (int m = 0; m < kRegCols / kRegSlices; ++m) {
+    const float* col = rows + m * kRegSlices;
+    float d[R1 > 0 ? R1 : 1];
+#pragma unroll
+    for (int i = 0; i < R1; ++i) d[i] = i < D ? col[i * ts] : 0.0f;
+    const float c = col[(D + 1) * ts];
+    if (R0 == 0) {
+      a[0] += col[D * ts];
+      a[1] += c;
+      a[2] += col[(D + 2) * ts];
+    }
+#pragma unroll
+    for (int i = R0; i < R1; ++i) {
+      if (i < D) {
+        const float cd = c * d[i];
+        const int b = band_base(R0, i);
+        a[b] += cd;
+#pragma unroll
+        for (int j = 0; j <= i; ++j) a[b + 1 + j] = fmaf(cd, d[j], a[b + 1 + j]);
+      }
+    }
+  }
+}
+
+// The flush, first half: a band's sums to the slice's row of the scratch
+// (entries of the component at ``out``, in the StatsLayout order), then 0.
+template <int R0, int R1, int NA>
+__device__ __forceinline__ void reg_store(float* out, int D, float (&a)[NA]) {
+  if (R0 == 0) {
+    out[0] = a[0];
+    out[1] = a[1];
+    out[2] = a[2];
+  }
+#pragma unroll
+  for (int i = R0; i < R1; ++i) {
+    if (i < D) {
+      const int b = band_base(R0, i);
+      out[3 + i] = a[b];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) out[3 + D + i * (i + 1) / 2 + j] = a[b + 1 + j];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < NA; ++e) a[e] = 0.0f;
+}
+
+// The statistics pass for D <= 16 (DMAX 8 or 16): xT (D, N); wts (N,) the
+// weights (PMC, VB) or, for the step, the output the weights w = exp(log p -
+// log q) are written to (by chunk 0); norm (N,) log q (PMC, step) or the VB
+// normalizer; lp (N,) log p (step only); chunks the chunk-major operands;
+// partial (n_blocks, S) with S = K P + 3.
+template <int DMAX, int KIND>
+__global__ void __launch_bounds__(kThreads, DMAX <= 8 ? 4 : 3)
+blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
+                         const float* __restrict__ norm, const float* __restrict__ lp,
+                         const float* __restrict__ chunks, double* __restrict__ partial,
+                         long long N, int K, int D, int kc, int student_t, int dof_stats) {
+  constexpr bool vb = KIND == kBlockedVb;
+  // the bands: rows [0, B0), [B0, B1), [B1, DMAX)
+  constexpr int B0 = DMAX <= 8 ? DMAX : kRegSplit0;
+  constexpr int B1 = DMAX <= 8 ? DMAX : kRegSplit1;
+  constexpr int NA = reg_acc_count<DMAX>();
+  static_assert(band_base(B0, B1) <= NA && band_base(B1, DMAX) <= NA, "a band past NA");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int chunk = blockIdx.y;
+  const int k0 = chunk * kc;
+  const int kca = min(kc, K - k0);
+  const int P = StatsLayout{1, D}.per_component();
+  const int F = reg_rec_floats(D, vb);
+  const int D4 = pad4(D);
+  const int ts = reg_stride(D);
+  const int comp_floats = reg_rows(D) * ts;
+  float* recs = smem;
+  float* tile = smem + kc * F;      // also the flush's scratch
+  double* acc = reinterpret_cast<double*>(reinterpret_cast<char*>(smem) +
+                                          reg_acc_offset(kc, D, vb));
+  const float* src = chunks + static_cast<long long>(k0) * blocked_floats(D, vb);
+  if (vb) stage_vb_records(recs, src, kca, D);
+  else stage_records(recs, src, kca, D);
+  for (int e = threadIdx.x; e < kca * P + 3; e += blockDim.x) acc[e] = 0.0;
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  // phase 1: particle column p, components grp, grp + kRegGroups, ...
+  const int p = t % kRegCols, grp = t / kRegCols;
+  // phase 2: (component jc, band) and column slice
+  const int slice = t % kRegSlices, pair = t / kRegSlices;
+  const int per_band = reg_chunk(D);
+  const int band = pair / per_band, jc = pair % per_band;
+  const bool owner = jc < kca && band < reg_bands(D);
+  const float* my_rows = tile + jc * comp_floats + slice;
+
+  float a[NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) a[e] = 0.0f;
+  float sw = 0.0f, sw2 = 0.0f, swlogw = 0.0f;   // this column's particles (grp 0)
+
+  const long long n_tiles = (N + kRegCols - 1) / kRegCols;
+  const int E = kc * P;   // a slice's row of the scratch
+  int since = 0;
+  for (long long tile_i = blockIdx.x;; tile_i += gridDim.x) {
+    const bool more = tile_i < n_tiles;
+    if (more) {
+      const long long n = tile_i * kRegCols + p;
+      const bool live = n < N;
+      float x[DMAX];
+      if (live) {
+        load_particle<DMAX>(xT, N, n, D, x);
+      } else {
+#pragma unroll
+        for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+      }
+      float w = 0.0f, l = 0.0f;
+      // past N: log q = +inf makes every responsibility exactly 0
+      float log_q = INFINITY;
+      if (live) {
+        if (vb) {
+          w = wts[n];
+          l = norm[n];
+        } else {
+          log_q = norm[n];
+          if (KIND == kBlockedStep) {
+            w = expf(lp[n] - log_q);
+            if (chunk == 0 && grp == 0) wts[n] = w;
+          } else {
+            w = wts[n];
+          }
+        }
+      }
+      if (grp == 0) {
+        sw += w;
+        sw2 += w * w;
+        swlogw += w > 0.0f ? w * logf(w) : 0.0f;
+      }
+      for (int j = grp; j < kca; j += kRegGroups) {
+        const float* r = recs + j * F;
+        float* out = tile + j * comp_floats + p;
+        const auto emit = [&](int i, float d) { out[i * ts] = d; };
+        float wrho, c, t1;
+        if (vb) {
+          const float maha = project_rec<DMAX>(r, x, D, emit);
+          const float log_r = r[D4] - 0.5f * maha - l;
+          wrho = live ? w * expf(log_r) : 0.0f;
+          c = wrho;
+          t1 = live ? wrho * log_r : 0.0f;
+        } else {
+          const float maha = whiten_rec<DMAX>(r, x, D, emit);
+          // ln, w, nu, log(nu / 2) - psi
+          const float4 q = *reinterpret_cast<const float4*>(r + D4);
+          float ind = q.x - 0.5f * maha, gamma = 1.0f, l1p = 0.0f;
+          if (student_t) {
+            // component_logpdf's log1p, reused for t1's log((maha + nu) / 2)
+            // = log1p(maha / nu) + log(nu / 2); the divisions to 2 ulp
+            l1p = log1pf(__fdividef(maha, q.z));
+            ind = q.x - 0.5f * (q.z + static_cast<float>(D)) * l1p;
+            gamma = __fdividef(q.z + static_cast<float>(D), q.z + maha);
+          }
+          const float rho = q.y > 0.0f ? expf(ind - log_q) * q.y : 0.0f;
+          wrho = rho * w;
+          t1 = student_t && dof_stats ? wrho * (l1p + q.w + gamma) : 0.0f;
+          c = wrho * gamma;
+        }
+        out[D * ts] = wrho;
+        out[(D + 1) * ts] = c;
+        out[(D + 2) * ts] = t1;
+      }
+      __syncthreads();
+      if (owner) {
+        if (band == 0) reg_accumulate<0, B0>(my_rows, ts, D, a);
+        else if (band == 1) reg_accumulate<B0, B1>(my_rows, ts, D, a);
+        else reg_accumulate<B1, DMAX>(my_rows, ts, D, a);
+      }
+      __syncthreads();
+      ++since;
+    }
+    if (since == kRegFlush || (!more && since > 0)) {
+      // the slices' sums to the scratch, then each entry's 8 slices in order
+      float* scratch = tile;
+      if (owner) {
+        float* out = scratch + slice * E + jc * P;
+        if (band == 0) reg_store<0, B0>(out, D, a);
+        else if (band == 1) reg_store<B0, B1>(out, D, a);
+        else reg_store<B1, DMAX>(out, D, a);
+      }
+      if (grp == 0) {
+        scratch[kRegSlices * E + p] = sw;
+        scratch[kRegSlices * E + kRegCols + p] = sw2;
+        scratch[kRegSlices * E + 2 * kRegCols + p] = swlogw;
+        sw = sw2 = swlogw = 0.0f;
+      }
+      __syncthreads();
+      for (int e = t; e < kca * P; e += kThreads) {
+        double v = 0.0;
+#pragma unroll
+        for (int sl = 0; sl < kRegSlices; ++sl) v += scratch[sl * E + e];
+        acc[e] += v;
+      }
+      if (t < 3) {
+        double v = 0.0;
+        for (int q = 0; q < kRegCols; ++q) v += scratch[kRegSlices * E + t * kRegCols + q];
+        acc[kca * P + t] += v;
+      }
+      __syncthreads();
+      since = 0;
+    }
+    if (!more) break;
+  }
+
+  double* row = partial + static_cast<long long>(blockIdx.x) * (K * P + 3);
+  for (int e = threadIdx.x; e < kca * P + 3; e += blockDim.x) {
+    if (e < kca * P) row[k0 * P + e] = acc[e];
+    else if (chunk == 0) row[K * P + e - kca * P] = acc[e];
+  }
+}
+
+// Call body(DMAX, OPS_SMEM) (std::integral_constant arguments) with the
+// statistics pass's instantiation for D: the register pass at DMAX 8 or 16
+// (its operands always staged), the tile pass at DMAX 32 or 128.
+template <typename Body>
+int dispatch_blocked(int D, bool ops_smem, Body&& body) {
+  using std::integral_constant;
+  if (D <= 8) {
+    body(integral_constant<int, 8>(), std::true_type());
+  } else if (D <= kRegDMax) {
+    body(integral_constant<int, 16>(), std::true_type());
+  } else if (D <= 32) {
+    if (ops_smem) body(integral_constant<int, 32>(), std::true_type());
+    else body(integral_constant<int, 32>(), std::false_type());
+  } else if (D <= kDMax) {
+    if (ops_smem) body(integral_constant<int, kDMax>(), std::true_type());
+    else body(integral_constant<int, kDMax>(), std::false_type());
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// The kernel of the statistics pass for KIND at DMAX, OPS_SMEM.
+template <int KIND, int DMAX, bool OPS_SMEM>
+inline auto blocked_kernel() {
+  if constexpr (DMAX <= kRegDMax) return blocked_reg_stats_kernel<DMAX, KIND>;
+  else return blocked_stats_kernel<DMAX, OPS_SMEM, KIND>;
+}
+
+// Blocks of the statistics pass that fit on one SM at once (registers,
+// shared memory and threads), for the wrapper's grid; -1 on an error.
+template <int KIND>
+int blocked_stats_per_sm(int K, int D) {
+  const BlockedPlan plan = blocked_plan(K, D, KIND == kBlockedVb);
+  int n = 0;
+  const int err = dispatch_blocked(D, plan.ops_smem, [&](auto dmax, auto ops) {
+    const auto kernel = blocked_kernel<KIND, decltype(dmax)::value, decltype(ops)::value>();
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(plan.smem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, plan.smem);
+  });
+  return err == 0 && cudaGetLastError() == cudaSuccess ? n : -1;
+}
+
 // Launch the statistics pass and the reduction of its partials into
 // ``stats`` (T = float or double).  kc must be blocked_plan's.
 template <int KIND, typename T>
@@ -171,13 +519,14 @@ int launch_blocked_stats(const float* xT, float* wts, const float* norm,
   const BlockedPlan plan = blocked_plan(K, D, KIND == kBlockedVb);
   if (kc != plan.kc) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_blocks, (K + kc - 1) / kc);
-  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(plan.ops_smem, {
-    cudaFuncSetAttribute(blocked_stats_kernel<DMAX, OPS_SMEM, KIND>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int bad = dispatch_blocked(D, plan.ops_smem, [&](auto dmax, auto ops) {
+    const auto kernel = blocked_kernel<KIND, decltype(dmax)::value, decltype(ops)::value>();
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(plan.smem));
-    blocked_stats_kernel<DMAX, OPS_SMEM, KIND><<<grid, kThreads, plan.smem, s>>>(
-        xT, wts, norm, lp, chunks, partial, N, K, D, kc, student_t, dof_stats);
-  }));
+    kernel<<<grid, kThreads, plan.smem, s>>>(xT, wts, norm, lp, chunks, partial, N, K, D,
+                                             kc, student_t, dof_stats);
+  });
+  if (bad != 0) return bad;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = StatsLayout{K, D}.per_component();

@@ -233,6 +233,167 @@ struct WeightedLse {
   __device__ float value() const { return logf(s) + m; }
 };
 
+// ---------------------------------------------------------------------
+// Component records for 16-byte loads (the K-blocked kernels stage their
+// operands in shared memory this way; every thread of a warp reads the same
+// record, so each load is one broadcast LDS.128).  One record of
+// rec_floats(D) floats a component, 16-byte aligned:
+//   mu (D, zero-padded to pad4(D)) | log_norm, weight, dof,
+//   log(dof / 2) - psi |
+//   U = L^{-1} row by row, row i its i + 1 entries zero-padded to
+//   pad4(i + 1), starting at tri_row(i)
+// A VB record (vb_rec_floats) holds m | c, 0, 0, 0 | A row by row, each row
+// zero-padded to pad4(D).  whiten_rec and project_rec read them in the FMA
+// order of whiten and project, so the results are the same bit for bit.
+// ---------------------------------------------------------------------
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
+// 4 * sum_{r < i} ceil((r + 1) / 4)
+__host__ __device__ constexpr int tri_row(int i) {
+  return 4 * (i / 4 + 1) * (2 * (i / 4) + i % 4);
+}
+__host__ __device__ inline int rec_floats(int D) { return pad4(D) + 4 + tri_row(D); }
+__host__ __device__ inline int vb_rec_floats(int D) { return pad4(D) + 4 + D * pad4(D); }
+
+// K records at dst from the evaluation part of a packed K-component mixture
+// (MixLayout); all threads of the block, __syncthreads() before reading.
+__device__ inline void stage_records(float* dst, const float* mix, int K, int D) {
+  const MixLayout L{K, D};
+  const int F = rec_floats(D), D4 = pad4(D);
+  for (int idx = threadIdx.x; idx < K * F; idx += blockDim.x) {
+    const int k = idx / F;
+    int r = idx - k * F;
+    float v = 0.0f;
+    if (r < D4) {
+      if (r < D) v = mix[L.mu() + k * D + r];
+    } else if (r < D4 + 4) {
+      const int q = r - D4;
+      if (q < 3) v = mix[(q == 0 ? L.ln() : q == 1 ? L.w() : L.dof()) + k];
+      else v = logf(0.5f * mix[L.dof() + k]) - mix[L.psi() + k];
+    } else {
+      r -= D4 + 4;
+      int i = 0;
+      while (tri_row(i + 1) <= r) ++i;
+      const int j = r - tri_row(i);
+      if (j <= i) v = mix[L.U() + k * D * D + i * D + j];
+    }
+    dst[idx] = v;
+  }
+}
+
+// K VB records at dst from ops = A (K, D, D) | m (K, D) | c (K)
+__device__ inline void stage_vb_records(float* dst, const float* ops, int K, int D) {
+  const int F = vb_rec_floats(D), D4 = pad4(D);
+  const float* m = ops + K * D * D;
+  const float* c = m + K * D;
+  for (int idx = threadIdx.x; idx < K * F; idx += blockDim.x) {
+    const int k = idx / F;
+    int r = idx - k * F;
+    float v = 0.0f;
+    if (r < D4) {
+      if (r < D) v = m[k * D + r];
+    } else if (r < D4 + 4) {
+      if (r == D4) v = c[k];
+    } else {
+      r -= D4 + 4;
+      const int i = r / D4, j = r - i * D4;
+      if (j < D) v = ops[k * D * D + i * D + j];
+    }
+    dst[idx] = v;
+  }
+}
+
+// x - mu with mu the record's first pad4(D) floats (0 past D)
+template <int DMAX>
+__device__ __forceinline__ void centre_rec(const float* rec, const float (&x)[DMAX], int D,
+                                           float (&xm)[DMAX]) {
+  const float4* mu4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+  for (int q = 0; q < DMAX / 4; ++q) {
+    const float4 m = 4 * q < D ? mu4[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    xm[4 * q] = x[4 * q] - m.x;
+    xm[4 * q + 1] = x[4 * q + 1] - m.y;
+    xm[4 * q + 2] = x[4 * q + 2] - m.z;
+    xm[4 * q + 3] = x[4 * q + 3] - m.w;
+  }
+}
+
+// whiten on a record (DMAX <= 32, x zero past D): returns maha and hands
+// each diff_i, i < D, to emit(i, diff_i) as it is formed
+template <int DMAX, typename Emit>
+__device__ __forceinline__ float whiten_rec(const float* rec, const float (&x)[DMAX], int D,
+                                            Emit&& emit) {
+  static_assert(DMAX <= 32 && DMAX % 4 == 0, "records are read by unrolled loops");
+  float xm[DMAX];
+  centre_rec<DMAX>(rec, x, D, xm);
+  const float* U = rec + pad4(D) + 4;
+  float maha = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i < D) {
+      float s = 0.0f;
+      const float4* row = reinterpret_cast<const float4*>(U + tri_row(i));
+#pragma unroll
+      for (int q = 0; q <= i / 4; ++q) {
+        const float4 u = row[q];
+        s = fmaf(u.x, xm[4 * q], s);
+        if (4 * q + 1 <= i) s = fmaf(u.y, xm[4 * q + 1], s);
+        if (4 * q + 2 <= i) s = fmaf(u.z, xm[4 * q + 2], s);
+        if (4 * q + 3 <= i) s = fmaf(u.w, xm[4 * q + 3], s);
+      }
+      emit(i, s);
+      maha = fmaf(s, s, maha);
+    }
+  }
+  return maha;
+}
+
+// project on a VB record (DMAX <= 32, x zero past D), emitting as whiten_rec
+template <int DMAX, typename Emit>
+__device__ __forceinline__ float project_rec(const float* rec, const float (&x)[DMAX], int D,
+                                             Emit&& emit) {
+  static_assert(DMAX <= 32 && DMAX % 4 == 0, "records are read by unrolled loops");
+  float xm[DMAX];
+  centre_rec<DMAX>(rec, x, D, xm);
+  const int D4 = pad4(D);
+  const float* A = rec + D4 + 4;
+  float maha = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i < D) {
+      float s = 0.0f;
+      const float4* row = reinterpret_cast<const float4*>(A + i * D4);
+#pragma unroll
+      for (int q = 0; q < DMAX / 4; ++q) {
+        if (4 * q < D) {
+          const float4 u = row[q];
+          s = fmaf(u.x, xm[4 * q], s);
+          if (4 * q + 1 < D) s = fmaf(u.y, xm[4 * q + 1], s);
+          if (4 * q + 2 < D) s = fmaf(u.z, xm[4 * q + 2], s);
+          if (4 * q + 3 < D) s = fmaf(u.w, xm[4 * q + 3], s);
+        }
+      }
+      emit(i, s);
+      maha = fmaf(s, s, maha);
+    }
+  }
+  return maha;
+}
+
+// mixture_logpdf on K records
+template <int DMAX>
+__device__ float records_logpdf(const float* recs, int K, int D, bool student_t,
+                                const float (&x)[DMAX]) {
+  const int F = rec_floats(D), D4 = pad4(D);
+  WeightedLse acc;
+  for (int k = 0; k < K; ++k) {
+    const float* r = recs + k * F;
+    const float maha = whiten_rec<DMAX>(r, x, D, [](int, float) {});
+    const float4 p = *reinterpret_cast<const float4*>(r + D4);   // ln, w, dof, .
+    acc.add(component_logpdf(maha, p.x, p.z, D, student_t), p.y);
+  }
+  return acc.value();
+}
+
 // mixture log-density of one particle; ``mix`` is the packed layout
 template <int DMAX>
 __device__ float mixture_logpdf(const float* mix, int K, int D, bool student_t,

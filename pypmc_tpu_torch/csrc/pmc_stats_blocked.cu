@@ -15,9 +15,10 @@
 // Bound on the H100: per particle it reads D + 1 floats; per (particle,
 // component) it does the whitened evaluation twice (once a launch, D (D + 1)
 // / 2 FMAs each), two exps (the log-sum-exp and rho), and the statistics
-// phase's ~3 (3 + D + D (D + 1) / 2) shared-memory reads -- at K = 400, D = 2
-// the exps (special-function unit) and the shared-memory traffic, not the
-// FP32 FMAs and far from the bytes.
+// pass's D + 3 tile writes and reads (blocked.cuh's register pass; ~3 (3 + D
+// + D (D + 1) / 2) reads past D = 16) -- at K = 400, D = 2 the exps
+// (special-function unit) and the per-pair instructions, not the FP32 FMAs
+// and far from the bytes.
 #include "blocked.cuh"
 
 extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out,
@@ -48,4 +49,9 @@ extern "C" long long pmc_pmc_stats_blocked_smem_bytes(int K, int D) {
 // its components a chunk
 extern "C" int pmc_blocked_chunk(int K, int D, int vb) {
   return pmc::blocked_plan(K, D, vb != 0).kc;
+}
+
+// statistics-pass blocks that fit on one SM at once (-1 on an error)
+extern "C" int pmc_pmc_stats_blocked_per_sm(int K, int D) {
+  return pmc::blocked_stats_per_sm<pmc::kBlockedPmc>(K, D);
 }

@@ -13,7 +13,7 @@
 //
 // Bound on the H100: per particle it reads D + 1 floats; per (particle,
 // component) it does the full projection twice (D^2 FMAs each), two exps and
-// the statistics phase's shared-memory reads -- as fused_pmc_stats_blocked.
+// the statistics pass's shared-memory traffic -- as fused_pmc_stats_blocked.
 #include "blocked.cuh"
 
 namespace pmc {
@@ -74,4 +74,9 @@ extern "C" int pmc_fused_vb_estep_blocked(
 // the statistics pass's shared memory a block (checked against ops/_build.py)
 extern "C" long long pmc_vb_estep_blocked_smem_bytes(int K, int D) {
   return static_cast<long long>(pmc::blocked_plan(K, D, true).smem);
+}
+
+// statistics-pass blocks that fit on one SM at once (-1 on an error)
+extern "C" int pmc_vb_estep_blocked_per_sm(int K, int D) {
+  return pmc::blocked_stats_per_sm<pmc::kBlockedVb>(K, D);
 }

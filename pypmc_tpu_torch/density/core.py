@@ -269,7 +269,7 @@ def _cumulative_weights(weights):
     return 1.0 - tail_excl
 
 
-def propose_T(params: MixtureParams, rng, n: int):
+def propose_T(params: MixtureParams, key, n: int):
     """Draw ``n`` samples from the mixture in the transposed layout; return
     ``(samples_T (D, n), latent (n,) int32)``.
 
@@ -282,11 +282,11 @@ def propose_T(params: MixtureParams, rng, n: int):
     ``fused_transform`` on normals and a Student-t scale drawn here (the
     chi-square clamped to ``tiny``) where it fits at 128 particles; else the
     transform as tensor code accumulated one Cholesky column at a time.
-    ``rng`` is an int seed or a ``torch.Generator`` (advanced by two seed
+    ``key`` is an int seed or a ``torch.Generator`` (advanced by two seed
     words)."""
     K, D = params.K, params.dim
     dtype, device = params.means.dtype, params.device
-    seed = _rng.seed_words(rng)
+    seed = _rng.seed_words(key)
     gen = _rng.device_generator(seed, device)
     u = torch.rand(n, generator=gen, dtype=dtype, device=device)
     cumw = _cumulative_weights(params.weights)
@@ -314,13 +314,13 @@ def propose_T(params: MixtureParams, rng, n: int):
     return params.means.T[:, lat] + acc * scale[None, :], latent
 
 
-def propose(params: MixtureParams, rng, n: int):
+def propose(params: MixtureParams, key, n: int):
     """Row-major variant of :func:`propose_T`: ``(samples (n, D), latent)``."""
-    samples_T, latent = propose_T(params, rng, n)
+    samples_T, latent = propose_T(params, key, n)
     return samples_T.T, latent
 
 
-def propose_logq_T(params: MixtureParams, rng, n: int, target_params=None):
+def propose_logq_T(params: MixtureParams, key, n: int, target_params=None):
     """Draw ``n`` mixture samples and evaluate the proposal log-density (and
     optionally a target mixture's) on them: kernel ``fused_propose_logq`` on
     CUDA float32, its plain version on the CPU.
@@ -329,18 +329,18 @@ def propose_logq_T(params: MixtureParams, rng, n: int, target_params=None):
     and each log-density :func:`mixture_logpdf_T`.
 
     Returns ``(samples_T (D, n), latent (n,), log_q (n,))``, plus
-    ``log_p (n,)`` when ``target_params`` is given.  ``rng`` provides the
+    ``log_p (n,)`` when ``target_params`` is given.  ``key`` provides the
     two seed words (and is advanced when it is a generator).
     """
     Kt = 0 if target_params is None else target_params.K
     if not _k.gate("fused_propose_logq", params.K, params.dim, Kt):
-        samples_T, latent = propose_T(params, rng, n)
+        samples_T, latent = propose_T(params, key, n)
         out = (samples_T, latent, mixture_logpdf_T(params, samples_T))
         if target_params is None:
             return out
         return out + (mixture_logpdf_T(target_params, samples_T),)
     target = None if target_params is None else _kernel_operands(target_params)
-    return _k.fused_propose_logq(_rng.seed_words(rng), _kernel_operands(params),
+    return _k.fused_propose_logq(_rng.seed_words(key), _kernel_operands(params),
                                  n, target)
 
 

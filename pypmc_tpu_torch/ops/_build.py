@@ -31,7 +31,8 @@ import time
 from pathlib import Path
 
 __all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "KERNELS", "BLOCKED", "smem_bytes",
-           "blocked_plan", "limit_reason", "check_limits", "load", "build_info"]
+           "blocked_plan", "draw_smem_bytes", "limit_reason", "check_limits", "load",
+           "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -64,6 +65,40 @@ KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
 _BLOCKED_HALF = 228 * 1024 // 2 - 1024   # csrc/blocked.cuh kBlockedHalf
+# csrc/blocked.cuh: the register statistics pass (D <= 16)
+_REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
+_REG_PAIRS = THREADS // _REG_SLICES
+
+
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+def _rec_floats(D, vb=False):
+    """Floats of one 16-byte component record (``csrc/common.cuh``
+    ``rec_floats``, ``vb_rec_floats``): mu | 4 scalars | U's rows, row i
+    padded to ``_pad4(i + 1)`` (VB: m | c and 3 zeros | A's rows, each padded
+    to ``_pad4(D)``)."""
+    q, r = D // 4, D % 4
+    rows = D * _pad4(D) if vb else 4 * (q + 1) * (2 * q + r)
+    return _pad4(D) + 4 + rows
+
+
+def _reg_stride(D):
+    """Tile row stride of the register pass (``reg_stride``): (D + 3) | 1
+    rows a component times the stride is 8 (mod 32)."""
+    rb = (D + 3) | 1
+    inv = next(x for x in range(1, 32, 2) if rb * x % 32 == 1)
+    return _REG_COLS + 8 * inv % 32
+
+
+def _reg_bytes(kc, D, vb):
+    """``reg_smem_bytes``: kc records, the tile (or, where larger, the
+    flush's scratch) and the float64 accumulators."""
+    P = 3 + D + D * (D + 1) // 2
+    region = max(kc * ((D + 3) | 1) * _reg_stride(D), _REG_SLICES * kc * P + 3 * _REG_COLS)
+    offset = (4 * (kc * _rec_floats(D, vb) + region) + 7) // 8 * 8
+    return offset + 8 * (kc * P + 3)
 
 
 def _blocked_floats(kernel, D):
@@ -104,10 +139,16 @@ def _stats_bytes(K, D, params):
 def blocked_plan(kernel, K, D):
     """``(components a chunk, operands staged in shared memory, shared
     memory a block)`` of a K-blocked kernel's statistics pass; mirrors
-    ``csrc/blocked.cuh`` ``blocked_plan``.  A chunk is as large as lets two
-    blocks share an SM, or one block where one component needs more; the
-    chunk's operands are staged where one component's fit beside the
-    tile."""
+    ``csrc/blocked.cuh`` ``blocked_plan``.  Up to D = 16 the register pass
+    takes 16 components a chunk (4 past D = 10, where a component's
+    accumulators are split in three row bands), its operands always staged.
+    Past D = 16 a chunk is as large as lets two blocks share an SM, or one
+    block where one component needs more; the chunk's operands are staged
+    where one component's fit beside the tile."""
+    vb = kernel == "fused_vb_estep_blocked"
+    if D <= _REG_DMAX:
+        kc = min(K, _REG_PAIRS if D <= _REG_SPLIT else 4)
+        return kc, True, _reg_bytes(kc, D, vb)
     per = _blocked_floats(kernel, D)
     staged = _stats_bytes(1, D, per) <= SMEM_LIMIT
     f = per if staged else 0
@@ -132,6 +173,15 @@ def smem_bytes(kernel, K, D, Kt=0):
         staged = _stats_bytes(K, D, params)
         return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0)
     return 4 * params if 4 * params <= SMEM_LIMIT else 0
+
+
+def draw_smem_bytes(K, Kt, D):
+    """Shared memory of ``fused_is_pmc_step_blocked``'s first launch
+    (``csrc/is_pmc_step_blocked.cu`` ``pmc_step_draw_smem_bytes``): both
+    mixtures' records and the proposal's thresholds where D <= 32 and they
+    fit, else 0 (``fused_propose_logq``'s kernel then takes that launch)."""
+    need = 4 * ((K + Kt) * _rec_floats(D) + K)
+    return need if D <= 32 and need <= SMEM_LIMIT else 0
 
 
 def limit_reason(kernel, K, D, Kt=0):
@@ -253,9 +303,9 @@ def _declare(lib):
         "pmc_fused_vb_estep_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, mix, tmix, chunks, xT, latent, w, log_q, log_p, partial,
         # stats, N, K, Kt, D, kc, student_t, t_student_t, dof_stats,
-        # n_eval_blocks, n_blocks, stream
+        # n_blocks, stream
         "pmc_fused_is_pmc_step_blocked": [U, U, P, P, P, P, P, P, P, P, P, P, L, I,
-                                          I, I, I, I, I, I, I, I, P],
+                                          I, I, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -264,6 +314,13 @@ def _declare(lib):
     lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]     # K, Kt, D, is_step
     lib.pmc_propose_logq_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_is_pmc_step_blocked_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
+    lib.pmc_step_draw_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
+    lib.pmc_step_draw_per_sm.argtypes = [I, I, I]      # K, Kt, D -> first-launch blocks an SM
+    lib.pmc_step_draw_per_sm.restype = ctypes.c_int
+    for name in BLOCKED:   # K, D -> statistics-pass blocks an SM holds
+        fn = getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])
+        fn.argtypes = [I, I]
+        fn.restype = ctypes.c_int
     lib.pmc_blocked_chunk.argtypes = [I, I, I]   # K, D, vb
     lib.pmc_blocked_chunk.restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
@@ -273,7 +330,7 @@ def _declare(lib):
     for name in pairs:
         getattr(lib, name).argtypes = [I, I]
     for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
-                 "pmc_is_pmc_step_blocked_smem_bytes") + pairs:
+                 "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

@@ -838,10 +838,15 @@ def _blocked_operands(kernel, device, n, fields):
     kernel's statistics pass (``csrc/blocked.cuh``): chunks of ``kc``
     components (``_build.blocked_plan``), each the slices of the ``(K, ...)``
     ``fields`` in turn, and as many particle blocks as let every chunk's
-    blocks fit on the card at once."""
+    blocks fit on the card at once (the kernel's occupancy, asked of the
+    library)."""
     K, D = fields[0].shape[:2]
-    kc, _, smem = _build.blocked_plan(kernel, K, D)
-    n_blocks = max(1, _stats_blocks(device, n, smem) // -(-K // kc))
+    kc = _build.blocked_plan(kernel, K, D)[0]
+    per_sm = getattr(_build.load(), "pmc_%s_per_sm" % kernel[len("fused_"):])(K, D)
+    if per_sm < 1:
+        raise RuntimeError("%s: K=%d, D=%d fits no block of its statistics pass on an SM"
+                           % (kernel, K, D))
+    n_blocks = max(1, _blocks(device, n, per_sm) // -(-K // kc))
     chunks = torch.cat([t[k0:k0 + kc].reshape(-1) for k0 in range(0, K, kc) for t in fields])
     return kc, n_blocks, chunks
 
@@ -911,10 +916,10 @@ def fused_vb_estep_blocked(xT, w, a, m, const):
 def fused_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperands,
                               n: int, dof_stats=False):
     """:func:`fused_is_pmc_step` for mixtures past its one tile (kernel
-    ``csrc/is_pmc_step_blocked.cu``): the draw of ``fused_propose_logq`` in
-    a first launch -- the particles of :func:`fused_is_pmc_step` from the
-    same seed words --, then the weights and the statistics chunk by chunk
-    of components; the same returns."""
+    ``csrc/is_pmc_step_blocked.cu``): the draw with log q and log p in a
+    first launch -- the particles of :func:`fused_is_pmc_step` from the same
+    seed words --, then the weights and the statistics chunk by chunk of
+    components; the same returns."""
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step_blocked(seed, ops, target, n, dof_stats)
     _check_operands(ops)
@@ -941,8 +946,7 @@ def fused_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperand
             target.packed.data_ptr(), chunks.data_ptr(), xT.data_ptr(), latent.data_ptr(),
             w.data_ptr(), log_q.data_ptr(), log_p.data_ptr(), partial.data_ptr(),
             flat.data_ptr(), n, ops.K, target.K, D, kc, int(ops.student_t),
-            int(target.student_t), int(dof_stats), _blocks(device, n, 16), n_blocks,
-            _stream(device))
+            int(target.student_t), int(dof_stats), n_blocks, _stream(device))
     _raise_on(err, "fused_is_pmc_step_blocked")
     fused_is_pmc_step_blocked.launches += 1
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)

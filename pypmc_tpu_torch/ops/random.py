@@ -34,16 +34,16 @@ def _generator_on(rng, device):
     return device_generator(seed_words(rng), device)
 
 
-def chi2_log(rng, df, shape):
+def chi2_log(key, df, shape):
     """``log`` of exact chi-square draws with (per-element) degrees of
-    freedom ``df`` (broadcast to ``shape``).  ``rng`` is a generator on
+    freedom ``df`` (broadcast to ``shape``).  ``key`` is a generator on
     ``df``'s device, or anything :func:`pypmc_tpu_torch._rng.as_generator`
     takes."""
     df = torch.as_tensor(df)
     if not df.is_floating_point():
         df = df.to(torch.get_default_dtype())
     dtype, device = df.dtype, df.device
-    gen = _generator_on(rng, device)
+    gen = _generator_on(key, device)
     df = torch.broadcast_to(df, shape).reshape(-1)
     a = 0.5 * df
     d = a + 1.0 - 1.0 / 3.0
@@ -71,15 +71,15 @@ def chi2_log(rng, df, shape):
     return (math.log(2.0) + log_g + torch.log(u) / a).reshape(shape)
 
 
-def chisquare(rng, df, shape):
+def chisquare(key, df, shape):
     """Exact chi-square draws (linear scale); see :func:`chi2_log`."""
-    return torch.exp(chi2_log(rng, df, shape))
+    return torch.exp(chi2_log(key, df, shape))
 
 
-def student_t_scale(rng, dof, shape):
+def student_t_scale(key, dof, shape):
     """Per-particle Student-t proposal scale ``sqrt(dof / chi2(dof))``
     computed in log space (stable for dof down to ~1e-5)."""
-    log_chi2 = chi2_log(rng, dof, shape)
+    log_chi2 = chi2_log(key, dof, shape)
     dof = torch.broadcast_to(torch.as_tensor(dof, dtype=log_chi2.dtype,
                                              device=log_chi2.device), shape)
     return torch.exp(0.5 * (torch.log(dof) - log_chi2))

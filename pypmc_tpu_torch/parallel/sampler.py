@@ -4,8 +4,10 @@ Counterpart of :func:`pypmc_tpu.parallel.sampler.pmc_run_sharded` and
 :func:`~pypmc_tpu.parallel.sampler.run_is_step_sharded`.  Every reduction
 over particles goes through the ``reduce`` hook of
 :mod:`pypmc_tpu_torch.mix_adapt.pmc`, which is the identity in one process;
-a ``torch.distributed`` group of more than one rank is refused until the
-multi-rank path (all-reduce of the O(K D^2) statistics) is ported.
+a ``torch.distributed`` group of more than one rank, or a ``mesh``, is
+refused until the multi-rank path (all-reduce of the O(K D^2) statistics)
+is ported.  The parameter lists are the JAX package's, ``mesh`` and
+``axis_name`` included, so a positional call means the same in both.
 """
 
 from typing import NamedTuple
@@ -20,8 +22,15 @@ from ..mix_adapt.pmc import (pmc_log_likelihood, pmc_step_mixture_target,
 __all__ = ["run_is_step_sharded", "pmc_run_sharded", "PMCStepStats",
            "evaluate_target_T"]
 
+# the JAX package's particle mesh axis (pypmc_tpu/parallel/mesh.py)
+_PARTICLE_AXIS = "particles"
 
-def _check_single_process():
+
+def _check_single_process(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh is not taken yet: the port runs in one process on one device; "
+            "the multi-rank path is not ported")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
@@ -49,12 +58,14 @@ def _is_body(params, key, n, target):
     return samples_T, torch.exp(log_p - log_q), latent
 
 
-def run_is_step_sharded(params, target, key, n_total):
+def run_is_step_sharded(params, target, key, n_total, mesh=None,
+                        axis_name=_PARTICLE_AXIS):
     """Draw ``n_total`` importance samples; return ``(samples_T (D,
     n_total), weights, latent)``.  ``target`` is a log-density callable or a
     :class:`~pypmc_tpu_torch.density.core.MixtureParams`; ``key`` an int
-    seed or a ``torch.Generator``."""
-    _check_single_process()
+    seed or a ``torch.Generator``.  ``mesh`` must be None (one process);
+    ``axis_name`` is unused in one process."""
+    _check_single_process(mesh)
     return _is_body(params, _rng.as_generator(key), int(n_total), target)
 
 
@@ -65,10 +76,11 @@ class PMCStepStats(NamedTuple):
     evidence: torch.Tensor        # mean weight = integral estimate
 
 
-def pmc_run_sharded(target, params, n_total, n_steps, key=None, rb=True,
-                    dof_solver_steps=100, mindof=1e-5, maxdof=1e3,
-                    return_final_samples=False, scan_steps=False,
-                    compute_log_likelihood=True, weight_clip=False):
+def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
+                    rb=True, dof_solver_steps=100, mindof=1e-5, maxdof=1e3,
+                    axis_name=_PARTICLE_AXIS, return_final_samples=False,
+                    scan_steps=False, compute_log_likelihood=True,
+                    weight_clip=False):
     """Run ``n_steps`` of (M-)PMC with ``n_total`` fresh particles per step
     on the device that holds ``params``.
 
@@ -82,8 +94,11 @@ def pmc_run_sharded(target, params, n_total, n_steps, key=None, rb=True,
     :param params: initial mixture; Student-t iff ``params.dof`` is not None.
     :param n_total: particles per step.
     :param n_steps: number of PMC adaptation steps.
+    :param mesh: must be None: the port runs in one process on one device
+        (a mesh raises ``NotImplementedError``).
     :param key: int seed or ``torch.Generator`` (None: seed 0); each step
         takes fresh seed words from it.
+    :param axis_name: the JAX package's mesh axis; unused in one process.
     :param weight_clip: clip the weights at ``mean * sqrt(n)`` for the
         ADAPTATION only (truncated importance sampling, Ionides 2008);
         diagnostics and evidence stay unclipped.
@@ -97,7 +112,7 @@ def pmc_run_sharded(target, params, n_total, n_steps, key=None, rb=True,
     ``(n_steps,)`` tensors; with ``return_final_samples`` additionally the
     last step's ``(samples_T (D, n_total), weights)``.
     """
-    _check_single_process()
+    _check_single_process(mesh)
     if scan_steps and return_final_samples:
         raise ValueError("return_final_samples is not available with scan_steps=True")
     gen = _rng.as_generator(0 if key is None else key)

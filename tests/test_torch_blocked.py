@@ -314,11 +314,28 @@ def test_dense_and_blocked_twins(student_t):
 
 
 def test_blocked_limits_are_stated():
-    """The K-blocked kernels walk any K in chunks sized from shared memory:
-    only D limits them.  The chunk is the largest that lets two blocks share
-    an SM where one component fits that budget."""
+    """The K-blocked kernels walk any K in chunks: only D limits them.  Up
+    to D = 16 the register pass takes 16 components a chunk (4 past D =
+    10); past D = 16 the chunk is the largest that lets two blocks share an
+    SM where one component fits that budget."""
     from pypmc_tpu_torch.ops import _build
 
+    # the register pass's plan: kc, operands staged, shared memory a block
+    # (records | tile of 64 columns at stride 72 | float64 accumulators)
+    pinned = {(200, 10): (16, True, 4 * (16 * 88 + 16 * 13 * 72) + 8 * (16 * 68 + 3)),
+              (400, 2): (16, True, 4 * (16 * 16 + 16 * 5 * 72) + 8 * (16 * 8 + 3)),
+              (10, 14): (4, True, _build.smem_bytes("fused_pmc_stats_blocked", 10, 14))}
+    for (K, D), plan in pinned.items():
+        for kernel in ("fused_pmc_stats_blocked", "fused_is_pmc_step_blocked"):
+            assert _build.blocked_plan(kernel, K, D) == plan, (kernel, K, D)
+        vb = _build.blocked_plan("fused_vb_estep_blocked", K, D)
+        assert vb[:2] == plan[:2] and vb[2] <= _build.SMEM_LIMIT
+    # three blocks of the K=200, D=10 statistics pass share an SM's 228 KB
+    assert 3 * (_build.blocked_plan("fused_is_pmc_step_blocked", 200, 10)[2] + 1024) <= 228 * 1024
+    # the step's first launch stages both mixtures' records and cumw, never L
+    assert _build.draw_smem_bytes(200, 2, 10) == 4 * (202 * 88 + 200)
+    assert 2 * (_build.draw_smem_bytes(200, 2, 10) + 1024) <= 228 * 1024
+    assert _build.draw_smem_bytes(96, 2, 40) == 0 and _build.draw_smem_bytes(2000, 2, 10) == 0
     for kernel in _build.BLOCKED:
         for K, D in ((400, 2), (200, 10), (96, 40), (12, 10), (5000, 2), (3, 128)):
             assert _build.limit_reason(kernel, K, D, 2) is None, (kernel, K, D)

@@ -85,6 +85,7 @@ def test_mcmc_pool_matches_plain_pool_in_distribution(cuda, case):
     (21, 2, 10, 200_003, False, True, True, 93),
     (96, 2, 40, 50_001, False, False, False, 94),
     (3, 1, 128, 50_001, False, False, False, 95),
+    (10, 2, 14, 50_001, True, True, False, 97),
 ])
 def test_blocked_kernels_against_plain_versions(cuda, case):
     chip_smoke.blocked_case(case, cuda, [])
