@@ -7,17 +7,24 @@ Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once), each launcher's shared memory against
-   ``ops/_build.py``'s formula, and the registers of the K-blocked
-   statistics pass's and the step's first pass's DMAX 8 and 16
-   instantiations, which must not spill;
+   ``nvcc`` a source, all at once), each launcher's shared memory (and the
+   chunked kernels' components a chunk) against ``ops/_build.py``'s
+   formula, the registers of the K-blocked statistics pass's and the step's
+   first pass's DMAX 8 and 16 instantiations and of every record
+   instantiation of ``fused_logq``'s and ``fused_maha``'s kernels (DMAX 8
+   to 64), which must not spill (nor, the latter, keep a stack frame), and
+   those two kernels' blocks an SM at K=32, D=40 and K=200, D=10 (at least
+   16 warps);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
    and Student-t, lower and upper ``fused_maha`` operands), and past the
    register kernels (D=40 and D=128, the looped instantiation) and past
-   shared memory (operands read from device memory: K=60, D=32 and K=1,
-   D=128), and at the pipeline's K=32, D=40.  ``fused_transform`` on given
+   shared memory (operands read from device memory, or, by ``fused_logq``
+   and ``fused_maha``, streamed in chunks: K=60, D=32 and K=1, D=128), at
+   the pipeline's K=32, D=40, at the K=200, D=10 log-likelihood, and at
+   D=33 and D=64, the lower end of the DMAX 40 record kernel and the upper
+   end of the DMAX 64 one.  ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
    D=40).  The random kernels are checked on their own samples: the plain
    version recomputes every deterministic output from them, and the
@@ -69,8 +76,10 @@ Phases, each of which exits non-zero on failure:
    0.15, one ``fused_mcmc_pool`` launch a cycle) and the callable-target
    run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
-    the least time the card could take (``bound``), and the device time of
-    each launch of the K-blocked kernels (torch.profiler).
+    the least time the card could take (``bound``), ``fused_maha`` and
+    ``fused_logq`` also at the shapes the main paths give them (K=32, D=40,
+    N=2^20; K=200, D=10, N=10^7), and the device time of each launch of the
+    K-blocked kernels (torch.profiler).
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -448,8 +457,13 @@ EVAL_CASES = [
     (60, 32, N_WIDE, False, True, False, 17),
     (1, 128, N_WIDE, False, False, True, 18),
     # the pipeline's VB and PMC mixtures at D=40 (32 long patches):
-    # fused_maha's full operands fill shared memory nearly to its limit
+    # fused_maha's and fused_logq's records stream in chunks
     (32, 40, N_WIDE, True, False, False, 20),
+    # the K=200 step's log-likelihood; the lower end of the DMAX 40 record
+    # kernel, the upper end of the DMAX 64 one
+    (200, 10, N_WIDE, True, False, False, 21),
+    (5, 64, N_WIDE, False, True, True, 22),
+    (3, 33, N_WIDE, True, False, False, 23),
 ]
 
 
@@ -1869,7 +1883,7 @@ def launch_split(label, fn, reps=3):
     return split
 
 
-def phase_times(device):
+def phase_times(device, report):
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -1900,15 +1914,13 @@ def phase_times(device):
          lambda i, n: k.plain_vb_estep(xs[n], ws[n], A, m, const), (N_PLAIN_MAX, N_SLICE))
     del xs, ws, log_q, log_p
     torch.cuda.empty_cache()
-    # past the register kernels: the looped D <= 128 instantiation
-    p40 = make_params(random_mixture(np.random.default_rng(40), 2, 40, False), device)
-    ops40 = core._kernel_operands(p40)
-    x40 = k.fused_propose_logq((40, 1), ops40, N_PLAIN_MAX)[0]
-    times[("fused_logq K=2 D=40", N_PLAIN_MAX, "cuda")] = cuda_ms(lambda i: k.fused_logq(x40, ops40))
-    times[("fused_logq K=2 D=40", N_PLAIN_MAX, "plain")] = cuda_ms(
-        lambda i: k.plain_logq(x40, ops40), reps=3, warmup=1)
-    del x40
-    torch.cuda.empty_cache()
+    # fused_maha and fused_logq at the shapes the main paths give them, each
+    # also held to its plain version there
+    for name, shapes in MAIN_SHAPES.items():
+        for shape in shapes:
+            times[(name, shape, "cuda")], times[(name, shape, "plain")] = main_shape_ms(
+                device, name, shape, report)
+            torch.cuda.empty_cache()
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
          (N_PLAIN_MAX, N_SLICE, N_BENCH))
@@ -1980,8 +1992,55 @@ def phase_times(device):
     torch.cuda.empty_cache()
     for (name, n, route), ms in times.items():
         if route != "split":
-            print("  %-25s %-6s N=%-9d %9.3f ms" % (name, route, n, ms))
+            size = "K=%d Kt=%d D=%d N=%d" % n if isinstance(n, tuple) else "N=%d" % n
+            print("  %-25s %-6s %-26s %9.3f ms" % (name, route, size, ms))
     return times
+
+
+# the shapes (K, Kt, D, N) the main paths give fused_maha and fused_logq: the
+# D=40 pipeline's VB2 and PMC mixtures (K=31-32) at n_is1 = 2^20 particles,
+# its K=2 target at 2^22, and the K=200 step's log-likelihood of the
+# updated mixture at 10^7 particles
+MAIN_SHAPES = {"fused_maha": [(32, 0, 40, N_FLAGSHIP)],
+               "fused_logq": [(32, 0, 40, N_FLAGSHIP), (2, 0, 40, N_PLAIN_MAX),
+                              (200, 0, 10, N_SLICE)]}
+
+
+def main_shape_ms(device, name, shape, report):
+    """``(kernel ms, plain ms)`` of ``name`` at ``shape``, CUDA events, on a
+    random mixture (fused_maha: the VB E-step's upper operands of it) and
+    particles drawn from it; Student-t as the proposals, Gaussian at K=2 as
+    the pipeline's target.  Past N_PLAIN_MAX the plain version timed is
+    plain_logq streamed over component chunks (its (K, D, N) intermediate
+    would not fit the card).  The kernel's output is held to its plain
+    version in float64, streamed over component chunks, with the tolerance
+    of eval_case."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, K > 2), device)
+    ops = core._kernel_operands(params)
+    xT = k.fused_propose_logq((K, D), ops, N)[0]
+    x64 = xT.double()
+    label = "%s K=%d D=%d N=%d" % (name, K, D, N)
+    if name == "fused_maha":
+        A, m, _ = vb_operands(params)
+        kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
+        A64, m64 = A.double(), m.double()
+        ref = torch.cat([k.plain_maha(x64, A64[k0:k1], m64[k0:k1])
+                         for k0, k1 in k._chunks(K, D, N)])
+        compare(label, kernel(0), ref, "maha", report)
+    else:
+        kernel = lambda i: k.fused_logq(xT, ops)
+        plain_logq = k.plain_logq if N <= N_PLAIN_MAX else k.plain_logq_blocked
+        plain = lambda i: plain_logq(xT, ops)
+        ops64 = k.MixtureOperands(ops.packed.double(), K, D, ops.student_t)
+        compare(label, kernel(0), k.plain_logq_blocked(x64, ops64), "log", report)
+    del x64
+    torch.cuda.empty_cache()
+    return cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
@@ -1994,19 +2053,18 @@ BLOCKED_SHAPES = {"fused_pmc_stats_blocked": (400, 0, 2), "fused_vb_estep_blocke
                   "fused_is_pmc_step_blocked": (200, 2, 10)}
 
 
-def kernel_work(name):
-    """``(shape, bytes, operations, exps)`` of one call of ``name`` at the
-    shape phase times gives it: each input read once and each output
-    written once, the FP32 operations of the arithmetic (an FMA counts two;
-    the random numbers' integer and transcendental work is not counted) and,
-    for the K-blocked kernels, the exps a (particle, component) pair needs
-    (the log-sum-exp's and the responsibility's; None elsewhere).  The
-    flagship: a K=10 Student-t proposal, a Kt=2 target, D=10, N=2^22; the
-    K-blocked kernels: BLOCKED_SHAPES at N=2^22; the pool:
-    benchmarks/mcmc_chains.py's C=16384, D=10, a 1-component target, 500
-    steps."""
-    K, Kt, D = BLOCKED_SHAPES.get(name, (10, 2, 10))
-    N = N_PLAIN_MAX
+def kernel_work(name, shape=None):
+    """``(shape, bytes, operations, exps)`` of one call of ``name`` at
+    ``shape`` (K, Kt, D, N), by default the one phase times gives it: each
+    input read once and each output written once, the FP32 operations of the
+    arithmetic (an FMA counts two; the random numbers' integer and
+    transcendental work is not counted) and, for the K-blocked kernels, the
+    exps a (particle, component) pair needs (the log-sum-exp's and the
+    responsibility's; None elsewhere).  The flagship: a K=10 Student-t
+    proposal, a Kt=2 target, D=10, N=2^22; the K-blocked kernels:
+    BLOCKED_SHAPES at N=2^22; the pool: benchmarks/mcmc_chains.py's
+    C=16384, D=10, a 1-component target, 500 steps."""
+    K, Kt, D, N = shape or BLOCKED_SHAPES.get(name, (10, 2, 10)) + (N_PLAIN_MAX,)
     ev = lambda k: k * (D * (D + 1) + 2 * D)        # component log-densities a particle
     draw = D * (D + 1) + 2 * D                      # mu + scale * (L z)
     stats = K * (D * (D + 1) + 2 * D)               # sd and the lower Gram blocks
@@ -2034,35 +2092,44 @@ def kernel_work(name):
     return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name] + (exps,)
 
 
-def bound(name):
+def bound(name, shape=None):
     """``(shape, least ms, "bytes" or "operations")``: the larger of the
     bytes over the memory rate and the operations over the FP32 rate."""
-    shape, nbytes, ops, _ = kernel_work(name)
+    shape, nbytes, ops, _ = kernel_work(name, shape)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# the kernels whose DMAX 8 and 16 instantiations must not spill: the
-# K-blocked statistics pass's register accumulation and the step's first pass
-REGISTER_KERNELS = ("blocked_reg_stats_kernel", "step_draw_kernel")
+# the kernels that must not spill, with the largest DMAX checked: the
+# K-blocked statistics pass's register accumulation and the step's first
+# pass (DMAX 8 and 16), and every record instantiation of fused_logq's and
+# fused_maha's kernels (DMAX 8 to 64), which must keep no local array either
+REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16,
+                    "logq_kernel": 64, "maha_kernel": 64}
+RECORD_KERNELS = ("logq_kernel", "maha_kernel")
 
 
 def register_kernels(log):
-    """``(kernel, registers, spill-store bytes)`` of each DMAX 8 or 16
-    instantiation of REGISTER_KERNELS in a ``ptxas -v`` log."""
+    """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of each
+    instantiation of REGISTER_KERNELS up to its DMAX in a ``ptxas -v`` log."""
     out = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
-        base = next((k for k in REGISTER_KERNELS if k in name), None)
+        # the mangled name spells each identifier with its length first
+        base = next((k for k in REGISTER_KERNELS if "%d%sI" % (len(k), k) in name), None)
         dmax = re.search(r"ILi(\d+)E", name)
-        if base is None or dmax is None or int(dmax.group(1)) > 16:
+        if base is None or dmax is None or int(dmax.group(1)) > REGISTER_KERNELS[base]:
             continue
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
         args = name[name.index(base) + len(base):].split("EEv")[0] + "E"
         out.append(("%s<%s>" % (base, ", ".join(re.findall(r"L[ib](\d+)E", args))),
-                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0))
-    require(len(out) >= 2 * len(REGISTER_KERNELS), "ptxas reported %d register kernels" % len(out))
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
+                    int(stack.group(1)) if stack else 0))
+    # DMAX 8 and 16 of the first two, 8, 16, 32, 40 and 64 of the others
+    require(len(out) >= 2 * 2 + 5 * len(RECORD_KERNELS),
+            "ptxas reported %d register kernels" % len(out))
     return out
 
 
@@ -2103,14 +2170,17 @@ def main():
     if regs:
         print("  ptxas: %d kernels, %d-%d registers a thread, %d bytes of spill stores"
               % (len(regs), min(regs), max(regs), spills))
-    for kernel, reg_count, spilled in register_kernels(log):
-        print("  ptxas %-44s %3d registers, %d bytes of spill stores" % (kernel, reg_count, spilled))
+    for kernel, reg_count, spilled, stack in register_kernels(log):
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
+              % (kernel, reg_count, spilled, stack))
         require(spilled == 0, "%s spills %d bytes" % (kernel, spilled))
+        require(stack == 0 or not kernel.startswith(RECORD_KERNELS),
+                "%s keeps a %d-byte stack frame" % (kernel, stack))
     # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
     for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
                      (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
                      (96, 2, 40), (12, 2, 10), (3, 1, 128), (21, 2, 10), (20, 2, 12), (8, 1, 16),
-                     (5, 1, 1), (600, 2, 10)):
+                     (5, 1, 1), (600, 2, 10), (5, 1, 64), (3, 1, 33), (4, 1, 128)):
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
                      ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
@@ -2133,6 +2203,19 @@ def main():
                     "chunk formula differs from the kernel's (%s)" % kernel)
         require(lib.pmc_step_draw_smem_bytes(K, Kt, D) == _build.draw_smem_bytes(K, Kt, D),
                 "shared-memory formula differs from the kernel's (the step's first launch)")
+        for kernel, maha in (("fused_logq", 0), ("fused_maha", 1)):
+            require(lib.pmc_eval_chunk(K, D, maha) == _build.eval_plan(kernel, K, D)[0],
+                    "chunk formula differs from the kernel's (%s)" % kernel)
+    # the record kernels' occupancy where the main paths run them
+    for K, D in ((32, 40), (200, 10)):
+        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D)),
+                               ("fused_logq", lib.pmc_logq_per_sm(K, D))):
+            warps = per_sm * _build.EVAL_THREADS // 32
+            kc, buffers, smem = _build.eval_plan(kernel, K, D)
+            print("  %s K=%d D=%d: %d blocks of %d threads an SM (%d warps), %d components "
+                  "a chunk x %d buffers, %d B of shared memory a block"
+                  % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
+            require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
 
     clock = []
 
@@ -2183,7 +2266,7 @@ def main():
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
     phase("times (%s)" % card)
-    times = phase_times(device)
+    times = phase_times(device, report)
     phase("end")
 
     kernels = []
@@ -2217,15 +2300,21 @@ def main():
                 entry["launch_ms" if sn == n else "launch_ms_slice_n"] = times[(kname, sn, "split")]
         if exps is not None:
             entry["exps"] = exps
+        if kname in MAIN_SHAPES:
+            entry["shapes"] = [{"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
+                                "plain_ms": times[(kname, sh, "plain")],
+                                "bound_ms": bound(kname, sh)[1]} for sh in MAIN_SHAPES[kname]]
         kernels.append(entry)
     print("ms and plain_ms at the shape given, ms_slice_n at N=%d; max_abs_err is |kernel - "
           "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
           "sample mean against the mixture's; for fused_mcmc_pool, the kernel's and the plain "
           "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
           "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound; "
-          "launch_ms: their launches' device times, torch.profiler); "
-          "library_ms null: no one PyTorch call computes these functions"
-          % (N_SLICE, PEAK_BYTES, PEAK_FP32))
+          "launch_ms: their launches' device times, torch.profiler; shapes: fused_maha and "
+          "fused_logq at the main paths' shapes, plain_ms past N=%d the plain version streamed "
+          "over component chunks); library_ms null: no one PyTorch call computes these "
+          "functions"
+          % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

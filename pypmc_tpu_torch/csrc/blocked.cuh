@@ -58,9 +58,6 @@ namespace pmc {
 
 enum BlockedKind { kBlockedPmc = 0, kBlockedStep = 1, kBlockedVb = 2 };
 
-// an SM's 228 KB, halved, less the 1 KB each block reserves
-constexpr size_t kBlockedHalf = 228 * 1024 / 2 - 1024;
-
 // operand floats of one component in the chunk layout
 __host__ __device__ inline int blocked_floats(int D, bool vb) {
   return vb ? D * D + D + 1 : MixLayout{1, D}.eval_size();
@@ -122,7 +119,7 @@ inline BlockedPlan blocked_plan(int K, int D, bool vb) {
   const bool staged = stats_smem_bytes(StatsLayout{1, D}, per) <= kSmemLimit;
   const int f = staged ? per : 0;
   auto bytes = [&](int kc) { return stats_smem_bytes(StatsLayout{kc, D}, kc * f); };
-  const size_t budget = bytes(1) <= kBlockedHalf ? kBlockedHalf : kSmemLimit;
+  const size_t budget = bytes(1) <= kHalfSmem ? kHalfSmem : kSmemLimit;
   int kc = 1;
   while (kc < K && bytes(kc + 1) <= budget) ++kc;
   return {kc, staged, bytes(kc)};

@@ -6,19 +6,22 @@
 // Particles are carried transposed, xT (D, N) row-major, so that thread n
 // reads x[i] = xT[i * N + n]: neighbouring threads read neighbouring
 // addresses.  Every kernel keeps one particle's coordinates in a per-thread
-// array of DMAX floats.  For DMAX = 8, 16 or 32 the loops over the dimension
-// are unrolled to DMAX with a guard on the runtime D, so the arrays stay in
-// registers; the DMAX = 128 instantiation (33 <= D <= 128) loops to D, and
-// its arrays live in local memory.
+// array of DMAX floats.  For DMAX = 8, 16 or 32 (and 40 or 64 in the record
+// kernels of fused_logq and fused_maha) the loops over the dimension are
+// unrolled to DMAX with a guard on the runtime D, so the arrays stay in
+// registers; the DMAX = 128 instantiation loops to D, and its arrays live in
+// local memory.
 //
 // A block stages its mixture operands in shared memory when they fit there
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
 // from device memory, where every thread of a warp reads the same element
-// at once (one cached load).
+// at once (one cached load).  The record kernels (D <= 64) stream 16-byte
+// component records through shared memory in chunks instead (eval_plan).
 #pragma once
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -27,12 +30,15 @@ namespace pmc {
 constexpr int kThreads = 128;   // threads per block, one particle each
 constexpr int kDMax = 128;      // the largest dimension (ops/_build.py D_MAX)
 constexpr size_t kSmemLimit = 232448;   // bytes of shared memory a block may use
+// a block's share of an SM's 228 KB where two blocks share it (each also
+// reserves 1 KB)
+constexpr size_t kHalfSmem = 228 * 1024 / 2 - 1024;
 
 // Trip count of a loop over the dimension: DMAX (a constant, so the loop
-// unrolls) up to DMAX = 32, the runtime D above.
+// unrolls) in the register instantiations, the runtime D in the looped one.
 template <int DMAX>
 __device__ __forceinline__ int dim_loop(int D) {
-  return DMAX <= 32 ? DMAX : D;
+  return DMAX < kDMax ? DMAX : D;
 }
 
 // Packed mixture operands, one flat float32 buffer per mixture
@@ -234,17 +240,19 @@ struct WeightedLse {
 };
 
 // ---------------------------------------------------------------------
-// Component records for 16-byte loads (the K-blocked kernels stage their
-// operands in shared memory this way; every thread of a warp reads the same
-// record, so each load is one broadcast LDS.128).  One record of
-// rec_floats(D) floats a component, 16-byte aligned:
+// Component records for 16-byte loads (the K-blocked kernels and those of
+// fused_logq and fused_maha stage their operands in shared memory this way;
+// every thread of a warp reads the same record, so each load is one
+// broadcast LDS.128).  One record of rec_floats(D) floats a component,
+// 16-byte aligned:
 //   mu (D, zero-padded to pad4(D)) | log_norm, weight, dof,
-//   log(dof / 2) - psi |
+//   log(dof / 2) - psi (0 in fused_logq's, which does not read it) |
 //   U = L^{-1} row by row, row i its i + 1 entries zero-padded to
 //   pad4(i + 1), starting at tri_row(i)
 // A VB record (vb_rec_floats) holds m | c, 0, 0, 0 | A row by row, each row
-// zero-padded to pad4(D).  whiten_rec and project_rec read them in the FMA
-// order of whiten and project, so the results are the same bit for bit.
+// zero-padded to pad4(D) (fused_maha's: c = 0).  whiten_rec and project_rec
+// read them in the FMA order of whiten and project, so the results are the
+// same bit for bit.
 // ---------------------------------------------------------------------
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 // 4 * sum_{r < i} ceil((r + 1) / 4)
@@ -254,52 +262,75 @@ __host__ __device__ constexpr int tri_row(int i) {
 __host__ __device__ inline int rec_floats(int D) { return pad4(D) + 4 + tri_row(D); }
 __host__ __device__ inline int vb_rec_floats(int D) { return pad4(D) + 4 + D * pad4(D); }
 
-// K records at dst from the evaluation part of a packed K-component mixture
-// (MixLayout); all threads of the block, __syncthreads() before reading.
-__device__ inline void stage_records(float* dst, const float* mix, int K, int D) {
-  const MixLayout L{K, D};
-  const int F = rec_floats(D), D4 = pad4(D);
-  for (int idx = threadIdx.x; idx < K * F; idx += blockDim.x) {
-    const int k = idx / F;
-    int r = idx - k * F;
-    float v = 0.0f;
-    if (r < D4) {
-      if (r < D) v = mix[L.mu() + k * D + r];
-    } else if (r < D4 + 4) {
-      const int q = r - D4;
-      if (q < 3) v = mix[(q == 0 ? L.ln() : q == 1 ? L.w() : L.dof()) + k];
-      else v = logf(0.5f * mix[L.dof() + k]) - mix[L.psi() + k];
-    } else {
-      r -= D4 + 4;
-      int i = 0;
-      while (tri_row(i + 1) <= r) ++i;
-      const int j = r - tri_row(i);
-      if (j <= i) v = mix[L.U() + k * D * D + i * D + j];
+// cp.async (sm_80 on): a 4-byte copy from device to shared memory that does
+// not hold up the thread; a copy that is not ``valid`` reads nothing and
+// writes 0
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The records of components k0 .. k0 + kc - 1 at dst by cp.async: kc
+// records of rec_floats(D) (tri) or vb_rec_floats(D) floats, from mu (K, D),
+// M (K, D, D) row-major (U = L^{-1}, or A) and nscal scalars a component,
+// K floats apart from scal (log_norm, weight, dof; or VB's c).  Pads, the
+// scalars past nscal and, for tri, M's upper triangle are 0.  One record row
+// a warp at a time, so that each row is read coalesced.  Commit after, and wait and
+// __syncthreads() before reading.
+__device__ inline void stage_records_async(float* dst, const float* mu, const float* M,
+                                           const float* scal, int nscal, int K, int k0,
+                                           int kc, int D, bool tri) {
+  const int D4 = pad4(D), F = tri ? rec_floats(D) : vb_rec_floats(D);
+  const int lane = threadIdx.x % 32;
+  for (int row = threadIdx.x / 32; row < kc * (D + 1); row += blockDim.x / 32) {
+    const int c = row / (D + 1), i = row - c * (D + 1) - 1;
+    const long long k = k0 + c;
+    float* rec = dst + c * F;
+    if (i < 0) {   // mu | the scalars
+      for (int t = lane; t < D4 + 4; t += 32) {
+        const bool valid = t < D || (t >= D4 && t - D4 < nscal);
+        const float* src = !valid ? mu : t < D4 ? mu + k * D + t : scal + (t - D4) * K + k;
+        cp_async_f32(rec + t, src, valid);
+      }
+    } else {       // row i of M
+      const int len = tri ? pad4(i + 1) : D4, used = tri ? i + 1 : D;
+      float* out = rec + D4 + 4 + (tri ? tri_row(i) : i * D4);
+      const float* src = M + (k * D + i) * D;
+      for (int t = lane; t < len; t += 32) cp_async_f32(out + t, t < used ? src + t : mu, t < used);
     }
-    dst[idx] = v;
   }
 }
 
-// K VB records at dst from ops = A (K, D, D) | m (K, D) | c (K)
+// K records at dst from the evaluation part of a packed K-component mixture
+// (MixLayout), the fourth scalar log(dof / 2) - psi; all threads of the
+// block, __syncthreads() before reading.
+__device__ inline void stage_records(float* dst, const float* mix, int K, int D) {
+  const MixLayout L{K, D};
+  stage_records_async(dst, mix + L.mu(), mix + L.U(), mix + L.ln(), 3, K, 0, K, D, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int F = rec_floats(D), D4 = pad4(D);
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    dst[k * F + D4 + 3] = logf(0.5f * mix[L.dof() + k]) - mix[L.psi() + k];
+}
+
+// K VB records at dst from ops = A (K, D, D) | m (K, D) | c (K); all
+// threads of the block, __syncthreads() before reading.
 __device__ inline void stage_vb_records(float* dst, const float* ops, int K, int D) {
-  const int F = vb_rec_floats(D), D4 = pad4(D);
   const float* m = ops + K * D * D;
-  const float* c = m + K * D;
-  for (int idx = threadIdx.x; idx < K * F; idx += blockDim.x) {
-    const int k = idx / F;
-    int r = idx - k * F;
-    float v = 0.0f;
-    if (r < D4) {
-      if (r < D) v = m[k * D + r];
-    } else if (r < D4 + 4) {
-      if (r == D4) v = c[k];
-    } else {
-      r -= D4 + 4;
-      const int i = r / D4, j = r - i * D4;
-      if (j < D) v = ops[k * D * D + i * D + j];
-    }
-    dst[idx] = v;
-  }
+  stage_records_async(dst, m, ops, m + K * D, 1, K, 0, K, D, false);
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
 // x - mu with mu the record's first pad4(D) floats (0 past D)
@@ -317,48 +348,89 @@ __device__ __forceinline__ void centre_rec(const float* rec, const float (&x)[DM
   }
 }
 
-// whiten on a record (DMAX <= 32, x zero past D): returns maha and hands
-// each diff_i, i < D, to emit(i, diff_i) as it is formed
+// whiten on a record (DMAX <= 64, x zero past D): returns maha and hands
+// each diff_i, i < D, to emit(i, diff_i), i ascending.  Up to DMAX = 32 the
+// rows are unrolled.  Past it a loop over groups of 2 rows, which take the
+// same number of float4s, keeps the code small and gives independent FMA
+// chains to hide the loads' latency (a row's loads cannot be issued ahead
+// of the branch that ends it), while the loop within a row stays unrolled,
+// so that xm stays in registers.
 template <int DMAX, typename Emit>
 __device__ __forceinline__ float whiten_rec(const float* rec, const float (&x)[DMAX], int D,
                                             Emit&& emit) {
-  static_assert(DMAX <= 32 && DMAX % 4 == 0, "records are read by unrolled loops");
+  static_assert(DMAX <= 64 && DMAX % 4 == 0, "records are read by unrolled loops");
   float xm[DMAX];
   centre_rec<DMAX>(rec, x, D, xm);
   const float* U = rec + pad4(D) + 4;
   float maha = 0.0f;
+  if constexpr (DMAX <= 32) {
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    if (i < D) {
-      float s = 0.0f;
-      const float4* row = reinterpret_cast<const float4*>(U + tri_row(i));
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < D) {
+        float s = 0.0f;
+        const float4* row = reinterpret_cast<const float4*>(U + tri_row(i));
 #pragma unroll
-      for (int q = 0; q <= i / 4; ++q) {
-        const float4 u = row[q];
-        s = fmaf(u.x, xm[4 * q], s);
-        if (4 * q + 1 <= i) s = fmaf(u.y, xm[4 * q + 1], s);
-        if (4 * q + 2 <= i) s = fmaf(u.z, xm[4 * q + 2], s);
-        if (4 * q + 3 <= i) s = fmaf(u.w, xm[4 * q + 3], s);
+        for (int q = 0; q <= i / 4; ++q) {
+          const float4 u = row[q];
+          s = fmaf(u.x, xm[4 * q], s);
+          if (4 * q + 1 <= i) s = fmaf(u.y, xm[4 * q + 1], s);
+          if (4 * q + 2 <= i) s = fmaf(u.z, xm[4 * q + 2], s);
+          if (4 * q + 3 <= i) s = fmaf(u.w, xm[4 * q + 3], s);
+        }
+        emit(i, s);
+        maha = fmaf(s, s, maha);
       }
-      emit(i, s);
-      maha = fmaf(s, s, maha);
+    }
+  } else {
+    for (int i = 0; i < D; i += 2) {
+      // rows i and i + 1 (i even): g + 1 float4s each, row i + 1's from
+      // tri_row(i) + 4 (g + 1); the last one the diagonal block
+      const int g = i / 4;
+      const float4* r0 = reinterpret_cast<const float4*>(U + tri_row(i));
+      const float4* r1 = r0 + (g + 1);
+      const bool two = i + 1 < D;
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int q = 0; q < DMAX / 4; ++q) {
+        if (q > g) break;
+        const float4 u = r0[q];
+        const float4 v = two ? r1[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        s0 = fmaf(u.x, xm[4 * q], s0);
+        if (4 * q + 1 <= i) s0 = fmaf(u.y, xm[4 * q + 1], s0);
+        if (4 * q + 2 <= i) s0 = fmaf(u.z, xm[4 * q + 2], s0);
+        if (4 * q + 3 <= i) s0 = fmaf(u.w, xm[4 * q + 3], s0);
+        s1 = fmaf(v.x, xm[4 * q], s1);
+        if (4 * q + 1 <= i + 1) s1 = fmaf(v.y, xm[4 * q + 1], s1);
+        if (4 * q + 2 <= i + 1) s1 = fmaf(v.z, xm[4 * q + 2], s1);
+        if (4 * q + 3 <= i + 1) s1 = fmaf(v.w, xm[4 * q + 3], s1);
+      }
+      emit(i, s0);
+      maha = fmaf(s0, s0, maha);
+      if (two) {
+        emit(i + 1, s1);
+        maha = fmaf(s1, s1, maha);
+      }
     }
   }
   return maha;
 }
 
-// project on a VB record (DMAX <= 32, x zero past D), emitting as whiten_rec
+// project on a VB record (DMAX <= 64, x zero past D), emitting as whiten_rec.
+// Up to DMAX = 32 the rows are unrolled; past it a loop over the rows keeps
+// the code small, while the loop within a row stays unrolled, so that xm
+// stays in registers (groups of rows bought nothing here: every row is D
+// long, so its loads can be issued together).
 template <int DMAX, typename Emit>
 __device__ __forceinline__ float project_rec(const float* rec, const float (&x)[DMAX], int D,
                                              Emit&& emit) {
-  static_assert(DMAX <= 32 && DMAX % 4 == 0, "records are read by unrolled loops");
+  static_assert(DMAX <= 64 && DMAX % 4 == 0, "records are read by unrolled loops");
   float xm[DMAX];
   centre_rec<DMAX>(rec, x, D, xm);
   const int D4 = pad4(D);
   const float* A = rec + D4 + 4;
   float maha = 0.0f;
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
+#pragma unroll (DMAX <= 32 ? DMAX : 1)
+  for (int i = 0; i < (DMAX <= 32 ? DMAX : D); ++i) {
     if (i < D) {
       float s = 0.0f;
       const float4* row = reinterpret_cast<const float4*>(A + i * D4);
@@ -379,18 +451,25 @@ __device__ __forceinline__ float project_rec(const float* rec, const float (&x)[
   return maha;
 }
 
-// mixture_logpdf on K records
+// add the weighted component densities of K records to acc, k ascending
 template <int DMAX>
-__device__ float records_logpdf(const float* recs, int K, int D, bool student_t,
-                                const float (&x)[DMAX]) {
+__device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,
+                                            bool student_t, const float (&x)[DMAX]) {
   const int F = rec_floats(D), D4 = pad4(D);
-  WeightedLse acc;
   for (int k = 0; k < K; ++k) {
     const float* r = recs + k * F;
     const float maha = whiten_rec<DMAX>(r, x, D, [](int, float) {});
     const float4 p = *reinterpret_cast<const float4*>(r + D4);   // ln, w, dof, .
     acc.add(component_logpdf(maha, p.x, p.z, D, student_t), p.y);
   }
+}
+
+// mixture_logpdf on K records
+template <int DMAX>
+__device__ float records_logpdf(const float* recs, int K, int D, bool student_t,
+                                const float (&x)[DMAX]) {
+  WeightedLse acc;
+  records_lse<DMAX>(acc, recs, K, D, student_t, x);
   return acc.value();
 }
 
@@ -497,6 +576,178 @@ __device__ int propose_particle(const float* mix, int K, int D, bool student_t,
   draw_component<DMAX>(mix + L.mu(), mix + L.L(), mix + L.dof(), lat, D,
                        student_t, rng, x);
   return lat;
+}
+
+// ---------------------------------------------------------------------
+// The record kernels of fused_logq and fused_maha (D <= 64): one thread a
+// particle, kept in registers, against the components' records streamed
+// through shared memory in chunks.
+// ---------------------------------------------------------------------
+constexpr int kEvalThreads = 256;   // threads of a record kernel's block (ops/_build.py)
+constexpr int kRecDMax = 64;        // the largest D of the record kernels
+
+// The record instantiations, DMAX ascending, each with the blocks of
+// kEvalThreads an SM it is compiled for: x and x - mu take 2 DMAX registers a
+// thread (ptxas on sm_90a: DMAX 48 spilled at 2 blocks, DMAX 16 at 4).  40 is
+// the pipeline's D.  dispatch_eval walks this list and eval_dmax_below and
+// eval_min_blocks read it, so that a kernel's assumption on D is what the
+// dispatch gives it.
+template <int DMAX, int MIN_BLOCKS> struct EvalInst {};
+template <typename... Insts> struct EvalList {};
+using EvalInsts = EvalList<EvalInst<8, 4>, EvalInst<16, 3>, EvalInst<32, 2>, EvalInst<40, 2>,
+                           EvalInst<kRecDMax, 1>>;
+
+template <int... DS, int... BS>
+__host__ __device__ constexpr int dmax_below(EvalList<EvalInst<DS, BS>...>, int DMAX) {
+  int below = 0;
+  ((below = DS < DMAX ? DS : below), ...);
+  return below;
+}
+template <int... DS, int... BS>
+__host__ __device__ constexpr int min_blocks(EvalList<EvalInst<DS, BS>...>, int DMAX) {
+  int blocks = 0;
+  ((blocks = DS == DMAX ? BS : blocks), ...);
+  return blocks;
+}
+
+// the largest D of the record instantiation below DMAX (0 below the first)
+__host__ __device__ constexpr int eval_dmax_below(int DMAX) {
+  return dmax_below(EvalInsts(), DMAX);
+}
+// blocks of kEvalThreads an SM the record kernel at DMAX is compiled for
+__host__ __device__ constexpr int eval_min_blocks(int DMAX) {
+  return min_blocks(EvalInsts(), DMAX);
+}
+
+struct EvalPlan {
+  int kc;        // components a chunk
+  int buffers;   // chunk buffers in shared memory; 0: operands read from device memory
+  size_t smem;   // shared memory a block asks for
+};
+
+// The shared-memory plan of fused_logq's (maha false) or fused_maha's kernel
+// (mirrored by ops/_build.py eval_plan).  D <= 64: the records of the whole
+// mixture in one buffer where they fit an SM's half, else two buffers of the
+// largest equal chunks that do, one filled while the other is read.  Past
+// D = 64 the looped kernel stages its operands whole where they fit.
+__host__ __device__ inline EvalPlan eval_plan(int K, int D, bool maha) {
+  if (D > kRecDMax) {
+    const size_t ops = sizeof(float) * (maha ? static_cast<size_t>(K) * D * (D + 1)
+                                             : static_cast<size_t>(MixLayout{K, D}.eval_size()));
+    return ops <= kSmemLimit ? EvalPlan{K, 1, ops} : EvalPlan{K, 0, 0};
+  }
+  const size_t rec = sizeof(float) * (maha ? vb_rec_floats(D) : rec_floats(D));
+  if (K * rec <= kHalfSmem) return {K, 1, K * rec};
+  const int most = static_cast<int>(kHalfSmem / (2 * rec));
+  const int n_chunks = (K + most - 1) / most;
+  const int kc = (K + n_chunks - 1) / n_chunks;
+  return {kc, 2, 2 * kc * rec};
+}
+
+// The loop of a record kernel.  The block walks its particle tiles
+// (grid-stride), each thread one particle in registers (0 past N), and for
+// each tile the component chunks of ``plan``: stage(dst, k0, kc) issues a
+// chunk's copies (stage_records_async), eval(recs, k0, kc, x, n) evaluates
+// it, chunks in ascending order (a thread with n >= N must not write).  One
+// chunk is staged once for all tiles; more are double-buffered, the next
+// chunk's copy in flight while this one is evaluated.
+template <int DMAX, typename Stage, typename Eval>
+__device__ __forceinline__ void stream_records(float* smem, const float* xT, long long N,
+                                               int K, int D, int F, EvalPlan plan,
+                                               Stage&& stage, Eval&& eval) {
+  const int n_tiles = static_cast<int>((N + blockDim.x - 1) / blockDim.x);
+  const int n_chunks = (K + plan.kc - 1) / plan.kc;
+  const auto fill = [&](int c, int b) {
+    stage(smem + b * plan.kc * F, c * plan.kc, min(plan.kc, K - c * plan.kc));
+  };
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  fill(0, 0);
+  cp_async_commit();
+  if (n_chunks == 1) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  int s = 0;   // chunks evaluated so far; buffer s & 1 holds the next
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const long long n = static_cast<long long>(tile) * blockDim.x + threadIdx.x;
+    float x[DMAX];
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+    if (n < N) load_particle<DMAX>(xT, N, n, D, x);
+    for (int c = 0; c < n_chunks; ++c) {
+      const float* recs = smem;
+      if (n_chunks > 1) {
+        if (c + 1 < n_chunks || tile + gridDim.x < n_tiles) fill((c + 1) % n_chunks, (s + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();   // all but the newest group: chunk c has landed
+        __syncthreads();
+        recs = smem + (s & 1) * plan.kc * F;
+      }
+      eval(recs, c * plan.kc, min(plan.kc, K - c * plan.kc), x, n);
+      if (n_chunks > 1) {
+        __syncthreads();      // buffer s & 1 is refilled next
+        ++s;
+      }
+    }
+  }
+}
+
+// body(DMAX, true) at the first record instantiation with D <= DMAX; its
+// result, or cudaErrorInvalidValue past the last
+template <typename Body, int... DS, int... BS>
+int dispatch_records(int D, Body& body, EvalList<EvalInst<DS, BS>...>) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  (void)((D <= DS && (err = body(std::integral_constant<int, DS>(), std::true_type()), true)) ||
+         ...);
+  return err;
+}
+
+// Call body(DMAX, OPS_SMEM) (std::integral_constant arguments) with the
+// instantiation of fused_logq's or fused_maha's kernel for D and return its
+// result: the record kernel of EvalInsts up to D = 64 (OPS_SMEM unused), the
+// looped kernel at DMAX 128 past it.
+template <typename Body>
+int dispatch_eval(int D, bool ops_smem, Body&& body) {
+  if (D <= kRecDMax) return dispatch_records(D, body, EvalInsts());
+  if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  return ops_smem ? body(std::integral_constant<int, kDMax>(), std::true_type())
+                  : body(std::integral_constant<int, kDMax>(), std::false_type());
+}
+
+// threads of a block at DMAX
+__host__ __device__ constexpr int eval_threads(int DMAX) {
+  return DMAX <= kRecDMax ? kEvalThreads : kThreads;
+}
+
+// Call body(kernel, threads, smem) with the kernel of Kernels (a struct with
+// ``maha``, fused_maha's or fused_logq's, and get<DMAX, OPS_SMEM>(), the
+// kernel of dispatch_eval's instantiation) for (K, D), its block size and its
+// shared memory, set first as the kernel's limit; body's result, or the
+// error of the dispatch or of setting the limit.
+template <typename Kernels, typename Body>
+int with_eval_kernel(int K, int D, Body&& body) {
+  const EvalPlan plan = eval_plan(K, D, Kernels::maha);
+  return dispatch_eval(D, plan.buffers > 0, [&](auto dmax, auto ops) {
+    constexpr int DMAX = decltype(dmax)::value;
+    const auto kernel = Kernels::template get<DMAX, decltype(ops)::value>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return body(kernel, eval_threads(DMAX), plan.smem);
+  });
+}
+
+// blocks of the kernel of Kernels for (K, D) that fit on one SM at once
+// (registers, shared memory and threads); -1 on an error
+template <typename Kernels>
+int eval_per_sm(int K, int D) {
+  int n = 0;
+  const int err = with_eval_kernel<Kernels>(K, D, [&](auto kernel, int threads, size_t smem) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem));
+  });
+  return err == 0 ? n : -1;
 }
 
 // Dispatch a kernel template on DMAX for the runtime dimension D.

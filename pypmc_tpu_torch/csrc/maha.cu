@@ -8,57 +8,102 @@
 // there is no cancellation to guard against.
 //
 // Bound on the H100: per particle it reads D floats, writes K, and does
-// K D^2 FMAs -- at K = 10, D = 10 a thousand FMAs for 44 bytes read and 40
-// written: FMA-bound in principle, and in practice bound by the one scalar
-// shared-memory load each FMA's A entry takes (see logq.cu).  A is read
-// whole: the callers pass lower (inverse Cholesky factors) and upper
-// (transposed Cholesky factors of Wishart scales) matrices alike.
-// Design: one thread per particle (grid-stride), the particle in registers,
-// the operands A | m in shared memory where they fit (a broadcast read), and
-// the K results written as K coalesced rows.
+// K D^2 FMAs -- at K = 32, D = 40 51,200 FMAs for 160 bytes read and 128
+// written: FMA-bound.  A is read whole: the callers pass lower (inverse
+// Cholesky factors) and upper (transposed Cholesky factors of Wishart
+// scales) matrices alike.
+// Design, D <= 64 (maha_kernel): 256 threads a block, one particle a thread,
+// x and x - m_k in registers (DMAX 8 to 64), the components as 16-byte VB
+// records (common.cuh vb_rec_floats: m | 4 zeros | A's rows padded to
+// float4s; at D = 40 6,576 B) read by broadcast LDS.128 in project's FMA
+// order -- 10 LDS.128 a row of A at D = 40 where a scalar load a FMA took 40
+// -- and each (k, n) result written once, coalesced.  The records stream
+// through shared memory (common.cuh eval_plan, stream_records): the whole
+// set where it fits an SM's half, else chunks in two buffers filled by
+// cp.async while the other is read (K = 32, D = 40: 8 components a chunk,
+// 2 x 52,608 B, 2 blocks an SM).  Every block walks all chunks for its
+// particles; the output has no reduction over k.  What holds it (measured
+// on one H100): a broadcast LDS.128 takes ~4 clocks of the SM's 128 B a
+// clock of shared-memory data path, so each A word read feeds one FMA, ~1/4
+// of the FP32 peak; two particles a thread would halve that but take 2 x
+// 80 registers at D = 40, past the 128 that 16 warps an SM allow.  Past D = 64
+// (maha_wide_kernel) the looped DMAX = 128 instantiation reads A | m,
+// staged whole where they fit.
 #include "common.cuh"
 
 namespace pmc {
 
-template <int DMAX, bool OPS_SMEM>
-__global__ void __launch_bounds__(kThreads)
-maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src,
+template <int DMAX>
+__global__ void __launch_bounds__(kEvalThreads, eval_min_blocks(DMAX))
+maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
             float* __restrict__ out, long long N, int K, int D) {
+  extern __shared__ float4 smem4[];
+  constexpr int below = eval_dmax_below(DMAX);
+  __builtin_assume(D > below && D <= DMAX);   // dispatch_eval's
+  const float* m = ops + K * D * D;
+  const int F = vb_rec_floats(D);
+  stream_records<DMAX>(
+      reinterpret_cast<float*>(smem4), xT, N, K, D, F, eval_plan(K, D, true),
+      [&](float* dst, int k0, int kc) {
+        stage_records_async(dst, m, ops, m, 0, K, k0, kc, D, false);
+      },
+      [&](const float* recs, int k0, int kc, const float (&x)[DMAX], long long n) {
+        for (int c = 0; c < kc; ++c) {
+          const float v = project_rec<DMAX>(recs + c * F, x, D, [](int, float) {});
+          if (n < N) out[static_cast<long long>(k0 + c) * N + n] = v;
+        }
+      });
+}
+
+template <bool OPS_SMEM>
+__global__ void __launch_bounds__(kThreads)
+maha_wide_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src,
+                 float* __restrict__ out, long long N, int K, int D) {
   extern __shared__ float smem[];
   const float* A = stage_operands<OPS_SMEM>(smem, ops_src, K * D * D + K * D);
   __syncthreads();
   const float* m = A + K * D * D;
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float x[DMAX], diff[DMAX];
-    load_particle<DMAX>(xT, N, n, D, x);
+    float x[kDMax], diff[kDMax];
+    load_particle<kDMax>(xT, N, n, D, x);
     for (int k = 0; k < K; ++k)
-      out[k * N + n] = project<DMAX>(A + k * D * D, m + k * D, x, D, diff);
+      out[k * N + n] = project<kDMax>(A + k * D * D, m + k * D, x, D, diff);
   }
 }
 
+// fused_maha's kernels for with_eval_kernel
+struct MahaKernels {
+  static constexpr bool maha = true;
+  template <int DMAX, bool OPS_SMEM>
+  static auto get() {
+    if constexpr (DMAX <= kRecDMax) return maha_kernel<DMAX>;
+    else return maha_wide_kernel<OPS_SMEM>;
+  }
+};
+
 }  // namespace pmc
 
-// shared memory the launcher asks for (checked against ops/_build.py): the
-// operands if they fit, else none
+// shared memory the launcher asks for (checked against ops/_build.py)
 extern "C" long long pmc_maha_smem_bytes(int K, int D) {
-  const size_t ops = sizeof(float) * (static_cast<size_t>(K) * D * D + K * D);
-  return static_cast<long long>(ops <= pmc::kSmemLimit ? ops : 0);
+  return static_cast<long long>(pmc::eval_plan(K, D, true).smem);
 }
 
-// ops: A (K, D, D) row-major | m (K, D); out: (K, N)
+// blocks that fit on one SM at once (registers, shared memory and threads),
+// for the wrapper's grid; -1 on an error
+extern "C" int pmc_maha_per_sm(int K, int D) {
+  return pmc::eval_per_sm<pmc::MahaKernels>(K, D);
+}
+
 extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* out,
                               long long N, int K, int D, int n_blocks,
                               void* stream) {
   using namespace pmc;
-  const size_t smem = pmc_maha_smem_bytes(K, D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
-    cudaFuncSetAttribute(maha_kernel<DMAX, OPS_SMEM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    maha_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(xT, ops, out,
-                                                                 N, K, D);
-  }));
+  const int bad = with_eval_kernel<MahaKernels>(K, D, [&](auto kernel, int threads, size_t smem) {
+    kernel<<<n_blocks, threads, smem, s>>>(xT, ops, out, N, K, D);
+    return 0;
+  });
+  if (bad != 0) return bad;
   return static_cast<int>(cudaGetLastError());
 }

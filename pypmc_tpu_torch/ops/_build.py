@@ -9,16 +9,18 @@ unchanged one is loaded as it is.
 
 This module also states the CUDA kernels' own size limits.  Each thread
 keeps one particle's coordinates in a per-thread array of at most
-:data:`D_MAX` floats (registers up to D = 32, local memory above).  The
+:data:`D_MAX` floats (registers up to D = 32, and up to D = 64 in the
+kernels of ``fused_logq`` and ``fused_maha``; local memory above).  The
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`; every kernel stages
 its mixture operands there too when they fit beside, and otherwise reads
 them from device memory.  The K-blocked kernels walk the components in
-chunks sized from shared memory (:func:`blocked_plan`), so only D limits
-them.  :func:`limit_reason` names the limit a shape breaks, and the
-wrappers raise for such a shape.  Which shapes the
-``"auto"`` dispatchers send to a kernel at all is a separate question,
-answered by :func:`pypmc_tpu_torch.ops.kernels.fits`.
+chunks sized from shared memory (:func:`blocked_plan`), and so do the
+kernels of ``fused_logq`` and ``fused_maha`` up to D = 64
+(:func:`eval_plan`), so only D limits them.  :func:`limit_reason` names
+the limit a shape breaks, and the wrappers raise for such a shape.  Which
+shapes the ``"auto"`` dispatchers send to a kernel at all is a separate
+question, answered by :func:`pypmc_tpu_torch.ops.kernels.fits`.
 """
 
 import ctypes
@@ -30,9 +32,9 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "KERNELS", "BLOCKED", "smem_bytes",
-           "blocked_plan", "draw_smem_bytes", "limit_reason", "check_limits", "load",
-           "build_info"]
+__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "KERNELS", "BLOCKED",
+           "smem_bytes", "eval_plan", "eval_threads", "blocked_plan", "draw_smem_bytes",
+           "limit_reason", "check_limits", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -40,9 +42,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-D_MAX = 128            # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 or 128
+D_MAX = 128            # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 (40, 64) or 128
 SMEM_LIMIT = 232448    # csrc/common.cuh kSmemLimit: shared memory one H100 block may use
 THREADS = 128          # csrc/common.cuh kThreads
+EVAL_THREADS = 256     # csrc/common.cuh kEvalThreads: fused_logq's and fused_maha's to D = 64
+_REC_D_MAX = 64        # csrc/common.cuh kRecDMax
 _TILE_STRIDE = THREADS + 1
 
 _lib = None
@@ -64,7 +68,7 @@ BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
-_BLOCKED_HALF = 228 * 1024 // 2 - 1024   # csrc/blocked.cuh kBlockedHalf
+_HALF_SMEM = 228 * 1024 // 2 - 1024   # csrc/common.cuh kHalfSmem
 # csrc/blocked.cuh: the register statistics pass (D <= 16)
 _REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
 _REG_PAIRS = THREADS // _REG_SLICES
@@ -109,9 +113,13 @@ def _blocked_floats(kernel, D):
 
 def _operand_floats(kernel, K, D, Kt):
     """Floats of the mixture operands one block of ``kernel`` reads (for a
-    K-blocked kernel, one chunk's)."""
+    K-blocked kernel, one chunk's; for ``fused_logq``'s and ``fused_maha``'s
+    up to D = 64, its buffers of records)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[0] * _blocked_floats(kernel, D)
+    if kernel in ("fused_logq", "fused_maha") and D <= _REC_D_MAX:
+        kc, buffers, _ = eval_plan(kernel, K, D)
+        return buffers * kc * _rec_floats(D, vb=kernel == "fused_maha")
     if kernel in ("fused_logq", "fused_rho", "fused_pmc_stats"):
         return _eval_floats(K, D)
     if kernel == "fused_maha":
@@ -152,20 +160,49 @@ def blocked_plan(kernel, K, D):
     per = _blocked_floats(kernel, D)
     staged = _stats_bytes(1, D, per) <= SMEM_LIMIT
     f = per if staged else 0
-    budget = _BLOCKED_HALF if _stats_bytes(1, D, f) <= _BLOCKED_HALF else SMEM_LIMIT
+    budget = _HALF_SMEM if _stats_bytes(1, D, f) <= _HALF_SMEM else SMEM_LIMIT
     kc = 1
     while kc < K and _stats_bytes(kc + 1, D, (kc + 1) * f) <= budget:
         kc += 1
     return kc, staged, _stats_bytes(kc, D, kc * f)
 
 
+def eval_plan(kernel, K, D):
+    """``(components a chunk, chunk buffers, shared memory a block)`` of
+    ``fused_logq``'s or ``fused_maha``'s kernel; mirrors ``csrc/common.cuh``
+    ``eval_plan``.  Up to D = 64 the kernel streams 16-byte component records
+    (``fused_maha``'s in the VB layout): the whole mixture in one buffer where
+    it fits half an SM's shared memory, else two buffers of the largest equal
+    chunks that do.  Past D = 64 the looped kernel stages its operands whole
+    (one buffer of K) where they fit, and reads them from device memory (no
+    buffer) where they do not."""
+    maha = kernel == "fused_maha"
+    if D > _REC_D_MAX:
+        ops = 4 * (K * D * (D + 1) if maha else _eval_floats(K, D))
+        return (K, 1, ops) if ops <= SMEM_LIMIT else (K, 0, 0)
+    rec = 4 * _rec_floats(D, vb=maha)
+    if K * rec <= _HALF_SMEM:
+        return K, 1, K * rec
+    n_chunks = -(-K // (_HALF_SMEM // (2 * rec)))
+    kc = -(-K // n_chunks)
+    return kc, 2, 2 * kc * rec
+
+
+def eval_threads(D):
+    """Threads of a block of ``fused_logq``'s and ``fused_maha``'s kernel
+    for dimension D; mirrors ``csrc/common.cuh`` ``eval_threads``."""
+    return EVAL_THREADS if D <= _REC_D_MAX else THREADS
+
+
 def smem_bytes(kernel, K, D, Kt=0):
     """Shared memory one block of ``kernel`` asks for; mirrors the
     launchers in ``csrc/*.cu`` (``Kt`` is the target's component count).
     The operands are staged in it when they fit beside the kernel's own
-    shared memory, and read from device memory otherwise.  For a K-blocked
-    kernel, its statistics pass's (the first launch reads the operands as
-    ``fused_logq``, ``fused_propose_logq`` or like them)."""
+    shared memory, and read from device memory otherwise; ``fused_logq``'s
+    and ``fused_maha``'s kernels up to D = 64 stage one or two chunks of
+    records (:func:`eval_plan`).  For a K-blocked kernel, its statistics
+    pass's (the first launch reads the operands as ``fused_logq``,
+    ``fused_propose_logq`` or like them)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[2]
     params = _operand_floats(kernel, K, D, Kt)
@@ -323,6 +360,11 @@ def _declare(lib):
         fn.restype = ctypes.c_int
     lib.pmc_blocked_chunk.argtypes = [I, I, I]   # K, D, vb
     lib.pmc_blocked_chunk.restype = ctypes.c_int
+    lib.pmc_eval_chunk.argtypes = [I, I, I]      # K, D, maha
+    lib.pmc_eval_chunk.restype = ctypes.c_int
+    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm"):   # K, D -> blocks an SM holds
+        getattr(lib, name).argtypes = [I, I]
+        getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
              "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes",
              "pmc_mcmc_pool_smem_bytes", "pmc_pmc_stats_blocked_smem_bytes",

@@ -45,6 +45,7 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -267,9 +268,27 @@ def _check_operands(ops: MixtureOperands):
     _check(ops.packed, (_build._full_floats(ops.K, ops.dim),))
 
 
-def _blocks(device, n, per_sm):
+def _blocks(device, n, per_sm, threads=_build.THREADS):
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // _build.THREADS), per_sm * n_sm))
+    return max(1, min(-(-n // threads), per_sm * n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_per_sm(name, K, D, index):
+    """Blocks of ``fused_logq``'s (``name`` ``"logq"``) or ``fused_maha``'s
+    kernel for a (K, D) mixture that one SM of CUDA device ``index`` holds
+    at once (the library's occupancy of the launcher's instantiation and
+    shared memory)."""
+    with torch.cuda.device(index):
+        per_sm = getattr(_build.load(), "pmc_%s_per_sm" % name)(K, D)
+    if per_sm < 1:
+        raise RuntimeError("fused_%s: K=%d, D=%d fits no block on an SM" % (name, K, D))
+    return per_sm
+
+
+def _eval_blocks(name, device, n, K, D):
+    """One wave of ``fused_logq``'s or ``fused_maha``'s kernel for n particles."""
+    return _blocks(device, n, _eval_per_sm(name, K, D, device.index), _build.eval_threads(D))
 
 
 def _stats_blocks(device, n, smem):
@@ -617,7 +636,8 @@ def _logq_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_logq(
             xT.data_ptr(), packed.data_ptr(), out.data_ptr(), N, K, D,
-            int(student_t), _blocks(xT.device, N, 16), _stream(xT.device))
+            int(student_t), _eval_blocks("logq", xT.device, N, K, D),
+            _stream(xT.device))
     _raise_on(err, "fused_logq")
     fused_logq.launches += 1
     return out
@@ -690,8 +710,9 @@ def fused_maha(xT, a, m):
     ops = torch.cat([a.reshape(-1), m.reshape(-1)])
     out = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), out.data_ptr(), N,
-                                 K, D, _blocks(xT.device, N, 16), _stream(xT.device))
+        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), out.data_ptr(), N, K, D,
+                                 _eval_blocks("maha", xT.device, N, K, D),
+                                 _stream(xT.device))
     _raise_on(err, "fused_maha")
     fused_maha.launches += 1
     return out
@@ -874,8 +895,8 @@ def fused_pmc_stats_blocked(xT, w, ops: MixtureOperands, dof_stats=False):
         err = lib.pmc_fused_pmc_stats_blocked(
             xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(), chunks.data_ptr(),
             log_q.data_ptr(), partial.data_ptr(), flat.data_ptr(), N, ops.K, D, kc,
-            int(ops.student_t), int(dof_stats), _blocks(xT.device, N, 16), n_blocks,
-            _stream(xT.device))
+            int(ops.student_t), int(dof_stats),
+            _eval_blocks("logq", xT.device, N, ops.K, D), n_blocks, _stream(xT.device))
     _raise_on(err, "fused_pmc_stats_blocked")
     fused_pmc_stats_blocked.launches += 1
     return _unpack_stats(flat, ops.K, D, 2)

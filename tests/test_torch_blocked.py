@@ -342,7 +342,7 @@ def test_blocked_limits_are_stated():
             kc, staged, smem = _build.blocked_plan(kernel, K, D)
             assert 1 <= kc <= K and smem <= _build.SMEM_LIMIT
             assert smem == _build.smem_bytes(kernel, K, D, 2)
-        assert _build.blocked_plan(kernel, 400, 2)[2] <= _build._BLOCKED_HALF
+        assert _build.blocked_plan(kernel, 400, 2)[2] <= _build._HALF_SMEM
         assert _build.blocked_plan(kernel, 400, 2)[0] < 400
         assert _build.blocked_plan(kernel, 3, 128)[1] is False   # operands in device memory
         with pytest.raises(ValueError, match="D <= 128"):

@@ -48,6 +48,10 @@ def test_kernels_against_plain_versions(cuda, case):
     (2, 40, 100_001, True, False, True, 16),
     (60, 32, 50_001, False, True, False, 17),
     (1, 128, 50_001, False, False, True, 18),
+    (32, 40, 50_001, True, False, False, 20),
+    (200, 10, 50_001, True, False, False, 21),
+    (5, 64, 50_001, False, True, True, 22),
+    (3, 33, 100_001, True, False, False, 23),
 ])
 def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
     chip_smoke.eval_case(case, cuda, [])

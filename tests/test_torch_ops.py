@@ -152,14 +152,59 @@ def test_limits_are_stated_and_enforced():
     with pytest.raises(ValueError, match="D <= 128"):
         _build.check_limits("fused_logq", 1, 129)
     assert _build.smem_bytes("fused_is_pmc_step", 10, 10, 2) < _build.SMEM_LIMIT
-    # operands past shared memory are read from device memory: the
-    # evaluation kernels then ask for none, the statistics kernels for their
-    # tile and accumulators alone
-    assert _build.smem_bytes("fused_logq", 60, 32) == 0
+    # operands past shared memory: fused_logq's kernel streams its records
+    # through two chunk buffers up to D = 64; past it, and in the other
+    # evaluation kernels, they are read from device memory and the kernel
+    # asks for none; the statistics kernels ask for their tile and
+    # accumulators alone
+    assert _build.smem_bytes("fused_logq", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
+    assert _build.smem_bytes("fused_logq", 4, 128) == 0
+    assert _build.smem_bytes("fused_rho", 60, 32) == 0
     _build.check_limits("fused_logq", 60, 32)
     assert 0 < _build.smem_bytes("fused_vb_estep", 1, 128) <= _build.SMEM_LIMIT
     assert (_build.smem_bytes("fused_vb_estep", 1, 128)
             < _build._stats_bytes(1, 128, _build._operand_floats("fused_vb_estep", 1, 128, 0)))
+
+
+def test_eval_plan_streams_records_in_chunks():
+    """fused_logq's and fused_maha's kernels up to D = 64 stream 16-byte
+    component records (fused_maha's in the VB layout): the whole mixture in
+    one buffer where it fits half an SM's shared memory, else two buffers of
+    equal chunks; past D = 64 the looped kernel stages the packed operands
+    whole where they fit."""
+    rec = _build._rec_floats
+    vb = lambda D: _build._rec_floats(D, vb=True)
+    assert (4 * rec(40), 4 * vb(40), 4 * rec(10)) == (3696, 6576, 352)
+    pinned = {
+        ("fused_maha", 32, 40): (8, 2, 2 * 8 * 4 * vb(40)),       # 2 x 52,608 B
+        ("fused_logq", 32, 40): (11, 2, 2 * 11 * 4 * rec(40)),    # chunks 11, 11, 10
+        ("fused_logq", 200, 10): (200, 1, 70_400),
+        ("fused_maha", 200, 10): (200, 1, 200 * 4 * vb(10)),
+        ("fused_logq", 2, 40): (2, 1, 2 * 4 * rec(40)),
+        ("fused_maha", 2, 40): (2, 1, 2 * 4 * vb(40)),
+        ("fused_logq", 60, 32): (20, 2, 2 * 20 * 4 * rec(32)),
+        ("fused_maha", 60, 32): (12, 2, 2 * 12 * 4 * vb(32)),
+        ("fused_logq", 1, 128): (1, 1, 4 * (128 + 128 * 128 + 4)),
+        ("fused_maha", 1, 128): (1, 1, 4 * 128 * 129),
+    }
+    for (kernel, K, D), plan in pinned.items():
+        assert _build.eval_plan(kernel, K, D) == plan, (kernel, K, D)
+        assert plan[2] == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
+        _build.check_limits(kernel, K, D)
+    # two blocks of 256 threads (16 warps) share an SM's 228 KB at K=32,
+    # D=40, three of the K=200, D=10 log-density's
+    assert _build.EVAL_THREADS == 256
+    assert [_build.eval_threads(D) for D in (10, 40, 64, 65, 128)] == [256] * 3 + [128] * 2
+    for kernel in ("fused_logq", "fused_maha"):
+        assert 2 * (_build.eval_plan(kernel, 32, 40)[2] + 1024) <= 228 * 1024
+        assert 3 * (_build.eval_plan(kernel, 32, 40)[2] + 1024) > 228 * 1024
+    assert 3 * (_build.eval_plan("fused_logq", 200, 10)[2] + 1024) <= 228 * 1024
+    # a chunk's records fit half an SM however many components there are
+    for kernel in ("fused_logq", "fused_maha"):
+        for K, D in ((5000, 10), (1000, 64), (100, 33)):
+            kc, buffers, smem = _build.eval_plan(kernel, K, D)
+            assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
+    assert _build.eval_plan("fused_logq", 4, 128) == (4, 0, 0)
 
 
 def test_package_imports_without_jax():
