@@ -8,13 +8,14 @@ Phases, each of which exits non-zero on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each launcher's shared memory (and the
-   chunked kernels' components a chunk) against ``ops/_build.py``'s
-   formula, the registers of the K-blocked statistics pass's and the step's
-   first pass's DMAX 8 and 16 instantiations and of every record
-   instantiation of ``fused_logq``'s and ``fused_maha``'s kernels (DMAX 8
-   to 64), which must not spill (nor, the latter, keep a stack frame), and
-   those two kernels' blocks an SM at K=32, D=40 and K=200, D=10 (at least
-   16 warps);
+   chunked kernels' components a chunk, the statistics kernels' tile and
+   the pool's variant) against ``ops/_build.py``'s formula, the registers of
+   the K-blocked statistics pass's and the step's first pass's DMAX 8 and 16
+   instantiations, of every record instantiation of ``fused_logq``'s,
+   ``fused_rho``'s and ``fused_maha``'s kernels (DMAX 8 to 64) and of the
+   pool's two variants (DMAX 8 to 64), which must not spill (nor, the record
+   kernels, keep a stack frame), and the record kernels' blocks an SM at
+   K=32, D=40 and K=200, D=10 (at least 16 warps);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -24,17 +25,23 @@ Phases, each of which exits non-zero on failure:
    and ``fused_maha``, streamed in chunks: K=60, D=32 and K=1, D=128), at
    the pipeline's K=32, D=40, at the K=200, D=10 log-likelihood, and at
    D=33 and D=64, the lower end of the DMAX 40 record kernel and the upper
-   end of the DMAX 64 one.  ``fused_transform`` on given
+   end of the DMAX 64 one; the statistics kernels at K=120, D=1, where
+   their tile is 64 particles; the six kernels with a warp-a-particle path
+   past D=128 at (K=1, D=129), (K=2, D=200) and (K=1, D=1000).
+   ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
    D=40).  The random kernels are checked on their own samples: the plain
    version recomputes every deterministic output from them, and the
    samples' moments, component frequencies, seed determinism and dead
-   components are tested.  ``fused_mcmc_pool``: its invariants (last point
-   = final state, final log-density = the float64 plain log-density there,
-   a NaN chain never moves), its pooled moments and acceptance against the
-   plain pool, and at the pipeline's D=40 with a full proposal factor a
-   chain its whitened steps against the plain pool's, with the faults the
-   checks must catch planted in the plain pool.  A per-point target that
+   components are tested.  ``fused_mcmc_pool``, each check with either
+   variant forced (a thread a chain, a warp a chain): its invariants (last
+   point = final state, final log-density = the float64 plain log-density
+   there, a NaN chain never moves; also at the pipeline's C=32, D=40, 400
+   steps), its pooled moments and acceptance against the plain pool, and at
+   the pipeline's D=40 with a full proposal factor a chain its whitened
+   steps against the plain pool's, with the faults the checks must catch
+   planted in the plain pool; over one step the two variants' proposals,
+   accept decisions and points agree.  A per-point target that
    reaches ``fused_logq``, mapped with ``torch.func.vmap``, is one launch;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
@@ -70,16 +77,20 @@ Phases, each of which exits non-zero on failure:
    the tensor path below 1024 particles;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
-   a second;
+   a second, and the pool's variant the entry point elects there;
 9. pipeline: ``pipeline.integrate`` at ``benchmarks/accuracy_highdim.py
    --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
-   0.15, one ``fused_mcmc_pool`` launch a cycle) and the callable-target
-   run of ``tests/test_pipeline_api.py``;
+   0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
+   elects) and the callable-target run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
-    the least time the card could take (``bound``), ``fused_maha`` and
-    ``fused_logq`` also at the shapes the main paths give them (K=32, D=40,
-    N=2^20; K=200, D=10, N=10^7), and the device time of each launch of the
-    K-blocked kernels (torch.profiler).
+    the least time the card could take (``bound``), ``fused_maha``,
+    ``fused_logq`` and ``fused_rho`` also at the shapes the main paths give
+    them (K=32, D=40, N=2^20; K=200, D=10, N=10^7), the pool's two variants
+    at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
+    the mcmc phase's and on each side of the cut-offs of their election
+    (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
+    N=2^16, and the device time of each launch of the K-blocked kernels
+    (torch.profiler), the first launch also beside its bound.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -148,6 +159,13 @@ class SmokeFailure(Exception):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def kernel_launches(counts):
+    """The launches and plain routes of a launch_counts() dict, without its
+    variant counts (each launch of a kernel with two variants counts once
+    more under its variant)."""
+    return sum(n for name, n in counts.items() if not name.startswith("variant:"))
 
 
 def sync(device):
@@ -241,9 +259,10 @@ def mixture_moments(arrs):
 
 
 def check_samples(name, xT, latent, arrs, report):
-    """Moments against the mixture's (6 sigma Monte Carlo bounds),
-    component frequencies against the weights (chi-square test), and no
-    draw of a dead component."""
+    """Moments against the mixture's (6 sigma Monte Carlo bounds on the
+    mean and on every entry of the covariance), component frequencies
+    against the weights (chi-square test), and no draw of a dead
+    component."""
     from scipy import stats as st
 
     x = xT.double().cpu().numpy()
@@ -262,9 +281,13 @@ def check_samples(name, xT, latent, arrs, report):
     mean, cov = mixture_moments(arrs)
     m = x.mean(axis=1)
     xc = x - m[:, None]
+    se_m = np.sqrt(np.sum(xc * xc, axis=1) / N / N)
     c = xc @ xc.T / N
-    se_m = np.sqrt(np.diag(c) / N)
-    se_c = np.stack([(xc[i] * xc).std(axis=1) for i in range(x.shape[0])]) / math.sqrt(N)
+    # the standard error of each product's mean, one matrix product for
+    # all D x D entries: sqrt((E[x_i^2 x_j^2] - c_ij^2) / N)
+    sq = xc * xc
+    se_c = np.sqrt(np.maximum(sq @ sq.T / N - c * c, 0.0) / N)
+    del sq
     zm = float(np.max(np.abs(m - mean) / se_m))
     zc = float(np.max(np.abs(c - cov) / se_c))
     print("  %-34s mean %.2f sigma  cov %.2f sigma" % (name + " moments", zm, zc))
@@ -370,6 +393,9 @@ KERNEL_CASES = [
     (2, 2, 40, N_WIDE, False, True, False, 7),
     # the statistics kernels' operands in device memory
     (1, 1, 128, N_WIDE, False, False, False, 8),
+    # the statistics kernels' 64-particle tile (D=1, K >= 109)
+    (120, 2, 1, N_ODD, True, False, False, 9),
+    (120, 2, 1, N_ODD, False, True, True, 10),
 ]
 
 
@@ -464,6 +490,9 @@ EVAL_CASES = [
     (200, 10, N_WIDE, True, False, False, 21),
     (5, 64, N_WIDE, False, True, True, 22),
     (3, 33, N_WIDE, True, False, False, 23),
+    # fused_vb_estep's 64-particle tile
+    (120, 1, N_ODD, True, False, True, 24),
+    (120, 1, N_ODD, False, True, False, 25),
 ]
 
 
@@ -579,30 +608,43 @@ def pool_inputs(tparams, starts, chol_scale, nan_chain=None):
     return x0T, core.mixture_logpdf_T(tparams, x0T), cholr
 
 
-def pool_case(case, device, report):
-    """fused_mcmc_pool's invariants: the last point is the final state,
-    ef is fused_logq(xf) to 1e-3, a chain with a NaN Cholesky counts every
-    step as NaN, accepts none and never moves; one seed gives one output,
-    two seeds two."""
+POOL_VARIANTS = ("thread", "warp")
+
+
+def pool_variants(D):
+    """The variants of fused_mcmc_pool that take dimension D."""
+    from pypmc_tpu_torch.ops import _build
+
+    return POOL_VARIANTS if D <= _build._POOL_WARP_D_MAX else POOL_VARIANTS[:1]
+
+
+def pool_case(case, device, report, variant):
+    """fused_mcmc_pool's invariants with ``variant`` forced: the last point
+    is the final state, ef is fused_logq(xf) to 1e-3, a chain with a NaN
+    Cholesky counts every step as NaN, accepts none and never moves; one
+    seed gives one output, two seeds two."""
+    import functools
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
     C, D, steps, dof, seed = case
-    print("case fused_mcmc_pool C=%d D=%d steps=%d %s" % (
-        C, D, steps, "t(%g)" % dof if dof else "gauss"))
+    print("case fused_mcmc_pool C=%d D=%d steps=%d %s, a %s a chain" % (
+        C, D, steps, "t(%g)" % dof if dof else "gauss", variant))
+    pool = functools.partial(k.fused_mcmc_pool, variant=variant)
     tparams = bimodal_target(D, device)
     tops = core._kernel_operands(tparams)
     starts = np.random.default_rng(seed).normal(2, 1, (C, D)).astype(np.float32)
     nan_chain = C // 3
     x0T, e0, cholr = pool_inputs(tparams, starts, 1.2 / math.sqrt(D), nan_chain)
-    points, acc, nans, xf, ef = k.fused_mcmc_pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
+    points, acc, nans, xf, ef = pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
     sync(device)
     require(tuple(points.shape) == (steps, D, C), "fused_mcmc_pool: points of shape %s"
             % (tuple(points.shape),))
     require(bool(torch.equal(points[-1], xf)), "fused_mcmc_pool: last point != final state")
     tops64 = k.MixtureOperands(tops.packed.double(), tops.K, tops.dim, tops.student_t)
-    compare("fused_mcmc_pool ef", ef, k.plain_logq(xf.double(), tops64), "pool", report)
+    compare("fused_mcmc_pool ef " + variant, ef, k.plain_logq(xf.double(), tops64), "pool",
+            report)
     others = torch.arange(C, device=device) != nan_chain
     require(int(nans[nan_chain]) == steps and int(acc[nan_chain]) == 0,
             "fused_mcmc_pool: the NaN chain counted %d NaNs, %d accepts"
@@ -614,10 +656,10 @@ def pool_case(case, device, report):
     rate = float(acc[others].double().mean()) / steps
     print("  %-34s mean acceptance %.3f" % ("fused_mcmc_pool", rate))
     require(0.0 < rate < 1.0, "fused_mcmc_pool: acceptance %.3f" % rate)
-    again = k.fused_mcmc_pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
+    again = pool((seed, 5), x0T, e0, cholr, dof, tops, steps)
     require(all(bool(torch.equal(a, b)) for a, b in zip((points, acc, nans, xf, ef), again)),
             "fused_mcmc_pool: one seed gave two outputs")
-    other = k.fused_mcmc_pool((seed, 6), x0T, e0, cholr, dof, tops, steps)[0]
+    other = pool((seed, 6), x0T, e0, cholr, dof, tops, steps)[0]
     require(not bool(torch.equal(other, points)), "fused_mcmc_pool: two seeds, one output")
 
 
@@ -625,13 +667,13 @@ POOL_MOMENT_TOL, POOL_ACCEPT_TOL, POOL_WALK_TOL = 0.25, 0.01, 0.05
 
 
 def pool_distribution_case(case, device, report):
-    """fused_mcmc_pool against its plain version (another random stream) on
-    tests/test_rng_kernels.py's bimodal target from starts at both modes:
-    pooled post-burn-in means and standard deviations within 0.25
-    (tests/test_rng_kernels.py:352-375) and mean acceptance within
-    POOL_ACCEPT_TOL.  The acceptance sees the Student-t proposal's scale,
-    which the moments do not: the plain pool run without it must differ by
-    more than the limit."""
+    """fused_mcmc_pool, each variant, against its plain version (another
+    random stream) on tests/test_rng_kernels.py's bimodal target from
+    starts at both modes: pooled post-burn-in means and standard deviations
+    within 0.25 (tests/test_rng_kernels.py:352-375) and mean acceptance
+    within POOL_ACCEPT_TOL.  The acceptance sees the Student-t proposal's
+    scale, which the moments do not: the plain pool run without it must
+    differ by more than the limit."""
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
@@ -642,8 +684,9 @@ def pool_distribution_case(case, device, report):
     starts = np.concatenate([rng.normal(0, 0.5, (C // 2, D)),
                              rng.normal(4, 0.5, (C - C // 2, D))]).astype(np.float32)
     x0T, e0, cholr = pool_inputs(tparams, starts, 1.2 / math.sqrt(D))
-    out = {"kernel": k.fused_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps),
-           "plain": k.plain_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps)}
+    out = {"kernel " + v: k.fused_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps,
+                                            variant=v) for v in POOL_VARIANTS}
+    out["plain"] = k.plain_mcmc_pool((seed, 7), x0T, e0, cholr, dof, tops, steps)
     if dof is not None:
         out["plain without the scale"] = k.plain_mcmc_pool((seed, 8), x0T, e0, cholr, None,
                                                            tops, steps)
@@ -654,42 +697,46 @@ def pool_distribution_case(case, device, report):
         a = acc.double().cpu().numpy() / steps
         stats[name] = (x.mean(axis=0), x.std(axis=0), float(a.mean()),
                        float(a.std() / math.sqrt(C)))
-    dm = float(np.abs(stats["kernel"][0] - stats["plain"][0]).max())
-    ds = float(np.abs(stats["kernel"][1] - stats["plain"][1]).max())
-    da = abs(stats["kernel"][2] - stats["plain"][2])
-    # one sigma of the difference of two pools' mean acceptance
-    sigma = math.hypot(stats["kernel"][3], stats["plain"][3])
-    label = "D=%d %s" % (D, "t(%g)" % dof if dof else "gauss")
-    print("  %-34s mean %.4f  std %.4f  acceptance %.4f = %.1f sigma (kernel %.4f)" % (
-        "fused_mcmc_pool vs plain " + label, dm, ds, da, da / sigma, stats["kernel"][2]))
-    report.append({"output": "fused_mcmc_pool acceptance " + label, "statistical": True,
-                   "max_abs_err": da, "tol": POOL_ACCEPT_TOL, "sigma": sigma,
-                   "mean": dm, "std": ds})
-    require(dm < POOL_MOMENT_TOL and ds < POOL_MOMENT_TOL and da < POOL_ACCEPT_TOL,
-            "fused_mcmc_pool: moments off the plain pool (%.3f, %.3f, %.4f)" % (dm, ds, da))
+    for v in POOL_VARIANTS:
+        kern = stats["kernel " + v]
+        dm = float(np.abs(kern[0] - stats["plain"][0]).max())
+        ds = float(np.abs(kern[1] - stats["plain"][1]).max())
+        da = abs(kern[2] - stats["plain"][2])
+        # one sigma of the difference of two pools' mean acceptance
+        sigma = math.hypot(kern[3], stats["plain"][3])
+        label = "D=%d %s, a %s a chain" % (D, "t(%g)" % dof if dof else "gauss", v)
+        print("  %-34s mean %.4f  std %.4f  acceptance %.4f = %.1f sigma (kernel %.4f)" % (
+            "fused_mcmc_pool vs plain " + label, dm, ds, da, da / sigma, kern[2]))
+        report.append({"output": "fused_mcmc_pool acceptance " + label, "statistical": True,
+                       "max_abs_err": da, "tol": POOL_ACCEPT_TOL, "sigma": sigma,
+                       "mean": dm, "std": ds})
+        require(dm < POOL_MOMENT_TOL and ds < POOL_MOMENT_TOL and da < POOL_ACCEPT_TOL,
+                "fused_mcmc_pool (%s): moments off the plain pool (%.3f, %.3f, %.4f)"
+                % (v, dm, ds, da))
     if dof is not None:
-        fault = abs(stats["kernel"][2] - stats["plain without the scale"][2])
+        fault = abs(stats["kernel warp"][2] - stats["plain without the scale"][2])
         print("  %-34s acceptance %.4f" % ("planted fault: no Student-t scale", fault))
         require(fault > POOL_ACCEPT_TOL, "the acceptance check cannot see a pool without "
                 "the Student-t scale (%.4f)" % fault)
 
 
-def walk_inputs(C, D, seed, device):
+def walk_inputs(C, D, seed, device, Kt=2):
     """A pool at the pipeline's shape whose target is nearly flat on the
-    scale of a step: a 2-component Gaussian target of standard deviation
-    1000, starts near 0, and a random full lower-triangular proposal factor
-    a chain, the Cholesky factor of I + 4 A A^T / D with A standard normal.
-    Returns ``(tops, x0T, e0, L (C, D, D))``."""
+    scale of a step: a Kt-component Gaussian target of standard deviation
+    1000 (means 0 to 1 along every axis; weights 0.35/0.65 at Kt=2, else
+    equal), starts near 0, and a random full lower-triangular proposal
+    factor a chain, the Cholesky factor of I + 4 A A^T / D with A standard
+    normal.  Returns ``(tops, x0T, e0, L (C, D, D))``."""
     import torch
     from pypmc_tpu_torch.density import core
 
     rng = np.random.default_rng(seed)
     a = rng.normal(0, 1, (C, D, D))
     L = np.linalg.cholesky(np.eye(D)[None] + 4 * a @ a.transpose(0, 2, 1) / D)
-    tm = np.zeros((2, D), np.float32)
-    tm[1] += 1.0
-    tc = np.array([np.eye(D) * 1e6] * 2, np.float32)
-    tparams = make_params((tm, tc, np.array([0.35, 0.65], np.float32), None), device)
+    tm = np.repeat(np.linspace(0.0, 1.0, Kt)[:, None], D, axis=1).astype(np.float32)
+    tc = np.array([np.eye(D) * 1e6] * Kt, np.float32)
+    w = np.array([0.35, 0.65] if Kt == 2 else np.full(Kt, 1.0 / Kt), np.float32)
+    tparams = make_params((tm, tc, w, None), device)
     x0T = torch.tensor(rng.normal(0, 1, (D, C)), dtype=torch.float32, device=device)
     return (core._kernel_operands(tparams), x0T, core.mixture_logpdf_T(tparams, x0T),
             torch.tensor(L, dtype=torch.float32, device=device))
@@ -709,16 +756,17 @@ def whitened_step_cov(points, x0T, L):
 
 
 def pool_walk_case(case, device, report):
-    """fused_mcmc_pool against its plain version at the pipeline's pool
-    shape (D=40, a 2-component target: the DMAX=128 instantiation) with a
-    full proposal factor L_c a chain.  On a nearly flat target almost every
-    proposal is accepted, so a chain's moves are its proposals, and L_c^-1
-    times a move has second moment s I: s = 1 for a Gaussian proposal,
-    dof / (dof - 2) for Student-t.  The kernel's and the plain pool's
-    moment are held to s I and to each other within POOL_WALK_TOL s.  The
+    """fused_mcmc_pool, each variant, against its plain version at the
+    pipeline's pool shape (D=40, a 2-component target) with a full proposal
+    factor L_c a chain.  On a nearly flat target almost every proposal is
+    accepted, so a chain's moves are its proposals, and L_c^-1 times a move
+    has second moment s I: s = 1 for a Gaussian proposal, dof / (dof - 2)
+    for Student-t.  The kernel's and the plain pool's moment are held to s I
+    and to each other within POOL_WALK_TOL s.  The
     plain pool run with L_c transposed, with its diagonal alone and without
     the Student-t scale -- the faults this check is there to catch -- must
     each miss s I by more than the limit."""
+    import functools
     import torch
     from pypmc_tpu_torch.ops import kernels as k
 
@@ -727,10 +775,12 @@ def pool_walk_case(case, device, report):
     s = 1.0 if dof is None else dof / (dof - 2.0)
     eye = torch.eye(D, dtype=torch.float64, device=device)
     as_cholr = lambda m: m.permute(1, 2, 0).reshape(D * D, C).contiguous()
-    runs = {"kernel": (k.fused_mcmc_pool, L, dof), "plain": (k.plain_mcmc_pool, L, dof),
+    runs = {"kernel " + v: (functools.partial(k.fused_mcmc_pool, variant=v), L, dof)
+            for v in POOL_VARIANTS}
+    runs.update({"plain": (k.plain_mcmc_pool, L, dof),
             "planted fault: L transposed": (k.plain_mcmc_pool, L.transpose(1, 2), dof),
             "planted fault: diagonal of L": (k.plain_mcmc_pool, torch.diag_embed(
-                torch.diagonal(L, dim1=1, dim2=2)), dof)}
+                torch.diagonal(L, dim1=1, dim2=2)), dof)})
     if dof is not None:
         runs["planted fault: no Student-t scale"] = (k.plain_mcmc_pool, L, None)
     label = "D=%d %s" % (D, "t(%g)" % dof if dof else "gauss")
@@ -748,12 +798,87 @@ def pool_walk_case(case, device, report):
         else:
             require(off < POOL_WALK_TOL, "fused_mcmc_pool walk: %s's step moment is off "
                     "s I by %.4f s" % (name, off))
-    diff = float((moments["kernel"] - moments["plain"]).abs().max())
-    print("  %-34s |S_kernel - S_plain|/s %.4f" % ("fused_mcmc_pool vs plain", diff / s))
-    report.append({"output": "fused_mcmc_pool walk vs plain " + label, "statistical": True,
-                   "max_abs_err": diff, "tol": POOL_WALK_TOL * s})
-    require(diff < POOL_WALK_TOL * s, "fused_mcmc_pool walk: the kernel's step moment is off "
-            "the plain pool's by %.4f s" % (diff / s))
+    for v in POOL_VARIANTS:
+        diff = float((moments["kernel " + v] - moments["plain"]).abs().max())
+        print("  %-34s |S_kernel - S_plain|/s %.4f" % ("fused_mcmc_pool %s vs plain" % v,
+                                                       diff / s))
+        report.append({"output": "fused_mcmc_pool walk vs plain %s, a %s a chain" % (label, v),
+                       "statistical": True, "max_abs_err": diff, "tol": POOL_WALK_TOL * s})
+        require(diff < POOL_WALK_TOL * s, "fused_mcmc_pool walk (%s): the kernel's step "
+                "moment is off the plain pool's by %.4f s" % (v, diff / s))
+
+
+def pool_agreement_case(case, device, report):
+    """The two variants of fused_mcmc_pool over one step on the same
+    inputs (walk_inputs: a nearly flat target, so that nearly every
+    proposal is accepted and the points are the proposals): the same
+    accept decisions and NaN counts, and the points and final log-densities
+    to float32 rounding.  They draw the same Philox stream; only the order
+    of the target's sums of squares differs (a warp reduction).  A target
+    whose records pass shared memory takes both variants' device-memory
+    paths (the looped thread kernel, the warp kernel's unstaged one)."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    C, D, Kt, dof, seed = case
+    tops, x0T, e0, L = walk_inputs(C, D, seed, device, Kt)
+    cholr = L.permute(1, 2, 0).reshape(D * D, C).contiguous()
+    out = {v: k.fused_mcmc_pool((seed, 3), x0T, e0, cholr, dof, tops, 1, variant=v)
+           for v in POOL_VARIANTS}
+    sync(device)
+    staged = _build.pool_smem_bytes(Kt, D, "warp") > 4 * 3 * (D + 8)
+    label = "C=%d D=%d Kt=%d %s, one step%s" % (C, D, Kt, "t(%g)" % dof if dof else "gauss",
+                                                  "" if staged else ", operands in device memory")
+    print("case fused_mcmc_pool thread vs warp " + label)
+    (pt, at, nt, xt, et), (pw, aw, nw, xw, ew) = out["thread"], out["warp"]
+    require(bool(torch.equal(at, aw)) and bool(torch.equal(nt, nw)),
+            "fused_mcmc_pool: the variants' accept decisions differ over one step")
+    print("  %-34s %d of %d accepted by both" % ("accept decisions", int(at.sum()), C))
+    compare("fused_mcmc_pool warp vs thread points " + label, pw, pt.double(), "maha", report)
+    compare("fused_mcmc_pool warp vs thread ef " + label, ew, et.double(), "log", report)
+    require(bool(torch.equal(pt[-1], xt)) and bool(torch.equal(pw[-1], xw)),
+            "fused_mcmc_pool: last point != final state")
+
+
+def wide_case(case, device, report):
+    """The six kernels with a warp-a-particle path past D=128 at one
+    shape: fused_propose_logq (with a target) on its own samples, as
+    kernel_case checks it; fused_maha (lower and upper), fused_rho and
+    fused_logq against their float64 plain versions (eval_case; there
+    fused_vb_estep, whose limit is D=128, must raise); fused_transform on
+    given normals (transform_case) and fused_transform_rng on its own
+    samples (transform_rng_case)."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dead, seed = case
+    arrs, _, _, _, ops, tops, ops64, tops64, tag = case_mixtures(case, device)
+    print("case wide", tag)
+    xT, lat, log_q, log_p = k.fused_propose_logq((seed, 11), ops, N, tops)
+    sync(device)
+    x64 = xT.double()
+    compare("fused_propose_logq log_q", log_q, k.plain_logq(x64, ops64), "log", report)
+    compare("fused_propose_logq log_p", log_p, k.plain_logq(x64, tops64), "log", report)
+    check_samples("fused_propose_logq", xT, lat, arrs, report)
+    again = k.fused_propose_logq((seed, 11), ops, N, tops)
+    require(all(bool(torch.equal(a, b)) for a, b in zip((xT, lat, log_q, log_p), again)),
+            "fused_propose_logq: one seed gave two outputs")
+    require(not bool(torch.equal(k.fused_propose_logq((seed, 12), ops, N, tops)[0], xT)),
+            "fused_propose_logq: two seeds, one output")
+    del again, x64
+    eval_case((K, D, N, student, dead, False, seed), device, report)
+    transform_case((K, D, N, student, seed), device, report)
+    transform_rng_case((K, D, N, student, dead, seed), device, report)
+
+
+# past the thread kernels' D=128: K, Kt, D, N, Student-t proposal, Student-t
+# target, dead component, seed
+WIDE_CASES = [
+    (1, 1, 129, 4099, True, False, False, 101),
+    (2, 2, 200, 4099, False, True, False, 102),
+    (1, 1, 1000, 4099, False, False, False, 103),
+]
 
 
 def vmap_case(device, report):
@@ -797,7 +922,16 @@ POOL_CASES = [
     (130, 2, 32, 3.0, 62),
     (257, 10, 50, None, 63),
     (96, 40, 40, None, 64),
+    # the pipeline's pool: 32 chains, D=40, 400 steps
+    (32, 40, 400, None, 65),
+    (32, 40, 400, 5.0, 66),
+    # past the warp variant's D=64: the looped thread kernel alone
+    (64, 70, 20, None, 60),
 ]
+# the two variants over one step: C, D, Kt, Student-t proposal dof, seed;
+# the last two with the target's records past shared memory
+POOL_AGREEMENT_CASES = [(32, 40, 2, None, 67), (32, 40, 2, 5.0, 68), (96, 17, 2, None, 69),
+                        (64, 64, 30, None, 70), (40, 24, 200, 5.0, 71)]
 # the pooled mean moves with the chains that hop between the modes: 4096
 # chains put the difference of two pools' means at ~0.04 (one sigma), that
 # of their mean acceptance at ~0.0008
@@ -823,11 +957,17 @@ def phase_kernels(device, cases, eval_cases):
     for case in TRANSFORM_RNG_CASES:
         transform_rng_case(case, device, report)
     for case in POOL_CASES:
-        pool_case(case, device, report)
+        for variant in pool_variants(case[1]):
+            pool_case(case, device, report, variant)
+    for case in POOL_AGREEMENT_CASES:
+        pool_agreement_case(case, device, report)
     for case in POOL_DISTRIBUTION_CASES:
         pool_distribution_case(case, device, report)
     for case in POOL_WALK_CASES:
         pool_walk_case(case, device, report)
+    for case in WIDE_CASES:
+        wide_case(case, device, report)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     vmap_case(device, report)
     torch.cuda.empty_cache()
@@ -1267,7 +1407,7 @@ def phase_gate(device, report):
         lq = core.mixture_logpdf_T(p2, x2)
         sync(device)
         c2 = k.launch_counts()
-        require(c2[route] == 1 and sum(c2.values()) == 1,
+        require(c2[route] == 1 and kernel_launches(c2) == 1,
                 "gate: K=%d, D=%d mixture_logpdf_T did not take %s: %s" % (K2, D2, route, c2))
         compare("fused_logq gate K=%d D=%d" % (K2, D2) if route == "fused_logq"
                 else "gate K=%d D=%d unfused log q" % (K2, D2), lq.cpu(),
@@ -1285,7 +1425,7 @@ def phase_gate(device, report):
     c3 = k.launch_counts()
     print("  K=400 D=2 N=2^22 pmc_update: launches %s"
           % json.dumps({n: c for n, c in c3.items() if c}))
-    require(c3["fused_pmc_stats_blocked"] == 1 and sum(c3.values()) == 1,
+    require(c3["fused_pmc_stats_blocked"] == 1 and kernel_launches(c3) == 1,
             "gate: the K=400 update did not run fused_pmc_stats_blocked alone: %s" % c3)
     require(bool(torch.isfinite(got.params.means).all()), "gate: K=400 update not finite")
     return {n: counts[n] + c3[n] for n in counts}
@@ -1454,7 +1594,7 @@ def blocked_update(device, report):
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         c = k.launch_counts()
-        require(c["fused_pmc_stats_blocked"] == 1 and sum(c.values()) == 1,
+        require(c["fused_pmc_stats_blocked"] == 1 and kernel_launches(c) == 1,
                 "blocked %s: the K=400 update launched %s" % (label, c))
         counts = c if counts is None else {n: counts[n] + c[n] for n in counts}
         n_cmp = BLOCKED_N // 2 if student_t else BLOCKED_N
@@ -1674,6 +1814,21 @@ def mcmc_problem(device):
     return target, starts, np.eye(MCMC_D, dtype=np.float32) * 2.38 ** 2 / MCMC_D, cov
 
 
+def report_pool_variant(phase, counts, launches, C, D):
+    """Print the pool's variant the entry point elected for C chains in D
+    dimensions (launch_counts' variant counts); every launch took the one
+    ops/_build.py pool_variant names."""
+    from pypmc_tpu_torch.ops import _build
+
+    elected = _build.pool_variant(C, D)
+    got = {v: counts["variant:fused_mcmc_pool=" + v] for v in POOL_VARIANTS}
+    print("  %s: C=%d D=%d elects a %s a chain; launches by variant %s"
+          % (phase, C, D, elected, json.dumps(got)))
+    require(got[elected] == launches,
+            "%s: %d of %d pool launches took the elected variant (%s)"
+            % (phase, got[elected], launches, elected))
+
+
 def phase_mcmc(device):
     """sample_adaptive_chains at that configuration, 500 steps x 4 cycles:
     one warm-up, then three runs with distinct seeds, each between a reset
@@ -1701,7 +1856,7 @@ def phase_mcmc(device):
         c = k.launch_counts()
         # the starts' log-densities are one fused_logq
         require(c["fused_mcmc_pool"] == MCMC_CYCLES and c["fused_logq"] == 1
-                and sum(c.values()) == MCMC_CYCLES + 1,
+                and kernel_launches(c) == MCMC_CYCLES + 1,
                 "mcmc: launches %s, not one fused_mcmc_pool a cycle" % c)
         counts = c if counts is None else {n: counts[n] + c[n] for n in counts}
     steps = MCMC_C * MCMC_STEPS * MCMC_CYCLES
@@ -1715,6 +1870,7 @@ def phase_mcmc(device):
           % (MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES, ", ".join("%.4f" % t for t in times),
              steps / float(np.median(times)), rate, mean_err, err))
     print("  launches a run %s" % json.dumps({n: c // 3 for n, c in counts.items() if c}))
+    report_pool_variant("mcmc", counts, 3 * MCMC_CYCLES, MCMC_C, MCMC_D)
     require(0.1 < rate < 0.6, "mcmc: acceptance %.3f" % rate)
     require(mean_err < 0.05 and err < 0.05 * float(np.abs(cov).max()),
             "mcmc: pooled moments off the target (%.4f, %.4f)" % (mean_err, err))
@@ -1798,6 +1954,7 @@ def phase_pipeline(device):
     require(counts["fused_mcmc_pool"] == cfg["mcmc_cycles"],
             "pipeline: %d fused_mcmc_pool launches for %d cycles"
             % (counts["fused_mcmc_pool"], cfg["mcmc_cycles"]))
+    report_pool_variant("pipeline", counts, cfg["mcmc_cycles"], len(starts), dim)
     for name in ("fused_propose_logq", "fused_logq"):
         require(counts[name] > 0, "pipeline: %s not launched" % name)
     # the VB E-steps take the JAX package's route: fused_vb_estep where
@@ -1886,6 +2043,7 @@ def launch_split(label, fn, reps=3):
 def phase_times(device, report):
     import torch
     from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     params, target, _ = flagship_problem(device)
@@ -1921,6 +2079,18 @@ def phase_times(device, report):
             times[(name, shape, "cuda")], times[(name, shape, "plain")] = main_shape_ms(
                 device, name, shape, report)
             torch.cuda.empty_cache()
+    for shape in POOL_SHAPES:
+        for route, ms in pool_shape_ms(device, shape).items():
+            times[("fused_mcmc_pool", shape, route)] = ms
+    for shape in POOL_SWEEP:
+        ms = pool_shape_ms(device, shape, plain=False)
+        times.update({("fused_mcmc_pool", shape, v): t for v, t in ms.items()})
+        print("  pool C=%5d D=%d Kt=2 %d steps: thread %.4f ms, warp %.4f ms, elected %s"
+              % (shape[0], shape[2], shape[3], ms["thread"], ms["warp"],
+                 _build.pool_variant(shape[0], shape[2])))
+    for name, (ms, plain_ms) in wide_shape_ms(device).items():
+        times[(name, WIDE_SHAPE, "cuda")], times[(name, WIDE_SHAPE, "plain")] = ms, plain_ms
+    torch.cuda.empty_cache()
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
          (N_PLAIN_MAX, N_SLICE, N_BENCH))
@@ -1992,25 +2162,55 @@ def phase_times(device, report):
     torch.cuda.empty_cache()
     for (name, n, route), ms in times.items():
         if route != "split":
-            size = "K=%d Kt=%d D=%d N=%d" % n if isinstance(n, tuple) else "N=%d" % n
-            print("  %-25s %-6s %-26s %9.3f ms" % (name, route, size, ms))
+            size = bound(name, n)[0] if isinstance(n, tuple) else "N=%d" % n
+            print("  %-25s %-6s %-30s %9.3f ms" % (name, route, size, ms))
     return times
 
 
-# the shapes (K, Kt, D, N) the main paths give fused_maha and fused_logq: the
-# D=40 pipeline's VB2 and PMC mixtures (K=31-32) at n_is1 = 2^20 particles,
-# its K=2 target at 2^22, and the K=200 step's log-likelihood of the
-# updated mixture at 10^7 particles
+# the shapes (K, Kt, D, N) the main paths give fused_maha, fused_logq and
+# fused_rho: the D=40 pipeline's VB2 and PMC mixtures (K=31-32) at n_is1 =
+# 2^20 particles (fused_rho: its PMC updates, mix_adapt/pmc.py), its K=2
+# target at 2^22, and the K=200 step's log-likelihood of the updated mixture
+# at 10^7 particles
 MAIN_SHAPES = {"fused_maha": [(32, 0, 40, N_FLAGSHIP)],
                "fused_logq": [(32, 0, 40, N_FLAGSHIP), (2, 0, 40, N_PLAIN_MAX),
-                              (200, 0, 10, N_SLICE)]}
+                              (200, 0, 10, N_SLICE)],
+               "fused_rho": [(32, 0, 40, N_FLAGSHIP)]}
+# the pool's shapes (C, Kt, D, steps): the D=40 pipeline's (32 chains, the
+# 2-component target, 400 steps a cycle) and the mcmc phase's
+POOL_SHAPES = [(32, 2, 40, 400), (16384, 1, 10, 500)]
+# the shapes (C, Kt, D, steps) at which both variants are timed on each
+# side of pool_variant's cut-offs (csrc/mcmc_pool.cu pool_warp_chains, placed
+# by pool_sweep.py's grid): highdim_target, 100 steps
+POOL_SWEEP = [(C, 2, D, 100) for C, D in ((32, 8), (1024, 8), (4096, 16), (8192, 16),
+                                          (8192, 32), (16384, 32), (32768, 40), (65536, 40),
+                                          (65536, 64))]
+# the shape (K, Kt, D, N) that times the warp-a-particle kernels past D=128
+WIDE_SHAPE = (1, 1, 200, 1 << 16)
+
+
+def plain_rho_chunked(xT, ops):
+    """plain_rho streamed over the component chunks of kernels._chunks: log
+    q first (plain_logq_blocked), then each chunk's responsibilities."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    f = ops.fields()
+    log_q = k.plain_logq_blocked(xT, ops)
+    rho = []
+    for k0, k1 in k._chunks(ops.K, ops.dim, xT.shape[1]):
+        fc = k._slice(f, k0, k1)
+        _, _, ind = k._component_logpdfs_T(xT, fc, ops.dim, ops.student_t)
+        rho.append(k._rho_from_logpdfs(ind, fc["weights"][:, None], log_q)[0])
+    return torch.cat(rho), log_q
 
 
 def main_shape_ms(device, name, shape, report):
     """``(kernel ms, plain ms)`` of ``name`` at ``shape``, CUDA events, on a
     random mixture (fused_maha: the VB E-step's upper operands of it) and
     particles drawn from it; Student-t as the proposals, Gaussian at K=2 as
-    the pipeline's target.  Past N_PLAIN_MAX the plain version timed is
+    the pipeline's target; fused_rho's references streamed as
+    plain_rho_chunked.  Past N_PLAIN_MAX the plain version timed is
     plain_logq streamed over component chunks (its (K, D, N) intermediate
     would not fit the card).  The kernel's output is held to its plain
     version in float64, streamed over component chunks, with the tolerance
@@ -2025,7 +2225,15 @@ def main_shape_ms(device, name, shape, report):
     xT = k.fused_propose_logq((K, D), ops, N)[0]
     x64 = xT.double()
     label = "%s K=%d D=%d N=%d" % (name, K, D, N)
-    if name == "fused_maha":
+    if name == "fused_rho":
+        kernel, plain = (lambda i: k.fused_rho(xT, ops)), (lambda i: k.plain_rho(xT, ops))
+        rho, log_q = kernel(0)
+        ops64 = k.MixtureOperands(ops.packed.double(), K, D, ops.student_t)
+        rho_ref, log_q_ref = plain_rho_chunked(x64, ops64)
+        compare(label + " rho", rho, rho_ref, "rho", report)
+        compare(label + " log_q", log_q, log_q_ref, "log", report)
+        del rho, log_q, rho_ref, log_q_ref
+    elif name == "fused_maha":
         A, m, _ = vb_operands(params)
         kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
         A64, m64 = A.double(), m.double()
@@ -2043,6 +2251,76 @@ def main_shape_ms(device, name, shape, report):
     return cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
 
 
+def pool_shape_ms(device, shape, plain=True):
+    """``{variant: ms, "plain": ms}`` of one fused_mcmc_pool launch at
+    ``shape`` (C, Kt, D, steps), CUDA events: Kt=2 on highdim_target with
+    highdim_starts and a proposal factor 2.38 / sqrt(D) I (the pipeline's
+    cycle's first), Kt=1 on the mcmc phase's mcmc_problem; each variant
+    forced, and (``plain``) the plain pool."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    C, Kt, D, steps = shape
+    if Kt == 1:
+        target, starts, sigma0, _ = mcmc_problem(device)
+        chol = torch.linalg.cholesky(torch.tensor(sigma0, device=device))
+    else:
+        mix = highdim_target(D)
+        target = mix.stacked_params(dtype=torch.float32, device=device)
+        starts = highdim_starts(mix, n_chains=C).astype(np.float32)
+        chol = torch.eye(D, device=device) * (2.38 / math.sqrt(D))
+    tops = core._kernel_operands(target)
+    require(tops.K == Kt, "pool shape: a %d-component target, not %d" % (tops.K, Kt))
+    x0T = torch.tensor(starts.T.copy(), device=device)
+    e0 = k.fused_logq(x0T, tops)
+    cholr = chol.reshape(-1, 1).expand(-1, C).contiguous()
+    out = {v: cuda_ms(lambda i: k.fused_mcmc_pool((i, 4), x0T, e0, cholr, None, tops, steps,
+                                                  variant=v), reps=5)
+           for v in POOL_VARIANTS}
+    if plain:
+        out["plain"] = cuda_ms(lambda i: k.plain_mcmc_pool((i, 4), x0T, e0, cholr, None, tops,
+                                                           steps), reps=2, warmup=1)
+    return out
+
+
+def wide_shape_ms(device):
+    """``{kernel: (ms, plain ms)}`` of the six warp-a-particle kernels at
+    WIDE_SHAPE (K=1, D=200, N=2^16; a 1-component target), CUDA events,
+    on particles drawn from a random Student-t mixture; fused_maha on its
+    VB upper operands, fused_transform on standard normals and the
+    mixture's Student-t scales."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    K, Kt, D, N = WIDE_SHAPE
+    rng = np.random.default_rng(D)
+    params = make_params(random_mixture(rng, K, D, True), device)
+    target = make_params(random_mixture(rng, Kt, D, False), device)
+    ops, tops = core._kernel_operands(params), core._kernel_operands(target)
+    xT = k.fused_propose_logq((1, D), ops, N)[0]
+    A, m, _ = vb_operands(params)
+    gen = torch.Generator(device=device).manual_seed(D)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    latent = torch.zeros((N,), dtype=torch.int32, device=device)
+    scale = student_t_scale(gen, params.dof[latent.long()], (N,))
+    calls = {
+        "fused_logq": (lambda i: k.fused_logq(xT, ops), lambda i: k.plain_logq(xT, ops)),
+        "fused_rho": (lambda i: k.fused_rho(xT, ops), lambda i: k.plain_rho(xT, ops)),
+        "fused_maha": (lambda i: k.fused_maha(xT, A, m), lambda i: k.plain_maha(xT, A, m)),
+        "fused_transform": (lambda i: k.fused_transform(zT, latent, scale, ops),
+                            lambda i: k.plain_transform(zT, latent, scale, ops)),
+        "fused_transform_rng": (lambda i: k.fused_transform_rng((i, 3), latent, ops),
+                                lambda i: k.plain_transform_rng((i, 3), latent, ops)),
+        "fused_propose_logq": (lambda i: k.fused_propose_logq((i, 1), ops, N, tops),
+                               lambda i: k.plain_propose_logq((i, 1), ops, N, tops)),
+    }
+    return {name: (cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1))
+            for name, (kernel, plain) in calls.items()}
+
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
 # and FP32 operations a second outside the tensor cores.
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
@@ -2051,6 +2329,14 @@ PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 # the slice shapes of the K-blocked kernels (K, Kt, D) in phase times
 BLOCKED_SHAPES = {"fused_pmc_stats_blocked": (400, 0, 2), "fused_vb_estep_blocked": (400, 0, 2),
                   "fused_is_pmc_step_blocked": (200, 2, 10)}
+
+
+# the K-blocked statistics kernels' first launch: kernel_work's name for
+# its work (log q, fused_logq's; the VB E-step's log-sum-exp, the
+# projections of fused_maha with one float a particle out) and its kernel's
+# name in launch_split
+FIRST_LAUNCH = {"fused_pmc_stats_blocked": ("fused_logq", "logq_kernel<"),
+                "fused_vb_estep_blocked": ("vb_lse", "vb_lse_kernel<")}
 
 
 def kernel_work(name, shape=None):
@@ -2062,8 +2348,15 @@ def kernel_work(name, shape=None):
     exps a (particle, component) pair needs (the log-sum-exp's and the
     responsibility's; None elsewhere).  The flagship: a K=10 Student-t
     proposal, a Kt=2 target, D=10, N=2^22; the K-blocked kernels:
-    BLOCKED_SHAPES at N=2^22; the pool: benchmarks/mcmc_chains.py's
-    C=16384, D=10, a 1-component target, 500 steps."""
+    BLOCKED_SHAPES at N=2^22; the pool: its shape is (C, Kt, D, steps), by
+    default benchmarks/mcmc_chains.py's C=16384, D=10, a 1-component target,
+    500 steps."""
+    if name == "fused_mcmc_pool":
+        C, Kt, D, n = shape or (MCMC_C, 1, MCMC_D, MCMC_STEPS)
+        ev = Kt * (D * (D + 1) + 2 * D)
+        # points out; x0, xf, cholr, e0, ef, accepts, NaN counts
+        return ("C=%d D=%d Kt=%d %d steps" % (C, D, Kt, n),
+                4 * (n * D * C + (2 * D + D * D + 4) * C), n * C * (D * (D + 1) + D + ev), None)
     K, Kt, D, N = shape or BLOCKED_SHAPES.get(name, (10, 2, 10)) + (N_PLAIN_MAX,)
     ev = lambda k: k * (D * (D + 1) + 2 * D)        # component log-densities a particle
     draw = D * (D + 1) + 2 * D                      # mu + scale * (L z)
@@ -2073,6 +2366,7 @@ def kernel_work(name, shape=None):
         "fused_logq": (4 * (D + 1) * N, N * ev(K)),
         "fused_rho": (4 * (D + K + 1) * N, N * ev(K)),
         "fused_maha": (4 * (D + K) * N, N * dense),
+        "vb_lse": (4 * (D + 1) * N, N * dense),
         "fused_pmc_stats": (4 * (D + 1) * N, N * (ev(K) + stats)),
         "fused_vb_estep": (4 * (D + 1) * N, N * (dense + stats)),
         "fused_propose_logq": (4 * (D + 3) * N, N * (draw + ev(K) + ev(Kt))),
@@ -2083,11 +2377,6 @@ def kernel_work(name, shape=None):
         "fused_vb_estep_blocked": (4 * (D + 1) * N, N * (dense + stats)),
         "fused_is_pmc_step_blocked": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
     }
-    if name == "fused_mcmc_pool":
-        C, n = MCMC_C, MCMC_STEPS
-        # points out; x0, xf, cholr, e0, ef, accepts, NaN counts
-        return ("C=%d D=%d Kt=1 %d steps" % (C, D, n), 4 * (n * D * C + (2 * D + D * D + 4) * C),
-                n * C * (D * (D + 1) + D + ev(1)), None)
     exps = 2 * K * N if name in BLOCKED_SHAPES else None
     return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name] + (exps,)
 
@@ -2102,11 +2391,15 @@ def bound(name, shape=None):
 
 # the kernels that must not spill, with the largest DMAX checked: the
 # K-blocked statistics pass's register accumulation and the step's first
-# pass (DMAX 8 and 16), and every record instantiation of fused_logq's and
-# fused_maha's kernels (DMAX 8 to 64), which must keep no local array either
+# pass (DMAX 8 and 16), every record instantiation of fused_logq's,
+# fused_rho's and fused_maha's kernels (DMAX 8 to 64), which must keep no
+# local array either, and both variants of the pool up to DMAX 64 (the
+# thread variant's record instantiations, DMAX 8/16/32/40/64; the warp
+# variant's DMAX 32 and 64, with the rows of L in registers and without)
 REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16,
-                    "logq_kernel": 64, "maha_kernel": 64}
-RECORD_KERNELS = ("logq_kernel", "maha_kernel")
+                    "logq_kernel": 64, "maha_kernel": 64, "rho_kernel": 64,
+                    "mcmc_pool_kernel": 64, "mcmc_pool_warp_kernel": 64}
+RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel")
 
 
 def register_kernels(log):
@@ -2127,10 +2420,97 @@ def register_kernels(log):
         out.append(("%s<%s>" % (base, ", ".join(re.findall(r"L[ib](\d+)E", args))),
                     int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
                     int(stack.group(1)) if stack else 0))
-    # DMAX 8 and 16 of the first two, 8, 16, 32, 40 and 64 of the others
-    require(len(out) >= 2 * 2 + 5 * len(RECORD_KERNELS),
+    # DMAX 8 and 16 of the first two, 8, 16, 32, 40 and 64 of the record
+    # kernels and the thread pool, 32 and 64 twice of the warp pool
+    require(len(out) >= 2 * 2 + 5 * len(RECORD_KERNELS) + 5 + 2 * 2,
             "ptxas reported %d register kernels" % len(out))
     return out
+
+
+def phase_build():
+    """Build the kernel library (or load it, built), and hold the
+    launchers' formulas and the ptxas report to what ops/_build.py and the
+    register lists state; the library."""
+    from pypmc_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load()
+    print("phase build: %.1f s (%s, %s)" % (time.perf_counter() - t0,
+                                            _build.build_info.get("path"),
+                                            "built" if _build.build_info.get("built") else "cached"))
+    log = _build.build_info.get("log") or open(
+        _build.build_info["path"][:-len(".so")] + ".log").read()
+    secs = sorted(((float(t), name) for name, t in re.findall(
+        r"-c -o \S+/(\w+)\.o \S+\n\[([\d.]+) s\]", log)), reverse=True)
+    if secs:
+        print("  nvcc seconds a source, slowest first: %s"
+              % ", ".join("%s %.1f" % (name, t) for t, name in secs))
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+    if regs:
+        print("  ptxas: %d kernels, %d-%d registers a thread, %d bytes of spill stores"
+              % (len(regs), min(regs), max(regs), spills))
+    for kernel, reg_count, spilled, stack in register_kernels(log):
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
+              % (kernel, reg_count, spilled, stack))
+        require(spilled == 0, "%s spills %d bytes" % (kernel, spilled))
+        require(stack == 0 or not kernel.startswith(RECORD_KERNELS),
+                "%s keeps a %d-byte stack frame" % (kernel, stack))
+    # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not;
+    # the statistics kernels' 64-particle tile (K=120, D=1); the warp
+    # kernels' slices (D=200)
+    for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
+                     (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
+                     (96, 2, 40), (12, 2, 10), (3, 1, 128), (21, 2, 10), (20, 2, 12), (8, 1, 16),
+                     (5, 1, 1), (600, 2, 10), (5, 1, 64), (3, 1, 33), (4, 1, 128), (120, 2, 1),
+                     (1, 1, 200), (2, 2, 1000)):
+        launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
+                     ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
+                     ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
+                     ("fused_is_pmc_step", lib.pmc_stats_smem_bytes(K, Kt, D, 1)),
+                     ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
+                     ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
+                     ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
+                     ("fused_transform", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D, 0)),
+                     ("fused_pmc_stats_blocked", lib.pmc_pmc_stats_blocked_smem_bytes(K, D)),
+                     ("fused_vb_estep_blocked", lib.pmc_vb_estep_blocked_smem_bytes(K, D)),
+                     ("fused_is_pmc_step_blocked",
+                      lib.pmc_is_pmc_step_blocked_smem_bytes(K, Kt, D))]
+        for kernel, c in launchers:
+            require(c == _build.smem_bytes(kernel, K, D, Kt),
+                    "shared-memory formula differs from the kernel's (%s)" % kernel)
+        for code, variant in enumerate(POOL_VARIANTS):
+            require(lib.pmc_mcmc_pool_smem_bytes(K, D, code) == _build.pool_smem_bytes(K, D, variant),
+                    "shared-memory formula differs from the kernel's (the %s pool)" % variant)
+        require(lib.pmc_stats_tile(K, D) == _build.stats_tile(K, D),
+                "tile formula differs from the kernel's (the statistics kernels)")
+        for kernel, vb in (("fused_pmc_stats_blocked", 0), ("fused_vb_estep_blocked", 1)):
+            require(lib.pmc_blocked_chunk(K, D, vb) == _build.blocked_plan(kernel, K, D)[0],
+                    "chunk formula differs from the kernel's (%s)" % kernel)
+        require(lib.pmc_step_draw_smem_bytes(K, Kt, D) == _build.draw_smem_bytes(K, Kt, D),
+                "shared-memory formula differs from the kernel's (the step's first launch)")
+        for kernel, maha in (("fused_logq", 0), ("fused_rho", 0), ("fused_maha", 1)):
+            require(lib.pmc_eval_chunk(K, D, maha) == _build.eval_plan(kernel, K, D)[0],
+                    "chunk formula differs from the kernel's (%s)" % kernel)
+    for C in (1, 32, 4096, 4097, 8192, 8193, 32768, 32769, 1 << 20):
+        for D in (1, 8, 9, 16, 17, 32, 33, 40, 41, 64, 65, 128):
+            require(POOL_VARIANTS[lib.pmc_mcmc_pool_variant(C, D)] == _build.pool_variant(C, D),
+                    "the pool's election differs from the kernel's (C=%d, D=%d)" % (C, D))
+    # the record kernels' occupancy where the main paths run them
+    for K, D in ((32, 40), (200, 10)):
+        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D)),
+                               ("fused_logq", lib.pmc_logq_per_sm(K, D)),
+                               ("fused_rho", lib.pmc_rho_per_sm(K, D))):
+            warps = per_sm * _build.EVAL_THREADS // 32
+            kc, buffers, smem = _build.eval_plan(kernel, K, D)
+            print("  %s K=%d D=%d: %d blocks of %d threads an SM (%d warps), %d components "
+                  "a chunk x %d buffers, %d B of shared memory a block"
+                  % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
+            require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
+
+    return lib
 
 
 # --------------------------------------------------------------------- #
@@ -2158,64 +2538,7 @@ def main():
     print("phase device: %s | torch %s cuda %s | %s" % (card, torch.__version__,
                                                           torch.version.cuda, name))
 
-    t0 = time.perf_counter()
-    lib = _build.load()
-    print("phase build: %.1f s (%s, %s)" % (time.perf_counter() - t0,
-                                            _build.build_info.get("path"),
-                                            "built" if _build.build_info.get("built") else "cached"))
-    log = _build.build_info.get("log") or open(
-        _build.build_info["path"][:-len(".so")] + ".log").read()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
-    if regs:
-        print("  ptxas: %d kernels, %d-%d registers a thread, %d bytes of spill stores"
-              % (len(regs), min(regs), max(regs), spills))
-    for kernel, reg_count, spilled, stack in register_kernels(log):
-        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
-              % (kernel, reg_count, spilled, stack))
-        require(spilled == 0, "%s spills %d bytes" % (kernel, spilled))
-        require(stack == 0 or not kernel.startswith(RECORD_KERNELS),
-                "%s keeps a %d-byte stack frame" % (kernel, stack))
-    # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not
-    for K, Kt, D in ((10, 2, 10), (1, 1, 1), (4, 2, 7), (3, 1, 32), (30, 2, 10),
-                     (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
-                     (96, 2, 40), (12, 2, 10), (3, 1, 128), (21, 2, 10), (20, 2, 12), (8, 1, 16),
-                     (5, 1, 1), (600, 2, 10), (5, 1, 64), (3, 1, 33), (4, 1, 128)):
-        launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
-                     ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
-                     ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
-                     ("fused_is_pmc_step", lib.pmc_stats_smem_bytes(K, Kt, D, 1)),
-                     ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
-                     ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
-                     ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
-                     ("fused_transform", lib.pmc_transform_smem_bytes(K, D)),
-                     ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
-                     ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D)),
-                     ("fused_pmc_stats_blocked", lib.pmc_pmc_stats_blocked_smem_bytes(K, D)),
-                     ("fused_vb_estep_blocked", lib.pmc_vb_estep_blocked_smem_bytes(K, D)),
-                     ("fused_is_pmc_step_blocked",
-                      lib.pmc_is_pmc_step_blocked_smem_bytes(K, Kt, D))]
-        for kernel, c in launchers:
-            require(c == _build.smem_bytes(kernel, K, D, Kt),
-                    "shared-memory formula differs from the kernel's (%s)" % kernel)
-        for kernel, vb in (("fused_pmc_stats_blocked", 0), ("fused_vb_estep_blocked", 1)):
-            require(lib.pmc_blocked_chunk(K, D, vb) == _build.blocked_plan(kernel, K, D)[0],
-                    "chunk formula differs from the kernel's (%s)" % kernel)
-        require(lib.pmc_step_draw_smem_bytes(K, Kt, D) == _build.draw_smem_bytes(K, Kt, D),
-                "shared-memory formula differs from the kernel's (the step's first launch)")
-        for kernel, maha in (("fused_logq", 0), ("fused_maha", 1)):
-            require(lib.pmc_eval_chunk(K, D, maha) == _build.eval_plan(kernel, K, D)[0],
-                    "chunk formula differs from the kernel's (%s)" % kernel)
-    # the record kernels' occupancy where the main paths run them
-    for K, D in ((32, 40), (200, 10)):
-        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D)),
-                               ("fused_logq", lib.pmc_logq_per_sm(K, D))):
-            warps = per_sm * _build.EVAL_THREADS // 32
-            kc, buffers, smem = _build.eval_plan(kernel, K, D)
-            print("  %s K=%d D=%d: %d blocks of %d threads an SM (%d warps), %d components "
-                  "a chunk x %d buffers, %d B of shared memory a block"
-                  % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
-            require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
+    phase_build()
 
     clock = []
 
@@ -2300,19 +2623,39 @@ def main():
                 entry["launch_ms" if sn == n else "launch_ms_slice_n"] = times[(kname, sn, "split")]
         if exps is not None:
             entry["exps"] = exps
-        if kname in MAIN_SHAPES:
-            entry["shapes"] = [{"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
-                                "plain_ms": times[(kname, sh, "plain")],
-                                "bound_ms": bound(kname, sh)[1]} for sh in MAIN_SHAPES[kname]]
+        shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
+        entry["shapes"] = [{"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
+                            "plain_ms": times[(kname, sh, "plain")],
+                            "bound_ms": bound(kname, sh)[1]} for sh in shapes]
+        if kname in FIRST_LAUNCH:
+            # the first launch alone: its device time beside its bound
+            work, kernel = FIRST_LAUNCH[kname]
+            sh = BLOCKED_SHAPES[kname] + (N_PLAIN_MAX,)
+            first = [ms for key, ms in entry["launch_ms"].items() if key.startswith(kernel)]
+            require(len(first) == 1, "%s: no one first launch in %s" % (kname, entry["launch_ms"]))
+            entry["shapes"].append({"shape": "first launch %s %s" % (kernel.rstrip("<"),
+                                                                   bound(work, sh)[0]),
+                                    "launch_ms": first[0], "bound_ms": bound(work, sh)[1]})
+        if kname == "fused_mcmc_pool":
+            entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "bound_ms": bound(kname, sh)[1],
+                                     "plain_ms": times.get((kname, sh, "plain")),
+                                     "elected": _build.pool_variant(sh[0], sh[2])},
+                                    **{"ms_" + v: times[(kname, sh, v)] for v in POOL_VARIANTS})
+                               for sh in POOL_SHAPES + POOL_SWEEP]
+        if not entry["shapes"]:
+            del entry["shapes"]
         kernels.append(entry)
     print("ms and plain_ms at the shape given, ms_slice_n at N=%d; max_abs_err is |kernel - "
           "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
           "sample mean against the mixture's; for fused_mcmc_pool, the kernel's and the plain "
           "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
           "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound; "
-          "launch_ms: their launches' device times, torch.profiler; shapes: fused_maha and "
-          "fused_logq at the main paths' shapes, plain_ms past N=%d the plain version streamed "
-          "over component chunks); library_ms null: no one PyTorch call computes these "
+          "launch_ms: their launches' device times, torch.profiler; shapes: fused_maha, "
+          "fused_logq and fused_rho at the main paths' shapes, plain_ms past N=%d the plain "
+          "version streamed over component chunks; the six warp-a-particle kernels at K=1, "
+          "D=200, N=2^16; the K-blocked statistics kernels' first launch, launch_ms, beside its "
+          "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
+          "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there); library_ms null: no one PyTorch call computes these "
           "functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)

@@ -212,7 +212,7 @@ blocked_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
       stats_finish(ops, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
     }
     __syncthreads();
-    stats_accumulate(S, tile, acc, table);
+    stats_accumulate<kThreads>(S, tile, acc, table);
     __syncthreads();
   }
 

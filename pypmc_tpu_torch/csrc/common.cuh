@@ -10,7 +10,8 @@
 // kernels of fused_logq and fused_maha) the loops over the dimension are
 // unrolled to DMAX with a guard on the runtime D, so the arrays stay in
 // registers; the DMAX = 128 instantiation loops to D, and its arrays live in
-// local memory.
+// local memory.  Past D = 128 the kernels of warp.cuh take a warp a
+// particle, with no per-thread array.
 //
 // A block stages its mixture operands in shared memory when they fit there
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
@@ -28,7 +29,9 @@
 namespace pmc {
 
 constexpr int kThreads = 128;   // threads per block, one particle each
-constexpr int kDMax = 128;      // the largest dimension (ops/_build.py D_MAX)
+constexpr int kDMax = 128;      // the thread kernels' largest D (ops/_build.py D_MAX)
+constexpr int kWideDMax = 4096; // the warp kernels' largest D (ops/_build.py WIDE_D_MAX)
+constexpr int kWideThreads = 128;   // a warp kernel's block: 4 particles at a time
 constexpr size_t kSmemLimit = 232448;   // bytes of shared memory a block may use
 // a block's share of an SM's 228 KB where two blocks share it (each also
 // reserves 1 KB)
@@ -91,7 +94,18 @@ struct Philox {
       : k0(s0), k1(s1), c0(static_cast<uint32_t>(n)),
         c1(static_cast<uint32_t>(n >> 32)), c2(0), pos(4) {}
 
-  __device__ void refill() {
+  // the stream from its ``word``-th word on: what next() gives after
+  // ``word`` calls (a block is 4 words; block b is counter c2 = b)
+  __device__ __forceinline__ void seek(int word) {
+    c2 = static_cast<uint32_t>(word / 4);
+    pos = 4;
+    if (word % 4 != 0) {
+      refill();
+      pos = word % 4;
+    }
+  }
+
+  __device__ __forceinline__ void refill() {
     uint32_t x0 = c0, x1 = c1, x2 = c2, x3 = 0u, a = k0, b = k1;
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
@@ -111,7 +125,7 @@ struct Philox {
     ++c2;
   }
 
-  __device__ uint32_t next() {
+  __device__ __forceinline__ uint32_t next() {
     if (pos == 4) refill();
     const uint32_t v = pos == 0 ? b0 : pos == 1 ? b1 : pos == 2 ? b2 : b3;
     ++pos;
@@ -119,20 +133,26 @@ struct Philox {
   }
 
   // [0, 1): the categorical draw against tail-sum thresholds
-  __device__ float uniform() {
-    return static_cast<float>(next() >> 8) * (1.0f / 16777216.0f);
+  __device__ static float u01(uint32_t v) {
+    return static_cast<float>(v >> 8) * (1.0f / 16777216.0f);
   }
   // (0, 1]: safe for log
-  __device__ float uniform_pos() {
-    return static_cast<float>((next() >> 8) + 1u) * (1.0f / 16777216.0f);
+  __device__ static float u01_pos(uint32_t v) {
+    return static_cast<float>((v >> 8) + 1u) * (1.0f / 16777216.0f);
   }
-  // two independent standard normals (Box-Muller, both halves)
-  __device__ void normal_pair(float& z0, float& z1) {
-    const float r = sqrtf(-2.0f * logf(uniform_pos()));
+  // two independent standard normals from two words (Box-Muller, both halves)
+  __device__ static void box_muller(uint32_t a, uint32_t b, float& z0, float& z1) {
+    const float r = sqrtf(-2.0f * logf(u01_pos(a)));
     float s, c;
-    sincospif(2.0f * uniform(), &s, &c);
+    sincospif(2.0f * u01(b), &s, &c);
     z0 = r * c;
     z1 = r * s;
+  }
+  __device__ float uniform() { return u01(next()); }
+  __device__ float uniform_pos() { return u01_pos(next()); }
+  __device__ void normal_pair(float& z0, float& z1) {
+    const uint32_t a = next();
+    box_muller(a, next(), z0, z1);
   }
 };
 
@@ -451,17 +471,26 @@ __device__ __forceinline__ float project_rec(const float* rec, const float (&x)[
   return maha;
 }
 
-// add the weighted component densities of K records to acc, k ascending
-template <int DMAX>
+// add the weighted component densities of K records to acc, k ascending,
+// handing each component's log-density to each(k, log q_k)
+template <int DMAX, typename Each>
 __device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,
-                                            bool student_t, const float (&x)[DMAX]) {
+                                            bool student_t, const float (&x)[DMAX],
+                                            Each&& each) {
   const int F = rec_floats(D), D4 = pad4(D);
   for (int k = 0; k < K; ++k) {
     const float* r = recs + k * F;
     const float maha = whiten_rec<DMAX>(r, x, D, [](int, float) {});
     const float4 p = *reinterpret_cast<const float4*>(r + D4);   // ln, w, dof, .
-    acc.add(component_logpdf(maha, p.x, p.z, D, student_t), p.y);
+    const float ind = component_logpdf(maha, p.x, p.z, D, student_t);
+    each(k, ind);
+    acc.add(ind, p.y);
   }
+}
+template <int DMAX>
+__device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,
+                                            bool student_t, const float (&x)[DMAX]) {
+  records_lse<DMAX>(acc, recs, K, D, student_t, x, [](int, float) {});
 }
 
 // mixture_logpdf on K records
@@ -610,6 +639,18 @@ __host__ __device__ constexpr int min_blocks(EvalList<EvalInst<DS, BS>...>, int 
   return blocks;
 }
 
+template <int... DS, int... BS>
+__host__ __device__ constexpr int dmax_for(EvalList<EvalInst<DS, BS>...>, int D) {
+  int dmax = 0;
+  ((dmax = dmax == 0 && D <= DS ? DS : dmax), ...);
+  return dmax;
+}
+
+// the DMAX of the record instantiation dispatch_records takes for D (0 past
+// the last)
+__host__ __device__ constexpr int eval_dmax_for(int D) {
+  return dmax_for(EvalInsts(), D);
+}
 // the largest D of the record instantiation below DMAX (0 below the first)
 __host__ __device__ constexpr int eval_dmax_below(int DMAX) {
   return dmax_below(EvalInsts(), DMAX);
@@ -617,6 +658,12 @@ __host__ __device__ constexpr int eval_dmax_below(int DMAX) {
 // blocks of kEvalThreads an SM the record kernel at DMAX is compiled for
 __host__ __device__ constexpr int eval_min_blocks(int DMAX) {
   return min_blocks(EvalInsts(), DMAX);
+}
+
+// Shared memory of a warp kernel's block (warp.cuh): three slices of D + 8
+// floats a warp (ops/_build.py _wide_smem).
+__host__ __device__ inline size_t wide_smem_bytes(int D) {
+  return sizeof(float) * (kWideThreads / 32) * 3 * (static_cast<size_t>(D) + 8);
 }
 
 struct EvalPlan {
@@ -629,8 +676,11 @@ struct EvalPlan {
 // (mirrored by ops/_build.py eval_plan).  D <= 64: the records of the whole
 // mixture in one buffer where they fit an SM's half, else two buffers of the
 // largest equal chunks that do, one filled while the other is read.  Past
-// D = 64 the looped kernel stages its operands whole where they fit.
+// D = 64 the looped kernel stages its operands whole where they fit; past
+// D = 128 the warp kernel reads them from device memory and asks for its
+// slices.
 __host__ __device__ inline EvalPlan eval_plan(int K, int D, bool maha) {
+  if (D > kDMax) return {K, 0, wide_smem_bytes(D)};
   if (D > kRecDMax) {
     const size_t ops = sizeof(float) * (maha ? static_cast<size_t>(K) * D * (D + 1)
                                              : static_cast<size_t>(MixLayout{K, D}.eval_size()));
@@ -704,24 +754,26 @@ int dispatch_records(int D, Body& body, EvalList<EvalInst<DS, BS>...>) {
 }
 
 // Call body(DMAX, OPS_SMEM) (std::integral_constant arguments) with the
-// instantiation of fused_logq's or fused_maha's kernel for D and return its
-// result: the record kernel of EvalInsts up to D = 64 (OPS_SMEM unused), the
-// looped kernel at DMAX 128 past it.
+// instantiation of fused_logq's, fused_rho's or fused_maha's kernel for D
+// and return its result: the record kernel of EvalInsts up to D = 64
+// (OPS_SMEM unused), the looped kernel at DMAX 128 to D = 128, the warp
+// kernel (DMAX kWideDMax, OPS_SMEM false) past it.
 template <typename Body>
 int dispatch_eval(int D, bool ops_smem, Body&& body) {
   if (D <= kRecDMax) return dispatch_records(D, body, EvalInsts());
-  if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kWideDMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kDMax) return body(std::integral_constant<int, kWideDMax>(), std::false_type());
   return ops_smem ? body(std::integral_constant<int, kDMax>(), std::true_type())
                   : body(std::integral_constant<int, kDMax>(), std::false_type());
 }
 
 // threads of a block at DMAX
 __host__ __device__ constexpr int eval_threads(int DMAX) {
-  return DMAX <= kRecDMax ? kEvalThreads : kThreads;
+  return DMAX <= kRecDMax ? kEvalThreads : DMAX <= kDMax ? kThreads : kWideThreads;
 }
 
 // Call body(kernel, threads, smem) with the kernel of Kernels (a struct with
-// ``maha``, fused_maha's or fused_logq's, and get<DMAX, OPS_SMEM>(), the
+// ``maha``, true for fused_maha's records, and get<DMAX, OPS_SMEM>(), the
 // kernel of dispatch_eval's instantiation) for (K, D), its block size and its
 // shared memory, set first as the kernel's limit; body's result, or the
 // error of the dispatch or of setting the limit.

@@ -19,7 +19,7 @@
 
 namespace pmc {
 
-template <int DMAX, bool OPS_SMEM>
+template <int DMAX, bool OPS_SMEM, int TW>
 __global__ void __launch_bounds__(kThreads)
 is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
                    const float* __restrict__ tmix_src, float* __restrict__ xT,
@@ -27,7 +27,7 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
                    double* __restrict__ partial, long long N, int K, int Kt,
                    int D, int student_t, int t_student_t, int dof_stats) {
   extern __shared__ float smem[];
-  const StatsLayout S{K, D};
+  const StatsLayout S{K, D, TW};   // stats_layout's tile, TW threads
   const int n_mix = MixLayout{K, D}.size();
   const int n_staged = OPS_SMEM ? n_mix + MixLayout{Kt, D}.eval_size() : 0;
   float* tile = smem + n_staged;
@@ -41,9 +41,9 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
   __syncthreads();
 
   const int t = threadIdx.x;
-  const long long n_tiles = (N + kThreads - 1) / kThreads;
+  const long long n_tiles = (N + S.tw - 1) / S.tw;
   for (long long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long long n = tile_i * kThreads + t;
+    const long long n = tile_i * S.tw + t;
     float x[DMAX];
 #pragma unroll
     for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = 0.0f;
@@ -60,7 +60,7 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
     }
     stats_finish(mix, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
     __syncthreads();
-    stats_accumulate(S, tile, acc, table);
+    stats_accumulate<TW>(S, tile, acc, table);
     __syncthreads();
   }
   stats_write_partial(S, acc, partial);
@@ -76,17 +76,19 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      int t_student_t, int dof_stats,
                                      int n_blocks, void* stream) {
   using namespace pmc;
-  const StatsLayout S{K, D};
+  const StatsLayout S = stats_layout(K, D);
   const int params = MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size();
   const size_t smem = stats_launch_smem(S, params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
-    cudaFuncSetAttribute(is_pmc_step_kernel<DMAX, OPS_SMEM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    is_pmc_step_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
-        s0, s1, mix, tmix, xT, latent, w, partial, N, K, Kt, D, student_t,
-        t_student_t, dof_stats);
+    kernel<<<n_blocks, S.tw, smem, s>>>(s0, s1, mix, tmix, xT, latent, w, partial, N, K, Kt, D,
+                                        student_t, t_student_t, dof_stats);
+  };
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    PMC_STATS_TILE(S, is_pmc_step_kernel, launch);
   }));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

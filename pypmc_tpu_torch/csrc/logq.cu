@@ -22,9 +22,11 @@
 // 2 blocks an SM).  What holds it (measured on one H100): a broadcast
 // LDS.128 takes ~4 clocks of the SM's 128 B a clock of shared-memory data
 // path, so each U word read feeds one FMA, ~1/4 of the FP32 peak.  Past D =
-// 64 (logq_wide_kernel) the looped DMAX = 128 instantiation reads the packed
-// operands, staged whole where they fit.
-#include "common.cuh"
+// 64 (logq_looped_kernel) the looped DMAX = 128 instantiation reads the
+// packed operands, staged whole where they fit; past D = 128
+// (logq_warp_kernel) a warp takes a particle (warp.cuh), the operands read
+// from device memory.
+#include "warp.cuh"
 
 namespace pmc {
 
@@ -51,7 +53,7 @@ logq_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
 
 template <bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
-logq_wide_kernel(const float* __restrict__ xT, const float* __restrict__ mix_src,
+logq_looped_kernel(const float* __restrict__ xT, const float* __restrict__ mix_src,
                  float* __restrict__ out, long long N, int K, int D, int student_t) {
   extern __shared__ float smem[];
   const float* mix = stage_operands<OPS_SMEM>(smem, mix_src, MixLayout{K, D}.eval_size());
@@ -64,13 +66,27 @@ logq_wide_kernel(const float* __restrict__ xT, const float* __restrict__ mix_src
   }
 }
 
+__global__ void __launch_bounds__(kWideThreads)
+logq_warp_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
+                 float* __restrict__ out, long long N, int K, int D, int student_t) {
+  extern __shared__ float smem[];
+  const WarpSlices sl = warp_slices(smem, D);
+  for (long long n = warp_index(); n < N; n += warp_count()) {
+    warp_load(xT, N, n, D, sl.a);
+    const float lq = warp_mixture_logpdf(mix, K, D, student_t != 0, sl.a, sl.b);
+    if (lane_id() == 0) out[n] = lq;
+    __syncwarp();   // the slices are rewritten next
+  }
+}
+
 // fused_logq's kernels for with_eval_kernel
 struct LogqKernels {
   static constexpr bool maha = false;
   template <int DMAX, bool OPS_SMEM>
   static auto get() {
     if constexpr (DMAX <= kRecDMax) return logq_kernel<DMAX>;
-    else return logq_wide_kernel<OPS_SMEM>;
+    else if constexpr (DMAX <= kDMax) return logq_looped_kernel<OPS_SMEM>;
+    else return logq_warp_kernel;
   }
 };
 

@@ -27,9 +27,10 @@
 // clock of shared-memory data path, so each A word read feeds one FMA, ~1/4
 // of the FP32 peak; two particles a thread would halve that but take 2 x
 // 80 registers at D = 40, past the 128 that 16 warps an SM allow.  Past D = 64
-// (maha_wide_kernel) the looped DMAX = 128 instantiation reads A | m,
-// staged whole where they fit.
-#include "common.cuh"
+// (maha_looped_kernel) the looped DMAX = 128 instantiation reads A | m,
+// staged whole where they fit; past D = 128 (maha_warp_kernel) a warp takes
+// a particle (warp.cuh), A | m read from device memory.
+#include "warp.cuh"
 
 namespace pmc {
 
@@ -57,7 +58,7 @@ maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
 
 template <bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
-maha_wide_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src,
+maha_looped_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src,
                  float* __restrict__ out, long long N, int K, int D) {
   extern __shared__ float smem[];
   const float* A = stage_operands<OPS_SMEM>(smem, ops_src, K * D * D + K * D);
@@ -72,13 +73,32 @@ maha_wide_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src
   }
 }
 
+__global__ void __launch_bounds__(kWideThreads)
+maha_warp_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
+                 float* __restrict__ out, long long N, int K, int D) {
+  extern __shared__ float smem[];
+  const WarpSlices sl = warp_slices(smem, D);
+  const float* m = ops + static_cast<long long>(K) * D * D;
+  for (long long n = warp_index(); n < N; n += warp_count()) {
+    warp_load(xT, N, n, D, sl.a);
+    for (int k = 0; k < K; ++k) {
+      const float* A = ops + static_cast<long long>(k) * D * D;
+      const float v = warp_maha([&](int i) { return A + static_cast<long long>(i) * D; },
+                                m + k * D, sl.a, sl.b, D, false);
+      if (lane_id() == 0) out[k * N + n] = v;
+    }
+    __syncwarp();   // the slices are rewritten next
+  }
+}
+
 // fused_maha's kernels for with_eval_kernel
 struct MahaKernels {
   static constexpr bool maha = true;
   template <int DMAX, bool OPS_SMEM>
   static auto get() {
     if constexpr (DMAX <= kRecDMax) return maha_kernel<DMAX>;
-    else return maha_wide_kernel<OPS_SMEM>;
+    else if constexpr (DMAX <= kDMax) return maha_looped_kernel<OPS_SMEM>;
+    else return maha_warp_kernel;
   }
 };
 

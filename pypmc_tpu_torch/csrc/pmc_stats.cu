@@ -20,13 +20,13 @@
 
 namespace pmc {
 
-template <int DMAX, bool OPS_SMEM>
+template <int DMAX, bool OPS_SMEM, int TW>
 __global__ void __launch_bounds__(kThreads)
 pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
                  const float* __restrict__ mix_src, double* __restrict__ partial,
                  long long N, int K, int D, int student_t, int dof_stats) {
   extern __shared__ float smem[];
-  const StatsLayout S{K, D};
+  const StatsLayout S{K, D, TW};   // stats_layout's tile, TW threads
   const int n_mix = MixLayout{K, D}.eval_size();
   const int n_staged = OPS_SMEM ? n_mix : 0;
   float* tile = smem + n_staged;
@@ -38,9 +38,9 @@ pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
   __syncthreads();
 
   const int t = threadIdx.x;
-  const long long n_tiles = (N + kThreads - 1) / kThreads;
+  const long long n_tiles = (N + S.tw - 1) / S.tw;
   for (long long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long long n = tile_i * kThreads + t;
+    const long long n = tile_i * S.tw + t;
     float x[DMAX];
     float w = 0.0f;
     if (n < N) {
@@ -53,7 +53,7 @@ pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
     const float log_q = stats_evaluate<DMAX>(mix, S, student_t != 0, x, tile, t);
     stats_finish(mix, S, student_t != 0, dof_stats != 0, log_q, w, tile, t);
     __syncthreads();
-    stats_accumulate(S, tile, acc, table);
+    stats_accumulate<TW>(S, tile, acc, table);
     __syncthreads();
   }
   stats_write_partial(S, acc, partial);
@@ -68,16 +68,18 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
                                    int student_t, int dof_stats, int n_blocks,
                                    void* stream) {
   using namespace pmc;
-  const StatsLayout S{K, D};
+  const StatsLayout S = stats_layout(K, D);
   const int params = MixLayout{K, D}.eval_size();
   const size_t smem = stats_launch_smem(S, params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
-    cudaFuncSetAttribute(pmc_stats_kernel<DMAX, OPS_SMEM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    pmc_stats_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
-        xT, w, mix, partial, N, K, D, student_t, dof_stats);
+    kernel<<<n_blocks, S.tw, smem, s>>>(xT, w, mix, partial, N, K, D, student_t, dof_stats);
+  };
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    PMC_STATS_TILE(S, pmc_stats_kernel, launch);
   }));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -91,5 +93,9 @@ extern "C" long long pmc_stats_smem_bytes(int K, int Kt, int D, int is_step) {
   using namespace pmc;
   const int params = is_step ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()
                              : MixLayout{K, D}.eval_size();
-  return static_cast<long long>(stats_launch_smem(StatsLayout{K, D}, params));
+  return static_cast<long long>(stats_launch_smem(stats_layout(K, D), params));
 }
+
+// particles a tile (threads a block) of the dense statistics kernels for
+// (K, D) (checked against ops/_build.py stats_tile)
+extern "C" int pmc_stats_tile(int K, int D) { return pmc::stats_layout(K, D).tw; }

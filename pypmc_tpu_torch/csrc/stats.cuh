@@ -1,7 +1,11 @@
-// PMC sufficient statistics shared by fused_pmc_stats (pmc_stats.cu) and
-// fused_is_pmc_step (is_pmc_step.cu).
+// PMC sufficient statistics shared by fused_pmc_stats (pmc_stats.cu),
+// fused_is_pmc_step (is_pmc_step.cu) and fused_vb_estep (vb_estep.cu).
 //
-// A block walks over tiles of kThreads particles (grid-stride).  Phase 1:
+// A block walks over tiles of tw particles, one a thread (grid-stride): tw
+// = kThreads, or kNarrowTile where that tile and the accumulators do not fit
+// shared memory (stats_layout: D = 1 with K >= 109), a template argument of
+// the kernels so that the tile's row stride is a constant (instantiated to
+// DMAX kNarrowTileDMax only, the reach of the JAX rule).  Phase 1:
 // each thread takes one particle and writes, into a shared-memory tile, one
 // column of per-particle rows: the whitened differences diff_k = U_k (x -
 // mu_k), w rho_k, c_k = w rho_k gamma_k, the dof-condition term, w and
@@ -30,6 +34,8 @@ constexpr int kTileStride = kThreads + 1;   // padded: rows hit different banks
 
 struct StatsLayout {
   int K, D;
+  int tw = kThreads;   // particles a tile (threads a block); rows tw + 1 apart
+  __host__ __device__ int stride() const { return tw + 1; }
   // tile rows
   __host__ __device__ int diff() const { return 0; }
   __host__ __device__ int wrho() const { return K * D; }
@@ -49,7 +55,7 @@ struct StatsLayout {
 __host__ __device__ inline size_t stats_acc_offset(const StatsLayout& S,
                                                    int params) {
   const size_t floats = static_cast<size_t>(params) +
-                        static_cast<size_t>(S.rows()) * kTileStride;
+                        static_cast<size_t>(S.rows()) * S.stride();
   return (floats * sizeof(float) + 7) / 8 * 8;
 }
 __host__ __device__ inline size_t stats_smem_bytes(const StatsLayout& S,
@@ -65,6 +71,32 @@ inline bool stats_ops_smem(const StatsLayout& S, int params) {
 inline size_t stats_launch_smem(const StatsLayout& S, int params) {
   return stats_smem_bytes(S, stats_ops_smem(S, params) ? params : 0);
 }
+// The layout of a dense statistics kernel for (K, D), with its tile width
+// (ops/_build.py stats_tile): kThreads particles, or half as many where that
+// tile and the accumulators alone pass kSmemLimit.
+constexpr int kNarrowTile = kThreads / 2;   // the narrow tile's particles
+constexpr int kNarrowTileDMax = 8;           // the DMAX it is built for
+inline StatsLayout stats_layout(int K, int D) {
+  const bool full = stats_smem_bytes(StatsLayout{K, D}, 0) <= kSmemLimit;
+  return StatsLayout{K, D, full ? kThreads : kNarrowTile};
+}
+// whether a statistics kernel is built for the layout's tile at D
+inline bool stats_tile_built(const StatsLayout& S, int D) {
+  return S.tw == kThreads || D <= kNarrowTileDMax;
+}
+
+// Launch ``kernel<DMAX, OPS_SMEM, tw>`` for the layout's tile width through
+// launch(kernel).  The narrow tile is built at kNarrowTileDMax only: past
+// it the narrow branch names the wide kernel and is never taken (the
+// launcher refuses the layout first, stats_tile_built).
+#define PMC_STATS_TILE(S, kernel, launch)                                         \
+  do {                                                                             \
+    constexpr int kNarrow = DMAX == kNarrowTileDMax ? kNarrowTile : kThreads;     \
+    if ((S).tw == kThreads)                                                        \
+      launch(kernel<DMAX, OPS_SMEM, kThreads>);                                    \
+    else                                                                           \
+      launch(kernel<DMAX, OPS_SMEM, kNarrow>);                                     \
+  } while (0)
 
 // the three tile rows whose product statistic entry e sums
 __device__ inline void entry_rows(const StatsLayout& S, int e, uint16_t* out) {
@@ -102,7 +134,7 @@ __device__ inline void stats_setup(const StatsLayout& S, float* tile,
     entry_rows(S, e, table + 3 * e);
     acc[e] = 0.0;
   }
-  tile[S.ones() * kTileStride + threadIdx.x] = 1.0f;
+  tile[S.ones() * S.stride() + threadIdx.x] = 1.0f;
 }
 
 // Phase 1, first half: proposal evaluation of particle x with the
@@ -112,7 +144,7 @@ template <int DMAX>
 __device__ float stats_evaluate(const float* mix, const StatsLayout& S,
                                 bool student_t, const float (&x)[DMAX],
                                 float* tile, int t) {
-  const int K = S.K, D = S.D;
+  const int K = S.K, D = S.D, st = S.stride();
   const MixLayout L{K, D};
   WeightedLse lse;
   float diff[DMAX];
@@ -121,11 +153,11 @@ __device__ float stats_evaluate(const float* mix, const StatsLayout& S,
                                     mix + L.mu() + k * D, x, D, diff);
 #pragma unroll
     for (int i = 0; i < dim_loop<DMAX>(D); ++i)
-      if (i < D) tile[(S.diff() + k * D + i) * kTileStride + t] = diff[i];
+      if (i < D) tile[(S.diff() + k * D + i) * st + t] = diff[i];
     const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k],
                                        D, student_t);
-    tile[(S.c() + k) * kTileStride + t] = maha;
-    tile[(S.wrho() + k) * kTileStride + t] = ind;
+    tile[(S.c() + k) * st + t] = maha;
+    tile[(S.wrho() + k) * st + t] = ind;
     lse.add(ind, mix[L.w() + k]);
   }
   return lse.value();
@@ -138,12 +170,12 @@ __device__ float stats_evaluate(const float* mix, const StatsLayout& S,
 __device__ inline void stats_finish(const float* mix, const StatsLayout& S,
                                     bool student_t, bool dof_stats, float log_q,
                                     float w, float* tile, int t) {
-  const int K = S.K, D = S.D;
+  const int K = S.K, D = S.D, st = S.stride();
   const MixLayout L{K, D};
   for (int k = 0; k < K; ++k) {
     const float wk = mix[L.w() + k];
-    const float maha = tile[(S.c() + k) * kTileStride + t];
-    const float ind = tile[(S.wrho() + k) * kTileStride + t];
+    const float maha = tile[(S.c() + k) * st + t];
+    const float ind = tile[(S.wrho() + k) * st + t];
     const float rho = wk > 0.0f ? expf(ind - log_q) * wk : 0.0f;
     const float wrho = rho * w;
     float gamma = 1.0f, t1 = 0.0f;
@@ -153,25 +185,27 @@ __device__ inline void stats_finish(const float* mix, const StatsLayout& S,
       if (dof_stats)
         t1 = wrho * (logf(0.5f * (maha + nu)) - mix[L.psi() + k] + gamma);
     }
-    tile[(S.wrho() + k) * kTileStride + t] = wrho;
-    tile[(S.c() + k) * kTileStride + t] = wrho * gamma;
-    tile[(S.t1() + k) * kTileStride + t] = t1;
+    tile[(S.wrho() + k) * st + t] = wrho;
+    tile[(S.c() + k) * st + t] = wrho * gamma;
+    tile[(S.t1() + k) * st + t] = t1;
   }
-  tile[S.w() * kTileStride + t] = w;
-  tile[S.wlogw() * kTileStride + t] = w > 0.0f ? w * logf(w) : 0.0f;
+  tile[S.w() * st + t] = w;
+  tile[S.wlogw() * st + t] = w > 0.0f ? w * logf(w) : 0.0f;
 }
 
-// Phase 2: add this tile's column sums into the block's accumulators.
-// Call between two __syncthreads().
+// Phase 2: add this tile's column sums into the block's accumulators (S.tw
+// == TW).  Call between two __syncthreads().
+template <int TW>
 __device__ inline void stats_accumulate(const StatsLayout& S, const float* tile,
                                         double* acc, const uint16_t* table) {
+  const int st = S.stride();
   for (int e = threadIdx.x; e < S.entries(); e += blockDim.x) {
-    const float* a = tile + table[3 * e] * kTileStride;
-    const float* b = tile + table[3 * e + 1] * kTileStride;
-    const float* c = tile + table[3 * e + 2] * kTileStride;
+    const float* a = tile + table[3 * e] * st;
+    const float* b = tile + table[3 * e + 1] * st;
+    const float* c = tile + table[3 * e + 2] * st;
     float s = 0.0f;
 #pragma unroll 8
-    for (int t = 0; t < kThreads; ++t) s = fmaf(a[t] * b[t], c[t], s);
+    for (int t = 0; t < TW; ++t) s = fmaf(a[t] * b[t], c[t], s);
     acc[e] += static_cast<double>(s);
   }
 }

@@ -23,8 +23,12 @@
 // contractions over all K components become one indexed read: a thread
 // touches only its own component.  The Philox stream of a particle is keyed
 // by the seed and counted by the particle's index, as in propose_logq.cu,
-// so the samples do not depend on the launch configuration.
-#include "common.cuh"
+// so the samples do not depend on the launch configuration.  Past D = 128
+// (the *_warp_kernel pair) a warp takes a particle (warp.cuh): the normals
+// in a slice of shared memory, drawn by the lanes block by block from the
+// particle's Philox stream, so they are the thread path's, and the rows of
+// L on the lanes, read from device memory.
+#include "warp.cuh"
 
 namespace pmc {
 
@@ -73,11 +77,55 @@ transform_rng_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
   }
 }
 
+__global__ void __launch_bounds__(kWideThreads)
+transform_warp_kernel(const float* __restrict__ zT, const int* __restrict__ latent,
+                      const float* __restrict__ scale, const float* __restrict__ ops,
+                      float* __restrict__ xT, long long N, int K, int D) {
+  extern __shared__ float smem[];
+  const WarpSlices sl = warp_slices(smem, D);
+  const float* L = ops + static_cast<long long>(K) * D;
+  for (long long n = warp_index(); n < N; n += warp_count()) {
+    warp_load(zT, N, n, D, sl.a);
+    const int lat = latent[n];
+    warp_affine(L + static_cast<long long>(lat) * D * D, ops + lat * D, sl.a, scale[n], D,
+                [&](int i, float v) { xT[i * N + n] = v; });
+    __syncwarp();   // the slice is rewritten next
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+transform_rng_warp_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
+                          const float* __restrict__ ops, float* __restrict__ xT,
+                          long long N, int K, int D, int student_t) {
+  extern __shared__ float smem[];
+  const WarpSlices sl = warp_slices(smem, D);
+  const float* L = ops + static_cast<long long>(K) * D;
+  const float* dof = L + static_cast<long long>(K) * D * D;
+  for (long long n = warp_index(); n < N; n += warp_count()) {
+    // draw_component's stream: the normals, then the Student-t scale
+    warp_normals(s0, s1, static_cast<uint64_t>(n), 0, D, reinterpret_cast<uint32_t*>(sl.a),
+                 sl.b);
+    const int lat = latent[n];
+    float scale = 1.0f;
+    if (student_t != 0) {
+      if (lane_id() == 0) {
+        Philox rng = stream_at(s0, s1, static_cast<uint64_t>(n), normal_words_end(0, D));
+        scale = student_t_scale(dof[lat], rng);
+      }
+      scale = from_lane0(scale);
+    }
+    warp_affine(L + static_cast<long long>(lat) * D * D, ops + lat * D, sl.b, scale, D,
+                [&](int i, float v) { xT[i * N + n] = v; });
+    __syncwarp();   // the slices are rewritten next
+  }
+}
+
 }  // namespace pmc
 
 // shared memory either launcher asks for (checked against ops/_build.py):
-// the operands if they fit, else none
+// the operands if they fit, else none; past D = 128 the warp kernels' slices
 extern "C" long long pmc_transform_smem_bytes(int K, int D) {
+  if (D > pmc::kDMax) return static_cast<long long>(pmc::wide_smem_bytes(D));
   const size_t ops = sizeof(float) * pmc::transform_floats(K, D);
   return static_cast<long long>(ops <= pmc::kSmemLimit ? ops : 0);
 }
@@ -90,6 +138,9 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
   using namespace pmc;
   const size_t smem = pmc_transform_smem_bytes(K, D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > kDMax && D <= kWideDMax)
+    return launch_warp(transform_warp_kernel, D, n_blocks, s, zT, latent, scale, ops, xT, N,
+                       K, D);
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
     cudaFuncSetAttribute(transform_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -107,6 +158,9 @@ extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
   using namespace pmc;
   const size_t smem = pmc_transform_smem_bytes(K, D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > kDMax && D <= kWideDMax)
+    return launch_warp(transform_rng_warp_kernel, D, n_blocks, s, s0, s1, latent, ops, xT, N,
+                       K, D, student_t);
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
     cudaFuncSetAttribute(transform_rng_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,

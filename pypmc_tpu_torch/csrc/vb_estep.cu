@@ -27,13 +27,13 @@
 
 namespace pmc {
 
-template <int DMAX, bool OPS_SMEM>
+template <int DMAX, bool OPS_SMEM, int TW>
 __global__ void __launch_bounds__(kThreads)
 vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
                 const float* __restrict__ ops, double* __restrict__ partial,
                 long long N, int K, int D) {
   extern __shared__ float smem[];
-  const StatsLayout S{K, D};
+  const StatsLayout S{K, D, TW};   // stats_layout's tile, TW threads
   const int n_ops = K * D * D + K * D + K;
   const int n_staged = OPS_SMEM ? n_ops : 0;
   float* tile = smem + n_staged;
@@ -47,9 +47,9 @@ vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
   const float* c = m + K * D;
 
   const int t = threadIdx.x;
-  const long long n_tiles = (N + kThreads - 1) / kThreads;
+  const long long n_tiles = (N + S.tw - 1) / S.tw;
   for (long long tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x) {
-    const long long n = tile_i * kThreads + t;
+    const long long n = tile_i * S.tw + t;
     float x[DMAX];
     float w = 0.0f;
     if (n < N) {
@@ -66,23 +66,23 @@ vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
       const float maha = project<DMAX>(A + k * D * D, m + k * D, x, D, diff);
 #pragma unroll
       for (int i = 0; i < dim_loop<DMAX>(D); ++i)
-        if (i < D) tile[(S.diff() + k * D + i) * kTileStride + t] = diff[i];
+        if (i < D) tile[(S.diff() + k * D + i) * S.stride() + t] = diff[i];
       const float log_rho = c[k] - 0.5f * maha;
-      tile[(S.wrho() + k) * kTileStride + t] = log_rho;
+      tile[(S.wrho() + k) * S.stride() + t] = log_rho;
       lse.add(log_rho, 1.0f);
     }
     const float l = lse.value();
     for (int k = 0; k < K; ++k) {
-      const float log_r = tile[(S.wrho() + k) * kTileStride + t] - l;
+      const float log_r = tile[(S.wrho() + k) * S.stride() + t] - l;
       const float wr = w * expf(log_r);
-      tile[(S.wrho() + k) * kTileStride + t] = wr;
-      tile[(S.c() + k) * kTileStride + t] = wr;
-      tile[(S.t1() + k) * kTileStride + t] = wr * log_r;
+      tile[(S.wrho() + k) * S.stride() + t] = wr;
+      tile[(S.c() + k) * S.stride() + t] = wr;
+      tile[(S.t1() + k) * S.stride() + t] = wr * log_r;
     }
-    tile[S.w() * kTileStride + t] = w;
-    tile[S.wlogw() * kTileStride + t] = w > 0.0f ? w * logf(w) : 0.0f;
+    tile[S.w() * S.stride() + t] = w;
+    tile[S.wlogw() * S.stride() + t] = w > 0.0f ? w * logf(w) : 0.0f;
     __syncthreads();
-    stats_accumulate(S, tile, acc, table);
+    stats_accumulate<TW>(S, tile, acc, table);
     __syncthreads();
   }
   stats_write_partial(S, acc, partial);
@@ -97,16 +97,18 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w,
                                   double* stats, long long N, int K, int D,
                                   int n_blocks, void* stream) {
   using namespace pmc;
-  const StatsLayout S{K, D};
+  const StatsLayout S = stats_layout(K, D);
   const int params = K * D * D + K * D + K;
   const size_t smem = stats_launch_smem(S, params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
-    cudaFuncSetAttribute(vb_estep_kernel<DMAX, OPS_SMEM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    vb_estep_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
-        xT, w, ops, partial, N, K, D);
+    kernel<<<n_blocks, S.tw, smem, s>>>(xT, w, ops, partial, N, K, D);
+  };
+  PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {
+    PMC_STATS_TILE(S, vb_estep_kernel, launch);
   }));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -118,5 +120,5 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w,
 extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
   using namespace pmc;
   return static_cast<long long>(
-      stats_launch_smem(StatsLayout{K, D}, K * D * D + K * D + K));
+      stats_launch_smem(stats_layout(K, D), K * D * D + K * D + K));
 }

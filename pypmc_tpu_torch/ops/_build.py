@@ -7,20 +7,24 @@ at first use into ``build/`` beside the package, under a name keyed by a
 hash of the sources and flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is.
 
-This module also states the CUDA kernels' own size limits.  Each thread
-keeps one particle's coordinates in a per-thread array of at most
-:data:`D_MAX` floats (registers up to D = 32, and up to D = 64 in the
-kernels of ``fused_logq`` and ``fused_maha``; local memory above).  The
-statistics kernels keep a tile of per-particle rows and their accumulators
-in shared memory, which must fit :data:`SMEM_LIMIT`; every kernel stages
-its mixture operands there too when they fit beside, and otherwise reads
-them from device memory.  The K-blocked kernels walk the components in
-chunks sized from shared memory (:func:`blocked_plan`), and so do the
-kernels of ``fused_logq`` and ``fused_maha`` up to D = 64
-(:func:`eval_plan`), so only D limits them.  :func:`limit_reason` names
-the limit a shape breaks, and the wrappers raise for such a shape.  Which
-shapes the ``"auto"`` dispatchers send to a kernel at all is a separate
-question, answered by :func:`pypmc_tpu_torch.ops.kernels.fits`.
+This module also states the CUDA kernels' own size limits, kernel by
+kernel (:data:`D_MAX`).  A thread kernel keeps one particle's coordinates
+in a per-thread array of at most 128 floats (registers up to D = 32, and up
+to D = 64 in the record kernels of ``fused_logq``, ``fused_rho`` and
+``fused_maha``; local memory above).  Past D = 128 the six kernels of
+:data:`WIDE` run a warp a particle with its coordinates in shared memory
+(``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense statistics
+kernels keep a tile of per-particle rows and their accumulators in shared
+memory, which must fit :data:`SMEM_LIMIT`: a tile of 128 particles, or of
+64 where that does not fit (:func:`stats_tile`); every kernel stages its
+mixture operands there too when they fit beside, and otherwise reads them
+from device memory.  The K-blocked kernels walk the components in chunks
+sized from shared memory (:func:`blocked_plan`), and so do the record
+kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
+:func:`limit_reason` names the limit a shape breaks, and the wrappers raise
+for such a shape.  Which shapes the ``"auto"`` dispatchers send to a kernel
+at all is a separate question, answered by
+:func:`pypmc_tpu_torch.ops.kernels.fits`.
 """
 
 import ctypes
@@ -32,9 +36,10 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "KERNELS", "BLOCKED",
-           "smem_bytes", "eval_plan", "eval_threads", "blocked_plan", "draw_smem_bytes",
-           "limit_reason", "check_limits", "load", "build_info"]
+__all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
+           "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
+           "block_particles", "stats_tile", "pool_variant", "pool_smem_bytes", "blocked_plan",
+           "draw_smem_bytes", "limit_reason", "check_limits", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -42,12 +47,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-D_MAX = 128            # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 (40, 64) or 128
+_THREAD_D_MAX = 128    # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 (40, 64) or 128
+WIDE_D_MAX = 4096      # csrc/common.cuh kWideDMax: the warp kernels' largest D
 SMEM_LIMIT = 232448    # csrc/common.cuh kSmemLimit: shared memory one H100 block may use
 THREADS = 128          # csrc/common.cuh kThreads
-EVAL_THREADS = 256     # csrc/common.cuh kEvalThreads: fused_logq's and fused_maha's to D = 64
+EVAL_THREADS = 256     # csrc/common.cuh kEvalThreads: the record kernels' (D <= 64)
+WIDE_THREADS = 128     # csrc/common.cuh kWideThreads: a warp kernel's block, 4 particles
 _REC_D_MAX = 64        # csrc/common.cuh kRecDMax
-_TILE_STRIDE = THREADS + 1
+_EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record instantiations
 
 _lib = None
 build_info = {}
@@ -68,7 +75,25 @@ BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
+# the kernels with a warp-a-particle path past D = 128 (csrc/warp.cuh)
+WIDE = ("fused_logq", "fused_rho", "fused_maha", "fused_transform", "fused_transform_rng",
+        "fused_propose_logq")
+# each kernel's largest D: the warp kernels' past D = 128, the thread
+# kernels' elsewhere (at least the JAX package's rule's reach: D = 2,040 at
+# K = 1 for the 128-particle tile, 248 for the 1024-particle one; K*D <= 128
+# for the dense statistics kernels; below 128 for the K-blocked ones and
+# the pool)
+D_MAX = {kernel: WIDE_D_MAX if kernel in WIDE else _THREAD_D_MAX for kernel in KERNELS}
+# csrc/mcmc_pool.cu: the warp variant's largest D, and pool_warp_chains, its
+# largest pool by the thread variant's instantiation (the largest D of each,
+# the chains): where the two variants' times cross on the H100 (pool_sweep.py)
+_POOL_WARP_D_MAX = 64
+_POOL_WARP_CHAINS = ((8, 0), (16, 4096), (32, 8192), (40, 32768), (_POOL_WARP_D_MAX, 1 << 62))
 _HALF_SMEM = 228 * 1024 // 2 - 1024   # csrc/common.cuh kHalfSmem
+# the dense statistics kernels (csrc/stats.cuh) and the largest D of their
+# 64-particle tile (kNarrowTileDMax)
+_STATS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
+_NARROW_TILE_D_MAX = 8
 # csrc/blocked.cuh: the register statistics pass (D <= 16)
 _REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
 _REG_PAIRS = THREADS // _REG_SLICES
@@ -111,13 +136,19 @@ def _blocked_floats(kernel, D):
     return D * D + D + 1 if kernel == "fused_vb_estep_blocked" else _eval_floats(1, D)
 
 
+def _wide_smem(D):
+    """Shared memory of a warp kernel's block past D = 128 (``csrc/common.cuh``
+    ``wide_smem_bytes``): three slices of D + 8 floats a warp."""
+    return 4 * (WIDE_THREADS // 32) * 3 * (D + 8)
+
+
 def _operand_floats(kernel, K, D, Kt):
     """Floats of the mixture operands one block of ``kernel`` reads (for a
-    K-blocked kernel, one chunk's; for ``fused_logq``'s and ``fused_maha``'s
-    up to D = 64, its buffers of records)."""
+    K-blocked kernel, one chunk's; for the record kernels of ``fused_logq``,
+    ``fused_rho`` and ``fused_maha`` up to D = 64, its buffers of records)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[0] * _blocked_floats(kernel, D)
-    if kernel in ("fused_logq", "fused_maha") and D <= _REC_D_MAX:
+    if kernel in ("fused_logq", "fused_rho", "fused_maha") and D <= _REC_D_MAX:
         kc, buffers, _ = eval_plan(kernel, K, D)
         return buffers * kc * _rec_floats(D, vb=kernel == "fused_maha")
     if kernel in ("fused_logq", "fused_rho", "fused_pmc_stats"):
@@ -135,13 +166,63 @@ def _operand_floats(kernel, K, D, Kt):
     raise ValueError("unknown kernel %r" % kernel)
 
 
-def _stats_bytes(K, D, params):
+def _stats_bytes(K, D, params, tile=THREADS):
     """``csrc/stats.cuh`` ``stats_smem_bytes``: ``params`` operand floats,
-    the tile and the accumulators with their entry table."""
+    the tile of ``tile`` particles (rows ``tile + 1`` floats apart) and the
+    accumulators with their entry table."""
     rows = K * D + 3 * K + 3
     entries = K * (3 + D + D * (D + 1) // 2) + 3
-    acc_offset = (4 * (params + rows * _TILE_STRIDE) + 7) // 8 * 8
+    acc_offset = (4 * (params + rows * (tile + 1)) + 7) // 8 * 8
     return acc_offset + entries * (8 + 3 * 2)
+
+
+def stats_tile(K, D):
+    """Particles a tile (threads a block) of the dense statistics kernels
+    (``fused_pmc_stats``, ``fused_is_pmc_step``, ``fused_vb_estep``) for
+    (K, D); mirrors ``csrc/stats.cuh`` ``stats_layout``: 128, or 64 where the
+    128-particle tile and the accumulators alone pass :data:`SMEM_LIMIT`
+    (D = 1 with K >= 109: 4K + 3 rows).  The 64-particle kernels are built
+    to D = :data:`_NARROW_TILE_D_MAX` (the JAX rule sends them D = 1 only);
+    :func:`limit_reason` refuses the tile past it."""
+    return THREADS if _stats_bytes(K, D, 0) <= SMEM_LIMIT else THREADS // 2
+
+
+def pool_variant(C, D):
+    """The variant of ``fused_mcmc_pool``'s kernel for C chains in D
+    dimensions; mirrors ``csrc/mcmc_pool.cu`` ``pool_variant``: ``"warp"``
+    (a warp a chain) up to :data:`_POOL_WARP_CHAINS` chains for D's thread
+    instantiation (none to D = 8, 4096 to D = 16, 8192 to 32, 32768 to 40,
+    any to 64), else ``"thread"``."""
+    most = next((c for d, c in _POOL_WARP_CHAINS if D <= d), 0)
+    return "warp" if C <= most else "thread"
+
+
+def _eval_dmax(D):
+    """The DMAX of the record instantiation for D (``csrc/common.cuh``
+    ``eval_dmax_for``)."""
+    return next(d for d in _EVAL_DMAX if D <= d)
+
+
+def pool_smem_bytes(Kt, D, variant):
+    """Shared memory of ``fused_mcmc_pool``'s block for a Kt-component
+    target (``csrc/mcmc_pool.cu`` ``pmc_mcmc_pool_smem_bytes``).  The thread
+    variant's record instantiation (D <= 64) stages the target's 16-byte
+    records and, past DMAX 32, a column a thread for the state and one for
+    the proposal; where that passes :data:`SMEM_LIMIT` (or D > 64) the
+    looped kernel stages the packed evaluation operands where they fit.  The
+    warp variant stages the target's records where they fit beside its three
+    slices of D + 8 floats."""
+    if variant == "thread":
+        if D <= _REC_D_MAX:
+            dmax = _eval_dmax(D)
+            rec = 4 * (Kt * _rec_floats(D) + (2 * dmax * THREADS if dmax > 32 else 0))
+            if rec <= SMEM_LIMIT:
+                return rec
+        ops = 4 * _eval_floats(Kt, D)
+        return ops if ops <= SMEM_LIMIT else 0
+    slices = 4 * 3 * (D + 8)
+    staged = slices + 4 * Kt * _rec_floats(D)
+    return staged if staged <= SMEM_LIMIT else slices
 
 
 def blocked_plan(kernel, K, D):
@@ -169,14 +250,18 @@ def blocked_plan(kernel, K, D):
 
 def eval_plan(kernel, K, D):
     """``(components a chunk, chunk buffers, shared memory a block)`` of
-    ``fused_logq``'s or ``fused_maha``'s kernel; mirrors ``csrc/common.cuh``
-    ``eval_plan``.  Up to D = 64 the kernel streams 16-byte component records
-    (``fused_maha``'s in the VB layout): the whole mixture in one buffer where
-    it fits half an SM's shared memory, else two buffers of the largest equal
-    chunks that do.  Past D = 64 the looped kernel stages its operands whole
-    (one buffer of K) where they fit, and reads them from device memory (no
-    buffer) where they do not."""
+    ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s kernel; mirrors
+    ``csrc/common.cuh`` ``eval_plan``.  Up to D = 64 the kernel streams
+    16-byte component records (``fused_maha``'s in the VB layout): the whole
+    mixture in one buffer where it fits half an SM's shared memory, else two
+    buffers of the largest equal chunks that do.  Past D = 64 the looped
+    kernel stages its operands whole (one buffer of K) where they fit, and
+    reads them from device memory (no buffer) where they do not; past D =
+    128 the warp kernel reads them from device memory and asks for its
+    slices."""
     maha = kernel == "fused_maha"
+    if D > _THREAD_D_MAX:
+        return K, 0, _wide_smem(D)
     if D > _REC_D_MAX:
         ops = 4 * (K * D * (D + 1) if maha else _eval_floats(K, D))
         return (K, 1, ops) if ops <= SMEM_LIMIT else (K, 0, 0)
@@ -189,9 +274,21 @@ def eval_plan(kernel, K, D):
 
 
 def eval_threads(D):
-    """Threads of a block of ``fused_logq``'s and ``fused_maha``'s kernel
-    for dimension D; mirrors ``csrc/common.cuh`` ``eval_threads``."""
-    return EVAL_THREADS if D <= _REC_D_MAX else THREADS
+    """Threads of a block of ``fused_logq``'s, ``fused_rho``'s and
+    ``fused_maha``'s kernel for dimension D; mirrors ``csrc/common.cuh``
+    ``eval_threads``."""
+    return EVAL_THREADS if D <= _REC_D_MAX else THREADS if D <= _THREAD_D_MAX else WIDE_THREADS
+
+
+def block_particles(kernel, D):
+    """Particles a block of ``kernel`` takes at a time in dimension D (its
+    grid is one wave of blocks over N / this): a thread a particle, or past
+    D = 128 in the kernels of :data:`WIDE` a warp a particle."""
+    if kernel in WIDE and D > _THREAD_D_MAX:
+        return WIDE_THREADS // 32
+    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+        return eval_threads(D)
+    return THREADS
 
 
 def smem_bytes(kernel, K, D, Kt=0):
@@ -205,10 +302,17 @@ def smem_bytes(kernel, K, D, Kt=0):
     ``fused_propose_logq`` or like them)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[2]
+    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+        return eval_plan(kernel, K, D)[2]
+    if kernel in WIDE and D > _THREAD_D_MAX:
+        return _wide_smem(D)
+    if kernel == "fused_mcmc_pool":
+        return pool_smem_bytes(K, D, "thread")
     params = _operand_floats(kernel, K, D, Kt)
-    if kernel in ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep"):
-        staged = _stats_bytes(K, D, params)
-        return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0)
+    if kernel in _STATS:
+        tile = stats_tile(K, D)
+        staged = _stats_bytes(K, D, params, tile)
+        return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0, tile)
     return 4 * params if 4 * params <= SMEM_LIMIT else 0
 
 
@@ -225,14 +329,17 @@ def limit_reason(kernel, K, D, Kt=0):
     """None if the CUDA kernel takes a (K, D) mixture (with a Kt-component
     target), else the limit it breaks, named.  Depends on nothing but its
     arguments."""
-    if not 1 <= D <= D_MAX:
-        return ("%s: dimension %d is outside the CUDA kernels' limit "
-                "1 <= D <= %d" % (kernel, D, D_MAX))
+    if not 1 <= D <= D_MAX[kernel]:
+        return ("%s: dimension %d is outside the CUDA kernel's limit "
+                "1 <= D <= %d" % (kernel, D, D_MAX[kernel]))
     need = smem_bytes(kernel, K, D, Kt)
     if need > SMEM_LIMIT:
         return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
                 "a block for its statistics tile; the limit is %d"
                 % (kernel, K, Kt, D, need, SMEM_LIMIT))
+    if kernel in _STATS and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
+        return ("%s: K=%d, D=%d needs the 64-particle statistics tile, whose "
+                "kernels are built to the limit D <= %d" % (kernel, K, D, _NARROW_TILE_D_MAX))
     return None
 
 
@@ -261,13 +368,23 @@ def _sources():
 
 
 def _run_all(cmds):
-    """Run the commands at once; ``(log, first failing exit code or 0)``."""
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for cmd in cmds]
+    """Run the commands at once; ``(log, first failing exit code or 0)``.
+    The log gives each command's output and its seconds from the start."""
+    t0 = time.perf_counter()
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
+             for cmd, out in zip(cmds, outs)]
+    seconds = [None] * len(cmds)
+    while None in seconds:
+        for i, proc in enumerate(procs):
+            if seconds[i] is None and proc.poll() is not None:
+                seconds[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     log, rc = "", 0
-    for cmd, proc in zip(cmds, procs):
-        out = proc.communicate()[0]
-        log += " ".join(cmd) + "\n" + out
+    for cmd, proc, out, sec in zip(cmds, procs, outs, seconds):
+        out.seek(0)
+        log += "%s\n[%.1f s]\n%s" % (" ".join(cmd), sec, out.read())
+        out.close()
         rc = rc or proc.returncode
     return log, rc
 
@@ -328,9 +445,9 @@ def _declare(lib):
         "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, P],
         # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
         # nan_counts, xfT, ef, C, n_steps, Kt, D, student_t_prop,
-        # t_student_t, stream
+        # t_student_t, variant, stream
         "pmc_fused_mcmc_pool": [U, U, P, P, P, ctypes.c_float, P, P, P, P, P, P,
-                                I, I, I, I, I, I, P],
+                                I, I, I, I, I, I, I, P],
         # xT, w, mix, chunks, log_q, partial, stats, N, K, D, kc, student_t,
         # dof_stats, n_eval_blocks, n_blocks, stream
         "pmc_fused_pmc_stats_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I,
@@ -362,17 +479,20 @@ def _declare(lib):
     lib.pmc_blocked_chunk.restype = ctypes.c_int
     lib.pmc_eval_chunk.argtypes = [I, I, I]      # K, D, maha
     lib.pmc_eval_chunk.restype = ctypes.c_int
-    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm"):   # K, D -> blocks an SM holds
+    # K, D -> blocks an SM holds; the statistics tile; C, D -> the pool's variant
+    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm", "pmc_rho_per_sm", "pmc_stats_tile",
+                 "pmc_mcmc_pool_variant"):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
              "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes",
-             "pmc_mcmc_pool_smem_bytes", "pmc_pmc_stats_blocked_smem_bytes",
-             "pmc_vb_estep_blocked_smem_bytes")
+             "pmc_pmc_stats_blocked_smem_bytes", "pmc_vb_estep_blocked_smem_bytes")
     for name in pairs:
         getattr(lib, name).argtypes = [I, I]
+    lib.pmc_mcmc_pool_smem_bytes.argtypes = [I, I, I]   # Kt, D, variant (1: warp)
     for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
-                 "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes") + pairs:
+                 "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes",
+                 "pmc_mcmc_pool_smem_bytes") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

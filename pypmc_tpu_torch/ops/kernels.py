@@ -41,7 +41,11 @@ from a Philox stream per particle; their plain versions draw from a
 distribution, not in value.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-:func:`launch_counts` reads them with the ``plain:<kernel>`` routes.
+:func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
+for the kernels with two variants chosen by shape (``fused_mcmc_pool``: a
+thread or a warp a chain, ``_build.pool_variant``; the dense statistics
+kernels: a tile of 128 or 64 particles, ``_build.stats_tile``), each
+launch's variant as ``variant:<kernel>=<variant>``.
 """
 
 import dataclasses
@@ -275,10 +279,10 @@ def _blocks(device, n, per_sm, threads=_build.THREADS):
 
 @functools.lru_cache(maxsize=None)
 def _eval_per_sm(name, K, D, index):
-    """Blocks of ``fused_logq``'s (``name`` ``"logq"``) or ``fused_maha``'s
-    kernel for a (K, D) mixture that one SM of CUDA device ``index`` holds
-    at once (the library's occupancy of the launcher's instantiation and
-    shared memory)."""
+    """Blocks of ``fused_logq``'s (``name`` ``"logq"``), ``fused_rho``'s or
+    ``fused_maha``'s kernel for a (K, D) mixture that one SM of CUDA device
+    ``index`` holds at once (the library's occupancy of the launcher's
+    instantiation and shared memory)."""
     with torch.cuda.device(index):
         per_sm = getattr(_build.load(), "pmc_%s_per_sm" % name)(K, D)
     if per_sm < 1:
@@ -287,15 +291,22 @@ def _eval_per_sm(name, K, D, index):
 
 
 def _eval_blocks(name, device, n, K, D):
-    """One wave of ``fused_logq``'s or ``fused_maha``'s kernel for n particles."""
-    return _blocks(device, n, _eval_per_sm(name, K, D, device.index), _build.eval_threads(D))
+    """One wave of ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s
+    kernel for n particles."""
+    return _blocks(device, n, _eval_per_sm(name, K, D, device.index),
+                   _build.block_particles("fused_" + name, D))
 
 
-def _stats_blocks(device, n, smem):
-    # as many blocks as fit on every SM at once: an SM holds 2048 threads
-    # and 228 KB of shared memory, of which each block also reserves 1 KB
-    per_sm = max(1, min(2048 // _build.THREADS, 228 * 1024 // (smem + 1024)))
-    return _blocks(device, n, per_sm)
+def _stats_launch(kernel, device, n, K, D, Kt=0):
+    """``(blocks, variant)`` of a dense statistics kernel for n particles:
+    its tile of ``_build.stats_tile`` particles (a thread each), named as the
+    launch's variant, and as many blocks as fit on every SM at once (an SM
+    holds 2048 threads and 228 KB of shared memory, of which each block also
+    reserves 1 KB)."""
+    tile = _build.stats_tile(K, D)
+    smem = _build.smem_bytes(kernel, K, D, Kt)
+    per_sm = max(1, min(2048 // tile, 228 * 1024 // (smem + 1024)))
+    return _blocks(device, n, per_sm, tile), "%s=tile%d" % (kernel, tile)
 
 
 def _stream(device):
@@ -674,7 +685,7 @@ def fused_rho(xT, ops: MixtureOperands):
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_rho(
             xT.data_ptr(), ops.packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
-            N, ops.K, D, int(ops.student_t), _blocks(xT.device, N, 16),
+            N, ops.K, D, int(ops.student_t), _eval_blocks("rho", xT.device, N, ops.K, D),
             _stream(xT.device))
     _raise_on(err, "fused_rho")
     fused_rho.launches += 1
@@ -738,7 +749,7 @@ def fused_vb_estep(xT, w, a, m, const):
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1), const])
     S = _entries(K, D)
-    n_blocks = _stats_blocks(xT.device, N, _build.smem_bytes("fused_vb_estep", K, D))
+    n_blocks, variant = _stats_launch("fused_vb_estep", xT.device, N, K, D)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float64, device=xT.device)
     with torch.cuda.device(xT.device):
@@ -747,6 +758,7 @@ def fused_vb_estep(xT, w, a, m, const):
             flat.data_ptr(), N, K, D, n_blocks, _stream(xT.device))
     _raise_on(err, "fused_vb_estep")
     fused_vb_estep.launches += 1
+    _variant_counts[variant] += 1
     stats = _unpack_stats(flat, K, D, 0)
     return stats["s0"], stats["sd"], stats["g"], stats["t1"].sum()
 
@@ -781,7 +793,8 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
             xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
             None if log_p is None else log_p.data_ptr(), n, ops.K, Kt, D,
             int(ops.student_t), int(target is not None and target.student_t),
-            _blocks(device, n, 16), _stream(device))
+            _blocks(device, n, 16, _build.block_particles("fused_propose_logq", D)),
+            _stream(device))
     _raise_on(err, "fused_propose_logq")
     fused_propose_logq.launches += 1
     if target is None:
@@ -802,7 +815,7 @@ def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
     _build.check_limits("fused_pmc_stats", ops.K, D)
     lib = _build.load()
     S = _entries(ops.K, D)
-    n_blocks = _stats_blocks(xT.device, N, _build.smem_bytes("fused_pmc_stats", ops.K, D))
+    n_blocks, variant = _stats_launch("fused_pmc_stats", xT.device, N, ops.K, D)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
@@ -812,6 +825,7 @@ def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
             int(ops.student_t), int(dof_stats), n_blocks, _stream(xT.device))
     _raise_on(err, "fused_pmc_stats")
     fused_pmc_stats.launches += 1
+    _variant_counts[variant] += 1
     return _unpack_stats(flat, ops.K, D, 2)
 
 
@@ -832,8 +846,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     _build.check_limits("fused_is_pmc_step", ops.K, D, target.K)
     lib = _build.load()
     S = _entries(ops.K, D)
-    n_blocks = _stats_blocks(
-        device, n, _build.smem_bytes("fused_is_pmc_step", ops.K, D, target.K))
+    n_blocks, variant = _stats_launch("fused_is_pmc_step", device, n, ops.K, D, target.K)
     xT = torch.empty((D, n), dtype=torch.float32, device=device)
     latent = torch.empty((n,), dtype=torch.int32, device=device)
     w = torch.empty((n,), dtype=torch.float32, device=device)
@@ -848,6 +861,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
             int(dof_stats), n_blocks, _stream(device))
     _raise_on(err, "fused_is_pmc_step")
     fused_is_pmc_step.launches += 1
+    _variant_counts[variant] += 1
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
 
 
@@ -998,7 +1012,9 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands):
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
-            xT.data_ptr(), N, ops.K, D, _blocks(zT.device, N, 16), _stream(zT.device))
+            xT.data_ptr(), N, ops.K, D,
+            _blocks(zT.device, N, 16, _build.block_particles("fused_transform", D)),
+            _stream(zT.device))
     _raise_on(err, "fused_transform")
     fused_transform.launches += 1
     return xT
@@ -1024,14 +1040,18 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands):
         err = lib.pmc_fused_transform_rng(
             seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, latent.data_ptr(),
             operands.data_ptr(), xT.data_ptr(), N, ops.K, D, int(ops.student_t),
-            _blocks(device, N, 16), _stream(device))
+            _blocks(device, N, 16, _build.block_particles("fused_transform_rng", D)),
+            _stream(device))
     _raise_on(err, "fused_transform_rng")
     fused_transform_rng.launches += 1
     return xT
 
 
+_POOL_VARIANTS = ("thread", "warp")   # csrc/mcmc_pool.cu's variant codes 0 and 1
+
+
 def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
-                    n_steps: int):
+                    n_steps: int, variant=None):
     """Run ``C`` symmetric-proposal Metropolis chains for ``n_steps`` steps
     against a mixture target in one launch (kernel ``csrc/mcmc_pool.cu``).
 
@@ -1043,6 +1063,10 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
         ``cholr[d*D + e, c] = L_c[d, e]`` (entries above the diagonal are not
         read); cast to the chains' dtype.
     :param dof_prop: scalar Student-t proposal dof, or None for Gaussian.
+    :param variant: the kernel's variant, ``"thread"`` (a thread a chain) or
+        ``"warp"`` (a warp a chain, D <= 64); None takes the one
+        ``_build.pool_variant`` elects for (C, D).  Both draw the same
+        stream; each launch counts as ``variant:fused_mcmc_pool=<variant>``.
     :returns: ``(points (n_steps, D, C), accepts (C,) int32, nan_counts
         (C,) int32, xfT (D, C), ef (C,))``: the point after each step, the
         accepted and the NaN proposals (always rejected) per chain, and the
@@ -1058,6 +1082,9 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
     _check(cholr, (D * D, C))
     _check_operands(target)
     _build.check_limits("fused_mcmc_pool", target.K, D)
+    variant = _build.pool_variant(C, D) if variant is None else variant
+    if variant not in _POOL_VARIANTS or (variant == "warp" and D > _build._POOL_WARP_D_MAX):
+        raise ValueError("fused_mcmc_pool: no variant %r at D=%d" % (variant, D))
     lib = _build.load()
     device = x0T.device
     points = torch.empty((n_steps, D, C), dtype=torch.float32, device=device)
@@ -1072,9 +1099,10 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
             target.packed.data_ptr(), points.data_ptr(), accepts.data_ptr(),
             nan_counts.data_ptr(), xfT.data_ptr(), ef.data_ptr(), C, int(n_steps),
             target.K, D, int(dof_prop is not None), int(target.student_t),
-            _stream(device))
+            _POOL_VARIANTS.index(variant), _stream(device))
     _raise_on(err, "fused_mcmc_pool")
     fused_mcmc_pool.launches += 1
+    _variant_counts["fused_mcmc_pool=" + variant] += 1
     return points, accepts, nan_counts, xfT, ef
 
 
@@ -1084,22 +1112,32 @@ _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
              fused_vb_estep_blocked, fused_is_pmc_step_blocked)
 
 
+_variant_counts = {}
+
+
 def reset_launch_counts():
-    """Set every wrapper's launch count and every plain route's count to 0
-    (a K-blocked kernel has no route of its own: its dense twin's gate
-    counts)."""
+    """Set every wrapper's launch count, every plain route's count and
+    every variant's count to 0 (a K-blocked kernel has no route of its own:
+    its dense twin's gate counts)."""
     for fn in _WRAPPERS:
         fn.launches = 0
         if fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
+    for name in _SINGLE_PASS:
+        for tile in (_build.THREADS, _build.THREADS // 2):
+            _variant_counts["%s=tile%d" % (name, tile)] = 0
+    for variant in _POOL_VARIANTS:
+        _variant_counts["fused_mcmc_pool=" + variant] = 0
 
 
 def launch_counts() -> dict:
     """``{wrapper name: kernel launches, "plain:" + wrapper name: times the
-    size gate sent an "auto" dispatch past the kernel}`` since the last
-    reset."""
+    size gate sent an "auto" dispatch past the kernel, "variant:" + wrapper
+    name + "=" + variant: the launches of each variant of the kernels that
+    have two}`` since the last reset."""
     counts = {fn.__name__: fn.launches for fn in _WRAPPERS}
     counts.update({"plain:" + name: n for name, n in _plain_routes.items()})
+    counts.update({"variant:" + name: n for name, n in _variant_counts.items()})
     return counts
 
 

@@ -33,6 +33,9 @@ def cuda():
     (2, 3, 32, 100_001, True, False, False, 8),
     (2, 2, 40, 100_001, False, True, False, 7),
     (1, 1, 128, 50_001, False, False, False, 9),
+    # the statistics kernels' 64-particle tile
+    (120, 2, 1, 200_003, True, False, False, 10),
+    (120, 2, 1, 200_003, False, True, True, 11),
 ])
 def test_kernels_against_plain_versions(cuda, case):
     chip_smoke.kernel_case(case, cuda, [])
@@ -52,9 +55,15 @@ def test_kernels_against_plain_versions(cuda, case):
     (200, 10, 50_001, True, False, False, 21),
     (5, 64, 50_001, False, True, True, 22),
     (3, 33, 100_001, True, False, False, 23),
+    (120, 1, 200_003, True, False, True, 24),
 ])
 def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
     chip_smoke.eval_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.WIDE_CASES)
+def test_warp_kernels_past_d128_against_plain_versions(cuda, case):
+    chip_smoke.wide_case(case, cuda, [])
 
 
 @pytest.mark.parametrize("case", chip_smoke.TRANSFORM_CASES[1:] + [(10, 10, 200_003, True, 44)])
@@ -74,7 +83,18 @@ def test_transform_rng_distribution(cuda, case):
 
 @pytest.mark.parametrize("case", chip_smoke.POOL_CASES)
 def test_mcmc_pool_invariants(cuda, case):
-    chip_smoke.pool_case(case, cuda, [])
+    for variant in chip_smoke.pool_variants(case[1]):
+        chip_smoke.pool_case(case, cuda, [], variant)
+
+
+@pytest.mark.parametrize("case", chip_smoke.POOL_AGREEMENT_CASES)
+def test_mcmc_pool_variants_agree_over_one_step(cuda, case):
+    chip_smoke.pool_agreement_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.POOL_WALK_CASES)
+def test_mcmc_pool_walk_against_plain_pool(cuda, case):
+    chip_smoke.pool_walk_case(case, cuda, [])
 
 
 @pytest.mark.parametrize("case", chip_smoke.POOL_DISTRIBUTION_CASES)
@@ -133,7 +153,11 @@ def test_dispatch_and_launch_counts(cuda):
     with pytest.raises(TypeError):
         kernels.fused_logq(xT.double(), kernels.MixtureOperands(
             ops.packed.double(), ops.K, ops.dim, ops.student_t))
+    # past a kernel's own limit (the statistics kernels' D = 128) the
+    # wrapper raises; fused_logq takes D = 129 through its warp kernel
+    wide = core._kernel_operands(core.make_mixture(torch.zeros((1, 129), device=cuda),
+                                                   torch.eye(129, device=cuda)[None])[0])
     with pytest.raises(ValueError, match="limit"):
-        kernels.fused_logq(torch.zeros((129, 10), device=cuda), core._kernel_operands(
-            core.make_mixture(torch.zeros((1, 129), device=cuda),
-                              torch.eye(129, device=cuda)[None])[0]))
+        kernels.fused_pmc_stats(torch.zeros((129, 10), device=cuda),
+                                torch.ones((10,), device=cuda), wide)
+    assert kernels.fused_logq(torch.zeros((129, 10), device=cuda), wide).shape == (10,)

@@ -14,11 +14,13 @@ import torch
 from scipy import stats
 
 import pypmc_tpu.density.core as jcore
+import pypmc_tpu.mix_adapt.pmc as jpmc
 import pypmc_tpu.ops.pallas_kernels as pk
 from pypmc_tpu.ops import linalg as jlinalg
 from pypmc_tpu.ops import lse as jlse
 import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
+from pypmc_tpu_torch.mix_adapt import pmc
 from pypmc_tpu_torch.ops import _build, kernels, linalg, lse, random
 
 torch.set_num_threads(1)
@@ -110,6 +112,42 @@ def test_symmetrize_and_bilinear_sym():
         rtol=RTOL64, atol=ATOL64)
 
 
+@pytest.mark.parametrize("K,D", [(120, 1), (1, 200)])
+def test_plain_versions_at_the_repaired_shapes_match_jax(K, D):
+    """The shapes the CUDA kernels newly take -- the statistics kernels'
+    64-particle tile (K=120, D=1) and the warp-a-particle path (D=200) --
+    through the plain versions of fused_logq, fused_rho, fused_maha and the
+    PMC statistics (pmc_update's dense route where K*D <= 128), in float64,
+    against the JAX package's XLA path on the same numpy inputs."""
+    rng = np.random.default_rng(K + D)
+    jp, tp = mixture(rng, K, D, True, dead=K > 1)
+    ops = core._kernel_operands(tp)
+    N = 3000
+    xT = rng.normal(0, 2, (D, N))
+    x = torch.tensor(xT)
+    lq_ref = np.asarray(jcore.mixture_logpdf_T(jp, jnp.asarray(xT)))
+    np.testing.assert_allclose(kernels.plain_logq(x, ops).numpy(), lq_ref,
+                               rtol=RTOL64, atol=ATOL64)
+    rho, lq = kernels.plain_rho(x, ops)
+    np.testing.assert_allclose(rho.numpy(), np.asarray(jpmc.calculate_rho_rb_T(jp, jnp.asarray(xT))),
+                               rtol=RTOL64, atol=ATOL64)
+    np.testing.assert_allclose(lq.numpy(), lq_ref, rtol=RTOL64, atol=ATOL64)
+    np.testing.assert_allclose(
+        kernels.plain_maha(x, tp.inv_chol, tp.means).numpy(),
+        np.asarray(jcore.mahalanobis_all_T(jp, jnp.asarray(xT))), rtol=RTOL64, atol=ATOL64)
+    w = rng.exponential(1.0, N)
+    ref = jpmc.pmc_update(jp, jnp.asarray(xT), jnp.asarray(w), rb=True, transposed=True,
+                          fused="off")
+    assert (K * D <= 128) == (kernels.route("fused_pmc_stats", K, D, N) == "dense")
+    got = pmc.pmc_update(tp, x, torch.tensor(w), rb=True, transposed=True, fused="auto")
+    for f, v in core.params_to_numpy(got.params).items():
+        r = getattr(ref.params, f)
+        if v is None:
+            assert r is None
+        else:
+            np.testing.assert_allclose(v, np.asarray(r), rtol=RTOL64, atol=ATOL64, err_msg=f)
+
+
 # ------------------------------------------------------------------ #
 # chi-square sampler, in distribution                                  #
 # ------------------------------------------------------------------ #
@@ -149,17 +187,26 @@ def test_limits_are_stated_and_enforced():
     _build.check_limits("fused_is_pmc_step", 10, 10, 2)     # the flagship fits
     with pytest.raises(ValueError, match="limit"):
         _build.check_limits("fused_is_pmc_step", 64, 40, 2)
+    # the thread kernels stop at D = 128; the six with a warp path past it
+    # at WIDE_D_MAX
     with pytest.raises(ValueError, match="D <= 128"):
-        _build.check_limits("fused_logq", 1, 129)
+        _build.check_limits("fused_pmc_stats", 1, 129)
+    for kernel in _build.WIDE:
+        _build.check_limits(kernel, 1, 129)
+        _build.check_limits(kernel, 1, _build.WIDE_D_MAX)
+        with pytest.raises(ValueError, match="D <= %d" % _build.WIDE_D_MAX):
+            _build.check_limits(kernel, 1, _build.WIDE_D_MAX + 1)
     assert _build.smem_bytes("fused_is_pmc_step", 10, 10, 2) < _build.SMEM_LIMIT
-    # operands past shared memory: fused_logq's kernel streams its records
-    # through two chunk buffers up to D = 64; past it, and in the other
-    # evaluation kernels, they are read from device memory and the kernel
-    # asks for none; the statistics kernels ask for their tile and
-    # accumulators alone
+    # operands past shared memory: the record kernels of fused_logq and
+    # fused_rho stream their records through two chunk buffers up to D = 64;
+    # past it, and in the other evaluation kernels, they are read from device
+    # memory and the kernel asks for none; the statistics kernels ask for
+    # their tile and accumulators alone
     assert _build.smem_bytes("fused_logq", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
     assert _build.smem_bytes("fused_logq", 4, 128) == 0
-    assert _build.smem_bytes("fused_rho", 60, 32) == 0
+    assert _build.smem_bytes("fused_rho", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
+    assert _build.smem_bytes("fused_rho", 4, 128) == 0
+    assert _build.smem_bytes("fused_transform", 60, 32) == 0
     _build.check_limits("fused_logq", 60, 32)
     assert 0 < _build.smem_bytes("fused_vb_estep", 1, 128) <= _build.SMEM_LIMIT
     assert (_build.smem_bytes("fused_vb_estep", 1, 128)
@@ -205,6 +252,110 @@ def test_eval_plan_streams_records_in_chunks():
             kc, buffers, smem = _build.eval_plan(kernel, K, D)
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
     assert _build.eval_plan("fused_logq", 4, 128) == (4, 0, 0)
+    # fused_rho streams fused_logq's records
+    for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (1, 128), (10, 10)):
+        assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
+    assert _build.eval_plan("fused_rho", 32, 40) == (11, 2, 2 * 11 * 3696)
+    assert _build.eval_plan("fused_rho", 10, 10) == (10, 1, 10 * 352)
+    # past D = 128 a warp a particle: no records, three slices of D + 8
+    # floats for each of the block's 4 warps
+    assert _build.eval_plan("fused_rho", 2, 200) == (2, 0, 4 * 4 * 3 * 208)
+    assert _build.eval_threads(200) == _build.WIDE_THREADS == 128
+    assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 4]
+    assert [_build.block_particles("fused_transform", D) for D in (10, 128, 129)] == [128] * 2 + [4]
+    assert _build.block_particles("fused_pmc_stats", 100) == 128
+
+
+# a grid of (K, D) over the JAX rule's reach, with the shapes where the dense
+# statistics tile of 128 particles does not fit (D = 1, K = 109-128) and the
+# dimensions past the thread kernels' 128
+GRID_K = (1, 2, 4, 16, 32, 64, 109, 110, 120, 127, 128, 200, 400)
+GRID_D = tuple(range(1, 2101))
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
+    """Where fits() sends a shape to a kernel (the JAX package's rule), the
+    CUDA kernel takes it: _build.limit_reason names no limit, so the wrapper
+    launches on the card where the JAX package returns a result."""
+    rules = ([{"n_steps": 400, "student_t": t} for t in (False, True)]
+             if kernel == "fused_mcmc_pool" else [{}])
+    refused = []
+    for rule in rules:
+        for Kt in (0, 2):
+            for K in GRID_K:
+                for D in GRID_D:
+                    if not kernels.fits(kernel, K, D, Kt, **rule):
+                        if D > 64:
+                            break    # the rule only tightens with D at a fixed K
+                        continue
+                    if _build.limit_reason(kernel, K, D, Kt) is not None:
+                        refused.append((K, D, Kt))
+    assert refused == []
+
+
+def test_reach_of_the_rule_and_the_limits():
+    """The JAX rule's reach at K=1, which D_MAX covers: D = 2,040 for the
+    128-particle tile, 248 for the 1024-particle one, 125 for a proposal with
+    a 2-component target."""
+    reach = lambda kernel, Kt=0, **rule: max(
+        D for D in range(1, 2200) if kernels.fits(kernel, 1, D, Kt, **rule))
+    for kernel in ("fused_logq", "fused_rho", "fused_maha", "fused_transform"):
+        assert reach(kernel) == 2040 <= _build.D_MAX[kernel]
+    assert reach("fused_transform_rng") == 248 <= _build.D_MAX["fused_transform_rng"]
+    assert reach("fused_propose_logq") == 248 and reach("fused_propose_logq", 2) == 125
+    assert all(_build.D_MAX[k] == 128 for k in _build.KERNELS if k not in _build.WIDE)
+
+
+def test_statistics_tile_and_pool_variant_mirrors():
+    """_build's mirrors of csrc/stats.cuh stats_layout and csrc/mcmc_pool.cu
+    pool_variant / pmc_mcmc_pool_smem_bytes, against hand-worked values."""
+    # D = 1: 4K + 3 rows of 129 floats (8-byte aligned) and K * 5 + 3
+    # entries of 14 bytes
+    assert _build._stats_bytes(108, 1, 0) == 224_464 + 543 * 14 == 232_066 <= _build.SMEM_LIMIT
+    assert _build._stats_bytes(109, 1, 0) == 226_528 + 548 * 14 == 234_200 > _build.SMEM_LIMIT
+    assert [_build.stats_tile(K, 1) for K in (108, 109, 128)] == [128, 64, 64]
+    assert _build.stats_tile(10, 10) == 128 and _build.stats_tile(64, 2) == 128
+    # the 64-particle kernels are built to D=8, where the JAX rule sends
+    # D=1 only: past it the limit names the tile
+    assert _build.stats_tile(60, 4) == 64 and _build.limit_reason("fused_pmc_stats", 60, 4) is None
+    assert _build.stats_tile(40, 9) == 64
+    assert "D <= 8" in _build.limit_reason("fused_vb_estep", 40, 9)
+    # the 64-particle tile at K=128, D=1: rows 65 floats apart, the 1,280
+    # operand floats of fused_pmc_stats staged in front (~146 KB)
+    ops = 128 * 1 + 128 * 1 + 4 * 128
+    assert _build._operand_floats("fused_pmc_stats", 128, 1, 0) == ops
+    assert _build.smem_bytes("fused_pmc_stats", 128, 1) == (4 * (ops + 515 * 65) + 7) // 8 * 8 + 643 * 14
+    assert _build.smem_bytes("fused_pmc_stats", 128, 1) == 145_978
+    for kernel in ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep"):
+        assert _build.limit_reason(kernel, 128, 1, 2) is None
+        assert _build.smem_bytes(kernel, 128, 1, 2) <= _build.SMEM_LIMIT
+    # the pool: a warp a chain for the pipeline's 32 chains at D=40, a
+    # thread a chain for benchmarks/mcmc_chains.py's 16384 at D=10; the
+    # warp variant's largest pool grows with D's thread instantiation
+    assert _build.pool_variant(32, 40) == "warp" and _build.pool_variant(16384, 10) == "thread"
+    assert _build.pool_variant(1, 8) == "thread" == _build.pool_variant(32, 2)
+    assert _build.pool_variant(4096, 9) == "warp" == _build.pool_variant(4096, 16)
+    assert _build.pool_variant(4097, 16) == "thread"
+    assert _build.pool_variant(8192, 17) == "warp" == _build.pool_variant(8192, 32)
+    assert _build.pool_variant(8193, 32) == "thread"
+    assert _build.pool_variant(32768, 40) == "warp" and _build.pool_variant(32769, 40) == "thread"
+    assert _build.pool_variant(1 << 20, 41) == "warp" == _build.pool_variant(1 << 20, 64)
+    assert _build.pool_variant(32, 65) == "thread" == _build.pool_variant(16384, 65)
+    # the warp variant stages the target's records (at D=40, 3,696 B each)
+    # beside three slices of D + 8 floats
+    assert _build.pool_smem_bytes(2, 40, "warp") == 2 * 3696 + 4 * 3 * 48 == 7968
+    assert _build.pool_smem_bytes(60, 64, "warp") == 4 * 3 * 72      # records past the limit
+    # the thread variant's record instantiation: the records, and past DMAX
+    # 32 two columns of DMAX floats a thread (the state, the proposal)
+    assert _build.pool_smem_bytes(1, 10, "thread") == 4 * 88 == 352
+    assert _build.pool_smem_bytes(2, 40, "thread") == 2 * 3696 + 4 * 2 * 40 * 128 == 48_352
+    assert _build.pool_smem_bytes(2, 33, "thread") == 4 * 2 * _build._rec_floats(33) + 40_960
+    # past D = 64, or records past shared memory: the looped kernel's packed
+    # operands, staged where they fit
+    assert _build.pool_smem_bytes(2, 65, "thread") == 4 * (2 * 65 + 2 * 65 * 65 + 8)
+    assert _build.pool_smem_bytes(30, 64, "thread") == 0
+    assert _build.smem_bytes("fused_mcmc_pool", 2, 40, 0) == _build.pool_smem_bytes(2, 40, "thread")
 
 
 def test_package_imports_without_jax():
