@@ -8,10 +8,13 @@ Phases, each of which exits non-zero on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each launcher's shared memory (and the
-   chunked kernels' components a chunk, the statistics kernels' tile and
-   the pool's variant) against ``ops/_build.py``'s formula, the registers of
-   the K-blocked statistics pass's and the step's first pass's DMAX 8 and 16
-   instantiations, of every record instantiation of ``fused_logq``'s,
+   chunked kernels' components a chunk, the statistics kernels' tile, the
+   plan of ``fused_vb_estep``'s and ``fused_is_pmc_step``'s register pass
+   and the pool's variant) against ``ops/_build.py``'s formula, the
+   registers of the K-blocked statistics pass's, the step's first pass's
+   and the dense register kernel's DMAX 8 and 16 instantiations (the last
+   also its blocks an SM at K=10, D=10: at least 3), of every record
+   instantiation of ``fused_logq``'s,
    ``fused_rho``'s and ``fused_maha``'s kernels (DMAX 8 to 64) and of the
    pool's two variants (DMAX 8 to 64), which must not spill (nor, the record
    kernels, keep a stack frame), and the record kernels' blocks an SM at
@@ -27,7 +30,13 @@ Phases, each of which exits non-zero on failure:
    D=33 and D=64, the lower end of the DMAX 40 record kernel and the upper
    end of the DMAX 64 one; the statistics kernels at K=120, D=1, where
    their tile is 64 particles; the six kernels with a warp-a-particle path
-   past D=128 at (K=1, D=129), (K=2, D=200) and (K=1, D=1000).
+   past D=128 at (K=1, D=129), (K=2, D=200) and (K=1, D=1000);
+   ``fused_vb_estep`` and ``fused_is_pmc_step`` at the edges of their
+   register pass's plan (K=16 and 17 at D=10, D=11 and 16, K=128 at D=1,
+   and K=137 at D=1 on the entry table), each where the register pass is
+   elected also through its entry-table pass (the step: the same particles
+   bit for bit, and for a Gaussian target the same weights), and
+   ``fused_vb_estep`` on a NaN and an infinite coordinate.
    ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
    D=40).  The random kernels are checked on their own samples: the plain
@@ -46,10 +55,11 @@ Phases, each of which exits non-zero on failure:
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
-   two runs;
+   two runs (every ``fused_is_pmc_step`` launch on its register pass);
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
-   pruning, one iteration against its float64 plain version, the
+   pruning (every ``fused_vb_estep`` launch on its register pass), one
+   iteration against its float64 plain version, the
    ``examples/variational.py`` fit and a ``VBMerge`` of
    ``examples/mixture_reduction.py``'s 400 components, with the launch
    counts read around each;
@@ -83,9 +93,11 @@ Phases, each of which exits non-zero on failure:
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
    elects) and the callable-target run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
-    the least time the card could take (``bound``), ``fused_maha``,
-    ``fused_logq`` and ``fused_rho`` also at the shapes the main paths give
-    them (K=32, D=40, N=2^20; K=200, D=10, N=10^7), the pool's two variants
+    the least time the card could take (``bound``), ``fused_vb_estep``'s
+    and ``fused_is_pmc_step``'s entry-table pass beside their elected one,
+    ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``
+    also at the shapes the main paths give them (K=32, D=40, N=2^20; K=200,
+    D=10, N=10^7), the pool's two variants
     at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
     the mcmc phase's and on each side of the cut-offs of their election
     (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
@@ -99,6 +111,7 @@ beside it, the script exits non-zero and prints no result.
 """
 
 import copy
+import ctypes
 import json
 import math
 import re
@@ -332,8 +345,11 @@ def case_mixtures(case, device):
 
 
 def kernel_case(case, device, report):
-    """Run all four kernels on one mixture configuration."""
+    """Run all four kernels on one mixture configuration; where
+    fused_is_pmc_step's plan is its register pass, its entry-table pass
+    too."""
     import torch
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     K, Kt, D, N, student, t_student, dead, seed = case
@@ -372,12 +388,40 @@ def kernel_case(case, device, report):
     x64 = xT.double()
     w_ref = torch.exp(k.plain_logq(x64, tops64) - k.plain_logq(x64, ops64))
     compare("fused_is_pmc_step w", w, w_ref, "w", report)
-    check_stats("fused_is_pmc_step", got,
-                k.plain_pmc_stats(x64, w_ref, ops64, dof_stats, n_sw=3), N, report)
+    ref = k.plain_pmc_stats(x64, w_ref, ops64, dof_stats, n_sw=3)
+    check_stats("fused_is_pmc_step", got, ref, N, report)
     check_samples("fused_is_pmc_step", xT, lat, arrs, report)
     again = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats)
-    require(bool(torch.equal(again[0], xT)) and bool(torch.equal(again[3]["g"], got["g"])),
+    require(all(bool(torch.equal(a, b)) for a, b in zip((xT, lat, w), again[:3]))
+            and all(bool(torch.equal(got[key], again[3][key])) for key in got),
             "fused_is_pmc_step: one seed gave two outputs")
+    plan = _build.dense_plan("fused_is_pmc_step", K, D, Kt)
+    print("  fused_is_pmc_step pass %s: %d columns, %d slices, %d groups, %d B" % plan)
+    if plan[0] == "reg":
+        # the entry-table pass from the same seed words: the same particles
+        # bit for bit, and the same weights for a Gaussian target;
+        # statistics within the same tolerance
+        table = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats, variant="table")
+        exact = (xT, lat) if t_student else (xT, lat, w)
+        differ = [name for name, a, b in zip(("x", "latent", "w"), exact, table)
+                  if not bool(torch.equal(a, b))]
+        require(not differ, "fused_is_pmc_step: the register and the entry-table pass differ "
+                "in %s (w by up to %.3e)" % (differ, float((w - table[2]).abs().max())))
+        if t_student:
+            # a Student-t target: log p on records (the register pass, as
+            # the K-blocked first launch) and by mixture_logpdf (the entry
+            # table) agree to a few float32 roundings of log p, log q and
+            # their difference
+            lp = k.plain_logq(x64, tops64)
+            slack = 2.0 ** -20 * (lp.abs() + (lp - k.plain_logq(x64, ops64)).abs() + 1.0)
+            rel = (w.double() - table[2].double()).abs() / table[2].double().abs().clamp_min(1e-30)
+            print("  fused_is_pmc_step w, register vs entry-table pass: %d differ, at most "
+                  "%.3g of the rounding slack"
+                  % (int((w != table[2]).sum()), float((rel / slack).max())))
+            require(bool((rel <= slack).all()), "fused_is_pmc_step: the passes' weights differ "
+                    "past the float32 rounding of log p (%.3g relative)" % float(rel.max()))
+        check_stats("fused_is_pmc_step table", table[3], ref, N, report)
+        del table
     require(not bool(torch.equal(k.fused_is_pmc_step(seed_b, ops, tops, N, dof_stats)[0], xT)),
             "fused_is_pmc_step: two seeds, one output")
 
@@ -396,6 +440,16 @@ KERNEL_CASES = [
     # the statistics kernels' 64-particle tile (D=1, K >= 109)
     (120, 2, 1, N_ODD, True, False, False, 9),
     (120, 2, 1, N_ODD, False, True, True, 10),
+    # fused_is_pmc_step's register pass: the last K of one group of
+    # components and the first of two (D=10), three row bands (D=11, D=16:
+    # two and three groups), K=128 at D=1 (eight groups); K=137 at D=1, the
+    # first shape at D <= 16 past its shared memory, takes the entry table
+    (16, 2, 10, N_ODD, True, False, True, 26),
+    (17, 2, 10, N_ODD, False, True, False, 27),
+    (11, 2, 11, N_ODD, True, True, True, 28),
+    (8, 2, 16, N_ODD, True, False, False, 29),
+    (128, 2, 1, N_ODD, True, False, True, 30),
+    (137, 2, 1, N_WIDE, False, False, False, 31),
 ]
 
 
@@ -467,6 +521,12 @@ def eval_case(case, device, report):
     again = k.fused_vb_estep(xT, w, A, m, const)
     require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
             "fused_vb_estep: one input gave two outputs")
+    plan = _build.dense_plan("fused_vb_estep", K, D)
+    print("  fused_vb_estep pass %s: %d columns, %d slices, %d groups, %d B" % plan)
+    if plan[0] == "reg":
+        table = k.fused_vb_estep(xT, w, A, m, const, variant="table")
+        for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), table, ref):
+            compare("fused_vb_estep table %s/N" % name, g / N, r / N, "stats", report)
 
 
 EVAL_CASES = [
@@ -493,7 +553,43 @@ EVAL_CASES = [
     # fused_vb_estep's 64-particle tile
     (120, 1, N_ODD, True, False, True, 24),
     (120, 1, N_ODD, False, True, False, 25),
+    # fused_vb_estep's register pass at the edges of its plan (as
+    # KERNEL_CASES'); K=137 at D=1 takes the entry table
+    (16, 10, N_ODD, False, False, True, 32),
+    (17, 10, N_ODD, False, True, False, 33),
+    (11, 11, N_ODD, True, False, True, 34),
+    (8, 16, N_ODD, False, True, True, 35),
+    (128, 1, N_ODD, True, False, True, 36),
+    (137, 1, N_WIDE, False, False, True, 37),
 ]
+
+
+def vb_nonfinite_case(device, report):
+    """fused_vb_estep, each pass, on particles of which one has a NaN
+    coordinate and one an infinite one: where its float64 plain version's
+    statistics are NaN, so are the kernel's.  The register pass's projection
+    skips A's lower triangle, whose FMAs add exact zeros for a finite x but
+    NaN (0 x inf) for this one."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N = 10, 10, 4099
+    rng = np.random.default_rng(38)
+    A, m, const = vb_operands(make_params(random_mixture(rng, K, D, False), device))
+    xT = torch.tensor(rng.normal(0, 2, (D, N)), dtype=torch.float32, device=device)
+    xT[3, 17] = float("nan")
+    xT[7, 1000] = float("inf")
+    w = torch.ones((N,), dtype=torch.float32, device=device)
+    ref = k.plain_vb_estep(xT.double(), w.double(), A.double(), m.double(), const.double())
+    for variant in ("reg", "table"):
+        got = k.fused_vb_estep(xT, w, A, m, const, variant=variant)
+        for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+            require(bool(torch.equal(torch.isnan(g), torch.isnan(r))),
+                    "fused_vb_estep %s: %s NaN where the plain version's is not, or "
+                    "the other way" % (variant, name))
+    print("  fused_vb_estep, a NaN and an infinite coordinate: NaN where the plain "
+          "version's statistics are (%d of %d entries), both passes"
+          % (sum(int(torch.isnan(r).sum()) for r in ref), sum(r.numel() for r in ref)))
 
 
 def component_draw(params, n, seed):
@@ -952,6 +1048,7 @@ def phase_kernels(device, cases, eval_cases):
     for case in eval_cases:
         eval_case(case, device, report)
         torch.cuda.empty_cache()
+    vb_nonfinite_case(device, report)
     for case in TRANSFORM_CASES:
         transform_case(case, device, report)
     for case in TRANSFORM_RNG_CASES:
@@ -1060,6 +1157,11 @@ def phase_slice(device):
     require(abs(masses[0] - 0.3) < 0.05 and abs(masses[1] - 0.7) < 0.05,
             "slice: mode masses %s" % masses)
     require(counts["fused_is_pmc_step"] == STEPS, "slice: fused_is_pmc_step launches")
+    variants = {n: c for n, c in counts.items() if n.startswith("variant:")}
+    print("  statistics passes %s" % json.dumps(variants))
+    require(counts["variant:fused_is_pmc_step=reg"] == STEPS,
+            "slice: %d of %d fused_is_pmc_step launches took the register pass"
+            % (counts["variant:fused_is_pmc_step=reg"], STEPS))
     require(counts["fused_logq"] >= STEPS, "slice: fused_logq launches")
     require(counts["fused_propose_logq"] >= 2, "slice: fused_propose_logq launches")
     require(counts["fused_pmc_stats"] >= 2, "slice: fused_pmc_stats launches")
@@ -1315,6 +1417,11 @@ def phase_vb(device, report):
     vb_reference(vb, report)
     _, record, _, counts = instrumented_run(vb, "vb_step.py configuration",
                                             iterations=VB_ITERS, prune=1.0)
+    print("  statistics passes %s" % json.dumps(
+        {n: c for n, c in counts.items() if n.startswith("variant:fused_vb_estep")}))
+    require(counts["variant:fused_vb_estep=reg"] == counts["fused_vb_estep"],
+            "vb: %d of %d fused_vb_estep launches took the register pass"
+            % (counts["variant:fused_vb_estep=reg"], counts["fused_vb_estep"]))
     ms = [r[0] * 1e3 for r in record]
     print("  iteration ms (host clock): first %.3f, median of the rest %.3f"
           % (ms[0], float(np.median(ms[1:]))))
@@ -1508,8 +1615,9 @@ def blocked_case(case, device, report):
 
 def twin_case(device, report):
     """K=12, D=10, Kt=2 (K*D = 120: the dense and the K-blocked kernels
-    both take it).  The two steps from the same seed words draw the same
-    particles, and their weights and statistics agree; so do the two
+    both take it).  The two steps from the same seed words (the dense one
+    on both its passes) draw the same particles and weights, bit for bit
+    (a Gaussian target), and their statistics agree; so do the two
     statistics kernels and the two VB E-steps on those particles, and
     pmc_step_mixture_target and pmc_update forced to each route."""
     import torch
@@ -1522,10 +1630,14 @@ def twin_case(device, report):
     print("case twins", tag)
     xd, ld, wd, sd = k.fused_is_pmc_step((96, 1), ops, tops, N, True)
     xb, lb, wb, sb = k.fused_is_pmc_step_blocked((96, 1), ops, tops, N, True)
+    xt, lt, wt, _ = k.fused_is_pmc_step((96, 1), ops, tops, N, True, variant="table")
     sync(device)
-    require(bool(torch.equal(xd, xb)) and bool(torch.equal(ld, lb)),
-            "twins: the dense and the K-blocked step drew different particles")
-    print("  dense and K-blocked steps: the same %d particles" % N)
+    require(all(bool(torch.equal(a, b)) for a, b in ((xd, xb), (ld, lb), (wd, wb))),
+            "twins: the dense and the K-blocked step drew different particles or weights")
+    require(all(bool(torch.equal(a, b)) for a, b in ((xd, xt), (ld, lt), (wd, wt))),
+            "twins: the dense step's register and entry-table passes drew different "
+            "particles or weights")
+    print("  dense (both passes) and K-blocked steps: the same %d particles and weights" % N)
     dd = lambda st: {key: v.double() for key, v in st.items()}
     compare("twin: fused_is_pmc_step_blocked w", wb, wd.double(), "w", report)
     check_stats("twin: fused_is_pmc_step_blocked", sb, dd(sd), N, report)
@@ -2070,6 +2182,10 @@ def phase_times(device, report):
          lambda i, n: k.plain_rho(xs[n], ops), (N_PLAIN_MAX, N_SLICE))
     pair("fused_vb_estep", lambda i, n: k.fused_vb_estep(xs[n], ws[n], A, m, const),
          lambda i, n: k.plain_vb_estep(xs[n], ws[n], A, m, const), (N_PLAIN_MAX, N_SLICE))
+    # the entry-table pass at the same shapes: the yardstick of the election
+    for n in (N_PLAIN_MAX, N_SLICE):
+        times[("fused_vb_estep", n, "table")] = cuda_ms(
+            lambda i: k.fused_vb_estep(xs[n], ws[n], A, m, const, variant="table"))
     del xs, ws, log_q, log_p
     torch.cuda.empty_cache()
     # fused_maha and fused_logq at the shapes the main paths give them, each
@@ -2098,6 +2214,15 @@ def phase_times(device, report):
     pair("fused_is_pmc_step", lambda i, n: k.fused_is_pmc_step((i, 2), ops, tops, n, True),
          lambda i, n: k.plain_is_pmc_step((i, 2), ops, tops, n, True),
          (N_PLAIN_MAX, N_SLICE))
+    for n in (N_PLAIN_MAX, N_SLICE):
+        times[("fused_is_pmc_step", n, "table")] = cuda_ms(
+            lambda i: k.fused_is_pmc_step((i, 2), ops, tops, n, True, variant="table"))
+    for name in _build._DENSE:
+        for n in (N_PLAIN_MAX, N_SLICE):
+            print("  %s K=10 D=10 N=%d: the %s pass (elected) %.3f ms, the entry table %.3f ms, "
+                  "bound %.3f ms" % (name, n, _build.dense_plan(name, 10, 10, 2)[0],
+                                     times[(name, n, "cuda")], times[(name, n, "table")],
+                                     bound(name, (10, 2, 10, n))[1]))
     torch.cuda.empty_cache()
 
     # the transforms on the flagship proposal: normals, components and
@@ -2167,15 +2292,17 @@ def phase_times(device, report):
     return times
 
 
-# the shapes (K, Kt, D, N) the main paths give fused_maha, fused_logq and
-# fused_rho: the D=40 pipeline's VB2 and PMC mixtures (K=31-32) at n_is1 =
-# 2^20 particles (fused_rho: its PMC updates, mix_adapt/pmc.py), its K=2
-# target at 2^22, and the K=200 step's log-likelihood of the updated mixture
-# at 10^7 particles
+# the shapes (K, Kt, D, N) the main paths give fused_maha, fused_logq,
+# fused_rho and fused_transform: the D=40 pipeline's VB2 and PMC mixtures
+# (K=31-32) at n_is1 = 2^20 particles (fused_rho: its PMC updates,
+# mix_adapt/pmc.py; fused_transform: its draws, the looped DMAX 128
+# instantiation), its K=2 target at 2^22, and the K=200 step's
+# log-likelihood of the updated mixture at 10^7 particles
 MAIN_SHAPES = {"fused_maha": [(32, 0, 40, N_FLAGSHIP)],
                "fused_logq": [(32, 0, 40, N_FLAGSHIP), (2, 0, 40, N_PLAIN_MAX),
                               (200, 0, 10, N_SLICE)],
-               "fused_rho": [(32, 0, 40, N_FLAGSHIP)]}
+               "fused_rho": [(32, 0, 40, N_FLAGSHIP)],
+               "fused_transform": [(32, 0, 40, N_FLAGSHIP)]}
 # the pool's shapes (C, Kt, D, steps): the D=40 pipeline's (32 chains, the
 # 2-component target, 400 steps a cycle) and the mcmc phase's
 POOL_SHAPES = [(32, 2, 40, 400), (16384, 1, 10, 500)]
@@ -2233,6 +2360,18 @@ def main_shape_ms(device, name, shape, report):
         compare(label + " rho", rho, rho_ref, "rho", report)
         compare(label + " log_q", log_q, log_q_ref, "log", report)
         del rho, log_q, rho_ref, log_q_ref
+    elif name == "fused_transform":
+        from pypmc_tpu_torch.ops.random import student_t_scale
+
+        gen = torch.Generator(device=device).manual_seed(K + D)
+        zT = torch.randn((D, N), generator=gen, device=device)
+        latent = component_draw(params, N, K + D)
+        scale = student_t_scale(gen, params.dof[latent.long()], (N,))
+        kernel = lambda i: k.fused_transform(zT, latent, scale, ops)
+        plain = lambda i: k.plain_transform(zT, latent, scale, ops)
+        ops64 = k.MixtureOperands(ops.packed.double(), K, D, ops.student_t)
+        compare(label, kernel(0), k.plain_transform(zT.double(), latent, scale.double(), ops64),
+                "log", report)
     elif name == "fused_maha":
         A, m, _ = vb_operands(params)
         kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
@@ -2362,13 +2501,14 @@ def kernel_work(name, shape=None):
     draw = D * (D + 1) + 2 * D                      # mu + scale * (L z)
     stats = K * (D * (D + 1) + 2 * D)               # sd and the lower Gram blocks
     dense = K * (2 * D * D + 3 * D)                 # a (x - m), full matrices
+    upper = K * (D * (D + 1) + 3 * D)               # the same, a upper triangular
     work = {
         "fused_logq": (4 * (D + 1) * N, N * ev(K)),
         "fused_rho": (4 * (D + K + 1) * N, N * ev(K)),
         "fused_maha": (4 * (D + K) * N, N * dense),
         "vb_lse": (4 * (D + 1) * N, N * dense),
         "fused_pmc_stats": (4 * (D + 1) * N, N * (ev(K) + stats)),
-        "fused_vb_estep": (4 * (D + 1) * N, N * (dense + stats)),
+        "fused_vb_estep": (4 * (D + 1) * N, N * (upper + stats)),
         "fused_propose_logq": (4 * (D + 3) * N, N * (draw + ev(K) + ev(Kt))),
         "fused_is_pmc_step": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
         "fused_transform": (4 * (2 * D + 2) * N, N * draw),
@@ -2396,7 +2536,7 @@ def bound(name, shape=None):
 # local array either, and both variants of the pool up to DMAX 64 (the
 # thread variant's record instantiations, DMAX 8/16/32/40/64; the warp
 # variant's DMAX 32 and 64, with the rows of L in registers and without)
-REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16,
+REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16, "dense_reg_kernel": 16,
                     "logq_kernel": 64, "maha_kernel": 64, "rho_kernel": 64,
                     "mcmc_pool_kernel": 64, "mcmc_pool_warp_kernel": 64}
 RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel")
@@ -2420,9 +2560,10 @@ def register_kernels(log):
         out.append(("%s<%s>" % (base, ", ".join(re.findall(r"L[ib](\d+)E", args))),
                     int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
                     int(stack.group(1)) if stack else 0))
-    # DMAX 8 and 16 of the first two, 8, 16, 32, 40 and 64 of the record
-    # kernels and the thread pool, 32 and 64 twice of the warp pool
-    require(len(out) >= 2 * 2 + 5 * len(RECORD_KERNELS) + 5 + 2 * 2,
+    # DMAX 8 and 16 of the first two and of the dense register kernel's
+    # two kinds, 8, 16, 32, 40 and 64 of the record kernels and the thread
+    # pool, 32 and 64 twice of the warp pool
+    require(len(out) >= 2 * 2 + 2 * 2 + 5 * len(RECORD_KERNELS) + 5 + 2 * 2,
             "ptxas reported %d register kernels" % len(out))
     return out
 
@@ -2463,11 +2604,13 @@ def phase_build():
                      (2, 2, 40), (32, 2, 40), (60, 2, 32), (1, 1, 128), (400, 2, 2), (200, 2, 10),
                      (96, 2, 40), (12, 2, 10), (3, 1, 128), (21, 2, 10), (20, 2, 12), (8, 1, 16),
                      (5, 1, 1), (600, 2, 10), (5, 1, 64), (3, 1, 33), (4, 1, 128), (120, 2, 1),
-                     (1, 1, 200), (2, 2, 1000)):
+                     (1, 1, 200), (2, 2, 1000), (16, 2, 10), (17, 2, 10), (11, 2, 11),
+                     (8, 2, 16), (1, 1, 16), (2, 2, 16), (128, 2, 1), (136, 2, 1), (137, 2, 1),
+                     (137, 0, 1), (40, 2, 9), (30, 2, 10), (4, 2, 4)):
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
                      ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
-                     ("fused_is_pmc_step", lib.pmc_stats_smem_bytes(K, Kt, D, 1)),
+                     ("fused_is_pmc_step", lib.pmc_is_pmc_step_smem_bytes(K, Kt, D)),
                      ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
                      ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
                      ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
@@ -2486,6 +2629,16 @@ def phase_build():
                     "shared-memory formula differs from the kernel's (the %s pool)" % variant)
         require(lib.pmc_stats_tile(K, D) == _build.stats_tile(K, D),
                 "tile formula differs from the kernel's (the statistics kernels)")
+        require(lib.pmc_stats_smem_bytes(K, Kt, D, 1)
+                == _build._table_bytes("fused_is_pmc_step", K, D, Kt),
+                "shared-memory formula differs from the kernel's (the step's entry table)")
+        for kernel, vb in (("fused_is_pmc_step", 0), ("fused_vb_estep", 1)):
+            out = (ctypes.c_int * 4)()
+            smem = lib.pmc_dense_plan(K, Kt, D, vb, out)
+            got = ("reg" if out[0] else "table", out[1], out[2], out[3], smem)
+            require(got == _build.dense_plan(kernel, K, D, Kt),
+                    "plan differs from the kernel's (%s, K=%d, D=%d): %s, %s"
+                    % (kernel, K, D, got, _build.dense_plan(kernel, K, D, Kt)))
         for kernel, vb in (("fused_pmc_stats_blocked", 0), ("fused_vb_estep_blocked", 1)):
             require(lib.pmc_blocked_chunk(K, D, vb) == _build.blocked_plan(kernel, K, D)[0],
                     "chunk formula differs from the kernel's (%s)" % kernel)
@@ -2498,6 +2651,15 @@ def phase_build():
         for D in (1, 8, 9, 16, 17, 32, 33, 40, 41, 64, 65, 128):
             require(POOL_VARIANTS[lib.pmc_mcmc_pool_variant(C, D)] == _build.pool_variant(C, D),
                     "the pool's election differs from the kernel's (C=%d, D=%d)" % (C, D))
+    # the dense register kernels' occupancy at the slices' K=10, D=10
+    for kernel, per_sm in (("fused_is_pmc_step", lib.pmc_is_pmc_step_per_sm(10, 2, 10)),
+                           ("fused_vb_estep", lib.pmc_vb_estep_per_sm(10, 10))):
+        plan = _build.dense_plan(kernel, 10, 10, 2)
+        print("  %s K=10 D=10: the %s pass, %d blocks of %d threads an SM (%d warps), %d slices, "
+              "%d B of shared memory a block" % (kernel, plan[0], per_sm, _build.THREADS,
+                                                 per_sm * _build.THREADS // 32, plan[2], plan[4]))
+        require(plan[0] == "reg" and per_sm >= 3,
+                "%s at K=10, D=10: the %s pass, %d blocks an SM" % (kernel, plan[0], per_sm))
     # the record kernels' occupancy where the main paths run them
     for K, D in ((32, 40), (200, 10)):
         for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D)),
@@ -2618,6 +2780,12 @@ def main():
         }
         if (kname, N_SLICE, "cuda") in times:
             entry.update(ms_slice_n=times[(kname, N_SLICE, "cuda")], slice_n=N_SLICE)
+        if (kname, n, "table") in times:
+            # the register pass's two kernels: the pass elected at the
+            # shape, and the entry-table pass's times there
+            entry.update(variant=_build.dense_plan(kname, 10, 10, 2)[0],
+                         table_ms=times[(kname, n, "table")],
+                         table_ms_slice_n=times[(kname, N_SLICE, "table")])
         for sn in (n, N_SLICE):
             if (kname, sn, "split") in times:
                 entry["launch_ms" if sn == n else "launch_ms_slice_n"] = times[(kname, sn, "split")]
@@ -2655,8 +2823,10 @@ def main():
           "version streamed over component chunks; the six warp-a-particle kernels at K=1, "
           "D=200, N=2^16; the K-blocked statistics kernels' first launch, launch_ms, beside its "
           "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
-          "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there); library_ms null: no one PyTorch call computes these "
-          "functions"
+          "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
+          "fused_vb_estep and fused_is_pmc_step elect at K=10, D=10, table_ms and "
+          "table_ms_slice_n their entry-table pass there); library_ms null: no one PyTorch "
+          "call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -24,24 +24,14 @@
 //
 // Two designs, by D (blocked_plan, mirrored by ops/_build.py blocked_plan):
 //
-// D <= 16, blocked_reg_stats_kernel.  The chunk's operands are staged as
-// 16-byte component records (common.cuh stage_records).  A tile holds 64
-// particles; in phase 1 each particle has two threads, each evaluating half
-// of the chunk's components and writing, per component, D + 3 rows of the
-// tile: diff_0 .. diff_{D-1}, w rho, c = w rho gamma, t1.  In phase 2 each
-// thread owns one (component, row band) pair and one of 8 column slices
-// (columns slice + 8 m): per column it reads the component's D + 3 values
-// once into registers and updates the band's statistic entries, held in
-// float32 registers (s0, s0c, t1 with band 0, then per row i sd_i and g_i0 ..
-// g_ii).  At D <= 10 one band holds every row and a chunk has 16 components;
-// at 11 <= D <= 16 rows [0, 10), [10, 13) and [13, 16) are three bands of 4
-// components each (a warp each), so that no thread holds more than 68
-// accumulators and the DMAX 16 kernel keeps them in registers.  Every 16 tiles
-// (128 columns a slice, the float32 span of the dense kernels' tile) the
-// slices write their sums to shared memory and the 8 slices of each entry
-// are added in slice order into the float64 accumulators.  A warp's lanes
-// are 4 components times 8 slices; the tile stride makes the component's
-// rows 8 banks apart (reg_stride), so a phase-2 load hits 32 banks.
+// D <= 16, blocked_reg_stats_kernel: the register pass of reg_stats.cuh
+// with 8 column slices.  The chunk's operands are staged as 16-byte
+// component records (common.cuh stage_records).  In phase 1 each particle of
+// the 64-particle tile has two threads, each evaluating half of the chunk's
+// components and writing, per component, its D + 3 rows of the tile.  At
+// D <= 10 a chunk has 16 components (one band), at 11 <= D <= 16 4 components
+// (three bands, a warp each): a chunk is one group of the block's pairs, so
+// the accumulators stay in registers from flush to flush.
 //
 // D > 16, blocked_stats_kernel: the tile, entry table and accumulation of
 // stats.cuh for kc components; a block stages its chunk in shared memory when
@@ -52,7 +42,7 @@
 
 #include <type_traits>
 
-#include "stats.cuh"
+#include "reg_stats.cuh"
 
 namespace pmc {
 
@@ -70,27 +60,10 @@ struct BlockedPlan {
 };
 
 // ---- the register pass (D <= 16) ----
-constexpr int kRegDMax = 16;
-constexpr int kRegCols = 64;                        // particles a tile
 constexpr int kRegGroups = kThreads / kRegCols;     // threads a particle in phase 1
-constexpr int kRegSlices = 8;                       // column slices in phase 2
-constexpr int kRegPairs = kThreads / kRegSlices;    // (component, band) pairs a block
-constexpr int kRegFlush = 16;                       // tiles between two flushes
-constexpr int kRegSplit0 = 10, kRegSplit1 = 13;     // DMAX 16's bands: [0, 10), [10, 13), [13, 16)
 
-__host__ __device__ inline int reg_bands(int D) { return D > kRegSplit0 ? 3 : 1; }
-// components a chunk: a band's pairs, whole warps of 4 components
-__host__ __device__ inline int reg_chunk(int D) { return reg_bands(D) == 1 ? kRegPairs : 4; }
-// tile rows a component: diff_0 .. diff_{D-1}, w rho, c, t1, made odd
-__host__ __device__ inline int reg_rows(int D) { return (D + 3) | 1; }
-// tile row stride: reg_rows(D) * stride = 8 (mod 32), so the 4 components of
-// a warp's phase-2 loads start 8 banks apart
-__host__ __device__ inline int reg_stride(int D) {
-  const int rb = reg_rows(D);
-  int inv = 1;
-  while ((rb * inv) % 32 != 1) inv += 2;
-  return kRegCols + (8 * inv) % 32;
-}
+// components a chunk: one group of the block's pairs at 8 slices
+__host__ __device__ inline int reg_chunk(int D) { return reg_per_group(D, kRegSlices); }
 __host__ __device__ inline int reg_rec_floats(int D, bool vb) {
   return vb ? vb_rec_floats(D) : rec_floats(D);
 }
@@ -98,7 +71,7 @@ __host__ __device__ inline int reg_rec_floats(int D, bool vb) {
 // global entries' per-particle sums reuse
 __host__ __device__ inline size_t reg_region(int kc, int D) {
   const size_t P = StatsLayout{1, D}.per_component();
-  const size_t tile = static_cast<size_t>(kc) * reg_rows(D) * reg_stride(D);
+  const size_t tile = static_cast<size_t>(kc) * reg_rows(D) * reg_stride(D, kRegSlices);
   const size_t scratch = kRegSlices * kc * P + 3 * kRegCols;
   return tile > scratch ? tile : scratch;
 }
@@ -226,72 +199,6 @@ blocked_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   }
 }
 
-// ---- the register pass: phase 2 and the flush of one (component, band) ----
-
-// index, in a band's accumulators, of row i's sd_i (g_i0 .. g_ii follow);
-// band 0 starts with s0, s0c, t1
-__host__ __device__ constexpr int band_base(int r0, int i) {
-  return (r0 == 0 ? 3 : 0) + (i - r0) * (i + r0 + 3) / 2;
-}
-// accumulators a thread holds: band 0's, the largest band of its DMAX
-template <int DMAX>
-__host__ __device__ constexpr int reg_acc_count() {
-  return DMAX <= 8 ? band_base(0, 8) : band_base(0, kRegSplit0);
-}
-
-// Phase 2: add the columns slice + 8 m of one component's tile rows (``rows``
-// points at its diff_0 row, column ``slice``; ``ts`` the row stride) into
-// the accumulators of rows [R0, R1).
-template <int R0, int R1, int NA>
-__device__ __forceinline__ void reg_accumulate(const float* rows, int ts, int D,
-                                               float (&a)[NA]) {
-#pragma unroll 2
-  for (int m = 0; m < kRegCols / kRegSlices; ++m) {
-    const float* col = rows + m * kRegSlices;
-    float d[R1 > 0 ? R1 : 1];
-#pragma unroll
-    for (int i = 0; i < R1; ++i) d[i] = i < D ? col[i * ts] : 0.0f;
-    const float c = col[(D + 1) * ts];
-    if (R0 == 0) {
-      a[0] += col[D * ts];
-      a[1] += c;
-      a[2] += col[(D + 2) * ts];
-    }
-#pragma unroll
-    for (int i = R0; i < R1; ++i) {
-      if (i < D) {
-        const float cd = c * d[i];
-        const int b = band_base(R0, i);
-        a[b] += cd;
-#pragma unroll
-        for (int j = 0; j <= i; ++j) a[b + 1 + j] = fmaf(cd, d[j], a[b + 1 + j]);
-      }
-    }
-  }
-}
-
-// The flush, first half: a band's sums to the slice's row of the scratch
-// (entries of the component at ``out``, in the StatsLayout order), then 0.
-template <int R0, int R1, int NA>
-__device__ __forceinline__ void reg_store(float* out, int D, float (&a)[NA]) {
-  if (R0 == 0) {
-    out[0] = a[0];
-    out[1] = a[1];
-    out[2] = a[2];
-  }
-#pragma unroll
-  for (int i = R0; i < R1; ++i) {
-    if (i < D) {
-      const int b = band_base(R0, i);
-      out[3 + i] = a[b];
-#pragma unroll
-      for (int j = 0; j <= i; ++j) out[3 + D + i * (i + 1) / 2 + j] = a[b + 1 + j];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < NA; ++e) a[e] = 0.0f;
-}
-
 // The statistics pass for D <= 16 (DMAX 8 or 16): xT (D, N); wts (N,) the
 // weights (PMC, VB) or, for the step, the output the weights w = exp(log p -
 // log q) are written to (by chunk 0); norm (N,) log q (PMC, step) or the VB
@@ -304,11 +211,7 @@ blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
                          const float* __restrict__ chunks, double* __restrict__ partial,
                          long long N, int K, int D, int kc, int student_t, int dof_stats) {
   constexpr bool vb = KIND == kBlockedVb;
-  // the bands: rows [0, B0), [B0, B1), [B1, DMAX)
-  constexpr int B0 = DMAX <= 8 ? DMAX : kRegSplit0;
-  constexpr int B1 = DMAX <= 8 ? DMAX : kRegSplit1;
-  constexpr int NA = reg_acc_count<DMAX>();
-  static_assert(band_base(B0, B1) <= NA && band_base(B1, DMAX) <= NA, "a band past NA");
+  using Bands = RegBands<DMAX>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int chunk = blockIdx.y;
@@ -317,7 +220,7 @@ blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   const int P = StatsLayout{1, D}.per_component();
   const int F = reg_rec_floats(D, vb);
   const int D4 = pad4(D);
-  const int ts = reg_stride(D);
+  const int ts = reg_stride(D, kRegSlices);
   const int comp_floats = reg_rows(D) * ts;
   float* recs = smem;
   float* tile = smem + kc * F;      // also the flush's scratch
@@ -339,9 +242,9 @@ blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   const bool owner = jc < kca && band < reg_bands(D);
   const float* my_rows = tile + jc * comp_floats + slice;
 
-  float a[NA];
+  float a[Bands::NA];
 #pragma unroll
-  for (int e = 0; e < NA; ++e) a[e] = 0.0f;
+  for (int e = 0; e < Bands::NA; ++e) a[e] = 0.0f;
   float sw = 0.0f, sw2 = 0.0f, swlogw = 0.0f;   // this column's particles (grp 0)
 
   const long long n_tiles = (N + kRegCols - 1) / kRegCols;
@@ -414,23 +317,14 @@ blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
         out[(D + 2) * ts] = t1;
       }
       __syncthreads();
-      if (owner) {
-        if (band == 0) reg_accumulate<0, B0>(my_rows, ts, D, a);
-        else if (band == 1) reg_accumulate<B0, B1>(my_rows, ts, D, a);
-        else reg_accumulate<B1, DMAX>(my_rows, ts, D, a);
-      }
+      if (owner) Bands::accumulate(band, my_rows, ts, D, kRegSlices, kRegCols / kRegSlices, a);
       __syncthreads();
       ++since;
     }
     if (since == kRegFlush || (!more && since > 0)) {
       // the slices' sums to the scratch, then each entry's 8 slices in order
       float* scratch = tile;
-      if (owner) {
-        float* out = scratch + slice * E + jc * P;
-        if (band == 0) reg_store<0, B0>(out, D, a);
-        else if (band == 1) reg_store<B0, B1>(out, D, a);
-        else reg_store<B1, DMAX>(out, D, a);
-      }
+      if (owner) Bands::store(band, scratch + slice * E + jc * P, D, a);
       if (grp == 0) {
         scratch[kRegSlices * E + p] = sw;
         scratch[kRegSlices * E + kRegCols + p] = sw2;
@@ -438,17 +332,7 @@ blocked_reg_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
         sw = sw2 = swlogw = 0.0f;
       }
       __syncthreads();
-      for (int e = t; e < kca * P; e += kThreads) {
-        double v = 0.0;
-#pragma unroll
-        for (int sl = 0; sl < kRegSlices; ++sl) v += scratch[sl * E + e];
-        acc[e] += v;
-      }
-      if (t < 3) {
-        double v = 0.0;
-        for (int q = 0; q < kRegCols; ++q) v += scratch[kRegSlices * E + t * kRegCols + q];
-        acc[kca * P + t] += v;
-      }
+      reg_flush(scratch, kRegSlices, E, kca * P, acc, false);
       __syncthreads();
       since = 0;
     }

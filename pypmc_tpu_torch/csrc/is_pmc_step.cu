@@ -7,15 +7,28 @@
 //
 // Bound on the H100: it reads nothing per particle and writes D + 2 words;
 // the work is the draw (Philox, Box-Muller, Marsaglia-Tsang on the SFU),
-// K + K_target whitened evaluations (D (D + 1) / 2 FMAs each) and the
-// statistics phase of stats.cuh -- FP32-FMA-, SFU- and shared-memory-bound.
-// No tensor cores at D = 10.  Design: the draw of propose_logq.cu
-// (one thread per particle, Philox counted by the global particle index)
-// feeding the statistics tile of stats.cuh while the sample is still in
-// registers: samples and weights are written once and never re-read.
-// Particles past N draw nothing and get weight 0, which zeroes every
-// factor of every statistic they touch.
-#include "stats.cuh"
+// K + K_target whitened evaluations (D (D + 1) / 2 FMAs each) and the K
+// (D (D + 1) / 2 + D) FMAs of the statistics -- FP32-FMA-, SFU- and
+// shared-memory-bound.  No tensor cores at D = 10.  The draw is
+// propose_logq.cu's (one thread a particle, Philox counted by the global
+// particle index), the sample kept on chip until the statistics are
+// formed: samples and weights are written once and never re-read.
+// Particles past N draw nothing and get weight 0, which zeroes every factor
+// of every statistic they touch.  Two designs (reg_stats.cuh dense_plan):
+//   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel,
+//     the components as 16-byte records (whiten_rec), two threads a
+//     particle in the evaluation and the statistics in float32 registers,
+//     D + 3 shared reads a (particle, component);
+//   elsewhere the entry-table kernel below (stats.cuh), ~3 shared reads for
+//     each of the K (3 + D + D (D + 1) / 2) + 3 entries a particle.
+// Both draw the same particles (x and latent bit for bit) and form log q
+// with the same arithmetic in the same order.  The register kernel
+// evaluates log p on the target's records, as fused_is_pmc_step_blocked's
+// first launch (is_pmc_step_blocked.cu) does, so its w is that launch's bit
+// for bit; the entry-table kernel's log p (mixture_logpdf as compiled there)
+// is the same for a Gaussian target and differs in its last bits for a
+// Student-t one.
+#include "reg_stats.cuh"
 
 namespace pmc {
 
@@ -68,18 +81,41 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
 
 }  // namespace pmc
 
+// variant: -1 the plan's kernel, 0 the entry-table kernel, 1 the register
+// kernel (an error where the plan does not take it)
 extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      const float* mix, const float* tmix,
                                      float* xT, int* latent, float* w,
                                      double* partial, float* stats, long long N,
                                      int K, int Kt, int D, int student_t,
-                                     int t_student_t, int dof_stats,
+                                     int t_student_t, int dof_stats, int variant,
                                      int n_blocks, void* stream) {
   using namespace pmc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DensePlan plan = dense_plan(K, Kt, D, false);
+  if (variant < 0 ? plan.reg : variant == 1) {
+    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+    DenseArgs args{};
+    args.ops = mix;
+    args.tmix = tmix;
+    args.xT = xT;
+    args.w = w;
+    args.latent = latent;
+    args.partial = partial;
+    args.N = N;
+    args.K = K;
+    args.Kt = Kt;
+    args.D = D;
+    args.s0 = s0;
+    args.s1 = s1;
+    args.student_t = student_t;
+    args.t_student_t = t_student_t;
+    args.dof_stats = dof_stats;
+    return launch_dense_reg<false>(args, plan, stats, n_blocks, s);
+  }
   const StatsLayout S = stats_layout(K, D);
   const int params = MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size();
   const size_t smem = stats_launch_smem(S, params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -94,4 +130,30 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_reduce(partial, stats, n_blocks, S.entries(), s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// shared memory the launcher asks for with the plan's kernel (checked
+// against ops/_build.py)
+extern "C" long long pmc_is_pmc_step_smem_bytes(int K, int Kt, int D) {
+  return static_cast<long long>(pmc::dense_plan(K, Kt, D, false).smem);
+}
+
+// blocks of the register kernel for (K, Kt, D) that fit on one SM at once (0
+// where the plan takes the entry-table kernel, -1 on an error)
+extern "C" int pmc_is_pmc_step_per_sm(int K, int Kt, int D) {
+  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, false);
+  return plan.reg ? pmc::dense_reg_per_sm<false>(D, plan.smem) : 0;
+}
+
+// the plan of fused_vb_estep (vb 1) or fused_is_pmc_step (vb 0) for (K, Kt,
+// D), checked against ops/_build.py dense_plan: out = {register kernel (1)
+// or entry table (0), tile columns, column slices, component groups}; the
+// shared memory a block
+extern "C" long long pmc_dense_plan(int K, int Kt, int D, int vb, int* out) {
+  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, vb != 0);
+  out[0] = plan.reg ? 1 : 0;
+  out[1] = plan.reg ? pmc::kRegCols : pmc::stats_layout(K, D).tw;
+  out[2] = plan.slices;
+  out[3] = plan.groups;
+  return static_cast<long long>(plan.smem);
 }

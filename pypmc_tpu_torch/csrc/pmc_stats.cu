@@ -87,8 +87,9 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// shared memory the statistics kernels ask for (checked against the
-// Python-side limit in ops/_build.py)
+// shared memory of the entry-table kernels (fused_pmc_stats's, and
+// fused_is_pmc_step's where its plan takes that kernel; checked against
+// ops/_build.py)
 extern "C" long long pmc_stats_smem_bytes(int K, int Kt, int D, int is_step) {
   using namespace pmc;
   const int params = is_step ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()

@@ -6,11 +6,11 @@
 // (fused_vb_estep, body _vb_estep_kernel).
 //
 // Operands, one flat float32 buffer: A (K, D, D) | m (K, D) | c (K), with
-// A_k = sqrt(nu_k) chol(W_k)^T (UPPER triangular, read whole by project)
-// and c_k = E[ln pi_k] + (E[ln |Lambda_k|] - D ln 2 pi - D / beta_k) / 2, so
-// that log rho_k = c_k - |A_k (x - m_k)|^2 / 2.  Per particle: the plain
-// (unweighted) log-sum-exp over k, r_k = exp(log rho_k - lse), and the
-// entries of stats.cuh with these rows:
+// A_k = sqrt(nu_k) chol(W_k)^T (UPPER triangular) and c_k = E[ln pi_k] +
+// (E[ln |Lambda_k|] - D ln 2 pi - D / beta_k) / 2, so that log rho_k = c_k -
+// |A_k (x - m_k)|^2 / 2.  Per particle: the plain (unweighted) log-sum-exp
+// over k, r_k = exp(log rho_k - lse), and the entries of stats.cuh with
+// these rows:
 //   wrho = c = w r_k, t1 = w r_k log r_k, diff = A_k (x - m_k),
 // so s0 = N_k, sd = sum w r diff (whitened first moment), g = lower
 // triangle of sum w r diff diff^T (whitened second moment), and
@@ -18,12 +18,19 @@
 // triangular solves.  A zero weight (and a particle past N) contributes
 // exactly 0.
 //
-// Bound on the H100: as fused_pmc_stats (pmc_stats.cu): K D^2 FMAs of the
-// projection and, in the statistics phase, ~3 shared-memory reads for each
-// of the K (3 + D + D (D + 1) / 2) + 3 entries a particle (683 at K = 10,
-// D = 10): shared-memory-bound.  The statistics reduce in float64 within a
-// block and over blocks in a fixed order (stats.cuh), into float64 outputs.
-#include "stats.cuh"
+// Bound on the H100: K D (D + 1) / 2 FMAs of the projection and K (D (D + 1)
+// / 2 + D) of the statistics a particle, for 4 (D + 1) bytes read: FP32-
+// and shared-memory-bound.  Two designs (reg_stats.cuh dense_plan):
+//   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel,
+//     one launch, the projection reading only A's upper triangle from
+//     16-byte records (D (D + 1) / 2 FMAs, not D^2) and the statistics in
+//     float32 registers, D + 3 shared reads a (particle, component);
+//   elsewhere the entry-table kernel below: the tile of stats.cuh, ~3
+//     shared reads for each of the K (3 + D + D (D + 1) / 2) + 3 entries a
+//     particle, the projection reading all of A (project).
+// Either reduces in float64 within a block and over blocks in a fixed order,
+// into float64 outputs.
+#include "reg_stats.cuh"
 
 namespace pmc {
 
@@ -91,16 +98,30 @@ vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
 }  // namespace pmc
 
 // ops: A | m | c as above; partial: (n_blocks, S) float64 scratch; stats:
-// (S,) float64 output in the entry order of stats.cuh
-extern "C" int pmc_fused_vb_estep(const float* xT, const float* w,
-                                  const float* ops, double* partial,
-                                  double* stats, long long N, int K, int D,
-                                  int n_blocks, void* stream) {
+// (S,) float64 output in the entry order of stats.cuh; variant: -1 the
+// plan's, 0 the entry-table kernel, 1 the register kernel (an error where
+// the plan does not take it)
+extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* ops,
+                                  double* partial, double* stats, long long N, int K,
+                                  int D, int variant, int n_blocks, void* stream) {
   using namespace pmc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DensePlan plan = dense_plan(K, 0, D, true);
+  if (variant < 0 ? plan.reg : variant == 1) {
+    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+    DenseArgs args{};
+    args.ops = ops;
+    args.xT = const_cast<float*>(xT);
+    args.w = const_cast<float*>(w);
+    args.partial = partial;
+    args.N = N;
+    args.K = K;
+    args.D = D;
+    return launch_dense_reg<true>(args, plan, stats, n_blocks, s);
+  }
   const StatsLayout S = stats_layout(K, D);
   const int params = K * D * D + K * D + K;
   const size_t smem = stats_launch_smem(S, params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -116,9 +137,15 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// shared memory the launcher asks for (checked against ops/_build.py)
+// shared memory the launcher asks for with the plan's kernel (checked
+// against ops/_build.py)
 extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
-  using namespace pmc;
-  return static_cast<long long>(
-      stats_launch_smem(stats_layout(K, D), K * D * D + K * D + K));
+  return static_cast<long long>(pmc::dense_plan(K, 0, D, true).smem);
+}
+
+// blocks of the register kernel for (K, D) that fit on one SM at once (0
+// where the plan takes the entry-table kernel, -1 on an error)
+extern "C" int pmc_vb_estep_per_sm(int K, int D) {
+  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, true);
+  return plan.reg ? pmc::dense_reg_per_sm<true>(D, plan.smem) : 0;
 }

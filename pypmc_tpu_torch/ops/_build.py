@@ -15,10 +15,13 @@ to D = 64 in the record kernels of ``fused_logq``, ``fused_rho`` and
 :data:`WIDE` run a warp a particle with its coordinates in shared memory
 (``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense statistics
 kernels keep a tile of per-particle rows and their accumulators in shared
-memory, which must fit :data:`SMEM_LIMIT`: a tile of 128 particles, or of
-64 where that does not fit (:func:`stats_tile`); every kernel stages its
-mixture operands there too when they fit beside, and otherwise reads them
-from device memory.  The K-blocked kernels walk the components in chunks
+memory, which must fit :data:`SMEM_LIMIT`: ``fused_vb_estep`` and
+``fused_is_pmc_step`` up to D = 16 the register pass's tile of 64 columns
+and all K components' records (:func:`dense_plan`), and elsewhere, as
+``fused_pmc_stats``, the entry-table pass's tile of 128 particles, or of 64
+where that does not fit (:func:`stats_tile`); the entry-table kernels stage
+their mixture operands there too when they fit beside, and otherwise read
+them from device memory.  The K-blocked kernels walk the components in chunks
 sized from shared memory (:func:`blocked_plan`), and so do the record
 kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
 :func:`limit_reason` names the limit a shape breaks, and the wrappers raise
@@ -38,8 +41,9 @@ from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
-           "block_particles", "stats_tile", "pool_variant", "pool_smem_bytes", "blocked_plan",
-           "draw_smem_bytes", "limit_reason", "check_limits", "load", "build_info"]
+           "block_particles", "stats_tile", "dense_plan", "pool_variant", "pool_smem_bytes",
+           "blocked_plan", "draw_smem_bytes", "limit_reason", "check_limits", "load",
+           "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -91,12 +95,14 @@ _POOL_WARP_D_MAX = 64
 _POOL_WARP_CHAINS = ((8, 0), (16, 4096), (32, 8192), (40, 32768), (_POOL_WARP_D_MAX, 1 << 62))
 _HALF_SMEM = 228 * 1024 // 2 - 1024   # csrc/common.cuh kHalfSmem
 # the dense statistics kernels (csrc/stats.cuh) and the largest D of their
-# 64-particle tile (kNarrowTileDMax)
+# 64-particle tile (kNarrowTileDMax); the two with a register pass
 _STATS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
+_DENSE = ("fused_is_pmc_step", "fused_vb_estep")
 _NARROW_TILE_D_MAX = 8
-# csrc/blocked.cuh: the register statistics pass (D <= 16)
+# csrc/reg_stats.cuh: the register statistics pass (D <= 16): its tile's
+# columns, the K-blocked pass's slices (the dense kernels' fewest), the
+# last row of band 0
 _REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
-_REG_PAIRS = THREADS // _REG_SLICES
 
 
 def _pad4(n):
@@ -113,21 +119,60 @@ def _rec_floats(D, vb=False):
     return _pad4(D) + 4 + rows
 
 
-def _reg_stride(D):
+def _reg_per_group(D, S):
+    """Components a group of the register pass's pairs at S slices
+    (``reg_per_group``): the block's 128 / S pairs in one band (D <= 10),
+    a warp's 32 / S in each of three (11 <= D <= 16)."""
+    return (THREADS if D <= _REG_SPLIT else 32) // S
+
+
+def _reg_stride(D, S=_REG_SLICES):
     """Tile row stride of the register pass (``reg_stride``): (D + 3) | 1
-    rows a component times the stride is 8 (mod 32)."""
+    rows a component times the stride is S (mod 32)."""
     rb = (D + 3) | 1
     inv = next(x for x in range(1, 32, 2) if rb * x % 32 == 1)
-    return _REG_COLS + 8 * inv % 32
+    return _REG_COLS + S * inv % 32
+
+
+def _reg_region(K, D, S, groups):
+    """Floats of the register pass's tile of K components and the flush's
+    scratch (S slices of K P entries and the global sums' 3 x 64): one
+    region where the accumulators stay in registers (one group), the two
+    side by side where the scratch holds running sums."""
+    P = 3 + D + D * (D + 1) // 2
+    tile = K * ((D + 3) | 1) * _reg_stride(D, S)
+    scratch = S * K * P + 3 * _REG_COLS
+    return max(tile, scratch) if groups == 1 else tile + scratch
 
 
 def _reg_bytes(kc, D, vb):
     """``reg_smem_bytes``: kc records, the tile (or, where larger, the
     flush's scratch) and the float64 accumulators."""
     P = 3 + D + D * (D + 1) // 2
-    region = max(kc * ((D + 3) | 1) * _reg_stride(D), _REG_SLICES * kc * P + 3 * _REG_COLS)
-    offset = (4 * (kc * _rec_floats(D, vb) + region) + 7) // 8 * 8
+    offset = (4 * (kc * _rec_floats(D, vb) + _reg_region(kc, D, _REG_SLICES, 1)) + 7) // 8 * 8
     return offset + 8 * (kc * P + 3)
+
+
+def _dense_slices(K, D):
+    """The register pass's column slices for K components (``dense_slices``):
+    as many as leave the block's pairs one group, at least 8; one band
+    takes 128 // K, at most 64, three bands 8, 16 or 32 (a warp a band)."""
+    if D <= _REG_SPLIT:
+        return min(max(THREADS // K, _REG_SLICES), _REG_COLS)
+    S = _REG_SLICES
+    while S < 32 and K <= _reg_per_group(D, 2 * S):
+        S *= 2
+    return S
+
+
+def _dense_reg_bytes(K, Kt, D, S, groups, vb):
+    """``DenseLayout::smem``: the records (the step: the proposal's, the
+    target's and the K thresholds), the staging of a round of 128 particles
+    (D + 1 rows), the tile and scratch, the float64 accumulators."""
+    P = 3 + D + D * (D + 1) // 2
+    recs = K * _rec_floats(D, vb) + (0 if vb else Kt * _rec_floats(D) + K)
+    floats = recs + (D + 1) * THREADS + _reg_region(K, D, S, groups)
+    return (4 * floats + 7) // 8 * 8 + 8 * (K * P + 3)
 
 
 def _blocked_floats(kernel, D):
@@ -187,6 +232,33 @@ def stats_tile(K, D):
     return THREADS if _stats_bytes(K, D, 0) <= SMEM_LIMIT else THREADS // 2
 
 
+def dense_plan(kernel, K, D, Kt=0):
+    """``(pass, tile columns, column slices, component groups, shared memory
+    a block)`` of ``fused_vb_estep`` or ``fused_is_pmc_step`` (a Kt-component
+    target) for (K, D); mirrors ``csrc/reg_stats.cuh`` ``dense_plan``.  Up to
+    D = 16, where it fits :data:`SMEM_LIMIT`, ``"reg"``: the register pass,
+    64 columns, the slices of :func:`_dense_slices` and as many groups as the
+    K components need of the block's pairs; elsewhere ``"table"``: the
+    entry-table pass, its tile of :func:`stats_tile` particles (slices and
+    groups 0)."""
+    vb = kernel == "fused_vb_estep"
+    if D <= _REG_DMAX:
+        S = _dense_slices(K, D)
+        groups = -(-K // _reg_per_group(D, S))
+        smem = _dense_reg_bytes(K, Kt, D, S, groups, vb)
+        if smem <= SMEM_LIMIT:
+            return "reg", _REG_COLS, S, groups, smem
+    return "table", stats_tile(K, D), 0, 0, _table_bytes(kernel, K, D, Kt)
+
+
+def _table_bytes(kernel, K, D, Kt=0):
+    """Shared memory of an entry-table kernel's block: its tile, and the
+    operands in front where they fit beside."""
+    tile = stats_tile(K, D)
+    staged = _stats_bytes(K, D, _operand_floats(kernel, K, D, Kt), tile)
+    return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0, tile)
+
+
 def pool_variant(C, D):
     """The variant of ``fused_mcmc_pool``'s kernel for C chains in D
     dimensions; mirrors ``csrc/mcmc_pool.cu`` ``pool_variant``: ``"warp"``
@@ -236,7 +308,7 @@ def blocked_plan(kernel, K, D):
     where one component's fit beside the tile."""
     vb = kernel == "fused_vb_estep_blocked"
     if D <= _REG_DMAX:
-        kc = min(K, _REG_PAIRS if D <= _REG_SPLIT else 4)
+        kc = min(K, _reg_per_group(D, _REG_SLICES))
         return kc, True, _reg_bytes(kc, D, vb)
     per = _blocked_floats(kernel, D)
     staged = _stats_bytes(1, D, per) <= SMEM_LIMIT
@@ -308,11 +380,11 @@ def smem_bytes(kernel, K, D, Kt=0):
         return _wide_smem(D)
     if kernel == "fused_mcmc_pool":
         return pool_smem_bytes(K, D, "thread")
-    params = _operand_floats(kernel, K, D, Kt)
+    if kernel in _DENSE:
+        return dense_plan(kernel, K, D, Kt)[4]
     if kernel in _STATS:
-        tile = stats_tile(K, D)
-        staged = _stats_bytes(K, D, params, tile)
-        return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0, tile)
+        return _table_bytes(kernel, K, D, Kt)
+    params = _operand_floats(kernel, K, D, Kt)
     return 4 * params if 4 * params <= SMEM_LIMIT else 0
 
 
@@ -337,7 +409,8 @@ def limit_reason(kernel, K, D, Kt=0):
         return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
                 "a block for its statistics tile; the limit is %d"
                 % (kernel, K, Kt, D, need, SMEM_LIMIT))
-    if kernel in _STATS and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
+    table = kernel not in _DENSE or dense_plan(kernel, K, D, Kt)[0] == "table"
+    if kernel in _STATS and table and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
         return ("%s: K=%d, D=%d needs the 64-particle statistics tile, whose "
                 "kernels are built to the limit D <= %d" % (kernel, K, D, _NARROW_TILE_D_MAX))
     return None
@@ -430,15 +503,16 @@ def _declare(lib):
         # n_blocks, stream
         "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, mix, tmix, xT, latent, w, partial, stats, N, K, Kt, D,
-        # student_t, t_student_t, dof_stats, n_blocks, stream
+        # student_t, t_student_t, dof_stats, variant (-1 the plan's, 0 the
+        # entry table, 1 the register pass), n_blocks, stream
         "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, L, I, I, I, I,
-                                  I, I, I, P],
+                                  I, I, I, I, P],
         # xT, ops, out, N, K, D, n_blocks, stream
         "pmc_fused_maha": [P, P, P, L, I, I, I, P],
         # xT, mix, rho, log_q, N, K, D, student_t, n_blocks, stream
         "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
-        # xT, w, ops, partial, stats, N, K, D, n_blocks, stream
-        "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, P],
+        # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
+        "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, I, P],
         # zT, latent, scale, ops, xT, N, K, D, n_blocks, stream
         "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, P],
         # s0, s1, latent, ops, xT, N, K, D, student_t, n_blocks, stream
@@ -471,6 +545,13 @@ def _declare(lib):
     lib.pmc_step_draw_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_step_draw_per_sm.argtypes = [I, I, I]      # K, Kt, D -> first-launch blocks an SM
     lib.pmc_step_draw_per_sm.restype = ctypes.c_int
+    # the register pass's blocks an SM (0 where the plan is the entry table)
+    lib.pmc_is_pmc_step_per_sm.argtypes = [I, I, I]    # K, Kt, D
+    lib.pmc_is_pmc_step_per_sm.restype = ctypes.c_int
+    lib.pmc_vb_estep_per_sm.argtypes = [I, I]          # K, D
+    lib.pmc_vb_estep_per_sm.restype = ctypes.c_int
+    lib.pmc_is_pmc_step_smem_bytes.argtypes = [I, I, I]   # K, Kt, D
+    lib.pmc_dense_plan.argtypes = [I, I, I, I, P]      # K, Kt, D, vb, int out[4]
     for name in BLOCKED:   # K, D -> statistics-pass blocks an SM holds
         fn = getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])
         fn.argtypes = [I, I]
@@ -492,7 +573,8 @@ def _declare(lib):
     lib.pmc_mcmc_pool_smem_bytes.argtypes = [I, I, I]   # Kt, D, variant (1: warp)
     for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
                  "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes",
-                 "pmc_mcmc_pool_smem_bytes") + pairs:
+                 "pmc_mcmc_pool_smem_bytes", "pmc_is_pmc_step_smem_bytes",
+                 "pmc_dense_plan") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

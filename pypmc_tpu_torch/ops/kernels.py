@@ -43,9 +43,11 @@ distribution, not in value.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 :func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
 for the kernels with two variants chosen by shape (``fused_mcmc_pool``: a
-thread or a warp a chain, ``_build.pool_variant``; the dense statistics
-kernels: a tile of 128 or 64 particles, ``_build.stats_tile``), each
-launch's variant as ``variant:<kernel>=<variant>``.
+thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep`` and
+``fused_is_pmc_step``: the register pass or the entry-table pass,
+``_build.dense_plan``; ``fused_pmc_stats``: a tile of 128 or 64
+particles, ``_build.stats_tile``), each launch's variant as
+``variant:<kernel>=<variant>``.
 """
 
 import dataclasses
@@ -298,15 +300,51 @@ def _eval_blocks(name, device, n, K, D):
 
 
 def _stats_launch(kernel, device, n, K, D, Kt=0):
-    """``(blocks, variant)`` of a dense statistics kernel for n particles:
-    its tile of ``_build.stats_tile`` particles (a thread each), named as the
-    launch's variant, and as many blocks as fit on every SM at once (an SM
-    holds 2048 threads and 228 KB of shared memory, of which each block also
-    reserves 1 KB)."""
+    """``(blocks, variant)`` of an entry-table statistics kernel for n
+    particles: its tile of ``_build.stats_tile`` particles (a thread each),
+    named as ``fused_pmc_stats``' launch variant, and as many blocks as fit
+    on every SM at once (an SM holds 2048 threads and 228 KB of shared
+    memory, of which each block also reserves 1 KB)."""
     tile = _build.stats_tile(K, D)
-    smem = _build.smem_bytes(kernel, K, D, Kt)
+    smem = _build._table_bytes(kernel, K, D, Kt)
     per_sm = max(1, min(2048 // tile, 228 * 1024 // (smem + 1024)))
     return _blocks(device, n, per_sm, tile), "%s=tile%d" % (kernel, tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_per_sm(kernel, K, D, Kt, index):
+    """Blocks of the register kernel of ``fused_vb_estep`` or
+    ``fused_is_pmc_step`` for (K, D) that one SM of CUDA device ``index``
+    holds at once (the library's occupancy of its instantiation and shared
+    memory)."""
+    with torch.cuda.device(index):
+        lib = _build.load()
+        per_sm = (lib.pmc_vb_estep_per_sm(K, D) if kernel == "fused_vb_estep"
+                  else lib.pmc_is_pmc_step_per_sm(K, Kt, D))
+    if per_sm < 1:
+        raise RuntimeError("%s: K=%d, D=%d fits no block on an SM" % (kernel, K, D))
+    return per_sm
+
+
+_DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
+
+
+def _dense_launch(kernel, device, n, K, D, Kt, variant):
+    """``(blocks, variant)`` of ``fused_vb_estep`` or ``fused_is_pmc_step``
+    for n particles: the pass ``variant`` names, or the plan's
+    (``_build.dense_plan``) for None; the register pass's grid is a wave of
+    its blocks over rounds of 128 particles, the entry table's that of
+    :func:`_stats_launch`."""
+    plan = _build.dense_plan(kernel, K, D, Kt)
+    variant = plan[0] if variant is None else variant
+    if variant not in _DENSE_VARIANTS or (variant == "reg" and plan[0] != "reg"):
+        raise ValueError("%s: no %r pass at K=%d, D=%d (the plan: %s)"
+                         % (kernel, variant, K, D, plan[0]))
+    if variant == "reg":
+        blocks = _blocks(device, n, _dense_per_sm(kernel, K, D, Kt, device.index))
+    else:
+        blocks = _stats_launch(kernel, device, n, K, D, Kt)[0]
+    return blocks, variant
 
 
 def _stream(device):
@@ -729,15 +767,18 @@ def fused_maha(xT, a, m):
     return out
 
 
-def fused_vb_estep(xT, w, a, m, const):
+def fused_vb_estep(xT, w, a, m, const, variant=None):
     """The sufficient statistics of one VB Gaussian-mixture E-step in one
     pass (kernel ``csrc/vb_estep.cu``): responsibilities ``r_k`` are the
     softmax over k of ``const_k - |a_k (x - m_k)|^2 / 2``, and the returns
     are ``N_comp = sum w r (K,)``, the whitened ``sd = sum w r diff
     (K, D)`` and ``g = sum w r diff diff^T (K, D, D)`` with ``diff = a_k
-    (x - m_k)``, and ``log_q_Z = sum w sum_k r log r ()``.  ``a`` is any
-    ``(K, D, D)`` matrix (the VB E-step passes upper-triangular ones).  The
-    kernel's statistics are float64."""
+    (x - m_k)``, and ``log_q_Z = sum w sum_k r log r ()``.  ``a`` is
+    ``(K, D, D)`` upper triangular, as the VB E-step passes it: the
+    register pass reads only the upper triangle.  The kernel's statistics
+    are float64.  ``variant``: the kernel's pass, ``"reg"`` or ``"table"``
+    (``_build.dense_plan``; None: the plan's), counted as
+    ``variant:fused_vb_estep=<variant>``."""
     if not use_kernel(xT, w, a, m, const):
         return plain_vb_estep(xT, w, a, m, const)
     K, D = _check_projection(xT, a, m)
@@ -749,16 +790,17 @@ def fused_vb_estep(xT, w, a, m, const):
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1), const])
     S = _entries(K, D)
-    n_blocks, variant = _stats_launch("fused_vb_estep", xT.device, N, K, D)
+    n_blocks, variant = _dense_launch("fused_vb_estep", xT.device, N, K, D, 0, variant)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float64, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_vb_estep(
             xT.data_ptr(), w.data_ptr(), ops.data_ptr(), partial.data_ptr(),
-            flat.data_ptr(), N, K, D, n_blocks, _stream(xT.device))
+            flat.data_ptr(), N, K, D, _DENSE_VARIANTS.index(variant), n_blocks,
+            _stream(xT.device))
     _raise_on(err, "fused_vb_estep")
     fused_vb_estep.launches += 1
-    _variant_counts[variant] += 1
+    _variant_counts["fused_vb_estep=" + variant] += 1
     stats = _unpack_stats(flat, K, D, 0)
     return stats["s0"], stats["sd"], stats["g"], stats["t1"].sum()
 
@@ -830,11 +872,15 @@ def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
 
 
 def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
-                      n: int, dof_stats=False):
+                      n: int, dof_stats=False, variant=None):
     """The particle work of one PMC step against a mixture target in one
     pass (kernel ``csrc/is_pmc_step.cu``): ``(xT (D, n), latent (n,),
     w (n,), stats)`` with ``stats`` as :func:`fused_pmc_stats` except
-    ``sw (3,) = [sum w, sum w^2, sum w log w]``."""
+    ``sw (3,) = [sum w, sum w^2, sum w log w]``.  ``variant``: the
+    kernel's pass, ``"reg"`` or ``"table"`` (``_build.dense_plan``; None:
+    the plan's), counted as ``variant:fused_is_pmc_step=<variant>``; both
+    draw the same particles from a seed (and, for a Gaussian target, the
+    same weights)."""
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step(seed, ops, target, n, dof_stats)
     _check_operands(ops)
@@ -846,7 +892,8 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     _build.check_limits("fused_is_pmc_step", ops.K, D, target.K)
     lib = _build.load()
     S = _entries(ops.K, D)
-    n_blocks, variant = _stats_launch("fused_is_pmc_step", device, n, ops.K, D, target.K)
+    n_blocks, variant = _dense_launch("fused_is_pmc_step", device, n, ops.K, D, target.K,
+                                      variant)
     xT = torch.empty((D, n), dtype=torch.float32, device=device)
     latent = torch.empty((n,), dtype=torch.int32, device=device)
     w = torch.empty((n,), dtype=torch.float32, device=device)
@@ -858,10 +905,10 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
             target.packed.data_ptr(), xT.data_ptr(), latent.data_ptr(),
             w.data_ptr(), partial.data_ptr(), flat.data_ptr(), n, ops.K,
             target.K, D, int(ops.student_t), int(target.student_t),
-            int(dof_stats), n_blocks, _stream(device))
+            int(dof_stats), _DENSE_VARIANTS.index(variant), n_blocks, _stream(device))
     _raise_on(err, "fused_is_pmc_step")
     fused_is_pmc_step.launches += 1
-    _variant_counts[variant] += 1
+    _variant_counts["fused_is_pmc_step=" + variant] += 1
     return xT, latent, w, _unpack_stats(flat, ops.K, D, 3)
 
 
@@ -1123,9 +1170,11 @@ def reset_launch_counts():
         fn.launches = 0
         if fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
-    for name in _SINGLE_PASS:
-        for tile in (_build.THREADS, _build.THREADS // 2):
-            _variant_counts["%s=tile%d" % (name, tile)] = 0
+    for tile in (_build.THREADS, _build.THREADS // 2):
+        _variant_counts["fused_pmc_stats=tile%d" % tile] = 0
+    for name in _build._DENSE:
+        for variant in _DENSE_VARIANTS:
+            _variant_counts["%s=%s" % (name, variant)] = 0
     for variant in _POOL_VARIANTS:
         _variant_counts["fused_mcmc_pool=" + variant] = 0
 

@@ -36,6 +36,15 @@ def cuda():
     # the statistics kernels' 64-particle tile
     (120, 2, 1, 200_003, True, False, False, 10),
     (120, 2, 1, 200_003, False, True, True, 11),
+    # fused_is_pmc_step's register pass at the edges of its plan (one and
+    # two groups at D=10, three row bands, eight groups at D=1), each also
+    # through its entry-table pass; K=137, D=1 on the entry table
+    (16, 2, 10, 200_003, True, False, True, 26),
+    (17, 2, 10, 200_003, False, True, False, 27),
+    (11, 2, 11, 100_001, True, True, True, 28),
+    (8, 2, 16, 100_001, True, False, False, 29),
+    (128, 2, 1, 200_003, True, False, True, 30),
+    (137, 2, 1, 50_001, False, False, False, 31),
 ])
 def test_kernels_against_plain_versions(cuda, case):
     chip_smoke.kernel_case(case, cuda, [])
@@ -56,9 +65,51 @@ def test_kernels_against_plain_versions(cuda, case):
     (5, 64, 50_001, False, True, True, 22),
     (3, 33, 100_001, True, False, False, 23),
     (120, 1, 200_003, True, False, True, 24),
+    # fused_vb_estep's register pass at the edges of its plan, each also
+    # through its entry-table pass; K=137, D=1 on the entry table
+    (16, 10, 200_003, False, False, True, 32),
+    (17, 10, 200_003, False, True, False, 33),
+    (11, 11, 100_001, True, False, True, 34),
+    (8, 16, 100_001, False, True, True, 35),
+    (128, 1, 200_003, True, False, True, 36),
+    (137, 1, 50_001, False, False, True, 37),
 ])
 def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
     chip_smoke.eval_case(case, cuda, [])
+
+
+def test_vb_estep_non_finite_particles(cuda):
+    chip_smoke.vb_nonfinite_case(cuda, [])
+
+
+@pytest.mark.parametrize("kernel", ["fused_is_pmc_step", "fused_vb_estep"])
+def test_register_pass_is_deterministic_and_elected(cuda, kernel):
+    """At K=10, D=10 the register pass is elected and counted as such; one
+    seed (one input) gives the same statistics twice; the step draws the
+    same particles and weights on both passes."""
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels
+
+    params, target, _ = chip_smoke.flagship_problem(cuda)
+    ops, tops = core._kernel_operands(params), core._kernel_operands(target)
+    n = 300_007
+    kernels.reset_launch_counts()
+    if kernel == "fused_is_pmc_step":
+        runs = [kernels.fused_is_pmc_step((5, 6), ops, tops, n, True) for _ in range(2)]
+        table = kernels.fused_is_pmc_step((5, 6), ops, tops, n, True, variant="table")
+        for a, b in zip(runs[0][:3], table[:3]):
+            assert torch.equal(a, b)
+        outs = [list(r[:3]) + [r[3][key] for key in sorted(r[3])] for r in runs]
+    else:
+        xT = kernels.fused_propose_logq((5, 6), ops, n)[0]
+        w = torch.rand((n,), device=cuda)
+        A, m, const = chip_smoke.vb_operands(params)
+        outs = [kernels.fused_vb_estep(xT, w, A, m, const) for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    counts = kernels.launch_counts()
+    assert counts["variant:%s=reg" % kernel] == 2 and counts[kernel] == 2 + (
+        kernel == "fused_is_pmc_step")
 
 
 @pytest.mark.parametrize("case", chip_smoke.WIDE_CASES)

@@ -277,10 +277,12 @@ GRID_D = tuple(range(1, 2101))
 def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
     """Where fits() sends a shape to a kernel (the JAX package's rule), the
     CUDA kernel takes it: _build.limit_reason names no limit, so the wrapper
-    launches on the card where the JAX package returns a result."""
+    launches on the card where the JAX package returns a result.  The two
+    kernels with a register pass take it at every admitted shape to D = 16
+    (K = 128 at D = 1 the largest) and the entry table past it."""
     rules = ([{"n_steps": 400, "student_t": t} for t in (False, True)]
              if kernel == "fused_mcmc_pool" else [{}])
-    refused = []
+    refused, passes = [], {}
     for rule in rules:
         for Kt in (0, 2):
             for K in GRID_K:
@@ -291,7 +293,11 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
                         continue
                     if _build.limit_reason(kernel, K, D, Kt) is not None:
                         refused.append((K, D, Kt))
+                    if kernel in _build._DENSE:
+                        passes.setdefault(_build.dense_plan(kernel, K, D, Kt)[0], set()).add(D)
     assert refused == []
+    if kernel in _build._DENSE:
+        assert passes["reg"] == set(range(1, 17)) and min(passes["table"]) == 17
 
 
 def test_reach_of_the_rule_and_the_limits():
@@ -356,6 +362,81 @@ def test_statistics_tile_and_pool_variant_mirrors():
     assert _build.pool_smem_bytes(2, 65, "thread") == 4 * (2 * 65 + 2 * 65 * 65 + 8)
     assert _build.pool_smem_bytes(30, 64, "thread") == 0
     assert _build.smem_bytes("fused_mcmc_pool", 2, 40, 0) == _build.pool_smem_bytes(2, 40, "thread")
+
+
+# (K, D, Kt) -> the plan of fused_vb_estep and of fused_is_pmc_step, worked
+# by hand from csrc/reg_stats.cuh: S slices (one band, D <= 10: 128 // K,
+# at least 8; three: 8, 16 or 32), groups = ceil(K / (128 // S)) with one
+# band or ceil(K / (32 / S)) with three; a component's r = (D + 3) | 1 rows
+# (diff, w rho, c, t1) at a stride of 64 + (S r^-1 mod 32); records (VB: pad4(D) + 4 + D pad4(D)
+# floats; the step: pad4(D) + 4 + tri_row(D), the 2-component target's and
+# K thresholds besides), the staging of (D + 1) x 128 floats, the tile and (one group:
+# within the tile; more: beside it) the scratch of 8 K P + 192 floats, then
+# K P + 3 float64 accumulators, P = 3 + D + D (D + 1) / 2
+def _vb_reg(recs, D, tile, scratch, groups, E):
+    floats = recs + (D + 1) * 128 + (max(tile, scratch) if groups == 1 else tile + scratch)
+    return (4 * floats + 7) // 8 * 8 + 8 * (E + 3)
+
+
+DENSE_PLANS = {
+    # K=10, D=10: one band, 128 // 10 = 12 slices, one group; rows 13 at
+    # stride 92 (13 x 5 = 1 mod 32, 12 x 5 = 28 mod 32); VB records 136
+    # floats, the step's 88
+    (10, 10): (("reg", 64, 12, 1, _vb_reg(10 * 136, 10, 10 * 13 * 92, 12 * 680 + 192, 1, 680)),
+               ("reg", 64, 12, 1, _vb_reg(12 * 88 + 10, 10, 10 * 13 * 92, 12 * 680 + 192, 1,
+                                          680))),
+    # the last K of one group at D=10, and the first of two
+    (16, 10): (("reg", 64, 8, 1, _vb_reg(16 * 136, 10, 16 * 936, 8 * 1088 + 192, 1, 1088)),
+               ("reg", 64, 8, 1, _vb_reg(18 * 88 + 16, 10, 16 * 936, 8 * 1088 + 192, 1, 1088))),
+    (17, 10): (("reg", 64, 8, 2, _vb_reg(17 * 136, 10, 17 * 936, 8 * 1156 + 192, 2, 1156)),
+               ("reg", 64, 8, 2, _vb_reg(19 * 88 + 17, 10, 17 * 936, 8 * 1156 + 192, 2, 1156))),
+    # D=11: three bands of 4 components at 8 slices; rows 15 at stride 88
+    # (15 x 15 = 1 mod 32, 8 x 15 = 24 mod 32); P = 80; records 12 + 4 + 84
+    (11, 11): (("reg", 64, 8, 3, _vb_reg(11 * 148, 11, 11 * 15 * 88, 8 * 880 + 192, 3, 880)),
+               ("reg", 64, 8, 3, _vb_reg(13 * 100 + 11, 11, 11 * 15 * 88, 8 * 880 + 192, 3,
+                                         880))),
+    # D=16: rows 19 at stride 88 (19 x 27 = 1, 8 x 27 = 24 mod 32), P = 155,
+    # records 16 + 4 + 16 x 16 = 276 floats (the step's 16 + 4 + 160); one
+    # component takes 32 slices (stride 64), two 16 (16 x 27 = 16 mod 32)
+    (8, 16): (("reg", 64, 8, 2, _vb_reg(8 * 276, 16, 8 * 19 * 88, 8 * 1240 + 192, 2, 1240)),
+              ("reg", 64, 8, 2, _vb_reg(10 * 180 + 8, 16, 8 * 19 * 88, 8 * 1240 + 192, 2,
+                                        1240))),
+    (1, 16): (("reg", 64, 32, 1, _vb_reg(276, 16, 19 * 64, 32 * 155 + 192, 1, 155)),
+              ("reg", 64, 32, 1, _vb_reg(3 * 180 + 1, 16, 19 * 64, 32 * 155 + 192, 1, 155))),
+    (2, 16): (("reg", 64, 16, 1, _vb_reg(2 * 276, 16, 2 * 19 * 72, 16 * 310 + 192, 1, 310)),
+              ("reg", 64, 16, 1, _vb_reg(4 * 180 + 2, 16, 2 * 19 * 72, 16 * 310 + 192, 1,
+                                         310))),
+    # K=128 at D=1 (the JAX rule's reach): eight groups; rows 5 at stride 72
+    (128, 1): (("reg", 64, 8, 8, _vb_reg(128 * 12, 1, 128 * 5 * 72, 8 * 640 + 192, 8, 640)),
+               ("reg", 64, 8, 8, _vb_reg(130 * 12 + 128, 1, 128 * 5 * 72, 8 * 640 + 192, 8,
+                                         640))),
+    # the first (K, D <= 16) past shared memory: K=137 at D=1 (K=136 fits),
+    # the entry table's 64-particle tile
+    (137, 1): (("table", 64, 0, 0, None), ("table", 64, 0, 0, None)),
+    (136, 1): (("reg", 64, 8, 9, None), ("reg", 64, 8, 9, None)),
+    # D=17: the entry table
+    (4, 17): (("table", 128, 0, 0, None), ("table", 128, 0, 0, None)),
+}
+
+
+@pytest.mark.parametrize("K,D", sorted(DENSE_PLANS))
+def test_dense_register_plan_mirrors(K, D):
+    """_build.dense_plan, the mirror of csrc/reg_stats.cuh dense_plan,
+    against hand-worked plans; the shared memory the wrappers' limits read
+    is the plan's."""
+    for kernel, want in zip(("fused_vb_estep", "fused_is_pmc_step"), DENSE_PLANS[(K, D)]):
+        got = _build.dense_plan(kernel, K, D, 2)
+        assert got[:4] == want[:4], (kernel, got)
+        if want[4] is not None:
+            assert got[4] == want[4], (kernel, got)
+        assert _build.smem_bytes(kernel, K, D, 2) == got[4]
+        if got[0] == "reg":
+            assert got[4] <= _build.SMEM_LIMIT
+        else:
+            assert got[4] == _build._table_bytes(kernel, K, D, 2)
+    assert _build.dense_plan("fused_vb_estep", 137, 1)[0] == "table"
+    assert _build._dense_reg_bytes(137, 0, 1, 8, 9, True) > _build.SMEM_LIMIT
+    assert _build._dense_reg_bytes(136, 2, 1, 8, 9, False) <= _build.SMEM_LIMIT
 
 
 def test_package_imports_without_jax():
@@ -586,12 +667,19 @@ def test_plain_rho_matches_pallas_interpret(interpret, student_t, dead):
         assert np.all(rho.numpy()[2] == 0)
 
 
+# the register pass's edge shapes (csrc/reg_stats.cuh dense_plan): one
+# group at K=10 and 16, two at K=17 (D=10), three row bands at D=11 and 16,
+# eight groups at K=128, D=1
+EDGE_SHAPES = [(10, 10), (16, 10), (17, 10), (11, 11), (8, 16), (128, 1)]
+
+
+@pytest.mark.parametrize("K,D", [(3, 4)] + EDGE_SHAPES)
 @pytest.mark.parametrize("zero_weights", [False, True])
-def test_plain_vb_estep_matches_pallas_interpret(interpret, zero_weights):
+def test_plain_vb_estep_matches_pallas_interpret(interpret, zero_weights, K, D):
     """Statistics per particle (divided by N), as for fused_pmc_stats; zero
     weights contribute exactly nothing."""
     rng = np.random.default_rng(7)
-    K, D, N = 3, 4, 1999
+    N = 1999
     a, m = upper_operands(rng, K, D)
     const = rng.normal(0, 1, K).astype(np.float32)
     xT = (m[rng.integers(0, K, N)].T + rng.normal(0, 1, (D, N))).astype(np.float32)
@@ -616,3 +704,37 @@ def test_plain_vb_estep_matches_pallas_interpret(interpret, zero_weights):
                                      *[t.double() for t in args[2:]])
         for g, s in zip(full, sub):
             torch.testing.assert_close(g, s, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("K,D", EDGE_SHAPES)
+def test_plain_is_pmc_step_statistics_match_pallas_interpret(interpret, K, D):
+    """fused_is_pmc_step's weights and statistics on its own particles: the
+    JAX kernel's (interpret mode, its own draw, a proposal with a dead
+    component) against the plain version's on the same particles, per
+    particle as for fused_pmc_stats."""
+    import jax
+
+    rng = np.random.default_rng(K + D)
+    student_t = K % 2 == 0
+    jp, tp = mixture(rng, K, D, student_t, dead=True, dtype=np.float32)
+    jt, tt = mixture(rng, 2, D, not student_t, dtype=np.float32)
+    n = 2048
+    a2, b2, ln, wk, dof_col, center = jcore._pallas_operands(jp, "inv_chol")
+    psi_c = (jax.scipy.special.digamma(0.5 * (D + jp.dof)).reshape(K, 1).astype(jnp.float32)
+             if student_t else None)
+    xT, latent, w, ref = pk.fused_is_pmc_step(
+        jnp.array([3, 4], dtype=jnp.int32), jnp.cumsum(jp.weights).reshape(K, 1),
+        jp.chol.reshape(K * D, D), jp.means.T, None if jp.dof is None else jp.dof.reshape(1, K),
+        a2, b2, ln, wk, dof_col, center, psi_c, jcore._pallas_operands(jt, "inv_chol"),
+        n=n, dim=D, dof_stats=student_t)
+    assert not np.any(np.asarray(latent) == K // 2)
+    x, wt = torch.tensor(np.asarray(xT)), torch.tensor(np.asarray(w))
+    ops, tops = core._kernel_operands(tp), core._kernel_operands(tt)
+    np.testing.assert_allclose(
+        wt.numpy(), torch.exp(kernels.plain_logq(x, tops) - kernels.plain_logq(x, ops)).numpy(),
+        rtol=2e-3, atol=1e-30)
+    got = kernels.plain_pmc_stats(x, wt, ops, student_t, n_sw=3)
+    assert float(got["s0"][K // 2]) == 0.0
+    for key in ("s0", "s0c", "sd", "g", "sw", "t1"):
+        np.testing.assert_allclose(got[key].numpy() / n, np.asarray(ref[key]) / n,
+                                   rtol=2e-3, atol=2e-3, err_msg=key)
