@@ -9,16 +9,18 @@ Phases, each of which exits non-zero on failure:
 2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
    ``nvcc`` a source, all at once), each launcher's shared memory (and the
    chunked kernels' components a chunk, the statistics kernels' tile, the
-   plan of ``fused_vb_estep``'s and ``fused_is_pmc_step``'s register pass
-   and the pool's variant) against ``ops/_build.py``'s formula, the
+   plan of the register pass of ``fused_vb_estep``, ``fused_is_pmc_step``
+   and ``fused_pmc_stats``, the plan of ``fused_transform`` and the pool's
+   variant) against ``ops/_build.py``'s formula, the
    registers of the K-blocked statistics pass's, the step's first pass's
    and the dense register kernel's DMAX 8 and 16 instantiations (the last
    also its blocks an SM at K=10, D=10: at least 3), of every record
-   instantiation of ``fused_logq``'s,
-   ``fused_rho``'s and ``fused_maha``'s kernels (DMAX 8 to 64) and of the
+   instantiation of ``fused_logq``'s, ``fused_rho``'s, ``fused_maha``'s and
+   ``fused_transform``'s kernels (DMAX 8 to 64) and of the
    pool's two variants (DMAX 8 to 64), which must not spill (nor, the record
    kernels, keep a stack frame), and the record kernels' blocks an SM at
-   K=32, D=40 and K=200, D=10 (at least 16 warps);
+   K=32, D=40 and K=200, D=10, ``fused_transform``'s at K=32, D=40 and
+   K=10, D=10 (at least 16 warps);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -36,10 +38,16 @@ Phases, each of which exits non-zero on failure:
    and K=137 at D=1 on the entry table), each where the register pass is
    elected also through its entry-table pass (the step: the same particles
    bit for bit, and for a Gaussian target the same weights), and
-   ``fused_vb_estep`` on a NaN and an infinite coordinate.
+   ``fused_vb_estep`` on a NaN and an infinite coordinate;
+   ``fused_pmc_stats`` on both passes where the register pass is elected
+   (a second run equal, a dead component's statistics 0) and on a NaN
+   coordinate or weight (NaN where the plain version's are).
    ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
-   D=40).  The random kernels are checked on their own samples: the plain
+   D=40), its record kernel equal to the looped kernel bit for bit (K=32,
+   D=40, N=2^20, Gaussian and Student-t scales; the flagship; D=1, 33 and
+   64; K=40, D=40 with the records read from device memory).  The random
+   kernels are checked on their own samples: the plain
    version recomputes every deterministic output from them, and the
    samples' moments, component frequencies, seed determinism and dead
    components are tested.  ``fused_mcmc_pool``, each check with either
@@ -55,7 +63,8 @@ Phases, each of which exits non-zero on failure:
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
-   two runs (every ``fused_is_pmc_step`` launch on its register pass);
+   two runs (every ``fused_is_pmc_step`` and ``fused_pmc_stats`` launch on
+   its register pass);
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
    pruning (every ``fused_vb_estep`` launch on its register pass), one
@@ -91,13 +100,15 @@ Phases, each of which exits non-zero on failure:
 9. pipeline: ``pipeline.integrate`` at ``benchmarks/accuracy_highdim.py
    --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
-   elects) and the callable-target run of ``tests/test_pipeline_api.py``;
+   elects, every ``fused_transform`` launch on its record kernel) and the
+   callable-target run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
-    the least time the card could take (``bound``), ``fused_vb_estep``'s
-    and ``fused_is_pmc_step``'s entry-table pass beside their elected one,
-    ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``
-    also at the shapes the main paths give them (K=32, D=40, N=2^20; K=200,
-    D=10, N=10^7), the pool's two variants
+    the least time the card could take (``bound``), the entry-table pass
+    of ``fused_vb_estep``, ``fused_is_pmc_step`` and ``fused_pmc_stats``
+    beside their elected one, ``fused_transform``'s looped kernel beside
+    its record kernel, ``fused_maha``, ``fused_logq``, ``fused_rho`` and
+    ``fused_transform`` also at the shapes the main paths give them (K=32,
+    D=40, N=2^20; K=200, D=10, N=10^7), the pool's two variants
     at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
     the mcmc phase's and on each side of the cut-offs of their election
     (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
@@ -374,13 +385,12 @@ def kernel_case(case, device, report):
     # fused_logq on the same points
     compare("fused_logq", k.fused_logq(xT, ops), k.plain_logq(x64, ops64), "log", report)
 
-    # fused_pmc_stats on identical inputs
+    # fused_pmc_stats on identical inputs: the elected pass, and where that
+    # is the register pass the entry table too
     w = torch.exp(log_p - log_q)
     dof_stats = student
-    got = k.fused_pmc_stats(xT, w, ops, dof_stats)
-    ref = k.plain_pmc_stats(x64, w.double(), ops64, dof_stats)
-    check_stats("fused_pmc_stats", got, ref, N, report)
-    del w, got, ref, x64, xT, lat, log_q, log_p
+    pmc_stats_case(xT, w, ops, ops64, dof_stats, dead, "fused_pmc_stats", report)
+    del w, x64, xT, lat, log_q, log_p
 
     # fused_is_pmc_step: its own samples, recomputed by the plain version
     xT, lat, w, got = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats)
@@ -424,6 +434,68 @@ def kernel_case(case, device, report):
         del table
     require(not bool(torch.equal(k.fused_is_pmc_step(seed_b, ops, tops, N, dof_stats)[0], xT)),
             "fused_is_pmc_step: two seeds, one output")
+
+
+def pmc_stats_case(xT, w, ops, ops64, dof_stats, dead, label, report):
+    """fused_pmc_stats on given particles and weights against its float64
+    plain version, on the pass its plan elects and, where that is the
+    register pass, on the entry table: the same statistics on a second run,
+    every statistic of a dead component exactly 0."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N = ops.K, ops.dim, xT.shape[1]
+    ref = k.plain_pmc_stats(xT.double(), w.double(), ops64, dof_stats)
+    plan = _build.dense_plan("fused_pmc_stats", K, D)
+    print("  fused_pmc_stats pass %s: %d columns, %d slices, %d groups, %d B" % plan)
+    for variant in ("reg", "table") if plan[0] == "reg" else ("table",):
+        got = k.fused_pmc_stats(xT, w, ops, dof_stats, variant=variant)
+        tag = label if variant == plan[0] else "%s %s" % (label, variant)
+        check_stats(tag, got, ref, N, report)
+        again = k.fused_pmc_stats(xT, w, ops, dof_stats, variant=variant)
+        require(all(bool(torch.equal(got[key], again[key])) for key in got),
+                "%s: one input gave two outputs" % tag)
+        if dead:
+            require(all(bool((got[key][K // 2] == 0).all())
+                        for key in ("s0", "s0c", "sd", "g", "t1")),
+                    "%s: a dead component's statistics are not 0" % tag)
+
+
+def pmc_stats_weighted_case(case, device, report):
+    """pmc_stats_case on particles drawn from the mixture and random
+    weights (a third of them 0)."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dof_stats, dead, seed = case
+    rng = np.random.default_rng(seed)
+    ops = core._kernel_operands(make_params(random_mixture(rng, K, D, student, dead), device))
+    ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+    print("case fused_pmc_stats K=%d D=%d N=%d %s%s%s" % (
+        K, D, N, "t" if student else "gauss", " dof_stats" if dof_stats else "",
+        " dead" if dead else ""))
+    xT = k.fused_propose_logq((seed, 22), ops, N)[0]
+    w = torch.tensor(rng.exponential(1.0, N), dtype=torch.float32, device=device)
+    w[::3] = 0.0
+    pmc_stats_case(xT, w, ops, ops64, dof_stats, dead, "fused_pmc_stats", report)
+
+
+# K, D, N, Student-t, dof_stats, dead component, seed: fused_pmc_stats on
+# both passes, Student-t with and without dof_stats, at the edges of the
+# register pass's plan (two groups, three row bands, eight groups at D=1;
+# K=137 at D=1 and D=20 on the entry table alone)
+PMC_STATS_CASES = [
+    (10, 10, N_FLAGSHIP, True, True, False, 61),
+    (10, 10, N_ODD, True, False, True, 62),
+    (10, 10, N_ODD, False, False, True, 63),
+    (17, 10, N_WIDE, True, True, False, 64),
+    (11, 11, N_WIDE, False, False, True, 65),
+    (128, 1, N_WIDE, True, True, True, 66),
+    (137, 1, N_WIDE, False, False, False, 67),
+    (3, 20, N_WIDE, True, True, False, 68),
+]
 
 
 KERNEL_CASES = [
@@ -592,6 +664,56 @@ def vb_nonfinite_case(device, report):
           % (sum(int(torch.isnan(r).sum()) for r in ref), sum(r.numel() for r in ref)))
 
 
+def pmc_stats_nonfinite_case(device, report):
+    """fused_pmc_stats, each pass, Gaussian and Student-t with dof_stats,
+    on particles of which one has a NaN coordinate, then on weights of
+    which one is NaN: where its float64 plain version's statistics are NaN,
+    so are the kernel's, and nowhere else (N = 4,099, a tail past a
+    multiple of 64).  One exception, stated: the kernels whiten with the
+    lower triangle of U alone, so a NaN in coordinate j leaves the whitened
+    coordinates i < j finite, where the plain version's matrix product adds
+    0 x NaN from U's upper zeros; a dead component's responsibility is
+    exactly 0, so where its c = w rho gamma is 0 (not NaN: a Gaussian) its
+    sd_i and g_ij are finite in the kernels for i, j < 3 and NaN in the
+    plain version.  Those entries are expected finite."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.density import core
+
+    K, D, N, j_nan, dead = 10, 10, 4099, 3, 10 // 2
+    for student in (False, True):
+        rng = np.random.default_rng(39 + student)
+        ops = core._kernel_operands(make_params(random_mixture(rng, K, D, student, True), device))
+        ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+        for fault in ("coordinate", "weight"):
+            xT = torch.tensor(rng.normal(0, 2, (D, N)), dtype=torch.float32, device=device)
+            w = torch.tensor(rng.exponential(1.0, N), dtype=torch.float32, device=device)
+            if fault == "coordinate":
+                xT[j_nan, 17] = float("nan")
+            else:
+                w[1000] = float("nan")
+            ref = k.plain_pmc_stats(xT.double(), w.double(), ops64, student)
+            want = {key: torch.isnan(r) for key, r in ref.items()}
+            if not bool(want["s0c"][dead]):
+                reach = torch.arange(D, device=device) >= j_nan
+                want["sd"][dead] = reach
+                want["g"][dead] = reach[:, None] | reach[None, :]
+            for variant in ("reg", "table"):
+                got = k.fused_pmc_stats(xT, w, ops, student, variant=variant)
+                for key in ref:
+                    require(bool(torch.equal(torch.isnan(got[key]), want[key])),
+                            "fused_pmc_stats %s, a NaN %s (%s): %s NaN where the plain "
+                            "version's is not, or the other way"
+                            % (variant, fault, "t" if student else "gauss", key))
+            print("  fused_pmc_stats, a NaN %s (%s): NaN where the plain version's statistics "
+                  "are (%d of %d entries; %d finite in a dead component), both passes"
+                  % (fault, "t" if student else "gauss",
+                     sum(int(m.sum()) for m in want.values()),
+                     sum(r.numel() for r in ref.values()),
+                     sum(int(torch.isnan(r).sum()) for r in ref.values())
+                     - sum(int(m.sum()) for m in want.values())))
+
+
 def component_draw(params, n, seed):
     """``n`` components drawn as ``propose_T`` draws them: one uniform a
     particle against the tail-sum thresholds."""
@@ -606,9 +728,13 @@ def component_draw(params, n, seed):
 
 def transform_case(case, device, report):
     """fused_transform against its float64 plain version on the same
-    normals, components and scales (a Student-t scale sqrt(dof / chi2))."""
+    normals, components and scales (a Student-t scale sqrt(dof / chi2)),
+    the launch counted under the kernel its plan elects; where that is the
+    record kernel (D <= 64), the looped kernel too, which must give the
+    same output bit for bit."""
     import torch
     from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
     from pypmc_tpu_torch.ops.random import student_t_scale
 
@@ -618,18 +744,28 @@ def transform_case(case, device, report):
     params = make_params(arrs, device)
     ops = core._kernel_operands(params)
     ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
-    print("case fused_transform K=%d D=%d N=%d %s" % (K, D, N, "t" if student else "gauss"))
+    plan = _build.transform_plan(K, D)
+    print("case fused_transform K=%d D=%d N=%d %s: the %s kernel, records staged %s, %d floats "
+          "a record, %d threads, %d B" % ((K, D, N, "t" if student else "gauss") + plan))
     gen = torch.Generator(device=device).manual_seed(seed)
     zT = torch.randn((D, N), generator=gen, device=device)
     latent = torch.randint(0, K, (N,), generator=gen, device=device, dtype=torch.int32)
     scale = (student_t_scale(gen, params.dof[latent.long()], (N,)) if student
              else torch.rand((N,), generator=gen, device=device) + 0.5)
+    k.reset_launch_counts()
     got = k.fused_transform(zT, latent, scale, ops)
     sync(device)
+    require(k.launch_counts()["variant:fused_transform=" + plan[0]] == 1,
+            "fused_transform: the launch did not take the %s kernel" % plan[0])
     ref = k.plain_transform(zT.double(), latent, scale.double(), ops64)
     compare("fused_transform", got, ref, "log", report)
     require(bool(torch.equal(got, k.fused_transform(zT, latent, scale, ops))),
             "fused_transform: one input gave two outputs")
+    if plan[0] == "rec":
+        differ = int((got != k.fused_transform(zT, latent, scale, ops, variant="looped")).sum())
+        print("  fused_transform rec vs looped: %d of %d outputs differ" % (differ, D * N))
+        require(differ == 0, "fused_transform: the record and the looped kernel differ in %d "
+                "outputs" % differ)
 
 
 def check_components(name, xT, latent, arrs):
@@ -1005,6 +1141,15 @@ TRANSFORM_CASES = [
     (16, 40, N_WIDE, False, 42),
     (3, 1, N_ODD, True, 43),
     (32, 40, N_WIDE, True, 44),          # the pipeline's PMC proposal
+    # the pipeline's draws of 2^20 from it, Gaussian and Student-t scales;
+    # N past a multiple of the block; the DMAX 40 record kernel's lower end
+    # and the DMAX 64 one; the records past half an SM (device memory)
+    (32, 40, N_FLAGSHIP, False, 45),
+    (32, 40, N_FLAGSHIP, True, 46),
+    (10, 10, N_ODD, True, 47),
+    (3, 33, N_WIDE, False, 48),
+    (5, 64, N_WIDE, True, 49),
+    (40, 40, N_WIDE, True, 50),
 ]
 TRANSFORM_RNG_CASES = [
     # K, D, N, Student-t, dead component, seed
@@ -1049,8 +1194,12 @@ def phase_kernels(device, cases, eval_cases):
         eval_case(case, device, report)
         torch.cuda.empty_cache()
     vb_nonfinite_case(device, report)
+    for case in PMC_STATS_CASES:
+        pmc_stats_weighted_case(case, device, report)
+    pmc_stats_nonfinite_case(device, report)
     for case in TRANSFORM_CASES:
         transform_case(case, device, report)
+        torch.cuda.empty_cache()
     for case in TRANSFORM_RNG_CASES:
         transform_rng_case(case, device, report)
     for case in POOL_CASES:
@@ -1165,6 +1314,9 @@ def phase_slice(device):
     require(counts["fused_logq"] >= STEPS, "slice: fused_logq launches")
     require(counts["fused_propose_logq"] >= 2, "slice: fused_propose_logq launches")
     require(counts["fused_pmc_stats"] >= 2, "slice: fused_pmc_stats launches")
+    require(counts["variant:fused_pmc_stats=reg"] == counts["fused_pmc_stats"],
+            "slice: %d of %d fused_pmc_stats launches took the register pass"
+            % (counts["variant:fused_pmc_stats=reg"], counts["fused_pmc_stats"]))
     return counts, dt / STEPS * 1e3, out
 
 
@@ -1884,8 +2036,11 @@ def phase_routes(device, report):
         xT, lat, log_q, log_p = core.propose_logq_T(params, K, n, target)
         sync(device)
         counts = k.launch_counts()
-        launched = {name: c for name, c in counts.items() if c}
+        launched = {name: c for name, c in counts.items() if c and not name.startswith("variant:")}
         print("  K=%d D=%d n=%d Student-t: launches %s" % (K, D, n, json.dumps(launched)))
+        if route == "fused_transform":
+            require(counts["variant:fused_transform=rec"] == 1,
+                    "routes: K=%d's fused_transform launch did not take the record kernel" % K)
         want = {"fused_transform_rng": {"plain:fused_propose_logq": 1, "fused_transform_rng": 1,
                                         "fused_logq": 2},
                 "fused_transform": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
@@ -2076,6 +2231,12 @@ def phase_pipeline(device):
     require(counts[vb_route] > 0, "pipeline: VB1 at K=%d, D=%d did not run %s"
             % (d["vb1_K"], dim, vb_route))
     print("  VB1 at K=%d, D=%d: E-steps through %s" % (d["vb1_K"], dim, vb_route))
+    # the PMC draws at K=31-32, D=40: fused_transform's record kernel
+    require(counts["fused_transform"] > 0
+            and counts["variant:fused_transform=rec"] == counts["fused_transform"],
+            "pipeline: %d of %d fused_transform launches took the record kernel"
+            % (counts["variant:fused_transform=rec"], counts["fused_transform"]))
+    print("  fused_transform: %d launches, all on the record kernel" % counts["fused_transform"])
 
     # where the device time of the run goes: the same run again, profiled
     from torch.profiler import ProfilerActivity, profile
@@ -2089,8 +2250,10 @@ def phase_pipeline(device):
     busy = sum(r[0] for r in rows) / 1e3
     print("  profiled run: device %.3f s of %.3f s host (%.1f%% busy), %d launches"
           % (busy, host_s, 100 * busy / host_s, sum(r[1] for r in rows)))
-    for ms, count, key in rows[:12]:
-        print("    %9.3f ms  %6.0f x  %s" % (ms, count, key[:90]))
+    # the twelve largest rows, then the port's own kernels below them
+    for i, (ms, count, key) in enumerate(rows):
+        if i < 12 or "pmc::" in key:
+            print("    %9.3f ms  %6.0f x  %s" % (ms, count, key[:90]))
 
     # tests/test_pipeline_api.py:40-47: a per-point callable target
     means = np.stack([np.zeros(2), np.full(2, 3.0)])
@@ -2129,27 +2292,37 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def launch_split(label, fn, reps=3):
+def launch_split(label, fn, expect, reps=3, tries=4):
     """Device time of each launch of one kernel call (torch.profiler device
     events, a call's mean over ``reps`` after a warm-up): the K-blocked
-    kernels' first pass, statistics pass and reduction."""
+    kernels' first pass, statistics pass and reduction.  The profiler may
+    drop a kernel's events from a run; the run is profiled again, up to
+    ``tries`` times, until every kernel named in ``expect`` (prefixes) has
+    a row, and fails if one never does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(100)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    split = {}
-    # a launch's mean over the events recorded (the profiler may drop some)
-    for ms, count, key in device_rows(prof, reps):
-        key = key.replace("(anonymous namespace)::", "").replace("void ", "")
-        if "pmc::" in key:
-            split[key.split("(")[0].replace("pmc::", "")] = ms / count
-    print("  launches of %s: %s" % (label, "; ".join("%s %.3f ms" % kv for kv in split.items())))
-    return split
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        split = {}
+        # a launch's mean over the events recorded
+        for ms, count, key in device_rows(prof, reps):
+            key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+            if "pmc::" in key:
+                split[key.split("(")[0].replace("pmc::", "")] = ms / count
+        missing = [e for e in expect if not any(key.startswith(e) for key in split)]
+        print("  launches of %s (profiled run %d): %s%s"
+              % (label, attempt, "; ".join("%s %.3f ms" % kv for kv in split.items()),
+                 "; no event of %s" % ", ".join(missing) if missing else ""))
+        if not missing:
+            return split
+    raise SmokeFailure("%s: the profiler recorded no event of %s in %d runs"
+                       % (label, ", ".join(missing), tries))
 
 
 def phase_times(device, report):
@@ -2186,14 +2359,16 @@ def phase_times(device, report):
     for n in (N_PLAIN_MAX, N_SLICE):
         times[("fused_vb_estep", n, "table")] = cuda_ms(
             lambda i: k.fused_vb_estep(xs[n], ws[n], A, m, const, variant="table"))
+        times[("fused_pmc_stats", n, "table")] = cuda_ms(
+            lambda i: k.fused_pmc_stats(xs[n], ws[n], ops, True, variant="table"))
     del xs, ws, log_q, log_p
     torch.cuda.empty_cache()
     # fused_maha and fused_logq at the shapes the main paths give them, each
     # also held to its plain version there
     for name, shapes in MAIN_SHAPES.items():
         for shape in shapes:
-            times[(name, shape, "cuda")], times[(name, shape, "plain")] = main_shape_ms(
-                device, name, shape, report)
+            for route, ms in main_shape_ms(device, name, shape, report).items():
+                times[(name, shape, route)] = ms
             torch.cuda.empty_cache()
     for shape in POOL_SHAPES:
         for route, ms in pool_shape_ms(device, shape).items():
@@ -2234,6 +2409,14 @@ def phase_times(device, report):
     scale = student_t_scale(gen, params.dof[latent.long()], (N_PLAIN_MAX,))
     pair("fused_transform", lambda i, n: k.fused_transform(zT, latent, scale, ops),
          lambda i, n: k.plain_transform(zT, latent, scale, ops), (N_PLAIN_MAX,))
+    times[("fused_transform", N_PLAIN_MAX, "looped")] = cuda_ms(
+        lambda i: k.fused_transform(zT, latent, scale, ops, variant="looped"))
+    print("  fused_transform K=10 D=10 N=%d: the %s kernel (elected) %.3f ms, the looped "
+          "kernel %.3f ms, bound %.3f ms"
+          % (N_PLAIN_MAX, _build.transform_plan(10, 10)[0],
+             times[("fused_transform", N_PLAIN_MAX, "cuda")],
+             times[("fused_transform", N_PLAIN_MAX, "looped")],
+             bound("fused_transform", (10, 0, 10, N_PLAIN_MAX))[1]))
     pair("fused_transform_rng", lambda i, n: k.fused_transform_rng((i, 3), latent, ops),
          lambda i, n: k.plain_transform_rng((i, 3), latent, ops), (N_PLAIN_MAX,))
     del zT, latent, scale
@@ -2268,10 +2451,12 @@ def phase_times(device, report):
          lambda i, n: k.plain_vb_estep_blocked(vx, vw, A4, m4, c4), (N_PLAIN_MAX,))
     times[("fused_pmc_stats_blocked", N_PLAIN_MAX, "split")] = launch_split(
         "fused_pmc_stats_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
-        lambda i: k.fused_pmc_stats_blocked(bx, bw, bops, True))
+        lambda i: k.fused_pmc_stats_blocked(bx, bw, bops, True),
+        ("logq_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
     times[("fused_vb_estep_blocked", N_PLAIN_MAX, "split")] = launch_split(
         "fused_vb_estep_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
-        lambda i: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4))
+        lambda i: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
+        ("vb_lse_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
     del bx, bw, vdata, vx, vw
     torch.cuda.empty_cache()
     sparams, starget, _ = flagship_problem(device, K=200)
@@ -2283,7 +2468,8 @@ def phase_times(device, report):
     for n in (N_PLAIN_MAX, N_SLICE):
         times[("fused_is_pmc_step_blocked", n, "split")] = launch_split(
             "fused_is_pmc_step_blocked K=200 D=10 N=%d" % n,
-            lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True))
+            lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True),
+            ("step_draw_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
     torch.cuda.empty_cache()
     for (name, n, route), ms in times.items():
         if route != "split":
@@ -2333,15 +2519,16 @@ def plain_rho_chunked(xT, ops):
 
 
 def main_shape_ms(device, name, shape, report):
-    """``(kernel ms, plain ms)`` of ``name`` at ``shape``, CUDA events, on a
-    random mixture (fused_maha: the VB E-step's upper operands of it) and
-    particles drawn from it; Student-t as the proposals, Gaussian at K=2 as
-    the pipeline's target; fused_rho's references streamed as
-    plain_rho_chunked.  Past N_PLAIN_MAX the plain version timed is
-    plain_logq streamed over component chunks (its (K, D, N) intermediate
-    would not fit the card).  The kernel's output is held to its plain
-    version in float64, streamed over component chunks, with the tolerance
-    of eval_case."""
+    """``{"cuda": kernel ms, "plain": plain ms}`` of ``name`` at ``shape``,
+    CUDA events, on a random mixture (fused_maha: the VB E-step's upper
+    operands of it) and particles drawn from it; Student-t as the
+    proposals, Gaussian at K=2 as the pipeline's target; fused_rho's
+    references streamed as plain_rho_chunked.  Past N_PLAIN_MAX the plain
+    version timed is plain_logq streamed over component chunks (its (K, D,
+    N) intermediate would not fit the card).  The kernel's output is held to
+    its plain version in float64, streamed over component chunks, with the
+    tolerance of eval_case; fused_transform's also to its looped kernel, bit
+    for bit, whose time is ``"looped"``."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -2369,9 +2556,18 @@ def main_shape_ms(device, name, shape, report):
         scale = student_t_scale(gen, params.dof[latent.long()], (N,))
         kernel = lambda i: k.fused_transform(zT, latent, scale, ops)
         plain = lambda i: k.plain_transform(zT, latent, scale, ops)
+        looped = lambda i: k.fused_transform(zT, latent, scale, ops, variant="looped")
         ops64 = k.MixtureOperands(ops.packed.double(), K, D, ops.student_t)
-        compare(label, kernel(0), k.plain_transform(zT.double(), latent, scale.double(), ops64),
+        got = kernel(0)
+        compare(label, got, k.plain_transform(zT.double(), latent, scale.double(), ops64),
                 "log", report)
+        require(bool(torch.equal(got, looped(0))),
+                "%s: the elected and the looped kernel differ" % label)
+        del got
+        ms, looped_ms = cuda_ms(kernel), cuda_ms(looped)
+        print("  %s: the %s kernel %.3f ms, the looped kernel %.3f ms (equal bit for bit)"
+              % (label, k._elect("fused_transform", K, D, None), ms, looped_ms))
+        return {"cuda": ms, "looped": looped_ms, "plain": cuda_ms(plain, reps=3, warmup=1)}
     elif name == "fused_maha":
         A, m, _ = vb_operands(params)
         kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
@@ -2387,7 +2583,7 @@ def main_shape_ms(device, name, shape, report):
         compare(label, kernel(0), k.plain_logq_blocked(x64, ops64), "log", report)
     del x64
     torch.cuda.empty_cache()
-    return cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
+    return {"cuda": cuda_ms(kernel), "plain": cuda_ms(plain, reps=3, warmup=1)}
 
 
 def pool_shape_ms(device, shape, plain=True):
@@ -2538,8 +2734,11 @@ def bound(name, shape=None):
 # variant's DMAX 32 and 64, with the rows of L in registers and without)
 REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16, "dense_reg_kernel": 16,
                     "logq_kernel": 64, "maha_kernel": 64, "rho_kernel": 64,
-                    "mcmc_pool_kernel": 64, "mcmc_pool_warp_kernel": 64}
-RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel")
+                    "transform_rec_kernel": 64, "mcmc_pool_kernel": 64,
+                    "mcmc_pool_warp_kernel": 64}
+# fused_transform's record kernel (DMAX 8 to 64, records staged or not)
+# keeps z in registers: no spill and no stack frame, as the record kernels
+RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel", "transform_rec_kernel")
 
 
 def register_kernels(log):
@@ -2561,9 +2760,10 @@ def register_kernels(log):
                     int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
                     int(stack.group(1)) if stack else 0))
     # DMAX 8 and 16 of the first two and of the dense register kernel's
-    # two kinds, 8, 16, 32, 40 and 64 of the record kernels and the thread
-    # pool, 32 and 64 twice of the warp pool
-    require(len(out) >= 2 * 2 + 2 * 2 + 5 * len(RECORD_KERNELS) + 5 + 2 * 2,
+    # three modes, 8, 16, 32, 40 and 64 of the record kernels (twice for
+    # the transform's: records staged or not) and the thread pool, 32 and
+    # 64 twice of the warp pool
+    require(len(out) >= 2 * 2 + 2 * 3 + 5 * (len(RECORD_KERNELS) + 1) + 5 + 2 * 2,
             "ptxas reported %d register kernels" % len(out))
     return out
 
@@ -2607,14 +2807,21 @@ def phase_build():
                      (1, 1, 200), (2, 2, 1000), (16, 2, 10), (17, 2, 10), (11, 2, 11),
                      (8, 2, 16), (1, 1, 16), (2, 2, 16), (128, 2, 1), (136, 2, 1), (137, 2, 1),
                      (137, 0, 1), (40, 2, 9), (30, 2, 10), (4, 2, 4)):
+        plan = (ctypes.c_int * 4)()
+        transform_smem = lib.pmc_transform_plan(K, D, plan)
+        got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3],
+               transform_smem)
+        require(got == _build.transform_plan(K, D),
+                "plan differs from the kernel's (fused_transform, K=%d, D=%d): %s, %s"
+                % (K, D, got, _build.transform_plan(K, D)))
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
-                     ("fused_pmc_stats", lib.pmc_stats_smem_bytes(K, Kt, D, 0)),
+                     ("fused_pmc_stats", lib.pmc_pmc_stats_smem_bytes(K, D)),
                      ("fused_is_pmc_step", lib.pmc_is_pmc_step_smem_bytes(K, Kt, D)),
                      ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
                      ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
                      ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
-                     ("fused_transform", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_transform", transform_smem),
                      ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
                      ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D, 0)),
                      ("fused_pmc_stats_blocked", lib.pmc_pmc_stats_blocked_smem_bytes(K, D)),
@@ -2629,12 +2836,15 @@ def phase_build():
                     "shared-memory formula differs from the kernel's (the %s pool)" % variant)
         require(lib.pmc_stats_tile(K, D) == _build.stats_tile(K, D),
                 "tile formula differs from the kernel's (the statistics kernels)")
-        require(lib.pmc_stats_smem_bytes(K, Kt, D, 1)
-                == _build._table_bytes("fused_is_pmc_step", K, D, Kt),
-                "shared-memory formula differs from the kernel's (the step's entry table)")
-        for kernel, vb in (("fused_is_pmc_step", 0), ("fused_vb_estep", 1)):
+        for kernel, is_step in (("fused_pmc_stats", 0), ("fused_is_pmc_step", 1)):
+            require(lib.pmc_stats_smem_bytes(K, Kt, D, is_step)
+                    == _build._table_bytes(kernel, K, D, Kt),
+                    "shared-memory formula differs from the kernel's (%s's entry table)"
+                    % kernel)
+        for kernel, mode in (("fused_is_pmc_step", 0), ("fused_vb_estep", 1),
+                             ("fused_pmc_stats", 2)):
             out = (ctypes.c_int * 4)()
-            smem = lib.pmc_dense_plan(K, Kt, D, vb, out)
+            smem = lib.pmc_dense_plan(K, Kt, D, mode, out)
             got = ("reg" if out[0] else "table", out[1], out[2], out[3], smem)
             require(got == _build.dense_plan(kernel, K, D, Kt),
                     "plan differs from the kernel's (%s, K=%d, D=%d): %s, %s"
@@ -2653,7 +2863,8 @@ def phase_build():
                     "the pool's election differs from the kernel's (C=%d, D=%d)" % (C, D))
     # the dense register kernels' occupancy at the slices' K=10, D=10
     for kernel, per_sm in (("fused_is_pmc_step", lib.pmc_is_pmc_step_per_sm(10, 2, 10)),
-                           ("fused_vb_estep", lib.pmc_vb_estep_per_sm(10, 10))):
+                           ("fused_vb_estep", lib.pmc_vb_estep_per_sm(10, 10)),
+                           ("fused_pmc_stats", lib.pmc_pmc_stats_per_sm(10, 10))):
         plan = _build.dense_plan(kernel, 10, 10, 2)
         print("  %s K=10 D=10: the %s pass, %d blocks of %d threads an SM (%d warps), %d slices, "
               "%d B of shared memory a block" % (kernel, plan[0], per_sm, _build.THREADS,
@@ -2671,6 +2882,17 @@ def phase_build():
                   "a chunk x %d buffers, %d B of shared memory a block"
                   % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
             require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
+    # fused_transform's record kernel where the main paths run it: the D=40
+    # pipeline's K=32 (its records staged, two blocks an SM) and the flagship
+    for K, D in ((32, 40), (10, 10)):
+        per_sm = lib.pmc_transform_per_sm(K, D)
+        plan = _build.transform_plan(K, D)
+        print("  fused_transform K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d "
+              "warps), records of %d floats staged %s, %d B of shared memory a block"
+              % (K, D, plan[0], per_sm, plan[3], per_sm * plan[3] // 32, plan[2], plan[1],
+                 plan[4]))
+        require(plan[0] == "rec" and plan[1] and per_sm * plan[3] // 32 >= 16,
+                "fused_transform at K=%d, D=%d: %s, %d blocks an SM" % (K, D, plan, per_sm))
 
     return lib
 
@@ -2792,9 +3014,17 @@ def main():
         if exps is not None:
             entry["exps"] = exps
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
-        entry["shapes"] = [{"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
-                            "plain_ms": times[(kname, sh, "plain")],
-                            "bound_ms": bound(kname, sh)[1]} for sh in shapes]
+        entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
+                                 "plain_ms": times[(kname, sh, "plain")],
+                                 "bound_ms": bound(kname, sh)[1]},
+                                **({"looped_ms": times[(kname, sh, "looped")]}
+                                   if (kname, sh, "looped") in times else {}))
+                           for sh in shapes]
+        if (kname, n, "looped") in times:
+            # fused_transform's elected kernel at the shape, and the looped
+            # kernel's time there
+            entry.update(variant=_build.transform_plan(10, 10)[0],
+                         looped_ms=times[(kname, n, "looped")])
         if kname in FIRST_LAUNCH:
             # the first launch alone: its device time beside its bound
             work, kernel = FIRST_LAUNCH[kname]
@@ -2824,9 +3054,10 @@ def main():
           "D=200, N=2^16; the K-blocked statistics kernels' first launch, launch_ms, beside its "
           "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
           "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
-          "fused_vb_estep and fused_is_pmc_step elect at K=10, D=10, table_ms and "
-          "table_ms_slice_n their entry-table pass there); library_ms null: no one PyTorch "
-          "call computes these functions"
+          "fused_vb_estep, fused_is_pmc_step and fused_pmc_stats elect at K=10, D=10, table_ms "
+          "and table_ms_slice_n their entry-table pass there, and the kernel fused_transform "
+          "elects there, looped_ms its looped kernel there and at K=32, D=40); library_ms "
+          "null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -92,7 +92,7 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DensePlan plan = dense_plan(K, Kt, D, false);
+  const DensePlan plan = dense_plan(K, Kt, D, kDenseStep);
   if (variant < 0 ? plan.reg : variant == 1) {
     if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
     DenseArgs args{};
@@ -111,7 +111,7 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
     args.student_t = student_t;
     args.t_student_t = t_student_t;
     args.dof_stats = dof_stats;
-    return launch_dense_reg<false>(args, plan, stats, n_blocks, s);
+    return launch_dense_reg<kDenseStep>(args, plan, stats, n_blocks, s);
   }
   const StatsLayout S = stats_layout(K, D);
   const int params = MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size();
@@ -135,22 +135,22 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
 // shared memory the launcher asks for with the plan's kernel (checked
 // against ops/_build.py)
 extern "C" long long pmc_is_pmc_step_smem_bytes(int K, int Kt, int D) {
-  return static_cast<long long>(pmc::dense_plan(K, Kt, D, false).smem);
+  return static_cast<long long>(pmc::dense_plan(K, Kt, D, pmc::kDenseStep).smem);
 }
 
 // blocks of the register kernel for (K, Kt, D) that fit on one SM at once (0
 // where the plan takes the entry-table kernel, -1 on an error)
 extern "C" int pmc_is_pmc_step_per_sm(int K, int Kt, int D) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, false);
-  return plan.reg ? pmc::dense_reg_per_sm<false>(D, plan.smem) : 0;
+  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, pmc::kDenseStep);
+  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseStep>(D, plan.smem) : 0;
 }
 
-// the plan of fused_vb_estep (vb 1) or fused_is_pmc_step (vb 0) for (K, Kt,
-// D), checked against ops/_build.py dense_plan: out = {register kernel (1)
-// or entry table (0), tile columns, column slices, component groups}; the
-// shared memory a block
-extern "C" long long pmc_dense_plan(int K, int Kt, int D, int vb, int* out) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, vb != 0);
+// the plan of fused_is_pmc_step (mode 0), fused_vb_estep (1) or
+// fused_pmc_stats (2) for (K, Kt, D), checked against ops/_build.py
+// dense_plan: out = {register kernel (1) or entry table (0), tile columns,
+// column slices, component groups}; the shared memory a block
+extern "C" long long pmc_dense_plan(int K, int Kt, int D, int mode, int* out) {
+  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, mode);
   out[0] = plan.reg ? 1 : 0;
   out[1] = plan.reg ? pmc::kRegCols : pmc::stats_layout(K, D).tw;
   out[2] = plan.slices;

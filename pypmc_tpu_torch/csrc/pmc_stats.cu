@@ -8,15 +8,28 @@
 //
 // Bound on the H100: per particle it reads D + 1 floats and does the K
 // whitened evaluations (K D (D + 1) / 2 FMAs) plus, in the statistics
-// phase, K (3 + D + D (D + 1) / 2) entries of two multiplies each -- about
-// 2,000 FP32 operations and as many shared-memory reads for 44 bytes at
+// phase, K (D (D + 1) / 2 + D) FMAs -- about 1,300 FMAs for 44 bytes at
 // K = 10, D = 10: FP32- and shared-memory-bound, not bandwidth-bound.  No
-// tensor cores: the statistics are K separate (D, D) blocks at D = 10.
-// Design: see stats.cuh.  The TPU kernel accumulated across a sequential
-// grid and formed the whole (K D, K D) Gram matrix; here each block keeps
-// float64 accumulators of only the K lower-triangular diagonal blocks, and
-// a second kernel reduces the per-block rows in a fixed order.
-#include "stats.cuh"
+// tensor cores: the statistics are K separate (D, D) blocks at D = 10.  The
+// TPU kernel accumulated across a sequential grid and formed the whole
+// (K D, K D) Gram matrix; here each block keeps float64 accumulators of only
+// the K lower-triangular diagonal blocks, and a second kernel reduces the
+// per-block rows in a fixed order.  Two designs
+// (reg_stats.cuh dense_plan), as fused_is_pmc_step's, of which this is the
+// step without the draw and the target:
+//   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel in
+//     its statistics mode, the particles and their weights loaded as VB
+//     loads them, the components evaluated on 16-byte records (whiten_rec)
+//     two threads a particle, log q and the Student-t gamma and t1 bracket
+//     as the step forms them, the statistics in float32 registers, D + 3
+//     shared reads a (particle, component);
+//   elsewhere the entry-table kernel below (stats.cuh), ~3 shared reads for
+//     each of the K (3 + D + D (D + 1) / 2) + 3 entries a particle.
+// The two passes form log q and the responsibilities with the same
+// arithmetic; t1's bracket is log1p(maha / nu) + log(nu / 2) - psi + gamma
+// in the register pass and log((maha + nu) / 2) - psi + gamma in the entry
+// table, equal up to float32 rounding.
+#include "reg_stats.cuh"
 
 namespace pmc {
 
@@ -61,17 +74,34 @@ pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
 
 }  // namespace pmc
 
-// partial: (n_blocks, S) float64 scratch; stats: (S,) float32 output
+// partial: (n_blocks, S) float64 scratch; stats: (S,) float32 output;
+// variant: -1 the plan's, 0 the entry-table kernel, 1 the register kernel
+// (an error where the plan does not take it)
 extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
                                    const float* mix, double* partial,
                                    float* stats, long long N, int K, int D,
-                                   int student_t, int dof_stats, int n_blocks,
+                                   int student_t, int dof_stats, int variant, int n_blocks,
                                    void* stream) {
   using namespace pmc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DensePlan plan = dense_plan(K, 0, D, kDenseStats);
+  if (variant < 0 ? plan.reg : variant == 1) {
+    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+    DenseArgs args{};
+    args.ops = mix;
+    args.xT = const_cast<float*>(xT);
+    args.w = const_cast<float*>(w);
+    args.partial = partial;
+    args.N = N;
+    args.K = K;
+    args.D = D;
+    args.student_t = student_t;
+    args.dof_stats = dof_stats;
+    return launch_dense_reg<kDenseStats>(args, plan, stats, n_blocks, s);
+  }
   const StatsLayout S = stats_layout(K, D);
   const int params = MixLayout{K, D}.eval_size();
   const size_t smem = stats_launch_smem(S, params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!stats_tile_built(S, D)) return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -87,8 +117,21 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// shared memory of the entry-table kernels (fused_pmc_stats's, and
-// fused_is_pmc_step's where its plan takes that kernel; checked against
+// shared memory the launcher asks for with the plan's kernel (checked
+// against ops/_build.py)
+extern "C" long long pmc_pmc_stats_smem_bytes(int K, int D) {
+  return static_cast<long long>(pmc::dense_plan(K, 0, D, pmc::kDenseStats).smem);
+}
+
+// blocks of the register kernel for (K, D) that fit on one SM at once (0
+// where the plan takes the entry-table kernel, -1 on an error)
+extern "C" int pmc_pmc_stats_per_sm(int K, int D) {
+  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, pmc::kDenseStats);
+  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseStats>(D, plan.smem) : 0;
+}
+
+// shared memory of the entry-table kernels of fused_pmc_stats and
+// fused_is_pmc_step, where their plans take them (checked against
 // ops/_build.py)
 extern "C" long long pmc_stats_smem_bytes(int K, int Kt, int D, int is_step) {
   using namespace pmc;

@@ -2,7 +2,8 @@
 // each thread's entries in float32 registers instead of an entry table.
 // Its phase 2 and flush are shared by the K-blocked statistics pass
 // (blocked.cuh blocked_reg_stats_kernel) and the dense kernels of
-// fused_vb_estep and fused_is_pmc_step (dense_reg_kernel below).
+// fused_vb_estep, fused_is_pmc_step and fused_pmc_stats (dense_reg_kernel
+// below).
 //
 // The tile holds kRegCols = 64 particle columns.  Phase 1 writes, per
 // component, reg_rows(D) rows of the tile: diff_0 .. diff_{D-1}, w rho,
@@ -183,26 +184,29 @@ __device__ inline void reg_flush(float* scratch, int S, int E, int n, double* ac
 }
 
 // ---------------------------------------------------------------------
-// The dense register kernel of fused_vb_estep (vb_estep.cu) and
-// fused_is_pmc_step (is_pmc_step.cu) at D <= 16: one launch, all K
-// components a block.
+// The dense register kernel of fused_vb_estep (vb_estep.cu),
+// fused_is_pmc_step (is_pmc_step.cu) and fused_pmc_stats (pmc_stats.cu) at
+// D <= 16: one launch, all K components a block.  Its three modes differ in
+// where a particle comes from and how it is evaluated (DenseMode).
 //
 // A block walks rounds of kThreads particles (grid-stride).  Each thread
-// takes one particle of the round: VB loads it and its weight; the step
-// draws it (propose_particle's draw: Philox counted by the particle index,
-// the component from the tail-sum thresholds, the drawn component's mu and L
-// read from device memory), writes it and its component, and evaluates the
-// target on it (log p, on the target's records as fused_is_pmc_step_blocked's
-// first launch does).  The round's particles go to a staging area in
-// shared memory; then each half of the round is a tile of kRegCols columns.
-// Phase 1 takes two threads a particle, lanes l and l + 16 of a warp, each
-// evaluating every other component on the 16-byte records (whiten_rec; VB:
-// project_upper_rec) into the tile's diff rows and parking the component's
-// log-density (VB: log rho) in its w rho row.  After a __syncwarp() both
-// read the K parked values in ascending k into the particle's normalizer
-// (the step: log q by the weighted log-sum-exp, the entry-table kernel's
-// arithmetic in its order; VB: the plain log-sum-exp), and each finishes its
-// components' w rho, c and t1 rows.  Phase 2 and the flush are those above,
+// takes one particle of the round: VB and the statistics mode load it and
+// its weight; the step draws it (propose_particle's draw: Philox counted by
+// the particle index, the component from the tail-sum thresholds, the drawn
+// component's mu and L read from device memory), writes it and its
+// component, and evaluates the target on it (log p, on the target's records
+// as fused_is_pmc_step_blocked's first launch does).  The round's particles
+// go to a staging area in shared memory; then each half of the round is a
+// tile of kRegCols columns.  Phase 1 takes two threads a particle, lanes l
+// and l + 16 of a warp, each evaluating every other component on the
+// 16-byte records (whiten_rec, with the Student-t gamma and the t1 bracket;
+// VB: project_upper_rec) into the tile's diff rows and parking the
+// component's log-density (VB: log rho) in its w rho row.  After a
+// __syncwarp() both read the K parked values in ascending k into the
+// particle's normalizer (the step and the statistics mode: log q by the
+// weighted log-sum-exp, the entry-table kernel's arithmetic in its order;
+// VB: the plain log-sum-exp), and each finishes its components' w rho, c
+// and t1 rows.  Phase 2 and the flush are those above,
 // with S slices chosen from K (dense_slices: one band spreads its K pairs
 // over as many of the block's threads as it can, S = 128 / K, 12 at K=10).
 // Where the block's pairs take all K components (one group) the
@@ -215,6 +219,12 @@ __device__ inline void reg_flush(float* scratch, int S, int E, int n, double* ac
 // pass at D <= 16 wherever its shared memory fits kSmemLimit; elsewhere the
 // launcher takes stats.cuh's entry-table kernel.
 // ---------------------------------------------------------------------
+
+// the dense register kernel's modes (pmc_dense_plan's codes): the step
+// draws its particles and evaluates the target; VB loads weighted particles
+// and projects them on VB records; the statistics mode loads weighted
+// particles and evaluates them as the step does
+enum DenseMode : int { kDenseStep = 0, kDenseVb = 1, kDenseStats = 2 };
 
 // the slices for K components at D: as many as leave one group of pairs,
 // at least kRegSlices; one band takes any count up to kRegCols, three take
@@ -231,8 +241,10 @@ __host__ __device__ inline int dense_slices(int K, int D) {
 
 struct DenseLayout {
   int K, Kt, D, S;
-  bool vb;
-  __host__ __device__ int F() const { return vb ? vb_rec_floats(D) : rec_floats(D); }
+  int mode;   // DenseMode
+  __host__ __device__ bool vb() const { return mode == kDenseVb; }
+  __host__ __device__ bool step() const { return mode == kDenseStep; }
+  __host__ __device__ int F() const { return vb() ? vb_rec_floats(D) : rec_floats(D); }
   __host__ __device__ int per_group() const { return reg_per_group(D, S); }
   __host__ __device__ int groups() const { return (K + per_group() - 1) / per_group(); }
   // the accumulators stay in registers across tiles
@@ -245,9 +257,9 @@ struct DenseLayout {
   // then the thresholds) | staging (D rows of x, a row of w or log p) | tile
   // | scratch (the tile itself where the accumulators stay in registers)
   __host__ __device__ size_t cumw() const {
-    return static_cast<size_t>(K) * F() + (vb ? 0 : static_cast<size_t>(Kt) * F());
+    return static_cast<size_t>(K) * F() + (step() ? static_cast<size_t>(Kt) * F() : 0);
   }
-  __host__ __device__ size_t stage() const { return cumw() + (vb ? 0 : K); }
+  __host__ __device__ size_t stage() const { return cumw() + (step() ? K : 0); }
   __host__ __device__ size_t tile() const {
     return stage() + static_cast<size_t>(D + 1) * kThreads;
   }
@@ -276,25 +288,26 @@ struct DensePlan {
   size_t smem;     // shared memory a block asks for
 };
 
-// The plan of fused_vb_estep (vb) or fused_is_pmc_step (Kt target
-// components) for (K, D); the entry-table pass's shared memory where the
-// register pass is not taken.
-inline DensePlan dense_plan(int K, int Kt, int D, bool vb) {
+// The plan of fused_vb_estep (kDenseVb), fused_is_pmc_step (kDenseStep, Kt
+// target components) or fused_pmc_stats (kDenseStats) for (K, D); the
+// entry-table pass's shared memory where the register pass is not taken.
+inline DensePlan dense_plan(int K, int Kt, int D, int mode) {
   if (D <= kRegDMax) {
-    const DenseLayout L{K, Kt, D, dense_slices(K, D), vb};
+    const DenseLayout L{K, Kt, D, dense_slices(K, D), mode};
     if (L.smem() <= kSmemLimit) return {true, L.S, L.groups(), L.smem()};
   }
-  const int params = vb ? K * D * D + K * D + K
-                        : MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size();
+  const int params = mode == kDenseVb     ? K * D * D + K * D + K
+                     : mode == kDenseStep ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()
+                                          : MixLayout{K, D}.eval_size();
   return {false, 0, 0, stats_launch_smem(stats_layout(K, D), params)};
 }
 
 // what the dense register kernel reads and writes
 struct DenseArgs {
-  const float* ops;    // VB: A (K, D, D) | m (K, D) | c (K); the step: the packed proposal
+  const float* ops;    // VB: A (K, D, D) | m (K, D) | c (K); else the packed proposal
   const float* tmix;   // the step: the packed target
-  float* xT;           // VB: the particles (D, N); the step: the draw's output
-  float* w;            // VB: the weights; the step: the output w = exp(log p - log q)
+  float* xT;           // VB, statistics: the particles (D, N); the step: the draw's output
+  float* w;            // VB, statistics: the weights; the step: the output w = exp(log p - log q)
   int* latent;         // the step: the drawn components
   double* partial;     // (gridDim.x, K P + 3)
   long long N;
@@ -339,15 +352,17 @@ __device__ __forceinline__ float project_upper_rec(const float* rec, const float
 }
 
 // DMAX 8's VB kernel fits 4 blocks an SM, its step (which keeps the draw's
-// state beside the accumulators) 3, as DMAX 16's: ptxas spilled it at 4
-template <int DMAX, bool VB>
-__global__ void __launch_bounds__(kThreads, DMAX <= 8 && VB ? 4 : 3)
+// state beside the accumulators) 3, as DMAX 16's: ptxas spilled it at 4;
+// the statistics mode, whose phase 1 is the step's, takes 3 as the step
+template <int DMAX, int MODE>
+__global__ void __launch_bounds__(kThreads, DMAX <= 8 && MODE == kDenseVb ? 4 : 3)
 dense_reg_kernel(const DenseArgs args) {
   using Bands = RegBands<DMAX>;
+  constexpr bool VB = MODE == kDenseVb, STEP = MODE == kDenseStep;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int K = args.K, Kt = args.Kt, D = args.D;
-  const DenseLayout lay{K, Kt, D, args.slices, VB};
+  const DenseLayout lay{K, Kt, D, args.slices, MODE};
   const int S = lay.S, F = lay.F(), D4 = pad4(D), ts = lay.stride();
   const int comp_floats = lay.comp_floats(), P = lay.P(), E = lay.E();
   const int per_group = lay.per_group(), groups = lay.groups();
@@ -364,6 +379,8 @@ dense_reg_kernel(const DenseArgs args) {
     stage_vb_records(recs, args.ops, K, D);
   } else {
     stage_records(recs, args.ops, K, D);
+  }
+  if constexpr (STEP) {
     stage_records(trecs, args.tmix, Kt, D);
     load_to_shared(cumw, args.ops + MixLayout{K, D}.cumw(), K);
   }
@@ -408,9 +425,9 @@ dense_reg_kernel(const DenseArgs args) {
       float x[DMAX];
 #pragma unroll
       for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
-      float v = 0.0f;   // VB: the weight; the step: log p
+      float v = 0.0f;   // VB, statistics: the weight; the step: log p
       if (n < N) {
-        if constexpr (VB) {
+        if constexpr (!STEP) {
           load_particle<DMAX>(args.xT, N, n, D, x);
           v = args.w[n];
         } else {
@@ -439,11 +456,19 @@ dense_reg_kernel(const DenseArgs args) {
       const int col = h * kRegCols + p;
       const long long n = base + p;
       float x[DMAX];
+      if constexpr (MODE != kDenseStats) {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) x[i] = i < D ? stage[i * kThreads + col] : 0.0f;
+        for (int i = 0; i < DMAX; ++i) x[i] = i < D ? stage[i * kThreads + col] : 0.0f;
+      }
       const float v = stage[D * kThreads + col];
 
       for (int j = grp; j < K; j += 2) {
+        if constexpr (MODE == kDenseStats) {
+          // the particle read again for each component: held across the
+          // loop, it spilled the DMAX 16 kernel at 3 blocks an SM (ptxas)
+#pragma unroll
+          for (int i = 0; i < DMAX; ++i) x[i] = i < D ? stage[i * kThreads + col] : 0.0f;
+        }
         const float* r = recs + j * F;
         float* out = tile + j * comp_floats + p;
         const auto emit = [&](int i, float d) { out[i * ts] = d; };
@@ -471,8 +496,8 @@ dense_reg_kernel(const DenseArgs args) {
       for (int k = 0; k < K; ++k)
         lse.add(tile[k * comp_floats + D * ts + p], VB ? 1.0f : recs[k * F + D4 + 1]);
       const float l = lse.value();
-      float w = v;   // VB: 0 past N
-      if constexpr (!VB) {
+      float w = v;   // VB, statistics: 0 past N
+      if constexpr (STEP) {
         w = n < N ? expf(v - l) : 0.0f;
         if (n < N && grp == 0) args.w[n] = w;
       }
@@ -523,16 +548,16 @@ dense_reg_kernel(const DenseArgs args) {
 }
 
 // The register kernel for D (DMAX 8 or 16).
-template <bool VB>
+template <int MODE>
 inline auto dense_reg_kernel_for(int D) {
-  return D <= 8 ? &dense_reg_kernel<8, VB> : &dense_reg_kernel<kRegDMax, VB>;
+  return D <= 8 ? &dense_reg_kernel<8, MODE> : &dense_reg_kernel<kRegDMax, MODE>;
 }
 
 // blocks of the register kernel at D with ``smem`` bytes that fit on one SM
 // at once (registers, shared memory and threads); -1 on an error
-template <bool VB>
+template <int MODE>
 inline int dense_reg_per_sm(int D, size_t smem) {
-  const auto kernel = dense_reg_kernel_for<VB>(D);
+  const auto kernel = dense_reg_kernel_for<MODE>(D);
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess ||
@@ -543,11 +568,11 @@ inline int dense_reg_per_sm(int D, size_t smem) {
 
 // Launch the register kernel with ``plan`` (plan.reg) and the reduction of
 // its partials into ``stats`` (T = float or double).
-template <bool VB, typename T>
+template <int MODE, typename T>
 inline int launch_dense_reg(DenseArgs args, const DensePlan& plan, T* stats, int n_blocks,
                             cudaStream_t s) {
   args.slices = plan.slices;
-  const auto kernel = dense_reg_kernel_for<VB>(args.D);
+  const auto kernel = dense_reg_kernel_for<MODE>(args.D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(plan.smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,7 +1,7 @@
 // PMC sufficient statistics shared by fused_pmc_stats (pmc_stats.cu),
 // fused_is_pmc_step (is_pmc_step.cu) and fused_vb_estep (vb_estep.cu): the
-// entry-table pass.  The last two take it past D = 16, or where their
-// register pass (reg_stats.cuh) does not fit shared memory.
+// entry-table pass.  Each takes it past D = 16, or where its register pass
+// (reg_stats.cuh) does not fit shared memory.
 //
 // A block walks over tiles of tw particles, one a thread (grid-stride): tw
 // = kThreads, or kNarrowTile where that tile and the accumulators do not fit

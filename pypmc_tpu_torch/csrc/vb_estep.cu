@@ -106,7 +106,7 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* 
                                   int D, int variant, int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DensePlan plan = dense_plan(K, 0, D, true);
+  const DensePlan plan = dense_plan(K, 0, D, kDenseVb);
   if (variant < 0 ? plan.reg : variant == 1) {
     if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
     DenseArgs args{};
@@ -117,7 +117,7 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* 
     args.N = N;
     args.K = K;
     args.D = D;
-    return launch_dense_reg<true>(args, plan, stats, n_blocks, s);
+    return launch_dense_reg<kDenseVb>(args, plan, stats, n_blocks, s);
   }
   const StatsLayout S = stats_layout(K, D);
   const int params = K * D * D + K * D + K;
@@ -140,12 +140,12 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* 
 // shared memory the launcher asks for with the plan's kernel (checked
 // against ops/_build.py)
 extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
-  return static_cast<long long>(pmc::dense_plan(K, 0, D, true).smem);
+  return static_cast<long long>(pmc::dense_plan(K, 0, D, pmc::kDenseVb).smem);
 }
 
 // blocks of the register kernel for (K, D) that fit on one SM at once (0
 // where the plan takes the entry-table kernel, -1 on an error)
 extern "C" int pmc_vb_estep_per_sm(int K, int D) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, true);
-  return plan.reg ? pmc::dense_reg_per_sm<true>(D, plan.smem) : 0;
+  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, pmc::kDenseVb);
+  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseVb>(D, plan.smem) : 0;
 }

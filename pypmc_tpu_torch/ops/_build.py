@@ -10,20 +10,22 @@ unchanged one is loaded as it is.
 This module also states the CUDA kernels' own size limits, kernel by
 kernel (:data:`D_MAX`).  A thread kernel keeps one particle's coordinates
 in a per-thread array of at most 128 floats (registers up to D = 32, and up
-to D = 64 in the record kernels of ``fused_logq``, ``fused_rho`` and
-``fused_maha``; local memory above).  Past D = 128 the six kernels of
-:data:`WIDE` run a warp a particle with its coordinates in shared memory
-(``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense statistics
-kernels keep a tile of per-particle rows and their accumulators in shared
-memory, which must fit :data:`SMEM_LIMIT`: ``fused_vb_estep`` and
-``fused_is_pmc_step`` up to D = 16 the register pass's tile of 64 columns
-and all K components' records (:func:`dense_plan`), and elsewhere, as
-``fused_pmc_stats``, the entry-table pass's tile of 128 particles, or of 64
-where that does not fit (:func:`stats_tile`); the entry-table kernels stage
-their mixture operands there too when they fit beside, and otherwise read
-them from device memory.  The K-blocked kernels walk the components in chunks
-sized from shared memory (:func:`blocked_plan`), and so do the record
-kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
+to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
+``fused_maha`` and ``fused_transform``; local memory above).  Past D = 128
+the six kernels of :data:`WIDE` run a warp a particle with its coordinates
+in shared memory (``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense
+statistics kernels keep a tile of per-particle rows and their accumulators
+in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
+register pass's tile of 64 columns and all K components' records
+(:func:`dense_plan`), and elsewhere the entry-table pass's tile of 128
+particles, or of 64 where that does not fit (:func:`stats_tile`); the
+entry-table kernels stage their mixture operands there too when they fit
+beside, and otherwise read them from device memory.  ``fused_transform``'s
+record kernel stages each component's mean and lower triangle where they
+fit half an SM, and otherwise reads them from device memory
+(:func:`transform_plan`).  The K-blocked kernels walk the components in
+chunks sized from shared memory (:func:`blocked_plan`), and so do the
+record kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
 :func:`limit_reason` names the limit a shape breaks, and the wrappers raise
 for such a shape.  Which shapes the ``"auto"`` dispatchers send to a kernel
 at all is a separate question, answered by
@@ -41,9 +43,9 @@ from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
-           "block_particles", "stats_tile", "dense_plan", "pool_variant", "pool_smem_bytes",
-           "blocked_plan", "draw_smem_bytes", "limit_reason", "check_limits", "load",
-           "build_info"]
+           "block_particles", "stats_tile", "dense_plan", "transform_plan", "pool_variant",
+           "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
+           "check_limits", "load", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -95,9 +97,10 @@ _POOL_WARP_D_MAX = 64
 _POOL_WARP_CHAINS = ((8, 0), (16, 4096), (32, 8192), (40, 32768), (_POOL_WARP_D_MAX, 1 << 62))
 _HALF_SMEM = 228 * 1024 // 2 - 1024   # csrc/common.cuh kHalfSmem
 # the dense statistics kernels (csrc/stats.cuh) and the largest D of their
-# 64-particle tile (kNarrowTileDMax); the two with a register pass
+# 64-particle tile (kNarrowTileDMax); each has a register pass, in the mode
+# of csrc/reg_stats.cuh DenseMode
 _STATS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
-_DENSE = ("fused_is_pmc_step", "fused_vb_estep")
+_DENSE = ("fused_is_pmc_step", "fused_vb_estep", "fused_pmc_stats")
 _NARROW_TILE_D_MAX = 8
 # csrc/reg_stats.cuh: the register statistics pass (D <= 16): its tile's
 # columns, the K-blocked pass's slices (the dense kernels' fewest), the
@@ -165,12 +168,15 @@ def _dense_slices(K, D):
     return S
 
 
-def _dense_reg_bytes(K, Kt, D, S, groups, vb):
-    """``DenseLayout::smem``: the records (the step: the proposal's, the
-    target's and the K thresholds), the staging of a round of 128 particles
+def _dense_reg_bytes(kernel, K, Kt, D, S, groups):
+    """``DenseLayout::smem`` of ``kernel``'s register pass: the records (VB's;
+    the step: the proposal's, the target's and the K thresholds; the
+    statistics: the proposal's), the staging of a round of 128 particles
     (D + 1 rows), the tile and scratch, the float64 accumulators."""
     P = 3 + D + D * (D + 1) // 2
-    recs = K * _rec_floats(D, vb) + (0 if vb else Kt * _rec_floats(D) + K)
+    recs = K * _rec_floats(D, kernel == "fused_vb_estep")
+    if kernel == "fused_is_pmc_step":
+        recs += Kt * _rec_floats(D) + K
     floats = recs + (D + 1) * THREADS + _reg_region(K, D, S, groups)
     return (4 * floats + 7) // 8 * 8 + 8 * (K * P + 3)
 
@@ -234,18 +240,17 @@ def stats_tile(K, D):
 
 def dense_plan(kernel, K, D, Kt=0):
     """``(pass, tile columns, column slices, component groups, shared memory
-    a block)`` of ``fused_vb_estep`` or ``fused_is_pmc_step`` (a Kt-component
-    target) for (K, D); mirrors ``csrc/reg_stats.cuh`` ``dense_plan``.  Up to
-    D = 16, where it fits :data:`SMEM_LIMIT`, ``"reg"``: the register pass,
-    64 columns, the slices of :func:`_dense_slices` and as many groups as the
-    K components need of the block's pairs; elsewhere ``"table"``: the
-    entry-table pass, its tile of :func:`stats_tile` particles (slices and
-    groups 0)."""
-    vb = kernel == "fused_vb_estep"
+    a block)`` of ``fused_vb_estep``, ``fused_is_pmc_step`` (a Kt-component
+    target) or ``fused_pmc_stats`` for (K, D); mirrors ``csrc/reg_stats.cuh``
+    ``dense_plan``.  Up to D = 16, where it fits :data:`SMEM_LIMIT`,
+    ``"reg"``: the register pass, 64 columns, the slices of
+    :func:`_dense_slices` and as many groups as the K components need of the
+    block's pairs; elsewhere ``"table"``: the entry-table pass, its tile of
+    :func:`stats_tile` particles (slices and groups 0)."""
     if D <= _REG_DMAX:
         S = _dense_slices(K, D)
         groups = -(-K // _reg_per_group(D, S))
-        smem = _dense_reg_bytes(K, Kt, D, S, groups, vb)
+        smem = _dense_reg_bytes(kernel, K, Kt, D, S, groups)
         if smem <= SMEM_LIMIT:
             return "reg", _REG_COLS, S, groups, smem
     return "table", stats_tile(K, D), 0, 0, _table_bytes(kernel, K, D, Kt)
@@ -257,6 +262,34 @@ def _table_bytes(kernel, K, D, Kt=0):
     tile = stats_tile(K, D)
     staged = _stats_bytes(K, D, _operand_floats(kernel, K, D, Kt), tile)
     return staged if staged <= SMEM_LIMIT else _stats_bytes(K, D, 0, tile)
+
+
+def _transform_rec_floats(D):
+    """Floats of one component's record in ``fused_transform``'s record
+    kernel (``csrc/transform.cu`` ``transform_rec_floats``): mu | L's lower
+    triangle by row, made odd, so that the components' words at one offset
+    fall in distinct banks."""
+    return (D + D * (D + 1) // 2) | 1
+
+
+def transform_plan(K, D):
+    """``(kernel, records staged, a record's floats, threads a block, shared
+    memory a block)`` of ``fused_transform`` for (K, D); mirrors
+    ``csrc/transform.cu`` ``transform_plan``.  Up to D = 64 ``"rec"``: the
+    record kernel, 256 threads, each component's mean and lower triangle
+    staged where the K records fit half an SM (two blocks), else read from
+    device memory (no shared memory); to D = 128 ``"looped"``: the looped
+    kernel, 128 threads, the operands ``mu | L | dof`` staged where they fit;
+    past it ``"warp"``: a warp a particle (the record floats 0 but in the
+    record kernel)."""
+    if D > _THREAD_D_MAX:
+        return "warp", False, 0, WIDE_THREADS, _wide_smem(D)
+    if D > _REC_D_MAX:
+        ops = 4 * _operand_floats("fused_transform", K, D, 0)
+        return "looped", ops <= SMEM_LIMIT, 0, THREADS, ops if ops <= SMEM_LIMIT else 0
+    recs = 4 * K * _transform_rec_floats(D)
+    staged = recs <= _HALF_SMEM
+    return "rec", staged, _transform_rec_floats(D), EVAL_THREADS, recs if staged else 0
 
 
 def pool_variant(C, D):
@@ -358,7 +391,7 @@ def block_particles(kernel, D):
     D = 128 in the kernels of :data:`WIDE` a warp a particle."""
     if kernel in WIDE and D > _THREAD_D_MAX:
         return WIDE_THREADS // 32
-    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+    if kernel in ("fused_logq", "fused_rho", "fused_maha", "fused_transform"):
         return eval_threads(D)
     return THREADS
 
@@ -369,13 +402,16 @@ def smem_bytes(kernel, K, D, Kt=0):
     The operands are staged in it when they fit beside the kernel's own
     shared memory, and read from device memory otherwise; ``fused_logq``'s
     and ``fused_maha``'s kernels up to D = 64 stage one or two chunks of
-    records (:func:`eval_plan`).  For a K-blocked kernel, its statistics
+    records (:func:`eval_plan`), ``fused_transform``'s record kernel its
+    records (:func:`transform_plan`).  For a K-blocked kernel, its statistics
     pass's (the first launch reads the operands as ``fused_logq``,
     ``fused_propose_logq`` or like them)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[2]
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         return eval_plan(kernel, K, D)[2]
+    if kernel == "fused_transform":
+        return transform_plan(K, D)[4]
     if kernel in WIDE and D > _THREAD_D_MAX:
         return _wide_smem(D)
     if kernel == "fused_mcmc_pool":
@@ -500,8 +536,9 @@ def _declare(lib):
         "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, L, I, I, I, I, I,
                                    I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
+        # variant (-1 the plan's, 0 the entry table, 1 the register pass),
         # n_blocks, stream
-        "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, P],
+        "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, I, P],
         # s0, s1, mix, tmix, xT, latent, w, partial, stats, N, K, Kt, D,
         # student_t, t_student_t, dof_stats, variant (-1 the plan's, 0 the
         # entry table, 1 the register pass), n_blocks, stream
@@ -513,8 +550,9 @@ def _declare(lib):
         "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
         # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
         "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, I, P],
-        # zT, latent, scale, ops, xT, N, K, D, n_blocks, stream
-        "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, P],
+        # zT, latent, scale, ops, xT, N, K, D, variant (-1 the plan's, 0
+        # the looped kernel, 1 the record kernel), n_blocks, stream
+        "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, I, P],
         # s0, s1, latent, ops, xT, N, K, D, student_t, n_blocks, stream
         "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, P],
         # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
@@ -548,10 +586,15 @@ def _declare(lib):
     # the register pass's blocks an SM (0 where the plan is the entry table)
     lib.pmc_is_pmc_step_per_sm.argtypes = [I, I, I]    # K, Kt, D
     lib.pmc_is_pmc_step_per_sm.restype = ctypes.c_int
-    lib.pmc_vb_estep_per_sm.argtypes = [I, I]          # K, D
-    lib.pmc_vb_estep_per_sm.restype = ctypes.c_int
+    # K, D -> blocks an SM: the register pass's (0 where the plan is the
+    # entry table), fused_transform's record kernel's (0 where it is not)
+    for name in ("pmc_vb_estep_per_sm", "pmc_pmc_stats_per_sm", "pmc_transform_per_sm"):
+        getattr(lib, name).argtypes = [I, I]
+        getattr(lib, name).restype = ctypes.c_int
     lib.pmc_is_pmc_step_smem_bytes.argtypes = [I, I, I]   # K, Kt, D
-    lib.pmc_dense_plan.argtypes = [I, I, I, I, P]      # K, Kt, D, vb, int out[4]
+    # K, Kt, D, mode (0 the step, 1 VB, 2 fused_pmc_stats), int out[4]
+    lib.pmc_dense_plan.argtypes = [I, I, I, I, P]
+    lib.pmc_transform_plan.argtypes = [I, I, P]        # K, D, int out[4]
     for name in BLOCKED:   # K, D -> statistics-pass blocks an SM holds
         fn = getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])
         fn.argtypes = [I, I]
@@ -566,7 +609,7 @@ def _declare(lib):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
-             "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes",
+             "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes", "pmc_pmc_stats_smem_bytes",
              "pmc_pmc_stats_blocked_smem_bytes", "pmc_vb_estep_blocked_smem_bytes")
     for name in pairs:
         getattr(lib, name).argtypes = [I, I]
@@ -574,7 +617,7 @@ def _declare(lib):
     for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
                  "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes",
                  "pmc_mcmc_pool_smem_bytes", "pmc_is_pmc_step_smem_bytes",
-                 "pmc_dense_plan") + pairs:
+                 "pmc_dense_plan", "pmc_transform_plan") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

@@ -42,12 +42,14 @@ distribution, not in value.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 :func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
-for the kernels with two variants chosen by shape (``fused_mcmc_pool``: a
-thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep`` and
-``fused_is_pmc_step``: the register pass or the entry-table pass,
-``_build.dense_plan``; ``fused_pmc_stats``: a tile of 128 or 64
-particles, ``_build.stats_tile``), each launch's variant as
-``variant:<kernel>=<variant>``.
+for the kernels with variants chosen by shape (``fused_mcmc_pool``: a
+thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
+``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
+entry-table pass, ``_build.dense_plan``; ``fused_transform``: the record,
+the looped or the warp kernel, ``_build.transform_plan``), each launch's
+variant as ``variant:<kernel>=<variant>``.  Each of these wrappers takes a
+``variant=`` that forces another variant where the shape has it, as the
+yardstick of the election.
 """
 
 import dataclasses
@@ -299,27 +301,27 @@ def _eval_blocks(name, device, n, K, D):
                    _build.block_particles("fused_" + name, D))
 
 
-def _stats_launch(kernel, device, n, K, D, Kt=0):
-    """``(blocks, variant)`` of an entry-table statistics kernel for n
-    particles: its tile of ``_build.stats_tile`` particles (a thread each),
-    named as ``fused_pmc_stats``' launch variant, and as many blocks as fit
-    on every SM at once (an SM holds 2048 threads and 228 KB of shared
+def _table_blocks(kernel, device, n, K, D, Kt=0):
+    """Blocks of an entry-table statistics kernel for n particles: as many
+    as fit on every SM at once with its tile of ``_build.stats_tile``
+    particles (a thread each; an SM holds 2048 threads and 228 KB of shared
     memory, of which each block also reserves 1 KB)."""
     tile = _build.stats_tile(K, D)
     smem = _build._table_bytes(kernel, K, D, Kt)
     per_sm = max(1, min(2048 // tile, 228 * 1024 // (smem + 1024)))
-    return _blocks(device, n, per_sm, tile), "%s=tile%d" % (kernel, tile)
+    return _blocks(device, n, per_sm, tile)
 
 
 @functools.lru_cache(maxsize=None)
 def _dense_per_sm(kernel, K, D, Kt, index):
-    """Blocks of the register kernel of ``fused_vb_estep`` or
-    ``fused_is_pmc_step`` for (K, D) that one SM of CUDA device ``index``
-    holds at once (the library's occupancy of its instantiation and shared
-    memory)."""
+    """Blocks of the register kernel of ``fused_vb_estep``,
+    ``fused_is_pmc_step`` or ``fused_pmc_stats`` for (K, D) that one SM of
+    CUDA device ``index`` holds at once (the library's occupancy of its
+    instantiation and shared memory)."""
     with torch.cuda.device(index):
         lib = _build.load()
         per_sm = (lib.pmc_vb_estep_per_sm(K, D) if kernel == "fused_vb_estep"
+                  else lib.pmc_pmc_stats_per_sm(K, D) if kernel == "fused_pmc_stats"
                   else lib.pmc_is_pmc_step_per_sm(K, Kt, D))
     if per_sm < 1:
         raise RuntimeError("%s: K=%d, D=%d fits no block on an SM" % (kernel, K, D))
@@ -327,24 +329,35 @@ def _dense_per_sm(kernel, K, D, Kt, index):
 
 
 _DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
+# fused_transform's kernels and the launcher's variant codes (-1: the plan's)
+_TRANSFORM_VARIANTS = {"looped": 0, "rec": 1, "warp": -1}
 
 
-def _dense_launch(kernel, device, n, K, D, Kt, variant):
-    """``(blocks, variant)`` of ``fused_vb_estep`` or ``fused_is_pmc_step``
-    for n particles: the pass ``variant`` names, or the plan's
-    (``_build.dense_plan``) for None; the register pass's grid is a wave of
-    its blocks over rounds of 128 particles, the entry table's that of
-    :func:`_stats_launch`."""
-    plan = _build.dense_plan(kernel, K, D, Kt)
-    variant = plan[0] if variant is None else variant
-    if variant not in _DENSE_VARIANTS or (variant == "reg" and plan[0] != "reg"):
-        raise ValueError("%s: no %r pass at K=%d, D=%d (the plan: %s)"
-                         % (kernel, variant, K, D, plan[0]))
-    if variant == "reg":
-        blocks = _blocks(device, n, _dense_per_sm(kernel, K, D, Kt, device.index))
+def _elect(kernel, K, D, variant, Kt=0):
+    """The variant of ``kernel`` (``fused_transform`` or a dense statistics
+    kernel) at (K, D): its plan's for None (``_build.transform_plan``,
+    ``_build.dense_plan``), else ``variant`` where the shape has it -- the
+    plan's, or its yardstick (the looped kernel beside the record kernel,
+    the entry table beside the register pass); ``ValueError`` elsewhere,
+    on any device."""
+    if kernel == "fused_transform":
+        elected, other = _build.transform_plan(K, D)[0], ("rec", "looped")
     else:
-        blocks = _stats_launch(kernel, device, n, K, D, Kt)[0]
-    return blocks, variant
+        elected, other = _build.dense_plan(kernel, K, D, Kt)[0], ("reg", "table")
+    if variant is None or variant == elected or (elected, variant) == other:
+        return elected if variant is None else variant
+    raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
+                     % (kernel, variant, K, D, elected))
+
+
+def _dense_blocks(kernel, device, n, K, D, Kt, variant):
+    """Blocks of ``fused_vb_estep``, ``fused_is_pmc_step`` or
+    ``fused_pmc_stats`` for n particles on the pass ``variant``: the register
+    pass's grid is a wave of its blocks over rounds of 128 particles, the
+    entry table's that of :func:`_table_blocks`."""
+    if variant == "reg":
+        return _blocks(device, n, _dense_per_sm(kernel, K, D, Kt, device.index))
+    return _table_blocks(kernel, device, n, K, D, Kt)
 
 
 def _stream(device):
@@ -779,6 +792,7 @@ def fused_vb_estep(xT, w, a, m, const, variant=None):
     are float64.  ``variant``: the kernel's pass, ``"reg"`` or ``"table"``
     (``_build.dense_plan``; None: the plan's), counted as
     ``variant:fused_vb_estep=<variant>``."""
+    variant = _elect("fused_vb_estep", a.shape[0], a.shape[-1], variant)
     if not use_kernel(xT, w, a, m, const):
         return plain_vb_estep(xT, w, a, m, const)
     K, D = _check_projection(xT, a, m)
@@ -790,7 +804,7 @@ def fused_vb_estep(xT, w, a, m, const, variant=None):
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1), const])
     S = _entries(K, D)
-    n_blocks, variant = _dense_launch("fused_vb_estep", xT.device, N, K, D, 0, variant)
+    n_blocks = _dense_blocks("fused_vb_estep", xT.device, N, K, D, 0, variant)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float64, device=xT.device)
     with torch.cuda.device(xT.device):
@@ -844,10 +858,14 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
     return xT, latent, log_q, log_p
 
 
-def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
+def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False, variant=None):
     """Every sufficient statistic of one PMC update in one pass over
     weighted particles (kernel ``csrc/pmc_stats.cu``); the dict of
-    :func:`plain_pmc_stats` with ``sw (2,) = [sum w, sum w^2]``."""
+    :func:`plain_pmc_stats` with ``sw (2,) = [sum w, sum w^2]``.
+    ``variant``: the kernel's pass, ``"reg"`` or ``"table"``
+    (``_build.dense_plan``; None: the plan's), counted as
+    ``variant:fused_pmc_stats=<variant>``."""
+    variant = _elect("fused_pmc_stats", ops.K, ops.dim, variant)
     if not use_kernel(xT, w, ops.packed):
         return plain_pmc_stats(xT, w, ops, dof_stats)
     D, N = xT.shape
@@ -857,17 +875,18 @@ def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False):
     _build.check_limits("fused_pmc_stats", ops.K, D)
     lib = _build.load()
     S = _entries(ops.K, D)
-    n_blocks, variant = _stats_launch("fused_pmc_stats", xT.device, N, ops.K, D)
+    n_blocks = _dense_blocks("fused_pmc_stats", xT.device, N, ops.K, D, 0, variant)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_pmc_stats(
             xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(),
             partial.data_ptr(), flat.data_ptr(), N, ops.K, D,
-            int(ops.student_t), int(dof_stats), n_blocks, _stream(xT.device))
+            int(ops.student_t), int(dof_stats), _DENSE_VARIANTS.index(variant), n_blocks,
+            _stream(xT.device))
     _raise_on(err, "fused_pmc_stats")
     fused_pmc_stats.launches += 1
-    _variant_counts[variant] += 1
+    _variant_counts["fused_pmc_stats=" + variant] += 1
     return _unpack_stats(flat, ops.K, D, 2)
 
 
@@ -881,6 +900,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     the plan's), counted as ``variant:fused_is_pmc_step=<variant>``; both
     draw the same particles from a seed (and, for a Gaussian target, the
     same weights)."""
+    variant = _elect("fused_is_pmc_step", ops.K, ops.dim, variant, target.K)
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step(seed, ops, target, n, dof_stats)
     _check_operands(ops)
@@ -892,8 +912,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     _build.check_limits("fused_is_pmc_step", ops.K, D, target.K)
     lib = _build.load()
     S = _entries(ops.K, D)
-    n_blocks, variant = _dense_launch("fused_is_pmc_step", device, n, ops.K, D, target.K,
-                                      variant)
+    n_blocks = _dense_blocks("fused_is_pmc_step", device, n, ops.K, D, target.K, variant)
     xT = torch.empty((D, n), dtype=torch.float32, device=device)
     latent = torch.empty((n,), dtype=torch.int32, device=device)
     w = torch.empty((n,), dtype=torch.float32, device=device)
@@ -1041,10 +1060,28 @@ def _transform_operands(ops: MixtureOperands):
     return torch.cat([f["mu"].reshape(-1), f["L"].reshape(-1), f["dof"]])
 
 
-def fused_transform(zT, latent, scale, ops: MixtureOperands):
+@functools.lru_cache(maxsize=None)
+def _transform_per_sm(K, D, index):
+    """Blocks of ``fused_transform``'s record kernel for (K, D) that one SM
+    of CUDA device ``index`` holds at once (the library's occupancy of its
+    instantiation and shared memory)."""
+    with torch.cuda.device(index):
+        per_sm = _build.load().pmc_transform_per_sm(K, D)
+    if per_sm < 1:
+        raise RuntimeError("fused_transform: K=%d, D=%d fits no block on an SM" % (K, D))
+    return per_sm
+
+
+def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     """The mixture transform ``mu[latent] + (L[latent] z) * scale`` of
     given normals ``zT (D, N)``, components ``latent (N,) int32`` (in [0,
-    K)) and scales ``(N,)`` -> ``(D, N)`` (kernel ``csrc/transform.cu``)."""
+    K)) and scales ``(N,)`` -> ``(D, N)`` (kernel ``csrc/transform.cu``).
+    ``variant``: the kernel, ``"rec"`` (the record kernel, to D = 64),
+    ``"looped"`` (to D = 128) or ``"warp"`` (past it), as
+    ``_build.transform_plan`` elects for None; either of the first two gives
+    the same output bit for bit.  Counted as
+    ``variant:fused_transform=<variant>``."""
+    variant = _elect("fused_transform", ops.K, ops.dim, variant)
     if not use_kernel(zT, scale, ops.packed):
         return plain_transform(zT, latent, scale, ops)
     D, N = zT.shape
@@ -1053,17 +1090,24 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands):
     _check(latent, (N,), torch.int32)
     _check_operands(ops)
     _build.check_limits("fused_transform", ops.K, D)
+    if variant == "rec":
+        n_blocks = _blocks(zT.device, N, _transform_per_sm(ops.K, D, zT.device.index),
+                           _build.EVAL_THREADS)
+    else:   # the looped kernel's 128 threads, or past D = 128 a warp a particle
+        threads = _build.THREADS if variant == "looped" else _build.block_particles(
+            "fused_transform", D)
+        n_blocks = _blocks(zT.device, N, 16, threads)
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty_like(zT)
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
-            xT.data_ptr(), N, ops.K, D,
-            _blocks(zT.device, N, 16, _build.block_particles("fused_transform", D)),
+            xT.data_ptr(), N, ops.K, D, _TRANSFORM_VARIANTS[variant], n_blocks,
             _stream(zT.device))
     _raise_on(err, "fused_transform")
     fused_transform.launches += 1
+    _variant_counts["fused_transform=" + variant] += 1
     return xT
 
 
@@ -1170,8 +1214,8 @@ def reset_launch_counts():
         fn.launches = 0
         if fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
-    for tile in (_build.THREADS, _build.THREADS // 2):
-        _variant_counts["fused_pmc_stats=tile%d" % tile] = 0
+    for variant in _TRANSFORM_VARIANTS:
+        _variant_counts["fused_transform=" + variant] = 0
     for name in _build._DENSE:
         for variant in _DENSE_VARIANTS:
             _variant_counts["%s=%s" % (name, variant)] = 0
@@ -1183,7 +1227,7 @@ def launch_counts() -> dict:
     """``{wrapper name: kernel launches, "plain:" + wrapper name: times the
     size gate sent an "auto" dispatch past the kernel, "variant:" + wrapper
     name + "=" + variant: the launches of each variant of the kernels that
-    have two}`` since the last reset."""
+    have several}`` since the last reset."""
     counts = {fn.__name__: fn.launches for fn in _WRAPPERS}
     counts.update({"plain:" + name: n for name, n in _plain_routes.items()})
     counts.update({"variant:" + name: n for name, n in _variant_counts.items()})

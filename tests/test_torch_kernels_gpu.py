@@ -82,7 +82,18 @@ def test_vb_estep_non_finite_particles(cuda):
     chip_smoke.vb_nonfinite_case(cuda, [])
 
 
-@pytest.mark.parametrize("kernel", ["fused_is_pmc_step", "fused_vb_estep"])
+@pytest.mark.parametrize("case", chip_smoke.PMC_STATS_CASES)
+def test_pmc_stats_passes_against_plain_version(cuda, case):
+    """fused_pmc_stats' register pass and entry table against the float64
+    plain version: a second run equal, a dead component's statistics 0."""
+    chip_smoke.pmc_stats_weighted_case(case, cuda, [])
+
+
+def test_pmc_stats_non_finite_particles(cuda):
+    chip_smoke.pmc_stats_nonfinite_case(cuda, [])
+
+
+@pytest.mark.parametrize("kernel", ["fused_is_pmc_step", "fused_vb_estep", "fused_pmc_stats"])
 def test_register_pass_is_deterministic_and_elected(cuda, kernel):
     """At K=10, D=10 the register pass is elected and counted as such; one
     seed (one input) gives the same statistics twice; the step draws the
@@ -100,6 +111,11 @@ def test_register_pass_is_deterministic_and_elected(cuda, kernel):
         for a, b in zip(runs[0][:3], table[:3]):
             assert torch.equal(a, b)
         outs = [list(r[:3]) + [r[3][key] for key in sorted(r[3])] for r in runs]
+    elif kernel == "fused_pmc_stats":
+        xT = kernels.fused_propose_logq((5, 6), ops, n)[0]
+        w = torch.rand((n,), device=cuda)
+        runs = [kernels.fused_pmc_stats(xT, w, ops, True) for _ in range(2)]
+        outs = [[r[key] for key in sorted(r)] for r in runs]
     else:
         xT = kernels.fused_propose_logq((5, 6), ops, n)[0]
         w = torch.rand((n,), device=cuda)

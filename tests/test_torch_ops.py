@@ -262,7 +262,10 @@ def test_eval_plan_streams_records_in_chunks():
     assert _build.eval_plan("fused_rho", 2, 200) == (2, 0, 4 * 4 * 3 * 208)
     assert _build.eval_threads(200) == _build.WIDE_THREADS == 128
     assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 4]
-    assert [_build.block_particles("fused_transform", D) for D in (10, 128, 129)] == [128] * 2 + [4]
+    # fused_transform's record kernel takes 256 threads to D = 64, its looped
+    # kernel 128 to D = 128
+    assert [_build.block_particles("fused_transform", D)
+            for D in (10, 64, 65, 128, 129)] == [256, 256, 128, 128, 4]
     assert _build.block_particles("fused_pmc_stats", 100) == 128
 
 
@@ -331,8 +334,9 @@ def test_statistics_tile_and_pool_variant_mirrors():
     # operand floats of fused_pmc_stats staged in front (~146 KB)
     ops = 128 * 1 + 128 * 1 + 4 * 128
     assert _build._operand_floats("fused_pmc_stats", 128, 1, 0) == ops
-    assert _build.smem_bytes("fused_pmc_stats", 128, 1) == (4 * (ops + 515 * 65) + 7) // 8 * 8 + 643 * 14
-    assert _build.smem_bytes("fused_pmc_stats", 128, 1) == 145_978
+    table = _build._table_bytes("fused_pmc_stats", 128, 1)
+    assert table == (4 * (ops + 515 * 65) + 7) // 8 * 8 + 643 * 14 == 145_978
+    # (the shape's elected pass is the register pass: test_dense_register_plan_mirrors)
     for kernel in ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep"):
         assert _build.limit_reason(kernel, 128, 1, 2) is None
         assert _build.smem_bytes(kernel, 128, 1, 2) <= _build.SMEM_LIMIT
@@ -364,13 +368,15 @@ def test_statistics_tile_and_pool_variant_mirrors():
     assert _build.smem_bytes("fused_mcmc_pool", 2, 40, 0) == _build.pool_smem_bytes(2, 40, "thread")
 
 
-# (K, D, Kt) -> the plan of fused_vb_estep and of fused_is_pmc_step, worked
+# (K, D, Kt) -> the plan of fused_vb_estep, fused_is_pmc_step and
+# fused_pmc_stats, worked
 # by hand from csrc/reg_stats.cuh: S slices (one band, D <= 10: 128 // K,
 # at least 8; three: 8, 16 or 32), groups = ceil(K / (128 // S)) with one
 # band or ceil(K / (32 / S)) with three; a component's r = (D + 3) | 1 rows
 # (diff, w rho, c, t1) at a stride of 64 + (S r^-1 mod 32); records (VB: pad4(D) + 4 + D pad4(D)
 # floats; the step: pad4(D) + 4 + tri_row(D), the 2-component target's and
-# K thresholds besides), the staging of (D + 1) x 128 floats, the tile and (one group:
+# K thresholds besides; fused_pmc_stats: the step's K records alone), the
+# staging of (D + 1) x 128 floats, the tile and (one group:
 # within the tile; more: beside it) the scratch of 8 K P + 192 floats, then
 # K P + 3 float64 accumulators, P = 3 + D + D (D + 1) / 2
 def _vb_reg(recs, D, tile, scratch, groups, E):
@@ -384,38 +390,47 @@ DENSE_PLANS = {
     # floats, the step's 88
     (10, 10): (("reg", 64, 12, 1, _vb_reg(10 * 136, 10, 10 * 13 * 92, 12 * 680 + 192, 1, 680)),
                ("reg", 64, 12, 1, _vb_reg(12 * 88 + 10, 10, 10 * 13 * 92, 12 * 680 + 192, 1,
-                                          680))),
+                                          680)),
+               ("reg", 64, 12, 1, _vb_reg(10 * 88, 10, 10 * 13 * 92, 12 * 680 + 192, 1, 680))),
     # the last K of one group at D=10, and the first of two
     (16, 10): (("reg", 64, 8, 1, _vb_reg(16 * 136, 10, 16 * 936, 8 * 1088 + 192, 1, 1088)),
-               ("reg", 64, 8, 1, _vb_reg(18 * 88 + 16, 10, 16 * 936, 8 * 1088 + 192, 1, 1088))),
+               ("reg", 64, 8, 1, _vb_reg(18 * 88 + 16, 10, 16 * 936, 8 * 1088 + 192, 1, 1088)),
+               ("reg", 64, 8, 1, _vb_reg(16 * 88, 10, 16 * 936, 8 * 1088 + 192, 1, 1088))),
     (17, 10): (("reg", 64, 8, 2, _vb_reg(17 * 136, 10, 17 * 936, 8 * 1156 + 192, 2, 1156)),
-               ("reg", 64, 8, 2, _vb_reg(19 * 88 + 17, 10, 17 * 936, 8 * 1156 + 192, 2, 1156))),
+               ("reg", 64, 8, 2, _vb_reg(19 * 88 + 17, 10, 17 * 936, 8 * 1156 + 192, 2, 1156)),
+               ("reg", 64, 8, 2, _vb_reg(17 * 88, 10, 17 * 936, 8 * 1156 + 192, 2, 1156))),
     # D=11: three bands of 4 components at 8 slices; rows 15 at stride 88
     # (15 x 15 = 1 mod 32, 8 x 15 = 24 mod 32); P = 80; records 12 + 4 + 84
     (11, 11): (("reg", 64, 8, 3, _vb_reg(11 * 148, 11, 11 * 15 * 88, 8 * 880 + 192, 3, 880)),
                ("reg", 64, 8, 3, _vb_reg(13 * 100 + 11, 11, 11 * 15 * 88, 8 * 880 + 192, 3,
-                                         880))),
+                                         880)),
+               ("reg", 64, 8, 3, _vb_reg(11 * 100, 11, 11 * 15 * 88, 8 * 880 + 192, 3, 880))),
     # D=16: rows 19 at stride 88 (19 x 27 = 1, 8 x 27 = 24 mod 32), P = 155,
     # records 16 + 4 + 16 x 16 = 276 floats (the step's 16 + 4 + 160); one
     # component takes 32 slices (stride 64), two 16 (16 x 27 = 16 mod 32)
     (8, 16): (("reg", 64, 8, 2, _vb_reg(8 * 276, 16, 8 * 19 * 88, 8 * 1240 + 192, 2, 1240)),
               ("reg", 64, 8, 2, _vb_reg(10 * 180 + 8, 16, 8 * 19 * 88, 8 * 1240 + 192, 2,
-                                        1240))),
+                                        1240)),
+              ("reg", 64, 8, 2, _vb_reg(8 * 180, 16, 8 * 19 * 88, 8 * 1240 + 192, 2, 1240))),
     (1, 16): (("reg", 64, 32, 1, _vb_reg(276, 16, 19 * 64, 32 * 155 + 192, 1, 155)),
-              ("reg", 64, 32, 1, _vb_reg(3 * 180 + 1, 16, 19 * 64, 32 * 155 + 192, 1, 155))),
+              ("reg", 64, 32, 1, _vb_reg(3 * 180 + 1, 16, 19 * 64, 32 * 155 + 192, 1, 155)),
+              ("reg", 64, 32, 1, _vb_reg(180, 16, 19 * 64, 32 * 155 + 192, 1, 155))),
     (2, 16): (("reg", 64, 16, 1, _vb_reg(2 * 276, 16, 2 * 19 * 72, 16 * 310 + 192, 1, 310)),
               ("reg", 64, 16, 1, _vb_reg(4 * 180 + 2, 16, 2 * 19 * 72, 16 * 310 + 192, 1,
-                                         310))),
+                                         310)),
+              ("reg", 64, 16, 1, _vb_reg(2 * 180, 16, 2 * 19 * 72, 16 * 310 + 192, 1, 310))),
     # K=128 at D=1 (the JAX rule's reach): eight groups; rows 5 at stride 72
     (128, 1): (("reg", 64, 8, 8, _vb_reg(128 * 12, 1, 128 * 5 * 72, 8 * 640 + 192, 8, 640)),
                ("reg", 64, 8, 8, _vb_reg(130 * 12 + 128, 1, 128 * 5 * 72, 8 * 640 + 192, 8,
-                                         640))),
+                                         640)),
+               ("reg", 64, 8, 8, _vb_reg(128 * 12, 1, 128 * 5 * 72, 8 * 640 + 192, 8, 640))),
     # the first (K, D <= 16) past shared memory: K=137 at D=1 (K=136 fits),
-    # the entry table's 64-particle tile
-    (137, 1): (("table", 64, 0, 0, None), ("table", 64, 0, 0, None)),
-    (136, 1): (("reg", 64, 8, 9, None), ("reg", 64, 8, 9, None)),
+    # the entry table's 64-particle tile (at D=1 a record is 12 floats in
+    # every layout, so fused_pmc_stats' plan is VB's)
+    (137, 1): (("table", 64, 0, 0, None),) * 3,
+    (136, 1): (("reg", 64, 8, 9, None),) * 3,
     # D=17: the entry table
-    (4, 17): (("table", 128, 0, 0, None), ("table", 128, 0, 0, None)),
+    (4, 17): (("table", 128, 0, 0, None),) * 3,
 }
 
 
@@ -424,19 +439,129 @@ def test_dense_register_plan_mirrors(K, D):
     """_build.dense_plan, the mirror of csrc/reg_stats.cuh dense_plan,
     against hand-worked plans; the shared memory the wrappers' limits read
     is the plan's."""
-    for kernel, want in zip(("fused_vb_estep", "fused_is_pmc_step"), DENSE_PLANS[(K, D)]):
+    for kernel, want in zip(("fused_vb_estep", "fused_is_pmc_step", "fused_pmc_stats"),
+                            DENSE_PLANS[(K, D)]):
         got = _build.dense_plan(kernel, K, D, 2)
         assert got[:4] == want[:4], (kernel, got)
         if want[4] is not None:
             assert got[4] == want[4], (kernel, got)
         assert _build.smem_bytes(kernel, K, D, 2) == got[4]
+        assert (_build.limit_reason(kernel, K, D, 2) is None) == (got[4] <= _build.SMEM_LIMIT)
         if got[0] == "reg":
             assert got[4] <= _build.SMEM_LIMIT
         else:
             assert got[4] == _build._table_bytes(kernel, K, D, 2)
     assert _build.dense_plan("fused_vb_estep", 137, 1)[0] == "table"
-    assert _build._dense_reg_bytes(137, 0, 1, 8, 9, True) > _build.SMEM_LIMIT
-    assert _build._dense_reg_bytes(136, 2, 1, 8, 9, False) <= _build.SMEM_LIMIT
+    assert _build._dense_reg_bytes("fused_vb_estep", 137, 0, 1, 8, 9) > _build.SMEM_LIMIT
+    assert _build._dense_reg_bytes("fused_is_pmc_step", 136, 2, 1, 8, 9) <= _build.SMEM_LIMIT
+    assert _build._dense_reg_bytes("fused_pmc_stats", 137, 0, 1, 8, 9) > _build.SMEM_LIMIT
+    assert _build._dense_reg_bytes("fused_pmc_stats", 136, 0, 1, 8, 9) <= _build.SMEM_LIMIT
+
+
+# (K, D) -> fused_transform's plan, worked by hand from csrc/transform.cu
+# transform_plan: to D = 64 the record kernel, 256 threads, a record of
+# (D + D (D + 1) / 2) | 1 floats, the K records staged where they fit half
+# an SM (228 KB / 2 - 1 KB = 115,712 B), else none; to D = 128 the looped
+# kernel, 128 threads, mu | L | dof (K D (D + 1) + K floats) staged where
+# they fit 232,448 B; past it a warp a particle, three slices of D + 8
+# floats for each of 4 warps
+TRANSFORM_PLANS = {
+    (32, 40): ("rec", True, 861, 256, 32 * 861 * 4),       # 110,208 B: two blocks an SM
+    (33, 40): ("rec", True, 861, 256, 113_652),
+    (34, 40): ("rec", False, 861, 256, 0),                 # 117,096 B past half an SM
+    (10, 10): ("rec", True, 65, 256, 2600),
+    (13, 64): ("rec", True, 2145, 256, 13 * 2145 * 4),
+    (14, 64): ("rec", False, 2145, 256, 0),
+    (2, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
+    (1, 128): ("looped", True, 0, 128, 4 * (128 * 129 + 1)),
+    (4, 128): ("looped", False, 0, 128, 0),
+    (1, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
+}
+
+
+@pytest.mark.parametrize("K,D", sorted(TRANSFORM_PLANS))
+def test_transform_plan_mirrors(K, D):
+    """_build.transform_plan, the mirror of csrc/transform.cu
+    transform_plan, against hand-worked plans: the kernel, the records
+    staged, their odd stride (the K components' words at one offset in K
+    distinct banks, where the looped kernel's D * D stride puts them in one
+    at D = 40), the threads and the shared memory, which smem_bytes and
+    limit_reason read."""
+    got = _build.transform_plan(K, D)
+    assert got == TRANSFORM_PLANS[(K, D)]
+    assert _build.smem_bytes("fused_transform", K, D) == got[4] <= _build._HALF_SMEM
+    assert _build.limit_reason("fused_transform", K, D) is None
+    assert _build.block_particles("fused_transform", D) * (32 if got[0] == "warp" else 1) == got[3]
+    if got[0] == "rec":
+        F = got[2]
+        assert F % 2 == 1 and F >= D + D * (D + 1) // 2
+        banks = {k * F % 32 for k in range(min(K, 32))}
+        assert len(banks) == min(K, 32)
+        if D == 40:
+            assert {k * D * D % 32 for k in range(K)} == {0}
+    # fused_transform_rng keeps the looped kernel's operands mu | L | dof
+    ops = 4 * (K * D * (D + 1) + K)
+    rng_smem = _build._wide_smem(D) if D > 128 else ops if ops <= _build.SMEM_LIMIT else 0
+    assert _build.smem_bytes("fused_transform_rng", K, D) == rng_smem
+
+
+def _variant_call(kernel, K, D, variant):
+    """Call ``kernel``'s wrapper on CPU tensors of a (K, D) mixture with
+    ``variant``."""
+    rng = np.random.default_rng(K + D)
+    jp, tp = mixture(rng, K, D, True, dtype=np.float32)
+    ops = core._kernel_operands(tp)
+    N = 33
+    xT = torch.tensor(rng.normal(0, 1, (D, N)), dtype=torch.float32)
+    w = torch.ones(N)
+    if kernel == "fused_transform":
+        latent = torch.tensor(rng.integers(0, K, N), dtype=torch.int32)
+        return kernels.fused_transform(xT, latent, w, ops, variant=variant)
+    if kernel == "fused_pmc_stats":
+        return kernels.fused_pmc_stats(xT, w, ops, True, variant=variant)
+    if kernel == "fused_is_pmc_step":
+        return kernels.fused_is_pmc_step((1, 2), ops, ops, N, True, variant=variant)
+    A = torch.linalg.cholesky(torch.eye(D).expand(K, D, D)).transpose(1, 2).contiguous()
+    return kernels.fused_vb_estep(xT, w, A, torch.zeros(K, D), torch.zeros(K), variant=variant)
+
+
+@pytest.mark.parametrize("kernel,K,D,variant,ok", [
+    # fused_transform: the record kernel to D = 64, the looped kernel beside
+    # it and alone to D = 128, the warp kernel past it
+    ("fused_transform", 3, 10, "rec", True), ("fused_transform", 3, 10, "looped", True),
+    ("fused_transform", 3, 10, "warp", False), ("fused_transform", 1, 65, "rec", False),
+    ("fused_transform", 1, 65, "looped", True), ("fused_transform", 1, 129, "looped", False),
+    ("fused_transform", 1, 129, "warp", True), ("fused_transform", 3, 10, "reg", False),
+    # the statistics kernels: the register pass to D = 16 and the entry table
+    # beside it; the entry table alone past it
+    ("fused_pmc_stats", 3, 4, "reg", True), ("fused_pmc_stats", 3, 4, "table", True),
+    ("fused_pmc_stats", 2, 17, "reg", False), ("fused_pmc_stats", 2, 17, "table", True),
+    ("fused_pmc_stats", 3, 4, "looped", False), ("fused_vb_estep", 2, 17, "reg", False),
+    ("fused_vb_estep", 3, 4, "table", True), ("fused_is_pmc_step", 2, 17, "reg", False),
+    ("fused_is_pmc_step", 3, 4, "rec", False),
+])
+def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, ok):
+    """A wrapper's variant= names the plan's pass or its yardstick; any
+    other raises ValueError naming the plan, on the CPU as on the card (the
+    CPU runs the plain version whatever the variant)."""
+    if ok:
+        _variant_call(kernel, K, D, variant)
+    else:
+        with pytest.raises(ValueError, match="the plan"):
+            _variant_call(kernel, K, D, variant)
+
+
+def test_launch_counts_name_the_variants():
+    """launch_counts() names each variant of the kernels that have several:
+    fused_transform's record, looped and warp kernels and the statistics
+    kernels' register and entry-table passes (fused_pmc_stats' tile width is
+    no longer a variant)."""
+    kernels.reset_launch_counts()
+    names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
+    assert {"variant:fused_transform=" + v for v in ("rec", "looped", "warp")} <= names
+    for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
+        assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
+    assert not any("=tile" in n for n in names)
 
 
 def test_package_imports_without_jax():
