@@ -10,17 +10,19 @@ Phases, each of which exits non-zero on failure:
    ``nvcc`` a source, all at once), each launcher's shared memory (and the
    chunked kernels' components a chunk, the statistics kernels' tile, the
    plan of the register pass of ``fused_vb_estep``, ``fused_is_pmc_step``
-   and ``fused_pmc_stats``, the plan of ``fused_transform`` and the pool's
+   and ``fused_pmc_stats``, the plans of the three draws ``fused_transform``,
+   ``fused_transform_rng`` and ``fused_propose_logq`` and the pool's
    variant) against ``ops/_build.py``'s formula, the
    registers of the K-blocked statistics pass's, the step's first pass's
    and the dense register kernel's DMAX 8 and 16 instantiations (the last
    also its blocks an SM at K=10, D=10: at least 3), of every record
    instantiation of ``fused_logq``'s, ``fused_rho``'s, ``fused_maha``'s and
-   ``fused_transform``'s kernels (DMAX 8 to 64) and of the
+   the three draws' kernels (DMAX 8 to 64) and of the
    pool's two variants (DMAX 8 to 64), which must not spill (nor, the record
    kernels, keep a stack frame), and the record kernels' blocks an SM at
-   K=32, D=40 and K=200, D=10, ``fused_transform``'s at K=32, D=40 and
-   K=10, D=10 (at least 16 warps);
+   K=32, D=40 and K=200, D=10, the draws' at the flagship and at D=40
+   (``fused_transform`` K=32, ``fused_transform_rng`` K=11,
+   ``fused_propose_logq`` K=9 with a 2-component target; at least 16 warps);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -37,7 +39,7 @@ Phases, each of which exits non-zero on failure:
    register pass's plan (K=16 and 17 at D=10, D=11 and 16, K=128 at D=1,
    and K=137 at D=1 on the entry table), each where the register pass is
    elected also through its entry-table pass (the step: the same particles
-   bit for bit, and for a Gaussian target the same weights), and
+   and weights bit for bit, a Student-t target's too), and
    ``fused_vb_estep`` on a NaN and an infinite coordinate;
    ``fused_pmc_stats`` on both passes where the register pass is elected
    (a second run equal, a dead component's statistics 0) and on a NaN
@@ -46,7 +48,13 @@ Phases, each of which exits non-zero on failure:
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
    D=40), its record kernel equal to the looped kernel bit for bit (K=32,
    D=40, N=2^20, Gaussian and Student-t scales; the flagship; D=1, 33 and
-   64; K=40, D=40 with the records read from device memory).  The random
+   64; K=40, D=40 with the records read from device memory);
+   ``fused_propose_logq``'s and ``fused_transform_rng``'s record kernels
+   equal to their looped kernels bit for bit on every output, the outputs
+   that differ counted (the flagship, Gaussian and Student-t, without a
+   target, a dead component, odd N, D=1, 7, 33, 40, 62 and 64, the records
+   read from device memory; ``DRAW_VARIANT_CASES``,
+   ``TRANSFORM_RNG_VARIANT_CASES``).  The random
    kernels are checked on their own samples: the plain
    version recomputes every deterministic output from them, and the
    samples' moments, component frequencies, seed determinism and dead
@@ -64,7 +72,8 @@ Phases, each of which exits non-zero on failure:
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
    two runs (every ``fused_is_pmc_step`` and ``fused_pmc_stats`` launch on
-   its register pass);
+   its register pass, every ``fused_propose_logq`` launch on its record
+   kernel);
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
    pruning (every ``fused_vb_estep`` launch on its register pass), one
@@ -92,23 +101,26 @@ Phases, each of which exits non-zero on failure:
    a step, 10 steps); and ``Hierarchical`` on
    ``examples/mixture_reduction.py``'s 400 components;
 7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
-   through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16 and
-   the tensor path below 1024 particles;
+   through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16
+   (each on its record kernel) and the tensor path below 1024 particles;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
 9. pipeline: ``pipeline.integrate`` at ``benchmarks/accuracy_highdim.py
    --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
-   elects, every ``fused_transform`` launch on its record kernel) and the
+   elects, every ``fused_transform`` and ``fused_propose_logq`` launch on
+   its record kernel) and the
    callable-target run of ``tests/test_pipeline_api.py``;
 10. times: each kernel and its plain version, with CUDA events, beside
     the least time the card could take (``bound``), the entry-table pass
     of ``fused_vb_estep``, ``fused_is_pmc_step`` and ``fused_pmc_stats``
-    beside their elected one, ``fused_transform``'s looped kernel beside
-    its record kernel, ``fused_maha``, ``fused_logq``, ``fused_rho`` and
-    ``fused_transform`` also at the shapes the main paths give them (K=32,
-    D=40, N=2^20; K=200, D=10, N=10^7), the pool's two variants
+    beside their elected one, the three draws' looped kernels beside their
+    record kernels, ``fused_maha``, ``fused_logq``, ``fused_rho`` and the
+    draws also at the shapes the main paths give them (K=32, D=40, N=2^20;
+    K=200, D=10, N=10^7; ``fused_propose_logq`` K=9, D=40 with a
+    2-component target and ``fused_transform_rng`` K=11, D=40 at N=2^20),
+    the pool's two variants
     at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
     the mcmc phase's and on each side of the cut-offs of their election
     (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
@@ -409,27 +421,14 @@ def kernel_case(case, device, report):
     print("  fused_is_pmc_step pass %s: %d columns, %d slices, %d groups, %d B" % plan)
     if plan[0] == "reg":
         # the entry-table pass from the same seed words: the same particles
-        # bit for bit, and the same weights for a Gaussian target;
-        # statistics within the same tolerance
+        # and weights bit for bit (log p on records in the register pass, by
+        # mixture_logpdf in the entry table: the same arithmetic, a
+        # Student-t target's too); statistics within the same tolerance
         table = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats, variant="table")
-        exact = (xT, lat) if t_student else (xT, lat, w)
-        differ = [name for name, a, b in zip(("x", "latent", "w"), exact, table)
+        differ = [name for name, a, b in zip(("x", "latent", "w"), (xT, lat, w), table)
                   if not bool(torch.equal(a, b))]
         require(not differ, "fused_is_pmc_step: the register and the entry-table pass differ "
                 "in %s (w by up to %.3e)" % (differ, float((w - table[2]).abs().max())))
-        if t_student:
-            # a Student-t target: log p on records (the register pass, as
-            # the K-blocked first launch) and by mixture_logpdf (the entry
-            # table) agree to a few float32 roundings of log p, log q and
-            # their difference
-            lp = k.plain_logq(x64, tops64)
-            slack = 2.0 ** -20 * (lp.abs() + (lp - k.plain_logq(x64, ops64)).abs() + 1.0)
-            rel = (w.double() - table[2].double()).abs() / table[2].double().abs().clamp_min(1e-30)
-            print("  fused_is_pmc_step w, register vs entry-table pass: %d differ, at most "
-                  "%.3g of the rounding slack"
-                  % (int((w != table[2]).sum()), float((rel / slack).max())))
-            require(bool((rel <= slack).all()), "fused_is_pmc_step: the passes' weights differ "
-                    "past the float32 rounding of log p (%.3g relative)" % float(rel.max()))
         check_stats("fused_is_pmc_step table", table[3], ref, N, report)
         del table
     require(not bool(torch.equal(k.fused_is_pmc_step(seed_b, ops, tops, N, dof_stats)[0], xT)),
@@ -815,6 +814,69 @@ def transform_rng_case(case, device, report):
             "fused_transform_rng: two seeds, one output")
 
 
+def draw_variants_case(case, device, report):
+    """fused_propose_logq's record kernel against its looped kernel on one
+    configuration (Kt=0: no target): the launch counted under the kernel its
+    plan elects (the record kernel, its records staged or, where they pass
+    half an SM, read from device memory, as the case says), and all four
+    outputs equal bit for bit; the number of outputs that differ is printed
+    and must be 0."""
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dead, staged, seed = case
+    ops, tops = case_mixtures((K, max(Kt, 1), D, N, student, t_student, dead, seed), device)[4:6]
+    tops = tops if Kt else None
+    plan = _build.propose_plan(K, Kt, D)
+    tag = "K=%d Kt=%d D=%d N=%d %s%s" % (K, Kt, D, N, "t" if student else "gauss",
+                                         " dead" if dead else "")
+    print("case fused_propose_logq rec vs looped %s: records staged %s, %d B"
+          % (tag, plan[1], plan[4]))
+    require(plan[:2] == ("rec", staged), "fused_propose_logq at %s: the plan is %s" % (tag, plan))
+    k.reset_launch_counts()
+    rec = k.fused_propose_logq((seed, 11), ops, N, tops)
+    sync(device)
+    require(k.launch_counts()["variant:fused_propose_logq=rec"] == 1,
+            "fused_propose_logq: the launch did not take the record kernel")
+    looped = k.fused_propose_logq((seed, 11), ops, N, tops, variant="looped")
+    differ = sum(int((a != b).sum()) for a, b in zip(rec, looped))
+    total = sum(a.numel() for a in rec)
+    print("  fused_propose_logq rec vs looped: %d of %d outputs differ" % (differ, total))
+    require(differ == 0, "fused_propose_logq: the record and the looped kernel differ in %d "
+            "outputs" % differ)
+    report.append({"output": "fused_propose_logq rec vs looped", "differ": differ})
+
+
+def transform_rng_variants_case(case, device, report):
+    """fused_transform_rng's record kernel against its looped kernel on one
+    configuration, as draw_variants_case: the same components (drawn as
+    propose_T draws them), the output equal bit for bit."""
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dead, staged, seed = case
+    arrs = random_mixture(np.random.default_rng(seed), K, D, student, dead)
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
+    plan = _build.transform_plan(K, D, rng=True)
+    print("case fused_transform_rng rec vs looped K=%d D=%d N=%d %s%s: records staged %s, %d B"
+          % (K, D, N, "t" if student else "gauss", " dead" if dead else "", plan[1], plan[4]))
+    require(plan[:2] == ("rec", staged), "fused_transform_rng at K=%d, D=%d: the plan is %s"
+            % (K, D, plan))
+    latent = component_draw(params, N, seed)
+    k.reset_launch_counts()
+    rec = k.fused_transform_rng((seed, 31), latent, ops)
+    sync(device)
+    require(k.launch_counts()["variant:fused_transform_rng=rec"] == 1,
+            "fused_transform_rng: the launch did not take the record kernel")
+    differ = int((rec != k.fused_transform_rng((seed, 31), latent, ops, variant="looped")).sum())
+    print("  fused_transform_rng rec vs looped: %d of %d outputs differ" % (differ, rec.numel()))
+    require(differ == 0, "fused_transform_rng: the record and the looped kernel differ in %d "
+            "outputs" % differ)
+    report.append({"output": "fused_transform_rng rec vs looped", "differ": differ})
+
+
 def bimodal_target(D, device):
     """tests/test_rng_kernels.py's pool target: two Gaussians 0.5/0.5 at 0
     and 4 in every coordinate, covariance 0.5 I."""
@@ -1157,6 +1219,36 @@ TRANSFORM_RNG_CASES = [
     (10, 10, N_ODD, False, True, 52),
     (11, 40, N_WIDE, True, False, 53),
 ]
+# the draws' record kernels against their looped kernels, bit for bit:
+# K, Kt (0: no target), D, N, Student-t proposal, Student-t target, dead
+# component, records staged (the plan's), seed
+DRAW_VARIANT_CASES = [
+    (10, 2, 10, N_FLAGSHIP, True, False, False, True, 111),     # the flagship
+    (10, 2, 10, N_FLAGSHIP, False, False, False, True, 112),
+    (10, 0, 10, N_FLAGSHIP, True, False, False, True, 113),     # no target
+    (10, 2, 10, N_ODD, True, True, True, True, 114),            # a dead component, odd N
+    (3, 2, 1, N_ODD, True, False, False, True, 115),
+    (4, 2, 7, N_ODD, False, True, False, True, 116),
+    (3, 2, 33, N_WIDE, True, False, False, True, 117),          # DMAX 40's lower end
+    (9, 2, 40, N_FLAGSHIP, True, False, False, True, 118),      # the widest K the rule admits
+    (9, 2, 40, N_WIDE, False, True, False, True, 119),
+    (7, 0, 62, N_WIDE, True, False, False, True, 120),          # the rule's largest records
+    (4, 2, 62, N_WIDE, True, False, False, True, 121),
+    (4, 2, 64, N_WIDE, False, True, False, True, 122),          # DMAX 64's upper end
+    (40, 2, 40, N_WIDE, True, False, False, False, 123),        # records in device memory
+    (200, 2, 10, N_WIDE, True, False, True, False, 124),        # past the rule: device memory
+]
+# K, D, N, Student-t, dead component, records staged, seed
+TRANSFORM_RNG_VARIANT_CASES = [
+    (10, 10, N_FLAGSHIP, True, False, True, 131),
+    (10, 10, N_ODD, False, True, True, 132),
+    (11, 40, N_FLAGSHIP, True, False, True, 133),                 # the route
+    (11, 40, N_WIDE, False, False, True, 134),
+    (3, 1, N_ODD, True, False, True, 135),
+    (3, 33, N_WIDE, False, False, True, 136),
+    (4, 64, N_WIDE, True, False, True, 137),
+    (40, 64, N_WIDE, True, False, False, 138),                    # records in device memory
+]
 POOL_CASES = [
     # C, D, steps, Student-t proposal dof (None: Gaussian), seed
     (200, 2, 64, None, 61),
@@ -1202,6 +1294,11 @@ def phase_kernels(device, cases, eval_cases):
         torch.cuda.empty_cache()
     for case in TRANSFORM_RNG_CASES:
         transform_rng_case(case, device, report)
+    for case in DRAW_VARIANT_CASES:
+        draw_variants_case(case, device, report)
+    for case in TRANSFORM_RNG_VARIANT_CASES:
+        transform_rng_variants_case(case, device, report)
+    torch.cuda.empty_cache()
     for case in POOL_CASES:
         for variant in pool_variants(case[1]):
             pool_case(case, device, report, variant)
@@ -1313,6 +1410,9 @@ def phase_slice(device):
             % (counts["variant:fused_is_pmc_step=reg"], STEPS))
     require(counts["fused_logq"] >= STEPS, "slice: fused_logq launches")
     require(counts["fused_propose_logq"] >= 2, "slice: fused_propose_logq launches")
+    require(counts["variant:fused_propose_logq=rec"] == counts["fused_propose_logq"],
+            "slice: %d of %d fused_propose_logq launches took the record kernel"
+            % (counts["variant:fused_propose_logq=rec"], counts["fused_propose_logq"]))
     require(counts["fused_pmc_stats"] >= 2, "slice: fused_pmc_stats launches")
     require(counts["variant:fused_pmc_stats=reg"] == counts["fused_pmc_stats"],
             "slice: %d of %d fused_pmc_stats launches took the register pass"
@@ -2038,9 +2138,9 @@ def phase_routes(device, report):
         counts = k.launch_counts()
         launched = {name: c for name, c in counts.items() if c and not name.startswith("variant:")}
         print("  K=%d D=%d n=%d Student-t: launches %s" % (K, D, n, json.dumps(launched)))
-        if route == "fused_transform":
-            require(counts["variant:fused_transform=rec"] == 1,
-                    "routes: K=%d's fused_transform launch did not take the record kernel" % K)
+        if route in ("fused_transform", "fused_transform_rng"):
+            require(counts["variant:%s=rec" % route] == 1,
+                    "routes: K=%d's %s launch did not take the record kernel" % (K, route))
         want = {"fused_transform_rng": {"plain:fused_propose_logq": 1, "fused_transform_rng": 1,
                                         "fused_logq": 2},
                 "fused_transform": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
@@ -2237,6 +2337,11 @@ def phase_pipeline(device):
             "pipeline: %d of %d fused_transform launches took the record kernel"
             % (counts["variant:fused_transform=rec"], counts["fused_transform"]))
     print("  fused_transform: %d launches, all on the record kernel" % counts["fused_transform"])
+    require(counts["variant:fused_propose_logq=rec"] == counts["fused_propose_logq"],
+            "pipeline: %d of %d fused_propose_logq launches took the record kernel"
+            % (counts["variant:fused_propose_logq=rec"], counts["fused_propose_logq"]))
+    print("  fused_propose_logq: %d launches, all on the record kernel"
+          % counts["fused_propose_logq"])
 
     # where the device time of the run goes: the same run again, profiled
     from torch.profiler import ProfilerActivity, profile
@@ -2385,6 +2490,8 @@ def phase_times(device, report):
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
          (N_PLAIN_MAX, N_SLICE, N_BENCH))
+    times[("fused_propose_logq", N_PLAIN_MAX, "looped")] = cuda_ms(
+        lambda i: k.fused_propose_logq((i, 1), ops, N_PLAIN_MAX, tops, variant="looped"))
     torch.cuda.empty_cache()
     pair("fused_is_pmc_step", lambda i, n: k.fused_is_pmc_step((i, 2), ops, tops, n, True),
          lambda i, n: k.plain_is_pmc_step((i, 2), ops, tops, n, True),
@@ -2419,6 +2526,14 @@ def phase_times(device, report):
              bound("fused_transform", (10, 0, 10, N_PLAIN_MAX))[1]))
     pair("fused_transform_rng", lambda i, n: k.fused_transform_rng((i, 3), latent, ops),
          lambda i, n: k.plain_transform_rng((i, 3), latent, ops), (N_PLAIN_MAX,))
+    times[("fused_transform_rng", N_PLAIN_MAX, "looped")] = cuda_ms(
+        lambda i: k.fused_transform_rng((i, 3), latent, ops, variant="looped"))
+    for name in ("fused_propose_logq", "fused_transform_rng"):
+        print("  %s K=10 Kt=2 D=10 N=%d: the %s kernel (elected) %.3f ms, the looped kernel "
+              "%.3f ms, bound %.3f ms"
+              % (name, N_PLAIN_MAX, _build.draw_plan(name, 10, 10, 2)[0],
+                 times[(name, N_PLAIN_MAX, "cuda")], times[(name, N_PLAIN_MAX, "looped")],
+                 bound(name, (10, 2, 10, N_PLAIN_MAX))[1]))
     del zT, latent, scale
     torch.cuda.empty_cache()
 
@@ -2478,17 +2593,87 @@ def phase_times(device, report):
     return times
 
 
+def draw_rows(device, reps=20):
+    """``{row: (ms, {kernel: device ms})}``: CUDA events over ``reps``
+    calls, and each kernel's device time a launch (launch_split), of the
+    elected kernels of the two random draws at phase times' shapes (the flagship K=10 Student-t proposal with
+    its 2-component target at D=10, N=2^22; fused_propose_logq at K=9, D=40
+    and fused_transform_rng at K=11, D=40, N=2^20) and of the kernels that
+    share their draw or evaluation code at the flagship (fused_logq,
+    fused_is_pmc_step, fused_is_pmc_step_blocked at K=200) and of
+    fused_transform there and at K=32, D=40, N=2^20.  It calls no
+    ``variant=``, so that a run against another version of the package can
+    time the same rows: load this file by its path with that version first
+    on ``sys.path``, and run the two versions in turns in one call."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    params, target, _ = flagship_problem(device)
+    ops, tops = core._kernel_operands(params), core._kernel_operands(target)
+    n = N_PLAIN_MAX
+    latent = component_draw(params, n, 9)
+    gen = torch.Generator(device=device).manual_seed(9)
+    zT = torch.randn((params.dim, n), generator=gen, device=device)
+    scale = student_t_scale(gen, params.dof[latent.long()], (n,))
+    xT = k.fused_propose_logq((7, 7), ops, n, tops)[0]
+    rows = {"fused_propose_logq K=10 Kt=2 D=10": lambda i: k.fused_propose_logq((i, 1), ops, n,
+                                                                               tops),
+            "fused_transform_rng K=10 D=10": lambda i: k.fused_transform_rng((i, 3), latent, ops),
+            "fused_logq K=10 D=10": lambda i: k.fused_logq(xT, ops),
+            "fused_is_pmc_step K=10 Kt=2 D=10": lambda i: k.fused_is_pmc_step((i, 2), ops, tops,
+                                                                              n, True),
+            "fused_transform K=10 D=10": lambda i: k.fused_transform(zT, latent, scale, ops)}
+    timed = lambda name, fn: (cuda_ms(fn, reps=reps), launch_split(name, fn, ()))
+    out = {name: timed(name, fn) for name, fn in rows.items()}
+    del xT, latent, zT, scale
+    K, _, D, N = MAIN_SHAPES["fused_transform"][0]
+    tparams = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    tops32 = core._kernel_operands(tparams)
+    tlatent = component_draw(tparams, N, K + D)
+    tz = torch.randn((D, N), generator=gen, device=device)
+    tscale = student_t_scale(gen, tparams.dof[tlatent.long()], (N,))
+    out["fused_transform K=%d D=%d" % (K, D)] = timed(
+        "fused_transform", lambda i: k.fused_transform(tz, tlatent, tscale, tops32))
+    del tz, tlatent, tscale
+    sparams, starget, _ = flagship_problem(device, K=200)
+    sops, stops = core._kernel_operands(sparams), core._kernel_operands(starget)
+    out["fused_is_pmc_step_blocked K=200 Kt=2 D=10"] = timed(
+        "fused_is_pmc_step_blocked", lambda i: k.fused_is_pmc_step_blocked((i, 2), sops, stops, n,
+                                                                          True))
+    for name, (K, Kt, D, N) in (("fused_propose_logq", MAIN_SHAPES["fused_propose_logq"][0]),
+                                ("fused_transform_rng", MAIN_SHAPES["fused_transform_rng"][0])):
+        arrs = random_mixture(np.random.default_rng(K + D), K, D, True)
+        wparams = make_params(arrs, device)
+        wops = core._kernel_operands(wparams)
+        if Kt:
+            wtops = core._kernel_operands(make_params(
+                (arrs[0][:Kt] + 0.1, arrs[1][:Kt] * 1.2, np.full(Kt, 1.0 / Kt, np.float32), None),
+                device))
+            fn = lambda i: k.fused_propose_logq((i, 1), wops, N, wtops)
+        else:
+            wlatent = component_draw(wparams, N, K + D)
+            fn = lambda i: k.fused_transform_rng((i, 3), wlatent, wops)
+        out["%s K=%d Kt=%d D=%d" % (name, K, Kt, D)] = timed(name, fn)
+    torch.cuda.empty_cache()
+    return out
+
+
 # the shapes (K, Kt, D, N) the main paths give fused_maha, fused_logq,
-# fused_rho and fused_transform: the D=40 pipeline's VB2 and PMC mixtures
+# fused_rho and the draws: the D=40 pipeline's VB2 and PMC mixtures
 # (K=31-32) at n_is1 = 2^20 particles (fused_rho: its PMC updates,
-# mix_adapt/pmc.py; fused_transform: its draws, the looped DMAX 128
-# instantiation), its K=2 target at 2^22, and the K=200 step's
-# log-likelihood of the updated mixture at 10^7 particles
+# mix_adapt/pmc.py; fused_transform: its draws), its K=2 target at 2^22,
+# the K=200 step's log-likelihood of the updated mixture at 10^7
+# particles; fused_propose_logq at the widest K the rule admits at D=40
+# with a 2-component target, fused_transform_rng at the routes' K=11, D=40
 MAIN_SHAPES = {"fused_maha": [(32, 0, 40, N_FLAGSHIP)],
                "fused_logq": [(32, 0, 40, N_FLAGSHIP), (2, 0, 40, N_PLAIN_MAX),
                               (200, 0, 10, N_SLICE)],
                "fused_rho": [(32, 0, 40, N_FLAGSHIP)],
-               "fused_transform": [(32, 0, 40, N_FLAGSHIP)]}
+               "fused_transform": [(32, 0, 40, N_FLAGSHIP)],
+               "fused_propose_logq": [(9, 2, 40, N_FLAGSHIP)],
+               "fused_transform_rng": [(11, 0, 40, N_FLAGSHIP)]}
 # the pool's shapes (C, Kt, D, steps): the D=40 pipeline's (32 chains, the
 # 2-component target, 400 steps a cycle) and the mcmc phase's
 POOL_SHAPES = [(32, 2, 40, 400), (16384, 1, 10, 500)]
@@ -2528,13 +2713,16 @@ def main_shape_ms(device, name, shape, report):
     N) intermediate would not fit the card).  The kernel's output is held to
     its plain version in float64, streamed over component chunks, with the
     tolerance of eval_case; fused_transform's also to its looped kernel, bit
-    for bit, whose time is ``"looped"``."""
+    for bit, whose time is ``"looped"``.  The two random draws are held to
+    their looped kernels bit for bit (fused_propose_logq's log-densities also
+    to the float64 plain versions, against a target near the proposal)."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
-    K, _, D, N = shape
-    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, K > 2), device)
+    K, Kt, D, N = shape
+    arrs = random_mixture(np.random.default_rng(K + D), K, D, K > 2)
+    params = make_params(arrs, device)
     ops = core._kernel_operands(params)
     xT = k.fused_propose_logq((K, D), ops, N)[0]
     x64 = xT.double()
@@ -2568,6 +2756,33 @@ def main_shape_ms(device, name, shape, report):
         print("  %s: the %s kernel %.3f ms, the looped kernel %.3f ms (equal bit for bit)"
               % (label, k._elect("fused_transform", K, D, None), ms, looped_ms))
         return {"cuda": ms, "looped": looped_ms, "plain": cuda_ms(plain, reps=3, warmup=1)}
+    elif name in ("fused_propose_logq", "fused_transform_rng"):
+        if name == "fused_propose_logq":
+            target = make_params((arrs[0][:Kt] + 0.1, arrs[1][:Kt] * 1.2,
+                                  np.full(Kt, 1.0 / Kt, np.float32), None), device)
+            tops = core._kernel_operands(target)
+            call = lambda i, v=None: k.fused_propose_logq((i, 1), ops, N, tops, variant=v)
+            plain = lambda i: k.plain_propose_logq((i, 1), ops, N, tops)
+        else:
+            latent = component_draw(params, N, K + D)
+            call = lambda i, v=None: k.fused_transform_rng((i, 3), latent, ops, variant=v)
+            plain = lambda i: k.plain_transform_rng((i, 3), latent, ops)
+        got, looped = call(0), call(0, "looped")
+        got, looped = (got, looped) if isinstance(got, tuple) else ((got,), (looped,))
+        differ = sum(int((a != b).sum()) for a, b in zip(got, looped))
+        print("  %s: the %s kernel against the looped kernel, %d outputs differ"
+              % (label, k._elect(name, K, D, None, Kt), differ))
+        require(differ == 0, "%s: the elected and the looped kernel differ" % label)
+        if name == "fused_propose_logq":
+            ops64 = k.MixtureOperands(ops.packed.double(), K, D, ops.student_t)
+            tops64 = k.MixtureOperands(tops.packed.double(), Kt, D, False)
+            x64 = got[0].double()
+            compare(label + " log_q", got[2], k.plain_logq_blocked(x64, ops64), "log", report)
+            compare(label + " log_p", got[3], k.plain_logq_blocked(x64, tops64), "log", report)
+        del got, looped, x64
+        torch.cuda.empty_cache()
+        return {"cuda": cuda_ms(call), "looped": cuda_ms(lambda i: call(i, "looped")),
+                "plain": cuda_ms(plain, reps=3, warmup=1)}
     elif name == "fused_maha":
         A, m, _ = vb_operands(params)
         kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
@@ -2734,11 +2949,15 @@ def bound(name, shape=None):
 # variant's DMAX 32 and 64, with the rows of L in registers and without)
 REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16, "dense_reg_kernel": 16,
                     "logq_kernel": 64, "maha_kernel": 64, "rho_kernel": 64,
-                    "transform_rec_kernel": 64, "mcmc_pool_kernel": 64,
+                    "transform_rec_kernel": 64, "transform_rng_rec_kernel": 64,
+                    "propose_logq_rec_kernel": 64, "mcmc_pool_kernel": 64,
                     "mcmc_pool_warp_kernel": 64}
-# fused_transform's record kernel (DMAX 8 to 64, records staged or not)
-# keeps z in registers: no spill and no stack frame, as the record kernels
-RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel", "transform_rec_kernel")
+# the draws' record kernels (DMAX 8 to 64, records staged or not: two
+# instantiations a DMAX) keep z and x in registers: no spill and no stack
+# frame, as the record kernels of the evaluations
+DRAW_RECORD_KERNELS = ("transform_rec_kernel", "transform_rng_rec_kernel",
+                       "propose_logq_rec_kernel")
+RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel") + DRAW_RECORD_KERNELS
 
 
 def register_kernels(log):
@@ -2761,9 +2980,10 @@ def register_kernels(log):
                     int(stack.group(1)) if stack else 0))
     # DMAX 8 and 16 of the first two and of the dense register kernel's
     # three modes, 8, 16, 32, 40 and 64 of the record kernels (twice for
-    # the transform's: records staged or not) and the thread pool, 32 and
-    # 64 twice of the warp pool
-    require(len(out) >= 2 * 2 + 2 * 3 + 5 * (len(RECORD_KERNELS) + 1) + 5 + 2 * 2,
+    # the draws': records staged or not) and the thread pool, 32 and 64
+    # twice of the warp pool
+    require(len(out) >= (2 * 2 + 2 * 3 + 5 * (len(RECORD_KERNELS) + len(DRAW_RECORD_KERNELS))
+                         + 5 + 2 * 2),
             "ptxas reported %d register kernels" % len(out))
     return out
 
@@ -2806,23 +3026,29 @@ def phase_build():
                      (5, 1, 1), (600, 2, 10), (5, 1, 64), (3, 1, 33), (4, 1, 128), (120, 2, 1),
                      (1, 1, 200), (2, 2, 1000), (16, 2, 10), (17, 2, 10), (11, 2, 11),
                      (8, 2, 16), (1, 1, 16), (2, 2, 16), (128, 2, 1), (136, 2, 1), (137, 2, 1),
-                     (137, 0, 1), (40, 2, 9), (30, 2, 10), (4, 2, 4)):
-        plan = (ctypes.c_int * 4)()
-        transform_smem = lib.pmc_transform_plan(K, D, plan)
-        got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3],
-               transform_smem)
-        require(got == _build.transform_plan(K, D),
-                "plan differs from the kernel's (fused_transform, K=%d, D=%d): %s, %s"
-                % (K, D, got, _build.transform_plan(K, D)))
+                     (137, 0, 1), (40, 2, 9), (30, 2, 10), (4, 2, 4), (9, 2, 40), (11, 0, 40),
+                     (40, 2, 40), (7, 0, 62), (4, 2, 62), (4, 2, 64), (40, 0, 64), (10, 0, 10)):
+        draw_smem = {}
+        for kernel, ask in (("fused_transform", lambda out: lib.pmc_transform_plan(K, D, 0, out)),
+                            ("fused_transform_rng",
+                             lambda out: lib.pmc_transform_plan(K, D, 1, out)),
+                            ("fused_propose_logq", lambda out: lib.pmc_propose_plan(K, Kt, D, out))):
+            plan = (ctypes.c_int * 4)()
+            draw_smem[kernel] = ask(plan)
+            got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3],
+                   draw_smem[kernel])
+            want = _build.draw_plan(kernel, K, D, Kt)
+            require(got == want, "plan differs from the kernel's (%s, K=%d, Kt=%d, D=%d): %s, %s"
+                    % (kernel, K, Kt, D, got, want))
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
-                     ("fused_propose_logq", lib.pmc_propose_logq_smem_bytes(K, Kt, D)),
+                     ("fused_propose_logq", draw_smem["fused_propose_logq"]),
                      ("fused_pmc_stats", lib.pmc_pmc_stats_smem_bytes(K, D)),
                      ("fused_is_pmc_step", lib.pmc_is_pmc_step_smem_bytes(K, Kt, D)),
                      ("fused_maha", lib.pmc_maha_smem_bytes(K, D)),
                      ("fused_rho", lib.pmc_rho_smem_bytes(K, D)),
                      ("fused_vb_estep", lib.pmc_vb_estep_smem_bytes(K, D)),
-                     ("fused_transform", transform_smem),
-                     ("fused_transform_rng", lib.pmc_transform_smem_bytes(K, D)),
+                     ("fused_transform", draw_smem["fused_transform"]),
+                     ("fused_transform_rng", draw_smem["fused_transform_rng"]),
                      ("fused_mcmc_pool", lib.pmc_mcmc_pool_smem_bytes(K, D, 0)),
                      ("fused_pmc_stats_blocked", lib.pmc_pmc_stats_blocked_smem_bytes(K, D)),
                      ("fused_vb_estep_blocked", lib.pmc_vb_estep_blocked_smem_bytes(K, D)),
@@ -2882,17 +3108,25 @@ def phase_build():
                   "a chunk x %d buffers, %d B of shared memory a block"
                   % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
             require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
-    # fused_transform's record kernel where the main paths run it: the D=40
-    # pipeline's K=32 (its records staged, two blocks an SM) and the flagship
-    for K, D in ((32, 40), (10, 10)):
-        per_sm = lib.pmc_transform_per_sm(K, D)
-        plan = _build.transform_plan(K, D)
-        print("  fused_transform K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d "
-              "warps), records of %d floats staged %s, %d B of shared memory a block"
-              % (K, D, plan[0], per_sm, plan[3], per_sm * plan[3] // 32, plan[2], plan[1],
-                 plan[4]))
+    # the draws' record kernels where the main paths run them, their records
+    # staged: fused_transform at the D=40 pipeline's K=32 (two blocks an SM)
+    # and the flagship; fused_transform_rng at the flagship and the K=11,
+    # D=40 route; fused_propose_logq at the flagship (K=10, Kt=2) and the
+    # widest K the rule admits at D=40 (K=9, Kt=2)
+    for kernel, K, Kt, D, per_sm in (
+            ("fused_transform", 32, 0, 40, lib.pmc_transform_per_sm(32, 40, 0)),
+            ("fused_transform", 10, 0, 10, lib.pmc_transform_per_sm(10, 10, 0)),
+            ("fused_transform_rng", 10, 0, 10, lib.pmc_transform_per_sm(10, 10, 1)),
+            ("fused_transform_rng", 11, 0, 40, lib.pmc_transform_per_sm(11, 40, 1)),
+            ("fused_propose_logq", 10, 2, 10, lib.pmc_propose_per_sm(10, 2, 10)),
+            ("fused_propose_logq", 9, 2, 40, lib.pmc_propose_per_sm(9, 2, 40))):
+        plan = _build.draw_plan(kernel, K, D, Kt)
+        print("  %s K=%d Kt=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
+              "draw records of %d floats staged %s, %d B of shared memory a block"
+              % (kernel, K, Kt, D, plan[0], per_sm, plan[3], per_sm * plan[3] // 32, plan[2],
+                 plan[1], plan[4]))
         require(plan[0] == "rec" and plan[1] and per_sm * plan[3] // 32 >= 16,
-                "fused_transform at K=%d, D=%d: %s, %d blocks an SM" % (K, D, plan, per_sm))
+                "%s at K=%d, D=%d: %s, %d blocks an SM" % (kernel, K, D, plan, per_sm))
 
     return lib
 
@@ -3021,9 +3255,9 @@ def main():
                                    if (kname, sh, "looped") in times else {}))
                            for sh in shapes]
         if (kname, n, "looped") in times:
-            # fused_transform's elected kernel at the shape, and the looped
+            # a draw kernel's elected kernel at the shape, and the looped
             # kernel's time there
-            entry.update(variant=_build.transform_plan(10, 10)[0],
+            entry.update(variant=_build.draw_plan(kname, 10, 10, 2)[0],
                          looped_ms=times[(kname, n, "looped")])
         if kname in FIRST_LAUNCH:
             # the first launch alone: its device time beside its bound
@@ -3049,14 +3283,15 @@ def main():
           "pool's whitened step moments at D=40); bound_ms from bytes over %.3g B/s and FP32 "
           "operations over %.3g op/s (exps: the K-blocked kernels' exps, not in the bound; "
           "launch_ms: their launches' device times, torch.profiler; shapes: fused_maha, "
-          "fused_logq and fused_rho at the main paths' shapes, plain_ms past N=%d the plain "
+          "fused_logq, fused_rho and the draws at the main paths' shapes, plain_ms past N=%d "
+          "the plain "
           "version streamed over component chunks; the six warp-a-particle kernels at K=1, "
           "D=200, N=2^16; the K-blocked statistics kernels' first launch, launch_ms, beside its "
           "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
           "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
           "fused_vb_estep, fused_is_pmc_step and fused_pmc_stats elect at K=10, D=10, table_ms "
-          "and table_ms_slice_n their entry-table pass there, and the kernel fused_transform "
-          "elects there, looped_ms its looped kernel there and at K=32, D=40); library_ms "
+          "and table_ms_slice_n their entry-table pass there, and the kernel the three draws "
+          "elect there, looped_ms their looped kernels there and at the shapes); library_ms "
           "null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)

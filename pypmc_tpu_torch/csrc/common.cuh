@@ -7,7 +7,7 @@
 // reads x[i] = xT[i * N + n]: neighbouring threads read neighbouring
 // addresses.  Every kernel keeps one particle's coordinates in a per-thread
 // array of DMAX floats.  For DMAX = 8, 16 or 32 (and 40 or 64 in the record
-// kernels of fused_logq and fused_maha) the loops over the dimension are
+// kernels) the loops over the dimension are
 // unrolled to DMAX with a guard on the runtime D, so the arrays stay in
 // registers; the DMAX = 128 instantiation loops to D, and its arrays live in
 // local memory.  Past D = 128 the kernels of warp.cuh take a warp a
@@ -17,7 +17,9 @@
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
 // from device memory, where every thread of a warp reads the same element
 // at once (one cached load).  The record kernels (D <= 64) stream 16-byte
-// component records through shared memory in chunks instead (eval_plan).
+// component records through shared memory in chunks instead (eval_plan);
+// those of the draws stage each component's mu and L at an odd stride
+// (draw_plan).
 #pragma once
 
 #include <cmath>
@@ -237,11 +239,16 @@ __device__ __forceinline__ float project(const float* A, const float* m,
   return maha;
 }
 
+// The Student-t term's FMA is stated: left to contract it, the compiler
+// fused it in some kernels (the looped DMAX 16 instantiations) and not in
+// others (where it merged the two branches' products), so that the same
+// component gave log-densities a few ulp apart.  The Gaussian term's
+// product is exact.
 __device__ __forceinline__ float component_logpdf(float maha, float log_norm,
                                                   float dof, int D,
                                                   bool student_t) {
   if (student_t)
-    return log_norm - 0.5f * (dof + static_cast<float>(D)) * log1pf(maha / dof);
+    return fmaf(-0.5f * (dof + static_cast<float>(D)), log1pf(maha / dof), log_norm);
   return log_norm - 0.5f * maha;
 }
 
@@ -800,6 +807,177 @@ int eval_per_sm(int K, int D) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem));
   });
   return err == 0 ? n : -1;
+}
+
+// ---------------------------------------------------------------------
+// The record kernels of the draws (D <= 64): fused_transform's,
+// fused_transform_rng's and fused_propose_logq's.  One thread a particle,
+// z in registers at the record instantiations' DMAX, each x_i formed in
+// affine_transform's FMA order, so that the output is the looped kernels'
+// bit for bit.  A block stages each component's mu and the lower triangle
+// of L by row at an odd stride (transform_rec_floats), so that the lanes
+// of a warp that read different components' words at one offset hit
+// distinct banks (at the looped kernels' stride of D * D floats, 0 mod 32
+// for every D divisible by 8, they hit one), where the plan's records fit
+// half an SM; else it reads mu and L from device memory.
+// ---------------------------------------------------------------------
+
+// floats of one component's draw record: mu (D) | L's lower triangle by
+// row (row i at D + i (i + 1) / 2, its i + 1 entries), made odd (the last
+// word of an even count is a pad, never read)
+__host__ __device__ inline int transform_rec_floats(int D) { return (D + D * (D + 1) / 2) | 1; }
+
+struct DrawPlan {
+  int variant;    // 0 the looped kernel, 1 the record kernel, 2 the warp kernel
+  bool staged;    // the record kernel's records in shared memory
+  int threads;    // a block
+  size_t smem;    // shared memory a block asks for
+};
+
+// A draw kernel's plan (mirrored by ops/_build.py): up to D = 64 the record
+// kernel, its ``rec_floats`` floats staged where they fit half an SM (two
+// blocks), else read from device memory; to D = 128 the looped kernel, its
+// ``ops_floats`` operands staged where they fit kSmemLimit; past it the warp
+// kernel.  ``looped`` forces the looped kernel where D <= 128.
+inline DrawPlan draw_plan(int D, size_t rec_floats, size_t ops_floats, bool looped) {
+  if (D > kDMax) return {2, false, kWideThreads, wide_smem_bytes(D)};
+  if (D > kRecDMax || looped) {
+    const size_t ops = sizeof(float) * ops_floats;
+    return {0, ops <= kSmemLimit, kThreads, ops <= kSmemLimit ? ops : 0};
+  }
+  const size_t recs = sizeof(float) * rec_floats;
+  return {1, recs <= kHalfSmem, kEvalThreads, recs <= kHalfSmem ? recs : 0};
+}
+
+// whether a draw launcher with ``variant`` (-1 the plan's kernel, 0 the
+// looped kernel, 1 the record kernel) takes the record kernel
+inline bool takes_rec(const DrawPlan& plan, int variant) {
+  return variant == 1 || (variant < 0 && plan.variant == 1);
+}
+
+// a plan for ops/_build.py's mirror: out = {variant, records staged, a draw
+// record's floats (the record kernel; else 0), threads a block}; the shared
+// memory a block
+inline long long draw_plan_out(const DrawPlan& plan, int D, int* out) {
+  out[0] = plan.variant;
+  out[1] = plan.staged ? 1 : 0;
+  out[2] = plan.variant == 1 ? transform_rec_floats(D) : 0;
+  out[3] = plan.threads;
+  return static_cast<long long>(plan.smem);
+}
+
+// The draw records of all K components at dst by cp.async, from mu (K, D)
+// and L (K, D, D): one record row (mu, or row i of L) a warp at a time, so
+// that each is read coalesced.  Commit after, and wait and __syncthreads()
+// before reading.
+__device__ inline void stage_transform_records(float* dst, const float* mu, const float* L,
+                                               int K, int D) {
+  const int F = transform_rec_floats(D), lane = threadIdx.x % 32;
+  for (int row = threadIdx.x / 32; row < K * (D + 1); row += blockDim.x / 32) {
+    const int k = row / (D + 1), i = row - k * (D + 1) - 1;
+    const int len = i < 0 ? D : i + 1;
+    float* out = dst + k * F + (i < 0 ? 0 : D + i * (i + 1) / 2);
+    const float* src = i < 0 ? mu + k * D : L + (static_cast<long long>(k) * D + i) * D;
+    for (int t = lane; t < len; t += 32) cp_async_f32(out + t, src + t, true);
+  }
+}
+
+// n floats at dst by cp.async, a thread a word
+__device__ __forceinline__ void stage_row_async(float* dst, const float* src, int n) {
+  for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async_f32(dst + t, src + t, true);
+}
+
+// x = mu + scale * (L z) for one component, row i emitted as emit(i, x_i) as
+// soon as it is formed, in affine_transform's FMA order; mu(i) and l(i, j)
+// read the component's operands
+template <int DMAX, typename Mu, typename Lij, typename Emit>
+__device__ __forceinline__ void lower_affine(const float (&z)[DMAX], float scale, int D,
+                                             Mu&& mu, Lij&& l, Emit&& emit) {
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i < D) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j <= i; ++j) s = fmaf(l(i, j), z[j], s);
+      emit(i, fmaf(scale, s, mu(i)));
+    }
+  }
+}
+
+// lower_affine on component lat's draw record, one of K at recs (STAGED),
+// else on mu (K, D) and L (K, D, D) in device memory
+template <int DMAX, bool STAGED, typename Emit>
+__device__ __forceinline__ void rec_affine(const float (&z)[DMAX], float scale,
+                                           const float* recs, const float* mu, const float* L,
+                                           int lat, int D, Emit&& emit) {
+  if constexpr (STAGED) {
+    const float* rec = recs + lat * transform_rec_floats(D);
+    const float* tri = rec + D;
+    lower_affine<DMAX>(
+        z, scale, D, [&](int i) { return rec[i]; },
+        [&](int i, int j) { return tri[i * (i + 1) / 2 + j]; }, emit);
+  } else {
+    const float* m = mu + lat * D;
+    const float* Lk = L + static_cast<long long>(lat) * D * D;
+    lower_affine<DMAX>(
+        z, scale, D, [&](int i) { return __ldg(m + i); },
+        [&](int i, int j) { return __ldg(Lk + i * D + j); }, emit);
+  }
+}
+
+// draw_component by rec_affine: component lat's normals, for Student-t the
+// scale sqrt(dof / chi2(dof)) (dof() reads lat's dof), then x, emit(i, x_i)
+template <int DMAX, bool STAGED, typename Dof, typename Emit>
+__device__ __forceinline__ void draw_rec(Philox& rng, const float* recs, const float* mu,
+                                         const float* L, int lat, int D, bool student_t,
+                                         Dof&& dof, Emit&& emit) {
+  float z[DMAX];
+  draw_normals<DMAX>(rng, D, z);
+  const float scale = student_t ? student_t_scale(dof(), rng) : 1.0f;
+  rec_affine<DMAX, STAGED>(z, scale, recs, mu, L, lat, D, emit);
+}
+
+// Call body(kernel) with the record kernel of Kernels (a struct with
+// get<DMAX, STAGED>(), the kernel of that instantiation) for D and the
+// plan's staging, its shared memory set first as the kernel's limit;
+// body's result, or the error of the dispatch or of setting the limit.
+template <typename Kernels, typename Body>
+int with_rec_kernel(const DrawPlan& plan, int D, Body&& body) {
+  if (plan.variant != 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto each = [&](auto dmax, auto) {
+    constexpr int DMAX = decltype(dmax)::value;
+    const auto kernel = plan.staged ? Kernels::template get<DMAX, true>()
+                                    : Kernels::template get<DMAX, false>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return body(kernel);
+  };
+  return dispatch_records(D, each, EvalInsts());
+}
+
+// blocks of the record kernel of Kernels under ``plan`` that fit on one SM at
+// once (0 where the plan takes another kernel, -1 on an error)
+template <typename Kernels>
+int rec_per_sm(const DrawPlan& plan, int D) {
+  if (plan.variant != 1) return 0;
+  int n = 0;
+  const int err = with_rec_kernel<Kernels>(plan, D, [&](auto kernel) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, plan.threads, plan.smem));
+  });
+  return err == 0 ? n : -1;
+}
+
+// one wave of blocks of ``per_sm`` an SM over N particles, ``per_block`` a
+// block, on the current device (at least 1)
+inline int wave_blocks(int per_sm, long long N, int per_block) {
+  int dev = 0, n_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (N + per_block - 1) / per_block;
+  const long long room = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
+  return static_cast<int>(want < room ? (want > 0 ? want : 1) : room);
 }
 
 // Dispatch a kernel template on DMAX for the runtime dimension D.

@@ -25,9 +25,8 @@
 // with the same arithmetic in the same order.  The register kernel
 // evaluates log p on the target's records, as fused_is_pmc_step_blocked's
 // first launch (is_pmc_step_blocked.cu) does, so its w is that launch's bit
-// for bit; the entry-table kernel's log p (mixture_logpdf as compiled there)
-// is the same for a Gaussian target and differs in its last bits for a
-// Student-t one.
+// for bit; the entry-table kernel's log p (mixture_logpdf) is the same
+// arithmetic, so its w is too.
 #include "reg_stats.cuh"
 
 namespace pmc {

@@ -22,10 +22,11 @@
 // and mu are read from device memory (K D^2 floats of L, in L2), so at K =
 // 200, D = 10 a block of 256 threads asks for 72 KB and two blocks (16
 // warps, held there by 92 registers a thread) share an SM;
-// fused_propose_logq's kernel, which also stages L, fits one block of 4
-// warps there.  Past D = 32, or where the records do not fit shared memory,
-// the first launch is fused_propose_logq's (propose_logq.cu), which draws
-// the same particles.
+// fused_propose_logq's looped kernel, which also stages L, fitted one block
+// of 4 warps there.  Past D = 32, or where the records do not fit shared
+// memory, the first launch is fused_propose_logq's (propose_logq.cu: its
+// plan's kernel, its grid sized by its launcher), which draws the same
+// particles.
 //
 // Bound on the H100: nothing is read per particle and D + 2 words are
 // written (D + 3 more go through device memory between the launches); the
@@ -39,7 +40,7 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       float* xT, int* latent, float* log_q,
                                       float* log_p, long long N, int K, int Kt,
                                       int D, int student_t, int t_student_t,
-                                      int n_blocks, void* stream);
+                                      int variant, int n_blocks, void* stream);
 
 namespace pmc {
 
@@ -119,23 +120,14 @@ static int launch_step_draw(unsigned int s0, unsigned int s1, const float* mix,
                             int student_t, int t_student_t, void* stream) {
   using namespace pmc;
   const size_t smem = static_cast<size_t>(pmc_step_draw_smem_bytes(K, Kt, D));
-  int dev = 0, n_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (smem == 0) {   // fused_propose_logq's grid: 16 blocks of 128 threads an SM
-    const long long want = (N + kThreads - 1) / kThreads, room = 16LL * n_sm;
+  if (smem == 0)   // fused_propose_logq's plan's kernel, which sizes its grid
     return pmc_fused_propose_logq(s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
-                                  student_t, t_student_t,
-                                  static_cast<int>(want < room ? (want > 0 ? want : 1) : room),
-                                  stream);
-  }
+                                  student_t, t_student_t, -1, 0, stream);
   dispatch_step_draw(D, smem, [&](auto kernel) {
     int per_sm = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDrawThreads, smem);
-    const long long want = (N + kDrawThreads - 1) / kDrawThreads;
-    const long long room = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
-    const int blocks = static_cast<int>(want < room ? (want > 0 ? want : 1) : room);
-    kernel<<<blocks, kDrawThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<wave_blocks(per_sm, N, kDrawThreads), kDrawThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t, t_student_t);
   });
   return static_cast<int>(cudaGetLastError());

@@ -7,18 +7,38 @@
 //
 // Bound on the H100: it reads nothing per particle and writes D + 3 words;
 // the work is the draw (Philox, Box-Muller, for Student-t a Marsaglia-Tsang
-// loop: transcendentals on the SFU) plus (K + K_target) whitened
-// evaluations at D (D + 1) / 2 FMAs each -- FP32-FMA- and SFU-bound, with
-// the store stream far below the card's bandwidth.  No tensor cores at
-// D = 10.  Design: one thread per particle with a Philox stream keyed by the
-// seed and counted by the particle's global index (so the samples do not
-// depend on the launch configuration), the sample kept in registers and
-// evaluated there (it is written to device memory once and never re-read),
-// both mixtures' operands in shared memory where they fit.  Past D = 128
-// (propose_logq_warp_kernel) a warp takes a particle (warp.cuh): the lanes
-// draw the particle's Philox stream block by block (the component's uniform,
-// then the normals: the thread path's draws), the rows of L, then of each
-// U, on the lanes, read from device memory.
+// loop: integer work and transcendentals on the SFU) plus (K + K_target)
+// whitened evaluations at D (D + 1) / 2 FMAs each -- FP32-FMA-, SFU- and
+// integer-bound, with the store stream far below the card's bandwidth.  No
+// tensor cores at D = 10.  One thread a particle with a Philox stream keyed
+// by the seed and counted by the particle's global index (so the samples do
+// not depend on the launch configuration), the sample kept in registers and
+// evaluated there (it is written to device memory once and never re-read).
+//
+// Up to D = 64 (propose_logq_rec_kernel, the record kernels of common.cuh):
+// 256 threads a block, one wave of the blocks an SM holds, z and x in
+// registers at the record instantiations' DMAX.  A block stages by cp.async
+// both mixtures' evaluation records (16-byte records read by broadcast
+// LDS.128 in whiten's FMA order: at K = 10, K_target = 2, D = 10 about 260
+// shared loads a particle, where the packed table takes a 4-byte load a
+// FMA, ~820), the proposal's draw records (mu and L's lower triangle at an
+// odd stride, so that lanes that drew different components read distinct
+// banks) and its thresholds; the drawn component's dof is its evaluation
+// record's.  The draw is propose_particle's (the component's uniform, the
+// normals, the chi-square; affine_transform's FMA order) and the
+// evaluation mixture_logpdf's bit for bit, so its outputs are the looped
+// kernel's.  Where the plan's records pass half an SM it reads the draw
+// records' mu and L and the thresholds from device memory and evaluates
+// with mixture_logpdf on the packed operands there.
+//
+// The looped kernel (propose_logq_kernel): 128 threads, both mixtures'
+// packed operands staged in shared memory where they fit, evaluated with
+// mixture_logpdf; it takes D = 65 to 128 (and anywhere to D = 128, forced,
+// as the yardstick).  Past D = 128 (propose_logq_warp_kernel) a warp takes a
+// particle (warp.cuh): the lanes draw the particle's Philox stream block by
+// block (the component's uniform, then the normals: the thread path's
+// draws), the rows of L, then of each U, on the lanes, read from device
+// memory.
 #include "warp.cuh"
 
 namespace pmc {
@@ -47,6 +67,99 @@ propose_logq_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
       log_p[n] = mixture_logpdf<DMAX>(tmix, Kt, D, t_student_t != 0, x);
   }
 }
+
+// The plan of fused_propose_logq for (K, Kt, D) (mirrored by ops/_build.py
+// propose_plan; Kt = 0 without a target): draw_plan's, the record kernel's
+// records both mixtures' evaluation records, the proposal's draw records
+// and its K thresholds, the looped kernel's operands the packed proposal
+// and the target's evaluation part.
+inline DrawPlan propose_plan(int K, int Kt, int D, bool looped = false) {
+  return draw_plan(D,
+                   static_cast<size_t>(K + Kt) * rec_floats(D) +
+                       static_cast<size_t>(K) * (transform_rec_floats(D) + 1),
+                   static_cast<size_t>(MixLayout{K, D}.size()) + MixLayout{Kt, D}.eval_size(),
+                   looped);
+}
+
+// log q (log p) of x: records_logpdf on the K records at recs (STAGED),
+// else mixture_logpdf on the packed operands at mix, both inlined so that x
+// stays in registers
+template <int DMAX, bool STAGED>
+__device__ __forceinline__ float rec_kernel_logpdf(const float* recs, const float* mix, int K,
+                                                   int D, bool student_t,
+                                                   const float (&x)[DMAX]) {
+  WeightedLse acc;
+  if constexpr (STAGED) {
+    records_lse<DMAX>(acc, recs, K, D, student_t, x);
+  } else {
+    const MixLayout L{K, D};
+    float diff[DMAX];
+    for (int k = 0; k < K; ++k) {
+      const float maha = whiten<DMAX>(mix + L.U() + k * D * D, mix + L.mu() + k * D, x, D, diff);
+      acc.add(component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D, student_t),
+              mix[L.w() + k]);
+    }
+  }
+  return acc.value();
+}
+
+// shared memory (STAGED): K proposal and Kt target evaluation records |
+// K draw records | cumw (K); log_p null and Kt 0 without a target
+template <int DMAX, bool STAGED>
+__global__ void __launch_bounds__(kEvalThreads, eval_min_blocks(DMAX))
+propose_logq_rec_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
+                        const float* __restrict__ tmix, float* __restrict__ xT,
+                        int* __restrict__ latent, float* __restrict__ log_q,
+                        float* __restrict__ log_p, long long N, int K, int Kt, int D,
+                        int student_t, int t_student_t) {
+  extern __shared__ float4 smem4[];
+  constexpr int below = eval_dmax_below(DMAX);
+  __builtin_assume(D > below && D <= DMAX);   // the dispatch's
+  const MixLayout L{K, D}, Lt{Kt, D};
+  const int F = rec_floats(D);
+  float* recs = reinterpret_cast<float*>(smem4);
+  float* draws = recs + (K + Kt) * F;
+  float* cumw = draws + K * transform_rec_floats(D);
+  if constexpr (STAGED) {
+    stage_records_async(recs, mix + L.mu(), mix + L.U(), mix + L.ln(), 3, K, 0, K, D, true);
+    if (Kt > 0)
+      stage_records_async(recs + K * F, tmix + Lt.mu(), tmix + Lt.U(), tmix + Lt.ln(), 3, Kt,
+                          0, Kt, D, true);
+    stage_transform_records(draws, mix + L.mu(), mix + L.L(), K, D);
+    stage_row_async(cumw, mix + L.cumw(), K);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const float* thresholds = STAGED ? cumw : mix + L.cumw();
+  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
+    // propose_particle's draw
+    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    const float u = rng.uniform();
+    int lat = 0;
+    for (int k = 0; k < K - 1; ++k) lat += u >= thresholds[k] ? 1 : 0;
+    float x[DMAX];
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) x[i] = 0.0f;
+    draw_rec<DMAX, STAGED>(
+        rng, draws, mix + L.mu(), mix + L.L(), lat, D, student_t != 0,
+        [&] { return STAGED ? recs[lat * F + pad4(D) + 2] : __ldg(mix + L.dof() + lat); },
+        [&](int i, float v) {
+          x[i] = v;
+          xT[i * N + n] = v;
+        });
+    latent[n] = lat;
+    log_q[n] = rec_kernel_logpdf<DMAX, STAGED>(recs, mix, K, D, student_t != 0, x);
+    if (Kt > 0)
+      log_p[n] = rec_kernel_logpdf<DMAX, STAGED>(recs + K * F, tmix, Kt, D, t_student_t != 0, x);
+  }
+}
+
+struct ProposeRecKernels {
+  template <int DMAX, bool STAGED>
+  static auto get() { return &propose_logq_rec_kernel<DMAX, STAGED>; }
+};
 
 __global__ void __launch_bounds__(kWideThreads)
 propose_logq_warp_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
@@ -94,29 +207,57 @@ propose_logq_warp_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix
 
 }  // namespace pmc
 
-// shared memory the launcher asks for (checked against ops/_build.py): both
-// mixtures' operands (Kt = 0 without a target) if they fit, else none; past
-// D = 128 the warp kernel's slices
-extern "C" long long pmc_propose_logq_smem_bytes(int K, int Kt, int D) {
-  if (D > pmc::kDMax) return static_cast<long long>(pmc::wide_smem_bytes(D));
-  const size_t ops = sizeof(float) * (pmc::MixLayout{K, D}.size() +
-                                      pmc::MixLayout{Kt, D}.eval_size());
-  return static_cast<long long>(ops <= pmc::kSmemLimit ? ops : 0);
+// the plan of fused_propose_logq for (K, Kt, D), checked against
+// ops/_build.py propose_plan (draw_plan_out)
+extern "C" long long pmc_propose_plan(int K, int Kt, int D, int* out) {
+  return pmc::draw_plan_out(pmc::propose_plan(K, Kt, D), D, out);
 }
 
-// tmix/log_p are null without a target
+// blocks of the record kernel for (K, Kt, D) that fit on one SM at once (0
+// where the plan takes another kernel, -1 on an error)
+extern "C" int pmc_propose_per_sm(int K, int Kt, int D) {
+  return pmc::rec_per_sm<pmc::ProposeRecKernels>(pmc::propose_plan(K, Kt, D), D);
+}
+
+// tmix/log_p are null without a target; variant: -1 the plan's kernel, 0
+// the looped kernel (D <= 128), 1 the record kernel (an error where the
+// plan does not take it); n_blocks <= 0: one wave of the kernel's blocks,
+// sized here (the record kernel's from its occupancy, the others' 16
+// blocks an SM)
 extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
                                       float* log_p, long long N, int K, int Kt,
                                       int D, int student_t, int t_student_t,
-                                      int n_blocks, void* stream) {
+                                      int variant, int n_blocks, void* stream) {
   using namespace pmc;
-  const size_t smem = pmc_propose_logq_smem_bytes(K, log_p != nullptr ? Kt : 0, D);
+  if (log_p == nullptr) Kt = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > kDMax && D <= kWideDMax)
-    return launch_warp(propose_logq_warp_kernel, D, n_blocks, s, s0, s1, mix, tmix, xT, latent,
-                       log_q, log_p, N, K, Kt, D, student_t, t_student_t);
+  const DrawPlan plan = propose_plan(K, Kt, D);
+  if (takes_rec(plan, variant))
+    return with_rec_kernel<ProposeRecKernels>(plan, D, [&](auto kernel) {
+      int blocks = n_blocks;
+      if (blocks <= 0) {
+        int per_sm = 0;
+        const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, plan.threads, plan.smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        blocks = wave_blocks(per_sm, N, plan.threads);
+      }
+      kernel<<<blocks, plan.threads, plan.smem, s>>>(s0, s1, mix, tmix, xT, latent, log_q,
+                                                     log_p, N, K, Kt, D, student_t,
+                                                     t_student_t);
+      return static_cast<int>(cudaGetLastError());
+    });
+  if (D > kDMax && D <= kWideDMax) {
+    if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_warp(propose_logq_warp_kernel, D,
+                       n_blocks > 0 ? n_blocks : wave_blocks(16, N, kWideThreads / 32), s, s0,
+                       s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
+                       t_student_t);
+  }
+  const size_t smem = propose_plan(K, Kt, D, true).smem;
+  if (n_blocks <= 0) n_blocks = wave_blocks(16, N, kThreads);
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
     cudaFuncSetAttribute(propose_logq_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -16,7 +16,8 @@
 // one word and writes D, and its Philox, Box-Muller and (Student-t)
 // Marsaglia-Tsang work is SFU- and integer-bound rather than memory-bound.
 //
-// fused_transform up to D = 64 (transform_rec_kernel): 256 threads a block,
+// Both up to D = 64 (transform_rec_kernel, transform_rng_rec_kernel; the
+// record kernels of common.cuh): 256 threads a block,
 // one particle a thread (grid-stride, one wave of the blocks an SM holds),
 // z in registers at the record instantiations' DMAX (8/16/32/40/64,
 // common.cuh EvalInsts), each x_i stored as soon as it is formed (row i
@@ -32,15 +33,18 @@
 // mu_i)), so the output is the looped kernel's bit for bit.  What bounds it
 // then: the 820 shared words a particle at D = 40, each feeding one FMA, at
 // the SM's 128 B a clock (~0.12 ms at 2^20), beside the 0.103 ms of bytes.
+// fused_transform_rng's kernel draws z into registers from the particle's
+// Philox stream (draw_component's: the normals, then the chi-square), its
+// dofs staged after the records, so its output is the looped kernel's bit
+// for bit too; what bounds it is the draw's integer and SFU work.
 //
 // The looped kernels (transform_kernel, transform_rng_kernel): one thread a
 // particle, the whole operand buffer mu | L | dof staged in shared memory
 // where it fits (threads of a warp read different components' entries: bank
 // conflicts, not a broadcast), the product as a lower-triangular FMA chain
 // in registers up to D = 32 (local memory past it), the result written once
-// as D coalesced rows.  fused_transform takes them from D = 65 to 128 (and
-// anywhere, forced, as the yardstick); fused_transform_rng everywhere to D
-// = 128.  The TPU's one-hot selector contractions over all K components
+// as D coalesced rows.  Both take them from D = 65 to 128 (and anywhere to
+// D = 128, forced, as the yardstick).  The TPU's one-hot selector contractions over all K components
 // become one indexed read: a thread touches only its own component.  The
 // Philox stream of a particle is keyed by the seed and counted by the
 // particle's index, as in propose_logq.cu, so the samples do not depend on
@@ -98,64 +102,13 @@ transform_rng_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
   }
 }
 
-// floats of one component's record in transform_rec_kernel: mu (D) | L's
-// lower triangle by row (row i at D + i (i + 1) / 2, its i + 1 entries),
-// made odd (the last word of an even count is a pad, never read)
-__host__ __device__ inline int transform_rec_floats(int D) { return (D + D * (D + 1) / 2) | 1; }
-
-struct TransformPlan {
-  int variant;    // 0 the looped kernel, 1 the record kernel, 2 the warp kernel
-  bool staged;    // the record kernel's records in shared memory
-  int threads;    // a block
-  size_t smem;    // shared memory a block asks for
-};
-
-// The plan of fused_transform for (K, D) (mirrored by ops/_build.py
-// transform_plan): up to D = 64 the record kernel, its records staged where
-// they fit half an SM (two blocks), else read from device memory; the looped
-// kernel to D = 128 (operands staged where they fit kSmemLimit); past it the
-// warp kernel.  ``looped`` forces the looped kernel where D <= 128.
-inline TransformPlan transform_plan(int K, int D, bool looped = false) {
-  if (D > kDMax) return {2, false, kWideThreads, wide_smem_bytes(D)};
-  if (D > kRecDMax || looped) {
-    const size_t ops = sizeof(float) * transform_floats(K, D);
-    return {0, ops <= kSmemLimit, kThreads, ops <= kSmemLimit ? ops : 0};
-  }
-  const size_t recs = sizeof(float) * K * transform_rec_floats(D);
-  return {1, recs <= kHalfSmem, kEvalThreads, recs <= kHalfSmem ? recs : 0};
-}
-
-// The records of all K components at dst by cp.async, from mu (K, D) and L
-// (K, D, D): one record row (mu, or row i of L) a warp at a time, so that
-// each is read coalesced.  Commit after, and wait and __syncthreads() before
-// reading.
-__device__ inline void stage_transform_records(float* dst, const float* mu, const float* L,
-                                               int K, int D) {
-  const int F = transform_rec_floats(D), lane = threadIdx.x % 32;
-  for (int row = threadIdx.x / 32; row < K * (D + 1); row += blockDim.x / 32) {
-    const int k = row / (D + 1), i = row - k * (D + 1) - 1;
-    const int len = i < 0 ? D : i + 1;
-    float* out = dst + k * F + (i < 0 ? 0 : D + i * (i + 1) / 2);
-    const float* src = i < 0 ? mu + k * D : L + (static_cast<long long>(k) * D + i) * D;
-    for (int t = lane; t < len; t += 32) cp_async_f32(out + t, src + t, true);
-  }
-}
-
-// x = mu + scale * (L z) for one component, row i emitted as emit(i, x_i) as
-// soon as it is formed, in affine_transform's FMA order; mu(i) and l(i, j)
-// read the component's operands
-template <int DMAX, typename Mu, typename Lij, typename Emit>
-__device__ __forceinline__ void lower_affine(const float (&z)[DMAX], float scale, int D,
-                                             Mu&& mu, Lij&& l, Emit&& emit) {
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    if (i < D) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j <= i; ++j) s = fmaf(l(i, j), z[j], s);
-      emit(i, fmaf(scale, s, mu(i)));
-    }
-  }
+// The plan of fused_transform (rng false) or fused_transform_rng (rng true)
+// for (K, D) (mirrored by ops/_build.py transform_plan): draw_plan's, the
+// record kernel's records the K draw records (and fused_transform_rng's K
+// dofs), the looped kernel's operands the buffer mu | L | dof.
+inline DrawPlan transform_plan(int K, int D, bool looped = false, bool rng = false) {
+  return draw_plan(D, static_cast<size_t>(K) * (transform_rec_floats(D) + (rng ? 1 : 0)),
+                   transform_floats(K, D), looped);
 }
 
 // ops: mu (K, D) | L (K, D, D) | dof (K), the looped kernel's buffer;
@@ -175,48 +128,55 @@ transform_rec_kernel(const float* __restrict__ zT, const int* __restrict__ laten
     cp_async_wait<0>();
     __syncthreads();
   }
-  const int F = transform_rec_floats(D);
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int lat = latent[n];
     float z[DMAX];
     load_particle<DMAX>(zT, N, n, D, z);
-    const float sc = scale[n];
-    const auto emit = [&](int i, float v) { xT[i * N + n] = v; };
-    if constexpr (STAGED) {
-      const float* rec = smem + lat * F;
-      const float* tri = rec + D;
-      lower_affine<DMAX>(
-          z, sc, D, [&](int i) { return rec[i]; },
-          [&](int i, int j) { return tri[i * (i + 1) / 2 + j]; }, emit);
-    } else {
-      const float* mu = ops + lat * D;
-      const float* Lk = L + static_cast<long long>(lat) * D * D;
-      lower_affine<DMAX>(
-          z, sc, D, [&](int i) { return __ldg(mu + i); },
-          [&](int i, int j) { return __ldg(Lk + i * D + j); }, emit);
-    }
+    rec_affine<DMAX, STAGED>(z, scale[n], smem, ops, L, latent[n], D,
+                             [&](int i, float v) { xT[i * N + n] = v; });
   }
 }
 
-// Call body(kernel, plan) with the record kernel for (K, D) and its plan,
-// the shared memory set first as the kernel's limit; body's result, or the
-// error of the dispatch or of setting the limit.
-template <typename Body>
-int with_transform_rec_kernel(int K, int D, Body&& body) {
-  const TransformPlan plan = transform_plan(K, D);
-  if (plan.variant != 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto each = [&](auto dmax, auto) {
-    constexpr int DMAX = decltype(dmax)::value;
-    const auto kernel =
-        plan.staged ? &transform_rec_kernel<DMAX, true> : &transform_rec_kernel<DMAX, false>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return body(kernel, plan);
-  };
-  return dispatch_records(D, each, EvalInsts());
+// fused_transform_rng's record kernel: transform_rec_kernel with the
+// normals and the Student-t scale drawn (draw_component's stream), the dofs
+// staged after the records
+template <int DMAX, bool STAGED>
+__global__ void __launch_bounds__(kEvalThreads, eval_min_blocks(DMAX))
+transform_rng_rec_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
+                         const float* __restrict__ ops, float* __restrict__ xT, long long N,
+                         int K, int D, int student_t) {
+  extern __shared__ float smem[];
+  constexpr int below = eval_dmax_below(DMAX);
+  __builtin_assume(D > below && D <= DMAX);   // the dispatch's
+  const float* L = ops + K * D;
+  const float* dof = L + K * D * D;
+  float* dof_row = smem + K * transform_rec_floats(D);
+  if constexpr (STAGED) {
+    stage_transform_records(smem, ops, L, K, D);
+    stage_row_async(dof_row, dof, K);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
+    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    const int lat = latent[n];
+    draw_rec<DMAX, STAGED>(
+        rng, smem, ops, L, lat, D, student_t != 0,
+        [&] { return STAGED ? dof_row[lat] : __ldg(dof + lat); },
+        [&](int i, float v) { xT[i * N + n] = v; });
+  }
 }
+
+template <bool RNG>
+struct TransformRecKernels {
+  template <int DMAX, bool STAGED>
+  static auto get() {
+    if constexpr (RNG) return &transform_rng_rec_kernel<DMAX, STAGED>;
+    else return &transform_rec_kernel<DMAX, STAGED>;
+  }
+};
 
 __global__ void __launch_bounds__(kWideThreads)
 transform_warp_kernel(const float* __restrict__ zT, const int* __restrict__ latent,
@@ -263,37 +223,20 @@ transform_rng_warp_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ late
 
 }  // namespace pmc
 
-// shared memory of fused_transform_rng's launcher, and of fused_transform's
-// looped kernel (checked against ops/_build.py): the operands if they fit,
-// else none; past D = 128 the warp kernels' slices
-extern "C" long long pmc_transform_smem_bytes(int K, int D) {
-  return static_cast<long long>(pmc::transform_plan(K, D, true).smem);
+// the plan of fused_transform (rng 0) or fused_transform_rng (rng 1) for
+// (K, D), checked against ops/_build.py transform_plan (draw_plan_out)
+extern "C" long long pmc_transform_plan(int K, int D, int rng, int* out) {
+  return pmc::draw_plan_out(pmc::transform_plan(K, D, false, rng != 0), D, out);
 }
 
-// fused_transform's plan for (K, D), checked against ops/_build.py
-// transform_plan: out = {variant (0 looped, 1 record, 2 warp), records
-// staged, a record's floats (the record kernel; else 0), threads a block};
-// the shared memory a block
-extern "C" long long pmc_transform_plan(int K, int D, int* out) {
-  const pmc::TransformPlan plan = pmc::transform_plan(K, D);
-  out[0] = plan.variant;
-  out[1] = plan.staged ? 1 : 0;
-  out[2] = plan.variant == 1 ? pmc::transform_rec_floats(D) : 0;
-  out[3] = plan.threads;
-  return static_cast<long long>(plan.smem);
-}
-
-// blocks of fused_transform's record kernel for (K, D) that fit on one SM at
-// once (0 where the plan takes another kernel, -1 on an error)
-extern "C" int pmc_transform_per_sm(int K, int D) {
+// blocks of fused_transform's (rng 0) or fused_transform_rng's (rng 1)
+// record kernel for (K, D) that fit on one SM at once (0 where the plan
+// takes another kernel, -1 on an error)
+extern "C" int pmc_transform_per_sm(int K, int D, int rng) {
   using namespace pmc;
-  if (transform_plan(K, D).variant != 1) return 0;
-  int n = 0;
-  const int err = with_transform_rec_kernel(K, D, [&](auto kernel, const TransformPlan& plan) {
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, plan.threads, plan.smem));
-  });
-  return err == 0 ? n : -1;
+  const DrawPlan plan = transform_plan(K, D, false, rng != 0);
+  return rng != 0 ? rec_per_sm<TransformRecKernels<true>>(plan, D)
+                  : rec_per_sm<TransformRecKernels<false>>(plan, D);
 }
 
 // ops: mu (K, D) | L (K, D, D) | dof (K); zT, xT: (D, N); latent, scale:
@@ -305,15 +248,12 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
                                    int variant, int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const TransformPlan plan = transform_plan(K, D);
-  if (variant == 1 || (variant < 0 && plan.variant == 1)) {
-    const int bad = with_transform_rec_kernel(K, D, [&](auto kernel, const TransformPlan& p) {
-      kernel<<<n_blocks, p.threads, p.smem, s>>>(zT, latent, scale, ops, xT, N, K, D);
-      return 0;
+  const DrawPlan plan = transform_plan(K, D);
+  if (takes_rec(plan, variant))
+    return with_rec_kernel<TransformRecKernels<false>>(plan, D, [&](auto kernel) {
+      kernel<<<n_blocks, plan.threads, plan.smem, s>>>(zT, latent, scale, ops, xT, N, K, D);
+      return static_cast<int>(cudaGetLastError());
     });
-    if (bad != 0) return bad;
-    return static_cast<int>(cudaGetLastError());
-  }
   if (D > kDMax && D <= kWideDMax) {
     if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_warp(transform_warp_kernel, D, n_blocks, s, zT, latent, scale, ops, xT, N,
@@ -330,16 +270,27 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
   return static_cast<int>(cudaGetLastError());
 }
 
+// variant as pmc_fused_transform's
 extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
                                        const int* latent, const float* ops,
                                        float* xT, long long N, int K, int D,
-                                       int student_t, int n_blocks, void* stream) {
+                                       int student_t, int variant, int n_blocks,
+                                       void* stream) {
   using namespace pmc;
-  const size_t smem = transform_plan(K, D, true).smem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > kDMax && D <= kWideDMax)
+  const DrawPlan plan = transform_plan(K, D, false, true);
+  if (takes_rec(plan, variant))
+    return with_rec_kernel<TransformRecKernels<true>>(plan, D, [&](auto kernel) {
+      kernel<<<n_blocks, plan.threads, plan.smem, s>>>(s0, s1, latent, ops, xT, N, K, D,
+                                                       student_t);
+      return static_cast<int>(cudaGetLastError());
+    });
+  if (D > kDMax && D <= kWideDMax) {
+    if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_warp(transform_rng_warp_kernel, D, n_blocks, s, s0, s1, latent, ops, xT, N,
                        K, D, student_t);
+  }
+  const size_t smem = transform_plan(K, D, true).smem;
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
     cudaFuncSetAttribute(transform_rng_kernel<DMAX, OPS_SMEM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -11,7 +11,8 @@ This module also states the CUDA kernels' own size limits, kernel by
 kernel (:data:`D_MAX`).  A thread kernel keeps one particle's coordinates
 in a per-thread array of at most 128 floats (registers up to D = 32, and up
 to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
-``fused_maha`` and ``fused_transform``; local memory above).  Past D = 128
+``fused_maha``, ``fused_transform``, ``fused_transform_rng`` and
+``fused_propose_logq``; local memory above).  Past D = 128
 the six kernels of :data:`WIDE` run a warp a particle with its coordinates
 in shared memory (``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
@@ -20,10 +21,11 @@ register pass's tile of 64 columns and all K components' records
 (:func:`dense_plan`), and elsewhere the entry-table pass's tile of 128
 particles, or of 64 where that does not fit (:func:`stats_tile`); the
 entry-table kernels stage their mixture operands there too when they fit
-beside, and otherwise read them from device memory.  ``fused_transform``'s
-record kernel stages each component's mean and lower triangle where they
-fit half an SM, and otherwise reads them from device memory
-(:func:`transform_plan`).  The K-blocked kernels walk the components in
+beside, and otherwise read them from device memory.  The record kernels of
+the draws stage each component's mean and lower triangle where they fit
+half an SM (``fused_propose_logq``'s also both mixtures' evaluation
+records), and otherwise read them from device memory
+(:func:`transform_plan`, :func:`propose_plan`).  The K-blocked kernels walk the components in
 chunks sized from shared memory (:func:`blocked_plan`), and so do the
 record kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
 :func:`limit_reason` names the limit a shape breaks, and the wrappers raise
@@ -43,7 +45,8 @@ from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
-           "block_particles", "stats_tile", "dense_plan", "transform_plan", "pool_variant",
+           "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
+           "draw_plan", "DRAWS", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
            "check_limits", "load", "build_info"]
 
@@ -84,6 +87,8 @@ KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
 # the kernels with a warp-a-particle path past D = 128 (csrc/warp.cuh)
 WIDE = ("fused_logq", "fused_rho", "fused_maha", "fused_transform", "fused_transform_rng",
         "fused_propose_logq")
+# the draws: a record, a looped and a warp kernel each (draw_plan)
+DRAWS = ("fused_transform", "fused_transform_rng", "fused_propose_logq")
 # each kernel's largest D: the warp kernels' past D = 128, the thread
 # kernels' elsewhere (at least the JAX package's rule's reach: D = 2,040 at
 # K = 1 for the 128-particle tile, 248 for the 1024-particle one; K*D <= 128
@@ -272,24 +277,51 @@ def _transform_rec_floats(D):
     return (D + D * (D + 1) // 2) | 1
 
 
-def transform_plan(K, D):
-    """``(kernel, records staged, a record's floats, threads a block, shared
-    memory a block)`` of ``fused_transform`` for (K, D); mirrors
-    ``csrc/transform.cu`` ``transform_plan``.  Up to D = 64 ``"rec"``: the
-    record kernel, 256 threads, each component's mean and lower triangle
-    staged where the K records fit half an SM (two blocks), else read from
-    device memory (no shared memory); to D = 128 ``"looped"``: the looped
-    kernel, 128 threads, the operands ``mu | L | dof`` staged where they fit;
-    past it ``"warp"``: a warp a particle (the record floats 0 but in the
-    record kernel)."""
+def _record_plan(D, rec_floats, ops_floats):
+    """``csrc/common.cuh`` ``draw_plan``: up to D = 64 ``"rec"``, the record
+    kernel, 256 threads, its ``rec_floats`` staged where they fit half an SM
+    (two blocks), else read from device memory (no shared memory); to D = 128
+    ``"looped"``, the looped kernel, 128 threads, its ``ops_floats`` operands
+    staged where they fit; past it ``"warp"``, a warp a particle.  The record
+    floats are 0 but in the record kernel."""
     if D > _THREAD_D_MAX:
         return "warp", False, 0, WIDE_THREADS, _wide_smem(D)
     if D > _REC_D_MAX:
-        ops = 4 * _operand_floats("fused_transform", K, D, 0)
+        ops = 4 * ops_floats
         return "looped", ops <= SMEM_LIMIT, 0, THREADS, ops if ops <= SMEM_LIMIT else 0
-    recs = 4 * K * _transform_rec_floats(D)
+    recs = 4 * rec_floats
     staged = recs <= _HALF_SMEM
     return "rec", staged, _transform_rec_floats(D), EVAL_THREADS, recs if staged else 0
+
+
+def transform_plan(K, D, rng=False):
+    """``(kernel, records staged, a record's floats, threads a block, shared
+    memory a block)`` of ``fused_transform`` (``fused_transform_rng`` with
+    ``rng``) for (K, D); mirrors ``csrc/transform.cu`` ``transform_plan``
+    (:func:`_record_plan`): the record kernel stages each component's mean and
+    lower triangle (``fused_transform_rng``'s also the K dofs), the looped
+    kernel the operands ``mu | L | dof``."""
+    return _record_plan(D, K * (_transform_rec_floats(D) + int(rng)),
+                        _operand_floats("fused_transform", K, D, 0))
+
+
+def propose_plan(K, Kt, D):
+    """The plan of ``fused_propose_logq`` for a (K, D) proposal and a
+    Kt-component target (0: none), as :func:`transform_plan`'s; mirrors
+    ``csrc/propose_logq.cu`` ``propose_plan`` (:func:`_record_plan`): the record
+    kernel stages both mixtures' 16-byte evaluation records, the proposal's
+    draw records and its K thresholds, the looped kernel the packed proposal
+    and the target's evaluation part."""
+    return _record_plan(D, (K + Kt) * _rec_floats(D) + K * (_transform_rec_floats(D) + 1),
+                        _operand_floats("fused_propose_logq", K, D, Kt))
+
+
+def draw_plan(kernel, K, D, Kt=0):
+    """The plan of one of the :data:`DRAWS` for (K, D) (and a Kt-component
+    target): :func:`transform_plan` or :func:`propose_plan`."""
+    if kernel == "fused_propose_logq":
+        return propose_plan(K, Kt, D)
+    return transform_plan(K, D, rng=kernel == "fused_transform_rng")
 
 
 def pool_variant(C, D):
@@ -391,7 +423,7 @@ def block_particles(kernel, D):
     D = 128 in the kernels of :data:`WIDE` a warp a particle."""
     if kernel in WIDE and D > _THREAD_D_MAX:
         return WIDE_THREADS // 32
-    if kernel in ("fused_logq", "fused_rho", "fused_maha", "fused_transform"):
+    if kernel in ("fused_logq", "fused_rho", "fused_maha") + DRAWS:
         return eval_threads(D)
     return THREADS
 
@@ -402,16 +434,16 @@ def smem_bytes(kernel, K, D, Kt=0):
     The operands are staged in it when they fit beside the kernel's own
     shared memory, and read from device memory otherwise; ``fused_logq``'s
     and ``fused_maha``'s kernels up to D = 64 stage one or two chunks of
-    records (:func:`eval_plan`), ``fused_transform``'s record kernel its
-    records (:func:`transform_plan`).  For a K-blocked kernel, its statistics
+    records (:func:`eval_plan`), the draw kernels' their plan's
+    (:func:`transform_plan`, :func:`propose_plan`).  For a K-blocked kernel, its statistics
     pass's (the first launch reads the operands as ``fused_logq``,
     ``fused_propose_logq`` or like them)."""
     if kernel in BLOCKED:
         return blocked_plan(kernel, K, D)[2]
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         return eval_plan(kernel, K, D)[2]
-    if kernel == "fused_transform":
-        return transform_plan(K, D)[4]
+    if kernel in DRAWS:
+        return draw_plan(kernel, K, D, Kt)[4]
     if kernel in WIDE and D > _THREAD_D_MAX:
         return _wide_smem(D)
     if kernel == "fused_mcmc_pool":
@@ -428,7 +460,8 @@ def draw_smem_bytes(K, Kt, D):
     """Shared memory of ``fused_is_pmc_step_blocked``'s first launch
     (``csrc/is_pmc_step_blocked.cu`` ``pmc_step_draw_smem_bytes``): both
     mixtures' records and the proposal's thresholds where D <= 32 and they
-    fit, else 0 (``fused_propose_logq``'s kernel then takes that launch)."""
+    fit, else 0 (``fused_propose_logq``'s plan's kernel then takes that
+    launch)."""
     need = 4 * ((K + Kt) * _rec_floats(D) + K)
     return need if D <= 32 and need <= SMEM_LIMIT else 0
 
@@ -532,9 +565,11 @@ def _declare(lib):
         # xT, mix, out, N, K, D, student_t, n_blocks, stream
         "pmc_fused_logq": [P, P, P, L, I, I, I, I, P],
         # s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
-        # student_t, t_student_t, n_blocks, stream
+        # student_t, t_student_t, variant (-1 the plan's, 0 the looped kernel,
+        # 1 the record kernel), n_blocks (<= 0: one wave, sized by the
+        # launcher), stream
         "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, L, I, I, I, I, I,
-                                   I, P],
+                                   I, I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
         # variant (-1 the plan's, 0 the entry table, 1 the register pass),
         # n_blocks, stream
@@ -553,8 +588,9 @@ def _declare(lib):
         # zT, latent, scale, ops, xT, N, K, D, variant (-1 the plan's, 0
         # the looped kernel, 1 the record kernel), n_blocks, stream
         "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, I, P],
-        # s0, s1, latent, ops, xT, N, K, D, student_t, n_blocks, stream
-        "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, P],
+        # s0, s1, latent, ops, xT, N, K, D, student_t, variant (as
+        # pmc_fused_transform's), n_blocks, stream
+        "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
         # nan_counts, xfT, ef, C, n_steps, Kt, D, student_t_prop,
         # t_student_t, variant, stream
@@ -578,7 +614,6 @@ def _declare(lib):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.pmc_stats_smem_bytes.argtypes = [I, I, I, I]     # K, Kt, D, is_step
-    lib.pmc_propose_logq_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_is_pmc_step_blocked_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_step_draw_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_step_draw_per_sm.argtypes = [I, I, I]      # K, Kt, D -> first-launch blocks an SM
@@ -586,15 +621,22 @@ def _declare(lib):
     # the register pass's blocks an SM (0 where the plan is the entry table)
     lib.pmc_is_pmc_step_per_sm.argtypes = [I, I, I]    # K, Kt, D
     lib.pmc_is_pmc_step_per_sm.restype = ctypes.c_int
-    # K, D -> blocks an SM: the register pass's (0 where the plan is the
-    # entry table), fused_transform's record kernel's (0 where it is not)
-    for name in ("pmc_vb_estep_per_sm", "pmc_pmc_stats_per_sm", "pmc_transform_per_sm"):
+    # K, D -> the register pass's blocks an SM (0 where the plan is the
+    # entry table)
+    for name in ("pmc_vb_estep_per_sm", "pmc_pmc_stats_per_sm"):
         getattr(lib, name).argtypes = [I, I]
+        getattr(lib, name).restype = ctypes.c_int
+    # the record kernels' blocks an SM (0 where the plan takes another
+    # kernel): K, D, rng (fused_transform_rng's, else fused_transform's);
+    # K, Kt, D (fused_propose_logq's)
+    for name in ("pmc_transform_per_sm", "pmc_propose_per_sm"):
+        getattr(lib, name).argtypes = [I, I, I]
         getattr(lib, name).restype = ctypes.c_int
     lib.pmc_is_pmc_step_smem_bytes.argtypes = [I, I, I]   # K, Kt, D
     # K, Kt, D, mode (0 the step, 1 VB, 2 fused_pmc_stats), int out[4]
     lib.pmc_dense_plan.argtypes = [I, I, I, I, P]
-    lib.pmc_transform_plan.argtypes = [I, I, P]        # K, D, int out[4]
+    lib.pmc_transform_plan.argtypes = [I, I, I, P]     # K, D, rng, int out[4]
+    lib.pmc_propose_plan.argtypes = [I, I, I, P]       # K, Kt, D, int out[4]
     for name in BLOCKED:   # K, D -> statistics-pass blocks an SM holds
         fn = getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])
         fn.argtypes = [I, I]
@@ -609,15 +651,15 @@ def _declare(lib):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",
-             "pmc_vb_estep_smem_bytes", "pmc_transform_smem_bytes", "pmc_pmc_stats_smem_bytes",
+             "pmc_vb_estep_smem_bytes", "pmc_pmc_stats_smem_bytes",
              "pmc_pmc_stats_blocked_smem_bytes", "pmc_vb_estep_blocked_smem_bytes")
     for name in pairs:
         getattr(lib, name).argtypes = [I, I]
     lib.pmc_mcmc_pool_smem_bytes.argtypes = [I, I, I]   # Kt, D, variant (1: warp)
-    for name in ("pmc_stats_smem_bytes", "pmc_propose_logq_smem_bytes",
+    for name in ("pmc_stats_smem_bytes",
                  "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes",
                  "pmc_mcmc_pool_smem_bytes", "pmc_is_pmc_step_smem_bytes",
-                 "pmc_dense_plan", "pmc_transform_plan") + pairs:
+                 "pmc_dense_plan", "pmc_transform_plan", "pmc_propose_plan") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

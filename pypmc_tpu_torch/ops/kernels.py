@@ -45,8 +45,10 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 for the kernels with variants chosen by shape (``fused_mcmc_pool``: a
 thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
 ``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
-entry-table pass, ``_build.dense_plan``; ``fused_transform``: the record,
-the looped or the warp kernel, ``_build.transform_plan``), each launch's
+entry-table pass, ``_build.dense_plan``; the draws ``fused_transform``,
+``fused_transform_rng`` and ``fused_propose_logq``: the record, the looped
+or the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``), each
+launch's
 variant as ``variant:<kernel>=<variant>``.  Each of these wrappers takes a
 ``variant=`` that forces another variant where the shape has it, as the
 yardstick of the election.
@@ -329,19 +331,19 @@ def _dense_per_sm(kernel, K, D, Kt, index):
 
 
 _DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
-# fused_transform's kernels and the launcher's variant codes (-1: the plan's)
-_TRANSFORM_VARIANTS = {"looped": 0, "rec": 1, "warp": -1}
+# the draws' kernels and the launchers' variant codes (-1: the plan's)
+_DRAW_VARIANTS = {"looped": 0, "rec": 1, "warp": -1}
 
 
 def _elect(kernel, K, D, variant, Kt=0):
-    """The variant of ``kernel`` (``fused_transform`` or a dense statistics
-    kernel) at (K, D): its plan's for None (``_build.transform_plan``,
+    """The variant of ``kernel`` (a draw kernel or a dense statistics kernel)
+    at (K, D): its plan's for None (``_build.draw_plan``,
     ``_build.dense_plan``), else ``variant`` where the shape has it -- the
     plan's, or its yardstick (the looped kernel beside the record kernel,
     the entry table beside the register pass); ``ValueError`` elsewhere,
     on any device."""
-    if kernel == "fused_transform":
-        elected, other = _build.transform_plan(K, D)[0], ("rec", "looped")
+    if kernel in _build.DRAWS:
+        elected, other = _build.draw_plan(kernel, K, D, Kt)[0], ("rec", "looped")
     else:
         elected, other = _build.dense_plan(kernel, K, D, Kt)[0], ("reg", "table")
     if variant is None or variant == elected or (elected, variant) == other:
@@ -819,22 +821,26 @@ def fused_vb_estep(xT, w, a, m, const, variant=None):
     return stats["s0"], stats["sd"], stats["g"], stats["t1"].sum()
 
 
-def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
+def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=None):
     """Draw ``n`` particles and evaluate the proposal (and optionally a
     mixture target) on them: ``(xT (D, n), latent (n,) int32, log_q (n,))``
     plus ``log_p (n,)`` with a target (kernel ``csrc/propose_logq.cu``).
-    ``seed`` is two 32-bit words."""
+    ``seed`` is two 32-bit words.  ``variant``: the kernel, ``"rec"`` (the
+    record kernel, to D = 64), ``"looped"`` (to D = 128) or ``"warp"`` (past
+    it), as ``_build.propose_plan`` elects for None; either of the first two
+    gives the same outputs bit for bit.  Counted as
+    ``variant:fused_propose_logq=<variant>``."""
+    Kt = 0 if target is None else target.K
+    variant = _elect("fused_propose_logq", ops.K, ops.dim, variant, Kt)
     tensors = [ops.packed] + ([] if target is None else [target.packed])
     if not use_kernel(*tensors):
         return plain_propose_logq(seed, ops, n, target)
     _check_operands(ops)
-    Kt = 0
     if target is not None:
         _check_operands(target)
         if target.dim != ops.dim:
             raise ValueError("target dimension %d != proposal dimension %d"
                              % (target.dim, ops.dim))
-        Kt = target.K
     D, device = ops.dim, ops.packed.device
     _build.check_limits("fused_propose_logq", ops.K, D, Kt)
     lib = _build.load()
@@ -849,10 +855,12 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None):
             xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
             None if log_p is None else log_p.data_ptr(), n, ops.K, Kt, D,
             int(ops.student_t), int(target is not None and target.student_t),
-            _blocks(device, n, 16, _build.block_particles("fused_propose_logq", D)),
+            _DRAW_VARIANTS[variant],
+            _draw_blocks("fused_propose_logq", device, n, ops.K, D, variant, Kt),
             _stream(device))
     _raise_on(err, "fused_propose_logq")
     fused_propose_logq.launches += 1
+    _variant_counts["fused_propose_logq=" + variant] += 1
     if target is None:
         return xT, latent, log_q
     return xT, latent, log_q, log_p
@@ -1061,15 +1069,28 @@ def _transform_operands(ops: MixtureOperands):
 
 
 @functools.lru_cache(maxsize=None)
-def _transform_per_sm(K, D, index):
-    """Blocks of ``fused_transform``'s record kernel for (K, D) that one SM
-    of CUDA device ``index`` holds at once (the library's occupancy of its
-    instantiation and shared memory)."""
+def _rec_per_sm(kernel, K, D, Kt, index):
+    """Blocks of a draw kernel's record kernel for (K, D) (and a Kt-component
+    target) that one SM of CUDA device ``index`` holds at once (the library's
+    occupancy of its instantiation and shared memory)."""
     with torch.cuda.device(index):
-        per_sm = _build.load().pmc_transform_per_sm(K, D)
+        lib = _build.load()
+        per_sm = (lib.pmc_propose_per_sm(K, Kt, D) if kernel == "fused_propose_logq"
+                  else lib.pmc_transform_per_sm(K, D, int(kernel == "fused_transform_rng")))
     if per_sm < 1:
-        raise RuntimeError("fused_transform: K=%d, D=%d fits no block on an SM" % (K, D))
+        raise RuntimeError("%s: K=%d, D=%d fits no block on an SM" % (kernel, K, D))
     return per_sm
+
+
+def _draw_blocks(kernel, device, n, K, D, variant, Kt=0):
+    """One wave of a draw kernel's ``variant`` for n particles: the record
+    kernel's from its occupancy, else 16 blocks an SM of the looped kernel's
+    128 threads or, past D = 128, of 4 particles."""
+    if variant == "rec":
+        return _blocks(device, n, _rec_per_sm(kernel, K, D, Kt, device.index),
+                       _build.EVAL_THREADS)
+    threads = _build.THREADS if variant == "looped" else _build.block_particles(kernel, D)
+    return _blocks(device, n, 16, threads)
 
 
 def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
@@ -1090,20 +1111,14 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     _check(latent, (N,), torch.int32)
     _check_operands(ops)
     _build.check_limits("fused_transform", ops.K, D)
-    if variant == "rec":
-        n_blocks = _blocks(zT.device, N, _transform_per_sm(ops.K, D, zT.device.index),
-                           _build.EVAL_THREADS)
-    else:   # the looped kernel's 128 threads, or past D = 128 a warp a particle
-        threads = _build.THREADS if variant == "looped" else _build.block_particles(
-            "fused_transform", D)
-        n_blocks = _blocks(zT.device, N, 16, threads)
+    n_blocks = _draw_blocks("fused_transform", zT.device, N, ops.K, D, variant)
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty_like(zT)
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
-            xT.data_ptr(), N, ops.K, D, _TRANSFORM_VARIANTS[variant], n_blocks,
+            xT.data_ptr(), N, ops.K, D, _DRAW_VARIANTS[variant], n_blocks,
             _stream(zT.device))
     _raise_on(err, "fused_transform")
     fused_transform.launches += 1
@@ -1111,11 +1126,15 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     return xT
 
 
-def fused_transform_rng(seed, latent, ops: MixtureOperands):
+def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     """The mixture transform of :func:`fused_transform` with the normals
     and, for a Student-t mixture, the scale ``sqrt(dof / chi2(dof))`` drawn
     in the kernel from a Philox stream per particle keyed by the two
-    ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``."""
+    ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``.
+    ``variant``: the kernel, as :func:`fused_transform`'s
+    (``_build.transform_plan`` with ``rng``); counted as
+    ``variant:fused_transform_rng=<variant>``."""
+    variant = _elect("fused_transform_rng", ops.K, ops.dim, variant)
     if not use_kernel(ops.packed):
         return plain_transform_rng(seed, latent, ops)
     N, D, device = latent.shape[0], ops.dim, ops.packed.device
@@ -1131,10 +1150,11 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands):
         err = lib.pmc_fused_transform_rng(
             seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, latent.data_ptr(),
             operands.data_ptr(), xT.data_ptr(), N, ops.K, D, int(ops.student_t),
-            _blocks(device, N, 16, _build.block_particles("fused_transform_rng", D)),
-            _stream(device))
+            _DRAW_VARIANTS[variant],
+            _draw_blocks("fused_transform_rng", device, N, ops.K, D, variant), _stream(device))
     _raise_on(err, "fused_transform_rng")
     fused_transform_rng.launches += 1
+    _variant_counts["fused_transform_rng=" + variant] += 1
     return xT
 
 
@@ -1214,8 +1234,9 @@ def reset_launch_counts():
         fn.launches = 0
         if fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
-    for variant in _TRANSFORM_VARIANTS:
-        _variant_counts["fused_transform=" + variant] = 0
+    for name in _build.DRAWS:
+        for variant in _DRAW_VARIANTS:
+            _variant_counts["%s=%s" % (name, variant)] = 0
     for name in _build._DENSE:
         for variant in _DENSE_VARIANTS:
             _variant_counts["%s=%s" % (name, variant)] = 0

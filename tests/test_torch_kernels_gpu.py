@@ -148,6 +148,31 @@ def test_transform_rng_distribution(cuda, case):
     chip_smoke.transform_rng_case(case, cuda, [])
 
 
+@pytest.mark.parametrize("case", [
+    # K, Kt, D, N, Student-t proposal, Student-t target, dead component,
+    # records staged, seed: the flagship, D=40 at the widest K the rule
+    # admits, the records read from device memory
+    (10, 2, 10, 1 << 18, True, False, False, True, 111),
+    (10, 0, 10, 200_003, False, False, True, True, 113),
+    (9, 2, 40, 100_001, True, True, False, True, 118),
+    (40, 2, 40, 50_001, True, False, False, False, 123),
+])
+def test_propose_logq_record_kernel_is_the_looped_kernel(cuda, case):
+    chip_smoke.draw_variants_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", [
+    # K, D, N, Student-t, dead component, records staged, seed: the
+    # flagship, the K=11, D=40 route, the records read from device memory
+    (10, 10, 1 << 18, True, False, True, 131),
+    (11, 40, 100_001, True, False, True, 133),
+    (11, 40, 100_001, False, True, True, 134),
+    (40, 64, 50_001, True, False, False, 138),
+])
+def test_transform_rng_record_kernel_is_the_looped_kernel(cuda, case):
+    chip_smoke.transform_rng_variants_case(case, cuda, [])
+
+
 @pytest.mark.parametrize("case", chip_smoke.POOL_CASES)
 def test_mcmc_pool_invariants(cuda, case):
     for variant in chip_smoke.pool_variants(case[1]):
@@ -216,7 +241,8 @@ def test_dispatch_and_launch_counts(cuda):
     core.mixture_logpdf_T(params, xT)
     counts = kernels.launch_counts()
     assert counts["fused_logq"] == 1 and counts["fused_propose_logq"] == 1
-    assert sum(counts.values()) == 2
+    assert chip_smoke.kernel_launches(counts) == 2
+    assert counts["variant:fused_propose_logq=rec"] == 1
     with pytest.raises(TypeError):
         kernels.fused_logq(xT.double(), kernels.MixtureOperands(
             ops.packed.double(), ops.K, ops.dim, ops.student_t))

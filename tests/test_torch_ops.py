@@ -499,10 +499,88 @@ def test_transform_plan_mirrors(K, D):
         assert len(banks) == min(K, 32)
         if D == 40:
             assert {k * D * D % 32 for k in range(K)} == {0}
-    # fused_transform_rng keeps the looped kernel's operands mu | L | dof
-    ops = 4 * (K * D * (D + 1) + K)
-    rng_smem = _build._wide_smem(D) if D > 128 else ops if ops <= _build.SMEM_LIMIT else 0
-    assert _build.smem_bytes("fused_transform_rng", K, D) == rng_smem
+    # fused_transform_rng's plan: the same kernels, its staged records
+    # followed by the K dofs
+    rng = _build.transform_plan(K, D, rng=True)
+    assert rng == (got[:4] + (got[4] + 4 * K,) if got[0] == "rec" and got[1] else got)
+    assert _build.smem_bytes("fused_transform_rng", K, D) == rng[4]
+    assert _build.block_particles("fused_transform_rng", D) * (32 if got[0] == "warp" else 1) \
+        == got[3]
+
+
+# (kernel, K, Kt, D) -> the plan of fused_transform_rng and
+# fused_propose_logq, worked by hand from csrc/transform.cu transform_plan
+# and csrc/propose_logq.cu propose_plan (common.cuh draw_plan): to D = 64
+# the record kernel, 256 threads, staged where its records fit half an SM
+# (115,712 B): fused_transform_rng's K draw records of (D + D (D + 1) / 2) | 1
+# floats and K dofs; fused_propose_logq's K + Kt evaluation records
+# (rec_floats: 88 floats at D = 10, 924 at D = 40, 2,116 at D = 62), K draw
+# records and K thresholds; to D = 128 the looped kernel's operands where
+# they fit 232,448 B (fused_propose_logq: the packed proposal and the
+# target's evaluation part); past it a warp a particle
+DRAW_PLANS = {
+    ("fused_transform_rng", 10, 0, 10): ("rec", True, 65, 256, 4 * 10 * 66),     # 2,640 B
+    ("fused_transform_rng", 11, 0, 40): ("rec", True, 861, 256, 4 * 11 * 862),   # the route
+    ("fused_transform_rng", 33, 0, 40): ("rec", True, 861, 256, 113_784),
+    ("fused_transform_rng", 34, 0, 40): ("rec", False, 861, 256, 0),
+    ("fused_transform_rng", 13, 0, 64): ("rec", True, 2145, 256, 111_592),
+    ("fused_transform_rng", 14, 0, 64): ("rec", False, 2145, 256, 0),
+    ("fused_transform_rng", 2, 0, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
+    ("fused_transform_rng", 1, 0, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
+    # the flagship: 12 x 88 + 10 x 66 floats
+    ("fused_propose_logq", 10, 2, 10): ("rec", True, 65, 256, 6864),
+    ("fused_propose_logq", 10, 0, 10): ("rec", True, 65, 256, 4 * (10 * 88 + 10 * 66)),
+    # the widest K the rule admits at D = 40 with a 2-component target
+    ("fused_propose_logq", 9, 2, 40): ("rec", True, 861, 256, 4 * (11 * 924 + 9 * 862)),
+    # the largest records the rule admits (K + Kt = 7 at D = 62): 16 B spare
+    ("fused_propose_logq", 7, 0, 62): ("rec", True, 2015, 256, 115_696),
+    ("fused_propose_logq", 5, 2, 62): ("rec", True, 2015, 256, 4 * (7 * 2116 + 5 * 2016)),
+    ("fused_propose_logq", 8, 0, 62): ("rec", False, 2015, 256, 0),
+    ("fused_propose_logq", 40, 2, 40): ("rec", False, 861, 256, 0),
+    ("fused_propose_logq", 2, 2, 65): ("looped", True, 0, 128, 4 * (17_040 + 8_588)),
+    ("fused_propose_logq", 3, 1, 128): ("looped", False, 0, 128, 0),
+    ("fused_propose_logq", 1, 1, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
+}
+
+
+@pytest.mark.parametrize("kernel,K,Kt,D", sorted(DRAW_PLANS))
+def test_draw_plans_mirror(kernel, K, Kt, D):
+    """_build.transform_plan(rng=True) and _build.propose_plan, the mirrors
+    of the C plans of fused_transform_rng and fused_propose_logq, against
+    hand-worked plans: the kernel, the records staged, the draw records' odd
+    stride (the components' words at one offset in distinct banks), the
+    threads and the shared memory, which smem_bytes and limit_reason read."""
+    got = _build.draw_plan(kernel, K, D, Kt)
+    assert got == DRAW_PLANS[(kernel, K, Kt, D)]
+    assert _build.smem_bytes(kernel, K, D, Kt) == got[4] <= (
+        _build._HALF_SMEM if got[0] == "rec" else _build.SMEM_LIMIT)
+    assert _build.limit_reason(kernel, K, D, Kt) is None
+    assert _build.block_particles(kernel, D) * (32 if got[0] == "warp" else 1) == got[3]
+    if got[0] == "rec":
+        F = got[2]
+        assert F % 2 == 1 and F == _build._transform_rec_floats(D)
+        assert len({k * F % 32 for k in range(min(K, 32))}) == min(K, 32)
+
+
+def test_every_shape_the_propose_rule_admits_takes_the_staged_record_kernel():
+    """Up to D = 64, at every (K, Kt) the JAX rule admits for
+    fused_propose_logq (it reads K + Kt alone), whatever the split, the plan
+    is the record kernel with its records staged; so is fused_transform_rng's
+    at every K it admits.  The largest need is K = 7, Kt = 0, D = 62."""
+    most = (0, None)
+    for D in range(1, 65):
+        S = 1
+        while kernels.fits("fused_propose_logq", S + 1, D):
+            S += 1
+        assert kernels.fits("fused_transform_rng", S, D)
+        assert not kernels.fits("fused_transform_rng", S + 1, D)
+        for K in range(1, S + 1):
+            for Kt in range(0, S - K + 1):
+                plan = _build.propose_plan(K, Kt, D)
+                assert plan[:2] == ("rec", True), (K, Kt, D, plan)
+                most = max(most, (plan[4], (K, Kt, D)))
+            assert _build.transform_plan(K, D, rng=True)[:2] == ("rec", True), (K, D)
+    assert most == (115_696, (7, 0, 62))
 
 
 def _variant_call(kernel, K, D, variant):
@@ -514,9 +592,13 @@ def _variant_call(kernel, K, D, variant):
     N = 33
     xT = torch.tensor(rng.normal(0, 1, (D, N)), dtype=torch.float32)
     w = torch.ones(N)
+    latent = torch.tensor(rng.integers(0, K, N), dtype=torch.int32)
     if kernel == "fused_transform":
-        latent = torch.tensor(rng.integers(0, K, N), dtype=torch.int32)
         return kernels.fused_transform(xT, latent, w, ops, variant=variant)
+    if kernel == "fused_transform_rng":
+        return kernels.fused_transform_rng((1, 2), latent, ops, variant=variant)
+    if kernel == "fused_propose_logq":
+        return kernels.fused_propose_logq((1, 2), ops, N, ops, variant=variant)
     if kernel == "fused_pmc_stats":
         return kernels.fused_pmc_stats(xT, w, ops, True, variant=variant)
     if kernel == "fused_is_pmc_step":
@@ -532,6 +614,15 @@ def _variant_call(kernel, K, D, variant):
     ("fused_transform", 3, 10, "warp", False), ("fused_transform", 1, 65, "rec", False),
     ("fused_transform", 1, 65, "looped", True), ("fused_transform", 1, 129, "looped", False),
     ("fused_transform", 1, 129, "warp", True), ("fused_transform", 3, 10, "reg", False),
+    # the two random draws: the same kernels
+    ("fused_transform_rng", 3, 10, "rec", True), ("fused_transform_rng", 3, 10, "looped", True),
+    ("fused_transform_rng", 3, 10, "warp", False), ("fused_transform_rng", 1, 65, "rec", False),
+    ("fused_transform_rng", 1, 65, "looped", True),
+    ("fused_transform_rng", 1, 129, "looped", False),
+    ("fused_propose_logq", 3, 10, "rec", True), ("fused_propose_logq", 3, 10, "looped", True),
+    ("fused_propose_logq", 3, 10, "table", False), ("fused_propose_logq", 1, 65, "rec", False),
+    ("fused_propose_logq", 1, 65, "looped", True), ("fused_propose_logq", 1, 129, "rec", False),
+    ("fused_propose_logq", 1, 129, "warp", True),
     # the statistics kernels: the register pass to D = 16 and the entry table
     # beside it; the entry table alone past it
     ("fused_pmc_stats", 3, 4, "reg", True), ("fused_pmc_stats", 3, 4, "table", True),
@@ -553,12 +644,13 @@ def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, o
 
 def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
-    fused_transform's record, looped and warp kernels and the statistics
+    the three draws' record, looped and warp kernels and the statistics
     kernels' register and entry-table passes (fused_pmc_stats' tile width is
     no longer a variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
-    assert {"variant:fused_transform=" + v for v in ("rec", "looped", "warp")} <= names
+    for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
+        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", "warp")} <= names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
     assert not any("=tile" in n for n in names)
