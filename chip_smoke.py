@@ -112,7 +112,28 @@ Phases, each of which exits non-zero on failure:
    elects, every ``fused_transform`` and ``fused_propose_logq`` launch on
    its record kernel) and the
    callable-target run of ``tests/test_pipeline_api.py``;
-10. times: each kernel and its plain version, with CUDA events, beside
+10. parallel: the particle mesh over ``torch.distributed``, in rank
+    processes (``chip_smoke.py --parallel-worker``) that load the kernels
+    the build phase built: (a) one rank on the card in a one-rank NCCL
+    group, (b) two ranks sharing the card over gloo, each rank under a
+    time limit (both killed when one runs out).  Each rank drives, between
+    a reset and a read of its launch counts, ``pmc_run_sharded(mesh=)`` at
+    the slice's configuration (then 2 ``weight_clip`` steps; (b) also a
+    total of 10^7 + 1), ``ParallelSampler`` with the adapted flagship
+    proposal (4 runs of 2^22 particles in all, 2 left on the device, then
+    ``evidence_stats`` and ``gather``), ``GaussianInference(mesh=)`` at
+    the vb phase's configuration, rank-0-only checkpoints and
+    ``integrate(mesh=)`` at the pipeline phase's configuration (evidence
+    error under 1%, ESS above 0.15); rows 1, 5, 7, 8 and 9 must launch on
+    every rank, with every tensor handed to a kernel on cuda:0.  (a) equals
+    ``mesh=None`` bit for bit (the PMC run, VB) and traces one step with
+    ``profiling.trace`` (its ``pmc_step`` range and ``dense_reg_kernel``);
+    (b) holds the all-reduced float64 update of two halves to one rank's
+    (1e-12), VB to one rank on all the data (N_comp to 1e-5, the bound to
+    1e-6), and the two ranks' results to equal sha256 digests.  It prints
+    each rank's ms a PMC step, a ``ParallelSampler.run`` and a VB
+    iteration and the gather's seconds (host clock, ``profiling.timed``);
+11. times: each kernel and its plain version, with CUDA events, beside
     the least time the card could take (``bound``), the entry-table pass
     of ``fused_vb_estep``, ``fused_is_pmc_step`` and ``fused_pmc_stats``
     beside their elected one, the three draws' looped kernels beside their
@@ -125,7 +146,8 @@ Phases, each of which exits non-zero on failure:
     the mcmc phase's and on each side of the cut-offs of their election
     (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
     N=2^16, and the device time of each launch of the K-blocked kernels
-    (torch.profiler), the first launch also beside its bound.
+    (torch.profiler, in a fresh process: ``chip_smoke.py
+    --blocked-splits``), the first launch also beside its bound.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -1420,16 +1442,25 @@ def phase_slice(device):
     return counts, dt / STEPS * 1e3, out
 
 
+# the package's named ranges (pypmc_tpu_torch.profiling.annotate): a trace
+# projects each onto the device's timeline, where it spans kernels that
+# have rows of their own
+RANGES = ("mcmc", "vb1", "is1_vb2", "pmc", "is2_combine", "pmc_step")
+
+
 def device_rows(prof, per):
     """``(device ms, launches, name)`` by kernel or copy from a
     torch.profiler run, divided by ``per`` (the steps or iterations
     profiled), largest first.  Only the device's own events count: an
-    operator's row carries the time of the kernels it launched, which
-    have rows of their own."""
+    operator's row carries the time of the kernels it launched, and a
+    named range's the time of the kernels inside it, which have rows of
+    their own."""
     from torch.autograd import DeviceType
 
     rows = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False) or e.key in RANGES:
+            continue
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             rows.append((e.self_device_time_total / 1e3 / per, e.count / per, e.key))
     require(rows, "the profiler recorded no device event")
@@ -2377,7 +2408,416 @@ def phase_pipeline(device):
 
 
 # --------------------------------------------------------------------- #
-# phase 10: times                                                       #
+# phase 10: parallel -- the particle mesh over torch.distributed         #
+# --------------------------------------------------------------------- #
+
+# the rows of the main-path kernels every rank must launch: fused_logq (1),
+# fused_propose_logq (5), fused_pmc_stats (7), fused_is_pmc_step (8),
+# fused_vb_estep (9)
+PARALLEL_ROWS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats", "fused_is_pmc_step",
+                 "fused_vb_estep")
+PARALLEL_RUNS = 4               # ParallelSampler runs, 2^22 particles each in all
+PARALLEL_TIMEOUT = {1: 300, 2: 420}   # seconds a rank may take, by world size
+
+
+def digest(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def watch_kernel_devices(k):
+    """Wrap every kernel wrapper of ``k`` (the module) so that the devices
+    of the tensors handed to it are recorded; returns the set they go to."""
+    import torch
+
+    seen = set()
+
+    def walk(a, depth=0):
+        if isinstance(a, torch.Tensor):
+            seen.add(str(a.device))
+        elif isinstance(a, (tuple, list)) and depth < 3:
+            for b in a:
+                walk(b, depth + 1)
+        elif hasattr(a, "__dict__") and depth < 3 and not callable(a):
+            for b in vars(a).values():
+                walk(b, depth + 1)
+
+    import functools
+
+    wrappers = []
+    for fn in k._WRAPPERS:
+        @functools.wraps(fn)
+        def wrapped(*args, _fn=fn, **kwargs):
+            walk(args)
+            walk(tuple(kwargs.values()))
+            return _fn(*args, **kwargs)
+        # a wrapper counts its launches on the module's name for it: the
+        # counts are read from the functions that now hold those names
+        setattr(k, fn.__name__, wrapped)
+        wrappers.append(wrapped)
+    k._WRAPPERS = tuple(wrappers)
+    return seen
+
+
+def host_t_mixture(params):
+    from pypmc_tpu_torch.density import create_t_mixture
+
+    h = {f: getattr(params, f).double().cpu().numpy() for f in ("means", "cov", "dof", "weights")}
+    return create_t_mixture(h["means"], h["cov"], h["dof"], h["weights"] / h["weights"].sum())
+
+
+def mode_masses(params, t_means):
+    w = params.weights.double().cpu().numpy()
+    mu = params.means.double().cpu().numpy()
+    return [float(w[np.linalg.norm(mu - t_means[j], axis=1) < 3].sum()) for j in (0, 1)]
+
+
+def trace_one_step(mesh, params, target, tries=3):
+    """One PMC step of the mesh run under ``profiling.trace``: the Chrome
+    trace must hold the step's range and its fused_is_pmc_step kernel (the
+    register pass, ``dense_reg_kernel``).  The profiler may drop a run's
+    kernel events; the step is traced again, up to ``tries`` times."""
+    import glob
+    import os
+    import tempfile
+
+    from pypmc_tpu_torch import profiling
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+
+    for attempt in range(1, tries + 1):
+        with tempfile.TemporaryDirectory(prefix="pypmc_trace_") as logdir:
+            with profiling.trace(logdir):
+                pmc_run_sharded(target, params, N_SLICE, 1, mesh, key=50 + attempt)
+            (path,) = glob.glob(os.path.join(logdir, "trace_*.json"))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        ranges = [e for e in events if e.get("name") == "pmc_step"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                          and "dense_reg_kernel" in e.get("name", "")})
+        print("  trace (run %d): %d events, %d pmc_step ranges, step kernels %s"
+              % (attempt, len(events), len(ranges), kernels))
+        require(ranges, "parallel: the trace holds no pmc_step range")
+        if kernels:
+            return kernels
+    raise SmokeFailure("parallel: %d traces of a PMC step recorded no dense_reg_kernel"
+                       % tries)
+
+
+def timed_vb_run(vb, profiling):
+    """``vb.run(VB_ITERS, prune=1.0)`` with each iteration's milliseconds
+    (host clock, the card synchronized around each: ``profiling.timed``)."""
+    record = []
+    update = vb._update_with_bound
+
+    def timed_update():
+        with profiling.timed("iteration", record):
+            return update()
+
+    vb._update_with_bound = timed_update
+    try:
+        vb.run(VB_ITERS, prune=1.0)
+    finally:
+        del vb._update_with_bound
+    return [sec * 1e3 for _, sec in record]
+
+
+def parallel_worker(rank, world, port, backend, shared):
+    """One rank of the parallel phase (``chip_smoke.py --parallel-worker``):
+    joins the group, drives the mesh path between a reset and a read of the
+    launch counts, checks its results and prints them as one JSON line."""
+    import os
+
+    import torch
+
+    torch.cuda.set_device(0)
+    import pypmc_tpu_torch  # noqa: F401
+    from pypmc_tpu_torch import checkpoint, profiling
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import (ParallelSampler, distributed_initialize,
+                                          particle_mesh, pmc_run_sharded, run_is_step_sharded)
+    from pypmc_tpu_torch.pipeline import integrate
+
+    require("jax" not in sys.modules, "rank %d imported jax" % rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    _build.load()
+    require(not _build.build_info["built"], "rank %d built the kernels again" % rank)
+    distributed_initialize("localhost:%d" % port, world, rank, backend=backend)
+    mesh = particle_mesh()
+    require((mesh.size, mesh.rank, mesh.device) == (world, rank, device),
+            "rank %d: mesh %r" % (rank, mesh))
+    res = {"rank": rank, "world": world, "backend": torch.distributed.get_backend()}
+    times = []
+
+    params, target, t_means = flagship_problem(device)
+    pmc_run_sharded(target, params, N_SLICE, 1, mesh, key=100)   # warm-up, not counted
+    seen = watch_kernel_devices(k)
+    k.reset_launch_counts()
+
+    # the K=10 PMC slice on the mesh: 10 steps, then 2 weight_clip steps
+    with profiling.timed("pmc_step", times):
+        out, stats = pmc_run_sharded(target, params, N_SLICE, STEPS, mesh, key=0)
+    out_c, stats_c = pmc_run_sharded(target, params, N_SLICE, 2, mesh, key=1, weight_clip=True)
+    if world > 1:
+        # a total the ranks do not divide: each draws one more
+        xs = run_is_step_sharded(params, target, 3, N_SLICE + 1, mesh)[0]
+        out_odd, stats_odd = pmc_run_sharded(target, params, N_SLICE + 1, 1, mesh, key=2)
+        require(xs.shape == (10, N_SLICE // world + 1), "parallel: shard of %s" % (xs.shape,))
+        require(bool(torch.isfinite(out_odd.means).all() and torch.isfinite(stats_odd.ess).all()),
+                "parallel: the non-divisible run is not finite")
+        del xs
+    masses = mode_masses(out, t_means)
+    s = {f: getattr(stats, f).double().cpu().numpy() for f in stats._fields}
+    require(all(np.isfinite(v).all() for v in s.values()), "parallel: PMC stats not finite")
+    require(np.all(np.abs(s["evidence"][1:] - 1.0) < 0.01),
+            "parallel: PMC evidence %s" % s["evidence"])
+    require(abs(masses[0] - 0.3) < 0.05 and abs(masses[1] - 0.7) < 0.05,
+            "parallel: mode masses %s" % masses)
+    res.update(pmc_digest=digest(out.means, out.cov, out.weights, out.dof, *stats,
+                                 out_c.means, out_c.cov, out_c.weights, *stats_c),
+               masses=masses, ess=float(s["ess"][-1]))
+
+    # ParallelSampler with the adapted flagship proposal: N a rank a run
+    n_rank = (1 << 22) // world
+    ps = ParallelSampler(target, host_t_mixture(out), mesh=mesh, rng=5, save_target_values=True)
+    for i in range(PARALLEL_RUNS):
+        with profiling.timed("sampler_run", times):
+            ps.run(n_rank, to_host=i % 2 == 0)   # runs 2 and 4 stay on the device
+    sum_w, sum_w2, n_ev = ps.evidence_stats()
+    with profiling.timed("gather", times):
+        flushed = ps.gather()
+    w_all = ps.weights[:][:, 0]
+    evidence = sum_w / n_ev
+    # runs 1-3 went to the host with run 3's gather; run 4 was pending
+    require(flushed == 1 and n_ev == PARALLEL_RUNS * n_rank * world
+            and ps.samples[:].shape == (n_ev, 10) and len(w_all) == n_ev,
+            "parallel: ParallelSampler holds %s samples, %d in evidence_stats"
+            % (ps.samples[:].shape, n_ev))
+    require(abs(evidence - 1.0) < 0.01, "parallel: ParallelSampler evidence %.6f" % evidence)
+    require(np.isclose(sum_w, w_all.sum(), rtol=1e-4) and np.isfinite(ps.target_values[:]).all(),
+            "parallel: gathered weights disagree with evidence_stats")
+    res.update(evidence=evidence, gather_digest=digest(
+        torch.from_numpy(ps.samples[:]), torch.from_numpy(ps.weights[:]),
+        torch.from_numpy(ps.target_values[:])))
+    del ps, w_all
+    torch.cuda.empty_cache()
+
+    # GaussianInference(mesh=) at benchmarks/vb_step.py's configuration
+    data, w = vb_problem(device)
+    vb = GaussianInference(data, components=VB_K, weights=w, nu=VB_D + 1.0, mesh=mesh)
+    vb_ms = timed_vb_run(vb, profiling)
+    vb_iters = len(vb_ms)
+    times.append(("vb_iteration", float(np.median(vb_ms[1:])) / 1e3))
+    vb_state = {"bound": vb.likelihood_bound(), "N_comp": vb.N_comp.cpu().numpy(),
+                "K": vb.K}
+    res.update(vb_digest=digest(vb.m, vb.W, vb.alpha, vb.N_comp), vb_K=vb.K,
+               vb_iterations=vb_iters)
+    del vb
+    torch.cuda.empty_cache()
+
+    # checkpoints: both ranks save to the same paths; rank 0's files only
+    gate = os.path.join(shared, "gate.npz")
+    checkpoint.atomic_savez(gate, marker=np.array([float(rank)]))
+    checkpoint.save_mixture(os.path.join(shared, "adapted.npz"), out)
+    mesh.barrier()
+    with np.load(gate) as f:
+        writer = int(f["marker"][0])
+    require(writer == 0 and checkpoint.is_primary_process() == (rank == 0),
+            "parallel: rank %d wrote a checkpoint" % writer)
+
+    # integrate(mesh=) at benchmarks/accuracy_highdim.py --dim 40 --is-samples 4194304
+    cfg = dict(PIPELINE)
+    dim = cfg.pop("dim")
+    tgt = highdim_target(dim)
+    t0 = time.perf_counter()
+    r = integrate(tgt, dim, highdim_starts(tgt), key=2024, mesh=mesh,
+                  checkpoint_dir=os.path.join(shared, "run") if world > 1 else None, **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = abs(r.evidence - 1.0) * 100.0
+    require(err < 1.0, "parallel: integrate evidence error %.4f%% >= 1%%" % err)
+    require(r.ess > 0.15, "parallel: integrate ESS %.4f <= 0.15" % r.ess)
+    res.update(integrate={"evidence": r.evidence, "error_pct": err, "ess": r.ess, "wall_s": wall,
+                          "K": [r.details[n] for n in ("patches_K", "vb1_K", "vb2_K", "final_K")],
+                          "stages": {n: v for n, v in r.details.items() if n.endswith("_s")}},
+               integrate_digest=digest(torch.tensor([r.evidence, r.ess]),
+                                       torch.from_numpy(np.asarray(r.weights))))
+    torch.cuda.synchronize()
+    counts = k.launch_counts()
+    res["counts"] = {n: c for n, c in counts.items() if c}
+    res["devices"] = sorted(seen)
+    for name in PARALLEL_ROWS:
+        require(counts[name] > 0, "parallel: rank %d launched no %s" % (rank, name))
+    require(seen == {"cuda:0"}, "parallel: rank %d handed kernels tensors on %s" % (rank, seen))
+    # one all-reduce of the step's largest statistic (g: K D^2 float64), alone
+    g = torch.zeros(VB_K * VB_D * VB_D, dtype=torch.float64, device=device)
+    mesh.reduce(g)
+    with profiling.timed("all_reduce", times):
+        for _ in range(50):
+            mesh.reduce(g)
+    times[-1] = ("all_reduce", times[-1][1] / 50)
+
+    if world == 1:
+        # the one-rank mesh in a group draws and adapts what no mesh does, bit for bit
+        with profiling.timed("pmc_step_no_mesh", times):
+            ref, ref_stats = pmc_run_sharded(target, params, N_SLICE, STEPS, None, key=0)
+        ref_c, ref_stats_c = pmc_run_sharded(target, params, N_SLICE, 2, None, key=1,
+                                             weight_clip=True)
+        same = digest(ref.means, ref.cov, ref.weights, ref.dof, *ref_stats, ref_c.means,
+                      ref_c.cov, ref_c.weights, *ref_stats_c) == res["pmc_digest"]
+        require(same, "parallel: pmc_run_sharded(mesh=) differs from mesh=None")
+        vb_ref = GaussianInference(data, components=VB_K, weights=w, nu=VB_D + 1.0)
+        times.append(("vb_iteration_no_mesh",
+                      float(np.median(timed_vb_run(vb_ref, profiling)[1:])) / 1e3))
+        require(digest(vb_ref.m, vb_ref.W, vb_ref.alpha, vb_ref.N_comp) == res["vb_digest"]
+                and vb_ref.likelihood_bound() == vb_state["bound"],
+                "parallel: GaussianInference(mesh=) differs from mesh=None")
+        res["bit_identical"] = True
+        del vb_ref
+        res["trace_kernels"] = trace_one_step(mesh, params, target)
+    else:
+        # the update with its sums over the ranks' halves of float64
+        # particles (the plain versions, on the CPU) against one update of
+        # all of them
+        rng = np.random.default_rng(0)
+        p64 = params.to("cpu", torch.float64)
+        x = torch.from_numpy(rng.normal(1.5, 3.0, size=(1 << 16, 10)))
+        wt = torch.from_numpy(np.abs(rng.normal(1.0, 0.2, size=1 << 16)))
+        half = slice(rank * (1 << 15), (rank + 1) * (1 << 15))
+        got = pmc_update(p64, x[half], wt[half], reduce=mesh.reduce).params
+        one = pmc_update(p64, x, wt).params
+        gap = max(float((getattr(got, f) - getattr(one, f)).abs().max())
+                  for f in ("means", "cov", "weights", "dof"))
+        require(gap <= 1e-12, "parallel: the all-reduced float64 update is %.3g off" % gap)
+        res["pmc_update_gap"] = gap
+        # one rank on all the data (float32 sums in another order; both
+        # ranks run it at once on the shared card)
+        vb_ref = GaussianInference(data, components=VB_K, weights=w, nu=VB_D + 1.0)
+        times.append(("vb_iteration_no_mesh",
+                      float(np.median(timed_vb_run(vb_ref, profiling)[1:])) / 1e3))
+        n_gap = float(np.max(np.abs(vb_state["N_comp"] - vb_ref.N_comp.cpu().numpy())
+                             / np.abs(vb_ref.N_comp.cpu().numpy())))
+        b_gap = abs(vb_state["bound"] - vb_ref.likelihood_bound()) / abs(vb_ref.likelihood_bound())
+        res.update(vb_N_comp_rel_gap=n_gap, vb_bound_rel_gap=b_gap)
+        require(vb_state["K"] == vb_ref.K and n_gap <= 1e-5 and b_gap <= 1e-6,
+                "parallel: VB on the mesh vs one rank: K %d/%d, N_comp %.3g, bound %.3g"
+                % (vb_state["K"], vb_ref.K, n_gap, b_gap))
+        del vb_ref
+    res["times"] = times
+    torch.distributed.destroy_process_group()
+    print("PARALLEL_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def spawn_ranks(world, backend):
+    """Run ``world`` ranks of :func:`parallel_worker` on card 0, each under
+    its own time limit; kill every rank when one runs out, and fail unless
+    every rank exits 0.  Returns the ranks' results; a failing rank's output
+    ends the failure's message."""
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory(prefix="pypmc_parallel_") as shared:
+        procs = [subprocess.Popen([sys.executable, script, "--parallel-worker", str(r),
+                                  str(world), str(port), backend, shared],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        deadline = time.monotonic() + PARALLEL_TIMEOUT[world]
+        outs, timed_out = [], False
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                for q in procs:
+                    q.kill()
+                out, _ = p.communicate()
+            outs.append(out)
+        for q in procs:
+            q.wait()
+        run_dir = os.path.join(shared, "run")
+        files = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else None
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith("PARALLEL_RESULT ")]
+        require(not timed_out, "parallel: %d ranks (%s) did not end within %d s; rank %d:\n%s"
+                % (world, backend, PARALLEL_TIMEOUT[world], r, out[-2000:]))
+        require(p.returncode == 0 and lines, "parallel: rank %d of %d (%s) exited %s:\n%s"
+                % (r, world, backend, p.returncode, out[-3000:]))
+        results.append(json.loads(lines[0][len("PARALLEL_RESULT "):]))
+    if world > 1:
+        results[0]["checkpoint_files"] = files
+    return results
+
+
+def phase_parallel(card):
+    """(a) one process on the card in a one-rank NCCL group, (b) two ranks
+    sharing card 0 over gloo; returns the launch counts summed over the
+    ranks of both."""
+    import torch
+
+    torch.cuda.empty_cache()
+    totals = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        results = spawn_ranks(world, backend)
+        print("  (%s) %d rank%s over %s on cuda:0, %.1f s with the processes' start"
+              % ("a" if world == 1 else "b", world, "s" if world > 1 else "", backend,
+                 time.perf_counter() - t0))
+        for res in results:
+            t = {}
+            for label, sec in res["times"]:
+                t.setdefault(label, []).append(sec)
+            print("  rank %d (%s): PMC %.3f ms a step, ParallelSampler.run %s ms, gather "
+                  "%.3f s, VB %.3f ms an iteration (median after the first of %d; K=%d) [%s]"
+                  % (res["rank"], res["backend"], t["pmc_step"][0] * 1e3 / STEPS,
+                     [round(x * 1e3, 3) for x in t["sampler_run"]], t["gather"][0],
+                     t["vb_iteration"][0] * 1e3, res["vb_iterations"], res["vb_K"], card))
+            extra = ["%s %.3f ms" % (label, t[label][0] * 1e3 / (STEPS if "pmc" in label else 1))
+                     for label in ("pmc_step_no_mesh", "vb_iteration_no_mesh", "all_reduce")
+                     if label in t]
+            print("    without the mesh (the same rank, after the run): %s" % "; ".join(extra))
+            print("    PMC ESS %.4f, mode masses %s; sampler evidence %.6f; integrate D=40 %s"
+                  % (res["ess"], np.round(res["masses"], 4).tolist(), res["evidence"],
+                     json.dumps(res["integrate"])))
+            print("    launch counts %s; kernels' tensors on %s"
+                  % (json.dumps(res["counts"]), res["devices"]))
+            for key in ("pmc_update_gap", "vb_N_comp_rel_gap", "vb_bound_rel_gap",
+                        "trace_kernels", "checkpoint_files"):
+                if key in res:
+                    print("    %s: %s" % (key, res[key]))
+            for n, c in res["counts"].items():
+                totals[n] = totals.get(n, 0) + c
+        if world > 1:
+            for key in ("pmc_digest", "gather_digest", "vb_digest", "integrate_digest"):
+                require(len({res[key] for res in results}) == 1,
+                        "parallel: the ranks' %s differ" % key)
+            print("  both ranks: the same adapted mixture, gathered runs, VB posterior and "
+                  "integrate weights (sha256 %s)" % results[0]["pmc_digest"][:16])
+            require(results[0].get("checkpoint_files") == [
+                "mcmc.npz", "refined_mixture.npz", "vb1.npz", "vb1_mixture.npz"],
+                "parallel: integrate's checkpoint files %s" % results[0].get("checkpoint_files"))
+        else:
+            require(results[0].get("bit_identical"), "parallel: (a) not bit-identical")
+            print("  (a) pmc_run_sharded and GaussianInference with mesh=particle_mesh() equal "
+                  "mesh=None bit for bit")
+    return totals
+
+
+# --------------------------------------------------------------------- #
+# phase 11: times                                                       #
 # --------------------------------------------------------------------- #
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -2395,6 +2835,60 @@ def cuda_ms(fn, reps=10, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def blocked_splits():
+    """``[[kernel, N, {launch: device ms}], ...]``: :func:`launch_split` of
+    the three K-blocked kernels at phase times' shapes (the K=400, D=2
+    Student-t statistics and VB E-step at N=2^22, the K=200, D=10 step at
+    2^22 and 10^7)."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    device = torch.device("cuda", 0)
+    bparams, bx, bw = blocked_stats_problem(device, True, N_PLAIN_MAX)
+    bops = core._kernel_operands(bparams)
+    vdata, vw = vb_problem(device, N_PLAIN_MAX, 400, 2)
+    vx = vdata.T.contiguous()
+    A4, m4, c4 = vb_operands(make_params(random_mixture(np.random.default_rng(4), 400, 2, False),
+                                         device))
+    sparams, starget, _ = flagship_problem(device, K=200)
+    sops, stops = core._kernel_operands(sparams), core._kernel_operands(starget)
+    out = [["fused_pmc_stats_blocked", N_PLAIN_MAX, launch_split(
+                "fused_pmc_stats_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
+                lambda i: k.fused_pmc_stats_blocked(bx, bw, bops, True),
+                ("logq_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))],
+           ["fused_vb_estep_blocked", N_PLAIN_MAX, launch_split(
+                "fused_vb_estep_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
+                lambda i: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
+                ("vb_lse_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))]]
+    for n in (N_PLAIN_MAX, N_SLICE):
+        out.append(["fused_is_pmc_step_blocked", n, launch_split(
+            "fused_is_pmc_step_blocked K=200 D=10 N=%d" % n,
+            lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True),
+            ("step_draw_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))])
+    return out
+
+
+def blocked_splits_in_a_fresh_process(timeout=600):
+    """:func:`blocked_splits` in a new process (``chip_smoke.py
+    --blocked-splits``), whose profiler no earlier session has used: in the
+    script's own process, after the phases before it, the profiler has
+    dropped the first launch of ``fused_pmc_stats_blocked`` from every
+    retry.  Its lines are printed here."""
+    import os
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--blocked-splits"],
+                          capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith("  launches of "):
+            print(line)
+    found = [l for l in lines if l.startswith("BLOCKED_SPLITS ")]
+    require(proc.returncode == 0 and found, "the K-blocked launch splits failed (exit %s):\n%s"
+            % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+    return json.loads(found[0][len("BLOCKED_SPLITS "):])
 
 
 def launch_split(label, fn, expect, reps=3, tries=4):
@@ -2564,14 +3058,6 @@ def phase_times(device, report):
                                          device))
     pair("fused_vb_estep_blocked", lambda i, n: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
          lambda i, n: k.plain_vb_estep_blocked(vx, vw, A4, m4, c4), (N_PLAIN_MAX,))
-    times[("fused_pmc_stats_blocked", N_PLAIN_MAX, "split")] = launch_split(
-        "fused_pmc_stats_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
-        lambda i: k.fused_pmc_stats_blocked(bx, bw, bops, True),
-        ("logq_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
-    times[("fused_vb_estep_blocked", N_PLAIN_MAX, "split")] = launch_split(
-        "fused_vb_estep_blocked K=400 D=2 N=%d" % N_PLAIN_MAX,
-        lambda i: k.fused_vb_estep_blocked(vx, vw, A4, m4, c4),
-        ("vb_lse_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
     del bx, bw, vdata, vx, vw
     torch.cuda.empty_cache()
     sparams, starget, _ = flagship_problem(device, K=200)
@@ -2580,12 +3066,10 @@ def phase_times(device, report):
          lambda i, n: k.fused_is_pmc_step_blocked((i, 2), sops, stops, n, True),
          lambda i, n: k.plain_is_pmc_step_blocked((i, 2), sops, stops, n, True),
          (N_PLAIN_MAX, N_SLICE))
-    for n in (N_PLAIN_MAX, N_SLICE):
-        times[("fused_is_pmc_step_blocked", n, "split")] = launch_split(
-            "fused_is_pmc_step_blocked K=200 D=10 N=%d" % n,
-            lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True),
-            ("step_draw_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))
+    del sops, stops
     torch.cuda.empty_cache()
+    for name, n, split in blocked_splits_in_a_fresh_process():
+        times[(name, n, "split")] = split
     for (name, n, route), ms in times.items():
         if route != "split":
             size = bound(name, n)[0] if isinstance(n, tuple) else "N=%d" % n
@@ -3200,9 +3684,12 @@ def main():
     phase("pipeline")
     pipe_counts, _ = phase_pipeline(device)
     torch.cuda.empty_cache()
+    phase("parallel")
+    parallel_counts = phase_parallel(card)
     # every path was driven with the counts set to 0 just before it
-    counts = {n: sum(c[n] for c in (counts, vb_counts, gate_counts, blocked_counts,
-                                    route_counts, mcmc_counts, pipe_counts)) for n in counts}
+    counts = {n: sum(c.get(n, 0) for c in (counts, vb_counts, gate_counts, blocked_counts,
+                                           route_counts, mcmc_counts, pipe_counts,
+                                           parallel_counts)) for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
@@ -3303,6 +3790,12 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--blocked-splits"]:
+            print("BLOCKED_SPLITS " + json.dumps(blocked_splits()), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--parallel-worker"]:
+            rank, world, port, backend, shared = sys.argv[2:7]
+            sys.exit(parallel_worker(int(rank), int(world), int(port), backend, shared))
         sys.exit(main())
     except SmokeFailure as e:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)

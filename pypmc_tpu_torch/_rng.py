@@ -58,7 +58,10 @@ def as_generator(rng) -> torch.Generator:
 
 def seed_words(rng) -> tuple:
     """Two 32-bit seed words for a kernel launch, drawn on the host from
-    :func:`as_generator` of ``rng`` (advancing it)."""
+    :func:`as_generator` of ``rng`` (advancing it); a tuple of two words
+    is returned as it is."""
+    if isinstance(rng, tuple):
+        return rng
     gen = as_generator(rng)
     if gen.device.type != "cpu":
         raise ValueError("seed words are drawn from a CPU generator")

@@ -8,7 +8,9 @@ mixture parameters.  Component death is a validity mask; the dof root-solve
 is a fixed-iteration bisection over all components at once.
 
 Every reduction over the particle axis passes through a ``reduce`` hook,
-the counterpart of the JAX package's ``psum``: the identity in one process.
+the counterpart of the JAX package's ``psum``: the identity in one process,
+the particle mesh's ``all_reduce`` over its ranks
+(:meth:`pypmc_tpu_torch.parallel.mesh.ParticleMesh.reduce`).
 The reference's host API -- :class:`PMC`, :func:`gaussian_pmc`,
 :func:`student_t_pmc` -- runs these updates on the device for the host
 density classes.
@@ -156,7 +158,8 @@ def pmc_update(
         update; 0 disables the dof update.
     :param mindof, maxdof: search interval for the dof root-solve.
     :param reduce: sum of a statistic over all particle shards (the JAX
-        package's ``psum``); None is the identity of one process.
+        package's ``psum``; a particle mesh's ``reduce``); None is the
+        identity of one process.
     :param transposed: whether ``samples`` is ``(D, N)``.
     :param fused: ``"dense"`` runs every statistic in one pass (kernel
         ``fused_pmc_stats`` on CUDA float32, its plain version on the CPU;

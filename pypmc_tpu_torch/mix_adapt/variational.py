@@ -138,6 +138,10 @@ def Dirichlet_log_C(alpha):
 # E-step / M-step / bound                                               #
 # --------------------------------------------------------------------- #
 
+def _identity(x):
+    return x
+
+
 def _bilinear_with_W(x, m, W):
     """``(N, K)`` bilinear forms ``(x_n - m_k)^T W_k (x_n - m_k)`` in
     ``x``'s dtype, as ``|C_k^T (x_n - m_k)|^2`` with ``W_k = C_k C_k^T``:
@@ -148,13 +152,14 @@ def _bilinear_with_W(x, m, W):
     return _core._projected_sq_norms_T(x.T, chol_W.transpose(1, 2), m).T
 
 
-def _weighted_S(data, wr, x_mean, inv_N_comp):
+def _weighted_S(data, wr, x_mean, inv_N_comp, reduce=_identity):
     """``(K, D, D)`` scaled scatter matrices
     ``S_k = inv_N_k * sum_n wr_nk (x_n - xbar_k)(x_n - xbar_k)^T``
-    (10.53); one component at a time, so no (N, K, D) intermediate."""
-    return torch.stack([
-        inv_k * torch.einsum("n,ni,nj->ij", wr_k, data - mean_k, data - mean_k)
-        for wr_k, mean_k, inv_k in zip(wr.T, x_mean, inv_N_comp)])
+    (10.53), the sums over particles through ``reduce``; one component at a
+    time, so no (N, K, D) intermediate."""
+    sums = torch.stack([torch.einsum("n,ni,nj->ij", wr_k, data - mean_k, data - mean_k)
+                        for wr_k, mean_k in zip(wr.T, x_mean)])
+    return reduce(sums) * inv_N_comp[:, None, None]
 
 
 class _EStepOut(NamedTuple):
@@ -185,9 +190,14 @@ def _normalize_log_rho(log_rho, dtype):
     return r, log_rho
 
 
-def _vb_e_step(data, weights, alpha, beta, nu, m, W, log_det_W):
+def _vb_e_step(data, weights, alpha, beta, nu, m, W, log_det_W, reduce=None):
     """Standard VB-GMM E-step (10.64-10.66, 10.46/10.49, 10.51-10.53) over
-    row-major ``data (N, D)``, in the hyperparameters' dtype."""
+    row-major ``data (N, D)``, in the hyperparameters' dtype.
+
+    With ``reduce`` (the sum over a particle mesh's ranks; ``data`` is this
+    rank's shard) the statistics and the bound's term (10.75) are summed
+    over the ranks, and the shard's (N, K) fields are left out (None), as
+    on the one-pass path."""
     N, D = data.shape
     dtype = alpha.dtype
 
@@ -202,12 +212,17 @@ def _vb_e_step(data, weights, alpha, beta, nu, m, W, log_det_W):
 
     data = data.to(dtype)
     wr = weights.to(dtype)[:, None] * r
-    N_comp = wr.sum(0)  # (10.51)
+    red = _identity if reduce is None else reduce
+    N_comp = red(wr.sum(0))  # (10.51)
     inv_N_comp = 1.0 / regularize(N_comp)
-    x_mean = (wr.T @ data) * inv_N_comp[:, None]  # (10.52)
-    S = _weighted_S(data, wr, x_mean, inv_N_comp)  # (10.53)
+    x_mean = red(wr.T @ data) * inv_N_comp[:, None]  # (10.52)
+    S = _weighted_S(data, wr, x_mean, inv_N_comp, red)  # (10.53)
 
-    return _EStepOut(e_lnlam, e_gauss, e_lnpi, log_rho, r, N_comp, inv_N_comp, x_mean, S)
+    if reduce is None:
+        return _EStepOut(e_lnlam, e_gauss, e_lnpi, log_rho, r, N_comp, inv_N_comp, x_mean, S)
+    log_q_Z = reduce(torch.einsum("n,nk,nk->", weights.to(dtype), r, log_rho))
+    return _EStepOut(e_lnlam, None, e_lnpi, None, None, N_comp, inv_N_comp, x_mean, S,
+                     log_q_Z)
 
 
 def _vb_whitening(D, alpha, beta, nu, m, W, log_det_W):
@@ -240,19 +255,23 @@ def _vb_unwhiten(A, m, stats, e_lnlam, e_lnpi):
                      log_q_Z)
 
 
-def _vb_e_step_fused(dataT, weights, alpha, beta, nu, m, W, log_det_W, blocked=False):
+def _vb_e_step_fused(dataT, weights, alpha, beta, nu, m, W, log_det_W, blocked=False,
+                     reduce=None):
     """VB-GMM E-step with every sufficient statistic from one pass over the
     TRANSPOSED data ``(D, N)`` (kernel ``fused_vb_estep``, or
     ``fused_vb_estep_blocked`` with ``blocked``): no (N, K) matrix is
     formed, and the bound's per-sample term (10.75) comes back as the
     scalar ``log_q_Z``.  The reduced :class:`_EStepOut` carries None for the
-    (N, K) fields; ``GaussianInference.r`` forms them on demand."""
+    (N, K) fields; ``GaussianInference.r`` forms them on demand.  With
+    ``reduce`` the statistics are summed over a particle mesh's ranks."""
     e_lnlam, e_lnpi, A, const = _vb_whitening(dataT.shape[0], alpha, beta, nu, m, W,
                                               log_det_W)
     dt = dataT.dtype
     A_k, m_k = A.to(dt), m.to(dt)
     kernel = _k.fused_vb_estep_blocked if blocked else _k.fused_vb_estep
     stats = kernel(dataT, weights.to(dt), A_k, m_k, const.to(dt))
+    if reduce is not None:
+        stats = tuple(reduce(v) for v in stats)
     # un-whiten with the operands the kernel saw
     return _vb_unwhiten(A_k.to(A.dtype), m_k.to(m.dtype), stats, e_lnlam, e_lnpi)
 
@@ -351,19 +370,21 @@ def _vb_bound(weights, e: _EStepOut, alpha, beta, nu, m, W, log_det_W,
 
 
 def _vb_update_bound(data, weights, N_comp, x_mean, S,
-                     alpha0, beta0, nu0, m0, inv_W0, log_det_W0, *, fused):
+                     alpha0, beta0, nu0, m0, inv_W0, log_det_W0, *, fused, reduce=None):
     """One full VB iteration -- M-step, E-step, likelihood bound,
     finiteness flag -- with one host synchronization: the bound and the
     flag come back as one ``(2,)`` tensor.
 
     ``data`` is ``(N, D)``, or ``(D, N)`` when ``fused`` (``"dense"`` or
-    ``"blocked"``: the one-pass E-step takes the transposed layout).
+    ``"blocked"``: the one-pass E-step takes the transposed layout).  With
+    ``reduce`` they are a particle mesh rank's shard (see :func:`_vb_e_step`).
     """
     hyper = _vb_m_step(N_comp, x_mean, S, alpha0, beta0, nu0, m0, inv_W0)
     if fused:
-        e = _vb_e_step_fused(data, weights, *hyper, blocked=fused == "blocked")
+        e = _vb_e_step_fused(data, weights, *hyper, blocked=fused == "blocked",
+                             reduce=reduce)
     else:
-        e = _vb_e_step(data, weights, *hyper)
+        e = _vb_e_step(data, weights, *hyper, reduce=reduce)
     bound = _vb_bound(weights, e, *hyper, alpha0, beta0, nu0, m0, inv_W0, log_det_W0)
     r_check = e.r if e.r is not None else e.N_comp
     finite = torch.isfinite(r_check).all() & torch.isfinite(e.S).all()
@@ -396,17 +417,28 @@ class GaussianInference(object):
     :param initial_guess: "first" | "random" | a Gaussian
         :class:`~pypmc_tpu_torch.density.mixture.MixtureDensity` whose
         parameters seed ``m``, ``W`` and ``alpha``.
-    :param mesh: a device mesh of the JAX package; not ported (raises
-        ``NotImplementedError``).
+    :param mesh: a particle mesh
+        (:func:`pypmc_tpu_torch.parallel.particle_mesh`): every rank passes
+        the same global ``data`` and ``weights``, keeps its contiguous
+        ``1/size`` slice of them (the slices padded to equal length with
+        zero-weight copies of a data point, which add nothing to any sum),
+        and the E-step's statistics and the bound's sums over the data are
+        summed over the ranks, so every rank holds the same posterior.
+        ``r`` and the other (N, K) fields are the global ones, formed on
+        demand from the whole data.
 
     All further keyword arguments are processed by
     :meth:`set_variational_parameters`.
     """
 
+    # VBMerge's E-step runs over its input components, never over a mesh
+    _mesh = None
+
     def __init__(self, data, components=0, weights=None, initial_guess="first",
                  mesh=None, device=None, **kwargs):
-        if mesh is not None:
-            raise NotImplementedError("mesh=: the multi-rank E-step is not ported yet")
+        from ..parallel.mesh import checked
+
+        mesh = checked(mesh)
         if not isinstance(data, torch.Tensor):
             data = _device.as_tensor(_np.asarray(data, dtype=float), device)
         if data.ndim == 1:
@@ -430,6 +462,17 @@ class GaussianInference(object):
             self.weights = weights * (self.N / sum_w)
         else:
             self.weights = torch.ones((self.N,), dtype=dtype, device=self.device)
+        self._mesh = mesh
+        if mesh is not None:
+            n_local = -(-self.N // mesh.size)
+            pad = n_local * mesh.size - self.N
+            data_T, w = self._data_T, self.weights
+            if pad:
+                data_T = torch.cat([data_T, data_T[:, :1].expand(self.dim, pad)], dim=1)
+                w = torch.cat([w, torch.zeros((pad,), dtype=dtype, device=self.device)])
+            lo = mesh.rank * n_local
+            self._shard_T = data_T[:, lo:lo + n_local].contiguous()
+            self._shard_w = w[lo:lo + n_local].contiguous()
 
         self._initialize_K(initial_guess, components, kwargs)
         self.set_variational_parameters(initial_guess=initial_guess, **kwargs)
@@ -645,12 +688,21 @@ class GaussianInference(object):
         path."""
         return _k.route("fused_vb_estep", self.K, self.dim, self.N)
 
+    def _shard(self):
+        """``(data_T (D, n), weights (n,), reduce)`` of the E-step: this
+        rank's shard and the mesh's sum over ranks, or the whole data and
+        None without a mesh."""
+        if self._mesh is None:
+            return self._data_T, self.weights, None
+        return self._shard_T, self._shard_w, self._mesh.reduce
+
     def _e_step_kernel(self):
         fused = self._fused_eligible()
+        data_T, w, reduce = self._shard()
         if fused:
-            return _vb_e_step_fused(self._data_T, self.weights, *self._posterior(),
-                                    blocked=fused == "blocked")
-        return _vb_e_step(self.data, self.weights, *self._posterior())
+            return _vb_e_step_fused(data_T, w, *self._posterior(),
+                                    blocked=fused == "blocked", reduce=reduce)
+        return _vb_e_step(data_T.T, w, *self._posterior(), reduce=reduce)
 
     def E_step(self):
         """Compute expectation values and summary statistics (reference
@@ -716,9 +768,10 @@ class GaussianInference(object):
         returns the bound as a float.  Semantics identical to
         ``update(); likelihood_bound()``."""
         fused = self._fused_eligible()
+        data_T, w, reduce = self._shard()
         hyper, e, bound_finite = _vb_update_bound(
-            self._data_T if fused else self.data, self.weights, self.N_comp,
-            self.x_mean_comp, self.S, *self._prior(), fused=fused)
+            data_T if fused else data_T.T, w, self.N_comp,
+            self.x_mean_comp, self.S, *self._prior(), fused=fused, reduce=reduce)
         bound, finite = bound_finite.tolist()   # the one host sync of the iteration
         if not finite:
             raise _np.linalg.LinAlgError(

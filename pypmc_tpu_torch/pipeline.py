@@ -1,7 +1,7 @@
 """One-call evidence estimation: the full adaptive-importance-sampling
 pipeline as a library function.
 
-Counterpart of :mod:`pypmc_tpu.pipeline`, for one process on one device:
+Counterpart of :mod:`pypmc_tpu.pipeline`:
 
     adaptive-MCMC chain pool -> Gelman-Rubin grouping (one long patch per
     group) -> variational Bayes -> inflated first IS run -> weighted-VB
@@ -12,7 +12,13 @@ On the card every stage runs the CUDA kernels where the JAX package runs
 its Pallas kernels: ``fused_mcmc_pool`` for a mixture target's chain pool,
 ``fused_vb_estep`` for the VB E-steps, ``fused_propose_logq`` and
 ``fused_logq`` for the IS runs, the PMC refinement and the combination.
-Both IS runs stay on the device: VB2 and the combination read them there.
+In one process both IS runs stay on the device: VB2 and the combination
+read them there.  With a particle mesh (``mesh=``) every rank runs the
+pipeline: the VB fits and the PMC refinement sum their statistics over the
+ranks, the IS runs draw a shard a rank and are all-gathered to every rank's
+host, and every rank ends with the same result.  Each stage opens a range
+in a :func:`pypmc_tpu_torch.profiling.trace`, named after its ``details``
+key (``mcmc``, ``vb1``, ``is1_vb2``, ``pmc``, ``is2_combine``).
 """
 
 import logging
@@ -31,6 +37,10 @@ from . import sampler as _sampler
 from . import tools as _tools
 from .density import core as _core
 from .mix_adapt.pmc import pmc_step_mixture_target, pmc_update
+from .parallel import ParallelSampler, pmc_run_sharded
+from .parallel.mesh import checked
+from .parallel.sampler import block_target
+from .profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -76,7 +86,14 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
     :param starts: ``(C, D)`` Markov-chain starting points covering the
         region of interest; the target must be finite at every start.
     :param key: int seed or ``torch.Generator`` (default: seed 0).
-    :param mesh: not ported: raises ``NotImplementedError``.
+    :param mesh: a particle mesh
+        (:func:`pypmc_tpu_torch.parallel.particle_mesh`): every rank calls
+        ``integrate`` with the same arguments; the IS runs draw
+        ``ceil(n / size)`` particles a rank (:class:`~pypmc_tpu_torch.parallel.ParallelSampler`,
+        gathered to every rank's host), VB1 and VB2 sum their statistics
+        over the ranks, and the PMC refinement is
+        :func:`~pypmc_tpu_torch.parallel.pmc_run_sharded` over the mesh.
+        Only rank 0 writes checkpoints.  None: one process.
     :param checkpoint_dir: optional directory for stage checkpoints (plain
         ``.npz``; the JAX package's files are read as they are).  Each
         completed stage (MCMC prerun, first VB fit, refined proposal) is
@@ -105,8 +122,8 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
         its own).
     :returns: :class:`IntegrateResult`.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh=: the sharded pipeline is not ported yet")
+    mesh = checked(mesh)
+    n_dev = 1 if mesh is None else mesh.size
     say = logger.info if not verbose else (lambda *a: print(a[0] % tuple(a[1:])))
     t_all = time.perf_counter()
     gen = _rng.as_generator(0 if key is None else key)
@@ -181,25 +198,30 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
         vbmix = _checkpoint.load_mixture(_ck("vb1_mixture.npz"))
         resumed = ["mcmc", "vb1"]
         say("resuming from VB1 fit (K=%d)", len(vbmix))
+    resume_mcmc = _have("mcmc.npz")
+    if mesh is not None:
+        # every rank decides what it resumes before rank 0 writes a stage
+        mesh.barrier()
 
     if final_mix is None and vbmix is None:
         # ---- 1. adaptive-MCMC chain pool
         t0 = time.perf_counter()
         sub = _sub_seed(gen)
-        if _have("mcmc.npz"):
-            _check_fp(_ck("mcmc.npz"))
-            with _np.load(_ck("mcmc.npz")) as data:
-                pool, rates = data["pool"], data["rates"]
-            resumed = ["mcmc"]
-            say("resuming from MCMC prerun (%d chains)", len(pool))
-        else:
-            pool, rates = _sampler.sample_adaptive_chains(
-                mcmc_target, starts.astype(_np.float64), _np.eye(dim) * 2.38 ** 2 / dim,
-                n_steps=mcmc_steps, n_adapt_cycles=mcmc_cycles, key=sub, device=device)
-            pool, rates = pool.cpu().numpy(), rates.cpu().numpy()
-            if checkpoint_dir is not None:
-                _checkpoint.atomic_savez(_ck("mcmc.npz"), pool=pool, rates=rates,
-                                         config_fp=config_fp)
+        with annotate("mcmc"):
+            if resume_mcmc:
+                _check_fp(_ck("mcmc.npz"))
+                with _np.load(_ck("mcmc.npz")) as data:
+                    pool, rates = data["pool"], data["rates"]
+                resumed = ["mcmc"]
+                say("resuming from MCMC prerun (%d chains)", len(pool))
+            else:
+                pool, rates = _sampler.sample_adaptive_chains(
+                    mcmc_target, starts.astype(_np.float64), _np.eye(dim) * 2.38 ** 2 / dim,
+                    n_steps=mcmc_steps, n_adapt_cycles=mcmc_cycles, key=sub, device=device)
+                pool, rates = pool.cpu().numpy(), rates.cpu().numpy()
+                if checkpoint_dir is not None:
+                    _checkpoint.atomic_savez(_ck("mcmc.npz"), pool=pool, rates=rates,
+                                             config_fp=config_fp)
         burn = mcmc_steps * mcmc_cycles // 2
         chains = [c[burn:] for c in pool]
         details["mcmc_s"] = time.perf_counter() - t0
@@ -214,15 +236,17 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
         # ---- 3. variational Bayes on the thinned pooled samples
         t0 = time.perf_counter()
         mc_samples = _np.vstack(chains)[::thin]
-        vb = _mix_adapt.GaussianInference(
-            mc_samples, initial_guess=long_patches, W0=_np.eye(dim) * 1e10, device=device)
-        # never let a component fall below D+1 members: its scatter would be
-        # singular and the precision overflows float32
-        vb.run(vb_iterations, rel_tol=rel_tol, abs_tol=abs_tol,
-               prune=max(0.5 * vb.N / vb.K, dim + 1.0))
-        vbmix = vb.make_mixture()
-        prior = vb.posterior2prior()
-        prior.pop("alpha0")
+        with annotate("vb1"):
+            vb = _mix_adapt.GaussianInference(
+                mc_samples, initial_guess=long_patches, W0=_np.eye(dim) * 1e10, mesh=mesh,
+                device=device)
+            # never let a component fall below D+1 members: its scatter would be
+            # singular and the precision overflows float32
+            vb.run(vb_iterations, rel_tol=rel_tol, abs_tol=abs_tol,
+                   prune=max(0.5 * vb.N / vb.K, dim + 1.0))
+            vbmix = vb.make_mixture()
+            prior = vb.posterior2prior()
+            prior.pop("alpha0")
         details["vb1_s"] = time.perf_counter() - t0
         details["vb1_K"] = len(vbmix)
         say("VB1: %d samples -> K=%d (%.1f s)", len(mc_samples), len(vbmix), details["vb1_s"])
@@ -231,23 +255,35 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
             _checkpoint.atomic_savez(_ck("vb1.npz"), config_fp=config_fp,
                                      **{"prior_" + k: v for k, v in prior.items()})
 
+    def importance_sampler(proposal):
+        if mesh is None:
+            return _sampler.ImportanceSampler(log_target, proposal, rng=_sub_seed(gen),
+                                              device=device)
+        return ParallelSampler(log_target, proposal, mesh=mesh, rng=_sub_seed(gen))
+
     run1_proposal = None
     if final_mix is None:
-        # ---- 4. inflated first IS run + weighted-VB refinement, on the device
+        # ---- 4. inflated first IS run + weighted-VB refinement: on the
+        # device in one process, gathered to every rank's host on a mesh
         mi, ci, wi = _density.recover_gaussian_mixture(vbmix)
         vbmix_wide = _density.create_gaussian_mixture(mi, inflate * ci, wi)
-        sampler = _sampler.ImportanceSampler(log_target, vbmix_wide, rng=_sub_seed(gen),
-                                             device=device)
+        sampler = importance_sampler(vbmix_wide)
         t0 = time.perf_counter()
-        sampler.run(n_is1, to_host=False)
-        sT1, w1 = sampler.device_runs[0]
-        # a float32 overflow w = exp(log p - log q) = inf would NaN-poison VB2
-        if not bool(torch.isfinite(torch.sum(w1))):
-            raise ValueError("importance weights contain inf/nan (float32 overflow "
-                             "in exp(log p - log q)?)")
-        vb2 = _mix_adapt.GaussianInference(sT1.T, initial_guess=vbmix, weights=w1, **prior)
-        vb2.run(vb_iterations, rel_tol=rel_tol, abs_tol=abs_tol)
-        vb2mix = vb2.make_mixture()
+        with annotate("is1_vb2"):
+            sampler.run(-(-n_is1 // n_dev), to_host=mesh is not None)
+            if mesh is None:
+                sT1, w1 = sampler.device_runs[0]
+                vb2_data, vb2_w = sT1.T, w1
+            else:
+                vb2_data, vb2_w = sampler.samples[:], sampler.weights[:][:, 0]
+            # a float32 overflow w = exp(log p - log q) = inf would NaN-poison VB2
+            if not bool(torch.isfinite(torch.sum(torch.as_tensor(vb2_w)))):
+                raise ValueError("importance weights contain inf/nan (float32 overflow "
+                                 "in exp(log p - log q)?)")
+            vb2 = _mix_adapt.GaussianInference(vb2_data, initial_guess=vbmix, weights=vb2_w,
+                                               mesh=mesh, device=device, **prior)
+            vb2.run(vb_iterations, rel_tol=rel_tol, abs_tol=abs_tol)
+            vb2mix = vb2.make_mixture()
         details["is1_vb2_s"] = time.perf_counter() - t0
         details["vb2_K"] = len(vb2mix)
 
@@ -256,27 +292,38 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
         m2, c2, w2 = _density.recover_gaussian_mixture(vb2mix)
         pmc_mix = _density.create_t_mixture(
             m2, c2 * (pmc_dof - 2.0) / pmc_dof, _np.full(len(w2), pmc_dof), w2)
-        if pmc_steps > 0 and target_params is not None:
-            final_mix, details["pmc_perplexity_curve"] = _refine_mixture_target(
-                pmc_mix.stacked_params(dtype=dtype, device=device), target_params, gen,
-                n_is1, pmc_steps, pmc_weight_clip)
-        elif pmc_steps > 0:
-            # generic callable target: PMC on stored IS samples through the
-            # reference-protocol driver
-            s2 = _sampler.ImportanceSampler(log_target, pmc_mix, rng=_sub_seed(gen),
-                                            device=device)
-            for _ in range(pmc_steps):
-                s2.run(n_is1)
-                w_run = s2.weights[-1][:, 0]
-                if pmc_weight_clip:
-                    w_run = _np.minimum(w_run, w_run.mean() * _np.sqrt(float(len(w_run))))
-                pmc = _mix_adapt.PMC(s2.samples[-1], s2.proposal, weights=w_run,
-                                     device=device)
-                pmc.run(1)
-                s2.proposal = pmc.density
-            final_mix = s2.proposal
-        else:
-            final_mix = pmc_mix
+        with annotate("pmc"):
+            if pmc_steps > 0 and mesh is not None:
+                final_mix, details["pmc_perplexity_curve"] = _refine_sharded(
+                    pmc_mix.stacked_params(dtype=dtype, device=device), mcmc_target, gen,
+                    n_is1, pmc_steps, pmc_weight_clip, mesh)
+                if final_mix is None:
+                    # every component died (extremely skewed weights at high D):
+                    # keep the un-refined heavy-tailed proposal
+                    logger.warning("PMC refinement killed every component; keeping the "
+                                   "pre-refinement proposal")
+                    final_mix = pmc_mix
+            elif pmc_steps > 0 and target_params is not None:
+                final_mix, details["pmc_perplexity_curve"] = _refine_mixture_target(
+                    pmc_mix.stacked_params(dtype=dtype, device=device), target_params, gen,
+                    n_is1, pmc_steps, pmc_weight_clip)
+            elif pmc_steps > 0:
+                # generic callable target: PMC on stored IS samples through the
+                # reference-protocol driver
+                s2 = _sampler.ImportanceSampler(log_target, pmc_mix, rng=_sub_seed(gen),
+                                                device=device)
+                for _ in range(pmc_steps):
+                    s2.run(n_is1)
+                    w_run = s2.weights[-1][:, 0]
+                    if pmc_weight_clip:
+                        w_run = _np.minimum(w_run, w_run.mean() * _np.sqrt(float(len(w_run))))
+                    pmc = _mix_adapt.PMC(s2.samples[-1], s2.proposal, weights=w_run,
+                                         device=device)
+                    pmc.run(1)
+                    s2.proposal = pmc.density
+                final_mix = s2.proposal
+            else:
+                final_mix = pmc_mix
         details["pmc_s"] = time.perf_counter() - t0
         details["final_K"] = len(final_mix)
         say("PMC refinement: K=%d live (%.1f s)", len(final_mix), details["pmc_s"])
@@ -287,18 +334,22 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
     else:
         # resumed from the refined proposal: only the final sampling stage
         # runs, and the estimate uses that run alone
-        sampler = _sampler.ImportanceSampler(log_target, final_mix, rng=_sub_seed(gen),
-                                             device=device)
+        sampler = importance_sampler(final_mix)
         details["final_K"] = len(final_mix)
 
     # ---- 6. final IS run, deterministic-mixture combination, estimate
     t0 = time.perf_counter()
-    sampler.proposal = final_mix
-    sampler.run(n_is2, to_host=False)
-    proposals = [final_mix] if run1_proposal is None else [run1_proposal, final_mix]
-    runs = sampler.device_runs
-    weights = _sampler.combine_weights([sT.T for sT, _ in runs], [w for _, w in runs],
-                                       proposals, device=device)[:][:, 0]
+    with annotate("is2_combine"):
+        sampler.proposal = final_mix
+        sampler.run(-(-n_is2 // n_dev), to_host=mesh is not None)
+        proposals = [final_mix] if run1_proposal is None else [run1_proposal, final_mix]
+        if mesh is None:
+            runs = [(sT.T, w) for sT, w in sampler.device_runs]
+        else:
+            runs = [(sampler.samples[i], sampler.weights[i][:, 0])
+                    for i in range(len(proposals))]
+        weights = _sampler.combine_weights([s for s, _ in runs], [w for _, w in runs],
+                                           proposals, device=device)[:][:, 0]
     details["is2_combine_s"] = time.perf_counter() - t0
     details["resumed_stages"] = resumed
     samples = None
@@ -321,6 +372,23 @@ def integrate(target, dim, starts, *, key=None, mesh=None, n_chains=None,
         weights=weights,
         details=details,
     )
+
+
+def _refine_sharded(pparams, target, gen, n, steps, weight_clip, mesh):
+    """The Student-t M-PMC refinement over a particle mesh:
+    :func:`~pypmc_tpu_torch.parallel.pmc_run_sharded` of ``steps`` steps of
+    ``n`` particles in all.  Returns the live components as a host mixture
+    (None if none lived) and the normalized perplexity of each step."""
+    pparams, stats = pmc_run_sharded(block_target(target), pparams, n, steps, mesh=mesh,
+                                     key=_sub_seed(gen), weight_clip=weight_clip)
+    host = {f: getattr(pparams, f).double().cpu().numpy()
+            for f in ("means", "cov", "dof", "weights")}
+    live = host["weights"] > 0
+    curve = [float(x) for x in stats.perplexity.double().cpu().numpy()]
+    if not live.any():
+        return None, curve
+    return (_density.create_t_mixture(host["means"][live], host["cov"][live],
+                                      host["dof"][live], host["weights"][live]), curve)
 
 
 def _refine_mixture_target(pparams, target_params, gen, n, steps, weight_clip):

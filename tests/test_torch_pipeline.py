@@ -99,7 +99,7 @@ def test_integrate_validates_and_raises():
         integrate(target, 3, np.zeros((4, 4)))
     with pytest.raises(ValueError, match="not finite"):
         integrate(target, 3, np.full((4, 3), np.nan))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="particle mesh"):
         integrate(target, 3, make_starts(3), mesh=object())
     r = integrate(target, 2 + 1, make_starts(3), key=3, return_samples=False,
                   mcmc_steps=200, mcmc_cycles=5, n_is1=1 << 12, n_is2=1 << 13, pmc_steps=0)

@@ -5,8 +5,8 @@ a class there) takes the JAX package's parameters in the JAX package's
 order, so that a positional call means the same in both.  The only
 differences allowed are the documented ones: trailing ``device`` and
 ``dtype`` (before a ``**kwargs``), and ``axis_name`` -> ``reduce`` in the
-PMC update functions.  What the port has not ported yet stands in explicit
-lists, which shrink as later work ports it."""
+PMC update functions.  What has no counterpart in PyTorch stands in
+explicit lists."""
 
 import importlib
 import inspect
@@ -20,7 +20,9 @@ import torch
 import pypmc_tpu
 import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
+from pypmc_tpu_torch.mix_adapt import GaussianInference
 from pypmc_tpu_torch.parallel import pmc_run_sharded, run_is_step_sharded
+from pypmc_tpu_torch.pipeline import integrate
 
 torch.set_num_threads(1)
 
@@ -39,15 +41,14 @@ def _modules(pkg):
 
 # modules of one package with no counterpart in the other
 PORT_ONLY_MODULES = {"_device", "ops._build", "ops.kernels"}
-JAX_ONLY_MODULES = {"_version", "parallel.mesh", "profiling", "tools._plot",
-                    "tools._probability_densities", "ops.pallas_kernels"}
-# names of a JAX module's __all__ not ported yet (or, for the JAX keys, with
-# no counterpart in PyTorch)
+JAX_ONLY_MODULES = {"_version", "ops.pallas_kernels"}
+# names of a JAX module's __all__ with no counterpart in PyTorch: the JAX
+# keys, the Pallas switch, and the JAX sharding objects (each rank holds its
+# shard of particles as an ordinary tensor)
 UNPORTED = {
     "_rng": {"is_jax_key", "as_jax_key"},
     "density.core": {"use_pallas"},
-    "parallel.sampler": {"ParallelSampler", "clear_step_cache"},
-    "tools": {"plot_mixture", "plot_responsibility"},
+    "parallel.mesh": {"particle_sharding", "replicated_sharding"},
 }
 # names of a port module's __all__ that the JAX module does not define
 PORT_ONLY_NAMES = {
@@ -157,11 +158,30 @@ def test_positional_key_is_the_seed():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("entry", ["pmc_run_sharded", "run_is_step_sharded"])
-def test_a_mesh_is_refused(entry):
+def _call_with_mesh(entry, mesh):
     target, params = _problem()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        if entry == "pmc_run_sharded":
-            pmc_run_sharded(target, params, 64, 1, mesh=object())
-        else:
-            run_is_step_sharded(params, target, 0, 64, mesh=object())
+    if entry == "pmc_run_sharded":
+        pmc_run_sharded(target, params, 64, 1, mesh=mesh)
+    elif entry == "run_is_step_sharded":
+        run_is_step_sharded(params, target, 0, 64, mesh=mesh)
+    elif entry == "GaussianInference":
+        GaussianInference(np.zeros((8, 2)), components=2, mesh=mesh)
+    else:
+        integrate(target, 3, np.zeros((4, 3)), mesh=mesh)
+
+
+@pytest.mark.parametrize("entry", ["pmc_run_sharded", "run_is_step_sharded",
+                                   "GaussianInference", "integrate"])
+def test_a_mesh_is_refused(entry):
+    """A mesh that is not the port's particle mesh (a JAX mesh, say) is
+    refused."""
+    with pytest.raises(TypeError, match="particle mesh"):
+        _call_with_mesh(entry, object())
+
+
+@pytest.mark.parametrize("entry", ["pmc_run_sharded", "run_is_step_sharded"])
+def test_a_multi_rank_group_needs_a_mesh(entry, monkeypatch):
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="mesh=pypmc_tpu_torch.parallel"):
+        _call_with_mesh(entry, None)

@@ -257,7 +257,7 @@ def test_argument_validation():
         tvb.GaussianInference(DATA, components=3, bogus_parameter=1.0)
     with pytest.raises(ValueError, match="weights"):
         tvb.GaussianInference(DATA, components=3, weights=np.ones(3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="particle mesh"):
         tvb.GaussianInference(DATA, components=3, mesh=object())
 
 
