@@ -77,10 +77,8 @@ Phases, each of which exits non-zero on failure:
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
    pruning (every ``fused_vb_estep`` launch on its register pass), one
-   iteration against its float64 plain version, the
-   ``examples/variational.py`` fit and a ``VBMerge`` of
-   ``examples/mixture_reduction.py``'s 400 components, with the launch
-   counts read around each;
+   iteration against its float64 plain version, with the launch counts read
+   around the run;
 6. gate: the size gate routes as the JAX package does.  A K=30, D=10
    Student-t ``pmc_update`` (K*D > 128) runs its unfused path through
    ``fused_rho`` and ``fused_maha`` and matches the float64 update, and a
@@ -98,8 +96,7 @@ Phases, each of which exits non-zero on failure:
    2^23 particles (Gaussian and Student-t) against the unfused update,
    ``benchmarks/vb_step.py --components 400 --dim 2`` (N=2^22), and
    ``examples/pmc_large_scale.py --components 200`` (D=10, 10^7 particles
-   a step, 10 steps); and ``Hierarchical`` on
-   ``examples/mixture_reduction.py``'s 400 components;
+   a step, 10 steps);
 7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
    through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16
    (each on its record kernel) and the tensor path below 1024 particles;
@@ -133,7 +130,28 @@ Phases, each of which exits non-zero on failure:
     1e-6), and the two ranks' results to equal sha256 digests.  It prints
     each rank's ms a PMC step, a ``ParallelSampler.run`` and a VB
     iteration and the gather's seconds (host clock, ``profiling.timed``);
-11. times: each kernel and its plain version, with CUDA events, beside
+11. examples: every file of ``examples_torch/`` at the published size of
+    its ``examples/`` counterpart, through its ``main()`` in a temporary
+    working directory, between a reset and a read of the launch counts
+    (``pmc_large_scale.py`` at 10^7 particles, K=10 and ``--components
+    200``; ``pmc_sharded.py``; ``pmc.py``; ``integrate_evidence.py`` at
+    D=20; ``uniting_markov_chains_and_variational_bayes.py``;
+    ``variational.py``; ``mixture_reduction.py``; ``r_group.py``;
+    ``markov_chain.py``), each held to the expectations its JAX
+    counterpart prints, each dispatch of its path at its shapes to the
+    size gate (the kernel launched where the gate elects it, the plain
+    route counted where it refuses), every tensor a kernel took on cuda:0,
+    and the first launch of each shape (its arguments kept, at most 2^20
+    particles) run again against the float64 plain version on the same
+    inputs (the draws on their own particles, and their record kernel
+    against the looped one bit for bit); ``variational.py`` and
+    ``mixture_reduction.py`` also against the same runs in float64 on the
+    CPU (the same survivors and steps, parameters and VBMerge's bound
+    within ``TOL["vb"]``); then ``launch_2proc.py --particles 100000 --steps
+    3``, two gloo ranks sharing the card, with equal digests.  Each
+    example's output goes to ``build/examples/``; the phase prints a
+    line an example (wall seconds, launches, key numbers);
+12. times: each kernel and its plain version, with CUDA events, beside
     the least time the card could take (``bound``), the entry-table pass
     of ``fused_vb_estep``, ``fused_is_pmc_step`` and ``fused_pmc_stats``
     beside their elected one, the three draws' looped kernels beside their
@@ -155,6 +173,7 @@ The line before the last is the kernels' JSON summary; the last line is
 beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -203,10 +222,20 @@ SOURCES = {
 # the kernel's own float32 rounding.  "maha": D-term FP32 dot products,
 # ~D eps of the distance; "rho": exp of a log-density difference good to
 # "log"'s 2e-3 at the far tail; "vb": a VB iteration's statistics, means,
-# scatter matrices and bound, float32 particle work reduced in float64
+# scatter matrices and bound, float32 particle work reduced in float64,
+# and the same for the converged fits and reductions of
+# examples_torch/variational.py and mixture_reduction.py against their
+# float64 runs on the CPU
 TOL = {"log": (2e-3, 1e-5), "w": (0.0, 1e-3), "stats": (1e-6, 1e-4),
        "update": (1e-4, 1e-3), "dof": (0.0, 1e-2), "maha": (1e-5, 1e-5),
        "rho": (2e-3, 0.0), "vb": (0.0, 1e-5), "pool": (1e-3, 0.0)}
+# Where an example hands a statistics kernel inputs that float32 cannot
+# resolve as the cases' can (examples_torch/variational.py's first VB
+# E-step: const = -2.95e5 for every component, so log rho keeps ~0.03 of
+# absolute rounding), the plain version run in float32 on the same inputs
+# is itself off by more than TOL: the kernel, whose sums run in another
+# order, may be off by F32_ERRORS times as much (phase examples' replays)
+F32_ERRORS = 4.0
 VB_N, VB_K, VB_D, VB_ITERS = 1 << 22, 10, 10, 50
 
 
@@ -291,8 +320,10 @@ def flagship_problem(device, K=10):
 # phase 3: kernels against their plain versions                         #
 # --------------------------------------------------------------------- #
 
-def compare(name, got, ref, kind, report):
-    """|got - ref| <= atol + rtol * max|ref|; records and prints the error."""
+def compare(name, got, ref, kind, report, ref32=None):
+    """|got - ref| <= atol + rtol * max|ref|; records and prints the error.
+    With ``ref32``, the plain version's float32 outputs on the same inputs,
+    the bound also admits F32_ERRORS times that version's own error."""
     import torch
 
     atol, rtol = TOL[kind]
@@ -301,6 +332,8 @@ def compare(name, got, ref, kind, report):
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     bound = atol + rtol * scale
+    if ref32 is not None:
+        bound += F32_ERRORS * float((ref32.double() - ref).abs().max())
     print("  %-34s max_abs_err %.3e  tol %.3e" % (name, err, bound))
     report.append({"output": name, "max_abs_err": err, "tol": bound})
     require(err <= bound, "%s: error %.3e above tolerance %.3e" % (name, err, bound))
@@ -356,11 +389,12 @@ def check_samples(name, xT, latent, arrs, report):
                    "tol": float(6 * se_m[worst])})
 
 
-def check_stats(prefix, got, ref, n, report):
+def check_stats(prefix, got, ref, n, report, ref32=None):
     """The statistics per particle (divided by N), so that the bounds do
-    not grow with N."""
+    not grow with N; ``ref32`` as in :func:`compare`."""
     for key in ("s0", "s0c", "sd", "g", "sw", "t1"):
-        compare("%s %s/N" % (prefix, key), got[key] / n, ref[key] / n, "stats", report)
+        compare("%s %s/N" % (prefix, key), got[key] / n, ref[key] / n, "stats", report,
+                None if ref32 is None else ref32[key] / n)
 
 
 def case_mixtures(case, device):
@@ -1591,105 +1625,12 @@ def instrumented_run(vb, name, kernel="fused_vb_estep", **run_kwargs):
     return converged, record, prune_e_steps, counts
 
 
-def variational_example(device):
-    """examples/variational.py: 500 draws of a 0.3/0.7 two-component
-    mixture in D=2 fitted with K=20; two components survive.  Returns the
-    launch counts of the run."""
-    import logging
-    import torch
-    from pypmc_tpu_torch.density import create_gaussian_mixture
-    from pypmc_tpu_torch.mix_adapt import GaussianInference
-
-    target = create_gaussian_mixture(
-        [np.array([5.0, 0.01]), np.array([-4.0, 1.0])],
-        [np.array([[0.01, 0.003], [0.003, 0.0025]]), np.array([[0.1, 0.0], [0.0, 0.02]])],
-        np.array([0.3, 0.7]))
-    data = torch.tensor(target.propose(500, rng=1), dtype=torch.float32, device=device)
-    vb = GaussianInference(data, 20)
-    # float32 statistics leave the converged bound moving at ~1e-7
-    # relative; run() logs each such drop (the check below bounds them)
-    log = logging.getLogger("pypmc_tpu_torch.mix_adapt.variational")
-    level = log.level
-    log.setLevel(logging.ERROR)
-    try:
-        _, _, prunes, counts = instrumented_run(vb, "examples/variational.py", iterations=100)
-    finally:
-        log.setLevel(level)
-    fit = vb.make_mixture()
-    weights = np.sort(fit.weights)
-    print("  examples/variational.py: %d components, weights %s (target [0.3, 0.7])"
-          % (len(fit), np.round(weights, 4)))
-    require(len(prunes) > 0, "variational example: no component was pruned")
-    require(len(fit) == 2 and np.all(np.abs(weights - [0.3, 0.7]) < 0.07),
-            "variational example: %d components, weights %s" % (len(fit), weights))
-    return counts
-
-
-def mixture_reduction_input():
-    """examples/mixture_reduction.py's 400-component input mixture (D=2,
-    Wishart(I, 5) covariances, seed 0) and its 10-component initial
-    guess."""
-    from scipy.stats import chi2
-    from pypmc_tpu_torch.density import create_gaussian_mixture
-
-    D, K, nu = 2, 400, 5
-    rng = np.random.default_rng(0)
-
-    def wishart_draw():
-        tmp = np.zeros((D, D))
-        for i in range(D):
-            for j in range(i + 1):
-                if i == j:
-                    tmp[i, j] = np.sqrt(chi2.rvs(nu - (i + 1) + 1, random_state=rng))
-                else:
-                    tmp[i, j] = rng.normal(0, 1)
-        return tmp @ tmp.T
-
-    covs = [wishart_draw() for _ in range(K)]
-    means = [rng.multivariate_normal(np.zeros(D), sigma) for sigma in covs]
-    return (create_gaussian_mixture(means, covs, np.ones(K)),
-            create_gaussian_mixture(means[:10], covs[:10], np.ones(10)))
-
-
-def vbmerge_example(device, report):
-    """VBMerge of the 400 components on the card in float32 against the
-    same run in float64 on the CPU: the first E-step, then the whole run
-    (iterations, surviving components, their weights, means and
-    covariances, and the final bound)."""
-    import torch
-    from pypmc_tpu_torch.mix_adapt import VBMerge
-
-    mix, guess = mixture_reduction_input()
-    vb = VBMerge(mix, N=1000, initial_guess=guess, device=device, dtype=torch.float32)
-    ref = VBMerge(mix, N=1000, initial_guess=guess, device="cpu", dtype=torch.float64)
-    for f in ("N_comp", "x_mean_comp", "S"):
-        compare("fused_maha VBMerge E-step " + f, getattr(vb, f).cpu(), getattr(ref, f),
-                "vb", report)
-    converged, ref_converged = vb.run(), ref.run()
-    out, ref_out = vb.make_mixture(), ref.make_mixture()
-    print("  VBMerge of 400 components: converged after %s iterations (float64 CPU: %s), "
-          "%d components remain (float64 CPU: %d)"
-          % (converged, ref_converged, len(out), len(ref_out)))
-    require(converged is not None and converged == ref_converged,
-            "VBMerge: %s iterations, the float64 run %s" % (converged, ref_converged))
-    require(len(out) == len(ref_out), "VBMerge: %d components, the float64 run %d"
-            % (len(out), len(ref_out)))
-    compare("VBMerge run weights", torch.tensor(out.weights), torch.tensor(ref_out.weights),
-            "vb", report)
-    for f in ("mu", "sigma"):
-        compare("VBMerge run " + f, torch.tensor(np.stack([getattr(c, f) for c in out.components])),
-                torch.tensor(np.stack([getattr(c, f) for c in ref_out.components])), "vb", report)
-    compare("VBMerge run bound", torch.tensor(vb.likelihood_bound(), dtype=torch.float64),
-            torch.tensor(ref.likelihood_bound(), dtype=torch.float64), "vb", report)
-
-
 def phase_vb(device, report):
-    """GaussianInference at benchmarks/vb_step.py's configuration, then the
-    two examples; returns the launch counts summed over the three runs, the
-    median iteration ms and the device busy percentage."""
+    """GaussianInference at benchmarks/vb_step.py's configuration; returns
+    the launch counts of the run, the median iteration ms and the device
+    busy percentage."""
     import torch
     from pypmc_tpu_torch.mix_adapt import GaussianInference
-    from pypmc_tpu_torch.ops import kernels as k
 
     data, w = vb_problem(device)
     vb = GaussianInference(data, components=VB_K, weights=w, nu=VB_D + 1.0)
@@ -1730,16 +1671,7 @@ def phase_vb(device, report):
         print("    %8.3f ms  %5.0f x  %s" % (t, c, key[:90]))
     del vb
     torch.cuda.empty_cache()
-
-    example = variational_example(device)
-    k.reset_launch_counts()
-    vbmerge_example(device, report)
-    torch.cuda.synchronize()
-    merge = k.launch_counts()
-    print("  VBMerge launches %s" % json.dumps({n: c for n, c in merge.items() if c}))
-    require(merge["fused_maha"] > 0, "VBMerge: fused_maha not launched")
-    return ({n: counts[n] + example[n] + merge[n] for n in counts},
-            float(np.median(ms[1:])), 100 * busy / host_ms)
+    return counts, float(np.median(ms[1:])), 100 * busy / host_ms
 
 
 # --------------------------------------------------------------------- #
@@ -2086,40 +2018,11 @@ def blocked_slice(device):
     return counts, dt / STEPS * 1e3
 
 
-def hierarchical_example(device, report):
-    """examples/mixture_reduction.py's hierarchical reduction of the 400
-    components from the 10-component guess on the card, beside the same run
-    in float64 on the CPU."""
-    import torch
-    from pypmc_tpu_torch.mix_adapt import Hierarchical
-
-    mix, guess = mixture_reduction_input()
-    h = Hierarchical(mix, guess, device=device)
-    t0 = time.perf_counter()
-    steps = h.run()
-    dt = time.perf_counter() - t0
-    ref = Hierarchical(mix, guess, device="cpu", dtype=torch.float64)
-    ref_steps = ref.run()
-    print("  Hierarchical of 400 components: %s steps, %d components remain, %.1f ms "
-          "(float64 CPU: %s steps, %d components)" % (steps, len(h.g), dt * 1e3, ref_steps,
-                                                      len(ref.g)))
-    require(steps is not None and len(h.g) >= 1, "Hierarchical: no convergence")
-    require(steps == ref_steps and len(h.g) == len(ref.g),
-            "Hierarchical: the card's run differs from the float64 run")
-    for name, got, want in (("weights", h.g.weights, ref.g.weights),
-                            ("means", [c.mu for c in h.g.components],
-                             [c.mu for c in ref.g.components]),
-                            ("covariances", [c.sigma for c in h.g.components],
-                             [c.sigma for c in ref.g.components])):
-        compare("Hierarchical " + name, torch.tensor(np.asarray(got)),
-                torch.tensor(np.asarray(want)), "update", report)
-
-
 def phase_blocked(device, report):
     """The K-blocked kernels against their plain versions and their dense
     twins, then the three large-mixture configurations with the launch
-    counts read around each, and Hierarchical; returns the summed counts of
-    the three configurations and the K=200 step ms."""
+    counts read around each; returns the summed counts of the three
+    configurations and the K=200 step ms."""
     import torch
 
     for case in BLOCKED_CASES:
@@ -2132,7 +2035,6 @@ def phase_blocked(device, report):
     step, step_ms = blocked_slice(device)
     profile_slice(device, step_ms, K=200)
     torch.cuda.empty_cache()
-    hierarchical_example(device, report)
     return {n: update[n] + vb[n] + step[n] for n in update}, step_ms
 
 
@@ -2817,7 +2719,483 @@ def phase_parallel(card):
 
 
 # --------------------------------------------------------------------- #
-# phase 11: times                                                       #
+# phase examples: examples_torch/ at the JAX examples' sizes            #
+# --------------------------------------------------------------------- #
+
+# the in-process runs: each example with the main() arguments beyond its
+# defaults, which are the JAX examples' published sizes
+EXAMPLE_RUNS = [("pmc_large_scale", []), ("pmc_large_scale", ["--components", "200"]),
+                ("pmc_sharded", []), ("pmc", []), ("integrate_evidence", []),
+                ("uniting_markov_chains_and_variational_bayes", []), ("variational", []),
+                ("mixture_reduction", []), ("r_group", []), ("markov_chain", [])]
+# launch_2proc.py's arguments (Makefile's run-example-2proc)
+EXAMPLE_2PROC = ["--particles", "100000", "--steps", "3"]
+EXAMPLE_2PROC_TIMEOUT = 300     # seconds a rank may take
+
+
+def example_module(name):
+    """``examples_torch/<name>.py`` beside this script, as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location("examples_torch_" + name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def temporary_working_directory():
+    """The body of a ``with`` block in a fresh temporary directory (the
+    examples write their plots to the working directory)."""
+    import os
+    import tempfile
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="pypmc_example_") as wd:
+        os.chdir(wd)
+        try:
+            yield wd
+        finally:
+            os.chdir(cwd)
+
+
+def record_launches(k, calls):
+    """Patch ``k`` (the module) so that the arguments of the first launch
+    of each shape are kept in ``calls``, ``{(kernel, shapes): arguments}``,
+    as clones: ``fused_logq`` at its launch, where a call mapped with
+    ``torch.func.vmap`` arrives with the batch folded into the particles,
+    every other kernel at its wrapper.  Returns a function that undoes it."""
+    import functools
+    import inspect
+
+    import torch
+
+    def shape(v):
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape)
+        if isinstance(v, k.MixtureOperands):
+            return (v.K, v.dim, bool(v.student_t))
+        return v
+
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone()
+        if isinstance(v, k.MixtureOperands):
+            return k.MixtureOperands(v.packed.detach().clone(), v.K, v.dim, v.student_t)
+        return v
+
+    def keep(name, arguments):
+        key = (name,) + tuple((n, shape(v)) for n, v in arguments.items() if n != "seed")
+        if key not in calls:
+            calls[key] = {n: clone(v) for n, v in arguments.items()}
+
+    launch = k._logq_launch
+
+    def logq_launch(xT, packed, K, student_t):
+        if not torch._C._functorch.is_functorch_wrapped_tensor(xT):
+            keep("fused_logq", {"xT": xT, "ops": k.MixtureOperands(packed, K, xT.shape[0],
+                                                                   student_t)})
+        return launch(xT, packed, K, student_t)
+
+    wrappers = k._WRAPPERS
+    recorded = []
+    for fn in wrappers:
+        if fn.__name__ == "fused_logq":
+            recorded.append(fn)
+            continue
+        signature = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapped(*args, _fn=fn, _signature=signature, **kwargs):
+            bound = _signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            keep(_fn.__name__, bound.arguments)
+            return _fn(*args, **kwargs)
+        # the launches count on the function that holds the module's name
+        setattr(k, fn.__name__, wrapped)
+        recorded.append(wrapped)
+    k._WRAPPERS, k._logq_launch = tuple(recorded), logq_launch
+
+    def undo():
+        for fn in wrappers:
+            setattr(k, fn.__name__, fn)
+        k._WRAPPERS, k._logq_launch = wrappers, launch
+    return undo
+
+
+# the particles of an example's launch that replay_launch runs again
+REPLAY_N = N_FLAGSHIP
+
+
+def replay_launch(k, name, a, label, report):
+    """Kernel ``name`` on an example's launch arguments ``a`` again, on at
+    most REPLAY_N particles, against its float64 plain version on the same
+    inputs (a draw: on its own particles, and the record kernel against the
+    looped kernel bit for bit where the record kernel is elected; the pool:
+    its final log-densities, and the last point its final state).  The
+    statistics also admit F32_ERRORS times the float32 plain version's own
+    error on the same inputs."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+
+    def wide(ops):
+        return None if ops is None else k.MixtureOperands(ops.packed.double(), ops.K, ops.dim,
+                                                          ops.student_t)
+
+    fn = getattr(k, name)
+    plain = getattr(k, "plain_" + name[len("fused_"):], None)
+    if "xT" in a:
+        xT = a["xT"][:, :REPLAY_N].contiguous()
+        x64, N = xT.double(), xT.shape[1]
+    if "w" in a:
+        w = a["w"][:REPLAY_N].contiguous()
+    if name == "fused_logq":
+        compare(label, fn(xT, a["ops"]), plain(x64, wide(a["ops"])), "log", report)
+    elif name == "fused_maha":
+        compare(label, fn(xT, a["a"], a["m"]), plain(x64, a["a"].double(), a["m"].double()),
+                "maha", report)
+    elif name == "fused_rho":
+        for out, got, ref in zip(("rho", "log_q"), fn(xT, a["ops"]), plain(x64, wide(a["ops"]))):
+            compare("%s %s" % (label, out), got, ref, "rho" if out == "rho" else "log", report)
+    elif name in ("fused_vb_estep", "fused_vb_estep_blocked"):
+        ops = (a["a"], a["m"], a["const"])
+        got = fn(xT, w, *ops)
+        ref = plain(x64, w.double(), *(t.double() for t in ops))
+        ref32 = plain(xT, w, *ops)
+        for out, g, r, r32 in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref, ref32):
+            compare("%s %s/N" % (label, out), g / N, r / N, "stats", report, r32 / N)
+    elif name in ("fused_pmc_stats", "fused_pmc_stats_blocked"):
+        check_stats(label, fn(xT, w, a["ops"], a["dof_stats"]),
+                    plain(x64, w.double(), wide(a["ops"]), a["dof_stats"]), N, report,
+                    plain(xT, w, a["ops"], a["dof_stats"]))
+    elif name == "fused_propose_logq":
+        ops, target, n = a["ops"], a["target"], min(a["n"], REPLAY_N)
+        out = fn(a["seed"], ops, n, target)
+        x64 = out[0].double()
+        compare(label + " log_q", out[2], k.plain_logq(x64, wide(ops)), "log", report)
+        if target is not None:
+            compare(label + " log_p", out[3], k.plain_logq(x64, wide(target)), "log", report)
+        if _build.propose_plan(ops.K, 0 if target is None else target.K, ops.dim)[0] == "rec":
+            looped = fn(a["seed"], ops, n, target, variant="looped")
+            differ = sum(int((p != q).sum()) for p, q in zip(out, looped))
+            print("  %-34s %d of %d outputs differ" % (label + " rec vs looped", differ,
+                                                       sum(t.numel() for t in out)))
+            require(differ == 0, "%s: the record and the looped kernel differ in %d outputs"
+                    % (label, differ))
+    elif name in ("fused_is_pmc_step", "fused_is_pmc_step_blocked"):
+        ops, target, n = a["ops"], a["target"], min(a["n"], REPLAY_N)
+        xT, _, w, got = fn(a["seed"], ops, target, n, a["dof_stats"])
+        x64 = xT.double()
+        # the chunked plain versions: K reaches 200
+        w_ref = torch.exp(k.plain_logq_blocked(x64, wide(target))
+                          - k.plain_logq_blocked(x64, wide(ops)))
+        compare(label + " w", w, w_ref, "w", report)
+        check_stats(label, got, k.plain_pmc_stats_blocked(x64, w_ref, wide(ops),
+                                                          a["dof_stats"], n_sw=3), n, report,
+                    k.plain_pmc_stats_blocked(xT, w_ref.float(), ops, a["dof_stats"], n_sw=3))
+    elif name == "fused_mcmc_pool":
+        points, _, _, xf, ef = fn(a["seed"], a["x0T"], a["e0"], a["cholr"], a["dof_prop"],
+                                  a["target"], a["n_steps"])
+        require(bool(torch.equal(points[-1], xf)), "%s: last point != final state" % label)
+        compare(label + " ef", ef, k.plain_logq(xf.double(), wide(a["target"])), "pool",
+                report)
+    else:
+        raise SmokeFailure("%s: no replay of %s" % (label, name))
+
+
+def describe_launch(key):
+    """``K=.. Kt=.. D=.. N=..`` of a launch :func:`record_launches` kept."""
+    shapes = dict(key[1:])
+    ops, target = shapes.get("ops"), shapes.get("target")
+    # a mixture's shape is (K, D, Student-t); fused_maha's and the VB
+    # E-step's operand a is (K, D, D)
+    K, D = (ops or shapes.get("a") or (None, target[1]))[:2]
+    parts = [] if K is None else ["K=%d" % K]
+    if target:
+        parts.append("Kt=%d" % target[0])
+    parts.append("D=%d" % D)
+    if "xT" in shapes:
+        parts.append("N=%d" % shapes["xT"][1])
+    elif "x0T" in shapes:
+        parts.append("C=%d steps=%d" % (shapes["x0T"][1], shapes["n_steps"]))
+    else:
+        parts.append("N=%d" % shapes["n"])
+    return " ".join(parts)
+
+
+def run_example(k, name, argv, device, log_dir):
+    """``main(argv + ["--device", device])`` of ``examples_torch/<name>.py``
+    in a temporary working directory, its output written to ``log_dir``,
+    between a reset and a read of the launch counts, with the devices of
+    every kernel's tensors recorded and the arguments of a launch of each
+    shape kept.  Returns ``(result, counts, seconds, devices, launches)``,
+    ``launches`` as :func:`record_launches` keeps them."""
+    import logging
+    import os
+
+    module = example_module(name)
+    tag = "_".join([name] + [a.lstrip("-") for a in argv])
+    names, wrappers = {fn.__name__: fn for fn in k._WRAPPERS}, k._WRAPPERS
+    # float32 VB bounds drop at rounding level once converged, and run()
+    # logs each drop: into the example's log, not stderr
+    vb_log = logging.getLogger("pypmc_tpu_torch.mix_adapt.variational")
+    launches = {}
+    with open(os.path.join(log_dir, tag + ".log"), "w") as log:
+        handler = logging.StreamHandler(log)
+        vb_log.addHandler(handler)
+        vb_log.propagate = False
+        seen = watch_kernel_devices(k)
+        undo = record_launches(k, launches)
+        try:
+            with temporary_working_directory(), contextlib.redirect_stdout(log):
+                k.reset_launch_counts()
+                t0 = time.perf_counter()
+                result = module.main(argv + ["--device", str(device)])
+                sync(device)
+                seconds = time.perf_counter() - t0
+                counts = k.launch_counts()
+        finally:
+            undo()
+            for fname, fn in names.items():
+                setattr(k, fname, fn)
+            k._WRAPPERS = wrappers
+            vb_log.removeHandler(handler)
+            vb_log.propagate = True
+    return result, counts, seconds, seen, launches
+
+
+def gate_elects(k, kernel, K, D, Kt, rule):
+    """Whether the size gate sends a (K, D) mixture (Kt target components)
+    to ``kernel``: a K-blocked kernel where its dense twin's dispatch
+    elects it for ``rule["n"]`` particles, any other where it fits."""
+    if kernel.endswith("_blocked"):
+        return k.elects_blocked(kernel[:-len("_blocked")], K, D, rule["n"], Kt)
+    return k.fits(kernel, K, D, Kt, **rule)
+
+
+def example_expectations(name, argv, out):
+    """The expectations the JAX example prints, as checks on ``out``, the
+    example's result; returns the key numbers to print and the dispatches
+    of the example's path at its shapes, ``(kernel, K, D, Kt, rule)``: each
+    must launch its kernel where the size gate elects it, and count its
+    plain route where the gate refuses it."""
+    from pypmc_tpu_torch.ops import kernels as k
+
+    if name in ("pmc_large_scale", "pmc_sharded"):
+        require(np.all(np.abs(np.array(out["masses"]) - [0.3, 0.7]) < 0.05),
+                "%s %s: mode masses %s" % (name, argv, out["masses"]))
+        numbers = "mode masses %s, ESS per step %s" % (
+            np.round(out["masses"], 4).tolist(), np.round(out["ess"], 4).tolist())
+        if name == "pmc_sharded":
+            return numbers, [("fused_is_pmc_step", 3, 2, 2, {}), ("fused_logq", 3, 2, 0, {})]
+        K = out["components"]
+        numbers += ", step %.3f ms (median of %s ms, host clock, synchronized), digest %s" % (
+            out["step_ms"], np.round(out["per_step_ms"], 3).tolist(), out["digest"])
+        if k.fits("fused_is_pmc_step", K, 10, 2):
+            step = ("fused_is_pmc_step", K, 10, 2, {})
+        else:
+            step = ("fused_is_pmc_step_blocked", K, 10, 2, {"n": out["n_total"]})
+        return numbers, [step, ("fused_logq", K, 10, 0, {})]
+    if name == "pmc":
+        w = out["weights"]
+        require(abs(w[0] - 0.3) < 0.05 and abs(w[1] - 0.7) < 0.05 and w[2] == 0.0,
+                "pmc.py: final weights %s" % w)
+        return ("final weights %s" % np.round(w, 4).tolist(),
+                [("fused_propose_logq", 3, 2, 0, {}), ("fused_logq", 2, 2, 0, {}),
+                 ("fused_pmc_stats", 3, 2, 0, {})])
+    if name == "integrate_evidence":
+        require(abs(out["evidence"] - 1.0) < 0.01, "integrate_evidence.py: %s" % out)
+        return ("evidence %.6f +- %.6f, ESS %.4f, final K %d, total %.2f s"
+                % (out["evidence"], out["uncertainty"], out["ess"], out["K"], out["total_s"]),
+                [("fused_mcmc_pool", 2, out["dim"], 0, {"n_steps": 300, "student_t": False}),
+                 ("fused_logq", 2, out["dim"], 0, {}),
+                 ("fused_propose_logq", out["K"], out["dim"], 0, {}),
+                 ("fused_vb_estep", out["K"], out["dim"], 0, {}),
+                 ("fused_pmc_stats", out["K"], out["dim"], 0, {})])
+    if name == "uniting_markov_chains_and_variational_bayes":
+        require(abs(out["integral"] - 1.0) < 0.01, "uniting: %s" % out)
+        return ("integral %.6f +- %.6f, perplexity %.4f, ESS %.4f, K %d/%d/%d (patches, VB, "
+                "VB2), acceptance %.3f" % (out["integral"], out["uncertainty"],
+                                           out["perplexity"], out["ess"], out["long_patches"],
+                                           out["vb_K"], out["vb2_K"], out["accept_rate"]),
+                [("fused_logq", 3, 2, 0, {}),
+                 ("fused_vb_estep", out["long_patches"], 2, 0, {}),
+                 ("fused_vb_estep", out["vb_K"], 2, 0, {}),
+                 ("fused_propose_logq", out["vb_K"], 2, 0, {}),
+                 ("fused_propose_logq", out["vb2_K"], 2, 0, {})])
+    if name == "variational":
+        # float32 statistics leave the converged bound moving at ~1e-7
+        # relative, above run()'s rel_tol: the fit may end unconverged, as
+        # the JAX example allows ("The adaptation did not converge.")
+        require(len(out["mixture"]) == 2,
+                "variational.py: %d components (converged: %s)"
+                % (len(out["mixture"]), out["converged"]))
+        return ("converged after %s iterations, weights %s"
+                % (out["converged"], np.round(np.sort(out["mixture"].weights), 4).tolist()),
+                [("fused_vb_estep", 20, 2, 0, {})])
+    if name == "mixture_reduction":
+        require(len(out["hierarchical"]) == 10 and out["hierarchical_steps"] is not None,
+                "mixture_reduction.py: Hierarchical kept %d components"
+                % len(out["hierarchical"]))
+        return ("Hierarchical %s steps, %d components; VBMerge converged after %s, %d remain"
+                % (out["hierarchical_steps"], len(out["hierarchical"]), out["vb_converged"],
+                   len(out["vb_mixture"])), [("fused_maha", 10, 2, 0, {})])
+    if name == "r_group":
+        require(out["groups"] == [[0, 1], [2, 3, 4]], "r_group.py: groups %s" % out["groups"])
+        return ("groups %s, %d long patches, %d chain steps, %.1f us a step (host clock)"
+                % (out["groups"], len(out["mixture"]), out["chain_steps"], out["us_per_step"]),
+                [("fused_logq", 2, 2, 0, {})])
+    if name == "markov_chain":
+        require(np.all(np.abs(np.array(out["mean"]) - [4.3, 1.1]) < 0.05),
+                "markov_chain.py: sample mean %s" % out["mean"])
+        return ("sample mean %s, acceptance %.4f, %d chain steps, %.1f us a step (host clock)"
+                % (np.round(out["mean"], 4).tolist(), out["accept_rate"], out["chain_steps"],
+                   out["us_per_step"]), [])
+    raise ValueError(name)
+
+
+def compare_mixtures(label, got, ref, report):
+    """Two host mixtures: the same number of components, and their weights,
+    means and covariances within TOL["vb"]."""
+    import torch
+
+    require(len(got) == len(ref), "%s: %d components, the float64 CPU run %d"
+            % (label, len(got), len(ref)))
+    compare(label + " weights", torch.tensor(np.asarray(got.weights)),
+            torch.tensor(np.asarray(ref.weights)), "vb", report)
+    for f in ("mu", "sigma"):
+        compare("%s %s" % (label, f), torch.tensor(np.stack([getattr(c, f) for c in got.components])),
+                torch.tensor(np.stack([getattr(c, f) for c in ref.components])), "vb", report)
+
+
+def examples_on_the_cpu(results, report):
+    """Examples 7-8 are deterministic given their inputs: the variational
+    fit of the card's data and the reductions of numpy's 400 components run
+    again in float64 on the CPU (the plain versions), and the card's
+    survivors, steps and parameters must agree with them."""
+    import io
+
+    import torch
+
+    import pypmc_tpu_torch
+
+    card = results["variational"]
+    with pypmc_tpu_torch.using_device("cpu"), temporary_working_directory(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        vb, converged = example_module("variational").fit(card["data"], 20, 100)
+        reduction = example_module("mixture_reduction").main(["--device", "cpu"])
+    compare_mixtures("examples/variational.py card vs CPU", card["mixture"], vb.make_mixture(),
+                     report)
+    card = results["mixture_reduction"]
+    for steps in ("hierarchical_steps", "vb_converged"):
+        require(card[steps] is not None and card[steps] == reduction[steps],
+                "mixture_reduction.py: %s %s, %s on the CPU"
+                % (steps, card[steps], reduction[steps]))
+    compare_mixtures("examples/mixture_reduction.py Hierarchical card vs CPU",
+                     card["hierarchical"], reduction["hierarchical"], report)
+    compare_mixtures("examples/mixture_reduction.py VBMerge card vs CPU", card["vb_mixture"],
+                     reduction["vb_mixture"], report)
+    compare("examples/mixture_reduction.py VBMerge card vs CPU bound",
+            torch.tensor(card["vb_bound"], dtype=torch.float64),
+            torch.tensor(reduction["vb_bound"], dtype=torch.float64), "vb", report)
+    print("  float64 CPU runs: variational.py %d components (converged after %s; the card's "
+          "after %s), Hierarchical %s steps, VBMerge %d components (converged after %s); card "
+          "and CPU agree (|card - CPU| <= %g + %g max|CPU|)"
+          % (len(vb.make_mixture()), converged, results["variational"]["converged"],
+             reduction["hierarchical_steps"], len(reduction["vb_mixture"]),
+             reduction["vb_converged"], *TOL["vb"]))
+
+
+def two_process_example(device, log_dir):
+    """examples_torch/launch_2proc.py: two gloo ranks of pmc_large_scale.py
+    sharing the card, each under a time limit; both must exit 0 with the
+    same digest, on ``device``, with the step kernels launched.  Returns
+    the launcher's result, the two ranks' launch counts summed and the
+    seconds."""
+    import os
+
+    launcher = example_module("launch_2proc")
+    launcher.TIMEOUT = EXAMPLE_2PROC_TIMEOUT
+    t0 = time.perf_counter()
+    with open(os.path.join(log_dir, "launch_2proc.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        out = launcher.main(EXAMPLE_2PROC + ["--device", str(device)])
+    seconds = time.perf_counter() - t0
+    require(out["ok"], "launch_2proc.py failed (return codes %s):\n%s"
+            % (out["returncodes"], "\n".join(o[-2000:] for o in out["outputs"])))
+    counts = {}
+    for rank, text in enumerate(out["outputs"]):
+        lines = dict(l.split(": ", 1) for l in text.splitlines()
+                     if l.startswith(("mesh: ", "kernel launches: ")))
+        require(lines.get("mesh", "").startswith("2 rank(s) on %s;" % device),
+                "launch_2proc.py: rank %d ran on %s" % (rank, lines.get("mesh")))
+        launched = json.loads(lines["kernel launches"])
+        require(launched.get("fused_is_pmc_step", 0) > 0 and launched.get("fused_logq", 0) > 0,
+                "launch_2proc.py: rank %d launched %s" % (rank, launched))
+        for n, c in launched.items():
+            counts[n] = counts.get(n, 0) + c
+    return out, counts, seconds
+
+
+def phase_examples(device, report, log_dir="build/examples"):
+    """Every example of ``examples_torch/`` at the JAX examples' published
+    sizes on the card, through its ``main()`` (launch_2proc.py's ranks as
+    processes of their own): each example's expectations, the kernels the
+    size gate elects at its shapes launched, every tensor a kernel took on
+    ``device``, the first launch of each shape again against the plain
+    version; examples 7-8 also against their float64 CPU runs.  Prints a
+    line an example; returns the launch counts summed over the examples."""
+    import os
+
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    os.makedirs(log_dir, exist_ok=True)
+    totals, results = {}, {}
+    for name, argv in EXAMPLE_RUNS:
+        torch.cuda.empty_cache()
+        out, counts, seconds, seen, launches = run_example(k, name, argv, device, log_dir)
+        results[name if not argv else "%s %s" % (name, " ".join(argv))] = out
+        numbers, elected = example_expectations(name, argv, out)
+        launched = {n: c for n, c in counts.items() if c and not n.startswith("variant:")}
+        title = " ".join([name + ".py"] + argv)
+        print("  %s: %.2f s; %s; launches %s" % (title, seconds, numbers, json.dumps(launched)))
+        # a launch of each shape again, against the plain version
+        for key, arguments in launches.items():
+            replay_launch(k, key[0], arguments, "%s %s %s" % (key[0], title,
+                                                               describe_launch(key)), report)
+        del launches
+        for kernel, K, D, Kt, rule in elected:
+            if gate_elects(k, kernel, K, D, Kt, rule):
+                require(counts[kernel] > 0, "%s %s: %s (elected at K=%d, D=%d, Kt=%d) was not "
+                        "launched: %s" % (name, argv, kernel, K, D, Kt, launched))
+            else:
+                # a K-blocked kernel's refusal counts on its dense twin's route
+                require(counts["plain:" + kernel.replace("_blocked", "")] > 0,
+                        "%s %s: the gate refuses %s at K=%d, D=%d, Kt=%d, and no plain "
+                        "route was counted: %s" % (name, argv, kernel, K, D, Kt, launched))
+        require(seen <= {str(device)}
+                and bool(seen) == any(counts[fn.__name__] for fn in k._WRAPPERS),
+                "%s: kernels took tensors on %s" % (name, sorted(seen)))
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+    examples_on_the_cpu(results, report)
+
+    torch.cuda.empty_cache()
+    out, counts, seconds = two_process_example(device, log_dir)
+    print("  launch_2proc.py %s: %.2f s with the processes' start; both ranks %s; launches "
+          "of the two ranks %s" % (" ".join(EXAMPLE_2PROC), seconds, out["digests"][0],
+                                   json.dumps(counts)))
+    for n, c in counts.items():
+        totals[n] = totals.get(n, 0) + c
+    return totals
+
+
+# --------------------------------------------------------------------- #
+# phase 12: times                                                       #
 # --------------------------------------------------------------------- #
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -3686,10 +4064,13 @@ def main():
     torch.cuda.empty_cache()
     phase("parallel")
     parallel_counts = phase_parallel(card)
+    phase("examples")
+    example_counts = phase_examples(device, report)
+    torch.cuda.empty_cache()
     # every path was driven with the counts set to 0 just before it
     counts = {n: sum(c.get(n, 0) for c in (counts, vb_counts, gate_counts, blocked_counts,
                                            route_counts, mcmc_counts, pipe_counts,
-                                           parallel_counts)) for n in counts}
+                                           parallel_counts, example_counts)) for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
@@ -3720,6 +4101,7 @@ def main():
             "ms": times[(kname, n, "cuda")], "plain_ms": times[(kname, n, "plain")],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
             "max_abs_err_tol": worst["tol"], "max_abs_err_output": worst["output"],
+            "launches_examples": example_counts.get(kname, 0),
         }
         if (kname, N_SLICE, "cuda") in times:
             entry.update(ms_slice_n=times[(kname, N_SLICE, "cuda")], slice_n=N_SLICE)
@@ -3778,8 +4160,9 @@ def main():
           "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
           "fused_vb_estep, fused_is_pmc_step and fused_pmc_stats elect at K=10, D=10, table_ms "
           "and table_ms_slice_n their entry-table pass there, and the kernel the three draws "
-          "elect there, looped_ms their looped kernels there and at the shapes); library_ms "
-          "null: no one PyTorch call computes these functions"
+          "elect there, looped_ms their looped kernels there and at the shapes; "
+          "launches_examples: the launches of phase examples, counted in launches); "
+          "library_ms null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -46,11 +46,11 @@ def using_device(device):
 
 def default_device(device=None) -> torch.device:
     """``device`` itself if given, else the requested default, else the
-    card.  Raises ``RuntimeError`` when the card is meant and CUDA is not
-    available."""
+    card.  Raises ``RuntimeError`` when the card is meant (by default or by
+    a requested CUDA device) and CUDA is not available."""
     if device is not None:
         return torch.device(device)
-    if _requested is not None:
+    if _requested is not None and _requested.type != "cuda":
         return _requested
     if not torch.cuda.is_available():
         raise RuntimeError(
@@ -58,6 +58,8 @@ def default_device(device=None) -> torch.device:
             "not available here; ask for the CPU with device='cpu', "
             "pypmc_tpu_torch.set_default_device('cpu') or "
             "pypmc_tpu_torch.using_device('cpu')")
+    if _requested is not None and _requested.index is not None:
+        return _requested
     return torch.device("cuda", torch.cuda.current_device())
 
 

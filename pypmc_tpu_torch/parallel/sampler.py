@@ -29,8 +29,7 @@ from .. import profiling as _profiling
 from ..density import core as _core
 from ..mix_adapt.pmc import (pmc_log_likelihood, pmc_step_mixture_target,
                              pmc_update)
-from ..sampler._target import batched_target
-from ..sampler._target import evaluate_target_T as _evaluate_target_T
+from ..sampler._target import evaluate_target_T
 from ..tools import History as _History
 from ..tools.indicator import merge_function_with_indicator as _indmerge
 from .mesh import PARTICLE_AXIS, checked, particle_mesh
@@ -38,7 +37,7 @@ from .mesh import PARTICLE_AXIS, checked, particle_mesh
 logger = logging.getLogger(__name__)
 
 __all__ = ["ParallelSampler", "run_is_step_sharded", "pmc_run_sharded", "PMCStepStats",
-           "clear_step_cache", "evaluate_target_T"]
+           "clear_step_cache"]
 
 
 def clear_step_cache():
@@ -85,28 +84,11 @@ def _rank_key(gen, mesh):
     return s0 ^ (h >> 32), s1 ^ (h & 0xFFFFFFFF)
 
 
-def block_target(target):
-    """``target`` as :func:`pmc_run_sharded` and :func:`run_is_step_sharded`
-    take it from a sampler: a mixture as it is, any other target as a
-    transposed block target that evaluates it as the importance sampler
-    does (a per-point one mapped over the particles)."""
-    if isinstance(target, _core.MixtureParams):
-        return target
-    return batched_target(lambda xT: _evaluate_target_T(target, xT), transposed=True)
-
-
-def evaluate_target_T(target, samples_T):
-    """Evaluate a callable log-target on transposed ``(D, N)`` samples.  A
-    callable marked ``transposed=True`` receives ``(D, N)``, any other one
-    the row-major ``(N, D)`` block; either returns ``(N,)`` log-densities."""
-    if getattr(target, "__pypmc_tpu_transposed__", False):
-        return target(samples_T)
-    return target(samples_T.T)
-
-
 def _is_body(params, key, n, target):
     """Propose, evaluate and weight ``n`` particles (transposed layout).  A
-    MIXTURE target is evaluated inside the same kernel as the proposal."""
+    MIXTURE target is evaluated inside the same kernel as the proposal; a
+    callable as the importance sampler evaluates it: a batched one on the
+    block, a per-point one mapped over the particles."""
     if isinstance(target, _core.MixtureParams):
         samples_T, latent, log_q, log_p = _core.propose_logq_T(params, key, n, target)
     else:
@@ -118,7 +100,8 @@ def _is_body(params, key, n, target):
 def run_is_step_sharded(params, target, key, n_total, mesh=None,
                         axis_name=PARTICLE_AXIS):
     """Draw ``n_total`` importance samples; return ``(samples_T (D, n),
-    weights (n,), latent (n,))``.  ``target`` is a log-density callable or a
+    weights (n,), latent (n,))``.  ``target`` is a log-density callable (a
+    per-point one, mapped over the particles, or a batched one) or a
     :class:`~pypmc_tpu_torch.density.core.MixtureParams` (evaluated inside
     the draw's kernel); ``key`` an int seed or a ``torch.Generator``.
 
@@ -292,7 +275,7 @@ class ParallelSampler(object):
         dtype = self.target.means.dtype if isinstance(self.target, _core.MixtureParams) else None
         params = self.proposal.stacked_params(dtype=dtype, device=self.mesh.device)
         samples_T, weights, latent = run_is_step_sharded(
-            params, block_target(self.target), self._gen, int(N) * self.n_devices, self.mesh)
+            params, self.target, self._gen, int(N) * self.n_devices, self.mesh)
         # the pending run keeps the params that drew it: the target values
         # are reconstructed with them even if self.proposal is adapted first
         self._device_pending.append((samples_T, weights, params))
@@ -321,7 +304,7 @@ class ParallelSampler(object):
             if isinstance(self.target, _core.MixtureParams):
                 tv[bad] = _core.mixture_logpdf_T(self.target, xs_bad).to(tv.dtype)
             else:
-                tv[bad] = _evaluate_target_T(self.target, xs_bad).to(tv.dtype)
+                tv[bad] = evaluate_target_T(self.target, xs_bad).to(tv.dtype)
         return tv
 
     def gather(self):

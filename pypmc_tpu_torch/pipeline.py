@@ -39,7 +39,6 @@ from .density import core as _core
 from .mix_adapt.pmc import pmc_step_mixture_target, pmc_update
 from .parallel import ParallelSampler, pmc_run_sharded
 from .parallel.mesh import checked
-from .parallel.sampler import block_target
 from .profiling import annotate
 
 logger = logging.getLogger(__name__)
@@ -379,7 +378,7 @@ def _refine_sharded(pparams, target, gen, n, steps, weight_clip, mesh):
     :func:`~pypmc_tpu_torch.parallel.pmc_run_sharded` of ``steps`` steps of
     ``n`` particles in all.  Returns the live components as a host mixture
     (None if none lived) and the normalized perplexity of each step."""
-    pparams, stats = pmc_run_sharded(block_target(target), pparams, n, steps, mesh=mesh,
+    pparams, stats = pmc_run_sharded(target, pparams, n, steps, mesh=mesh,
                                      key=_sub_seed(gen), weight_clip=weight_clip)
     host = {f: getattr(pparams, f).double().cpu().numpy()
             for f in ("means", "cov", "dof", "weights")}

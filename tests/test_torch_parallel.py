@@ -62,9 +62,9 @@ def log_target(x):
     return -0.5 * diff @ INV_T @ diff
 
 
+@batched_target
 def block_target(x):
-    """The same target on a row-major (N, D) block: the form
-    pmc_run_sharded hands an unmarked callable."""
+    """The same target on a row-major (N, D) block, marked batched."""
     diff = x - MU_T
     return -0.5 * torch.einsum("ni,ij,nj->n", diff, INV_T, diff)
 

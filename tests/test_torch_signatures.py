@@ -54,7 +54,6 @@ UNPORTED = {
 PORT_ONLY_NAMES = {
     "_rng": {"as_generator", "seed_words", "device_generator", "is_numpy_rng"},
     "density.core": {"params_from_numpy", "params_to_numpy"},
-    "parallel.sampler": {"evaluate_target_T"},
     "sampler._target": {"map_points"},
 }
 # the port hands its reductions over particles a callable where the JAX

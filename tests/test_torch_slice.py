@@ -15,6 +15,7 @@ import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt.pmc import pmc_step_mixture_target
 from pypmc_tpu_torch.parallel import pmc_run_sharded, run_is_step_sharded
+from pypmc_tpu_torch.sampler import batched_target
 
 torch.set_num_threads(1)
 
@@ -93,9 +94,9 @@ def test_pmc_run_sharded_branches():
     for x, y in zip(a[1], b[1]):
         assert torch.equal(x, y)
 
+    @batched_target(transposed=True)
     def log_target(xT):
         return core.mixture_logpdf_T(tt, xT)
-    log_target.__pypmc_tpu_transposed__ = True
     clipped, cstats, samples, w = pmc_run_sharded(
         log_target, tp, n, 3, key=6, weight_clip=True, return_final_samples=True)
     assert samples.shape == (D, n) and w.shape == (n,)
@@ -111,12 +112,68 @@ def test_pmc_run_sharded_branches():
 def test_run_is_step_sharded_row_major_callable():
     _, _, tp, tt = problem()
     xT, w, latent = run_is_step_sharded(
-        tp, lambda x: core.mixture_logpdf(tt, x), 2, 999)
+        tp, batched_target(lambda x: core.mixture_logpdf(tt, x)), 2, 999)
     assert xT.shape == (D, 999) and w.shape == (999,) and latent.shape == (999,)
     np.testing.assert_allclose(
         w.numpy(),
         torch.exp(core.mixture_logpdf_T(tt, xT) - core.mixture_logpdf_T(tp, xT)).numpy(),
         rtol=1e-12)
+
+
+# a per-point target that indexes coordinates: a 0.3/0.7 mixture of two
+# axis-aligned Gaussians in D=2, written once for torch and once for jax.numpy
+PP_MU = np.array([[5.0, 0.01], [-4.0, 1.0]])
+PP_VAR = np.array([[0.5, 0.2], [1.0, 0.3]])
+PP_W = np.array([0.3, 0.7])
+
+
+def per_point_target(xp):
+    def log_target(x):
+        lp = [np.log(PP_W[k]) - 0.5 * np.log(4 * np.pi ** 2 * PP_VAR[k].prod())
+              - 0.5 * ((x[0] - PP_MU[k, 0]) ** 2 / PP_VAR[k, 0]
+                       + (x[1] - PP_MU[k, 1]) ** 2 / PP_VAR[k, 1]) for k in range(2)]
+        return xp.logaddexp(lp[0], lp[1])
+    return log_target
+
+
+def per_point_proposal():
+    rng = np.random.default_rng(3)
+    means = rng.normal(0.0, 3.0, (3, 2))
+    return core.make_mixture(means, np.array([np.eye(2) * 4.0] * 3), None, np.full(3, 8.0))[0]
+
+
+@pytest.mark.parametrize("entry", ["run_is_step_sharded", "pmc_run_sharded"])
+def test_per_point_callable_target_is_mapped_over_the_particles(entry):
+    """An unmarked callable is a per-point target, as in the JAX package:
+    the weights on the port's own samples are exp(log p - log q) with log p
+    from the JAX package's evaluate_target_T (a jax.vmap)."""
+    from pypmc_tpu.sampler._target import evaluate_target_T as jax_evaluate_target_T
+
+    p0 = per_point_proposal()
+    if entry == "run_is_step_sharded":
+        xT, w, _ = run_is_step_sharded(p0, per_point_target(torch), 2, 999)
+    else:
+        _, _, xT, w = pmc_run_sharded(per_point_target(torch), p0, 999, 1, key=2,
+                                      return_final_samples=True)
+    log_p = np.asarray(jax_evaluate_target_T(per_point_target(jnp), jnp.asarray(xT.numpy())))
+    log_q = core.mixture_logpdf_T(p0, xT).numpy()
+    assert w.shape == (999,)
+    np.testing.assert_allclose(w.numpy(), np.exp(log_p - log_q), rtol=1e-12, atol=0)
+
+
+def test_per_point_target_adapts_as_the_same_mixture_target():
+    """pmc_run_sharded with the per-point target draws the particles it
+    draws with the target as MixtureParams, and adapts the mixture alike."""
+    p0 = per_point_proposal()
+    target = core.make_mixture(PP_MU, np.array([np.diag(v) for v in PP_VAR]), PP_W)[0]
+    a = pmc_run_sharded(per_point_target(torch), p0, 1 << 12, 3, key=1, return_final_samples=True)
+    b = pmc_run_sharded(target, p0, 1 << 12, 3, key=1, return_final_samples=True)
+    np.testing.assert_allclose(a[2].numpy(), b[2].numpy(), rtol=1e-12, atol=1e-12)
+    for f in ("means", "cov", "weights", "dof"):
+        np.testing.assert_allclose(getattr(a[0], f).numpy(), getattr(b[0], f).numpy(),
+                                   rtol=1e-10, atol=1e-12, err_msg=f)
+    for x, y in zip(a[1], b[1]):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10, err_msg="stats")
 
 
 def test_multi_rank_group_is_refused(monkeypatch):
