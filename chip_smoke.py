@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the thirteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once), each launcher's shared memory (and the
+2. build: the fourteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once: the thirteen Pallas kernels' and
+   ``solve_dofs``, the dof bisection of the JAX package's PMC step), each launcher's shared memory (and the
    chunked kernels' components a chunk, the statistics kernels' tile, the
    plan of the register pass of ``fused_vb_estep``, ``fused_is_pmc_step``
    and ``fused_pmc_stats``, the plans of the three draws ``fused_transform``,
@@ -67,13 +68,21 @@ Phases, each of which exits non-zero on failure:
    steps against the plain pool's, with the faults the checks must catch
    planted in the plain pool; over one step the two variants' proposals,
    accept decisions and points agree.  A per-point target that
-   reaches ``fused_logq``, mapped with ``torch.func.vmap``, is one launch;
+   reaches ``fused_logq``, mapped with ``torch.func.vmap``, is one launch.
+   ``solve_dofs`` at K=10, 200 and 400, in float32 and float64, on
+   constants with a NaN, both infinities and one past each clamp: against
+   its plain version in its dtype (the roots equal bit for bit counted;
+   the clamped, NaN and infinite entries equal) and in float64 (each root
+   within ``DOF_ULPS`` ulps of the float64 condition's zero);
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
    two runs (every ``fused_is_pmc_step`` and ``fused_pmc_stats`` launch on
    its register pass, every ``fused_propose_logq`` launch on its record
-   kernel);
+   kernel, one ``solve_dofs`` launch a Student-t update); then the step
+   with the dofs solved by the host loop of before (the plain version on
+   the card) and by ``solve_dofs``, in turns: host ms, device ms and
+   launches a step;
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
    pruning (every ``fused_vb_estep`` launch on its register pass), one
@@ -96,7 +105,8 @@ Phases, each of which exits non-zero on failure:
    2^23 particles (Gaussian and Student-t) against the unfused update,
    ``benchmarks/vb_step.py --components 400 --dim 2`` (N=2^22), and
    ``examples/pmc_large_scale.py --components 200`` (D=10, 10^7 particles
-   a step, 10 steps);
+   a step, 10 steps), its step also with the dofs by the host loop and by
+   ``solve_dofs``, in turns;
 7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
    through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16
    (each on its record kernel) and the tensor path below 1024 particles;
@@ -107,7 +117,9 @@ Phases, each of which exits non-zero on failure:
    --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
    elects, every ``fused_transform`` and ``fused_propose_logq`` launch on
-   its record kernel) and the
+   its record kernel), VB1's and VB2's iterations (the profiled rerun's
+   with the VB E-step's route before the float32 stopping rule's repair)
+   and the
    callable-target run of ``tests/test_pipeline_api.py``;
 10. parallel: the particle mesh over ``torch.distributed``, in rank
     processes (``chip_smoke.py --parallel-worker``) that load the kernels
@@ -130,7 +142,11 @@ Phases, each of which exits non-zero on failure:
     1e-6), and the two ranks' results to equal sha256 digests.  It prints
     each rank's ms a PMC step, a ``ParallelSampler.run`` and a VB
     iteration and the gather's seconds (host clock, ``profiling.timed``);
-11. examples: every file of ``examples_torch/`` at the published size of
+11. examples: first the chain loops of ``markov_chain.py``, ``r_group.py``
+    and ``uniting_markov_chains_and_variational_bayes.py`` at a shortened N
+    as CUDA graphs (``sampler._scan``) and as the eager loop, in turns:
+    the same outputs bit for bit, the same launches, us a chain-step each;
+    then every file of ``examples_torch/`` at the published size of
     its ``examples/`` counterpart, through its ``main()`` in a temporary
     working directory, between a reset and a read of the launch counts
     (``pmc_large_scale.py`` at 10^7 particles, K=10 and ``--components
@@ -147,7 +163,10 @@ Phases, each of which exits non-zero on failure:
     against the looped one bit for bit); ``variational.py`` and
     ``mixture_reduction.py`` also against the same runs in float64 on the
     CPU (the same survivors and steps, parameters and VBMerge's bound
-    within ``TOL["vb"]``); then ``launch_2proc.py --particles 100000 --steps
+    within ``TOL["vb"]``); the chains of the three examples above replayed
+    as CUDA graphs (no fallback; ``r_group.py`` one ``fused_logq`` launch
+    a chain-step), ``variational.py`` converged (and its fit with the
+    route before the repair printed beside); then ``launch_2proc.py --particles 100000 --steps
     3``, two gloo ranks sharing the card, with equal digests.  Each
     example's output goes to ``build/examples/``; the phase prints a
     line an example (wall seconds, launches, key numbers);
@@ -165,7 +184,8 @@ Phases, each of which exits non-zero on failure:
     (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
     N=2^16, and the device time of each launch of the K-blocked kernels
     (torch.profiler, in a fresh process: ``chip_smoke.py
-    --blocked-splits``), the first launch also beside its bound.
+    --blocked-splits``), the first launch also beside its bound;
+    ``solve_dofs`` and its plain version at K=10, 200 and 400.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -216,6 +236,8 @@ SOURCES = {
                                "pypmc_tpu/ops/pallas_kernels.py:1889"),
     "fused_is_pmc_step_blocked": ("pypmc_tpu_torch/csrc/is_pmc_step_blocked.cu",
                                   "pypmc_tpu/ops/pallas_kernels.py:2067"),
+    # no Pallas kernel: the lax.fori_loop of the JAX package's _solve_dofs
+    "solve_dofs": ("pypmc_tpu_torch/csrc/solve_dofs.cu", "pypmc_tpu/mix_adapt/pmc.py:349"),
 }
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
@@ -1370,6 +1392,9 @@ def phase_kernels(device, cases, eval_cases):
     torch.cuda.empty_cache()
     vmap_case(device, report)
     torch.cuda.empty_cache()
+    for K in SOLVE_DOFS_K:
+        for dtype in (torch.float32, torch.float64):
+            solve_dofs_case(K, dtype, device, report)
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
     from pypmc_tpu_torch.density import core
@@ -1382,6 +1407,452 @@ def phase_kernels(device, cases, eval_cases):
     else:
         raise SmokeFailure("fused_logq accepted a float64 CUDA tensor")
     return report
+
+
+# --------------------------------------------------------------------- #
+# the dof solve (csrc/solve_dofs.cu) and the chains' CUDA graphs        #
+# --------------------------------------------------------------------- #
+
+SOLVE_DOFS_K = (10, 200, 400)
+DOF_STEPS, MINDOF, MAXDOF = 100, 1e-5, 1e3
+# a root the kernel and its plain version reach by different last steps
+# (their conditions round apart near 0) holds when the float64 condition
+# there is within DOF_ULPS ulps of the kernel's dtype of the condition's
+# terms |const| + |log(nu / 2)| + |digamma(nu / 2)|, beside the bracket's
+# resolution (2 ulps of the root times the condition's slope)
+DOF_ULPS = 8.0
+# the serial-latency model of one bisection step (no profiler sees inside
+# a kernel here): clocks of a condition's dependent chain (two logs, the
+# asymptotic series' divisions and FMAs) and of each unit of nu / 2 below
+# 10 (a division and an add), at the card's largest SM clock
+DOF_CONDITION_CLOCKS, DOF_UNIT_CLOCKS = 200, 40
+
+
+def dof_problem(K, seed, device, dtype):
+    """``(const, old_dofs)`` of K components: constants as PMC updates give
+    them (their roots log-uniform in [1, 300] dofs) after a NaN, +inf, -inf
+    and a constant past each clamp (0.5 > 0: maxdof; -3e5 < -2e5: mindof),
+    as many of those as K holds."""
+    import torch
+    from scipy.special import digamma
+
+    rng = np.random.default_rng(seed)
+    nu = np.exp(rng.uniform(0.0, np.log(300.0), K))
+    c = digamma(nu / 2) - np.log(nu / 2)
+    c[:min(K, 5)] = np.array([np.nan, np.inf, -np.inf, 0.5, -3e5])[:min(K, 5)]
+    old = rng.uniform(2.0, 30.0, K)
+    return (torch.tensor(c, dtype=dtype, device=device),
+            torch.tensor(old, dtype=dtype, device=device))
+
+
+def dof_condition64(c, nu):
+    """``(const + log(nu / 2) - digamma(nu / 2), the sum of its terms'
+    magnitudes)`` in float64."""
+    from scipy.special import digamma
+
+    x = nu / 2
+    return c + np.log(x) - digamma(x), np.abs(c) + np.abs(np.log(x)) + np.abs(digamma(x))
+
+
+def solve_dofs_check(label, const, old, steps, mindof, maxdof, report):
+    """Kernel ``solve_dofs`` on ``(const, old)`` against its plain version:
+    in the same dtype on the card (the roots equal bit for bit counted;
+    every clamped, NaN and infinite entry equal, a NaN's within an ulp of
+    mindof) and against the float64 plain version, each root within
+    DOF_ULPS of the float64 condition's zero (module note) or equal to the
+    float64 root in the kernel's dtype.  Records the worst root's |float64
+    condition| against its tolerance."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+
+    got = k.solve_dofs(const, old, steps, mindof, maxdof)
+    same = k.plain_solve_dofs(const, old, steps, mindof, maxdof)
+    ref64 = k.plain_solve_dofs(const.double(), old.double(), steps, mindof, maxdof)
+    sync(const.device)
+    g, r, c = (t.double().cpu().numpy() for t in (got, same, const))
+    r64 = ref64.cpu().numpy()
+    dtype = np.float32 if const.dtype == torch.float32 else np.float64
+    lo, hi = dtype(mindof), dtype(maxdof)
+    special = ~np.isfinite(c) | (r == lo) | (r == hi) | (np.abs(r - lo) <= np.spacing(lo))
+    require(np.array_equal(g[special], r[special], equal_nan=True),
+            "%s: clamped, NaN or infinite entries differ: %s vs %s"
+            % (label, g[special], r[special]))
+    nan = np.isnan(c)
+    require(steps < 60 or np.all(np.abs(g[nan] - lo) <= np.spacing(lo)),
+            "%s: a NaN const gave %s, not mindof" % (label, g[nan]))
+    regular = ~special
+    residual, terms = dof_condition64(c[regular], g[regular])
+    slope = np.abs(dof_condition64(c[regular], g[regular] * (1 + 1e-6))[0]
+                   - dof_condition64(c[regular], g[regular] * (1 - 1e-6))[0]) / (2e-6 * g[regular])
+    eps = np.finfo(dtype).eps
+    allowed = DOF_ULPS * eps * terms + 2 * np.spacing(g[regular].astype(dtype)) * slope
+    as_ref = g[regular] == r64[regular].astype(dtype)
+    ratio = np.where(as_ref, 0.0, np.abs(residual) / allowed)
+    worst = int(np.argmax(ratio)) if ratio.size else None
+    err, tol = ((float(abs(residual[worst])), float(allowed[worst])) if worst is not None
+                else (0.0, 1.0))
+    equal = int((g == r).sum())
+    print("  %-34s %d of %d roots equal the %s plain version's bit for bit, %d the float64 "
+          "one's; |float64 condition| at the worst root %.3e, tol %.3e"
+          % (label, equal, len(g), const.dtype, int(as_ref.sum()), err, tol))
+    report.append({"output": label, "max_abs_err": err, "tol": tol})
+    require(not ratio.size or ratio.max() <= 1.0,
+            "%s: %d roots off the float64 condition's zero (worst %.3e, tol %.3e)"
+            % (label, int((ratio > 1).sum()), err, tol))
+
+
+def solve_dofs_case(K, dtype, device, report):
+    solve_dofs_check("solve_dofs K=%d %s" % (K, str(dtype).split(".")[-1]),
+                     *dof_problem(K, K, device, dtype), DOF_STEPS, MINDOF, MAXDOF, report)
+
+
+def max_sm_clock_ghz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) / 1e3
+
+
+def solve_dofs_work(const, steps=DOF_STEPS, clock_ghz=None):
+    """``(bytes, FP operations, serial-latency ms)`` of one solve of
+    ``const`` (float32), counted on this data by a float64 replica of the
+    bisection: 3 values a component moved; a condition's ~26 operations
+    plus 3 for each unit of nu / 2 below 10 (the digamma's recurrence), and
+    2 for each midpoint; the slowest component's chain of conditions at
+    DOF_CONDITION_CLOCKS + DOF_UNIT_CLOCKS a unit (model), None without a
+    clock."""
+    c = const.double().cpu().numpy()
+    K = len(c)
+
+    def units(nu):
+        x = nu / 2
+        return np.where(x < 10, np.ceil(10 - x), 0.0)
+
+    lo, hi = np.full(K, MINDOF), np.full(K, MAXDOF)
+    u = units(lo) + units(hi)
+    chain = 2 * DOF_CONDITION_CLOCKS + DOF_UNIT_CLOCKS * u
+    ops = 2 * 26 * K + 3 * u.sum()
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        um = units(mid)
+        ops += K * (26 + 2) + 3 * um.sum()
+        chain += DOF_CONDITION_CLOCKS + DOF_UNIT_CLOCKS * um
+        go = dof_condition64(c, mid)[0] > 0
+        lo, hi = np.where(go, mid, lo), np.where(go, hi, mid)
+    serial = None if clock_ghz is None else float(chain.max()) / (clock_ghz * 1e6)
+    return 3 * 4 * K, float(ops), serial
+
+
+@contextlib.contextmanager
+def host_dof_loop(k):
+    """The body of a ``with`` block with the dofs solved as before the
+    kernel: its plain version, ~13 launches a bisection step on the card."""
+    kernel = k.solve_dofs
+    k.solve_dofs = k.plain_solve_dofs
+    try:
+        yield
+    finally:
+        k.solve_dofs = kernel
+
+
+def dofs_before_after(device, K):
+    """The K-component slice step (10^7 particles, Student-t) with the dof
+    bisection as the host loop it was (the plain version on the card) and
+    as kernel solve_dofs, in turns (loop, kernel, kernel, loop): host ms a
+    step (10 steps, synchronized), then device ms and launches a step
+    (torch.profiler); solve_dofs launched once a step."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+
+    params, target, _ = flagship_problem(device, K)
+    host = {"host loop": [], "kernel": []}
+    for label in ("host loop", "kernel", "kernel", "host loop"):
+        with host_dof_loop(k) if label == "host loop" else contextlib.nullcontext():
+            pmc_run_sharded(target, params, N_SLICE, 1, key=100)   # warm-up
+            torch.cuda.synchronize()
+            k.reset_launch_counts()
+            t0 = time.perf_counter()
+            pmc_run_sharded(target, params, N_SLICE, STEPS, key=len(host[label]))
+            torch.cuda.synchronize()
+            host[label].append((time.perf_counter() - t0) / STEPS * 1e3)
+            launched = k.launch_counts()["solve_dofs"]
+        require(launched == (0 if label == "host loop" else STEPS),
+                "K=%d %s: solve_dofs launched %d times in %d steps" % (K, label, launched, STEPS))
+    out = {}
+    for label in ("host loop", "kernel"):
+        with host_dof_loop(k) if label == "host loop" else contextlib.nullcontext():
+            print("  K=%d step, dofs by the %s: host %s ms a step (10 steps each, synchronized)"
+                  % (K, label, np.round(host[label], 3).tolist()))
+            busy, launches = profile_slice(device, min(host[label]), K=K)
+        out[label] = {"host_ms": host[label], "device_ms": busy, "launches": launches}
+    print("  K=%d step: %+.0f launches a step, host %.3f -> %.3f ms (the best of two), device "
+          "%.3f -> %.3f ms" % (K, out["kernel"]["launches"] - out["host loop"]["launches"],
+                               min(host["host loop"]), min(host["kernel"]),
+                               out["host loop"]["device_ms"], out["kernel"]["device_ms"]))
+    return out
+
+
+@contextlib.contextmanager
+def eager_scans():
+    """The body of a ``with`` block with every chain's scan running its
+    chunks eagerly, as the per-step loop did (no CUDA graph)."""
+    from pypmc_tpu_torch.sampler import _scan
+
+    card = _scan.Scan._card
+
+    class Eager(card):
+        @staticmethod
+        def serves(device):
+            return False
+
+    _scan.Scan._card = Eager
+    try:
+        yield
+    finally:
+        _scan.Scan._card = card
+
+
+def chain_runs(device):
+    """The examples' three chain loops at a shortened N, ``{name: (run,
+    steps)}``: ``run()`` returns the outputs to compare.  markov_chain.py's
+    adaptive chain (Student-t proposal, a Python target: 1000 burn-in
+    steps, 3 runs of 500 adapted); r_group.py's two first chains (its
+    mixture's ``evaluate_fn()``, one fused_logq launch a step: 100 + 2 x
+    500); uniting...py's tensor pool (10 chains, its Student-t mixture's
+    per-point ``evaluate_fn()`` mapped with torch.func.vmap: 3 cycles of 500
+    steps)."""
+    import torch
+
+    import pypmc_tpu_torch as pt
+
+    mc_ex, rg_ex = example_module("markov_chain"), example_module("r_group")
+    un_ex = example_module("uniting_markov_chains_and_variational_bayes")
+    dtype = pt.working_dtype(device)
+    inv = torch.tensor(np.linalg.inv(mc_ex.target_sigma), dtype=dtype, device=device)
+    mean = torch.tensor(mc_ex.target_mean, dtype=dtype, device=device)
+
+    def log_target(x):
+        diff = x - mean
+        return -0.5 * diff @ inv @ diff
+
+    def markov():
+        mc = pt.sampler.AdaptiveMarkovChain(
+            log_target, pt.density.LocalStudentT(mc_ex.prop_sigma, mc_ex.prop_dof),
+            mc_ex.start, save_target_values=True, rng=0, device=device)
+        accepts = [mc.run(1000)]
+        for _ in range(3):
+            accepts.append(mc.run(500))
+            mc.adapt()
+        return accepts, mc.samples[:], mc.target_values[:]
+
+    mixture = pt.density.create_gaussian_mixture(
+        [rg_ex.mean0, rg_ex.mean1], [rg_ex.covariance0, rg_ex.covariance1],
+        rg_ex.component_weights)
+
+    def r_group():
+        out = []
+        for seed, start in enumerate([np.array([4.999, 0.0]), np.array([-4.0001, 0.999])]):
+            mc = pt.sampler.AdaptiveMarkovChain(
+                mixture.evaluate_fn(device=device),
+                pt.density.LocalStudentT(rg_ex.prop_sigma, rg_ex.prop_dof), start,
+                save_target_values=True, rng=seed, device=device)
+            out.append(mc.run(100))
+            for _ in range(2):
+                out.append(mc.run(500))
+                mc.adapt()
+            out += [mc.samples[:], mc.target_values[:]]
+        return out
+
+    t_mixture = pt.density.create_t_mixture(
+        [un_ex.mean0, un_ex.mean1, un_ex.mean2],
+        [un_ex.covariance0, un_ex.covariance1, un_ex.covariance2], [13, 17, 5],
+        un_ex.component_weights)
+
+    def uniting():
+        starts = np.random.default_rng(2024).uniform(-10, 10, size=(10, un_ex.dim))
+        samples, rates = pt.sampler.sample_adaptive_chains(
+            t_mixture.evaluate_fn(device=device), starts, np.eye(un_ex.dim) * 2.38**2 / un_ex.dim,
+            n_steps=500, n_adapt_cycles=3, key=2024, device=device)
+        return samples.cpu().numpy(), rates.cpu().numpy()
+
+    return {"markov_chain.py": (markov, 2500), "r_group.py": (r_group, 2 * 1100),
+            "uniting...py": (uniting, 10 * 1500)}
+
+
+def chain_graph_cases(device):
+    """Each of :func:`chain_runs` as CUDA graphs and in the eager loop, in
+    turns (graph, eager, graph): bit for bit the same outputs; the graph
+    runs replayed (no fallback), launching as many kernels as the eager
+    run (r_group.py: one fused_logq a step and one a chain's start); the
+    host clock of each (synchronized), us a chain-step."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.sampler import _scan
+
+    def same(a, b):
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    for name, (run, steps) in chain_runs(device).items():
+        outs, secs, launches = {}, {"graph": [], "eager": []}, {}
+        for mode in ("graph", "eager", "graph"):
+            with eager_scans() if mode == "eager" else contextlib.nullcontext():
+                k.reset_launch_counts()
+                _scan.reset_counts()
+                t0 = time.perf_counter()
+                out = run()
+                sync(device)
+                secs[mode].append(time.perf_counter() - t0)
+                scans = dict(_scan.counts)
+            launches[mode] = {n: c for n, c in k.launch_counts().items() if c}
+            require(same(outs.setdefault(mode, out), out), "%s: two %s runs differ" % (name, mode))
+            if mode == "graph":
+                require(scans["replays"] > 0 and scans["fallbacks"] == 0
+                        and scans["uncapturable"] == 0,
+                        "%s: the chains did not run as CUDA graphs: %s" % (name, scans))
+        require(same(outs["graph"], outs["eager"]),
+                "%s: the CUDA graphs' run differs from the eager loop" % name)
+        require(launches["graph"] == launches["eager"],
+                "%s: launches %s as graphs, %s eagerly" % (name, launches["graph"],
+                                                            launches["eager"]))
+        if name == "r_group.py":
+            require(launches["graph"].get("fused_logq") == steps + 2,
+                    "r_group.py: %s fused_logq launches for %d steps of 2 chains"
+                    % (launches["graph"].get("fused_logq"), steps))
+        print("  %-16s %5d chain-steps: graphs %s s, eager loop %s s (%.1f and %.1f us a step, "
+              "the best), equal bit for bit; scans %s; launches %s"
+              % (name, steps, np.round(secs["graph"], 3).tolist(),
+                 np.round(secs["eager"], 3).tolist(), min(secs["graph"]) / steps * 1e6,
+                 min(secs["eager"]) / steps * 1e6, json.dumps(scans),
+                 json.dumps(launches["graph"])))
+
+
+def uncapturable_case(device):
+    """Two chains whose target no CUDA graph can hold -- one returns a
+    Python float, one calls ``.item()`` and builds a tensor from it -- each
+    runs (2 chunks past its warm-up) with one warning naming the cause, the
+    scans' counts saying so, and the outputs of the eager loop bit for
+    bit."""
+    import logging
+
+    import torch
+
+    import pypmc_tpu_torch as pt
+    from pypmc_tpu_torch.sampler import _scan
+
+    mean = torch.tensor([1.0, -1.0], dtype=pt.working_dtype(device), device=device)
+
+    def as_float(x):
+        return float(-0.5 * torch.sum((x - mean) ** 2))
+
+    def via_item(x):
+        return torch.tensor(-0.5 * torch.sum((x - mean) ** 2).item(), device=x.device)
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    for target in (as_float, via_item):
+        outs = []
+        for mode in ("graph", "eager"):
+            handler = Warnings()
+            log = logging.getLogger(_scan.__name__)
+            log.addHandler(handler)
+            try:
+                with eager_scans() if mode == "eager" else contextlib.nullcontext():
+                    _scan.reset_counts()
+                    mc = pt.sampler.MarkovChain(target, pt.density.LocalGauss(np.eye(2) * 0.5),
+                                                np.zeros(2), rng=3, device=device)
+                    outs.append((mc.run(3 * _scan.CHUNK), mc.samples[:]))
+                    scans = dict(_scan.counts)
+            finally:
+                log.removeHandler(handler)
+            if mode == "graph":
+                require(len(handler.messages) == 1 and scans["uncapturable"] == 1
+                        and scans["fallbacks"] == 2 and scans["replays"] == 0,
+                        "%s: %s, warnings %s" % (target.__name__, scans, handler.messages))
+                print("  uncapturable target %s: scans %s; %s"
+                      % (target.__name__, json.dumps(scans), handler.messages[0][:200]))
+        require(outs[0][0] == outs[1][0] and np.array_equal(outs[0][1], outs[1][1]),
+                "%s: the fallback differs from the eager loop" % target.__name__)
+
+
+# the steps a chain's CUDA graph may take (sampler._scan.CHUNK), timed by
+# chip_smoke.py --chunk-sweep, CHUNK_PASSES timed passes after a warm-up
+CHUNK_SWEEP, CHUNK_PASSES = (8, 16, 32, 64, 125), 2
+
+
+def chunk_sweep(device):
+    """markov_chain.py, r_group.py and uniting...py at their published
+    sizes with each CHUNK_SWEEP length of a chain's graph: wall seconds of
+    each (host clock, synchronized) and us a chain-step of the first two,
+    one value a timed pass; returns ``{length: {example: [values]}}``."""
+    import io
+
+    from pypmc_tpu_torch.sampler import _scan
+
+    chunk, out = _scan.CHUNK, {}
+    names = ("markov_chain", "r_group", "uniting_markov_chains_and_variational_bayes")
+    try:
+        for timed in range(-1, CHUNK_PASSES):     # pass -1 compiles and warms up
+            for C in CHUNK_SWEEP:
+                _scan.CHUNK = C
+                row = out.setdefault(C, {})
+                for name in names:
+                    with temporary_working_directory(), contextlib.redirect_stdout(io.StringIO()):
+                        t0 = time.perf_counter()
+                        res = example_module(name).main(["--device", str(device)])
+                        sync(device)
+                        seconds = time.perf_counter() - t0
+                    if timed < 0:
+                        continue
+                    row.setdefault(name, []).append(seconds)
+                    if "us_per_step" in res:
+                        row.setdefault(name + " us/step", []).append(res["us_per_step"])
+    finally:
+        _scan.CHUNK = chunk
+    for C, row in out.items():
+        print("  chunk %4d steps: %s" % (C, json.dumps(
+            {n: [round(v, 3) for v in vs] for n, vs in row.items()})))
+    return out
+
+
+@contextlib.contextmanager
+def min_n(k, n):
+    """The body of a ``with`` block with the one-pass VB E-step's particle
+    rule at ``n`` (``kernels._MIN_N``; 0 is the route before the float32
+    stopping rule's repair)."""
+    old = k._MIN_N
+    k._MIN_N = n
+    try:
+        yield
+    finally:
+        k._MIN_N = old
+
+
+@contextlib.contextmanager
+def vb_runs(record):
+    """The body of a ``with`` block with every ``GaussianInference.run``
+    recorded as ``(N, D, K at the end, iterations or None, the cap)``."""
+    from pypmc_tpu_torch.mix_adapt import variational as v
+
+    run = v.GaussianInference.run
+
+    def recorded(self, iterations=1000, *args, **kwargs):
+        out = run(self, iterations, *args, **kwargs)
+        record.append((self.N, self.dim, self.K, out, iterations))
+        return out
+
+    v.GaussianInference.run = recorded
+    try:
+        yield
+    finally:
+        v.GaussianInference.run = run
 
 
 # --------------------------------------------------------------------- #
@@ -1459,6 +1930,9 @@ def phase_slice(device):
     require(abs(masses[0] - 0.3) < 0.05 and abs(masses[1] - 0.7) < 0.05,
             "slice: mode masses %s" % masses)
     require(counts["fused_is_pmc_step"] == STEPS, "slice: fused_is_pmc_step launches")
+    require(counts["solve_dofs"] == STEPS + 2,
+            "slice: %d solve_dofs launches for %d Student-t updates"
+            % (counts["solve_dofs"], STEPS + 2))
     variants = {n: c for n, c in counts.items() if n.startswith("variant:")}
     print("  statistics passes %s" % json.dumps(variants))
     require(counts["variant:fused_is_pmc_step=reg"] == STEPS,
@@ -1503,7 +1977,8 @@ def device_rows(prof, per):
 
 def profile_slice(device, step_ms, steps=2, K=10):
     """Device time of the slice's steps (a K-component proposal) by kernel
-    (torch.profiler), and its share of the unprofiled step time."""
+    (torch.profiler), and its share of the unprofiled step time; returns
+    ``(device ms, launches)`` a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pypmc_tpu_torch.parallel import pmc_run_sharded
@@ -1518,23 +1993,7 @@ def profile_slice(device, step_ms, steps=2, K=10):
           % (busy, 100 * busy / step_ms, step_ms, sum(r[1] for r in rows)))
     for ms, count, key in rows[:8]:
         print("    %8.3f ms  %5.0f x  %s" % (ms, count, key[:90]))
-    return busy
-
-
-def time_solve_dofs(device, reps=20):
-    """Milliseconds of the host-driven dof bisection for K = 10."""
-    import torch
-    from pypmc_tpu_torch.mix_adapt.pmc import _solve_dofs
-
-    const = torch.linspace(-0.5, -0.01, 10, device=device)
-    dofs = torch.full((10,), 8.0, device=device)
-    _solve_dofs(const, dofs, 100, 1e-5, 1e3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        _solve_dofs(const, dofs, 100, 1e-5, 1e3)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e3
+    return busy, sum(r[1] for r in rows)
 
 
 # --------------------------------------------------------------------- #
@@ -1672,6 +2131,58 @@ def phase_vb(device, report):
     del vb
     torch.cuda.empty_cache()
     return counts, float(np.median(ms[1:])), 100 * busy / host_ms
+
+
+# examples/variational.py's mixture at sizes that take the one-pass E-step:
+# every float32 fit on the card converges, to the two components of the
+# float64 fit of the same points on the CPU (weights and means to 3e-5, as
+# tests/test_torch_vb_float32.py holds the CPU's float32 fits)
+VB32_SIZES, VB32_SEEDS, VB32_ITERATIONS, VB32_TOL = (2048, 4096), range(1, 14), 3000, 3e-5
+
+
+def vb_float32_fits(device):
+    """The float32 VB fits of VB32_SIZES x VB32_SEEDS on the card, each
+    against the float64 fit of its points on the CPU; returns ``{n:
+    [iterations]}``."""
+    import torch
+
+    import pypmc_tpu_torch as pt
+
+    ex = example_module("variational")
+    mix = pt.density.create_gaussian_mixture(
+        [ex.mean0, ex.mean1], [ex.covariance0, ex.covariance1], ex.component_weights)
+    out, t0 = {}, time.perf_counter()
+    for n in VB32_SIZES:
+        for seed in VB32_SEEDS:
+            with pt.using_device(device):
+                data = mix.propose(n, rng=seed)
+                vb, it = ex.fit(data, 20, VB32_ITERATIONS)
+            require(vb._data_T.dtype == torch.float32 and vb._data_T.device == device,
+                    "vb float32: the data is %s on %s" % (vb._data_T.dtype, vb._data_T.device))
+            require(vb._fused_eligible() == "dense", "vb float32: n=%d took %s"
+                    % (n, vb._fused_eligible()))
+            with pt.using_device("cpu"):
+                ref, ref_it = ex.fit(data, 20, VB32_ITERATIONS)
+            require(it is not None, "vb float32: n=%d seed %d did not converge in %d "
+                    "iterations (float64 on the CPU: %s)" % (n, seed, VB32_ITERATIONS, ref_it))
+            got, want = vb.make_mixture(), ref.make_mixture()
+            require(len(got) == len(want) == 2, "vb float32: n=%d seed %d kept %d components "
+                    "(float64: %d)" % (n, seed, len(got), len(want)))
+            og, ow = np.argsort(got.weights), np.argsort(want.weights)
+            werr = float(np.max(np.abs(np.asarray(got.weights)[og]
+                                       / np.asarray(want.weights)[ow] - 1)))
+            merr = max(float(np.max(np.abs(np.asarray(got.components[a].mu)
+                                           - np.asarray(want.components[b].mu))
+                                    / np.maximum(np.abs(np.asarray(want.components[b].mu)), 1)))
+                       for a, b in zip(og, ow))
+            require(werr <= VB32_TOL and merr <= VB32_TOL,
+                    "vb float32: n=%d seed %d weights %.3g, means %.3g from float64 (limit %g)"
+                    % (n, seed, werr, merr, VB32_TOL))
+            out.setdefault(n, []).append(it)
+    print("  float32 fits of examples/variational.py's mixture (one-pass E-step, %d seeds; "
+          "%.1f s with the float64 CPU fits): all converged, iterations %s"
+          % (len(VB32_SEEDS), time.perf_counter() - t0, json.dumps(out)))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1921,7 +2432,8 @@ def blocked_update(device, report):
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         c = k.launch_counts()
-        require(c["fused_pmc_stats_blocked"] == 1 and kernel_launches(c) == 1,
+        require(c["fused_pmc_stats_blocked"] == 1 and c["solve_dofs"] == student_t
+                and kernel_launches(c) == 1 + student_t,
                 "blocked %s: the K=400 update launched %s" % (label, c))
         counts = c if counts is None else {n: counts[n] + c[n] for n in counts}
         n_cmp = BLOCKED_N // 2 if student_t else BLOCKED_N
@@ -2012,6 +2524,8 @@ def blocked_slice(device):
     require(np.all(ev_err < 0.01), "blocked slice: evidence off by %s" % ev_err)
     require(abs(masses[0] - 0.3) < 0.05 and abs(masses[1] - 0.7) < 0.05,
             "blocked slice: mode masses %s" % masses)
+    require(counts["solve_dofs"] == STEPS, "blocked slice: %d solve_dofs launches for %d steps"
+            % (counts["solve_dofs"], STEPS))
     require(counts["fused_is_pmc_step_blocked"] == STEPS and counts["plain:fused_is_pmc_step"] == 0,
             "blocked slice: %d fused_is_pmc_step_blocked launches for %d steps"
             % (counts["fused_is_pmc_step_blocked"], STEPS))
@@ -2033,7 +2547,7 @@ def phase_blocked(device, report):
     update = blocked_update(device, report)
     vb = blocked_vb(device, report)
     step, step_ms = blocked_slice(device)
-    profile_slice(device, step_ms, K=200)
+    dofs_before_after(device, 200)
     torch.cuda.empty_cache()
     return {n: update[n] + vb[n] + step[n] for n in update}, step_ms
 
@@ -2229,8 +2743,10 @@ def phase_pipeline(device):
     target = highdim_target(dim)
     starts = highdim_starts(target)
     k.reset_launch_counts()
+    vb = {"after": [], "before": []}
     t0 = time.perf_counter()
-    r = integrate(target, dim, starts, key=2024, **cfg)
+    with vb_runs(vb["after"]):
+        r = integrate(target, dim, starts, key=2024, **cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = k.launch_counts()
@@ -2279,11 +2795,20 @@ def phase_pipeline(device):
     # where the device time of the run goes: the same run again, profiled
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # (with the VB E-step's route as before the float32 stopping rule's
+    # repair: the one-pass E-step at any N)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            min_n(k, 0), vb_runs(vb["before"]):
         t0 = time.perf_counter()
         integrate(target, dim, starts, key=2024, **cfg)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+    for when, runs in (("after", vb["after"]), ("before", vb["before"])):
+        require(len(runs) == 2, "pipeline: %d VB runs, not VB1 and VB2" % len(runs))
+        print("  VB1, VB2 %s the float32 stopping rule's repair: %s"
+              % (when, "; ".join("N=%d D=%d K=%d %s" % (
+                  n, d, kk, "converged after %d iterations" % it if it is not None
+                  else "not converged in %d iterations" % cap) for n, d, kk, it, cap in runs)))
     rows = device_rows(prof, 1)
     busy = sum(r[0] for r in rows) / 1e3
     print("  profiled run: device %.3f s of %.3f s host (%.1f%% busy), %d launches"
@@ -2728,6 +3253,8 @@ EXAMPLE_RUNS = [("pmc_large_scale", []), ("pmc_large_scale", ["--components", "2
                 ("pmc_sharded", []), ("pmc", []), ("integrate_evidence", []),
                 ("uniting_markov_chains_and_variational_bayes", []), ("variational", []),
                 ("mixture_reduction", []), ("r_group", []), ("markov_chain", [])]
+# the examples whose chains must run as CUDA graphs (sampler._scan)
+GRAPH_EXAMPLES = ("markov_chain", "r_group", "uniting_markov_chains_and_variational_bayes")
 # launch_2proc.py's arguments (Makefile's run-example-2proc)
 EXAMPLE_2PROC = ["--particles", "100000", "--steps", "3"]
 EXAMPLE_2PROC_TIMEOUT = 300     # seconds a rank may take
@@ -2896,6 +3423,9 @@ def replay_launch(k, name, a, label, report):
         check_stats(label, got, k.plain_pmc_stats_blocked(x64, w_ref, wide(ops),
                                                           a["dof_stats"], n_sw=3), n, report,
                     k.plain_pmc_stats_blocked(xT, w_ref.float(), ops, a["dof_stats"], n_sw=3))
+    elif name == "solve_dofs":
+        solve_dofs_check(label, a["const"], a["old_dofs"], a["steps"], a["mindof"], a["maxdof"],
+                         report)
     elif name == "fused_mcmc_pool":
         points, _, _, xf, ef = fn(a["seed"], a["x0T"], a["e0"], a["cholr"], a["dof_prop"],
                                   a["target"], a["n_steps"])
@@ -2909,6 +3439,8 @@ def replay_launch(k, name, a, label, report):
 def describe_launch(key):
     """``K=.. Kt=.. D=.. N=..`` of a launch :func:`record_launches` kept."""
     shapes = dict(key[1:])
+    if key[0] == "solve_dofs":
+        return "K=%d steps=%d" % (shapes["const"][0], shapes["steps"])
     ops, target = shapes.get("ops"), shapes.get("target")
     # a mixture's shape is (K, D, Student-t); fused_maha's and the VB
     # E-step's operand a is (K, D, D)
@@ -2931,10 +3463,13 @@ def run_example(k, name, argv, device, log_dir):
     in a temporary working directory, its output written to ``log_dir``,
     between a reset and a read of the launch counts, with the devices of
     every kernel's tensors recorded and the arguments of a launch of each
-    shape kept.  Returns ``(result, counts, seconds, devices, launches)``,
-    ``launches`` as :func:`record_launches` keeps them."""
+    shape kept.  Returns ``(result, counts, seconds, devices, launches,
+    scans)``, ``launches`` as :func:`record_launches` keeps them, ``scans``
+    the chains' scan counts (``sampler._scan.counts``)."""
     import logging
     import os
+
+    from pypmc_tpu_torch.sampler import _scan
 
     module = example_module(name)
     tag = "_".join([name] + [a.lstrip("-") for a in argv])
@@ -2952,11 +3487,13 @@ def run_example(k, name, argv, device, log_dir):
         try:
             with temporary_working_directory(), contextlib.redirect_stdout(log):
                 k.reset_launch_counts()
+                _scan.reset_counts()
                 t0 = time.perf_counter()
                 result = module.main(argv + ["--device", str(device)])
                 sync(device)
                 seconds = time.perf_counter() - t0
                 counts = k.launch_counts()
+                scans = dict(_scan.counts)
         finally:
             undo()
             for fname, fn in names.items():
@@ -2964,7 +3501,7 @@ def run_example(k, name, argv, device, log_dir):
             k._WRAPPERS = wrappers
             vb_log.removeHandler(handler)
             vb_log.propagate = True
-    return result, counts, seconds, seen, launches
+    return result, counts, seconds, seen, launches, scans
 
 
 def gate_elects(k, kernel, K, D, Kt, rule):
@@ -3017,25 +3554,28 @@ def example_expectations(name, argv, out):
                  ("fused_pmc_stats", out["K"], out["dim"], 0, {})])
     if name == "uniting_markov_chains_and_variational_bayes":
         require(abs(out["integral"] - 1.0) < 0.01, "uniting: %s" % out)
+        # VB on 10 chains x 19 cycles x 500 steps thinned by 100 (950 points)
+        # and on 1000 importance samples: below the one-pass E-step's 1024
         return ("integral %.6f +- %.6f, perplexity %.4f, ESS %.4f, K %d/%d/%d (patches, VB, "
                 "VB2), acceptance %.3f" % (out["integral"], out["uncertainty"],
                                            out["perplexity"], out["ess"], out["long_patches"],
                                            out["vb_K"], out["vb2_K"], out["accept_rate"]),
                 [("fused_logq", 3, 2, 0, {}),
-                 ("fused_vb_estep", out["long_patches"], 2, 0, {}),
-                 ("fused_vb_estep", out["vb_K"], 2, 0, {}),
+                 ("fused_vb_estep", out["long_patches"], 2, 0, {"n": 950}),
+                 ("fused_vb_estep", out["vb_K"], 2, 0, {"n": 1000}),
+                 ("fused_maha", out["long_patches"], 2, 0, {}),
                  ("fused_propose_logq", out["vb_K"], 2, 0, {}),
                  ("fused_propose_logq", out["vb2_K"], 2, 0, {})])
     if name == "variational":
-        # float32 statistics leave the converged bound moving at ~1e-7
-        # relative, above run()'s rel_tol: the fit may end unconverged, as
-        # the JAX example allows ("The adaptation did not converge.")
-        require(len(out["mixture"]) == 2,
+        # 500 points: the E-step's statistics are direct sums over the data
+        # (the JAX package's one-pass E-step runs from 1024), so the float32
+        # fit repeats its bound exactly at its fixed point and converges
+        require(len(out["mixture"]) == 2 and out["converged"] is not None,
                 "variational.py: %d components (converged: %s)"
                 % (len(out["mixture"]), out["converged"]))
         return ("converged after %s iterations, weights %s"
                 % (out["converged"], np.round(np.sort(out["mixture"].weights), 4).tolist()),
-                [("fused_vb_estep", 20, 2, 0, {})])
+                [("fused_vb_estep", 20, 2, 0, {"n": 500}), ("fused_maha", 20, 2, 0, {})])
     if name == "mixture_reduction":
         require(len(out["hierarchical"]) == 10 and out["hierarchical_steps"] is not None,
                 "mixture_reduction.py: Hierarchical kept %d components"
@@ -3148,21 +3688,42 @@ def phase_examples(device, report, log_dir="build/examples"):
     ``device``, the first launch of each shape again against the plain
     version; examples 7-8 also against their float64 CPU runs.  Prints a
     line an example; returns the launch counts summed over the examples."""
+    import io
+    import logging
     import os
 
     import torch
     from pypmc_tpu_torch.ops import kernels as k
 
     os.makedirs(log_dir, exist_ok=True)
+    chain_graph_cases(device)
+    uncapturable_case(device)
     totals, results = {}, {}
     for name, argv in EXAMPLE_RUNS:
         torch.cuda.empty_cache()
-        out, counts, seconds, seen, launches = run_example(k, name, argv, device, log_dir)
+        out, counts, seconds, seen, launches, scans = run_example(k, name, argv, device,
+                                                                  log_dir)
         results[name if not argv else "%s %s" % (name, " ".join(argv))] = out
         numbers, elected = example_expectations(name, argv, out)
         launched = {n: c for n, c in counts.items() if c and not n.startswith("variant:")}
         title = " ".join([name + ".py"] + argv)
         print("  %s: %.2f s; %s; launches %s" % (title, seconds, numbers, json.dumps(launched)))
+        if name in GRAPH_EXAMPLES:
+            print("    chain scans %s" % json.dumps(scans))
+            require(scans["replays"] > 0 and scans["fallbacks"] == 0
+                    and scans["uncapturable"] == 0,
+                    "%s: the chains did not run as CUDA graphs: %s" % (name, scans))
+        if name == "r_group":
+            # a launch a chain-step and one a chain's start, 5 chains
+            require(counts["fused_logq"] == out["chain_steps"] + 5,
+                    "r_group.py: %d fused_logq launches for %d chain-steps of 5 chains"
+                    % (counts["fused_logq"], out["chain_steps"]))
+        if name == "pmc_large_scale":
+            require(counts["solve_dofs"] == counts["fused_is_pmc_step"]
+                    + counts["fused_is_pmc_step_blocked"],
+                    "%s: %d solve_dofs launches for %d Student-t steps"
+                    % (title, counts["solve_dofs"], counts["fused_is_pmc_step"]
+                       + counts["fused_is_pmc_step_blocked"]))
         # a launch of each shape again, against the plain version
         for key, arguments in launches.items():
             replay_launch(k, key[0], arguments, "%s %s %s" % (key[0], title,
@@ -3183,6 +3744,19 @@ def phase_examples(device, report, log_dir="build/examples"):
         for n, c in counts.items():
             totals[n] = totals.get(n, 0) + c
     examples_on_the_cpu(results, report)
+    # (its run logs each drop of the bound; not to stderr)
+    vb_log = logging.getLogger("pypmc_tpu_torch.mix_adapt.variational")
+    level = vb_log.level
+    vb_log.setLevel(logging.ERROR)
+    try:
+        with min_n(k, 0), contextlib.redirect_stdout(io.StringIO()):
+            _, before = example_module("variational").fit(results["variational"]["data"], 20,
+                                                          100)
+    finally:
+        vb_log.setLevel(level)
+    print("  variational.py converged after %s iterations; with the route before the float32 "
+          "stopping rule's repair (the one-pass E-step below 1024 points): %s"
+          % (results["variational"]["converged"], before))
 
     torch.cuda.empty_cache()
     out, counts, seconds = two_process_example(device, log_dir)
@@ -3446,11 +4020,22 @@ def phase_times(device, report):
          (N_PLAIN_MAX, N_SLICE))
     del sops, stops
     torch.cuda.empty_cache()
+    for K in SOLVE_DOFS_K:
+        c, old = dof_problem(K, K, device, torch.float32)
+        times[("solve_dofs", K, "cuda")] = cuda_ms(
+            lambda i: k.solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF), reps=50)
+        times[("solve_dofs", K, "plain")] = cuda_ms(
+            lambda i: k.plain_solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF), reps=5)
+        serial = solve_dofs_work(c, DOF_STEPS, max_sm_clock_ghz())[2]
+        print("  solve_dofs K=%d: serial-latency model (not measured; %d clocks a condition, "
+              "%d a unit of nu/2 below 10, at the largest SM clock) %.4f ms"
+              % (K, DOF_CONDITION_CLOCKS, DOF_UNIT_CLOCKS, serial))
     for name, n, split in blocked_splits_in_a_fresh_process():
         times[(name, n, "split")] = split
     for (name, n, route), ms in times.items():
         if route != "split":
-            size = bound(name, n)[0] if isinstance(n, tuple) else "N=%d" % n
+            size = (bound(name, n)[0] if isinstance(n, tuple)
+                    else ("K=%d" if name == "solve_dofs" else "N=%d") % n)
             print("  %-25s %-6s %-30s %9.3f ms" % (name, route, size, ms))
     return times
 
@@ -3802,6 +4387,32 @@ def bound(name, shape=None):
     return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def solve_dofs_entry(src, replaces, checks, counts, example_counts, times):
+    """The kernels JSON's entry of solve_dofs: its times at SOLVE_DOFS_K
+    (K=10 the main one) and its bound from :func:`solve_dofs_work` on the
+    timed constants."""
+    import torch
+
+    rows = []
+    for K in SOLVE_DOFS_K:
+        nbytes, ops, _ = solve_dofs_work(dof_problem(K, K, "cpu", torch.float32)[0], DOF_STEPS)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        rows.append({"shape": "K=%d steps=%d float32" % (K, DOF_STEPS),
+                     "ms": times[("solve_dofs", K, "cuda")],
+                     "plain_ms": times[("solve_dofs", K, "plain")],
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    worst = max(checks, key=lambda r: r["max_abs_err"] / r["tol"])
+    main, shapes = rows[0], rows[1:]
+    return {"name": "solve_dofs", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts["solve_dofs"], "max_abs_err": worst["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "shape": main["shape"],
+            "max_abs_err_tol": worst["tol"],
+            "max_abs_err_output": worst["output"],
+            "launches_examples": example_counts.get("solve_dofs", 0), "shapes": shapes}
+
+
 # the kernels that must not spill, with the largest DMAX checked: the
 # K-blocked statistics pass's register accumulation and the step's first
 # pass (DMAX 8 and 16), every record instantiation of fused_logq's,
@@ -4039,15 +4650,13 @@ def main():
     counts, step_ms, out = phase_slice(device)
     require(tuple(out.means.shape) == (10, 10) and tuple(out.cov.shape) == (10, 10, 10),
             "slice: adapted mixture of the wrong shape")
-    busy_ms = profile_slice(device, step_ms)
-    dofs_ms = time_solve_dofs(device)
-    print("  _solve_dofs alone (K=10, 100 bisection steps, host clock): %.3f ms, "
-          "%.1f%% of a step" % (dofs_ms, 100 * dofs_ms / step_ms))
+    dofs_before_after(device, 10)
     del out
     torch.cuda.empty_cache()
 
     phase("vb")
     vb_counts, vb_ms, vb_busy = phase_vb(device, report)
+    vb_float32_fits(device)
     phase("gate")
     gate_counts = phase_gate(device, report)
     torch.cuda.empty_cache()
@@ -4083,6 +4692,9 @@ def main():
         checks = [r for r in report if "max_abs_err" in r and (
             r["output"] == kname or r["output"].startswith(kname + " "))]
         require(checks, "%s: no check against its plain version" % kname)
+        if kname == "solve_dofs":
+            kernels.append(solve_dofs_entry(src, replaces, checks, counts, example_counts, times))
+            continue
         # the kernel-vs-plain comparison on the same inputs; for the pool,
         # whose points are a random walk, the kernel's and the plain pool's
         # whitened step moments; a check against the known distribution only
@@ -4162,6 +4774,10 @@ def main():
           "and table_ms_slice_n their entry-table pass there, and the kernel the three draws "
           "elect there, looped_ms their looped kernels there and at the shapes; "
           "launches_examples: the launches of phase examples, counted in launches); "
+          "solve_dofs at K=10, 100 bisection steps, float32 (shapes: K=200, 400), its "
+          "max_abs_err the |float64 condition| at its worst root against that root's "
+          "tolerance, bound_ms its bytes and FP operations on this data (its serial-latency "
+          "model is in phase times); "
           "library_ms null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)
@@ -4173,6 +4789,13 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--chunk-sweep"]:
+            import torch
+
+            print(card_line())
+            phase_build()
+            chunk_sweep(torch.device("cuda", 0))
+            sys.exit(0)
         if sys.argv[1:2] == ["--blocked-splits"]:
             print("BLOCKED_SPLITS " + json.dumps(blocked_splits()), flush=True)
             sys.exit(0)

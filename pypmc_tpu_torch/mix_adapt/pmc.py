@@ -243,13 +243,15 @@ def pmc_update(
 
 def _masked_update(params, alpha, mu, cov, const, live, dof_solver_steps,
                    mindof, maxdof):
-    """Solve the dofs (when the dof-condition constant ``const`` is given),
+    """Solve the dofs (when the dof-condition constant ``const`` is given;
+    kernel ``solve_dofs``, the bisection the JAX package runs inside its
+    jitted step),
     zero the weights of components that are not ``live``, and apply the
     update with the PSD-validity fallback of
     :func:`~pypmc_tpu_torch.density.core.update_masked`."""
     new_dofs = params.dof
     if const is not None:
-        new_dofs = _solve_dofs(const, params.dof, dof_solver_steps, mindof, maxdof)
+        new_dofs = _k.solve_dofs(const, params.dof, dof_solver_steps, mindof, maxdof)
     new_weights = torch.where(live, alpha, torch.zeros_like(alpha))
     return _core.update_masked(params, mu, cov, new_weights, new_dofs=new_dofs,
                                update_mask=live)
@@ -279,28 +281,6 @@ def _moments_from_whitened_stats(params, stats, weight_normalization, reduce,
         sxd = reduce(stats["t1"].to(dtype)) + c2 * (weight_normalization - alpha_unnorm)
         const = 1.0 - sxd / weight_normalization
     return alpha, mu, cov, const
-
-
-def _solve_dofs(const, old_dofs, dof_solver_steps, mindof, maxdof):
-    """Per-component [HOD12] eq. (16) first-order condition solved by
-    fixed-iteration bisection over all K components at once (the condition
-    is monotone decreasing in nu); brackets without a sign change clamp to
-    the interval ends (``pmc.pyx:700-710``)."""
-    def condition(nu):
-        return const + torch.log(0.5 * nu) - torch.special.digamma(0.5 * nu)
-
-    lo = torch.full_like(const, mindof)
-    hi = torch.full_like(const, maxdof)
-    f_lo, f_hi = condition(lo), condition(hi)
-    for _ in range(dof_solver_steps):
-        mid = 0.5 * (lo + hi)
-        go_right = condition(mid) > 0     # decreasing: root right of mid
-        lo = torch.where(go_right, mid, lo)
-        hi = torch.where(go_right, hi, mid)
-    root = 0.5 * (lo + hi)
-    root = torch.where(f_lo < 0, torch.full_like(root, mindof), root)
-    root = torch.where(f_hi > 0, torch.full_like(root, maxdof), root)
-    return torch.where(torch.isfinite(root), root, old_dofs)
 
 
 def pmc_step_mixture_target(

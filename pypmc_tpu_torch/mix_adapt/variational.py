@@ -4,9 +4,10 @@ Counterpart of :mod:`pypmc_tpu.mix_adapt.variational` (the reference's
 ``pypmc/mix_adapt/variational.pyx``), with the same names and return
 layouts.  The E-step over the data runs in one pass through kernel
 ``fused_vb_estep`` (CUDA float32; its plain version on the CPU) wherever
-the mixture fits the kernel (:func:`~pypmc_tpu_torch.ops.kernels.fits`),
-through ``fused_vb_estep_blocked`` where the JAX package elects its
-K-blocked E-step, and as tensor code over the ``(N, K)`` responsibilities
+the mixture fits the kernel (:func:`~pypmc_tpu_torch.ops.kernels.fits`)
+and there are at least 1024 points, as in the JAX package, through
+``fused_vb_estep_blocked`` where the JAX package elects its K-blocked
+E-step, and as tensor code over the ``(N, K)`` responsibilities
 otherwise; the
 responsibilities themselves (:attr:`GaussianInference.r`) are formed only
 when asked for.  The M-step and the bound are tensor code over the K
@@ -16,7 +17,10 @@ The data stays in its dtype on its device, kept once, transposed ``(D,
 N)``; the weights in the same dtype.  The hyperparameters are float64
 tensors on the data's device: the kernel takes float32 copies of its
 operands and returns float64 statistics, so the small K-sized algebra and
-the bound are float64 whatever the data.
+the bound are float64 whatever the data.  A float32 fit keeps the kernel's
+operands from one E-step to the next while they move by less than one
+float32 spacing (:func:`_held_operands`), so that its iteration reaches a
+fixed point and ``run`` stops.
 
 :class:`VBMerge` implements the [BGP10] mixture-compression variant, where
 the "samples" are the L input components with virtual sample counts
@@ -173,6 +177,7 @@ class _EStepOut(NamedTuple):
     x_mean_comp: torch.Tensor  # (K, D)
     S: torch.Tensor  # (K, D, D)
     log_q_Z: Optional[torch.Tensor] = None  # scalar (10.75); set only by the fused path
+    operands: Optional[tuple] = None  # (A, m, const) the one-pass kernel took; fused path only
 
 
 def _normalize_log_rho(log_rho, dtype):
@@ -238,6 +243,40 @@ def _vb_whitening(D, alpha, beta, nu, m, W, log_det_W):
     return e_lnlam, e_lnpi, A, const
 
 
+def _spacing(v, dtype):
+    """The spacing of ``dtype``'s numbers at ``|v|``, in ``v``'s dtype."""
+    a = v.abs().to(dtype)
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).to(v.dtype)
+
+
+def _held_operands(operands, scales, held, dtype):
+    """The one-pass E-step's ``operands`` ``(A, m, const)`` rounded to the
+    data's ``dtype``, except that each component keeps its ``held``
+    operands (those of the previous E-step) while every new value of it is
+    within one ``dtype`` spacing of its ``scales`` of that operand.
+
+    The kernel forms the statistics around its operands in ``dtype``, so
+    their rounding follows the operands' last bits.  Rounded afresh every
+    iteration, an operand whose value sits near a rounding boundary can
+    flip its last bit back and forth, and the iteration cycles with a bound
+    that moves by ~1e-7 relative and never meets ``run``'s ``rel_tol``;
+    held, the iteration reaches an exact fixed point, as the direct sums
+    do.  The statistics stay exact for the operands the kernel took (the
+    caller un-whitens with them), which are at most one spacing of the
+    component's scale from the float64 values."""
+    fresh = tuple(v.to(dtype) for v in operands)
+    if held is None or any(h.shape != f.shape for h, f in zip(held, fresh)):
+        return fresh
+    keep = None
+    for v, h, scale in zip(operands, held, scales):
+        near = (v - h.to(v.dtype)).abs() <= _spacing(scale, dtype).reshape(
+            scale.shape + (1,) * (v.dim() - 1))
+        near = near.flatten(1).all(1) if v.dim() > 1 else near
+        keep = near if keep is None else keep & near
+    return tuple(torch.where(keep.reshape((-1,) + (1,) * (f.dim() - 1)), h, f)
+                 for h, f in zip(held, fresh))
+
+
 def _vb_unwhiten(A, m, stats, e_lnlam, e_lnpi):
     """The reduced :class:`_EStepOut` from the one-pass statistics
     ``(N_comp, sd, g, log_q_Z)`` taken with operands ``A``, ``m``: exact
@@ -256,24 +295,34 @@ def _vb_unwhiten(A, m, stats, e_lnlam, e_lnpi):
 
 
 def _vb_e_step_fused(dataT, weights, alpha, beta, nu, m, W, log_det_W, blocked=False,
-                     reduce=None):
+                     reduce=None, held=None):
     """VB-GMM E-step with every sufficient statistic from one pass over the
     TRANSPOSED data ``(D, N)`` (kernel ``fused_vb_estep``, or
     ``fused_vb_estep_blocked`` with ``blocked``): no (N, K) matrix is
     formed, and the bound's per-sample term (10.75) comes back as the
     scalar ``log_q_Z``.  The reduced :class:`_EStepOut` carries None for the
     (N, K) fields; ``GaussianInference.r`` forms them on demand.  With
-    ``reduce`` the statistics are summed over a particle mesh's ranks."""
-    e_lnlam, e_lnpi, A, const = _vb_whitening(dataT.shape[0], alpha, beta, nu, m, W,
-                                              log_det_W)
-    dt = dataT.dtype
-    A_k, m_k = A.to(dt), m.to(dt)
+    ``reduce`` the statistics are summed over a particle mesh's ranks.
+    Data narrower than the hyperparameters (float32) gives the kernel
+    operands held from the previous E-step's ``held`` operands where they
+    have not moved (:func:`_held_operands`)."""
+    D, dt = dataT.shape[0], dataT.dtype
+    e_lnlam, e_lnpi, A, const = _vb_whitening(D, alpha, beta, nu, m, W, log_det_W)
+    operands = (A, m, const)
+    if dt == A.dtype:
+        ops = operands
+    else:
+        width = 1.0 / torch.diagonal(A, dim1=1, dim2=2).abs().amin(dim=1)
+        scales = (A.abs().amax(dim=(1, 2)), torch.maximum(m.abs().amax(dim=1), width),
+                  e_lnpi.abs() + 0.5 * (e_lnlam.abs() + D * _LOG_2PI + D / beta))
+        ops = _held_operands(operands, scales, held, dt)
     kernel = _k.fused_vb_estep_blocked if blocked else _k.fused_vb_estep
-    stats = kernel(dataT, weights.to(dt), A_k, m_k, const.to(dt))
+    stats = kernel(dataT, weights.to(dt), *ops)
     if reduce is not None:
         stats = tuple(reduce(v) for v in stats)
     # un-whiten with the operands the kernel saw
-    return _vb_unwhiten(A_k.to(A.dtype), m_k.to(m.dtype), stats, e_lnlam, e_lnpi)
+    e = _vb_unwhiten(ops[0].to(A.dtype), ops[1].to(m.dtype), stats, e_lnlam, e_lnpi)
+    return e._replace(operands=ops)
 
 
 def _vb_merge_e_step(mu, sigma, Nomega, alpha, beta, nu, m, W, log_det_W):
@@ -370,19 +419,21 @@ def _vb_bound(weights, e: _EStepOut, alpha, beta, nu, m, W, log_det_W,
 
 
 def _vb_update_bound(data, weights, N_comp, x_mean, S,
-                     alpha0, beta0, nu0, m0, inv_W0, log_det_W0, *, fused, reduce=None):
+                     alpha0, beta0, nu0, m0, inv_W0, log_det_W0, *, fused, reduce=None,
+                     held=None):
     """One full VB iteration -- M-step, E-step, likelihood bound,
     finiteness flag -- with one host synchronization: the bound and the
     flag come back as one ``(2,)`` tensor.
 
     ``data`` is ``(N, D)``, or ``(D, N)`` when ``fused`` (``"dense"`` or
     ``"blocked"``: the one-pass E-step takes the transposed layout).  With
-    ``reduce`` they are a particle mesh rank's shard (see :func:`_vb_e_step`).
+    ``reduce`` they are a particle mesh rank's shard (see :func:`_vb_e_step`);
+    ``held``: the previous one-pass E-step's operands (:func:`_vb_e_step_fused`).
     """
     hyper = _vb_m_step(N_comp, x_mean, S, alpha0, beta0, nu0, m0, inv_W0)
     if fused:
         e = _vb_e_step_fused(data, weights, *hyper, blocked=fused == "blocked",
-                             reduce=reduce)
+                             reduce=reduce, held=held)
     else:
         e = _vb_e_step(data, weights, *hyper, reduce=reduce)
     bound = _vb_bound(weights, e, *hyper, alpha0, beta0, nu0, m0, inv_W0, log_det_W0)
@@ -682,7 +733,8 @@ class GaussianInference(object):
     def _fused_eligible(self):
         """The E-step's route, as the JAX package's
         (:func:`~pypmc_tpu_torch.ops.kernels.route`): ``"dense"`` where the
-        one-pass kernel takes this mixture (``K*D <= 128``), ``"blocked"``
+        one-pass kernel takes this mixture (``K*D <= 128``) and N >= 1024,
+        ``"blocked"``
         where the JAX package elects its K-blocked E-step (the unfused (N,
         K) matrices would crowd 12 GiB), None for the unfused tensor
         path."""
@@ -701,8 +753,14 @@ class GaussianInference(object):
         data_T, w, reduce = self._shard()
         if fused:
             return _vb_e_step_fused(data_T, w, *self._posterior(),
-                                    blocked=fused == "blocked", reduce=reduce)
+                                    blocked=fused == "blocked", reduce=reduce,
+                                    held=self._held())
         return _vb_e_step(data_T.T, w, *self._posterior(), reduce=reduce)
+
+    def _held(self):
+        """The operands of the last one-pass E-step, None before one."""
+        e = getattr(self, "_e", None)
+        return None if e is None else e.operands
 
     def E_step(self):
         """Compute expectation values and summary statistics (reference
@@ -732,7 +790,8 @@ class GaussianInference(object):
         """Form the (N, K) E-step fields (responsibilities etc.) if the
         one-pass E-step was used; one extra pass over the data."""
         if self._e.r is None:
-            self._e = _vb_e_step(self.data, self.weights, *self._posterior())
+            self._e = _vb_e_step(self.data, self.weights, *self._posterior())._replace(
+                operands=self._e.operands)
 
     @property
     def r(self):
@@ -771,7 +830,8 @@ class GaussianInference(object):
         data_T, w, reduce = self._shard()
         hyper, e, bound_finite = _vb_update_bound(
             data_T if fused else data_T.T, w, self.N_comp,
-            self.x_mean_comp, self.S, *self._prior(), fused=fused, reduce=reduce)
+            self.x_mean_comp, self.S, *self._prior(), fused=fused, reduce=reduce,
+            held=self._held())
         bound, finite = bound_finite.tolist()   # the one host sync of the iteration
         if not finite:
             raise _np.linalg.LinAlgError(

@@ -608,6 +608,8 @@ def _declare(lib):
         # n_blocks, stream
         "pmc_fused_is_pmc_step_blocked": [U, U, P, P, P, P, P, P, P, P, P, P, L, I,
                                           I, I, I, I, I, I, I, P],
+        # const, old_dofs, out, K, steps, mindof, maxdof, is_double, stream
+        "pmc_solve_dofs": [P, P, P, I, I, ctypes.c_double, ctypes.c_double, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

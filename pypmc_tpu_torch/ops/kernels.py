@@ -16,6 +16,8 @@ wrapper                             CUDA source                      replaces (P
 :func:`fused_vb_estep_blocked`      ``csrc/vb_estep_blocked.cu``     ``pallas_kernels.py:1889``
 :func:`fused_is_pmc_step_blocked`   ``csrc/is_pmc_step_blocked.cu``  ``pallas_kernels.py:2067``
 :func:`fused_mcmc_pool`             ``csrc/mcmc_pool.cu``            ``pallas_kernels.py:2293``
+:func:`solve_dofs`                  ``csrc/solve_dofs.cu``           the ``lax.fori_loop`` of
+                                                                     ``mix_adapt/pmc.py:349``
 ==================================  ===============================  ==========================
 
 Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
@@ -29,7 +31,8 @@ elects it (:func:`elects_blocked`).  The decision depends only on the
 shape, so the CPU makes the card's choice.
 The device gate, :func:`use_kernel`, sits in each wrapper: a float32 tensor
 on CUDA goes to the kernel, a tensor on the CPU to the plain version, and a
-CUDA tensor of any other dtype raises ``TypeError``.  A CUDA tensor never
+CUDA tensor of any other dtype raises ``TypeError`` (:func:`solve_dofs`
+also takes float64).  A CUDA tensor never
 reaches a plain version through a wrapper, and a shape past the CUDA
 kernel's own limits (``_build.limit_reason``), a failed build or a failed
 launch raises.  The plain versions (``plain_*``) compute the same
@@ -75,7 +78,8 @@ __all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked", "rout
            "plain_pmc_stats", "plain_is_pmc_step", "plain_vb_estep",
            "plain_pmc_stats_blocked", "plain_vb_estep_blocked",
            "plain_is_pmc_step_blocked", "plain_transform", "plain_transform_rng",
-           "plain_mcmc_pool", "mcmc_step_chunk", "launch_counts", "reset_launch_counts"]
+           "plain_mcmc_pool", "solve_dofs", "plain_solve_dofs", "mcmc_step_chunk",
+           "launch_counts", "reset_launch_counts", "add_launch_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +123,12 @@ _QUANTUM_EVAL, _QUANTUM_RNG = 128, 1024
 _DENSE_KD = 128
 _BLOCKED_HBM = 12 * 1024 ** 3
 _SINGLE_PASS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
+# the fewest particles for which the JAX package's GaussianInference takes
+# its one-pass E-step (variational.py:743); below it the E-step's
+# statistics are direct sums over the data, which repeat exactly once the
+# responsibilities settle, where the one-pass statistics are un-whitened
+# through the float32 operands
+_MIN_N = 1024
 
 
 def _pad8(n):
@@ -160,8 +170,9 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
     """None where the JAX package runs its Pallas kernel for a (K, D)
     mixture (with a Kt-component target), else its rule, named.
 
-    The transform kernels also take the particle count ``n`` (they run
-    only from 1024 particles; None skips that part of the rule).  For
+    The transform kernels and ``fused_vb_estep`` also take the particle
+    count ``n`` (they run only from 1024 particles; None skips that part of
+    the rule).  For
     ``fused_mcmc_pool``, ``K`` is the target's component count, and the
     rule needs the steps of a cycle ``n_steps`` and whether the proposal is
     Student-t."""
@@ -190,6 +201,8 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
         ok, rule = K * D <= _DENSE_KD, "K*D <= %d" % _DENSE_KD
         if kernel == "fused_is_pmc_step" and ok:
             ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
+        elif kernel == "fused_vb_estep" and ok and n is not None and n < _MIN_N:
+            ok, rule = False, "K*D <= %d and n >= %d (n=%d)" % (_DENSE_KD, _MIN_N, n)
     else:
         raise ValueError("unknown kernel %r" % kernel)
     if ok:
@@ -228,7 +241,7 @@ def route(kernel, K, D, N, Kt=0):
     ``"blocked"`` where the JAX package elects the K-blocked variant
     (:func:`elects_blocked`), else None, the unfused path, counted as the
     route ``plain:<kernel>`` in :func:`launch_counts`."""
-    if fits(kernel, K, D, Kt):
+    if fits(kernel, K, D, Kt, n=N):
         return "dense"
     if elects_blocked(kernel, K, D, N, Kt):
         return "blocked"
@@ -666,6 +679,26 @@ def plain_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperand
     log_q = _streaming_logq(xT, ops, chunks)
     w = torch.exp(plain_logq_blocked(xT, target) - log_q)
     return xT, latent, w, _plain_stats(xT, w, ops, dof_stats, 3, chunks, log_q)
+
+
+def plain_solve_dofs(const, old_dofs, steps, mindof, maxdof):
+    """Plain version of :func:`solve_dofs`: the bisection over all K
+    components at once, ~13 tensor operations a step."""
+    def condition(nu):
+        return const + torch.log(0.5 * nu) - torch.special.digamma(0.5 * nu)
+
+    lo = torch.full_like(const, mindof)
+    hi = torch.full_like(const, maxdof)
+    f_lo, f_hi = condition(lo), condition(hi)
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        go_right = condition(mid) > 0     # decreasing: root right of mid
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    root = 0.5 * (lo + hi)
+    root = torch.where(f_lo < 0, torch.full_like(root, mindof), root)
+    root = torch.where(f_hi > 0, torch.full_like(root, maxdof), root)
+    return torch.where(torch.isfinite(root), root, old_dofs)
 
 
 # --------------------------------------------------------------------- #
@@ -1217,10 +1250,41 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
     return points, accepts, nan_counts, xfT, ef
 
 
+def solve_dofs(const, old_dofs, steps, mindof, maxdof):
+    """The [HOD12] eq. (16) Student-t dof update of K components: the
+    root in nu of ``const_k + log(nu / 2) - digamma(nu / 2)`` (decreasing
+    in nu) by ``steps`` bisection steps on ``[mindof, maxdof]``, clamped to
+    an end where the bracket holds no sign change, the old dof where the
+    root is not finite (a NaN ``const`` falls to ``mindof``), in one launch
+    of kernel ``csrc/solve_dofs.cu`` (float32 or float64)."""
+    if const.device != old_dofs.device:
+        raise ValueError("tensors on different devices: %s, %s"
+                         % (const.device, old_dofs.device))
+    if const.device.type == "cpu":
+        return plain_solve_dofs(const, old_dofs, steps, mindof, maxdof)
+    if const.device.type != "cuda":
+        raise TypeError("no kernels for device type %r" % const.device.type)
+    if const.dtype not in (torch.float32, torch.float64):
+        raise TypeError("solve_dofs takes float32 or float64 tensors, got %s" % const.dtype)
+    K = const.shape[0]
+    const, old_dofs = const.contiguous(), old_dofs.contiguous()
+    _check(const, (K,), const.dtype)
+    _check(old_dofs, (K,), const.dtype)
+    lib = _build.load()
+    out = torch.empty_like(const)
+    with torch.cuda.device(const.device):
+        err = lib.pmc_solve_dofs(const.data_ptr(), old_dofs.data_ptr(), out.data_ptr(), K,
+                                 int(steps), float(mindof), float(maxdof),
+                                 int(const.dtype == torch.float64), _stream(const.device))
+    _raise_on(err, "solve_dofs")
+    solve_dofs.launches += 1
+    return out
+
+
 _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
              fused_maha, fused_rho, fused_vb_estep, fused_transform,
              fused_transform_rng, fused_mcmc_pool, fused_pmc_stats_blocked,
-             fused_vb_estep_blocked, fused_is_pmc_step_blocked)
+             fused_vb_estep_blocked, fused_is_pmc_step_blocked, solve_dofs)
 
 
 _variant_counts = {}
@@ -1232,7 +1296,7 @@ def reset_launch_counts():
     its dense twin's gate counts)."""
     for fn in _WRAPPERS:
         fn.launches = 0
-        if fn.__name__ not in _build.BLOCKED:
+        if fn.__name__ in _build.KERNELS and fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
     for name in _build.DRAWS:
         for variant in _DRAW_VARIANTS:
@@ -1253,6 +1317,18 @@ def launch_counts() -> dict:
     counts.update({"plain:" + name: n for name, n in _plain_routes.items()})
     counts.update({"variant:" + name: n for name, n in _variant_counts.items()})
     return counts
+
+
+def add_launch_counts(delta, times=1):
+    """Add ``times`` x ``delta``, a difference of two :func:`launch_counts`,
+    to the counts: a CUDA graph launches on each replay the kernels its
+    capture recorded, where the wrappers counted them once."""
+    for fn in _WRAPPERS:
+        fn.launches += times * delta.get(fn.__name__, 0)
+    for name in _plain_routes:
+        _plain_routes[name] += times * delta.get("plain:" + name, 0)
+    for name in _variant_counts:
+        _variant_counts[name] += times * delta.get("variant:" + name, 0)
 
 
 reset_launch_counts()

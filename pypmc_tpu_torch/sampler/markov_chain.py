@@ -9,12 +9,16 @@ runs C chains at once, adapting each chain's proposal covariance between
 cycles with the [HST01] rule as batched tensor code.  Against a mixture
 target in float32 a cycle is one launch of kernel ``fused_mcmc_pool``
 (``ops.kernels``), where the JAX package runs its Pallas pool; otherwise
-the tensor pool steps all chains together.
+the tensor pool steps all chains together.  The single chain's steps and
+the tensor pool's run as a :class:`~pypmc_tpu_torch.sampler._scan.Scan`:
+CUDA graphs of up to ``_scan.CHUNK`` steps replayed on the card, the JAX
+package's compiled ``lax.scan``.
 
 Targets take a tensor point ``x (D,)`` on the chain's device (or a batch,
 when marked with :func:`~pypmc_tpu_torch.sampler.batched_target`).
 """
 
+import functools
 import logging
 from copy import deepcopy as _cp
 
@@ -29,6 +33,7 @@ from ..ops import kernels as _k
 from ..ops import random as _random
 from ..tools import History as _History
 from ..tools.indicator import merge_function_with_indicator as _indmerge
+from . import _scan
 from ._target import batched_target, evaluate_target, is_batched, is_transposed
 
 logger = logging.getLogger(__name__)
@@ -45,6 +50,36 @@ def _point_target(target):
     if is_transposed(target):
         return lambda x: target(x[:, None])[0]
     return lambda x: target(x[None, :])[0]
+
+
+def _chain_steps(target, xs, ys, carry, consts, strict):
+    """``len(log_u)`` Metropolis steps of one chain from the proposal
+    steps ``delta`` (the JAX package's ``step``, ``markov_chain.py:49-64``),
+    in place on ``carry = (current, current_eval, accepts, nans)``; the
+    visited points and their log-densities into ``ys``."""
+    delta, log_u = xs
+    points, evals = ys
+    current, current_eval, accepts, nans = carry
+    cur, cur_eval = current, current_eval
+    for i in range(log_u.shape[0]):
+        proposed = cur + delta[i]
+        value = target(proposed)
+        if strict:
+            _scan.check_capturable(value, cur)
+        proposed_eval = torch.as_tensor(value, dtype=cur.dtype, device=cur.device)
+        log_rho = proposed_eval - cur_eval
+        is_nan = torch.isnan(log_rho)
+        # accept on log_rho >= 0 or log_rho > log u (STRICT, so a
+        # zero-probability proposal is never accepted when u draws 0)
+        accept = ~is_nan & ((log_rho >= 0) | (log_rho > log_u[i]))
+        cur = torch.where(accept, proposed, cur)
+        cur_eval = torch.where(accept, proposed_eval, cur_eval)
+        points[i] = cur
+        evals[i] = cur_eval
+        accepts += accept
+        nans |= is_nan
+    current.copy_(cur)
+    current_eval.copy_(cur_eval)
 
 
 class MarkovChain(object):
@@ -93,6 +128,7 @@ class MarkovChain(object):
             )
         self._numpy_rng = rng if _rng.is_numpy_rng(rng) else None
         self._gen = None if self._numpy_rng is not None else _rng.as_generator(rng)
+        self._scan = None
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -126,37 +162,27 @@ class MarkovChain(object):
         return self._run_host(N, continue_on_NaN)
 
     def _run_device(self, N, continue_on_NaN):
-        """Tensor steps on the device, all randomness drawn first."""
+        """Tensor steps on the device, all randomness drawn first, run by
+        the chain's :class:`~pypmc_tpu_torch.sampler._scan.Scan` (CUDA
+        graphs on the card, kept for the chain's later runs)."""
         gen = _rng.device_generator(_rng.seed_words(self._gen), self.device)
         D = len(self.current_point)
         z = torch.randn((N, D), generator=gen, dtype=self.dtype, device=self.device)
-        # u in [0, 1): accept on log_rho >= 0 or log_rho > log u (STRICT, so a
-        # zero-probability proposal is never accepted when u draws 0)
         log_u = torch.log(torch.rand((N,), generator=gen, dtype=self.dtype,
                                      device=self.device))
         if isinstance(self.proposal, LocalStudentT):
             dof = torch.full((N,), self.proposal.dof, dtype=self.dtype, device=self.device)
             z = z * torch.sqrt(dof / _random.chisquare(gen, dof, (N,)))[:, None]
         delta = z @ self._tensor(self.proposal.cholesky_sigma).T
-        current = self._tensor(self.current_point)
-        current_eval = self._tensor(self.current_target_eval)
         points = torch.empty((N, D), dtype=self.dtype, device=self.device)
         evals = torch.empty((N,), dtype=self.dtype, device=self.device)
-        accepts = torch.zeros((), dtype=torch.int64, device=self.device)
-        nans = torch.zeros((), dtype=torch.bool, device=self.device)
-        for i in range(N):
-            proposed = current + delta[i]
-            proposed_eval = torch.as_tensor(self.target(proposed), dtype=self.dtype,
-                                            device=self.device)
-            log_rho = proposed_eval - current_eval
-            is_nan = torch.isnan(log_rho)
-            accept = ~is_nan & ((log_rho >= 0) | (log_rho > log_u[i]))
-            current = torch.where(accept, proposed, current)
-            current_eval = torch.where(accept, proposed_eval, current_eval)
-            points[i] = current
-            evals[i] = current_eval
-            accepts += accept
-            nans |= is_nan
+        carry = (self._tensor(self.current_point), self._tensor(self.current_target_eval),
+                 torch.zeros((), dtype=torch.int64, device=self.device),
+                 torch.zeros((), dtype=torch.bool, device=self.device))
+        if self._scan is None:
+            self._scan = _scan.Scan(functools.partial(_chain_steps, self.target))
+        current, current_eval, accepts, nans = self._scan.run((delta, log_u), (points, evals),
+                                                              carry)
         if bool(nans) and not continue_on_NaN:
             raise ValueError(_NAN_MESSAGE)
         self.samples.append(N)[:] = points.cpu().numpy()
@@ -329,12 +355,41 @@ def _adapt_pool(unscaled, scale_factors, chols, points, rates, cycle, p):
     return unscaled, scale_factors, chols
 
 
-def _tensor_cycle(gen, pool_target, current, current_eval, chols, n, dof):
+def _pool_steps(pool_target, xs, ys, carry, consts, strict):
+    """``len(log_u)`` steps of every chain of the tensor pool against
+    ``pool_target``, a batched function of ``(C, D)`` (the JAX package's
+    ``all_chains_cycle`` step, ``markov_chain.py:386-419``), in place on
+    ``carry = (current, current_eval, accepts, nans)``; the visited points
+    into ``ys``; ``consts`` the chains' proposal factors."""
+    z, log_u = xs
+    (points,) = ys
+    current, current_eval, accepts, nans = carry
+    (chols,) = consts
+    cur, cur_eval = current, current_eval
+    for s in range(log_u.shape[0]):
+        proposed = cur + torch.einsum("cde,ce->cd", chols, z[s])
+        proposed_eval = pool_target(proposed)
+        if strict:
+            _scan.check_capturable(proposed_eval, cur)
+        log_rho = proposed_eval - cur_eval
+        is_nan = torch.isnan(log_rho)
+        accept = ~is_nan & ((log_rho >= 0) | (log_rho > log_u[s]))
+        cur = torch.where(accept[:, None], proposed, cur)
+        cur_eval = torch.where(accept, proposed_eval, cur_eval)
+        points[s] = cur
+        accepts += accept.to(cur.dtype)
+        nans += is_nan.sum()
+    current.copy_(cur)
+    current_eval.copy_(cur_eval)
+
+
+def _tensor_cycle(gen, scan, current, current_eval, chols, n, dof):
     """One cycle of the tensor pool (the JAX package's
     ``all_chains_cycle``, ``markov_chain.py:386-419``): all randomness drawn
-    first, then ``n`` steps of every chain against ``pool_target``, a
-    batched function of ``(C, D)``.  Returns ``(points (C, n, D), rates
-    (C,), nan count (), current, current_eval)``."""
+    first, then ``n`` steps of every chain by ``scan``, a
+    :class:`~pypmc_tpu_torch.sampler._scan.Scan` of :func:`_pool_steps`.
+    Returns ``(points (C, n, D), rates (C,), nan count (), current,
+    current_eval)``."""
     C, D = current.shape
     dtype, device = current.dtype, current.device
     z = torch.randn((n, C, D), generator=gen, dtype=dtype, device=device)
@@ -343,19 +398,9 @@ def _tensor_cycle(gen, pool_target, current, current_eval, chols, n, dof):
         dofs = torch.full((n, C), float(dof), dtype=dtype, device=device)
         z = z * torch.sqrt(dofs / _random.chisquare(gen, dofs, (n, C)))[..., None]
     points = torch.empty((n, C, D), dtype=dtype, device=device)
-    accepts = torch.zeros((C,), dtype=dtype, device=device)
-    nans = torch.zeros((), dtype=torch.int64, device=device)
-    for s in range(n):
-        proposed = current + torch.einsum("cde,ce->cd", chols, z[s])
-        proposed_eval = pool_target(proposed)
-        log_rho = proposed_eval - current_eval
-        is_nan = torch.isnan(log_rho)
-        accept = ~is_nan & ((log_rho >= 0) | (log_rho > log_u[s]))
-        current = torch.where(accept[:, None], proposed, current)
-        current_eval = torch.where(accept, proposed_eval, current_eval)
-        points[s] = current
-        accepts += accept.to(dtype)
-        nans += is_nan.sum()
+    carry = (current, current_eval, torch.zeros((C,), dtype=dtype, device=device),
+             torch.zeros((), dtype=torch.int64, device=device))
+    current, current_eval, accepts, nans = scan.run((z, log_u), (points,), carry, (chols,))
     return points.permute(1, 0, 2), accepts / n, nans, current, current_eval
 
 
@@ -440,6 +485,8 @@ def sample_adaptive_chains(target, starts, sigma0, n_steps, n_adapt_cycles,
         t_ops = _core._kernel_operands(mix_target)
         currentT = current.T.contiguous()
 
+    scan = None if use_kernel else _scan.Scan(functools.partial(
+        _pool_steps, functools.partial(evaluate_target, pool_target)))
     all_points, all_rates, nan_counts = [], [], []
     for cycle in range(n_adapt_cycles):
         seed = _rng.seed_words(gen)
@@ -452,8 +499,8 @@ def sample_adaptive_chains(target, starts, sigma0, n_steps, n_adapt_cycles,
             nans = nans.sum()
         else:
             points, rates, nans, current, current_eval = _tensor_cycle(
-                _rng.device_generator(seed, device), lambda x: evaluate_target(pool_target, x),
-                current, current_eval, chols, int(n_steps), dof)
+                _rng.device_generator(seed, device), scan, current, current_eval, chols,
+                int(n_steps), dof)
         all_points.append(points)
         all_rates.append(rates)
         nan_counts.append(nans)

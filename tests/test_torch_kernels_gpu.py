@@ -254,3 +254,17 @@ def test_dispatch_and_launch_counts(cuda):
         kernels.fused_pmc_stats(torch.zeros((129, 10), device=cuda),
                                 torch.ones((10,), device=cuda), wide)
     assert kernels.fused_logq(torch.zeros((129, 10), device=cuda), wide).shape == (10,)
+
+
+@pytest.mark.parametrize("K", chip_smoke.SOLVE_DOFS_K)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_dofs_against_plain_version(cuda, K, dtype):
+    chip_smoke.solve_dofs_case(K, getattr(torch, dtype), cuda, [])
+
+
+def test_chains_as_cuda_graphs_equal_the_eager_loop(cuda):
+    chip_smoke.chain_graph_cases(cuda)
+
+
+def test_uncapturable_target_falls_back_to_the_eager_loop(cuda):
+    chip_smoke.uncapturable_case(cuda)

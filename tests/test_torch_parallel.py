@@ -280,10 +280,11 @@ class TestShardedVB:
     @pytest.mark.parametrize("K", [4, 70])   # the one-pass E-step; the unfused one
     def test_vb_sharded_data_matches_unsharded(self, K):
         """GaussianInference(mesh=) equals the port without a mesh bit for
-        bit, and the JAX package's (XLA E-step, float64) to 1e-10."""
+        bit, and the JAX package's (XLA E-step, float64) to 1e-10 (1040
+        points: the one-pass E-step runs from 1024)."""
         rng = np.random.default_rng(0)
-        data = np.vstack([rng.normal(0, 1, (40, 2)), rng.normal(5, 1, (40, 2))])
-        w = np.abs(rng.normal(1, 0.2, size=80))
+        data = np.vstack([rng.normal(0, 1, (520, 2)), rng.normal(5, 1, (520, 2))])
+        w = np.abs(rng.normal(1, 0.2, size=1040))
         m = rng.normal(2.5, 2.0, size=(K, 2))
         plain = tvb.GaussianInference(data, components=K, weights=w, m=m)
         plain.run(iterations=10, prune=0.0)

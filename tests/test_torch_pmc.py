@@ -12,6 +12,7 @@ import pypmc_tpu.mix_adapt.pmc as jpmc
 import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt import pmc
+from pypmc_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
 
@@ -100,7 +101,7 @@ def test_solve_dofs_matches_jax():
     old = np.array([3.0, 4.0, 5.0, 6.0, 7.0])
     ref = np.asarray(jpmc._solve_dofs(jnp.asarray(const), jnp.asarray(old), 100,
                                       1e-5, 1e3, jnp.float64))
-    got = pmc._solve_dofs(torch.tensor(const), torch.tensor(old), 100, 1e-5, 1e3).numpy()
+    got = kernels.solve_dofs(torch.tensor(const), torch.tensor(old), 100, 1e-5, 1e3).numpy()
     np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=ATOL64)
     assert got[3] == 1e3      # no sign change: clamped to the interval end
 

@@ -39,8 +39,9 @@ def _modules(pkg):
     return sorted(name.split(".", 1)[1] for name in names)
 
 
-# modules of one package with no counterpart in the other
-PORT_ONLY_MODULES = {"_device", "ops._build", "ops.kernels"}
+# modules of one package with no counterpart in the other (sampler._scan:
+# the chains' CUDA graphs, where the JAX package jits a lax.scan)
+PORT_ONLY_MODULES = {"_device", "ops._build", "ops.kernels", "sampler._scan"}
 JAX_ONLY_MODULES = {"_version", "ops.pallas_kernels"}
 # names of a JAX module's __all__ with no counterpart in PyTorch: the JAX
 # keys, the Pallas switch, and the JAX sharding objects (each rank holds its

@@ -79,9 +79,12 @@ def assert_runs_agree(t_iterations, j_iterations):
 # ------------------------------------------------------------------ #
 
 @pytest.mark.parametrize("weighted", [False, True])
-def test_first_e_step(weighted):
+def test_first_e_step(weighted, monkeypatch):
     """Both E-steps of the constructor: the one-pass (plain fused_vb_estep)
-    statistics and the (N, K) fields formed on demand."""
+    statistics and the (N, K) fields formed on demand.  The one-pass
+    E-step runs from 1024 points, as the JAX package's: the rule is
+    lowered here so that the 50 points take it."""
+    monkeypatch.setattr(kernels, "_MIN_N", 1)
     j, t = both(WEIGHTS if weighted else None)
     assert t._e.r is None            # the one-pass E-step ran
     assert_same_state(t, j)
@@ -270,10 +273,11 @@ def test_e_step_past_the_kernel_limit_takes_the_unfused_path(K, D):
     """The JAX package runs its one-pass E-step for K*D <= 128 (K=2, D=40
     included) and its XLA E-step past it (K=15, D=10).  The port routes
     alike: the one-pass E-step at K=2, D=40, and the unfused tensor code,
-    counted as plain:fused_vb_estep, at K=15, D=10.  Both match."""
+    counted as plain:fused_vb_estep, at K=15, D=10.  Both match.  (1100
+    points: the one-pass E-step runs from 1024.)"""
     rng = np.random.default_rng(5)
     centers = rng.normal(0, 6, (K, D))
-    data = centers[np.arange(150) % K] + rng.normal(0, 1, (150, D))
+    data = centers[np.arange(1100) % K] + rng.normal(0, 1, (1100, D))
     one_pass = K * D <= 128
     assert kernels.fits("fused_vb_estep", K, D) == one_pass
     kernels.reset_launch_counts()
