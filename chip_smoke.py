@@ -73,7 +73,15 @@ Phases, each of which exits non-zero on failure:
    constants with a NaN, both infinities and one past each clamp: against
    its plain version in its dtype (the roots equal bit for bit counted;
    the clamped, NaN and infinite entries equal) and in float64 (each root
-   within ``DOF_ULPS`` ulps of the float64 condition's zero);
+   within ``DOF_ULPS`` ulps of the float64 condition's zero); its warp
+   kernel (the default), its serial kernel (``variant="serial"``) and the
+   plain version in the same dtype equal bit for bit at 0, 1, 5, 7 and 100
+   steps.  Each kernel that draws from a seed (``fused_propose_logq``,
+   ``fused_transform_rng``, ``fused_is_pmc_step``,
+   ``fused_is_pmc_step_blocked``; every variant that draws) with its two
+   words in a tensor on the card against the words by value, every output
+   bit for bit; one ``fused_is_pmc_step`` launch captured as a CUDA graph,
+   replayed with two seeds in its tensor, draws each seed's particles;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
@@ -83,6 +91,16 @@ Phases, each of which exits non-zero on failure:
    with the dofs solved by the host loop of before (the plain version on
    the card) and by ``solve_dofs``, in turns: host ms, device ms and
    launches a step;
+   scan: ``pmc_run_sharded(scan_steps=True)`` against ``scan_steps=False``
+   in turns (loop, scan, scan, loop, after the scan's warm-up and capture)
+   at the slice, its ``--components 200`` (the K-blocked step), the slice
+   at 2^16 particles, ``examples/pmc_sharded.py``'s configuration (1001
+   particles) and a D=40 step of 1000 particles that no kernel draws: every
+   run bit for bit the first loop's, the launches equal, the steps replayed
+   as CUDA graphs with no fallback where a kernel draws and the counted
+   fallback with one warning where none does; host ms a step both ways,
+   device ms a step (torch.profiler) and the peak memory of the loop, the
+   capture and a replay;
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
    configuration (N=2^22, K=10, D=10, float32) for 50 iterations with
    pruning (every ``fused_vb_estep`` launch on its register pass), one
@@ -134,7 +152,10 @@ Phases, each of which exits non-zero on failure:
     the vb phase's configuration, rank-0-only checkpoints and
     ``integrate(mesh=)`` at the pipeline phase's configuration (evidence
     error under 1%, ESS above 0.15); rows 1, 5, 7, 8 and 9 must launch on
-    every rank, with every tensor handed to a kernel on cuda:0.  (a) equals
+    every rank, with every tensor handed to a kernel on cuda:0.  The PMC
+    run again with ``scan_steps=True``, twice, bit for bit the loop's: (a)
+    its CUDA graphs replayed or the fallback's cause printed, (b) the
+    counted fallback with one warning on each rank, alike.  (a) equals
     ``mesh=None`` bit for bit (the PMC run, VB) and traces one step with
     ``profiling.trace`` (its ``pmc_step`` range and ``dense_reg_kernel``);
     (b) holds the all-reduced float64 update of two halves to one rank's
@@ -185,7 +206,9 @@ Phases, each of which exits non-zero on failure:
     N=2^16, and the device time of each launch of the K-blocked kernels
     (torch.profiler, in a fresh process: ``chip_smoke.py
     --blocked-splits``), the first launch also beside its bound;
-    ``solve_dofs`` and its plain version at K=10, 200 and 400.
+    ``solve_dofs``'s warp and serial kernels (CUDA events, and device time
+    by torch.profiler in that fresh process) and its plain version at K=10,
+    200 and 400.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -1395,6 +1418,11 @@ def phase_kernels(device, cases, eval_cases):
     for K in SOLVE_DOFS_K:
         for dtype in (torch.float32, torch.float64):
             solve_dofs_case(K, dtype, device, report)
+            solve_dofs_variants_case(K, dtype, device)
+    for case in SEED_POINTER_CASES:
+        seed_pointer_case(case, device)
+        torch.cuda.empty_cache()
+    seed_replay_case(device)
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
     from pypmc_tpu_torch.density import core
@@ -1504,6 +1532,131 @@ def solve_dofs_check(label, const, old, steps, mindof, maxdof, report):
 def solve_dofs_case(K, dtype, device, report):
     solve_dofs_check("solve_dofs K=%d %s" % (K, str(dtype).split(".")[-1]),
                      *dof_problem(K, K, device, dtype), DOF_STEPS, MINDOF, MAXDOF, report)
+
+
+# the bisection steps the kernels are held at: no step, a short last
+# round of the warp kernel (1, 7), one whole round (5), the PMC default
+DOF_STEPS_CASES = (0, 1, 5, 7, 100)
+
+
+def solve_dofs_variants_case(K, dtype, device):
+    """The warp kernel (the default), the serial kernel (``variant=
+    "serial"``, PR 14's) and the plain version in the same dtype, on the
+    card, on :func:`dof_problem`'s constants (a NaN, both infinities, one
+    past each clamp) at every ``DOF_STEPS_CASES`` entry: equal bit for
+    bit."""
+    from pypmc_tpu_torch.ops import kernels as k
+
+    const, old = dof_problem(K, K + 1, device, dtype)
+    for steps in DOF_STEPS_CASES:
+        warp = k.solve_dofs(const, old, steps, MINDOF, MAXDOF)
+        serial = k.solve_dofs(const, old, steps, MINDOF, MAXDOF, variant="serial")
+        plain = k.plain_solve_dofs(const, old, steps, MINDOF, MAXDOF)
+        sync(device)
+        differ = [int((a != b).sum()) for a, b in ((warp, plain), (serial, warp))]
+        require(differ == [0, 0],
+                "solve_dofs K=%d %s steps=%d: %d roots of the warp kernel differ from the "
+                "plain version's, %d of the serial kernel from the warp kernel's"
+                % (K, dtype, steps, differ[0], differ[1]))
+    print("  solve_dofs K=%d %s: the warp kernel = the serial kernel = the plain version, bit "
+          "for bit, at steps %s" % (K, str(dtype).split(".")[-1], list(DOF_STEPS_CASES)))
+
+
+# (kernel, K, D, Kt, N, variant): each seeded kernel's launches with the
+# words in a tensor against the words by value; every kernel variant that
+# draws (the draws' record, looped and warp kernels, the step's two passes,
+# the K-blocked step's two first launches)
+SEED_POINTER_CASES = [
+    ("fused_propose_logq", 10, 10, 2, N_FLAGSHIP, None),
+    ("fused_propose_logq", 10, 10, 2, N_FLAGSHIP, "looped"),
+    ("fused_propose_logq", 1, 200, 0, 1 << 16, None),
+    ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, "reg"),
+    ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, "table"),
+    ("fused_is_pmc_step_blocked", 200, 10, 2, 1 << 18, None),
+    ("fused_is_pmc_step_blocked", 96, 40, 2, 1 << 16, None),
+]
+SEED_WORDS = (0x9E3779B9, 0x7F4A7C15)
+
+
+def tensors_of(value):
+    """The tensors of a kernel's outputs (tuples and dicts of them)."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        return [t for key in sorted(value) for t in tensors_of(value[key])]
+    return [t for v in value for t in tensors_of(v)]
+
+
+def seeded_call(case, device):
+    """``call``: ``call(seed)`` launches ``case``'s kernel on a seeded
+    Student-t proposal (and a Gaussian target)."""
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    kernel, K, D, Kt, N, variant = case
+    rng = np.random.default_rng(K * 1000 + D)
+    ops = core._kernel_operands(make_params(random_mixture(rng, K, D, True), device))
+    tops = (core._kernel_operands(make_params(random_mixture(rng, Kt, D, False), device))
+            if Kt else None)
+    kw = {} if variant is None else {"variant": variant}
+    fn = getattr(k, kernel)
+    if kernel == "fused_propose_logq":
+        return lambda seed: fn(seed, ops, N, tops, **kw)
+    return lambda seed: fn(seed, ops, tops, N, True, **kw)
+
+
+def seed_pointer_case(case, device):
+    """``case``'s kernel with its seed words in a 2-word int64 tensor on the
+    card (read inside the kernel) against the same words by value: every
+    output equal bit for bit."""
+    import torch
+
+    call = seeded_call(case, device)
+    by_value = tensors_of(call(SEED_WORDS))
+    by_pointer = tensors_of(call(torch.tensor(SEED_WORDS, dtype=torch.int64, device=device)))
+    sync(device)
+    differ = sum(int(((a != b) & ~(torch.isnan(a) & torch.isnan(b))).sum())
+                 if a.is_floating_point() else int((a != b).sum())
+                 for a, b in zip(by_value, by_pointer))
+    label = "%s K=%d D=%d Kt=%d N=%d %s" % (case[:5] + (case[5] or "elected",))
+    print("  %-56s seed by pointer: %d of %d outputs differ from the seed by value"
+          % (label, differ, sum(t.numel() for t in by_value)))
+    require(differ == 0, "%s: the seed by pointer and by value differ" % label)
+
+
+def seed_replay_case(device):
+    """One fused_is_pmc_step launch with its seed in a tensor, captured as a
+    CUDA graph and replayed twice with other words in the tensor: each
+    replay draws what the launch with those words by value draws, and the
+    two replays draw different particles."""
+    import torch
+
+    case = ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, None)
+    call = seeded_call(case, device)
+    table = torch.tensor((1, 2), dtype=torch.int64, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        call(table)   # the warm-up a capture asks for
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tensors_of(call(table))
+    drawn = []
+    for words in ((11, 12), (13, 14)):
+        table.copy_(torch.tensor(words, dtype=torch.int64))
+        graph.replay()
+        ref = tensors_of(call(words))
+        sync(device)
+        require(all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3])),
+                "a replay with the words %s does not draw their particles" % (words,))
+        drawn.append(out[0].clone())
+    require(not torch.equal(drawn[0], drawn[1]), "two replays drew the same particles")
+    print("  fused_is_pmc_step as a CUDA graph, its seed in a tensor: two replays with two "
+          "seeds drew those seeds' particles (launched by value), and not the same ones")
+    del graph
 
 
 def max_sm_clock_ghz():
@@ -1728,14 +1881,41 @@ def chain_graph_cases(device):
                  json.dumps(launches["graph"])))
 
 
+@contextlib.contextmanager
+def scan_warnings():
+    """The body of a ``with`` block whose warnings from ``sampler._scan``
+    are kept in the handler it yields (``.messages``), on every rank: the
+    logger takes warnings for the block, where ``tools.log_to_stdout`` has
+    a group's other ranks log only errors."""
+    import logging
+
+    from pypmc_tpu_torch.sampler import _scan
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    handler, log = Warnings(), logging.getLogger(_scan.__name__)
+    level = log.level
+    log.setLevel(logging.WARNING)
+    log.addHandler(handler)
+    try:
+        yield handler
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
 def uncapturable_case(device):
     """Two chains whose target no CUDA graph can hold -- one returns a
     Python float, one calls ``.item()`` and builds a tensor from it -- each
     runs (2 chunks past its warm-up) with one warning naming the cause, the
     scans' counts saying so, and the outputs of the eager loop bit for
     bit."""
-    import logging
-
     import torch
 
     import pypmc_tpu_torch as pt
@@ -1749,29 +1929,16 @@ def uncapturable_case(device):
     def via_item(x):
         return torch.tensor(-0.5 * torch.sum((x - mean) ** 2).item(), device=x.device)
 
-    class Warnings(logging.Handler):
-        def __init__(self):
-            super().__init__(logging.WARNING)
-            self.messages = []
-
-        def emit(self, record):
-            self.messages.append(record.getMessage())
-
     for target in (as_float, via_item):
         outs = []
         for mode in ("graph", "eager"):
-            handler = Warnings()
-            log = logging.getLogger(_scan.__name__)
-            log.addHandler(handler)
-            try:
-                with eager_scans() if mode == "eager" else contextlib.nullcontext():
-                    _scan.reset_counts()
-                    mc = pt.sampler.MarkovChain(target, pt.density.LocalGauss(np.eye(2) * 0.5),
-                                                np.zeros(2), rng=3, device=device)
-                    outs.append((mc.run(3 * _scan.CHUNK), mc.samples[:]))
-                    scans = dict(_scan.counts)
-            finally:
-                log.removeHandler(handler)
+            with scan_warnings() as handler, \
+                    eager_scans() if mode == "eager" else contextlib.nullcontext():
+                _scan.reset_counts()
+                mc = pt.sampler.MarkovChain(target, pt.density.LocalGauss(np.eye(2) * 0.5),
+                                            np.zeros(2), rng=3, device=device)
+                outs.append((mc.run(3 * _scan.CHUNK), mc.samples[:]))
+                scans = dict(_scan.counts)
             if mode == "graph":
                 require(len(handler.messages) == 1 and scans["uncapturable"] == 1
                         and scans["fallbacks"] == 2 and scans["replays"] == 0,
@@ -1780,6 +1947,145 @@ def uncapturable_case(device):
                       % (target.__name__, json.dumps(scans), handler.messages[0][:200]))
         require(outs[0][0] == outs[1][0] and np.array_equal(outs[0][1], outs[1][1]),
                 "%s: the fallback differs from the eager loop" % target.__name__)
+
+
+# --------------------------------------------------------------------- #
+# phase scan: pmc_run_sharded(scan_steps=True), CUDA graphs of PMC steps #
+# --------------------------------------------------------------------- #
+
+def sharded_example_problem(device):
+    """``examples_torch/pmc_sharded.py``'s mixtures (its target, two
+    Gaussians, and its poor initial proposal of three) in the card's
+    working dtype, and its particles a step for one rank."""
+    import pypmc_tpu_torch as pt
+
+    ex = example_module("pmc_sharded")
+    with pt.using_device(device):
+        target = pt.density.create_gaussian_mixture(
+            [ex.mean0, ex.mean1], [ex.covariance0, ex.covariance1],
+            ex.component_weights).stacked_params()
+        params = pt.density.create_gaussian_mixture(
+            [np.array([4.0, 0.0]), np.array([-5.0, 0.0]), np.array([0.0, 0.0])],
+            [np.eye(2)] * 3).stacked_params()
+    return params, target, 1001   # its n_dev (1000 // n_dev + 1) n_dev at one rank
+
+
+def scan_problems(device):
+    """``[(label, params, target, particles, steps, the draw is a
+    kernel's)]``: the slice, its ``--components 200`` (the K-blocked step),
+    the slice at 2^16 particles, ``pmc_sharded.py`` (1001 particles: the
+    draw of fused_propose_logq and the unfused update) and a D=40 step of
+    1000 particles that no kernel draws (its mixtures past
+    fused_propose_logq's rule, below the transforms' 1024)."""
+    params, target, _ = flagship_problem(device)
+    blocked, blocked_target, _ = flagship_problem(device, K=200)
+    sharded, sharded_target, n_sharded = sharded_example_problem(device)
+    rng = np.random.default_rng(40)
+    wide = make_params(random_mixture(rng, 12, 40, False), device)
+    wide_target = make_params(random_mixture(rng, 2, 40, False), device)
+    return [("slice", params, target, N_SLICE, STEPS, True),
+            ("--components 200", blocked, blocked_target, N_SLICE, STEPS, True),
+            ("2^16 particles", params, target, 1 << 16, STEPS, True),
+            ("pmc_sharded.py", sharded, sharded_target, n_sharded, STEPS, True),
+            ("K=12, D=40, 1000 particles", wide, wide_target, 1000, 4, False)]
+
+
+def scan_case(device, label, params, target, n, steps, kernel_draw):
+    """``pmc_run_sharded(scan_steps=True)`` against ``scan_steps=False`` at
+    one configuration: two untimed scan runs (the warm-up chunk, then the
+    graph's capture and a replay), then in turns loop, scan, scan, loop,
+    each timed (host clock, synchronized) with its launch counts and peak
+    memory; every run bit for bit the first loop's, the launches of the two
+    ways equal; the scan's graphs replayed with no fallback where a kernel
+    draws, else one warning and the counted fallback; then one profiled run
+    each way (device ms a step); last the memory the card keeps reserved
+    after them (``memory_reserved``), then after ``empty_cache()`` with the
+    scan still kept, then after ``clear_step_cache()`` and ``empty_cache()``.
+    Returns the launch counts of a loop run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+    from pypmc_tpu_torch.parallel.sampler import clear_step_cache
+    from pypmc_tpu_torch.sampler import _scan
+
+    def run(scan):
+        out, stats = pmc_run_sharded(target, params, n, steps, key=7, scan_steps=scan)
+        fields = [f for f in (out.means, out.cov, out.weights, out.dof) if f is not None]
+        return digest(*fields, *stats)
+
+    clear_step_cache()
+    torch.cuda.empty_cache()
+    _scan.reset_counts()
+    peak, host, launches, digests = {}, {}, {}, []
+    with scan_warnings() as warned:
+        for mode in ("warm-up", "capture", "loop", "scan", "scan", "loop"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k.reset_launch_counts()
+            t0 = time.perf_counter()
+            digests.append(run(mode != "loop"))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak[mode] = max(peak.get(mode, 0), torch.cuda.max_memory_allocated())
+            host.setdefault(mode, []).append(seconds / steps * 1e3)
+            if mode in ("loop", "scan"):
+                launches[mode] = {c: v for c, v in k.launch_counts().items() if v}
+        scans = dict(_scan.counts)
+    require(len(set(digests)) == 1, "scan %s: the runs differ: %s" % (label, digests))
+    require(launches["loop"] == launches["scan"], "scan %s: launches %s with the loop, %s "
+            "with the scan" % (label, launches["loop"], launches["scan"]))
+    if kernel_draw:
+        require(scans["replays"] > 0 and scans["fallbacks"] == 0 and scans["uncapturable"] == 0
+                and not warned.messages, "scan %s: the steps did not replay as CUDA graphs: %s "
+                "%s" % (label, scans, warned.messages))
+    else:
+        require(scans["replays"] == 0 and scans["uncapturable"] == 1 and scans["fallbacks"] > 0
+                and len(warned.messages) == 1, "scan %s: no counted fallback: %s %s"
+                % (label, scans, warned.messages))
+    require(peak["capture"] <= 2 * peak["loop"] + (256 << 20),
+            "scan %s: capturing %d steps took %d MiB at peak, the loop %d MiB"
+            % (label, steps, peak["capture"] >> 20, peak["loop"] >> 20))
+    device_ms = {}
+    for mode in ("loop", "scan"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(mode == "scan")
+            torch.cuda.synchronize()
+        device_ms[mode] = sum(r[0] for r in device_rows(prof, steps))
+    torch.cuda.synchronize()
+    reserved = [torch.cuda.memory_reserved()]
+    torch.cuda.empty_cache()
+    reserved.append(torch.cuda.memory_reserved())
+    clear_step_cache()
+    torch.cuda.empty_cache()
+    reserved.append(torch.cuda.memory_reserved())
+    print("  scan %-27s %s particles, %d steps: equal bit for bit, launches equal; host %s ms a "
+          "step by the loop, %s by the scan (synchronized); device %.3f / %.3f ms a step "
+          "(profiler); peak %d MiB loop, %d capture, %d replay; scans %s%s"
+          % (label, n, steps, np.round(host["loop"], 3).tolist(),
+             np.round(host["scan"], 3).tolist(), device_ms["loop"], device_ms["scan"],
+             peak["loop"] >> 20, peak["capture"] >> 20, peak["scan"] >> 20, json.dumps(scans),
+             "; ..." + warned.messages[0][-200:] if warned.messages else ""))
+    print("    a new configuration's first call (its warm-up chunk) %.3f ms a step, its "
+          "second (the capture) %.3f (synchronized)" % (host["warm-up"][0], host["capture"][0]))
+    print("    reserved %d MiB after the runs, %d after empty_cache() with the scan kept, %d "
+          "after clear_step_cache() and empty_cache(): the kept scan held %d MiB"
+          % (reserved[0] >> 20, reserved[1] >> 20, reserved[2] >> 20,
+             (reserved[1] - reserved[2]) >> 20))
+    return launches["loop"]
+
+
+def phase_scan(device):
+    """``scan_case`` at each of :func:`scan_problems`; returns the launch
+    counts of one loop run of each, summed."""
+    import torch
+
+    totals = {}
+    for problem in scan_problems(device):
+        for name, c in scan_case(device, *problem).items():
+            totals[name] = totals.get(name, 0) + c
+        torch.cuda.empty_cache()
+    return totals
 
 
 # the steps a chain's CUDA graph may take (sampler._scan.CHUNK), timed by
@@ -3010,6 +3316,7 @@ def parallel_worker(rank, world, port, backend, shared):
     res.update(pmc_digest=digest(out.means, out.cov, out.weights, out.dof, *stats,
                                  out_c.means, out_c.cov, out_c.weights, *stats_c),
                masses=masses, ess=float(s["ess"][-1]))
+    res["scan"] = mesh_scan(mesh, params, target, out, stats)
 
     # ParallelSampler with the adapted flagship proposal: N a rank a run
     n_rank = (1 << 22) // world
@@ -3143,6 +3450,27 @@ def parallel_worker(rank, world, port, backend, shared):
     return 0
 
 
+def mesh_scan(mesh, params, target, out, stats):
+    """The slice's steps with ``scan_steps=True`` on the mesh, twice (the
+    warm-up chunk, then a capture and its replay), each bit for bit the
+    loop's ``(out, stats)``; returns the scans' counts and warnings."""
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+    from pypmc_tpu_torch.parallel.sampler import clear_step_cache
+    from pypmc_tpu_torch.sampler import _scan
+
+    want = digest(out.means, out.cov, out.weights, out.dof, *stats)
+    _scan.reset_counts()
+    with scan_warnings() as warned:
+        for _ in range(2):
+            got, got_stats = pmc_run_sharded(target, params, N_SLICE, STEPS, mesh, key=0,
+                                             scan_steps=True)
+            require(digest(got.means, got.cov, got.weights, got.dof, *got_stats) == want,
+                    "parallel: rank %d: pmc_run_sharded(scan_steps=True) differs from the loop"
+                    % mesh.rank)
+    clear_step_cache()
+    return {"counts": dict(_scan.counts), "warnings": warned.messages}
+
+
 def spawn_ranks(world, backend):
     """Run ``world`` ranks of :func:`parallel_worker` on card 0, each under
     its own time limit; kill every rank when one runs out, and fail unless
@@ -3221,6 +3549,15 @@ def phase_parallel(card):
                      json.dumps(res["integrate"])))
             print("    launch counts %s; kernels' tensors on %s"
                   % (json.dumps(res["counts"]), res["devices"]))
+            scan = res["scan"]
+            print("    scan_steps=True equal to the loop bit for bit, twice; scans %s%s"
+                  % (json.dumps(scan["counts"]),
+                     "; ..." + scan["warnings"][0][-220:] if scan["warnings"] else ""))
+            if world > 1:
+                require(scan["counts"]["uncapturable"] == 1 and scan["counts"]["replays"] == 0
+                        and scan["counts"]["fallbacks"] > 0 and len(scan["warnings"]) == 1,
+                        "parallel: rank %d's gloo scan did not fall back once, counted: %s"
+                        % (res["rank"], scan))
             for key in ("pmc_update_gap", "vb_N_comp_rel_gap", "vb_bound_rel_gap",
                         "trace_kernels", "checkpoint_files"):
                 if key in res:
@@ -3231,6 +3568,8 @@ def phase_parallel(card):
             for key in ("pmc_digest", "gather_digest", "vb_digest", "integrate_digest"):
                 require(len({res[key] for res in results}) == 1,
                         "parallel: the ranks' %s differ" % key)
+            require(results[0]["scan"]["counts"] == results[1]["scan"]["counts"],
+                    "parallel: the ranks' scans differ: %s" % [r["scan"] for r in results])
             print("  both ranks: the same adapted mixture, gathered runs, VB posterior and "
                   "integrate weights (sha256 %s)" % results[0]["pmc_digest"][:16])
             require(results[0].get("checkpoint_files") == [
@@ -3527,7 +3866,14 @@ def example_expectations(name, argv, out):
         numbers = "mode masses %s, ESS per step %s" % (
             np.round(out["masses"], 4).tolist(), np.round(out["ess"], 4).tolist())
         if name == "pmc_sharded":
-            return numbers, [("fused_is_pmc_step", 3, 2, 2, {}), ("fused_logq", 3, 2, 0, {})]
+            # 1001 particles a step: below 1024 the step draws with
+            # fused_propose_logq and updates unfused (fused_rho), as the JAX
+            # package's does
+            n = out["n_total"] // out["ranks"]
+            return numbers, [("fused_is_pmc_step", 3, 2, 2, {"n": n}),
+                             ("fused_propose_logq", 3, 2, 2, {}),
+                             ("fused_pmc_stats", 3, 2, 0, {"n": n}),
+                             ("fused_rho", 3, 2, 0, {}), ("fused_logq", 3, 2, 0, {})]
         K = out["components"]
         numbers += ", step %.3f ms (median of %s ms, host clock, synchronized), digest %s" % (
             out["step_ms"], np.round(out["per_step_ms"], 3).tolist(), out["digest"])
@@ -3540,9 +3886,11 @@ def example_expectations(name, argv, out):
         w = out["weights"]
         require(abs(w[0] - 0.3) < 0.05 and abs(w[1] - 0.7) < 0.05 and w[2] == 0.0,
                 "pmc.py: final weights %s" % w)
+        # each update on one run's 1000 samples: below 1024 the unfused
+        # update (fused_rho), as the JAX package's
         return ("final weights %s" % np.round(w, 4).tolist(),
                 [("fused_propose_logq", 3, 2, 0, {}), ("fused_logq", 2, 2, 0, {}),
-                 ("fused_pmc_stats", 3, 2, 0, {})])
+                 ("fused_pmc_stats", 3, 2, 0, {"n": 1000}), ("fused_rho", 3, 2, 0, {})])
     if name == "integrate_evidence":
         require(abs(out["evidence"] - 1.0) < 0.01, "integrate_evidence.py: %s" % out)
         return ("evidence %.6f +- %.6f, ESS %.4f, final K %d, total %.2f s"
@@ -3793,7 +4141,8 @@ def blocked_splits():
     """``[[kernel, N, {launch: device ms}], ...]``: :func:`launch_split` of
     the three K-blocked kernels at phase times' shapes (the K=400, D=2
     Student-t statistics and VB E-step at N=2^22, the K=200, D=10 step at
-    2^22 and 10^7)."""
+    2^22 and 10^7), and of solve_dofs' two kernels at ``SOLVE_DOFS_K`` (as
+    ``["solve_dofs_<variant>", K, ...]``, 20 launches a profiled run)."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -3820,6 +4169,13 @@ def blocked_splits():
             "fused_is_pmc_step_blocked K=200 D=10 N=%d" % n,
             lambda i: k.fused_is_pmc_step_blocked((i, 5), sops, stops, n, True),
             ("step_draw_kernel<", "blocked_reg_stats_kernel<", "reduce_partials<"))])
+    for K in SOLVE_DOFS_K:
+        c, old = dof_problem(K, K, device, torch.float32)
+        for variant in ("warp", "serial"):
+            out.append(["solve_dofs_" + variant, K, launch_split(
+                "solve_dofs %s K=%d" % (variant, K),
+                lambda i: k.solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF, variant),
+                ("solve_dofs_%s_kernel<" % variant,), reps=20)])
     return out
 
 
@@ -4022,8 +4378,9 @@ def phase_times(device, report):
     torch.cuda.empty_cache()
     for K in SOLVE_DOFS_K:
         c, old = dof_problem(K, K, device, torch.float32)
-        times[("solve_dofs", K, "cuda")] = cuda_ms(
-            lambda i: k.solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF), reps=50)
+        for variant, route in (("warp", "cuda"), ("serial", "serial")):
+            times[("solve_dofs", K, route)] = cuda_ms(
+                lambda i: k.solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF, variant), reps=50)
         times[("solve_dofs", K, "plain")] = cuda_ms(
             lambda i: k.plain_solve_dofs(c, old, DOF_STEPS, MINDOF, MAXDOF), reps=5)
         serial = solve_dofs_work(c, DOF_STEPS, max_sm_clock_ghz())[2]
@@ -4031,6 +4388,11 @@ def phase_times(device, report):
               "%d a unit of nu/2 below 10, at the largest SM clock) %.4f ms"
               % (K, DOF_CONDITION_CLOCKS, DOF_UNIT_CLOCKS, serial))
     for name, n, split in blocked_splits_in_a_fresh_process():
+        if name.startswith("solve_dofs_"):
+            # solve_dofs' device time a launch, by variant
+            route = "device" if name == "solve_dofs_warp" else "serial_device"
+            times[("solve_dofs", n, route)] = list(split.values())[0]
+            continue
         times[(name, n, "split")] = split
     for (name, n, route), ms in times.items():
         if route != "split":
@@ -4399,6 +4761,9 @@ def solve_dofs_entry(src, replaces, checks, counts, example_counts, times):
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
         rows.append({"shape": "K=%d steps=%d float32" % (K, DOF_STEPS),
                      "ms": times[("solve_dofs", K, "cuda")],
+                     "device_ms": times[("solve_dofs", K, "device")],
+                     "serial_ms": times[("solve_dofs", K, "serial")],
+                     "serial_device_ms": times[("solve_dofs", K, "serial_device")],
                      "plain_ms": times[("solve_dofs", K, "plain")],
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
@@ -4408,6 +4773,8 @@ def solve_dofs_entry(src, replaces, checks, counts, example_counts, times):
             "launches": counts["solve_dofs"], "max_abs_err": worst["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None, "shape": main["shape"],
+            "variant": "warp", "device_ms": main["device_ms"], "serial_ms": main["serial_ms"],
+            "serial_device_ms": main["serial_device_ms"],
             "max_abs_err_tol": worst["tol"],
             "max_abs_err_output": worst["output"],
             "launches_examples": example_counts.get("solve_dofs", 0), "shapes": shapes}
@@ -4654,6 +5021,9 @@ def main():
     del out
     torch.cuda.empty_cache()
 
+    phase("scan")
+    scan_counts = phase_scan(device)
+
     phase("vb")
     vb_counts, vb_ms, vb_busy = phase_vb(device, report)
     vb_float32_fits(device)
@@ -4677,9 +5047,10 @@ def main():
     example_counts = phase_examples(device, report)
     torch.cuda.empty_cache()
     # every path was driven with the counts set to 0 just before it
-    counts = {n: sum(c.get(n, 0) for c in (counts, vb_counts, gate_counts, blocked_counts,
-                                           route_counts, mcmc_counts, pipe_counts,
-                                           parallel_counts, example_counts)) for n in counts}
+    counts = {n: sum(c.get(n, 0) for c in (counts, scan_counts, vb_counts, gate_counts,
+                                           blocked_counts, route_counts, mcmc_counts,
+                                           pipe_counts, parallel_counts, example_counts))
+              for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
 
@@ -4774,7 +5145,9 @@ def main():
           "and table_ms_slice_n their entry-table pass there, and the kernel the three draws "
           "elect there, looped_ms their looped kernels there and at the shapes; "
           "launches_examples: the launches of phase examples, counted in launches); "
-          "solve_dofs at K=10, 100 bisection steps, float32 (shapes: K=200, 400), its "
+          "solve_dofs at K=10, 100 bisection steps, float32 (shapes: K=200, 400), ms its warp "
+          "kernel's, the default (CUDA events, back to back; device_ms by torch.profiler), "
+          "serial_ms and serial_device_ms the serial kernel's (variant='serial'), its "
           "max_abs_err the |float64 condition| at its worst root against that root's "
           "tolerance, bound_ms its bytes and FP operations on this data (its serial-latency "
           "model is in phase times); "

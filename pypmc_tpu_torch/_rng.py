@@ -7,7 +7,9 @@ helpers normalize whatever the user passed.
 The CUDA kernels draw their own random numbers from a counter-based
 generator seeded with two 32-bit words.  :func:`seed_words` draws those
 words on the host from a CPU generator, so drawing a seed never waits for
-the device.
+the device.  A run of steps replayed as CUDA graphs draws all its steps'
+words before the run into a table on the device, and each step hands its
+kernels a row of it, a 2-word int64 tensor, which they read themselves.
 """
 
 import numbers as _numbers
@@ -56,11 +58,12 @@ def as_generator(rng) -> torch.Generator:
         "rng must be None, an int or a torch.Generator, got %r" % type(rng))
 
 
-def seed_words(rng) -> tuple:
+def seed_words(rng):
     """Two 32-bit seed words for a kernel launch, drawn on the host from
-    :func:`as_generator` of ``rng`` (advancing it); a tuple of two words
-    is returned as it is."""
-    if isinstance(rng, tuple):
+    :func:`as_generator` of ``rng`` (advancing it); a tuple of two words,
+    or a 2-word integer tensor (a row of a run's seed table), is returned as
+    it is."""
+    if isinstance(rng, (tuple, torch.Tensor)):
         return rng
     gen = as_generator(rng)
     if gen.device.type != "cpu":
@@ -69,10 +72,17 @@ def seed_words(rng) -> tuple:
     return int(w[0]), int(w[1])
 
 
+def host_words(seed) -> tuple:
+    """The two words of ``seed`` (a tuple, or a 2-word tensor, copied to the
+    host) as ints."""
+    return int(seed[0]), int(seed[1])
+
+
 def device_generator(seed, device) -> torch.Generator:
-    """A generator on ``device`` seeded from two 32-bit ``seed`` words: the
-    plain (non-kernel) versions of the random kernels draw from it."""
-    s0, s1 = int(seed[0]) & 0xFFFFFFFF, int(seed[1]) & 0xFFFFFFFF
+    """A generator on ``device`` seeded from two 32-bit ``seed`` words (a
+    tuple or a 2-word tensor): the plain (non-kernel) versions of the random
+    kernels draw from it, the same for either form of the same words."""
+    s0, s1 = (w & 0xFFFFFFFF for w in host_words(seed))
     # a CPU generator (mt19937) keeps only the low 32 bits of its seed:
     # fold the high word into them, so both words move the stream there too
     low = s1 ^ ((s0 * 0x9E3779B9) & 0xFFFFFFFF)

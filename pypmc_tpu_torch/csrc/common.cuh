@@ -85,16 +85,25 @@ __device__ __forceinline__ const float* stage_operands(float* smem,
 // Philox-4x32-10 (Salmon et al., SC'11).  Key = the two host seed words,
 // counter = (particle index lo, hi, draw block, 0): a particle's stream
 // depends only on the seed and its global index, never on the launch
-// configuration.
+// configuration.  The key is read through ``Key`` at each refill: held
+// (ValueKey, Philox), or read where it lies (SharedKey, below Seed).
 // ---------------------------------------------------------------------
-struct Philox {
-  uint32_t k0, k1, c0, c1, c2;
+struct ValueKey {
+  uint32_t w0, w1;
+  __device__ __forceinline__ uint32_t k0() const { return w0; }
+  __device__ __forceinline__ uint32_t k1() const { return w1; }
+};
+
+template <typename Key>
+struct PhiloxT {
+  Key key;
+  uint32_t c0, c1, c2;
   uint32_t b0, b1, b2, b3;
   int pos;
 
-  __device__ Philox(uint32_t s0, uint32_t s1, uint64_t n)
-      : k0(s0), k1(s1), c0(static_cast<uint32_t>(n)),
-        c1(static_cast<uint32_t>(n >> 32)), c2(0), pos(4) {}
+  __device__ PhiloxT(Key k, uint64_t n)
+      : key(k), c0(static_cast<uint32_t>(n)), c1(static_cast<uint32_t>(n >> 32)), c2(0),
+        pos(4) {}
 
   // the stream from its ``word``-th word on: what next() gives after
   // ``word`` calls (a block is 4 words; block b is counter c2 = b)
@@ -108,7 +117,7 @@ struct Philox {
   }
 
   __device__ __forceinline__ void refill() {
-    uint32_t x0 = c0, x1 = c1, x2 = c2, x3 = 0u, a = k0, b = k1;
+    uint32_t x0 = c0, x1 = c1, x2 = c2, x3 = 0u, a = key.k0(), b = key.k1();
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
       const uint32_t hi0 = __umulhi(0xD2511F53u, x0);
@@ -158,11 +167,76 @@ struct Philox {
   }
 };
 
+struct Philox : PhiloxT<ValueKey> {
+  __device__ Philox(uint32_t s0, uint32_t s1, uint64_t n) : PhiloxT<ValueKey>({s0, s1}, n) {}
+};
+
+// A launch's two Philox seed words: by value (s0, s1), or read from device
+// memory where ``words`` is given (two 64-bit integers, the low 32 bits of
+// each).  A CUDA graph replays its launches with the arguments of their
+// capture, so a replayed step reads its words from a table the host filled
+// before the run.  Read where a stream is made (a volatile load, so the
+// compiler keeps no register for it across a particle loop).
+struct Seed {
+  uint32_t s0, s1;
+  const long long* words;
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return static_cast<uint32_t>(*static_cast<const volatile long long*>(words + i));
+  }
+  __device__ __forceinline__ uint32_t w0() const { return words == nullptr ? s0 : word(0); }
+  __device__ __forceinline__ uint32_t w1() const { return words == nullptr ? s1 : word(1); }
+};
+
+// A launch's seed words in shared memory (store_seed_key, then a barrier),
+// read at each refill by a stream keyed with SharedKey: a kernel's streams
+// then hold no key between refills, as with the words by value (kernel
+// parameters).  A load the compiler shares between refills is a key held;
+// a volatile one orders the kernel's other shared-memory accesses around
+// it: an asm load is neither.
+__device__ __forceinline__ uint32_t* seed_key() {
+  __shared__ uint32_t key[2];
+  return key;
+}
+
+__device__ __forceinline__ void store_seed_key(Seed seed) {
+  seed_key()[0] = seed.w0();
+  seed_key()[1] = seed.w1();
+}
+
+__device__ __forceinline__ uint32_t seed_key_word(int i) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(seed_key() + i))));
+  return v;
+}
+
+struct SharedKey {
+  __device__ __forceinline__ uint32_t k0() const { return seed_key_word(0); }
+  __device__ __forceinline__ uint32_t k1() const { return seed_key_word(1); }
+};
+
+// Particle n's stream in a kernel instantiated for the words by value
+// (SEED_PTR false: keyed by the kernel parameters, as free as constants)
+// or from a seed tensor (true: SharedKey, after store_seed_key and a
+// barrier); the key's loads cost an issue-bound draw a few percent, so
+// only a replayed launch pays them
+template <bool SEED_PTR>
+__device__ __forceinline__ auto particle_stream(Seed seed, uint64_t n) {
+  if constexpr (SEED_PTR) {
+    return PhiloxT<SharedKey>({}, n);
+  } else {
+    return Philox(seed.s0, seed.s1, n);
+  }
+}
+
 // log of a chi-square draw with ``dof`` degrees of freedom: Marsaglia-Tsang
 // for Gamma(a + 1), a = dof / 2, with the shape boost U^(1/a) applied in log
 // space.  Each round accepts with probability >= 0.951, so the loop runs
 // until acceptance; the cap only stops a non-finite dof from spinning.
-__device__ __forceinline__ float log_chi2(float dof, Philox& rng) {
+template <typename Rng>
+__device__ __forceinline__ float log_chi2(float dof, Rng& rng) {
   const float a = 0.5f * dof;
   const float d = a + 1.0f - 1.0f / 3.0f;
   const float c = 1.0f / sqrtf(9.0f * d);
@@ -548,8 +622,8 @@ __device__ __forceinline__ void store_particle(float* xT, long long N,
 // ---------------------------------------------------------------------
 
 // D standard normals into z (Box-Muller pairs; entries past D are 0).
-template <int DMAX>
-__device__ __forceinline__ void draw_normals(Philox& rng, int D, float (&z)[DMAX]) {
+template <int DMAX, typename Rng>
+__device__ __forceinline__ void draw_normals(Rng& rng, int D, float (&z)[DMAX]) {
 #pragma unroll
   for (int i = 0; i < dim_loop<DMAX>(D); i += 2) {
     z[i] = 0.0f;
@@ -564,7 +638,8 @@ __device__ __forceinline__ void draw_normals(Philox& rng, int D, float (&z)[DMAX
 }
 
 // Student-t proposal scale sqrt(dof / chi2(dof)), in log space.
-__device__ __forceinline__ float student_t_scale(float dof, Philox& rng) {
+template <typename Rng>
+__device__ __forceinline__ float student_t_scale(float dof, Rng& rng) {
   return expf(0.5f * (logf(dof) - log_chi2(dof, rng)));
 }
 
@@ -588,10 +663,10 @@ __device__ __forceinline__ void affine_transform(const float* Lk, const float* m
 // One draw from component ``lat`` of a mixture given by its means mu
 // (K, D), Cholesky factors L (K, D, D) and dofs (K): Box-Muller normals z,
 // for Student-t the scale sqrt(dof / chi2(dof)), then x = mu + scale * L z.
-template <int DMAX>
+template <int DMAX, typename Rng>
 __device__ __forceinline__ void draw_component(const float* mu, const float* L,
                                                const float* dof, int lat, int D,
-                                               bool student_t, Philox& rng,
+                                               bool student_t, Rng& rng,
                                                float (&x)[DMAX]) {
   float z[DMAX];
   draw_normals<DMAX>(rng, D, z);
@@ -927,8 +1002,8 @@ __device__ __forceinline__ void rec_affine(const float (&z)[DMAX], float scale,
 
 // draw_component by rec_affine: component lat's normals, for Student-t the
 // scale sqrt(dof / chi2(dof)) (dof() reads lat's dof), then x, emit(i, x_i)
-template <int DMAX, bool STAGED, typename Dof, typename Emit>
-__device__ __forceinline__ void draw_rec(Philox& rng, const float* recs, const float* mu,
+template <int DMAX, bool STAGED, typename Dof, typename Emit, typename Rng>
+__device__ __forceinline__ void draw_rec(Rng& rng, const float* recs, const float* mu,
                                          const float* L, int lat, int D, bool student_t,
                                          Dof&& dof, Emit&& emit) {
   float z[DMAX];

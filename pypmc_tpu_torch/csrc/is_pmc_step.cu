@@ -33,7 +33,7 @@ namespace pmc {
 
 template <int DMAX, bool OPS_SMEM, int TW>
 __global__ void __launch_bounds__(kThreads)
-is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
+is_pmc_step_kernel(const Seed seed, const float* __restrict__ mix_src,
                    const float* __restrict__ tmix_src, float* __restrict__ xT,
                    int* __restrict__ latent, float* __restrict__ wts,
                    double* __restrict__ partial, long long N, int K, int Kt,
@@ -60,7 +60,7 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
 #pragma unroll
     for (int i = 0; i < dim_loop<DMAX>(D); ++i) x[i] = 0.0f;
     if (n < N) {
-      Philox rng(s0, s1, static_cast<uint64_t>(n));
+      Philox rng(seed.w0(), seed.w1(), static_cast<uint64_t>(n));
       latent[n] = propose_particle<DMAX>(mix, K, D, student_t != 0, rng, x);
       store_particle<DMAX>(xT, N, n, D, x);
     }
@@ -80,9 +80,11 @@ is_pmc_step_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
 
 }  // namespace pmc
 
-// variant: -1 the plan's kernel, 0 the entry-table kernel, 1 the register
-// kernel (an error where the plan does not take it)
+// seed_words: null (the words s0, s1) or two int64 on the card, read in the
+// kernel (Seed); variant: -1 the plan's kernel, 0 the entry-table kernel, 1
+// the register kernel (an error where the plan does not take it)
 extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
+                                     const long long* seed_words,
                                      const float* mix, const float* tmix,
                                      float* xT, int* latent, float* w,
                                      double* partial, float* stats, long long N,
@@ -90,6 +92,7 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      int t_student_t, int dof_stats, int variant,
                                      int n_blocks, void* stream) {
   using namespace pmc;
+  const Seed seed{s0, s1, seed_words};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DensePlan plan = dense_plan(K, Kt, D, kDenseStep);
   if (variant < 0 ? plan.reg : variant == 1) {
@@ -105,8 +108,7 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
     args.K = K;
     args.Kt = Kt;
     args.D = D;
-    args.s0 = s0;
-    args.s1 = s1;
+    args.seed = seed;
     args.student_t = student_t;
     args.t_student_t = t_student_t;
     args.dof_stats = dof_stats;
@@ -119,7 +121,7 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
   const auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    kernel<<<n_blocks, S.tw, smem, s>>>(s0, s1, mix, tmix, xT, latent, w, partial, N, K, Kt, D,
+    kernel<<<n_blocks, S.tw, smem, s>>>(seed, mix, tmix, xT, latent, w, partial, N, K, Kt, D,
                                         student_t, t_student_t, dof_stats);
   };
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(stats_ops_smem(S, params), {

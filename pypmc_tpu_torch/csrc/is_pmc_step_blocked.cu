@@ -36,6 +36,7 @@
 #include "blocked.cuh"
 
 extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
+                                      const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
                                       float* log_p, long long N, int K, int Kt,
@@ -48,7 +49,7 @@ constexpr int kDrawThreads = 256;
 
 template <int DMAX>
 __global__ void __launch_bounds__(kDrawThreads, 2)
-step_draw_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
+step_draw_kernel(const Seed seed, const float* __restrict__ mix,
                  const float* __restrict__ tmix, float* __restrict__ xT,
                  int* __restrict__ latent, float* __restrict__ log_q,
                  float* __restrict__ log_p, long long N, int K, int Kt, int D,
@@ -65,7 +66,7 @@ step_draw_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
     // propose_particle's draw, the thresholds read from shared memory
-    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    Philox rng(seed.w0(), seed.w1(), static_cast<uint64_t>(n));
     const float u = rng.uniform();
     int lat = 0;
     for (int k = 0; k < K - 1; ++k) lat += u >= cumw[k] ? 1 : 0;
@@ -114,37 +115,40 @@ extern "C" int pmc_step_draw_per_sm(int K, int Kt, int D) {
 }
 
 // the first launch, with as many blocks as fit on the card at once
-static int launch_step_draw(unsigned int s0, unsigned int s1, const float* mix,
-                            const float* tmix, float* xT, int* latent, float* log_q,
+static int launch_step_draw(unsigned int s0, unsigned int s1, const long long* seed_words,
+                            const float* mix, const float* tmix, float* xT, int* latent,
+                            float* log_q,
                             float* log_p, long long N, int K, int Kt, int D,
                             int student_t, int t_student_t, void* stream) {
   using namespace pmc;
   const size_t smem = static_cast<size_t>(pmc_step_draw_smem_bytes(K, Kt, D));
   if (smem == 0)   // fused_propose_logq's plan's kernel, which sizes its grid
-    return pmc_fused_propose_logq(s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
-                                  student_t, t_student_t, -1, 0, stream);
+    return pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q, log_p, N,
+                                  K, Kt, D, student_t, t_student_t, -1, 0, stream);
   dispatch_step_draw(D, smem, [&](auto kernel) {
     int per_sm = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDrawThreads, smem);
     kernel<<<wave_blocks(per_sm, N, kDrawThreads), kDrawThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
-        s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t, t_student_t);
+        Seed{s0, s1, seed_words}, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
+        t_student_t);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-// mix, tmix: the packed proposal and target; chunks: the proposal's
+// seed_words as pmc_fused_propose_logq's; mix, tmix: the packed proposal
+// and target; chunks: the proposal's
 // chunk-major operands (blocked.cuh); log_q, log_p (N,) scratch; partial
 // (n_blocks, S) float64 scratch; stats (S,) float32 output
 extern "C" int pmc_fused_is_pmc_step_blocked(
-    unsigned int s0, unsigned int s1, const float* mix, const float* tmix,
-    const float* chunks, float* xT, int* latent, float* w, float* log_q,
+    unsigned int s0, unsigned int s1, const long long* seed_words, const float* mix,
+    const float* tmix, const float* chunks, float* xT, int* latent, float* w, float* log_q,
     float* log_p, double* partial, float* stats, long long N, int K, int Kt,
     int D, int kc, int student_t, int t_student_t, int dof_stats, int n_blocks,
     void* stream) {
   using namespace pmc;
-  int err = launch_step_draw(s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
-                             student_t, t_student_t, stream);
+  int err = launch_step_draw(s0, s1, seed_words, mix, tmix, xT, latent, log_q, log_p, N, K,
+                             Kt, D, student_t, t_student_t, stream);
   if (err != 0) return err;
   return launch_blocked_stats<kBlockedStep, float>(
       xT, w, log_q, log_p, chunks, partial, stats, N, K, D, kc, student_t, dof_stats,

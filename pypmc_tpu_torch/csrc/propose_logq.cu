@@ -45,7 +45,7 @@ namespace pmc {
 
 template <int DMAX, bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
-propose_logq_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
+propose_logq_kernel(const Seed seed, const float* __restrict__ mix_src,
                     const float* __restrict__ tmix_src, float* __restrict__ xT,
                     int* __restrict__ latent, float* __restrict__ log_q,
                     float* __restrict__ log_p, long long N, int K, int Kt, int D,
@@ -58,7 +58,7 @@ propose_logq_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix_src,
   __syncthreads();
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    Philox rng(seed.w0(), seed.w1(), static_cast<uint64_t>(n));
     float x[DMAX];
     latent[n] = propose_particle<DMAX>(mix, K, D, student_t != 0, rng, x);
     store_particle<DMAX>(xT, N, n, D, x);
@@ -105,9 +105,9 @@ __device__ __forceinline__ float rec_kernel_logpdf(const float* recs, const floa
 
 // shared memory (STAGED): K proposal and Kt target evaluation records |
 // K draw records | cumw (K); log_p null and Kt 0 without a target
-template <int DMAX, bool STAGED>
+template <int DMAX, bool STAGED, bool SEED_PTR>
 __global__ void __launch_bounds__(kEvalThreads, eval_min_blocks(DMAX))
-propose_logq_rec_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
+propose_logq_rec_kernel(const Seed seed, const float* __restrict__ mix,
                         const float* __restrict__ tmix, float* __restrict__ xT,
                         int* __restrict__ latent, float* __restrict__ log_q,
                         float* __restrict__ log_p, long long N, int K, int Kt, int D,
@@ -120,6 +120,10 @@ propose_logq_rec_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
   float* recs = reinterpret_cast<float*>(smem4);
   float* draws = recs + (K + Kt) * F;
   float* cumw = draws + K * transform_rec_floats(D);
+  if constexpr (SEED_PTR) {
+    if (threadIdx.x == 0) store_seed_key(seed);
+    if constexpr (!STAGED) __syncthreads();
+  }
   if constexpr (STAGED) {
     stage_records_async(recs, mix + L.mu(), mix + L.U(), mix + L.ln(), 3, K, 0, K, D, true);
     if (Kt > 0)
@@ -135,7 +139,7 @@ propose_logq_rec_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
     // propose_particle's draw
-    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    auto rng = particle_stream<SEED_PTR>(seed, static_cast<uint64_t>(n));
     const float u = rng.uniform();
     int lat = 0;
     for (int k = 0; k < K - 1; ++k) lat += u >= thresholds[k] ? 1 : 0;
@@ -156,13 +160,14 @@ propose_logq_rec_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
   }
 }
 
+template <bool SEED_PTR>
 struct ProposeRecKernels {
   template <int DMAX, bool STAGED>
-  static auto get() { return &propose_logq_rec_kernel<DMAX, STAGED>; }
+  static auto get() { return &propose_logq_rec_kernel<DMAX, STAGED, SEED_PTR>; }
 };
 
 __global__ void __launch_bounds__(kWideThreads)
-propose_logq_warp_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix,
+propose_logq_warp_kernel(const Seed seed, const float* __restrict__ mix,
                          const float* __restrict__ tmix, float* __restrict__ xT,
                          int* __restrict__ latent, float* __restrict__ log_q,
                          float* __restrict__ log_p, long long N, int K, int Kt, int D,
@@ -174,15 +179,16 @@ propose_logq_warp_kernel(uint32_t s0, uint32_t s1, const float* __restrict__ mix
   for (long long n = warp_index(); n < N; n += warp_count()) {
     // propose_particle's stream: the component's uniform (word 0), the
     // normals, then the Student-t scale
-    warp_normals(s0, s1, static_cast<uint64_t>(n), 1, D, reinterpret_cast<uint32_t*>(sl.a),
-                 sl.b);
+    warp_normals(seed.w0(), seed.w1(), static_cast<uint64_t>(n), 1, D,
+                 reinterpret_cast<uint32_t*>(sl.a), sl.b);
     const float u = Philox::u01(words[0]);
     int lat = 0;
     for (int k = 0; k < K - 1; ++k) lat += u >= mix[L.cumw() + k] ? 1 : 0;
     float scale = 1.0f;
     if (student_t != 0) {
       if (lane_id() == 0) {
-        Philox rng = stream_at(s0, s1, static_cast<uint64_t>(n), normal_words_end(1, D));
+        Philox rng = stream_at(seed.w0(), seed.w1(), static_cast<uint64_t>(n),
+                                 normal_words_end(1, D));
         scale = student_t_scale(mix[L.dof() + lat], rng);
       }
       scale = from_lane0(scale);
@@ -216,26 +222,29 @@ extern "C" long long pmc_propose_plan(int K, int Kt, int D, int* out) {
 // blocks of the record kernel for (K, Kt, D) that fit on one SM at once (0
 // where the plan takes another kernel, -1 on an error)
 extern "C" int pmc_propose_per_sm(int K, int Kt, int D) {
-  return pmc::rec_per_sm<pmc::ProposeRecKernels>(pmc::propose_plan(K, Kt, D), D);
+  return pmc::rec_per_sm<pmc::ProposeRecKernels<false>>(pmc::propose_plan(K, Kt, D), D);
 }
 
-// tmix/log_p are null without a target; variant: -1 the plan's kernel, 0
+// seed_words: null (the words s0, s1) or two int64 on the card, read in the
+// kernel (Seed); tmix/log_p are null without a target; variant: -1 the plan's kernel, 0
 // the looped kernel (D <= 128), 1 the record kernel (an error where the
 // plan does not take it); n_blocks <= 0: one wave of the kernel's blocks,
 // sized here (the record kernel's from its occupancy, the others' 16
 // blocks an SM)
 extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
+                                      const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
                                       float* log_p, long long N, int K, int Kt,
                                       int D, int student_t, int t_student_t,
                                       int variant, int n_blocks, void* stream) {
   using namespace pmc;
+  const Seed seed{s0, s1, seed_words};
   if (log_p == nullptr) Kt = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DrawPlan plan = propose_plan(K, Kt, D);
-  if (takes_rec(plan, variant))
-    return with_rec_kernel<ProposeRecKernels>(plan, D, [&](auto kernel) {
+  if (takes_rec(plan, variant)) {
+    const auto launch = [&](auto kernel) {
       int blocks = n_blocks;
       if (blocks <= 0) {
         int per_sm = 0;
@@ -244,16 +253,19 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
         if (err != cudaSuccess) return static_cast<int>(err);
         blocks = wave_blocks(per_sm, N, plan.threads);
       }
-      kernel<<<blocks, plan.threads, plan.smem, s>>>(s0, s1, mix, tmix, xT, latent, log_q,
+      kernel<<<blocks, plan.threads, plan.smem, s>>>(seed, mix, tmix, xT, latent, log_q,
                                                      log_p, N, K, Kt, D, student_t,
                                                      t_student_t);
       return static_cast<int>(cudaGetLastError());
-    });
+    };
+    return seed_words == nullptr ? with_rec_kernel<ProposeRecKernels<false>>(plan, D, launch)
+                                 : with_rec_kernel<ProposeRecKernels<true>>(plan, D, launch);
+  }
   if (D > kDMax && D <= kWideDMax) {
     if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_warp(propose_logq_warp_kernel, D,
-                       n_blocks > 0 ? n_blocks : wave_blocks(16, N, kWideThreads / 32), s, s0,
-                       s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
+                       n_blocks > 0 ? n_blocks : wave_blocks(16, N, kWideThreads / 32), s, seed,
+                       mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
                        t_student_t);
   }
   const size_t smem = propose_plan(K, Kt, D, true).smem;
@@ -263,7 +275,7 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
     propose_logq_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
-        s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
+        seed, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
         t_student_t);
   }));
   return static_cast<int>(cudaGetLastError());

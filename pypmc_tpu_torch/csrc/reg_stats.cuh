@@ -312,7 +312,7 @@ struct DenseArgs {
   double* partial;     // (gridDim.x, K P + 3)
   long long N;
   int K, Kt, D, slices;
-  uint32_t s0, s1;
+  Seed seed;           // the step: the draw's seed words
   int student_t, t_student_t, dof_stats;
 };
 
@@ -383,6 +383,7 @@ dense_reg_kernel(const DenseArgs args) {
   if constexpr (STEP) {
     stage_records(trecs, args.tmix, Kt, D);
     load_to_shared(cumw, args.ops + MixLayout{K, D}.cumw(), K);
+    if (threadIdx.x == 0) store_seed_key(args.seed);
   }
   for (int e = threadIdx.x; e < E + 3; e += blockDim.x) acc[e] = 0.0;
   if (!resident)
@@ -432,7 +433,7 @@ dense_reg_kernel(const DenseArgs args) {
           v = args.w[n];
         } else {
           const MixLayout L{K, D};
-          Philox rng(args.s0, args.s1, static_cast<uint64_t>(n));
+          PhiloxT<SharedKey> rng({}, static_cast<uint64_t>(n));
           const float u = rng.uniform();
           int lat = 0;
           for (int k = 0; k < K - 1; ++k) lat += u >= cumw[k] ? 1 : 0;

@@ -282,11 +282,12 @@ def propose_T(params: MixtureParams, key, n: int):
     ``fused_transform`` on normals and a Student-t scale drawn here (the
     chi-square clamped to ``tiny``) where it fits at 128 particles; else the
     transform as tensor code accumulated one Cholesky column at a time.
-    ``key`` is an int seed or a ``torch.Generator`` (advanced by two seed
-    words)."""
+    ``key`` is an int seed, a ``torch.Generator`` (advanced by two seed
+    words) or two seed words (a tuple, or a 2-word tensor, copied to the
+    host: a generator seeded here cannot be replayed by a CUDA graph)."""
     K, D = params.K, params.dim
     dtype, device = params.means.dtype, params.device
-    seed = _rng.seed_words(key)
+    seed = _rng.host_words(_rng.seed_words(key))
     gen = _rng.device_generator(seed, device)
     u = torch.rand(n, generator=gen, dtype=dtype, device=device)
     cumw = _cumulative_weights(params.weights)

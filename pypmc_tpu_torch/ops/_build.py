@@ -564,20 +564,21 @@ def _declare(lib):
     sigs = {
         # xT, mix, out, N, K, D, student_t, n_blocks, stream
         "pmc_fused_logq": [P, P, P, L, I, I, I, I, P],
-        # s0, s1, mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
+        # s0, s1, seed_words (null: s0, s1; else two int64 on the card, read
+        # in the kernel), mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
         # student_t, t_student_t, variant (-1 the plan's, 0 the looped kernel,
         # 1 the record kernel), n_blocks (<= 0: one wave, sized by the
         # launcher), stream
-        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, L, I, I, I, I, I,
+        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, L, I, I, I, I, I,
                                    I, I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
         # variant (-1 the plan's, 0 the entry table, 1 the register pass),
         # n_blocks, stream
         "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, I, P],
-        # s0, s1, mix, tmix, xT, latent, w, partial, stats, N, K, Kt, D,
-        # student_t, t_student_t, dof_stats, variant (-1 the plan's, 0 the
-        # entry table, 1 the register pass), n_blocks, stream
-        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, L, I, I, I, I,
+        # s0, s1, seed_words, mix, tmix, xT, latent, w, partial, stats, N, K,
+        # Kt, D, student_t, t_student_t, dof_stats, variant (-1 the plan's, 0
+        # the entry table, 1 the register pass), n_blocks, stream
+        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I,
                                   I, I, I, I, P],
         # xT, ops, out, N, K, D, n_blocks, stream
         "pmc_fused_maha": [P, P, P, L, I, I, I, P],
@@ -603,13 +604,14 @@ def _declare(lib):
         # xT, w, ops, chunks, lse, partial, stats, N, K, D, kc, n_eval_blocks,
         # n_blocks, stream
         "pmc_fused_vb_estep_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, P],
-        # s0, s1, mix, tmix, chunks, xT, latent, w, log_q, log_p, partial,
-        # stats, N, K, Kt, D, kc, student_t, t_student_t, dof_stats,
+        # s0, s1, seed_words, mix, tmix, chunks, xT, latent, w, log_q, log_p,
+        # partial, stats, N, K, Kt, D, kc, student_t, t_student_t, dof_stats,
         # n_blocks, stream
-        "pmc_fused_is_pmc_step_blocked": [U, U, P, P, P, P, P, P, P, P, P, P, L, I,
-                                          I, I, I, I, I, I, I, P],
-        # const, old_dofs, out, K, steps, mindof, maxdof, is_double, stream
-        "pmc_solve_dofs": [P, P, P, I, I, ctypes.c_double, ctypes.c_double, I, P],
+        "pmc_fused_is_pmc_step_blocked": [U, U, P, P, P, P, P, P, P, P, P, P, P, L,
+                                          I, I, I, I, I, I, I, I, P],
+        # const, old_dofs, out, K, steps, mindof, maxdof, is_double, variant
+        # (0 the serial kernel, 1 the warp kernel), stream
+        "pmc_solve_dofs": [P, P, P, I, I, ctypes.c_double, ctypes.c_double, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -41,7 +41,10 @@ package runs through them, and on the card the tests and
 ``chip_smoke.py`` compare the kernels with them.  The random kernels draw
 from a Philox stream per particle; their plain versions draw from a
 ``torch.Generator`` seeded with the same two words, so the two agree in
-distribution, not in value.
+distribution, not in value.  The kernels of a PMC step's draw take their
+two words by value or from a 2-word int64 tensor on their device, read
+inside the kernel, so that a CUDA graph replaying the step draws anew from
+the words the tensor holds then.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 :func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
@@ -123,11 +126,13 @@ _QUANTUM_EVAL, _QUANTUM_RNG = 128, 1024
 _DENSE_KD = 128
 _BLOCKED_HBM = 12 * 1024 ** 3
 _SINGLE_PASS = ("fused_pmc_stats", "fused_is_pmc_step", "fused_vb_estep")
-# the fewest particles for which the JAX package's GaussianInference takes
-# its one-pass E-step (variational.py:743); below it the E-step's
-# statistics are direct sums over the data, which repeat exactly once the
-# responsibilities settle, where the one-pass statistics are un-whitened
-# through the float32 operands
+# the fewest particles for which the JAX package takes its three
+# single-pass statistics kernels and their K-blocked twins: the one-pass VB
+# E-step (variational.py:743), the PMC update's statistics (pmc.py:223) and
+# the whole PMC step against a mixture target (pmc.py:422).  Below it the
+# statistics are direct sums over the particles (for VB they repeat exactly
+# once the responsibilities settle, where the one-pass statistics are
+# un-whitened through the float32 operands)
 _MIN_N = 1024
 
 
@@ -170,9 +175,10 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
     """None where the JAX package runs its Pallas kernel for a (K, D)
     mixture (with a Kt-component target), else its rule, named.
 
-    The transform kernels and ``fused_vb_estep`` also take the particle
-    count ``n`` (they run only from 1024 particles; None skips that part of
-    the rule).  For
+    The transform kernels and the single-pass statistics kernels
+    (``fused_pmc_stats``, ``fused_is_pmc_step``, ``fused_vb_estep``) also
+    take the particle count ``n`` (they run only from 1024 particles; None
+    skips that part of the rule).  For
     ``fused_mcmc_pool``, ``K`` is the target's component count, and the
     rule needs the steps of a cycle ``n_steps`` and whether the proposal is
     Student-t."""
@@ -201,8 +207,8 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
         ok, rule = K * D <= _DENSE_KD, "K*D <= %d" % _DENSE_KD
         if kernel == "fused_is_pmc_step" and ok:
             ok, rule = _fits_vmem(K + Kt, D, _QUANTUM_RNG), "a VMEM fit at a 1024-particle tile"
-        elif kernel == "fused_vb_estep" and ok and n is not None and n < _MIN_N:
-            ok, rule = False, "K*D <= %d and n >= %d (n=%d)" % (_DENSE_KD, _MIN_N, n)
+        if ok and n is not None and n < _MIN_N:
+            ok, rule = False, "%s and n >= %d (n=%d)" % (rule, _MIN_N, n)
     else:
         raise ValueError("unknown kernel %r" % kernel)
     if ok:
@@ -224,10 +230,10 @@ def fits(kernel, K, D, Kt=0, **rule) -> bool:
 def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
     """Whether the JAX package, with the single-pass ``kernel`` out of
     reach (:func:`fits` False), elects its K-blocked variant ``kernel +
-    "_blocked"`` for N particles: the mixture fits that kernel's VMEM
-    (:func:`fits`) and the unfused path's (K, N) matrices would crowd 12
-    GiB."""
-    if kernel not in _SINGLE_PASS:
+    "_blocked"`` for N particles: N >= 1024, the mixture fits that kernel's
+    VMEM (:func:`fits`) and the unfused path's (K, N) matrices would crowd
+    12 GiB."""
+    if kernel not in _SINGLE_PASS or N < _MIN_N:
         return False
     return fits(kernel + "_blocked", K, D, Kt) and 12 * K * N > _BLOCKED_HBM
 
@@ -377,6 +383,21 @@ def _dense_blocks(kernel, device, n, K, D, Kt, variant):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _seed_args(seed, device):
+    """``(s0, s1, words)``, a random kernel's seed arguments: the two words
+    of a tuple, passed by value, or the address of a 2-word int64 tensor on
+    the kernel's ``device``, read inside the kernel (a CUDA graph replays
+    the address, so a replay reads the words the tensor holds then)."""
+    if not isinstance(seed, torch.Tensor):
+        return seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, None
+    if tuple(seed.shape) != (2,) or seed.dtype != torch.int64 or not seed.is_contiguous():
+        raise ValueError("a seed tensor holds two contiguous int64 words, got %s %s"
+                         % (seed.dtype, tuple(seed.shape)))
+    if seed.device != device:
+        raise ValueError("seed words on %s, the kernel on %s" % (seed.device, device))
+    return 0, 0, seed.data_ptr()
 
 
 def _raise_on(err, name):
@@ -858,7 +879,8 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     """Draw ``n`` particles and evaluate the proposal (and optionally a
     mixture target) on them: ``(xT (D, n), latent (n,) int32, log_q (n,))``
     plus ``log_p (n,)`` with a target (kernel ``csrc/propose_logq.cu``).
-    ``seed`` is two 32-bit words.  ``variant``: the kernel, ``"rec"`` (the
+    ``seed`` is two 32-bit words: a tuple, or a 2-word int64 tensor on the
+    mixture's device (read inside the kernel).  ``variant``: the kernel, ``"rec"`` (the
     record kernel, to D = 64), ``"looped"`` (to D = 128) or ``"warp"`` (past
     it), as ``_build.propose_plan`` elects for None; either of the first two
     gives the same outputs bit for bit.  Counted as
@@ -883,7 +905,7 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     log_p = None if target is None else torch.empty_like(log_q)
     with torch.cuda.device(device):
         err = lib.pmc_fused_propose_logq(
-            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            *_seed_args(seed, device), ops.packed.data_ptr(),
             None if target is None else target.packed.data_ptr(),
             xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
             None if log_p is None else log_p.data_ptr(), n, ops.K, Kt, D,
@@ -940,7 +962,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     kernel's pass, ``"reg"`` or ``"table"`` (``_build.dense_plan``; None:
     the plan's), counted as ``variant:fused_is_pmc_step=<variant>``; both
     draw the same particles from a seed (and, for a Gaussian target, the
-    same weights)."""
+    same weights).  ``seed``: as :func:`fused_propose_logq`'s."""
     variant = _elect("fused_is_pmc_step", ops.K, ops.dim, variant, target.K)
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step(seed, ops, target, n, dof_stats)
@@ -961,7 +983,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     flat = torch.empty((S,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_is_pmc_step(
-            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            *_seed_args(seed, device), ops.packed.data_ptr(),
             target.packed.data_ptr(), xT.data_ptr(), latent.data_ptr(),
             w.data_ptr(), partial.data_ptr(), flat.data_ptr(), n, ops.K,
             target.K, D, int(ops.student_t), int(target.student_t),
@@ -975,19 +997,29 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
 _PMC_FIELDS = ("mu", "U", "log_norm", "weights", "dof", "psi")
 
 
+@functools.lru_cache(maxsize=None)
+def _blocked_per_sm(kernel, K, D, index):
+    """Blocks of a K-blocked kernel's statistics pass for (K, D) that one SM
+    of CUDA device ``index`` holds at once (the library's occupancy, asked
+    once: a step captured as a CUDA graph asks the host nothing)."""
+    with torch.cuda.device(index):
+        per_sm = getattr(_build.load(), "pmc_%s_per_sm" % kernel[len("fused_"):])(K, D)
+    if per_sm < 1:
+        raise RuntimeError("%s: K=%d, D=%d fits no block of its statistics pass on an SM"
+                           % (kernel, K, D))
+    return per_sm
+
+
 def _blocked_operands(kernel, device, n, fields):
     """``(kc, particle blocks, chunk-major operands)`` of a K-blocked
     kernel's statistics pass (``csrc/blocked.cuh``): chunks of ``kc``
     components (``_build.blocked_plan``), each the slices of the ``(K, ...)``
     ``fields`` in turn, and as many particle blocks as let every chunk's
-    blocks fit on the card at once (the kernel's occupancy, asked of the
-    library)."""
+    blocks fit on the card at once (the kernel's occupancy,
+    :func:`_blocked_per_sm`)."""
     K, D = fields[0].shape[:2]
     kc = _build.blocked_plan(kernel, K, D)[0]
-    per_sm = getattr(_build.load(), "pmc_%s_per_sm" % kernel[len("fused_"):])(K, D)
-    if per_sm < 1:
-        raise RuntimeError("%s: K=%d, D=%d fits no block of its statistics pass on an SM"
-                           % (kernel, K, D))
+    per_sm = _blocked_per_sm(kernel, K, D, device.index)
     n_blocks = max(1, _blocks(device, n, per_sm) // -(-K // kc))
     chunks = torch.cat([t[k0:k0 + kc].reshape(-1) for k0 in range(0, K, kc) for t in fields])
     return kc, n_blocks, chunks
@@ -1061,7 +1093,7 @@ def fused_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperand
     ``csrc/is_pmc_step_blocked.cu``): the draw with log q and log p in a
     first launch -- the particles of :func:`fused_is_pmc_step` from the same
     seed words --, then the weights and the statistics chunk by chunk of
-    components; the same returns."""
+    components; the same returns.  ``seed``: as :func:`fused_propose_logq`'s."""
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step_blocked(seed, ops, target, n, dof_stats)
     _check_operands(ops)
@@ -1084,7 +1116,7 @@ def fused_is_pmc_step_blocked(seed, ops: MixtureOperands, target: MixtureOperand
     flat = torch.empty((S,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_is_pmc_step_blocked(
-            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, ops.packed.data_ptr(),
+            *_seed_args(seed, device), ops.packed.data_ptr(),
             target.packed.data_ptr(), chunks.data_ptr(), xT.data_ptr(), latent.data_ptr(),
             w.data_ptr(), log_q.data_ptr(), log_p.data_ptr(), partial.data_ptr(),
             flat.data_ptr(), n, ops.K, target.K, D, kc, int(ops.student_t),
@@ -1250,13 +1282,22 @@ def fused_mcmc_pool(seed, x0T, e0, cholr, dof_prop, target: MixtureOperands,
     return points, accepts, nan_counts, xfT, ef
 
 
-def solve_dofs(const, old_dofs, steps, mindof, maxdof):
+_DOF_VARIANTS = ("serial", "warp")   # csrc/solve_dofs.cu's variant codes 0 and 1
+
+
+def solve_dofs(const, old_dofs, steps, mindof, maxdof, variant="warp"):
     """The [HOD12] eq. (16) Student-t dof update of K components: the
     root in nu of ``const_k + log(nu / 2) - digamma(nu / 2)`` (decreasing
     in nu) by ``steps`` bisection steps on ``[mindof, maxdof]``, clamped to
     an end where the bracket holds no sign change, the old dof where the
     root is not finite (a NaN ``const`` falls to ``mindof``), in one launch
-    of kernel ``csrc/solve_dofs.cu`` (float32 or float64)."""
+    of kernel ``csrc/solve_dofs.cu`` (float32 or float64).  ``variant``:
+    ``"warp"`` (a warp a component, five levels of the bisection a round)
+    or ``"serial"`` (a thread a component, a step at a time); both give the
+    plain version's roots bit for bit.  Counted as
+    ``variant:solve_dofs=<variant>``."""
+    if variant not in _DOF_VARIANTS:
+        raise ValueError("solve_dofs: no variant %r (%s)" % (variant, _DOF_VARIANTS))
     if const.device != old_dofs.device:
         raise ValueError("tensors on different devices: %s, %s"
                          % (const.device, old_dofs.device))
@@ -1275,9 +1316,11 @@ def solve_dofs(const, old_dofs, steps, mindof, maxdof):
     with torch.cuda.device(const.device):
         err = lib.pmc_solve_dofs(const.data_ptr(), old_dofs.data_ptr(), out.data_ptr(), K,
                                  int(steps), float(mindof), float(maxdof),
-                                 int(const.dtype == torch.float64), _stream(const.device))
+                                 int(const.dtype == torch.float64),
+                                 _DOF_VARIANTS.index(variant), _stream(const.device))
     _raise_on(err, "solve_dofs")
     solve_dofs.launches += 1
+    _variant_counts["solve_dofs=" + variant] += 1
     return out
 
 
@@ -1306,6 +1349,8 @@ def reset_launch_counts():
             _variant_counts["%s=%s" % (name, variant)] = 0
     for variant in _POOL_VARIANTS:
         _variant_counts["fused_mcmc_pool=" + variant] = 0
+    for variant in _DOF_VARIANTS:
+        _variant_counts["solve_dofs=" + variant] = 0
 
 
 def launch_counts() -> dict:

@@ -16,9 +16,20 @@ Without a mesh the run is one process on one device; a ``torch.distributed``
 group of more than one rank then asks for a mesh.  The parameter lists are
 the JAX package's, ``mesh`` and ``axis_name`` included, so a positional
 call means the same in both.
+
+``pmc_run_sharded(scan_steps=True)`` runs its steps as the JAX package's
+one compiled ``lax.scan`` does (``pypmc_tpu/parallel/sampler.py:314-332``):
+through a :class:`~pypmc_tpu_torch.sampler._scan.Scan`, CUDA graphs of up
+to ``_scan.CHUNK`` whole PMC steps replayed on the card, the mixture
+carried in fixed buffers and every step's seed words drawn before the run
+into a table on the device, which the step's random kernels read
+themselves.  The scans are kept across calls, as the JAX package keeps its
+compiled steps (:func:`clear_step_cache` drops them).
 """
 
+import functools
 import logging
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as _np
@@ -29,6 +40,8 @@ from .. import profiling as _profiling
 from ..density import core as _core
 from ..mix_adapt.pmc import (pmc_log_likelihood, pmc_step_mixture_target,
                              pmc_update)
+from ..ops import kernels as _k
+from ..sampler import _scan
 from ..sampler._target import evaluate_target_T
 from ..tools import History as _History
 from ..tools.indicator import merge_function_with_indicator as _indmerge
@@ -40,9 +53,20 @@ __all__ = ["ParallelSampler", "run_is_step_sharded", "pmc_run_sharded", "PMCStep
            "clear_step_cache"]
 
 
+# the scan of pmc_run_sharded(scan_steps=True)'s last configuration, by
+# what its steps' work depends on: it holds its CUDA graphs and the memory
+# pools they replay in (at 10^7 particles a step, hundreds of MiB: PERF.md
+# section 5), so only the last is kept
+_SCANS = OrderedDict()
+_SCANS_MAX = 1
+
+
 def clear_step_cache():
-    """Kept for the JAX package's name: the port compiles no step, so there
-    is no cache to clear."""
+    """Drop the scan ``pmc_run_sharded(scan_steps=True)`` keeps across
+    calls, with its CUDA graphs; their memory goes back to PyTorch's cache
+    (``torch.cuda.empty_cache()`` returns it to the card).  The JAX
+    package's name: it drops its compiled steps."""
+    _SCANS.clear()
 
 
 def _mesh_of(mesh, entry):
@@ -84,16 +108,19 @@ def _rank_key(gen, mesh):
     return s0 ^ (h >> 32), s1 ^ (h & 0xFFFFFFFF)
 
 
-def _is_body(params, key, n, target):
+def _is_body(params, key, n, target, strict=False):
     """Propose, evaluate and weight ``n`` particles (transposed layout).  A
     MIXTURE target is evaluated inside the same kernel as the proposal; a
     callable as the importance sampler evaluates it: a batched one on the
-    block, a per-point one mapped over the particles."""
+    block, a per-point one mapped over the particles.  ``strict`` (a CUDA
+    graph is captured) checks the callable's values."""
     if isinstance(target, _core.MixtureParams):
         samples_T, latent, log_q, log_p = _core.propose_logq_T(params, key, n, target)
     else:
         samples_T, latent, log_q = _core.propose_logq_T(params, key, n)
         log_p = evaluate_target_T(target, samples_T)
+        if strict:
+            _scan.check_capturable(log_p, samples_T)
     return samples_T, torch.exp(log_p - log_q), latent
 
 
@@ -121,6 +148,124 @@ class PMCStepStats(NamedTuple):
     evidence: torch.Tensor        # mean weight = integral estimate
 
 
+def _pmc_step(params, target, key, n_local, mesh, rb, steps, mindof, maxdof,
+              compute_log_likelihood, weight_clip, strict=False):
+    """One PMC step of ``n_local`` particles on this rank from the seed
+    words ``key``: ``(the updated params, PMCStepStats of 0-d tensors,
+    samples_T, weights)``.  ``strict``: a CUDA graph is being captured."""
+    n = n_local * (1 if mesh is None else mesh.size)
+    reduce = None if mesh is None else mesh.reduce
+    red = reduce or (lambda x: x)
+    if isinstance(target, _core.MixtureParams) and rb and not weight_clip:
+        result, samples_T, weights, latent, sw = pmc_step_mixture_target(
+            params, target, key, n_local, dof_solver_steps=steps,
+            mindof=mindof, maxdof=maxdof, reduce=reduce)
+        sum_w, sum_w2, sum_wlogw = sw[0], sw[1], sw[2]
+    else:
+        samples_T, weights, latent = _is_body(params, key, n_local, target, strict)
+        sum_w = red(torch.sum(weights))
+        w_adapt = weights
+        if weight_clip:
+            # the clip is the GLOBAL mean weight times sqrt(n)
+            w_adapt = torch.minimum(weights, (sum_w / n) * n ** 0.5)
+        result = pmc_update(params, samples_T, w_adapt,
+                            latent=None if rb else latent, rb=rb,
+                            dof_solver_steps=steps, mindof=mindof,
+                            maxdof=maxdof, reduce=reduce, transposed=True)
+        sums = red(torch.stack([torch.sum(weights * weights),
+                                torch.sum(torch.special.xlogy(weights, weights))]))
+        sum_w2, sum_wlogw = sums[0], sums[1]
+    # weight diagnostics from the raw sums: the entropy of the
+    # normalized weights is log(sum w) - (sum w log w) / (sum w)
+    entr = torch.log(sum_w) - sum_wlogw / sum_w
+    perp = torch.exp(entr) / n
+    coeff_var = sum_w2 * n / sum_w ** 2 - 1.0
+    ess = 1.0 / (1.0 + coeff_var)
+    if compute_log_likelihood:
+        loglik = pmc_log_likelihood(result.params, samples_T, weights / sum_w,
+                                    reduce=reduce, transposed=True)
+    else:
+        loglik = torch.full((), float("nan"), dtype=weights.dtype,
+                            device=weights.device)
+    stats = PMCStepStats(log_likelihood=loglik, perplexity=perp, ess=ess, evidence=sum_w / n)
+    return result.params, stats, samples_T, weights
+
+
+def _uncapturable(params, target, n_local, mesh, rb, weight_clip):
+    """Why a CUDA graph cannot replay these steps, or None: a draw that is
+    no kernel's seeds a generator on the host from its words every step (a
+    replay would draw the capture's particles again), and a gloo all-reduce
+    crosses the host."""
+    if mesh is not None and mesh.group is not None \
+            and torch.distributed.get_backend(mesh.group) != "nccl":
+        return "the mesh's %s all_reduce crosses the host" % torch.distributed.get_backend(
+            mesh.group)
+    K, D = params.K, params.dim
+    Kt = target.K if isinstance(target, _core.MixtureParams) else 0
+    if isinstance(target, _core.MixtureParams) and rb and not weight_clip and (
+            _k.fits("fused_is_pmc_step", K, D, Kt, n=n_local)
+            or _k.elects_blocked("fused_is_pmc_step", K, D, n_local, Kt)):
+        return None
+    if _k.fits("fused_propose_logq", K, D, Kt):
+        return None
+    return ("the draw of K=%d, D=%d (a %d-component target) is no kernel's: it seeds a "
+            "generator on the host every step" % (K, D, Kt))
+
+
+def _pmc_steps(settings, target, xs, ys, carry, consts, strict):
+    """The body of a scan of PMC steps: ``len(seeds)`` steps from the
+    mixture ``carry`` (its tensors in ``MixtureParams``' order), step i from
+    the seed words ``seeds[i]`` of ``xs = (seeds,)``, its statistics into
+    ``ys`` (``PMCStepStats``' order), the mixture back into ``carry``; a
+    mixture target's tensors are ``consts``.  ``strict`` raises
+    :class:`~pypmc_tpu_torch.sampler._scan.Uncapturable` before a step that
+    no graph can replay."""
+    (seeds,) = xs
+    params = _core.MixtureParams(*carry)
+    if consts:
+        target = _core.MixtureParams(*consts)
+    if strict:
+        cause = _uncapturable(params, target, settings["n_local"], settings["mesh"],
+                              settings["rb"], settings["weight_clip"])
+        if cause is not None:
+            raise _scan.Uncapturable(cause)
+    for i in range(seeds.shape[0]):
+        params, stats, _, _ = _pmc_step(params, target, seeds[i], strict=strict, **settings)
+        for y, v in zip(ys, stats):
+            y[i] = v
+    for c, v in zip(carry, _tensors(params)):
+        c.copy_(v)
+
+
+def _tensors(params):
+    return tuple(t for t in (getattr(params, f) for f in _core._FIELDS) if t is not None)
+
+
+def _scan_of(target, params, settings):
+    """The scan of these steps, kept across calls (a new one where the key
+    cannot be hashed)."""
+    mesh = settings["mesh"]
+    if isinstance(target, _core.MixtureParams):
+        body_target = None
+        token = ("mixture",) + tuple((t.shape, t.dtype) for t in _tensors(target))
+    else:
+        body_target = token = target
+    key = (token, None if mesh is None else (mesh.size, mesh.rank, mesh.group, mesh.device),
+           tuple((t.shape, t.dtype, t.device) for t in _tensors(params)),
+           tuple(sorted((k, v) for k, v in settings.items() if k != "mesh")))
+    try:
+        scan = _SCANS.get(key)
+    except TypeError:   # an unhashable callable
+        return _scan.Scan(functools.partial(_pmc_steps, settings, body_target))
+    if scan is None:
+        scan = _scan.Scan(functools.partial(_pmc_steps, settings, body_target))
+        _SCANS[key] = scan
+    _SCANS.move_to_end(key)
+    while len(_SCANS) > _SCANS_MAX:
+        _SCANS.popitem(last=False)
+    return scan
+
+
 def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
                     rb=True, dof_solver_steps=100, mindof=1e-5, maxdof=1e3,
                     axis_name=PARTICLE_AXIS, return_final_samples=False,
@@ -130,8 +275,9 @@ def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
     on the device that holds ``params``.
 
     Each step with a MIXTURE target and ``rb=True`` runs the particle work
-    as one kernel (``fused_is_pmc_step``); otherwise it draws and weights
-    the particles (``fused_propose_logq``) and then runs
+    as one kernel (``fused_is_pmc_step``, from 1024 particles a rank);
+    otherwise it draws and weights the particles (``fused_propose_logq``)
+    and then runs
     :func:`~pypmc_tpu_torch.mix_adapt.pmc.pmc_update`.  Each step opens the
     range ``pmc_step`` in a :func:`pypmc_tpu_torch.profiling.trace`.
 
@@ -152,9 +298,21 @@ def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
     :param weight_clip: clip the weights at ``global mean * sqrt(n)`` for the
         ADAPTATION only (truncated importance sampling, Ionides 2008);
         diagnostics and evidence stay unclipped.
-    :param scan_steps: accepted for parity with the JAX package; the steps
-        run in the same Python loop with identical results.
-        ``return_final_samples`` is not available with it.
+    :param scan_steps: run the steps as the JAX package's one ``lax.scan``:
+        as CUDA graphs of whole steps on the card (the range ``pmc_scan``
+        for the whole run, none a step), with every step's seed words drawn
+        before the run, in the order the loop draws them, so the results
+        equal ``scan_steps=False``'s bit for bit.  The graphs pay on
+        repeated calls at the same shapes (the JAX package's
+        ``benchmarks/weak_scaling.py`` pattern): a new configuration's
+        first :data:`~pypmc_tpu_torch.sampler._scan.CHUNK` steps run
+        eagerly, so its first call of that many steps or fewer replays
+        nothing; the scan of the last configuration is kept, with its
+        graphs' memory, until another replaces it or
+        :func:`clear_step_cache`.  Steps no graph can replay (a draw that
+        is no kernel's, a gloo mesh) run eagerly, with one warning
+        (``sampler._scan``).  ``return_final_samples`` is not available
+        with it.
     :param compute_log_likelihood: False skips the extra evaluation pass per
         step (``stats.log_likelihood`` is then NaN).
 
@@ -166,53 +324,29 @@ def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
     if scan_steps and return_final_samples:
         raise ValueError("return_final_samples is not available with scan_steps=True")
     gen = _rng.as_generator(0 if key is None else key)
-    n_local = _local_count(mesh, n_total, "per step")
-    n = n_local * (1 if mesh is None else mesh.size)
-    reduce = None if mesh is None else mesh.reduce
-    red = reduce or (lambda x: x)
-    is_t = params.is_student_t
-    mixture_target = isinstance(target, _core.MixtureParams)
-    steps = dof_solver_steps if is_t else 0
+    settings = dict(n_local=_local_count(mesh, n_total, "per step"), mesh=mesh, rb=rb,
+                    steps=dof_solver_steps if params.is_student_t else 0, mindof=mindof,
+                    maxdof=maxdof, compute_log_likelihood=compute_log_likelihood,
+                    weight_clip=weight_clip)
+    if scan_steps:
+        device, dtype = params.means.device, params.means.dtype
+        seeds = torch.tensor([_rank_key(gen, mesh) for _ in range(n_steps)],
+                             dtype=torch.int64).reshape(n_steps, 2).to(device)
+        ys = tuple(torch.empty((n_steps,), dtype=dtype, device=device)
+                   for _ in PMCStepStats._fields)
+        consts = _tensors(target) if isinstance(target, _core.MixtureParams) else ()
+        with _profiling.annotate("pmc_scan"):
+            carry = _scan_of(target, params, settings).run((seeds,), ys, _tensors(params),
+                                                           consts)
+        return _core.MixtureParams(*carry), PMCStepStats(*ys)
 
     all_stats = []
     samples_T = weights = None
     for _ in range(n_steps):
         with _profiling.annotate("pmc_step"):
-            key_r = _rank_key(gen, mesh)
-            if mixture_target and rb and not weight_clip:
-                result, samples_T, weights, latent, sw = pmc_step_mixture_target(
-                    params, target, key_r, n_local, dof_solver_steps=steps,
-                    mindof=mindof, maxdof=maxdof, reduce=reduce)
-                sum_w, sum_w2, sum_wlogw = sw[0], sw[1], sw[2]
-            else:
-                samples_T, weights, latent = _is_body(params, key_r, n_local, target)
-                sum_w = red(torch.sum(weights))
-                w_adapt = weights
-                if weight_clip:
-                    # the clip is the GLOBAL mean weight times sqrt(n)
-                    w_adapt = torch.minimum(weights, (sum_w / n) * n ** 0.5)
-                result = pmc_update(params, samples_T, w_adapt,
-                                    latent=None if rb else latent, rb=rb,
-                                    dof_solver_steps=steps, mindof=mindof,
-                                    maxdof=maxdof, reduce=reduce, transposed=True)
-                sums = red(torch.stack([torch.sum(weights * weights),
-                                        torch.sum(torch.special.xlogy(weights, weights))]))
-                sum_w2, sum_wlogw = sums[0], sums[1]
-            # weight diagnostics from the raw sums: the entropy of the
-            # normalized weights is log(sum w) - (sum w log w) / (sum w)
-            entr = torch.log(sum_w) - sum_wlogw / sum_w
-            perp = torch.exp(entr) / n
-            coeff_var = sum_w2 * n / sum_w ** 2 - 1.0
-            ess = 1.0 / (1.0 + coeff_var)
-            if compute_log_likelihood:
-                loglik = pmc_log_likelihood(result.params, samples_T, weights / sum_w,
-                                            reduce=reduce, transposed=True)
-            else:
-                loglik = torch.full((), float("nan"), dtype=weights.dtype,
-                                    device=weights.device)
-        all_stats.append(PMCStepStats(log_likelihood=loglik, perplexity=perp,
-                                      ess=ess, evidence=sum_w / n))
-        params = result.params
+            params, stats, samples_T, weights = _pmc_step(
+                params, target, _rank_key(gen, mesh), **settings)
+        all_stats.append(stats)
 
     stats = PMCStepStats(*[torch.stack([getattr(s, f) for s in all_stats])
                            for f in PMCStepStats._fields])

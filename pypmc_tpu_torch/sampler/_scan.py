@@ -1,8 +1,10 @@
-"""A chain's steps in chunks, replayed as CUDA graphs on the card.
+"""A run's steps in chunks, replayed as CUDA graphs on the card.
 
 The JAX package runs a chain's steps as one jitted ``lax.scan``
 (``pypmc_tpu/sampler/markov_chain.py:33-70``, compiled once per target and
-run length) and the tensor pool's cycle as another (``:386-419``).  The
+run length), the tensor pool's cycle as another (``:386-419``) and the PMC
+steps of ``pmc_run_sharded(scan_steps=True)`` as a third
+(``pypmc_tpu/parallel/sampler.py:314-332``).  The
 port's counterpart is :class:`Scan`: it runs a step function over a run's
 inputs, all drawn before the run, in chunks of at most :data:`CHUNK` steps
 through buffers of fixed address.  On a CUDA device the first chunk runs

@@ -268,3 +268,25 @@ def test_chains_as_cuda_graphs_equal_the_eager_loop(cuda):
 
 def test_uncapturable_target_falls_back_to_the_eager_loop(cuda):
     chip_smoke.uncapturable_case(cuda)
+
+
+@pytest.mark.parametrize("K", chip_smoke.SOLVE_DOFS_K)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_dofs_warp_and_serial_kernels_equal_the_plain_version(cuda, K, dtype):
+    chip_smoke.solve_dofs_variants_case(K, getattr(torch, dtype), cuda)
+
+
+@pytest.mark.parametrize("case", chip_smoke.SEED_POINTER_CASES)
+def test_seed_by_pointer_equals_seed_by_value(cuda, case):
+    chip_smoke.seed_pointer_case(case, cuda)
+
+
+def test_replays_draw_their_seeds_particles(cuda):
+    chip_smoke.seed_replay_case(cuda)
+
+
+@pytest.mark.parametrize("which", [2, 3, 4])
+def test_pmc_scan_equals_the_loop(cuda, which):
+    """pmc_run_sharded(scan_steps=True) against the loop at 2^16 particles,
+    pmc_sharded.py's configuration and a draw no kernel makes."""
+    chip_smoke.scan_case(cuda, *chip_smoke.scan_problems(cuda)[which])

@@ -203,6 +203,71 @@ def test_solve_dofs_dispatch():
         kernels.solve_dofs(c, old.to("meta"), 100, MINDOF, MAXDOF)
 
 
+def warp_schedule(const, old_dofs, steps, mindof, maxdof, levels=5):
+    """A tensor emulation of ``csrc/solve_dofs.cu``'s warp kernel, all
+    components at once: rounds of ``levels`` levels of the bisection tree
+    (a shorter last round), node j of a round (breadth first) evaluated at
+    the midpoint of the bracket derived from the round's by the updates of
+    its path, the round's bits walked down the taken path; f_lo and f_hi on
+    the lanes the round's nodes leave of a warp's 32, in a round of their
+    own where none are left.  Each condition is evaluated on a (K,) tensor,
+    as the plain version evaluates its own."""
+    def condition(nu):
+        return const + torch.log(0.5 * nu) - torch.special.digamma(0.5 * nu)
+
+    lo, hi = torch.full_like(const, mindof), torch.full_like(const, maxdof)
+    ends, s = [], 0      # the end conditions' bits: f_lo < 0, f_hi > 0
+    while s < steps or len(ends) < 2:
+        depth = min(levels, steps - s)
+        nodes = (1 << depth) - 1
+        bits = []
+        for j in range(nodes):
+            a, b = lo, hi
+            for i in range((j + 1).bit_length() - 2, -1, -1):
+                mid = 0.5 * (a + b)
+                a, b = (mid, b) if ((j + 1) >> i) & 1 else (a, mid)
+            bits.append(condition(0.5 * (a + b)) > 0)
+        for e in range(len(ends), min(2, len(ends) + 32 - nodes)):
+            f = condition(torch.full_like(const, (mindof, maxdof)[e]))
+            ends.append(f < 0 if e == 0 else f > 0)
+        node = torch.zeros(const.shape, dtype=torch.long)
+        for _ in range(depth):
+            mid = 0.5 * (lo + hi)
+            right = torch.stack(bits).gather(0, node[None])[0]
+            lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid)
+            node = 2 * node + 1 + right.long()
+        s += depth
+    root = 0.5 * (lo + hi)
+    root = torch.where(ends[0], torch.full_like(root, mindof), root)
+    root = torch.where(ends[1], torch.full_like(root, maxdof), root)
+    return torch.where(torch.isfinite(root), root, old_dofs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [0, 1, 5, 7, 100])
+@pytest.mark.parametrize("K", [1, 10, 400])
+def test_the_warp_kernels_schedule_equals_the_plain_version(K, steps, dtype):
+    """The warp kernel's schedule of the bisection (five levels a round)
+    gives the serial bisection's roots bit for bit, in float32 and float64:
+    NaN, +-inf, a constant past each clamp, and roots at mindof and maxdof
+    (constants whose condition is 0 there) among seeded ones."""
+    from scipy.special import digamma
+
+    c = dof_constants(K, 7 * K + steps)
+    ends = [digamma(x / 2) - np.log(x / 2) for x in (MINDOF, MAXDOF)]
+    c[5:7] = ends[:max(0, K - 5)]
+    const = torch.tensor(c, dtype=dtype)
+    old = torch.tensor(np.random.default_rng(3).uniform(2.0, 30.0, K), dtype=dtype)
+    got = warp_schedule(const, old, steps, MINDOF, MAXDOF)
+    want = kernels.plain_solve_dofs(const, old, steps, MINDOF, MAXDOF)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got[~torch.isnan(got)], want[~torch.isnan(want)])
+    for variant in ("warp", "serial"):
+        assert torch.equal(kernels.solve_dofs(const, old, steps, MINDOF, MAXDOF, variant), want)
+    with pytest.raises(ValueError, match="no variant"):
+        kernels.solve_dofs(const, old, steps, MINDOF, MAXDOF, "looped")
+
+
 def test_student_t_updates_reach_solve_dofs(monkeypatch):
     """pmc_update (one-pass and unfused) and pmc_step_mixture_target solve
     the dofs through kernels.solve_dofs, once an update; a Gaussian update

@@ -331,6 +331,29 @@ class TestScanSteps:
         est = (p_scan.weights[:, None] * p_scan.means).sum(0).numpy()
         np.testing.assert_allclose(est, TARGET_MU, atol=0.3)
 
+    @pytest.mark.parametrize("n_steps", [3, 7])
+    def test_scan_steps_on_a_one_rank_mesh_equal_the_loop(self, monkeypatch, n_steps):
+        """scan_steps=True on a one-rank mesh, in chunks of 3 steps, equals
+        the loop without a mesh bit for bit, with a batched callable target
+        and with a mixture target (its statistics summed by the mesh's
+        reduce)."""
+        from pypmc_tpu_torch.sampler import _scan
+
+        monkeypatch.setattr(_scan, "CHUNK", 3)
+        p0 = core.make_mixture(torch.tensor([[-2.0, 0.0], [2.0, 2.0]], dtype=torch.float64),
+                               torch.tensor(np.array([np.eye(2) * 4.0] * 2)))[0]
+        mix = core.make_mixture(torch.tensor(TARGET_MU[None], dtype=torch.float64),
+                                torch.tensor(np.eye(2)[None]))[0]
+        for target in (block_target, mix):
+            loop = pmc_run_sharded(target, p0, 1200, n_steps, key=3)
+            scan = pmc_run_sharded(target, p0, 1200, n_steps, mesh=particle_mesh(), key=3,
+                                   scan_steps=True)
+            for f in ("means", "cov", "weights"):
+                assert torch.equal(getattr(loop[0], f), getattr(scan[0], f))
+            for x, y in zip(loop[1], scan[1]):
+                assert torch.equal(x, y)
+        assert clear_step_cache() is None
+
 
 class TestMixtureTarget:
     """A MixtureParams target runs the one-kernel step (its plain version

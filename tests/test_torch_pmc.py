@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import pypmc_tpu.density.core as jcore
 import pypmc_tpu.mix_adapt.pmc as jpmc
+import pypmc_tpu.ops.pallas_kernels as pk
 import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt import pmc
@@ -93,7 +95,9 @@ def test_pmc_update_unweighted_row_major():
     ref = jpmc.pmc_update(jp, jnp.asarray(x), fused="off")
     got = pmc.pmc_update(tp, torch.tensor(x))
     assert_params_close(got.params, ref.params)
-    assert got.rho is None
+    # 700 particles: below 1024 the update takes the unfused path, as the
+    # JAX package's does (pmc.py:223), and forms the responsibilities
+    assert got.rho is not None and got.rho.shape == (3, 700)
 
 
 def test_solve_dofs_matches_jax():
@@ -271,3 +275,93 @@ def test_mixture_logpdf_and_mahalanobis_on_both_sides_of_the_limit(K, D):
     np.testing.assert_allclose(maha.numpy(),
                                np.asarray(jcore.mahalanobis_all_T(jp, jnp.asarray(xT))),
                                rtol=RTOL64, atol=ATOL64)
+
+
+class _Taken(Exception):
+    """Raised where a JAX package's function takes a route: ``route`` is
+    the kernel's route ("dense", "blocked") or None for its XLA path."""
+
+    def __init__(self, route):
+        super().__init__(route)
+        self.route = route
+
+
+# K*D <= 128 (the dense kernels), the K-blocked shapes (their VMEM fit;
+# elected at 2^20 particles where the unfused (K, N) matrices would crowd
+# 12 GiB: K > 1024), and shapes past both
+ROUTE_SHAPES = [(10, 10), (3, 2), (16, 8), (128, 1), (30, 10), (400, 2), (2000, 2), (200, 10),
+                (2, 200)]
+
+
+@pytest.mark.parametrize("N", [1023, 1024, 1 << 20])
+def test_statistics_routes_are_the_jax_routes(monkeypatch, N):
+    """The port's route of fused_pmc_stats and fused_is_pmc_step (and of
+    their K-blocked twins) is the one the JAX package's pmc_update
+    (pmc.py:223) and pmc_step_mixture_target (:422) take at N particles:
+    their own decision, read with the Pallas kernels and the XLA path
+    replaced by stops and Pallas allowed on the CPU.  Below 1024 particles
+    both take the unfused path."""
+    monkeypatch.setenv("PYPMC_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.delenv("PYPMC_TPU_DISABLE_PALLAS", raising=False)
+    monkeypatch.delenv("PYPMC_TPU_DISABLE_FUSED_RNG", raising=False)
+
+    def stop(route):
+        def taken(*args, **kwargs):
+            raise _Taken(route)
+        return taken
+
+    for name in ("fused_pmc_stats", "fused_is_pmc_step"):
+        monkeypatch.setattr(pk, name, stop("dense"))
+        monkeypatch.setattr(pk, name + "_blocked", stop("blocked"))
+    monkeypatch.setattr(jpmc, "calculate_rho_rb_T", stop(None))
+    monkeypatch.setattr(jcore, "propose_logq_T", stop(None))
+    rng = np.random.default_rng(11)
+    Kt = 2
+    jt = jcore.make_mixture(rng.normal(size=(Kt, 2)).astype(np.float32),
+                            np.array([np.eye(2)] * Kt, dtype=np.float32))[0]
+    seen = set()
+    for K, D in ROUTE_SHAPES:
+        jp = jcore.make_mixture(rng.normal(size=(K, D)).astype(np.float32),
+                                np.array([np.eye(D)] * K, dtype=np.float32))[0]
+        with pytest.raises(_Taken) as update:
+            jpmc.pmc_update(jp, jnp.zeros((D, N), jnp.float32), transposed=True)
+        assert kernels.route("fused_pmc_stats", K, D, N) == update.value.route, (K, D, N)
+        if D == 2:
+            jt_d = jt
+        else:
+            jt_d = jcore.make_mixture(rng.normal(size=(Kt, D)).astype(np.float32),
+                                      np.array([np.eye(D)] * Kt, dtype=np.float32))[0]
+        with pytest.raises(_Taken) as step:
+            jpmc.pmc_step_mixture_target(jp, jt_d, jax.random.PRNGKey(0), N)
+        assert kernels.route("fused_is_pmc_step", K, D, N, Kt) == step.value.route, (K, D, N)
+        seen |= {update.value.route, step.value.route}
+    assert seen == ({None} if N < 1024 else
+                    {None, "dense", "blocked"} if N == 1 << 20 else {None, "dense"})
+
+
+@pytest.mark.parametrize("student_t", [True, False])
+def test_update_and_step_below_1024_particles_take_the_unfused_path(student_t):
+    """At N=1000 the update and the step take the unfused path, each
+    counted as its kernel's plain route, and match the JAX package's XLA
+    update in float64 (the step on the port's own particles)."""
+    rng = np.random.default_rng(12)
+    jp, tp = mixture(rng, 3, 4, student_t)
+    _, tt = mixture(rng, 2, 4, False)
+    x = rng.normal(0, 2, (4, 1000))
+    w = rng.exponential(1.0, 1000)
+    kernels.reset_launch_counts()
+    got = pmc.pmc_update(tp, torch.tensor(x), torch.tensor(w), transposed=True)
+    counts = kernels.launch_counts()
+    assert counts["plain:fused_pmc_stats"] == 1 and got.rho is not None
+    ref = jpmc.pmc_update(jp, jnp.asarray(x), jnp.asarray(w), transposed=True, fused="off")
+    assert_params_close(got.params, ref.params)
+
+    kernels.reset_launch_counts()
+    result, xT, w_step, _, sw = pmc.pmc_step_mixture_target(tp, tt, 5, 1000)
+    counts = kernels.launch_counts()
+    assert counts["plain:fused_is_pmc_step"] == 1 and counts["plain:fused_pmc_stats"] == 1
+    assert result.rho is not None and xT.shape == (4, 1000)
+    ref = jpmc.pmc_update(jp, jnp.asarray(xT.numpy()), jnp.asarray(w_step.numpy()),
+                          transposed=True, fused="off")
+    assert_params_close(result.params, ref.params, rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(float(sw[0]), float(w_step.sum()), rtol=1e-12)

@@ -1,6 +1,10 @@
 """The ported PMC main path as a whole against pypmc_tpu: one step's update
 on identical samples in float64, and the whole pmc_run_sharded run loop in
-both packages held to the normalized target's evidence of 1."""
+both packages held to the normalized target's evidence of 1.  Its
+``scan_steps=True`` path (the steps through ``sampler._scan.Scan``, their
+seed words from a table on the device) against the loop, bit for bit."""
+
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +18,10 @@ from pypmc_tpu.parallel import pmc_run_sharded as jax_pmc_run_sharded
 import pypmc_tpu_torch
 from pypmc_tpu_torch.density import core
 from pypmc_tpu_torch.mix_adapt.pmc import pmc_step_mixture_target
+from pypmc_tpu_torch.ops import kernels
 from pypmc_tpu_torch.parallel import pmc_run_sharded, run_is_step_sharded
-from pypmc_tpu_torch.sampler import batched_target
+from pypmc_tpu_torch.parallel import sampler as psampler
+from pypmc_tpu_torch.sampler import _scan, batched_target
 
 torch.set_num_threads(1)
 
@@ -182,3 +188,199 @@ def test_multi_rank_group_is_refused(monkeypatch):
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     with pytest.raises(NotImplementedError):
         pmc_run_sharded(tt, tp, 64, 1)
+
+
+# ------------------------------------------------------------------ #
+# pmc_run_sharded(scan_steps=True)                                    #
+# ------------------------------------------------------------------ #
+
+# label: (Student-t proposal, target, particles, keywords); below 1024
+# particles the step draws with fused_propose_logq and updates unfused
+SCAN_RUNS = {
+    "gaussian mixture": (False, "mixture", 2000, {}),
+    "student-t mixture": (True, "mixture", 2000, {}),
+    "student-t, 1000 particles": (True, "mixture", 1000, {}),
+    "batched callable": (True, "callable", 1500, {}),
+    "rb=False": (True, "mixture", 1500, {"rb": False}),
+    "weight_clip": (False, "mixture", 1500, {"weight_clip": True,
+                                             "compute_log_likelihood": False}),
+}
+
+
+def scan_problem(run):
+    student_t, kind, n, kw = SCAN_RUNS[run]
+    _, _, tp, tt = problem(student_t)
+    if kind == "callable":
+        @batched_target(transposed=True)
+        def target(xT):
+            return core.mixture_logpdf_T(tt, xT)
+        return target, tp, n, kw
+    return tt, tp, n, kw
+
+
+def assert_runs_equal(a, b):
+    for f in core._FIELDS:
+        x, y = getattr(a[0], f), getattr(b[0], f)
+        assert (x is None and y is None) or torch.equal(x, y), f
+    for x, y in zip(a[1], b[1]):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n_steps", [1, 4, 5, 9])
+@pytest.mark.parametrize("run", list(SCAN_RUNS))
+def test_scan_steps_equal_the_loop_across_chunks(monkeypatch, run, n_steps):
+    """scan_steps=True through chunks of 4 steps equals the loop bit for
+    bit: the mixture, all four statistics."""
+    monkeypatch.setattr(_scan, "CHUNK", 4)
+    psampler.clear_step_cache()
+    target, tp, n, kw = scan_problem(run)
+    loop = pmc_run_sharded(target, tp, n, n_steps, key=11, **kw)
+    scan = pmc_run_sharded(target, tp, n, n_steps, key=11, scan_steps=True, **kw)
+    assert scan[1].ess.shape == (n_steps,)
+    assert_runs_equal(loop, scan)
+
+
+def test_the_seed_table_holds_the_loops_words(monkeypatch):
+    """The scan's steps take, in order, the words the loop's steps take:
+    _rank_key's of the key's generator."""
+    _, _, tp, tt = problem()
+    seen = []
+    step = psampler._pmc_step
+
+    def spy(params, target, key, *args, **kwargs):
+        seen.append(tuple(int(w) for w in key))
+        return step(params, target, key, *args, **kwargs)
+
+    monkeypatch.setattr(psampler, "_pmc_step", spy)
+    monkeypatch.setattr(_scan, "CHUNK", 2)
+    pmc_run_sharded(tt, tp, 1500, 5, key=4)
+    loop, seen[:] = seen[:], []
+    pmc_run_sharded(tt, tp, 1500, 5, key=4, scan_steps=True)
+    gen = torch.Generator().manual_seed(4)
+    assert seen == loop == [psampler._rank_key(gen, None) for _ in range(5)]
+
+
+class StandInCard:
+    """The card's part of a scan on the CPU: the warm-up runs the steps; a
+    capture runs them for its checks (strict) and undoes what they wrote,
+    as a capture records and runs nothing; a replay runs them anew, reading
+    the buffers as they are then, without counting its launches (the scan
+    adds the capture's)."""
+
+    @staticmethod
+    def serves(device):
+        return True
+
+    @staticmethod
+    def warm_up(device, steps):
+        steps()
+
+    @staticmethod
+    def capture(device, steps):
+        scan = next(reversed(psampler._SCANS.values()))
+        buffers = [t for group in scan._buffers for t in group]
+        saved = [t.clone() for t in buffers]
+        steps()
+        for t, v in zip(buffers, saved):
+            t.copy_(v)
+        return steps
+
+    @staticmethod
+    def replay(graph):
+        before = kernels.launch_counts()
+        graph()
+        kernels.add_launch_counts(_scan._launches_since(before), -1)
+
+
+def wide_problem():
+    """A D=40 draw no kernel makes below 1024 particles: the mixtures are
+    past fused_propose_logq's rule (12 + 2 components), the transforms need
+    1024 particles."""
+    rng = np.random.default_rng(5)
+    tp = core.make_mixture(rng.normal(0, 1, (12, 40)), np.array([np.eye(40)] * 12))[0]
+    tt = core.make_mixture(rng.normal(0, 1, (2, 40)), np.array([np.eye(40) * 2] * 2))[0]
+    return tp, tt
+
+
+@pytest.mark.parametrize("n", [1000, 3000])
+def test_replays_read_each_chunks_seeds(monkeypatch, n):
+    """With a stand-in card, the graph of a 3-step chunk, captured once and
+    replayed on each later chunk's seed words, gives the loop's run bit for
+    bit and its launch counts (the plain routes below 1024 particles)."""
+    monkeypatch.setattr(_scan.Scan, "_card", StandInCard)
+    monkeypatch.setattr(_scan, "CHUNK", 3)
+    psampler.clear_step_cache()
+    _, _, tp, tt = problem()
+    kernels.reset_launch_counts()
+    loop = pmc_run_sharded(tt, tp, n, 10, key=8)
+    want = kernels.launch_counts()
+    _scan.reset_counts()
+    kernels.reset_launch_counts()
+    scan = pmc_run_sharded(tt, tp, n, 10, key=8, scan_steps=True)
+    assert kernels.launch_counts() == want
+    assert _scan.counts == {"replays": 3, "captures": 2, "warm-ups": 1, "uncapturable": 0,
+                            "fallbacks": 0}
+    assert_runs_equal(loop, scan)
+    assert want["plain:fused_is_pmc_step"] == (10 if n < 1024 else 0)
+
+
+def test_a_draw_no_kernel_makes_is_not_captured(monkeypatch, caplog):
+    """The body in strict mode raises Uncapturable before it draws where no
+    kernel draws; through the stand-in card the run falls back with one
+    warning, counted, and equals the loop bit for bit."""
+    tp, tt = wide_problem()
+    settings = dict(n_local=1000, mesh=None, rb=True, steps=0, mindof=1e-5, maxdof=1e3,
+                    compute_log_likelihood=True, weight_clip=False)
+    drawn = []
+    propose = core.propose_T
+    monkeypatch.setattr(core, "propose_T", lambda *a: drawn.append(1) or propose(*a))
+    seeds = torch.tensor([[1, 2]])
+    ys = tuple(torch.empty(1, dtype=torch.float64) for _ in range(4))
+    carry = psampler._tensors(tp)
+    with pytest.raises(_scan.Uncapturable, match="no kernel's"):
+        psampler._pmc_steps(settings, None, (seeds,), ys, carry, psampler._tensors(tt), True)
+    assert not drawn
+    psampler._pmc_steps(settings, None, (seeds,), ys, carry, psampler._tensors(tt), False)
+    assert drawn == [1]
+    # a kernel's draw is captured: the flagship's shapes
+    _, _, fp, ft = problem()
+    settings.update(steps=100)
+    psampler._pmc_steps(settings, None, (seeds,), ys, psampler._tensors(fp),
+                        psampler._tensors(ft), True)
+
+    monkeypatch.setattr(_scan.Scan, "_card", StandInCard)
+    monkeypatch.setattr(_scan, "CHUNK", 2)
+    psampler.clear_step_cache()
+    loop = pmc_run_sharded(tt, tp, 1000, 5, key=3)
+    _scan.reset_counts()
+    with caplog.at_level(logging.WARNING, logger=_scan.__name__):
+        caplog.clear()
+        scan = pmc_run_sharded(tt, tp, 1000, 5, key=3, scan_steps=True)
+    warnings = [r.getMessage() for r in caplog.records if "cannot be captured" in r.getMessage()]
+    assert len(warnings) == 1 and "no kernel's" in warnings[0]
+    assert _scan.counts == {"replays": 0, "captures": 0, "warm-ups": 1, "uncapturable": 1,
+                            "fallbacks": 2}
+    assert_runs_equal(loop, scan)
+
+
+def test_a_seed_tensor_draws_what_its_words_draw():
+    """The plain versions of the three kernels a replayed step seeds from
+    its table draw from a 2-word int64 tensor what they draw from the same
+    words as ints."""
+    rng = np.random.default_rng(6)
+    tp = core.make_mixture(rng.normal(0, 1, (3, 4)), np.array([np.eye(4)] * 3), None,
+                           np.full(3, 6.0))[0]
+    tt = core.make_mixture(rng.normal(0, 1, (2, 4)), np.array([np.eye(4)] * 2))[0]
+    ops, tops = core._kernel_operands(tp), core._kernel_operands(tt)
+    words = (0x9E3779B9, 12345)
+    table = torch.tensor(words)
+    calls = [lambda s: kernels.fused_propose_logq(s, ops, 500, tops),
+             lambda s: kernels.fused_is_pmc_step(s, ops, tops, 500, True),
+             lambda s: kernels.fused_is_pmc_step_blocked(s, ops, tops, 500, True)]
+    for call in calls:
+        a, b = call(words), call(table)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            if isinstance(x, dict):
+                assert all(torch.equal(x[key], y[key]) for key in x)
+            else:
+                assert torch.equal(x, y)
