@@ -6,9 +6,11 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the fourteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
-   ``nvcc`` a source, all at once: the thirteen Pallas kernels' and
-   ``solve_dofs``, the dof bisection of the JAX package's PMC step), each launcher's shared memory (and the
+2. build: the fifteen CUDA kernels from ``pypmc_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once: the thirteen Pallas kernels',
+   ``solve_dofs``, the dof bisection of the JAX package's PMC step, and
+   ``draw_proposal_inputs``, the ``jax.random`` draws of its ``propose_T``,
+   whose four instantiations must not spill), each launcher's shared memory (and the
    chunked kernels' components a chunk, the statistics kernels' tile, the
    plan of the register pass of ``fused_vb_estep``, ``fused_is_pmc_step``
    and ``fused_pmc_stats``, the plans of the three draws ``fused_transform``,
@@ -78,10 +80,19 @@ Phases, each of which exits non-zero on failure:
    plain version in the same dtype equal bit for bit at 0, 1, 5, 7 and 100
    steps.  Each kernel that draws from a seed (``fused_propose_logq``,
    ``fused_transform_rng``, ``fused_is_pmc_step``,
-   ``fused_is_pmc_step_blocked``; every variant that draws) with its two
-   words in a tensor on the card against the words by value, every output
-   bit for bit; one ``fused_is_pmc_step`` launch captured as a CUDA graph,
-   replayed with two seeds in its tensor, draws each seed's particles;
+   ``fused_is_pmc_step_blocked``, ``draw_proposal_inputs`` in float32 and
+   float64; every variant that draws) with its two words in a tensor on
+   the card against the words by value, every output bit for bit; one
+   launch of ``fused_is_pmc_step``, ``fused_transform_rng`` and
+   ``draw_proposal_inputs`` each captured as a CUDA graph, replayed with two
+   seeds in its tensor, draws each seed's particles.
+   ``draw_proposal_inputs`` against its plain version in distribution
+   (``DRAW_CASES``: the pipeline's K=32, D=40 Student-t draw, K=1, dead
+   components, float32 and float64): both draws' components against the
+   weights (a dead one never drawn), their normals' moments and a KS test
+   against the normal law, ``dof / scale^2`` against the chi-square law,
+   each other's frequencies and (two-sample KS) normals and chi-squares;
+   without normals the same components;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
@@ -95,10 +106,11 @@ Phases, each of which exits non-zero on failure:
    in turns (loop, scan, scan, loop, after the scan's warm-up and capture)
    at the slice, its ``--components 200`` (the K-blocked step), the slice
    at 2^16 particles, ``examples/pmc_sharded.py``'s configuration (1001
-   particles) and a D=40 step of 1000 particles that no kernel draws: every
+   particles), a D=40 step of 1000 particles past ``fused_propose_logq``'s
+   rule, the D=40 pipeline's PMC stage (K=32 Student-t, 2^20 particles,
+   10 steps; ``pmc_stage_problem``) and the 2^16 slice in float64: every
    run bit for bit the first loop's, the launches equal, the steps replayed
-   as CUDA graphs with no fallback where a kernel draws and the counted
-   fallback with one warning where none does; host ms a step both ways,
+   as CUDA graphs with no fallback and no warning; host ms a step both ways,
    device ms a step (torch.profiler) and the peak memory of the loop, the
    capture and a replay;
 5. vb: ``GaussianInference`` at the ``benchmarks/vb_step.py``
@@ -112,7 +124,11 @@ Phases, each of which exits non-zero on failure:
    forced ``fused="dense"`` raises; a D=40 ``mixture_logpdf_T`` runs
    ``fused_logq`` and a K=400, D=10 one its unfused path, each against
    float64; a K=400 update of 2^22 particles, where the JAX package elects
-   its K-blocked kernel, runs ``fused_pmc_stats_blocked``;
+   its K-blocked kernel, runs ``fused_pmc_stats_blocked``; float64
+   CUDA tensors through ``pmc_update``, ``GaussianInference``,
+   ``pmc_run_sharded`` and the chain pool (``sample_adaptive_chains``)
+   take the unfused path, every refusal counted, each against the same
+   call in float64 on the CPU to 1e-10 (``float64_entry_points``);
    blocked: the three K-blocked kernels against their float64 plain
    versions (K=400, D=2; K=200, D=10; a ragged last chunk; K=96, D=40; K=3,
    D=128 with the operands in device memory; D=14 in three row bands), the
@@ -127,7 +143,11 @@ Phases, each of which exits non-zero on failure:
    ``solve_dofs``, in turns;
 7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
    through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16
-   (each on its record kernel) and the tensor path below 1024 particles;
+   (each on its record kernel) and the tensor path below 1024 particles,
+   each after one ``draw_proposal_inputs`` launch; a per-point target
+   through ``fused_maha`` and one through ``fused_rho``, mapped over 2^16
+   points with ``torch.func.vmap``: one launch each, no warning, equal to
+   the batched call;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
@@ -208,7 +228,9 @@ Phases, each of which exits non-zero on failure:
     --blocked-splits``), the first launch also beside its bound;
     ``solve_dofs``'s warp and serial kernels (CUDA events, and device time
     by torch.profiler in that fresh process) and its plain version at K=10,
-    200 and 400.
+    200 and 400; ``fused_transform_rng`` with its seed from a tensor;
+    ``draw_proposal_inputs`` at K=32, D=40, N=2^20 (Student-t, float32 and
+    float64, and the components only) beside its plain version.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -261,6 +283,8 @@ SOURCES = {
                                   "pypmc_tpu/ops/pallas_kernels.py:2067"),
     # no Pallas kernel: the lax.fori_loop of the JAX package's _solve_dofs
     "solve_dofs": ("pypmc_tpu_torch/csrc/solve_dofs.cu", "pypmc_tpu/mix_adapt/pmc.py:349"),
+    # no Pallas kernel: jax.random in the JAX package's propose_T
+    "draw_proposal_inputs": ("pypmc_tpu_torch/csrc/draw.cu", "pypmc_tpu/density/core.py:293"),
 }
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
@@ -270,10 +294,12 @@ SOURCES = {
 # scatter matrices and bound, float32 particle work reduced in float64,
 # and the same for the converged fits and reductions of
 # examples_torch/variational.py and mixture_reduction.py against their
-# float64 runs on the CPU
+# float64 runs on the CPU; "f64": a float64 entry point on the card (the
+# unfused path, float64 tensor code and the float64 kernels) against the
+# same call in float64 on the CPU, summed in another order
 TOL = {"log": (2e-3, 1e-5), "w": (0.0, 1e-3), "stats": (1e-6, 1e-4),
        "update": (1e-4, 1e-3), "dof": (0.0, 1e-2), "maha": (1e-5, 1e-5),
-       "rho": (2e-3, 0.0), "vb": (0.0, 1e-5), "pool": (1e-3, 0.0)}
+       "rho": (2e-3, 0.0), "vb": (0.0, 1e-5), "pool": (1e-3, 0.0), "f64": (0.0, 1e-10)}
 # Where an example hands a statistics kernel inputs that float32 cannot
 # resolve as the cases' can (examples_torch/variational.py's first VB
 # E-step: const = -2.95e5 for every component, so log rho keeps ~0.03 of
@@ -1298,6 +1324,134 @@ def vmap_case(device, report):
         mix.stacked_params(dtype=torch.float64, device="cpu"), x.T.cpu().double()), "log", report)
 
 
+def weights_of(cumw):
+    """The weights the tail-sum thresholds ``cumw`` draw, float64 numpy."""
+    c = cumw.double().cpu().numpy()
+    return np.diff(np.concatenate([[0.0], c]))
+
+
+def check_draw(name, latent, zT, scale, cumw, dof, report, sub=1 << 20):
+    """A draw of ``draw_proposal_inputs`` (the kernel's or the plain
+    version's) on its own: every component in [0, K), a dead one never
+    drawn, the frequencies against the weights (chi-square, p > 1e-6, from
+    1000 particles); the normals' mean and variance, coordinate by
+    coordinate, within 6 standard errors of 0 and 1, and a KS test of at
+    most ``sub`` of them against the normal law; for a Student-t mixture
+    ``dof / scale^2`` chi-square with the component's dof (KS of its
+    probability transform), for a Gaussian one every scale 1.  Returns the
+    frequencies and the probability transforms of the normals' and the
+    chi-squares' subsamples."""
+    import torch
+    from scipy import stats as st
+
+    w = weights_of(cumw)
+    K, N = len(w), latent.shape[0]
+    lat = latent.cpu().numpy()
+    counts = np.bincount(lat, minlength=K)
+    require(lat.min() >= 0 and counts.shape[0] == K, "%s: a component outside [0, K)" % name)
+    require(np.all(counts[w == 0] == 0), "%s: a dead component was drawn" % name)
+    live = w > 0
+    if live.sum() > 1 and N >= 1000:
+        p = float(st.chisquare(counts[live], N * w[live] / w[live].sum()).pvalue)
+        require(p > 1e-6, "%s: component frequencies off (p=%.3g)" % (name, p))
+    out = {"freq": counts / N}
+    if zT is None:
+        return out
+    z = zT.double()
+    zm = float((z.mean(dim=1).abs() * N ** 0.5).max())
+    zv = float(((z.var(dim=1) - 1).abs() * (N / 2) ** 0.5).max())
+    require(zm < 6 and zv < 6, "%s: normals' mean %.2f, variance %.2f sigma off" % (name, zm, zv))
+    cols = max(1, sub // z.shape[0])
+    u = st.norm.cdf(z[:, :cols].cpu().numpy().ravel())
+    p_z = float(st.kstest(u, "uniform").pvalue)
+    require(p_z > 1e-6, "%s: normals not normal (KS p=%.3g)" % (name, p_z))
+    out["z"] = u
+    report.append({"output": name + " normals mean", "statistical": True,
+                   "max_abs_err": zm / N ** 0.5, "tol": 6 / N ** 0.5})
+    if dof is None:
+        require(bool(torch.all(scale == 1)), "%s: a Gaussian scale is not 1" % name)
+        print("  %-34s components, normals: mean %.2f, variance %.2f sigma, KS p %.3g"
+              % (name, zm, zv, p_z))
+        return out
+    nu = dof.double()[latent.long()]
+    chi2 = (nu / scale.double() ** 2)[:sub].cpu().numpy()
+    u = st.chi2.cdf(chi2, nu[:sub].cpu().numpy())
+    p_s = float(st.kstest(u, "uniform").pvalue)
+    require(p_s > 1e-6, "%s: dof / scale^2 not chi-square (KS p=%.3g)" % (name, p_s))
+    out["chi2"] = u
+    print("  %-34s components, normals: mean %.2f, variance %.2f sigma, KS p %.3g; "
+          "dof / scale^2 KS p %.3g" % (name, zm, zv, p_z, p_s))
+    return out
+
+
+def draw_case(case, device, report):
+    """draw_proposal_inputs against its plain version in distribution, in
+    the case's dtype: both draws on their own (:func:`check_draw`), then
+    each other's (the frequencies within 6 standard errors of their
+    difference, a two-sample KS of the normals' and the chi-squares'
+    probability transforms); without normals the same components; one seed
+    one draw, two seeds two."""
+    import torch
+    from scipy import stats as st
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dead, dtype, seed = case
+    means, covs, w, dofs = random_mixture(np.random.default_rng(seed), K, D, student, dead)
+    if dead and K > 2:
+        w = w.copy()
+        w[-1] = 0.0      # a dead trailing component too
+        w = (w / w.sum()).astype(np.float32)
+    params = make_params((means, covs, w, dofs), device).to(dtype=getattr(torch, dtype))
+    cumw = core._cumulative_weights(params.weights).contiguous()
+    dof = None if params.dof is None else params.dof.contiguous()
+    tag = "draw_proposal_inputs K=%d D=%d N=%d %s%s %s" % (
+        K, D, N, "t" if student else "gauss", " dead" if dead else "", dtype)
+    print("case " + tag)
+    k.reset_launch_counts()
+    got = k.draw_proposal_inputs((seed, 5), cumw, dof, N, D, True)
+    sync(device)
+    require(k.launch_counts()["draw_proposal_inputs"] == 1, "%s: no one launch" % tag)
+    require(got[0].dtype == torch.int32 and got[1].dtype == got[2].dtype == params.means.dtype
+            and tuple(got[1].shape) == (D, N) and tuple(got[2].shape) == (N,),
+            "%s: outputs %s" % (tag, [(t.dtype, tuple(t.shape)) for t in got]))
+    ref = k.plain_draw_proposal_inputs((seed, 5), cumw, dof, N, D, True)
+    a = check_draw("draw_proposal_inputs", *got, cumw, dof, report)
+    b = check_draw("  its plain version", *ref, cumw, dof, [])
+    se = np.sqrt(2 * weights_of(cumw) * (1 - weights_of(cumw)) / N)
+    diff = np.abs(a["freq"] - b["freq"])
+    worst = int(np.argmax(diff - 6 * se))
+    require(np.all(diff <= 6 * se), "%s: frequencies %s against the plain version's %s"
+            % (tag, a["freq"], b["freq"]))
+    if se[worst] > 0:    # K=1: nothing to compare
+        report.append({"output": "draw_proposal_inputs frequencies vs plain " + tag,
+                       "statistical": True, "max_abs_err": float(diff[worst]),
+                       "tol": float(6 * se[worst])})
+    for key in ("z", "chi2"):
+        if key in a:
+            p = float(st.ks_2samp(a[key], b[key]).pvalue)
+            print("  %-34s two-sample KS against the plain version's: p %.3g"
+                  % ("draw_proposal_inputs " + key, p))
+            require(p > 1e-6, "%s: %s against the plain version's, KS p=%.3g" % (tag, key, p))
+    only = k.draw_proposal_inputs((seed, 5), cumw, dof, N, D, False)
+    require(only[1] is None and only[2] is None and bool(torch.equal(only[0], got[0])),
+            "%s: without normals, other components" % tag)
+    again = k.draw_proposal_inputs((seed, 5), cumw, dof, N, D, True)
+    other = k.draw_proposal_inputs((seed, 6), cumw, dof, N, D, True)
+    require(all(bool(torch.equal(x, y)) for x, y in zip(got, again)),
+            "%s: one seed gave two draws" % tag)
+    require(not bool(torch.equal(got[1], other[1])), "%s: two seeds, one draw" % tag)
+
+
+# K, D, N, Student-t, dead components, dtype, seed
+DRAW_CASES = [
+    (32, 40, N_FLAGSHIP, True, False, "float32", 121),    # the pipeline's PMC proposal
+    (12, 40, N_WIDE, False, True, "float32", 122),
+    (10, 10, N_FLAGSHIP, True, True, "float64", 123),
+    (1, 40, N_WIDE, True, False, "float64", 124),
+    (1, 7, N_ODD, False, False, "float32", 125),
+    (5, 3, N_ODD, False, True, "float64", 126),
+]
 TRANSFORM_CASES = [
     # K, D, N, Student-t, seed
     (10, 10, N_PLAIN_MAX, True, 41),
@@ -1422,7 +1576,11 @@ def phase_kernels(device, cases, eval_cases):
     for case in SEED_POINTER_CASES:
         seed_pointer_case(case, device)
         torch.cuda.empty_cache()
-    seed_replay_case(device)
+    for case in REPLAY_CASES:
+        seed_replay_case(device, case)
+    for case in DRAW_CASES:
+        draw_case(case, device, report)
+        torch.cuda.empty_cache()
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
     from pypmc_tpu_torch.density import core
@@ -1565,7 +1723,8 @@ def solve_dofs_variants_case(K, dtype, device):
 # (kernel, K, D, Kt, N, variant): each seeded kernel's launches with the
 # words in a tensor against the words by value; every kernel variant that
 # draws (the draws' record, looped and warp kernels, the step's two passes,
-# the K-blocked step's two first launches)
+# the K-blocked step's two first launches, the proposal inputs' draw in
+# float32 and, variant "float64", in float64)
 SEED_POINTER_CASES = [
     ("fused_propose_logq", 10, 10, 2, N_FLAGSHIP, None),
     ("fused_propose_logq", 10, 10, 2, N_FLAGSHIP, "looped"),
@@ -1574,7 +1733,19 @@ SEED_POINTER_CASES = [
     ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, "table"),
     ("fused_is_pmc_step_blocked", 200, 10, 2, 1 << 18, None),
     ("fused_is_pmc_step_blocked", 96, 40, 2, 1 << 16, None),
+    ("fused_transform_rng", 10, 10, 0, N_FLAGSHIP, None),
+    ("fused_transform_rng", 10, 10, 0, N_FLAGSHIP, "looped"),
+    ("fused_transform_rng", 11, 40, 0, N_FLAGSHIP, None),
+    ("fused_transform_rng", 40, 40, 0, 1 << 16, None),      # records in device memory
+    ("fused_transform_rng", 1, 200, 0, 1 << 16, None),
+    ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None),
+    ("draw_proposal_inputs", 10, 10, 0, N_FLAGSHIP, "float64"),
 ]
+# one launch captured as a CUDA graph and replayed with two seeds in its
+# tensor: a step's, and the two draws of propose_T's routes
+REPLAY_CASES = [("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, None),
+                ("fused_transform_rng", 11, 40, 0, N_FLAGSHIP, None),
+                ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None)]
 SEED_WORDS = (0x9E3779B9, 0x7F4A7C15)
 
 
@@ -1592,16 +1763,25 @@ def tensors_of(value):
 def seeded_call(case, device):
     """``call``: ``call(seed)`` launches ``case``'s kernel on a seeded
     Student-t proposal (and a Gaussian target)."""
+    import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
     kernel, K, D, Kt, N, variant = case
     rng = np.random.default_rng(K * 1000 + D)
-    ops = core._kernel_operands(make_params(random_mixture(rng, K, D, True), device))
+    params = make_params(random_mixture(rng, K, D, True), device)
+    ops = core._kernel_operands(params)
     tops = (core._kernel_operands(make_params(random_mixture(rng, Kt, D, False), device))
             if Kt else None)
     kw = {} if variant is None else {"variant": variant}
     fn = getattr(k, kernel)
+    if kernel == "draw_proposal_inputs":
+        p = params.to(dtype=getattr(torch, variant or "float32"))
+        cumw = core._cumulative_weights(p.weights).contiguous()
+        return lambda seed: fn(seed, cumw, p.dof.contiguous(), N, D, True)
+    if kernel == "fused_transform_rng":
+        latent = component_draw(params, N, K)
+        return lambda seed: fn(seed, latent, ops, **kw)
     if kernel == "fused_propose_logq":
         return lambda seed: fn(seed, ops, N, tops, **kw)
     return lambda seed: fn(seed, ops, tops, N, True, **kw)
@@ -1626,14 +1806,13 @@ def seed_pointer_case(case, device):
     require(differ == 0, "%s: the seed by pointer and by value differ" % label)
 
 
-def seed_replay_case(device):
-    """One fused_is_pmc_step launch with its seed in a tensor, captured as a
-    CUDA graph and replayed twice with other words in the tensor: each
+def seed_replay_case(device, case=REPLAY_CASES[0]):
+    """One launch of ``case``'s kernel with its seed in a tensor, captured
+    as a CUDA graph and replayed twice with other words in the tensor: each
     replay draws what the launch with those words by value draws, and the
     two replays draw different particles."""
     import torch
 
-    case = ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, None)
     call = seeded_call(case, device)
     table = torch.tensor((1, 2), dtype=torch.int64, device=device)
     side = torch.cuda.Stream(device)
@@ -1654,8 +1833,8 @@ def seed_replay_case(device):
                 "a replay with the words %s does not draw their particles" % (words,))
         drawn.append(out[0].clone())
     require(not torch.equal(drawn[0], drawn[1]), "two replays drew the same particles")
-    print("  fused_is_pmc_step as a CUDA graph, its seed in a tensor: two replays with two "
-          "seeds drew those seeds' particles (launched by value), and not the same ones")
+    print("  %s as a CUDA graph, its seed in a tensor: two replays with two seeds drew those "
+          "seeds' particles (launched by value), and not the same ones" % case[0])
     del graph
 
 
@@ -1970,38 +2149,68 @@ def sharded_example_problem(device):
     return params, target, 1001   # its n_dev (1000 // n_dev + 1) n_dev at one rank
 
 
+def pmc_stage_problem(device):
+    """The D=40 pipeline's PMC stage (``benchmarks/accuracy_highdim.py``
+    ``run_pipeline``: ``pmc_dof`` 8, ``n_is1`` 2^20 particles, ``pmc_steps``
+    10) at the K=32 its VB2 mixture has: a Student-t proposal of 32
+    components, 16 about each of ``make_target(40)``'s two modes (each mean
+    the mode's plus noise of 0.3, its covariance the mode's doubled, the
+    weights the modes' 0.35/0.65 split evenly), and that target."""
+    import torch
+    from pypmc_tpu_torch.density import core
+
+    target = highdim_target(40).stacked_params(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(32)
+    t_means, t_covs = target.means.cpu().numpy(), target.cov.cpu().numpy()
+    which = np.arange(32) % 2
+    means = (t_means[which] + rng.normal(0, 0.3, (32, 40))).astype(np.float32)
+    covs = (2.0 * t_covs[which]).astype(np.float32)
+    w = np.where(which == 0, 0.35, 0.65).astype(np.float32) / 16
+    params = make_params((means, covs, w, np.full(32, 8.0, np.float32)), device)
+    return params, target
+
+
 def scan_problems(device):
-    """``[(label, params, target, particles, steps, the draw is a
-    kernel's)]``: the slice, its ``--components 200`` (the K-blocked step),
-    the slice at 2^16 particles, ``pmc_sharded.py`` (1001 particles: the
-    draw of fused_propose_logq and the unfused update) and a D=40 step of
-    1000 particles that no kernel draws (its mixtures past
-    fused_propose_logq's rule, below the transforms' 1024)."""
+    """``[(label, params, target, particles, steps)]``: the slice, its
+    ``--components 200`` (the K-blocked step), the slice at 2^16 particles,
+    ``pmc_sharded.py`` (1001 particles: the draw of fused_propose_logq and
+    the unfused update), a D=40 step of 1000 particles past
+    fused_propose_logq's rule (the draw of draw_proposal_inputs and the
+    tensor transform), the D=40 pipeline's PMC stage (K=32 Student-t,
+    2^20 particles: draw_proposal_inputs and fused_transform, the unfused
+    update) and the slice at 2^16 particles in float64 (every gate refuses;
+    draw_proposal_inputs' float64 draw, the tensor transform)."""
+    import torch
+
     params, target, _ = flagship_problem(device)
     blocked, blocked_target, _ = flagship_problem(device, K=200)
     sharded, sharded_target, n_sharded = sharded_example_problem(device)
     rng = np.random.default_rng(40)
     wide = make_params(random_mixture(rng, 12, 40, False), device)
     wide_target = make_params(random_mixture(rng, 2, 40, False), device)
-    return [("slice", params, target, N_SLICE, STEPS, True),
-            ("--components 200", blocked, blocked_target, N_SLICE, STEPS, True),
-            ("2^16 particles", params, target, 1 << 16, STEPS, True),
-            ("pmc_sharded.py", sharded, sharded_target, n_sharded, STEPS, True),
-            ("K=12, D=40, 1000 particles", wide, wide_target, 1000, 4, False)]
+    stage, stage_target = pmc_stage_problem(device)
+    return [("slice", params, target, N_SLICE, STEPS),
+            ("--components 200", blocked, blocked_target, N_SLICE, STEPS),
+            ("2^16 particles", params, target, 1 << 16, STEPS),
+            ("pmc_sharded.py", sharded, sharded_target, n_sharded, STEPS),
+            ("K=12, D=40, 1000 particles", wide, wide_target, 1000, 4),
+            ("K=32 t, D=40, 2^20 (PMC stage)", stage, stage_target, N_FLAGSHIP, STEPS),
+            ("float64, 2^16 particles", params.to(dtype=torch.float64),
+             target.to(dtype=torch.float64), 1 << 16, STEPS)]
 
 
-def scan_case(device, label, params, target, n, steps, kernel_draw):
+def scan_case(device, label, params, target, n, steps):
     """``pmc_run_sharded(scan_steps=True)`` against ``scan_steps=False`` at
     one configuration: two untimed scan runs (the warm-up chunk, then the
     graph's capture and a replay), then in turns loop, scan, scan, loop,
     each timed (host clock, synchronized) with its launch counts and peak
     memory; every run bit for bit the first loop's, the launches of the two
-    ways equal; the scan's graphs replayed with no fallback where a kernel
-    draws, else one warning and the counted fallback; then one profiled run
-    each way (device ms a step); last the memory the card keeps reserved
-    after them (``memory_reserved``), then after ``empty_cache()`` with the
-    scan still kept, then after ``clear_step_cache()`` and ``empty_cache()``.
-    Returns the launch counts of a loop run."""
+    ways equal; the scan's graphs replayed with no fallback and no warning;
+    then one profiled run each way (device ms a step); last the memory the
+    card keeps reserved after them (``memory_reserved``), then after
+    ``empty_cache()`` with the scan still kept, then after
+    ``clear_step_cache()`` and ``empty_cache()``.  Returns the launch
+    counts of a loop run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pypmc_tpu_torch.ops import kernels as k
@@ -2035,23 +2244,19 @@ def scan_case(device, label, params, target, n, steps, kernel_draw):
     require(len(set(digests)) == 1, "scan %s: the runs differ: %s" % (label, digests))
     require(launches["loop"] == launches["scan"], "scan %s: launches %s with the loop, %s "
             "with the scan" % (label, launches["loop"], launches["scan"]))
-    if kernel_draw:
-        require(scans["replays"] > 0 and scans["fallbacks"] == 0 and scans["uncapturable"] == 0
-                and not warned.messages, "scan %s: the steps did not replay as CUDA graphs: %s "
-                "%s" % (label, scans, warned.messages))
-    else:
-        require(scans["replays"] == 0 and scans["uncapturable"] == 1 and scans["fallbacks"] > 0
-                and len(warned.messages) == 1, "scan %s: no counted fallback: %s %s"
-                % (label, scans, warned.messages))
+    require(scans["replays"] > 0 and scans["fallbacks"] == 0 and scans["uncapturable"] == 0
+            and not warned.messages, "scan %s: the steps did not replay as CUDA graphs: %s "
+            "%s" % (label, scans, warned.messages))
     require(peak["capture"] <= 2 * peak["loop"] + (256 << 20),
             "scan %s: capturing %d steps took %d MiB at peak, the loop %d MiB"
             % (label, steps, peak["capture"] >> 20, peak["loop"] >> 20))
-    device_ms = {}
+    device_ms, by_kernel = {}, {}
     for mode in ("loop", "scan"):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run(mode == "scan")
             torch.cuda.synchronize()
-        device_ms[mode] = sum(r[0] for r in device_rows(prof, steps))
+        by_kernel[mode] = device_rows(prof, steps)
+        device_ms[mode] = sum(r[0] for r in by_kernel[mode])
     torch.cuda.synchronize()
     reserved = [torch.cuda.memory_reserved()]
     torch.cuda.empty_cache()
@@ -2068,6 +2273,8 @@ def scan_case(device, label, params, target, n, steps, kernel_draw):
              "; ..." + warned.messages[0][-200:] if warned.messages else ""))
     print("    a new configuration's first call (its warm-up chunk) %.3f ms a step, its "
           "second (the capture) %.3f (synchronized)" % (host["warm-up"][0], host["capture"][0]))
+    print("    device ms a step by kernel, the loop's largest: %s"
+          % "; ".join("%.3f x %g %s" % (ms, n, name[:70]) for ms, n, name in by_kernel["loop"][:6]))
     print("    reserved %d MiB after the runs, %d after empty_cache() with the scan kept, %d "
           "after clear_step_cache() and empty_cache(): the kept scan held %d MiB"
           % (reserved[0] >> 20, reserved[1] >> 20, reserved[2] >> 20,
@@ -2567,7 +2774,169 @@ def phase_gate(device, report):
     require(c3["fused_pmc_stats_blocked"] == 1 and kernel_launches(c3) == 1,
             "gate: the K=400 update did not run fused_pmc_stats_blocked alone: %s" % c3)
     require(bool(torch.isfinite(got.params.means).all()), "gate: K=400 update not finite")
-    return {n: counts[n] + c3[n] for n in counts}
+    del got, x400
+    torch.cuda.empty_cache()
+    c4 = float64_entry_points(device, report)
+    return {n: counts[n] + c3[n] + c4[n] for n in counts}
+
+
+F64_N = 1 << 20
+
+
+@contextlib.contextmanager
+def cpu_routes_as_the_card(k):
+    """Within the block the gates of ``k`` (the module) decide CPU tensors
+    as they decide the card's, so that a float64 reference on the CPU runs
+    the card's unfused routes (on the CPU the decision is the shape's, and
+    a one-pass route there sums other terms in another order)."""
+    import torch
+
+    decide = k._card_dtype
+
+    def as_the_card(like):
+        if like is None:
+            return None
+        return like.dtype if isinstance(like, torch.Tensor) else like[1]
+
+    k._card_dtype = as_the_card
+    try:
+        yield
+    finally:
+        k._card_dtype = decide
+
+
+def float64_entry_points(device, report):
+    """Float64 CUDA tensors through the entry points, where the JAX package
+    sends every array that is not float32 to XLA: the gates send them to
+    the unfused path (each refusal counted as ``plain:<kernel>``), which
+    runs float64 tensor code and the float64 kernels (``solve_dofs``,
+    ``draw_proposal_inputs``), each against the same call in float64 on the
+    CPU, its routes decided as the card's (``cpu_routes_as_the_card``;
+    ``TOL["f64"]``): ``pmc_update`` on fixed samples (the flagship
+    K=10 Student-t mixture, D=10, 2^18 particles); one ``GaussianInference``
+    iteration (2^16 points, K=5); a ``pmc_run_sharded`` run of 3 steps of
+    2^20 particles (mode masses within 0.05 of [0.3, 0.7]; its third step's
+    update against the CPU's update of that step's particles); a chain pool
+    of 64 chains, 2 cycles of 200 steps through ``sample_adaptive_chains``
+    (the tensor pool), and one cycle's steps on fixed random inputs against
+    the CPU's.  Returns the launch counts of the entry points' runs."""
+    import functools
+
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.mix_adapt import variational
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+    from pypmc_tpu_torch.sampler import _scan, markov_chain
+    from pypmc_tpu_torch.sampler._target import batched_target, evaluate_target
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    params, target, t_means = flagship_problem(device)
+    p64, t64 = params.to(dtype=f64), target.to(dtype=f64)
+    rng = np.random.default_rng(64)
+    total = {}
+
+    def run(label, fn, want):
+        k.reset_launch_counts()
+        out = fn()
+        sync(device)
+        counts = k.launch_counts()
+        launched = {n: c for n, c in counts.items() if c and not n.startswith("variant:")}
+        print("  float64 %s: launches %s" % (label, json.dumps(launched)))
+        require(launched == want, "float64 %s: launches %s, not %s" % (label, launched, want))
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        return out
+
+    def close(label, got, ref):
+        compare("float64 " + label, torch.as_tensor(got).double().cpu(),
+                torch.as_tensor(ref).double(), "f64", report)
+
+    xT = torch.tensor(rng.normal(1.5, 3.0, (10, 1 << 18)), dtype=f64, device=device)
+    w = torch.tensor(rng.exponential(1.0, 1 << 18), dtype=f64, device=device)
+    got = run("pmc_update K=10 D=10 Student-t", lambda: pmc_update(p64, xT, w, transposed=True),
+              {"plain:fused_pmc_stats": 1, "plain:fused_rho": 1, "plain:fused_maha": 1,
+               "solve_dofs": 1})
+    with cpu_routes_as_the_card(k):
+        ref = pmc_update(p64.to(cpu), xT.cpu(), w.cpu(), transposed=True)
+    for f in ("means", "cov", "weights", "dof"):
+        close("pmc_update " + f, getattr(got.params, f), getattr(ref.params, f))
+
+    centers = rng.normal(0, 4, (5, 4))
+    data = torch.tensor(rng.normal(0, 1, (1 << 16, 4)) + centers[rng.integers(0, 5, 1 << 16)],
+                        dtype=f64, device=device)
+    prior = dict(components=5, alpha0=np.full(5, 1.0), beta0=np.ones(5), nu0=np.full(5, 6.0),
+                 m0=centers + rng.normal(0, 0.5, (5, 4)), W0=np.array([np.eye(4)] * 5))
+
+    def vb_iteration(d):
+        vb = variational.GaussianInference(d, **prior)
+        vb.update()
+        return vb
+
+    vb = run("GaussianInference, an iteration, N=2^16 K=5 D=4", lambda: vb_iteration(data),
+             {"plain:fused_vb_estep": 2, "plain:fused_maha": 2})
+    with cpu_routes_as_the_card(k):
+        vb_ref = vb_iteration(data.cpu())
+    for f in ("alpha", "beta", "nu", "m", "W"):
+        close("GaussianInference " + f, variational._host(getattr(vb, f)),
+              variational._host(getattr(vb_ref, f)))
+
+    out, stats = run("pmc_run_sharded, 3 steps of 2^20", lambda: pmc_run_sharded(
+        t64, p64, F64_N, 3, key=5), {"draw_proposal_inputs": 3, "solve_dofs": 3,
+                                     "plain:fused_is_pmc_step": 3,
+                                     "plain:fused_propose_logq": 3,
+                                     "plain:fused_transform_rng": 3,
+                                     "plain:fused_transform": 3, "plain:fused_logq": 9,
+                                     "plain:fused_pmc_stats": 3, "plain:fused_rho": 3,
+                                     "plain:fused_maha": 3})
+    masses = mode_masses(out, t_means)
+    print("  float64 pmc_run_sharded: mode masses %s, ESS %s"
+          % (np.round(masses, 4).tolist(), np.round(stats.ess.cpu().numpy(), 4).tolist()))
+    require(all(abs(m - t) < 0.05 for m, t in zip(masses, (0.3, 0.7))),
+            "float64 pmc_run_sharded: mode masses %s" % masses)
+    p2 = pmc_run_sharded(t64, p64, F64_N, 2, key=5)[0]
+    p3, _, xT3, w3 = pmc_run_sharded(t64, p2, F64_N, 1, key=6, return_final_samples=True)
+    with cpu_routes_as_the_card(k):
+        ref = pmc_update(p2.to(cpu), xT3.cpu(), w3.cpu(), rb=True, dof_solver_steps=DOF_STEPS,
+                         transposed=True)
+    for f in ("means", "cov", "weights", "dof"):
+        close("pmc_run_sharded step " + f, getattr(p3, f), getattr(ref.params, f))
+    del out, p2, p3, xT3, w3
+
+    C, D, n = 64, 10, 200
+    starts = torch.tensor(t_means[rng.integers(0, 2, C)] + rng.normal(0, 0.5, (C, D)),
+                          dtype=f64, device=device)
+    samples, rates = run("sample_adaptive_chains, 64 chains, 2 x 200 steps",
+                         lambda: markov_chain.sample_adaptive_chains(
+                             t64, starts, np.eye(D) * 0.5, n, 2, key=3),
+                         {"plain:fused_mcmc_pool": 1, "plain:fused_logq": 1 + 2 * n})
+    require(samples.dtype == f64 and bool(torch.isfinite(samples).all())
+            and bool(((rates > 0) & (rates < 1)).all()),
+            "float64 sample_adaptive_chains: rates %s" % rates.cpu().numpy())
+    z = torch.tensor(rng.normal(0, 0.7, (n, C, D)), dtype=f64)
+    log_u = torch.tensor(np.log(rng.uniform(size=(n, C))), dtype=f64)
+    chols = torch.linalg.cholesky(torch.eye(D, dtype=f64) * 0.5).expand(C, D, D).contiguous()
+
+    def cycle(dev):
+        mt = t64.to(dev)
+        pool_target = batched_target(lambda x: core.mixture_logpdf(mt, x))
+        current = starts.to(dev)
+        points = torch.empty((n, C, D), dtype=f64, device=dev)
+        carry = (current, evaluate_target(pool_target, current),
+                 torch.zeros((C,), dtype=f64, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        scan = _scan.Scan(functools.partial(markov_chain._pool_steps,
+                                            functools.partial(evaluate_target, pool_target)))
+        out = scan.run((z.to(dev), log_u.to(dev)), (points,), carry, (chols.to(dev),))
+        return points, out[1], out[2]
+
+    with cpu_routes_as_the_card(k):
+        on_the_cpu = cycle(cpu)
+    for label, got, ref in zip(("points", "final log-densities", "accepts"), cycle(device),
+                               on_the_cpu):
+        close("chain pool cycle " + label, got, ref)
+    return total
 
 
 # --------------------------------------------------------------------- #
@@ -2895,11 +3264,13 @@ def phase_routes(device, report):
             require(counts["variant:%s=rec" % route] == 1,
                     "routes: K=%d's %s launch did not take the record kernel" % (K, route))
         want = {"fused_transform_rng": {"plain:fused_propose_logq": 1, "fused_transform_rng": 1,
-                                        "fused_logq": 2},
+                                        "fused_logq": 2, "draw_proposal_inputs": 1},
                 "fused_transform": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
-                                    "fused_transform": 1, "fused_logq": 2},
+                                    "fused_transform": 1, "fused_logq": 2,
+                                    "draw_proposal_inputs": 1},
                 "tensor": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
-                           "plain:fused_transform": 1, "fused_logq": 2}}[route]
+                           "plain:fused_transform": 1, "fused_logq": 2,
+                           "draw_proposal_inputs": 1}}[route]
         require(launched == want, "routes: K=%d n=%d took %s, not the %s route"
                 % (K, n, launched, route))
         x64 = xT.cpu().double()
@@ -2910,6 +3281,57 @@ def phase_routes(device, report):
         if n >= ROUTE_N:
             check_samples(route + " K=%d" % K, xT, lat, arrs, report)
             check_components(route + " K=%d" % K, xT, lat, arrs)
+        total = counts if total is None else {c: total[c] + counts[c] for c in total}
+    counts = per_point_routes(device, report)
+    return {c: total[c] + counts[c] for c in total}
+
+
+def per_point_routes(device, report):
+    """A per-point target that reaches fused_maha (``density.core
+    .mahalanobis_all_T`` of its point) and one that reaches fused_rho
+    (``mix_adapt.pmc.calculate_rho_rb_T``), on the pipeline's K=32, D=40
+    mixture, each mapped over 2^16 points as the samplers map a per-point
+    target (``sampler._target.map_points``): one launch for the block, no
+    warning, equal bit for bit to the batched call on the block.  Returns
+    the launch counts of the two maps."""
+    import logging
+
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.mix_adapt.pmc import calculate_rho_rb_T
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.sampler import _target
+
+    rng = np.random.default_rng(82)
+    params = make_params(random_mixture(rng, 32, 40, True), device)
+    x = torch.tensor(rng.normal(0, 2, (1 << 16, 40)), dtype=torch.float32, device=device)
+    cases = [("fused_maha", lambda p: -0.5 * core.mahalanobis_all_T(params, p[:, None])[:, 0].min(),
+              lambda xT: -0.5 * core.mahalanobis_all_T(params, xT).min(dim=0).values),
+             ("fused_rho", lambda p: torch.log(calculate_rho_rb_T(params, p[:, None])[:, 0].max()),
+              lambda xT: torch.log(calculate_rho_rb_T(params, xT).max(dim=0).values))]
+    log = logging.getLogger(_target.__name__)
+    total = None
+    for kernel, point, block in cases:
+        handler = logging.Handler(logging.WARNING)
+        messages = []
+        handler.emit = lambda record: messages.append(record.getMessage())
+        log.addHandler(handler)
+        try:
+            k.reset_launch_counts()
+            got = _target.map_points(point, x)
+            sync(device)
+            counts = k.launch_counts()
+        finally:
+            log.removeHandler(handler)
+        launched = {n: c for n, c in counts.items() if c and not n.startswith("variant:")}
+        print("  a per-point target through %s over %d points: launches %s, warnings %d"
+              % (kernel, x.shape[0], json.dumps(launched), len(messages)))
+        require(launched == {kernel: 1} and not messages,
+                "%s: a per-point target took %s launches, warnings %s" % (kernel, launched,
+                                                                          messages))
+        want = block(x.T.contiguous())
+        require(bool(torch.equal(got, want)), "%s: the per-point target differs from the "
+                "batched call by %.3e" % (kernel, float((got - want).abs().max())))
         total = counts if total is None else {c: total[c] + counts[c] for c in total}
     return total
 
@@ -3654,6 +4076,9 @@ def record_launches(k, calls):
         return v
 
     def keep(name, arguments):
+        if any(isinstance(v, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(v)
+               for v in arguments.values()):
+            return    # a call mapped with torch.func.vmap: fused_logq is kept at its launch
         key = (name,) + tuple((n, shape(v)) for n, v in arguments.items() if n != "seed")
         if key not in calls:
             calls[key] = {n: clone(v) for n, v in arguments.items()}
@@ -3765,6 +4190,23 @@ def replay_launch(k, name, a, label, report):
     elif name == "solve_dofs":
         solve_dofs_check(label, a["const"], a["old_dofs"], a["steps"], a["mindof"], a["maxdof"],
                          report)
+    elif name == "fused_transform":
+        n = min(a["zT"].shape[1], REPLAY_N)
+        zT, lat, sc = (a["zT"][:, :n].contiguous(), a["latent"][:n].contiguous(),
+                       a["scale"][:n].contiguous())
+        compare(label, fn(zT, lat, sc, a["ops"]),
+                k.plain_transform(zT.double(), lat, sc.double(), wide(a["ops"])), "log", report)
+    elif name == "fused_transform_rng":
+        lat = a["latent"][:REPLAY_N].contiguous()
+        out = fn(a["seed"], lat, a["ops"])
+        require(bool(torch.isfinite(out).all()), "%s: non-finite particles" % label)
+        if _build.transform_plan(a["ops"].K, a["ops"].dim, rng=True)[0] == "rec":
+            differ = int((out != fn(a["seed"], lat, a["ops"], variant="looped")).sum())
+            require(differ == 0, "%s: the record and the looped kernel differ in %d outputs"
+                    % (label, differ))
+    elif name == "draw_proposal_inputs":
+        check_draw(label, *fn(a["seed"], a["cumw"], a["dof"], min(a["n"], REPLAY_N), a["D"],
+                              a["normals"]), a["cumw"], a["dof"], report)
     elif name == "fused_mcmc_pool":
         points, _, _, xf, ef = fn(a["seed"], a["x0T"], a["e0"], a["cholr"], a["dof_prop"],
                                   a["target"], a["n_steps"])
@@ -3780,6 +4222,9 @@ def describe_launch(key):
     shapes = dict(key[1:])
     if key[0] == "solve_dofs":
         return "K=%d steps=%d" % (shapes["const"][0], shapes["steps"])
+    if key[0] == "draw_proposal_inputs":
+        return "K=%d D=%d N=%d%s" % (shapes["cumw"][0], shapes["D"], shapes["n"],
+                                     " normals" if shapes["normals"] else "")
     ops, target = shapes.get("ops"), shapes.get("target")
     # a mixture's shape is (K, D, Student-t); fused_maha's and the VB
     # E-step's operand a is (K, D, D)
@@ -3792,6 +4237,8 @@ def describe_launch(key):
         parts.append("N=%d" % shapes["xT"][1])
     elif "x0T" in shapes:
         parts.append("C=%d steps=%d" % (shapes["x0T"][1], shapes["n_steps"]))
+    elif "latent" in shapes:
+        parts.append("N=%d" % shapes["latent"][0])
     else:
         parts.append("N=%d" % shapes["n"])
     return " ".join(parts)
@@ -4330,6 +4777,10 @@ def phase_times(device, report):
          lambda i, n: k.plain_transform_rng((i, 3), latent, ops), (N_PLAIN_MAX,))
     times[("fused_transform_rng", N_PLAIN_MAX, "looped")] = cuda_ms(
         lambda i: k.fused_transform_rng((i, 3), latent, ops, variant="looped"))
+    # the words from a seed tensor on the card, as a replayed step gives them
+    seed_row = torch.tensor((1, 3), dtype=torch.int64, device=device)
+    times[("fused_transform_rng", N_PLAIN_MAX, "pointer")] = cuda_ms(
+        lambda i: k.fused_transform_rng(seed_row, latent, ops))
     for name in ("fused_propose_logq", "fused_transform_rng"):
         print("  %s K=10 Kt=2 D=10 N=%d: the %s kernel (elected) %.3f ms, the looped kernel "
               "%.3f ms, bound %.3f ms"
@@ -4394,12 +4845,69 @@ def phase_times(device, report):
             times[("solve_dofs", n, route)] = list(split.values())[0]
             continue
         times[(name, n, "split")] = split
+    times.update(draw_times(device))
     for (name, n, route), ms in times.items():
         if route != "split":
             size = (bound(name, n)[0] if isinstance(n, tuple)
                     else ("K=%d" if name == "solve_dofs" else "N=%d") % n)
             print("  %-25s %-6s %-30s %9.3f ms" % (name, route, size, ms))
     return times
+
+
+# the shape (K, Kt, D, N) the main path gives draw_proposal_inputs: the D=40
+# pipeline's PMC draws (K=32 Student-t, n_is1 = 2^20 particles)
+DRAW_SHAPE = (32, 0, 40, N_FLAGSHIP)
+
+
+def draw_times(device):
+    """draw_proposal_inputs at DRAW_SHAPE (pmc_stage_problem's proposal),
+    CUDA events: the kernel with the normals and scales (``cuda``, float32;
+    ``cuda64``, float64), with the components only (``components``), and
+    its plain version, the eager torch.rand, torch.randn and chi-square the
+    kernel replaced (``plain``, ``plain64``)."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, _, D, N = DRAW_SHAPE
+    params, _ = pmc_stage_problem(device)
+    times = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "64")):
+        p = params.to(dtype=dtype)
+        cumw, dof = core._cumulative_weights(p.weights).contiguous(), p.dof.contiguous()
+        times[("draw_proposal_inputs", DRAW_SHAPE, "cuda" + suffix)] = cuda_ms(
+            lambda i: k.draw_proposal_inputs((i, 5), cumw, dof, N, D, True), reps=20)
+        times[("draw_proposal_inputs", DRAW_SHAPE, "plain" + suffix)] = cuda_ms(
+            lambda i: k.plain_draw_proposal_inputs((i, 5), cumw, dof, N, D, True), reps=5)
+        if not suffix:
+            times[("draw_proposal_inputs", DRAW_SHAPE, "components")] = cuda_ms(
+                lambda i: k.draw_proposal_inputs((i, 5), cumw, dof, N, D, False), reps=20)
+    torch.cuda.empty_cache()
+    return times
+
+
+def draw_entry(src, replaces, checks, counts, example_counts, times):
+    """The kernels JSON's entry of draw_proposal_inputs: its times at
+    DRAW_SHAPE (:func:`draw_times`), float32 the main one, beside the bytes
+    it writes over the memory rate (float64: twice the normals' and
+    scales' bytes)."""
+    name = "draw_proposal_inputs"
+    shape, bound_ms, bound_by = bound(name, DRAW_SHAPE)
+    K, _, D, N = DRAW_SHAPE
+    worst = max(checks, key=lambda r: r["max_abs_err"] / r["tol"])
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": worst["max_abs_err"],
+            "ms": times[(name, DRAW_SHAPE, "cuda")], "plain_ms": times[(name, DRAW_SHAPE, "plain")],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape + " Student-t float32, normals and scales",
+            "max_abs_err_tol": worst["tol"], "max_abs_err_output": worst["output"],
+            "launches_examples": example_counts.get(name, 0),
+            "shapes": [{"shape": shape + " float64", "ms": times[(name, DRAW_SHAPE, "cuda64")],
+                        "plain_ms": times[(name, DRAW_SHAPE, "plain64")],
+                        "bound_ms": (4 + 8 * (D + 1)) * N / PEAK_BYTES * 1e3},
+                       {"shape": shape + " the components only",
+                        "ms": times[(name, DRAW_SHAPE, "components")],
+                        "bound_ms": (4 * N + 4 * K) / PEAK_BYTES * 1e3}]}
 
 
 def draw_rows(device, reps=20):
@@ -4736,6 +5244,10 @@ def kernel_work(name, shape=None):
         "fused_pmc_stats_blocked": (4 * (D + 1) * N, N * (ev(K) + stats)),
         "fused_vb_estep_blocked": (4 * (D + 1) * N, N * (dense + stats)),
         "fused_is_pmc_step_blocked": (4 * (D + 2) * N, N * (draw + ev(K) + ev(Kt) + stats)),
+        # reads the K thresholds and dofs, writes the component, D normals
+        # and the scale; the K - 1 compares, ~2 operations a normal and ~20
+        # for the chi-square
+        "draw_proposal_inputs": ((4 + 4 * (D + 1)) * N + 8 * K, N * (K - 1 + 2 * D + 20)),
     }
     exps = 2 * K * N if name in BLOCKED_SHAPES else None
     return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name] + (exps,)
@@ -4857,6 +5369,21 @@ def phase_build():
         require(spilled == 0, "%s spills %d bytes" % (kernel, spilled))
         require(stack == 0 or not kernel.startswith(RECORD_KERNELS),
                 "%s keeps a %d-byte stack frame" % (kernel, stack))
+    # the proposal inputs' draw: float and double, the seed by value and by
+    # pointer
+    draws = [(name, part) for name, part in (
+        (p.split("'", 1)[0], p) for p in log.split("Compiling entry function '")[1:])
+        if "11draw_kernelI" in name]
+    require(len(draws) == 4, "ptxas reported %d draw_kernel instantiations" % len(draws))
+    for name, part in draws:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        spilled = int(spill.group(1)) if spill else 0
+        print("  ptxas draw_kernel<%s, %s> %3d registers, %d bytes of spill stores"
+              % ("double" if "draw_kernelIdL" in name else "float",
+                 "pointer" if name.split("draw_kernelI", 1)[1][1:].startswith("Lb1") else "value",
+                 int(regs.group(1)) if regs else -1, spilled))
+        require(spilled == 0, "draw_kernel spills %d bytes" % spilled)
     # operands staged in shared memory, and (K=60, D=32; K=1, D=128) not;
     # the statistics kernels' 64-particle tile (K=120, D=1); the warp
     # kernels' slices (D=200)
@@ -5066,6 +5593,9 @@ def main():
         if kname == "solve_dofs":
             kernels.append(solve_dofs_entry(src, replaces, checks, counts, example_counts, times))
             continue
+        if kname == "draw_proposal_inputs":
+            kernels.append(draw_entry(src, replaces, checks, counts, example_counts, times))
+            continue
         # the kernel-vs-plain comparison on the same inputs; for the pool,
         # whose points are a random walk, the kernel's and the plain pool's
         # whitened step moments; a check against the known distribution only
@@ -5111,6 +5641,9 @@ def main():
             # kernel's time there
             entry.update(variant=_build.draw_plan(kname, 10, 10, 2)[0],
                          looped_ms=times[(kname, n, "looped")])
+        if (kname, n, "pointer") in times:
+            # its seed words read from a tensor on the card
+            entry["pointer_ms"] = times[(kname, n, "pointer")]
         if kname in FIRST_LAUNCH:
             # the first launch alone: its device time beside its bound
             work, kernel = FIRST_LAUNCH[kname]
@@ -5150,7 +5683,12 @@ def main():
           "serial_ms and serial_device_ms the serial kernel's (variant='serial'), its "
           "max_abs_err the |float64 condition| at its worst root against that root's "
           "tolerance, bound_ms its bytes and FP operations on this data (its serial-latency "
-          "model is in phase times); "
+          "model is in phase times); pointer_ms: fused_transform_rng with its seed words "
+          "read from a tensor on the card; draw_proposal_inputs at K=32, D=40, N=2^20, "
+          "Student-t, float32 (shapes: float64, and the components only), plain_ms its plain "
+          "version (torch.rand, torch.randn and the chi-square, which it replaced on the "
+          "card), its max_abs_err a frequency's difference from the plain version's or a "
+          "normals' mean, against 6 standard errors; "
           "library_ms null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)

@@ -78,6 +78,17 @@ def host_words(seed) -> tuple:
     return int(seed[0]), int(seed[1])
 
 
+def flip_bit(seed, bit: int):
+    """``seed``'s words with bit ``bit`` of the second flipped, in its form:
+    a tuple, or a new 2-word tensor on the same device (flipped there, so a
+    CUDA graph that replays it flips the words its table holds then)."""
+    if isinstance(seed, torch.Tensor):
+        out = seed.clone()
+        out[1:].bitwise_xor_(1 << bit)
+        return out
+    return seed[0], seed[1] ^ (1 << bit)
+
+
 def device_generator(seed, device) -> torch.Generator:
     """A generator on ``device`` seeded from two 32-bit ``seed`` words (a
     tuple or a 2-word tensor): the plain (non-kernel) versions of the random

@@ -84,7 +84,7 @@ transform_kernel(const float* __restrict__ zT, const int* __restrict__ latent,
 
 template <int DMAX, bool OPS_SMEM>
 __global__ void __launch_bounds__(kThreads)
-transform_rng_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
+transform_rng_kernel(const Seed seed, const int* __restrict__ latent,
                      const float* __restrict__ ops_src, float* __restrict__ xT,
                      long long N, int K, int D, int student_t) {
   extern __shared__ float smem[];
@@ -95,7 +95,7 @@ transform_rng_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
   const float* dof = L + K * D * D;
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    Philox rng(seed.w0(), seed.w1(), static_cast<uint64_t>(n));
     float x[DMAX];
     draw_component<DMAX>(mu, L, dof, latent[n], D, student_t != 0, rng, x);
     store_particle<DMAX>(xT, N, n, D, x);
@@ -139,10 +139,13 @@ transform_rec_kernel(const float* __restrict__ zT, const int* __restrict__ laten
 
 // fused_transform_rng's record kernel: transform_rec_kernel with the
 // normals and the Student-t scale drawn (draw_component's stream), the dofs
-// staged after the records
-template <int DMAX, bool STAGED>
+// staged after the records.  Instantiated for each form of the seed
+// (SEED_PTR, common.cuh particle_stream): by value the kernel parameters key
+// the streams; from a seed tensor the key is read from shared memory at
+// each Philox refill (SharedKey), which only a replayed step pays.
+template <int DMAX, bool STAGED, bool SEED_PTR>
 __global__ void __launch_bounds__(kEvalThreads, eval_min_blocks(DMAX))
-transform_rng_rec_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
+transform_rng_rec_kernel(const Seed seed, const int* __restrict__ latent,
                          const float* __restrict__ ops, float* __restrict__ xT, long long N,
                          int K, int D, int student_t) {
   extern __shared__ float smem[];
@@ -151,6 +154,10 @@ transform_rng_rec_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ laten
   const float* L = ops + K * D;
   const float* dof = L + K * D * D;
   float* dof_row = smem + K * transform_rec_floats(D);
+  if constexpr (SEED_PTR) {
+    if (threadIdx.x == 0) store_seed_key(seed);
+    if constexpr (!STAGED) __syncthreads();
+  }
   if constexpr (STAGED) {
     stage_transform_records(smem, ops, L, K, D);
     stage_row_async(dof_row, dof, K);
@@ -160,7 +167,7 @@ transform_rng_rec_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ laten
   }
   for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    Philox rng(s0, s1, static_cast<uint64_t>(n));
+    auto rng = particle_stream<SEED_PTR>(seed, static_cast<uint64_t>(n));
     const int lat = latent[n];
     draw_rec<DMAX, STAGED>(
         rng, smem, ops, L, lat, D, student_t != 0,
@@ -169,11 +176,11 @@ transform_rng_rec_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ laten
   }
 }
 
-template <bool RNG>
+template <bool RNG, bool SEED_PTR = false>
 struct TransformRecKernels {
   template <int DMAX, bool STAGED>
   static auto get() {
-    if constexpr (RNG) return &transform_rng_rec_kernel<DMAX, STAGED>;
+    if constexpr (RNG) return &transform_rng_rec_kernel<DMAX, STAGED, SEED_PTR>;
     else return &transform_rec_kernel<DMAX, STAGED>;
   }
 };
@@ -195,7 +202,7 @@ transform_warp_kernel(const float* __restrict__ zT, const int* __restrict__ late
 }
 
 __global__ void __launch_bounds__(kWideThreads)
-transform_rng_warp_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ latent,
+transform_rng_warp_kernel(const Seed seed, const int* __restrict__ latent,
                           const float* __restrict__ ops, float* __restrict__ xT,
                           long long N, int K, int D, int student_t) {
   extern __shared__ float smem[];
@@ -204,13 +211,14 @@ transform_rng_warp_kernel(uint32_t s0, uint32_t s1, const int* __restrict__ late
   const float* dof = L + static_cast<long long>(K) * D * D;
   for (long long n = warp_index(); n < N; n += warp_count()) {
     // draw_component's stream: the normals, then the Student-t scale
-    warp_normals(s0, s1, static_cast<uint64_t>(n), 0, D, reinterpret_cast<uint32_t*>(sl.a),
-                 sl.b);
+    warp_normals(seed.w0(), seed.w1(), static_cast<uint64_t>(n), 0, D,
+                 reinterpret_cast<uint32_t*>(sl.a), sl.b);
     const int lat = latent[n];
     float scale = 1.0f;
     if (student_t != 0) {
       if (lane_id() == 0) {
-        Philox rng = stream_at(s0, s1, static_cast<uint64_t>(n), normal_words_end(0, D));
+        Philox rng = stream_at(seed.w0(), seed.w1(), static_cast<uint64_t>(n),
+                               normal_words_end(0, D));
         scale = student_t_scale(dof[lat], rng);
       }
       scale = from_lane0(scale);
@@ -270,24 +278,30 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
   return static_cast<int>(cudaGetLastError());
 }
 
-// variant as pmc_fused_transform's
+// seed_words: null (the words s0, s1) or two int64 on the card, read in the
+// kernel (Seed); variant as pmc_fused_transform's
 extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
-                                       const int* latent, const float* ops,
-                                       float* xT, long long N, int K, int D,
-                                       int student_t, int variant, int n_blocks,
+                                       const long long* seed_words, const int* latent,
+                                       const float* ops, float* xT, long long N, int K,
+                                       int D, int student_t, int variant, int n_blocks,
                                        void* stream) {
   using namespace pmc;
+  const Seed seed{s0, s1, seed_words};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DrawPlan plan = transform_plan(K, D, false, true);
-  if (takes_rec(plan, variant))
-    return with_rec_kernel<TransformRecKernels<true>>(plan, D, [&](auto kernel) {
-      kernel<<<n_blocks, plan.threads, plan.smem, s>>>(s0, s1, latent, ops, xT, N, K, D,
+  if (takes_rec(plan, variant)) {
+    const auto launch = [&](auto kernel) {
+      kernel<<<n_blocks, plan.threads, plan.smem, s>>>(seed, latent, ops, xT, N, K, D,
                                                        student_t);
       return static_cast<int>(cudaGetLastError());
-    });
+    };
+    return seed_words == nullptr
+        ? with_rec_kernel<TransformRecKernels<true, false>>(plan, D, launch)
+        : with_rec_kernel<TransformRecKernels<true, true>>(plan, D, launch);
+  }
   if (D > kDMax && D <= kWideDMax) {
     if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_warp(transform_rng_warp_kernel, D, n_blocks, s, s0, s1, latent, ops, xT, N,
+    return launch_warp(transform_rng_warp_kernel, D, n_blocks, s, seed, latent, ops, xT, N,
                        K, D, student_t);
   }
   const size_t smem = transform_plan(K, D, true).smem;
@@ -296,7 +310,7 @@ extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
     transform_rng_kernel<DMAX, OPS_SMEM><<<n_blocks, kThreads, smem, s>>>(
-        s0, s1, latent, ops, xT, N, K, D, student_t);
+        seed, latent, ops, xT, N, K, D, student_t);
   }));
   return static_cast<int>(cudaGetLastError());
 }

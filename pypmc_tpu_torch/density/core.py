@@ -28,9 +28,8 @@ import torch
 
 from .. import _device, _rng
 from ..ops import kernels as _k
-from ..ops import random as _random
 from ..ops.linalg import chol_inv_det, symmetrize
-from ..ops.lse import logsumexp, tiny
+from ..ops.lse import logsumexp
 
 __all__ = [
     "MixtureParams",
@@ -214,7 +213,7 @@ def _projected_sq_norms_T(xT, a, m):
     per component."""
     K, D = m.shape
     a, m = a.to(xT.dtype), m.to(xT.dtype)
-    if _k.gate("fused_maha", K, D):
+    if _k.gate("fused_maha", K, D, like=xT):
         return _k.fused_maha(xT.contiguous(), a.contiguous(), m.contiguous())
     return torch.stack([torch.sum(torch.square(a_k @ (xT - m_k[:, None])), dim=0)
                         for a_k, m_k in zip(a, m)])
@@ -245,10 +244,10 @@ def component_logpdfs(params: MixtureParams, x):
 def mixture_logpdf_T(params: MixtureParams, xT):
     """Mixture log-density ``log q(x_n)``, shape ``(N,)``, for transposed
     particles ``xT (D, N)``: kernel ``fused_logq`` on CUDA float32, its plain
-    version on the CPU; where the size gate refuses the mixture (as the JAX
-    package takes XLA), the per-component log-densities and a weighted
-    log-sum-exp."""
-    if _k.gate("fused_logq", params.K, params.dim):
+    version on the CPU; where the gate refuses the mixture or the particles
+    (as the JAX package takes XLA: past the size rule, or not float32 on the
+    card), the per-component log-densities and a weighted log-sum-exp."""
+    if _k.gate("fused_logq", params.K, params.dim, like=xT):
         return _k.fused_logq(xT, _kernel_operands(params))
     return logsumexp(component_logpdfs(params, xT.T), params.weights, axis=-1)
 
@@ -274,37 +273,35 @@ def propose_T(params: MixtureParams, key, n: int):
     ``(samples_T (D, n), latent (n,) int32)``.
 
     The component is one uniform per particle against the tail-sum
-    thresholds (a dead component is never drawn), drawn from a generator on
-    the mixture's device.  The transform takes the JAX package's routes
-    (``pypmc_tpu/density/core.py:308-314``): kernel ``fused_transform_rng``
-    (normals and Student-t scale drawn in the kernel) where the mixture
-    fits its rule at 1024 particles a tile and n >= 1024; else kernel
-    ``fused_transform`` on normals and a Student-t scale drawn here (the
-    chi-square clamped to ``tiny``) where it fits at 128 particles; else the
-    transform as tensor code accumulated one Cholesky column at a time.
-    ``key`` is an int seed, a ``torch.Generator`` (advanced by two seed
-    words) or two seed words (a tuple, or a 2-word tensor, copied to the
-    host: a generator seeded here cannot be replayed by a CUDA graph)."""
+    thresholds (a dead component is never drawn).  On the card the
+    components, and the normals and Student-t scales a transform below
+    takes, come from kernel ``draw_proposal_inputs`` (in the mixture's
+    dtype), keyed by the seed words: a tensor of them (a row of a run's
+    seed table) is read on the card, never copied to the host, so a CUDA
+    graph replaying the step draws anew.  On the CPU they come from its
+    plain version, a generator seeded with the words.  The transform takes
+    the JAX package's routes (``pypmc_tpu/density/core.py:308-314``):
+    kernel ``fused_transform_rng`` (normals and Student-t scale drawn in
+    the kernel, its stream keyed by the words with bit 0 of the second
+    flipped) where a float32 mixture fits its rule at 1024 particles a tile
+    and n >= 1024; else kernel ``fused_transform`` on the drawn normals and
+    scales (the chi-square clamped to ``tiny``) where it fits at 128
+    particles; else the transform as tensor code accumulated one Cholesky
+    column at a time (float64 on the card too).  ``key`` is an int seed, a
+    ``torch.Generator`` (advanced by two seed words) or two seed words (a
+    tuple, or a 2-word int64 tensor on the mixture's device)."""
     K, D = params.K, params.dim
-    dtype, device = params.means.dtype, params.device
-    seed = _rng.host_words(_rng.seed_words(key))
-    gen = _rng.device_generator(seed, device)
-    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
-    cumw = _cumulative_weights(params.weights)
-    latent = torch.sum(u[None, :] >= cumw[:-1, None], dim=0, dtype=torch.int32)
-    if _k.gate("fused_transform_rng", K, D, n=n):
-        # the kernel's stream is keyed by the seed words with a bit flipped,
-        # so that it does not share the component draw's
-        return _k.fused_transform_rng((seed[0], seed[1] ^ 1), latent,
+    seed = _rng.seed_words(key)
+    like = params.means
+    in_kernel = _k.gate("fused_transform_rng", K, D, n=n, like=like)
+    dof = None if params.dof is None else params.dof.contiguous()
+    latent, zT, scale = _k.draw_proposal_inputs(
+        seed, _cumulative_weights(params.weights).contiguous(), dof, n, D,
+        normals=not in_kernel)
+    if in_kernel:
+        return _k.fused_transform_rng(_rng.flip_bit(seed, 0), latent,
                                       _kernel_operands(params)), latent
-    zT = torch.randn((D, n), generator=gen, dtype=dtype, device=device)
-    if params.is_student_t:
-        dof_n = params.dof[latent.long()]
-        chi2 = torch.clamp(_random.chisquare(gen, dof_n, (n,)), min=tiny(dtype))
-        scale = torch.sqrt(dof_n / chi2)
-    else:
-        scale = torch.ones((n,), dtype=dtype, device=device)
-    if _k.gate("fused_transform", K, D, n=n):
+    if _k.gate("fused_transform", K, D, n=n, like=like):
         return _k.fused_transform(zT, latent, scale, _kernel_operands(params)), latent
     # the tensor path: gather one (D, n) Cholesky column panel at a time
     # rather than an (n, D, D) table
@@ -326,15 +323,16 @@ def propose_logq_T(params: MixtureParams, key, n: int, target_params=None):
     optionally a target mixture's) on them: kernel ``fused_propose_logq`` on
     CUDA float32, its plain version on the CPU.
 
-    Where the size gate refuses the mixtures, the draw is :func:`propose_T`
-    and each log-density :func:`mixture_logpdf_T`.
+    Where the gate refuses the mixtures (past its size rule, or not float32
+    on the card), the draw is :func:`propose_T` and each log-density
+    :func:`mixture_logpdf_T`.
 
     Returns ``(samples_T (D, n), latent (n,), log_q (n,))``, plus
     ``log_p (n,)`` when ``target_params`` is given.  ``key`` provides the
     two seed words (and is advanced when it is a generator).
     """
     Kt = 0 if target_params is None else target_params.K
-    if not _k.gate("fused_propose_logq", params.K, params.dim, Kt):
+    if not _k.gate("fused_propose_logq", params.K, params.dim, Kt, like=params.means):
         samples_T, latent = propose_T(params, key, n)
         out = (samples_T, latent, mixture_logpdf_T(params, samples_T))
         if target_params is None:

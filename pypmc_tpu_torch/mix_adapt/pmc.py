@@ -45,9 +45,9 @@ def calculate_rho_rb_T(params: _core.MixtureParams, samples_T):
     """Rao-Blackwellized responsibilities ``rho (K, N)`` for transposed
     particles ``samples_T (D, N)``: ``rho[k,n] = w_k q_k(x_n) / q(x_n)``,
     computed in log space; exactly zero for dead components.  Kernel
-    ``fused_rho`` where the size gate takes the mixture, otherwise tensor
-    code."""
-    if _k.gate("fused_rho", params.K, params.dim):
+    ``fused_rho`` where the gate takes the mixture and the particles,
+    otherwise tensor code."""
+    if _k.gate("fused_rho", params.K, params.dim, like=samples_T):
         return _k.fused_rho(samples_T.contiguous(), _core._kernel_operands(params))[0]
     logpdfs = _core.component_logpdfs(params, samples_T.T)  # (N, K)
     log_denom = logsumexp(logpdfs, params.weights, axis=-1)
@@ -88,23 +88,24 @@ def _check_fused_arg(fused):
         raise ValueError("fused must be one of %s, got %r" % (_FUSED_MODES, fused))
 
 
-def _fused_mode(fused, kernel, K, D, N, Kt=0, rb=True):
+def _fused_mode(fused, kernel, K, D, N, like, Kt=0, rb=True):
     """``"dense"`` where the single-pass ``kernel`` runs, ``"blocked"``
     where its K-blocked variant does, None for the unfused path, for ``N``
-    particles.  ``"auto"`` routes as the JAX package does
-    (:func:`~pypmc_tpu_torch.ops.kernels.route`): the dense kernel where
-    its rule takes the mixture, the K-blocked one where the JAX package
-    elects it, the unfused path otherwise.  A forced ``"dense"`` or
+    particles and operands ``like`` (a tensor).  ``"auto"`` routes as the
+    JAX package does (:func:`~pypmc_tpu_torch.ops.kernels.route`): the
+    dense kernel where its rule takes the mixture, the K-blocked one where
+    the JAX package elects it, the unfused path otherwise (float64 on the
+    card included).  A forced ``"dense"`` or
     ``"blocked"`` that cannot run raises with the rule or limit named
     instead of rerouting."""
     _check_fused_arg(fused)
     if fused == "off" or (fused == "auto" and not rb):
         return None
     if fused == "auto":
-        return _k.route(kernel, K, D, N, Kt)
+        return _k.route(kernel, K, D, N, Kt, like)
     name = kernel if fused == "dense" else kernel + "_blocked"
     reason = ("it requires rb=True" if not rb else
-              _k.refusal(name, K, D, Kt) or _build.limit_reason(name, K, D, Kt))
+              _k.refusal(name, K, D, Kt, like=like) or _build.limit_reason(name, K, D, Kt))
     if reason is not None:
         raise ValueError("fused=%r was forced but is infeasible for these "
                          "operands: %s" % (fused, reason))
@@ -191,7 +192,7 @@ def pmc_update(
         live = live & (count >= mincount)
 
     dof_stats = params.is_student_t and bool(dof_solver_steps)
-    fused_mode = _fused_mode(fused, "fused_pmc_stats", K, dim, N, rb=rb)
+    fused_mode = _fused_mode(fused, "fused_pmc_stats", K, dim, N, samples_T, rb=rb)
 
     if fused_mode:
         # one pass: responsibilities, gamma and every statistic per tile;
@@ -314,7 +315,7 @@ def pmc_step_mixture_target(
     reduce = _identity if reduce is None else reduce
     dof_stats = params.is_student_t and bool(dof_solver_steps)
     fused_mode = _fused_mode(fused, "fused_is_pmc_step", params.K, params.dim, n,
-                             target_params.K)
+                             params.means, target_params.K)
 
     if not fused_mode:
         samples_T, latent, log_q, log_p = _core.propose_logq_T(

@@ -733,12 +733,12 @@ class GaussianInference(object):
     def _fused_eligible(self):
         """The E-step's route, as the JAX package's
         (:func:`~pypmc_tpu_torch.ops.kernels.route`): ``"dense"`` where the
-        one-pass kernel takes this mixture (``K*D <= 128``) and N >= 1024,
-        ``"blocked"``
+        one-pass kernel takes this mixture (``K*D <= 128``) and N >= 1024
+        (and float32 data, on the card), ``"blocked"``
         where the JAX package elects its K-blocked E-step (the unfused (N,
         K) matrices would crowd 12 GiB), None for the unfused tensor
         path."""
-        return _k.route("fused_vb_estep", self.K, self.dim, self.N)
+        return _k.route("fused_vb_estep", self.K, self.dim, self.N, like=self._data_T)
 
     def _shard(self):
         """``(data_T (D, n), weights (n,), reduce)`` of the E-step: this

@@ -44,6 +44,7 @@ import time
 from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
+           "DRAW_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
            "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
            "draw_plan", "DRAWS", "pool_variant",
@@ -62,6 +63,7 @@ SMEM_LIMIT = 232448    # csrc/common.cuh kSmemLimit: shared memory one H100 bloc
 THREADS = 128          # csrc/common.cuh kThreads
 EVAL_THREADS = 256     # csrc/common.cuh kEvalThreads: the record kernels' (D <= 64)
 WIDE_THREADS = 128     # csrc/common.cuh kWideThreads: a warp kernel's block, 4 particles
+DRAW_THREADS = 256     # csrc/draw.cu kDrawThreads: the proposal inputs' draw, a thread a particle
 _REC_D_MAX = 64        # csrc/common.cuh kRecDMax
 _EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record instantiations
 
@@ -589,9 +591,10 @@ def _declare(lib):
         # zT, latent, scale, ops, xT, N, K, D, variant (-1 the plan's, 0
         # the looped kernel, 1 the record kernel), n_blocks, stream
         "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, I, P],
-        # s0, s1, latent, ops, xT, N, K, D, student_t, variant (as
-        # pmc_fused_transform's), n_blocks, stream
-        "pmc_fused_transform_rng": [U, U, P, P, P, L, I, I, I, I, I, P],
+        # s0, s1, seed_words (as pmc_fused_propose_logq's), latent, ops, xT,
+        # N, K, D, student_t, variant (as pmc_fused_transform's), n_blocks,
+        # stream
+        "pmc_fused_transform_rng": [U, U, P, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
         # nan_counts, xfT, ef, C, n_steps, Kt, D, student_t_prop,
         # t_student_t, variant, stream
@@ -612,6 +615,9 @@ def _declare(lib):
         # const, old_dofs, out, K, steps, mindof, maxdof, is_double, variant
         # (0 the serial kernel, 1 the warp kernel), stream
         "pmc_solve_dofs": [P, P, P, I, I, ctypes.c_double, ctypes.c_double, I, I, P],
+        # s0, s1, seed_words, cumw, dof (null: Gaussian), latent, zT, scale
+        # (both null: no normals), N, K, D, is_double, n_blocks, stream
+        "pmc_draw_proposal_inputs": [U, U, P, P, P, P, P, P, L, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

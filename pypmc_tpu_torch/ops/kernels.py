@@ -18,6 +18,8 @@ wrapper                             CUDA source                      replaces (P
 :func:`fused_mcmc_pool`             ``csrc/mcmc_pool.cu``            ``pallas_kernels.py:2293``
 :func:`solve_dofs`                  ``csrc/solve_dofs.cu``           the ``lax.fori_loop`` of
                                                                      ``mix_adapt/pmc.py:349``
+:func:`draw_proposal_inputs`        ``csrc/draw.cu``                 ``jax.random`` in
+                                                                     ``density/core.py:293``
 ==================================  ===============================  ==========================
 
 Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
@@ -27,12 +29,15 @@ the dispatcher's unfused tensor path exactly where the JAX package takes
 its XLA path, and :func:`gate` counts that route as ``plain:<kernel>``.
 The dispatchers of the three single-pass statistics kernels ask
 :func:`route`, which also takes the K-blocked variant where the JAX package
-elects it (:func:`elects_blocked`).  The decision depends only on the
-shape, so the CPU makes the card's choice.
+elects it (:func:`elects_blocked`).  Each takes the operands (``like=``, a
+tensor or its ``(device, dtype)``), as ``use_pallas`` takes its array: on
+the card anything but float32 takes the unfused path, where the JAX package
+sends it to XLA; on the CPU the decision depends only on the shape.  It
+needs no live tensor, so the CPU can make the card's choice.
 The device gate, :func:`use_kernel`, sits in each wrapper: a float32 tensor
 on CUDA goes to the kernel, a tensor on the CPU to the plain version, and a
 CUDA tensor of any other dtype raises ``TypeError`` (:func:`solve_dofs`
-also takes float64).  A CUDA tensor never
+and :func:`draw_proposal_inputs` also take float64).  A CUDA tensor never
 reaches a plain version through a wrapper, and a shape past the CUDA
 kernel's own limits (``_build.limit_reason``), a failed build or a failed
 launch raises.  The plain versions (``plain_*``) compute the same
@@ -44,7 +49,12 @@ from a Philox stream per particle; their plain versions draw from a
 distribution, not in value.  The kernels of a PMC step's draw take their
 two words by value or from a 2-word int64 tensor on their device, read
 inside the kernel, so that a CUDA graph replaying the step draws anew from
-the words the tensor holds then.
+the words the tensor holds then; so do ``fused_transform_rng`` and
+``draw_proposal_inputs``, the draws of ``density.core.propose_T``.
+``fused_logq``, ``fused_rho`` and ``fused_maha`` launch through
+``torch.library`` operators whose vmap rules fold a batch of particle
+blocks into the particle axis: ``torch.func.vmap`` of a per-point target
+that reaches them is one launch.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 :func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
@@ -68,8 +78,8 @@ import torch
 
 from .. import _rng
 from . import _build
-from .lse import logsumexp
-from .random import student_t_scale
+from .lse import logsumexp, tiny
+from .random import chisquare, student_t_scale
 
 __all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked", "route",
            "use_kernel", "fused_logq",
@@ -81,7 +91,8 @@ __all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked", "rout
            "plain_pmc_stats", "plain_is_pmc_step", "plain_vb_estep",
            "plain_pmc_stats_blocked", "plain_vb_estep_blocked",
            "plain_is_pmc_step_blocked", "plain_transform", "plain_transform_rng",
-           "plain_mcmc_pool", "solve_dofs", "plain_solve_dofs", "mcmc_step_chunk",
+           "plain_mcmc_pool", "solve_dofs", "plain_solve_dofs", "draw_proposal_inputs",
+           "plain_draw_proposal_inputs", "mcmc_step_chunk",
            "launch_counts", "reset_launch_counts", "add_launch_counts"]
 
 
@@ -171,7 +182,17 @@ def _fits_vmem_mcmc(D, Kt, n_steps, student_t):
     return per_lane * (_QUANTUM_RNG if student_t else _QUANTUM_EVAL) <= _VMEM_BUDGET
 
 
-def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
+def _card_dtype(like):
+    """The dtype of operands ``like`` (a tensor, or a ``(device, dtype)``
+    pair) where they lie on the card, else None: a decision on the CPU does
+    not depend on the dtype."""
+    if like is None:
+        return None
+    device, dtype = (like.device, like.dtype) if isinstance(like, torch.Tensor) else like
+    return dtype if torch.device(device).type == "cuda" else None
+
+
+def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False, like=None):
     """None where the JAX package runs its Pallas kernel for a (K, D)
     mixture (with a Kt-component target), else its rule, named.
 
@@ -181,7 +202,15 @@ def refusal(kernel, K, D, Kt=0, *, n=None, n_steps=None, student_t=False):
     skips that part of the rule).  For
     ``fused_mcmc_pool``, ``K`` is the target's component count, and the
     rule needs the steps of a cycle ``n_steps`` and whether the proposal is
-    Student-t."""
+    Student-t.  ``like`` is the operands, a tensor or its ``(device,
+    dtype)``, as the JAX package's ``use_pallas`` takes its array
+    (``pypmc_tpu/density/core.py:40``): on the card anything but float32
+    takes the unfused path, where the JAX package sends it to XLA on any
+    backend; on the CPU the decision is the shape's alone."""
+    dtype = _card_dtype(like)
+    if dtype is not None and dtype != torch.float32:
+        return ("%s: %s operands on the card take the unfused path, where the JAX "
+                "package sends every array that is not float32 to XLA" % (kernel, dtype))
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         ok, rule = _fits_vmem(K, D, _QUANTUM_EVAL), "a VMEM fit at a 128-particle tile"
     elif kernel in ("fused_transform", "fused_transform_rng"):
@@ -227,37 +256,40 @@ def fits(kernel, K, D, Kt=0, **rule) -> bool:
     return refusal(kernel, K, D, Kt, **rule) is None
 
 
-def elects_blocked(kernel, K, D, N, Kt=0) -> bool:
+def elects_blocked(kernel, K, D, N, Kt=0, like=None) -> bool:
     """Whether the JAX package, with the single-pass ``kernel`` out of
     reach (:func:`fits` False), elects its K-blocked variant ``kernel +
     "_blocked"`` for N particles: N >= 1024, the mixture fits that kernel's
-    VMEM (:func:`fits`) and the unfused path's (K, N) matrices would crowd
-    12 GiB."""
+    VMEM (:func:`fits`, operands ``like`` as there) and the unfused path's
+    (K, N) matrices would crowd 12 GiB."""
     if kernel not in _SINGLE_PASS or N < _MIN_N:
         return False
-    return fits(kernel + "_blocked", K, D, Kt) and 12 * K * N > _BLOCKED_HBM
+    return fits(kernel + "_blocked", K, D, Kt, like=like) and 12 * K * N > _BLOCKED_HBM
 
 
 _plain_routes = {}
 
 
-def route(kernel, K, D, N, Kt=0):
+def route(kernel, K, D, N, Kt=0, like=None):
     """The route of an ``"auto"`` dispatch of the single-pass statistics
-    ``kernel`` for N particles: ``"dense"`` where it fits (:func:`fits`),
-    ``"blocked"`` where the JAX package elects the K-blocked variant
-    (:func:`elects_blocked`), else None, the unfused path, counted as the
-    route ``plain:<kernel>`` in :func:`launch_counts`."""
-    if fits(kernel, K, D, Kt, n=N):
+    ``kernel`` for N particles and operands ``like`` (:func:`refusal`):
+    ``"dense"`` where it fits (:func:`fits`), ``"blocked"`` where the JAX
+    package elects the K-blocked variant (:func:`elects_blocked`), else
+    None, the unfused path, counted as the route ``plain:<kernel>`` in
+    :func:`launch_counts`."""
+    if fits(kernel, K, D, Kt, n=N, like=like):
         return "dense"
-    if elects_blocked(kernel, K, D, N, Kt):
+    if elects_blocked(kernel, K, D, N, Kt, like):
         return "blocked"
     _plain_routes[kernel] += 1
     return None
 
 
 def gate(kernel, K, D, Kt=0, **rule) -> bool:
-    """The size gate of an ``"auto"`` dispatch: :func:`fits`, counting a
-    refusal as the route ``plain:<kernel>`` in :func:`launch_counts`."""
+    """The gate of an ``"auto"`` dispatch: :func:`fits` (its ``like=``, the
+    operands, sends anything but float32 on the card to the unfused path),
+    counting a refusal as the route ``plain:<kernel>`` in
+    :func:`launch_counts`."""
     if fits(kernel, K, D, Kt, **rule):
         return True
     _plain_routes[kernel] += 1
@@ -577,6 +609,26 @@ def plain_transform_rng(seed, latent, ops: MixtureOperands):
     return _draw_transform(_rng.device_generator(seed, ops.packed.device), latent, ops)
 
 
+def plain_draw_proposal_inputs(seed, cumw, dof, n: int, D: int, normals: bool):
+    """Plain version of :func:`draw_proposal_inputs`: from a generator on
+    ``cumw``'s device seeded with the two ``seed`` words, the components
+    (one uniform each against the thresholds), then with ``normals`` the
+    normals ``zT (D, n)`` and the scales ``(n,)`` (``sqrt(dof /
+    max(chi2(dof), tiny))`` for a Student-t mixture, else 1)."""
+    gen = _rng.device_generator(seed, cumw.device)
+    dtype, device = cumw.dtype, cumw.device
+    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
+    latent = torch.sum(u[None, :] >= cumw[:-1, None], dim=0, dtype=torch.int32)
+    if not normals:
+        return latent, None, None
+    zT = torch.randn((D, n), generator=gen, dtype=dtype, device=device)
+    if dof is None:
+        return latent, zT, torch.ones((n,), dtype=dtype, device=device)
+    dof_n = dof[latent.long()]
+    chi2 = torch.clamp(chisquare(gen, dof_n, (n,)), min=tiny(dtype))
+    return latent, zT, torch.sqrt(dof_n / chi2)
+
+
 def plain_propose(gen, ops: MixtureOperands, n: int):
     """Draw ``n`` particles from the packed mixture with generator ``gen``
     (on the operands' device): ``(xT (D, n), latent (n,) int32)``.  The
@@ -726,6 +778,18 @@ def plain_solve_dofs(const, old_dofs, steps, mindof, maxdof):
 # kernel wrappers                                                       #
 # --------------------------------------------------------------------- #
 
+def _batch_folded(launch, x_dim, xT, *args):
+    """``launch`` (an operator on particles ``xT (D, N)``) over a batch of
+    particle blocks at ``x_dim`` of ``xT``, as one launch on ``(D, B N)``:
+    its outputs, ``(..., B N)``, as ``(..., B, N)``."""
+    x = xT.movedim(x_dim, 1)                # (D, B, N)
+    D, B, N = x.shape
+    out = launch(x.reshape(D, B * N).contiguous(), *args)
+    if isinstance(out, torch.Tensor):
+        return out.unflatten(-1, (B, N))
+    return tuple(o.unflatten(-1, (B, N)) for o in out)
+
+
 def fused_logq(xT, ops: MixtureOperands):
     """Mixture log-density ``(N,)`` of transposed particles ``xT (D, N)``
     (kernel ``csrc/logq.cu``).  ``torch.func.vmap`` maps it over a batch
@@ -767,10 +831,7 @@ def _logq_vmap(info, in_dims, xT, packed, K, student_t):
         raise NotImplementedError("fused_logq maps over particles, not over mixtures")
     if x_dim is None:
         return _logq_launch(xT, packed, K, student_t), None
-    x = xT.movedim(x_dim, 1)                # (D, B, N)
-    D, B, N = x.shape
-    out = _logq_launch(x.reshape(D, B * N).contiguous(), packed, K, student_t)
-    return out.view(B, N), 0
+    return _batch_folded(_logq_launch, x_dim, xT, packed, K, student_t), 0
 
 
 _logq_launch.register_vmap(_logq_vmap)
@@ -779,24 +840,49 @@ _logq_launch.register_vmap(_logq_vmap)
 def fused_rho(xT, ops: MixtureOperands):
     """Rao-Blackwellized responsibilities ``rho (K, N)`` (exactly 0 for a
     dead component) and the mixture log-density ``(N,)`` of transposed
-    particles ``xT (D, N)`` (kernel ``csrc/rho.cu``)."""
+    particles ``xT (D, N)`` (kernel ``csrc/rho.cu``).  ``torch.func.vmap``
+    maps it over a batch of particle blocks with one launch: ``rho (K, B,
+    N)``, ``log_q (B, N)``."""
     if not use_kernel(xT, ops.packed):
         return plain_rho(xT, ops)
+    if xT.shape[0] != ops.dim:
+        raise ValueError("expected %d rows, got shape %s" % (ops.dim, tuple(xT.shape)))
+    return _rho_launch(xT, ops.packed, ops.K, bool(ops.student_t))
+
+
+@torch.library.custom_op("pypmc_tpu_torch::fused_rho", mutates_args=(),
+                         device_types="cuda")
+def _rho_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
+                student_t: bool) -> tuple[torch.Tensor, torch.Tensor]:
     D, N = xT.shape
-    _check(xT, (ops.dim, N))
+    ops = MixtureOperands(packed, K, D, student_t)
+    _check(xT, (D, N))
     _check_operands(ops)
-    _build.check_limits("fused_rho", ops.K, D)
+    _build.check_limits("fused_rho", K, D)
     lib = _build.load()
-    rho = torch.empty((ops.K, N), dtype=torch.float32, device=xT.device)
+    rho = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_rho(
-            xT.data_ptr(), ops.packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
-            N, ops.K, D, int(ops.student_t), _eval_blocks("rho", xT.device, N, ops.K, D),
+            xT.data_ptr(), packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
+            N, K, D, int(student_t), _eval_blocks("rho", xT.device, N, K, D),
             _stream(xT.device))
     _raise_on(err, "fused_rho")
     fused_rho.launches += 1
     return rho, log_q
+
+
+def _rho_vmap(info, in_dims, xT, packed, K, student_t):
+    x_dim, ops_dim = in_dims[0], in_dims[1]
+    if ops_dim is not None:
+        raise NotImplementedError("fused_rho maps over particles, not over mixtures")
+    if x_dim is None:
+        return _rho_launch(xT, packed, K, student_t), (None, None)
+    # rho (K, B, N) with the batch at dim 1, log_q (B, N)
+    return _batch_folded(_rho_launch, x_dim, xT, packed, K, student_t), (1, 0)
+
+
+_rho_launch.register_vmap(_rho_vmap)
 
 
 def _check_projection(xT, a, m):
@@ -816,11 +902,21 @@ def fused_maha(xT, a, m):
     """``(K, N)`` squared norms ``|a_k (x_n - m_k)|^2`` of transposed
     particles ``xT (D, N)`` for GENERAL matrices ``a (K, D, D)`` (lower,
     upper or full) and centers ``m (K, D)`` (kernel ``csrc/maha.cu``).
+    ``torch.func.vmap`` maps it over a batch of particle blocks with one
+    launch: ``(K, B, N)``.
 
     The TPU kernel takes ``b_k = a_k m_k`` and a coordinate center; the
     port takes the centers and forms ``x - m_k`` before the product."""
     if not use_kernel(xT, a, m):
         return plain_maha(xT, a, m)
+    if xT.shape[0] != a.shape[-1]:
+        raise ValueError("expected %d rows, got shape %s" % (a.shape[-1], tuple(xT.shape)))
+    return _maha_launch(xT, a, m)
+
+
+@torch.library.custom_op("pypmc_tpu_torch::fused_maha", mutates_args=(),
+                         device_types="cuda")
+def _maha_launch(xT: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     K, D = _check_projection(xT, a, m)
     N = xT.shape[1]
     _build.check_limits("fused_maha", K, D)
@@ -834,6 +930,18 @@ def fused_maha(xT, a, m):
     _raise_on(err, "fused_maha")
     fused_maha.launches += 1
     return out
+
+
+def _maha_vmap(info, in_dims, xT, a, m):
+    x_dim = in_dims[0]
+    if in_dims[1] is not None or in_dims[2] is not None:
+        raise NotImplementedError("fused_maha maps over particles, not over matrices")
+    if x_dim is None:
+        return _maha_launch(xT, a, m), None
+    return _batch_folded(_maha_launch, x_dim, xT, a, m), 1    # (K, B, N)
+
+
+_maha_launch.register_vmap(_maha_vmap)
 
 
 def fused_vb_estep(xT, w, a, m, const, variant=None):
@@ -1195,10 +1303,10 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     """The mixture transform of :func:`fused_transform` with the normals
     and, for a Student-t mixture, the scale ``sqrt(dof / chi2(dof))`` drawn
     in the kernel from a Philox stream per particle keyed by the two
-    ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``.
-    ``variant``: the kernel, as :func:`fused_transform`'s
-    (``_build.transform_plan`` with ``rng``); counted as
-    ``variant:fused_transform_rng=<variant>``."""
+    ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``.  ``seed``:
+    as :func:`fused_propose_logq`'s.  ``variant``: the kernel, as
+    :func:`fused_transform`'s (``_build.transform_plan`` with ``rng``);
+    counted as ``variant:fused_transform_rng=<variant>``."""
     variant = _elect("fused_transform_rng", ops.K, ops.dim, variant)
     if not use_kernel(ops.packed):
         return plain_transform_rng(seed, latent, ops)
@@ -1213,7 +1321,7 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     xT = torch.empty((D, N), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_transform_rng(
-            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, latent.data_ptr(),
+            *_seed_args(seed, device), latent.data_ptr(),
             operands.data_ptr(), xT.data_ptr(), N, ops.K, D, int(ops.student_t),
             _DRAW_VARIANTS[variant],
             _draw_blocks("fused_transform_rng", device, N, ops.K, D, variant), _stream(device))
@@ -1324,10 +1432,54 @@ def solve_dofs(const, old_dofs, steps, mindof, maxdof, variant="warp"):
     return out
 
 
+def draw_proposal_inputs(seed, cumw, dof, n: int, D: int, normals: bool):
+    """The random inputs of ``n`` draws from a mixture with the tail-sum
+    thresholds ``cumw (K,)`` (``density.core._cumulative_weights``) and,
+    for a Student-t mixture, the dofs ``dof (K,)`` (None: Gaussian), in one
+    launch of kernel ``csrc/draw.cu`` (float32 or float64, the dtype of
+    ``cumw``): ``(latent (n,) int32, zT (D, n), scale (n,))``, the
+    component of each particle by one uniform against the thresholds (a
+    dead component is never drawn), and with ``normals`` its standard
+    normals and its scale ``sqrt(dof / max(chi2(dof), tiny))`` (1 for a
+    Gaussian mixture); ``zT`` and ``scale`` are None without.  The stream
+    of particle n is Philox keyed by the two ``seed`` words with bit 1 of
+    the second flipped (its own: the draw kernels key theirs by the words,
+    ``fused_transform_rng`` in ``propose_T`` with bit 0 flipped), counted
+    by n.  ``seed``: as :func:`fused_propose_logq`'s."""
+    if dof is not None and dof.device != cumw.device:
+        raise ValueError("tensors on different devices: %s, %s" % (cumw.device, dof.device))
+    if cumw.device.type == "cpu":
+        return plain_draw_proposal_inputs(seed, cumw, dof, n, D, normals)
+    if cumw.device.type != "cuda":
+        raise TypeError("no kernels for device type %r" % cumw.device.type)
+    if cumw.dtype not in (torch.float32, torch.float64):
+        raise TypeError("draw_proposal_inputs takes float32 or float64 tensors, got %s"
+                        % cumw.dtype)
+    K, device, dtype = cumw.shape[0], cumw.device, cumw.dtype
+    _check(cumw, (K,), dtype)
+    if dof is not None:
+        _check(dof, (K,), dtype)
+    lib = _build.load()
+    latent = torch.empty((n,), dtype=torch.int32, device=device)
+    zT = torch.empty((D, n), dtype=dtype, device=device) if normals else None
+    scale = torch.empty((n,), dtype=dtype, device=device) if normals else None
+    with torch.cuda.device(device):
+        err = lib.pmc_draw_proposal_inputs(
+            *_seed_args(seed, device), cumw.data_ptr(),
+            None if dof is None else dof.data_ptr(), latent.data_ptr(),
+            None if zT is None else zT.data_ptr(), None if scale is None else scale.data_ptr(),
+            n, K, D, int(dtype == torch.float64), _blocks(device, n, 8, _build.DRAW_THREADS),
+            _stream(device))
+    _raise_on(err, "draw_proposal_inputs")
+    draw_proposal_inputs.launches += 1
+    return latent, zT, scale
+
+
 _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
              fused_maha, fused_rho, fused_vb_estep, fused_transform,
              fused_transform_rng, fused_mcmc_pool, fused_pmc_stats_blocked,
-             fused_vb_estep_blocked, fused_is_pmc_step_blocked, solve_dofs)
+             fused_vb_estep_blocked, fused_is_pmc_step_blocked, solve_dofs,
+             draw_proposal_inputs)
 
 
 _variant_counts = {}

@@ -40,7 +40,6 @@ from .. import profiling as _profiling
 from ..density import core as _core
 from ..mix_adapt.pmc import (pmc_log_likelihood, pmc_step_mixture_target,
                              pmc_update)
-from ..ops import kernels as _k
 from ..sampler import _scan
 from ..sampler._target import evaluate_target_T
 from ..tools import History as _History
@@ -191,25 +190,16 @@ def _pmc_step(params, target, key, n_local, mesh, rb, steps, mindof, maxdof,
     return result.params, stats, samples_T, weights
 
 
-def _uncapturable(params, target, n_local, mesh, rb, weight_clip):
-    """Why a CUDA graph cannot replay these steps, or None: a draw that is
-    no kernel's seeds a generator on the host from its words every step (a
-    replay would draw the capture's particles again), and a gloo all-reduce
-    crosses the host."""
+def _uncapturable(mesh):
+    """Why a CUDA graph cannot replay these steps, or None: a gloo
+    all-reduce crosses the host.  Every draw of a step is a kernel's on the
+    card, keyed by the step's row of the seed table (``density.core
+    .propose_T``, ``ops.kernels.draw_proposal_inputs``)."""
     if mesh is not None and mesh.group is not None \
             and torch.distributed.get_backend(mesh.group) != "nccl":
         return "the mesh's %s all_reduce crosses the host" % torch.distributed.get_backend(
             mesh.group)
-    K, D = params.K, params.dim
-    Kt = target.K if isinstance(target, _core.MixtureParams) else 0
-    if isinstance(target, _core.MixtureParams) and rb and not weight_clip and (
-            _k.fits("fused_is_pmc_step", K, D, Kt, n=n_local)
-            or _k.elects_blocked("fused_is_pmc_step", K, D, n_local, Kt)):
-        return None
-    if _k.fits("fused_propose_logq", K, D, Kt):
-        return None
-    return ("the draw of K=%d, D=%d (a %d-component target) is no kernel's: it seeds a "
-            "generator on the host every step" % (K, D, Kt))
+    return None
 
 
 def _pmc_steps(settings, target, xs, ys, carry, consts, strict):
@@ -225,8 +215,7 @@ def _pmc_steps(settings, target, xs, ys, carry, consts, strict):
     if consts:
         target = _core.MixtureParams(*consts)
     if strict:
-        cause = _uncapturable(params, target, settings["n_local"], settings["mesh"],
-                              settings["rb"], settings["weight_clip"])
+        cause = _uncapturable(settings["mesh"])
         if cause is not None:
             raise _scan.Uncapturable(cause)
     for i in range(seeds.shape[0]):
@@ -309,10 +298,13 @@ def pmc_run_sharded(target, params, n_total, n_steps, mesh=None, key=None,
         eagerly, so its first call of that many steps or fewer replays
         nothing; the scan of the last configuration is kept, with its
         graphs' memory, until another replaces it or
-        :func:`clear_step_cache`.  Steps no graph can replay (a draw that
-        is no kernel's, a gloo mesh) run eagerly, with one warning
-        (``sampler._scan``).  ``return_final_samples`` is not available
-        with it.
+        :func:`clear_step_cache`.  Every mesh-less and NCCL configuration
+        replays, at any K and D, below and above 1024 particles, float32 and
+        float64, with a mixture or a callable target (each draw is a
+        kernel's, keyed by the step's row of the table); over a gloo mesh,
+        whose all-reduce crosses the host, the steps run eagerly, with one
+        warning (``sampler._scan``).  ``return_final_samples`` is not
+        available with it.
     :param compute_log_likelihood: False skips the extra evaluation pass per
         step (``stats.log_likelihood`` is then NaN).
 

@@ -465,9 +465,9 @@ def sample_adaptive_chains(target, starts, sigma0, n_steps, n_adapt_cycles,
         pool_target = target
     pool_target = _indmerge(pool_target, indicator, -float("inf"))
     use_kernel = (mix_target is not None and indicator is None
-                  and starts.dtype == torch.float32
                   and _k.gate("fused_mcmc_pool", mix_target.K, D, n_steps=int(n_steps),
-                              student_t=dof is not None))
+                              student_t=dof is not None, like=starts)
+                  and starts.dtype == torch.float32)
 
     current = starts
     current_eval = evaluate_target(pool_target, starts)

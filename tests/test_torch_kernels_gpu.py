@@ -281,12 +281,28 @@ def test_seed_by_pointer_equals_seed_by_value(cuda, case):
     chip_smoke.seed_pointer_case(case, cuda)
 
 
-def test_replays_draw_their_seeds_particles(cuda):
-    chip_smoke.seed_replay_case(cuda)
+@pytest.mark.parametrize("case", chip_smoke.REPLAY_CASES)
+def test_replays_draw_their_seeds_particles(cuda, case):
+    chip_smoke.seed_replay_case(cuda, case)
 
 
-@pytest.mark.parametrize("which", [2, 3, 4])
+@pytest.mark.parametrize("which", [2, 3, 4, 5, 6])
 def test_pmc_scan_equals_the_loop(cuda, which):
     """pmc_run_sharded(scan_steps=True) against the loop at 2^16 particles,
-    pmc_sharded.py's configuration and a draw no kernel makes."""
+    pmc_sharded.py's configuration, a D=40 step past fused_propose_logq's
+    rule, the D=40 pipeline's PMC stage and the 2^16 particles in float64:
+    every one replayed as CUDA graphs."""
     chip_smoke.scan_case(cuda, *chip_smoke.scan_problems(cuda)[which])
+
+
+@pytest.mark.parametrize("case", chip_smoke.DRAW_CASES)
+def test_draw_against_plain_version(cuda, case):
+    chip_smoke.draw_case(case, cuda, [])
+
+
+def test_float64_entry_points_take_the_unfused_path(cuda):
+    chip_smoke.float64_entry_points(cuda, [])
+
+
+def test_per_point_targets_through_maha_and_rho_are_one_launch(cuda):
+    chip_smoke.per_point_routes(cuda, [])

@@ -842,6 +842,65 @@ def test_fused_logq_launch_maps_under_vmap_in_one_launch():
     torch.testing.assert_close(blocks, ref.view(5, 10), rtol=1e-6, atol=1e-6)
 
 
+def test_fused_rho_launch_maps_under_vmap_in_one_launch():
+    """fused_rho's launch folds a vmapped batch into the particle axis as
+    fused_logq's does: a per-point (or per-block) call is one launch, rho
+    (K, B, N) with the batch at dim 1 and log q (B, N), as a stand-in CPU
+    kernel (the plain version, counting its calls) shows."""
+    rng = np.random.default_rng(18)
+    _, tp = mixture(rng, 3, 4, True, dead=True, dtype=np.float32)
+    ops = core._kernel_operands(tp)
+    calls = []
+
+    def cpu_kernel(xT, packed, K, student_t):
+        calls.append(tuple(xT.shape))
+        return kernels.plain_rho(xT, kernels.MixtureOperands(packed, K, xT.shape[0], student_t))
+
+    kernels._rho_launch.register_kernel("cpu", cpu_kernel)
+    x = torch.tensor(rng.normal(0, 2, (50, 4)).astype(np.float32))
+    rho, log_q = kernels.plain_rho(x.T.contiguous(), ops)
+    launch = lambda xT: kernels._rho_launch(xT, ops.packed, ops.K, True)
+    per_point = torch.func.vmap(lambda p: launch(p[:, None].contiguous()))(x)
+    assert calls == [(4, 50)] and per_point[0].shape == (50, 3, 1)
+    torch.testing.assert_close(per_point[0][..., 0].T, rho, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(per_point[1][:, 0], log_q, rtol=1e-6, atol=1e-6)
+    assert torch.all(per_point[0][:, 1] == 0)    # the dead component
+    blocks = torch.func.vmap(launch, in_dims=2)(x.T.reshape(4, 5, 10).permute(0, 2, 1))
+    assert calls[1:] == [(4, 50)] and blocks[0].shape == (5, 3, 10)
+    torch.testing.assert_close(blocks[0], rho.view(3, 5, 10).permute(1, 0, 2),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(blocks[1], log_q.view(5, 10), rtol=1e-6, atol=1e-6)
+
+
+def test_fused_maha_launch_maps_under_vmap_in_one_launch():
+    """fused_maha's launch too: a per-point (or per-block) call is one
+    launch, (K, B, N) with the batch at dim 1, for lower and upper
+    operands."""
+    rng = np.random.default_rng(19)
+    calls = []
+
+    def cpu_kernel(xT, a, m):
+        calls.append(tuple(xT.shape))
+        return kernels.plain_maha(xT, a, m)
+
+    kernels._maha_launch.register_kernel("cpu", cpu_kernel)
+    x = torch.tensor(rng.normal(0, 2, (50, 4)).astype(np.float32))
+    for a, m in (upper_operands(rng, 3, 4), (np.linalg.cholesky(spd(rng, 3, 4)).astype(
+            np.float32), rng.normal(0, 2, (3, 4)).astype(np.float32))):
+        a, m = torch.tensor(a), torch.tensor(m)
+        ref = kernels.plain_maha(x.T.contiguous(), a, m)
+        calls.clear()
+        per_point = torch.func.vmap(lambda p: kernels._maha_launch(p[:, None].contiguous(),
+                                                                   a, m))(x)
+        assert calls == [(4, 50)] and per_point.shape == (50, 3, 1)
+        torch.testing.assert_close(per_point[..., 0].T, ref, rtol=1e-6, atol=1e-6)
+        blocks = torch.func.vmap(lambda b: kernels._maha_launch(b, a, m), in_dims=2)(
+            x.T.reshape(4, 5, 10).permute(0, 2, 1))
+        assert calls[1:] == [(4, 50)] and blocks.shape == (5, 3, 10)
+        torch.testing.assert_close(blocks, ref.view(3, 5, 10).permute(1, 0, 2),
+                                   rtol=1e-6, atol=1e-6)
+
+
 def upper_operands(rng, K, D):
     """VB's operands: ``A_k = sqrt(nu_k) chol(W_k)^T`` (upper), means."""
     W = np.linalg.inv(spd(rng, K, D))

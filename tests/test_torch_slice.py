@@ -293,9 +293,9 @@ class StandInCard:
 
 
 def wide_problem():
-    """A D=40 draw no kernel makes below 1024 particles: the mixtures are
-    past fused_propose_logq's rule (12 + 2 components), the transforms need
-    1024 particles."""
+    """A D=40 step past fused_propose_logq's rule (12 + 2 components): its
+    components and normals come from draw_proposal_inputs, below 1024
+    particles the tensor transform, above it fused_transform."""
     rng = np.random.default_rng(5)
     tp = core.make_mixture(rng.normal(0, 1, (12, 40)), np.array([np.eye(40)] * 12))[0]
     tt = core.make_mixture(rng.normal(0, 1, (2, 40)), np.array([np.eye(40) * 2] * 2))[0]
@@ -325,9 +325,12 @@ def test_replays_read_each_chunks_seeds(monkeypatch, n):
 
 
 def test_a_draw_no_kernel_makes_is_not_captured(monkeypatch, caplog):
-    """The body in strict mode raises Uncapturable before it draws where no
-    kernel draws; through the stand-in card the run falls back with one
-    warning, counted, and equals the loop bit for bit."""
+    """No draw is left that no kernel makes: the D=40 step past
+    fused_propose_logq's rule takes its components and normals from
+    draw_proposal_inputs, so the body in strict mode draws, and through the
+    stand-in card the run at 1000 and at 3000 particles (the tensor and the
+    fused_transform routes) is captured and replayed, with no warning, and
+    equals the loop bit for bit, with its launches."""
     tp, tt = wide_problem()
     settings = dict(n_local=1000, mesh=None, rb=True, steps=0, mindof=1e-5, maxdof=1e3,
                     compute_log_likelihood=True, weight_clip=False)
@@ -336,37 +339,50 @@ def test_a_draw_no_kernel_makes_is_not_captured(monkeypatch, caplog):
     monkeypatch.setattr(core, "propose_T", lambda *a: drawn.append(1) or propose(*a))
     seeds = torch.tensor([[1, 2]])
     ys = tuple(torch.empty(1, dtype=torch.float64) for _ in range(4))
-    carry = psampler._tensors(tp)
-    with pytest.raises(_scan.Uncapturable, match="no kernel's"):
-        psampler._pmc_steps(settings, None, (seeds,), ys, carry, psampler._tensors(tt), True)
-    assert not drawn
-    psampler._pmc_steps(settings, None, (seeds,), ys, carry, psampler._tensors(tt), False)
+    psampler._pmc_steps(settings, None, (seeds,), ys, psampler._tensors(tp),
+                        psampler._tensors(tt), True)
     assert drawn == [1]
-    # a kernel's draw is captured: the flagship's shapes
-    _, _, fp, ft = problem()
-    settings.update(steps=100)
-    psampler._pmc_steps(settings, None, (seeds,), ys, psampler._tensors(fp),
-                        psampler._tensors(ft), True)
 
     monkeypatch.setattr(_scan.Scan, "_card", StandInCard)
     monkeypatch.setattr(_scan, "CHUNK", 2)
-    psampler.clear_step_cache()
-    loop = pmc_run_sharded(tt, tp, 1000, 5, key=3)
-    _scan.reset_counts()
-    with caplog.at_level(logging.WARNING, logger=_scan.__name__):
-        caplog.clear()
-        scan = pmc_run_sharded(tt, tp, 1000, 5, key=3, scan_steps=True)
-    warnings = [r.getMessage() for r in caplog.records if "cannot be captured" in r.getMessage()]
-    assert len(warnings) == 1 and "no kernel's" in warnings[0]
-    assert _scan.counts == {"replays": 0, "captures": 0, "warm-ups": 1, "uncapturable": 1,
-                            "fallbacks": 2}
-    assert_runs_equal(loop, scan)
+    for n in (1000, 3000):
+        psampler.clear_step_cache()
+        kernels.reset_launch_counts()
+        loop = pmc_run_sharded(tt, tp, n, 5, key=3)
+        want = kernels.launch_counts()
+        _scan.reset_counts()
+        kernels.reset_launch_counts()
+        with caplog.at_level(logging.WARNING, logger=_scan.__name__):
+            caplog.clear()
+            scan = pmc_run_sharded(tt, tp, n, 5, key=3, scan_steps=True)
+        assert not [r for r in caplog.records if "cannot be captured" in r.getMessage()]
+        assert _scan.counts == {"replays": 2, "captures": 2, "warm-ups": 1,
+                                "uncapturable": 0, "fallbacks": 0}, n
+        assert kernels.launch_counts() == want
+        assert want["plain:fused_propose_logq"] == 5
+        assert_runs_equal(loop, scan)
+
+
+def test_only_a_gloo_mesh_is_uncapturable(monkeypatch):
+    """The one cause left for eager steps under scan_steps=True is a mesh
+    whose all-reduce crosses the host; no mesh and an NCCL mesh replay."""
+    class Mesh:
+        def __init__(self, group):
+            self.group = group
+
+    backends = {"gloo-group": "gloo", "nccl-group": "nccl"}
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group: backends[group])
+    assert psampler._uncapturable(None) is None
+    assert psampler._uncapturable(Mesh(None)) is None
+    assert psampler._uncapturable(Mesh("nccl-group")) is None
+    assert "gloo all_reduce crosses the host" in psampler._uncapturable(Mesh("gloo-group"))
 
 
 def test_a_seed_tensor_draws_what_its_words_draw():
-    """The plain versions of the three kernels a replayed step seeds from
-    its table draw from a 2-word int64 tensor what they draw from the same
-    words as ints."""
+    """The plain versions of the kernels a replayed step seeds from its
+    table (the three draws of a step, the transform's and the proposal
+    inputs'), and propose_T on both of its transform routes, draw from a
+    2-word int64 tensor what they draw from the same words as ints."""
     rng = np.random.default_rng(6)
     tp = core.make_mixture(rng.normal(0, 1, (3, 4)), np.array([np.eye(4)] * 3), None,
                            np.full(3, 6.0))[0]
@@ -376,7 +392,13 @@ def test_a_seed_tensor_draws_what_its_words_draw():
     table = torch.tensor(words)
     calls = [lambda s: kernels.fused_propose_logq(s, ops, 500, tops),
              lambda s: kernels.fused_is_pmc_step(s, ops, tops, 500, True),
-             lambda s: kernels.fused_is_pmc_step_blocked(s, ops, tops, 500, True)]
+             lambda s: kernels.fused_is_pmc_step_blocked(s, ops, tops, 500, True),
+             lambda s: kernels.fused_transform_rng(s, torch.tensor([0, 2, 1] * 100,
+                                                                   dtype=torch.int32), ops),
+             lambda s: kernels.draw_proposal_inputs(s, ops.fields()["cumw"],
+                                                    ops.fields()["dof"], 500, 4, True),
+             lambda s: core.propose_T(tp, s, 1500),
+             lambda s: core.propose_T(tp, s, 500)]
     for call in calls:
         a, b = call(words), call(table)
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
