@@ -10,22 +10,25 @@ Phases, each of which exits non-zero on failure:
    ``nvcc`` a source, all at once: the thirteen Pallas kernels',
    ``solve_dofs``, the dof bisection of the JAX package's PMC step, and
    ``draw_proposal_inputs``, the ``jax.random`` draws of its ``propose_T``,
-   whose four instantiations must not spill), each launcher's shared memory (and the
+   whose four instantiations must not spill) and ``fused_draw_transform``
+   and ``fused_draw_transform_rng``, ``propose_T``'s draw and transform in
+   one launch, each launcher's shared memory (and the
    chunked kernels' components a chunk, the statistics kernels' tile, the
    plan of the register pass of ``fused_vb_estep``, ``fused_is_pmc_step``
    and ``fused_pmc_stats``, the plans of the three draws ``fused_transform``,
-   ``fused_transform_rng`` and ``fused_propose_logq`` and the pool's
-   variant) against ``ops/_build.py``'s formula, the
+   ``fused_transform_rng`` and ``fused_propose_logq``, the fused draws'
+   and the pool's variant) against ``ops/_build.py``'s formula, the
    registers of the K-blocked statistics pass's, the step's first pass's
    and the dense register kernel's DMAX 8 and 16 instantiations (the last
    also its blocks an SM at K=10, D=10: at least 3), of every record
    instantiation of ``fused_logq``'s, ``fused_rho``'s, ``fused_maha``'s and
-   the three draws' kernels (DMAX 8 to 64) and of the
+   the three draws' kernels and the fused draws' (DMAX 8 to 64) and of the
    pool's two variants (DMAX 8 to 64), which must not spill (nor, the record
    kernels, keep a stack frame), and the record kernels' blocks an SM at
    K=32, D=40 and K=200, D=10, the draws' at the flagship and at D=40
    (``fused_transform`` K=32, ``fused_transform_rng`` K=11,
-   ``fused_propose_logq`` K=9 with a 2-component target; at least 16 warps);
+   ``fused_propose_logq`` K=9 with a 2-component target, the fused draws
+   at K=32 and K=11; at least 16 warps);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -92,7 +95,15 @@ Phases, each of which exits non-zero on failure:
    weights (a dead one never drawn), their normals' moments and a KS test
    against the normal law, ``dof / scale^2`` against the chi-square law,
    each other's frequencies and (two-sample KS) normals and chi-squares;
-   without normals the same components;
+   without normals the same components.  ``fused_draw_transform`` and
+   ``fused_draw_transform_rng`` (``FUSED_DRAW_CASES``: ``DRAW_CASES``'
+   shapes in float32, D=8, 16, 40 and 64, the records staged and read from
+   device memory, Gaussian and Student-t, dead components) each equal to
+   the two launches it replaces (``draw_proposal_inputs``, then
+   ``fused_transform`` or ``fused_transform_rng``) bit for bit, xT and
+   latent, the seed by value and by pointer, and on its own draws beside
+   its plain version's; a graph of one launch replayed with two seeds draws
+   each seed's two launches' particles;
 4. slice: ``pmc_run_sharded`` at the ``examples/pmc_large_scale.py``
    configuration (10^7 particles a step, 10 steps), then 2 steps with
    ``weight_clip=True``, with the kernels' launch counts read around the
@@ -141,10 +152,12 @@ Phases, each of which exits non-zero on failure:
    ``examples/pmc_large_scale.py --components 200`` (D=10, 10^7 particles
    a step, 10 steps), its step also with the dofs by the host loop and by
    ``solve_dofs``, in turns;
-7. routes: ``propose_logq_T`` at D=40 with a 2-component target draws
-   through ``fused_transform_rng`` at K=11, ``fused_transform`` at K=16
-   (each on its record kernel) and the tensor path below 1024 particles,
-   each after one ``draw_proposal_inputs`` launch; a per-point target
+7. routes: ``propose_logq_T`` with a 2-component target draws at D=40
+   through ``fused_draw_transform_rng`` at K=11 and
+   ``fused_draw_transform`` at K=16 (one launch each) and on the tensor
+   path below 1024 particles (after one ``draw_proposal_inputs`` launch),
+   at D=80 through ``draw_proposal_inputs`` and ``fused_transform_rng`` at
+   K=4, ``fused_transform`` at K=16 (each on its looped kernel); a per-point target
    through ``fused_maha`` and one through ``fused_rho``, mapped over 2^16
    points with ``torch.func.vmap``: one launch each, no warning, equal to
    the batched call;
@@ -154,8 +167,10 @@ Phases, each of which exits non-zero on failure:
 9. pipeline: ``pipeline.integrate`` at ``benchmarks/accuracy_highdim.py
    --dim 40 --is-samples 4194304`` (evidence error under 1%, ESS above
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
-   elects, every ``fused_transform`` and ``fused_propose_logq`` launch on
-   its record kernel), VB1's and VB2's iterations (the profiled rerun's
+   elects, the PMC draws through ``fused_draw_transform`` with no
+   ``fused_transform`` or ``draw_proposal_inputs`` launch, every
+   ``fused_propose_logq`` launch on its record kernel), VB1's and VB2's
+   iterations (the profiled rerun's
    with the VB E-step's route before the float32 stopping rule's repair)
    and the
    callable-target run of ``tests/test_pipeline_api.py``;
@@ -230,7 +245,11 @@ Phases, each of which exits non-zero on failure:
     by torch.profiler in that fresh process) and its plain version at K=10,
     200 and 400; ``fused_transform_rng`` with its seed from a tensor;
     ``draw_proposal_inputs`` at K=32, D=40, N=2^20 (Student-t, float32 and
-    float64, and the components only) beside its plain version.
+    float64, and the components only) beside its plain version; the two
+    fused draws at K=32 and K=11, D=40, N=2^20 and K=10, D=10, N=2^22, each
+    in turns with the two launches it replaces, and the SASS instructions
+    of the DMAX 40 record draws and of ``draw_kernel`` (``cuobjdump``) as an
+    issue floor.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -285,7 +304,15 @@ SOURCES = {
     "solve_dofs": ("pypmc_tpu_torch/csrc/solve_dofs.cu", "pypmc_tpu/mix_adapt/pmc.py:349"),
     # no Pallas kernel: jax.random in the JAX package's propose_T
     "draw_proposal_inputs": ("pypmc_tpu_torch/csrc/draw.cu", "pypmc_tpu/density/core.py:293"),
+    # propose_T's draw and transform in one launch (D <= 64): jax.random
+    # there, then the transform of pallas_kernels.py:1014 or :881
+    "fused_draw_transform": ("pypmc_tpu_torch/csrc/draw.cu", "pypmc_tpu/density/core.py:293"),
+    "fused_draw_transform_rng": ("pypmc_tpu_torch/csrc/draw.cu",
+                                 "pypmc_tpu/density/core.py:293"),
 }
+# the Pallas kernel each fused draw also takes the place of
+FUSES = {"fused_draw_transform": "pypmc_tpu/ops/pallas_kernels.py:1014",
+         "fused_draw_transform_rng": "pypmc_tpu/ops/pallas_kernels.py:881"}
 # |kernel - plain| <= ATOL + RTOL * max|plain| per output; the plain
 # version runs in float64 on the kernel's float32 inputs, so the bound is
 # the kernel's own float32 rounding.  "maha": D-term FP32 dot products,
@@ -1452,6 +1479,118 @@ DRAW_CASES = [
     (1, 7, N_ODD, False, False, "float32", 125),
     (5, 3, N_ODD, False, True, "float64", 126),
 ]
+# propose_T's draw and transform in one launch, each form against the two
+# launches it replaces, bit for bit (csrc/draw.cu draw_transform_rec_kernel)
+FUSED_DRAWS = ("fused_draw_transform", "fused_draw_transform_rng")
+
+
+def two_launch_draw(name, ops, seed, n):
+    """The two launches ``name`` (one of FUSED_DRAWS) replaces, as propose_T
+    made them: draw_proposal_inputs on the mixture's thresholds and dofs,
+    then fused_transform on its normals and scales, or fused_transform_rng
+    keyed by the words with bit 0 of the second flipped (a seed tensor is
+    flipped on the card) -> ``(xT, latent)``."""
+    from pypmc_tpu_torch import _rng
+    from pypmc_tpu_torch.ops import kernels as k
+
+    f = ops.fields()
+    dof = f["dof"] if ops.student_t else None
+    if name == "fused_draw_transform":
+        latent, zT, scale = k.draw_proposal_inputs(seed, f["cumw"], dof, n, ops.dim, True)
+        return k.fused_transform(zT, latent, scale, ops), latent
+    latent = k.draw_proposal_inputs(seed, f["cumw"], dof, n, ops.dim, False)[0]
+    return k.fused_transform_rng(_rng.flip_bit(seed, 0), latent, ops), latent
+
+
+def fused_draw_case(case, device, report):
+    """Both fused forms on one mixture: each launch (one, counted) equal bit
+    for bit, xT and latent, to the two launches it replaces
+    (:func:`two_launch_draw`), with the seed by value and by pointer, on the
+    plan's records (staged, or read from device memory); each on its own
+    draws (moments, component frequencies, each component's mean, no dead
+    component drawn; the first SAMPLE_N particles) beside its plain
+    version's, the two versions' frequencies within 6 standard errors of
+    each other; one seed one draw, two seeds two."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, student, dead, seed = case
+    arrs = random_mixture(np.random.default_rng(seed), K, D, student, dead)
+    if dead and K > 2:
+        w = arrs[2].copy()
+        w[-1] = 0.0      # a dead trailing component too
+        arrs = (arrs[0], arrs[1], (w / w.sum()).astype(np.float32), arrs[3])
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
+    require(bool(torch.equal(ops.fields()["cumw"], core._cumulative_weights(params.weights))),
+            "the packed thresholds are not propose_T's")
+    plan = _build.draw_transform_plan(K, D)
+    words = {"value": (seed, 5),
+             "pointer": torch.tensor((seed, 5), dtype=torch.int64, device=device)}
+    for name in FUSED_DRAWS:
+        fn = getattr(k, name)
+        tag = "%s K=%d D=%d N=%d %s%s" % (name, K, D, N, "t" if student else "gauss",
+                                          " dead" if dead else "")
+        print("case %s: records staged %s, %d B" % (tag, plan[1], plan[4]))
+        got = {}
+        for form, seed_words in words.items():
+            k.reset_launch_counts()
+            got[form] = fn(seed_words, ops, N)
+            sync(device)
+            launched = {c: v for c, v in k.launch_counts().items() if v}
+            require(launched == {name: 1}, "%s: launches %s" % (tag, launched))
+            ref = two_launch_draw(name, ops, seed_words, N)
+            sync(device)
+            differ = sum(int((a != b).sum()) for a, b in zip(got[form], ref))
+            err = float((got[form][0] - ref[0]).abs().max())
+            print("  %-34s %d of %d outputs differ from the two launches (seed by %s)"
+                  % (name, differ, (D + 1) * N, form))
+            require(differ == 0, "%s: %d outputs differ from the two launches (seed by %s)"
+                    % (tag, differ, form))
+            report.append({"output": "%s vs two launches %s, seed by %s" % (name, tag, form),
+                           "max_abs_err": err, "tol": 0.0, "differ": differ})
+        n = min(N, SAMPLE_N)
+        xT, latent = got["value"][0][:, :n], got["value"][1][:n]
+        check_samples(name, xT, latent, arrs, report)
+        check_components(name, xT, latent, arrs)
+        plain = getattr(k, "plain_" + name[len("fused_"):])((seed, 5), ops, n)
+        check_samples("  its plain version", *plain, arrs, [])
+        w = arrs[2].astype(np.float64)
+        freq = [np.bincount(t.cpu().numpy(), minlength=K) / n for t in (latent, plain[1])]
+        se = np.sqrt(2 * w * (1 - w) / n)
+        require(np.all(np.abs(freq[0] - freq[1]) <= 6 * se + 1e-12),
+                "%s: frequencies %s against the plain version's %s" % (tag, freq[0], freq[1]))
+        again, other = fn((seed, 5), ops, N), fn((seed, 6), ops, N)
+        require(all(bool(torch.equal(a, b)) for a, b in zip(got["value"], again)),
+                "%s: one seed gave two draws" % tag)
+        require(not bool(torch.equal(got["value"][0], other[0])), "%s: two seeds, one draw" % tag)
+        del got, again, other, plain
+    torch.cuda.empty_cache()
+
+
+# the particles of a fused case's draw held to the mixture in distribution
+SAMPLE_N = 1 << 18
+# K, D, N, Student-t, dead components (a trailing one too), seed: DRAW_CASES'
+# shapes in float32, then D = 8, 16, 40 and 64, the records staged (K=32 at
+# D=40: the pipeline's PMC proposal; K=4 at D=64) and read from device
+# memory (K=40 at D=40, K=14 at D=64)
+FUSED_DRAW_CASES = [
+    (32, 40, N_FLAGSHIP, True, False, 141),
+    (12, 40, N_WIDE, False, True, 142),
+    (10, 10, N_FLAGSHIP, True, True, 143),
+    (1, 40, N_WIDE, True, False, 144),
+    (1, 7, N_ODD, False, False, 145),
+    (5, 3, N_ODD, False, True, 146),
+    (8, 8, N_WIDE, True, True, 147),
+    (6, 16, N_WIDE, False, False, 148),
+    (32, 40, N_WIDE, False, True, 149),
+    (40, 40, N_WIDE, True, False, 150),
+    (40, 40, N_WIDE, False, True, 151),
+    (4, 64, N_WIDE, True, False, 152),
+    (14, 64, N_WIDE, False, True, 153),
+]
 TRANSFORM_CASES = [
     # K, D, N, Student-t, seed
     (10, 10, N_PLAIN_MAX, True, 41),
@@ -1581,6 +1720,8 @@ def phase_kernels(device, cases, eval_cases):
     for case in DRAW_CASES:
         draw_case(case, device, report)
         torch.cuda.empty_cache()
+    for case in FUSED_DRAW_CASES:
+        fused_draw_case(case, device, report)
     # a CUDA tensor of another dtype never reaches a plain version
     params, _, _ = flagship_problem(device)
     from pypmc_tpu_torch.density import core
@@ -1740,12 +1881,19 @@ SEED_POINTER_CASES = [
     ("fused_transform_rng", 1, 200, 0, 1 << 16, None),
     ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None),
     ("draw_proposal_inputs", 10, 10, 0, N_FLAGSHIP, "float64"),
+    ("fused_draw_transform", 32, 40, 0, N_FLAGSHIP, None),
+    ("fused_draw_transform", 40, 40, 0, 1 << 16, None),       # records in device memory
+    ("fused_draw_transform_rng", 11, 40, 0, N_FLAGSHIP, None),
+    ("fused_draw_transform_rng", 10, 10, 0, N_FLAGSHIP, None),
 ]
 # one launch captured as a CUDA graph and replayed with two seeds in its
-# tensor: a step's, and the two draws of propose_T's routes
+# tensor: a step's, the two launches of propose_T's routes past D = 64 and
+# its one launch to D = 64 (each replay against that seed's two launches)
 REPLAY_CASES = [("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, None),
                 ("fused_transform_rng", 11, 40, 0, N_FLAGSHIP, None),
-                ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None)]
+                ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None),
+                ("fused_draw_transform", 32, 40, 0, N_FLAGSHIP, None),
+                ("fused_draw_transform_rng", 11, 40, 0, N_FLAGSHIP, None)]
 SEED_WORDS = (0x9E3779B9, 0x7F4A7C15)
 
 
@@ -1760,9 +1908,10 @@ def tensors_of(value):
     return [t for v in value for t in tensors_of(v)]
 
 
-def seeded_call(case, device):
+def seeded_call(case, device, two_launches=False):
     """``call``: ``call(seed)`` launches ``case``'s kernel on a seeded
-    Student-t proposal (and a Gaussian target)."""
+    Student-t proposal (and a Gaussian target); for the fused draws with
+    ``two_launches``, the two launches they replace instead."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -1784,6 +1933,10 @@ def seeded_call(case, device):
         return lambda seed: fn(seed, latent, ops, **kw)
     if kernel == "fused_propose_logq":
         return lambda seed: fn(seed, ops, N, tops, **kw)
+    if kernel in FUSED_DRAWS:
+        if two_launches:
+            return lambda seed: two_launch_draw(kernel, ops, seed, N)
+        return lambda seed: fn(seed, ops, N)
     return lambda seed: fn(seed, ops, tops, N, True, **kw)
 
 
@@ -1809,11 +1962,13 @@ def seed_pointer_case(case, device):
 def seed_replay_case(device, case=REPLAY_CASES[0]):
     """One launch of ``case``'s kernel with its seed in a tensor, captured
     as a CUDA graph and replayed twice with other words in the tensor: each
-    replay draws what the launch with those words by value draws, and the
-    two replays draw different particles."""
+    replay draws what the launch with those words by value draws (a fused
+    draw: the two launches it replaces), and the two replays draw different
+    particles."""
     import torch
 
     call = seeded_call(case, device)
+    reference = seeded_call(case, device, two_launches=True)
     table = torch.tensor((1, 2), dtype=torch.int64, device=device)
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -1827,14 +1982,15 @@ def seed_replay_case(device, case=REPLAY_CASES[0]):
     for words in ((11, 12), (13, 14)):
         table.copy_(torch.tensor(words, dtype=torch.int64))
         graph.replay()
-        ref = tensors_of(call(words))
+        ref = tensors_of(reference(words))
         sync(device)
         require(all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3])),
                 "a replay with the words %s does not draw their particles" % (words,))
         drawn.append(out[0].clone())
     require(not torch.equal(drawn[0], drawn[1]), "two replays drew the same particles")
     print("  %s as a CUDA graph, its seed in a tensor: two replays with two seeds drew those "
-          "seeds' particles (launched by value), and not the same ones" % case[0])
+          "seeds' particles (launched by value%s), and not the same ones"
+          % (case[0], ", the two launches it replaces" if case[0] in FUSED_DRAWS else ""))
     del graph
 
 
@@ -2177,8 +2333,7 @@ def scan_problems(device):
     the unfused update), a D=40 step of 1000 particles past
     fused_propose_logq's rule (the draw of draw_proposal_inputs and the
     tensor transform), the D=40 pipeline's PMC stage (K=32 Student-t,
-    2^20 particles: draw_proposal_inputs and fused_transform, the unfused
-    update) and the slice at 2^16 particles in float64 (every gate refuses;
+    2^20 particles: fused_draw_transform, the unfused update) and the slice at 2^16 particles in float64 (every gate refuses;
     draw_proposal_inputs' float64 draw, the tensor transform)."""
     import torch
 
@@ -3235,23 +3390,31 @@ ROUTE_N = 1 << 18
 
 
 def phase_routes(device, report):
-    """propose_logq_T at D=40 against a 2-component target, past
+    """propose_logq_T against a 2-component target, past
     fused_propose_logq's rule (K + 2 >= 13 components refuse its 1024-lane
-    tile): K=11 draws through fused_transform_rng, K=16 through
-    fused_transform (Student-t scale drawn outside, clamped), fewer than
-    1024 particles on the tensor path.  Each draw's samples are checked
-    against its mixture and each log-density against float64."""
+    tile at D=40, K + 2 >= 6 at D=80): at D=40 K=11 draws through
+    fused_draw_transform_rng, K=16 through fused_draw_transform (one launch
+    each: the draw and the transform), fewer than 1024 particles on the
+    tensor path after draw_proposal_inputs; at D=80 (2^16 particles), past
+    the record kernels, K=4 through draw_proposal_inputs and
+    fused_transform_rng, K=16 through draw_proposal_inputs and
+    fused_transform (Student-t scale drawn outside, clamped), each
+    transform on its looped kernel.  Each draw's
+    samples are checked against its mixture and each log-density against
+    float64."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
-    D = 40
     rng = np.random.default_rng(80)
-    target = make_params(random_mixture(rng, 2, D, False), device)
-    t64 = target.to("cpu", torch.float64)
     total = None
-    for K, n, route in ((11, ROUTE_N, "fused_transform_rng"), (16, ROUTE_N, "fused_transform"),
-                        (11, 1000, "tensor")):
+    for D, K, n, route, variant in ((40, 11, ROUTE_N, "fused_draw_transform_rng", None),
+                                    (40, 16, ROUTE_N, "fused_draw_transform", None),
+                                    (40, 11, 1000, "tensor", None),
+                                    (80, 4, 1 << 16, "fused_transform_rng", "looped"),
+                                    (80, 16, 1 << 16, "fused_transform", "looped")):
+        target = make_params(random_mixture(rng, 2, D, False), device)
+        t64 = target.to("cpu", torch.float64)
         arrs = random_mixture(rng, K, D, True, spread=3.0)
         params = make_params(arrs, device)
         k.reset_launch_counts()
@@ -3260,25 +3423,26 @@ def phase_routes(device, report):
         counts = k.launch_counts()
         launched = {name: c for name, c in counts.items() if c and not name.startswith("variant:")}
         print("  K=%d D=%d n=%d Student-t: launches %s" % (K, D, n, json.dumps(launched)))
-        if route in ("fused_transform", "fused_transform_rng"):
-            require(counts["variant:%s=rec" % route] == 1,
-                    "routes: K=%d's %s launch did not take the record kernel" % (K, route))
-        want = {"fused_transform_rng": {"plain:fused_propose_logq": 1, "fused_transform_rng": 1,
-                                        "fused_logq": 2, "draw_proposal_inputs": 1},
-                "fused_transform": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
-                                    "fused_transform": 1, "fused_logq": 2,
-                                    "draw_proposal_inputs": 1},
-                "tensor": {"plain:fused_propose_logq": 1, "plain:fused_transform_rng": 1,
-                           "plain:fused_transform": 1, "fused_logq": 2,
-                           "draw_proposal_inputs": 1}}[route]
-        require(launched == want, "routes: K=%d n=%d took %s, not the %s route"
-                % (K, n, launched, route))
+        if variant is not None:
+            require(counts["variant:%s=%s" % (route, variant)] == 1,
+                    "routes: K=%d D=%d's %s launch did not take the %s kernel"
+                    % (K, D, route, variant))
+        refused = {"plain:fused_propose_logq": 1, "fused_logq": 2}
+        if route in ("fused_draw_transform", "fused_transform", "tensor"):
+            refused["plain:fused_transform_rng"] = 1
+        if route == "tensor":
+            refused["plain:fused_transform"] = 1
+        if route in ("fused_transform", "fused_transform_rng", "tensor"):
+            refused["draw_proposal_inputs"] = 1
+        want = dict(refused, **({} if route == "tensor" else {route: 1}))
+        require(launched == want, "routes: K=%d D=%d n=%d took %s, not the %s route"
+                % (K, D, n, launched, route))
         x64 = xT.cpu().double()
-        compare("routes K=%d log q" % K, log_q.cpu(),
+        compare("routes K=%d D=%d log q" % (K, D), log_q.cpu(),
                 core.mixture_logpdf_T(params.to("cpu", torch.float64), x64), "log", report)
-        compare("routes K=%d log p" % K, log_p.cpu(), core.mixture_logpdf_T(t64, x64), "log",
-                report)
-        if n >= ROUTE_N:
+        compare("routes K=%d D=%d log p" % (K, D), log_p.cpu(), core.mixture_logpdf_T(t64, x64),
+                "log", report)
+        if n >= 1 << 16:
             check_samples(route + " K=%d" % K, xT, lat, arrs, report)
             check_components(route + " K=%d" % K, xT, lat, arrs)
         total = counts if total is None else {c: total[c] + counts[c] for c in total}
@@ -3508,12 +3672,15 @@ def phase_pipeline(device):
     require(counts[vb_route] > 0, "pipeline: VB1 at K=%d, D=%d did not run %s"
             % (d["vb1_K"], dim, vb_route))
     print("  VB1 at K=%d, D=%d: E-steps through %s" % (d["vb1_K"], dim, vb_route))
-    # the PMC draws at K=31-32, D=40: fused_transform's record kernel
-    require(counts["fused_transform"] > 0
-            and counts["variant:fused_transform=rec"] == counts["fused_transform"],
-            "pipeline: %d of %d fused_transform launches took the record kernel"
-            % (counts["variant:fused_transform=rec"], counts["fused_transform"]))
-    print("  fused_transform: %d launches, all on the record kernel" % counts["fused_transform"])
+    # the PMC draws at K=31-32, D=40: the draw and fused_transform's route in
+    # one launch, and no launch of the two it replaces
+    require(counts["fused_draw_transform"] > 0 and counts["fused_transform"] == 0
+            and counts["draw_proposal_inputs"] == 0,
+            "pipeline: %d fused_draw_transform launches, %d fused_transform, %d "
+            "draw_proposal_inputs" % (counts["fused_draw_transform"], counts["fused_transform"],
+                                      counts["draw_proposal_inputs"]))
+    print("  fused_draw_transform: %d launches (the PMC draws), no fused_transform or "
+          "draw_proposal_inputs launch" % counts["fused_draw_transform"])
     require(counts["variant:fused_propose_logq=rec"] == counts["fused_propose_logq"],
             "pipeline: %d of %d fused_propose_logq launches took the record kernel"
             % (counts["variant:fused_propose_logq=rec"], counts["fused_propose_logq"]))
@@ -4207,6 +4374,15 @@ def replay_launch(k, name, a, label, report):
     elif name == "draw_proposal_inputs":
         check_draw(label, *fn(a["seed"], a["cumw"], a["dof"], min(a["n"], REPLAY_N), a["D"],
                               a["normals"]), a["cumw"], a["dof"], report)
+    elif name in FUSED_DRAWS:
+        n = min(a["n"], REPLAY_N)
+        out = fn(a["seed"], a["ops"], n)
+        require(bool(torch.isfinite(out[0]).all()), "%s: non-finite particles" % label)
+        differ = sum(int((p != q).sum()) for p, q in zip(out, two_launch_draw(name, a["ops"],
+                                                                              a["seed"], n)))
+        print("  %-34s %d of %d outputs differ from the two launches"
+              % (label, differ, sum(t.numel() for t in out)))
+        require(differ == 0, "%s: %d outputs differ from the two launches" % (label, differ))
     elif name == "fused_mcmc_pool":
         points, _, _, xf, ef = fn(a["seed"], a["x0T"], a["e0"], a["cholr"], a["dof_prop"],
                                   a["target"], a["n_steps"])
@@ -4846,6 +5022,7 @@ def phase_times(device, report):
             continue
         times[(name, n, "split")] = split
     times.update(draw_times(device))
+    times.update(fused_draw_times(device))
     for (name, n, route), ms in times.items():
         if route != "split":
             size = (bound(name, n)[0] if isinstance(n, tuple)
@@ -4908,6 +5085,168 @@ def draw_entry(src, replaces, checks, counts, example_counts, times):
                        {"shape": shape + " the components only",
                         "ms": times[(name, DRAW_SHAPE, "components")],
                         "bound_ms": (4 * N + 4 * K) / PEAK_BYTES * 1e3}]}
+
+
+# the shapes (K, Kt, D, N) of the fused draws' routes: fused_draw_transform
+# at the D=40 pipeline's PMC draws (DRAW_SHAPE), fused_draw_transform_rng at
+# the flagship's K=10 Student-t proposal, D=10, 2^22 particles; both are
+# timed at these and at the routes' K=11, D=40, 2^20
+FUSED_DRAW_SHAPES = {"fused_draw_transform": DRAW_SHAPE,
+                     "fused_draw_transform_rng": (10, 0, 10, N_PLAIN_MAX)}
+FUSED_TIME_SHAPES = (DRAW_SHAPE, (11, 0, 40, N_FLAGSHIP), (10, 0, 10, N_PLAIN_MAX))
+
+
+def fused_draw_times(device):
+    """Both fused draws at the FUSED_TIME_SHAPES (the D=40 pipeline's K=32
+    Student-t proposal, a K=11 Student-t one at D=40, the flagship's), CUDA
+    events, in turns (one launch, two launches, one launch), each beside the
+    two launches it replaces (``two``: draw_proposal_inputs, then
+    fused_transform or fused_transform_rng), with the seed words read from a
+    tensor (``pointer``), and at its own shape its plain version."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    problems = {DRAW_SHAPE: pmc_stage_problem(device)[0],
+                FUSED_TIME_SHAPES[1]: make_params(random_mixture(
+                    np.random.default_rng(51), 11, 40, True), device),
+                FUSED_TIME_SHAPES[2]: flagship_problem(device)[0]}
+    seed_row = torch.tensor((1, 5), dtype=torch.int64, device=device)
+    times = {}
+    for shape, params in problems.items():
+        N = shape[3]
+        ops = core._kernel_operands(params)
+        for name in FUSED_DRAWS:
+            fn = getattr(k, name)
+            times[(name, shape, "cuda")] = cuda_ms(lambda i: fn((i, 5), ops, N), reps=20)
+            times[(name, shape, "two")] = cuda_ms(
+                lambda i: two_launch_draw(name, ops, (i, 5), N), reps=20)
+            times[(name, shape, "cuda")] = (times[(name, shape, "cuda")] + cuda_ms(
+                lambda i: fn((i, 5), ops, N), reps=20)) / 2       # kernel, two, kernel
+            times[(name, shape, "pointer")] = cuda_ms(lambda i: fn(seed_row, ops, N), reps=20)
+            if shape == FUSED_DRAW_SHAPES[name]:
+                plain = getattr(k, "plain_" + name[len("fused_"):])
+                times[(name, shape, "plain")] = cuda_ms(lambda i: plain((i, 5), ops, N), reps=3,
+                                                        warmup=1)
+            print("  %s %s: %.4f ms one launch (%.4f seed by pointer), %.4f ms the two launches "
+                  "it replaces, bound %.4f ms" % (name, bound(name, shape)[0],
+                                                  times[(name, shape, "cuda")],
+                                                  times[(name, shape, "pointer")],
+                                                  times[(name, shape, "two")],
+                                                  bound(name, shape)[1]))
+        torch.cuda.empty_cache()
+    return times
+
+
+# the instantiations whose SASS sets an issue floor (fused_draw_floor): a
+# mangled-name part each, by (row, shape); the records staged, the seed by
+# value, at D = DMAX = 40, where a particle runs the whole unrolled code
+FLOOR_KERNELS = {
+    ("fused_draw_transform", DRAW_SHAPE): "25draw_transform_rec_kernelILi40ELb1ELb0ELb0E",
+    ("fused_draw_transform_rng", FUSED_TIME_SHAPES[1]):
+        "25draw_transform_rec_kernelILi40ELb1ELb0ELb1E",
+    ("fused_transform", DRAW_SHAPE): "20transform_rec_kernelILi40ELb1E",
+    ("fused_transform_rng", FUSED_TIME_SHAPES[1]): "24transform_rng_rec_kernelILi40ELb1ELb0E",
+    ("fused_propose_logq", (9, 2, 40, N_FLAGSHIP)): "23propose_logq_rec_kernelILi40ELb1ELb0E",
+    ("draw_proposal_inputs", DRAW_SHAPE): "11draw_kernelIfLb0E",
+}
+
+
+def sass_instructions(parts):
+    """``{part: instructions}``: the SASS instructions (NOPs not counted) of
+    the one kernel of the built library whose mangled name holds each part
+    (``cuobjdump -sass``).  A kernel's code is counted once: a loop's body
+    once, whatever its trips."""
+    import shutil
+
+    from pypmc_tpu_torch.ops import _build
+
+    path = _build.build_info["path"]
+    log = _build.build_info.get("log") or open(path[:-len(".so")] + ".log").read()
+    entries = set(re.findall(r"Compiling entry function '([^']+)'", log))
+    names = {}
+    for part in parts:
+        hits = sorted(e for e in entries if part in e)
+        require(len(hits) == 1, "sass: %d kernels named like %s" % (len(hits), part))
+        names[hits[0]] = part
+    # the whole library's SASS, streamed: cuobjdump's --function did not
+    # match these kernels' names
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    t0 = time.perf_counter()
+    counts, current = {}, None
+    with subprocess.Popen([cuobjdump, "-sass", path], stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            head = re.match(r"\s*Function : (\S+)", line)
+            if head:
+                current = names.get(head.group(1))
+                if current is not None:
+                    counts[current] = 0
+                continue
+            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)", line)
+            if current is not None and op and op.group(1) != "NOP":
+                counts[current] += 1
+    require(proc.returncode == 0 and len(counts) == len(parts),
+            "sass: cuobjdump exit %s, counted %s of %s" % (proc.returncode, sorted(counts), parts))
+    print("  sass: %d kernels counted in %.1f s" % (len(counts), time.perf_counter() - t0))
+    return counts
+
+
+def fused_draw_floor(device):
+    """``{(row, shape): (SASS instructions, issue floor ms)}`` of the
+    FLOOR_KERNELS instantiations: a warp issues one instruction for its 32
+    particles, an SM 4 a clock at the card's largest SM clock, so that the
+    least time for N particles is N / 32 x instructions / (4 x SMs x
+    clock).  At D = DMAX the record kernels' particle bodies are unrolled
+    and run whole (their counts are near a particle's; the thresholds'
+    compare loop and the chi-square's rounds counted once); draw_kernel's
+    normals loop and fused_propose_logq's loop over the components are
+    counted once, so theirs are lower bounds of a particle's.  Below DMAX
+    (D=10 on the DMAX 16 code) a particle skips rows of the code: no floor
+    is taken there."""
+    import torch
+
+    counts = sass_instructions(list(FLOOR_KERNELS.values()))
+    clock = max_sm_clock_ghz() * 1e9
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for key, part in FLOOR_KERNELS.items():
+        N = key[1][3]
+        floor = N / 32 * counts[part] / (4 * n_sm * clock) * 1e3
+        out[key] = (counts[part], floor)
+        print("  issue floor %-24s %-26s %6d SASS instructions (%s): %.4f ms at %d SMs x %.3f GHz"
+              % (key[0], bound(key[0], key[1])[0], counts[part], part, floor, n_sm, clock / 1e9))
+    return out
+
+
+def fused_draw_entry(name, src, replaces, checks, counts, example_counts, times, floors):
+    """The kernels JSON's entry of a fused draw: at its FUSED_DRAW_SHAPES
+    shape and at the other FUSED_TIME_SHAPES, its time beside the two launches it replaces
+    (``two_launch_ms``, the same call), its bytes bound and its issue floor
+    (fused_draw_floor); max_abs_err the largest |fused - two launches| of
+    the bit-equality checks (0 where they hold)."""
+    own = FUSED_DRAW_SHAPES[name]
+    bits = [r for r in checks if "differ" in r]
+    require(bits, "%s: no check against the two launches" % name)
+    worst = max(bits, key=lambda r: r["max_abs_err"])
+
+    def row(shape):
+        sh, bound_ms, bound_by = bound(name, shape)
+        out = {"shape": sh + " Student-t", "ms": times[(name, shape, "cuda")],
+               "two_launch_ms": times[(name, shape, "two")],
+               "pointer_ms": times[(name, shape, "pointer")], "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if (name, shape) in floors:
+            out.update(sass_instructions=floors[(name, shape)][0],
+                       issue_floor_ms=floors[(name, shape)][1])
+        return out
+
+    main = row(own)
+    return dict(main, name=name, route="cuda", source=src, replaces=replaces, fuses=FUSES[name],
+                launches=counts[name], max_abs_err=worst["max_abs_err"],
+                plain_ms=times[(name, own, "plain")], library_ms=None,
+                max_abs_err_tol=0.0, max_abs_err_output=worst["output"],
+                bit_checks=len(bits), launches_examples=example_counts.get(name, 0),
+                shapes=[row(sh) for sh in FUSED_TIME_SHAPES if sh != own])
 
 
 def draw_rows(device, reps=20):
@@ -5248,6 +5587,12 @@ def kernel_work(name, shape=None):
         # and the scale; the K - 1 compares, ~2 operations a normal and ~20
         # for the chi-square
         "draw_proposal_inputs": ((4 + 4 * (D + 1)) * N + 8 * K, N * (K - 1 + 2 * D + 20)),
+        # reads the K draw records, thresholds and dofs, writes the
+        # component and x; the transform's operations (the draw's integer
+        # and transcendental work is the issue floor's, fused_draw_floor)
+        "fused_draw_transform": (4 * (D + 1) * N + 4 * K * (D + D * (D + 1) // 2 + 2), N * draw),
+        "fused_draw_transform_rng": (4 * (D + 1) * N + 4 * K * (D + D * (D + 1) // 2 + 2),
+                                     N * draw),
     }
     exps = 2 * K * N if name in BLOCKED_SHAPES else None
     return ("K=%d Kt=%d D=%d N=%d" % (K, Kt, D, N),) + work[name] + (exps,)
@@ -5303,12 +5648,12 @@ REGISTER_KERNELS = {"blocked_reg_stats_kernel": 16, "step_draw_kernel": 16, "den
                     "logq_kernel": 64, "maha_kernel": 64, "rho_kernel": 64,
                     "transform_rec_kernel": 64, "transform_rng_rec_kernel": 64,
                     "propose_logq_rec_kernel": 64, "mcmc_pool_kernel": 64,
-                    "mcmc_pool_warp_kernel": 64}
+                    "mcmc_pool_warp_kernel": 64, "draw_transform_rec_kernel": 64}
 # the draws' record kernels (DMAX 8 to 64, records staged or not: two
 # instantiations a DMAX) keep z and x in registers: no spill and no stack
 # frame, as the record kernels of the evaluations
 DRAW_RECORD_KERNELS = ("transform_rec_kernel", "transform_rng_rec_kernel",
-                       "propose_logq_rec_kernel")
+                       "propose_logq_rec_kernel", "draw_transform_rec_kernel")
 RECORD_KERNELS = ("logq_kernel", "maha_kernel", "rho_kernel") + DRAW_RECORD_KERNELS
 
 
@@ -5407,6 +5752,12 @@ def phase_build():
             want = _build.draw_plan(kernel, K, D, Kt)
             require(got == want, "plan differs from the kernel's (%s, K=%d, Kt=%d, D=%d): %s, %s"
                     % (kernel, K, Kt, D, got, want))
+        plan = (ctypes.c_int * 4)()
+        smem = lib.pmc_draw_transform_plan(K, D, plan)
+        got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3], smem)
+        require(got == _build.draw_transform_plan(K, D),
+                "plan differs from the kernel's (the fused draws, K=%d, D=%d): %s, %s"
+                % (K, D, got, _build.draw_transform_plan(K, D)))
         launchers = [("fused_logq", lib.pmc_logq_smem_bytes(K, D)),
                      ("fused_propose_logq", draw_smem["fused_propose_logq"]),
                      ("fused_pmc_stats", lib.pmc_pmc_stats_smem_bytes(K, D)),
@@ -5479,15 +5830,21 @@ def phase_build():
     # staged: fused_transform at the D=40 pipeline's K=32 (two blocks an SM)
     # and the flagship; fused_transform_rng at the flagship and the K=11,
     # D=40 route; fused_propose_logq at the flagship (K=10, Kt=2) and the
-    # widest K the rule admits at D=40 (K=9, Kt=2)
+    # widest K the rule admits at D=40 (K=9, Kt=2); the fused draws where
+    # propose_T takes them for those two transforms
     for kernel, K, Kt, D, per_sm in (
             ("fused_transform", 32, 0, 40, lib.pmc_transform_per_sm(32, 40, 0)),
             ("fused_transform", 10, 0, 10, lib.pmc_transform_per_sm(10, 10, 0)),
             ("fused_transform_rng", 10, 0, 10, lib.pmc_transform_per_sm(10, 10, 1)),
             ("fused_transform_rng", 11, 0, 40, lib.pmc_transform_per_sm(11, 40, 1)),
             ("fused_propose_logq", 10, 2, 10, lib.pmc_propose_per_sm(10, 2, 10)),
-            ("fused_propose_logq", 9, 2, 40, lib.pmc_propose_per_sm(9, 2, 40))):
-        plan = _build.draw_plan(kernel, K, D, Kt)
+            ("fused_propose_logq", 9, 2, 40, lib.pmc_propose_per_sm(9, 2, 40)),
+            ("fused_draw_transform", 32, 0, 40, lib.pmc_draw_transform_per_sm(32, 40, 0)),
+            ("fused_draw_transform", 10, 0, 10, lib.pmc_draw_transform_per_sm(10, 10, 0)),
+            ("fused_draw_transform_rng", 10, 0, 10, lib.pmc_draw_transform_per_sm(10, 10, 1)),
+            ("fused_draw_transform_rng", 11, 0, 40, lib.pmc_draw_transform_per_sm(11, 40, 1))):
+        plan = (_build.draw_transform_plan(K, D) if kernel in FUSED_DRAWS
+                else _build.draw_plan(kernel, K, D, Kt))
         print("  %s K=%d Kt=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
               "draw records of %d floats staged %s, %d B of shared memory a block"
               % (kernel, K, Kt, D, plan[0], per_sm, plan[3], per_sm * plan[3] // 32, plan[2],
@@ -5583,6 +5940,7 @@ def main():
 
     phase("times (%s)" % card)
     times = phase_times(device, report)
+    floors = fused_draw_floor(device)
     phase("end")
 
     kernels = []
@@ -5593,8 +5951,16 @@ def main():
         if kname == "solve_dofs":
             kernels.append(solve_dofs_entry(src, replaces, checks, counts, example_counts, times))
             continue
+        # the SASS issue floors of its instantiations at the shapes FLOOR_KERNELS names
+        issue_floors = [{"shape": bound(row, sh)[0], "sass_instructions": c, "issue_floor_ms": f}
+                        for (row, sh), (c, f) in floors.items() if row == kname]
+        if kname in FUSED_DRAWS:
+            kernels.append(fused_draw_entry(kname, src, replaces, checks, counts, example_counts,
+                                            times, floors))
+            continue
         if kname == "draw_proposal_inputs":
-            kernels.append(draw_entry(src, replaces, checks, counts, example_counts, times))
+            kernels.append(dict(draw_entry(src, replaces, checks, counts, example_counts, times),
+                                issue_floors=issue_floors))
             continue
         # the kernel-vs-plain comparison on the same inputs; for the pool,
         # whose points are a random walk, the kernel's and the plain pool's
@@ -5661,6 +6027,8 @@ def main():
                                for sh in POOL_SHAPES + POOL_SWEEP]
         if not entry["shapes"]:
             del entry["shapes"]
+        if issue_floors:
+            entry["issue_floors"] = issue_floors
         kernels.append(entry)
     print("ms and plain_ms at the shape given, ms_slice_n at N=%d; max_abs_err is |kernel - "
           "plain| of the kernel's check nearest its tolerance (for fused_transform_rng, a "
@@ -5688,7 +6056,14 @@ def main():
           "Student-t, float32 (shapes: float64, and the components only), plain_ms its plain "
           "version (torch.rand, torch.randn and the chi-square, which it replaced on the "
           "card), its max_abs_err a frequency's difference from the plain version's or a "
-          "normals' mean, against 6 standard errors; "
+          "normals' mean, against 6 standard errors; fused_draw_transform (at K=32, D=40, "
+          "N=2^20, Student-t) and fused_draw_transform_rng (at K=10, D=10, N=2^22): "
+          "two_launch_ms the two launches each replaces (draw_proposal_inputs, then "
+          "fused_transform or fused_transform_rng), timed in turns with it, max_abs_err the "
+          "largest |one launch - two launches| of bit_checks bit-equality checks, "
+          "issue_floor_ms N / 32 warps x sass_instructions / (4 x SMs x the largest SM clock) "
+          "(issue_floors: the same for the record kernels and draw_kernel it replaces, a loop's "
+          "body counted once); "
           "library_ms null: no one PyTorch call computes these functions"
           % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
     print(card)

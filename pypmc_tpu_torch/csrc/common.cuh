@@ -212,22 +212,26 @@ __device__ __forceinline__ uint32_t seed_key_word(int i) {
   return v;
 }
 
-struct SharedKey {
+// FLIP is xored into the second word: the stream of another draw keyed by
+// the same seed (draw.cu's), from the words stored once
+template <uint32_t FLIP = 0>
+struct SharedKeyT {
   __device__ __forceinline__ uint32_t k0() const { return seed_key_word(0); }
-  __device__ __forceinline__ uint32_t k1() const { return seed_key_word(1); }
+  __device__ __forceinline__ uint32_t k1() const { return seed_key_word(1) ^ FLIP; }
 };
+using SharedKey = SharedKeyT<>;
 
 // Particle n's stream in a kernel instantiated for the words by value
 // (SEED_PTR false: keyed by the kernel parameters, as free as constants)
 // or from a seed tensor (true: SharedKey, after store_seed_key and a
-// barrier); the key's loads cost an issue-bound draw a few percent, so
-// only a replayed launch pays them
-template <bool SEED_PTR>
+// barrier), bits FLIP of the second word flipped; the key's loads cost an
+// issue-bound draw a few percent, so only a replayed launch pays them
+template <bool SEED_PTR, uint32_t FLIP = 0>
 __device__ __forceinline__ auto particle_stream(Seed seed, uint64_t n) {
   if constexpr (SEED_PTR) {
-    return PhiloxT<SharedKey>({}, n);
+    return PhiloxT<SharedKeyT<FLIP>>({}, n);
   } else {
-    return Philox(seed.s0, seed.s1, n);
+    return Philox(seed.s0, seed.s1 ^ FLIP, n);
   }
 }
 

@@ -280,28 +280,33 @@ def propose_T(params: MixtureParams, key, n: int):
     seed table) is read on the card, never copied to the host, so a CUDA
     graph replaying the step draws anew.  On the CPU they come from its
     plain version, a generator seeded with the words.  The transform takes
-    the JAX package's routes (``pypmc_tpu/density/core.py:308-314``):
-    kernel ``fused_transform_rng`` (normals and Student-t scale drawn in
-    the kernel, its stream keyed by the words with bit 0 of the second
-    flipped) where a float32 mixture fits its rule at 1024 particles a tile
-    and n >= 1024; else kernel ``fused_transform`` on the drawn normals and
-    scales (the chi-square clamped to ``tiny``) where it fits at 128
-    particles; else the transform as tensor code accumulated one Cholesky
-    column at a time (float64 on the card too).  ``key`` is an int seed, a
-    ``torch.Generator`` (advanced by two seed words) or two seed words (a
-    tuple, or a 2-word int64 tensor on the mixture's device)."""
+    the JAX package's routes (``pypmc_tpu/density/core.py:308-314``,
+    ``ops.kernels.proposal_route``): kernel ``fused_transform_rng``
+    (normals and Student-t scale drawn in the kernel, its stream keyed by
+    the words with bit 0 of the second flipped) where a float32 mixture
+    fits its rule at 1024 particles a tile and n >= 1024; else kernel
+    ``fused_transform`` on the drawn normals and scales (the chi-square
+    clamped to ``tiny``) where it fits at 128 particles; else the transform
+    as tensor code accumulated one Cholesky column at a time (float64 on
+    the card too).  Up to D = 64, where those transforms are record
+    kernels, the draw and the transform are one launch,
+    ``fused_draw_transform_rng`` or ``fused_draw_transform``: the same
+    draws bit for bit, with no normals in device memory.  ``key`` is an int
+    seed, a ``torch.Generator`` (advanced by two seed words) or two seed
+    words (a tuple, or a 2-word int64 tensor on the mixture's device)."""
     K, D = params.K, params.dim
     seed = _rng.seed_words(key)
-    like = params.means
-    in_kernel = _k.gate("fused_transform_rng", K, D, n=n, like=like)
+    route = _k.proposal_route(K, D, n, like=params.means)
+    if route in ("fused_draw_transform", "fused_draw_transform_rng"):
+        return getattr(_k, route)(seed, _kernel_operands(params), n)
     dof = None if params.dof is None else params.dof.contiguous()
     latent, zT, scale = _k.draw_proposal_inputs(
         seed, _cumulative_weights(params.weights).contiguous(), dof, n, D,
-        normals=not in_kernel)
-    if in_kernel:
+        normals=route != "fused_transform_rng")
+    if route == "fused_transform_rng":
         return _k.fused_transform_rng(_rng.flip_bit(seed, 0), latent,
                                       _kernel_operands(params)), latent
-    if _k.gate("fused_transform", K, D, n=n, like=like):
+    if route == "fused_transform":
         return _k.fused_transform(zT, latent, scale, _kernel_operands(params)), latent
     # the tensor path: gather one (D, n) Cholesky column panel at a time
     # rather than an (n, D, D) table

@@ -25,7 +25,10 @@ beside, and otherwise read them from device memory.  The record kernels of
 the draws stage each component's mean and lower triangle where they fit
 half an SM (``fused_propose_logq``'s also both mixtures' evaluation
 records), and otherwise read them from device memory
-(:func:`transform_plan`, :func:`propose_plan`).  The K-blocked kernels walk the components in
+(:func:`transform_plan`, :func:`propose_plan`); so do those of
+``fused_draw_transform`` and ``fused_draw_transform_rng``, with the K
+thresholds and dofs after the records (:func:`draw_transform_plan`), which
+exist to D = 64 only.  The K-blocked kernels walk the components in
 chunks sized from shared memory (:func:`blocked_plan`), and so do the
 record kernels up to D = 64 (:func:`eval_plan`), so only D limits them.
 :func:`limit_reason` names the limit a shape breaks, and the wrappers raise
@@ -47,7 +50,7 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE
            "DRAW_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
            "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
-           "draw_plan", "DRAWS", "pool_variant",
+           "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
            "check_limits", "load", "build_info"]
 
@@ -316,6 +319,16 @@ def propose_plan(K, Kt, D):
     and the target's evaluation part."""
     return _record_plan(D, (K + Kt) * _rec_floats(D) + K * (_transform_rec_floats(D) + 1),
                         _operand_floats("fused_propose_logq", K, D, Kt))
+
+
+def draw_transform_plan(K, D):
+    """The plan of ``fused_draw_transform`` and ``fused_draw_transform_rng``
+    (propose_T's draw and transform in one launch) for (K, D), as
+    :func:`transform_plan`'s; mirrors ``csrc/draw.cu`` ``draw_transform_plan``
+    (:func:`_record_plan`): the record kernel stages each component's mean
+    and lower triangle, then the K thresholds and the K dofs.  Only its
+    ``"rec"`` plan (D <= 64) has a kernel."""
+    return _record_plan(D, K * (_transform_rec_floats(D) + 2), 0)
 
 
 def draw_plan(kernel, K, D, Kt=0):
@@ -618,6 +631,9 @@ def _declare(lib):
         # s0, s1, seed_words, cumw, dof (null: Gaussian), latent, zT, scale
         # (both null: no normals), N, K, D, is_double, n_blocks, stream
         "pmc_draw_proposal_inputs": [U, U, P, P, P, P, P, P, L, I, I, I, I, P],
+        # s0, s1, seed_words, mix, latent, xT, N, K, D, student_t, rng (1:
+        # fused_draw_transform_rng's streams), n_blocks, stream
+        "pmc_fused_draw_transform": [U, U, P, P, P, P, L, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -639,7 +655,8 @@ def _declare(lib):
     # the record kernels' blocks an SM (0 where the plan takes another
     # kernel): K, D, rng (fused_transform_rng's, else fused_transform's);
     # K, Kt, D (fused_propose_logq's)
-    for name in ("pmc_transform_per_sm", "pmc_propose_per_sm"):
+    # K, D, rng (fused_draw_transform_rng's, else fused_draw_transform's)
+    for name in ("pmc_transform_per_sm", "pmc_propose_per_sm", "pmc_draw_transform_per_sm"):
         getattr(lib, name).argtypes = [I, I, I]
         getattr(lib, name).restype = ctypes.c_int
     lib.pmc_is_pmc_step_smem_bytes.argtypes = [I, I, I]   # K, Kt, D
@@ -647,6 +664,7 @@ def _declare(lib):
     lib.pmc_dense_plan.argtypes = [I, I, I, I, P]
     lib.pmc_transform_plan.argtypes = [I, I, I, P]     # K, D, rng, int out[4]
     lib.pmc_propose_plan.argtypes = [I, I, I, P]       # K, Kt, D, int out[4]
+    lib.pmc_draw_transform_plan.argtypes = [I, I, P]   # K, D, int out[4]
     for name in BLOCKED:   # K, D -> statistics-pass blocks an SM holds
         fn = getattr(lib, "pmc_%s_per_sm" % name[len("fused_"):])
         fn.argtypes = [I, I]
@@ -669,7 +687,8 @@ def _declare(lib):
     for name in ("pmc_stats_smem_bytes",
                  "pmc_is_pmc_step_blocked_smem_bytes", "pmc_step_draw_smem_bytes",
                  "pmc_mcmc_pool_smem_bytes", "pmc_is_pmc_step_smem_bytes",
-                 "pmc_dense_plan", "pmc_transform_plan", "pmc_propose_plan") + pairs:
+                 "pmc_dense_plan", "pmc_transform_plan", "pmc_propose_plan",
+                 "pmc_draw_transform_plan") + pairs:
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
 

@@ -20,7 +20,20 @@ wrapper                             CUDA source                      replaces (P
                                                                      ``mix_adapt/pmc.py:349``
 :func:`draw_proposal_inputs`        ``csrc/draw.cu``                 ``jax.random`` in
                                                                      ``density/core.py:293``
+:func:`fused_draw_transform`        ``csrc/draw.cu``                 ``jax.random`` in
+                                                                     ``density/core.py:293``
+                                                                     and ``:1014``
+:func:`fused_draw_transform_rng`    ``csrc/draw.cu``                 ``jax.random`` in
+                                                                     ``density/core.py:293``
+                                                                     and ``:881``
 ==================================  ===============================  ==========================
+
+``density.core.propose_T`` takes the JAX package's transform routes
+(:func:`proposal_route`); where the route's transform is a record kernel
+(D <= 64), its draw and transform are one launch, :func:`fused_draw_transform`
+or :func:`fused_draw_transform_rng`, each bit for bit the two launches it
+replaces (:func:`draw_proposal_inputs`, then :func:`fused_transform` or
+:func:`fused_transform_rng`), which past D = 64 still run.
 
 Dispatch has two gates.  The size gate, :func:`fits`, is asked by every
 ``"auto"`` dispatcher of the package before it calls a wrapper.  It is the
@@ -92,7 +105,9 @@ __all__ = ["MixtureOperands", "fits", "refusal", "gate", "elects_blocked", "rout
            "plain_pmc_stats_blocked", "plain_vb_estep_blocked",
            "plain_is_pmc_step_blocked", "plain_transform", "plain_transform_rng",
            "plain_mcmc_pool", "solve_dofs", "plain_solve_dofs", "draw_proposal_inputs",
-           "plain_draw_proposal_inputs", "mcmc_step_chunk",
+           "plain_draw_proposal_inputs", "fused_draw_transform", "fused_draw_transform_rng",
+           "plain_draw_transform", "plain_draw_transform_rng", "proposal_route",
+           "mcmc_step_chunk",
            "launch_counts", "reset_launch_counts", "add_launch_counts"]
 
 
@@ -294,6 +309,27 @@ def gate(kernel, K, D, Kt=0, **rule) -> bool:
         return True
     _plain_routes[kernel] += 1
     return False
+
+
+def proposal_route(K, D, n, like=None):
+    """The route of ``density.core.propose_T``'s draw of ``n`` particles from
+    a (K, D) mixture, operands ``like`` (as :func:`refusal`'s): where the gate
+    takes ``fused_transform_rng`` or else ``fused_transform`` (the JAX
+    package's routes), ``"fused_draw_transform_rng"`` or
+    ``"fused_draw_transform"`` where their plan is the record kernel (D <=
+    64: the draw and the transform in one launch), else that transform's
+    name (:func:`draw_proposal_inputs`, then the transform: two launches);
+    None where the gate refuses both (:func:`draw_proposal_inputs` and the
+    tensor transform).  Counts the refusals as :func:`gate` does."""
+    if gate("fused_transform_rng", K, D, n=n, like=like):
+        route = "fused_transform_rng"
+    elif gate("fused_transform", K, D, n=n, like=like):
+        route = "fused_transform"
+    else:
+        return None
+    if _build.draw_transform_plan(K, D)[0] == "rec":
+        return route.replace("fused_", "fused_draw_", 1)
+    return route
 
 
 def use_kernel(*tensors) -> bool:
@@ -627,6 +663,26 @@ def plain_draw_proposal_inputs(seed, cumw, dof, n: int, D: int, normals: bool):
     dof_n = dof[latent.long()]
     chi2 = torch.clamp(chisquare(gen, dof_n, (n,)), min=tiny(dtype))
     return latent, zT, torch.sqrt(dof_n / chi2)
+
+
+def plain_draw_transform(seed, ops: MixtureOperands, n: int):
+    """Plain version of :func:`fused_draw_transform`: the two calls it
+    replaces, :func:`plain_draw_proposal_inputs` with the normals (the
+    mixture's thresholds and, for Student-t, its dofs), then
+    :func:`plain_transform` -> ``(xT (D, n), latent (n,) int32)``."""
+    f = ops.fields()
+    latent, zT, scale = plain_draw_proposal_inputs(
+        seed, f["cumw"], f["dof"] if ops.student_t else None, n, ops.dim, True)
+    return plain_transform(zT, latent, scale, ops), latent
+
+
+def plain_draw_transform_rng(seed, ops: MixtureOperands, n: int):
+    """Plain version of :func:`fused_draw_transform_rng`: the two calls it
+    replaces, :func:`plain_draw_proposal_inputs` without the normals, then
+    :func:`plain_transform_rng` keyed by the words with bit 0 of the second
+    flipped -> ``(xT (D, n), latent (n,) int32)``."""
+    latent = plain_draw_proposal_inputs(seed, ops.fields()["cumw"], None, n, ops.dim, False)[0]
+    return plain_transform_rng(_rng.flip_bit(seed, 0), latent, ops), latent
 
 
 def plain_propose(gen, ops: MixtureOperands, n: int):
@@ -1245,11 +1301,14 @@ def _transform_operands(ops: MixtureOperands):
 def _rec_per_sm(kernel, K, D, Kt, index):
     """Blocks of a draw kernel's record kernel for (K, D) (and a Kt-component
     target) that one SM of CUDA device ``index`` holds at once (the library's
-    occupancy of its instantiation and shared memory)."""
+    occupancy of its instantiation and shared memory); the fused draws'
+    kernel (``fused_draw_transform``, ``fused_draw_transform_rng``) too."""
     with torch.cuda.device(index):
         lib = _build.load()
+        rng = int(kernel.endswith("_rng"))
         per_sm = (lib.pmc_propose_per_sm(K, Kt, D) if kernel == "fused_propose_logq"
-                  else lib.pmc_transform_per_sm(K, D, int(kernel == "fused_transform_rng")))
+                  else lib.pmc_draw_transform_per_sm(K, D, rng)
+                  if kernel.startswith("fused_draw_") else lib.pmc_transform_per_sm(K, D, rng))
     if per_sm < 1:
         raise RuntimeError("%s: K=%d, D=%d fits no block on an SM" % (kernel, K, D))
     return per_sm
@@ -1475,11 +1534,61 @@ def draw_proposal_inputs(seed, cumw, dof, n: int, D: int, normals: bool):
     return latent, zT, scale
 
 
+def _launch_draw_transform(fn, rng, seed, ops: MixtureOperands, n: int):
+    """One launch of ``csrc/draw.cu``'s draw_transform_rec_kernel for
+    ``fn``, :func:`fused_draw_transform` or (``rng``)
+    :func:`fused_draw_transform_rng`, or on the CPU its plain version."""
+    K, D = ops.K, ops.dim
+    if _build.draw_transform_plan(K, D)[0] != "rec":
+        raise ValueError("%s: D=%d is past its record kernel's D <= %d; propose_T draws with "
+                         "draw_proposal_inputs and transforms after it there"
+                         % (fn.__name__, D, _build._REC_D_MAX))
+    if not use_kernel(ops.packed):
+        return (plain_draw_transform_rng if rng else plain_draw_transform)(seed, ops, n)
+    _check_operands(ops)
+    device = ops.packed.device
+    lib = _build.load()
+    latent = torch.empty((n,), dtype=torch.int32, device=device)
+    xT = torch.empty((D, n), dtype=torch.float32, device=device)
+    n_blocks = _blocks(device, n, _rec_per_sm(fn.__name__, K, D, 0, device.index),
+                       _build.EVAL_THREADS)
+    with torch.cuda.device(device):
+        err = lib.pmc_fused_draw_transform(
+            *_seed_args(seed, device), ops.packed.data_ptr(), latent.data_ptr(), xT.data_ptr(),
+            n, K, D, int(ops.student_t), int(rng), n_blocks, _stream(device))
+    _raise_on(err, fn.__name__)
+    fn.launches += 1
+    return xT, latent
+
+
+def fused_draw_transform(seed, ops: MixtureOperands, n: int):
+    """``n`` draws from the packed mixture as :func:`draw_proposal_inputs`
+    (with the normals), then :func:`fused_transform`, draw them, in one
+    launch (kernel ``csrc/draw.cu``, D <= 64; float32 on the card): the
+    components, normals and Student-t scales of draw_proposal_inputs'
+    stream, kept in registers, transformed on the record kernel's records
+    -> ``(xT (D, n), latent (n,) int32)``, the two launches' outputs bit for
+    bit.  ``seed``: as :func:`fused_propose_logq`'s (a seed tensor is read
+    in the kernel).  Past D = 64 it raises."""
+    return _launch_draw_transform(fused_draw_transform, False, seed, ops, n)
+
+
+def fused_draw_transform_rng(seed, ops: MixtureOperands, n: int):
+    """``n`` draws from the packed mixture as :func:`draw_proposal_inputs`
+    (the components only), then :func:`fused_transform_rng` keyed by the
+    words with bit 0 of the second flipped, draw them, in one launch (kernel
+    ``csrc/draw.cu``, D <= 64; float32 on the card): ``(xT (D, n), latent
+    (n,) int32)``, the two launches' outputs bit for bit; the flip is made in
+    the kernel, so a seed tensor is read as it is.  Past D = 64 it
+    raises."""
+    return _launch_draw_transform(fused_draw_transform_rng, True, seed, ops, n)
+
+
 _WRAPPERS = (fused_logq, fused_propose_logq, fused_pmc_stats, fused_is_pmc_step,
              fused_maha, fused_rho, fused_vb_estep, fused_transform,
              fused_transform_rng, fused_mcmc_pool, fused_pmc_stats_blocked,
              fused_vb_estep_blocked, fused_is_pmc_step_blocked, solve_dofs,
-             draw_proposal_inputs)
+             draw_proposal_inputs, fused_draw_transform, fused_draw_transform_rng)
 
 
 _variant_counts = {}

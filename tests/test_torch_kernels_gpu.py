@@ -295,6 +295,11 @@ def test_pmc_scan_equals_the_loop(cuda, which):
     chip_smoke.scan_case(cuda, *chip_smoke.scan_problems(cuda)[which])
 
 
+@pytest.mark.parametrize("case", chip_smoke.FUSED_DRAW_CASES)
+def test_fused_draws_equal_the_two_launches(cuda, case):
+    chip_smoke.fused_draw_case(case, cuda, [])
+
+
 @pytest.mark.parametrize("case", chip_smoke.DRAW_CASES)
 def test_draw_against_plain_version(cuda, case):
     chip_smoke.draw_case(case, cuda, [])

@@ -49,7 +49,7 @@ def calls(monkeypatch):
     here."""
     seen = []
     for name in ("fused_transform", "fused_transform_rng", "fused_logq", "fused_mcmc_pool",
-                 "fused_propose_logq"):
+                 "fused_propose_logq", "fused_draw_transform", "fused_draw_transform_rng"):
         def spy(*args, _name=name, _fn=getattr(kernels, name), **kwargs):
             seen.append(_name)
             return _fn(*args, **kwargs)
@@ -149,8 +149,11 @@ def test_plain_transform_rng_distribution(student_t):
 ])
 def test_propose_T_routes_as_the_jax_package(calls, K, D, n, route):
     """propose_T takes the JAX package's routes (a refusal counted in
-    launch_counts as ``plain:<kernel>``), and every route draws each
-    component's particles around its mean."""
+    launch_counts as ``plain:<kernel>``), each transform's up to D = 64 as
+    one call that also draws (``fused_draw_transform_rng`` for
+    ``fused_transform_rng``, ``fused_draw_transform`` for
+    ``fused_transform``), and every route draws each component's particles
+    around its mean."""
     rng = np.random.default_rng(K + D)
     means, covs, w, _ = random_mixture(rng, K, D)
     means *= 3.0
@@ -162,7 +165,7 @@ def test_propose_T_routes_as_the_jax_package(calls, K, D, n, route):
             "fused_transform": {"plain:fused_transform_rng": 1},
             "fused_transform_rng": {}}[route]
     assert counts == want
-    assert calls == ([] if route == "tensor" else [route])
+    assert calls == ([] if route == "tensor" else [route.replace("fused_", "fused_draw_")])
     assert tuple(xT.shape) == (D, n) and lat.dtype == torch.int32
     x, lat = xT.numpy(), lat.numpy()
     for k in np.unique(lat):
@@ -183,14 +186,14 @@ def test_propose_logq_refusal_reaches_the_transform_kernel(calls):
     xT, lat, log_q, log_p = core.propose_logq_T(params, 1, 2048, target)
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     assert counts == {"plain:fused_propose_logq": 1}
-    assert calls == ["fused_transform_rng", "fused_logq", "fused_logq"]
+    assert calls == ["fused_draw_transform_rng", "fused_logq", "fused_logq"]
     torch.testing.assert_close(log_q, core.mixture_logpdf_T(params, xT))
 
 
 def test_mixture_propose_with_a_seed_reaches_the_kernels(calls):
     mix = td.create_t_mixture(np.zeros((2, 3)) + [[0.0], [5.0]], [np.eye(3)] * 2, [6.0, 9.0])
     x, lat = mix.propose(4096, rng=5, trace=True, shuffle=False)
-    assert calls == ["fused_transform_rng"]
+    assert calls == ["fused_draw_transform_rng"]
     assert isinstance(x, np.ndarray) and x.shape == (4096, 3)
     assert abs(x[lat == 1].mean() - 5.0) < 0.1
 

@@ -293,9 +293,10 @@ class StandInCard:
 
 
 def wide_problem():
-    """A D=40 step past fused_propose_logq's rule (12 + 2 components): its
-    components and normals come from draw_proposal_inputs, below 1024
-    particles the tensor transform, above it fused_transform."""
+    """A D=40 step past fused_propose_logq's rule (12 + 2 components): below
+    1024 particles its components and normals come from draw_proposal_inputs
+    and the tensor transform, above it from fused_draw_transform (the draw
+    and fused_transform's route in one call)."""
     rng = np.random.default_rng(5)
     tp = core.make_mixture(rng.normal(0, 1, (12, 40)), np.array([np.eye(40)] * 12))[0]
     tt = core.make_mixture(rng.normal(0, 1, (2, 40)), np.array([np.eye(40) * 2] * 2))[0]
@@ -327,9 +328,10 @@ def test_replays_read_each_chunks_seeds(monkeypatch, n):
 def test_a_draw_no_kernel_makes_is_not_captured(monkeypatch, caplog):
     """No draw is left that no kernel makes: the D=40 step past
     fused_propose_logq's rule takes its components and normals from
-    draw_proposal_inputs, so the body in strict mode draws, and through the
-    stand-in card the run at 1000 and at 3000 particles (the tensor and the
-    fused_transform routes) is captured and replayed, with no warning, and
+    draw_proposal_inputs or fused_draw_transform, so the body in strict mode
+    draws, and through the stand-in card the run at 1000 and at 3000
+    particles (the tensor and the fused_transform routes) is captured and
+    replayed, with no warning, and
     equals the loop bit for bit, with its launches."""
     tp, tt = wide_problem()
     settings = dict(n_local=1000, mesh=None, rb=True, steps=0, mindof=1e-5, maxdof=1e3,
@@ -380,9 +382,10 @@ def test_only_a_gloo_mesh_is_uncapturable(monkeypatch):
 
 def test_a_seed_tensor_draws_what_its_words_draw():
     """The plain versions of the kernels a replayed step seeds from its
-    table (the three draws of a step, the transform's and the proposal
-    inputs'), and propose_T on both of its transform routes, draw from a
-    2-word int64 tensor what they draw from the same words as ints."""
+    table (the three draws of a step, the transform's, the proposal
+    inputs' and the two fused draws of propose_T), and propose_T on both of
+    its transform routes, draw from a 2-word int64 tensor what they draw
+    from the same words as ints."""
     rng = np.random.default_rng(6)
     tp = core.make_mixture(rng.normal(0, 1, (3, 4)), np.array([np.eye(4)] * 3), None,
                            np.full(3, 6.0))[0]
@@ -397,6 +400,8 @@ def test_a_seed_tensor_draws_what_its_words_draw():
                                                                    dtype=torch.int32), ops),
              lambda s: kernels.draw_proposal_inputs(s, ops.fields()["cumw"],
                                                     ops.fields()["dof"], 500, 4, True),
+             lambda s: kernels.fused_draw_transform(s, ops, 500),
+             lambda s: kernels.fused_draw_transform_rng(s, ops, 500),
              lambda s: core.propose_T(tp, s, 1500),
              lambda s: core.propose_T(tp, s, 500)]
     for call in calls:
