@@ -1329,6 +1329,82 @@ WIDE_CASES = [
 ]
 
 
+def mixture_particles(ops, N, seed, device, spread=1.5):
+    """N particles from the live components of a packed mixture, each
+    ``mu_k + spread L_k z`` with z standard normal (torch.Generator on the
+    card, ``seed``), components drawn by weight."""
+    import torch
+
+    f = ops.fields()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    comp = torch.multinomial(f["weights"], N, replacement=True, generator=gen)
+    z = torch.randn((ops.dim, N), generator=gen, device=device)
+    xT = torch.empty_like(z)
+    for kk in range(ops.K):
+        idx = torch.nonzero(comp == kk).squeeze(1)
+        if idx.numel():
+            xT[:, idx] = f["mu"][kk][:, None] + spread * (f["L"][kk] @ z[:, idx])
+    return xT
+
+
+def tiled_case(case, device, report):
+    """fused_maha on lower (U = L^{-1}) and upper (the VB E-step's) operands
+    and fused_logq on a Gaussian mixture and on a Student-t one with a dead
+    component (K > 1), past the record kernels' D = 64: each through the
+    kernel the wrapper elects (the tiled kernel, counted as
+    ``variant:...=tiled``) against its float64 plain version on the same
+    particles (TOL "maha" and "log"), and equal on a second run."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, seed = case
+    rng = np.random.default_rng(seed)
+    label = "tiled K=%d D=%d N=%d" % (K, D, N)
+    print("case " + label)
+    for student, dead in ((False, False), (True, K > 1)):
+        params = make_params(random_mixture(rng, K, D, student, dead), device)
+        ops = core._kernel_operands(params)
+        ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+        xT = mixture_particles(ops, N, seed, device)
+        x64 = xT.double()
+        tag = "%s t" % label if student else label
+        runs = [("fused_logq", lambda v: k.fused_logq(xT, ops, variant=v),
+                 k.plain_logq(x64, ops64), "log")]
+        if not student:
+            A, m, _ = vb_operands(params)
+            for side, a, mm in (("lower", ops.fields()["U"], ops.fields()["mu"]), ("upper", A, m)):
+                runs.append(("fused_maha " + side,
+                             lambda v, a=a, mm=mm: k.fused_maha(xT, a, mm, variant=v),
+                             k.plain_maha(x64, a.double(), mm.double()), "maha"))
+        for name, call, ref, kind in runs:
+            wrapper = name.split()[0]
+            k.reset_launch_counts()
+            got = call(None)
+            counts = k.launch_counts()
+            require(counts["variant:%s=tiled" % wrapper] == counts[wrapper] == 1,
+                    "%s %s: the elected launch was not the tiled kernel: %s"
+                    % (tag, name, {n: c for n, c in counts.items() if c}))
+            compare("%s %s" % (tag, name), got, ref, kind, report)
+            require(bool(torch.equal(got, call(None))),
+                    "%s %s: one input gave two outputs" % (tag, name))
+        if dead:
+            require(bool(torch.isfinite(k.fused_logq(xT, ops)).all()),
+                    "%s: a dead component made log q non-finite" % tag)
+        del xT, x64, runs, ref
+        torch.cuda.empty_cache()
+
+
+# past the record kernels' D = 64, fused_maha's and fused_logq's tiled
+# kernel: K = 1 and the JAX rule's largest K at D = 65, 96, 128, 129, 200, and
+# K = 1 at D = 1,000 and 2,040 (the rule's reach); N ragged: K, D, N, seed
+TILED_CASES = [
+    (1, 65, 4099, 201), (60, 65, N_WIDE, 202), (1, 96, N_WIDE, 203), (41, 96, 4099, 204),
+    (1, 128, 4099, 205), (30, 128, N_WIDE, 206), (1, 129, N_WIDE, 207), (30, 129, 4099, 208),
+    (1, 200, 4099, 209), (19, 200, N_WIDE, 210), (1, 1000, N_WIDE, 211), (1, 2040, 4099, 212),
+]
+
+
 def vmap_case(device, report):
     """A per-point target that reaches fused_logq (``evaluate_fn`` of a
     K=2, D=40 mixture), mapped with torch.func.vmap as the samplers map
@@ -1705,6 +1781,8 @@ def phase_kernels(device, cases, eval_cases):
     for case in WIDE_CASES:
         wide_case(case, device, report)
         torch.cuda.empty_cache()
+    for case in TILED_CASES:
+        tiled_case(case, device, report)
     torch.cuda.empty_cache()
     vmap_case(device, report)
     torch.cuda.empty_cache()
@@ -3507,6 +3585,151 @@ def per_point_routes(device, report):
 MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES = 16384, 10, 500, 4
 
 
+# the wide path (phase wide): D, a Kt=2 Gaussian-mixture target and a K=4
+# Gaussian proposal near it, particles a PMC step, steps; VB's points,
+# components and iterations
+WIDE_PATH = dict(D=200, K=4, Kt=2, n=1 << 16, steps=5, vb_n=1 << 16, vb_iters=10)
+
+
+def recorded_launches(k, name):
+    """Patch ``k``'s launch operator of ``name`` (``"logq"`` or ``"maha"``)
+    so that every launch's arguments and output are kept, as clones, in the
+    list returned; and a function that undoes it."""
+    attr = "_%s_launch" % name
+    launch, kept = getattr(k, attr), []
+
+    def recording(*args):
+        out = launch(*args)
+        kept.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args)
+                    + (out.detach().clone(),))
+        return out
+
+    setattr(k, attr, recording)
+    return kept, lambda: setattr(k, attr, launch)
+
+
+def phase_wide(device, report):
+    """The wide path through the port's entry points, past D = 128 where
+    fused_logq and fused_maha take the tiled kernel: ``parallel
+    .pmc_run_sharded`` at WIDE_PATH (its steps draw by ``propose_T`` past
+    fused_propose_logq's rule, so each step's log q, log p and
+    log-likelihood are fused_logq launches), every fused_logq launch of the
+    run held to its float64 plain version on the same particles; a
+    ``GaussianInference`` fit at WIDE_PATH's VB size (the unfused E-step, one
+    fused_maha launch an iteration), its first iteration's bilinear term
+    held to the same term in float64 on the CPU.  Each prints ms a step or
+    iteration (host clock, synchronized), device ms (torch.profiler) and the
+    variant counts; returns the launch counts of the two runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+
+    D, K, Kt, n, steps = (WIDE_PATH[f] for f in ("D", "K", "Kt", "n", "steps"))
+    rng = np.random.default_rng(200)
+    t_means = np.stack([rng.normal(0, 1, D), rng.normal(0, 1, D) + 2.0]).astype(np.float32)
+    t_covs = np.array([np.eye(D) * 0.8, np.eye(D) * 1.2], np.float32)
+    target = make_params((t_means, t_covs, np.array([0.3, 0.7], np.float32), None), device)
+    means = t_means[np.arange(K) % Kt] + rng.normal(0, 0.05, (K, D)).astype(np.float32)
+    params = make_params((means, t_covs[np.arange(K) % Kt], np.full(K, 1.0 / K, np.float32),
+                          None), device)
+    kept, undo = recorded_launches(k, "logq")
+    k.reset_launch_counts()
+    try:
+        out, stats = pmc_run_sharded(target, params, n, steps, key=3)
+        sync(device)
+    finally:
+        pmc_counts = k.launch_counts()
+        undo()
+    require(len(kept) == pmc_counts["fused_logq"] >= 2 * steps,
+            "wide pmc: %d fused_logq launches kept of %d for %d steps"
+            % (len(kept), pmc_counts["fused_logq"], steps))
+    require(pmc_counts["variant:fused_logq=tiled"] == pmc_counts["fused_logq"],
+            "wide pmc: %d of %d fused_logq launches took the tiled kernel"
+            % (pmc_counts["variant:fused_logq=tiled"], pmc_counts["fused_logq"]))
+    # a step's launches: log q of its proposal, log p, and the log-likelihood
+    # of the updated mixture, which PMC in D = 200 from 2^16 particles may
+    # leave ill-conditioned (components of weight 0, or covariances so
+    # narrow that float32 cannot resolve U_k (x - m_k)): each step's log q
+    # and log p are held to their float64 plain versions where float32
+    # resolves them (finite, |log q| < 1e30; everywhere in the first step),
+    # the log-likelihood's errors printed
+    for i, (xT, packed, Kl, student_t, got) in enumerate(kept):
+        ref = k.plain_logq(xT.double(), k.MixtureOperands(packed.double(), Kl, D, student_t))
+        held = torch.isfinite(ref) & (ref.abs() < 1e30)
+        require(i >= 2 or bool(held.all()), "wide pmc: the first step's log densities are not "
+                "finite in float64")
+        name = "wide pmc step %d %s (K=%d, %d of %d held)" % (
+            i // 3 + 1, ("log q", "log p", "log-likelihood")[i % 3], Kl, int(held.sum()),
+            held.numel())
+        if i % 3 == 2:
+            print("  %s: max |kernel - float64| %.3e" % (
+                name, float((got[held].double() - ref[held]).abs().max())))
+        elif bool(held.any()):
+            compare(name, got[held], ref[held], "log", report)
+    del kept
+    t0 = time.perf_counter()
+    pmc_run_sharded(target, params, n, steps, key=4)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pmc_run_sharded(target, params, n, steps, key=5)
+        sync(device)
+    rows = device_rows(prof, steps)
+    print("  pmc_run_sharded D=%d K=%d Kt=%d n=%d: %.3f ms a step (host), device %.3f ms a "
+          "step; ess %s, weights %s; launches %s" % (
+              D, K, Kt, n, step_ms, sum(r[0] for r in rows),
+              np.array2string(stats.ess.cpu().numpy(), precision=4),
+              np.array2string(out.weights.cpu().numpy(), precision=4),
+              json.dumps({c: v for c, v in pmc_counts.items() if v})))
+    for t, c, key in rows[:4]:
+        print("    %8.3f ms  %5.1f x  %s" % (t, c, key[:90]))
+    del out, stats, prof
+    torch.cuda.empty_cache()
+
+    data, w = vb_problem(device, WIDE_PATH["vb_n"], K, D)
+    vb = GaussianInference(data, components=K, weights=w, nu=D + 1.0)
+    del data
+    kept, undo = recorded_launches(k, "maha")
+    k.reset_launch_counts()
+    ms = []
+    try:
+        for _ in range(WIDE_PATH["vb_iters"]):
+            t0 = time.perf_counter()
+            vb._update_with_bound()
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        vb_counts = k.launch_counts()
+        undo()
+    require(vb_counts["fused_maha"] == vb_counts["variant:fused_maha=tiled"]
+            == WIDE_PATH["vb_iters"] == len(kept),
+            "wide vb: fused_maha launches %s for %d iterations"
+            % ({c: v for c, v in vb_counts.items() if "maha" in c and v}, WIDE_PATH["vb_iters"]))
+    xT, a, m, got = kept[0]
+    ref = k.plain_maha(xT.cpu().double(), a.cpu().double(), m.cpu().double())
+    compare("wide vb iteration 1 bilinear term (CPU float64)", got, ref.to(device), "maha", report)
+    del kept, xT, a, m, got, ref
+    for f in ("N_comp", "x_mean_comp", "S", "alpha", "W"):
+        require(bool(torch.isfinite(getattr(vb, f)).all()), "wide vb: %s not finite" % f)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vb._update_with_bound()
+        vb._update_with_bound()
+        sync(device)
+    rows = device_rows(prof, 2)
+    print("  GaussianInference D=%d K=%d N=%d: %.3f ms an iteration (host, median of %d), device "
+          "%.3f ms an iteration; launches %s" % (
+              D, K, WIDE_PATH["vb_n"], float(np.median(ms)), len(ms), sum(r[0] for r in rows),
+              json.dumps({c: v for c, v in vb_counts.items() if v})))
+    for t, c, key in rows[:4]:
+        print("    %8.3f ms  %5.1f x  %s" % (t, c, key[:90]))
+    del vb, prof
+    torch.cuda.empty_cache()
+    return {c: pmc_counts[c] + vb_counts[c] for c in pmc_counts}
+
+
 def mcmc_problem(device):
     """benchmarks/mcmc_chains.py's fused configuration: its quadratic
     target (seed 3) as a 1-component Gaussian mixture in float32, C=16384
@@ -4912,6 +5135,10 @@ def phase_times(device, report):
     for name, (ms, plain_ms) in wide_shape_ms(device).items():
         times[(name, WIDE_SHAPE, "cuda")], times[(name, WIDE_SHAPE, "plain")] = ms, plain_ms
     torch.cuda.empty_cache()
+    for shape in TILED_SHAPES:
+        for (name, route), ms in tiled_shape_ms(device, shape).items():
+            times[(name, shape, route)] = ms
+        torch.cuda.empty_cache()
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
          (N_PLAIN_MAX, N_SLICE, N_BENCH))
@@ -5442,10 +5669,20 @@ def main_shape_ms(device, name, shape, report):
     elif name == "fused_maha":
         A, m, _ = vb_operands(params)
         kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
+        tiled = lambda i: k.fused_maha(xT, A, m, variant="tiled")
         A64, m64 = A.double(), m.double()
         ref = torch.cat([k.plain_maha(x64, A64[k0:k1], m64[k0:k1])
                          for k0, k1 in k._chunks(K, D, N)])
         compare(label, kernel(0), ref, "maha", report)
+        compare(label + " tiled", tiled(0), ref, "maha", report)
+        del x64, ref
+        torch.cuda.empty_cache()
+        # the tiled kernel beside the elected record kernel, in turns
+        ms = [cuda_ms(f) for f in (kernel, tiled, tiled, kernel)]
+        print("  %s: the %s kernel %.3f / %.3f ms, the tiled kernel %.3f / %.3f ms"
+              % (label, k._elect(name, K, D, None), ms[0], ms[3], ms[1], ms[2]))
+        return {"cuda": (ms[0] + ms[3]) / 2, "tiled": (ms[1] + ms[2]) / 2,
+                "plain": cuda_ms(plain, reps=3, warmup=1)}
     else:
         kernel = lambda i: k.fused_logq(xT, ops)
         plain_logq = k.plain_logq if N <= N_PLAIN_MAX else k.plain_logq_blocked
@@ -5525,6 +5762,63 @@ def wide_shape_ms(device):
     }
     return {name: (cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1))
             for name, (kernel, plain) in calls.items()}
+
+
+# the shapes (K, Kt, D, N) at which fused_maha's and fused_logq's tiled
+# kernel is timed: K = 1 and the JAX rule's largest K at D = 65, 96 and 128
+# (where it replaced the looped kernel) and at D = 200
+TILED_SHAPES = [(K, 0, D, 1 << 16) for K, D in ((1, 65), (60, 65), (1, 96), (41, 96), (1, 128),
+                                               (30, 128), (1, 200), (19, 200))]
+
+
+def tiled_shape_ms(device, shape):
+    """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for fused_maha
+    (on the VB E-step's upper operands of a random Student-t mixture) and
+    fused_logq (on the mixture), particles from it (mixture_particles),
+    CUDA events, in turns (tiled, library, plain, plain, library, tiled;
+    each the mean of its two turns): "tiled", the kernel the wrapper elects
+    there (held to the float64 plain version first), also as "cuda";
+    "plain", the plain version; "library", one PyTorch call,
+    ``torch.bmm(a, xc)`` on the pre-centred (K, D, N) operand: the product
+    alone, in full FP32 (allow_tf32 False), a yardstick the port never
+    calls."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in FP32")
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    ops = core._kernel_operands(params)
+    xT = mixture_particles(ops, N, K + D, device)
+    A, m, _ = vb_operands(params)
+    f = ops.fields()
+    ops64 = k.MixtureOperands(ops.packed.double(), K, D, True)
+    label = "K=%d D=%d N=%d" % (K, D, N)
+    out = {}
+    for name, call, plain, a, mm, ref, kind in (
+            ("fused_maha", lambda: k.fused_maha(xT, A, m), lambda: k.plain_maha(xT, A, m), A, m,
+             lambda: k.plain_maha(xT.double(), A.double(), m.double()), "maha"),
+            ("fused_logq", lambda: k.fused_logq(xT, ops), lambda: k.plain_logq(xT, ops),
+             f["U"], f["mu"], lambda: k.plain_logq(xT.double(), ops64), "log")):
+        require(k._elect(name, K, D, None) == "tiled", "%s %s: not the tiled kernel" % (name, label))
+        compare("%s tiled %s" % (name, label), call(), ref(), kind, [])
+        xc = (xT[None] - mm[:, :, None]).contiguous()
+        fns = {"tiled": lambda i: call(), "library": lambda i: torch.bmm(a, xc),
+               "plain": lambda i: plain()}
+        ms = {route: [] for route in fns}
+        for route in ("tiled", "library", "plain", "plain", "library", "tiled"):
+            ms[route].append(cuda_ms(fns[route], **({"reps": 3, "warmup": 1}
+                                                    if route == "plain" else {})))
+        del xc
+        torch.cuda.empty_cache()
+        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
+        out[(name, "cuda")] = out[(name, "tiled")]
+        print("  %s %s: tiled %s ms, plain %s ms, library (bmm) %s ms, bound %.3f ms"
+              % (name, label, *(" / ".join("%.3f" % t for t in ms[route])
+                                for route in ("tiled", "plain", "library")),
+                 bound(name, shape)[1]))
+    return out
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
@@ -5798,8 +6092,8 @@ def phase_build():
                     "chunk formula differs from the kernel's (%s)" % kernel)
         require(lib.pmc_step_draw_smem_bytes(K, Kt, D) == _build.draw_smem_bytes(K, Kt, D),
                 "shared-memory formula differs from the kernel's (the step's first launch)")
-        for kernel, maha in (("fused_logq", 0), ("fused_rho", 0), ("fused_maha", 1)):
-            require(lib.pmc_eval_chunk(K, D, maha) == _build.eval_plan(kernel, K, D)[0],
+        for code, kernel in enumerate(("fused_logq", "fused_maha", "fused_rho")):
+            require(lib.pmc_eval_chunk(K, D, code) == _build.eval_plan(kernel, K, D)[0],
                     "chunk formula differs from the kernel's (%s)" % kernel)
     for C in (1, 32, 4096, 4097, 8192, 8193, 32768, 32769, 1 << 20):
         for D in (1, 8, 9, 16, 17, 32, 33, 40, 41, 64, 65, 128):
@@ -5815,10 +6109,42 @@ def phase_build():
                                                  per_sm * _build.THREADS // 32, plan[2], plan[4]))
         require(plan[0] == "reg" and per_sm >= 3,
                 "%s at K=10, D=10: the %s pass, %d blocks an SM" % (kernel, plan[0], per_sm))
+    # fused_logq's and fused_maha's election past D = 64 and the tiled plan
+    for D in range(1, 301):
+        require(("looped", "rec", "tiled")[lib.pmc_eval_variant(D)]
+                == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_maha", D),
+                "the election differs from the kernel's (fused_logq, fused_maha, D=%d)" % D)
+    plan = (ctypes.c_int * 4)()
+    smem = lib.pmc_tiled_plan(plan)
+    require(tuple(plan) + (smem,) == _build.tiled_plan(),
+            "the tiled plan differs from the kernel's: %s, %s"
+            % (tuple(plan) + (smem,), _build.tiled_plan()))
+    tiled = [(name, part) for name, part in (
+        (p.split("'", 1)[0], p) for p in log.split("Compiling entry function '")[1:])
+        if "17maha_tiled_kernel" in name or "17logq_tiled_kernel" in name]
+    require(len(tiled) == 2, "ptxas reported %d tiled kernels" % len(tiled))
+    for name, part in tiled:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
+        spilled = int(spill.group(1)) if spill else 0
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
+              % ("maha_tiled_kernel" if "maha" in name else "logq_tiled_kernel",
+                 int(regs.group(1)) if regs else -1, spilled,
+                 int(stack.group(1)) if stack else 0))
+        require(spilled == 0, "%s spills %d bytes" % (name, spilled))
+    for K, D in ((1, 65), (60, 65), (1, 200), (19, 200), (1, 2040)):
+        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
+                               ("fused_logq", lib.pmc_logq_per_sm(K, D, -1))):
+            print("  %s K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
+                  "%d B of shared memory a block"
+                  % (kernel, K, D, _build.eval_variant(kernel, D), per_sm, plan[3],
+                     per_sm * plan[3] // 32, smem))
+            require(per_sm >= 2, "%s at K=%d, D=%d: %d blocks an SM" % (kernel, K, D, per_sm))
     # the record kernels' occupancy where the main paths run them
     for K, D in ((32, 40), (200, 10)):
-        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D)),
-                               ("fused_logq", lib.pmc_logq_per_sm(K, D)),
+        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
+                               ("fused_logq", lib.pmc_logq_per_sm(K, D, -1)),
                                ("fused_rho", lib.pmc_rho_per_sm(K, D))):
             warps = per_sm * _build.EVAL_THREADS // 32
             kc, buffers, smem = _build.eval_plan(kernel, K, D)
@@ -5919,6 +6245,8 @@ def main():
     torch.cuda.empty_cache()
     phase("routes")
     route_counts = phase_routes(device, report)
+    phase("wide")
+    wide_counts = phase_wide(device, report)
     phase("mcmc")
     mcmc_counts, _ = phase_mcmc(device)
     torch.cuda.empty_cache()
@@ -5932,8 +6260,9 @@ def main():
     torch.cuda.empty_cache()
     # every path was driven with the counts set to 0 just before it
     counts = {n: sum(c.get(n, 0) for c in (counts, scan_counts, vb_counts, gate_counts,
-                                           blocked_counts, route_counts, mcmc_counts,
-                                           pipe_counts, parallel_counts, example_counts))
+                                           blocked_counts, route_counts, wide_counts,
+                                           mcmc_counts, pipe_counts, parallel_counts,
+                                           example_counts))
               for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
@@ -5996,12 +6325,16 @@ def main():
         if exps is not None:
             entry["exps"] = exps
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
+        shapes += TILED_SHAPES if kname in _build.TILED else []
+        extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms"}
         entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
                                  "plain_ms": times[(kname, sh, "plain")],
                                  "bound_ms": bound(kname, sh)[1]},
-                                **({"looped_ms": times[(kname, sh, "looped")]}
-                                   if (kname, sh, "looped") in times else {}))
+                                **{key: times[(kname, sh, route)] for route, key in extra.items()
+                                   if (kname, sh, route) in times})
                            for sh in shapes]
+        if kname in _build.TILED:
+            entry["tiled_d_min"] = _build.TILED_D_MIN
         if (kname, n, "looped") in times:
             # a draw kernel's elected kernel at the shape, and the looped
             # kernel's time there
@@ -6039,7 +6372,11 @@ def main():
           "fused_logq, fused_rho and the draws at the main paths' shapes, plain_ms past N=%d "
           "the plain "
           "version streamed over component chunks; the six warp-a-particle kernels at K=1, "
-          "D=200, N=2^16; the K-blocked statistics kernels' first launch, launch_ms, beside its "
+          "D=200, N=2^16; fused_maha and fused_logq past D=64 at TILED_SHAPES (N=2^16): ms the "
+          "elected kernel's, tiled_ms the tiled kernel's, "
+          "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
+          "called by the port), fused_maha's tiled_ms also at K=32, D=40, 2^20 beside its record "
+          "kernel; the K-blocked statistics kernels' first launch, launch_ms, beside its "
           "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
           "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
           "fused_vb_estep, fused_is_pmc_step and fused_pmc_stats elect at K=10, D=10, table_ms "

@@ -11,7 +11,8 @@
 // unrolled to DMAX with a guard on the runtime D, so the arrays stay in
 // registers; the DMAX = 128 instantiation loops to D, and its arrays live in
 // local memory.  Past D = 128 the kernels of warp.cuh take a warp a
-// particle, with no per-thread array.
+// particle, with no per-thread array; fused_logq and fused_maha run the
+// block-tiled product kernel of tiled.cuh from D = 65.
 //
 // A block stages its mixture operands in shared memory when they fit there
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
@@ -758,13 +759,15 @@ struct EvalPlan {
   size_t smem;   // shared memory a block asks for
 };
 
-// The shared-memory plan of fused_logq's (maha false) or fused_maha's kernel
-// (mirrored by ops/_build.py eval_plan).  D <= 64: the records of the whole
-// mixture in one buffer where they fit an SM's half, else two buffers of the
-// largest equal chunks that do, one filled while the other is read.  Past
-// D = 64 the looped kernel stages its operands whole where they fit; past
-// D = 128 the warp kernel reads them from device memory and asks for its
-// slices.
+// The shared-memory plan of the record kernels of fused_logq (maha false),
+// fused_rho (whose records are fused_logq's) and fused_maha, and of
+// fused_rho's looped and warp kernels (mirrored by ops/_build.py
+// eval_plan; fused_logq's and fused_maha's tiled kernel past D = 64 has its
+// own, tiled.cuh).  D <= 64: the records of the whole mixture in one buffer
+// where they fit an SM's half, else two buffers of the largest equal chunks
+// that do, one filled while the other is read.  Past D = 64 the looped
+// kernel stages its operands whole where they fit; past D = 128 the warp
+// kernel reads them from device memory and asks for its slices.
 __host__ __device__ inline EvalPlan eval_plan(int K, int D, bool maha) {
   if (D > kDMax) return {K, 0, wide_smem_bytes(D)};
   if (D > kRecDMax) {
@@ -840,8 +843,7 @@ int dispatch_records(int D, Body& body, EvalList<EvalInst<DS, BS>...>) {
 }
 
 // Call body(DMAX, OPS_SMEM) (std::integral_constant arguments) with the
-// instantiation of fused_logq's, fused_rho's or fused_maha's kernel for D
-// and return its result: the record kernel of EvalInsts up to D = 64
+// instantiation of fused_rho's kernel for D and return its result: the record kernel of EvalInsts up to D = 64
 // (OPS_SMEM unused), the looped kernel at DMAX 128 to D = 128, the warp
 // kernel (DMAX kWideDMax, OPS_SMEM false) past it.
 template <typename Body>
@@ -858,11 +860,11 @@ __host__ __device__ constexpr int eval_threads(int DMAX) {
   return DMAX <= kRecDMax ? kEvalThreads : DMAX <= kDMax ? kThreads : kWideThreads;
 }
 
-// Call body(kernel, threads, smem) with the kernel of Kernels (a struct with
-// ``maha``, true for fused_maha's records, and get<DMAX, OPS_SMEM>(), the
-// kernel of dispatch_eval's instantiation) for (K, D), its block size and its
-// shared memory, set first as the kernel's limit; body's result, or the
-// error of the dispatch or of setting the limit.
+// Call body(kernel, threads, smem) with the kernel of Kernels (fused_rho's:
+// a struct with ``maha``, false, and get<DMAX, OPS_SMEM>(), the kernel of
+// dispatch_eval's instantiation) for (K, D), its block size and its shared
+// memory, set first as the kernel's limit; body's result, or the error of
+// the dispatch or of setting the limit.
 template <typename Kernels, typename Body>
 int with_eval_kernel(int K, int D, Body&& body) {
   const EvalPlan plan = eval_plan(K, D, Kernels::maha);

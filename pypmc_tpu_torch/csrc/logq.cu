@@ -21,12 +21,14 @@
 // cp.async while the other is read (K = 32, D = 40: 11 components a chunk,
 // 2 blocks an SM).  What holds it (measured on one H100): a broadcast
 // LDS.128 takes ~4 clocks of the SM's 128 B a clock of shared-memory data
-// path, so each U word read feeds one FMA, ~1/4 of the FP32 peak.  Past D =
-// 64 (logq_looped_kernel) the looped DMAX = 128 instantiation reads the
-// packed operands, staged whole where they fit; past D = 128
-// (logq_warp_kernel) a warp takes a particle (warp.cuh), the operands read
-// from device memory.
-#include "warp.cuh"
+// path, so each U word read feeds one FMA, ~1/4 of the FP32 peak.  From D =
+// kTiledDMin (logq_tiled_kernel) the block-tiled product engine of tiled.cuh
+// on U: the panels above the diagonal are skipped, and each component's
+// squared distance goes through component_logpdf into a WeightedLse a
+// particle, k ascending as in the other kernels (a dead component, w_k = 0,
+// adds nothing), thread n % 128 holding particle n's; out[n] is written
+// once.
+#include "tiled.cuh"
 
 namespace pmc {
 
@@ -36,7 +38,7 @@ logq_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
             float* __restrict__ out, long long N, int K, int D, int student_t) {
   extern __shared__ float4 smem4[];
   constexpr int below = eval_dmax_below(DMAX);
-  __builtin_assume(D > below && D <= DMAX);   // dispatch_eval's
+  __builtin_assume(D > below && D <= DMAX);   // dispatch_records'
   const MixLayout L{K, D};
   WeightedLse acc;
   stream_records<DMAX>(
@@ -51,69 +53,76 @@ logq_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
       });
 }
 
-template <bool OPS_SMEM>
-__global__ void __launch_bounds__(kThreads)
-logq_looped_kernel(const float* __restrict__ xT, const float* __restrict__ mix_src,
-                 float* __restrict__ out, long long N, int K, int D, int student_t) {
-  extern __shared__ float smem[];
-  const float* mix = stage_operands<OPS_SMEM>(smem, mix_src, MixLayout{K, D}.eval_size());
-  __syncthreads();
-  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float x[kDMax];
-    load_particle<kDMax>(xT, N, n, D, x);
-    out[n] = mixture_logpdf<kDMax>(mix, K, D, student_t != 0, x);
-  }
+__global__ void __launch_bounds__(kTileThreads, 2)
+logq_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
+                  float* __restrict__ out, long long N, int K, int D, int student_t) {
+  extern __shared__ float4 smem4[];
+  const MixLayout L{K, D};
+  WeightedLse lse;
+  tiled_eval<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), N, K, D,
+                   [&](int k, long long n, float maha) {
+                     if (k == 0) lse = WeightedLse();
+                     const float w = mix[L.w() + k];
+                     if (w > 0.0f)
+                       lse.add(component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D,
+                                                student_t != 0),
+                               w);
+                     if (k == K - 1 && n < N) out[n] = lse.value();
+                   });
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-logq_warp_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
-                 float* __restrict__ out, long long N, int K, int D, int student_t) {
-  extern __shared__ float smem[];
-  const WarpSlices sl = warp_slices(smem, D);
-  for (long long n = warp_index(); n < N; n += warp_count()) {
-    warp_load(xT, N, n, D, sl.a);
-    const float lq = warp_mixture_logpdf(mix, K, D, student_t != 0, sl.a, sl.b);
-    if (lane_id() == 0) out[n] = lq;
-    __syncwarp();   // the slices are rewritten next
-  }
-}
-
-// fused_logq's kernels for with_eval_kernel
+// fused_logq's kernels for with_eval_variant
 struct LogqKernels {
   static constexpr bool maha = false;
-  template <int DMAX, bool OPS_SMEM>
-  static auto get() {
-    if constexpr (DMAX <= kRecDMax) return logq_kernel<DMAX>;
-    else if constexpr (DMAX <= kDMax) return logq_looped_kernel<OPS_SMEM>;
-    else return logq_warp_kernel;
-  }
+  template <int DMAX>
+  static auto rec() { return logq_kernel<DMAX>; }
+  static auto tiled() { return logq_tiled_kernel; }
 };
 
 }  // namespace pmc
 
-// shared memory the launcher asks for (checked against ops/_build.py)
+// shared memory the elected kernel asks for (checked against ops/_build.py)
 extern "C" long long pmc_logq_smem_bytes(int K, int D) {
-  return static_cast<long long>(pmc::eval_plan(K, D, false).smem);
+  return static_cast<long long>(pmc::eval_variant_smem(K, D, false));
 }
 
-// components a chunk of fused_logq's (maha 0) or fused_maha's kernel
-extern "C" int pmc_eval_chunk(int K, int D, int maha) {
-  return pmc::eval_plan(K, D, maha != 0).kc;
+// components a chunk of the kernel of fused_logq (kernel 0), fused_maha (1)
+// or fused_rho (2, whose records are fused_logq's): 1 where fused_logq's or
+// fused_maha's is the tiled kernel (a component at a time)
+extern "C" int pmc_eval_chunk(int K, int D, int kernel) {
+  if (kernel != 2 && pmc::eval_variant(D) == pmc::kEvalTiled) return 1;
+  return pmc::eval_plan(K, D, kernel == 1).kc;
 }
 
-// blocks that fit on one SM at once (registers, shared memory and threads),
-// for the wrapper's grid; -1 on an error
-extern "C" int pmc_logq_per_sm(int K, int D) {
-  return pmc::eval_per_sm<pmc::LogqKernels>(K, D);
+// the kernel fused_logq and fused_maha elect at D (1 record, 2 tiled;
+// checked against ops/_build.py eval_variant)
+extern "C" int pmc_eval_variant(int D) { return pmc::eval_variant(D); }
+
+// the tiled kernels' plan: out = {particles a tile, rows a row tile, depth
+// of a panel, threads a block}; the shared memory a block
+extern "C" long long pmc_tiled_plan(int* out) {
+  out[0] = pmc::kTileP;
+  out[1] = pmc::kTileM;
+  out[2] = pmc::kTileK;
+  out[3] = pmc::kTileThreads;
+  return static_cast<long long>(pmc::kTiledSmem);
 }
 
+// blocks of variant's kernel (-1 the elected one) that fit on one SM at once
+// (registers, shared memory and threads), for the wrapper's grid; -1 on an
+// error
+extern "C" int pmc_logq_per_sm(int K, int D, int variant) {
+  return pmc::eval_variant_per_sm<pmc::LogqKernels>(K, D, variant);
+}
+
+// variant: as pmc_fused_maha's
 extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out,
-                              long long N, int K, int D, int student_t,
+                              long long N, int K, int D, int student_t, int variant,
                               int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = with_eval_kernel<LogqKernels>(K, D, [&](auto kernel, int threads, size_t smem) {
+  const int bad = with_eval_variant<LogqKernels>(K, D, variant, [&](auto kernel, int threads,
+                                                                     size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, mix, out, N, K, D, student_t);
     return 0;
   });

@@ -26,11 +26,11 @@
 // on one H100): a broadcast LDS.128 takes ~4 clocks of the SM's 128 B a
 // clock of shared-memory data path, so each A word read feeds one FMA, ~1/4
 // of the FP32 peak; two particles a thread would halve that but take 2 x
-// 80 registers at D = 40, past the 128 that 16 warps an SM allow.  Past D = 64
-// (maha_looped_kernel) the looped DMAX = 128 instantiation reads A | m,
-// staged whole where they fit; past D = 128 (maha_warp_kernel) a warp takes
-// a particle (warp.cuh), A | m read from device memory.
-#include "warp.cuh"
+// 80 registers at D = 40, past the 128 that 16 warps an SM allow.  From D =
+// kTiledDMin (maha_tiled_kernel) the block-tiled product engine of tiled.cuh:
+// A is read whole, a tile of 128 particles shares every panel of A_k that a
+// block stages, and each (k, n) result is written once, coalesced.
+#include "tiled.cuh"
 
 namespace pmc {
 
@@ -40,7 +40,7 @@ maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
             float* __restrict__ out, long long N, int K, int D) {
   extern __shared__ float4 smem4[];
   constexpr int below = eval_dmax_below(DMAX);
-  __builtin_assume(D > below && D <= DMAX);   // dispatch_eval's
+  __builtin_assume(D > below && D <= DMAX);   // dispatch_records'
   const float* m = ops + K * D * D;
   const int F = vb_rec_floats(D);
   stream_records<DMAX>(
@@ -56,71 +56,48 @@ maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
       });
 }
 
-template <bool OPS_SMEM>
-__global__ void __launch_bounds__(kThreads)
-maha_looped_kernel(const float* __restrict__ xT, const float* __restrict__ ops_src,
-                 float* __restrict__ out, long long N, int K, int D) {
-  extern __shared__ float smem[];
-  const float* A = stage_operands<OPS_SMEM>(smem, ops_src, K * D * D + K * D);
-  __syncthreads();
-  const float* m = A + K * D * D;
-  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float x[kDMax], diff[kDMax];
-    load_particle<kDMax>(xT, N, n, D, x);
-    for (int k = 0; k < K; ++k)
-      out[k * N + n] = project<kDMax>(A + k * D * D, m + k * D, x, D, diff);
-  }
-}
-
-__global__ void __launch_bounds__(kWideThreads)
-maha_warp_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
-                 float* __restrict__ out, long long N, int K, int D) {
-  extern __shared__ float smem[];
-  const WarpSlices sl = warp_slices(smem, D);
+__global__ void __launch_bounds__(kTileThreads, 2)
+maha_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
+                  float* __restrict__ out, long long N, int K, int D) {
+  extern __shared__ float4 smem4[];
   const float* m = ops + static_cast<long long>(K) * D * D;
-  for (long long n = warp_index(); n < N; n += warp_count()) {
-    warp_load(xT, N, n, D, sl.a);
-    for (int k = 0; k < K; ++k) {
-      const float* A = ops + static_cast<long long>(k) * D * D;
-      const float v = warp_maha([&](int i) { return A + static_cast<long long>(i) * D; },
-                                m + k * D, sl.a, sl.b, D, false);
-      if (lane_id() == 0) out[k * N + n] = v;
-    }
-    __syncwarp();   // the slices are rewritten next
-  }
+  tiled_eval<false>(reinterpret_cast<float*>(smem4), xT, ops, m, N, K, D,
+                    [&](int k, long long n, float v) {
+                      if (n < N) out[k * N + n] = v;
+                    });
 }
 
-// fused_maha's kernels for with_eval_kernel
+// fused_maha's kernels for with_eval_variant
 struct MahaKernels {
   static constexpr bool maha = true;
-  template <int DMAX, bool OPS_SMEM>
-  static auto get() {
-    if constexpr (DMAX <= kRecDMax) return maha_kernel<DMAX>;
-    else if constexpr (DMAX <= kDMax) return maha_looped_kernel<OPS_SMEM>;
-    else return maha_warp_kernel;
-  }
+  template <int DMAX>
+  static auto rec() { return maha_kernel<DMAX>; }
+  static auto tiled() { return maha_tiled_kernel; }
 };
 
 }  // namespace pmc
 
-// shared memory the launcher asks for (checked against ops/_build.py)
+// shared memory the elected kernel asks for (checked against ops/_build.py)
 extern "C" long long pmc_maha_smem_bytes(int K, int D) {
-  return static_cast<long long>(pmc::eval_plan(K, D, true).smem);
+  return static_cast<long long>(pmc::eval_variant_smem(K, D, true));
 }
 
-// blocks that fit on one SM at once (registers, shared memory and threads),
-// for the wrapper's grid; -1 on an error
-extern "C" int pmc_maha_per_sm(int K, int D) {
-  return pmc::eval_per_sm<pmc::MahaKernels>(K, D);
+// blocks of variant's kernel (-1 the elected one) that fit on one SM at once
+// (registers, shared memory and threads), for the wrapper's grid; -1 on an
+// error
+extern "C" int pmc_maha_per_sm(int K, int D, int variant) {
+  return pmc::eval_variant_per_sm<pmc::MahaKernels>(K, D, variant);
 }
 
+// variant: -1 the elected kernel (eval_variant), 1 the record, 2 the tiled
+// kernel
 extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* out,
-                              long long N, int K, int D, int n_blocks,
+                              long long N, int K, int D, int variant, int n_blocks,
                               void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = with_eval_kernel<MahaKernels>(K, D, [&](auto kernel, int threads, size_t smem) {
+  const int bad = with_eval_variant<MahaKernels>(K, D, variant, [&](auto kernel, int threads,
+                                                                     size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, ops, out, N, K, D);
     return 0;
   });

@@ -22,7 +22,7 @@
 #include "blocked.cuh"
 
 extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out,
-                              long long N, int K, int D, int student_t,
+                              long long N, int K, int D, int student_t, int variant,
                               int n_blocks, void* stream);
 
 // mix: the packed evaluation operands (log q); chunks: the chunk-major
@@ -34,7 +34,7 @@ extern "C" int pmc_fused_pmc_stats_blocked(
     int kc, int student_t, int dof_stats, int n_eval_blocks, int n_blocks,
     void* stream) {
   using namespace pmc;
-  int err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, n_eval_blocks, stream);
+  int err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, -1, n_eval_blocks, stream);
   if (err != 0) return err;
   return launch_blocked_stats<kBlockedPmc, float>(
       xT, const_cast<float*>(w), log_q, nullptr, chunks, partial, stats, N, K, D,

@@ -13,8 +13,11 @@ in a per-thread array of at most 128 floats (registers up to D = 32, and up
 to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 ``fused_maha``, ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``; local memory above).  Past D = 128
-the six kernels of :data:`WIDE` run a warp a particle with its coordinates
-in shared memory (``csrc/warp.cuh``), up to :data:`WIDE_D_MAX`.  The dense
+the six kernels of :data:`WIDE` take D up to :data:`WIDE_D_MAX`: four run a
+warp a particle with its coordinates in shared memory (``csrc/warp.cuh``),
+and the two of :data:`TILED`, ``fused_logq`` and ``fused_maha``, run the
+block-tiled product kernel of ``csrc/tiled.cuh`` from D =
+:data:`TILED_D_MIN` (:func:`tiled_plan`, :func:`eval_variant`).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
@@ -47,8 +50,9 @@ import time
 from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
-           "DRAW_THREADS",
-           "KERNELS", "BLOCKED", "WIDE", "smem_bytes", "eval_plan", "eval_threads",
+           "DRAW_THREADS", "TILED_D_MIN",
+           "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
+           "eval_variant", "tiled_plan",
            "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
            "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
@@ -69,6 +73,15 @@ WIDE_THREADS = 128     # csrc/common.cuh kWideThreads: a warp kernel's block, 4 
 DRAW_THREADS = 256     # csrc/draw.cu kDrawThreads: the proposal inputs' draw, a thread a particle
 _REC_D_MAX = 64        # csrc/common.cuh kRecDMax
 _EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record instantiations
+# csrc/tiled.cuh: the tiled kernels' particles a tile, rows a row tile, depth
+# of a panel, threads a block, and A panels' row stride (kTileP, kTileM,
+# kTileK, kTileThreads, kTileStride)
+_TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, _TILE_STRIDE = 128, 128, 16, 256, 132
+# csrc/tiled.cuh kTiledDMin: the smallest D at which fused_logq and fused_maha
+# elect the tiled kernel, below it their record kernel (the first past the
+# record kernels' 64: the tiled kernel beat the looped kernel it replaced at
+# D = 65, 96 and 128, PERF.md)
+TILED_D_MIN = 65
 
 _lib = None
 build_info = {}
@@ -89,12 +102,15 @@ BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
-# the kernels with a warp-a-particle path past D = 128 (csrc/warp.cuh)
+# the kernels that take D past 128: fused_logq and fused_maha by the tiled
+# kernel (TILED), the others a warp a particle (csrc/warp.cuh)
 WIDE = ("fused_logq", "fused_rho", "fused_maha", "fused_transform", "fused_transform_rng",
         "fused_propose_logq")
+# the kernels with a block-tiled product kernel (csrc/tiled.cuh)
+TILED = ("fused_logq", "fused_maha")
 # the draws: a record, a looped and a warp kernel each (draw_plan)
 DRAWS = ("fused_transform", "fused_transform_rng", "fused_propose_logq")
-# each kernel's largest D: the warp kernels' past D = 128, the thread
+# each kernel's largest D: the warp and tiled kernels' past D = 128, the thread
 # kernels' elsewhere (at least the JAX package's rule's reach: D = 2,040 at
 # K = 1 for the 128-particle tile, 248 for the 1024-particle one; K*D <= 128
 # for the dense statistics kernels; below 128 for the K-blocked ones and
@@ -400,21 +416,54 @@ def blocked_plan(kernel, K, D):
     return kc, staged, _stats_bytes(kc, D, kc * f)
 
 
-def eval_plan(kernel, K, D):
+def tiled_plan():
+    """``(particles a tile, rows a row tile, depth of a panel, threads a
+    block, shared memory a block)`` of ``fused_logq``'s and ``fused_maha``'s
+    tiled kernel; mirrors ``csrc/tiled.cuh``: two A panels of ``_TILE_K``
+    rows of ``_TILE_STRIDE`` floats, two X panels of ``_TILE_K`` x
+    ``_TILE_P``, two m panels of ``_TILE_K`` and the partial sums of a
+    component, 16 threads a particle column.  The same at every (K, D): a
+    block walks the components and the row tiles, so only the work grows
+    with them."""
+    smem = 4 * (2 * _TILE_K * _TILE_STRIDE + 2 * _TILE_K * _TILE_P + 2 * _TILE_K + 16 * _TILE_P)
+    return _TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, smem
+
+
+def eval_variant(kernel, D):
+    """The kernel ``fused_logq``, ``fused_maha`` or ``fused_rho`` elects at
+    dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant`` (and for
+    ``fused_rho`` ``csrc/common.cuh`` ``dispatch_eval``): ``fused_logq``
+    and ``fused_maha`` ``"rec"``, the record kernel, below
+    :data:`TILED_D_MIN` and ``"tiled"`` from it; ``fused_rho`` ``"rec"`` to
+    D = 64, ``"looped"`` to D = 128 and ``"warp"`` past it."""
+    if kernel in TILED:
+        return "rec" if D < TILED_D_MIN else "tiled"
+    if D <= _REC_D_MAX:
+        return "rec"
+    return "looped" if D <= _THREAD_D_MAX else "warp"
+
+
+def eval_plan(kernel, K, D, variant=None):
     """``(components a chunk, chunk buffers, shared memory a block)`` of
-    ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s kernel; mirrors
-    ``csrc/common.cuh`` ``eval_plan``.  Up to D = 64 the kernel streams
-    16-byte component records (``fused_maha``'s in the VB layout): the whole
-    mixture in one buffer where it fits half an SM's shared memory, else two
-    buffers of the largest equal chunks that do.  Past D = 64 the looped
-    kernel stages its operands whole (one buffer of K) where they fit, and
-    reads them from device memory (no buffer) where they do not; past D =
-    128 the warp kernel reads them from device memory and asks for its
-    slices."""
+    ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s kernel
+    ``variant`` (None: :func:`eval_variant`'s); mirrors ``csrc/common.cuh``
+    ``eval_plan`` and ``csrc/tiled.cuh``.  The record kernel (to D = 64)
+    streams 16-byte component records (``fused_maha``'s in the VB layout):
+    the whole mixture in one buffer where it fits half an SM's shared
+    memory, else two buffers of the largest equal chunks that do.
+    ``fused_rho``'s looped kernel (D = 65-128) stages its operands whole
+    (one buffer of K) where they fit, and reads them from device memory (no
+    buffer) where they do not; its warp kernel, past D = 128, reads them
+    from device memory and asks for its slices; the tiled kernel of
+    ``fused_logq`` and ``fused_maha`` takes a component at a time, its
+    panels in two buffers (:func:`tiled_plan`)."""
     maha = kernel == "fused_maha"
-    if D > _THREAD_D_MAX:
+    variant = eval_variant(kernel, D) if variant is None else variant
+    if variant == "tiled":
+        return 1, 2, tiled_plan()[4]
+    if variant == "warp":
         return K, 0, _wide_smem(D)
-    if D > _REC_D_MAX:
+    if variant == "looped":
         ops = 4 * (K * D * (D + 1) if maha else _eval_floats(K, D))
         return (K, 1, ops) if ops <= SMEM_LIMIT else (K, 0, 0)
     rec = 4 * _rec_floats(D, vb=maha)
@@ -425,20 +474,30 @@ def eval_plan(kernel, K, D):
     return kc, 2, 2 * kc * rec
 
 
-def eval_threads(D):
-    """Threads of a block of ``fused_logq``'s, ``fused_rho``'s and
-    ``fused_maha``'s kernel for dimension D; mirrors ``csrc/common.cuh``
-    ``eval_threads``."""
-    return EVAL_THREADS if D <= _REC_D_MAX else THREADS if D <= _THREAD_D_MAX else WIDE_THREADS
+def eval_threads(D, variant=None):
+    """Threads of a block of ``fused_rho``'s kernel for dimension D (with
+    ``variant``, of that kernel of ``fused_logq``, ``fused_rho`` or
+    ``fused_maha``); mirrors ``csrc/common.cuh`` ``eval_threads`` and
+    ``csrc/tiled.cuh`` ``kTileThreads``."""
+    variant = eval_variant("fused_rho", D) if variant is None else variant
+    return {"rec": EVAL_THREADS, "looped": THREADS, "warp": WIDE_THREADS,
+            "tiled": _TILE_THREADS}[variant]
 
 
-def block_particles(kernel, D):
+def block_particles(kernel, D, variant=None):
     """Particles a block of ``kernel`` takes at a time in dimension D (its
-    grid is one wave of blocks over N / this): a thread a particle, or past
-    D = 128 in the kernels of :data:`WIDE` a warp a particle."""
+    grid is one wave of blocks over N / this; ``variant``, a kernel of
+    ``fused_logq``, ``fused_rho`` or ``fused_maha`` other than the one it
+    elects): a thread a particle, past D = 128 in the warp kernels of
+    :data:`WIDE` a warp a particle, and a tile of 128 in the tiled kernel."""
+    if kernel in ("fused_logq", "fused_rho", "fused_maha"):
+        variant = eval_variant(kernel, D) if variant is None else variant
+        if variant == "tiled":
+            return _TILE_P
+        return WIDE_THREADS // 32 if variant == "warp" else eval_threads(D, variant)
     if kernel in WIDE and D > _THREAD_D_MAX:
         return WIDE_THREADS // 32
-    if kernel in ("fused_logq", "fused_rho", "fused_maha") + DRAWS:
+    if kernel in DRAWS:
         return eval_threads(D)
     return THREADS
 
@@ -449,7 +508,8 @@ def smem_bytes(kernel, K, D, Kt=0):
     The operands are staged in it when they fit beside the kernel's own
     shared memory, and read from device memory otherwise; ``fused_logq``'s
     and ``fused_maha``'s kernels up to D = 64 stage one or two chunks of
-    records (:func:`eval_plan`), the draw kernels' their plan's
+    records, their tiled kernel its panels (:func:`eval_plan`), the draw
+    kernels' their plan's
     (:func:`transform_plan`, :func:`propose_plan`).  For a K-blocked kernel, its statistics
     pass's (the first launch reads the operands as ``fused_logq``,
     ``fused_propose_logq`` or like them)."""
@@ -577,8 +637,9 @@ def _build():
 def _declare(lib):
     P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
     sigs = {
-        # xT, mix, out, N, K, D, student_t, n_blocks, stream
-        "pmc_fused_logq": [P, P, P, L, I, I, I, I, P],
+        # xT, mix, out, N, K, D, student_t, variant (-1 the elected kernel, 0
+        # the looped, 1 the record, 2 the tiled kernel), n_blocks, stream
+        "pmc_fused_logq": [P, P, P, L, I, I, I, I, I, P],
         # s0, s1, seed_words (null: s0, s1; else two int64 on the card, read
         # in the kernel), mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
         # student_t, t_student_t, variant (-1 the plan's, 0 the looped kernel,
@@ -595,8 +656,8 @@ def _declare(lib):
         # the entry table, 1 the register pass), n_blocks, stream
         "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I,
                                   I, I, I, I, P],
-        # xT, ops, out, N, K, D, n_blocks, stream
-        "pmc_fused_maha": [P, P, P, L, I, I, I, P],
+        # xT, ops, out, N, K, D, variant (as pmc_fused_logq's), n_blocks, stream
+        "pmc_fused_maha": [P, P, P, L, I, I, I, I, P],
         # xT, mix, rho, log_q, N, K, D, student_t, n_blocks, stream
         "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
         # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
@@ -671,11 +732,18 @@ def _declare(lib):
         fn.restype = ctypes.c_int
     lib.pmc_blocked_chunk.argtypes = [I, I, I]   # K, D, vb
     lib.pmc_blocked_chunk.restype = ctypes.c_int
-    lib.pmc_eval_chunk.argtypes = [I, I, I]      # K, D, maha
+    lib.pmc_eval_chunk.argtypes = [I, I, I]      # K, D, kernel (0 logq, 1 maha, 2 rho)
     lib.pmc_eval_chunk.restype = ctypes.c_int
+    lib.pmc_eval_variant.argtypes = [I]          # D -> fused_logq's and fused_maha's kernel
+    lib.pmc_eval_variant.restype = ctypes.c_int
+    lib.pmc_tiled_plan.argtypes = [P]            # int out[4]
+    lib.pmc_tiled_plan.restype = ctypes.c_longlong
+    # K, D, variant -> blocks an SM holds
+    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm"):
+        getattr(lib, name).argtypes = [I, I, I]
+        getattr(lib, name).restype = ctypes.c_int
     # K, D -> blocks an SM holds; the statistics tile; C, D -> the pool's variant
-    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm", "pmc_rho_per_sm", "pmc_stats_tile",
-                 "pmc_mcmc_pool_variant"):
+    for name in ("pmc_rho_per_sm", "pmc_stats_tile", "pmc_mcmc_pool_variant"):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",

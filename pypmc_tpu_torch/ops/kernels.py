@@ -76,8 +76,9 @@ thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
 ``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
 entry-table pass, ``_build.dense_plan``; the draws ``fused_transform``,
 ``fused_transform_rng`` and ``fused_propose_logq``: the record, the looped
-or the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``), each
-launch's
+or the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``;
+``fused_logq`` and ``fused_maha``: the record or the tiled kernel,
+``_build.eval_variant``), each launch's
 variant as ``variant:<kernel>=<variant>``.  Each of these wrappers takes a
 ``variant=`` that forces another variant where the shape has it, as the
 yardstick of the election.
@@ -371,23 +372,26 @@ def _blocks(device, n, per_sm, threads=_build.THREADS):
 
 
 @functools.lru_cache(maxsize=None)
-def _eval_per_sm(name, K, D, index):
+def _eval_per_sm(name, K, D, index, variant=None):
     """Blocks of ``fused_logq``'s (``name`` ``"logq"``), ``fused_rho``'s or
     ``fused_maha``'s kernel for a (K, D) mixture that one SM of CUDA device
     ``index`` holds at once (the library's occupancy of the launcher's
-    instantiation and shared memory)."""
+    instantiation and shared memory); ``variant``: fused_logq's or
+    fused_maha's kernel (None: the elected one)."""
     with torch.cuda.device(index):
-        per_sm = getattr(_build.load(), "pmc_%s_per_sm" % name)(K, D)
+        lib = _build.load()
+        per_sm = (lib.pmc_rho_per_sm(K, D) if name == "rho" else getattr(
+            lib, "pmc_%s_per_sm" % name)(K, D, _EVAL_VARIANTS.get(variant, -1)))
     if per_sm < 1:
         raise RuntimeError("fused_%s: K=%d, D=%d fits no block on an SM" % (name, K, D))
     return per_sm
 
 
-def _eval_blocks(name, device, n, K, D):
+def _eval_blocks(name, device, n, K, D, variant=None):
     """One wave of ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s
-    kernel for n particles."""
-    return _blocks(device, n, _eval_per_sm(name, K, D, device.index),
-                   _build.block_particles("fused_" + name, D))
+    kernel (``variant``: as :func:`_eval_per_sm`'s) for n particles."""
+    return _blocks(device, n, _eval_per_sm(name, K, D, device.index, variant),
+                   _build.block_particles("fused_" + name, D, variant))
 
 
 def _table_blocks(kernel, device, n, K, D, Kt=0):
@@ -420,15 +424,25 @@ def _dense_per_sm(kernel, K, D, Kt, index):
 _DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
 # the draws' kernels and the launchers' variant codes (-1: the plan's)
 _DRAW_VARIANTS = {"looped": 0, "rec": 1, "warp": -1}
+# fused_logq's and fused_maha's kernels and the launchers' codes (-1: the
+# elected one)
+_EVAL_VARIANTS = {"rec": 1, "tiled": 2}
 
 
 def _elect(kernel, K, D, variant, Kt=0):
-    """The variant of ``kernel`` (a draw kernel or a dense statistics kernel)
-    at (K, D): its plan's for None (``_build.draw_plan``,
-    ``_build.dense_plan``), else ``variant`` where the shape has it -- the
-    plan's, or its yardstick (the looped kernel beside the record kernel,
-    the entry table beside the register pass); ``ValueError`` elsewhere,
-    on any device."""
+    """The variant of ``kernel`` (a draw kernel, a dense statistics kernel,
+    ``fused_logq`` or ``fused_maha``) at (K, D): its plan's for None
+    (``_build.draw_plan``, ``_build.dense_plan``, ``_build.eval_variant``),
+    else ``variant`` where the shape has it -- the plan's, or its yardstick
+    (the looped kernel beside the record kernel, the entry table beside the
+    register pass, the tiled kernel beside the record kernel);
+    ``ValueError`` elsewhere, on any device."""
+    if kernel in _build.TILED:
+        elected = _build.eval_variant(kernel, D)
+        if variant in (None, elected, "tiled"):
+            return elected if variant is None else variant
+        raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
+                         % (kernel, variant, K, D, elected))
     if kernel in _build.DRAWS:
         elected, other = _build.draw_plan(kernel, K, D, Kt)[0], ("rec", "looped")
     else:
@@ -846,25 +860,28 @@ def _batch_folded(launch, x_dim, xT, *args):
     return tuple(o.unflatten(-1, (B, N)) for o in out)
 
 
-def fused_logq(xT, ops: MixtureOperands):
+def fused_logq(xT, ops: MixtureOperands, variant=None):
     """Mixture log-density ``(N,)`` of transposed particles ``xT (D, N)``
     (kernel ``csrc/logq.cu``).  ``torch.func.vmap`` maps it over a batch
-    of particle blocks with one launch."""
+    of particle blocks with one launch.  ``variant``: the kernel, ``"rec"``
+    (the record kernel, to D = 64) or ``"tiled"`` (the block-tiled product
+    kernel, any D), as ``_build.eval_variant`` elects for None; counted as
+    ``variant:fused_logq=<variant>``."""
+    variant = _elect("fused_logq", ops.K, ops.dim, variant)
     if not use_kernel(xT, ops.packed):
         return plain_logq(xT, ops)
     if xT.shape[0] != ops.dim:
         raise ValueError("expected %d rows, got shape %s" % (ops.dim, tuple(xT.shape)))
+    if variant != _build.eval_variant("fused_logq", ops.dim):
+        return _logq_run(xT, ops.packed, ops.K, bool(ops.student_t), variant)
     return _logq_launch(xT, ops.packed, ops.K, bool(ops.student_t))
 
 
-# The launch is an operator so that vmap can map a per-point target that
-# reaches it (the samplers vmap per-point targets, as the JAX package vmaps
-# its Pallas kernel): its vmap rule folds the batch into the particle axis.
-@torch.library.custom_op("pypmc_tpu_torch::fused_logq", mutates_args=(),
-                         device_types="cuda")
-def _logq_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
-                 student_t: bool) -> torch.Tensor:
+def _logq_run(xT, packed, K, student_t, variant=None):
+    """One launch of ``fused_logq``'s kernel ``variant`` (None: the elected
+    one) on CUDA tensors."""
     D, N = xT.shape
+    variant = variant or _build.eval_variant("fused_logq", D)
     ops = MixtureOperands(packed, K, D, student_t)
     _check(xT, (D, N))
     _check_operands(ops)
@@ -874,11 +891,22 @@ def _logq_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_logq(
             xT.data_ptr(), packed.data_ptr(), out.data_ptr(), N, K, D,
-            int(student_t), _eval_blocks("logq", xT.device, N, K, D),
-            _stream(xT.device))
+            int(student_t), _EVAL_VARIANTS[variant],
+            _eval_blocks("logq", xT.device, N, K, D, variant), _stream(xT.device))
     _raise_on(err, "fused_logq")
     fused_logq.launches += 1
+    _variant_counts["fused_logq=" + variant] += 1
     return out
+
+
+# The launch is an operator so that vmap can map a per-point target that
+# reaches it (the samplers vmap per-point targets, as the JAX package vmaps
+# its Pallas kernel): its vmap rule folds the batch into the particle axis.
+@torch.library.custom_op("pypmc_tpu_torch::fused_logq", mutates_args=(),
+                         device_types="cuda")
+def _logq_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
+                 student_t: bool) -> torch.Tensor:
+    return _logq_run(xT, packed, K, student_t)
 
 
 def _logq_vmap(info, in_dims, xT, packed, K, student_t):
@@ -954,38 +982,51 @@ def _check_projection(xT, a, m):
     return K, D
 
 
-def fused_maha(xT, a, m):
+def fused_maha(xT, a, m, variant=None):
     """``(K, N)`` squared norms ``|a_k (x_n - m_k)|^2`` of transposed
     particles ``xT (D, N)`` for GENERAL matrices ``a (K, D, D)`` (lower,
     upper or full) and centers ``m (K, D)`` (kernel ``csrc/maha.cu``).
     ``torch.func.vmap`` maps it over a batch of particle blocks with one
-    launch: ``(K, B, N)``.
+    launch: ``(K, B, N)``.  ``variant``: the kernel, as
+    :func:`fused_logq`'s; counted as ``variant:fused_maha=<variant>``.
 
     The TPU kernel takes ``b_k = a_k m_k`` and a coordinate center; the
     port takes the centers and forms ``x - m_k`` before the product."""
+    variant = _elect("fused_maha", a.shape[0], a.shape[-1], variant)
     if not use_kernel(xT, a, m):
         return plain_maha(xT, a, m)
     if xT.shape[0] != a.shape[-1]:
         raise ValueError("expected %d rows, got shape %s" % (a.shape[-1], tuple(xT.shape)))
+    if variant != _build.eval_variant("fused_maha", a.shape[-1]):
+        return _maha_run(xT, a, m, variant)
     return _maha_launch(xT, a, m)
 
 
-@torch.library.custom_op("pypmc_tpu_torch::fused_maha", mutates_args=(),
-                         device_types="cuda")
-def _maha_launch(xT: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _maha_run(xT, a, m, variant=None):
+    """One launch of ``fused_maha``'s kernel ``variant`` (None: the elected
+    one) on CUDA tensors."""
     K, D = _check_projection(xT, a, m)
     N = xT.shape[1]
+    variant = variant or _build.eval_variant("fused_maha", D)
     _build.check_limits("fused_maha", K, D)
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1)])
     out = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), out.data_ptr(), N, K, D,
-                                 _eval_blocks("maha", xT.device, N, K, D),
+                                 _EVAL_VARIANTS[variant],
+                                 _eval_blocks("maha", xT.device, N, K, D, variant),
                                  _stream(xT.device))
     _raise_on(err, "fused_maha")
     fused_maha.launches += 1
+    _variant_counts["fused_maha=" + variant] += 1
     return out
+
+
+@torch.library.custom_op("pypmc_tpu_torch::fused_maha", mutates_args=(),
+                         device_types="cuda")
+def _maha_launch(xT: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return _maha_run(xT, a, m)
 
 
 def _maha_vmap(info, in_dims, xT, a, m):
@@ -1604,6 +1645,9 @@ def reset_launch_counts():
             _plain_routes[fn.__name__] = 0
     for name in _build.DRAWS:
         for variant in _DRAW_VARIANTS:
+            _variant_counts["%s=%s" % (name, variant)] = 0
+    for name in _build.TILED:
+        for variant in _EVAL_VARIANTS:
             _variant_counts["%s=%s" % (name, variant)] = 0
     for name in _build._DENSE:
         for variant in _DENSE_VARIANTS:

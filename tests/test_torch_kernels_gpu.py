@@ -133,6 +133,14 @@ def test_warp_kernels_past_d128_against_plain_versions(cuda, case):
     chip_smoke.wide_case(case, cuda, [])
 
 
+@pytest.mark.parametrize("case", chip_smoke.TILED_CASES)
+def test_tiled_kernels_past_d64_against_plain_versions(cuda, case):
+    """fused_maha (lower and upper operands) and fused_logq (Gaussian, and
+    Student-t with a dead component) on the tiled kernel, counted as such,
+    against their float64 plain versions, equal on a second run."""
+    chip_smoke.tiled_case(case, cuda, [])
+
+
 @pytest.mark.parametrize("case", chip_smoke.TRANSFORM_CASES[1:] + [(10, 10, 200_003, True, 44)])
 def test_transform_against_plain_version(cuda, case):
     chip_smoke.transform_case(case, cuda, [])

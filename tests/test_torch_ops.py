@@ -115,7 +115,8 @@ def test_symmetrize_and_bilinear_sym():
 @pytest.mark.parametrize("K,D", [(120, 1), (1, 200)])
 def test_plain_versions_at_the_repaired_shapes_match_jax(K, D):
     """The shapes the CUDA kernels newly take -- the statistics kernels'
-    64-particle tile (K=120, D=1) and the warp-a-particle path (D=200) --
+    64-particle tile (K=120, D=1) and the wide path (D=200: fused_logq's and
+    fused_maha's block-tiled kernel, fused_rho's warp a particle) --
     through the plain versions of fused_logq, fused_rho, fused_maha and the
     PMC statistics (pmc_update's dense route where K*D <= 128), in float64,
     against the JAX package's XLA path on the same numpy inputs."""
@@ -200,10 +201,11 @@ def test_limits_are_stated_and_enforced():
     # operands past shared memory: the record kernels of fused_logq and
     # fused_rho stream their records through two chunk buffers up to D = 64;
     # past it, and in the other evaluation kernels, they are read from device
-    # memory and the kernel asks for none; the statistics kernels ask for
-    # their tile and accumulators alone
+    # memory and the kernel asks for none, except fused_logq's tiled kernel,
+    # which asks for its panels at every shape; the statistics kernels ask
+    # for their tile and accumulators alone
     assert _build.smem_bytes("fused_logq", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
-    assert _build.smem_bytes("fused_logq", 4, 128) == 0
+    assert _build.smem_bytes("fused_logq", 4, 128) == _build.tiled_plan()[4] == 41_600
     assert _build.smem_bytes("fused_rho", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
     assert _build.smem_bytes("fused_rho", 4, 128) == 0
     assert _build.smem_bytes("fused_transform", 60, 32) == 0
@@ -217,8 +219,9 @@ def test_eval_plan_streams_records_in_chunks():
     """fused_logq's and fused_maha's kernels up to D = 64 stream 16-byte
     component records (fused_maha's in the VB layout): the whole mixture in
     one buffer where it fits half an SM's shared memory, else two buffers of
-    equal chunks; past D = 64 the looped kernel stages the packed operands
-    whole where they fit."""
+    equal chunks; past D = 64 their tiled kernel takes a component at a time
+    in two panel buffers (41,472 B at every K), and fused_rho's looped
+    kernel stages the packed operands whole where they fit."""
     rec = _build._rec_floats
     vb = lambda D: _build._rec_floats(D, vb=True)
     assert (4 * rec(40), 4 * vb(40), 4 * rec(10)) == (3696, 6576, 352)
@@ -231,8 +234,9 @@ def test_eval_plan_streams_records_in_chunks():
         ("fused_maha", 2, 40): (2, 1, 2 * 4 * vb(40)),
         ("fused_logq", 60, 32): (20, 2, 2 * 20 * 4 * rec(32)),
         ("fused_maha", 60, 32): (12, 2, 2 * 12 * 4 * vb(32)),
-        ("fused_logq", 1, 128): (1, 1, 4 * (128 + 128 * 128 + 4)),
-        ("fused_maha", 1, 128): (1, 1, 4 * 128 * 129),
+        ("fused_logq", 1, 128): (1, 2, 41_600),
+        ("fused_maha", 1, 128): (1, 2, 41_600),
+        ("fused_rho", 1, 128): (1, 1, 4 * (128 + 128 * 128 + 4)),
     }
     for (kernel, K, D), plan in pinned.items():
         assert _build.eval_plan(kernel, K, D) == plan, (kernel, K, D)
@@ -251,10 +255,14 @@ def test_eval_plan_streams_records_in_chunks():
         for K, D in ((5000, 10), (1000, 64), (100, 33)):
             kc, buffers, smem = _build.eval_plan(kernel, K, D)
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
-    assert _build.eval_plan("fused_logq", 4, 128) == (4, 0, 0)
-    # fused_rho streams fused_logq's records
-    for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (1, 128), (10, 10)):
+    assert _build.eval_plan("fused_rho", 4, 128) == (4, 0, 0)
+    # fused_rho streams fused_logq's records to D = 64; past it fused_rho
+    # keeps its looped and warp kernels, where fused_logq takes the tiled one
+    for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (10, 10), (1, 64)):
         assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
+    for K, D in ((1, 65), (1, 128), (2, 200)):
+        assert _build.eval_plan("fused_rho", K, D) != _build.eval_plan("fused_logq", K, D)
+        assert _build.eval_plan("fused_logq", K, D) == (1, 2, _build.tiled_plan()[4])
     assert _build.eval_plan("fused_rho", 32, 40) == (11, 2, 2 * 11 * 3696)
     assert _build.eval_plan("fused_rho", 10, 10) == (10, 1, 10 * 352)
     # past D = 128 a warp a particle: no records, three slices of D + 8
@@ -262,6 +270,11 @@ def test_eval_plan_streams_records_in_chunks():
     assert _build.eval_plan("fused_rho", 2, 200) == (2, 0, 4 * 4 * 3 * 208)
     assert _build.eval_threads(200) == _build.WIDE_THREADS == 128
     assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 4]
+    # fused_logq's and fused_maha's tiled kernel: 256 threads, 128 particles
+    for kernel in _build.TILED:
+        assert [_build.block_particles(kernel, D) for D in (10, 100, 200)] == [256, 128, 128]
+        assert _build.block_particles(kernel, 40, "tiled") == 128
+    assert _build.eval_threads(200, "tiled") == 256
     # fused_transform's record kernel takes 256 threads to D = 64, its looped
     # kernel 128 to D = 128
     assert [_build.block_particles("fused_transform", D)
@@ -301,6 +314,38 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
     assert refused == []
     if kernel in _build._DENSE:
         assert passes["reg"] == set(range(1, 17)) and min(passes["table"]) == 17
+
+
+@pytest.mark.parametrize("kernel", _build.TILED)
+def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
+    """Where the JAX rule sends fused_logq or fused_maha a shape with D =
+    65-2,040, the mirror of the tiled plan (csrc/tiled.cuh) holds it: the
+    elected kernel is the tiled one from TILED_D_MIN, its shared memory and
+    threads are within a block's limits (41,472 B, 256 threads, the same at
+    every K), and check_limits passes."""
+    P, BM, BK, threads, smem = _build.tiled_plan()
+    assert (P, BM, BK, threads) == (128, 128, 16, 256)
+    assert smem == 4 * (2 * BK * (BM + 4) + 2 * BK * P + 2 * BK + 16 * P) == 41_600
+    assert _build.TILED_D_MIN == 65
+    assert [_build.eval_variant(kernel, D) for D in (1, 64, 65, 2040)] == ["rec"] * 2 + ["tiled"] * 2
+    admitted = 0
+    for K in sorted(set(GRID_K) | {3, 19, 30, 41, 60}):
+        for D in range(65, 2041):
+            if not kernels.fits(kernel, K, D):
+                break    # the rule only tightens with D at a fixed K
+            admitted += 1
+            assert _build.eval_variant(kernel, D) == "tiled"
+            assert _build.eval_plan(kernel, K, D) == (1, 2, smem)
+            assert _build.eval_threads(D, "tiled") == threads <= 1024
+            assert _build.block_particles(kernel, D) == P
+            need = _build.eval_plan(kernel, K, D)[2]
+            assert need == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
+            _build.check_limits(kernel, K, D)
+    # the rule's largest K at D = 65, 96, 128, 200 and its reach at K = 1
+    largest = {D: max(K for K in range(1, 200) if kernels.fits(kernel, K, D))
+               for D in (65, 96, 128, 200, 1000)}
+    assert largest == {65: 60, 96: 41, 128: 30, 200: 19, 1000: 3}
+    assert admitted > 2000
 
 
 def test_reach_of_the_rule_and_the_limits():
@@ -603,6 +648,10 @@ def _variant_call(kernel, K, D, variant):
         return kernels.fused_pmc_stats(xT, w, ops, True, variant=variant)
     if kernel == "fused_is_pmc_step":
         return kernels.fused_is_pmc_step((1, 2), ops, ops, N, True, variant=variant)
+    if kernel == "fused_logq":
+        return kernels.fused_logq(xT, ops, variant=variant)
+    if kernel == "fused_maha":
+        return kernels.fused_maha(xT, tp.inv_chol, tp.means, variant=variant)
     A = torch.linalg.cholesky(torch.eye(D).expand(K, D, D)).transpose(1, 2).contiguous()
     return kernels.fused_vb_estep(xT, w, A, torch.zeros(K, D), torch.zeros(K), variant=variant)
 
@@ -630,6 +679,16 @@ def _variant_call(kernel, K, D, variant):
     ("fused_pmc_stats", 3, 4, "looped", False), ("fused_vb_estep", 2, 17, "reg", False),
     ("fused_vb_estep", 3, 4, "table", True), ("fused_is_pmc_step", 2, 17, "reg", False),
     ("fused_is_pmc_step", 3, 4, "rec", False),
+    # fused_logq and fused_maha: the record kernel to D = 64, the tiled
+    # kernel beside it and alone past it (they have no looped kernel)
+    ("fused_logq", 3, 10, "rec", True), ("fused_logq", 3, 10, "tiled", True),
+    ("fused_logq", 3, 10, "looped", False), ("fused_logq", 1, 65, "rec", False),
+    ("fused_logq", 1, 65, "tiled", True), ("fused_logq", 1, 65, "looped", False),
+    ("fused_maha", 1, 100, "looped", False), ("fused_logq", 1, 129, "looped", False),
+    ("fused_logq", 1, 129, "tiled", True), ("fused_logq", 1, 129, "warp", False),
+    ("fused_maha", 3, 10, "rec", True), ("fused_maha", 3, 10, "tiled", True),
+    ("fused_maha", 1, 65, "rec", False), ("fused_maha", 1, 129, "tiled", True),
+    ("fused_maha", 1, 129, "warp", False), ("fused_maha", 3, 4, "reg", False),
 ])
 def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, ok):
     """A wrapper's variant= names the plan's pass or its yardstick; any
@@ -645,15 +704,19 @@ def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, o
 def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
     the three draws' record, looped and warp kernels and the statistics
-    kernels' register and entry-table passes (fused_pmc_stats' tile width is
-    no longer a variant)."""
+    kernels' register and entry-table passes, fused_logq's and fused_maha's
+    record and tiled kernels (fused_pmc_stats' tile width is no longer a
+    variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
     for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", "warp")} <= names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
-    assert not any("=tile" in n for n in names)
+    for kernel in _build.TILED:
+        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "tiled")} <= names
+        assert "variant:%s=looped" % kernel not in names
+    assert not any(n.endswith("=tile") for n in names)
 
 
 def test_package_imports_without_jax():

@@ -251,13 +251,14 @@ def test_blocked_election_raises_on_the_card(monkeypatch):
     assert_params_close(got.params, ref.params, rtol=1e-8, atol=1e-10)
 
 
-@pytest.mark.parametrize("K,D", [(2, 10), (2, 40), (400, 10)])
+@pytest.mark.parametrize("K,D", [(2, 10), (2, 40), (2, 96), (2, 200), (400, 10)])
 def test_mixture_logpdf_and_mahalanobis_on_both_sides_of_the_limit(K, D):
-    """The JAX package runs fused_logq and fused_maha at K=2 for D=10 and
-    D=40 (they fit its VMEM at a 128-particle tile) and takes XLA at K=400,
-    D=10: the port runs the kernels' plain versions for the first two and
-    its unfused tensor paths, counted as plain routes, for the third.  All
-    match JAX."""
+    """The JAX package runs fused_logq and fused_maha at K=2 for D=10, 40,
+    96 and 200 (they fit its VMEM at a 128-particle tile; on the card D=96
+    and D=200 take the block-tiled kernels) and takes XLA at K=400, D=10:
+    the port runs the kernels' plain versions for the first four and its
+    unfused tensor paths, counted as plain routes, for the last.  All match
+    JAX."""
     from pypmc_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(8)
