@@ -28,7 +28,10 @@ Phases, each of which exits non-zero on failure:
    K=32, D=40 and K=200, D=10, the draws' at the flagship and at D=40
    (``fused_transform`` K=32, ``fused_transform_rng`` K=11,
    ``fused_propose_logq`` K=9 with a 2-component target, the fused draws
-   at K=32 and K=11; at least 16 warps);
+   at K=32 and K=11; at least 16 warps); the tiled kernels of
+   ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``
+   and ``fused_transform``'s bucket kernel (no spill), their blocks an SM,
+   their election and the bucket kernel's plan against ``_build``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -39,8 +42,15 @@ Phases, each of which exits non-zero on failure:
    the pipeline's K=32, D=40, at the K=200, D=10 log-likelihood, and at
    D=33 and D=64, the lower end of the DMAX 40 record kernel and the upper
    end of the DMAX 64 one; the statistics kernels at K=120, D=1, where
-   their tile is 64 particles; the six kernels with a warp-a-particle path
-   past D=128 at (K=1, D=129), (K=2, D=200) and (K=1, D=1000);
+   their tile is 64 particles; the six kernels past D=128 at (K=1,
+   D=129), (K=2, D=200) and (K=1, D=1000); the four tiled kernels past D=64
+   (``TILED_CASES``: K=1 and the JAX rule's largest K at D=65, 96, 128,
+   129 and 200, K=1 at D=1000 and 2040): each against its float64 plain
+   version, counted as tiled, equal on a second run, ``fused_rho``'s log q
+   ``fused_logq``'s bit for bit, ``fused_transform``'s tiled pair equal to
+   its looped kernel bit for bit to D=128 (components drawn by weight, a
+   dead component's bucket empty) and its bucket kernel's permutation and
+   tiles equal to ``_build.transform_tiles``';
    ``fused_vb_estep`` and ``fused_is_pmc_step`` at the edges of their
    register pass's plan (K=16 and 17 at D=10, D=11 and 16, K=128 at D=1,
    and K=137 at D=1 on the entry table), each where the register pass is
@@ -119,7 +129,9 @@ Phases, each of which exits non-zero on failure:
    at 2^16 particles, ``examples/pmc_sharded.py``'s configuration (1001
    particles), a D=40 step of 1000 particles past ``fused_propose_logq``'s
    rule, the D=40 pipeline's PMC stage (K=32 Student-t, 2^20 particles,
-   10 steps; ``pmc_stage_problem``) and the 2^16 slice in float64: every
+   10 steps; ``pmc_stage_problem``), the 2^16 slice in float64 and the
+   wide path's D=200 step (``WIDE_PATH``: ``fused_rho`` and
+   ``fused_transform`` tiled): every
    run bit for bit the first loop's, the launches equal, the steps replayed
    as CUDA graphs with no fallback and no warning; host ms a step both ways,
    device ms a step (torch.profiler) and the peak memory of the loop, the
@@ -157,10 +169,16 @@ Phases, each of which exits non-zero on failure:
    ``fused_draw_transform`` at K=16 (one launch each) and on the tensor
    path below 1024 particles (after one ``draw_proposal_inputs`` launch),
    at D=80 through ``draw_proposal_inputs`` and ``fused_transform_rng`` at
-   K=4, ``fused_transform`` at K=16 (each on its looped kernel); a per-point target
+   K=4 (its looped kernel), ``fused_transform`` at K=16 (its tiled pair); a per-point target
    through ``fused_maha`` and one through ``fused_rho``, mapped over 2^16
    points with ``torch.func.vmap``: one launch each, no warning, equal to
    the batched call;
+   wide: ``pmc_run_sharded`` at ``WIDE_PATH`` (D=200, K=4, Kt=2, 2^16
+   particles, 5 steps): every ``fused_logq``, ``fused_rho`` and
+   ``fused_transform`` launch tiled, each step's log q, log p and
+   responsibilities against float64, ms a step and the step's device time
+   by kernel; a ``GaussianInference`` fit at D=200 (one tiled
+   ``fused_maha`` an iteration, its first against float64 on the CPU);
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
@@ -237,8 +255,13 @@ Phases, each of which exits non-zero on failure:
     the pool's two variants
     at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
     the mcmc phase's and on each side of the cut-offs of their election
-    (``POOL_SWEEP``), the six warp-a-particle kernels at K=1, D=200,
-    N=2^16, and the device time of each launch of the K-blocked kernels
+    (``POOL_SWEEP``), the six kernels past D=128 at K=1, D=200, N=2^16,
+    the four tiled kernels at ``TILED_SHAPES`` (K=1 and the rule's largest
+    K at D=65, 96, 128 and 200, the wide path's K=4 at D=200; in turns with
+    their plain versions, ``torch.bmm`` yardsticks and ``fused_transform``'s
+    looped kernel; its bucket kernel alone; ``chip_smoke.py --tiled-times``
+    runs them alone, ``--elected-times DIR`` times the kernels a checkout
+    elects there, such as an earlier commit's), and the device time of each launch of the K-blocked kernels
     (torch.profiler, in a fresh process: ``chip_smoke.py
     --blocked-splits``), the first launch also beside its bound;
     ``solve_dofs``'s warp and serial kernels (CUDA events, and device time
@@ -1348,12 +1371,16 @@ def mixture_particles(ops, N, seed, device, spread=1.5):
 
 
 def tiled_case(case, device, report):
-    """fused_maha on lower (U = L^{-1}) and upper (the VB E-step's) operands
-    and fused_logq on a Gaussian mixture and on a Student-t one with a dead
-    component (K > 1), past the record kernels' D = 64: each through the
-    kernel the wrapper elects (the tiled kernel, counted as
-    ``variant:...=tiled``) against its float64 plain version on the same
-    particles (TOL "maha" and "log"), and equal on a second run."""
+    """fused_maha on lower (U = L^{-1}) and upper (the VB E-step's) operands,
+    fused_logq and fused_rho on a Gaussian mixture and on a Student-t one
+    with a dead component (K > 1), and fused_transform on each, past the
+    record kernels' D = 64.  The evaluations through the kernel the wrapper
+    elects (the tiled kernel, counted as ``variant:...=tiled``) against
+    their float64 plain versions on the same particles (TOL "maha", "log",
+    "rho"), equal on a second run; fused_rho's log q equal to fused_logq's
+    bit for bit, a dead component's rho exactly 0.  fused_transform
+    (transform_tiled_case) on components drawn by weight (a dead component's
+    bucket empty)."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -1369,8 +1396,8 @@ def tiled_case(case, device, report):
         xT = mixture_particles(ops, N, seed, device)
         x64 = xT.double()
         tag = "%s t" % label if student else label
-        runs = [("fused_logq", lambda v: k.fused_logq(xT, ops, variant=v),
-                 k.plain_logq(x64, ops64), "log")]
+        rho_ref, lq_ref = k.plain_rho(x64, ops64)
+        runs = [("fused_logq", lambda v: k.fused_logq(xT, ops, variant=v), lq_ref, "log")]
         if not student:
             A, m, _ = vb_operands(params)
             for side, a, mm in (("lower", ops.fields()["U"], ops.fields()["mu"]), ("upper", A, m)):
@@ -1391,13 +1418,79 @@ def tiled_case(case, device, report):
         if dead:
             require(bool(torch.isfinite(k.fused_logq(xT, ops)).all()),
                     "%s: a dead component made log q non-finite" % tag)
-        del xT, x64, runs, ref
+        k.reset_launch_counts()
+        rho, log_q = k.fused_rho(xT, ops)
+        counts = k.launch_counts()
+        require(counts["variant:fused_rho=tiled"] == counts["fused_rho"] == 1,
+                "%s fused_rho: the launch was not the tiled kernel: %s"
+                % (tag, {n: c for n, c in counts.items() if c}))
+        compare("%s fused_rho rho" % tag, rho, rho_ref, "rho", report)
+        compare("%s fused_rho log_q" % tag, log_q, lq_ref, "log", report)
+        require(bool(torch.equal(log_q, k.fused_logq(xT, ops))),
+                "%s: fused_rho's log q is not fused_logq's bit for bit" % tag)
+        if dead:
+            require(bool((rho[K // 2] == 0).all()), "%s: a dead component's rho is not 0" % tag)
+        again = k.fused_rho(xT, ops)
+        require(bool(torch.equal(rho, again[0]) and torch.equal(log_q, again[1])),
+                "%s fused_rho: one input gave two outputs" % tag)
+        del xT, x64, runs, ref, rho, log_q, rho_ref, lq_ref, again
+        transform_tiled_case(params, tag, seed, N, device, report)
         torch.cuda.empty_cache()
 
 
-# past the record kernels' D = 64, fused_maha's and fused_logq's tiled
-# kernel: K = 1 and the JAX rule's largest K at D = 65, 96, 128, 129, 200, and
-# K = 1 at D = 1,000 and 2,040 (the rule's reach); N ragged: K, D, N, seed
+def transform_tiled_case(params, tag, seed, N, device, report):
+    """fused_transform past D = 64 on N normals, components drawn by weight
+    (component_draw) and scales (a Student-t mixture's sqrt(dof / chi2),
+    else uniform in [0.5, 1.5)): the bucket kernel's perm and slots equal to
+    ``_build.transform_tiles``' on the same components; the elected launch
+    counted under its variant; the tiled pair (forced where the looped kernel
+    is elected) to D = 128 equal to the looped kernel bit for bit and past it
+    within TOL "log" of its float64 plain version; equal on a second run."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    ops = core._kernel_operands(params)
+    K, D = ops.K, ops.dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    latent = component_draw(params, N, seed)
+    scale = (student_t_scale(gen, params.dof[latent.long()], (N,)) if ops.student_t
+             else torch.rand((N,), generator=gen, device=device) + 0.5)
+    perm, slots = k._transform_buckets(latent, K)
+    want_perm, want_slots = _build.transform_tiles(latent.cpu().numpy(), K)
+    require(np.array_equal(perm.cpu().numpy(), want_perm)
+            and np.array_equal(slots.cpu().numpy(), want_slots),
+            "%s: the bucket kernel's perm and slots differ from _build.transform_tiles'" % tag)
+    empty = K - len(set(want_slots[want_slots[:, 0] >= 0, 0].tolist()))
+    elected = k._elect("fused_transform", K, D, None)
+    k.reset_launch_counts()
+    got = k.fused_transform(zT, latent, scale, ops)
+    counts = k.launch_counts()
+    require(counts["variant:fused_transform=" + elected] == counts["fused_transform"] == 1,
+            "%s fused_transform: the launch was not the %s kernel: %s"
+            % (tag, elected, {n: c for n, c in counts.items() if c}))
+    if elected != "tiled":
+        got = k.fused_transform(zT, latent, scale, ops, variant="tiled")
+    ref = k.plain_transform(zT.double(), latent, scale.double(),
+                            k.MixtureOperands(ops.packed.double(), K, D, ops.student_t))
+    compare("%s fused_transform (%d of %d buckets empty)" % (tag, empty, K), got, ref, "log",
+            report)
+    if D <= _build._THREAD_D_MAX:
+        differ = int((got != k.fused_transform(zT, latent, scale, ops, variant="looped")).sum())
+        print("  %s fused_transform tiled vs looped: %d of %d outputs differ" % (tag, differ, D * N))
+        require(differ == 0, "%s fused_transform: the tiled pair and the looped kernel differ in "
+                "%d outputs" % (tag, differ))
+    require(bool(torch.equal(got, k.fused_transform(zT, latent, scale, ops, variant="tiled"))),
+            "%s fused_transform: one input gave two outputs" % tag)
+
+
+# past the record kernels' D = 64, the tiled kernels of fused_maha,
+# fused_logq, fused_rho and fused_transform: K = 1 and the JAX rule's largest
+# K at D = 65, 96, 128, 129, 200, and K = 1 at D = 1,000 and 2,040 (the rule's
+# reach); N ragged: K, D, N, seed
 TILED_CASES = [
     (1, 65, 4099, 201), (60, 65, N_WIDE, 202), (1, 96, N_WIDE, 203), (41, 96, 4099, 204),
     (1, 128, 4099, 205), (30, 128, N_WIDE, 206), (1, 129, N_WIDE, 207), (30, 129, 4099, 208),
@@ -2411,8 +2504,11 @@ def scan_problems(device):
     the unfused update), a D=40 step of 1000 particles past
     fused_propose_logq's rule (the draw of draw_proposal_inputs and the
     tensor transform), the D=40 pipeline's PMC stage (K=32 Student-t,
-    2^20 particles: fused_draw_transform, the unfused update) and the slice at 2^16 particles in float64 (every gate refuses;
-    draw_proposal_inputs' float64 draw, the tensor transform)."""
+    2^20 particles: fused_draw_transform, the unfused update), the slice at
+    2^16 particles in float64 (every gate refuses; draw_proposal_inputs'
+    float64 draw, the tensor transform) and WIDE_PATH's PMC run (D=200:
+    draw_proposal_inputs and fused_transform's tiled pair, the unfused
+    update through fused_rho's tiled kernel)."""
     import torch
 
     params, target, _ = flagship_problem(device)
@@ -2422,6 +2518,7 @@ def scan_problems(device):
     wide = make_params(random_mixture(rng, 12, 40, False), device)
     wide_target = make_params(random_mixture(rng, 2, 40, False), device)
     stage, stage_target = pmc_stage_problem(device)
+    wide_params, wide_path_target = wide_path_problem(device)
     return [("slice", params, target, N_SLICE, STEPS),
             ("--components 200", blocked, blocked_target, N_SLICE, STEPS),
             ("2^16 particles", params, target, 1 << 16, STEPS),
@@ -2429,7 +2526,9 @@ def scan_problems(device):
             ("K=12, D=40, 1000 particles", wide, wide_target, 1000, 4),
             ("K=32 t, D=40, 2^20 (PMC stage)", stage, stage_target, N_FLAGSHIP, STEPS),
             ("float64, 2^16 particles", params.to(dtype=torch.float64),
-             target.to(dtype=torch.float64), 1 << 16, STEPS)]
+             target.to(dtype=torch.float64), 1 << 16, STEPS),
+            ("WIDE_PATH D=200 K=4, 2^16", wide_params, wide_path_target, WIDE_PATH["n"],
+             WIDE_PATH["steps"])]
 
 
 def scan_case(device, label, params, target, n, steps):
@@ -3476,12 +3575,14 @@ def phase_routes(device, report):
     tensor path after draw_proposal_inputs; at D=80 (2^16 particles), past
     the record kernels, K=4 through draw_proposal_inputs and
     fused_transform_rng, K=16 through draw_proposal_inputs and
-    fused_transform (Student-t scale drawn outside, clamped), each
-    transform on its looped kernel.  Each draw's
+    fused_transform (Student-t scale drawn outside, clamped),
+    fused_transform_rng on its looped kernel, fused_transform on the kernel
+    its plan elects there (the tiled pair).  Each draw's
     samples are checked against its mixture and each log-density against
     float64."""
     import torch
     from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     rng = np.random.default_rng(80)
@@ -3490,7 +3591,8 @@ def phase_routes(device, report):
                                     (40, 16, ROUTE_N, "fused_draw_transform", None),
                                     (40, 11, 1000, "tensor", None),
                                     (80, 4, 1 << 16, "fused_transform_rng", "looped"),
-                                    (80, 16, 1 << 16, "fused_transform", "looped")):
+                                    (80, 16, 1 << 16, "fused_transform",
+                                     _build.transform_plan(16, 80)[0])):
         target = make_params(random_mixture(rng, 2, D, False), device)
         t64 = target.to("cpu", torch.float64)
         arrs = random_mixture(rng, K, D, True, spread=3.0)
@@ -3591,30 +3693,55 @@ MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES = 16384, 10, 500, 4
 WIDE_PATH = dict(D=200, K=4, Kt=2, n=1 << 16, steps=5, vb_n=1 << 16, vb_iters=10)
 
 
+def wide_path_problem(device):
+    """WIDE_PATH's mixtures: ``(params, target)``, a Kt=2 Gaussian-mixture
+    target (weights 0.3/0.7, covariances 0.8 I and 1.2 I) and a K=4
+    Gaussian proposal near its modes, equal weights, in float32."""
+    D, K, Kt = (WIDE_PATH[f] for f in ("D", "K", "Kt"))
+    rng = np.random.default_rng(200)
+    t_means = np.stack([rng.normal(0, 1, D), rng.normal(0, 1, D) + 2.0]).astype(np.float32)
+    t_covs = np.array([np.eye(D) * 0.8, np.eye(D) * 1.2], np.float32)
+    target = make_params((t_means, t_covs, np.array([0.3, 0.7], np.float32), None), device)
+    means = t_means[np.arange(K) % Kt] + rng.normal(0, 0.05, (K, D)).astype(np.float32)
+    params = make_params((means, t_covs[np.arange(K) % Kt], np.full(K, 1.0 / K, np.float32),
+                          None), device)
+    return params, target
+
+
 def recorded_launches(k, name):
-    """Patch ``k``'s launch operator of ``name`` (``"logq"`` or ``"maha"``)
-    so that every launch's arguments and output are kept, as clones, in the
-    list returned; and a function that undoes it."""
+    """Patch ``k``'s launch operator of ``name`` (``"logq"``, ``"rho"`` or
+    ``"maha"``) so that every launch's arguments and output (a tuple of
+    outputs for fused_rho) are kept, as clones, in the list returned; and a
+    function that undoes it."""
     attr = "_%s_launch" % name
     launch, kept = getattr(k, attr), []
 
     def recording(*args):
         out = launch(*args)
         kept.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args)
-                    + (out.detach().clone(),))
+                    + (tuple(o.detach().clone() for o in out) if isinstance(out, tuple)
+                       else out.detach().clone(),))
         return out
 
     setattr(k, attr, recording)
     return kept, lambda: setattr(k, attr, launch)
 
 
+# the wide PMC step's device rows (ms a step, launches a step, kernel), as
+# phase_wide last profiled them
+wide_step_rows = []
+
+
 def phase_wide(device, report):
     """The wide path through the port's entry points, past D = 128 where
-    fused_logq and fused_maha take the tiled kernel: ``parallel
-    .pmc_run_sharded`` at WIDE_PATH (its steps draw by ``propose_T`` past
-    fused_propose_logq's rule, so each step's log q, log p and
-    log-likelihood are fused_logq launches), every fused_logq launch of the
-    run held to its float64 plain version on the same particles; a
+    fused_logq, fused_maha, fused_rho and fused_transform take their tiled
+    kernels: ``parallel.pmc_run_sharded`` at WIDE_PATH (its steps draw by
+    ``propose_T`` past fused_propose_logq's rule, draw_proposal_inputs then
+    fused_transform, so each step's log q, log p and log-likelihood are
+    fused_logq launches, and its unfused update a fused_rho launch), every
+    fused_logq and fused_rho launch of the run held to its float64 plain
+    version on the same particles, every fused_rho and fused_transform
+    launch tiled; a
     ``GaussianInference`` fit at WIDE_PATH's VB size (the unfused E-step, one
     fused_maha launch an iteration), its first iteration's bilinear term
     held to the same term in float64 on the CPU.  Each prints ms a step or
@@ -3628,14 +3755,9 @@ def phase_wide(device, report):
     from pypmc_tpu_torch.parallel import pmc_run_sharded
 
     D, K, Kt, n, steps = (WIDE_PATH[f] for f in ("D", "K", "Kt", "n", "steps"))
-    rng = np.random.default_rng(200)
-    t_means = np.stack([rng.normal(0, 1, D), rng.normal(0, 1, D) + 2.0]).astype(np.float32)
-    t_covs = np.array([np.eye(D) * 0.8, np.eye(D) * 1.2], np.float32)
-    target = make_params((t_means, t_covs, np.array([0.3, 0.7], np.float32), None), device)
-    means = t_means[np.arange(K) % Kt] + rng.normal(0, 0.05, (K, D)).astype(np.float32)
-    params = make_params((means, t_covs[np.arange(K) % Kt], np.full(K, 1.0 / K, np.float32),
-                          None), device)
+    params, target = wide_path_problem(device)
     kept, undo = recorded_launches(k, "logq")
+    kept_rho, undo_rho = recorded_launches(k, "rho")
     k.reset_launch_counts()
     try:
         out, stats = pmc_run_sharded(target, params, n, steps, key=3)
@@ -3643,12 +3765,31 @@ def phase_wide(device, report):
     finally:
         pmc_counts = k.launch_counts()
         undo()
+        undo_rho()
     require(len(kept) == pmc_counts["fused_logq"] >= 2 * steps,
             "wide pmc: %d fused_logq launches kept of %d for %d steps"
             % (len(kept), pmc_counts["fused_logq"], steps))
-    require(pmc_counts["variant:fused_logq=tiled"] == pmc_counts["fused_logq"],
-            "wide pmc: %d of %d fused_logq launches took the tiled kernel"
-            % (pmc_counts["variant:fused_logq=tiled"], pmc_counts["fused_logq"]))
+    for name, least in (("fused_logq", 2 * steps), ("fused_rho", steps),
+                        ("fused_transform", steps)):
+        require(pmc_counts["variant:%s=tiled" % name] == pmc_counts[name] >= least,
+                "wide pmc: %d of %d %s launches took the tiled kernel, for %d steps"
+                % (pmc_counts["variant:%s=tiled" % name], pmc_counts[name], name, steps))
+    require(len(kept_rho) == pmc_counts["fused_rho"],
+            "wide pmc: %d fused_rho launches kept of %d" % (len(kept_rho), pmc_counts["fused_rho"]))
+    # each step's responsibilities against their float64 plain version,
+    # where float32 resolves the proposal's log q (as the log q held below)
+    for i, (xT, packed, Kl, student_t, (rho, log_q)) in enumerate(kept_rho):
+        rho_ref, lq_ref = k.plain_rho(xT.double(),
+                                      k.MixtureOperands(packed.double(), Kl, D, student_t))
+        held = torch.isfinite(lq_ref) & (lq_ref.abs() < 1e30)
+        require(i >= 1 or bool(held.all()), "wide pmc: the first step's log q is not finite "
+                "in float64")
+        if bool(held.any()):
+            name = "wide pmc step %d fused_rho (K=%d, %d of %d held)" % (
+                i + 1, Kl, int(held.sum()), held.numel())
+            compare(name + " rho", rho[:, held], rho_ref[:, held], "rho", report)
+            compare(name + " log_q", log_q[held], lq_ref[held], "log", report)
+    del kept_rho
     # a step's launches: log q of its proposal, log p, and the log-likelihood
     # of the updated mixture, which PMC in D = 200 from 2^16 particles may
     # leave ill-conditioned (components of weight 0, or covariances so
@@ -3678,13 +3819,14 @@ def phase_wide(device, report):
         pmc_run_sharded(target, params, n, steps, key=5)
         sync(device)
     rows = device_rows(prof, steps)
+    wide_step_rows[:] = rows
     print("  pmc_run_sharded D=%d K=%d Kt=%d n=%d: %.3f ms a step (host), device %.3f ms a "
           "step; ess %s, weights %s; launches %s" % (
               D, K, Kt, n, step_ms, sum(r[0] for r in rows),
               np.array2string(stats.ess.cpu().numpy(), precision=4),
               np.array2string(out.weights.cpu().numpy(), precision=4),
               json.dumps({c: v for c, v in pmc_counts.items() if v})))
-    for t, c, key in rows[:4]:
+    for t, c, key in [r for i, r in enumerate(rows) if i < 6 or "pmc::" in r[2]]:
         print("    %8.3f ms  %5.1f x  %s" % (t, c, key[:90]))
     del out, stats, prof
     torch.cuda.empty_cache()
@@ -5764,60 +5906,174 @@ def wide_shape_ms(device):
             for name, (kernel, plain) in calls.items()}
 
 
-# the shapes (K, Kt, D, N) at which fused_maha's and fused_logq's tiled
-# kernel is timed: K = 1 and the JAX rule's largest K at D = 65, 96 and 128
-# (where it replaced the looped kernel) and at D = 200
+# the shapes (K, Kt, D, N) at which the tiled kernels of fused_maha,
+# fused_logq, fused_rho and fused_transform are timed: K = 1 and the JAX
+# rule's largest K at D = 65, 96 and 128 (where they replaced the looped
+# kernels) and at D = 200, and the wide path's K = 4 at D = 200
 TILED_SHAPES = [(K, 0, D, 1 << 16) for K, D in ((1, 65), (60, 65), (1, 96), (41, 96), (1, 128),
-                                               (30, 128), (1, 200), (19, 200))]
+                                               (30, 128), (1, 200), (19, 200), (4, 200))]
+TILED_TIMED = ("fused_maha", "fused_logq", "fused_rho", "fused_transform")
+
+
+def tiled_inputs(device, shape):
+    """The inputs the tiled kernels are timed on at ``shape`` (K, Kt, D, N):
+    a random Student-t mixture (seed K + D) and its packed operands, N
+    particles from it (mixture_particles), the VB E-step's upper operands of
+    it; for fused_transform N standard normals, components drawn by weight
+    (component_draw) and the mixture's Student-t scales.  Only the package's
+    public layout is read, so that an earlier checkout's kernels can be
+    timed on the same inputs (``--elected-times``)."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    ops = core._kernel_operands(params)
+    A, m, _ = vb_operands(params)
+    gen = torch.Generator(device=device).manual_seed(K + D)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    latent = component_draw(params, N, K + D)
+    return dict(params=params, ops=ops, xT=mixture_particles(ops, N, K + D, device), A=A, m=m,
+                zT=zT, latent=latent,
+                scale=student_t_scale(gen, params.dof[latent.long()], (N,)))
+
+
+def tiled_calls(k, a):
+    """``{name: (kernel call, plain call)}`` of the wrappers of TILED_TIMED on
+    tiled_inputs ``a``, each call taking the index cuda_ms hands it."""
+    xT, ops = a["xT"], a["ops"]
+    tr = (a["zT"], a["latent"], a["scale"], ops)
+    return {"fused_maha": (lambda i: k.fused_maha(xT, a["A"], a["m"]),
+                           lambda i: k.plain_maha(xT, a["A"], a["m"])),
+            "fused_logq": (lambda i: k.fused_logq(xT, ops), lambda i: k.plain_logq(xT, ops)),
+            "fused_rho": (lambda i: k.fused_rho(xT, ops), lambda i: k.plain_rho(xT, ops)),
+            "fused_transform": (lambda i: k.fused_transform(*tr),
+                                lambda i: k.plain_transform(*tr))}
+
+
+def elected_ms(device, shape):
+    """``{name: ms}`` of the kernel each wrapper of TILED_TIMED elects at
+    ``shape`` in the package imported, CUDA events on tiled_inputs: in an
+    earlier checkout, the kernels the tiled ones replaced."""
+    from pypmc_tpu_torch.ops import kernels as k
+
+    calls = tiled_calls(k, tiled_inputs(device, shape))
+    return {name: cuda_ms(calls[name][0]) for name in TILED_TIMED}
+
+
+def graph_ms(fn, reps=20, replays=3):
+    """Device milliseconds of fn(i) with no host gaps: ``reps`` calls
+    captured in one CUDA graph (after a warm-up call on a side stream),
+    replayed ``replays`` times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(10_000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def tiled_shape_ms(device, shape):
-    """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for fused_maha
-    (on the VB E-step's upper operands of a random Student-t mixture) and
-    fused_logq (on the mixture), particles from it (mixture_particles),
-    CUDA events, in turns (tiled, library, plain, plain, library, tiled;
-    each the mean of its two turns): "tiled", the kernel the wrapper elects
-    there (held to the float64 plain version first), also as "cuda";
-    "plain", the plain version; "library", one PyTorch call,
-    ``torch.bmm(a, xc)`` on the pre-centred (K, D, N) operand: the product
-    alone, in full FP32 (allow_tf32 False), a yardstick the port never
-    calls."""
+    """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for the wrappers
+    of TILED_TIMED on tiled_inputs (fused_maha on the VB E-step's upper
+    operands), CUDA events, in turns (tiled, looped, library, plain, plain,
+    library, looped, tiled; each the mean of its two turns): "tiled", the
+    tiled kernel (fused_transform's pair forced where its plan elects the
+    looped kernel; held to the float64 plain version first), also as "cuda"
+    where it is the elected one; "looped", fused_transform's looped kernel
+    to D = 128; "plain", the plain version; "library", one PyTorch call in
+    full FP32 (allow_tf32 False), a yardstick the port never calls:
+    ``torch.bmm(a, xc)`` on the pre-centred (K, D, N) operand for the
+    evaluations (fused_rho's a = U, as fused_logq's), ``torch.bmm(L, Zb)``
+    for fused_transform, on normals pre-bucketed into a (K, D, N / K)
+    operand, the product alone; and fused_transform's two launches' device
+    time (graph_ms, no host gaps): "bucket", the bucket kernel alone, and
+    "product", the pair's less the bucket kernel's."""
     import torch
-    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in FP32")
     K, _, D, N = shape
-    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
-    ops = core._kernel_operands(params)
-    xT = mixture_particles(ops, N, K + D, device)
-    A, m, _ = vb_operands(params)
-    f = ops.fields()
+    a = tiled_inputs(device, shape)
+    ops, xT, f = a["ops"], a["xT"], a["ops"].fields()
     ops64 = k.MixtureOperands(ops.packed.double(), K, D, True)
+    x64 = xT.double()
+    tr = (a["zT"], a["latent"], a["scale"])
+    calls = tiled_calls(k, a)
     label = "K=%d D=%d N=%d" % (K, D, N)
+    refs = {"fused_maha": lambda: k.plain_maha(x64, a["A"].double(), a["m"].double()),
+            "fused_logq": lambda: k.plain_logq(x64, ops64),
+            "fused_rho": lambda: k.plain_rho(x64, ops64)[0],
+            "fused_transform": lambda: k.plain_transform(tr[0].double(), tr[1], tr[2].double(),
+                                                         ops64)}
     out = {}
-    for name, call, plain, a, mm, ref, kind in (
-            ("fused_maha", lambda: k.fused_maha(xT, A, m), lambda: k.plain_maha(xT, A, m), A, m,
-             lambda: k.plain_maha(xT.double(), A.double(), m.double()), "maha"),
-            ("fused_logq", lambda: k.fused_logq(xT, ops), lambda: k.plain_logq(xT, ops),
-             f["U"], f["mu"], lambda: k.plain_logq(xT.double(), ops64), "log")):
-        require(k._elect(name, K, D, None) == "tiled", "%s %s: not the tiled kernel" % (name, label))
-        compare("%s tiled %s" % (name, label), call(), ref(), kind, [])
-        xc = (xT[None] - mm[:, :, None]).contiguous()
-        fns = {"tiled": lambda i: call(), "library": lambda i: torch.bmm(a, xc),
-               "plain": lambda i: plain()}
+    for name in TILED_TIMED:
+        elected = k._elect(name, K, D, None)
+        call, plain = calls[name]
+        if name == "fused_transform":
+            call = lambda i: k.fused_transform(*tr, ops, variant="tiled")
+            kind = "log"
+        else:
+            require(elected == "tiled", "%s %s: not the tiled kernel" % (name, label))
+            kind = {"fused_maha": "maha", "fused_logq": "log", "fused_rho": "rho"}[name]
+        got = call(0)
+        compare("%s tiled %s" % (name, label), got[0] if name == "fused_rho" else got,
+                refs[name](), kind, [])
+        del got
+        torch.cuda.empty_cache()
+        if name == "fused_transform":
+            Lk = f["L"].contiguous()
+            zb = torch.randn((K, D, N // K), device=device)
+            library = lambda i: torch.bmm(Lk, zb)
+        else:
+            am = {"fused_maha": (a["A"], a["m"])}.get(name, (f["U"], f["mu"]))
+            xc = (xT[None] - am[1][:, :, None]).contiguous()
+            library = lambda i, am=am, xc=xc: torch.bmm(am[0], xc)
+        fns = {"tiled": call, "library": library, "plain": plain}
+        order = ("tiled", "library", "plain", "plain", "library", "tiled")
+        if name == "fused_transform" and D <= _build._THREAD_D_MAX:
+            fns["looped"] = lambda i: k.fused_transform(*tr, ops, variant="looped")
+            order = ("tiled", "looped", "library", "plain", "plain", "library", "looped", "tiled")
         ms = {route: [] for route in fns}
-        for route in ("tiled", "library", "plain", "plain", "library", "tiled"):
+        for route in order:
             ms[route].append(cuda_ms(fns[route], **({"reps": 3, "warmup": 1}
                                                     if route == "plain" else {})))
-        del xc
+        fns.clear()
         torch.cuda.empty_cache()
         out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
-        out[(name, "cuda")] = out[(name, "tiled")]
-        print("  %s %s: tiled %s ms, plain %s ms, library (bmm) %s ms, bound %.3f ms"
+        if elected == "tiled":
+            out[(name, "cuda")] = out[(name, "tiled")]
+        else:
+            out[(name, "cuda")] = out[(name, elected)]
+        extra = ""
+        if name == "fused_transform":
+            out[(name, "bucket")] = graph_ms(lambda i: k._transform_buckets(tr[1], K))
+            out[(name, "product")] = graph_ms(call) - out[(name, "bucket")]
+            extra = ", device: bucket kernel %.4f ms, product %.4f ms; elected %s%s" % (
+                out[(name, "bucket")], out[(name, "product")], elected,
+                ", looped %s ms" % " / ".join("%.3f" % t for t in ms["looped"])
+                if "looped" in ms else "")
+        print("  %s %s: tiled %s ms, plain %s ms, library (bmm) %s ms, bound %.3f ms%s"
               % (name, label, *(" / ".join("%.3f" % t for t in ms[route])
                                 for route in ("tiled", "plain", "library")),
-                 bound(name, shape)[1]))
+                 bound(name, shape)[1], extra))
     return out
 
 
@@ -5979,6 +6235,35 @@ def register_kernels(log):
     return out
 
 
+# the draws' plan codes (csrc/common.cuh DrawPlan, csrc/transform.cu
+# kDrawTiled)
+DRAW_PLAN_CODES = ("looped", "rec", "warp", "tiled")
+# the tiled engine's kernels (csrc/tiled.cuh) and fused_transform's bucket
+# kernel, by their names' mangled spelling
+TILED_KERNELS = ("maha_tiled_kernel", "logq_tiled_kernel", "rho_tiled_kernel",
+                 "transform_tiled_kernel", "transform_bucket_kernel")
+
+
+def tiled_kernels(log):
+    """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of each
+    of TILED_KERNELS in a ``ptxas -v`` log; fails unless each is there
+    once."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        base = next((k for k in TILED_KERNELS if "%d%s" % (len(k), k) in name), None)
+        if base is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
+        out.append((base, int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
+                    int(stack.group(1)) if stack else 0))
+    require(sorted(n for n, _, _, _ in out) == sorted(TILED_KERNELS),
+            "ptxas reported the tiled kernels %s" % [n for n, _, _, _ in out])
+    return out
+
+
 def phase_build():
     """Build the kernel library (or load it, built), and hold the
     launchers' formulas and the ptxas report to what ops/_build.py and the
@@ -6041,14 +6326,13 @@ def phase_build():
                             ("fused_propose_logq", lambda out: lib.pmc_propose_plan(K, Kt, D, out))):
             plan = (ctypes.c_int * 4)()
             draw_smem[kernel] = ask(plan)
-            got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3],
-                   draw_smem[kernel])
+            got = (DRAW_PLAN_CODES[plan[0]], bool(plan[1]), plan[2], plan[3], draw_smem[kernel])
             want = _build.draw_plan(kernel, K, D, Kt)
             require(got == want, "plan differs from the kernel's (%s, K=%d, Kt=%d, D=%d): %s, %s"
                     % (kernel, K, Kt, D, got, want))
         plan = (ctypes.c_int * 4)()
         smem = lib.pmc_draw_transform_plan(K, D, plan)
-        got = (("looped", "rec", "warp")[plan[0]], bool(plan[1]), plan[2], plan[3], smem)
+        got = (DRAW_PLAN_CODES[plan[0]], bool(plan[1]), plan[2], plan[3], smem)
         require(got == _build.draw_transform_plan(K, D),
                 "plan differs from the kernel's (the fused draws, K=%d, D=%d): %s, %s"
                 % (K, D, got, _build.draw_transform_plan(K, D)))
@@ -6095,6 +6379,7 @@ def phase_build():
         for code, kernel in enumerate(("fused_logq", "fused_maha", "fused_rho")):
             require(lib.pmc_eval_chunk(K, D, code) == _build.eval_plan(kernel, K, D)[0],
                     "chunk formula differs from the kernel's (%s)" % kernel)
+        require(lib.pmc_rho_per_sm(K, D, -1) > 0, "fused_rho at K=%d, D=%d fits no block" % (K, D))
     for C in (1, 32, 4096, 4097, 8192, 8193, 32768, 32769, 1 << 20):
         for D in (1, 8, 9, 16, 17, 32, 33, 40, 41, 64, 65, 128):
             require(POOL_VARIANTS[lib.pmc_mcmc_pool_variant(C, D)] == _build.pool_variant(C, D),
@@ -6109,43 +6394,51 @@ def phase_build():
                                                  per_sm * _build.THREADS // 32, plan[2], plan[4]))
         require(plan[0] == "reg" and per_sm >= 3,
                 "%s at K=10, D=10: the %s pass, %d blocks an SM" % (kernel, plan[0], per_sm))
-    # fused_logq's and fused_maha's election past D = 64 and the tiled plan
+    # fused_logq's, fused_maha's and fused_rho's election past D = 64 and the
+    # tiled plan
     for D in range(1, 301):
         require(("looped", "rec", "tiled")[lib.pmc_eval_variant(D)]
-                == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_maha", D),
-                "the election differs from the kernel's (fused_logq, fused_maha, D=%d)" % D)
+                == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_maha", D)
+                == _build.eval_variant("fused_rho", D),
+                "the election differs from the kernel's (fused_logq, fused_maha, fused_rho, "
+                "D=%d)" % D)
     plan = (ctypes.c_int * 4)()
     smem = lib.pmc_tiled_plan(plan)
     require(tuple(plan) + (smem,) == _build.tiled_plan(),
             "the tiled plan differs from the kernel's: %s, %s"
             % (tuple(plan) + (smem,), _build.tiled_plan()))
-    tiled = [(name, part) for name, part in (
-        (p.split("'", 1)[0], p) for p in log.split("Compiling entry function '")[1:])
-        if "17maha_tiled_kernel" in name or "17logq_tiled_kernel" in name]
-    require(len(tiled) == 2, "ptxas reported %d tiled kernels" % len(tiled))
-    for name, part in tiled:
-        regs = re.search(r"Used (\d+) registers", part)
-        spill = re.search(r"(\d+) bytes spill stores", part)
-        stack = re.search(r"(\d+) bytes stack frame", part)
-        spilled = int(spill.group(1)) if spill else 0
+    # the tiled kernels and fused_transform's bucket kernel: registers,
+    # spills (none), stack frames
+    for name, regs, spilled, stack in tiled_kernels(log):
         print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
-              % ("maha_tiled_kernel" if "maha" in name else "logq_tiled_kernel",
-                 int(regs.group(1)) if regs else -1, spilled,
-                 int(stack.group(1)) if stack else 0))
+              % (name, regs, spilled, stack))
         require(spilled == 0, "%s spills %d bytes" % (name, spilled))
-    for K, D in ((1, 65), (60, 65), (1, 200), (19, 200), (1, 2040)):
+    for K, D in ((1, 65), (60, 65), (1, 200), (4, 200), (19, 200), (1, 2040)):
         for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
-                               ("fused_logq", lib.pmc_logq_per_sm(K, D, -1))):
+                               ("fused_logq", lib.pmc_logq_per_sm(K, D, -1)),
+                               ("fused_rho", lib.pmc_rho_per_sm(K, D, -1))):
             print("  %s K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
                   "%d B of shared memory a block"
                   % (kernel, K, D, _build.eval_variant(kernel, D), per_sm, plan[3],
                      per_sm * plan[3] // 32, smem))
             require(per_sm >= 2, "%s at K=%d, D=%d: %d blocks an SM" % (kernel, K, D, per_sm))
+    per_sm = lib.pmc_transform_tiled_per_sm()
+    print("  fused_transform from D=%d: the tiled kernel, %d blocks of %d threads an SM (%d "
+          "warps), %d B of shared memory a block"
+          % (_build.TRANSFORM_TILED_D_MIN, per_sm, plan[3], per_sm * plan[3] // 32, smem))
+    require(per_sm >= 2, "fused_transform's tiled kernel: %d blocks an SM" % per_sm)
+    for K in (1, 4, 19, 60, 1000):
+        out = (ctypes.c_int * 3)()
+        bsmem = lib.pmc_transform_bucket_plan(K, out)
+        got = (out[0], out[1], out[2], bsmem)
+        require(got == _build.transform_bucket_plan(K),
+                "the bucket plan differs from the kernel's (K=%d): %s, %s"
+                % (K, got, _build.transform_bucket_plan(K)))
     # the record kernels' occupancy where the main paths run them
     for K, D in ((32, 40), (200, 10)):
         for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
                                ("fused_logq", lib.pmc_logq_per_sm(K, D, -1)),
-                               ("fused_rho", lib.pmc_rho_per_sm(K, D))):
+                               ("fused_rho", lib.pmc_rho_per_sm(K, D, -1))):
             warps = per_sm * _build.EVAL_THREADS // 32
             kc, buffers, smem = _build.eval_plan(kernel, K, D)
             print("  %s K=%d D=%d: %d blocks of %d threads an SM (%d warps), %d components "
@@ -6326,7 +6619,8 @@ def main():
             entry["exps"] = exps
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
         shapes += TILED_SHAPES if kname in _build.TILED else []
-        extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms"}
+        extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms",
+                 "bucket": "bucket_device_ms", "product": "product_device_ms"}
         entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
                                  "plain_ms": times[(kname, sh, "plain")],
                                  "bound_ms": bound(kname, sh)[1]},
@@ -6334,7 +6628,13 @@ def main():
                                    if (kname, sh, route) in times})
                            for sh in shapes]
         if kname in _build.TILED:
-            entry["tiled_d_min"] = _build.TILED_D_MIN
+            entry["tiled_d_min"] = (_build.TRANSFORM_TILED_D_MIN if kname == "fused_transform"
+                                    else _build.TILED_D_MIN)
+        if kname == "fused_transform":
+            # the tiled pair's first launch, one a tiled launch; its device
+            # time is the shapes' bucket_device_ms
+            entry["bucket_kernel"] = {"name": "transform_bucket_kernel", "source": src,
+                                      "launches": counts["variant:fused_transform=tiled"]}
         if (kname, n, "looped") in times:
             # a draw kernel's elected kernel at the shape, and the looped
             # kernel's time there
@@ -6418,6 +6718,32 @@ if __name__ == "__main__":
             print(card_line())
             phase_build()
             chunk_sweep(torch.device("cuda", 0))
+            sys.exit(0)
+        if sys.argv[1:2] == ["--elected-times"]:
+            # the kernels TILED_TIMED's wrappers elect at TILED_SHAPES in the
+            # checkout at sys.argv[2] (an earlier commit unpacked under a
+            # directory .gitignore lists, or "."), its library built there
+            sys.path.insert(0, sys.argv[2])
+            import torch
+
+            print(card_line())
+            dev = torch.device("cuda", 0)
+            print("ELECTED_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): elected_ms(dev, sh) for sh in TILED_SHAPES}),
+                flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--tiled-times"]:
+            # phase build, then tiled_shape_ms at TILED_SHAPES
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            print("TILED_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
+                                             in tiled_shape_ms(dev, sh).items()}
+                 for sh in TILED_SHAPES}), flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--blocked-splits"]:
             print("BLOCKED_SPLITS " + json.dumps(blocked_splits()), flush=True)

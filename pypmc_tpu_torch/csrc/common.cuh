@@ -11,8 +11,9 @@
 // unrolled to DMAX with a guard on the runtime D, so the arrays stay in
 // registers; the DMAX = 128 instantiation loops to D, and its arrays live in
 // local memory.  Past D = 128 the kernels of warp.cuh take a warp a
-// particle, with no per-thread array; fused_logq and fused_maha run the
-// block-tiled product kernel of tiled.cuh from D = 65.
+// particle, with no per-thread array; fused_logq, fused_maha, fused_rho and
+// fused_transform run the block-tiled product engine of tiled.cuh from D =
+// 65 (fused_transform from transform.cu kTransformTiledDMin).
 //
 // A block stages its mixture operands in shared memory when they fit there
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
@@ -705,7 +706,7 @@ constexpr int kRecDMax = 64;        // the largest D of the record kernels
 // The record instantiations, DMAX ascending, each with the blocks of
 // kEvalThreads an SM it is compiled for: x and x - mu take 2 DMAX registers a
 // thread (ptxas on sm_90a: DMAX 48 spilled at 2 blocks, DMAX 16 at 4).  40 is
-// the pipeline's D.  dispatch_eval walks this list and eval_dmax_below and
+// the pipeline's D.  dispatch_records walks this list and eval_dmax_below and
 // eval_min_blocks read it, so that a kernel's assumption on D is what the
 // dispatch gives it.
 template <int DMAX, int MIN_BLOCKS> struct EvalInst {};
@@ -755,26 +756,17 @@ __host__ __device__ inline size_t wide_smem_bytes(int D) {
 
 struct EvalPlan {
   int kc;        // components a chunk
-  int buffers;   // chunk buffers in shared memory; 0: operands read from device memory
+  int buffers;   // chunk buffers in shared memory, 1 or 2
   size_t smem;   // shared memory a block asks for
 };
 
-// The shared-memory plan of the record kernels of fused_logq (maha false),
-// fused_rho (whose records are fused_logq's) and fused_maha, and of
-// fused_rho's looped and warp kernels (mirrored by ops/_build.py
-// eval_plan; fused_logq's and fused_maha's tiled kernel past D = 64 has its
-// own, tiled.cuh).  D <= 64: the records of the whole mixture in one buffer
+// The shared-memory plan of the record kernels (D <= 64) of fused_logq
+// (maha false), fused_rho (whose records are fused_logq's) and fused_maha
+// (mirrored by ops/_build.py eval_plan; their tiled kernels past D = 64 have
+// their own, tiled.cuh): the records of the whole mixture in one buffer
 // where they fit an SM's half, else two buffers of the largest equal chunks
-// that do, one filled while the other is read.  Past D = 64 the looped
-// kernel stages its operands whole where they fit; past D = 128 the warp
-// kernel reads them from device memory and asks for its slices.
+// that do, one filled while the other is read.
 __host__ __device__ inline EvalPlan eval_plan(int K, int D, bool maha) {
-  if (D > kDMax) return {K, 0, wide_smem_bytes(D)};
-  if (D > kRecDMax) {
-    const size_t ops = sizeof(float) * (maha ? static_cast<size_t>(K) * D * (D + 1)
-                                             : static_cast<size_t>(MixLayout{K, D}.eval_size()));
-    return ops <= kSmemLimit ? EvalPlan{K, 1, ops} : EvalPlan{K, 0, 0};
-  }
   const size_t rec = sizeof(float) * (maha ? vb_rec_floats(D) : rec_floats(D));
   if (K * rec <= kHalfSmem) return {K, 1, K * rec};
   const int most = static_cast<int>(kHalfSmem / (2 * rec));
@@ -840,54 +832,6 @@ int dispatch_records(int D, Body& body, EvalList<EvalInst<DS, BS>...>) {
   (void)((D <= DS && (err = body(std::integral_constant<int, DS>(), std::true_type()), true)) ||
          ...);
   return err;
-}
-
-// Call body(DMAX, OPS_SMEM) (std::integral_constant arguments) with the
-// instantiation of fused_rho's kernel for D and return its result: the record kernel of EvalInsts up to D = 64
-// (OPS_SMEM unused), the looped kernel at DMAX 128 to D = 128, the warp
-// kernel (DMAX kWideDMax, OPS_SMEM false) past it.
-template <typename Body>
-int dispatch_eval(int D, bool ops_smem, Body&& body) {
-  if (D <= kRecDMax) return dispatch_records(D, body, EvalInsts());
-  if (D > kWideDMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (D > kDMax) return body(std::integral_constant<int, kWideDMax>(), std::false_type());
-  return ops_smem ? body(std::integral_constant<int, kDMax>(), std::true_type())
-                  : body(std::integral_constant<int, kDMax>(), std::false_type());
-}
-
-// threads of a block at DMAX
-__host__ __device__ constexpr int eval_threads(int DMAX) {
-  return DMAX <= kRecDMax ? kEvalThreads : DMAX <= kDMax ? kThreads : kWideThreads;
-}
-
-// Call body(kernel, threads, smem) with the kernel of Kernels (fused_rho's:
-// a struct with ``maha``, false, and get<DMAX, OPS_SMEM>(), the kernel of
-// dispatch_eval's instantiation) for (K, D), its block size and its shared
-// memory, set first as the kernel's limit; body's result, or the error of
-// the dispatch or of setting the limit.
-template <typename Kernels, typename Body>
-int with_eval_kernel(int K, int D, Body&& body) {
-  const EvalPlan plan = eval_plan(K, D, Kernels::maha);
-  return dispatch_eval(D, plan.buffers > 0, [&](auto dmax, auto ops) {
-    constexpr int DMAX = decltype(dmax)::value;
-    const auto kernel = Kernels::template get<DMAX, decltype(ops)::value>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return body(kernel, eval_threads(DMAX), plan.smem);
-  });
-}
-
-// blocks of the kernel of Kernels for (K, D) that fit on one SM at once
-// (registers, shared memory and threads); -1 on an error
-template <typename Kernels>
-int eval_per_sm(int K, int D) {
-  int n = 0;
-  const int err = with_eval_kernel<Kernels>(K, D, [&](auto kernel, int threads, size_t smem) {
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem));
-  });
-  return err == 0 ? n : -1;
 }
 
 // ---------------------------------------------------------------------

@@ -10,20 +10,26 @@
 // the K whitened evaluations of logq.cu (K D (D + 1) / 2 FMAs) -- at K = 32,
 // D = 40 ~26,000 FMAs a particle: FMA-bound, like logq.cu, with the (K, N)
 // responsibilities written and read back once (~0.08 ms at K = 32, N = 2^20
-// at the card's peak bandwidth) beside it.
-// Design, D <= 64 (rho_kernel): logq.cu's record kernel -- 256 threads a
+// at the card's peak bandwidth) beside it.  At K = 1, D = 200, 2^16 the
+// bound is 0.040 ms of FP32 operations.
+//
+// Both kernels are fused_logq's with a store: each log q_k goes into the
+// thread's own rho entry while the weighted log-sum-exp runs, k ascending,
+// and after the last component the thread reads its K entries back (its own
+// writes, in order) and writes rho_k and log q.  So log q is fused_logq's
+// bit for bit, no K-sized register array exists, and each (k, n) access is
+// coalesced.  D <= 64 (rho_kernel): logq.cu's record kernel -- 256 threads a
 // block, one particle a thread in registers (DMAX 8 to 64), the components
 // as 16-byte records streamed through shared memory in one buffer or two
-// chunk buffers (common.cuh eval_plan, stream_records) -- whose per-component
-// hook parks each log q_k in the thread's own rho entry while the streaming
-// log-sum-exp runs; after the last chunk a second loop over k reads them
-// back (the same thread's writes, in order) and writes rho.  So log q is
-// fused_logq's bit for bit, no K-sized register array exists, and each
-// (k, n) access is coalesced.  Past D = 64 (rho_looped_kernel) the looped
-// DMAX = 128 instantiation reads the packed operands, staged whole where
-// they fit; past D = 128 (rho_warp_kernel) a warp takes a particle
-// (warp.cuh).
-#include "warp.cuh"
+// chunk buffers (common.cuh eval_plan, stream_records).  From D =
+// kTiledDMin (rho_tiled_kernel): logq_tiled_kernel, the block-tiled FP32
+// product engine of tiled.cuh on U_k (panels above the diagonal skipped),
+// thread n % 128 holding particle n's log-sum-exp; a dead component's log
+// q_k is stored and skipped in the sum.  What bounds it there is the
+// engine's FMA issue, as for fused_logq (PERF.md section 6): the K (N,)
+// rows of rho move 4 K bytes a particle against the D (D + 1) / 2 FMAs of
+// each component.
+#include "tiled.cuh"
 
 namespace pmc {
 
@@ -34,7 +40,7 @@ rho_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
            int student_t) {
   extern __shared__ float4 smem4[];
   constexpr int below = eval_dmax_below(DMAX);
-  __builtin_assume(D > below && D <= DMAX);   // dispatch_eval's
+  __builtin_assume(D > below && D <= DMAX);   // dispatch_records'
   const MixLayout L{K, D};
   WeightedLse acc;
   stream_records<DMAX>(
@@ -58,98 +64,65 @@ rho_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
       });
 }
 
-template <bool OPS_SMEM>
-__global__ void __launch_bounds__(kThreads)
-rho_looped_kernel(const float* __restrict__ xT, const float* __restrict__ mix_src,
-                  float* __restrict__ rho, float* __restrict__ log_q, long long N,
-                  int K, int D, int student_t) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kTileThreads, 2)
+rho_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
+                 float* __restrict__ rho, float* __restrict__ log_q, long long N, int K, int D,
+                 int student_t) {
+  extern __shared__ float4 smem4[];
   const MixLayout L{K, D};
-  const float* mix = stage_operands<OPS_SMEM>(smem, mix_src, L.eval_size());
-  __syncthreads();
-  for (long long n = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       n < N; n += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float x[kDMax], diff[kDMax];
-    load_particle<kDMax>(xT, N, n, D, x);
-    WeightedLse lse;
-    for (int k = 0; k < K; ++k) {
-      const float maha = whiten<kDMax>(mix + L.U() + k * D * D,
-                                       mix + L.mu() + k * D, x, D, diff);
-      const float ind = component_logpdf(maha, mix[L.ln() + k],
-                                         mix[L.dof() + k], D, student_t != 0);
-      rho[k * N + n] = ind;
-      lse.add(ind, mix[L.w() + k]);
-    }
-    const float lq = lse.value();
-    for (int k = 0; k < K; ++k) {
-      const float wk = mix[L.w() + k];
-      rho[k * N + n] = wk > 0.0f ? expf(rho[k * N + n] - lq) * wk : 0.0f;
-    }
-    log_q[n] = lq;
-  }
+  WeightedLse lse;
+  tiled_eval<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), N, K, D,
+                   [&](int k, long long n, float maha) {
+                     if (k == 0) lse = WeightedLse();
+                     const float w = mix[L.w() + k];
+                     const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k],
+                                                        D, student_t != 0);
+                     if (w > 0.0f) lse.add(ind, w);
+                     if (n >= N) return;
+                     rho[k * N + n] = ind;
+                     if (k == K - 1) {
+                       const float lq = lse.value();
+                       for (int j = 0; j < K; ++j) {
+                         const float wj = mix[L.w() + j];
+                         rho[j * N + n] = wj > 0.0f ? expf(rho[j * N + n] - lq) * wj : 0.0f;
+                       }
+                       log_q[n] = lq;
+                     }
+                   });
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-rho_warp_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
-                float* __restrict__ rho, float* __restrict__ log_q, long long N, int K,
-                int D, int student_t) {
-  extern __shared__ float smem[];
-  const WarpSlices sl = warp_slices(smem, D);
-  const MixLayout L{K, D};
-  for (long long n = warp_index(); n < N; n += warp_count()) {
-    warp_load(xT, N, n, D, sl.a);
-    WeightedLse acc;
-    for (int k = 0; k < K; ++k) {
-      const float* U = mix + L.U() + static_cast<long long>(k) * D * D;
-      const float maha = warp_maha([&](int i) { return U + static_cast<long long>(i) * D; },
-                                   mix + L.mu() + k * D, sl.a, sl.b, D, true);
-      const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D,
-                                         student_t != 0);
-      if (lane_id() == 0) rho[k * N + n] = ind;
-      acc.add(ind, mix[L.w() + k]);
-    }
-    const float lq = acc.value();
-    __syncwarp();   // lane 0's log q_k, read back by the lanes
-    for (int k = lane_id(); k < K; k += 32) {
-      const float wk = mix[L.w() + k];
-      rho[k * N + n] = wk > 0.0f ? expf(rho[k * N + n] - lq) * wk : 0.0f;
-    }
-    if (lane_id() == 0) log_q[n] = lq;
-    __syncwarp();   // the slices are rewritten next
-  }
-}
-
-// fused_rho's kernels for with_eval_kernel (the records of fused_logq)
+// fused_rho's kernels for with_eval_variant (the records of fused_logq)
 struct RhoKernels {
   static constexpr bool maha = false;
-  template <int DMAX, bool OPS_SMEM>
-  static auto get() {
-    if constexpr (DMAX <= kRecDMax) return rho_kernel<DMAX>;
-    else if constexpr (DMAX <= kDMax) return rho_looped_kernel<OPS_SMEM>;
-    else return rho_warp_kernel;
-  }
+  template <int DMAX>
+  static auto rec() { return rho_kernel<DMAX>; }
+  static auto tiled() { return rho_tiled_kernel; }
 };
 
 }  // namespace pmc
 
-// shared memory the launcher asks for (checked against ops/_build.py)
+// shared memory the elected kernel asks for (checked against ops/_build.py)
 extern "C" long long pmc_rho_smem_bytes(int K, int D) {
-  return static_cast<long long>(pmc::eval_plan(K, D, false).smem);
+  return static_cast<long long>(pmc::eval_variant_smem(K, D, false));
 }
 
-// blocks that fit on one SM at once (registers, shared memory and threads),
-// for the wrapper's grid; -1 on an error
-extern "C" int pmc_rho_per_sm(int K, int D) {
-  return pmc::eval_per_sm<pmc::RhoKernels>(K, D);
+// blocks of variant's kernel (-1 the elected one) that fit on one SM at once
+// (registers, shared memory and threads), for the wrapper's grid; -1 on an
+// error
+extern "C" int pmc_rho_per_sm(int K, int D, int variant) {
+  return pmc::eval_variant_per_sm<pmc::RhoKernels>(K, D, variant);
 }
 
-// mix: the packed evaluation operands (MixLayout); rho: (K, N); log_q: (N,)
+// mix: the packed evaluation operands (MixLayout); rho: (K, N); log_q: (N,);
+// variant: as pmc_fused_logq's (-1 the elected kernel, 1 the record, 2 the
+// tiled kernel)
 extern "C" int pmc_fused_rho(const float* xT, const float* mix, float* rho,
                              float* log_q, long long N, int K, int D,
-                             int student_t, int n_blocks, void* stream) {
+                             int student_t, int variant, int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = with_eval_kernel<RhoKernels>(K, D, [&](auto kernel, int threads, size_t smem) {
+  const int bad = with_eval_variant<RhoKernels>(K, D, variant, [&](auto kernel, int threads,
+                                                                     size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, mix, rho, log_q, N, K, D, student_t);
     return 0;
   });

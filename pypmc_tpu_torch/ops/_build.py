@@ -13,11 +13,14 @@ in a per-thread array of at most 128 floats (registers up to D = 32, and up
 to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 ``fused_maha``, ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``; local memory above).  Past D = 128
-the six kernels of :data:`WIDE` take D up to :data:`WIDE_D_MAX`: four run a
+the six kernels of :data:`WIDE` take D up to :data:`WIDE_D_MAX`: two run a
 warp a particle with its coordinates in shared memory (``csrc/warp.cuh``),
-and the two of :data:`TILED`, ``fused_logq`` and ``fused_maha``, run the
-block-tiled product kernel of ``csrc/tiled.cuh`` from D =
-:data:`TILED_D_MIN` (:func:`tiled_plan`, :func:`eval_variant`).  The dense
+and the four of :data:`TILED` run the block-tiled product engine of
+``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and ``fused_rho`` from D
+= :data:`TILED_D_MIN` (:func:`tiled_plan`, :func:`eval_variant`),
+``fused_transform`` from D = :data:`TRANSFORM_TILED_D_MIN` after a counting
+sort of its particles by component (:func:`transform_plan`,
+:func:`transform_bucket_plan`, :func:`transform_tiles`).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
@@ -50,9 +53,10 @@ import time
 from pathlib import Path
 
 __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
-           "DRAW_THREADS", "TILED_D_MIN",
+           "DRAW_THREADS", "TILED_D_MIN", "TRANSFORM_TILED_D_MIN",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
-           "eval_variant", "tiled_plan",
+           "eval_variant", "tiled_plan", "transform_bucket_plan", "transform_slots",
+           "transform_scratch_words", "transform_tiles",
            "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
            "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
@@ -77,11 +81,22 @@ _EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record insta
 # of a panel, threads a block, and A panels' row stride (kTileP, kTileM,
 # kTileK, kTileThreads, kTileStride)
 _TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, _TILE_STRIDE = 128, 128, 16, 256, 132
-# csrc/tiled.cuh kTiledDMin: the smallest D at which fused_logq and fused_maha
-# elect the tiled kernel, below it their record kernel (the first past the
-# record kernels' 64: the tiled kernel beat the looped kernel it replaced at
-# D = 65, 96 and 128, PERF.md)
+# csrc/tiled.cuh kTiledDMin: the smallest D at which fused_logq, fused_maha
+# and fused_rho elect the tiled kernel, below it their record kernel (the
+# first past the record kernels' 64: the tiled kernel beat the looped kernel
+# it replaced at D = 65, 96 and 128, PERF.md)
 TILED_D_MIN = 65
+# csrc/transform.cu kTransformTiledDMin: the smallest D at which
+# fused_transform elects its tiled pair (the bucket kernel, then the tiled
+# product), below it the looped kernel from D = 65 and the record kernel to
+# 64: the first D past 64 at which the pair beat the looped kernel at the
+# shapes timed (PERF.md)
+TRANSFORM_TILED_D_MIN = 65
+# csrc/transform.cu: the bucket kernel's threads a block and particles a
+# thread (kBucketThreads, kBucketItems); a block sorts a chunk of their
+# product
+_BUCKET_THREADS, _BUCKET_ITEMS = 1024, 32
+_BUCKET_CHUNK = _BUCKET_THREADS * _BUCKET_ITEMS
 
 _lib = None
 build_info = {}
@@ -102,13 +117,14 @@ BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
-# the kernels that take D past 128: fused_logq and fused_maha by the tiled
-# kernel (TILED), the others a warp a particle (csrc/warp.cuh)
+# the kernels that take D past 128: those of TILED by the tiled engine, the
+# others a warp a particle (csrc/warp.cuh)
 WIDE = ("fused_logq", "fused_rho", "fused_maha", "fused_transform", "fused_transform_rng",
         "fused_propose_logq")
 # the kernels with a block-tiled product kernel (csrc/tiled.cuh)
-TILED = ("fused_logq", "fused_maha")
-# the draws: a record, a looped and a warp kernel each (draw_plan)
+TILED = ("fused_logq", "fused_maha", "fused_rho", "fused_transform")
+# the draws: a record and a looped kernel each, and past D = 128 a warp
+# kernel (draw_plan) or, fused_transform, the tiled pair (transform_plan)
 DRAWS = ("fused_transform", "fused_transform_rng", "fused_propose_logq")
 # each kernel's largest D: the warp and tiled kernels' past D = 128, the thread
 # kernels' elsewhere (at least the JAX package's rule's reach: D = 2,040 at
@@ -321,9 +337,75 @@ def transform_plan(K, D, rng=False):
     ``rng``) for (K, D); mirrors ``csrc/transform.cu`` ``transform_plan``
     (:func:`_record_plan`): the record kernel stages each component's mean and
     lower triangle (``fused_transform_rng``'s also the K dofs), the looped
-    kernel the operands ``mu | L | dof``."""
+    kernel the operands ``mu | L | dof``; ``fused_transform`` from D =
+    :data:`TRANSFORM_TILED_D_MIN` ``"tiled"``, its tiled pair, whose product
+    kernel has the tiled engine's threads and shared memory
+    (:func:`tiled_plan`; the bucket kernel's, :func:`transform_bucket_plan`)."""
+    if not rng and D >= TRANSFORM_TILED_D_MIN:
+        return "tiled", False, 0, _TILE_THREADS, tiled_plan()[4]
     return _record_plan(D, K * (_transform_rec_floats(D) + int(rng)),
                         _operand_floats("fused_transform", K, D, 0))
+
+
+def transform_bucket_plan(K):
+    """``(threads a block, particles a chunk, slots of a full chunk, shared
+    memory a block)`` of ``fused_transform``'s bucket kernel for K
+    components; mirrors ``csrc/transform.cu`` (``pmc_transform_bucket_plan``):
+    a block sorts a chunk of 32,768 particles, a warp's count of each
+    component and the buckets' starts and first tiles in shared memory; a
+    chunk has a slot for each of its tiles, at most one partial a
+    component."""
+    smem = 4 * ((_BUCKET_THREADS // 32) * K + 2 * (K + 1))
+    return _BUCKET_THREADS, _BUCKET_CHUNK, _BUCKET_CHUNK // _TILE_P + K, smem
+
+
+def transform_slots(N, K):
+    """The slots of ``fused_transform``'s tiled pair for N particles
+    (``csrc/transform.cu`` ``bucket_slots``): each full chunk's, then the last
+    chunk's ``ceil(len / 128) + K``; the tiled kernel's grid walks them."""
+    if N <= 0:
+        return 0
+    chunks = -(-N // _BUCKET_CHUNK)
+    last = N - (chunks - 1) * _BUCKET_CHUNK
+    return (chunks - 1) * (_BUCKET_CHUNK // _TILE_P + K) + -(-last // _TILE_P) + K
+
+
+def transform_scratch_words(N, K):
+    """int32 words of the tiled pair's scratch (``transform_scratch_words``):
+    the permutation (N, padded to 4) and the slots, four words each."""
+    return -(-N // 4) * 4 + 4 * transform_slots(N, K)
+
+
+def transform_tiles(latent, K):
+    """``(perm (N,), slots (transform_slots(N, K), 4))``, int32 numpy
+    arrays: what ``fused_transform``'s bucket kernel writes for the
+    components ``latent`` (``csrc/transform.cu`` ``transform_bucket_kernel``),
+    mirrored.  Chunk c (particles 32,768 c ..) lists its particles in perm by
+    component, each component's in their order, the components ascending
+    (a latent outside [0, K) is left out, its entries -1 here); its slots,
+    from ``c * (256 + K)``, hold its tiles ``(k, first entry of perm,
+    length, 0)``, up to 128 of a component's particles each, the
+    components ascending, then ``(-1, 0, 0, 0)``."""
+    import numpy as np
+
+    latent = np.asarray(latent).astype(np.int64).reshape(-1)
+    N = latent.shape[0]
+    perm = np.full(N, -1, np.int32)
+    slots = np.zeros((transform_slots(N, K), 4), np.int32)
+    slots[:, 0] = -1
+    for c0 in range(0, N, _BUCKET_CHUNK):
+        lat = latent[c0:c0 + _BUCKET_CHUNK]
+        ok = (lat >= 0) & (lat < K)
+        counts = np.bincount(lat[ok], minlength=K)
+        start = np.concatenate([[0], np.cumsum(counts)])
+        order = np.argsort(np.where(ok, lat, K), kind="stable")[:int(ok.sum())]
+        perm[c0:c0 + order.shape[0]] = c0 + order
+        s = c0 // _BUCKET_CHUNK * (_BUCKET_CHUNK // _TILE_P + K)
+        for k in range(K):
+            for first in range(int(start[k]), int(start[k + 1]), _TILE_P):
+                slots[s] = (k, c0 + first, min(_TILE_P, int(start[k + 1]) - first), 0)
+                s += 1
+    return perm, slots
 
 
 def propose_plan(K, Kt, D):
@@ -431,16 +513,9 @@ def tiled_plan():
 
 def eval_variant(kernel, D):
     """The kernel ``fused_logq``, ``fused_maha`` or ``fused_rho`` elects at
-    dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant`` (and for
-    ``fused_rho`` ``csrc/common.cuh`` ``dispatch_eval``): ``fused_logq``
-    and ``fused_maha`` ``"rec"``, the record kernel, below
-    :data:`TILED_D_MIN` and ``"tiled"`` from it; ``fused_rho`` ``"rec"`` to
-    D = 64, ``"looped"`` to D = 128 and ``"warp"`` past it."""
-    if kernel in TILED:
-        return "rec" if D < TILED_D_MIN else "tiled"
-    if D <= _REC_D_MAX:
-        return "rec"
-    return "looped" if D <= _THREAD_D_MAX else "warp"
+    dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant``: ``"rec"``, the
+    record kernel, below :data:`TILED_D_MIN` and ``"tiled"`` from it."""
+    return "rec" if D < TILED_D_MIN else "tiled"
 
 
 def eval_plan(kernel, K, D, variant=None):
@@ -450,22 +525,13 @@ def eval_plan(kernel, K, D, variant=None):
     ``eval_plan`` and ``csrc/tiled.cuh``.  The record kernel (to D = 64)
     streams 16-byte component records (``fused_maha``'s in the VB layout):
     the whole mixture in one buffer where it fits half an SM's shared
-    memory, else two buffers of the largest equal chunks that do.
-    ``fused_rho``'s looped kernel (D = 65-128) stages its operands whole
-    (one buffer of K) where they fit, and reads them from device memory (no
-    buffer) where they do not; its warp kernel, past D = 128, reads them
-    from device memory and asks for its slices; the tiled kernel of
-    ``fused_logq`` and ``fused_maha`` takes a component at a time, its
-    panels in two buffers (:func:`tiled_plan`)."""
+    memory, else two buffers of the largest equal chunks that do.  The
+    tiled kernel takes a component at a time, its panels in two buffers
+    (:func:`tiled_plan`)."""
     maha = kernel == "fused_maha"
     variant = eval_variant(kernel, D) if variant is None else variant
     if variant == "tiled":
         return 1, 2, tiled_plan()[4]
-    if variant == "warp":
-        return K, 0, _wide_smem(D)
-    if variant == "looped":
-        ops = 4 * (K * D * (D + 1) if maha else _eval_floats(K, D))
-        return (K, 1, ops) if ops <= SMEM_LIMIT else (K, 0, 0)
     rec = 4 * _rec_floats(D, vb=maha)
     if K * rec <= _HALF_SMEM:
         return K, 1, K * rec
@@ -475,30 +541,27 @@ def eval_plan(kernel, K, D, variant=None):
 
 
 def eval_threads(D, variant=None):
-    """Threads of a block of ``fused_rho``'s kernel for dimension D (with
-    ``variant``, of that kernel of ``fused_logq``, ``fused_rho`` or
-    ``fused_maha``); mirrors ``csrc/common.cuh`` ``eval_threads`` and
-    ``csrc/tiled.cuh`` ``kTileThreads``."""
+    """Threads of a block of the kernel ``fused_logq``, ``fused_rho`` and
+    ``fused_maha`` elect for dimension D (with ``variant``, of that kernel);
+    mirrors ``csrc/common.cuh`` ``kEvalThreads`` and ``csrc/tiled.cuh``
+    ``kTileThreads``."""
     variant = eval_variant("fused_rho", D) if variant is None else variant
-    return {"rec": EVAL_THREADS, "looped": THREADS, "warp": WIDE_THREADS,
-            "tiled": _TILE_THREADS}[variant]
+    return {"rec": EVAL_THREADS, "tiled": _TILE_THREADS}[variant]
 
 
 def block_particles(kernel, D, variant=None):
     """Particles a block of ``kernel`` takes at a time in dimension D (its
     grid is one wave of blocks over N / this; ``variant``, a kernel of
-    ``fused_logq``, ``fused_rho`` or ``fused_maha`` other than the one it
-    elects): a thread a particle, past D = 128 in the warp kernels of
-    :data:`WIDE` a warp a particle, and a tile of 128 in the tiled kernel."""
+    ``fused_logq``, ``fused_rho``, ``fused_maha`` or a draw other than the
+    one it elects): a thread a particle, past D = 128 in the warp kernels a
+    warp a particle, and a tile of 128 in the tiled kernels."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         variant = eval_variant(kernel, D) if variant is None else variant
-        if variant == "tiled":
-            return _TILE_P
-        return WIDE_THREADS // 32 if variant == "warp" else eval_threads(D, variant)
-    if kernel in WIDE and D > _THREAD_D_MAX:
-        return WIDE_THREADS // 32
+        return _TILE_P if variant == "tiled" else EVAL_THREADS
     if kernel in DRAWS:
-        return eval_threads(D)
+        variant = variant or draw_plan(kernel, 1, D)[0]
+        return {"rec": EVAL_THREADS, "looped": THREADS, "warp": WIDE_THREADS // 32,
+                "tiled": _TILE_P}[variant]
     return THREADS
 
 
@@ -553,6 +616,11 @@ def limit_reason(kernel, K, D, Kt=0):
         return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
                 "a block for its statistics tile; the limit is %d"
                 % (kernel, K, Kt, D, need, SMEM_LIMIT))
+    if kernel == "fused_transform" and transform_plan(K, D)[0] == "tiled":
+        need = transform_bucket_plan(K)[3]
+        if need > SMEM_LIMIT:
+            return ("fused_transform: K=%d needs %d bytes of shared memory a block for "
+                    "the bucket kernel's counts; the limit is %d" % (K, need, SMEM_LIMIT))
     table = kernel not in _DENSE or dense_plan(kernel, K, D, Kt)[0] == "table"
     if kernel in _STATS and table and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
         return ("%s: K=%d, D=%d needs the 64-particle statistics tile, whose "
@@ -658,13 +726,18 @@ def _declare(lib):
                                   I, I, I, I, P],
         # xT, ops, out, N, K, D, variant (as pmc_fused_logq's), n_blocks, stream
         "pmc_fused_maha": [P, P, P, L, I, I, I, I, P],
-        # xT, mix, rho, log_q, N, K, D, student_t, n_blocks, stream
-        "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, P],
+        # xT, mix, rho, log_q, N, K, D, student_t, variant (as
+        # pmc_fused_logq's), n_blocks, stream
+        "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, I, P],
         # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
         "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, I, P],
-        # zT, latent, scale, ops, xT, N, K, D, variant (-1 the plan's, 0
-        # the looped kernel, 1 the record kernel), n_blocks, stream
-        "pmc_fused_transform": [P, P, P, P, P, L, I, I, I, I, P],
+        # zT, latent, scale, ops, scratch (the tiled pair's int32
+        # transform_scratch_words; else null), xT, N, K, D, variant (-1 the
+        # plan's, 0 the looped kernel, 1 the record kernel, 2 the tiled
+        # pair), n_blocks, stream
+        "pmc_fused_transform": [P, P, P, P, P, P, L, I, I, I, I, P],
+        # latent, scratch, N, K, stream: the tiled pair's bucket kernel alone
+        "pmc_transform_buckets": [P, P, L, I, P],
         # s0, s1, seed_words (as pmc_fused_propose_logq's), latent, ops, xT,
         # N, K, D, student_t, variant (as pmc_fused_transform's), n_blocks,
         # stream
@@ -739,11 +812,17 @@ def _declare(lib):
     lib.pmc_tiled_plan.argtypes = [P]            # int out[4]
     lib.pmc_tiled_plan.restype = ctypes.c_longlong
     # K, D, variant -> blocks an SM holds
-    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm"):
+    for name in ("pmc_logq_per_sm", "pmc_maha_per_sm", "pmc_rho_per_sm"):
         getattr(lib, name).argtypes = [I, I, I]
         getattr(lib, name).restype = ctypes.c_int
-    # K, D -> blocks an SM holds; the statistics tile; C, D -> the pool's variant
-    for name in ("pmc_rho_per_sm", "pmc_stats_tile", "pmc_mcmc_pool_variant"):
+    # fused_transform's tiled kernel: blocks an SM holds; its bucket kernel's
+    # plan: K, int out[3] -> shared memory
+    lib.pmc_transform_tiled_per_sm.argtypes = []
+    lib.pmc_transform_tiled_per_sm.restype = ctypes.c_int
+    lib.pmc_transform_bucket_plan.argtypes = [I, P]
+    lib.pmc_transform_bucket_plan.restype = ctypes.c_longlong
+    # K, D -> the statistics tile; C, D -> the pool's variant
+    for name in ("pmc_stats_tile", "pmc_mcmc_pool_variant"):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int
     pairs = ("pmc_logq_smem_bytes", "pmc_maha_smem_bytes", "pmc_rho_smem_bytes",

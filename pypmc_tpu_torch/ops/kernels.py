@@ -76,12 +76,13 @@ thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
 ``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
 entry-table pass, ``_build.dense_plan``; the draws ``fused_transform``,
 ``fused_transform_rng`` and ``fused_propose_logq``: the record, the looped
-or the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``;
-``fused_logq`` and ``fused_maha``: the record or the tiled kernel,
-``_build.eval_variant``), each launch's
-variant as ``variant:<kernel>=<variant>``.  Each of these wrappers takes a
-``variant=`` that forces another variant where the shape has it, as the
-yardstick of the election.
+or the warp kernel, and for ``fused_transform`` the tiled pair in place of
+the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``;
+``fused_logq``, ``fused_maha`` and ``fused_rho``: the record or the tiled
+kernel, ``_build.eval_variant``), each launch's
+variant as ``variant:<kernel>=<variant>``.  Each of these wrappers but
+``fused_rho`` takes a ``variant=`` that forces another variant where the
+shape has it, as the yardstick of the election.
 """
 
 import dataclasses
@@ -380,8 +381,7 @@ def _eval_per_sm(name, K, D, index, variant=None):
     fused_maha's kernel (None: the elected one)."""
     with torch.cuda.device(index):
         lib = _build.load()
-        per_sm = (lib.pmc_rho_per_sm(K, D) if name == "rho" else getattr(
-            lib, "pmc_%s_per_sm" % name)(K, D, _EVAL_VARIANTS.get(variant, -1)))
+        per_sm = getattr(lib, "pmc_%s_per_sm" % name)(K, D, _EVAL_VARIANTS.get(variant, -1))
     if per_sm < 1:
         raise RuntimeError("fused_%s: K=%d, D=%d fits no block on an SM" % (name, K, D))
     return per_sm
@@ -422,21 +422,48 @@ def _dense_per_sm(kernel, K, D, Kt, index):
 
 
 _DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
-# the draws' kernels and the launchers' variant codes (-1: the plan's)
-_DRAW_VARIANTS = {"looped": 0, "rec": 1, "warp": -1}
-# fused_logq's and fused_maha's kernels and the launchers' codes (-1: the
-# elected one)
+# the draws' kernels and the launchers' variant codes (-1: the plan's):
+# past D = 128 fused_transform has its tiled pair where the other two have
+# their warp kernel
+_DRAW_VARIANTS = {"looped": 0, "rec": 1, "warp": -1, "tiled": 2}
+# fused_logq's, fused_maha's and fused_rho's kernels and the launchers'
+# codes (-1: the elected one)
 _EVAL_VARIANTS = {"rec": 1, "tiled": 2}
+
+
+def _variant_names(kernel):
+    """The variants of ``kernel`` that :func:`launch_counts` names."""
+    if kernel == "fused_transform":
+        return ("rec", "looped", "tiled")
+    if kernel in _build.DRAWS:
+        return ("rec", "looped", "warp")
+    if kernel in _build.TILED:
+        return tuple(_EVAL_VARIANTS)
+    return _DENSE_VARIANTS
+
+
+def _transform_variants(D):
+    """fused_transform's kernels at D: the record kernel to D = 64, the
+    looped kernel to D = 128 and the tiled pair at any D."""
+    return tuple(v for v, top in (("rec", _build._REC_D_MAX), ("looped", _build._THREAD_D_MAX),
+                                  ("tiled", _build.WIDE_D_MAX)) if D <= top)
 
 
 def _elect(kernel, K, D, variant, Kt=0):
     """The variant of ``kernel`` (a draw kernel, a dense statistics kernel,
-    ``fused_logq`` or ``fused_maha``) at (K, D): its plan's for None
-    (``_build.draw_plan``, ``_build.dense_plan``, ``_build.eval_variant``),
-    else ``variant`` where the shape has it -- the plan's, or its yardstick
-    (the looped kernel beside the record kernel, the entry table beside the
-    register pass, the tiled kernel beside the record kernel);
+    ``fused_logq``, ``fused_maha`` or ``fused_rho``) at (K, D): its plan's
+    for None (``_build.draw_plan``, ``_build.dense_plan``,
+    ``_build.eval_variant``), else ``variant`` where the shape has it -- the
+    plan's, or its yardstick (the looped kernel beside the record kernel, the
+    entry table beside the register pass, the tiled kernel beside the record
+    kernel; ``fused_transform`` any of :func:`_transform_variants`);
     ``ValueError`` elsewhere, on any device."""
+    if kernel == "fused_transform":
+        elected = _build.transform_plan(K, D)[0]
+        if variant is None or variant in _transform_variants(D):
+            return elected if variant is None else variant
+        raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
+                         % (kernel, variant, K, D, elected))
     if kernel in _build.TILED:
         elected = _build.eval_variant(kernel, D)
         if variant in (None, elected, "tiled"):
@@ -924,9 +951,12 @@ _logq_launch.register_vmap(_logq_vmap)
 def fused_rho(xT, ops: MixtureOperands):
     """Rao-Blackwellized responsibilities ``rho (K, N)`` (exactly 0 for a
     dead component) and the mixture log-density ``(N,)`` of transposed
-    particles ``xT (D, N)`` (kernel ``csrc/rho.cu``).  ``torch.func.vmap``
-    maps it over a batch of particle blocks with one launch: ``rho (K, B,
-    N)``, ``log_q (B, N)``."""
+    particles ``xT (D, N)`` (kernel ``csrc/rho.cu``: the record kernel below
+    ``_build.TILED_D_MIN``, the tiled kernel from it, as
+    ``_build.eval_variant`` elects; counted as ``variant:fused_rho=<variant>``;
+    its log q is :func:`fused_logq`'s bit for bit).  ``torch.func.vmap`` maps
+    it over a batch of particle blocks with one launch: ``rho (K, B, N)``,
+    ``log_q (B, N)``."""
     if not use_kernel(xT, ops.packed):
         return plain_rho(xT, ops)
     if xT.shape[0] != ops.dim:
@@ -943,16 +973,18 @@ def _rho_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
     _check(xT, (D, N))
     _check_operands(ops)
     _build.check_limits("fused_rho", K, D)
+    variant = _build.eval_variant("fused_rho", D)
     lib = _build.load()
     rho = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_rho(
             xT.data_ptr(), packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
-            N, K, D, int(student_t), _eval_blocks("rho", xT.device, N, K, D),
-            _stream(xT.device))
+            N, K, D, int(student_t), _EVAL_VARIANTS[variant],
+            _eval_blocks("rho", xT.device, N, K, D), _stream(xT.device))
     _raise_on(err, "fused_rho")
     fused_rho.launches += 1
+    _variant_counts["fused_rho=" + variant] += 1
     return rho, log_q
 
 
@@ -1355,15 +1387,29 @@ def _rec_per_sm(kernel, K, D, Kt, index):
     return per_sm
 
 
+@functools.lru_cache(maxsize=None)
+def _transform_tiled_per_sm(index):
+    """Blocks of fused_transform's tiled kernel that one SM of CUDA device
+    ``index`` holds at once (the same at every shape)."""
+    with torch.cuda.device(index):
+        per_sm = _build.load().pmc_transform_tiled_per_sm()
+    if per_sm < 1:
+        raise RuntimeError("fused_transform: the tiled kernel fits no block on an SM")
+    return per_sm
+
+
 def _draw_blocks(kernel, device, n, K, D, variant, Kt=0):
     """One wave of a draw kernel's ``variant`` for n particles: the record
-    kernel's from its occupancy, else 16 blocks an SM of the looped kernel's
-    128 threads or, past D = 128, of 4 particles."""
+    kernel's from its occupancy, fused_transform's tiled kernel's over the
+    slots of its tiles (``_build.transform_slots``), else 16 blocks an SM of
+    the looped kernel's 128 threads or, past D = 128, of 4 particles."""
     if variant == "rec":
         return _blocks(device, n, _rec_per_sm(kernel, K, D, Kt, device.index),
                        _build.EVAL_THREADS)
-    threads = _build.THREADS if variant == "looped" else _build.block_particles(kernel, D)
-    return _blocks(device, n, 16, threads)
+    if variant == "tiled":
+        return _blocks(device, _build.transform_slots(n, K), _transform_tiled_per_sm(device.index),
+                       1)
+    return _blocks(device, n, 16, _build.block_particles(kernel, D, variant))
 
 
 def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
@@ -1371,10 +1417,12 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     given normals ``zT (D, N)``, components ``latent (N,) int32`` (in [0,
     K)) and scales ``(N,)`` -> ``(D, N)`` (kernel ``csrc/transform.cu``).
     ``variant``: the kernel, ``"rec"`` (the record kernel, to D = 64),
-    ``"looped"`` (to D = 128) or ``"warp"`` (past it), as
-    ``_build.transform_plan`` elects for None; either of the first two gives
-    the same output bit for bit.  Counted as
-    ``variant:fused_transform=<variant>``."""
+    ``"looped"`` (to D = 128) or ``"tiled"`` (the tiled pair, any D: a
+    counting sort of the particles by component, then a block-tiled product
+    over tiles of one component's particles), as ``_build.transform_plan``
+    elects for None; each gives the same output bit for bit where it runs
+    (up to the sign of a zero).  Counted as
+    ``variant:fused_transform=<variant>``.  The latents are in [0, K)."""
     variant = _elect("fused_transform", ops.K, ops.dim, variant)
     if not use_kernel(zT, scale, ops.packed):
         return plain_transform(zT, latent, scale, ops)
@@ -1388,15 +1436,33 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty_like(zT)
+    scratch = (torch.empty((_build.transform_scratch_words(N, ops.K),), dtype=torch.int32,
+                           device=zT.device) if variant == "tiled" else None)
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
-            xT.data_ptr(), N, ops.K, D, _DRAW_VARIANTS[variant], n_blocks,
-            _stream(zT.device))
+            None if scratch is None else scratch.data_ptr(), xT.data_ptr(), N, ops.K, D,
+            _DRAW_VARIANTS[variant], n_blocks, _stream(zT.device))
     _raise_on(err, "fused_transform")
     fused_transform.launches += 1
     _variant_counts["fused_transform=" + variant] += 1
     return xT
+
+
+def _transform_buckets(latent, K):
+    """``(perm, slots)`` of fused_transform's bucket kernel alone for the
+    components ``latent`` (``(N,)`` int32 on the card; ``slots`` as (n, 4)),
+    to be held to ``_build.transform_tiles``; not counted as a launch."""
+    N = latent.shape[0]
+    _check(latent, (N,), torch.int32)
+    scratch = torch.empty((_build.transform_scratch_words(N, K),), dtype=torch.int32,
+                          device=latent.device)
+    with torch.cuda.device(latent.device):
+        err = _build.load().pmc_transform_buckets(latent.data_ptr(), scratch.data_ptr(), N, K,
+                                                   _stream(latent.device))
+    _raise_on(err, "fused_transform's bucket kernel")
+    words = -(-N // 4) * 4
+    return scratch[:N], scratch[words:].view(-1, 4)
 
 
 def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
@@ -1643,14 +1709,8 @@ def reset_launch_counts():
         fn.launches = 0
         if fn.__name__ in _build.KERNELS and fn.__name__ not in _build.BLOCKED:
             _plain_routes[fn.__name__] = 0
-    for name in _build.DRAWS:
-        for variant in _DRAW_VARIANTS:
-            _variant_counts["%s=%s" % (name, variant)] = 0
-    for name in _build.TILED:
-        for variant in _EVAL_VARIANTS:
-            _variant_counts["%s=%s" % (name, variant)] = 0
-    for name in _build._DENSE:
-        for variant in _DENSE_VARIANTS:
+    for name in _build.DRAWS + _build.TILED + _build._DENSE:
+        for variant in _variant_names(name):
             _variant_counts["%s=%s" % (name, variant)] = 0
     for variant in _POOL_VARIANTS:
         _variant_counts["fused_mcmc_pool=" + variant] = 0

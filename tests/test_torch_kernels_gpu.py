@@ -135,9 +135,12 @@ def test_warp_kernels_past_d128_against_plain_versions(cuda, case):
 
 @pytest.mark.parametrize("case", chip_smoke.TILED_CASES)
 def test_tiled_kernels_past_d64_against_plain_versions(cuda, case):
-    """fused_maha (lower and upper operands) and fused_logq (Gaussian, and
-    Student-t with a dead component) on the tiled kernel, counted as such,
-    against their float64 plain versions, equal on a second run."""
+    """fused_maha (lower and upper operands), fused_logq and fused_rho
+    (Gaussian, and Student-t with a dead component) on the tiled kernel,
+    counted as such, against their float64 plain versions, equal on a second
+    run, fused_rho's log q fused_logq's bit for bit; fused_transform's tiled
+    pair on components drawn by weight, its bucket kernel's perm and slots
+    the CPU mirror's, equal to the looped kernel bit for bit to D = 128."""
     chip_smoke.tiled_case(case, cuda, [])
 
 

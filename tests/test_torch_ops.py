@@ -115,8 +115,8 @@ def test_symmetrize_and_bilinear_sym():
 @pytest.mark.parametrize("K,D", [(120, 1), (1, 200)])
 def test_plain_versions_at_the_repaired_shapes_match_jax(K, D):
     """The shapes the CUDA kernels newly take -- the statistics kernels'
-    64-particle tile (K=120, D=1) and the wide path (D=200: fused_logq's and
-    fused_maha's block-tiled kernel, fused_rho's warp a particle) --
+    64-particle tile (K=120, D=1) and the wide path (D=200: the block-tiled
+    kernels of fused_logq, fused_maha and fused_rho) --
     through the plain versions of fused_logq, fused_rho, fused_maha and the
     PMC statistics (pmc_update's dense route where K*D <= 128), in float64,
     against the JAX package's XLA path on the same numpy inputs."""
@@ -200,14 +200,14 @@ def test_limits_are_stated_and_enforced():
     assert _build.smem_bytes("fused_is_pmc_step", 10, 10, 2) < _build.SMEM_LIMIT
     # operands past shared memory: the record kernels of fused_logq and
     # fused_rho stream their records through two chunk buffers up to D = 64;
-    # past it, and in the other evaluation kernels, they are read from device
-    # memory and the kernel asks for none, except fused_logq's tiled kernel,
-    # which asks for its panels at every shape; the statistics kernels ask
-    # for their tile and accumulators alone
+    # past it their tiled kernels ask for their panels at every shape, and in
+    # the other evaluation kernels the operands are read from device memory
+    # and the kernel asks for none; the statistics kernels ask for their tile
+    # and accumulators alone
     assert _build.smem_bytes("fused_logq", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
     assert _build.smem_bytes("fused_logq", 4, 128) == _build.tiled_plan()[4] == 41_600
     assert _build.smem_bytes("fused_rho", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
-    assert _build.smem_bytes("fused_rho", 4, 128) == 0
+    assert _build.smem_bytes("fused_rho", 4, 128) == 41_600
     assert _build.smem_bytes("fused_transform", 60, 32) == 0
     _build.check_limits("fused_logq", 60, 32)
     assert 0 < _build.smem_bytes("fused_vb_estep", 1, 128) <= _build.SMEM_LIMIT
@@ -220,8 +220,7 @@ def test_eval_plan_streams_records_in_chunks():
     component records (fused_maha's in the VB layout): the whole mixture in
     one buffer where it fits half an SM's shared memory, else two buffers of
     equal chunks; past D = 64 their tiled kernel takes a component at a time
-    in two panel buffers (41,472 B at every K), and fused_rho's looped
-    kernel stages the packed operands whole where they fit."""
+    in two panel buffers (41,600 B at every K), and so does fused_rho's."""
     rec = _build._rec_floats
     vb = lambda D: _build._rec_floats(D, vb=True)
     assert (4 * rec(40), 4 * vb(40), 4 * rec(10)) == (3696, 6576, 352)
@@ -236,7 +235,7 @@ def test_eval_plan_streams_records_in_chunks():
         ("fused_maha", 60, 32): (12, 2, 2 * 12 * 4 * vb(32)),
         ("fused_logq", 1, 128): (1, 2, 41_600),
         ("fused_maha", 1, 128): (1, 2, 41_600),
-        ("fused_rho", 1, 128): (1, 1, 4 * (128 + 128 * 128 + 4)),
+        ("fused_rho", 1, 128): (1, 2, 41_600),
     }
     for (kernel, K, D), plan in pinned.items():
         assert _build.eval_plan(kernel, K, D) == plan, (kernel, K, D)
@@ -245,7 +244,7 @@ def test_eval_plan_streams_records_in_chunks():
     # two blocks of 256 threads (16 warps) share an SM's 228 KB at K=32,
     # D=40, three of the K=200, D=10 log-density's
     assert _build.EVAL_THREADS == 256
-    assert [_build.eval_threads(D) for D in (10, 40, 64, 65, 128)] == [256] * 3 + [128] * 2
+    assert [_build.eval_threads(D) for D in (10, 40, 64, 65, 128)] == [256] * 5
     for kernel in ("fused_logq", "fused_maha"):
         assert 2 * (_build.eval_plan(kernel, 32, 40)[2] + 1024) <= 228 * 1024
         assert 3 * (_build.eval_plan(kernel, 32, 40)[2] + 1024) > 228 * 1024
@@ -255,30 +254,31 @@ def test_eval_plan_streams_records_in_chunks():
         for K, D in ((5000, 10), (1000, 64), (100, 33)):
             kc, buffers, smem = _build.eval_plan(kernel, K, D)
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
-    assert _build.eval_plan("fused_rho", 4, 128) == (4, 0, 0)
-    # fused_rho streams fused_logq's records to D = 64; past it fused_rho
-    # keeps its looped and warp kernels, where fused_logq takes the tiled one
+    assert _build.eval_plan("fused_rho", 4, 128) == (1, 2, 41_600)
+    # fused_rho streams fused_logq's records to D = 64 and takes the tiled
+    # kernel past it, as fused_logq does
     for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (10, 10), (1, 64)):
         assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
     for K, D in ((1, 65), (1, 128), (2, 200)):
-        assert _build.eval_plan("fused_rho", K, D) != _build.eval_plan("fused_logq", K, D)
+        assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
         assert _build.eval_plan("fused_logq", K, D) == (1, 2, _build.tiled_plan()[4])
     assert _build.eval_plan("fused_rho", 32, 40) == (11, 2, 2 * 11 * 3696)
     assert _build.eval_plan("fused_rho", 10, 10) == (10, 1, 10 * 352)
-    # past D = 128 a warp a particle: no records, three slices of D + 8
-    # floats for each of the block's 4 warps
-    assert _build.eval_plan("fused_rho", 2, 200) == (2, 0, 4 * 4 * 3 * 208)
-    assert _build.eval_threads(200) == _build.WIDE_THREADS == 128
-    assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 4]
-    # fused_logq's and fused_maha's tiled kernel: 256 threads, 128 particles
+    # past D = 128 the tiled kernel's panels, 256 threads, 128 particles a
+    # block
+    assert _build.eval_plan("fused_rho", 2, 200) == (1, 2, 41_600)
+    assert _build.eval_threads(200) == 256
+    assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 128]
+    # the tiled kernels: 256 threads, 128 particles
     for kernel in _build.TILED:
         assert [_build.block_particles(kernel, D) for D in (10, 100, 200)] == [256, 128, 128]
         assert _build.block_particles(kernel, 40, "tiled") == 128
     assert _build.eval_threads(200, "tiled") == 256
-    # fused_transform's record kernel takes 256 threads to D = 64, its looped
-    # kernel 128 to D = 128
+    # fused_transform's record kernel takes 256 threads to D = 64, its tiled
+    # pair (as its looped kernel) 128 particles a block past it
     assert [_build.block_particles("fused_transform", D)
-            for D in (10, 64, 65, 128, 129)] == [256, 256, 128, 128, 4]
+            for D in (10, 64, 65, 128, 129)] == [256, 256, 128, 128, 128]
+    assert _build.block_particles("fused_transform", 100, "looped") == _build.THREADS == 128
     assert _build.block_particles("fused_pmc_stats", 100) == 128
 
 
@@ -318,28 +318,40 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
 
 @pytest.mark.parametrize("kernel", _build.TILED)
 def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
-    """Where the JAX rule sends fused_logq or fused_maha a shape with D =
-    65-2,040, the mirror of the tiled plan (csrc/tiled.cuh) holds it: the
-    elected kernel is the tiled one from TILED_D_MIN, its shared memory and
-    threads are within a block's limits (41,472 B, 256 threads, the same at
-    every K), and check_limits passes."""
+    """Where the JAX rule sends fused_logq, fused_maha, fused_rho or
+    fused_transform a shape with D = 65-2,040, the mirror of the tiled plan
+    (csrc/tiled.cuh) holds it: the elected kernel is the tiled one from
+    TILED_D_MIN (fused_transform's tiled pair from TRANSFORM_TILED_D_MIN, its
+    looped kernel below), its shared memory and threads are within a block's
+    limits (41,600 B, 256 threads, the same at every K; fused_transform's
+    bucket kernel's counts too), and check_limits passes."""
     P, BM, BK, threads, smem = _build.tiled_plan()
     assert (P, BM, BK, threads) == (128, 128, 16, 256)
     assert smem == 4 * (2 * BK * (BM + 4) + 2 * BK * P + 2 * BK + 16 * P) == 41_600
     assert _build.TILED_D_MIN == 65
-    assert [_build.eval_variant(kernel, D) for D in (1, 64, 65, 2040)] == ["rec"] * 2 + ["tiled"] * 2
+    draw = kernel == "fused_transform"
+    first = _build.TRANSFORM_TILED_D_MIN if draw else _build.TILED_D_MIN
+    assert 65 <= first <= 129
+    elect = ((lambda K, D: _build.transform_plan(K, D)[0]) if draw
+             else (lambda K, D: _build.eval_variant(kernel, D)))
+    assert [elect(1, D) for D in (1, 64, first, 2040)] == ["rec"] * 2 + ["tiled"] * 2
     admitted = 0
     for K in sorted(set(GRID_K) | {3, 19, 30, 41, 60}):
         for D in range(65, 2041):
             if not kernels.fits(kernel, K, D):
                 break    # the rule only tightens with D at a fixed K
             admitted += 1
-            assert _build.eval_variant(kernel, D) == "tiled"
-            assert _build.eval_plan(kernel, K, D) == (1, 2, smem)
-            assert _build.eval_threads(D, "tiled") == threads <= 1024
+            assert elect(K, D) == ("tiled" if D >= first else "looped")
+            if draw:
+                if D >= first:
+                    assert _build.transform_plan(K, D) == ("tiled", False, 0, threads, smem)
+                    assert _build.transform_bucket_plan(K)[3] <= _build.SMEM_LIMIT
+            else:
+                assert _build.eval_plan(kernel, K, D) == (1, 2, smem)
+                assert _build.eval_threads(D, "tiled") == threads <= 1024
             assert _build.block_particles(kernel, D) == P
-            need = _build.eval_plan(kernel, K, D)[2]
-            assert need == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
+            if D >= first:
+                assert smem == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
             _build.check_limits(kernel, K, D)
     # the rule's largest K at D = 65, 96, 128, 200 and its reach at K = 1
     largest = {D: max(K for K in range(1, 200) if kernels.fits(kernel, K, D))
@@ -506,10 +518,10 @@ def test_dense_register_plan_mirrors(K, D):
 # (K, D) -> fused_transform's plan, worked by hand from csrc/transform.cu
 # transform_plan: to D = 64 the record kernel, 256 threads, a record of
 # (D + D (D + 1) / 2) | 1 floats, the K records staged where they fit half
-# an SM (228 KB / 2 - 1 KB = 115,712 B), else none; to D = 128 the looped
-# kernel, 128 threads, mu | L | dof (K D (D + 1) + K floats) staged where
-# they fit 232,448 B; past it a warp a particle, three slices of D + 8
-# floats for each of 4 warps
+# an SM (228 KB / 2 - 1 KB = 115,712 B), else none; from D = 65
+# (TRANSFORM_TILED_D_MIN) the tiled pair, whose product kernel has the tiled
+# engine's 256 threads and 41,600 B (the looped kernel's plan, forced to D =
+# 128: 128 threads, mu | L | dof staged where they fit 232,448 B)
 TRANSFORM_PLANS = {
     (32, 40): ("rec", True, 861, 256, 32 * 861 * 4),       # 110,208 B: two blocks an SM
     (33, 40): ("rec", True, 861, 256, 113_652),
@@ -517,11 +529,15 @@ TRANSFORM_PLANS = {
     (10, 10): ("rec", True, 65, 256, 2600),
     (13, 64): ("rec", True, 2145, 256, 13 * 2145 * 4),
     (14, 64): ("rec", False, 2145, 256, 0),
-    (2, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
-    (1, 128): ("looped", True, 0, 128, 4 * (128 * 129 + 1)),
-    (4, 128): ("looped", False, 0, 128, 0),
-    (1, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
+    (2, 65): ("tiled", False, 0, 256, 41_600),
+    (1, 128): ("tiled", False, 0, 256, 41_600),
+    (4, 128): ("tiled", False, 0, 256, 41_600),
+    (1, 129): ("tiled", False, 0, 256, 41_600),
 }
+# the looped kernel's plan where it is forced (variant="looped"), D = 65-128
+LOOPED_PLANS = {(2, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
+                (1, 128): ("looped", True, 0, 128, 4 * (128 * 129 + 1)),
+                (4, 128): ("looped", False, 0, 128, 0)}
 
 
 @pytest.mark.parametrize("K,D", sorted(TRANSFORM_PLANS))
@@ -536,7 +552,13 @@ def test_transform_plan_mirrors(K, D):
     assert got == TRANSFORM_PLANS[(K, D)]
     assert _build.smem_bytes("fused_transform", K, D) == got[4] <= _build._HALF_SMEM
     assert _build.limit_reason("fused_transform", K, D) is None
-    assert _build.block_particles("fused_transform", D) * (32 if got[0] == "warp" else 1) == got[3]
+    particles = {"rec": got[3], "tiled": 128}[got[0]]
+    assert _build.block_particles("fused_transform", D) == particles
+    if (K, D) in LOOPED_PLANS:
+        # the looped kernel's operands, as the draws' looped plans stage them
+        assert _build._record_plan(D, 0, _build._operand_floats("fused_transform", K, D, 0)) \
+            == LOOPED_PLANS[(K, D)]
+        assert _build.block_particles("fused_transform", D, "looped") == 128
     if got[0] == "rec":
         F = got[2]
         assert F % 2 == 1 and F >= D + D * (D + 1) // 2
@@ -547,10 +569,15 @@ def test_transform_plan_mirrors(K, D):
     # fused_transform_rng's plan: the same kernels, its staged records
     # followed by the K dofs
     rng = _build.transform_plan(K, D, rng=True)
-    assert rng == (got[:4] + (got[4] + 4 * K,) if got[0] == "rec" and got[1] else got)
+    want = (got[:4] + (got[4] + 4 * K,) if got[0] == "rec" and got[1] else got)
+    if D > 128:
+        want = ("warp", False, 0, 128, 4 * 4 * 3 * (D + 8))
+    elif got[0] == "tiled":
+        want = LOOPED_PLANS[(K, D)]
+    assert rng == want
     assert _build.smem_bytes("fused_transform_rng", K, D) == rng[4]
-    assert _build.block_particles("fused_transform_rng", D) * (32 if got[0] == "warp" else 1) \
-        == got[3]
+    assert _build.block_particles("fused_transform_rng", D) * (32 if rng[0] == "warp" else 1) \
+        == rng[3]
 
 
 # (kernel, K, Kt, D) -> the plan of fused_transform_rng and
@@ -658,11 +685,13 @@ def _variant_call(kernel, K, D, variant):
 
 @pytest.mark.parametrize("kernel,K,D,variant,ok", [
     # fused_transform: the record kernel to D = 64, the looped kernel beside
-    # it and alone to D = 128, the warp kernel past it
+    # it to D = 128, the tiled pair beside them and alone past D = 128
     ("fused_transform", 3, 10, "rec", True), ("fused_transform", 3, 10, "looped", True),
     ("fused_transform", 3, 10, "warp", False), ("fused_transform", 1, 65, "rec", False),
     ("fused_transform", 1, 65, "looped", True), ("fused_transform", 1, 129, "looped", False),
-    ("fused_transform", 1, 129, "warp", True), ("fused_transform", 3, 10, "reg", False),
+    ("fused_transform", 1, 129, "warp", False), ("fused_transform", 3, 10, "reg", False),
+    ("fused_transform", 1, 65, "tiled", True), ("fused_transform", 1, 129, "tiled", True),
+    ("fused_transform", 3, 10, "tiled", True),
     # the two random draws: the same kernels
     ("fused_transform_rng", 3, 10, "rec", True), ("fused_transform_rng", 3, 10, "looped", True),
     ("fused_transform_rng", 3, 10, "warp", False), ("fused_transform_rng", 1, 65, "rec", False),
@@ -703,19 +732,22 @@ def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, o
 
 def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
-    the three draws' record, looped and warp kernels and the statistics
-    kernels' register and entry-table passes, fused_logq's and fused_maha's
-    record and tiled kernels (fused_pmc_stats' tile width is no longer a
-    variant)."""
+    the three draws' record and looped kernels, with the warp kernel
+    (fused_transform_rng, fused_propose_logq) or the tiled pair
+    (fused_transform), the statistics kernels' register and entry-table
+    passes, fused_logq's, fused_maha's and fused_rho's record and tiled
+    kernels (fused_pmc_stats' tile width is no longer a variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
     for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
-        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", "warp")} <= names
+        past = "tiled" if kernel == "fused_transform" else "warp"
+        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", past)} <= names
+    assert "variant:fused_transform=warp" not in names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
     for kernel in _build.TILED:
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "tiled")} <= names
-        assert "variant:%s=looped" % kernel not in names
+        assert ("variant:%s=looped" % kernel in names) == (kernel in _build.DRAWS)
     assert not any(n.endswith("=tile") for n in names)
 
 
