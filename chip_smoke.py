@@ -29,9 +29,11 @@ Phases, each of which exits non-zero on failure:
    (``fused_transform`` K=32, ``fused_transform_rng`` K=11,
    ``fused_propose_logq`` K=9 with a 2-component target, the fused draws
    at K=32 and K=11; at least 16 warps); the tiled kernels of
-   ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``
-   and ``fused_transform``'s bucket kernel (no spill), their blocks an SM,
-   their election and the bucket kernel's plan against ``_build``;
+   ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``,
+   the bucket kernel and the drawn products of ``fused_transform_rng`` and
+   ``fused_propose_logq`` (no spill), their blocks an SM (the drawn
+   products' at least 2 with row tile 0's panels past D=128), their
+   election and the bucket kernel's plan against ``_build``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -50,7 +52,13 @@ Phases, each of which exits non-zero on failure:
    ``fused_logq``'s bit for bit, ``fused_transform``'s tiled pair equal to
    its looped kernel bit for bit to D=128 (components drawn by weight, a
    dead component's bucket empty) and its bucket kernel's permutation and
-   tiles equal to ``_build.transform_tiles``';
+   tiles equal to ``_build.transform_tiles``'; the drawn products of
+   ``fused_propose_logq`` and ``fused_transform_rng`` (``DRAWN_CASES``:
+   K=1 and the rule's largest K + Kt at D=65, 96, 128, 129, K=1 at D=200
+   and 248): counted as tiled, x and latent equal to the looped kernel's
+   bit for bit to D=128, the seed from a tensor the words by value's, log
+   q and log p within float32 tolerance of float64 and ``fused_logq``'s bit
+   for bit, their samples in distribution;
    ``fused_vb_estep`` and ``fused_is_pmc_step`` at the edges of their
    register pass's plan (K=16 and 17 at D=10, D=11 and 16, K=128 at D=1,
    and K=137 at D=1 on the entry table), each where the register pass is
@@ -169,7 +177,7 @@ Phases, each of which exits non-zero on failure:
    ``fused_draw_transform`` at K=16 (one launch each) and on the tensor
    path below 1024 particles (after one ``draw_proposal_inputs`` launch),
    at D=80 through ``draw_proposal_inputs`` and ``fused_transform_rng`` at
-   K=4 (its looped kernel), ``fused_transform`` at K=16 (its tiled pair); a per-point target
+   K=4 (its drawn product), ``fused_transform`` at K=16 (its tiled pair); a per-point target
    through ``fused_maha`` and one through ``fused_rho``, mapped over 2^16
    points with ``torch.func.vmap``: one launch each, no warning, equal to
    the batched call;
@@ -179,6 +187,15 @@ Phases, each of which exits non-zero on failure:
    responsibilities against float64, ms a step and the step's device time
    by kernel; a ``GaussianInference`` fit at D=200 (one tiled
    ``fused_maha`` an iteration, its first against float64 on the CPU);
+   wide_is: (a) ``ImportanceSampler.run`` of one Student-t (dof 5) at
+   D=200, 2^20 particles, against ``WIDE_PATH``'s target (log q against
+   float64, ms a run, device ms and row 5's share in a fresh process,
+   ``chip_smoke.py --wide-is-profile``), (b) ``pmc_run_sharded`` at D=96,
+   K=3 Student-t, Kt=1, 2^16, 5 steps, as phase scan's cases (with and
+   without ``scan_steps=True``, bit for bit), (c)
+   ``MixtureDensity.propose`` of a K=1 Student-t at D=200 and a K=2
+   Gaussian at D=128, 2^20 draws; every ``fused_propose_logq`` and
+   ``fused_transform_rng`` launch tiled;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
@@ -272,7 +289,14 @@ Phases, each of which exits non-zero on failure:
     fused draws at K=32 and K=11, D=40, N=2^20 and K=10, D=10, N=2^22, each
     in turns with the two launches it replaces, and the SASS instructions
     of the DMAX 40 record draws and of ``draw_kernel`` (``cuobjdump``) as an
-    issue floor.
+    issue floor (and, from them, the draw's floor a normal at K=1, D=200).
+    ``chip_smoke.py --drawn-times`` times the drawn products at
+    ``DRAWN_SHAPES`` beside the looped kernels, the composition of other
+    rows' launches and the plain versions, the ``torch.bmm`` yardsticks of
+    rows 1-3 and 6 at their first shapes, and rows 7-8 at K=1, D=128;
+    ``--elected-times DIR [drawn]`` the kernels a checkout elects there;
+    ``--parent-draws DIR`` holds the drawn products to the kernels DIR
+    elects past D=128 (an earlier commit's warp kernels) bit for bit.
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -1498,6 +1522,106 @@ TILED_CASES = [
 ]
 
 
+def drawn_case(case, device, report):
+    """fused_propose_logq and fused_transform_rng past the record kernels'
+    D = 64 on their drawn tiled products, at one shape (Kt = 0: no target):
+    each launch counted as ``variant:...=tiled``; to D = 128 x and latent
+    (fused_transform_rng: x) equal to the looped kernel's bit for bit (the
+    same Philox words, Box-Muller, chi-square and FMA order), and every
+    output with the seed words read from a tensor on the card equal to the
+    words by value; log q and log p within TOL "log" of their float64 plain
+    versions on the same particles and equal to fused_logq's bit for bit
+    (the tiled route evaluates with its kernel); the samples' moments and
+    components (check_samples), each component's particles about its mean,
+    equal on a second run, another seed another draw."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dead, seed = case
+    arrs, _, params, _, ops, tops, ops64, tops64, tag = case_mixtures(
+        (K, max(Kt, 1), D, N, student, t_student, dead, seed), device)
+    tops, tops64 = (tops, tops64) if Kt else (None, None)
+    tag = "drawn " + tag.replace("Kt=%d" % max(Kt, 1), "Kt=%d" % Kt)
+    print("case " + tag)
+    words = torch.tensor((seed, 11), dtype=torch.int64, device=device)
+    k.reset_launch_counts()
+    out = k.fused_propose_logq((seed, 11), ops, N, tops)
+    counts = k.launch_counts()
+    require(counts["variant:fused_propose_logq=tiled"] == counts["fused_propose_logq"] == 1
+            and counts["fused_logq"] == 0,
+            "%s: fused_propose_logq did not take its tiled route: %s"
+            % (tag, {n: c for n, c in counts.items() if c}))
+    xT, lat, log_q = out[:3]
+    x64 = xT.double()
+    compare("fused_propose_logq %s log_q" % tag, log_q, k.plain_logq(x64, ops64), "log", report)
+    require(bool(torch.equal(log_q, k.fused_logq(xT, ops))),
+            "%s: log q is not fused_logq's bit for bit" % tag)
+    if Kt:
+        compare("fused_propose_logq %s log_p" % tag, out[3], k.plain_logq(x64, tops64), "log",
+                report)
+        require(bool(torch.equal(out[3], k.fused_logq(xT, tops))),
+                "%s: log p is not fused_logq's bit for bit" % tag)
+    del x64
+    check_samples("fused_propose_logq %s" % tag, xT, lat, arrs, report)
+    check_components("fused_propose_logq %s" % tag, xT, lat, arrs)
+    again = k.fused_propose_logq((seed, 11), ops, N, tops)
+    require(all(bool(torch.equal(a, b)) for a, b in zip(out, again)),
+            "%s: one seed gave two outputs" % tag)
+    by_pointer = k.fused_propose_logq(words, ops, N, tops)
+    require(all(bool(torch.equal(a, b)) for a, b in zip(out, by_pointer)),
+            "%s: the seed from a tensor drew other outputs than the words by value" % tag)
+    require(not bool(torch.equal(k.fused_propose_logq((seed, 12), ops, N, tops)[0], xT)),
+            "%s: two seeds, one output" % tag)
+    del again, by_pointer
+    if D <= _build._THREAD_D_MAX:
+        looped = k.fused_propose_logq((seed, 11), ops, N, tops, variant="looped")
+        differ = int((looped[0] != xT).sum()) + int((looped[1] != lat).sum())
+        print("  %s fused_propose_logq tiled vs looped: %d of %d x and latent differ"
+              % (tag, differ, xT.numel() + lat.numel()))
+        require(differ == 0, "%s: the tiled route and the looped kernel draw %d different x or "
+                "latent" % (tag, differ))
+        report.append({"output": "fused_propose_logq tiled vs looped %s" % tag, "differ": differ})
+        del looped
+    latent = component_draw(params, N, seed)
+    k.reset_launch_counts()
+    x = k.fused_transform_rng((seed, 31), latent, ops)
+    counts = k.launch_counts()
+    require(counts["variant:fused_transform_rng=tiled"] == counts["fused_transform_rng"] == 1,
+            "%s: fused_transform_rng did not take its drawn product: %s"
+            % (tag, {n: c for n, c in counts.items() if c}))
+    check_samples("fused_transform_rng %s" % tag, x, latent, arrs, report)
+    require(bool(torch.equal(x, k.fused_transform_rng((seed, 31), latent, ops))),
+            "%s fused_transform_rng: one seed gave two outputs" % tag)
+    words[1] = 31
+    require(bool(torch.equal(x, k.fused_transform_rng(words, latent, ops))),
+            "%s fused_transform_rng: the seed from a tensor drew another x" % tag)
+    if D <= _build._THREAD_D_MAX:
+        differ = int((x != k.fused_transform_rng((seed, 31), latent, ops, variant="looped")).sum())
+        print("  %s fused_transform_rng tiled vs looped: %d of %d outputs differ"
+              % (tag, differ, x.numel()))
+        require(differ == 0, "%s: fused_transform_rng's drawn product and looped kernel differ "
+                "in %d outputs" % (tag, differ))
+        report.append({"output": "fused_transform_rng tiled vs looped %s" % tag, "differ": differ})
+    del x, xT, out
+    torch.cuda.empty_cache()
+
+
+# past the record kernels' D = 64, the drawn tiled products of
+# fused_propose_logq and fused_transform_rng at K = 1 and the JAX rule's
+# largest K + Kt (6 at D = 65, 4 at 96, 2 at 128 and 129, 1 from 200 to its
+# reach, 248): K, Kt, D, N, Student-t proposal, Student-t target, dead
+# component, seed
+DRAWN_CASES = [
+    (1, 0, 65, 4099, True, False, False, 301), (4, 2, 65, N_WIDE, True, True, True, 302),
+    (1, 0, 96, N_WIDE, False, False, False, 303), (3, 1, 96, 4099, True, False, True, 304),
+    (1, 1, 128, 4099, True, True, False, 305), (2, 0, 128, N_WIDE, False, False, False, 306),
+    (1, 1, 129, N_WIDE, True, False, False, 307), (2, 0, 129, 4099, True, False, False, 308),
+    (1, 0, 200, N_WIDE, True, False, False, 309), (1, 0, 248, 4099, False, False, False, 310),
+]
+
+
 def vmap_case(device, report):
     """A per-point target that reaches fused_logq (``evaluate_fn`` of a
     K=2, D=40 mixture), mapped with torch.func.vmap as the samplers map
@@ -1877,6 +2001,8 @@ def phase_kernels(device, cases, eval_cases):
     for case in TILED_CASES:
         tiled_case(case, device, report)
     torch.cuda.empty_cache()
+    for case in DRAWN_CASES:
+        drawn_case(case, device, report)
     vmap_case(device, report)
     torch.cuda.empty_cache()
     for K in SOLVE_DOFS_K:
@@ -3576,7 +3702,7 @@ def phase_routes(device, report):
     the record kernels, K=4 through draw_proposal_inputs and
     fused_transform_rng, K=16 through draw_proposal_inputs and
     fused_transform (Student-t scale drawn outside, clamped),
-    fused_transform_rng on its looped kernel, fused_transform on the kernel
+    fused_transform_rng on its drawn product, fused_transform on the kernel
     its plan elects there (the tiled pair).  Each draw's
     samples are checked against its mixture and each log-density against
     float64."""
@@ -3590,7 +3716,8 @@ def phase_routes(device, report):
     for D, K, n, route, variant in ((40, 11, ROUTE_N, "fused_draw_transform_rng", None),
                                     (40, 16, ROUTE_N, "fused_draw_transform", None),
                                     (40, 11, 1000, "tensor", None),
-                                    (80, 4, 1 << 16, "fused_transform_rng", "looped"),
+                                    (80, 4, 1 << 16, "fused_transform_rng",
+                                     _build.transform_plan(4, 80, rng=True)[0]),
                                     (80, 16, 1 << 16, "fused_transform",
                                      _build.transform_plan(16, 80)[0])):
         target = make_params(random_mixture(rng, 2, D, False), device)
@@ -3870,6 +3997,252 @@ def phase_wide(device, report):
     del vb, prof
     torch.cuda.empty_cache()
     return {c: pmc_counts[c] + vb_counts[c] for c in pmc_counts}
+
+
+# the wide importance-sampling path (phase wide_is): (a) one Student-t
+# proposal (dof 5) at D=200 against WIDE_PATH's target, n_is1 = 2^20
+# particles a run, timed runs; (b) pmc_run_sharded at D=96, a K=3 Student-t
+# proposal, a Kt=1 Gaussian target, 2^16 particles, steps; (c) propose of a
+# K=1 Student-t at D=200 and a K=2 Gaussian at D=128, draws
+WIDE_IS = dict(D=200, dof=5.0, n=1 << 20, runs=5, pmc_D=96, pmc_K=3, pmc_n=1 << 16,
+               pmc_steps=5, propose_n=1 << 20)
+
+
+def wide_is_problem(device):
+    """``(proposal, target)``: (a)'s MixtureDensity of one Student-t (dof 5)
+    centred between WIDE_PATH's target's modes, covariance 1.5 I, and that
+    target (wide_path_problem's Kt=2 Gaussian mixture, MixtureParams)."""
+    from pypmc_tpu_torch.density.mixture import MixtureDensity
+
+    D = WIDE_IS["D"]
+    _, target = wide_path_problem(device)
+    mean = target.means.mean(dim=0).cpu().numpy()[None].astype(np.float32)
+    params = make_params((mean, np.eye(D, dtype=np.float32)[None] * 1.5,
+                          np.ones(1, np.float32), np.full(1, WIDE_IS["dof"], np.float32)),
+                         device)
+    return MixtureDensity.from_params(params), target
+
+
+def wide_pmc_problem(device):
+    """(b)'s mixtures: a K=3 Student-t proposal (seed 96) and a Kt=1 Gaussian
+    target near its first component, in float32 at D=96."""
+    D, K = WIDE_IS["pmc_D"], WIDE_IS["pmc_K"]
+    arrs = random_mixture(np.random.default_rng(D), K, D, True, spread=0.5)
+    tarrs = (arrs[0][:1] + 0.1, arrs[1][:1] * 1.2, np.ones(1, np.float32), None)
+    return make_params(arrs, device), make_params(tarrs, device)
+
+
+def wide_is_profile(device):
+    """``{"run_ms", "row5_ms", "rows"}``: device ms (torch.profiler) of one
+    ImportanceSampler.run of (a) and of its proposal's propose_logq_T alone
+    (row 5's share of the run), the run's kernels (ms, launches, name); run
+    in a fresh process (``chip_smoke.py --wide-is-profile``), after a
+    warm-up run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.sampler import ImportanceSampler
+
+    proposal, target = wide_is_problem(device)
+    from pypmc_tpu_torch.density.mixture import MixtureDensity
+    target_fn = MixtureDensity.from_params(target).evaluate_fn(batched=True, device=device)
+    sampler = ImportanceSampler(target_fn, proposal, rng=11, device=device)
+    params = proposal.stacked_params(device=device)
+    sampler.run(WIDE_IS["n"], to_host=False)
+    core.propose_logq_T(params, 3, WIDE_IS["n"])
+    sync(device)
+    sampler.clear()
+    out = {}
+    for key, call in (("run", lambda: sampler.run(WIDE_IS["n"], to_host=False)),
+                      ("row5", lambda: core.propose_logq_T(params, 5, WIDE_IS["n"]))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            sync(device)
+        rows = device_rows(prof, 1)
+        out[key + "_ms"] = sum(r[0] for r in rows)
+        out[key + "_rows"] = [[t, c, name[:90]] for t, c, name in rows[:6]]
+        sampler.clear()
+    return out
+
+
+def phase_wide_is(device, report):
+    """The wide importance-sampling path through the port's entry points,
+    where fused_propose_logq and fused_transform_rng take their drawn tiled
+    products: (a) ``ImportanceSampler.run`` of WIDE_IS's D=200 Student-t
+    proposal against WIDE_PATH's target (a batched target: one fused_logq
+    launch a run), its log q held to float64 on the same particles, ms a run
+    (host clock, synchronized, the median of WIDE_IS["runs"]), device ms and
+    row 5's share of it (torch.profiler, in a fresh process); (b)
+    ``pmc_run_sharded`` at D=96 (K=3 Student-t, Kt=1, 2^16) with and without
+    ``scan_steps=True`` (scan_case: bit for bit, replayed); (c)
+    ``MixtureDensity.propose`` of a K=1 Student-t at D=200 and of a K=2
+    Gaussian at D=128, 2^20 draws (row 4's route: draw_proposal_inputs for
+    the components, then fused_transform_rng), each component's particles
+    about its mean, ms a call (host clock, the copy to the host included).
+    Every row 4 and row 5 launch of (a)-(c) must be tiled.  Returns the
+    launch counts of (a)-(c)."""
+    import torch
+
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.density.mixture import MixtureDensity
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.sampler import ImportanceSampler
+
+    totals = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] = totals.get(name, 0) + c
+
+    def require_tiled(label, counts, name, least):
+        tiled, launched = counts.get("variant:%s=tiled" % name, 0), counts.get(name, 0)
+        require(tiled == launched >= least, "wide_is %s: %d of %d %s launches took the tiled "
+                "kernel" % (label, tiled, launched, name))
+
+    # (a) ImportanceSampler.run at D=200
+    D, n = WIDE_IS["D"], WIDE_IS["n"]
+    proposal, target = wide_is_problem(device)
+    target_fn = MixtureDensity.from_params(target).evaluate_fn(batched=True, device=device)
+    sampler = ImportanceSampler(target_fn, proposal, rng=7, device=device)
+    kept, propose_logq_T = [], core.propose_logq_T
+
+    def recording(*args, **kwargs):
+        out = propose_logq_T(*args, **kwargs)
+        kept.append(out)
+        return out
+
+    k.reset_launch_counts()
+    core.propose_logq_T = recording
+    try:
+        sampler.run(n, to_host=False)
+        sync(device)
+    finally:
+        core.propose_logq_T = propose_logq_T
+    counts = k.launch_counts()
+    require(len(kept) == 1, "wide_is (a): %d proposals recorded" % len(kept))
+    require_tiled("(a)", counts, "fused_propose_logq", 1)
+    require(counts["fused_logq"] == 1 and counts["variant:fused_logq=tiled"] == 1,
+            "wide_is (a): the target took %s" % {c: v for c, v in counts.items() if v})
+    xT, latent, log_q = kept[0]
+    params = proposal.stacked_params(device=device)
+    ops64 = k.MixtureOperands(core._kernel_operands(params).packed.double(), 1, D, True)
+    compare("wide_is (a) D=%d log q" % D, log_q, k.plain_logq(xT.double(), ops64), "log", report)
+    samples_T, weights = sampler.device_runs[0]
+    require(tuple(samples_T.shape) == (D, n) and bool(torch.isfinite(samples_T).all())
+            and bool(torch.isfinite(weights).all()) and bool((weights >= 0).all()),
+            "wide_is (a): the run's samples or weights are not finite")
+    del kept, xT, latent, log_q, samples_T, weights
+    sampler.clear()
+    add(counts)
+    ms = []
+    for _ in range(WIDE_IS["runs"]):
+        sync(device)
+        t0 = time.perf_counter()
+        sampler.run(n, to_host=False)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sampler.clear()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, __file__, "--wide-is-profile"], capture_output=True,
+                          text=True, timeout=600)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("WIDE_IS_PROFILE ")]
+    require(proc.returncode == 0 and line, "wide_is (a): the profile's process failed: %s"
+            % (proc.stdout[-2000:] + proc.stderr[-2000:]))
+    prof = json.loads(line[0].split(" ", 1)[1])
+    print("  wide_is (a) ImportanceSampler.run D=%d K=1 t (dof %g), N=%d, Kt=2 target: %.3f ms "
+          "a run (host, median of %d: %s), device %.3f ms (fresh process), row 5 %.3f ms of it "
+          "(%.1f%%); launches %s" % (
+              D, WIDE_IS["dof"], n, float(np.median(ms)), len(ms), np.round(ms, 3).tolist(),
+              prof["run_ms"], prof["row5_ms"], 100 * prof["row5_ms"] / prof["run_ms"],
+              json.dumps({c: v for c, v in counts.items() if v})))
+    for t, c, name in prof["run_rows"]:
+        print("    %8.3f ms  %5.1f x  %s" % (t, c, name))
+
+    # (b) pmc_run_sharded at D=96, K + Kt = 4: row 5 with a target
+    pparams, ptarget = wide_pmc_problem(device)
+    counts = scan_case(device, "wide_is (b) D=%d K=%d t, Kt=1" % (WIDE_IS["pmc_D"],
+                                                                   WIDE_IS["pmc_K"]),
+                       pparams, ptarget, WIDE_IS["pmc_n"], WIDE_IS["pmc_steps"])
+    require_tiled("(b)", counts, "fused_propose_logq", WIDE_IS["pmc_steps"])
+    add(counts)
+    torch.cuda.empty_cache()
+
+    # (c) MixtureDensity.propose: row 4's route
+    for K, Dc, student, seed in ((1, 200, True, 401), (2, 128, False, 402)):
+        arrs = random_mixture(np.random.default_rng(seed), K, Dc, student)
+        mixture = MixtureDensity.from_params(make_params(arrs, device))
+        N = WIDE_IS["propose_n"]
+        k.reset_launch_counts()
+        x, latent = mixture.propose(N, rng=seed, trace=True, shuffle=False, device=device)
+        counts = k.launch_counts()
+        require_tiled("(c) K=%d D=%d" % (K, Dc), counts, "fused_transform_rng", 1)
+        require(x.shape == (N, Dc) and np.isfinite(x).all(), "wide_is (c): bad draws")
+        check_components("wide_is (c) propose K=%d D=%d" % (K, Dc),
+                         torch.tensor(x.T.copy()), torch.tensor(latent), arrs)
+        add(counts)
+        del x, latent
+        ms = []
+        for i in range(3):
+            sync(device)
+            t0 = time.perf_counter()
+            mixture.propose(N, rng=seed + i + 1, device=device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print("  wide_is (c) MixtureDensity.propose K=%d D=%d %s N=%d: %s ms a call (host, the "
+              "copy to the host included); variant %s" % (
+                  K, Dc, "t" if student else "gauss", N, np.round(ms, 3).tolist(),
+                  _build.draw_plan("fused_transform_rng", K, Dc)[0]))
+        torch.cuda.empty_cache()
+    return totals
+
+
+# D > 128 shapes (K, Kt, D, N) at which the drawn products are held to the
+# parent commit's warp kernels bit for bit (``--parent-draws``)
+PARENT_DRAW_SHAPES = [(1, 1, 129, 20_003), (2, 0, 129, 20_003), (1, 1, 200, 20_003),
+                      (1, 0, 248, 20_003), (1, 0, 1000, 4_099)]
+
+
+def draw_outputs(device):
+    """``{shape: (xT, latent, log_q, log_p, x of fused_transform_rng)}`` on the
+    host, of the package imported, at PARENT_DRAW_SHAPES on drawn_inputs
+    (seed words (7, 1) and (7, 3))."""
+    from pypmc_tpu_torch.ops import kernels as k
+
+    out = {}
+    for shape in PARENT_DRAW_SHAPES:
+        a = drawn_inputs(device, shape)
+        prop = k.fused_propose_logq((7, 1), a["ops"], shape[3], a["tops"])
+        x = k.fused_transform_rng((7, 3), a["latent"], a["ops"])
+        out["%d,%d,%d,%d" % shape] = [t.cpu() for t in prop] + [None] * (4 - len(prop)) + [x.cpu()]
+    return out
+
+
+def parent_draws(device, parent):
+    """The drawn products against the kernels the checkout ``parent`` elects
+    (its warp kernels past D = 128) at PARENT_DRAW_SHAPES, the parent's
+    outputs made in a child process (``--draw-outputs``): x and latent equal
+    bit for bit, log q and log p within TOL "log" of each other; the counts
+    of outputs that differ printed."""
+    import torch
+
+    path = "build/parent_draws.pt"
+    proc = subprocess.run([sys.executable, __file__, "--draw-outputs", parent, path],
+                          capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, "the parent's draws failed: %s"
+            % (proc.stdout[-2000:] + proc.stderr[-2000:]))
+    theirs, ours = torch.load(path), draw_outputs(device)
+    for key, mine in ours.items():
+        other = theirs[key]
+        differ = [int((a != b).sum()) for a, b in ((mine[0], other[0]), (mine[1], other[1]),
+                                                   (mine[4], other[4]))]
+        print("  parent draws K,Kt,D,N=%s: x %d, latent %d, fused_transform_rng x %d of %d, %d, "
+              "%d differ" % (key, *differ, mine[0].numel(), mine[1].numel(), mine[4].numel()))
+        for i, out in ((2, "log q"), (3, "log p")):
+            if mine[i] is not None:
+                compare("parent draws %s %s" % (key, out), mine[i], other[i].double(), "log", [])
+        require(sum(differ) == 0, "the drawn products differ from the parent's kernels at %s: %s"
+                % (key, differ))
 
 
 def mcmc_problem(device):
@@ -5584,6 +5957,18 @@ def fused_draw_floor(device):
         out[key] = (counts[part], floor)
         print("  issue floor %-24s %-26s %6d SASS instructions (%s): %.4f ms at %d SMs x %.3f GHz"
               % (key[0], bound(key[0], key[1])[0], counts[part], part, floor, n_sm, clock / 1e9))
+    # the draw's floor past D = 64: the record draw's instructions a normal
+    # at D = DMAX = 40 (fused_transform_rng's record kernel less
+    # fused_transform's, which loads z: its normals and chi-square), for the
+    # D normals of each of WIDE_SHAPE's particles
+    per_normal = (counts[FLOOR_KERNELS[("fused_transform_rng", FUSED_TIME_SHAPES[1])]]
+                  - counts[FLOOR_KERNELS[("fused_transform", DRAW_SHAPE)]]) / 40
+    D, N = WIDE_SHAPE[2], WIDE_SHAPE[3]
+    floor = N / 32 * D * per_normal / (4 * n_sm * clock) * 1e3
+    out[("drawn", WIDE_SHAPE)] = (per_normal, floor)
+    print("  issue floor of the draw at %s: %.1f SASS instructions a normal (the record "
+          "draws' at D=40), %.4f ms" % (bound("fused_transform_rng", WIDE_SHAPE)[0], per_normal,
+                                         floor))
     return out
 
 
@@ -5870,8 +6255,8 @@ def pool_shape_ms(device, shape, plain=True):
 
 
 def wide_shape_ms(device):
-    """``{kernel: (ms, plain ms)}`` of the six warp-a-particle kernels at
-    WIDE_SHAPE (K=1, D=200, N=2^16; a 1-component target), CUDA events,
+    """``{kernel: (ms, plain ms)}`` of the six kernels past D=128 (all on the
+    tiled engine) at WIDE_SHAPE (K=1, D=200, N=2^16; a 1-component target), CUDA events,
     on particles drawn from a random Student-t mixture; fused_maha on its
     VB upper operands, fused_transform on standard normals and the
     mixture's Student-t scales."""
@@ -5960,6 +6345,220 @@ def elected_ms(device, shape):
 
     calls = tiled_calls(k, tiled_inputs(device, shape))
     return {name: cuda_ms(calls[name][0]) for name in TILED_TIMED}
+
+
+# the shapes (K, Kt, D, N) at which the drawn tiled products of
+# fused_propose_logq and fused_transform_rng (its K the shape's) are timed:
+# K = 1 and the JAX rule's largest K + Kt at D = 65, 96, 128 and 129, and at
+# D = 200 (K = 1, with and without a 1-component target: the rule admits
+# none there, WIDE_SHAPE has one) and 248, the rule's reach
+DRAWN_SHAPES = [(K, Kt, D, 1 << 16) for K, Kt, D in (
+    (1, 0, 65), (4, 2, 65), (1, 0, 96), (3, 1, 96), (1, 0, 128), (1, 1, 128), (1, 0, 129),
+    (1, 1, 129), (1, 0, 200), (1, 1, 200), (1, 0, 248))]
+DRAWN_TIMED = ("fused_propose_logq", "fused_transform_rng")
+
+
+def drawn_inputs(device, shape):
+    """The inputs the draws are timed on at ``shape`` (K, Kt, D, N): a
+    random Student-t mixture (seed K + D) and, with Kt, a Gaussian target
+    near it, their packed operands, and N components drawn by weight
+    (component_draw, fused_transform_rng's).  Only the package's public
+    layout is read (``--elected-times``)."""
+    from pypmc_tpu_torch.density import core
+
+    K, Kt, D, N = shape
+    arrs = random_mixture(np.random.default_rng(K + D), K, D, True)
+    params = make_params(arrs, device)
+    target = None
+    if Kt:
+        tarrs = (arrs[0][:Kt] + 0.1, arrs[1][:Kt] * 1.2, np.full(Kt, 1.0 / Kt, np.float32), None)
+        target = core._kernel_operands(make_params(tarrs, device))
+    return dict(params=params, ops=core._kernel_operands(params), tops=target,
+                latent=component_draw(params, N, K + D))
+
+
+def drawn_calls(k, a, N):
+    """``{name: (kernel call, plain call)}`` of DRAWN_TIMED's wrappers on
+    drawn_inputs ``a``, the seed words (i, 1) and (i, 3) of the index cuda_ms
+    hands each call."""
+    ops, tops, latent = a["ops"], a["tops"], a["latent"]
+    return {"fused_propose_logq": (lambda i: k.fused_propose_logq((i, 1), ops, N, tops),
+                                   lambda i: k.plain_propose_logq((i, 1), ops, N, tops)),
+            "fused_transform_rng": (lambda i: k.fused_transform_rng((i, 3), latent, ops),
+                                    lambda i: k.plain_transform_rng((i, 3), latent, ops))}
+
+
+def drawn_elected_ms(device, shape):
+    """``{name: ms}`` of the kernel each wrapper of DRAWN_TIMED elects at
+    ``shape`` in the package imported, CUDA events on drawn_inputs: in an
+    earlier checkout, the looped and warp kernels the drawn products
+    replaced."""
+    from pypmc_tpu_torch.ops import kernels as k
+
+    calls = drawn_calls(k, drawn_inputs(device, shape), shape[3])
+    return {name: cuda_ms(calls[name][0]) for name in DRAWN_TIMED}
+
+
+def drawn_shape_ms(device, shape):
+    """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for the wrappers
+    of DRAWN_TIMED on drawn_inputs, CUDA events, in turns (tiled, looped,
+    composition, plain, plain, composition, looped, tiled; each the mean of
+    its two turns): "tiled", the drawn product (fused_propose_logq's whole
+    tiled route), also "cuda" where elected; "looped", the looped kernel to
+    D = 128; "plain", the plain version; "composition", the launches of
+    other rows that compute the same: draw_proposal_inputs (the normals and
+    scales, written to device memory), fused_transform's tiled pair on them
+    and, fused_propose_logq's, fused_logq's tiled kernel for log q (and log
+    p); and "device" and "looped_device", the tiled route's and the looped
+    kernel's device time (graph_ms: no host gaps)."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N = shape
+    a = drawn_inputs(device, shape)
+    ops, tops, latent = a["ops"], a["tops"], a["latent"]
+    f = ops.fields()
+    calls = drawn_calls(k, a, N)
+
+    def composition(name, i):
+        lat, zT, scale = k.draw_proposal_inputs((i, 5), f["cumw"], f["dof"], N, D, True)
+        if name == "fused_transform_rng":
+            return k.fused_transform(zT, latent, scale, ops, variant="tiled")
+        xT = k.fused_transform(zT, lat, scale, ops, variant="tiled")
+        return (xT, lat, k.fused_logq(xT, ops, variant="tiled")) + (
+            () if tops is None else (k.fused_logq(xT, tops, variant="tiled"),))
+
+    label = "K=%d Kt=%d D=%d N=%d" % shape
+    out = {}
+    for name in DRAWN_TIMED:
+        elected = k._elect(name, K, D, None, Kt)
+        tiled = (lambda i, name=name: k.fused_propose_logq((i, 1), ops, N, tops, variant="tiled")
+                 if name == "fused_propose_logq"
+                 else k.fused_transform_rng((i, 3), latent, ops, variant="tiled"))
+        fns = {"tiled": tiled, "composition": lambda i, name=name: composition(name, i),
+               "plain": calls[name][1]}
+        order = ("tiled", "composition", "plain", "plain", "composition", "tiled")
+        if D <= _build._THREAD_D_MAX:
+            fns["looped"] = (
+                lambda i, name=name: k.fused_propose_logq((i, 1), ops, N, tops, variant="looped")
+                if name == "fused_propose_logq"
+                else k.fused_transform_rng((i, 3), latent, ops, variant="looped"))
+            order = ("tiled", "looped", "composition", "plain", "plain", "composition",
+                     "looped", "tiled")
+        ms = {route: [] for route in fns}
+        for route in order:
+            ms[route].append(cuda_ms(fns[route], **({"reps": 3, "warmup": 1}
+                                                    if route == "plain" else {})))
+        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
+        out[(name, "cuda")] = out[(name, elected)]
+        out[(name, "device")] = graph_ms(tiled)
+        if "looped" in fns:
+            out[(name, "looped_device")] = graph_ms(fns["looped"])
+        fns.clear()
+        torch.cuda.empty_cache()
+        print("  %s %s: tiled %s ms (device %.4f), looped %s (device %s), composition %s, plain "
+              "%s, bound %.4f ms; elected %s"
+              % (name, label, " / ".join("%.4f" % t for t in ms["tiled"]), out[(name, "device")],
+                 " / ".join("%.4f" % t for t in ms.get("looped", [])) or "-",
+                 "%.4f" % out[(name, "looped_device")] if (name, "looped_device") in out else "-",
+                 " / ".join("%.4f" % t for t in ms["composition"]),
+                 " / ".join("%.4f" % t for t in ms["plain"]), bound(name, shape)[1], elected))
+    return out
+
+
+# the shapes (K, Kt, D, N) of the library yardsticks of rows 1-3 and 6 at
+# their first shapes (the flagship's K=10, D=10, N=2^22; the D=40
+# pipeline's K=32 at 2^20) and of rows 7-8's entry-table pass at K=1,
+# D=128, where the JAX rule admits them past the register pass's D=16
+LIBRARY_SHAPES = [(10, 2, 10, N_PLAIN_MAX), (32, 0, 40, N_FLAGSHIP)]
+TABLE_SHAPE = (1, 1, 128, N_FLAGSHIP)
+
+
+def library_shape_ms(device, shape):
+    """``{(kernel, route): ms}`` at ``shape``: "library", one FP32
+    ``torch.bmm`` computing the product of fused_maha (the VB operands),
+    fused_logq and fused_rho (U on the pre-centred (K, D, N) operand) and
+    fused_transform (L on normals pre-bucketed into (K, D, N / K)), beside
+    "cuda", the elected kernel, in turns (kernel, library, library,
+    kernel); a random Student-t mixture (seed K + D) and N particles from
+    it."""
+    import torch
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.ops.random import student_t_scale
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in FP32")
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    from pypmc_tpu_torch.density import core
+    ops = core._kernel_operands(params)
+    f = ops.fields()
+    xT = mixture_particles(ops, N, K + D, device)
+    A, m, _ = vb_operands(params)
+    gen = torch.Generator(device=device).manual_seed(K + D)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    latent = component_draw(params, N, K + D)
+    scale = student_t_scale(gen, params.dof[latent.long()], (N,))
+    out = {}
+    for name in ("fused_maha", "fused_logq", "fused_rho", "fused_transform"):
+        if name == "fused_transform":
+            zb = torch.randn((K, D, N // K), device=device)
+            Lk = f["L"].contiguous()
+            library, kernel = (lambda i: torch.bmm(Lk, zb),
+                               lambda i: k.fused_transform(zT, latent, scale, ops))
+        else:
+            am = (A, m) if name == "fused_maha" else (f["U"], f["mu"])
+            xc = (xT[None] - am[1][:, :, None]).contiguous()
+            library = lambda i, am=am, xc=xc: torch.bmm(am[0], xc)
+            kernel = {"fused_maha": lambda i: k.fused_maha(xT, A, m),
+                      "fused_logq": lambda i: k.fused_logq(xT, ops),
+                      "fused_rho": lambda i: k.fused_rho(xT, ops)}[name]
+        ms = {"cuda": [], "library": []}
+        for route in ("cuda", "library", "library", "cuda"):
+            ms[route].append(cuda_ms(kernel if route == "cuda" else library))
+        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
+        print("  %s K=%d D=%d N=%d: kernel %s ms, torch.bmm %s ms"
+              % (name, K, D, N, " / ".join("%.3f" % t for t in ms["cuda"]),
+                 " / ".join("%.3f" % t for t in ms["library"])))
+        del library, kernel
+        torch.cuda.empty_cache()
+    return out
+
+
+def table_shape_ms(device, shape=TABLE_SHAPE):
+    """``{(kernel, route): ms}`` of fused_pmc_stats' and fused_is_pmc_step's
+    elected pass (the entry table past the register pass's D = 16) at
+    ``shape`` (K, Kt, D, N), a K-component Student-t proposal and a
+    Kt-component Gaussian target near it, beside their plain versions
+    (CUDA events, in turns); the statistics held to the float64 plain
+    version first."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N = shape
+    _, _, _, _, ops, tops, ops64, tops64, _ = case_mixtures(
+        (K, Kt, D, N, True, False, False, K + D), device)
+    xT, _, log_q, log_p = k.fused_propose_logq((7, 7), ops, N, tops)
+    w = torch.exp(log_p - log_q)
+    check_stats("fused_pmc_stats K=%d D=%d" % (K, D), k.fused_pmc_stats(xT, w, ops, True),
+                k.plain_pmc_stats(xT.double(), w.double(), ops64, True), N, [])
+    calls = {"fused_pmc_stats": (lambda i: k.fused_pmc_stats(xT, w, ops, True),
+                                 lambda i: k.plain_pmc_stats(xT, w, ops, True)),
+             "fused_is_pmc_step": (lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True),
+                                   lambda i: k.plain_is_pmc_step((i, 2), ops, tops, N, True))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        ms = {"cuda": [], "plain": []}
+        for route in ("cuda", "plain", "plain", "cuda"):
+            ms[route].append(cuda_ms(kernel if route == "cuda" else plain,
+                                     **({"reps": 3, "warmup": 1} if route == "plain" else {})))
+        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
+        print("  %s K=%d Kt=%d D=%d N=%d: the %s pass %s ms, plain %s ms, bound %.4f ms"
+              % (name, K, Kt, D, N, _build.dense_plan(name, K, D, Kt)[0],
+                 " / ".join("%.3f" % t for t in ms["cuda"]),
+                 " / ".join("%.3f" % t for t in ms["plain"]), bound(name, shape)[1]))
+    return out
 
 
 def graph_ms(fn, reps=20, replays=3):
@@ -6235,19 +6834,25 @@ def register_kernels(log):
     return out
 
 
-# the draws' plan codes (csrc/common.cuh DrawPlan, csrc/transform.cu
+# the draws' plan codes (csrc/common.cuh DrawPlan, csrc/tiled.cuh
 # kDrawTiled)
-DRAW_PLAN_CODES = ("looped", "rec", "warp", "tiled")
-# the tiled engine's kernels (csrc/tiled.cuh) and fused_transform's bucket
-# kernel, by their names' mangled spelling
+DRAW_PLAN_CODES = ("looped", "rec", "tiled")
+# the tiled engine's kernels (csrc/tiled.cuh), by their names' mangled
+# spelling: the evaluations', fused_transform's product, the bucket kernel
+# (two instantiations: the components given, GivenLatents, and drawn,
+# DrawnLatents) and the drawn products of fused_transform_rng and
+# fused_propose_logq (eight: OFF 0 and 1, the seed by value and by pointer,
+# BucketTiles and ParticleTiles)
 TILED_KERNELS = ("maha_tiled_kernel", "logq_tiled_kernel", "rho_tiled_kernel",
-                 "transform_tiled_kernel", "transform_bucket_kernel")
+                 "transform_tiled_kernel", "transform_bucket_kernel", "draw_tiled_kernel")
+TILED_INSTANTIATIONS = {"transform_bucket_kernel": 2, "draw_tiled_kernel": 8}
 
 
 def tiled_kernels(log):
     """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of each
-    of TILED_KERNELS in a ``ptxas -v`` log; fails unless each is there
-    once."""
+    instantiation of TILED_KERNELS in a ``ptxas -v`` log (a template's
+    arguments in its name); fails unless each has its
+    TILED_INSTANTIATIONS (one by default)."""
     out = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
@@ -6257,9 +6862,12 @@ def tiled_kernels(log):
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
         stack = re.search(r"(\d+) bytes stack frame", part)
-        out.append((base, int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
-                    int(stack.group(1)) if stack else 0))
-    require(sorted(n for n, _, _, _ in out) == sorted(TILED_KERNELS),
+        args = name.split(base, 1)[1]
+        label = base + ("<%s>" % args[1:].split("Ev")[0] if args.startswith("I") else "")
+        out.append((label, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0, int(stack.group(1)) if stack else 0))
+    found = {k: sum(1 for n, _, _, _ in out if n.split("<")[0] == k) for k in TILED_KERNELS}
+    require(found == {k: TILED_INSTANTIATIONS.get(k, 1) for k in TILED_KERNELS},
             "ptxas reported the tiled kernels %s" % [n for n, _, _, _ in out])
     return out
 
@@ -6427,6 +7035,14 @@ def phase_build():
           "warps), %d B of shared memory a block"
           % (_build.TRANSFORM_TILED_D_MIN, per_sm, plan[3], per_sm * plan[3] // 32, smem))
     require(per_sm >= 2, "fused_transform's tiled kernel: %d blocks an SM" % per_sm)
+    # the drawn products from DRAW_TILED_D_MIN, their shared memory growing
+    # past D = 128 by row tile 0's panels
+    for D in (65, 128, 129, 200, 2040):
+        drawn = lib.pmc_draw_tiled_per_sm(D)
+        print("  fused_transform_rng and fused_propose_logq D=%d: the drawn product, %d blocks of "
+              "%d threads an SM, %d B of shared memory a block"
+              % (D, drawn, plan[3], _build.draw_tiled_smem(D)))
+        require(drawn >= 2, "the drawn product at D=%d: %d blocks an SM" % (D, drawn))
     for K in (1, 4, 19, 60, 1000):
         out = (ctypes.c_int * 3)()
         bsmem = lib.pmc_transform_bucket_plan(K, out)
@@ -6540,6 +7156,8 @@ def main():
     route_counts = phase_routes(device, report)
     phase("wide")
     wide_counts = phase_wide(device, report)
+    phase("wide_is")
+    wide_is_counts = phase_wide_is(device, report)
     phase("mcmc")
     mcmc_counts, _ = phase_mcmc(device)
     torch.cuda.empty_cache()
@@ -6554,7 +7172,8 @@ def main():
     # every path was driven with the counts set to 0 just before it
     counts = {n: sum(c.get(n, 0) for c in (counts, scan_counts, vb_counts, gate_counts,
                                            blocked_counts, route_counts, wide_counts,
-                                           mcmc_counts, pipe_counts, parallel_counts,
+                                           wide_is_counts, mcmc_counts, pipe_counts,
+                                           parallel_counts,
                                            example_counts))
               for n in counts}
     for kname in SOURCES:
@@ -6643,6 +7262,14 @@ def main():
         if (kname, n, "pointer") in times:
             # its seed words read from a tensor on the card
             entry["pointer_ms"] = times[(kname, n, "pointer")]
+        if kname in DRAWN_TIMED:
+            # past D = 64 the drawn product: the draw's issue floor at
+            # WIDE_SHAPE beside its time there, and its launches
+            per_normal, floor = floors[("drawn", WIDE_SHAPE)]
+            entry["shapes"][-1].update(draw_issue_floor_ms=floor,
+                                       draw_sass_a_normal=per_normal)
+            entry.update(tiled_d_min=_build.DRAW_TILED_D_MIN,
+                         launches_tiled=counts["variant:%s=tiled" % kname])
         if kname in FIRST_LAUNCH:
             # the first launch alone: its device time beside its bound
             work, kernel = FIRST_LAUNCH[kname]
@@ -6671,8 +7298,11 @@ def main():
           "launch_ms: their launches' device times, torch.profiler; shapes: fused_maha, "
           "fused_logq, fused_rho and the draws at the main paths' shapes, plain_ms past N=%d "
           "the plain "
-          "version streamed over component chunks; the six warp-a-particle kernels at K=1, "
-          "D=200, N=2^16; fused_maha and fused_logq past D=64 at TILED_SHAPES (N=2^16): ms the "
+          "version streamed over component chunks; the six kernels past D=128 at K=1, "
+          "D=200, N=2^16 (the draws' draw_issue_floor_ms there: N / 32 x D x "
+          "draw_sass_a_normal, the record draws' SASS instructions a normal at D=40, over "
+          "4 x SMs x the largest SM clock; launches_tiled their drawn products' launches); "
+          "fused_maha and fused_logq past D=64 at TILED_SHAPES (N=2^16): ms the "
           "elected kernel's, tiled_ms the tiled kernel's, "
           "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
           "called by the port), fused_maha's tiled_ms also at K=32, D=40, 2^20 beside its record "
@@ -6728,9 +7358,34 @@ if __name__ == "__main__":
 
             print(card_line())
             dev = torch.device("cuda", 0)
-            print("ELECTED_MS " + json.dumps(
-                {"%d,%d" % (sh[0], sh[2]): elected_ms(dev, sh) for sh in TILED_SHAPES}),
+            if sys.argv[3:4] != ["drawn"]:
+                print("ELECTED_MS " + json.dumps(
+                    {"%d,%d" % (sh[0], sh[2]): elected_ms(dev, sh) for sh in TILED_SHAPES}),
+                    flush=True)
+            # the kernels DRAWN_TIMED's wrappers elect at DRAWN_SHAPES
+            print("DRAWN_ELECTED_MS " + json.dumps(
+                {"%d,%d,%d" % sh[:3]: drawn_elected_ms(dev, sh) for sh in DRAWN_SHAPES}),
                 flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--drawn-times"]:
+            # phase build, then drawn_shape_ms at DRAWN_SHAPES, the library
+            # yardsticks at LIBRARY_SHAPES and rows 7-8 at TABLE_SHAPE
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            print("DRAWN_MS " + json.dumps(
+                {"%d,%d,%d" % sh[:3]: {"%s %s" % key: ms for key, ms
+                                       in drawn_shape_ms(dev, sh).items()}
+                 for sh in DRAWN_SHAPES}), flush=True)
+            print("LIBRARY_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
+                                             in library_shape_ms(dev, sh).items()}
+                 for sh in LIBRARY_SHAPES}), flush=True)
+            print("TABLE_MS " + json.dumps({"%s %s" % key: ms for key, ms
+                                            in table_shape_ms(dev).items()}), flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--tiled-times"]:
             # phase build, then tiled_shape_ms at TILED_SHAPES
@@ -6744,6 +7399,28 @@ if __name__ == "__main__":
                 {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
                                              in tiled_shape_ms(dev, sh).items()}
                  for sh in TILED_SHAPES}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--wide-is-profile"]:
+            import torch
+
+            print("WIDE_IS_PROFILE " + json.dumps(wide_is_profile(torch.device("cuda", 0))),
+                  flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--draw-outputs"]:
+            # the draws of the checkout at sys.argv[2] (an earlier commit),
+            # saved to sys.argv[3]
+            sys.path.insert(0, sys.argv[2])
+            import torch
+
+            torch.save(draw_outputs(torch.device("cuda", 0)), sys.argv[3])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--parent-draws"]:
+            # the drawn products against the checkout at sys.argv[2]'s kernels
+            import torch
+
+            print(card_line())
+            phase_build()
+            parent_draws(torch.device("cuda", 0), sys.argv[2])
             sys.exit(0)
         if sys.argv[1:2] == ["--blocked-splits"]:
             print("BLOCKED_SPLITS " + json.dumps(blocked_splits()), flush=True)

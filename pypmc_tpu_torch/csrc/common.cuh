@@ -10,10 +10,11 @@
 // kernels) the loops over the dimension are
 // unrolled to DMAX with a guard on the runtime D, so the arrays stay in
 // registers; the DMAX = 128 instantiation loops to D, and its arrays live in
-// local memory.  Past D = 128 the kernels of warp.cuh take a warp a
-// particle, with no per-thread array; fused_logq, fused_maha, fused_rho and
-// fused_transform run the block-tiled product engine of tiled.cuh from D =
-// 65 (fused_transform from transform.cu kTransformTiledDMin).
+// local memory.  From D = 65 fused_logq, fused_maha, fused_rho and the
+// three draws run the block-tiled product engine of tiled.cuh instead, to
+// any D to kWideDMax (fused_transform from transform.cu
+// kTransformTiledDMin, fused_transform_rng and fused_propose_logq from
+// tiled.cuh kDrawTiledDMin).
 //
 // A block stages its mixture operands in shared memory when they fit there
 // beside the kernel's own shared memory (OPS_SMEM); otherwise it reads them
@@ -34,8 +35,7 @@ namespace pmc {
 
 constexpr int kThreads = 128;   // threads per block, one particle each
 constexpr int kDMax = 128;      // the thread kernels' largest D (ops/_build.py D_MAX)
-constexpr int kWideDMax = 4096; // the warp kernels' largest D (ops/_build.py WIDE_D_MAX)
-constexpr int kWideThreads = 128;   // a warp kernel's block: 4 particles at a time
+constexpr int kWideDMax = 4096; // the tiled kernels' largest D (ops/_build.py WIDE_D_MAX)
 constexpr size_t kSmemLimit = 232448;   // bytes of shared memory a block may use
 // a block's share of an SM's 228 KB where two blocks share it (each also
 // reserves 1 KB)
@@ -643,6 +643,13 @@ __device__ __forceinline__ void draw_normals(Rng& rng, int D, float (&z)[DMAX]) 
   }
 }
 
+// Words of the normals of draw_normals: Box-Muller pairs on words off + 2p,
+// off + 2p + 1 of the stream, ceil(D / 2) pairs; the stream goes on (the
+// Student-t scale's chi-square) at word normal_words_end(off, D).
+__host__ __device__ constexpr int normal_words_end(int off, int D) {
+  return off + 2 * ((D + 1) / 2);
+}
+
 // Student-t proposal scale sqrt(dof / chi2(dof)), in log space.
 template <typename Rng>
 __device__ __forceinline__ float student_t_scale(float dof, Rng& rng) {
@@ -748,12 +755,6 @@ __host__ __device__ constexpr int eval_min_blocks(int DMAX) {
   return min_blocks(EvalInsts(), DMAX);
 }
 
-// Shared memory of a warp kernel's block (warp.cuh): three slices of D + 8
-// floats a warp (ops/_build.py _wide_smem).
-__host__ __device__ inline size_t wide_smem_bytes(int D) {
-  return sizeof(float) * (kWideThreads / 32) * 3 * (static_cast<size_t>(D) + 8);
-}
-
 struct EvalPlan {
   int kc;        // components a chunk
   int buffers;   // chunk buffers in shared memory, 1 or 2
@@ -853,7 +854,7 @@ int dispatch_records(int D, Body& body, EvalList<EvalInst<DS, BS>...>) {
 __host__ __device__ inline int transform_rec_floats(int D) { return (D + D * (D + 1) / 2) | 1; }
 
 struct DrawPlan {
-  int variant;    // 0 the looped kernel, 1 the record kernel, 2 the warp kernel
+  int variant;    // 0 the looped kernel, 1 the record kernel, 2 the tiled product (tiled.cuh)
   bool staged;    // the record kernel's records in shared memory
   int threads;    // a block
   size_t smem;    // shared memory a block asks for
@@ -861,11 +862,11 @@ struct DrawPlan {
 
 // A draw kernel's plan (mirrored by ops/_build.py): up to D = 64 the record
 // kernel, its ``rec_floats`` floats staged where they fit half an SM (two
-// blocks), else read from device memory; to D = 128 the looped kernel, its
-// ``ops_floats`` operands staged where they fit kSmemLimit; past it the warp
-// kernel.  ``looped`` forces the looped kernel where D <= 128.
+// blocks), else read from device memory; past it (or ``looped``) the looped
+// kernel, its ``ops_floats`` operands staged where they fit kSmemLimit,
+// which has a kernel to D = 128 (the draws elect their tiled products past
+// D = 64 before they ask this).
 inline DrawPlan draw_plan(int D, size_t rec_floats, size_t ops_floats, bool looped) {
-  if (D > kDMax) return {2, false, kWideThreads, wide_smem_bytes(D)};
   if (D > kRecDMax || looped) {
     const size_t ops = sizeof(float) * ops_floats;
     return {0, ops <= kSmemLimit, kThreads, ops <= kSmemLimit ? ops : 0};

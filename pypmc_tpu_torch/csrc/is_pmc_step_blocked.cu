@@ -39,9 +39,10 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
-                                      float* log_p, long long N, int K, int Kt,
+                                      float* log_p, int* scratch, long long N, int K, int Kt,
                                       int D, int student_t, int t_student_t,
-                                      int variant, int n_blocks, void* stream);
+                                      int variant, int n_blocks, int eval_blocks,
+                                      void* stream);
 
 namespace pmc {
 
@@ -122,9 +123,13 @@ static int launch_step_draw(unsigned int s0, unsigned int s1, const long long* s
                             int student_t, int t_student_t, void* stream) {
   using namespace pmc;
   const size_t smem = static_cast<size_t>(pmc_step_draw_smem_bytes(K, Kt, D));
-  if (smem == 0)   // fused_propose_logq's plan's kernel, which sizes its grid
-    return pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q, log_p, N,
-                                  K, Kt, D, student_t, t_student_t, -1, 0, stream);
+  // fused_propose_logq's record kernel to D = 64 and its looped kernel past
+  // it (its tiled route needs a scratch this launch has none of), each
+  // sizing its grid
+  if (smem == 0)
+    return pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q, log_p,
+                                  nullptr, N, K, Kt, D, student_t, t_student_t,
+                                  D > kRecDMax ? 0 : -1, 0, 0, stream);
   dispatch_step_draw(D, smem, [&](auto kernel) {
     int per_sm = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDrawThreads, smem);

@@ -33,13 +33,25 @@
 //
 // The looped kernel (propose_logq_kernel): 128 threads, both mixtures'
 // packed operands staged in shared memory where they fit, evaluated with
-// mixture_logpdf; it takes D = 65 to 128 (and anywhere to D = 128, forced,
-// as the yardstick).  Past D = 128 (propose_logq_warp_kernel) a warp takes a
-// particle (warp.cuh): the lanes draw the particle's Philox stream block by
-// block (the component's uniform, then the normals: the thread path's
-// draws), the rows of L, then of each U, on the lanes, read from device
-// memory.
-#include "warp.cuh"
+// mixture_logpdf; no shape elects it, and it runs anywhere to D = 128,
+// forced, as the bit-exact yardstick of the draws.
+//
+// From D = kDrawTiledDMin (tiled.cuh), three or four launches, all
+// graph-capturable: the bucket kernel on components drawn from word 0 of
+// each particle's stream against the tail-sum thresholds (DrawnLatents; no
+// bucket kernel at K = 1), the drawn tiled product (draw_tiled_kernel<1>:
+// the normals from word 1 on drawn in shared memory, the Student-t scale
+// after them, x written and each particle's component with it), then
+// fused_logq's tiled kernel on the x just written for log q and, with a
+// target, for log p (pmc_fused_logq, so both are fused_logq's bit for
+// bit).  x and latent are the looped kernel's bit for bit.  Re-reading x
+// costs 4 D bytes a particle an evaluation (52 MB, ~0.016 ms at D = 200,
+// 2^16), beside the product's and the evaluations' FP32 work.
+#include "tiled.cuh"
+
+// fused_logq's launcher (logq.cu): the evaluations of the tiled route
+extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out, long long N, int K,
+                              int D, int student_t, int variant, int n_blocks, void* stream);
 
 namespace pmc {
 
@@ -69,11 +81,15 @@ propose_logq_kernel(const Seed seed, const float* __restrict__ mix_src,
 }
 
 // The plan of fused_propose_logq for (K, Kt, D) (mirrored by ops/_build.py
-// propose_plan; Kt = 0 without a target): draw_plan's, the record kernel's
-// records both mixtures' evaluation records, the proposal's draw records
-// and its K thresholds, the looped kernel's operands the packed proposal
-// and the target's evaluation part.
+// propose_plan; Kt = 0 without a target): from kDrawTiledDMin the drawn
+// product's (kTileThreads, draw_tiled_smem), else draw_plan's, the record
+// kernel's records both mixtures' evaluation records, the proposal's draw
+// records and its K thresholds, the looped kernel's operands the packed
+// proposal and the target's evaluation part (``looped`` forces it to D =
+// 128).
 inline DrawPlan propose_plan(int K, int Kt, int D, bool looped = false) {
+  if (!looped && D >= kDrawTiledDMin)
+    return {kDrawTiled, false, kTileThreads, draw_tiled_smem(D)};
   return draw_plan(D,
                    static_cast<size_t>(K + Kt) * rec_floats(D) +
                        static_cast<size_t>(K) * (transform_rec_floats(D) + 1),
@@ -166,49 +182,21 @@ struct ProposeRecKernels {
   static auto get() { return &propose_logq_rec_kernel<DMAX, STAGED, SEED_PTR>; }
 };
 
-__global__ void __launch_bounds__(kWideThreads)
-propose_logq_warp_kernel(const Seed seed, const float* __restrict__ mix,
-                         const float* __restrict__ tmix, float* __restrict__ xT,
-                         int* __restrict__ latent, float* __restrict__ log_q,
-                         float* __restrict__ log_p, long long N, int K, int Kt, int D,
-                         int student_t, int t_student_t) {
-  extern __shared__ float smem[];
-  const WarpSlices sl = warp_slices(smem, D);
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(sl.a);
+// The tiled route on stream s: the bucket kernel on the drawn components
+// (K > 1), the drawn product (n_blocks blocks), then fused_logq's tiled
+// kernel for log q and, with a target, log p (eval_blocks blocks each).
+int launch_propose_tiled(const Seed& seed, const float* mix, const float* tmix, float* xT,
+                         int* latent, float* log_q, float* log_p, int* scratch, long long N,
+                         int K, int Kt, int D, int student_t, int t_student_t, int n_blocks,
+                         int eval_blocks, cudaStream_t s) {
   const MixLayout L{K, D};
-  for (long long n = warp_index(); n < N; n += warp_count()) {
-    // propose_particle's stream: the component's uniform (word 0), the
-    // normals, then the Student-t scale
-    warp_normals(seed.w0(), seed.w1(), static_cast<uint64_t>(n), 1, D,
-                 reinterpret_cast<uint32_t*>(sl.a), sl.b);
-    const float u = Philox::u01(words[0]);
-    int lat = 0;
-    for (int k = 0; k < K - 1; ++k) lat += u >= mix[L.cumw() + k] ? 1 : 0;
-    float scale = 1.0f;
-    if (student_t != 0) {
-      if (lane_id() == 0) {
-        Philox rng = stream_at(seed.w0(), seed.w1(), static_cast<uint64_t>(n),
-                                 normal_words_end(1, D));
-        scale = student_t_scale(mix[L.dof() + lat], rng);
-      }
-      scale = from_lane0(scale);
-    }
-    warp_affine(mix + L.L() + static_cast<long long>(lat) * D * D, mix + L.mu() + lat * D,
-                sl.b, scale, D, [&](int i, float v) {
-                  sl.c[i] = v;
-                  xT[i * N + n] = v;
-                });
-    __syncwarp();   // x is whole; the normals' slice is x - mu's from here on
-    const float lq = warp_mixture_logpdf(mix, K, D, student_t != 0, sl.c, sl.b);
-    const float lp = log_p == nullptr ? 0.0f
-        : warp_mixture_logpdf(tmix, Kt, D, t_student_t != 0, sl.c, sl.b);
-    if (lane_id() == 0) {
-      latent[n] = lat;
-      log_q[n] = lq;
-      if (log_p != nullptr) log_p[n] = lp;
-    }
-    __syncwarp();   // the slices are rewritten next
-  }
+  int err = launch_draw_tiled<1>(seed, DrawnLatents{seed, mix + L.cumw(), K}, mix + L.mu(),
+                                 mix + L.L(), mix + L.dof(), scratch, xT, latent, N, K, D,
+                                 student_t, n_blocks, s);
+  if (err != 0 || N == 0) return err;
+  err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, kEvalTiled, eval_blocks, s);
+  if (err != 0 || log_p == nullptr) return err;
+  return pmc_fused_logq(xT, tmix, log_p, N, Kt, D, t_student_t, kEvalTiled, eval_blocks, s);
 }
 
 }  // namespace pmc
@@ -226,18 +214,22 @@ extern "C" int pmc_propose_per_sm(int K, int Kt, int D) {
 }
 
 // seed_words: null (the words s0, s1) or two int64 on the card, read in the
-// kernel (Seed); tmix/log_p are null without a target; variant: -1 the plan's kernel, 0
-// the looped kernel (D <= 128), 1 the record kernel (an error where the
-// plan does not take it); n_blocks <= 0: one wave of the kernel's blocks,
-// sized here (the record kernel's from its occupancy, the others' 16
-// blocks an SM)
+// kernel (Seed); tmix/log_p are null without a target; scratch: the tiled
+// route's transform_scratch_words(N, K) int32 at K > 1 (else may be null);
+// variant: -1 the plan's kernel, 0 the looped kernel (D <= 128), 1 the
+// record kernel (an error where the plan does not take it), 2 the tiled
+// route (any D to kWideDMax); n_blocks <= 0: one wave of the record or
+// looped kernel's blocks, sized here (the record kernel's from its
+// occupancy, the looped kernel's 16 blocks an SM); the tiled route takes
+// n_blocks for its product and eval_blocks for its evaluations, both > 0
 extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
-                                      float* log_p, long long N, int K, int Kt,
+                                      float* log_p, int* scratch, long long N, int K, int Kt,
                                       int D, int student_t, int t_student_t,
-                                      int variant, int n_blocks, void* stream) {
+                                      int variant, int n_blocks, int eval_blocks,
+                                      void* stream) {
   using namespace pmc;
   const Seed seed{s0, s1, seed_words};
   if (log_p == nullptr) Kt = 0;
@@ -261,13 +253,12 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
     return seed_words == nullptr ? with_rec_kernel<ProposeRecKernels<false>>(plan, D, launch)
                                  : with_rec_kernel<ProposeRecKernels<true>>(plan, D, launch);
   }
-  if (D > kDMax && D <= kWideDMax) {
-    if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_warp(propose_logq_warp_kernel, D,
-                       n_blocks > 0 ? n_blocks : wave_blocks(16, N, kWideThreads / 32), s, seed,
-                       mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D, student_t,
-                       t_student_t);
+  if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled)) {
+    if (eval_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_propose_tiled(seed, mix, tmix, xT, latent, log_q, log_p, scratch, N, K, Kt, D,
+                                student_t, t_student_t, n_blocks, eval_blocks, s);
   }
+  if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = propose_plan(K, Kt, D, true).smem;
   if (n_blocks <= 0) n_blocks = wave_blocks(16, N, kThreads);
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {

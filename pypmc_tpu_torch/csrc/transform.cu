@@ -16,7 +16,8 @@
 // (at D = 200, 2^16: 0.040 ms of FP32 operations against 0.032 of bytes);
 // fused_transform_rng reads one word and writes D, and its Philox,
 // Box-Muller and (Student-t) Marsaglia-Tsang work is SFU- and integer-bound
-// rather than memory-bound.
+// rather than memory-bound (past D = 64 its drawn product does
+// fused_transform's FMAs beside the draw's issue; PERF.md section 6).
 //
 // Both up to D = 64 (transform_rec_kernel, transform_rng_rec_kernel; the
 // record kernels of common.cuh): 256 threads a block,
@@ -45,21 +46,18 @@
 // where it fits (threads of a warp read different components' entries: bank
 // conflicts, not a broadcast), the product as a lower-triangular FMA chain
 // in registers up to D = 32 (local memory past it), the result written once
-// as D coalesced rows.  fused_transform_rng takes its looped kernel from D
-// = 65 to 128, fused_transform from D = 65 below kTransformTiledDMin; both
-// take them anywhere to D = 128, forced, as the bit-exact yardstick.  The
-// TPU's one-hot selector contractions over all K components become one
-// indexed read: a thread touches only its own component.  The Philox
-// stream of a particle is keyed by the seed and counted by the particle's
-// index, as in propose_logq.cu, so the samples do not depend on the launch
-// configuration.  Past D = 128 fused_transform_rng's warp kernel takes a
-// particle a warp (warp.cuh): the normals in a slice of shared memory,
-// drawn by the lanes block by block from the particle's Philox stream, so
-// they are the thread path's, and the rows of L on the lanes, read from
-// device memory.
+// as D coalesced rows.  Neither is elected past D = 64 (fused_transform
+// below kTransformTiledDMin, fused_transform_rng below kDrawTiledDMin would
+// take them); both run anywhere to D = 128, forced, as the bit-exact
+// yardstick.  The TPU's one-hot selector contractions over all K components
+// become one indexed read: a thread touches only its own component.  The
+// Philox stream of a particle is keyed by the seed and counted by the
+// particle's index, as in propose_logq.cu, so the samples do not depend on
+// the launch configuration.
 //
-// fused_transform from D = kTransformTiledDMin: two launches, both
-// graph-capturable (no count is read on the host).  transform_bucket_kernel
+// fused_transform from D = kTransformTiledDMin and fused_transform_rng from
+// D = kDrawTiledDMin (tiled.cuh): two launches, both graph-capturable (no
+// count is read on the host).  transform_bucket_kernel (tiled.cuh)
 // sorts the particles by component, a counting sort a chunk of
 // kBucketChunk particles a block: warp w counts its 1,024 particles' latents
 // a component (__match_any_sync: one shared add a group of lanes), the
@@ -76,17 +74,20 @@
 // between the counts and the scatter.  transform_tiled_kernel walks the
 // slots on a grid of one wave, a block skipping the empty slots of its
 // stride, on the tiled engine (tiled.cuh BucketTiles): L_k's panels (those
-// above the diagonal skipped) and the gathered z panel, no m panel, and
-// StoreEpi's row-tile epilogue writes x_i = fmaf(scale_n, s, mu_i) to each
-// particle's own column.  Its accumulators run j ascending from 0 as
-// affine_transform's, and the zeros above the diagonal add fmaf(0, z, s) =
-// s, so its output is the looped kernel's bit for bit (up to the sign of a
-// zero) wherever both run.  What bounds it: the FMA issue of the tile's
-// product, as in the evaluations (PERF.md section 6), beside the gathers of
-// z and the scattered stores of x, 4 bytes a particle-coordinate, whose
-// sectors the other components' tiles share.
+// above the diagonal skipped) and the gathered z panel (LoadedX), no m
+// panel, and StoreEpi's row-tile epilogue writes x_i = fmaf(scale_n, s,
+// mu_i) to each particle's own column.  Its accumulators run j ascending
+// from 0 as affine_transform's, and the zeros above the diagonal add
+// fmaf(0, z, s) = s, so its output is the looped kernel's bit for bit (up
+// to the sign of a zero) wherever both run.  What bounds it: the FMA issue
+// of the tile's product, as in the evaluations (PERF.md section 6), beside
+// the gathers of z and the scattered stores of x, 4 bytes a
+// particle-coordinate, whose sectors the other components' tiles share.
+// fused_transform_rng's product (draw_tiled_kernel<0>) draws its z panels
+// in shared memory instead (DrawnX: draw_component's normals, words 0 on)
+// and each particle's Student-t scale once a tile (DrawnScales); at K = 1
+// it walks the particles in order with no bucket kernel (ParticleTiles).
 #include "tiled.cuh"
-#include "warp.cuh"
 
 namespace pmc {
 
@@ -142,208 +143,26 @@ transform_rng_kernel(const Seed seed, const int* __restrict__ latent,
 constexpr int kTransformTiledDMin = 65;
 static_assert(kTransformTiledDMin > kRecDMax && kTransformTiledDMin <= kDMax + 1,
               "the looped kernel to kTransformTiledDMin - 1, the tiled pair from it");
-constexpr int kDrawTiled = 3;   // DrawPlan::variant of fused_transform's tiled pair
 
 // The plan of fused_transform (rng false) or fused_transform_rng (rng true)
 // for (K, D) (mirrored by ops/_build.py transform_plan): draw_plan's, the
 // record kernel's records the K draw records (and fused_transform_rng's K
 // dofs), the looped kernel's operands the buffer mu | L | dof;
 // fused_transform's tiled pair from kTransformTiledDMin (kTileThreads, the
-// tiled engine's shared memory; ``looped`` forces the looped kernel to D =
-// 128).
+// tiled engine's shared memory), fused_transform_rng's drawn product from
+// kDrawTiledDMin (draw_tiled_smem); ``looped`` forces the looped kernel to
+// D = 128.
 inline DrawPlan transform_plan(int K, int D, bool looped = false, bool rng = false) {
-  if (!rng && !looped && D >= kTransformTiledDMin)
-    return {kDrawTiled, false, kTileThreads, kTiledSmem};
+  if (!looped && D >= (rng ? kDrawTiledDMin : kTransformTiledDMin))
+    return {kDrawTiled, false, kTileThreads, rng ? draw_tiled_smem(D) : kTiledSmem};
   return draw_plan(D, static_cast<size_t>(K) * (transform_rec_floats(D) + (rng ? 1 : 0)),
                    transform_floats(K, D), looped);
 }
 
 // ---------------------------------------------------------------------
-// fused_transform's tiled pair: the bucket kernel and the tiled product
+// fused_transform's tiled pair: the bucket kernel (tiled.cuh) and the
+// tiled product
 // ---------------------------------------------------------------------
-// 1,024 threads of 32 particles each.  A thread reads its latents again
-// for the scatter (from L2) rather than keep them in registers: kept, they
-// spilled the 64 registers a thread of 1,024 has (as 32 ints, and as 16
-// two-latent words, the unrolled loads' addresses beside them), and at 512
-// threads of 64 the 128 of 512
-constexpr int kBucketThreads = 1024;
-constexpr int kBucketItems = 32;                      // particles a thread
-constexpr int kBucketChunk = kBucketThreads * kBucketItems;
-constexpr int kBucketWarps = kBucketThreads / 32;
-
-// slots of a full chunk: its tiles, at most one partial a component
-__host__ __device__ constexpr long long bucket_chunk_slots(int K) {
-  return kBucketChunk / kTileP + K;
-}
-// the slots of N particles: full chunks', then the last chunk's
-// ceil(len / 128) + K
-__host__ __device__ inline long long bucket_slots(long long N, int K) {
-  if (N <= 0) return 0;
-  const long long chunks = (N + kBucketChunk - 1) / kBucketChunk;
-  const long long last = N - (chunks - 1) * kBucketChunk;
-  return (chunks - 1) * bucket_chunk_slots(K) + (last + kTileP - 1) / kTileP + K;
-}
-// shared memory of a bucket block: a warp's count a component, then the
-// buckets' starts and tiles (K + 1 each)
-__host__ __device__ inline size_t bucket_smem_bytes(int K) {
-  return sizeof(int) * (static_cast<size_t>(kBucketWarps) * K + 2 * (K + 1));
-}
-// int32 words of the scratch: perm (N, padded to 4: the slots are int4),
-// then the slots
-__host__ __device__ inline long long transform_scratch_words(long long N, int K) {
-  return (N + 3) / 4 * 4 + 4 * bucket_slots(N, K);
-}
-
-// The counting sort of chunk blockIdx.x: perm's entries of the chunk list
-// its particles by component (the chunk's bucket k at its start + the
-// counts of the buckets before), each bucket's particles in their order,
-// and the chunk's slots (from blockIdx.x * bucket_chunk_slots(K)) its tiles,
-// bucket by bucket, then empty slots (k = -1).  A latent outside [0, K) is
-// left out (its column of x is not written).
-__global__ void __launch_bounds__(kBucketThreads)
-transform_bucket_kernel(const int* __restrict__ latent, int* __restrict__ perm,
-                        int4* __restrict__ slots, long long N, int K) {
-  extern __shared__ int bsm[];
-  int* hist = bsm;                          // kBucketWarps x K
-  int* start = hist + kBucketWarps * K;     // K + 1: the chunk's buckets
-  int* tile0 = start + K + 1;               // K + 1: their first tiles
-  const long long c0 = static_cast<long long>(blockIdx.x) * kBucketChunk;
-  const int len = static_cast<int>(min(static_cast<long long>(kBucketChunk), N - c0));
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  for (int i = threadIdx.x; i < kBucketWarps * K; i += kBucketThreads) hist[i] = 0;
-  // warp w's particles: chunk positions (w kBucketItems + r) 32 + lane; -1
-  // past the chunk or outside [0, K)
-  const auto lat = [&](int r) {
-    const int i = (w * kBucketItems + r) * 32 + lane;
-    const int v = i < len ? __ldg(latent + c0 + i) : -1;
-    return v >= 0 && v < K ? v : -1;
-  };
-  __syncthreads();
-#pragma unroll 8
-  for (int r = 0; r < kBucketItems; ++r) {
-    const int k = lat(r);
-    const unsigned g = __match_any_sync(0xffffffffu, k);
-    if (k >= 0 && lane == __ffs(g) - 1) hist[w * K + k] += __popc(g);
-    __syncwarp();
-  }
-  __syncthreads();
-  // each bucket's warps in order: hist[w][k] becomes warp w's first
-  // position in bucket k, start[k] the bucket's count
-  for (int k = threadIdx.x; k < K; k += kBucketThreads) {
-    int run = 0;
-    for (int v = 0; v < kBucketWarps; ++v) {
-      const int c = hist[v * K + k];
-      hist[v * K + k] = run;
-      run += c;
-    }
-    start[k] = run;
-  }
-  __syncthreads();
-  // warp 0: the exclusive scans over k of the counts and of their tiles
-  if (w == 0) {
-    int base = 0, tbase = 0;
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const int k = k0 + lane;
-      const int n = k < K ? start[k] : 0;
-      const int tiles = (n + kTileP - 1) / kTileP;
-      int sn = n, st = tiles;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int a = __shfl_up_sync(0xffffffffu, sn, o), b = __shfl_up_sync(0xffffffffu, st, o);
-        if (lane >= o) {
-          sn += a;
-          st += b;
-        }
-      }
-      if (k < K) {
-        start[k] = base + sn - n;
-        tile0[k] = tbase + st - tiles;
-      }
-      base += __shfl_sync(0xffffffffu, sn, 31);
-      tbase += __shfl_sync(0xffffffffu, st, 31);
-    }
-    if (lane == 0) {
-      start[K] = base;
-      tile0[K] = tbase;
-    }
-  }
-  __syncthreads();
-  // the chunk's slots: tile j of bucket k at slot tile0[k] + j
-  const long long s0 = static_cast<long long>(blockIdx.x) * bucket_chunk_slots(K);
-  const int n_slots = (len + kTileP - 1) / kTileP + K;
-  for (int l = threadIdx.x; l < n_slots; l += kBucketThreads) {
-    int4 e = make_int4(-1, 0, 0, 0);
-    if (l < tile0[K]) {
-      int lo = 0, hi = K - 1;   // the last bucket whose first tile is at or before l
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) / 2;
-        if (tile0[mid] <= l) lo = mid;
-        else hi = mid - 1;
-      }
-      const int first = start[lo] + (l - tile0[lo]) * kTileP;
-      e = make_int4(lo, static_cast<int>(c0 + first), min(kTileP, start[lo + 1] - first), 0);
-    }
-    slots[s0 + l] = e;
-  }
-  // the scatter, warp w's particles in order
-#pragma unroll 8
-  for (int r = 0; r < kBucketItems; ++r) {
-    const int k = lat(r);
-    const unsigned g = __match_any_sync(0xffffffffu, k);
-    int pos = 0;
-    if (k >= 0) pos = start[k] + hist[w * K + k] + __popc(g & ((1u << lane) - 1u));
-    __syncwarp();
-    if (k >= 0) {
-      perm[c0 + pos] = static_cast<int>(c0 + (w * kBucketItems + r) * 32 + lane);
-      if (lane == __ffs(g) - 1) hist[w * K + k] += __popc(g);
-    }
-    __syncwarp();
-  }
-}
-
-// fused_transform's row-tile epilogue: x_i = fmaf(scale_n, s, mu_k[i]) to
-// particle n's column of xT, for the thread's rows below D and its tile
-// columns that hold a particle.  The tile's particles are kept in shared
-// memory (two tiles' worth, the next written while the last is computed).
-struct StoreEpi {
-  int* cols;   // 2 x kTileP
-  const float* scale;
-  const float* mu;
-  float* xT;
-  long long N;
-  int D;
-  template <typename Src, typename Tile>
-  __device__ void tile(const Src& src, long long t, const Tile& tile, int q) {
-    if (threadIdx.x < kTileP)
-      cols[(q & 1) * kTileP + threadIdx.x] = static_cast<int>(src.col(t, tile));
-  }
-  template <typename Src, typename Step>
-  __device__ void row_end(const Src&, const Step& s, int q, float (&acc)[8][8], int ty, int tx) {
-    const int* c = cols + (q & 1) * kTileP;
-    int n[8];
-    float sc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      n[j] = c[tile_col(tx, j)];
-      sc[j] = n[j] >= 0 ? __ldg(scale + n[j]) : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = tile_row(s.rt, ty, r);
-      if (i < D) {
-        const float m = __ldg(mu + static_cast<long long>(s.k) * D + i);
-        float* row = xT + static_cast<long long>(i) * N;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (n[j] >= 0) row[n[j]] = fmaf(sc[j], acc[r][j], m);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-    }
-  }
-  template <typename Src, typename Step>
-  __device__ void k_end(const Src&, const Step&, int) {}
-};
 
 // ops: mu (K, D) | L (K, D, D) | dof (K); the slots and perm of
 // transform_bucket_kernel
@@ -354,37 +173,20 @@ transform_tiled_kernel(const float* __restrict__ zT, const float* __restrict__ s
                        int K, int D, long long n_slots) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  StoreEpi epi{reinterpret_cast<int*>(smem + kTileRedOffset), scale, ops, xT, N, D};
-  tiled_walk<true, false>(smem, zT, ops + static_cast<long long>(K) * D, nullptr, N, D,
+  StoreEpi<GivenScales> epi{reinterpret_cast<int*>(smem + kStoreColsOffset),
+                            smem + kStoreScalesOffset, ops, xT, nullptr, N, D, {scale}};
+  tiled_walk<true, false>(smem, LoadedX{zT, N}, ops + static_cast<long long>(K) * D, nullptr, D,
                           BucketTiles{slots, perm, n_slots}, epi);
 }
 
-// The bucket kernel on stream s, a block a chunk: perm and the slots into
-// scratch, transform_scratch_words(N, K) int32, 16-byte aligned (perm, then
-// the slots).  Its error, or cudaErrorInvalidValue past its limits.
-int launch_transform_buckets(const int* latent, int* scratch, long long N, int K,
-                             cudaStream_t s) {
-  const size_t bsmem = bucket_smem_bytes(K);
-  if (K < 1 || N < 1 || N > 0x7fffffffLL || bsmem > kSmemLimit)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      transform_bucket_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bsmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  transform_bucket_kernel<<<static_cast<int>((N + kBucketChunk - 1) / kBucketChunk),
-                            kBucketThreads, bsmem, s>>>(
-      latent, scratch, reinterpret_cast<int4*>(scratch + (N + 3) / 4 * 4), N, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The tiled pair on stream s: the bucket kernel, then the tiled kernel on
-// n_blocks blocks; scratch as launch_transform_buckets'.
+// n_blocks blocks; scratch as launch_buckets' (tiled.cuh).
 int launch_transform_tiled(const float* zT, const int* latent, const float* scale,
                            const float* ops, int* scratch, float* xT, long long N, int K, int D,
                            int n_blocks, cudaStream_t s) {
   if (D < 1 || D > kWideDMax) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  int err = launch_transform_buckets(latent, scratch, N, K, s);
+  int err = launch_buckets(GivenLatents{latent}, scratch, N, K, s);
   if (err != 0) return err;
   err = static_cast<int>(cudaFuncSetAttribute(transform_tiled_kernel,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -470,34 +272,6 @@ struct TransformRecKernels {
   }
 };
 
-__global__ void __launch_bounds__(kWideThreads)
-transform_rng_warp_kernel(const Seed seed, const int* __restrict__ latent,
-                          const float* __restrict__ ops, float* __restrict__ xT,
-                          long long N, int K, int D, int student_t) {
-  extern __shared__ float smem[];
-  const WarpSlices sl = warp_slices(smem, D);
-  const float* L = ops + static_cast<long long>(K) * D;
-  const float* dof = L + static_cast<long long>(K) * D * D;
-  for (long long n = warp_index(); n < N; n += warp_count()) {
-    // draw_component's stream: the normals, then the Student-t scale
-    warp_normals(seed.w0(), seed.w1(), static_cast<uint64_t>(n), 0, D,
-                 reinterpret_cast<uint32_t*>(sl.a), sl.b);
-    const int lat = latent[n];
-    float scale = 1.0f;
-    if (student_t != 0) {
-      if (lane_id() == 0) {
-        Philox rng = stream_at(seed.w0(), seed.w1(), static_cast<uint64_t>(n),
-                               normal_words_end(0, D));
-        scale = student_t_scale(dof[lat], rng);
-      }
-      scale = from_lane0(scale);
-    }
-    warp_affine(L + static_cast<long long>(lat) * D * D, ops + lat * D, sl.b, scale, D,
-                [&](int i, float v) { xT[i * N + n] = v; });
-    __syncwarp();   // the slices are rewritten next
-  }
-}
-
 }  // namespace pmc
 
 // the plan of fused_transform (rng 0) or fused_transform_rng (rng 1) for
@@ -534,8 +308,15 @@ extern "C" int pmc_transform_tiled_per_sm() {
 // ops/_build.py transform_tiles): scratch as pmc_fused_transform's
 extern "C" int pmc_transform_buckets(const int* latent, int* scratch, long long N, int K,
                                      void* stream) {
-  return pmc::launch_transform_buckets(latent, scratch, N, K, static_cast<cudaStream_t>(stream));
+  return pmc::launch_buckets(pmc::GivenLatents{latent}, scratch, N, K,
+                             static_cast<cudaStream_t>(stream));
 }
+
+// blocks of the drawn products (fused_transform_rng's and
+// fused_propose_logq's: the same shared memory, and at most 128 registers
+// by their launch bounds) that fit on one SM at once at D (their shared
+// memory grows past D = 128), for the wrappers' grids; -1 on an error
+extern "C" int pmc_draw_tiled_per_sm(int D) { return pmc::draw_tiled_per_sm<0>(D); }
 
 // blocks of fused_transform's (rng 0) or fused_transform_rng's (rng 1)
 // record kernel for (K, D) that fit on one SM at once (0 where the plan
@@ -582,11 +363,13 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
 }
 
 // seed_words: null (the words s0, s1) or two int64 on the card, read in the
-// kernel (Seed); variant as pmc_fused_transform's
+// kernel (Seed); scratch: as pmc_fused_transform's (the drawn product's at
+// K > 1); variant as pmc_fused_transform's, 2 the drawn product (any D to
+// kWideDMax)
 extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
                                        const long long* seed_words, const int* latent,
-                                       const float* ops, float* xT, long long N, int K,
-                                       int D, int student_t, int variant, int n_blocks,
+                                       const float* ops, int* scratch, float* xT, long long N,
+                                       int K, int D, int student_t, int variant, int n_blocks,
                                        void* stream) {
   using namespace pmc;
   const Seed seed{s0, s1, seed_words};
@@ -602,11 +385,13 @@ extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
         ? with_rec_kernel<TransformRecKernels<true, false>>(plan, D, launch)
         : with_rec_kernel<TransformRecKernels<true, true>>(plan, D, launch);
   }
-  if (D > kDMax && D <= kWideDMax) {
-    if (variant == 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_warp(transform_rng_warp_kernel, D, n_blocks, s, seed, latent, ops, xT, N,
-                       K, D, student_t);
+  if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled)) {
+    const float* L = ops + static_cast<long long>(K) * D;
+    return launch_draw_tiled<0>(seed, GivenLatents{latent}, ops, L,
+                                L + static_cast<long long>(K) * D * D, scratch, xT, nullptr, N,
+                                K, D, student_t, n_blocks, s);
   }
+  if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = transform_plan(K, D, true).smem;
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
     cudaFuncSetAttribute(transform_rng_kernel<DMAX, OPS_SMEM>,

@@ -12,15 +12,17 @@ kernel (:data:`D_MAX`).  A thread kernel keeps one particle's coordinates
 in a per-thread array of at most 128 floats (registers up to D = 32, and up
 to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 ``fused_maha``, ``fused_transform``, ``fused_transform_rng`` and
-``fused_propose_logq``; local memory above).  Past D = 128
-the six kernels of :data:`WIDE` take D up to :data:`WIDE_D_MAX`: two run a
-warp a particle with its coordinates in shared memory (``csrc/warp.cuh``),
-and the four of :data:`TILED` run the block-tiled product engine of
-``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and ``fused_rho`` from D
-= :data:`TILED_D_MIN` (:func:`tiled_plan`, :func:`eval_variant`),
-``fused_transform`` from D = :data:`TRANSFORM_TILED_D_MIN` after a counting
-sort of its particles by component (:func:`transform_plan`,
-:func:`transform_bucket_plan`, :func:`transform_tiles`).  The dense
+``fused_propose_logq``; local memory above).  The six kernels of
+:data:`WIDE` take D up to :data:`WIDE_D_MAX` on the block-tiled product
+engine of ``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and
+``fused_rho`` from D = :data:`TILED_D_MIN` (:func:`tiled_plan`,
+:func:`eval_variant`), ``fused_transform`` from D =
+:data:`TRANSFORM_TILED_D_MIN` after a counting sort of its particles by
+component (:func:`transform_plan`, :func:`transform_bucket_plan`,
+:func:`transform_tiles`), ``fused_transform_rng`` and ``fused_propose_logq``
+from D = :data:`DRAW_TILED_D_MIN` with their normals drawn in shared memory
+(:func:`draw_tiled_smem`; ``fused_propose_logq``
+then evaluates with ``fused_logq``'s tiled kernel).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
@@ -52,8 +54,9 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS", "WIDE_THREADS",
-           "DRAW_THREADS", "TILED_D_MIN", "TRANSFORM_TILED_D_MIN",
+__all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
+           "DRAW_THREADS", "TILED_D_MIN", "TRANSFORM_TILED_D_MIN", "DRAW_TILED_D_MIN",
+           "draw_tiled_smem",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
            "eval_variant", "tiled_plan", "transform_bucket_plan", "transform_slots",
            "transform_scratch_words", "transform_tiles",
@@ -69,11 +72,10 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _THREAD_D_MAX = 128    # csrc/common.cuh kDMax: per-thread arrays of 8, 16, 32 (40, 64) or 128
-WIDE_D_MAX = 4096      # csrc/common.cuh kWideDMax: the warp kernels' largest D
+WIDE_D_MAX = 4096      # csrc/common.cuh kWideDMax: the tiled kernels' largest D
 SMEM_LIMIT = 232448    # csrc/common.cuh kSmemLimit: shared memory one H100 block may use
 THREADS = 128          # csrc/common.cuh kThreads
 EVAL_THREADS = 256     # csrc/common.cuh kEvalThreads: the record kernels' (D <= 64)
-WIDE_THREADS = 128     # csrc/common.cuh kWideThreads: a warp kernel's block, 4 particles
 DRAW_THREADS = 256     # csrc/draw.cu kDrawThreads: the proposal inputs' draw, a thread a particle
 _REC_D_MAX = 64        # csrc/common.cuh kRecDMax
 _EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record instantiations
@@ -92,6 +94,14 @@ TILED_D_MIN = 65
 # 64: the first D past 64 at which the pair beat the looped kernel at the
 # shapes timed (PERF.md)
 TRANSFORM_TILED_D_MIN = 65
+# csrc/tiled.cuh kDrawTiledDMin: the smallest D at which fused_transform_rng
+# and fused_propose_logq elect their drawn tiled products (the looped kernel
+# stays forcible to D = 128): the first past the record kernels' 64, where
+# the drawn products beat the looped kernels at the shapes timed (PERF.md)
+DRAW_TILED_D_MIN = 65
+# csrc/tiled.cuh kDrawCachePanels: the panels of row tile 0 a drawn product
+# keeps past D = 128, so that D <= 256 draws each normal once
+_DRAW_CACHE_PANELS = 8
 # csrc/transform.cu: the bucket kernel's threads a block and particles a
 # thread (kBucketThreads, kBucketItems); a block sorts a chunk of their
 # product
@@ -117,16 +127,18 @@ BLOCKED = ("fused_pmc_stats_blocked", "fused_vb_estep_blocked",
 KERNELS = ("fused_logq", "fused_propose_logq", "fused_pmc_stats",
            "fused_is_pmc_step", "fused_maha", "fused_rho", "fused_vb_estep",
            "fused_transform", "fused_transform_rng", "fused_mcmc_pool") + BLOCKED
-# the kernels that take D past 128: those of TILED by the tiled engine, the
-# others a warp a particle (csrc/warp.cuh)
+# the kernels that take D past 128, all by the tiled engine (csrc/tiled.cuh):
+# those of TILED with their given operands, fused_transform_rng and
+# fused_propose_logq on normals drawn in shared memory
 WIDE = ("fused_logq", "fused_rho", "fused_maha", "fused_transform", "fused_transform_rng",
         "fused_propose_logq")
 # the kernels with a block-tiled product kernel (csrc/tiled.cuh)
 TILED = ("fused_logq", "fused_maha", "fused_rho", "fused_transform")
-# the draws: a record and a looped kernel each, and past D = 128 a warp
-# kernel (draw_plan) or, fused_transform, the tiled pair (transform_plan)
+# the draws: a record and a looped kernel each, and a tiled product
+# (fused_transform: the tiled pair on given normals; transform_plan,
+# propose_plan)
 DRAWS = ("fused_transform", "fused_transform_rng", "fused_propose_logq")
-# each kernel's largest D: the warp and tiled kernels' past D = 128, the thread
+# each kernel's largest D: the tiled kernels' past D = 128, the thread
 # kernels' elsewhere (at least the JAX package's rule's reach: D = 2,040 at
 # K = 1 for the 128-particle tile, 248 for the 1024-particle one; K*D <= 128
 # for the dense statistics kernels; below 128 for the K-blocked ones and
@@ -229,12 +241,6 @@ def _blocked_floats(kernel, D):
     return D * D + D + 1 if kernel == "fused_vb_estep_blocked" else _eval_floats(1, D)
 
 
-def _wide_smem(D):
-    """Shared memory of a warp kernel's block past D = 128 (``csrc/common.cuh``
-    ``wide_smem_bytes``): three slices of D + 8 floats a warp."""
-    return 4 * (WIDE_THREADS // 32) * 3 * (D + 8)
-
-
 def _operand_floats(kernel, K, D, Kt):
     """Floats of the mixture operands one block of ``kernel`` reads (for a
     K-blocked kernel, one chunk's; for the record kernels of ``fused_logq``,
@@ -317,18 +323,27 @@ def _transform_rec_floats(D):
 def _record_plan(D, rec_floats, ops_floats):
     """``csrc/common.cuh`` ``draw_plan``: up to D = 64 ``"rec"``, the record
     kernel, 256 threads, its ``rec_floats`` staged where they fit half an SM
-    (two blocks), else read from device memory (no shared memory); to D = 128
+    (two blocks), else read from device memory (no shared memory); past it
     ``"looped"``, the looped kernel, 128 threads, its ``ops_floats`` operands
-    staged where they fit; past it ``"warp"``, a warp a particle.  The record
-    floats are 0 but in the record kernel."""
-    if D > _THREAD_D_MAX:
-        return "warp", False, 0, WIDE_THREADS, _wide_smem(D)
+    staged where they fit (which has a kernel to D = 128: the draws elect
+    their tiled products past D = 64 first).  The record floats are 0 but in
+    the record kernel."""
     if D > _REC_D_MAX:
         ops = 4 * ops_floats
         return "looped", ops <= SMEM_LIMIT, 0, THREADS, ops if ops <= SMEM_LIMIT else 0
     recs = 4 * rec_floats
     staged = recs <= _HALF_SMEM
     return "rec", staged, _transform_rec_floats(D), EVAL_THREADS, recs if staged else 0
+
+
+def draw_tiled_smem(D):
+    """Shared memory of a drawn product's block (``fused_transform_rng``'s
+    and ``fused_propose_logq``'s tiled kernel) at D; mirrors
+    ``csrc/tiled.cuh`` ``draw_tiled_smem``: the tiled engine's
+    (:func:`tiled_plan`) and, past D = 128, row tile 0's panels, 8 of 16 x
+    128 floats."""
+    cache = 4 * _DRAW_CACHE_PANELS * _TILE_K * _TILE_P if D > _TILE_M else 0
+    return tiled_plan()[4] + cache
 
 
 def transform_plan(K, D, rng=False):
@@ -340,9 +355,12 @@ def transform_plan(K, D, rng=False):
     kernel the operands ``mu | L | dof``; ``fused_transform`` from D =
     :data:`TRANSFORM_TILED_D_MIN` ``"tiled"``, its tiled pair, whose product
     kernel has the tiled engine's threads and shared memory
-    (:func:`tiled_plan`; the bucket kernel's, :func:`transform_bucket_plan`)."""
-    if not rng and D >= TRANSFORM_TILED_D_MIN:
-        return "tiled", False, 0, _TILE_THREADS, tiled_plan()[4]
+    (:func:`tiled_plan`; the bucket kernel's, :func:`transform_bucket_plan`);
+    ``fused_transform_rng`` from D = :data:`DRAW_TILED_D_MIN` ``"tiled"``, its
+    drawn product (:func:`draw_tiled_smem`; the bucket kernel first where K
+    > 1)."""
+    if D >= (DRAW_TILED_D_MIN if rng else TRANSFORM_TILED_D_MIN):
+        return "tiled", False, 0, _TILE_THREADS, draw_tiled_smem(D) if rng else tiled_plan()[4]
     return _record_plan(D, K * (_transform_rec_floats(D) + int(rng)),
                         _operand_floats("fused_transform", K, D, 0))
 
@@ -414,7 +432,13 @@ def propose_plan(K, Kt, D):
     ``csrc/propose_logq.cu`` ``propose_plan`` (:func:`_record_plan`): the record
     kernel stages both mixtures' 16-byte evaluation records, the proposal's
     draw records and its K thresholds, the looped kernel the packed proposal
-    and the target's evaluation part."""
+    and the target's evaluation part; from D = :data:`DRAW_TILED_D_MIN`
+    ``"tiled"``, the tiled route (the bucket kernel on the drawn components
+    where K > 1, the drawn product, then ``fused_logq``'s tiled kernel for
+    log q and log p), its product's threads and shared memory
+    (:func:`draw_tiled_smem`)."""
+    if D >= DRAW_TILED_D_MIN:
+        return "tiled", False, 0, _TILE_THREADS, draw_tiled_smem(D)
     return _record_plan(D, (K + Kt) * _rec_floats(D) + K * (_transform_rec_floats(D) + 1),
                         _operand_floats("fused_propose_logq", K, D, Kt))
 
@@ -553,15 +577,14 @@ def block_particles(kernel, D, variant=None):
     """Particles a block of ``kernel`` takes at a time in dimension D (its
     grid is one wave of blocks over N / this; ``variant``, a kernel of
     ``fused_logq``, ``fused_rho``, ``fused_maha`` or a draw other than the
-    one it elects): a thread a particle, past D = 128 in the warp kernels a
-    warp a particle, and a tile of 128 in the tiled kernels."""
+    one it elects): a thread a particle, and a tile of 128 in the tiled
+    kernels."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         variant = eval_variant(kernel, D) if variant is None else variant
         return _TILE_P if variant == "tiled" else EVAL_THREADS
     if kernel in DRAWS:
         variant = variant or draw_plan(kernel, 1, D)[0]
-        return {"rec": EVAL_THREADS, "looped": THREADS, "warp": WIDE_THREADS // 32,
-                "tiled": _TILE_P}[variant]
+        return {"rec": EVAL_THREADS, "looped": THREADS, "tiled": _TILE_P}[variant]
     return THREADS
 
 
@@ -582,8 +605,6 @@ def smem_bytes(kernel, K, D, Kt=0):
         return eval_plan(kernel, K, D)[2]
     if kernel in DRAWS:
         return draw_plan(kernel, K, D, Kt)[4]
-    if kernel in WIDE and D > _THREAD_D_MAX:
-        return _wide_smem(D)
     if kernel == "fused_mcmc_pool":
         return pool_smem_bytes(K, D, "thread")
     if kernel in _DENSE:
@@ -616,11 +637,14 @@ def limit_reason(kernel, K, D, Kt=0):
         return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
                 "a block for its statistics tile; the limit is %d"
                 % (kernel, K, Kt, D, need, SMEM_LIMIT))
-    if kernel == "fused_transform" and transform_plan(K, D)[0] == "tiled":
+    # the tiled products' bucket kernel (fused_transform's always, the drawn
+    # products' where K > 1)
+    if (kernel in DRAWS and draw_plan(kernel, K, D, Kt)[0] == "tiled"
+            and (K > 1 or kernel == "fused_transform")):
         need = transform_bucket_plan(K)[3]
         if need > SMEM_LIMIT:
-            return ("fused_transform: K=%d needs %d bytes of shared memory a block for "
-                    "the bucket kernel's counts; the limit is %d" % (K, need, SMEM_LIMIT))
+            return ("%s: K=%d needs %d bytes of shared memory a block for the bucket "
+                    "kernel's counts; the limit is %d" % (kernel, K, need, SMEM_LIMIT))
     table = kernel not in _DENSE or dense_plan(kernel, K, D, Kt)[0] == "table"
     if kernel in _STATS and table and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
         return ("%s: K=%d, D=%d needs the 64-particle statistics tile, whose "
@@ -709,12 +733,14 @@ def _declare(lib):
         # the looped, 1 the record, 2 the tiled kernel), n_blocks, stream
         "pmc_fused_logq": [P, P, P, L, I, I, I, I, I, P],
         # s0, s1, seed_words (null: s0, s1; else two int64 on the card, read
-        # in the kernel), mix, tmix, xT, latent, log_q, log_p, N, K, Kt, D,
-        # student_t, t_student_t, variant (-1 the plan's, 0 the looped kernel,
-        # 1 the record kernel), n_blocks (<= 0: one wave, sized by the
-        # launcher), stream
-        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, L, I, I, I, I, I,
-                                   I, I, P],
+        # in the kernel), mix, tmix, xT, latent, log_q, log_p, scratch (the
+        # tiled route's transform_scratch_words at K > 1; else null), N, K,
+        # Kt, D, student_t, t_student_t, variant (-1 the plan's, 0 the looped
+        # kernel, 1 the record kernel, 2 the tiled route), n_blocks (<= 0:
+        # one wave of the record or looped kernel, sized by the launcher),
+        # eval_blocks (the tiled route's evaluations), stream
+        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I, I,
+                                   I, I, I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
         # variant (-1 the plan's, 0 the entry table, 1 the register pass),
         # n_blocks, stream
@@ -738,10 +764,10 @@ def _declare(lib):
         "pmc_fused_transform": [P, P, P, P, P, P, L, I, I, I, I, P],
         # latent, scratch, N, K, stream: the tiled pair's bucket kernel alone
         "pmc_transform_buckets": [P, P, L, I, P],
-        # s0, s1, seed_words (as pmc_fused_propose_logq's), latent, ops, xT,
-        # N, K, D, student_t, variant (as pmc_fused_transform's), n_blocks,
-        # stream
-        "pmc_fused_transform_rng": [U, U, P, P, P, P, L, I, I, I, I, I, P],
+        # s0, s1, seed_words (as pmc_fused_propose_logq's), latent, ops,
+        # scratch (the drawn product's at K > 1; else null), xT, N, K, D,
+        # student_t, variant (as pmc_fused_transform's), n_blocks, stream
+        "pmc_fused_transform_rng": [U, U, P, P, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, x0T, e0, cholr, dof_prop, tmix, points, accepts,
         # nan_counts, xfT, ef, C, n_steps, Kt, D, student_t_prop,
         # t_student_t, variant, stream
@@ -819,6 +845,10 @@ def _declare(lib):
     # plan: K, int out[3] -> shared memory
     lib.pmc_transform_tiled_per_sm.argtypes = []
     lib.pmc_transform_tiled_per_sm.restype = ctypes.c_int
+    # D -> blocks an SM holds of fused_transform_rng's and
+    # fused_propose_logq's drawn products
+    lib.pmc_draw_tiled_per_sm.argtypes = [I]
+    lib.pmc_draw_tiled_per_sm.restype = ctypes.c_int
     lib.pmc_transform_bucket_plan.argtypes = [I, P]
     lib.pmc_transform_bucket_plan.restype = ctypes.c_longlong
     # K, D -> the statistics tile; C, D -> the pool's variant

@@ -76,8 +76,8 @@ thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
 ``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
 entry-table pass, ``_build.dense_plan``; the draws ``fused_transform``,
 ``fused_transform_rng`` and ``fused_propose_logq``: the record, the looped
-or the warp kernel, and for ``fused_transform`` the tiled pair in place of
-the warp kernel, ``_build.transform_plan``, ``_build.propose_plan``;
+or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
+products), ``_build.transform_plan``, ``_build.propose_plan``;
 ``fused_logq``, ``fused_maha`` and ``fused_rho``: the record or the tiled
 kernel, ``_build.eval_variant``), each launch's
 variant as ``variant:<kernel>=<variant>``.  Each of these wrappers but
@@ -422,10 +422,8 @@ def _dense_per_sm(kernel, K, D, Kt, index):
 
 
 _DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
-# the draws' kernels and the launchers' variant codes (-1: the plan's):
-# past D = 128 fused_transform has its tiled pair where the other two have
-# their warp kernel
-_DRAW_VARIANTS = {"looped": 0, "rec": 1, "warp": -1, "tiled": 2}
+# the draws' kernels and the launchers' variant codes (-1: the plan's)
+_DRAW_VARIANTS = {"looped": 0, "rec": 1, "tiled": 2}
 # fused_logq's, fused_maha's and fused_rho's kernels and the launchers'
 # codes (-1: the elected one)
 _EVAL_VARIANTS = {"rec": 1, "tiled": 2}
@@ -433,18 +431,17 @@ _EVAL_VARIANTS = {"rec": 1, "tiled": 2}
 
 def _variant_names(kernel):
     """The variants of ``kernel`` that :func:`launch_counts` names."""
-    if kernel == "fused_transform":
-        return ("rec", "looped", "tiled")
     if kernel in _build.DRAWS:
-        return ("rec", "looped", "warp")
+        return tuple(_DRAW_VARIANTS)
     if kernel in _build.TILED:
         return tuple(_EVAL_VARIANTS)
     return _DENSE_VARIANTS
 
 
 def _transform_variants(D):
-    """fused_transform's kernels at D: the record kernel to D = 64, the
-    looped kernel to D = 128 and the tiled pair at any D."""
+    """The draws' kernels at D: the record kernel to D = 64, the looped
+    kernel to D = 128 and the tiled product (fused_transform's tiled pair,
+    the others' drawn products) at any D."""
     return tuple(v for v, top in (("rec", _build._REC_D_MAX), ("looped", _build._THREAD_D_MAX),
                                   ("tiled", _build.WIDE_D_MAX)) if D <= top)
 
@@ -454,12 +451,12 @@ def _elect(kernel, K, D, variant, Kt=0):
     ``fused_logq``, ``fused_maha`` or ``fused_rho``) at (K, D): its plan's
     for None (``_build.draw_plan``, ``_build.dense_plan``,
     ``_build.eval_variant``), else ``variant`` where the shape has it -- the
-    plan's, or its yardstick (the looped kernel beside the record kernel, the
-    entry table beside the register pass, the tiled kernel beside the record
-    kernel; ``fused_transform`` any of :func:`_transform_variants`);
-    ``ValueError`` elsewhere, on any device."""
-    if kernel == "fused_transform":
-        elected = _build.transform_plan(K, D)[0]
+    plan's, or its yardstick (the entry table beside the register pass, the
+    tiled kernel beside the record kernel; a draw any of
+    :func:`_transform_variants`); ``ValueError`` elsewhere, on any
+    device."""
+    if kernel in _build.DRAWS:
+        elected = _build.draw_plan(kernel, K, D, Kt)[0]
         if variant is None or variant in _transform_variants(D):
             return elected if variant is None else variant
         raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
@@ -470,10 +467,7 @@ def _elect(kernel, K, D, variant, Kt=0):
             return elected if variant is None else variant
         raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
                          % (kernel, variant, K, D, elected))
-    if kernel in _build.DRAWS:
-        elected, other = _build.draw_plan(kernel, K, D, Kt)[0], ("rec", "looped")
-    else:
-        elected, other = _build.dense_plan(kernel, K, D, Kt)[0], ("reg", "table")
+    elected, other = _build.dense_plan(kernel, K, D, Kt)[0], ("reg", "table")
     if variant is None or variant == elected or (elected, variant) == other:
         return elected if variant is None else variant
     raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
@@ -1117,11 +1111,14 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     mixture target) on them: ``(xT (D, n), latent (n,) int32, log_q (n,))``
     plus ``log_p (n,)`` with a target (kernel ``csrc/propose_logq.cu``).
     ``seed`` is two 32-bit words: a tuple, or a 2-word int64 tensor on the
-    mixture's device (read inside the kernel).  ``variant``: the kernel, ``"rec"`` (the
-    record kernel, to D = 64), ``"looped"`` (to D = 128) or ``"warp"`` (past
-    it), as ``_build.propose_plan`` elects for None; either of the first two
-    gives the same outputs bit for bit.  Counted as
-    ``variant:fused_propose_logq=<variant>``."""
+    mixture's device (read inside the kernel).  ``variant``: the kernel,
+    ``"rec"`` (the record kernel, to D = 64), ``"looped"`` (to D = 128) or
+    ``"tiled"`` (any D: the components bucketed, a block-tiled product on
+    normals drawn in shared memory, then ``fused_logq``'s tiled kernel for
+    log q and log p), as ``_build.propose_plan`` elects for None; each draws
+    the same x and latent bit for bit, and the first two the same log q and
+    log p.  Counted as ``variant:fused_propose_logq=<variant>``, one launch
+    a call."""
     Kt = 0 if target is None else target.K
     variant = _elect("fused_propose_logq", ops.K, ops.dim, variant, Kt)
     tensors = [ops.packed] + ([] if target is None else [target.packed])
@@ -1140,15 +1137,18 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     latent = torch.empty((n,), dtype=torch.int32, device=device)
     log_q = torch.empty((n,), dtype=torch.float32, device=device)
     log_p = None if target is None else torch.empty_like(log_q)
+    scratch = _draw_scratch("fused_propose_logq", variant, n, ops.K, device)
+    eval_blocks = _eval_blocks("logq", device, n, ops.K, D, "tiled") if variant == "tiled" else 0
     with torch.cuda.device(device):
         err = lib.pmc_fused_propose_logq(
             *_seed_args(seed, device), ops.packed.data_ptr(),
             None if target is None else target.packed.data_ptr(),
             xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
-            None if log_p is None else log_p.data_ptr(), n, ops.K, Kt, D,
+            None if log_p is None else log_p.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, ops.K, Kt, D,
             int(ops.student_t), int(target is not None and target.student_t),
             _DRAW_VARIANTS[variant],
-            _draw_blocks("fused_propose_logq", device, n, ops.K, D, variant, Kt),
+            _draw_blocks("fused_propose_logq", device, n, ops.K, D, variant, Kt), eval_blocks,
             _stream(device))
     _raise_on(err, "fused_propose_logq")
     fused_propose_logq.launches += 1
@@ -1388,28 +1388,43 @@ def _rec_per_sm(kernel, K, D, Kt, index):
 
 
 @functools.lru_cache(maxsize=None)
-def _transform_tiled_per_sm(index):
-    """Blocks of fused_transform's tiled kernel that one SM of CUDA device
-    ``index`` holds at once (the same at every shape)."""
+def _tiled_per_sm(kernel, D, index):
+    """Blocks of a draw's tiled product (fused_transform's tiled kernel, the
+    same at every shape; fused_transform_rng's and fused_propose_logq's
+    drawn product, whose shared memory grows past D = 128) that one SM of
+    CUDA device ``index`` holds at once."""
     with torch.cuda.device(index):
-        per_sm = _build.load().pmc_transform_tiled_per_sm()
+        lib = _build.load()
+        per_sm = (lib.pmc_transform_tiled_per_sm() if kernel == "fused_transform"
+                  else lib.pmc_draw_tiled_per_sm(D))
     if per_sm < 1:
-        raise RuntimeError("fused_transform: the tiled kernel fits no block on an SM")
+        raise RuntimeError("%s: the tiled kernel fits no block on an SM at D=%d" % (kernel, D))
     return per_sm
 
 
 def _draw_blocks(kernel, device, n, K, D, variant, Kt=0):
     """One wave of a draw kernel's ``variant`` for n particles: the record
-    kernel's from its occupancy, fused_transform's tiled kernel's over the
-    slots of its tiles (``_build.transform_slots``), else 16 blocks an SM of
-    the looped kernel's 128 threads or, past D = 128, of 4 particles."""
+    kernel's from its occupancy, a tiled product's over the slots of its
+    tiles (``_build.transform_slots``; a drawn product at K = 1 over tiles
+    of 128 particles in order), else 16 blocks an SM of the looped kernel's
+    128 threads."""
     if variant == "rec":
         return _blocks(device, n, _rec_per_sm(kernel, K, D, Kt, device.index),
                        _build.EVAL_THREADS)
     if variant == "tiled":
-        return _blocks(device, _build.transform_slots(n, K), _transform_tiled_per_sm(device.index),
-                       1)
+        tiles = (-(-n // _build.tiled_plan()[0]) if K == 1 and kernel != "fused_transform"
+                 else _build.transform_slots(n, K))
+        return _blocks(device, tiles, _tiled_per_sm(kernel, D, device.index), 1)
     return _blocks(device, n, 16, _build.block_particles(kernel, D, variant))
+
+
+def _draw_scratch(kernel, variant, n, K, device):
+    """The int32 scratch of a tiled product's bucket kernel (perm and slots,
+    ``_build.transform_scratch_words``), or None where the launch has no
+    bucket kernel (another variant; a drawn product at K = 1)."""
+    if variant != "tiled" or (K == 1 and kernel != "fused_transform"):
+        return None
+    return torch.empty((_build.transform_scratch_words(n, K),), dtype=torch.int32, device=device)
 
 
 def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
@@ -1436,8 +1451,7 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty_like(zT)
-    scratch = (torch.empty((_build.transform_scratch_words(N, ops.K),), dtype=torch.int32,
-                           device=zT.device) if variant == "tiled" else None)
+    scratch = _draw_scratch("fused_transform", variant, N, ops.K, zT.device)
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
@@ -1471,7 +1485,9 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     in the kernel from a Philox stream per particle keyed by the two
     ``seed`` words (kernel ``csrc/transform.cu``) -> ``(D, N)``.  ``seed``:
     as :func:`fused_propose_logq`'s.  ``variant``: the kernel, as
-    :func:`fused_transform`'s (``_build.transform_plan`` with ``rng``);
+    :func:`fused_transform`'s (``_build.transform_plan`` with ``rng``;
+    ``"tiled"`` the drawn product, its normals drawn in shared memory, after
+    the bucket kernel where K > 1), each the same output bit for bit;
     counted as ``variant:fused_transform_rng=<variant>``."""
     variant = _elect("fused_transform_rng", ops.K, ops.dim, variant)
     if not use_kernel(ops.packed):
@@ -1485,10 +1501,12 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty((D, N), dtype=torch.float32, device=device)
+    scratch = _draw_scratch("fused_transform_rng", variant, N, ops.K, device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_transform_rng(
-            *_seed_args(seed, device), latent.data_ptr(),
-            operands.data_ptr(), xT.data_ptr(), N, ops.K, D, int(ops.student_t),
+            *_seed_args(seed, device), latent.data_ptr(), operands.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), xT.data_ptr(), N, ops.K, D,
+            int(ops.student_t),
             _DRAW_VARIANTS[variant],
             _draw_blocks("fused_transform_rng", device, N, ops.K, D, variant), _stream(device))
     _raise_on(err, "fused_transform_rng")

@@ -130,7 +130,22 @@ def test_register_pass_is_deterministic_and_elected(cuda, kernel):
 
 @pytest.mark.parametrize("case", chip_smoke.WIDE_CASES)
 def test_warp_kernels_past_d128_against_plain_versions(cuda, case):
+    """The six kernels that once ran a warp a particle past D = 128, all on
+    the tiled engine now (fused_propose_logq and fused_transform_rng on
+    their drawn products), against their float64 plain versions or, the
+    random draws, on their own samples."""
     chip_smoke.wide_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.DRAWN_CASES)
+def test_drawn_products_past_d64_against_plain_versions(cuda, case):
+    """fused_propose_logq's tiled route and fused_transform_rng's drawn
+    product at K = 1 and the rule's largest K + Kt from D = 65 to 248: each
+    launch counted as tiled, x and latent the looped kernel's bit for bit to
+    D = 128, the seed by pointer the seed by value's, log q and log p within
+    float32 tolerance of float64 and fused_logq's bit for bit, the samples'
+    moments and components."""
+    chip_smoke.drawn_case(case, cuda, [])
 
 
 @pytest.mark.parametrize("case", chip_smoke.TILED_CASES)

@@ -188,7 +188,7 @@ def test_limits_are_stated_and_enforced():
     _build.check_limits("fused_is_pmc_step", 10, 10, 2)     # the flagship fits
     with pytest.raises(ValueError, match="limit"):
         _build.check_limits("fused_is_pmc_step", 64, 40, 2)
-    # the thread kernels stop at D = 128; the six with a warp path past it
+    # the thread kernels stop at D = 128; the six with a tiled path past it
     # at WIDE_D_MAX
     with pytest.raises(ValueError, match="D <= 128"):
         _build.check_limits("fused_pmc_stats", 1, 129)
@@ -567,17 +567,19 @@ def test_transform_plan_mirrors(K, D):
         if D == 40:
             assert {k * D * D % 32 for k in range(K)} == {0}
     # fused_transform_rng's plan: the same kernels, its staged records
-    # followed by the K dofs
+    # followed by the K dofs; from D = 65 (DRAW_TILED_D_MIN) its drawn
+    # product, the tiled engine's 41,600 B and past D = 128 row tile 0's
+    # eight 16 x 128 panels beside them (107,136 B: two blocks an SM)
     rng = _build.transform_plan(K, D, rng=True)
     want = (got[:4] + (got[4] + 4 * K,) if got[0] == "rec" and got[1] else got)
-    if D > 128:
-        want = ("warp", False, 0, 128, 4 * 4 * 3 * (D + 8))
-    elif got[0] == "tiled":
-        want = LOOPED_PLANS[(K, D)]
+    if got[0] == "tiled":
+        want = ("tiled", False, 0, 256, 41_600 + (65_536 if D > 128 else 0))
     assert rng == want
+    if rng[0] == "tiled":
+        assert _build.draw_tiled_smem(D) == rng[4]
+    assert 2 * (_build.draw_tiled_smem(D) + 1024) <= 228 * 1024
     assert _build.smem_bytes("fused_transform_rng", K, D) == rng[4]
-    assert _build.block_particles("fused_transform_rng", D) * (32 if rng[0] == "warp" else 1) \
-        == rng[3]
+    assert _build.block_particles("fused_transform_rng", D) == {"rec": 256, "tiled": 128}[rng[0]]
 
 
 # (kernel, K, Kt, D) -> the plan of fused_transform_rng and
@@ -589,7 +591,9 @@ def test_transform_plan_mirrors(K, D):
 # (rec_floats: 88 floats at D = 10, 924 at D = 40, 2,116 at D = 62), K draw
 # records and K thresholds; to D = 128 the looped kernel's operands where
 # they fit 232,448 B (fused_propose_logq: the packed proposal and the
-# target's evaluation part); past it a warp a particle
+# target's evaluation part), which stays forcible; from D = 65
+# (DRAW_TILED_D_MIN) the drawn tiled products, the tiled engine's 256 threads
+# and 41,600 B, past D = 128 with row tile 0's panels beside (107,136 B)
 DRAW_PLANS = {
     ("fused_transform_rng", 10, 0, 10): ("rec", True, 65, 256, 4 * 10 * 66),     # 2,640 B
     ("fused_transform_rng", 11, 0, 40): ("rec", True, 861, 256, 4 * 11 * 862),   # the route
@@ -597,8 +601,8 @@ DRAW_PLANS = {
     ("fused_transform_rng", 34, 0, 40): ("rec", False, 861, 256, 0),
     ("fused_transform_rng", 13, 0, 64): ("rec", True, 2145, 256, 111_592),
     ("fused_transform_rng", 14, 0, 64): ("rec", False, 2145, 256, 0),
-    ("fused_transform_rng", 2, 0, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
-    ("fused_transform_rng", 1, 0, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
+    ("fused_transform_rng", 2, 0, 65): ("tiled", False, 0, 256, 41_600),
+    ("fused_transform_rng", 1, 0, 129): ("tiled", False, 0, 256, 107_136),
     # the flagship: 12 x 88 + 10 x 66 floats
     ("fused_propose_logq", 10, 2, 10): ("rec", True, 65, 256, 6864),
     ("fused_propose_logq", 10, 0, 10): ("rec", True, 65, 256, 4 * (10 * 88 + 10 * 66)),
@@ -609,9 +613,16 @@ DRAW_PLANS = {
     ("fused_propose_logq", 5, 2, 62): ("rec", True, 2015, 256, 4 * (7 * 2116 + 5 * 2016)),
     ("fused_propose_logq", 8, 0, 62): ("rec", False, 2015, 256, 0),
     ("fused_propose_logq", 40, 2, 40): ("rec", False, 861, 256, 0),
+    ("fused_propose_logq", 2, 2, 65): ("tiled", False, 0, 256, 41_600),
+    ("fused_propose_logq", 3, 1, 128): ("tiled", False, 0, 256, 41_600),
+    ("fused_propose_logq", 1, 1, 129): ("tiled", False, 0, 256, 107_136),
+}
+# the looped kernels' plans where they are forced (variant="looped"), D =
+# 65-128: the operands staged where they fit 232,448 B
+DRAW_LOOPED_PLANS = {
+    ("fused_transform_rng", 2, 0, 65): ("looped", True, 0, 128, 4 * (2 * 65 * 66 + 2)),
     ("fused_propose_logq", 2, 2, 65): ("looped", True, 0, 128, 4 * (17_040 + 8_588)),
     ("fused_propose_logq", 3, 1, 128): ("looped", False, 0, 128, 0),
-    ("fused_propose_logq", 1, 1, 129): ("warp", False, 0, 128, 4 * 4 * 3 * 137),
 }
 
 
@@ -627,7 +638,12 @@ def test_draw_plans_mirror(kernel, K, Kt, D):
     assert _build.smem_bytes(kernel, K, D, Kt) == got[4] <= (
         _build._HALF_SMEM if got[0] == "rec" else _build.SMEM_LIMIT)
     assert _build.limit_reason(kernel, K, D, Kt) is None
-    assert _build.block_particles(kernel, D) * (32 if got[0] == "warp" else 1) == got[3]
+    assert _build.block_particles(kernel, D) == {"rec": 256, "tiled": 128}[got[0]]
+    if got[0] == "tiled":
+        assert got[4] == _build.draw_tiled_smem(D)
+    if (kernel, K, Kt, D) in DRAW_LOOPED_PLANS:
+        assert _build._record_plan(D, 0, _build._operand_floats(kernel, K, D, Kt)) \
+            == DRAW_LOOPED_PLANS[(kernel, K, Kt, D)]
     if got[0] == "rec":
         F = got[2]
         assert F % 2 == 1 and F == _build._transform_rec_floats(D)
@@ -697,10 +713,12 @@ def _variant_call(kernel, K, D, variant):
     ("fused_transform_rng", 3, 10, "warp", False), ("fused_transform_rng", 1, 65, "rec", False),
     ("fused_transform_rng", 1, 65, "looped", True),
     ("fused_transform_rng", 1, 129, "looped", False),
+    ("fused_transform_rng", 1, 129, "tiled", True), ("fused_transform_rng", 3, 10, "tiled", True),
     ("fused_propose_logq", 3, 10, "rec", True), ("fused_propose_logq", 3, 10, "looped", True),
     ("fused_propose_logq", 3, 10, "table", False), ("fused_propose_logq", 1, 65, "rec", False),
     ("fused_propose_logq", 1, 65, "looped", True), ("fused_propose_logq", 1, 129, "rec", False),
-    ("fused_propose_logq", 1, 129, "warp", True),
+    ("fused_propose_logq", 1, 129, "warp", False), ("fused_propose_logq", 1, 129, "tiled", True),
+    ("fused_propose_logq", 1, 65, "tiled", True), ("fused_propose_logq", 1, 129, "looped", False),
     # the statistics kernels: the register pass to D = 16 and the entry table
     # beside it; the entry table alone past it
     ("fused_pmc_stats", 3, 4, "reg", True), ("fused_pmc_stats", 3, 4, "table", True),
@@ -732,17 +750,16 @@ def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, o
 
 def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
-    the three draws' record and looped kernels, with the warp kernel
-    (fused_transform_rng, fused_propose_logq) or the tiled pair
-    (fused_transform), the statistics kernels' register and entry-table
-    passes, fused_logq's, fused_maha's and fused_rho's record and tiled
-    kernels (fused_pmc_stats' tile width is no longer a variant)."""
+    the three draws' record, looped and tiled kernels (fused_transform's
+    tiled pair, the others' drawn products; no warp kernel), the statistics
+    kernels' register and entry-table passes, fused_logq's, fused_maha's and
+    fused_rho's record and tiled kernels (fused_pmc_stats' tile width is no
+    longer a variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
     for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
-        past = "tiled" if kernel == "fused_transform" else "warp"
-        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", past)} <= names
-    assert "variant:fused_transform=warp" not in names
+        assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", "tiled")} <= names
+        assert "variant:%s=warp" % kernel not in names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
     for kernel in _build.TILED:
