@@ -33,7 +33,10 @@ Phases, each of which exits non-zero on failure:
    the bucket kernel and the drawn products of ``fused_transform_rng`` and
    ``fused_propose_logq`` (no spill), their blocks an SM (the drawn
    products' at least 2 with row tile 0's panels past D=128), their
-   election and the bucket kernel's plan against ``_build``;
+   election and the bucket kernel's plan against ``_build``; the Gram pass
+   of ``fused_pmc_stats`` and ``fused_is_pmc_step`` (``gram_stats_kernel``,
+   two instantiations, no spill; its plan and blocks an SM at
+   ``GRAM_SHAPES``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -67,7 +70,15 @@ Phases, each of which exits non-zero on failure:
    ``fused_vb_estep`` on a NaN and an infinite coordinate;
    ``fused_pmc_stats`` on both passes where the register pass is elected
    (a second run equal, a dead component's statistics 0) and on a NaN
-   coordinate or weight (NaN where the plain version's are).
+   coordinate or weight (NaN where the plain version's are; also on the
+   Gram pass at K=4, D=20); ``fused_pmc_stats`` and ``fused_is_pmc_step``
+   past D=16 on the Gram pass (``GRAM_CASES``: K D <= 128 from (7, 17) to
+   (1, 128), N=1024, 1025 and 2^20, one and two target components,
+   Gaussian and Student-t, dof_stats on and off, and (6, 20) at 10^7):
+   counted as gram, against the float64 plain version, a second run
+   equal, the entry table forced beside it, the step's x and latent the
+   entry table's bit for bit and, to D=64, its w
+   ``fused_is_pmc_step_blocked``'s bit for bit.
    ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
    D=40), its record kernel equal to the looped kernel bit for bit (K=32,
@@ -196,6 +207,16 @@ Phases, each of which exits non-zero on failure:
    ``MixtureDensity.propose`` of a K=1 Student-t at D=200 and a K=2
    Gaussian at D=128, 2^20 draws; every ``fused_propose_logq`` and
    ``fused_transform_rng`` launch tiled;
+   wide_pmc: PMC past D=16 on the Gram pass (``WIDE_PMC``): (a)
+   ``pmc_run_sharded`` with one Student-t (dof 5) at D=128 against one
+   Gaussian component (the JAX rule's largest target there), (b) six at
+   D=20 against a two-component target, 2^20 particles, 5 steps, each with
+   and without ``scan_steps=True`` (bit for bit, replayed; host and device
+   ms a step, each kernel's share), every step's ``fused_is_pmc_step``
+   launch counted gram and no plain route; (c) an
+   ``ImportanceSampler.run`` of 2^20 at D=128 on a per-point callable
+   target, then ``PMC(...).run(1)``, its ``fused_pmc_stats`` launch gram
+   and its update against the unfused one in float64;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
@@ -292,8 +313,10 @@ Phases, each of which exits non-zero on failure:
     issue floor (and, from them, the draw's floor a normal at K=1, D=200).
     ``chip_smoke.py --drawn-times`` times the drawn products at
     ``DRAWN_SHAPES`` beside the looped kernels, the composition of other
-    rows' launches and the plain versions, the ``torch.bmm`` yardsticks of
-    rows 1-3 and 6 at their first shapes, and rows 7-8 at K=1, D=128;
+    rows' launches and the plain versions and the ``torch.bmm`` yardsticks
+    of rows 1-3 and 6 at their first shapes; phase times and ``chip_smoke.py
+    --gram-times`` time rows 7-8 at ``GRAM_TIME_SHAPES`` (the Gram pass,
+    the entry table and the plain version in turns, beside the bound);
     ``--elected-times DIR [drawn]`` the kernels a checkout elects there;
     ``--parent-draws DIR`` holds the drawn products to the kernels DIR
     elects past D=128 (an earlier commit's warp kernels) bit for bit.
@@ -620,16 +643,20 @@ def kernel_case(case, device, report):
             "fused_is_pmc_step: one seed gave two outputs")
     plan = _build.dense_plan("fused_is_pmc_step", K, D, Kt)
     print("  fused_is_pmc_step pass %s: %d columns, %d slices, %d groups, %d B" % plan)
-    if plan[0] == "reg":
+    if plan[0] != "table":
         # the entry-table pass from the same seed words: the same particles
-        # and weights bit for bit (log p on records in the register pass, by
-        # mixture_logpdf in the entry table: the same arithmetic, a
-        # Student-t target's too); statistics within the same tolerance
+        # bit for bit, and the same weights (log p on records in the register
+        # pass, by mixture_logpdf in the entry table: the same arithmetic, a
+        # Student-t target's too; the Gram route's: step_weights_case's);
+        # statistics within the same tolerance
         table = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats, variant="table")
-        differ = [name for name, a, b in zip(("x", "latent", "w"), (xT, lat, w), table)
+        same = ("x", "latent", "w") if plan[0] == "reg" else ("x", "latent")
+        differ = [name for name, a, b in zip(same, (xT, lat, w), table)
                   if not bool(torch.equal(a, b))]
-        require(not differ, "fused_is_pmc_step: the register and the entry-table pass differ "
-                "in %s (w by up to %.3e)" % (differ, float((w - table[2]).abs().max())))
+        require(not differ, "fused_is_pmc_step: the %s and the entry-table pass differ "
+                "in %s (w by up to %.3e)" % (plan[0], differ, float((w - table[2]).abs().max())))
+        if plan[0] == "gram":
+            step_weights_case("fused_is_pmc_step", w, table[2], D, t_student)
         check_stats("fused_is_pmc_step table", table[3], ref, N, report)
         del table
     require(not bool(torch.equal(k.fused_is_pmc_step(seed_b, ops, tops, N, dof_stats)[0], xT)),
@@ -639,8 +666,8 @@ def kernel_case(case, device, report):
 def pmc_stats_case(xT, w, ops, ops64, dof_stats, dead, label, report):
     """fused_pmc_stats on given particles and weights against its float64
     plain version, on the pass its plan elects and, where that is the
-    register pass, on the entry table: the same statistics on a second run,
-    every statistic of a dead component exactly 0."""
+    register or the Gram pass, on the entry table: the same statistics on a
+    second run, every statistic of a dead component exactly 0."""
     import torch
     from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
@@ -649,7 +676,7 @@ def pmc_stats_case(xT, w, ops, ops64, dof_stats, dead, label, report):
     ref = k.plain_pmc_stats(xT.double(), w.double(), ops64, dof_stats)
     plan = _build.dense_plan("fused_pmc_stats", K, D)
     print("  fused_pmc_stats pass %s: %d columns, %d slices, %d groups, %d B" % plan)
-    for variant in ("reg", "table") if plan[0] == "reg" else ("table",):
+    for variant in (plan[0], "table") if plan[0] != "table" else ("table",):
         got = k.fused_pmc_stats(xT, w, ops, dof_stats, variant=variant)
         tag = label if variant == plan[0] else "%s %s" % (label, variant)
         check_stats(tag, got, ref, N, report)
@@ -864,25 +891,39 @@ def vb_nonfinite_case(device, report):
           % (sum(int(torch.isnan(r).sum()) for r in ref), sum(r.numel() for r in ref)))
 
 
+# (K, D, the NaN's coordinate) of pmc_stats_nonfinite_case: the register
+# pass's K=10, D=10 and the Gram pass's K=4, D=20, its NaN in the second of
+# the 8-row blocks the pass whitens (rows 8-10 of it must stay finite)
+NONFINITE_SHAPES = [(10, 10, 3), (4, 20, 11)]
+
+
 def pmc_stats_nonfinite_case(device, report):
     """fused_pmc_stats, each pass, Gaussian and Student-t with dof_stats,
     on particles of which one has a NaN coordinate, then on weights of
     which one is NaN: where its float64 plain version's statistics are NaN,
     so are the kernel's, and nowhere else (N = 4,099, a tail past a
-    multiple of 64).  One exception, stated: the kernels whiten with the
-    lower triangle of U alone, so a NaN in coordinate j leaves the whitened
-    coordinates i < j finite, where the plain version's matrix product adds
-    0 x NaN from U's upper zeros; a dead component's responsibility is
-    exactly 0, so where its c = w rho gamma is 0 (not NaN: a Gaussian) its
-    sd_i and g_ij are finite in the kernels for i, j < 3 and NaN in the
-    plain version.  Those entries are expected finite."""
+    multiple of 64), at NONFINITE_SHAPES.  One exception, stated: the
+    kernels whiten with the lower triangle of U alone, so a NaN in
+    coordinate j leaves the whitened coordinates i < j finite, where the
+    plain version's matrix product adds 0 x NaN from U's upper zeros; a
+    dead component's responsibility is exactly 0, so where its c = w rho
+    gamma is 0 (not NaN: a Gaussian) its sd_i and g_ij are finite in the
+    kernels for i, j < j_nan and NaN in the plain version.  Those entries
+    are expected finite."""
+    for shape in NONFINITE_SHAPES:
+        _pmc_stats_nonfinite(device, *shape)
+
+
+def _pmc_stats_nonfinite(device, K, D, j_nan):
     import torch
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
     from pypmc_tpu_torch.density import core
 
-    K, D, N, j_nan, dead = 10, 10, 4099, 3, 10 // 2
+    N, dead = 4099, K // 2
+    passes = (_build.dense_plan("fused_pmc_stats", K, D)[0], "table")
     for student in (False, True):
-        rng = np.random.default_rng(39 + student)
+        rng = np.random.default_rng(39 + student + 2 * (D - 10))
         ops = core._kernel_operands(make_params(random_mixture(rng, K, D, student, True), device))
         ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
         for fault in ("coordinate", "weight"):
@@ -898,20 +939,152 @@ def pmc_stats_nonfinite_case(device, report):
                 reach = torch.arange(D, device=device) >= j_nan
                 want["sd"][dead] = reach
                 want["g"][dead] = reach[:, None] | reach[None, :]
-            for variant in ("reg", "table"):
+            for variant in passes:
                 got = k.fused_pmc_stats(xT, w, ops, student, variant=variant)
                 for key in ref:
                     require(bool(torch.equal(torch.isnan(got[key]), want[key])),
-                            "fused_pmc_stats %s, a NaN %s (%s): %s NaN where the plain "
-                            "version's is not, or the other way"
-                            % (variant, fault, "t" if student else "gauss", key))
-            print("  fused_pmc_stats, a NaN %s (%s): NaN where the plain version's statistics "
-                  "are (%d of %d entries; %d finite in a dead component), both passes"
-                  % (fault, "t" if student else "gauss",
+                            "fused_pmc_stats %s K=%d D=%d, a NaN %s (%s): %s NaN where the "
+                            "plain version's is not, or the other way"
+                            % (variant, K, D, fault, "t" if student else "gauss", key))
+            print("  fused_pmc_stats K=%d D=%d, a NaN %s (%s): NaN where the plain version's "
+                  "statistics are (%d of %d entries; %d finite in a dead component), passes %s"
+                  % (K, D, fault, "t" if student else "gauss",
                      sum(int(m.sum()) for m in want.values()),
                      sum(r.numel() for r in ref.values()),
                      sum(int(torch.isnan(r).sum()) for r in ref.values())
-                     - sum(int(m.sum()) for m in want.values())))
+                     - sum(int(m.sum()) for m in want.values()), "/".join(passes)))
+
+
+# (K, D) of the Gram statistics pass (csrc/gram_stats.cuh) the checks and
+# times walk: the JAX rule's reach past D = 16 (K D <= 128), from its most
+# components at D = 17 to one component at D = 128
+GRAM_SHAPES = [(7, 17), (6, 20), (4, 32), (3, 40), (2, 64), (1, 65), (1, 96), (1, 128)]
+# K, Kt, D, N, Student-t proposal, Student-t target, dof_stats, seed: each
+# shape at N = 1024 and 1025 (the rule's fewest particles; a ragged last
+# tile) and at 2^20, with one and two target components, Gaussian and
+# Student-t proposals and targets, dof_stats on and off; and the K=6, D=20
+# case at 10^7
+GRAM_CASES = [c for i, (K, D) in enumerate(GRAM_SHAPES) for c in (
+    (K, 1, D, 1024, True, True, False, 300 + 4 * i),
+    (K, 2, D, 1025, False, False, True, 301 + 4 * i),
+    (K, 2, D, N_FLAGSHIP, False, True, False, 302 + 4 * i),
+    (K, 1, D, N_FLAGSHIP, True, False, True, 303 + 4 * i))] + [
+    (6, 2, 20, N_SLICE, True, False, True, 340)]
+# w of the Gram route against the entry table's for a Student-t target up to
+# D = 64: log p by records_logpdf against mixture_logpdf, within this
+# relative slack (a Gaussian target's: bit for bit)
+STEP_W_SLACK = 2.0 ** -20
+
+
+def step_weights_case(label, w, w_table, D, t_student):
+    """The Gram route's weights against the entry table's from the same
+    seed words: to D = 64 (both on fused_propose_logq's record arithmetic
+    and mixture_logpdf's) bit for bit for a Gaussian target, within
+    STEP_W_SLACK relative for a Student-t one; past it the tiled fused_logq's
+    log q and log p, held to float64 by the caller."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+
+    if D > _build._REC_D_MAX:
+        return
+    if not t_student:
+        require(bool(torch.equal(w, w_table)), "%s: the Gram route's w differs from the entry "
+                "table's (a Gaussian target, D=%d) by up to %.3e"
+                % (label, D, float((w - w_table).abs().max())))
+        return
+    rel = float(((w.double() - w_table.double()).abs()
+                 / w_table.double().abs().clamp_min(1e-30)).max())
+    require(rel <= STEP_W_SLACK, "%s: the Gram route's w %.3e relative from the entry table's "
+            "(a Student-t target, D=%d), past %.3e" % (label, rel, D, STEP_W_SLACK))
+
+
+def gram_mixtures(case, device):
+    """``(ops, tops, ops64, tops64, tag)`` of a Gram case: a K-component
+    proposal (spread 0.5; a dead component at K // 2 where K > 1) and Kt
+    target components near its live ones (means + 0.1, covariances 1.2
+    times), weights 1 / Kt, dof 10 where Student-t, float32 and float64."""
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dof_stats, seed = case
+    arrs = random_mixture(np.random.default_rng(seed), K, D, student, K > 1, spread=0.5)
+    live = np.flatnonzero(arrs[2] > 0)
+    pick = live[np.arange(Kt) % len(live)]
+    tarrs = (arrs[0][pick] + 0.1, arrs[1][pick] * 1.2, np.full(Kt, 1.0 / Kt, np.float32),
+             np.full(Kt, 10.0, np.float32) if t_student else None)
+    ops = core._kernel_operands(make_params(arrs, device))
+    tops = core._kernel_operands(make_params(tarrs, device))
+    ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+    tops64 = k.MixtureOperands(tops.packed.double(), Kt, D, t_student)
+    tag = "K=%d Kt=%d D=%d N=%d %s proposal, %s target, dof_stats %s" % (
+        K, Kt, D, N, "t" if student else "gauss", "t" if t_student else "gauss", dof_stats)
+    return ops, tops, ops64, tops64, tag
+
+
+def gram_case(case, device, report):
+    """The Gram pass at one GRAM_CASES entry, both kernels elected there and
+    counted ``=gram``: fused_pmc_stats on fused_propose_logq's particles and
+    weights against its float64 plain version, a second run equal, a dead
+    component's statistics 0, the forced entry table within the same
+    tolerance; fused_is_pmc_step from one seed: x and latent the entry
+    table's bit for bit, w as step_weights_case holds it and, to D = 64,
+    fused_is_pmc_step_blocked's (whose first launch takes the same draw) bit
+    for bit, past it within TOL["w"] of float64, its statistics against the
+    float64 plain version on its own particles, a second run equal in every
+    output."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, Kt, D, N, student, t_student, dof_stats, seed = case
+    ops, tops, ops64, tops64, tag = gram_mixtures(case, device)
+    print("case gram", tag)
+    for name in ("fused_pmc_stats", "fused_is_pmc_step"):
+        require(_build.dense_plan(name, K, D, Kt)[0] == "gram",
+                "%s at K=%d, D=%d: the plan is %s" % (name, K, D, _build.dense_plan(name, K, D, Kt)))
+    k.reset_launch_counts()
+    xT, _, log_q, log_p = k.fused_propose_logq((seed, 1), ops, N, tops)
+    w = torch.exp(log_p - log_q)
+    del log_q, log_p
+    pmc_stats_case(xT, w, ops, ops64, dof_stats, K > 1, "gram fused_pmc_stats", report)
+    del xT, w
+    seed_a = (seed, 2)
+    xT, lat, w, got = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats)
+    sync(device)
+    x64 = xT.double()
+    w_ref = torch.exp(k.plain_logq(x64, tops64) - k.plain_logq(x64, ops64))
+    compare("gram fused_is_pmc_step w", w, w_ref, "w", report)
+    ref = k.plain_pmc_stats(x64, w_ref, ops64, dof_stats, n_sw=3)
+    del x64, w_ref
+    check_stats("gram fused_is_pmc_step", got, ref, N, report)
+    again = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats)
+    require(all(bool(torch.equal(a, b)) for a, b in zip((xT, lat, w), again[:3]))
+            and all(bool(torch.equal(got[key], again[3][key])) for key in got),
+            "gram fused_is_pmc_step: one seed gave two outputs")
+    del again
+    table = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats, variant="table")
+    differ = [name for name, a, b in zip(("x", "latent"), (xT, lat), table)
+              if not bool(torch.equal(a, b))]
+    require(not differ, "gram fused_is_pmc_step: the Gram route and the entry table drew "
+            "different %s" % differ)
+    step_weights_case("gram fused_is_pmc_step", w, table[2], D, t_student)
+    check_stats("gram fused_is_pmc_step table", table[3], ref, N, report)
+    del table
+    if D <= _build._REC_D_MAX:
+        blocked = k.fused_is_pmc_step_blocked(seed_a, ops, tops, N, dof_stats)
+        differ = [name for name, a, b in zip(("x", "latent", "w"), (xT, lat, w), blocked)
+                  if not bool(torch.equal(a, b))]
+        require(not differ, "gram fused_is_pmc_step: the Gram route and "
+                "fused_is_pmc_step_blocked differ in %s (w by up to %.3e)"
+                % (differ, float((w - blocked[2]).abs().max())))
+        del blocked
+    counts = k.launch_counts()
+    for name, runs in (("fused_pmc_stats", 2), ("fused_is_pmc_step", 2)):
+        require(counts["variant:%s=gram" % name] == runs, "gram %s: %d launches counted =gram, "
+                "%d expected" % (name, counts["variant:%s=gram" % name], runs))
+    print("  gram: x and latent the entry table's bit for bit; w %s; two runs equal"
+          % ("fused_is_pmc_step_blocked's bit for bit" if D <= _build._REC_D_MAX
+             else "within TOL['w'] of float64"))
 
 
 def component_draw(params, n, seed):
@@ -1976,6 +2149,9 @@ def phase_kernels(device, cases, eval_cases):
     for case in PMC_STATS_CASES:
         pmc_stats_weighted_case(case, device, report)
     pmc_stats_nonfinite_case(device, report)
+    for case in GRAM_CASES:
+        gram_case(case, device, report)
+        torch.cuda.empty_cache()
     for case in TRANSFORM_CASES:
         transform_case(case, device, report)
         torch.cuda.empty_cache()
@@ -2160,7 +2336,7 @@ def solve_dofs_variants_case(K, dtype, device):
 
 # (kernel, K, D, Kt, N, variant): each seeded kernel's launches with the
 # words in a tensor against the words by value; every kernel variant that
-# draws (the draws' record, looped and warp kernels, the step's two passes,
+# draws (the draws' record, looped and warp kernels, the step's three passes,
 # the K-blocked step's two first launches, the proposal inputs' draw in
 # float32 and, variant "float64", in float64)
 SEED_POINTER_CASES = [
@@ -2169,6 +2345,8 @@ SEED_POINTER_CASES = [
     ("fused_propose_logq", 1, 200, 0, 1 << 16, None),
     ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, "reg"),
     ("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, "table"),
+    ("fused_is_pmc_step", 3, 40, 2, 1 << 18, "gram"),        # the record draw, then the pass
+    ("fused_is_pmc_step", 1, 128, 1, 1 << 18, "gram"),       # the drawn product and fused_logq
     ("fused_is_pmc_step_blocked", 200, 10, 2, 1 << 18, None),
     ("fused_is_pmc_step_blocked", 96, 40, 2, 1 << 16, None),
     ("fused_transform_rng", 10, 10, 0, N_FLAGSHIP, None),
@@ -2184,9 +2362,11 @@ SEED_POINTER_CASES = [
     ("fused_draw_transform_rng", 10, 10, 0, N_FLAGSHIP, None),
 ]
 # one launch captured as a CUDA graph and replayed with two seeds in its
-# tensor: a step's, the two launches of propose_T's routes past D = 64 and
-# its one launch to D = 64 (each replay against that seed's two launches)
+# tensor: a step's (the register pass's, and the Gram route's composition
+# past D = 64), the two launches of propose_T's routes past D = 64 and its
+# one launch to D = 64 (each replay against that seed's two launches)
 REPLAY_CASES = [("fused_is_pmc_step", 10, 10, 2, N_FLAGSHIP, None),
+                ("fused_is_pmc_step", 1, 128, 1, 1 << 18, None),
                 ("fused_transform_rng", 11, 40, 0, N_FLAGSHIP, None),
                 ("draw_proposal_inputs", 32, 40, 0, N_FLAGSHIP, None),
                 ("fused_draw_transform", 32, 40, 0, N_FLAGSHIP, None),
@@ -2731,8 +2911,9 @@ def scan_case(device, label, params, target, n, steps):
              "; ..." + warned.messages[0][-200:] if warned.messages else ""))
     print("    a new configuration's first call (its warm-up chunk) %.3f ms a step, its "
           "second (the capture) %.3f (synchronized)" % (host["warm-up"][0], host["capture"][0]))
-    print("    device ms a step by kernel, the loop's largest: %s"
-          % "; ".join("%.3f x %g %s" % (ms, n, name[:70]) for ms, n, name in by_kernel["loop"][:6]))
+    print("    device ms a step by kernel, the loop's largest (share of the step): %s"
+          % "; ".join("%.3f (%.1f%%) x %g %s" % (ms, 100 * ms / device_ms["loop"], n, name[:70])
+                      for ms, n, name in by_kernel["loop"][:6]))
     print("    reserved %d MiB after the runs, %d after empty_cache() with the scan kept, %d "
           "after clear_step_cache() and empty_cache(): the kept scan held %d MiB"
           % (reserved[0] >> 20, reserved[1] >> 20, reserved[2] >> 20,
@@ -3820,11 +4001,13 @@ MCMC_C, MCMC_D, MCMC_STEPS, MCMC_CYCLES = 16384, 10, 500, 4
 WIDE_PATH = dict(D=200, K=4, Kt=2, n=1 << 16, steps=5, vb_n=1 << 16, vb_iters=10)
 
 
-def wide_path_problem(device):
+def wide_path_problem(device, D=None):
     """WIDE_PATH's mixtures: ``(params, target)``, a Kt=2 Gaussian-mixture
     target (weights 0.3/0.7, covariances 0.8 I and 1.2 I) and a K=4
-    Gaussian proposal near its modes, equal weights, in float32."""
-    D, K, Kt = (WIDE_PATH[f] for f in ("D", "K", "Kt"))
+    Gaussian proposal near its modes, equal weights, in float32; at
+    WIDE_PATH's D unless ``D`` is given."""
+    K, Kt = WIDE_PATH["K"], WIDE_PATH["Kt"]
+    D = D or WIDE_PATH["D"]
     rng = np.random.default_rng(200)
     t_means = np.stack([rng.normal(0, 1, D), rng.normal(0, 1, D) + 2.0]).astype(np.float32)
     t_covs = np.array([np.eye(D) * 0.8, np.eye(D) * 1.2], np.float32)
@@ -4194,6 +4377,127 @@ def phase_wide_is(device, report):
                   K, Dc, "t" if student else "gauss", N, np.round(ms, 3).tolist(),
                   _build.draw_plan("fused_transform_rng", K, Dc)[0]))
         torch.cuda.empty_cache()
+    return totals
+
+
+# the wide PMC path past D = 16, where fused_is_pmc_step and fused_pmc_stats
+# take the Gram pass: (a) one Student-t proposal at D=128 (the rule admits
+# the step there with one target component: with two its VMEM fit at a
+# 1024-particle tile fails, 6.39 MB of 6 MB) and (b) six at D=20 (K D =
+# 120), each against a target of phase wide's construction, 2^20
+# particles, 5 steps; (c) an ImportanceSampler.run of 2^20 at D=128 on a
+# per-point callable target, then one PMC update of its proposal
+WIDE_PMC = dict(D=128, Kt=1, small_D=20, small_K=6, small_Kt=2, dof=5.0, n=1 << 20, steps=5)
+
+
+def wide_pmc_problems(device):
+    """``[(label, proposal, target)]`` of (a) and (b): (a) one Student-t
+    (dof 5) at the D=128 target's heavier mode + 0.05, covariance 1.5 I,
+    against that mode alone (covariance 1.2 I; wide_path_problem at D=128);
+    (b) six Student-t components at D=20 near the two modes of
+    wide_path_problem at D=20 (three each, + N(0, 0.3)), covariance 1.5 I,
+    equal weights, against that Kt=2 target."""
+    rng = np.random.default_rng(128)
+    D, dof = WIDE_PMC["D"], WIDE_PMC["dof"]
+    _, wide = wide_path_problem(device, D)
+    mode = wide.means[1].cpu().numpy()[None].astype(np.float32)
+    target = make_params((mode, np.eye(D, dtype=np.float32)[None] * 1.2,
+                          np.ones(1, np.float32), None), device)
+    params = make_params((mode + 0.05, np.eye(D, dtype=np.float32)[None] * 1.5,
+                          np.ones(1, np.float32), np.full(1, dof, np.float32)), device)
+    Ds, Ks = WIDE_PMC["small_D"], WIDE_PMC["small_K"]
+    _, small = wide_path_problem(device, Ds)
+    t_means = small.means.cpu().numpy()
+    means = (t_means[np.arange(Ks) % 2] + rng.normal(0, 0.3, (Ks, Ds))).astype(np.float32)
+    sparams = make_params((means, np.tile(np.eye(Ds, dtype=np.float32) * 1.5, (Ks, 1, 1)),
+                           np.full(Ks, 1.0 / Ks, np.float32), np.full(Ks, dof, np.float32)),
+                          device)
+    return [("wide_pmc (a) D=%d K=1 t, Kt=1" % D, params, target),
+            ("wide_pmc (b) D=%d K=%d t, Kt=2" % (Ds, Ks), sparams, small)]
+
+
+def phase_wide_pmc(device, report):
+    """PMC past D = 16 through the port's entry points, where
+    fused_is_pmc_step and fused_pmc_stats take the Gram pass: (a) and (b)
+    of wide_pmc_problems by ``pmc_run_sharded`` at 2^20 particles, 5 steps,
+    with and without ``scan_steps=True`` (scan_case: bit for bit, replayed;
+    host and device ms a step, launches, each kernel's share), every step's
+    fused_is_pmc_step launch counted =gram and no plain: route; (c) an
+    ``ImportanceSampler.run`` of 2^20 at D=128 of (a)'s proposal on a
+    per-point callable target (the log-density of (a)'s target, mapped with
+    vmap), then ``PMC(...).run(1)`` on its samples and weights: its one
+    fused_pmc_stats launch counted =gram, the updated proposal against the
+    unfused update (fused="off") in float64 on the same samples.  Returns
+    the launch counts of (a)-(c)."""
+    import torch
+
+    from pypmc_tpu_torch.density.mixture import MixtureDensity
+    from pypmc_tpu_torch.mix_adapt import PMC
+    from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
+    from pypmc_tpu_torch.ops import kernels as k
+    from pypmc_tpu_torch.sampler import ImportanceSampler
+
+    totals = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] = totals.get(name, 0) + c
+
+    def require_gram(label, counts, name, least):
+        gram, launched = counts.get("variant:%s=gram" % name, 0), counts.get(name, 0)
+        plain = {c: v for c, v in counts.items() if c.startswith("plain:") and v}
+        require(gram == launched >= least and not plain, "%s: %d of %d %s launches took the "
+                "Gram pass; plain routes %s" % (label, gram, launched, name, plain))
+
+    problems = wide_pmc_problems(device)
+    for label, params, target in problems:
+        counts = scan_case(device, label, params, target, WIDE_PMC["n"], WIDE_PMC["steps"])
+        require_gram(label, counts, "fused_is_pmc_step", WIDE_PMC["steps"])
+        add(counts)
+        torch.cuda.empty_cache()
+
+    # (c) a generic target: importance sampling, then one PMC update
+    label, params, target = problems[0]
+    D, n = WIDE_PMC["D"], WIDE_PMC["n"]
+    proposal = MixtureDensity.from_params(params)
+    mu, prec = target.means[0], torch.linalg.inv(target.cov[0])
+    log_norm = -0.5 * (D * math.log(2 * math.pi) + float(torch.logdet(target.cov[0])))
+
+    def log_target(x):
+        d = x - mu.to(x.dtype)
+        return log_norm - 0.5 * (d @ (prec.to(x.dtype) @ d))
+
+    sampler = ImportanceSampler(log_target, proposal, rng=13, device=device)
+    ms = []
+    for i in range(3):
+        sampler.clear()
+        k.reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        sampler.run(n, to_host=False)
+        samples_T, weights = sampler.device_runs[0]
+        pmc = PMC(samples_T.T, proposal, weights=weights, device=device)
+        pmc.run(1)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = k.launch_counts()
+    require_gram("wide_pmc (c)", counts, "fused_pmc_stats", 1)
+    add(counts)
+    got = pmc.density.stacked_params(device=device)
+    require(bool(torch.isfinite(weights).all()) and bool((weights >= 0).all()),
+            "wide_pmc (c): the run's weights are not finite")
+    ref = pmc_update(params.to(dtype=torch.float64),
+                     samples_T.double(), weights.double(), transposed=True, fused="off").params
+    for f in ("means", "cov", "weights"):
+        compare("wide_pmc (c) update %s" % f, getattr(got, f), getattr(ref, f).double(),
+                "update", report)
+    compare("wide_pmc (c) update dof", got.dof, ref.dof.double(), "dof", report)
+    print("  wide_pmc (c) ImportanceSampler.run D=%d K=1 t (dof %g), N=%d, a per-point target, "
+          "then PMC.run(1): %s ms (host, synchronized); launches %s"
+          % (D, WIDE_PMC["dof"], n, np.round(ms, 3).tolist(),
+             json.dumps({c: v for c, v in counts.items() if v})))
+    del sampler, pmc, samples_T, weights
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -5673,6 +5977,10 @@ def phase_times(device, report):
                                      times[(name, n, "cuda")], times[(name, n, "table")],
                                      bound(name, (10, 2, 10, n))[1]))
     torch.cuda.empty_cache()
+    # rows 7-8 past D = 16: the Gram pass beside the entry table
+    for shape in GRAM_TIME_SHAPES:
+        times.update(table_shape_ms(device, shape))
+        torch.cuda.empty_cache()
 
     # the transforms on the flagship proposal: normals, components and
     # Student-t scales as propose_T draws them
@@ -6472,7 +6780,9 @@ def drawn_shape_ms(device, shape):
 # pipeline's K=32 at 2^20) and of rows 7-8's entry-table pass at K=1,
 # D=128, where the JAX rule admits them past the register pass's D=16
 LIBRARY_SHAPES = [(10, 2, 10, N_PLAIN_MAX), (32, 0, 40, N_FLAGSHIP)]
-TABLE_SHAPE = (1, 1, 128, N_FLAGSHIP)
+# rows 7-8 past D = 16, timed at every GRAM_SHAPES entry: a one-component
+# target, 2^20 particles
+GRAM_TIME_SHAPES = [(K, 1, D, N_FLAGSHIP) for K, D in GRAM_SHAPES]
 
 
 def library_shape_ms(device, shape):
@@ -6525,39 +6835,47 @@ def library_shape_ms(device, shape):
     return out
 
 
-def table_shape_ms(device, shape=TABLE_SHAPE):
-    """``{(kernel, route): ms}`` of fused_pmc_stats' and fused_is_pmc_step's
-    elected pass (the entry table past the register pass's D = 16) at
-    ``shape`` (K, Kt, D, N), a K-component Student-t proposal and a
-    Kt-component Gaussian target near it, beside their plain versions
-    (CUDA events, in turns); the statistics held to the float64 plain
-    version first."""
+def table_shape_ms(device, shape):
+    """``{(kernel, shape, route): ms}`` of fused_pmc_stats and
+    fused_is_pmc_step at ``shape`` (K, Kt, D, N), a K-component Student-t
+    proposal and a Kt-component Gaussian target near it (gram_mixtures):
+    "cuda" the elected pass (the Gram pass past D = 16), "table" the entry
+    table forced, "plain" the plain version, CUDA events in turns (cuda,
+    table, plain, plain, table, cuda; each the mean of its two turns); the
+    elected statistics held to the float64 plain version first."""
     import torch
     from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     K, Kt, D, N = shape
-    _, _, _, _, ops, tops, ops64, tops64, _ = case_mixtures(
-        (K, Kt, D, N, True, False, False, K + D), device)
+    ops, tops, ops64, _, _ = gram_mixtures((K, Kt, D, N, True, False, True, K + D), device)
     xT, _, log_q, log_p = k.fused_propose_logq((7, 7), ops, N, tops)
     w = torch.exp(log_p - log_q)
+    del log_q, log_p
     check_stats("fused_pmc_stats K=%d D=%d" % (K, D), k.fused_pmc_stats(xT, w, ops, True),
                 k.plain_pmc_stats(xT.double(), w.double(), ops64, True), N, [])
     calls = {"fused_pmc_stats": (lambda i: k.fused_pmc_stats(xT, w, ops, True),
+                                 lambda i: k.fused_pmc_stats(xT, w, ops, True, variant="table"),
                                  lambda i: k.plain_pmc_stats(xT, w, ops, True)),
-             "fused_is_pmc_step": (lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True),
-                                   lambda i: k.plain_is_pmc_step((i, 2), ops, tops, N, True))}
+             "fused_is_pmc_step": (
+                 lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True),
+                 lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True, variant="table"),
+                 lambda i: k.plain_is_pmc_step((i, 2), ops, tops, N, True))}
     out = {}
-    for name, (kernel, plain) in calls.items():
-        ms = {"cuda": [], "plain": []}
-        for route in ("cuda", "plain", "plain", "cuda"):
-            ms[route].append(cuda_ms(kernel if route == "cuda" else plain,
-                                     **({"reps": 3, "warmup": 1} if route == "plain" else {})))
-        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
-        print("  %s K=%d Kt=%d D=%d N=%d: the %s pass %s ms, plain %s ms, bound %.4f ms"
+    for name, (kernel, table, plain) in calls.items():
+        ms = {"cuda": [], "table": [], "plain": []}
+        fns = {"cuda": kernel, "table": table, "plain": plain}
+        for route in ("cuda", "table", "plain", "plain", "table", "cuda"):
+            ms[route].append(cuda_ms(fns[route], reps=3 if route == "plain" else 5, warmup=1))
+        out.update({(name, shape, route): sum(t) / 2 for route, t in ms.items()})
+        cuda = out[(name, shape, "cuda")]
+        print("  %s K=%d Kt=%d D=%d N=%d: the %s pass %s ms, the entry table %s ms, plain %s "
+              "ms, bound %.4f ms (%.1f%% of it)"
               % (name, K, Kt, D, N, _build.dense_plan(name, K, D, Kt)[0],
                  " / ".join("%.3f" % t for t in ms["cuda"]),
-                 " / ".join("%.3f" % t for t in ms["plain"]), bound(name, shape)[1]))
+                 " / ".join("%.3f" % t for t in ms["table"]),
+                 " / ".join("%.3f" % t for t in ms["plain"]), bound(name, shape)[1],
+                 100 * bound(name, shape)[1] / cuda))
     return out
 
 
@@ -6837,6 +7155,36 @@ def register_kernels(log):
 # the draws' plan codes (csrc/common.cuh DrawPlan, csrc/tiled.cuh
 # kDrawTiled)
 DRAW_PLAN_CODES = ("looped", "rec", "tiled")
+# the dense statistics kernels' passes (csrc/reg_stats.cuh DensePass)
+DENSE_PASSES = ("table", "reg", "gram")
+
+
+GRAM_INSTANTIATIONS = ["gram_stats_kernel<%s, %d>" % (step, minb)
+                       for step in ("false", "true") for minb in (1, 2)]
+
+
+def gram_kernels(log):
+    """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of the
+    Gram pass's four instantiations (fused_pmc_stats', STEP false;
+    fused_is_pmc_step's, true; each for one block an SM and, capped at 128
+    registers, two) in a ``ptxas -v`` log; fails unless all are there."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        if "17gram_stats_kernelI" not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
+        args = name.split("17gram_stats_kernelI", 1)[1]
+        minb = re.match(r"Lb[01]ELi(\d+)E", args)
+        out.append(("gram_stats_kernel<%s, %s>" % ("true" if args.startswith("Lb1") else "false",
+                                                   minb.group(1) if minb else "?"),
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
+                    int(stack.group(1)) if stack else 0))
+    require(sorted(n for n, _, _, _ in out) == sorted(GRAM_INSTANTIATIONS),
+            "ptxas reported the Gram pass's kernels %s" % [n for n, _, _, _ in out])
+    return out
 # the tiled engine's kernels (csrc/tiled.cuh), by their names' mangled
 # spelling: the evaluations', fused_transform's product, the bucket kernel
 # (two instantiations: the components given, GivenLatents, and drawn,
@@ -6926,7 +7274,9 @@ def phase_build():
                      (1, 1, 200), (2, 2, 1000), (16, 2, 10), (17, 2, 10), (11, 2, 11),
                      (8, 2, 16), (1, 1, 16), (2, 2, 16), (128, 2, 1), (136, 2, 1), (137, 2, 1),
                      (137, 0, 1), (40, 2, 9), (30, 2, 10), (4, 2, 4), (9, 2, 40), (11, 0, 40),
-                     (40, 2, 40), (7, 0, 62), (4, 2, 62), (4, 2, 64), (40, 0, 64), (10, 0, 10)):
+                     (40, 2, 40), (7, 0, 62), (4, 2, 62), (4, 2, 64), (40, 0, 64), (10, 0, 10),
+                     (7, 2, 17), (6, 2, 20), (4, 1, 32), (2, 2, 64), (1, 2, 65), (1, 2, 96),
+                     (1, 2, 128), (8, 2, 17), (2, 2, 65)):
         draw_smem = {}
         for kernel, ask in (("fused_transform", lambda out: lib.pmc_transform_plan(K, D, 0, out)),
                             ("fused_transform_rng",
@@ -6975,7 +7325,7 @@ def phase_build():
                              ("fused_pmc_stats", 2)):
             out = (ctypes.c_int * 4)()
             smem = lib.pmc_dense_plan(K, Kt, D, mode, out)
-            got = ("reg" if out[0] else "table", out[1], out[2], out[3], smem)
+            got = (DENSE_PASSES[out[0]], out[1], out[2], out[3], smem)
             require(got == _build.dense_plan(kernel, K, D, Kt),
                     "plan differs from the kernel's (%s, K=%d, D=%d): %s, %s"
                     % (kernel, K, D, got, _build.dense_plan(kernel, K, D, Kt)))
@@ -7002,6 +7352,26 @@ def phase_build():
                                                  per_sm * _build.THREADS // 32, plan[2], plan[4]))
         require(plan[0] == "reg" and per_sm >= 3,
                 "%s at K=10, D=10: the %s pass, %d blocks an SM" % (kernel, plan[0], per_sm))
+    # the Gram pass of fused_pmc_stats and fused_is_pmc_step: registers,
+    # spills (none), and blocks an SM at GRAM_SHAPES
+    for name, regs, spilled, stack in gram_kernels(log):
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
+              % (name, regs, spilled, stack))
+        require(spilled == 0, "%s spills %d bytes" % (name, spilled))
+    for K, D in GRAM_SHAPES:
+        for kernel, per_sm in (("fused_pmc_stats", lib.pmc_pmc_stats_per_sm(K, D)),
+                               ("fused_is_pmc_step", lib.pmc_is_pmc_step_per_sm(K, 2, D))):
+            plan = _build.dense_plan(kernel, K, D, 2)
+            print("  %s K=%d D=%d: the %s pass, %d blocks of %d threads an SM (%d warps), %d "
+                  "slices of %d 8 x 8 blocks, %d B of shared memory a block"
+                  % (kernel, K, D, plan[0], per_sm, _build._GRAM_THREADS,
+                     per_sm * _build._GRAM_THREADS // 32, plan[2], plan[3], plan[4]))
+            # two blocks an SM where two blocks' shared memory fits (the
+            # instantiation capped at 128 registers), else one
+            want = 2 if plan[4] <= _build._HALF_SMEM else 1
+            require(plan[0] == "gram" and per_sm >= want,
+                    "%s at K=%d, D=%d: the %s pass, %d blocks an SM (%d wanted)"
+                    % (kernel, K, D, plan[0], per_sm, want))
     # fused_logq's, fused_maha's and fused_rho's election past D = 64 and the
     # tiled plan
     for D in range(1, 301):
@@ -7158,6 +7528,8 @@ def main():
     wide_counts = phase_wide(device, report)
     phase("wide_is")
     wide_is_counts = phase_wide_is(device, report)
+    phase("wide_pmc")
+    wide_pmc_counts = phase_wide_pmc(device, report)
     phase("mcmc")
     mcmc_counts, _ = phase_mcmc(device)
     torch.cuda.empty_cache()
@@ -7172,7 +7544,8 @@ def main():
     # every path was driven with the counts set to 0 just before it
     counts = {n: sum(c.get(n, 0) for c in (counts, scan_counts, vb_counts, gate_counts,
                                            blocked_counts, route_counts, wide_counts,
-                                           wide_is_counts, mcmc_counts, pipe_counts,
+                                           wide_is_counts, wide_pmc_counts, mcmc_counts,
+                                           pipe_counts,
                                            parallel_counts,
                                            example_counts))
               for n in counts}
@@ -7238,8 +7611,10 @@ def main():
             entry["exps"] = exps
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
         shapes += TILED_SHAPES if kname in _build.TILED else []
+        shapes += GRAM_TIME_SHAPES if kname in _build._GRAM else []
         extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms",
-                 "bucket": "bucket_device_ms", "product": "product_device_ms"}
+                 "bucket": "bucket_device_ms", "product": "product_device_ms",
+                 "table": "table_ms"}
         entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
                                  "plain_ms": times[(kname, sh, "plain")],
                                  "bound_ms": bound(kname, sh)[1]},
@@ -7249,6 +7624,9 @@ def main():
         if kname in _build.TILED:
             entry["tiled_d_min"] = (_build.TRANSFORM_TILED_D_MIN if kname == "fused_transform"
                                     else _build.TILED_D_MIN)
+        if kname in _build._GRAM:
+            # past D = 16 the Gram pass: its launches on the main paths
+            entry["launches_gram"] = counts["variant:%s=gram" % kname]
         if kname == "fused_transform":
             # the tiled pair's first launch, one a tiled launch; its device
             # time is the shapes' bucket_device_ms
@@ -7306,7 +7684,10 @@ def main():
           "elected kernel's, tiled_ms the tiled kernel's, "
           "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
           "called by the port), fused_maha's tiled_ms also at K=32, D=40, 2^20 beside its record "
-          "kernel; the K-blocked statistics kernels' first launch, launch_ms, beside its "
+          "kernel; fused_pmc_stats and fused_is_pmc_step at GRAM_TIME_SHAPES (K D <= 128, "
+          "D = 17-128, a one-component target, N=2^20): ms the Gram pass's, table_ms the "
+          "entry table's, launches_gram the Gram pass's launches; "
+          "the K-blocked statistics kernels' first launch, launch_ms, beside its "
           "bound; the pool's two variants, ms_thread and ms_warp, at the pipeline's and the "
           "mcmc phase's shapes and at POOL_SWEEP's, plain_ms null there; variant: the pass "
           "fused_vb_estep, fused_is_pmc_step and fused_pmc_stats elect at K=10, D=10, table_ms "
@@ -7368,8 +7749,8 @@ if __name__ == "__main__":
                 flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--drawn-times"]:
-            # phase build, then drawn_shape_ms at DRAWN_SHAPES, the library
-            # yardsticks at LIBRARY_SHAPES and rows 7-8 at TABLE_SHAPE
+            # phase build, then drawn_shape_ms at DRAWN_SHAPES and the library
+            # yardsticks at LIBRARY_SHAPES
             import torch
 
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -7384,8 +7765,20 @@ if __name__ == "__main__":
                 {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
                                              in library_shape_ms(dev, sh).items()}
                  for sh in LIBRARY_SHAPES}), flush=True)
-            print("TABLE_MS " + json.dumps({"%s %s" % key: ms for key, ms
-                                            in table_shape_ms(dev).items()}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--gram-times"]:
+            # phase build, then rows 7-8 at GRAM_TIME_SHAPES (the Gram pass,
+            # the entry table, the plain version)
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            print("GRAM_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): {"%s %s" % (key[0], key[2]): ms for key, ms
+                                             in table_shape_ms(dev, sh).items()}
+                 for sh in GRAM_TIME_SHAPES}), flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--tiled-times"]:
             # phase build, then tiled_shape_ms at TILED_SHAPES

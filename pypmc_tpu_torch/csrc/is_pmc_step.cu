@@ -14,20 +14,40 @@
 // particle index), the sample kept on chip until the statistics are
 // formed: samples and weights are written once and never re-read.
 // Particles past N draw nothing and get weight 0, which zeroes every factor
-// of every statistic they touch.  Two designs (reg_stats.cuh dense_plan):
+// of every statistic they touch.  Three designs (reg_stats.cuh dense_plan):
 //   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel,
 //     the components as 16-byte records (whiten_rec), two threads a
 //     particle in the evaluation and the statistics in float32 registers,
 //     D + 3 shared reads a (particle, component);
+//   D = 17 .. 128 where K D <= 128 (the JAX rule's reach there): two
+//     launches or more, all graph-capturable -- fused_propose_logq's elected
+//     route (its record kernel to D = 64, past it the drawn tiled product
+//     and fused_logq's tiled kernel for log q and log p; K = 1 there) writes
+//     x, latent, log q and log p, then gram_stats.cuh's Gram pass reads x,
+//     log q and log p, writes w = exp(log p - log q) and forms the
+//     statistics (log q and the responsibilities from its own whitening);
 //   elsewhere the entry-table kernel below (stats.cuh), ~3 shared reads for
 //     each of the K (3 + D + D (D + 1) / 2) + 3 entries a particle.
-// Both draw the same particles (x and latent bit for bit) and form log q
-// with the same arithmetic in the same order.  The register kernel
+// All draw the same particles (x and latent bit for bit: Philox counted by
+// the particle index, propose_particle's arithmetic).  The register kernel
 // evaluates log p on the target's records, as fused_is_pmc_step_blocked's
 // first launch (is_pmc_step_blocked.cu) does, so its w is that launch's bit
 // for bit; the entry-table kernel's log p (mixture_logpdf) is the same
-// arithmetic, so its w is too.
+// arithmetic, so its w is too; the Gram route's w is that launch's to D =
+// 64, where both take fused_propose_logq's record kernel (to D = 32 the
+// first launch's own draw, the same arithmetic), and past it the tiled
+// fused_logq's.
 #include "reg_stats.cuh"
+
+// fused_propose_logq's launcher (propose_logq.cu): the Gram route's draw
+extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
+                                      const long long* seed_words,
+                                      const float* mix, const float* tmix,
+                                      float* xT, int* latent, float* log_q,
+                                      float* log_p, int* scratch, long long N, int K, int Kt,
+                                      int D, int student_t, int t_student_t,
+                                      int variant, int n_blocks, int eval_blocks,
+                                      void* stream);
 
 namespace pmc {
 
@@ -82,21 +102,37 @@ is_pmc_step_kernel(const Seed seed, const float* __restrict__ mix_src,
 
 // seed_words: null (the words s0, s1) or two int64 on the card, read in the
 // kernel (Seed); variant: -1 the plan's kernel, 0 the entry-table kernel, 1
-// the register kernel (an error where the plan does not take it)
+// the register kernel, 2 the Gram route (an error where the plan takes
+// neither it nor the entry table); log_q, log_p: the Gram route's (N,)
+// scratch (else null); draw_blocks, eval_blocks: its draw's grids, as
+// pmc_fused_propose_logq's n_blocks and eval_blocks; n_blocks: the
+// statistics pass's
 extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      const long long* seed_words,
                                      const float* mix, const float* tmix,
                                      float* xT, int* latent, float* w,
+                                     float* log_q, float* log_p,
                                      double* partial, float* stats, long long N,
                                      int K, int Kt, int D, int student_t,
                                      int t_student_t, int dof_stats, int variant,
-                                     int n_blocks, void* stream) {
+                                     int draw_blocks, int eval_blocks, int n_blocks,
+                                     void* stream) {
   using namespace pmc;
   const Seed seed{s0, s1, seed_words};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DensePlan plan = dense_plan(K, Kt, D, kDenseStep);
-  if (variant < 0 ? plan.reg : variant == 1) {
-    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+  const int pass = dense_pass(plan, variant);
+  if (pass < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (pass == kPassGram) {
+    if (log_q == nullptr || log_p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q,
+                                           log_p, nullptr, N, K, Kt, D, student_t, t_student_t,
+                                           -1, draw_blocks, eval_blocks, stream);
+    if (err != 0) return err;
+    return launch_gram<true>(xT, w, log_q, log_p, mix, partial, stats, N, K, D, student_t,
+                             dof_stats, n_blocks, s);
+  }
+  if (pass == kPassReg) {
     DenseArgs args{};
     args.ops = mix;
     args.tmix = tmix;
@@ -139,21 +175,30 @@ extern "C" long long pmc_is_pmc_step_smem_bytes(int K, int Kt, int D) {
   return static_cast<long long>(pmc::dense_plan(K, Kt, D, pmc::kDenseStep).smem);
 }
 
-// blocks of the register kernel for (K, Kt, D) that fit on one SM at once (0
-// where the plan takes the entry-table kernel, -1 on an error)
+// blocks of the register kernel or the Gram pass, the plan's, for (K, Kt,
+// D) that fit on one SM at once (0 where the plan takes the entry-table
+// kernel, -1 on an error)
 extern "C" int pmc_is_pmc_step_per_sm(int K, int Kt, int D) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, pmc::kDenseStep);
-  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseStep>(D, plan.smem) : 0;
+  using namespace pmc;
+  const DensePlan plan = dense_plan(K, Kt, D, kDenseStep);
+  return plan.pass == kPassReg    ? dense_reg_per_sm<kDenseStep>(D, plan.smem)
+         : plan.pass == kPassGram ? gram_per_sm<true>(K, D)
+                                  : 0;
 }
 
 // the plan of fused_is_pmc_step (mode 0), fused_vb_estep (1) or
 // fused_pmc_stats (2) for (K, Kt, D), checked against ops/_build.py
-// dense_plan: out = {register kernel (1) or entry table (0), tile columns,
-// column slices, component groups}; the shared memory a block
+// dense_plan: out = {the pass (DensePass: 0 the entry table, 1 the register
+// kernel, 2 the Gram pass), tile columns (particles), column slices,
+// component groups (the Gram pass: its 8 x 8 blocks)}; the shared memory a
+// block
 extern "C" long long pmc_dense_plan(int K, int Kt, int D, int mode, int* out) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, Kt, D, mode);
-  out[0] = plan.reg ? 1 : 0;
-  out[1] = plan.reg ? pmc::kRegCols : pmc::stats_layout(K, D).tw;
+  using namespace pmc;
+  const DensePlan plan = dense_plan(K, Kt, D, mode);
+  out[0] = plan.pass;
+  out[1] = plan.pass == kPassReg    ? kRegCols
+           : plan.pass == kPassGram ? kGramP
+                                    : stats_layout(K, D).tw;
   out[2] = plan.slices;
   out[3] = plan.groups;
   return static_cast<long long>(plan.smem);

@@ -14,7 +14,7 @@
 // TPU kernel accumulated across a sequential grid and formed the whole
 // (K D, K D) Gram matrix; here each block keeps float64 accumulators of only
 // the K lower-triangular diagonal blocks, and a second kernel reduces the
-// per-block rows in a fixed order.  Two designs
+// per-block rows in a fixed order.  Three designs
 // (reg_stats.cuh dense_plan), as fused_is_pmc_step's, of which this is the
 // step without the draw and the target:
 //   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel in
@@ -23,12 +23,17 @@
 //     two threads a particle, log q and the Student-t gamma and t1 bracket
 //     as the step forms them, the statistics in float32 registers, D + 3
 //     shared reads a (particle, component);
+//   D = 17 .. 128 where K D <= 128 (the JAX rule's reach there):
+//     gram_stats.cuh's Gram pass, the K components' whitening on register
+//     micro-tiles and the statistics as a weighted SYRK, 64 FMAs for 5
+//     shared loads;
 //   elsewhere the entry-table kernel below (stats.cuh), ~3 shared reads for
 //     each of the K (3 + D + D (D + 1) / 2) + 3 entries a particle.
-// The two passes form log q and the responsibilities with the same
-// arithmetic; t1's bracket is log1p(maha / nu) + log(nu / 2) - psi + gamma
-// in the register pass and log((maha + nu) / 2) - psi + gamma in the entry
-// table, equal up to float32 rounding.
+// The passes form log q and the responsibilities with the same arithmetic
+// up to the order of the whitening's sums; t1's bracket is log1p(maha / nu)
+// + log(nu / 2) - psi + gamma in the register pass and log((maha + nu) / 2)
+// - psi + gamma in the entry table and the Gram pass, equal up to float32
+// rounding.
 #include "reg_stats.cuh"
 
 namespace pmc {
@@ -75,8 +80,9 @@ pmc_stats_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
 }  // namespace pmc
 
 // partial: (n_blocks, S) float64 scratch; stats: (S,) float32 output;
-// variant: -1 the plan's, 0 the entry-table kernel, 1 the register kernel
-// (an error where the plan does not take it)
+// variant: -1 the plan's, 0 the entry-table kernel, 1 the register kernel,
+// 2 the Gram pass (an error where the plan takes neither it nor the entry
+// table)
 extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
                                    const float* mix, double* partial,
                                    float* stats, long long N, int K, int D,
@@ -85,8 +91,12 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DensePlan plan = dense_plan(K, 0, D, kDenseStats);
-  if (variant < 0 ? plan.reg : variant == 1) {
-    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+  const int pass = dense_pass(plan, variant);
+  if (pass < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (pass == kPassGram)
+    return launch_gram<false>(xT, const_cast<float*>(w), nullptr, nullptr, mix, partial, stats,
+                              N, K, D, student_t, dof_stats, n_blocks, s);
+  if (pass == kPassReg) {
     DenseArgs args{};
     args.ops = mix;
     args.xT = const_cast<float*>(xT);
@@ -123,11 +133,15 @@ extern "C" long long pmc_pmc_stats_smem_bytes(int K, int D) {
   return static_cast<long long>(pmc::dense_plan(K, 0, D, pmc::kDenseStats).smem);
 }
 
-// blocks of the register kernel for (K, D) that fit on one SM at once (0
-// where the plan takes the entry-table kernel, -1 on an error)
+// blocks of the register kernel or the Gram pass, the plan's, for (K, D)
+// that fit on one SM at once (0 where the plan takes the entry-table
+// kernel, -1 on an error)
 extern "C" int pmc_pmc_stats_per_sm(int K, int D) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, pmc::kDenseStats);
-  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseStats>(D, plan.smem) : 0;
+  using namespace pmc;
+  const DensePlan plan = dense_plan(K, 0, D, kDenseStats);
+  return plan.pass == kPassReg    ? dense_reg_per_sm<kDenseStats>(D, plan.smem)
+         : plan.pass == kPassGram ? gram_per_sm<false>(K, D)
+                                  : 0;
 }
 
 // shared memory of the entry-table kernels of fused_pmc_stats and

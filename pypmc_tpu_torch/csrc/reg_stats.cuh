@@ -24,7 +24,7 @@
 // same statistics on every run.
 #pragma once
 
-#include "stats.cuh"
+#include "gram_stats.cuh"
 
 namespace pmc {
 
@@ -216,8 +216,10 @@ __device__ inline void reg_flush(float* scratch, int S, int E, int n, double* ac
 // tile).
 //
 // The plan (dense_plan, mirrored by ops/_build.py dense_plan): the register
-// pass at D <= 16 wherever its shared memory fits kSmemLimit; elsewhere the
-// launcher takes stats.cuh's entry-table kernel.
+// pass at D <= 16 wherever its shared memory fits kSmemLimit; fused_pmc_stats
+// and fused_is_pmc_step take gram_stats.cuh's Gram pass from D = 17 where K
+// D <= 128 (gram_fits); elsewhere the launcher takes stats.cuh's entry-table
+// kernel.
 // ---------------------------------------------------------------------
 
 // the dense register kernel's modes (pmc_dense_plan's codes): the step
@@ -281,25 +283,41 @@ struct DenseLayout {
   __host__ __device__ size_t smem() const { return acc_bytes() + (E() + 3) * sizeof(double); }
 };
 
+// the dense kernels' passes, the launchers' variant codes: stats.cuh's entry
+// table, the register pass, gram_stats.cuh's Gram pass
+enum DensePass : int { kPassTable = 0, kPassReg = 1, kPassGram = 2 };
+
 struct DensePlan {
-  bool reg;        // the register pass (else stats.cuh's entry table)
-  int slices;      // phase 2's column slices
-  int groups;      // component groups a tile
+  int pass;        // DensePass
+  int slices;      // phase 2's column slices (the Gram pass: phase C's)
+  int groups;      // component groups a tile (the Gram pass: its 8 x 8 blocks)
   size_t smem;     // shared memory a block asks for
 };
 
 // The plan of fused_vb_estep (kDenseVb), fused_is_pmc_step (kDenseStep, Kt
 // target components) or fused_pmc_stats (kDenseStats) for (K, D); the
-// entry-table pass's shared memory where the register pass is not taken.
+// entry-table pass's shared memory where neither the register nor the Gram
+// pass is taken.
 inline DensePlan dense_plan(int K, int Kt, int D, int mode) {
   if (D <= kRegDMax) {
     const DenseLayout L{K, Kt, D, dense_slices(K, D), mode};
-    if (L.smem() <= kSmemLimit) return {true, L.S, L.groups(), L.smem()};
+    if (L.smem() <= kSmemLimit) return {kPassReg, L.S, L.groups(), L.smem()};
+  }
+  if (mode != kDenseVb && gram_fits(K, D)) {
+    const GramLayout G{K, D};
+    return {kPassGram, G.slices(), G.blocks(), G.smem()};
   }
   const int params = mode == kDenseVb     ? K * D * D + K * D + K
                      : mode == kDenseStep ? MixLayout{K, D}.size() + MixLayout{Kt, D}.eval_size()
                                           : MixLayout{K, D}.eval_size();
-  return {false, 0, 0, stats_launch_smem(stats_layout(K, D), params)};
+  return {kPassTable, 0, 0, stats_launch_smem(stats_layout(K, D), params)};
+}
+
+// The pass a launcher runs for ``variant`` (-1: the plan's; the plan's pass
+// or the entry table, its yardstick), or -1 where the plan has no such pass
+inline int dense_pass(const DensePlan& plan, int variant) {
+  if (variant < 0) return plan.pass;
+  return variant == plan.pass || variant == kPassTable ? variant : -1;
 }
 
 // what the dense register kernel reads and writes
@@ -567,8 +585,8 @@ inline int dense_reg_per_sm(int D, size_t smem) {
   return n;
 }
 
-// Launch the register kernel with ``plan`` (plan.reg) and the reduction of
-// its partials into ``stats`` (T = float or double).
+// Launch the register kernel with ``plan`` (its pass kPassReg) and the
+// reduction of its partials into ``stats`` (T = float or double).
 template <int MODE, typename T>
 inline int launch_dense_reg(DenseArgs args, const DensePlan& plan, T* stats, int n_blocks,
                             cudaStream_t s) {

@@ -107,8 +107,9 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* 
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DensePlan plan = dense_plan(K, 0, D, kDenseVb);
-  if (variant < 0 ? plan.reg : variant == 1) {
-    if (!plan.reg) return static_cast<int>(cudaErrorInvalidValue);
+  const int pass = dense_pass(plan, variant);
+  if (pass < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (pass == kPassReg) {
     DenseArgs args{};
     args.ops = ops;
     args.xT = const_cast<float*>(xT);
@@ -147,5 +148,5 @@ extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
 // where the plan takes the entry-table kernel, -1 on an error)
 extern "C" int pmc_vb_estep_per_sm(int K, int D) {
   const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, pmc::kDenseVb);
-  return plan.reg ? pmc::dense_reg_per_sm<pmc::kDenseVb>(D, plan.smem) : 0;
+  return plan.pass == pmc::kPassReg ? pmc::dense_reg_per_sm<pmc::kDenseVb>(D, plan.smem) : 0;
 }

@@ -26,7 +26,10 @@ then evaluates with ``fused_logq``'s tiled kernel).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
-(:func:`dense_plan`), and elsewhere the entry-table pass's tile of 128
+(:func:`dense_plan`); from D = 17 where K D <= 128 ``fused_pmc_stats``'
+and ``fused_is_pmc_step``'s Gram pass, the K components' U stacked, a tile
+of 64 particles, its whitened differences and float64 accumulators
+(:func:`gram_layout`); elsewhere the entry-table pass's tile of 128
 particles, or of 64 where that does not fit (:func:`stats_tile`); the
 entry-table kernels stage their mixture operands there too when they fit
 beside, and otherwise read them from device memory.  The record kernels of
@@ -60,10 +63,10 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
            "eval_variant", "tiled_plan", "transform_bucket_plan", "transform_slots",
            "transform_scratch_words", "transform_tiles",
-           "block_particles", "stats_tile", "dense_plan", "transform_plan", "propose_plan",
-           "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
+           "block_particles", "stats_tile", "dense_plan", "gram_layout", "transform_plan",
+           "propose_plan", "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
-           "check_limits", "load", "build_info"]
+           "check_limits", "load", "build_info", "signatures"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -160,6 +163,12 @@ _NARROW_TILE_D_MAX = 8
 # columns, the K-blocked pass's slices (the dense kernels' fewest), the
 # last row of band 0
 _REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
+# csrc/gram_stats.cuh: the Gram statistics pass of fused_pmc_stats and
+# fused_is_pmc_step, from D = 17 (kGramDMin) to 128 where K D <= 128
+# (kGramKD, the JAX rule's bound): its particles a tile and threads a block
+# (kGramP, kGramThreads)
+_GRAM_D_MIN, _GRAM_KD, _GRAM_P, _GRAM_THREADS = 17, 128, 64, 256
+_GRAM = ("fused_pmc_stats", "fused_is_pmc_step")
 
 
 def _pad4(n):
@@ -286,6 +295,28 @@ def stats_tile(K, D):
     return THREADS if _stats_bytes(K, D, 0) <= SMEM_LIMIT else THREADS // 2
 
 
+def gram_layout(K, D):
+    """``(slices, blocks, shared memory a block)`` of the Gram statistics
+    pass for (K, D) (``csrc/gram_stats.cuh`` ``GramLayout``): D rounded up
+    to 8 (Dp) rows a component, R = K Dp stacked; phase C's lower 8 x 8
+    blocks of the K triangles, K n (n + 1) / 2 with n = Dp / 8, and column
+    slices the largest power of two to 32 with slices x blocks <= 256;
+    shared memory for U stacked and transposed (D x R floats), the means
+    (R), the tile of 64 particles (D x 64), the whitened differences (64
+    rows of R rounded up to 32, plus 4), the per-particle rows ((3 K + 3) x
+    64), then the float64 accumulators, 72 a block (its 8 x 8 entries and,
+    diagonal, 8 of sd) and 3 K + 3 scalars."""
+    Dp = (D + 7) // 8 * 8
+    R, n = K * Dp, Dp // 8
+    blocks = K * n * (n + 1) // 2
+    slices = 1
+    while 2 * slices <= 32 and 2 * slices * blocks <= _GRAM_THREADS:
+        slices *= 2
+    dstride = (R + 31) // 32 * 32 + 4
+    floats = D * R + R + D * _GRAM_P + _GRAM_P * dstride + (3 * K + 3) * _GRAM_P
+    return slices, blocks, (4 * floats + 7) // 8 * 8 + 8 * (72 * blocks + 3 * K + 3)
+
+
 def dense_plan(kernel, K, D, Kt=0):
     """``(pass, tile columns, column slices, component groups, shared memory
     a block)`` of ``fused_vb_estep``, ``fused_is_pmc_step`` (a Kt-component
@@ -293,14 +324,21 @@ def dense_plan(kernel, K, D, Kt=0):
     ``dense_plan``.  Up to D = 16, where it fits :data:`SMEM_LIMIT`,
     ``"reg"``: the register pass, 64 columns, the slices of
     :func:`_dense_slices` and as many groups as the K components need of the
-    block's pairs; elsewhere ``"table"``: the entry-table pass, its tile of
-    :func:`stats_tile` particles (slices and groups 0)."""
+    block's pairs; ``fused_pmc_stats`` and ``fused_is_pmc_step`` from D = 17
+    to 128 where K D <= 128 (the JAX rule's reach there), ``"gram"``: the
+    Gram pass, 64 particles a tile, its slices and 8 x 8 blocks in place of
+    the groups (:func:`gram_layout`); elsewhere ``"table"``: the entry-table
+    pass, its tile of :func:`stats_tile` particles (slices and groups 0)."""
     if D <= _REG_DMAX:
         S = _dense_slices(K, D)
         groups = -(-K // _reg_per_group(D, S))
         smem = _dense_reg_bytes(kernel, K, Kt, D, S, groups)
         if smem <= SMEM_LIMIT:
             return "reg", _REG_COLS, S, groups, smem
+    if kernel in _GRAM and _GRAM_D_MIN <= D <= _THREAD_D_MAX and K * D <= _GRAM_KD:
+        slices, blocks, smem = gram_layout(K, D)
+        if smem <= SMEM_LIMIT:
+            return "gram", _GRAM_P, slices, blocks, smem
     return "table", stats_tile(K, D), 0, 0, _table_bytes(kernel, K, D, Kt)
 
 
@@ -726,9 +764,11 @@ def _build():
     return lib_path
 
 
-def _declare(lib):
+def signatures():
+    """``{name: argtypes}`` of the library's launchers, each returning an
+    int (0 or a CUDA error code)."""
     P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    sigs = {
+    return {
         # xT, mix, out, N, K, D, student_t, variant (-1 the elected kernel, 0
         # the looped, 1 the record, 2 the tiled kernel), n_blocks, stream
         "pmc_fused_logq": [P, P, P, L, I, I, I, I, I, P],
@@ -742,14 +782,17 @@ def _declare(lib):
         "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I, I,
                                    I, I, I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
-        # variant (-1 the plan's, 0 the entry table, 1 the register pass),
-        # n_blocks, stream
+        # variant (-1 the plan's, 0 the entry table, 1 the register pass, 2
+        # the Gram pass), n_blocks, stream
         "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, I, P],
-        # s0, s1, seed_words, mix, tmix, xT, latent, w, partial, stats, N, K,
-        # Kt, D, student_t, t_student_t, dof_stats, variant (-1 the plan's, 0
-        # the entry table, 1 the register pass), n_blocks, stream
-        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I,
-                                  I, I, I, I, P],
+        # s0, s1, seed_words, mix, tmix, xT, latent, w, log_q, log_p (the
+        # Gram route's (N,) scratch, else null), partial, stats, N, K, Kt, D,
+        # student_t, t_student_t, dof_stats, variant (as
+        # pmc_fused_pmc_stats'), draw_blocks, eval_blocks (the Gram route's
+        # draw: fused_propose_logq's n_blocks and eval_blocks), n_blocks,
+        # stream
+        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, P, P, L, I, I, I,
+                                  I, I, I, I, I, I, I, P],
         # xT, ops, out, N, K, D, variant (as pmc_fused_logq's), n_blocks, stream
         "pmc_fused_maha": [P, P, P, L, I, I, I, I, P],
         # xT, mix, rho, log_q, N, K, D, student_t, variant (as
@@ -795,7 +838,11 @@ def _declare(lib):
         # fused_draw_transform_rng's streams), n_blocks, stream
         "pmc_fused_draw_transform": [U, U, P, P, P, P, L, I, I, I, I, I, P],
     }
-    for name, argtypes in sigs.items():
+
+
+def _declare(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in signatures().items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -804,11 +851,12 @@ def _declare(lib):
     lib.pmc_step_draw_smem_bytes.argtypes = [I, I, I]  # K, Kt, D
     lib.pmc_step_draw_per_sm.argtypes = [I, I, I]      # K, Kt, D -> first-launch blocks an SM
     lib.pmc_step_draw_per_sm.restype = ctypes.c_int
-    # the register pass's blocks an SM (0 where the plan is the entry table)
+    # the register or Gram pass's blocks an SM (0 where the plan is the
+    # entry table)
     lib.pmc_is_pmc_step_per_sm.argtypes = [I, I, I]    # K, Kt, D
     lib.pmc_is_pmc_step_per_sm.restype = ctypes.c_int
-    # K, D -> the register pass's blocks an SM (0 where the plan is the
-    # entry table)
+    # K, D -> the register (or fused_pmc_stats' Gram) pass's blocks an SM (0
+    # where the plan is the entry table)
     for name in ("pmc_vb_estep_per_sm", "pmc_pmc_stats_per_sm"):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int

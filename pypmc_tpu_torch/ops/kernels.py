@@ -73,9 +73,10 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 :func:`launch_counts` reads them with the ``plain:<kernel>`` routes and,
 for the kernels with variants chosen by shape (``fused_mcmc_pool``: a
 thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
-``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass or the
-entry-table pass, ``_build.dense_plan``; the draws ``fused_transform``,
-``fused_transform_rng`` and ``fused_propose_logq``: the record, the looped
+``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass, the Gram
+pass (the last two) or the entry-table pass, ``_build.dense_plan``; the
+draws ``fused_transform``, ``fused_transform_rng`` and
+``fused_propose_logq``: the record, the looped
 or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
 products), ``_build.transform_plan``, ``_build.propose_plan``;
 ``fused_logq``, ``fused_maha`` and ``fused_rho``: the record or the tiled
@@ -407,10 +408,10 @@ def _table_blocks(kernel, device, n, K, D, Kt=0):
 
 @functools.lru_cache(maxsize=None)
 def _dense_per_sm(kernel, K, D, Kt, index):
-    """Blocks of the register kernel of ``fused_vb_estep``,
-    ``fused_is_pmc_step`` or ``fused_pmc_stats`` for (K, D) that one SM of
-    CUDA device ``index`` holds at once (the library's occupancy of its
-    instantiation and shared memory)."""
+    """Blocks of the plan's register kernel or Gram pass of
+    ``fused_vb_estep``, ``fused_is_pmc_step`` or ``fused_pmc_stats`` for
+    (K, D) that one SM of CUDA device ``index`` holds at once (the
+    library's occupancy of its instantiation and shared memory)."""
     with torch.cuda.device(index):
         lib = _build.load()
         per_sm = (lib.pmc_vb_estep_per_sm(K, D) if kernel == "fused_vb_estep"
@@ -421,7 +422,7 @@ def _dense_per_sm(kernel, K, D, Kt, index):
     return per_sm
 
 
-_DENSE_VARIANTS = ("table", "reg")   # the launchers' variant codes 0 and 1
+_DENSE_VARIANTS = ("table", "reg", "gram")   # the launchers' variant codes 0, 1 and 2
 # the draws' kernels and the launchers' variant codes (-1: the plan's)
 _DRAW_VARIANTS = {"looped": 0, "rec": 1, "tiled": 2}
 # fused_logq's, fused_maha's and fused_rho's kernels and the launchers'
@@ -435,7 +436,7 @@ def _variant_names(kernel):
         return tuple(_DRAW_VARIANTS)
     if kernel in _build.TILED:
         return tuple(_EVAL_VARIANTS)
-    return _DENSE_VARIANTS
+    return _DENSE_VARIANTS if kernel in _build._GRAM else _DENSE_VARIANTS[:2]
 
 
 def _transform_variants(D):
@@ -451,8 +452,8 @@ def _elect(kernel, K, D, variant, Kt=0):
     ``fused_logq``, ``fused_maha`` or ``fused_rho``) at (K, D): its plan's
     for None (``_build.draw_plan``, ``_build.dense_plan``,
     ``_build.eval_variant``), else ``variant`` where the shape has it -- the
-    plan's, or its yardstick (the entry table beside the register pass, the
-    tiled kernel beside the record kernel; a draw any of
+    plan's, or its yardstick (the entry table beside the register or the
+    Gram pass, the tiled kernel beside the record kernel; a draw any of
     :func:`_transform_variants`); ``ValueError`` elsewhere, on any
     device."""
     if kernel in _build.DRAWS:
@@ -467,8 +468,8 @@ def _elect(kernel, K, D, variant, Kt=0):
             return elected if variant is None else variant
         raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
                          % (kernel, variant, K, D, elected))
-    elected, other = _build.dense_plan(kernel, K, D, Kt)[0], ("reg", "table")
-    if variant is None or variant == elected or (elected, variant) == other:
+    elected = _build.dense_plan(kernel, K, D, Kt)[0]
+    if variant in (None, elected, "table"):
         return elected if variant is None else variant
     raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
                      % (kernel, variant, K, D, elected))
@@ -478,9 +479,12 @@ def _dense_blocks(kernel, device, n, K, D, Kt, variant):
     """Blocks of ``fused_vb_estep``, ``fused_is_pmc_step`` or
     ``fused_pmc_stats`` for n particles on the pass ``variant``: the register
     pass's grid is a wave of its blocks over rounds of 128 particles, the
-    entry table's that of :func:`_table_blocks`."""
+    Gram pass's over tiles of 64, the entry table's that of
+    :func:`_table_blocks`."""
     if variant == "reg":
         return _blocks(device, n, _dense_per_sm(kernel, K, D, Kt, device.index))
+    if variant == "gram":
+        return _blocks(device, n, _dense_per_sm(kernel, K, D, Kt, device.index), _build._GRAM_P)
     return _table_blocks(kernel, device, n, K, D, Kt)
 
 
@@ -1162,7 +1166,7 @@ def fused_pmc_stats(xT, w, ops: MixtureOperands, dof_stats=False, variant=None):
     """Every sufficient statistic of one PMC update in one pass over
     weighted particles (kernel ``csrc/pmc_stats.cu``); the dict of
     :func:`plain_pmc_stats` with ``sw (2,) = [sum w, sum w^2]``.
-    ``variant``: the kernel's pass, ``"reg"`` or ``"table"``
+    ``variant``: the kernel's pass, ``"reg"``, ``"gram"`` or ``"table"``
     (``_build.dense_plan``; None: the plan's), counted as
     ``variant:fused_pmc_stats=<variant>``."""
     variant = _elect("fused_pmc_stats", ops.K, ops.dim, variant)
@@ -1196,10 +1200,14 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     pass (kernel ``csrc/is_pmc_step.cu``): ``(xT (D, n), latent (n,),
     w (n,), stats)`` with ``stats`` as :func:`fused_pmc_stats` except
     ``sw (3,) = [sum w, sum w^2, sum w log w]``.  ``variant``: the
-    kernel's pass, ``"reg"`` or ``"table"`` (``_build.dense_plan``; None:
-    the plan's), counted as ``variant:fused_is_pmc_step=<variant>``; both
-    draw the same particles from a seed (and, for a Gaussian target, the
-    same weights).  ``seed``: as :func:`fused_propose_logq`'s."""
+    kernel's pass, ``"reg"``, ``"gram"`` or ``"table"``
+    (``_build.dense_plan``; None: the plan's), counted as
+    ``variant:fused_is_pmc_step=<variant>``; all draw the same particles
+    from a seed (and, for a Gaussian target, the same weights to D = 64).
+    The Gram route is a composition of launches: :func:`fused_propose_logq`'s
+    elected kernels (not counted as its launches) write x, latent, log q and
+    log p, then the Gram pass reads them.  ``seed``: as
+    :func:`fused_propose_logq`'s."""
     variant = _elect("fused_is_pmc_step", ops.K, ops.dim, variant, target.K)
     if not use_kernel(ops.packed, target.packed):
         return plain_is_pmc_step(seed, ops, target, n, dof_stats)
@@ -1218,13 +1226,26 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     w = torch.empty((n,), dtype=torch.float32, device=device)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=device)
     flat = torch.empty((S,), dtype=torch.float32, device=device)
+    log_q = log_p = None
+    draw_blocks = eval_blocks = 0
+    if variant == "gram":
+        # the draw's outputs the pass reads, and the grids of its elected
+        # kernels (past D = 64 K = 1: no bucket kernel, no scratch)
+        log_q = torch.empty((n,), dtype=torch.float32, device=device)
+        log_p = torch.empty_like(log_q)
+        draw = _build.draw_plan("fused_propose_logq", ops.K, D, target.K)[0]
+        draw_blocks = _draw_blocks("fused_propose_logq", device, n, ops.K, D, draw, target.K)
+        if draw == "tiled":
+            eval_blocks = _eval_blocks("logq", device, n, ops.K, D, "tiled")
     with torch.cuda.device(device):
         err = lib.pmc_fused_is_pmc_step(
             *_seed_args(seed, device), ops.packed.data_ptr(),
             target.packed.data_ptr(), xT.data_ptr(), latent.data_ptr(),
-            w.data_ptr(), partial.data_ptr(), flat.data_ptr(), n, ops.K,
-            target.K, D, int(ops.student_t), int(target.student_t),
-            int(dof_stats), _DENSE_VARIANTS.index(variant), n_blocks, _stream(device))
+            w.data_ptr(), None if log_q is None else log_q.data_ptr(),
+            None if log_p is None else log_p.data_ptr(), partial.data_ptr(),
+            flat.data_ptr(), n, ops.K, target.K, D, int(ops.student_t),
+            int(target.student_t), int(dof_stats), _DENSE_VARIANTS.index(variant),
+            draw_blocks, eval_blocks, n_blocks, _stream(device))
     _raise_on(err, "fused_is_pmc_step")
     fused_is_pmc_step.launches += 1
     _variant_counts["fused_is_pmc_step=" + variant] += 1

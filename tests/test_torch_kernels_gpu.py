@@ -93,6 +93,17 @@ def test_pmc_stats_non_finite_particles(cuda):
     chip_smoke.pmc_stats_nonfinite_case(cuda, [])
 
 
+@pytest.mark.parametrize("case", [c for c in chip_smoke.GRAM_CASES if c[3] <= 1025]
+                         + [c for c in chip_smoke.GRAM_CASES
+                            if c[3] == chip_smoke.N_FLAGSHIP and c[:3] in ((7, 2, 17), (1, 1, 128))])
+def test_gram_pass_against_plain_version(cuda, case):
+    """fused_pmc_stats' and fused_is_pmc_step's Gram pass (D = 17-128, K D <=
+    128) elected and counted, against the float64 plain version; the step's
+    x and latent the entry table's bit for bit, its w the K-blocked step's
+    to D = 64; a second run equal."""
+    chip_smoke.gram_case(case, cuda, [])
+
+
 @pytest.mark.parametrize("kernel", ["fused_is_pmc_step", "fused_vb_estep", "fused_pmc_stats"])
 def test_register_pass_is_deterministic_and_elected(cuda, kernel):
     """At K=10, D=10 the register pass is elected and counted as such; one

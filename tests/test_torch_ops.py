@@ -293,9 +293,11 @@ GRID_D = tuple(range(1, 2101))
 def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
     """Where fits() sends a shape to a kernel (the JAX package's rule), the
     CUDA kernel takes it: _build.limit_reason names no limit, so the wrapper
-    launches on the card where the JAX package returns a result.  The two
+    launches on the card where the JAX package returns a result.  The three
     kernels with a register pass take it at every admitted shape to D = 16
-    (K = 128 at D = 1 the largest) and the entry table past it."""
+    (K = 128 at D = 1 the largest); past it fused_pmc_stats and
+    fused_is_pmc_step take the Gram pass at every admitted shape (D = 17 to
+    128, K D <= 128) and fused_vb_estep the entry table."""
     rules = ([{"n_steps": 400, "student_t": t} for t in (False, True)]
              if kernel == "fused_mcmc_pool" else [{}])
     refused, passes = [], {}
@@ -313,7 +315,11 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
                         passes.setdefault(_build.dense_plan(kernel, K, D, Kt)[0], set()).add(D)
     assert refused == []
     if kernel in _build._DENSE:
-        assert passes["reg"] == set(range(1, 17)) and min(passes["table"]) == 17
+        past = "gram" if kernel in _build._GRAM else "table"
+        assert passes["reg"] == set(range(1, 17)) and set(passes) == {"reg", past}
+        assert min(passes[past]) == 17
+        if past == "gram":
+            assert passes["gram"] == set(range(17, 129))
 
 
 @pytest.mark.parametrize("kernel", _build.TILED)
@@ -486,8 +492,28 @@ DENSE_PLANS = {
     # every layout, so fused_pmc_stats' plan is VB's)
     (137, 1): (("table", 64, 0, 0, None),) * 3,
     (136, 1): (("reg", 64, 8, 9, None),) * 3,
-    # D=17: the entry table
-    (4, 17): (("table", 128, 0, 0, None),) * 3,
+    # D=17: the entry table for VB; fused_is_pmc_step and fused_pmc_stats
+    # the Gram pass (csrc/gram_stats.cuh): Dp = 24 rows a component, R = 96
+    # stacked, 3 8-row blocks a component, 4 x 6 = 24 blocks, 8 slices (the
+    # largest power of two with 24 x 8 <= 256); U stacked 17 x 96, the means
+    # 96, the tile 17 x 64, the differences 64 x (96 + 4), the per-particle
+    # rows 15 x 64 floats, then the float64 accumulators, 72 a block (its 64
+    # entries and 8 of sd) and 15 scalars
+    (4, 17): (("table", 128, 0, 0, None),)
+             + (("gram", 64, 8, 24,
+                 4 * (17 * 96 + 96 + 17 * 64 + 64 * 100 + 15 * 64) + 8 * (72 * 24 + 15)),) * 2,
+    # the Gram pass's most components, K=7 at D=17: R = 168, 42 blocks, 4
+    # slices, differences 64 x (192 + 4)
+    (7, 17): (("table", 128, 0, 0, None),)
+             + (("gram", 64, 4, 42,
+                 4 * (17 * 168 + 168 + 17 * 64 + 64 * 196 + 24 * 64) + 8 * (72 * 42 + 24)),) * 2,
+    # its largest D, K=1 at D=128: 16 blocks a side, 136, one slice, 6
+    # scalars
+    (1, 128): (("table", 128, 0, 0, None),)
+              + (("gram", 64, 1, 136,
+                  4 * (128 * 128 + 128 + 128 * 64 + 64 * 132 + 6 * 64) + 8 * (72 * 136 + 6)),) * 2,
+    # past the JAX rule's K D <= 128: the entry table for all three
+    (5, 40): (("table", 128, 0, 0, None),) * 3,
 }
 
 
@@ -506,6 +532,8 @@ def test_dense_register_plan_mirrors(K, D):
         assert (_build.limit_reason(kernel, K, D, 2) is None) == (got[4] <= _build.SMEM_LIMIT)
         if got[0] == "reg":
             assert got[4] <= _build.SMEM_LIMIT
+        elif got[0] == "gram":
+            assert got[4] == _build.gram_layout(K, D)[2] <= _build.SMEM_LIMIT
         else:
             assert got[4] == _build._table_bytes(kernel, K, D, 2)
     assert _build.dense_plan("fused_vb_estep", 137, 1)[0] == "table"
@@ -720,12 +748,18 @@ def _variant_call(kernel, K, D, variant):
     ("fused_propose_logq", 1, 129, "warp", False), ("fused_propose_logq", 1, 129, "tiled", True),
     ("fused_propose_logq", 1, 65, "tiled", True), ("fused_propose_logq", 1, 129, "looped", False),
     # the statistics kernels: the register pass to D = 16 and the entry table
-    # beside it; the entry table alone past it
+    # beside it; past it fused_pmc_stats' and fused_is_pmc_step's Gram pass
+    # where K D <= 128 and the entry table beside it, VB's entry table alone
     ("fused_pmc_stats", 3, 4, "reg", True), ("fused_pmc_stats", 3, 4, "table", True),
     ("fused_pmc_stats", 2, 17, "reg", False), ("fused_pmc_stats", 2, 17, "table", True),
     ("fused_pmc_stats", 3, 4, "looped", False), ("fused_vb_estep", 2, 17, "reg", False),
     ("fused_vb_estep", 3, 4, "table", True), ("fused_is_pmc_step", 2, 17, "reg", False),
     ("fused_is_pmc_step", 3, 4, "rec", False),
+    ("fused_pmc_stats", 2, 17, "gram", True), ("fused_is_pmc_step", 2, 17, "gram", True),
+    ("fused_is_pmc_step", 2, 17, "table", True), ("fused_pmc_stats", 1, 128, "reg", False),
+    ("fused_pmc_stats", 3, 4, "gram", False), ("fused_is_pmc_step", 3, 4, "gram", False),
+    ("fused_vb_estep", 2, 17, "gram", False), ("fused_pmc_stats", 5, 40, "gram", False),
+    ("fused_pmc_stats", 5, 40, "table", True),
     # fused_logq and fused_maha: the record kernel to D = 64, the tiled
     # kernel beside it and alone past it (they have no looped kernel)
     ("fused_logq", 3, 10, "rec", True), ("fused_logq", 3, 10, "tiled", True),
@@ -752,9 +786,10 @@ def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
     the three draws' record, looped and tiled kernels (fused_transform's
     tiled pair, the others' drawn products; no warp kernel), the statistics
-    kernels' register and entry-table passes, fused_logq's, fused_maha's and
-    fused_rho's record and tiled kernels (fused_pmc_stats' tile width is no
-    longer a variant)."""
+    kernels' register and entry-table passes (fused_pmc_stats' and
+    fused_is_pmc_step's Gram pass too, not fused_vb_estep's), fused_logq's,
+    fused_maha's and fused_rho's record and tiled kernels (fused_pmc_stats'
+    tile width is no longer a variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
     for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
@@ -762,6 +797,7 @@ def test_launch_counts_name_the_variants():
         assert "variant:%s=warp" % kernel not in names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
         assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
+        assert ("variant:%s=gram" % kernel in names) == (kernel != "fused_vb_estep")
     for kernel in _build.TILED:
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "tiled")} <= names
         assert ("variant:%s=looped" % kernel in names) == (kernel in _build.DRAWS)
