@@ -34,9 +34,9 @@ Phases, each of which exits non-zero on failure:
    ``fused_propose_logq`` (no spill), their blocks an SM (the drawn
    products' at least 2 with row tile 0's panels past D=128), their
    election and the bucket kernel's plan against ``_build``; the Gram pass
-   of ``fused_pmc_stats`` and ``fused_is_pmc_step`` (``gram_stats_kernel``,
-   two instantiations, no spill; its plan and blocks an SM at
-   ``GRAM_SHAPES``);
+   of ``fused_pmc_stats``, ``fused_is_pmc_step`` and ``fused_vb_estep``
+   (``gram_stats_kernel``, a mode each, two instantiations a mode, no
+   spill; its plan and blocks an SM at ``GRAM_SHAPES``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -67,17 +67,20 @@ Phases, each of which exits non-zero on failure:
    and K=137 at D=1 on the entry table), each where the register pass is
    elected also through its entry-table pass (the step: the same particles
    and weights bit for bit, a Student-t target's too), and
-   ``fused_vb_estep`` on a NaN and an infinite coordinate;
+   ``fused_vb_estep`` on a NaN and an infinite coordinate (the register
+   pass at K=10, D=10 and the Gram pass at K=4, D=20, each beside the
+   entry table);
    ``fused_pmc_stats`` on both passes where the register pass is elected
    (a second run equal, a dead component's statistics 0) and on a NaN
    coordinate or weight (NaN where the plain version's are; also on the
-   Gram pass at K=4, D=20); ``fused_pmc_stats`` and ``fused_is_pmc_step``
-   past D=16 on the Gram pass (``GRAM_CASES``: K D <= 128 from (7, 17) to
-   (1, 128), N=1024, 1025 and 2^20, one and two target components,
-   Gaussian and Student-t, dof_stats on and off, and (6, 20) at 10^7):
-   counted as gram, against the float64 plain version, a second run
-   equal, the entry table forced beside it, the step's x and latent the
-   entry table's bit for bit and, to D=64, its w
+   Gram pass at K=4, D=20); ``fused_pmc_stats``, ``fused_is_pmc_step`` and
+   ``fused_vb_estep`` past D=16 on the Gram pass (``GRAM_CASES``: K D <=
+   128 from (7, 17) to (1, 128), N=1024, 1025 and 2^20, one and two target
+   components, Gaussian and Student-t, dof_stats on and off, and (6, 20)
+   at 10^7, ``fused_vb_estep`` to 2^20 on the proposal's VB operands with a
+   third of the weights 0): counted as gram, against the float64 plain
+   version, a second run equal, the entry table forced beside it, the
+   step's x and latent the entry table's bit for bit and, to D=64, its w
    ``fused_is_pmc_step_blocked``'s bit for bit.
    ``fused_transform`` on given
    normals, components and scales (K=10, D=10, N=2^22; K=16 and K=32,
@@ -217,6 +220,15 @@ Phases, each of which exits non-zero on failure:
    ``ImportanceSampler.run`` of 2^20 at D=128 on a per-point callable
    target, then ``PMC(...).run(1)``, its ``fused_pmc_stats`` launch gram
    and its update against the unfused one in float64;
+   wide_vb: ``GaussianInference(...).run`` past D=16 on the Gram pass
+   (``WIDE_VB``): (a) ``benchmarks/vb_step.py --dim 20 --components 6``'s
+   data and (b) its ``--dim 40 --components 3``, 2^22 points, 10
+   iterations, prune off; (c) wide_pmc (c)'s importance samples and weights
+   at D=128 into a fit seeded by its proposal, 5 iterations, as the
+   pipeline's ``is1_vb2``; each fit's first iteration against the float64
+   plain version, every ``fused_vb_estep`` launch gram and no plain route,
+   its operands held in float32; host and device ms an iteration, the busy
+   share, the launches;
 8. mcmc: ``sample_adaptive_chains`` at ``benchmarks/mcmc_chains.py``'s
    fused configuration (C=16384, D=10, 500 steps x 4 cycles), chain-steps
    a second, and the pool's variant the entry point elects there;
@@ -315,7 +327,7 @@ Phases, each of which exits non-zero on failure:
     ``DRAWN_SHAPES`` beside the looped kernels, the composition of other
     rows' launches and the plain versions and the ``torch.bmm`` yardsticks
     of rows 1-3 and 6 at their first shapes; phase times and ``chip_smoke.py
-    --gram-times`` time rows 7-8 at ``GRAM_TIME_SHAPES`` (the Gram pass,
+    --gram-times`` time rows 7-9 at ``GRAM_TIME_SHAPES`` (the Gram pass,
     the entry table and the plain version in turns, beside the bound);
     ``--elected-times DIR [drawn]`` the kernels a checkout elects there;
     ``--parent-draws DIR`` holds the drawn products to the kernels DIR
@@ -813,19 +825,30 @@ def eval_case(case, device, report):
             print("  fused_vb_estep raises: %s" % reason)
             return
         raise SmokeFailure("fused_vb_estep ran past its limit: %s" % reason)
-    got = k.fused_vb_estep(xT, w, A, m, const)
-    ref = k.plain_vb_estep(x64, w.double(), A.double(), m.double(), const.double())
-    for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
-        compare("fused_vb_estep %s/N" % name, g / N, r / N, "stats", report)
-    again = k.fused_vb_estep(xT, w, A, m, const)
-    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-            "fused_vb_estep: one input gave two outputs")
+    vb_stats_case(xT, w, A, m, const, "fused_vb_estep", report)
+
+
+def vb_stats_case(xT, w, A, m, const, label, report):
+    """fused_vb_estep on given particles, weights and operands against its
+    float64 plain version, on the pass its plan elects and, where that is
+    the register or the Gram pass, on the entry table: the same statistics
+    on a second run."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N = A.shape[0], A.shape[1], xT.shape[1]
+    ref = k.plain_vb_estep(xT.double(), w.double(), A.double(), m.double(), const.double())
     plan = _build.dense_plan("fused_vb_estep", K, D)
     print("  fused_vb_estep pass %s: %d columns, %d slices, %d groups, %d B" % plan)
-    if plan[0] == "reg":
-        table = k.fused_vb_estep(xT, w, A, m, const, variant="table")
-        for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), table, ref):
-            compare("fused_vb_estep table %s/N" % name, g / N, r / N, "stats", report)
+    for variant in (plan[0], "table") if plan[0] != "table" else ("table",):
+        got = k.fused_vb_estep(xT, w, A, m, const, variant=variant)
+        tag = label if variant == plan[0] else "%s %s" % (label, variant)
+        for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+            compare("%s %s/N" % (tag, name), g / N, r / N, "stats", report)
+        again = k.fused_vb_estep(xT, w, A, m, const, variant=variant)
+        require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                "%s: one input gave two outputs" % tag)
 
 
 EVAL_CASES = [
@@ -863,38 +886,44 @@ EVAL_CASES = [
 ]
 
 
+# (K, D, the NaN's coordinate) of the non-finite cases: the register pass's
+# K=10, D=10 and the Gram pass's K=4, D=20, its NaN in the second of the
+# 8-row blocks the pass whitens (in fused_pmc_stats rows 8-10 of it must stay
+# finite)
+NONFINITE_SHAPES = [(10, 10, 3), (4, 20, 11)]
+
+
 def vb_nonfinite_case(device, report):
-    """fused_vb_estep, each pass, on particles of which one has a NaN
-    coordinate and one an infinite one: where its float64 plain version's
-    statistics are NaN, so are the kernel's.  The register pass's projection
-    skips A's lower triangle, whose FMAs add exact zeros for a finite x but
-    NaN (0 x inf) for this one."""
+    """fused_vb_estep, the plan's pass and the entry table, at
+    NONFINITE_SHAPES on particles of which one has a NaN coordinate and one
+    an infinite one (4 coordinates further on): where its float64 plain
+    version's statistics are NaN, so are the kernel's.  The register and
+    Gram passes' projections skip A's lower triangle, whose FMAs add exact
+    zeros for a finite x but NaN (0 x inf) for this one."""
     import torch
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
-    K, D, N = 10, 10, 4099
-    rng = np.random.default_rng(38)
-    A, m, const = vb_operands(make_params(random_mixture(rng, K, D, False), device))
-    xT = torch.tensor(rng.normal(0, 2, (D, N)), dtype=torch.float32, device=device)
-    xT[3, 17] = float("nan")
-    xT[7, 1000] = float("inf")
-    w = torch.ones((N,), dtype=torch.float32, device=device)
-    ref = k.plain_vb_estep(xT.double(), w.double(), A.double(), m.double(), const.double())
-    for variant in ("reg", "table"):
-        got = k.fused_vb_estep(xT, w, A, m, const, variant=variant)
-        for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
-            require(bool(torch.equal(torch.isnan(g), torch.isnan(r))),
-                    "fused_vb_estep %s: %s NaN where the plain version's is not, or "
-                    "the other way" % (variant, name))
-    print("  fused_vb_estep, a NaN and an infinite coordinate: NaN where the plain "
-          "version's statistics are (%d of %d entries), both passes"
-          % (sum(int(torch.isnan(r).sum()) for r in ref), sum(r.numel() for r in ref)))
-
-
-# (K, D, the NaN's coordinate) of pmc_stats_nonfinite_case: the register
-# pass's K=10, D=10 and the Gram pass's K=4, D=20, its NaN in the second of
-# the 8-row blocks the pass whitens (rows 8-10 of it must stay finite)
-NONFINITE_SHAPES = [(10, 10, 3), (4, 20, 11)]
+    N = 4099
+    for K, D, j_nan in NONFINITE_SHAPES:
+        rng = np.random.default_rng(38 + D - 10)
+        A, m, const = vb_operands(make_params(random_mixture(rng, K, D, False), device))
+        xT = torch.tensor(rng.normal(0, 2, (D, N)), dtype=torch.float32, device=device)
+        xT[j_nan, 17] = float("nan")
+        xT[j_nan + 4, 1000] = float("inf")
+        w = torch.ones((N,), dtype=torch.float32, device=device)
+        ref = k.plain_vb_estep(xT.double(), w.double(), A.double(), m.double(), const.double())
+        passes = (_build.dense_plan("fused_vb_estep", K, D)[0], "table")
+        for variant in passes:
+            got = k.fused_vb_estep(xT, w, A, m, const, variant=variant)
+            for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), got, ref):
+                require(bool(torch.equal(torch.isnan(g), torch.isnan(r))),
+                        "fused_vb_estep %s K=%d D=%d: %s NaN where the plain version's is "
+                        "not, or the other way" % (variant, K, D, name))
+        print("  fused_vb_estep K=%d D=%d, a NaN and an infinite coordinate: NaN where the "
+              "plain version's statistics are (%d of %d entries), passes %s"
+              % (K, D, sum(int(torch.isnan(r).sum()) for r in ref), sum(r.numel() for r in ref),
+                 "/".join(passes)))
 
 
 def pmc_stats_nonfinite_case(device, report):
@@ -999,10 +1028,11 @@ def step_weights_case(label, w, w_table, D, t_student):
 
 
 def gram_mixtures(case, device):
-    """``(ops, tops, ops64, tops64, tag)`` of a Gram case: a K-component
-    proposal (spread 0.5; a dead component at K // 2 where K > 1) and Kt
-    target components near its live ones (means + 0.1, covariances 1.2
-    times), weights 1 / Kt, dof 10 where Student-t, float32 and float64."""
+    """``(ops, tops, ops64, tops64, tag, params)`` of a Gram case: a
+    K-component proposal (spread 0.5; a dead component at K // 2 where K >
+    1; ``params`` its mixture parameters) and Kt target components near its
+    live ones (means + 0.1, covariances 1.2 times), weights 1 / Kt, dof 10
+    where Student-t, float32 and float64."""
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
@@ -1012,21 +1042,24 @@ def gram_mixtures(case, device):
     pick = live[np.arange(Kt) % len(live)]
     tarrs = (arrs[0][pick] + 0.1, arrs[1][pick] * 1.2, np.full(Kt, 1.0 / Kt, np.float32),
              np.full(Kt, 10.0, np.float32) if t_student else None)
-    ops = core._kernel_operands(make_params(arrs, device))
+    params = make_params(arrs, device)
+    ops = core._kernel_operands(params)
     tops = core._kernel_operands(make_params(tarrs, device))
     ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
     tops64 = k.MixtureOperands(tops.packed.double(), Kt, D, t_student)
     tag = "K=%d Kt=%d D=%d N=%d %s proposal, %s target, dof_stats %s" % (
         K, Kt, D, N, "t" if student else "gauss", "t" if t_student else "gauss", dof_stats)
-    return ops, tops, ops64, tops64, tag
+    return ops, tops, ops64, tops64, tag, params
 
 
 def gram_case(case, device, report):
-    """The Gram pass at one GRAM_CASES entry, both kernels elected there and
-    counted ``=gram``: fused_pmc_stats on fused_propose_logq's particles and
-    weights against its float64 plain version, a second run equal, a dead
-    component's statistics 0, the forced entry table within the same
-    tolerance; fused_is_pmc_step from one seed: x and latent the entry
+    """The Gram pass at one GRAM_CASES entry, the three kernels elected there
+    and counted ``=gram``: fused_pmc_stats on fused_propose_logq's particles
+    and weights against its float64 plain version, a second run equal, a
+    dead component's statistics 0, the forced entry table within the same
+    tolerance; to N = 2^20 fused_vb_estep on the same particles, a third of
+    their weights 0, and the proposal's VB operands, the same checks
+    (vb_stats_case); fused_is_pmc_step from one seed: x and latent the entry
     table's bit for bit, w as step_weights_case holds it and, to D = 64,
     fused_is_pmc_step_blocked's (whose first launch takes the same draw) bit
     for bit, past it within TOL["w"] of float64, its statistics against the
@@ -1037,9 +1070,9 @@ def gram_case(case, device, report):
     from pypmc_tpu_torch.ops import kernels as k
 
     K, Kt, D, N, student, t_student, dof_stats, seed = case
-    ops, tops, ops64, tops64, tag = gram_mixtures(case, device)
+    ops, tops, ops64, tops64, tag, params = gram_mixtures(case, device)
     print("case gram", tag)
-    for name in ("fused_pmc_stats", "fused_is_pmc_step"):
+    for name in _build._DENSE:
         require(_build.dense_plan(name, K, D, Kt)[0] == "gram",
                 "%s at K=%d, D=%d: the plan is %s" % (name, K, D, _build.dense_plan(name, K, D, Kt)))
     k.reset_launch_counts()
@@ -1047,6 +1080,13 @@ def gram_case(case, device, report):
     w = torch.exp(log_p - log_q)
     del log_q, log_p
     pmc_stats_case(xT, w, ops, ops64, dof_stats, K > 1, "gram fused_pmc_stats", report)
+    vb_runs = 0
+    if N <= N_FLAGSHIP:
+        # fused_vb_estep on the proposal's VB operands, a third of the
+        # weights 0
+        w[::3] = 0.0
+        vb_stats_case(xT, w, *vb_operands(params), "gram fused_vb_estep", report)
+        vb_runs = 2
     del xT, w
     seed_a = (seed, 2)
     xT, lat, w, got = k.fused_is_pmc_step(seed_a, ops, tops, N, dof_stats)
@@ -1079,7 +1119,8 @@ def gram_case(case, device, report):
                 % (differ, float((w - blocked[2]).abs().max())))
         del blocked
     counts = k.launch_counts()
-    for name, runs in (("fused_pmc_stats", 2), ("fused_is_pmc_step", 2)):
+    for name, runs in (("fused_pmc_stats", 2), ("fused_is_pmc_step", 2),
+                       ("fused_vb_estep", vb_runs)):
         require(counts["variant:%s=gram" % name] == runs, "gram %s: %d launches counted =gram, "
                 "%d expected" % (name, counts["variant:%s=gram" % name], runs))
     print("  gram: x and latent the entry table's bit for bit; w %s; two runs equal"
@@ -3264,25 +3305,32 @@ def phase_vb(device, report):
         require(bool(torch.isfinite(getattr(vb, f)).all()), "vb: %s not finite" % f)
     mix = vb.make_mixture()
     require(len(mix) >= 1, "vb: no component in the final mixture")
+    busy = profiled_iterations(vb)
+    del vb
+    torch.cuda.empty_cache()
+    return counts, float(np.median(ms[1:])), busy
 
-    # device busy share over two further iterations
+
+def profiled_iterations(vb, label="profiled iteration", n=2):
+    """``n`` further iterations of ``vb`` under torch.profiler: prints the
+    device and host ms an iteration, the busy share, the launches and the
+    largest device rows; returns the busy percentage."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vb._update_with_bound()
-        vb._update_with_bound()
+        for _ in range(n):
+            vb._update_with_bound()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / 2
-    rows = device_rows(prof, 2)
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = device_rows(prof, n)
     busy = sum(r[0] for r in rows)
-    print("  profiled iteration: device %.3f ms of %.3f ms host (%.1f%% busy), %d launches"
-          % (busy, host_ms, 100 * busy / host_ms, sum(r[1] for r in rows)))
+    print("  %s: device %.3f ms of %.3f ms host (%.1f%% busy), %d launches"
+          % (label, busy, host_ms, 100 * busy / host_ms, sum(r[1] for r in rows)))
     for t, c, key in rows[:6]:
         print("    %8.3f ms  %5.0f x  %s" % (t, c, key[:90]))
-    del vb
-    torch.cuda.empty_cache()
-    return counts, float(np.median(ms[1:])), 100 * busy / host_ms
+    return 100 * busy / host_ms
 
 
 # examples/variational.py's mixture at sizes that take the one-pass E-step:
@@ -4416,6 +4464,26 @@ def wide_pmc_problems(device):
             ("wide_pmc (b) D=%d K=%d t, Kt=2" % (Ds, Ks), sparams, small)]
 
 
+def wide_is_sampler(device, params, target):
+    """``(proposal, sampler)`` of phase wide_pmc (c): an
+    ImportanceSampler (rng 13) of wide_pmc_problems (a)'s proposal on a
+    per-point callable target, the log-density of (a)'s target."""
+    import torch
+    from pypmc_tpu_torch.density.mixture import MixtureDensity
+    from pypmc_tpu_torch.sampler import ImportanceSampler
+
+    D = WIDE_PMC["D"]
+    proposal = MixtureDensity.from_params(params)
+    mu, prec = target.means[0], torch.linalg.inv(target.cov[0])
+    log_norm = -0.5 * (D * math.log(2 * math.pi) + float(torch.logdet(target.cov[0])))
+
+    def log_target(x):
+        d = x - mu.to(x.dtype)
+        return log_norm - 0.5 * (d @ (prec.to(x.dtype) @ d))
+
+    return proposal, ImportanceSampler(log_target, proposal, rng=13, device=device)
+
+
 def phase_wide_pmc(device, report):
     """PMC past D = 16 through the port's entry points, where
     fused_is_pmc_step and fused_pmc_stats take the Gram pass: (a) and (b)
@@ -4431,11 +4499,9 @@ def phase_wide_pmc(device, report):
     the launch counts of (a)-(c)."""
     import torch
 
-    from pypmc_tpu_torch.density.mixture import MixtureDensity
     from pypmc_tpu_torch.mix_adapt import PMC
     from pypmc_tpu_torch.mix_adapt.pmc import pmc_update
     from pypmc_tpu_torch.ops import kernels as k
-    from pypmc_tpu_torch.sampler import ImportanceSampler
 
     totals = {}
 
@@ -4457,17 +4523,9 @@ def phase_wide_pmc(device, report):
         torch.cuda.empty_cache()
 
     # (c) a generic target: importance sampling, then one PMC update
-    label, params, target = problems[0]
+    _, params, target = problems[0]
+    proposal, sampler = wide_is_sampler(device, params, target)
     D, n = WIDE_PMC["D"], WIDE_PMC["n"]
-    proposal = MixtureDensity.from_params(params)
-    mu, prec = target.means[0], torch.linalg.inv(target.cov[0])
-    log_norm = -0.5 * (D * math.log(2 * math.pi) + float(torch.logdet(target.cov[0])))
-
-    def log_target(x):
-        d = x - mu.to(x.dtype)
-        return log_norm - 0.5 * (d @ (prec.to(x.dtype) @ d))
-
-    sampler = ImportanceSampler(log_target, proposal, rng=13, device=device)
     ms = []
     for i in range(3):
         sampler.clear()
@@ -4497,6 +4555,82 @@ def phase_wide_pmc(device, report):
           % (D, WIDE_PMC["dof"], n, np.round(ms, 3).tolist(),
              json.dumps({c: v for c, v in counts.items() if v})))
     del sampler, pmc, samples_T, weights
+    torch.cuda.empty_cache()
+    return totals
+
+
+# the wide VB path past D = 16, where fused_vb_estep takes the Gram pass
+# (K D <= 128 from 1024 points, the JAX rule's one-pass reach): (a)
+# benchmarks/vb_step.py --dim 20 --components 6's data and (b) its --dim 40
+# --components 3 (2^22 points, 10 iterations, prune off); (c) the pipeline's
+# is1_vb2 at D=128: phase wide_pmc (c)'s importance samples and weights
+# (2^20, one Student-t proposal) into GaussianInference seeded by that
+# proposal, 5 iterations
+WIDE_VB = dict(n=1 << 22, iterations=10, shapes=((6, 20), (3, 40)), is_iterations=5)
+
+
+def phase_wide_vb(device, report):
+    """GaussianInference(...).run past D = 16 through its normal entry point,
+    float32 on the card, (a)-(c) of WIDE_VB: each fit's first iteration held
+    to the float64 plain version on the kernel's operands (vb_reference),
+    every fused_vb_estep launch of its run counted =gram and no plain:
+    route, the kernel's operands held in float32 (variational
+    _held_operands), host and device ms an iteration, the busy share and
+    the launches.  Returns the launch counts of (a)-(c), (c)'s importance
+    sampling run included."""
+    import torch
+    from pypmc_tpu_torch.mix_adapt import GaussianInference
+    from pypmc_tpu_torch.ops import kernels as k
+
+    totals = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] = totals.get(name, 0) + c
+
+    def fit(label, vb, iterations):
+        require(k._elect("fused_vb_estep", vb.K, vb.dim, None) == "gram",
+                "%s: the plan at K=%d, D=%d is not the Gram pass" % (label, vb.K, vb.dim))
+        vb_reference(vb, report)
+        _, record, _, counts = instrumented_run(vb, label, iterations=iterations, prune=0)
+        gram, launched = counts["variant:fused_vb_estep=gram"], counts["fused_vb_estep"]
+        plain = {c: v for c, v in counts.items() if c.startswith("plain:") and v}
+        require(gram == launched == len(record) and not plain,
+                "%s: %d of %d fused_vb_estep launches took the Gram pass; plain routes %s"
+                % (label, gram, launched, plain))
+        held = vb._held()
+        require(held is not None and all(v.dtype == torch.float32 for v in held),
+                "%s: the E-step's operands are not held in float32" % label)
+        ms = [r[0] * 1e3 for r in record]
+        print("  %s: iteration ms (host clock): first %.3f, median of the rest %.3f"
+              % (label, ms[0], float(np.median(ms[1:] or ms))))
+        profiled_iterations(vb, label + ", profiled iteration")
+        add(counts)
+
+    for tag, (K, D) in zip("ab", WIDE_VB["shapes"]):
+        data, w = vb_problem(device, n=WIDE_VB["n"], K=K, D=D)
+        vb = GaussianInference(data, components=K, weights=w, nu=D + 1.0)
+        del data, w
+        fit("wide_vb (%s) vb_step.py --dim %d --components %d, N=%d" % (tag, D, K, WIDE_VB["n"]),
+            vb, WIDE_VB["iterations"])
+        del vb
+        torch.cuda.empty_cache()
+
+    # (c) importance samples of one Student-t at D=128 (wide_pmc (c)), then VB
+    # seeded by the proposal, as the pipeline's is1_vb2
+    _, params, target = wide_pmc_problems(device)[0]
+    proposal, sampler = wide_is_sampler(device, params, target)
+    k.reset_launch_counts()
+    sampler.run(WIDE_PMC["n"], to_host=False)
+    sync(device)
+    add(k.launch_counts())
+    samples_T, weights = sampler.device_runs[0]
+    require(bool(torch.isfinite(weights).all()), "wide_vb (c): the run's weights are not finite")
+    vb = GaussianInference(samples_T.T, initial_guess=proposal, weights=weights)
+    del sampler, samples_T, weights
+    fit("wide_vb (c) is1_vb2 D=%d K=1, N=%d" % (WIDE_PMC["D"], WIDE_PMC["n"]), vb,
+        WIDE_VB["is_iterations"])
+    del vb
     torch.cuda.empty_cache()
     return totals
 
@@ -5977,7 +6111,7 @@ def phase_times(device, report):
                                      times[(name, n, "cuda")], times[(name, n, "table")],
                                      bound(name, (10, 2, 10, n))[1]))
     torch.cuda.empty_cache()
-    # rows 7-8 past D = 16: the Gram pass beside the entry table
+    # rows 7-9 past D = 16: the Gram pass beside the entry table
     for shape in GRAM_TIME_SHAPES:
         times.update(table_shape_ms(device, shape))
         torch.cuda.empty_cache()
@@ -6777,10 +6911,9 @@ def drawn_shape_ms(device, shape):
 
 # the shapes (K, Kt, D, N) of the library yardsticks of rows 1-3 and 6 at
 # their first shapes (the flagship's K=10, D=10, N=2^22; the D=40
-# pipeline's K=32 at 2^20) and of rows 7-8's entry-table pass at K=1,
-# D=128, where the JAX rule admits them past the register pass's D=16
+# pipeline's K=32 at 2^20)
 LIBRARY_SHAPES = [(10, 2, 10, N_PLAIN_MAX), (32, 0, 40, N_FLAGSHIP)]
-# rows 7-8 past D = 16, timed at every GRAM_SHAPES entry: a one-component
+# rows 7-9 past D = 16, timed at every GRAM_SHAPES entry: a one-component
 # target, 2^20 particles
 GRAM_TIME_SHAPES = [(K, 1, D, N_FLAGSHIP) for K, D in GRAM_SHAPES]
 
@@ -6836,31 +6969,43 @@ def library_shape_ms(device, shape):
 
 
 def table_shape_ms(device, shape):
-    """``{(kernel, shape, route): ms}`` of fused_pmc_stats and
-    fused_is_pmc_step at ``shape`` (K, Kt, D, N), a K-component Student-t
-    proposal and a Kt-component Gaussian target near it (gram_mixtures):
-    "cuda" the elected pass (the Gram pass past D = 16), "table" the entry
-    table forced, "plain" the plain version, CUDA events in turns (cuda,
-    table, plain, plain, table, cuda; each the mean of its two turns); the
-    elected statistics held to the float64 plain version first."""
+    """``{(kernel, shape, route): ms}`` of fused_pmc_stats, fused_is_pmc_step
+    and fused_vb_estep at ``shape`` (K, Kt, D, N), a K-component Student-t
+    proposal and a Kt-component Gaussian target near it (gram_mixtures;
+    fused_vb_estep on the proposal's vb_operands, the same particles and
+    weights): "cuda" the elected pass (the Gram pass past D = 16), "table"
+    the entry table forced, "plain" the plain version, CUDA events in turns
+    (cuda, table, plain, plain, table, cuda; each the mean of its two
+    turns); the elected statistics held to the float64 plain version
+    first."""
     import torch
     from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     K, Kt, D, N = shape
-    ops, tops, ops64, _, _ = gram_mixtures((K, Kt, D, N, True, False, True, K + D), device)
+    ops, tops, ops64, _, _, params = gram_mixtures((K, Kt, D, N, True, False, True, K + D),
+                                                   device)
     xT, _, log_q, log_p = k.fused_propose_logq((7, 7), ops, N, tops)
     w = torch.exp(log_p - log_q)
     del log_q, log_p
     check_stats("fused_pmc_stats K=%d D=%d" % (K, D), k.fused_pmc_stats(xT, w, ops, True),
                 k.plain_pmc_stats(xT.double(), w.double(), ops64, True), N, [])
+    A, m, const = vb_operands(params)
+    ref = k.plain_vb_estep(xT.double(), w.double(), A.double(), m.double(), const.double())
+    for name, g, r in zip(("N_comp", "sd", "g", "log_q_Z"), k.fused_vb_estep(xT, w, A, m, const),
+                          ref):
+        compare("fused_vb_estep K=%d D=%d %s/N" % (K, D, name), g / N, r / N, "stats", [])
+    del ref
     calls = {"fused_pmc_stats": (lambda i: k.fused_pmc_stats(xT, w, ops, True),
                                  lambda i: k.fused_pmc_stats(xT, w, ops, True, variant="table"),
                                  lambda i: k.plain_pmc_stats(xT, w, ops, True)),
              "fused_is_pmc_step": (
                  lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True),
                  lambda i: k.fused_is_pmc_step((i, 2), ops, tops, N, True, variant="table"),
-                 lambda i: k.plain_is_pmc_step((i, 2), ops, tops, N, True))}
+                 lambda i: k.plain_is_pmc_step((i, 2), ops, tops, N, True)),
+             "fused_vb_estep": (lambda i: k.fused_vb_estep(xT, w, A, m, const),
+                                lambda i: k.fused_vb_estep(xT, w, A, m, const, variant="table"),
+                                lambda i: k.plain_vb_estep(xT, w, A, m, const))}
     out = {}
     for name, (kernel, table, plain) in calls.items():
         ms = {"cuda": [], "table": [], "plain": []}
@@ -7159,15 +7304,18 @@ DRAW_PLAN_CODES = ("looped", "rec", "tiled")
 DENSE_PASSES = ("table", "reg", "gram")
 
 
-GRAM_INSTANTIATIONS = ["gram_stats_kernel<%s, %d>" % (step, minb)
-                       for step in ("false", "true") for minb in (1, 2)]
+# the Gram pass's modes (csrc/gram_stats.cuh DenseMode) by their codes
+GRAM_MODES = ("step", "vb", "stats")
+GRAM_INSTANTIATIONS = ["gram_stats_kernel<%s, %d>" % (mode, minb)
+                       for mode in GRAM_MODES for minb in (1, 2)]
 
 
 def gram_kernels(log):
     """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of the
-    Gram pass's four instantiations (fused_pmc_stats', STEP false;
-    fused_is_pmc_step's, true; each for one block an SM and, capped at 128
-    registers, two) in a ``ptxas -v`` log; fails unless all are there."""
+    Gram pass's six instantiations (fused_is_pmc_step's step mode,
+    fused_vb_estep's VB mode, fused_pmc_stats' statistics mode; each for
+    one block an SM and, capped at 128 registers, two) in a ``ptxas -v``
+    log; fails unless all are there."""
     out = []
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
@@ -7176,10 +7324,9 @@ def gram_kernels(log):
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
         stack = re.search(r"(\d+) bytes stack frame", part)
-        args = name.split("17gram_stats_kernelI", 1)[1]
-        minb = re.match(r"Lb[01]ELi(\d+)E", args)
-        out.append(("gram_stats_kernel<%s, %s>" % ("true" if args.startswith("Lb1") else "false",
-                                                   minb.group(1) if minb else "?"),
+        args = re.match(r"Li(\d+)ELi(\d+)E", name.split("17gram_stats_kernelI", 1)[1])
+        out.append(("gram_stats_kernel<%s, %s>" % (GRAM_MODES[int(args.group(1))], args.group(2))
+                    if args else name,
                     int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
                     int(stack.group(1)) if stack else 0))
     require(sorted(n for n, _, _, _ in out) == sorted(GRAM_INSTANTIATIONS),
@@ -7352,15 +7499,17 @@ def phase_build():
                                                  per_sm * _build.THREADS // 32, plan[2], plan[4]))
         require(plan[0] == "reg" and per_sm >= 3,
                 "%s at K=10, D=10: the %s pass, %d blocks an SM" % (kernel, plan[0], per_sm))
-    # the Gram pass of fused_pmc_stats and fused_is_pmc_step: registers,
-    # spills (none), and blocks an SM at GRAM_SHAPES
+    # the Gram pass of fused_pmc_stats, fused_is_pmc_step and
+    # fused_vb_estep: registers, spills (none), and blocks an SM at
+    # GRAM_SHAPES
     for name, regs, spilled, stack in gram_kernels(log):
         print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
               % (name, regs, spilled, stack))
         require(spilled == 0, "%s spills %d bytes" % (name, spilled))
     for K, D in GRAM_SHAPES:
         for kernel, per_sm in (("fused_pmc_stats", lib.pmc_pmc_stats_per_sm(K, D)),
-                               ("fused_is_pmc_step", lib.pmc_is_pmc_step_per_sm(K, 2, D))):
+                               ("fused_is_pmc_step", lib.pmc_is_pmc_step_per_sm(K, 2, D)),
+                               ("fused_vb_estep", lib.pmc_vb_estep_per_sm(K, D))):
             plan = _build.dense_plan(kernel, K, D, 2)
             print("  %s K=%d D=%d: the %s pass, %d blocks of %d threads an SM (%d warps), %d "
                   "slices of %d 8 x 8 blocks, %d B of shared memory a block"
@@ -7530,6 +7679,8 @@ def main():
     wide_is_counts = phase_wide_is(device, report)
     phase("wide_pmc")
     wide_pmc_counts = phase_wide_pmc(device, report)
+    phase("wide_vb")
+    wide_vb_counts = phase_wide_vb(device, report)
     phase("mcmc")
     mcmc_counts, _ = phase_mcmc(device)
     torch.cuda.empty_cache()
@@ -7544,7 +7695,8 @@ def main():
     # every path was driven with the counts set to 0 just before it
     counts = {n: sum(c.get(n, 0) for c in (counts, scan_counts, vb_counts, gate_counts,
                                            blocked_counts, route_counts, wide_counts,
-                                           wide_is_counts, wide_pmc_counts, mcmc_counts,
+                                           wide_is_counts, wide_pmc_counts, wide_vb_counts,
+                                           mcmc_counts,
                                            pipe_counts,
                                            parallel_counts,
                                            example_counts))
@@ -7611,7 +7763,7 @@ def main():
             entry["exps"] = exps
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
         shapes += TILED_SHAPES if kname in _build.TILED else []
-        shapes += GRAM_TIME_SHAPES if kname in _build._GRAM else []
+        shapes += GRAM_TIME_SHAPES if kname in _build._DENSE else []
         extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms",
                  "bucket": "bucket_device_ms", "product": "product_device_ms",
                  "table": "table_ms"}
@@ -7624,7 +7776,7 @@ def main():
         if kname in _build.TILED:
             entry["tiled_d_min"] = (_build.TRANSFORM_TILED_D_MIN if kname == "fused_transform"
                                     else _build.TILED_D_MIN)
-        if kname in _build._GRAM:
+        if kname in _build._DENSE:
             # past D = 16 the Gram pass: its launches on the main paths
             entry["launches_gram"] = counts["variant:%s=gram" % kname]
         if kname == "fused_transform":
@@ -7684,7 +7836,8 @@ def main():
           "elected kernel's, tiled_ms the tiled kernel's, "
           "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
           "called by the port), fused_maha's tiled_ms also at K=32, D=40, 2^20 beside its record "
-          "kernel; fused_pmc_stats and fused_is_pmc_step at GRAM_TIME_SHAPES (K D <= 128, "
+          "kernel; fused_pmc_stats, fused_is_pmc_step and fused_vb_estep at GRAM_TIME_SHAPES "
+          "(K D <= 128, "
           "D = 17-128, a one-component target, N=2^20): ms the Gram pass's, table_ms the "
           "entry table's, launches_gram the Gram pass's launches; "
           "the K-blocked statistics kernels' first launch, launch_ms, beside its "
@@ -7767,7 +7920,7 @@ if __name__ == "__main__":
                  for sh in LIBRARY_SHAPES}), flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--gram-times"]:
-            # phase build, then rows 7-8 at GRAM_TIME_SHAPES (the Gram pass,
+            # phase build, then rows 7-9 at GRAM_TIME_SHAPES (the Gram pass,
             # the entry table, the plain version)
             import torch
 

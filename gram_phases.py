@@ -4,13 +4,16 @@ spends its time, on one GPU.
 
     python3 gram_phases.py            # each phase's cost
     python3 gram_phases.py --ablate   # the whitening's warp pairing
+    python3 gram_phases.py --vb       # either, of fused_vb_estep's VB mode
 
-Builds ``pmc_stats.cu`` under ``build/gram_phases/`` once for each variant
-(one ``nvcc`` each, all at once), each with parts of the pass left out by
-the kernel's ``PMC_GRAM_OFF`` mask (``GramOff`` in gram_stats.cuh; 0, the
-whole pass, in the library), and times ``fused_pmc_stats``' Gram pass on its
-inputs at 2^20 particles (CUDA events).  The outputs of a variant with a
-part left out are not checked (they are wrong by design).
+Builds ``pmc_stats.cu`` (with ``--vb``: ``vb_estep.cu``) under
+``build/gram_phases/`` once for each variant (one ``nvcc`` each, all at
+once), each with parts of the pass left out by the kernel's
+``PMC_GRAM_OFF`` mask (``GramOff`` in gram_stats.cuh; 0, the whole pass, in
+the library), and times ``fused_pmc_stats``' Gram pass (``fused_vb_estep``'s
+on the proposal's VB operands, ``chip_smoke.vb_operands``) on its inputs at
+2^20 particles (CUDA events).  The outputs of a variant with a part left
+out are not checked (they are wrong by design).
 
 Phases (A the whitening, B the per-particle densities, C the weighted SYRK,
 F the slices' join and the float64 flush, S the scalar sums, X the particle
@@ -53,9 +56,9 @@ def variants(ablate):
     return out
 
 
-def build(masks):
-    """``{variant: the loaded library}``: pmc_stats.cu with each mask, one
-    nvcc a variant, all at once."""
+def build(masks, source):
+    """``{variant: the kernel's launcher}``: csrc/<source>.cu (pmc_stats or
+    vb_estep) with each mask, one nvcc a variant, all at once."""
     from pypmc_tpu_torch.ops import _build
 
     if OUT.exists():
@@ -64,14 +67,14 @@ def build(masks):
     paths = {name: OUT / ("lib_%d.so" % mask) for name, mask in masks.items()}
     log, rc = _build._run_all(
         [[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-DPMC_GRAM_OFF=%d" % masks[name],
-          "-o", str(path), str(_build.CSRC / "pmc_stats.cu")]
+          "-o", str(path), str(_build.CSRC / (source + ".cu"))]
          for name, path in paths.items()])
     if rc != 0:
         raise SystemExit("gram_phases: nvcc failed:\n%s" % log[-4000:])
-    argtypes = _build.signatures()["pmc_fused_pmc_stats"]
+    argtypes = _build.signatures()["pmc_fused_" + source]
     libs = {}
     for name, path in paths.items():
-        fn = ctypes.CDLL(str(path)).pmc_fused_pmc_stats
+        fn = getattr(ctypes.CDLL(str(path)), "pmc_fused_" + source)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = fn
     return libs
@@ -81,8 +84,8 @@ def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    ablate = argv == ["--ablate"]
-    if argv and not ablate:
+    ablate, vb = "--ablate" in argv, "--vb" in argv
+    if set(argv) - {"--ablate", "--vb"}:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -95,30 +98,35 @@ def main(argv=None):
 
     print(c.card_line())
     masks = variants(ablate)
-    libs = build(masks)
+    libs = build(masks, "vb_estep" if vb else "pmc_stats")
     lib = _build.load()
     device = torch.device("cuda", 0)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     stream = torch.cuda.current_stream(device).cuda_stream
     for K, D in c.GRAM_SHAPES if ablate else SHAPES:
-        ops, tops, _, _, _ = c.gram_mixtures((K, 1, D, N, True, False, True, K + D), device)
+        ops, tops, _, _, _, params = c.gram_mixtures((K, 1, D, N, True, False, True, K + D),
+                                                     device)
         xT, _, log_q, log_p = k.fused_propose_logq((7, 7), ops, N, tops)
         w = torch.exp(log_p - log_q)
-        per_sm = lib.pmc_pmc_stats_per_sm(K, D)
+        per_sm = lib.pmc_vb_estep_per_sm(K, D) if vb else lib.pmc_pmc_stats_per_sm(K, D)
         n_blocks = min(-(-N // 64), per_sm * n_sm)
         E = k._entries(K, D)
         partial = torch.empty((n_blocks, E), dtype=torch.float64, device=device)
-        flat = torch.empty((E,), dtype=torch.float32, device=device)
+        flat = torch.empty((E,), dtype=torch.float64 if vb else torch.float32, device=device)
+        operands = (torch.cat([v.reshape(-1) for v in c.vb_operands(params)]) if vb
+                    else ops.packed)
+        # fused_vb_estep's launcher takes no student_t and dof_stats
+        flags = () if vb else (1, 1)
 
         def call(fn):
-            err = fn(xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(), partial.data_ptr(),
-                     flat.data_ptr(), N, K, D, 1, 1, 2, n_blocks, stream)
+            err = fn(xT.data_ptr(), w.data_ptr(), operands.data_ptr(), partial.data_ptr(),
+                     flat.data_ptr(), N, K, D, *flags, 2, n_blocks, stream)
             if err != 0:
                 raise SystemExit("gram_phases: CUDA error %d" % err)
 
         timed = lambda name: c.cuda_ms(lambda i, fn=libs[name]: call(fn), reps=10)
-        head = ("K=%d D=%d N=%d, %d blocks of 256 threads (%d an SM)"
-                % (K, D, N, n_blocks, per_sm))
+        head = ("%s K=%d D=%d N=%d, %d blocks of 256 threads (%d an SM)"
+                % ("fused_vb_estep" if vb else "fused_pmc_stats", K, D, N, n_blocks, per_sm))
         if ablate:
             parts = []
             for name in list(masks)[1:]:

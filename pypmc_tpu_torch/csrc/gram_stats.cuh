@@ -1,8 +1,9 @@
 // The Gram statistics pass: the statistics of stats.cuh for fused_pmc_stats
-// (pmc_stats.cu) and fused_is_pmc_step (is_pmc_step.cu) from D = 17 (past the
-// register pass of reg_stats.cuh) to 128 where K D <= 128, the JAX rule's
-// reach for these two kernels (K D <= 128, from 1024 particles).
-// fused_vb_estep keeps the entry table there.
+// (pmc_stats.cu), fused_is_pmc_step (is_pmc_step.cu) and fused_vb_estep
+// (vb_estep.cu) from D = 17 (past the register pass of reg_stats.cuh) to 128
+// where K D <= 128, the JAX rule's reach for these three kernels (K D <= 128,
+// from 1024 particles).  One kernel in three modes (DenseMode): the
+// statistics, the step's (w formed from its draw's log q and log p) and VB's.
 //
 // Bound on the H100: FP32 FMAs.  A particle takes K D (D + 1) / 2 FMAs of
 // whitening and as many of the product statistics against D + 1 floats
@@ -12,6 +13,8 @@
 // differences in 256 floats of local memory at DMAX 128) and summed each of
 // the K (3 + D + D (D + 1) / 2) entries as a * b * c over a tile with three
 // 4-byte shared loads an FMA; at K = 1, D = 128 it ran at 2% of its bound.
+// VB's work is the same: its projection A_k (x - m_k) in place of the
+// whitening, a plain softmax in place of the mixture's log-pdfs.
 //
 // Design.  A block of kGramThreads (256) walks tiles of kGramP (64)
 // particles, grid-stride, one wave of the blocks the occupancy API fits,
@@ -40,8 +43,12 @@
 //      of four components share an instruction; log q by the weighted
 //      log-sum-exp, k ascending, on all four (the K log-pdfs gathered by
 //      shuffles); the step forms w = exp(log p - log q) from its draw's log
-//      q and log p and writes it.  Rows of w rho_k, c_k, t1_k, w, w^2, w log
-//      w to shared memory.
+//      q and log p and writes it.  VB: log rho_k = c_k - maha_k / 2, the
+//      plain log-sum-exp of them, r_k = exp(log rho_k - lse), w r_k as both
+//      w rho_k and c_k (gamma 1) and t1_k = w r_k (log rho_k - lse), the log
+//      taken as it stands (an underflowed r_k gives 0, not 0 x -inf): one
+//      exp a (particle, component) pair besides the log-sum-exp's.  Rows of
+//      w rho_k, c_k, t1_k, w, w^2, w log w to shared memory.
 //   C. the product statistics as a weighted SYRK: each thread owns one 8 x 8
 //      block (k, bi >= bj) of component k's lower triangle of g_k = Delta_k
 //      diag(c_k) Delta_k^T, and of the S column slices of the tile
@@ -54,6 +61,14 @@
 //      past 8 slices) to add into the accumulators.  Threads 3K + 3 sum the tile's scalar rows
 //      (s0, s0c, t1, sum w, sum w^2, sum w log w), four interleaved partial
 //      sums each.
+// VB's operands are A (K, D, D) | m (K, D) | c (K) (vb_estep.cu), A_k upper
+// triangular: Delta_i = sum_{j >= i} A_ij (x_j - m_j).  The pass reverses
+// the coordinates as it stages them (A'_k = J A_k J, lower triangular, into
+// Ut; m'_j = m_{D-1-j}; xT's row D - 1 - j into the tile's row j), so that
+// phase A runs as for U, reads no entry of A below its diagonal and a
+// non-finite x_j reaches Delta_i only for i <= j; the block's row is written
+// with sd's and g's entries reversed back (g_ij from the reversed Gram's
+// entry (D-1-j, D-1-i), its lower triangle).
 // Each tile's sums are float32 over its 64 columns, added into float64
 // accumulators of the block in shared memory, one thread an entry, laid out
 // block-minor (entry (r, q) of all the 8 x 8 blocks together), so that a
@@ -169,20 +184,32 @@ inline int gram_min_blocks(int K, int D) {
   return GramLayout{K, D}.smem() <= kHalfSmem ? 2 : 1;
 }
 
-// One block of the pass.  STEP (fused_is_pmc_step): w = exp(log_p - log_q)
-// from the draw's outputs, written to wts; else (fused_pmc_stats) w read
-// from wts.  mix: the packed proposal (MixLayout).  MINB: the blocks an SM
-// it is built for (gram_min_blocks).
-template <bool STEP, int MINB>
+// the dense statistics kernels' modes, of the Gram pass and of reg_stats.cuh's
+// register kernel (pmc_dense_plan's codes): the step draws its particles and
+// evaluates the target; VB loads weighted particles and projects them on its
+// operands; the statistics mode loads weighted particles and evaluates them
+// as the step does
+enum DenseMode : int { kDenseStep = 0, kDenseVb = 1, kDenseStats = 2 };
+
+// One block of the pass.  MODE kDenseStep (fused_is_pmc_step): w = exp(log_p
+// - log_q) from the draw's outputs, written to wts; kDenseStats
+// (fused_pmc_stats): w read from wts, mix the packed proposal (MixLayout);
+// kDenseVb (fused_vb_estep): w read from wts, mix VB's operands, the
+// coordinates reversed.  MINB: the blocks an SM it is built for
+// (gram_min_blocks).
+template <int MODE, int MINB>
 __global__ void __launch_bounds__(kGramThreads, MINB)
 gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
                   const float* __restrict__ log_q, const float* __restrict__ log_p,
                   const float* __restrict__ mix, double* __restrict__ partial, long long N,
                   int K, int D, int student_t, int dof_stats) {
+  constexpr bool STEP = MODE == kDenseStep, VB = MODE == kDenseVb;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const GramLayout G{K, D};
   const MixLayout L{K, D};
+  // VB: A (K, D, D) | m (K, D) | c (K)
+  const float* vb_m = mix + static_cast<long long>(K) * D * D;
   const int Dp = G.Dp(), R = G.R(), nb = G.nb(), ds = G.dstride(), PC = G.PC(), E = G.E();
   float* Ut = smem;
   float* Ms = smem + G.mu();
@@ -196,27 +223,38 @@ gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   const int t = threadIdx.x;
   const bool st = student_t != 0;
 
+  // U_k's lower triangle (VB: A'_k = J A_k J's, A_k's upper triangle) and
+  // the means (VB: m reversed)
   for (int idx = t; idx < D * R; idx += kGramThreads) {
     const int j = idx / R, r = idx - j * R, k = r / Dp, i = r - k * Dp;
-    Ut[idx] = i < D && j <= i ? __ldg(mix + L.U() + (static_cast<long long>(k) * D + i) * D + j)
-                              : 0.0f;
+    float u = 0.0f;
+    if (i < D && j <= i) {
+      if constexpr (VB) {
+        u = __ldg(mix + (static_cast<long long>(k) * D + D - 1 - i) * D + D - 1 - j);
+      } else {
+        u = __ldg(mix + L.U() + (static_cast<long long>(k) * D + i) * D + j);
+      }
+    }
+    Ut[idx] = u;
   }
   for (int r = t; r < R; r += kGramThreads) {
     const int k = r / Dp, j = r - k * Dp;
-    Ms[r] = j < D ? __ldg(mix + L.mu() + k * D + j) : 0.0f;
+    Ms[r] = j < D ? __ldg(VB ? vb_m + k * D + D - 1 - j : mix + L.mu() + k * D + j) : 0.0f;
   }
   for (int e = t; e < G.acc_doubles(); e += kGramThreads) accG[e] = 0.0;
 
   const long long n_tiles = (N + kGramP - 1) / kGramP;
   // the tile's particles, zero past N; particle pg + 16 q at column 4 pg +
-  // q, so that phase A reads a thread's four particles by one LDS.128
+  // q, so that phase A reads a thread's four particles by one LDS.128 (VB:
+  // xT's row D - 1 - j into row j)
   const auto stage = [&](long long tile) {
     const long long n0 = tile * kGramP;
     for (int idx = t; idx < D * kGramP; idx += kGramThreads) {
       const int j = idx / kGramP, p = idx % kGramP;
       const bool valid = n0 + p < N;
+      const int row = VB ? D - 1 - j : j;
       cp_async_f32(Xs + j * kGramP + 4 * (p % 16) + p / 16,
-                   valid ? xT + static_cast<long long>(j) * N + n0 + p : xT, valid);
+                   valid ? xT + static_cast<long long>(row) * N + n0 + p : xT, valid);
     }
     cp_async_commit();
   };
@@ -364,18 +402,25 @@ gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
           }
         }
       }
+      // the component log-pdfs (VB: log rho_k)
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
         const int k = 4 * m + part;
-        if (k < K)
-          ind[m] = component_logpdf(maha[m], __ldg(mix + L.ln() + k), __ldg(mix + L.dof() + k),
-                                    D, st);
+        if (k < K) {
+          if constexpr (VB) {
+            ind[m] = __ldg(vb_m + K * D + k) - 0.5f * maha[m];
+          } else {
+            ind[m] = component_logpdf(maha[m], __ldg(mix + L.ln() + k),
+                                      __ldg(mix + L.dof() + k), D, st);
+          }
+        }
       }
       WeightedLse lse;
 #pragma unroll
       for (int k = 0; k < kGramKMax; ++k) {
         if (k < K)
-          lse.add(__shfl_sync(0xffffffffu, ind[k >> 2], quad | (k & 3)), __ldg(mix + L.w() + k));
+          lse.add(__shfl_sync(0xffffffffu, ind[k >> 2], quad | (k & 3)),
+                  VB ? 1.0f : __ldg(mix + L.w() + k));
       }
       float w = 0.0f;   // 0 past N
       if (n < N) {
@@ -391,19 +436,28 @@ gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
       for (int m = 0; m < kM; ++m) {
         const int k = 4 * m + part;
         if (k < K) {
-          const float wk = __ldg(mix + L.w() + k);
-          const float rho = wk > 0.0f ? expf(ind[m] - lq) * wk : 0.0f;
-          const float wrho = rho * w;
-          float gamma = 1.0f, t1 = 0.0f;
-          if (st) {
-            const float nu = __ldg(mix + L.dof() + k);
-            gamma = (nu + static_cast<float>(D)) / (nu + maha[m]);
-            if (dof_stats)
-              t1 = wrho * (logf(0.5f * (maha[m] + nu)) - __ldg(mix + L.psi() + k) + gamma);
+          if constexpr (VB) {
+            // r_k, and its log as it stands
+            const float log_r = ind[m] - lq;
+            const float wr = w * expf(log_r);
+            rows[k * kGramP + p] = wr;
+            rows[(K + k) * kGramP + p] = wr;
+            rows[(2 * K + k) * kGramP + p] = wr * log_r;
+          } else {
+            const float wk = __ldg(mix + L.w() + k);
+            const float rho = wk > 0.0f ? expf(ind[m] - lq) * wk : 0.0f;
+            const float wrho = rho * w;
+            float gamma = 1.0f, t1 = 0.0f;
+            if (st) {
+              const float nu = __ldg(mix + L.dof() + k);
+              gamma = (nu + static_cast<float>(D)) / (nu + maha[m]);
+              if (dof_stats)
+                t1 = wrho * (logf(0.5f * (maha[m] + nu)) - __ldg(mix + L.psi() + k) + gamma);
+            }
+            rows[k * kGramP + p] = wrho;
+            rows[(K + k) * kGramP + p] = wrho * gamma;
+            rows[(2 * K + k) * kGramP + p] = t1;
           }
-          rows[k * kGramP + p] = wrho;
-          rows[(K + k) * kGramP + p] = wrho * gamma;
-          rows[(2 * K + k) * kGramP + p] = t1;
         }
       }
       if (part == 0) {
@@ -513,14 +567,21 @@ gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
       if (r < 3) {
         v = accS[r * K + k];
       } else if (r < 3 + D) {
-        const int i = r - 3, b = i / 8;
+        const int i = VB ? D - 1 - (r - 3) : r - 3, b = i / 8;
         v = accSD[(i % 8) * n_blocks_c + k * tri + b * (b + 1) / 2 + b];
       } else {
         const int q = r - 3 - D;
         int i = static_cast<int>((sqrtf(8.0f * q + 1.0f) - 1.0f) * 0.5f);
         while (i * (i + 1) / 2 > q) --i;
         while ((i + 1) * (i + 2) / 2 <= q) ++i;
-        const int j = q - i * (i + 1) / 2, b0 = i / 8, b1 = j / 8;
+        int j = q - i * (i + 1) / 2;
+        if constexpr (VB) {
+          // g_ij of the reversed coordinates: entry (D-1-j, D-1-i), lower
+          const int i0 = i;
+          i = D - 1 - j;
+          j = D - 1 - i0;
+        }
+        const int b0 = i / 8, b1 = j / 8;
         v = accG[(8 * (i % 8) + j % 8) * n_blocks_c + k * tri + b0 * (b0 + 1) / 2 + b1];
       }
     }
@@ -528,17 +589,17 @@ gram_stats_kernel(const float* __restrict__ xT, float* __restrict__ wts,
   }
 }
 
-// the pass's instantiation (STEP: the step's) for (K, D)
-template <bool STEP>
+// the pass's instantiation in MODE (DenseMode) for (K, D)
+template <int MODE>
 inline auto gram_kernel_for(int K, int D) {
-  return gram_min_blocks(K, D) == 2 ? &gram_stats_kernel<STEP, 2> : &gram_stats_kernel<STEP, 1>;
+  return gram_min_blocks(K, D) == 2 ? &gram_stats_kernel<MODE, 2> : &gram_stats_kernel<MODE, 1>;
 }
 
-// blocks of the pass (STEP: the step's) that fit on one SM at once at (K,
-// D); -1 on an error
-template <bool STEP>
+// blocks of the pass in MODE that fit on one SM at once at (K, D); -1 on an
+// error
+template <int MODE>
 inline int gram_per_sm(int K, int D) {
-  const auto kernel = gram_kernel_for<STEP>(K, D);
+  const auto kernel = gram_kernel_for<MODE>(K, D);
   const size_t smem = GramLayout{K, D}.smem();
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -549,16 +610,16 @@ inline int gram_per_sm(int K, int D) {
   return n;
 }
 
-// The pass on stream s, n_blocks blocks, then the reduction of their
-// partials (n_blocks x E float64 scratch) into stats (E float32).  An error
-// where gram_fits is false.
-template <bool STEP>
+// The pass in MODE on stream s, n_blocks blocks, then the reduction of their
+// partials (n_blocks x E float64 scratch) into stats (E of T: float, or
+// VB's double).  An error where gram_fits is false.
+template <int MODE, typename T>
 inline int launch_gram(const float* xT, float* w, const float* log_q, const float* log_p,
-                       const float* mix, double* partial, float* stats, long long N, int K,
+                       const float* mix, double* partial, T* stats, long long N, int K,
                        int D, int student_t, int dof_stats, int n_blocks, cudaStream_t s) {
   if (!gram_fits(K, D) || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const GramLayout G{K, D};
-  const auto kernel = gram_kernel_for<STEP>(K, D);
+  const auto kernel = gram_kernel_for<MODE>(K, D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G.smem()));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -129,8 +129,8 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                            log_p, nullptr, N, K, Kt, D, student_t, t_student_t,
                                            -1, draw_blocks, eval_blocks, stream);
     if (err != 0) return err;
-    return launch_gram<true>(xT, w, log_q, log_p, mix, partial, stats, N, K, D, student_t,
-                             dof_stats, n_blocks, s);
+    return launch_gram<kDenseStep>(xT, w, log_q, log_p, mix, partial, stats, N, K, D,
+                                   student_t, dof_stats, n_blocks, s);
   }
   if (pass == kPassReg) {
     DenseArgs args{};
@@ -182,7 +182,7 @@ extern "C" int pmc_is_pmc_step_per_sm(int K, int Kt, int D) {
   using namespace pmc;
   const DensePlan plan = dense_plan(K, Kt, D, kDenseStep);
   return plan.pass == kPassReg    ? dense_reg_per_sm<kDenseStep>(D, plan.smem)
-         : plan.pass == kPassGram ? gram_per_sm<true>(K, D)
+         : plan.pass == kPassGram ? gram_per_sm<kDenseStep>(K, D)
                                   : 0;
 }
 

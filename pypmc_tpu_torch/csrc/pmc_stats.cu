@@ -94,8 +94,8 @@ extern "C" int pmc_fused_pmc_stats(const float* xT, const float* w,
   const int pass = dense_pass(plan, variant);
   if (pass < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (pass == kPassGram)
-    return launch_gram<false>(xT, const_cast<float*>(w), nullptr, nullptr, mix, partial, stats,
-                              N, K, D, student_t, dof_stats, n_blocks, s);
+    return launch_gram<kDenseStats>(xT, const_cast<float*>(w), nullptr, nullptr, mix, partial,
+                                    stats, N, K, D, student_t, dof_stats, n_blocks, s);
   if (pass == kPassReg) {
     DenseArgs args{};
     args.ops = mix;
@@ -140,7 +140,7 @@ extern "C" int pmc_pmc_stats_per_sm(int K, int D) {
   using namespace pmc;
   const DensePlan plan = dense_plan(K, 0, D, kDenseStats);
   return plan.pass == kPassReg    ? dense_reg_per_sm<kDenseStats>(D, plan.smem)
-         : plan.pass == kPassGram ? gram_per_sm<false>(K, D)
+         : plan.pass == kPassGram ? gram_per_sm<kDenseStats>(K, D)
                                   : 0;
 }
 

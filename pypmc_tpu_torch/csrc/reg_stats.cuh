@@ -216,17 +216,11 @@ __device__ inline void reg_flush(float* scratch, int S, int E, int n, double* ac
 // tile).
 //
 // The plan (dense_plan, mirrored by ops/_build.py dense_plan): the register
-// pass at D <= 16 wherever its shared memory fits kSmemLimit; fused_pmc_stats
-// and fused_is_pmc_step take gram_stats.cuh's Gram pass from D = 17 where K
+// pass at D <= 16 wherever its shared memory fits kSmemLimit; all three
+// kernels take gram_stats.cuh's Gram pass, in their mode, from D = 17 where K
 // D <= 128 (gram_fits); elsewhere the launcher takes stats.cuh's entry-table
-// kernel.
+// kernel.  The modes (DenseMode) are gram_stats.cuh's.
 // ---------------------------------------------------------------------
-
-// the dense register kernel's modes (pmc_dense_plan's codes): the step
-// draws its particles and evaluates the target; VB loads weighted particles
-// and projects them on VB records; the statistics mode loads weighted
-// particles and evaluates them as the step does
-enum DenseMode : int { kDenseStep = 0, kDenseVb = 1, kDenseStats = 2 };
 
 // the slices for K components at D: as many as leave one group of pairs,
 // at least kRegSlices; one band takes any count up to kRegCols, three take
@@ -303,7 +297,7 @@ inline DensePlan dense_plan(int K, int Kt, int D, int mode) {
     const DenseLayout L{K, Kt, D, dense_slices(K, D), mode};
     if (L.smem() <= kSmemLimit) return {kPassReg, L.S, L.groups(), L.smem()};
   }
-  if (mode != kDenseVb && gram_fits(K, D)) {
+  if (gram_fits(K, D)) {
     const GramLayout G{K, D};
     return {kPassGram, G.slices(), G.blocks(), G.smem()};
   }

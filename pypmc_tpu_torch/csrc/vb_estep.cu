@@ -20,11 +20,17 @@
 //
 // Bound on the H100: K D (D + 1) / 2 FMAs of the projection and K (D (D + 1)
 // / 2 + D) of the statistics a particle, for 4 (D + 1) bytes read: FP32-
-// and shared-memory-bound.  Two designs (reg_stats.cuh dense_plan):
+// and shared-memory-bound.  Three designs (reg_stats.cuh dense_plan), as
+// fused_pmc_stats' (pmc_stats.cu):
 //   D <= 16, where it fits shared memory: reg_stats.cuh's register kernel,
 //     one launch, the projection reading only A's upper triangle from
 //     16-byte records (D (D + 1) / 2 FMAs, not D^2) and the statistics in
 //     float32 registers, D + 3 shared reads a (particle, component);
+//   D = 17 .. 128 where K D <= 128 (the JAX rule's reach there):
+//     gram_stats.cuh's Gram pass in its VB mode, the K projections on
+//     register micro-tiles (the coordinates reversed, so that A's upper
+//     triangle is whitened as U's lower one) and the statistics as a
+//     weighted SYRK, 64 FMAs for 5 shared loads;
 //   elsewhere the entry-table kernel below: the tile of stats.cuh, ~3
 //     shared reads for each of the K (3 + D + D (D + 1) / 2) + 3 entries a
 //     particle, the projection reading all of A (project).
@@ -99,8 +105,8 @@ vb_estep_kernel(const float* __restrict__ xT, const float* __restrict__ wts,
 
 // ops: A | m | c as above; partial: (n_blocks, S) float64 scratch; stats:
 // (S,) float64 output in the entry order of stats.cuh; variant: -1 the
-// plan's, 0 the entry-table kernel, 1 the register kernel (an error where
-// the plan does not take it)
+// plan's, 0 the entry-table kernel, 1 the register kernel, 2 the Gram pass
+// (an error where the plan takes neither it nor the entry table)
 extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* ops,
                                   double* partial, double* stats, long long N, int K,
                                   int D, int variant, int n_blocks, void* stream) {
@@ -109,6 +115,9 @@ extern "C" int pmc_fused_vb_estep(const float* xT, const float* w, const float* 
   const DensePlan plan = dense_plan(K, 0, D, kDenseVb);
   const int pass = dense_pass(plan, variant);
   if (pass < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (pass == kPassGram)
+    return launch_gram<kDenseVb>(xT, const_cast<float*>(w), nullptr, nullptr, ops, partial,
+                                 stats, N, K, D, 0, 0, n_blocks, s);
   if (pass == kPassReg) {
     DenseArgs args{};
     args.ops = ops;
@@ -144,9 +153,13 @@ extern "C" long long pmc_vb_estep_smem_bytes(int K, int D) {
   return static_cast<long long>(pmc::dense_plan(K, 0, D, pmc::kDenseVb).smem);
 }
 
-// blocks of the register kernel for (K, D) that fit on one SM at once (0
-// where the plan takes the entry-table kernel, -1 on an error)
+// blocks of the register kernel or the Gram pass, the plan's, for (K, D)
+// that fit on one SM at once (0 where the plan takes the entry-table
+// kernel, -1 on an error)
 extern "C" int pmc_vb_estep_per_sm(int K, int D) {
-  const pmc::DensePlan plan = pmc::dense_plan(K, 0, D, pmc::kDenseVb);
-  return plan.pass == pmc::kPassReg ? pmc::dense_reg_per_sm<pmc::kDenseVb>(D, plan.smem) : 0;
+  using namespace pmc;
+  const DensePlan plan = dense_plan(K, 0, D, kDenseVb);
+  return plan.pass == kPassReg    ? dense_reg_per_sm<kDenseVb>(D, plan.smem)
+         : plan.pass == kPassGram ? gram_per_sm<kDenseVb>(K, D)
+                                  : 0;
 }

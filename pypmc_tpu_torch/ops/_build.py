@@ -26,9 +26,9 @@ then evaluates with ``fused_logq``'s tiled kernel).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
-(:func:`dense_plan`); from D = 17 where K D <= 128 ``fused_pmc_stats``'
-and ``fused_is_pmc_step``'s Gram pass, the K components' U stacked, a tile
-of 64 particles, its whitened differences and float64 accumulators
+(:func:`dense_plan`); from D = 17 where K D <= 128 the Gram pass of all
+three, the K components' U (VB: A) stacked, a tile of 64 particles, its
+whitened differences and float64 accumulators
 (:func:`gram_layout`); elsewhere the entry-table pass's tile of 128
 particles, or of 64 where that does not fit (:func:`stats_tile`); the
 entry-table kernels stage their mixture operands there too when they fit
@@ -163,12 +163,11 @@ _NARROW_TILE_D_MAX = 8
 # columns, the K-blocked pass's slices (the dense kernels' fewest), the
 # last row of band 0
 _REG_DMAX, _REG_COLS, _REG_SLICES, _REG_SPLIT = 16, 64, 8, 10
-# csrc/gram_stats.cuh: the Gram statistics pass of fused_pmc_stats and
-# fused_is_pmc_step, from D = 17 (kGramDMin) to 128 where K D <= 128
+# csrc/gram_stats.cuh: the Gram statistics pass of the three dense kernels
+# (one kernel, a mode each), from D = 17 (kGramDMin) to 128 where K D <= 128
 # (kGramKD, the JAX rule's bound): its particles a tile and threads a block
 # (kGramP, kGramThreads)
 _GRAM_D_MIN, _GRAM_KD, _GRAM_P, _GRAM_THREADS = 17, 128, 64, 256
-_GRAM = ("fused_pmc_stats", "fused_is_pmc_step")
 
 
 def _pad4(n):
@@ -324,18 +323,18 @@ def dense_plan(kernel, K, D, Kt=0):
     ``dense_plan``.  Up to D = 16, where it fits :data:`SMEM_LIMIT`,
     ``"reg"``: the register pass, 64 columns, the slices of
     :func:`_dense_slices` and as many groups as the K components need of the
-    block's pairs; ``fused_pmc_stats`` and ``fused_is_pmc_step`` from D = 17
-    to 128 where K D <= 128 (the JAX rule's reach there), ``"gram"``: the
-    Gram pass, 64 particles a tile, its slices and 8 x 8 blocks in place of
-    the groups (:func:`gram_layout`); elsewhere ``"table"``: the entry-table
-    pass, its tile of :func:`stats_tile` particles (slices and groups 0)."""
+    block's pairs; from D = 17 to 128 where K D <= 128 (the JAX rule's
+    reach there), ``"gram"``: the Gram pass, 64 particles a tile, its
+    slices and 8 x 8 blocks in place of the groups (:func:`gram_layout`);
+    elsewhere ``"table"``: the entry-table pass, its tile of
+    :func:`stats_tile` particles (slices and groups 0)."""
     if D <= _REG_DMAX:
         S = _dense_slices(K, D)
         groups = -(-K // _reg_per_group(D, S))
         smem = _dense_reg_bytes(kernel, K, Kt, D, S, groups)
         if smem <= SMEM_LIMIT:
             return "reg", _REG_COLS, S, groups, smem
-    if kernel in _GRAM and _GRAM_D_MIN <= D <= _THREAD_D_MAX and K * D <= _GRAM_KD:
+    if _GRAM_D_MIN <= D <= _THREAD_D_MAX and K * D <= _GRAM_KD:
         slices, blocks, smem = gram_layout(K, D)
         if smem <= SMEM_LIMIT:
             return "gram", _GRAM_P, slices, blocks, smem
@@ -855,8 +854,8 @@ def _declare(lib):
     # entry table)
     lib.pmc_is_pmc_step_per_sm.argtypes = [I, I, I]    # K, Kt, D
     lib.pmc_is_pmc_step_per_sm.restype = ctypes.c_int
-    # K, D -> the register (or fused_pmc_stats' Gram) pass's blocks an SM (0
-    # where the plan is the entry table)
+    # K, D -> the register or Gram pass's blocks an SM (0 where the plan is
+    # the entry table)
     for name in ("pmc_vb_estep_per_sm", "pmc_pmc_stats_per_sm"):
         getattr(lib, name).argtypes = [I, I]
         getattr(lib, name).restype = ctypes.c_int

@@ -74,7 +74,7 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 for the kernels with variants chosen by shape (``fused_mcmc_pool``: a
 thread or a warp a chain, ``_build.pool_variant``; ``fused_vb_estep``,
 ``fused_is_pmc_step`` and ``fused_pmc_stats``: the register pass, the Gram
-pass (the last two) or the entry-table pass, ``_build.dense_plan``; the
+pass or the entry-table pass, ``_build.dense_plan``; the
 draws ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``: the record, the looped
 or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
@@ -436,7 +436,7 @@ def _variant_names(kernel):
         return tuple(_DRAW_VARIANTS)
     if kernel in _build.TILED:
         return tuple(_EVAL_VARIANTS)
-    return _DENSE_VARIANTS if kernel in _build._GRAM else _DENSE_VARIANTS[:2]
+    return _DENSE_VARIANTS
 
 
 def _transform_variants(D):
@@ -1079,10 +1079,10 @@ def fused_vb_estep(xT, w, a, m, const, variant=None):
     (K, D)`` and ``g = sum w r diff diff^T (K, D, D)`` with ``diff = a_k
     (x - m_k)``, and ``log_q_Z = sum w sum_k r log r ()``.  ``a`` is
     ``(K, D, D)`` upper triangular, as the VB E-step passes it: the
-    register pass reads only the upper triangle.  The kernel's statistics
-    are float64.  ``variant``: the kernel's pass, ``"reg"`` or ``"table"``
-    (``_build.dense_plan``; None: the plan's), counted as
-    ``variant:fused_vb_estep=<variant>``."""
+    register and Gram passes read only the upper triangle.  The kernel's
+    statistics are float64.  ``variant``: the kernel's pass, ``"reg"``,
+    ``"gram"`` or ``"table"`` (``_build.dense_plan``; None: the plan's),
+    counted as ``variant:fused_vb_estep=<variant>``."""
     variant = _elect("fused_vb_estep", a.shape[0], a.shape[-1], variant)
     if not use_kernel(xT, w, a, m, const):
         return plain_vb_estep(xT, w, a, m, const)

@@ -97,10 +97,11 @@ def test_pmc_stats_non_finite_particles(cuda):
                          + [c for c in chip_smoke.GRAM_CASES
                             if c[3] == chip_smoke.N_FLAGSHIP and c[:3] in ((7, 2, 17), (1, 1, 128))])
 def test_gram_pass_against_plain_version(cuda, case):
-    """fused_pmc_stats' and fused_is_pmc_step's Gram pass (D = 17-128, K D <=
-    128) elected and counted, against the float64 plain version; the step's
-    x and latent the entry table's bit for bit, its w the K-blocked step's
-    to D = 64; a second run equal."""
+    """fused_pmc_stats', fused_is_pmc_step's and fused_vb_estep's Gram pass
+    (D = 17-128, K D <= 128) elected and counted, against the float64 plain
+    version (fused_vb_estep to 2^20 particles, a third of the weights 0);
+    the step's x and latent the entry table's bit for bit, its w the
+    K-blocked step's to D = 64; a second run equal."""
     chip_smoke.gram_case(case, cuda, [])
 
 

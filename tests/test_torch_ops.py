@@ -295,9 +295,8 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
     CUDA kernel takes it: _build.limit_reason names no limit, so the wrapper
     launches on the card where the JAX package returns a result.  The three
     kernels with a register pass take it at every admitted shape to D = 16
-    (K = 128 at D = 1 the largest); past it fused_pmc_stats and
-    fused_is_pmc_step take the Gram pass at every admitted shape (D = 17 to
-    128, K D <= 128) and fused_vb_estep the entry table."""
+    (K = 128 at D = 1 the largest); past it all three take the Gram pass at
+    every admitted shape (D = 17 to 128, K D <= 128)."""
     rules = ([{"n_steps": 400, "student_t": t} for t in (False, True)]
              if kernel == "fused_mcmc_pool" else [{}])
     refused, passes = [], {}
@@ -315,11 +314,8 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
                         passes.setdefault(_build.dense_plan(kernel, K, D, Kt)[0], set()).add(D)
     assert refused == []
     if kernel in _build._DENSE:
-        past = "gram" if kernel in _build._GRAM else "table"
-        assert passes["reg"] == set(range(1, 17)) and set(passes) == {"reg", past}
-        assert min(passes[past]) == 17
-        if past == "gram":
-            assert passes["gram"] == set(range(17, 129))
+        assert passes["reg"] == set(range(1, 17)) and set(passes) == {"reg", "gram"}
+        assert passes["gram"] == set(range(17, 129))
 
 
 @pytest.mark.parametrize("kernel", _build.TILED)
@@ -492,26 +488,23 @@ DENSE_PLANS = {
     # every layout, so fused_pmc_stats' plan is VB's)
     (137, 1): (("table", 64, 0, 0, None),) * 3,
     (136, 1): (("reg", 64, 8, 9, None),) * 3,
-    # D=17: the entry table for VB; fused_is_pmc_step and fused_pmc_stats
-    # the Gram pass (csrc/gram_stats.cuh): Dp = 24 rows a component, R = 96
+    # D=17: the Gram pass for all three (csrc/gram_stats.cuh, a mode each;
+    # VB's operands staged in the same layout): Dp = 24 rows a component, R = 96
     # stacked, 3 8-row blocks a component, 4 x 6 = 24 blocks, 8 slices (the
     # largest power of two with 24 x 8 <= 256); U stacked 17 x 96, the means
     # 96, the tile 17 x 64, the differences 64 x (96 + 4), the per-particle
     # rows 15 x 64 floats, then the float64 accumulators, 72 a block (its 64
     # entries and 8 of sd) and 15 scalars
-    (4, 17): (("table", 128, 0, 0, None),)
-             + (("gram", 64, 8, 24,
-                 4 * (17 * 96 + 96 + 17 * 64 + 64 * 100 + 15 * 64) + 8 * (72 * 24 + 15)),) * 2,
+    (4, 17): (("gram", 64, 8, 24,
+               4 * (17 * 96 + 96 + 17 * 64 + 64 * 100 + 15 * 64) + 8 * (72 * 24 + 15)),) * 3,
     # the Gram pass's most components, K=7 at D=17: R = 168, 42 blocks, 4
     # slices, differences 64 x (192 + 4)
-    (7, 17): (("table", 128, 0, 0, None),)
-             + (("gram", 64, 4, 42,
-                 4 * (17 * 168 + 168 + 17 * 64 + 64 * 196 + 24 * 64) + 8 * (72 * 42 + 24)),) * 2,
+    (7, 17): (("gram", 64, 4, 42,
+               4 * (17 * 168 + 168 + 17 * 64 + 64 * 196 + 24 * 64) + 8 * (72 * 42 + 24)),) * 3,
     # its largest D, K=1 at D=128: 16 blocks a side, 136, one slice, 6
     # scalars
-    (1, 128): (("table", 128, 0, 0, None),)
-              + (("gram", 64, 1, 136,
-                  4 * (128 * 128 + 128 + 128 * 64 + 64 * 132 + 6 * 64) + 8 * (72 * 136 + 6)),) * 2,
+    (1, 128): (("gram", 64, 1, 136,
+                4 * (128 * 128 + 128 + 128 * 64 + 64 * 132 + 6 * 64) + 8 * (72 * 136 + 6)),) * 3,
     # past the JAX rule's K D <= 128: the entry table for all three
     (5, 40): (("table", 128, 0, 0, None),) * 3,
 }
@@ -748,8 +741,8 @@ def _variant_call(kernel, K, D, variant):
     ("fused_propose_logq", 1, 129, "warp", False), ("fused_propose_logq", 1, 129, "tiled", True),
     ("fused_propose_logq", 1, 65, "tiled", True), ("fused_propose_logq", 1, 129, "looped", False),
     # the statistics kernels: the register pass to D = 16 and the entry table
-    # beside it; past it fused_pmc_stats' and fused_is_pmc_step's Gram pass
-    # where K D <= 128 and the entry table beside it, VB's entry table alone
+    # beside it; past it the Gram pass where K D <= 128 and the entry table
+    # beside it
     ("fused_pmc_stats", 3, 4, "reg", True), ("fused_pmc_stats", 3, 4, "table", True),
     ("fused_pmc_stats", 2, 17, "reg", False), ("fused_pmc_stats", 2, 17, "table", True),
     ("fused_pmc_stats", 3, 4, "looped", False), ("fused_vb_estep", 2, 17, "reg", False),
@@ -758,7 +751,8 @@ def _variant_call(kernel, K, D, variant):
     ("fused_pmc_stats", 2, 17, "gram", True), ("fused_is_pmc_step", 2, 17, "gram", True),
     ("fused_is_pmc_step", 2, 17, "table", True), ("fused_pmc_stats", 1, 128, "reg", False),
     ("fused_pmc_stats", 3, 4, "gram", False), ("fused_is_pmc_step", 3, 4, "gram", False),
-    ("fused_vb_estep", 2, 17, "gram", False), ("fused_pmc_stats", 5, 40, "gram", False),
+    ("fused_vb_estep", 2, 17, "gram", True), ("fused_pmc_stats", 5, 40, "gram", False),
+    ("fused_vb_estep", 3, 4, "gram", False), ("fused_vb_estep", 5, 40, "gram", False),
     ("fused_pmc_stats", 5, 40, "table", True),
     # fused_logq and fused_maha: the record kernel to D = 64, the tiled
     # kernel beside it and alone past it (they have no looped kernel)
@@ -786,8 +780,7 @@ def test_launch_counts_name_the_variants():
     """launch_counts() names each variant of the kernels that have several:
     the three draws' record, looped and tiled kernels (fused_transform's
     tiled pair, the others' drawn products; no warp kernel), the statistics
-    kernels' register and entry-table passes (fused_pmc_stats' and
-    fused_is_pmc_step's Gram pass too, not fused_vb_estep's), fused_logq's,
+    kernels' register, Gram and entry-table passes, fused_logq's,
     fused_maha's and fused_rho's record and tiled kernels (fused_pmc_stats'
     tile width is no longer a variant)."""
     kernels.reset_launch_counts()
@@ -796,8 +789,7 @@ def test_launch_counts_name_the_variants():
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "looped", "tiled")} <= names
         assert "variant:%s=warp" % kernel not in names
     for kernel in ("fused_pmc_stats", "fused_vb_estep", "fused_is_pmc_step"):
-        assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "table")} <= names
-        assert ("variant:%s=gram" % kernel in names) == (kernel != "fused_vb_estep")
+        assert {"variant:%s=%s" % (kernel, v) for v in ("reg", "gram", "table")} <= names
     for kernel in _build.TILED:
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "tiled")} <= names
         assert ("variant:%s=looped" % kernel in names) == (kernel in _build.DRAWS)
