@@ -36,11 +36,19 @@ Phases, each of which exits non-zero on failure:
    election and the bucket kernel's plan against ``_build``; the Gram pass
    of ``fused_pmc_stats``, ``fused_is_pmc_step`` and ``fused_vb_estep``
    (``gram_stats_kernel``, a mode each, two instantiations a mode, no
-   spill; its plan and blocks an SM at ``GRAM_SHAPES``);
+   spill; its plan and blocks an SM at ``GRAM_SHAPES``); ``fused_maha``'s
+   tensor-core kernel (``maha_mma_kernel``, D padded to 8 from 8 to 64:
+   registers, no spill; its plan against ``_build.mma_plan`` to D=64 at K
+   to 2,040, two blocks an SM at ``MAHA_TIME_SHAPES``' largest K) and
+   ``fused_maha``'s election against ``_build.eval_variant``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
-   and Student-t, lower and upper ``fused_maha`` operands), and past the
+   and Student-t, lower and upper ``fused_maha`` operands, each through
+   its record and tensor-core kernels (the tiled one below D=65 at
+   ``MAHA_TILED_SEED``'s case), equal on a second run, and
+   at the JAX rule's largest K at D=17, 20 and 64, ``MAHA_CASES``; the
+   tensor-core kernel's NaNs and infinities the record kernel's), and past the
    register kernels (D=40 and D=128, the looped instantiation) and past
    shared memory (operands read from device memory, or, by ``fused_logq``
    and ``fused_maha``, streamed in chunks: K=60, D=32 and K=1, D=128), at
@@ -237,7 +245,9 @@ Phases, each of which exits non-zero on failure:
    0.15, one ``fused_mcmc_pool`` launch a cycle, the pool's variant it
    elects, the PMC draws through ``fused_draw_transform`` with no
    ``fused_transform`` or ``draw_proposal_inputs`` launch, every
-   ``fused_propose_logq`` launch on its record kernel), VB1's and VB2's
+   ``fused_propose_logq`` launch on its record kernel, every
+   ``fused_maha`` launch on the kernel it elects at D=40, counted by
+   variant), VB1's and VB2's
    iterations (the profiled rerun's
    with the VB E-step's route before the float32 stopping rule's repair)
    and the
@@ -330,6 +340,12 @@ Phases, each of which exits non-zero on failure:
     --gram-times`` time rows 7-9 at ``GRAM_TIME_SHAPES`` (the Gram pass,
     the entry table and the plain version in turns, beside the bound);
     ``--elected-times DIR [drawn]`` the kernels a checkout elects there;
+    ``chip_smoke.py --maha-times`` times ``fused_maha``'s tensor-core,
+    record and tiled kernels, ``torch.bmm`` and the plain version in turns
+    at ``MAHA_TIME_SHAPES`` (each DMAX bucket of the record instantiations
+    at K=1 and the JAX rule's largest K, and the pipeline's K=32 at D=40;
+    also in CUDA graphs, device times) beside both bounds, and counts the
+    tensor-core kernel's SASS (phase times runs K=32, D=40);
     ``--parent-draws DIR`` holds the drawn products to the kernels DIR
     elects past D=128 (an earlier commit's warp kernels) bit for bit.
 
@@ -802,8 +818,9 @@ def eval_case(case, device, report):
     for tag, a in (("lower", params.inv_chol), ("upper", A)):
         part = torch.tril(a, -1) if tag == "upper" else torch.triu(a, 1)
         require(bool((part == 0).all()), "fused_maha operand not " + tag)
-        compare("fused_maha " + tag, k.fused_maha(xT, a, m),
-                k.plain_maha(x64, a.double(), m.double()), "maha", report)
+        maha_variants_check("fused_maha " + tag, xT, a, m,
+                            k.plain_maha(x64, a.double(), m.double()), report,
+                            tiled=seed == MAHA_TILED_SEED)
 
     rho, log_q = k.fused_rho(xT, ops)
     rho_ref, log_q_ref = k.plain_rho(x64, ops64)
@@ -826,6 +843,96 @@ def eval_case(case, device, report):
             return
         raise SmokeFailure("fused_vb_estep ran past its limit: %s" % reason)
     vb_stats_case(xT, w, A, m, const, "fused_vb_estep", report)
+
+
+# the EVAL_CASES entry (by its seed) at which phase kernels also checks
+# fused_maha's tiled kernel forced below D = 65, where it is a yardstick
+# only: the pipeline's D=40 VB mixture
+MAHA_TILED_SEED = 20
+
+
+def maha_variants_check(label, xT, a, m, ref, report, tiled=True):
+    """fused_maha's elected kernel (as ``label``) and each of its kernels at
+    D forced (the record, the tensor-core and, where ``tiled``, the tiled
+    kernel to D = 64; the tiled past it) against ``ref``, float64, with
+    TOL["maha"]; each forced kernel equal on a second run (the elected
+    call is the second run of the kernel it elects)."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    D = a.shape[-1]
+    elected = k.fused_maha(xT, a, m)
+    compare(label, elected, ref, "maha", report)
+    for v in k._eval_variants("fused_maha", D):
+        if v == "tiled" and D < _build.TILED_D_MIN and not tiled:
+            continue
+        got = k.fused_maha(xT, a, m, variant=v)
+        compare("%s %s" % (label, v), got, ref, "maha", report)
+        again = elected if v == _build.eval_variant("fused_maha", D) else k.fused_maha(
+            xT, a, m, variant=v)
+        require(bool(torch.equal(got, again)), "%s %s: one input gave two outputs" % (label, v))
+
+
+def maha_case(case, device, report):
+    """fused_maha at the JAX rule's largest K where the tensor-core kernel's
+    DMAX 32 and 64 instantiations take it (D=17, 20 and 64): lower and
+    upper operands of a Student-t mixture with a dead component, ragged N,
+    each kernel against float64 (maha_variants_check)."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, D, N, seed = case
+    params = make_params(random_mixture(np.random.default_rng(seed), K, D, True, True), device)
+    xT = mixture_particles(core._kernel_operands(params), N, seed, device)
+    A, m, _ = vb_operands(params)
+    print("case fused_maha K=%d D=%d N=%d t dead" % (K, D, N))
+    chunks = k._chunks(K, D, N)
+    for tag, a in (("lower", params.inv_chol), ("upper", A)):
+        ref = torch.cat([k.plain_maha(xT.double(), a[k0:k1].double(), m[k0:k1].double())
+                         for k0, k1 in chunks])
+        maha_variants_check("fused_maha %s K=%d D=%d" % (tag, K, D), xT, a, m, ref, report)
+
+
+# (K, D, N, seed) of maha_case: the rule's largest K at D=17, 20 and 64
+MAHA_CASES = [(225, 17, N_WIDE, 41), (193, 20, N_WIDE, 42), (62, 64, N_WIDE, 43)]
+
+
+def maha_nonfinite_case(device, report):
+    """fused_maha's tensor-core kernel on particles with a NaN, a +inf and a
+    -inf coordinate, lower, upper and full operands at D=20 and 40: NaN and
+    infinite exactly where the record kernel's are (a value that is not
+    finite is recomputed in the record kernel's FP32 arithmetic), the
+    finite outputs within TOL["maha"] of float64."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    for K, D in ((4, 20), (3, 40)):
+        rng = np.random.default_rng(K + D)
+        params = make_params(random_mixture(rng, K, D, False), device)
+        xT = mixture_particles(core._kernel_operands(params), 4099, K + D, device)
+        xT[3, 7] = float("nan")
+        xT[0, 11] = float("inf")
+        xT[D - 1, 13] = -float("inf")
+        xT[5, 17] = float("inf")
+        A, m, _ = vb_operands(params)
+        full = torch.tensor(rng.normal(0, 1, (K, D, D)), dtype=torch.float32, device=device)
+        for tag, a in (("lower", params.inv_chol), ("upper", A), ("full", full)):
+            label = "fused_maha non-finite %s K=%d D=%d" % (tag, K, D)
+            rec, mma = (k.fused_maha(xT, a, m, variant=v) for v in ("rec", "mma"))
+            for what, f in (("NaN", torch.isnan), ("+inf", lambda t: t == float("inf"))):
+                require(bool(torch.equal(f(rec), f(mma))),
+                        "%s: the tensor-core kernel's %s differ from the record kernel's"
+                        % (label, what))
+            finite = torch.isfinite(xT).all(0)
+            require(bool(torch.isfinite(rec[:, finite]).all()) and int((~finite).sum()) == 4,
+                    "%s: a finite particle's output is not finite" % label)
+            ref = k.plain_maha(xT[:, finite].double(), a.double(), m.double())
+            compare(label, mma[:, finite], ref, "maha", report)
+            print("  %s: NaN at %d outputs, +inf at %d, as the record kernel"
+                  % (label, int(torch.isnan(mma).sum()), int((mma == float("inf")).sum())))
 
 
 def vb_stats_case(xT, w, A, m, const, label, report):
@@ -2186,6 +2293,10 @@ def phase_kernels(device, cases, eval_cases):
     for case in eval_cases:
         eval_case(case, device, report)
         torch.cuda.empty_cache()
+    for case in MAHA_CASES:
+        maha_case(case, device, report)
+        torch.cuda.empty_cache()
+    maha_nonfinite_case(device, report)
     vb_nonfinite_case(device, report)
     for case in PMC_STATS_CASES:
         pmc_stats_weighted_case(case, device, report)
@@ -4848,6 +4959,15 @@ def phase_pipeline(device):
     require(counts[vb_route] > 0, "pipeline: VB1 at K=%d, D=%d did not run %s"
             % (d["vb1_K"], dim, vb_route))
     print("  VB1 at K=%d, D=%d: E-steps through %s" % (d["vb1_K"], dim, vb_route))
+    # fused_maha's launches (the unfused E-steps) all on the kernel it
+    # elects at D=40
+    elected = k._elect("fused_maha", d["vb1_K"], dim, None)
+    print("  fused_maha: %d launches, %s (elected at D=%d: %s)"
+          % (counts["fused_maha"], ", ".join("variant:fused_maha=%s %d" % (v, counts[
+              "variant:fused_maha=" + v]) for v in k._variant_names("fused_maha")), dim, elected))
+    require(counts["variant:fused_maha=" + elected] == counts["fused_maha"],
+            "pipeline: %d of %d fused_maha launches took the elected %s kernel"
+            % (counts["variant:fused_maha=" + elected], counts["fused_maha"], elected))
     # the PMC draws at K=31-32, D=40: the draw and fused_transform's route in
     # one launch, and no launch of the two it replaces
     require(counts["fused_draw_transform"] > 0 and counts["fused_transform"] == 0
@@ -6341,6 +6461,12 @@ def sass_instructions(parts):
     the one kernel of the built library whose mangled name holds each part
     (``cuobjdump -sass``).  A kernel's code is counted once: a loop's body
     once, whatever its trips."""
+    return {part: sum(ops.values()) for part, ops in sass_opcodes(parts).items()}
+
+
+def sass_opcodes(parts):
+    """``{part: {opcode: instructions}}``, as :func:`sass_instructions`
+    counts them."""
     import shutil
 
     from pypmc_tpu_torch.ops import _build
@@ -6360,15 +6486,18 @@ def sass_instructions(parts):
     counts, current = {}, None
     with subprocess.Popen([cuobjdump, "-sass", path], stdout=subprocess.PIPE, text=True) as proc:
         for line in proc.stdout:
-            head = re.match(r"\s*Function : (\S+)", line)
+            head = "Function : " in line and re.match(r"\s*Function : (\S+)", line)
             if head:
                 current = names.get(head.group(1))
                 if current is not None:
-                    counts[current] = 0
+                    counts[current] = {}
                 continue
-            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)", line)
-            if current is not None and op and op.group(1) != "NOP":
-                counts[current] += 1
+            if current is None:
+                continue
+            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(\S+)", line)
+            if op and op.group(1) != "NOP":
+                name = op.group(1).rstrip(";").split(".")[0]
+                counts[current][name] = counts[current].get(name, 0) + 1
     require(proc.returncode == 0 and len(counts) == len(parts),
             "sass: cuobjdump exit %s, counted %s of %s" % (proc.returncode, sorted(counts), parts))
     print("  sass: %d kernels counted in %.1f s" % (len(counts), time.perf_counter() - t0))
@@ -6556,9 +6685,9 @@ def plain_rho_chunked(xT, ops):
 
 
 def main_shape_ms(device, name, shape, report):
-    """``{"cuda": kernel ms, "plain": plain ms}`` of ``name`` at ``shape``,
-    CUDA events, on a random mixture (fused_maha: the VB E-step's upper
-    operands of it) and particles drawn from it; Student-t as the
+    """``{"cuda": kernel ms, "plain": plain ms}`` of ``name`` at ``shape``
+    (fused_maha's: maha_shape_ms), CUDA events, on a random mixture and
+    particles drawn from it; Student-t as the
     proposals, Gaussian at K=2 as the pipeline's target; fused_rho's
     references streamed as plain_rho_chunked.  Past N_PLAIN_MAX the plain
     version timed is plain_logq streamed over component chunks (its (K, D,
@@ -6572,6 +6701,8 @@ def main_shape_ms(device, name, shape, report):
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
+    if name == "fused_maha":
+        return maha_shape_ms(device, shape, report)
     K, Kt, D, N = shape
     arrs = random_mixture(np.random.default_rng(K + D), K, D, K > 2)
     params = make_params(arrs, device)
@@ -6634,23 +6765,6 @@ def main_shape_ms(device, name, shape, report):
         del got, looped, x64
         torch.cuda.empty_cache()
         return {"cuda": cuda_ms(call), "looped": cuda_ms(lambda i: call(i, "looped")),
-                "plain": cuda_ms(plain, reps=3, warmup=1)}
-    elif name == "fused_maha":
-        A, m, _ = vb_operands(params)
-        kernel, plain = (lambda i: k.fused_maha(xT, A, m)), (lambda i: k.plain_maha(xT, A, m))
-        tiled = lambda i: k.fused_maha(xT, A, m, variant="tiled")
-        A64, m64 = A.double(), m.double()
-        ref = torch.cat([k.plain_maha(x64, A64[k0:k1], m64[k0:k1])
-                         for k0, k1 in k._chunks(K, D, N)])
-        compare(label, kernel(0), ref, "maha", report)
-        compare(label + " tiled", tiled(0), ref, "maha", report)
-        del x64, ref
-        torch.cuda.empty_cache()
-        # the tiled kernel beside the elected record kernel, in turns
-        ms = [cuda_ms(f) for f in (kernel, tiled, tiled, kernel)]
-        print("  %s: the %s kernel %.3f / %.3f ms, the tiled kernel %.3f / %.3f ms"
-              % (label, k._elect(name, K, D, None), ms[0], ms[3], ms[1], ms[2]))
-        return {"cuda": (ms[0] + ms[3]) / 2, "tiled": (ms[1] + ms[2]) / 2,
                 "plain": cuda_ms(plain, reps=3, warmup=1)}
     else:
         kernel = lambda i: k.fused_logq(xT, ops)
@@ -7142,6 +7256,95 @@ def tiled_shape_ms(device, shape):
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
 # and FP32 operations a second outside the tensor cores.
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+PEAK_TF32 = 495e12   # dense TF32 on the tensor cores
+
+
+# fused_maha's three kernels to D = 64 (the election of csrc/mma.cuh
+# kMahaMmaDMin), timed at each record instantiation's DMAX bucket (8, 16,
+# 32, 40, 64) at K=1 and the JAX rule's largest K (454, 240, 225 at D=17,
+# 193 at D=20, 123, 98, 62), and at the D=40 pipeline's K=32; 2^20
+# particles
+MAHA_TIME_SHAPES = [(K, 0, D, N_FLAGSHIP) for K, D in (
+    (1, 8), (454, 8), (1, 16), (240, 16), (1, 17), (225, 17), (1, 20), (193, 20), (1, 32),
+    (123, 32), (1, 40), (32, 40), (98, 40), (1, 64), (62, 64))]
+MAHA_VARIANTS = ("mma", "rec", "tiled")
+# the tensor-core kernel's instantiations, by the mangled spelling of D
+# padded to 8 (csrc/mma.cuh dispatch_mma)
+MAHA_MMA_KERNELS = ["15maha_mma_kernelILi%dEE" % d for d in range(8, 65, 8)]
+
+
+def maha_shape_ms(device, shape, report):
+    """``{route: ms}`` of fused_maha at ``shape`` (K, Kt, D <= 64, N) on a
+    random Student-t mixture (seed K + D), N particles from it
+    (mixture_particles) and the VB E-step's upper operands of it
+    (vb_operands): "mma", "rec" and "tiled", fused_maha's three kernels
+    forced, each held first to the float64 plain version (over component
+    chunks) with TOL["maha"] and equal on a second run; "library", one FP32
+    ``torch.bmm`` of the pre-centred (K, D, N) operand (the product alone,
+    never called by the port); "plain", plain_maha over the component chunks
+    of kernels._chunks; CUDA events in turns (mma, rec, tiled, library,
+    plain, plain, library, tiled, rec, mma), each the mean of its two turns;
+    "cuda", the elected kernel's; "<route>_device", the same kernels and
+    the library call in CUDA graphs (graph_ms), in turns."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in FP32")
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    xT = mixture_particles(core._kernel_operands(params), N, K + D, device)
+    A, m, _ = vb_operands(params)
+    chunks = k._chunks(K, D, N)
+    label = "fused_maha K=%d D=%d N=%d" % (K, D, N)
+    ref = torch.cat([k.plain_maha(xT.double(), A[k0:k1].double(), m[k0:k1].double())
+                     for k0, k1 in chunks])
+    fns = {v: (lambda i, v=v: k.fused_maha(xT, A, m, variant=v)) for v in MAHA_VARIANTS}
+    for v, fn in fns.items():
+        got = fn(0)
+        compare("%s %s" % (label, v), got, ref, "maha", report)
+        require(bool(torch.equal(got, fn(1))), "%s %s: one input gave two outputs" % (label, v))
+        del got
+    del ref
+    torch.cuda.empty_cache()
+    xc = (xT[None] - m[:, :, None]).contiguous()
+    fns["library"] = lambda i: torch.bmm(A, xc)
+    fns["plain"] = lambda i: torch.cat([k.plain_maha(xT, A[k0:k1], m[k0:k1]) for k0, k1 in chunks])
+    ms = {route: [] for route in fns}
+    for route in MAHA_VARIANTS + ("library", "plain", "plain", "library") + MAHA_VARIANTS[::-1]:
+        reps = {"plain": 3, "library": 5}.get(route, 10)
+        ms[route].append(cuda_ms(fns[route], reps=reps, warmup=1))
+    # device times with no host gaps (graph_ms): at K=1 a launch's host
+    # side is longer than its kernel
+    for route in MAHA_VARIANTS + ("library", "library") + MAHA_VARIANTS[::-1]:
+        ms.setdefault(route + "_device", []).append(graph_ms(fns[route]))
+    del xc, fns
+    torch.cuda.empty_cache()
+    out = {route: sum(t) / 2 for route, t in ms.items()}
+    elected = _build.eval_variant("fused_maha", D)
+    out["cuda"] = out[elected]
+    print("  %s: %s; bound FP32 %.4f ms, tensor-core %.4f ms; elected %s"
+          % (label, ", ".join("%s %s ms" % (route, " / ".join("%.4f" % t for t in ts))
+                              for route, ts in ms.items()),
+             bound("fused_maha", shape)[1], bound_tc("fused_maha", shape)[1], elected))
+    return out
+
+
+def maha_sass():
+    """``{Dp: (SASS instructions, HMMA instructions)}`` of the tensor-core
+    kernel's instantiations (sass_opcodes; a loop's body once), and the
+    opcodes of the D=40 one."""
+    ops = sass_opcodes(MAHA_MMA_KERNELS)
+    out = {}
+    for part, counts in ops.items():
+        dp = int(re.search(r"ILi(\d+)E", part).group(1))
+        out[dp] = (sum(counts.values()), counts.get("HMMA", 0))
+        print("  sass maha_mma_kernel<%d>: %d instructions, %d HMMA" % ((dp,) + out[dp]))
+        if dp == 40:
+            print("    opcodes: %s" % ", ".join(
+                "%s %d" % kv for kv in sorted(counts.items(), key=lambda kv: -kv[1])[:24]))
+    return out
 
 
 # the slice shapes of the K-blocked kernels (K, Kt, D) in phase times
@@ -7216,6 +7419,32 @@ def bound(name, shape=None):
     shape, nbytes, ops, _ = kernel_work(name, shape)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return shape, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_tc(name, shape=None):
+    """fused_maha's tensor-core route's :func:`bound`: the larger of its
+    bytes over the memory rate and its TF32 operations over the dense TF32
+    rate, the three split products (hi hi, hi lo, lo hi) of 2 K D^2 N
+    each, at D: the zero products of D's padding to the mma depth of 8 are
+    a cost of the kernel, not work the function needs (K=32, D=40, 2^20:
+    322 GFLOP, 0.65 ms)."""
+    require(name == "fused_maha", "%s has no tensor-core route" % name)
+    shape_s, nbytes, _, _ = kernel_work(name, shape)
+    K, _, D, N = shape or (10, 2, 10, N_PLAIN_MAX)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 3 * 2 * K * D * D * N / PEAK_TF32 * 1e3
+    return shape_s, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def maha_bound(shape=None):
+    """fused_maha's bound at ``shape`` for the kernel it elects there:
+    :func:`bound_tc` where that is the tensor-core kernel, else
+    :func:`bound`."""
+    from pypmc_tpu_torch.ops import _build
+
+    D = (shape or (10, 2, 10, N_PLAIN_MAX))[2]
+    return (bound_tc if _build.eval_variant("fused_maha", D) == "mma" else bound)("fused_maha",
+                                                                                  shape)
 
 
 def solve_dofs_entry(src, replaces, checks, counts, example_counts, times):
@@ -7364,6 +7593,27 @@ def tiled_kernels(log):
     found = {k: sum(1 for n, _, _, _ in out if n.split("<")[0] == k) for k in TILED_KERNELS}
     require(found == {k: TILED_INSTANTIATIONS.get(k, 1) for k in TILED_KERNELS},
             "ptxas reported the tiled kernels %s" % [n for n, _, _, _ in out])
+    return out
+
+
+def mma_kernels(log):
+    """``(kernel, registers, spill-store bytes, stack-frame bytes)`` of the
+    tensor-core kernel's instantiations (MAHA_MMA_KERNELS) in a ``ptxas -v``
+    log; fails unless all eight are there."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        hit = next((k for k in MAHA_MMA_KERNELS if name.startswith("_ZN3pmc" + k)), None)
+        if hit is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
+        out.append(("maha_mma_kernel<%s>" % re.search(r"ILi(\d+)E", hit).group(1),
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0,
+                    int(stack.group(1)) if stack else 0))
+    require(len(out) == len(MAHA_MMA_KERNELS),
+            "ptxas reported the tensor-core kernels %s" % [n for n, _, _, _ in out])
     return out
 
 
@@ -7522,13 +7772,39 @@ def phase_build():
                     "%s at K=%d, D=%d: the %s pass, %d blocks an SM (%d wanted)"
                     % (kernel, K, D, plan[0], per_sm, want))
     # fused_logq's, fused_maha's and fused_rho's election past D = 64 and the
-    # tiled plan
+    # tiled plan; fused_maha's tensor-core kernel from D = 9 to 64
+    # (csrc/mma.cuh kMahaMmaDMin) and its plan
     for D in range(1, 301):
         require(("looped", "rec", "tiled")[lib.pmc_eval_variant(D)]
-                == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_maha", D)
-                == _build.eval_variant("fused_rho", D),
-                "the election differs from the kernel's (fused_logq, fused_maha, fused_rho, "
-                "D=%d)" % D)
+                == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_rho", D),
+                "the election differs from the kernel's (fused_logq, fused_rho, D=%d)" % D)
+        require(("looped", "rec", "tiled", "mma")[lib.pmc_maha_variant(D)]
+                == _build.eval_variant("fused_maha", D),
+                "the election differs from the kernel's (fused_maha, D=%d)" % D)
+    for D in range(1, 65):
+        for K in (1, 2, 3, 31, 32, 62, 98, 123, 193, 225, 240, 454, 2040):
+            out = (ctypes.c_int * 5)()
+            smem = lib.pmc_maha_mma_plan(K, D, out)
+            got = tuple(out) + (smem,)
+            want = _build.mma_plan(K, D)
+            require(got == want and smem <= _build._HALF_SMEM,
+                    "the tensor-core plan differs from the kernel's (K=%d, D=%d): %s, %s"
+                    % (K, D, got, want))
+    mma = mma_kernels(log)
+    for name, regs, spilled, stack in mma:
+        print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
+              % (name, regs, spilled, stack))
+    for name, regs, spilled, stack in mma:
+        require(spilled == 0, "%s spills %d bytes" % (name, spilled))
+    for K, D in ((1, 8), (454, 8), (240, 16), (225, 17), (32, 40), (98, 40), (62, 64)):
+        per_sm = lib.pmc_maha_per_sm(K, D, 3)
+        kc, n_chunks, x_buffers, tile, _, smem = _build.mma_plan(K, D)
+        print("  fused_maha K=%d D=%d: the tensor-core kernel, %d blocks of %d threads an SM, "
+              "%d particles a tile, %d x tiles, %d components a chunk x %d chunks, %d B of shared "
+              "memory a block" % (K, D, per_sm, _build.eval_threads(D, "mma"), tile, x_buffers,
+                                  kc, n_chunks, smem))
+        require(per_sm >= 2,
+                "fused_maha's tensor-core kernel at K=%d, D=%d: %d blocks an SM" % (K, D, per_sm))
     plan = (ctypes.c_int * 4)()
     smem = lib.pmc_tiled_plan(plan)
     require(tuple(plan) + (smem,) == _build.tiled_plan(),
@@ -7569,16 +7845,18 @@ def phase_build():
         require(got == _build.transform_bucket_plan(K),
                 "the bucket plan differs from the kernel's (K=%d): %s, %s"
                 % (K, got, _build.transform_bucket_plan(K)))
-    # the record kernels' occupancy where the main paths run them
+    # the record kernels' occupancy where the main paths run them (fused_maha's
+    # tensor-core kernel's, where it is elected, above)
     for K, D in ((32, 40), (200, 10)):
-        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
+        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, 1)),
                                ("fused_logq", lib.pmc_logq_per_sm(K, D, -1)),
                                ("fused_rho", lib.pmc_rho_per_sm(K, D, -1))):
             warps = per_sm * _build.EVAL_THREADS // 32
-            kc, buffers, smem = _build.eval_plan(kernel, K, D)
-            print("  %s K=%d D=%d: %d blocks of %d threads an SM (%d warps), %d components "
-                  "a chunk x %d buffers, %d B of shared memory a block"
-                  % (kernel, K, D, per_sm, _build.EVAL_THREADS, warps, kc, buffers, smem))
+            kc, buffers, smem = _build.eval_plan(kernel, K, D, "rec")
+            print("  %s K=%d D=%d: the record kernel (%s elected), %d blocks of %d threads an SM "
+                  "(%d warps), %d components a chunk x %d buffers, %d B of shared memory a block"
+                  % (kernel, K, D, _build.eval_variant(kernel, D), per_sm, _build.EVAL_THREADS,
+                     warps, kc, buffers, smem))
             require(warps >= 16, "%s at K=%d, D=%d: %d warps an SM" % (kernel, K, D, warps))
     # the draws' record kernels where the main paths run them, their records
     # staged: fused_transform at the D=40 pipeline's K=32 (two blocks an SM)
@@ -7738,7 +8016,7 @@ def main():
             checks = [r for r in checks if not r.get("statistical")] or checks
         worst = max(checks, key=lambda r: r["max_abs_err"] / r["tol"])
         n = MCMC_C if kname == "fused_mcmc_pool" else N_PLAIN_MAX
-        shape, bound_ms, bound_by = bound(kname)
+        shape, bound_ms, bound_by = maha_bound() if kname == "fused_maha" else bound(kname)
         exps = kernel_work(kname)[3]
         entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -7766,7 +8044,8 @@ def main():
         shapes += GRAM_TIME_SHAPES if kname in _build._DENSE else []
         extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms",
                  "bucket": "bucket_device_ms", "product": "product_device_ms",
-                 "table": "table_ms"}
+                 "table": "table_ms", "mma": "mma_ms", "rec": "rec_ms",
+                 **{v + "_device": v + "_device_ms" for v in MAHA_VARIANTS + ("library",)}}
         entry["shapes"] = [dict({"shape": bound(kname, sh)[0], "ms": times[(kname, sh, "cuda")],
                                  "plain_ms": times[(kname, sh, "plain")],
                                  "bound_ms": bound(kname, sh)[1]},
@@ -7776,6 +8055,15 @@ def main():
         if kname in _build.TILED:
             entry["tiled_d_min"] = (_build.TRANSFORM_TILED_D_MIN if kname == "fused_transform"
                                     else _build.TILED_D_MIN)
+        if kname == "fused_maha":
+            # the kernel elected at each shape; where it is the tensor-core
+            # kernel, bound_ms is its tensor-core bound, the FP32 one beside
+            entry.update(variant=_build.eval_variant(kname, 10), bound_fp32_ms=bound(kname)[1],
+                         launches_mma=counts["variant:fused_maha=mma"],
+                         mma_d_min=_build.MAHA_MMA_D_MIN)
+            for sh, row in zip(shapes, entry["shapes"]):
+                row.update(variant=_build.eval_variant(kname, sh[2]), bound_ms=maha_bound(sh)[1],
+                           bound_fp32_ms=bound(kname, sh)[1])
         if kname in _build._DENSE:
             # past D = 16 the Gram pass: its launches on the main paths
             entry["launches_gram"] = counts["variant:%s=gram" % kname]
@@ -7835,8 +8123,11 @@ def main():
           "fused_maha and fused_logq past D=64 at TILED_SHAPES (N=2^16): ms the "
           "elected kernel's, tiled_ms the tiled kernel's, "
           "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
-          "called by the port), fused_maha's tiled_ms also at K=32, D=40, 2^20 beside its record "
-          "kernel; fused_pmc_stats, fused_is_pmc_step and fused_vb_estep at GRAM_TIME_SHAPES "
+          "called by the port), fused_maha at K=32, D=40, 2^20 also mma_ms, rec_ms and tiled_ms, "
+          "its three kernels forced, and their and torch.bmm's device times in CUDA graphs "
+          "(*_device_ms; variant: the one it elects; bound_ms the tensor-core bound, "
+          "three split TF32 products at D (not padded) over %.3g op/s, where that is the "
+          "tensor-core kernel, bound_fp32_ms the FP32 one; launches_mma its launches); fused_pmc_stats, fused_is_pmc_step and fused_vb_estep at GRAM_TIME_SHAPES "
           "(K D <= 128, "
           "D = 17-128, a one-component target, N=2^20): ms the Gram pass's, table_ms the "
           "entry table's, launches_gram the Gram pass's launches; "
@@ -7866,7 +8157,7 @@ def main():
           "(issue_floors: the same for the record kernels and draw_kernel it replaces, a loop's "
           "body counted once); "
           "library_ms null: no one PyTorch call computes these functions"
-          % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX))
+          % (N_SLICE, PEAK_BYTES, PEAK_FP32, N_PLAIN_MAX, PEAK_TF32))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -7932,6 +8223,21 @@ if __name__ == "__main__":
                 {"%d,%d" % (sh[0], sh[2]): {"%s %s" % (key[0], key[2]): ms for key, ms
                                              in table_shape_ms(dev, sh).items()}
                  for sh in GRAM_TIME_SHAPES}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--maha-times"]:
+            # phase build, then fused_maha's three kernels, torch.bmm and
+            # the plain version at MAHA_TIME_SHAPES, and the tensor-core
+            # kernel's SASS
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            print("MAHA_SASS " + json.dumps(maha_sass()), flush=True)
+            print("MAHA_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): maha_shape_ms(dev, sh, []) for sh in MAHA_TIME_SHAPES}),
+                flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--tiled-times"]:
             # phase build, then tiled_shape_ms at TILED_SHAPES

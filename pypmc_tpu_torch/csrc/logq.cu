@@ -86,16 +86,17 @@ extern "C" long long pmc_logq_smem_bytes(int K, int D) {
   return static_cast<long long>(pmc::eval_variant_smem(K, D, false));
 }
 
-// components a chunk of the kernel of fused_logq (kernel 0), fused_maha (1)
-// or fused_rho (2, whose records are fused_logq's): 1 where the elected
-// kernel is the tiled one (a component at a time)
+// components a chunk of the elected kernel of fused_logq (kernel 0),
+// fused_maha (1) or fused_rho (2, whose records are fused_logq's): 1 where
+// it is the tiled one (a component at a time)
 extern "C" int pmc_eval_chunk(int K, int D, int kernel) {
-  if (pmc::eval_variant(D) == pmc::kEvalTiled) return 1;
-  return pmc::eval_plan(K, D, kernel == 1).kc;
+  const int v = kernel == 1 ? pmc::maha_variant(D) : pmc::eval_variant(D);
+  if (v == pmc::kEvalTiled) return 1;
+  return v == pmc::kEvalMma ? pmc::mma_plan(K, D).kc : pmc::eval_plan(K, D, kernel == 1).kc;
 }
 
-// the kernel fused_logq, fused_maha and fused_rho elect at D (1 record, 2
-// tiled; checked against ops/_build.py eval_variant)
+// the kernel fused_logq and fused_rho elect at D (1 record, 2 tiled; checked
+// against ops/_build.py eval_variant; fused_maha's: pmc_maha_variant)
 extern "C" int pmc_eval_variant(int D) { return pmc::eval_variant(D); }
 
 // the tiled kernels' plan: out = {particles a tile, rows a row tile, depth

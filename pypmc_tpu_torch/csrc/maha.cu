@@ -12,7 +12,13 @@
 // written: FMA-bound.  A is read whole: the callers pass lower (inverse
 // Cholesky factors) and upper (transposed Cholesky factors of Wishart
 // scales) matrices alike.
-// Design, D <= 64 (maha_kernel): 256 threads a block, one particle a thread,
+// Design, 9 <= D <= 64 (from mma.cuh kMahaMmaDMin)
+// (maha_mma_kernel): the tensor-core product of mma.cuh, mma.sync m16n8k8 in
+// three split TF32 products, 32 particles a warp (16 past D = 40), the
+// components split once as they are staged; elsewhere to D = 64 it is forced
+// (variant "mma"), as the record kernel is where it is not elected.
+// Design, D <= 64 (maha_kernel, the record kernel): 256 threads a block,
+// one particle a thread,
 // x and x - m_k in registers (DMAX 8 to 64), the components as 16-byte VB
 // records (common.cuh vb_rec_floats: m | 4 zeros | A's rows padded to
 // float4s; at D = 40 6,576 B) read by broadcast LDS.128 in project's FMA
@@ -56,6 +62,18 @@ maha_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
       });
 }
 
+// DP: D padded to 8 (dispatch_mma); two blocks an SM (mma_plan's shared
+// memory)
+template <int DP>
+__global__ void __launch_bounds__(mma_threads(DP), 2)
+maha_mma_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
+                float* __restrict__ out, long long N, int K, int D) {
+  extern __shared__ float4 smem4[];
+  __builtin_assume(D > DP - 8 && D <= DP);   // dispatch_mma's
+  mma_maha<DP>(reinterpret_cast<float*>(smem4), xT, ops, ops + static_cast<long long>(K) * D * D,
+               out, N, K, D);
+}
+
 __global__ void __launch_bounds__(kTileThreads, 2)
 maha_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
                   float* __restrict__ out, long long N, int K, int D) {
@@ -73,6 +91,8 @@ struct MahaKernels {
   template <int DMAX>
   static auto rec() { return maha_kernel<DMAX>; }
   static auto tiled() { return maha_tiled_kernel; }
+  template <int DP>
+  static auto mma() { return maha_mma_kernel<DP>; }
 };
 
 }  // namespace pmc
@@ -89,8 +109,25 @@ extern "C" int pmc_maha_per_sm(int K, int D, int variant) {
   return pmc::eval_variant_per_sm<pmc::MahaKernels>(K, D, variant);
 }
 
-// variant: -1 the elected kernel (eval_variant), 1 the record, 2 the tiled
-// kernel
+// the kernel fused_maha elects at D (1 record, 2 tiled, 3 tensor-core;
+// checked against ops/_build.py eval_variant)
+extern "C" int pmc_maha_variant(int D) { return pmc::maha_variant(D); }
+
+// the tensor-core kernel's plan at (K, D <= 64): out = {components a chunk,
+// chunks, x tiles, particles a block tile, floats of a split component};
+// the shared memory a block
+extern "C" long long pmc_maha_mma_plan(int K, int D, int* out) {
+  const pmc::MmaPlan plan = pmc::mma_plan(K, D);
+  out[0] = plan.kc;
+  out[1] = plan.n_chunks;
+  out[2] = plan.x_buffers;
+  out[3] = pmc::mma_tile(D);
+  out[4] = pmc::mma_split_floats(D);
+  return static_cast<long long>(plan.smem);
+}
+
+// variant: -1 the elected kernel (maha_variant), 1 the record, 2 the tiled,
+// 3 the tensor-core kernel
 extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* out,
                               long long N, int K, int D, int variant, int n_blocks,
                               void* stream) {

@@ -16,7 +16,9 @@
 // A_k, D (D + 1) / 2 for a triangular U_k or L_k, against D + K (or D + 1,
 // or the transform's 2 D + 2) floats of a particle moved; no tensor cores,
 // since TF32 keeps ~3 digits and the products here are held to float32
-// tolerances (fused_transform's, bit for bit to its looped kernel).
+// tolerances (fused_transform's, bit for bit to its looped kernel); to D =
+// 64 fused_maha has a tensor-core kernel in three split TF32 products
+// (mma.cuh).
 //
 // Design.  A block of kTileThreads (256) walks its tiles (grid-stride over
 // slots of a tile source, below) and in each tile the components of the
@@ -81,6 +83,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace pmc {
 
@@ -453,39 +456,49 @@ __device__ __forceinline__ void tiled_eval(float* smem, const float* xT, const f
 }
 
 // fused_maha's, fused_logq's and fused_rho's variants (the launchers'
-// codes; -1 the elected one) and the one elected for D (ops/_build.py
-// eval_variant): the record kernel below kTiledDMin, the tiled kernel from
-// it
-constexpr int kEvalRec = 1, kEvalTiled = 2;
+// codes; -1 the elected one) and the one fused_logq and fused_rho elect for
+// D (ops/_build.py eval_variant): the record kernel below kTiledDMin, the
+// tiled kernel from it; fused_maha's third, the tensor-core kernel of
+// mma.cuh (kEvalMma, to D = 64), is maha_variant's
+constexpr int kEvalRec = 1, kEvalTiled = 2, kEvalMma = 3;
 static_assert(kTiledDMin <= kRecDMax + 1, "a record kernel below kTiledDMin");
 __host__ __device__ inline int eval_variant(int D) {
   return D < kTiledDMin ? kEvalRec : kEvalTiled;
 }
 
-// whether fused_maha's, fused_logq's and fused_rho's launchers have variant
-// v at D: the record kernel to D = 64, the tiled kernel at every D to
-// kWideDMax
-__host__ __device__ inline bool eval_has_variant(int D, int v) {
+// fused_maha's elected kernel at D (ops/_build.py eval_variant): the
+// tensor-core kernel from kMahaMmaDMin below kTiledDMin, else eval_variant's
+inline int maha_variant(int D) {
+  return D >= kMahaMmaDMin && D < kTiledDMin ? kEvalMma : eval_variant(D);
+}
+
+// whether fused_maha's (maha), fused_logq's and fused_rho's launchers have
+// variant v at D: the record kernel to D = 64 (and fused_maha's tensor-core
+// kernel), the tiled kernel at every D to kWideDMax
+__host__ __device__ inline bool eval_has_variant(int D, int v, bool maha) {
   if (D < 1 || D > kWideDMax) return false;
-  return v == kEvalTiled || (v == kEvalRec && D <= kRecDMax);
+  return v == kEvalTiled || ((v == kEvalRec || (maha && v == kEvalMma)) && D <= kRecDMax);
 }
 
 // The shared memory of fused_maha's (maha) or fused_logq's and fused_rho's
 // elected kernel at (K, D) (ops/_build.py eval_plan): the tiled kernel's,
-// else eval_plan's.
+// the tensor-core kernel's mma_plan, else eval_plan's.
 inline size_t eval_variant_smem(int K, int D, bool maha) {
-  return eval_variant(D) == kEvalTiled ? kTiledSmem : eval_plan(K, D, maha).smem;
+  const int v = maha ? maha_variant(D) : eval_variant(D);
+  if (v == kEvalTiled) return kTiledSmem;
+  return v == kEvalMma ? mma_plan(K, D).smem : eval_plan(K, D, maha).smem;
 }
 
 // Call body(kernel, threads, smem) with fused_maha's, fused_logq's or
-// fused_rho's kernel of variant v (-1: eval_variant's) at (K, D), its shared
-// memory set first as its limit; Kernels has ``maha`` (fused_maha's records)
-// and rec<DMAX>() and tiled(), the kernels.  body's result, the error of setting the limit,
-// or cudaErrorInvalidValue where v has no kernel at D.
+// fused_rho's kernel of variant v (-1: the elected one) at (K, D), its shared
+// memory set first as its limit; Kernels has ``maha`` (fused_maha's records
+// and its tensor-core kernel, mma<Dp>(), Dp = D padded to 8) and rec<DMAX>()
+// and tiled(), the kernels.  body's result, the error of setting the limit, or
+// cudaErrorInvalidValue where v has no kernel at D.
 template <typename Kernels, typename Body>
 int with_eval_variant(int K, int D, int variant, Body&& body) {
-  const int v = variant < 0 ? eval_variant(D) : variant;
-  if (!eval_has_variant(D, v)) return static_cast<int>(cudaErrorInvalidValue);
+  const int v = variant >= 0 ? variant : Kernels::maha ? maha_variant(D) : eval_variant(D);
+  if (!eval_has_variant(D, v, Kernels::maha)) return static_cast<int>(cudaErrorInvalidValue);
   const auto run = [&](auto kernel, int threads, size_t smem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -493,6 +506,14 @@ int with_eval_variant(int K, int D, int variant, Body&& body) {
     return body(kernel, threads, smem);
   };
   if (v == kEvalTiled) return run(Kernels::tiled(), kTileThreads, kTiledSmem);
+  if constexpr (Kernels::maha) {
+    if (v == kEvalMma) {
+      const size_t smem = mma_plan(K, D).smem;
+      return dispatch_mma(D, [&](auto dp) {
+        return run(Kernels::template mma<decltype(dp)::value>(), mma_threads(D), smem);
+      });
+    }
+  }
   const EvalPlan plan = eval_plan(K, D, Kernels::maha);
   auto rec = [&](auto dmax, auto) {
     return run(Kernels::template rec<decltype(dmax)::value>(), kEvalThreads, plan.smem);

@@ -61,8 +61,8 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
            "DRAW_THREADS", "TILED_D_MIN", "TRANSFORM_TILED_D_MIN", "DRAW_TILED_D_MIN",
            "draw_tiled_smem",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
-           "eval_variant", "tiled_plan", "transform_bucket_plan", "transform_slots",
-           "transform_scratch_words", "transform_tiles",
+           "eval_variant", "MAHA_MMA_D_MIN", "mma_plan", "tiled_plan", "transform_bucket_plan",
+           "transform_slots", "transform_scratch_words", "transform_tiles",
            "block_particles", "stats_tile", "dense_plan", "gram_layout", "transform_plan",
            "propose_plan", "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
@@ -91,6 +91,12 @@ _TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, _TILE_STRIDE = 128, 128, 16, 256, 132
 # first past the record kernels' 64: the tiled kernel beat the looped kernel
 # it replaced at D = 65, 96 and 128, PERF.md)
 TILED_D_MIN = 65
+# csrc/mma.cuh kMahaMmaDMin: the smallest D at which fused_maha elects its
+# tensor-core kernel (variant "mma") over the record kernel, to TILED_D_MIN:
+# in the record instantiations from DMAX 16 its device time beat the record
+# kernel's at every K timed there, in one call (chip_smoke.py --maha-times,
+# PERF.md)
+MAHA_MMA_D_MIN = 9
 # csrc/transform.cu kTransformTiledDMin: the smallest D at which
 # fused_transform elects its tiled pair (the bucket kernel, then the tiled
 # product), below it the looped kernel from D = 65 and the record kernel to
@@ -574,9 +580,42 @@ def tiled_plan():
 
 def eval_variant(kernel, D):
     """The kernel ``fused_logq``, ``fused_maha`` or ``fused_rho`` elects at
-    dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant``: ``"rec"``, the
-    record kernel, below :data:`TILED_D_MIN` and ``"tiled"`` from it."""
-    return "rec" if D < TILED_D_MIN else "tiled"
+    dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant`` and
+    ``maha_variant``: ``"rec"``, the record kernel, below
+    :data:`TILED_D_MIN` and ``"tiled"`` from it; ``fused_maha``'s
+    tensor-core kernel, ``"mma"``, from :data:`MAHA_MMA_D_MIN`."""
+    if D >= TILED_D_MIN:
+        return "tiled"
+    return "mma" if kernel == "fused_maha" and D >= MAHA_MMA_D_MIN else "rec"
+
+
+def _mma_warps(D):
+    """Warps a block of ``fused_maha``'s tensor-core kernel
+    (``csrc/mma.cuh`` ``mma_warps``): 8 to D = 24, 6 past it."""
+    return 8 if D <= 24 else 6
+
+
+def mma_plan(K, D):
+    """``(components a chunk, chunks, x tiles, particles a block tile,
+    floats of a split component, shared memory a block)`` of
+    ``fused_maha``'s tensor-core kernel at (K, D <= 64); mirrors
+    ``csrc/mma.cuh`` ``mma_plan``: a tile of its warps' particles (8 warps
+    to D = 24, 6 past it; 32 particles a warp to D = 40, 16 past it), its x
+    at D padded to 8; each component its VB record and its split record
+    (A's rows as hi and lo float4s, a row 4 (mod 8) float4s, then m's
+    pairs); in half an SM (two blocks an SM): all K components beside two x
+    tiles where they fit, else one x tile and equal chunks of as many as
+    fit."""
+    Dp = -(-D // 8) * 8
+    tile = _mma_warps(D) * 16 * (2 if D <= 40 else 1)
+    row4 = Dp // 2 + (4 if Dp // 2 % 8 == 0 else 0)
+    split = 4 * Dp * row4 + Dp
+    x, comp = 4 * Dp * tile, 4 * (_rec_floats(D, vb=True) + split)
+    if 2 * x + K * comp <= _HALF_SMEM:
+        return K, 1, 2, tile, split, 2 * x + K * comp
+    n_chunks = -(-K // ((_HALF_SMEM - x) // comp))
+    kc = -(-K // n_chunks)
+    return kc, n_chunks, 1, tile, split, x + kc * comp
 
 
 def eval_plan(kernel, K, D, variant=None):
@@ -588,11 +627,16 @@ def eval_plan(kernel, K, D, variant=None):
     the whole mixture in one buffer where it fits half an SM's shared
     memory, else two buffers of the largest equal chunks that do.  The
     tiled kernel takes a component at a time, its panels in two buffers
-    (:func:`tiled_plan`)."""
+    (:func:`tiled_plan`); ``fused_maha``'s tensor-core kernel the chunks of
+    :func:`mma_plan`, a chunk's records and its split records the two
+    buffers where there is more than one chunk."""
     maha = kernel == "fused_maha"
     variant = eval_variant(kernel, D) if variant is None else variant
     if variant == "tiled":
         return 1, 2, tiled_plan()[4]
+    if variant == "mma":
+        kc, n_chunks, _, _, _, smem = mma_plan(K, D)
+        return kc, 1 if n_chunks == 1 else 2, smem
     rec = 4 * _rec_floats(D, vb=maha)
     if K * rec <= _HALF_SMEM:
         return K, 1, K * rec
@@ -604,20 +648,24 @@ def eval_plan(kernel, K, D, variant=None):
 def eval_threads(D, variant=None):
     """Threads of a block of the kernel ``fused_logq``, ``fused_rho`` and
     ``fused_maha`` elect for dimension D (with ``variant``, of that kernel);
-    mirrors ``csrc/common.cuh`` ``kEvalThreads`` and ``csrc/tiled.cuh``
-    ``kTileThreads``."""
+    mirrors ``csrc/common.cuh`` ``kEvalThreads``, ``csrc/tiled.cuh``
+    ``kTileThreads`` and, for ``fused_maha``'s tensor-core kernel,
+    ``csrc/mma.cuh`` ``mma_threads`` (256 to D = 24, 192 past it)."""
     variant = eval_variant("fused_rho", D) if variant is None else variant
-    return {"rec": EVAL_THREADS, "tiled": _TILE_THREADS}[variant]
+    return {"rec": EVAL_THREADS, "mma": 32 * _mma_warps(D), "tiled": _TILE_THREADS}[variant]
 
 
 def block_particles(kernel, D, variant=None):
     """Particles a block of ``kernel`` takes at a time in dimension D (its
     grid is one wave of blocks over N / this; ``variant``, a kernel of
     ``fused_logq``, ``fused_rho``, ``fused_maha`` or a draw other than the
-    one it elects): a thread a particle, and a tile of 128 in the tiled
-    kernels."""
+    one it elects): a thread a particle, a tile of 128 in the tiled
+    kernels, and of 256 (192 past D = 24, 96 past D = 40) in
+    ``fused_maha``'s tensor-core kernel."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         variant = eval_variant(kernel, D) if variant is None else variant
+        if variant == "mma":
+            return mma_plan(1, D)[3]
         return _TILE_P if variant == "tiled" else EVAL_THREADS
     if kernel in DRAWS:
         variant = variant or draw_plan(kernel, 1, D)[0]
@@ -880,8 +928,12 @@ def _declare(lib):
     lib.pmc_blocked_chunk.restype = ctypes.c_int
     lib.pmc_eval_chunk.argtypes = [I, I, I]      # K, D, kernel (0 logq, 1 maha, 2 rho)
     lib.pmc_eval_chunk.restype = ctypes.c_int
-    lib.pmc_eval_variant.argtypes = [I]          # D -> fused_logq's and fused_maha's kernel
+    lib.pmc_eval_variant.argtypes = [I]          # D -> fused_logq's and fused_rho's kernel
     lib.pmc_eval_variant.restype = ctypes.c_int
+    lib.pmc_maha_variant.argtypes = [I]          # D -> fused_maha's kernel
+    lib.pmc_maha_variant.restype = ctypes.c_int
+    lib.pmc_maha_mma_plan.argtypes = [I, I, P]   # K, D, int out[5]
+    lib.pmc_maha_mma_plan.restype = ctypes.c_longlong
     lib.pmc_tiled_plan.argtypes = [P]            # int out[4]
     lib.pmc_tiled_plan.restype = ctypes.c_longlong
     # K, D, variant -> blocks an SM holds

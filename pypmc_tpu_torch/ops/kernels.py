@@ -80,7 +80,8 @@ draws ``fused_transform``, ``fused_transform_rng`` and
 or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
 products), ``_build.transform_plan``, ``_build.propose_plan``;
 ``fused_logq``, ``fused_maha`` and ``fused_rho``: the record or the tiled
-kernel, ``_build.eval_variant``), each launch's
+kernel, and ``fused_maha``'s tensor-core kernel (``"mma"``, three split
+TF32 products to D = 64), ``_build.eval_variant``), each launch's
 variant as ``variant:<kernel>=<variant>``.  Each of these wrappers but
 ``fused_rho`` takes a ``variant=`` that forces another variant where the
 shape has it, as the yardstick of the election.
@@ -426,8 +427,9 @@ _DENSE_VARIANTS = ("table", "reg", "gram")   # the launchers' variant codes 0, 1
 # the draws' kernels and the launchers' variant codes (-1: the plan's)
 _DRAW_VARIANTS = {"looped": 0, "rec": 1, "tiled": 2}
 # fused_logq's, fused_maha's and fused_rho's kernels and the launchers'
-# codes (-1: the elected one)
-_EVAL_VARIANTS = {"rec": 1, "tiled": 2}
+# codes (-1: the elected one); "mma", fused_maha's tensor-core kernel, is
+# fused_maha's only
+_EVAL_VARIANTS = {"rec": 1, "tiled": 2, "mma": 3}
 
 
 def _variant_names(kernel):
@@ -435,8 +437,15 @@ def _variant_names(kernel):
     if kernel in _build.DRAWS:
         return tuple(_DRAW_VARIANTS)
     if kernel in _build.TILED:
-        return tuple(_EVAL_VARIANTS)
+        return tuple(v for v in _EVAL_VARIANTS if v != "mma" or kernel == "fused_maha")
     return _DENSE_VARIANTS
+
+
+def _eval_variants(kernel, D):
+    """The kernels of ``fused_logq``, ``fused_maha`` or ``fused_rho`` at D:
+    the record kernel (and fused_maha's tensor-core kernel) to D = 64, the
+    tiled kernel at any D."""
+    return tuple(v for v in _variant_names(kernel) if v == "tiled" or D <= _build._REC_D_MAX)
 
 
 def _transform_variants(D):
@@ -453,9 +462,10 @@ def _elect(kernel, K, D, variant, Kt=0):
     for None (``_build.draw_plan``, ``_build.dense_plan``,
     ``_build.eval_variant``), else ``variant`` where the shape has it -- the
     plan's, or its yardstick (the entry table beside the register or the
-    Gram pass, the tiled kernel beside the record kernel; a draw any of
-    :func:`_transform_variants`); ``ValueError`` elsewhere, on any
-    device."""
+    Gram pass; any of :func:`_eval_variants`, the tiled kernel beside the
+    record kernel and ``fused_maha``'s tensor-core kernel beside both; a
+    draw any of :func:`_transform_variants`); ``ValueError`` elsewhere, on
+    any device."""
     if kernel in _build.DRAWS:
         elected = _build.draw_plan(kernel, K, D, Kt)[0]
         if variant is None or variant in _transform_variants(D):
@@ -464,7 +474,7 @@ def _elect(kernel, K, D, variant, Kt=0):
                          % (kernel, variant, K, D, elected))
     if kernel in _build.TILED:
         elected = _build.eval_variant(kernel, D)
-        if variant in (None, elected, "tiled"):
+        if variant is None or variant in _eval_variants(kernel, D):
             return elected if variant is None else variant
         raise ValueError("%s: no %r variant at K=%d, D=%d (the plan: %s)"
                          % (kernel, variant, K, D, elected))
@@ -1018,7 +1028,9 @@ def fused_maha(xT, a, m, variant=None):
     upper or full) and centers ``m (K, D)`` (kernel ``csrc/maha.cu``).
     ``torch.func.vmap`` maps it over a batch of particle blocks with one
     launch: ``(K, B, N)``.  ``variant``: the kernel, as
-    :func:`fused_logq`'s; counted as ``variant:fused_maha=<variant>``.
+    :func:`fused_logq`'s, or ``"mma"``, the tensor-core kernel (to D = 64;
+    elected from D = ``_build.MAHA_MMA_D_MIN``);
+    counted as ``variant:fused_maha=<variant>``.
 
     The TPU kernel takes ``b_k = a_k m_k`` and a coordinate center; the
     port takes the centers and forms ``x - m_k`` before the product."""

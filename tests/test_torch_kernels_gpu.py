@@ -78,6 +78,21 @@ def test_maha_rho_vb_estep_against_plain_versions(cuda, case):
     chip_smoke.eval_case(case, cuda, [])
 
 
+@pytest.mark.parametrize("case", [(K, D, 20_011, seed) for K, D, _, seed in chip_smoke.MAHA_CASES])
+def test_maha_kernels_at_the_rules_largest_k(cuda, case):
+    """fused_maha's record, tensor-core and tiled kernels at the JAX rule's
+    largest K at D=17, 20 and 64, lower and upper operands, a dead
+    component, ragged N: each within TOL["maha"] of float64, equal on a
+    second run."""
+    chip_smoke.maha_case(case, cuda, [])
+
+
+def test_maha_non_finite_particles(cuda):
+    """The tensor-core kernel's NaNs and infinities are the record
+    kernel's."""
+    chip_smoke.maha_nonfinite_case(cuda, [])
+
+
 def test_vb_estep_non_finite_particles(cuda):
     chip_smoke.vb_nonfinite_case(cuda, [])
 

@@ -238,8 +238,12 @@ def test_eval_plan_streams_records_in_chunks():
         ("fused_rho", 1, 128): (1, 2, 41_600),
     }
     for (kernel, K, D), plan in pinned.items():
-        assert _build.eval_plan(kernel, K, D) == plan, (kernel, K, D)
-        assert plan[2] == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
+        # fused_maha's record kernel, forced where its tensor-core kernel is
+        # elected
+        variant = "rec" if D <= 64 else None
+        assert _build.eval_plan(kernel, K, D, variant) == plan, (kernel, K, D)
+        assert _build.eval_plan(kernel, K, D)[2] == _build.smem_bytes(kernel, K, D)
+        assert plan[2] <= _build.SMEM_LIMIT and _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
         _build.check_limits(kernel, K, D)
     # two blocks of 256 threads (16 warps) share an SM's 228 KB at K=32,
     # D=40, three of the K=200, D=10 log-density's
@@ -250,9 +254,10 @@ def test_eval_plan_streams_records_in_chunks():
         assert 3 * (_build.eval_plan(kernel, 32, 40)[2] + 1024) > 228 * 1024
     assert 3 * (_build.eval_plan("fused_logq", 200, 10)[2] + 1024) <= 228 * 1024
     # a chunk's records fit half an SM however many components there are
+    # (fused_maha's tensor-core kernel: tests/test_torch_maha_mma.py)
     for kernel in ("fused_logq", "fused_maha"):
         for K, D in ((5000, 10), (1000, 64), (100, 33)):
-            kc, buffers, smem = _build.eval_plan(kernel, K, D)
+            kc, buffers, smem = _build.eval_plan(kernel, K, D, "rec")
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
     assert _build.eval_plan("fused_rho", 4, 128) == (1, 2, 41_600)
     # fused_rho streams fused_logq's records to D = 64 and takes the tiled
@@ -336,7 +341,9 @@ def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
     assert 65 <= first <= 129
     elect = ((lambda K, D: _build.transform_plan(K, D)[0]) if draw
              else (lambda K, D: _build.eval_variant(kernel, D)))
-    assert [elect(1, D) for D in (1, 64, first, 2040)] == ["rec"] * 2 + ["tiled"] * 2
+    below = ["mma" if kernel == "fused_maha" and D >= _build.MAHA_MMA_D_MIN else "rec"
+             for D in (1, 64)]
+    assert [elect(1, D) for D in (1, 64, first, 2040)] == below + ["tiled"] * 2
     admitted = 0
     for K in sorted(set(GRID_K) | {3, 19, 30, 41, 60}):
         for D in range(65, 2041):
@@ -764,6 +771,11 @@ def _variant_call(kernel, K, D, variant):
     ("fused_maha", 3, 10, "rec", True), ("fused_maha", 3, 10, "tiled", True),
     ("fused_maha", 1, 65, "rec", False), ("fused_maha", 1, 129, "tiled", True),
     ("fused_maha", 1, 129, "warp", False), ("fused_maha", 3, 4, "reg", False),
+    # fused_maha's tensor-core kernel to D = 64, beside the record and the
+    # tiled kernel; fused_logq has none
+    ("fused_maha", 3, 10, "mma", True), ("fused_maha", 1, 64, "mma", True),
+    ("fused_maha", 1, 64, "rec", True), ("fused_maha", 1, 65, "mma", False),
+    ("fused_logq", 3, 10, "mma", False), ("fused_logq", 1, 65, "mma", False),
 ])
 def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, ok):
     """A wrapper's variant= names the plan's pass or its yardstick; any
