@@ -30,10 +30,11 @@ Phases, each of which exits non-zero on failure:
    ``fused_propose_logq`` K=9 with a 2-component target, the fused draws
    at K=32 and K=11; at least 16 warps); the tiled kernels of
    ``fused_maha``, ``fused_logq``, ``fused_rho`` and ``fused_transform``,
-   the bucket kernel and the drawn products of ``fused_transform_rng`` and
-   ``fused_propose_logq`` (no spill), their blocks an SM (the drawn
-   products' at least 2 with row tile 0's panels past D=128), their
-   election and the bucket kernel's plan against ``_build``; the Gram pass
+   the bucket pass, the moves into and out of bucket order and the drawn
+   products of ``fused_transform_rng`` and ``fused_propose_logq`` (no
+   spill), their blocks an SM (the drawn products' at least 2 with row
+   tile 0's panels past D=128), their election and the bucket pass's plan
+   and scratch layout against ``_build``; the Gram pass
    of ``fused_pmc_stats``, ``fused_is_pmc_step`` and ``fused_vb_estep``
    (``gram_stats_kernel``, a mode each, two instantiations a mode, no
    spill; its plan and blocks an SM at ``GRAM_SHAPES``); ``fused_maha``'s
@@ -62,8 +63,10 @@ Phases, each of which exits non-zero on failure:
    version, counted as tiled, equal on a second run, ``fused_rho``'s log q
    ``fused_logq``'s bit for bit, ``fused_transform``'s tiled pair equal to
    its looped kernel bit for bit to D=128 (components drawn by weight, a
-   dead component's bucket empty) and its bucket kernel's permutation and
-   tiles equal to ``_build.transform_tiles``'; the drawn products of
+   dead component's bucket empty) and its bucket pass's positions,
+   permutation and tiles equal to ``_build.transform_tiles``' (also at
+   ``BUCKET_CASES``, to N=2^22, latents outside [0, K) left out); the drawn
+   products of
    ``fused_propose_logq`` and ``fused_transform_rng`` (``DRAWN_CASES``:
    K=1 and the rule's largest K + Kt at D=65, 96, 128, 129, K=1 at D=200
    and 248): counted as tiled, x and latent equal to the looped kernel's
@@ -319,9 +322,11 @@ Phases, each of which exits non-zero on failure:
     the four tiled kernels at ``TILED_SHAPES`` (K=1 and the rule's largest
     K at D=65, 96, 128 and 200, the wide path's K=4 at D=200; in turns with
     their plain versions, ``torch.bmm`` yardsticks and ``fused_transform``'s
-    looped kernel; its bucket kernel alone; ``chip_smoke.py --tiled-times``
-    runs them alone, ``--elected-times DIR`` times the kernels a checkout
-    elects there, such as an earlier commit's), and the device time of each launch of the K-blocked kernels
+    looped kernel; its bucket pass alone, and torch.bmm in CUDA graphs;
+    ``chip_smoke.py --tiled-times`` runs them alone, ``--elected-times
+    DIR`` times the kernels a checkout elects there, such as an earlier
+    commit's, ``--transform-split`` fused_transform's pair with its moves
+    left out), and the device time of each launch of the K-blocked kernels
     (torch.profiler, in a fresh process: ``chip_smoke.py
     --blocked-splits``), the first launch also beside its bound;
     ``solve_dofs``'s warp and serial kernels (CUDA events, and device time
@@ -1786,8 +1791,8 @@ def tiled_case(case, device, report):
 def transform_tiled_case(params, tag, seed, N, device, report):
     """fused_transform past D = 64 on N normals, components drawn by weight
     (component_draw) and scales (a Student-t mixture's sqrt(dof / chi2),
-    else uniform in [0.5, 1.5)): the bucket kernel's perm and slots equal to
-    ``_build.transform_tiles``' on the same components; the elected launch
+    else uniform in [0.5, 1.5)): the bucket pass's perm, slots and pos equal
+    to ``_build.transform_tiles``' on the same components; the elected launch
     counted under its variant; the tiled pair (forced where the looped kernel
     is elected) to D = 128 equal to the looped kernel bit for bit and past it
     within TOL "log" of its float64 plain version; equal on a second run."""
@@ -1804,11 +1809,11 @@ def transform_tiled_case(params, tag, seed, N, device, report):
     latent = component_draw(params, N, seed)
     scale = (student_t_scale(gen, params.dof[latent.long()], (N,)) if ops.student_t
              else torch.rand((N,), generator=gen, device=device) + 0.5)
-    perm, slots = k._transform_buckets(latent, K)
-    want_perm, want_slots = _build.transform_tiles(latent.cpu().numpy(), K)
-    require(np.array_equal(perm.cpu().numpy(), want_perm)
-            and np.array_equal(slots.cpu().numpy(), want_slots),
-            "%s: the bucket kernel's perm and slots differ from _build.transform_tiles'" % tag)
+    got_layout = [t.cpu().numpy() for t in k._transform_buckets(latent, K)]
+    want_layout = _build.transform_tiles(latent.cpu().numpy(), K)
+    want_slots = want_layout[1]
+    require(all(np.array_equal(a, b) for a, b in zip(got_layout, want_layout)),
+            "%s: the bucket pass's perm, slots and pos differ from _build.transform_tiles'" % tag)
     empty = K - len(set(want_slots[want_slots[:, 0] >= 0, 0].tolist()))
     elected = k._elect("fused_transform", K, D, None)
     k.reset_launch_counts()
@@ -1830,6 +1835,56 @@ def transform_tiled_case(params, tag, seed, N, device, report):
                 "%d outputs" % (tag, differ))
     require(bool(torch.equal(got, k.fused_transform(zT, latent, scale, ops, variant="tiled"))),
             "%s fused_transform: one input gave two outputs" % tag)
+
+
+def bucket_case(case, device):
+    """The bucket pass on the card at one (K, N): components drawn uniformly
+    (numpy, seed), every 97th outside [0, K) (left out), its perm, slots and
+    pos equal to ``_build.transform_tiles``' bit for bit and to a second
+    run's; fused_transform's moves into and out of bucket order held by the
+    tiled pair on the same components (all valid) against the looped kernel
+    at D = 65, bit for bit."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    K, N, seed = case
+    rng = np.random.default_rng(seed)
+    lat = rng.integers(0, K, N).astype(np.int32)
+    lat[::97] = K
+    latent = torch.as_tensor(lat, device=device)
+    want = _build.transform_tiles(lat, K)
+    got = [t.cpu().numpy() for t in k._transform_buckets(latent, K)]
+    again = [t.cpu().numpy() for t in k._transform_buckets(latent, K)]
+    differ = [int((a != b).sum()) for a, b in zip(got, want)]
+    print("  bucket pass K=%d N=%d (%d blocks): perm, slots, pos %s entries differ from "
+          "_build.transform_tiles'" % (K, N, _build.transform_bucket_blocks(N), differ))
+    require(sum(differ) == 0, "the bucket pass at K=%d N=%d differs from its mirror: %s"
+            % (K, N, differ))
+    require(all(np.array_equal(a, b) for a, b in zip(got, again)),
+            "the bucket pass at K=%d N=%d: one input gave two layouts" % (K, N))
+    if N > 1 << 18:
+        return
+    D = 65
+    params = make_params(random_mixture(rng, K, D, False), device)
+    ops = core._kernel_operands(params)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zT = torch.randn((D, N), generator=gen, device=device)
+    scale = torch.rand((N,), generator=gen, device=device) + 0.5
+    latent = torch.as_tensor(lat % K, device=device)
+    x = k.fused_transform(zT, latent, scale, ops, variant="tiled")
+    differ = int((x != k.fused_transform(zT, latent, scale, ops, variant="looped")).sum())
+    require(differ == 0, "fused_transform at K=%d D=%d N=%d: the tiled pair and the looped "
+            "kernel differ in %d outputs" % (K, D, N, differ))
+
+
+# the bucket pass at the edges of its runs (one particle; 512, a run; one
+# past it; 2^16, 128 blocks; 2^20 + 3, nine particles a thread, 456
+# blocks; 2^22, 512 blocks of 32 a thread), the JAX rule's largest K past D
+# = 64 among them: K, N, seed
+BUCKET_CASES = [(2, 1, 401), (3, 512, 402), (60, 513, 403), (19, 65536, 404),
+                (60, 65537, 405), (4, (1 << 20) + 3, 406), (7, 1 << 22, 407)]
 
 
 # past the record kernels' D = 64, the tiled kernels of fused_maha,
@@ -2328,6 +2383,8 @@ def phase_kernels(device, cases, eval_cases):
         torch.cuda.empty_cache()
     for case in TILED_CASES:
         tiled_case(case, device, report)
+    for case in BUCKET_CASES:
+        bucket_case(case, device)
     torch.cuda.empty_cache()
     for case in DRAWN_CASES:
         drawn_case(case, device, report)
@@ -4750,12 +4807,18 @@ def phase_wide_vb(device, report):
 # parent commit's warp kernels bit for bit (``--parent-draws``)
 PARENT_DRAW_SHAPES = [(1, 1, 129, 20_003), (2, 0, 129, 20_003), (1, 1, 200, 20_003),
                       (1, 0, 248, 20_003), (1, 0, 1000, 4_099)]
+# fused_transform's tiled pair past D = 128 against the parent's (TILED_CASES'
+# shapes there, and the wide path's K = 4 at D = 200): K, Kt, D, N
+PARENT_TRANSFORM_SHAPES = [(1, 0, 129, N_WIDE), (30, 0, 129, 4099), (1, 0, 200, 4099),
+                           (19, 0, 200, N_WIDE), (4, 0, 200, N_WIDE), (1, 0, 1000, N_WIDE),
+                           (3, 0, 2040, 4099)]
 
 
 def draw_outputs(device):
     """``{shape: (xT, latent, log_q, log_p, x of fused_transform_rng)}`` on the
     host, of the package imported, at PARENT_DRAW_SHAPES on drawn_inputs
-    (seed words (7, 1) and (7, 3))."""
+    (seed words (7, 1) and (7, 3)); ``{"transform " + shape: x}`` of
+    fused_transform at PARENT_TRANSFORM_SHAPES on tiled_inputs."""
     from pypmc_tpu_torch.ops import kernels as k
 
     out = {}
@@ -4764,15 +4827,19 @@ def draw_outputs(device):
         prop = k.fused_propose_logq((7, 1), a["ops"], shape[3], a["tops"])
         x = k.fused_transform_rng((7, 3), a["latent"], a["ops"])
         out["%d,%d,%d,%d" % shape] = [t.cpu() for t in prop] + [None] * (4 - len(prop)) + [x.cpu()]
+    for shape in PARENT_TRANSFORM_SHAPES:
+        a = tiled_inputs(device, shape)
+        out["transform %d,%d,%d,%d" % shape] = k.fused_transform(
+            a["zT"], a["latent"], a["scale"], a["ops"]).cpu()
     return out
 
 
 def parent_draws(device, parent):
     """The drawn products against the kernels the checkout ``parent`` elects
-    (its warp kernels past D = 128) at PARENT_DRAW_SHAPES, the parent's
-    outputs made in a child process (``--draw-outputs``): x and latent equal
-    bit for bit, log q and log p within TOL "log" of each other; the counts
-    of outputs that differ printed."""
+    at PARENT_DRAW_SHAPES, and fused_transform at PARENT_TRANSFORM_SHAPES,
+    the parent's outputs made in a child process (``--draw-outputs``): x and
+    latent equal bit for bit, log q and log p within TOL "log" of each
+    other; the counts of outputs that differ printed."""
     import torch
 
     path = "build/parent_draws.pt"
@@ -4783,6 +4850,13 @@ def parent_draws(device, parent):
     theirs, ours = torch.load(path), draw_outputs(device)
     for key, mine in ours.items():
         other = theirs[key]
+        if key.startswith("transform "):
+            differ = int((mine != other).sum())
+            print("  parent fused_transform K,Kt,D,N=%s: %d of %d x differ"
+                  % (key.split()[1], differ, mine.numel()))
+            require(differ == 0, "fused_transform differs from the parent's kernels at %s in %d "
+                    "outputs" % (key, differ))
+            continue
         differ = [int((a != b).sum()) for a, b in ((mine[0], other[0]), (mine[1], other[1]),
                                                    (mine[4], other[4]))]
         print("  parent draws K,Kt,D,N=%s: x %d, latent %d, fused_transform_rng x %d of %d, %d, "
@@ -6895,12 +6969,15 @@ def tiled_calls(k, a):
 
 def elected_ms(device, shape):
     """``{name: ms}`` of the kernel each wrapper of TILED_TIMED elects at
-    ``shape`` in the package imported, CUDA events on tiled_inputs: in an
-    earlier checkout, the kernels the tiled ones replaced."""
+    ``shape`` in the package imported, CUDA events on tiled_inputs, and
+    "fused_transform device", its device ms (graph_ms): in an earlier
+    checkout, the kernels the tiled ones replaced or redesigned."""
     from pypmc_tpu_torch.ops import kernels as k
 
     calls = tiled_calls(k, tiled_inputs(device, shape))
-    return {name: cuda_ms(calls[name][0]) for name in TILED_TIMED}
+    out = {name: cuda_ms(calls[name][0]) for name in TILED_TIMED}
+    out["fused_transform device"] = graph_ms(calls["fused_transform"][0])
+    return out
 
 
 # the shapes (K, Kt, D, N) at which the drawn tiled products of
@@ -6946,13 +7023,15 @@ def drawn_calls(k, a, N):
 
 def drawn_elected_ms(device, shape):
     """``{name: ms}`` of the kernel each wrapper of DRAWN_TIMED elects at
-    ``shape`` in the package imported, CUDA events on drawn_inputs: in an
-    earlier checkout, the looped and warp kernels the drawn products
-    replaced."""
+    ``shape`` in the package imported, CUDA events on drawn_inputs, and
+    ``"<name> device"``, its device ms (graph_ms): in an earlier checkout,
+    the kernels the drawn products replaced or redesigned."""
     from pypmc_tpu_torch.ops import kernels as k
 
     calls = drawn_calls(k, drawn_inputs(device, shape), shape[3])
-    return {name: cuda_ms(calls[name][0]) for name in DRAWN_TIMED}
+    out = {name: cuda_ms(calls[name][0]) for name in DRAWN_TIMED}
+    out.update({name + " device": graph_ms(calls[name][0]) for name in DRAWN_TIMED})
+    return out
 
 
 def drawn_shape_ms(device, shape):
@@ -7178,9 +7257,11 @@ def tiled_shape_ms(device, shape):
     ``torch.bmm(a, xc)`` on the pre-centred (K, D, N) operand for the
     evaluations (fused_rho's a = U, as fused_logq's), ``torch.bmm(L, Zb)``
     for fused_transform, on normals pre-bucketed into a (K, D, N / K)
-    operand, the product alone; and fused_transform's two launches' device
-    time (graph_ms, no host gaps): "bucket", the bucket kernel alone, and
-    "product", the pair's less the bucket kernel's."""
+    operand, the product alone; and fused_transform's device times
+    (graph_ms, no host gaps): "bucket", the bucket pass alone (0 at K = 1,
+    where the pair is one launch), "product", the pair's less the bucket
+    pass's (the moves into and out of bucket order and the product), and
+    "library_device", torch.bmm's."""
     import torch
     from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
@@ -7240,17 +7321,98 @@ def tiled_shape_ms(device, shape):
             out[(name, "cuda")] = out[(name, elected)]
         extra = ""
         if name == "fused_transform":
-            out[(name, "bucket")] = graph_ms(lambda i: k._transform_buckets(tr[1], K))
+            out[(name, "bucket")] = (graph_ms(lambda i: k._transform_buckets(tr[1], K))
+                                     if K > 1 else 0.0)
             out[(name, "product")] = graph_ms(call) - out[(name, "bucket")]
-            extra = ", device: bucket kernel %.4f ms, product %.4f ms; elected %s%s" % (
-                out[(name, "bucket")], out[(name, "product")], elected,
-                ", looped %s ms" % " / ".join("%.3f" % t for t in ms["looped"])
-                if "looped" in ms else "")
+            out[(name, "library_device")] = graph_ms(library)
+            extra = (", device: bucket pass %.4f ms, the rest (moves and product) %.4f ms, "
+                     "bmm %.4f ms; elected %s%s" % (
+                         out[(name, "bucket")], out[(name, "product")],
+                         out[(name, "library_device")], elected,
+                         ", looped %s ms" % " / ".join("%.3f" % t for t in ms["looped"])
+                         if "looped" in ms else ""))
         print("  %s %s: tiled %s ms, plain %s ms, library (bmm) %s ms, bound %.3f ms%s"
               % (name, label, *(" / ".join("%.3f" % t for t in ms[route])
                                 for route in ("tiled", "plain", "library")),
                  bound(name, shape)[1], extra))
     return out
+
+
+# fused_transform's pair with parts of its data movement left out, built
+# from csrc/transform.cu with the PMC_TRANSFORM_OFF mask (0 in the
+# library): 1 the move of z and the scales into bucket order, 2 the move of
+# x out of it (the product then reads and stores in bucket order whatever
+# is there); the outputs of a variant with a part left out are wrong by
+# design and not checked
+TRANSFORM_OFF = {"all": 0, "no move in": 1, "no move out": 2, "neither": 3}
+# the shapes of the split: the JAX rule's largest K at D = 65, 96, 128 and
+# 200, the wide path's K = 4 at D = 200, and K = 1 at D = 65 and 200
+SPLIT_SHAPES = [(K, 0, D, 1 << 16) for K, D in ((60, 65), (1, 65), (41, 96), (30, 128),
+                                               (19, 200), (4, 200), (1, 200))]
+
+
+def transform_split(device, out_dir="build/transform_split"):
+    """``{"K,D": {variant: device ms}}``: fused_transform's tiled pair (the
+    variant's launches through pmc_fused_transform, variant 2) built with
+    each TRANSFORM_OFF mask, one nvcc a mask, all at once, on tiled_inputs
+    at SPLIT_SHAPES, in turns (all, each variant, then in reverse; the
+    mean of the two), device ms in CUDA graphs (graph_ms); "bucket" the
+    bucket pass alone (the library's)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    out = Path(out_dir)
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    paths = {name: out / ("lib_%d.so" % mask) for name, mask in TRANSFORM_OFF.items()}
+    log, rc = _build._run_all(
+        [[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-DPMC_TRANSFORM_OFF=%d" % mask, "-o",
+          str(paths[name]), str(_build.CSRC / "transform.cu")]
+         for name, mask in TRANSFORM_OFF.items()])
+    require(rc == 0, "transform_split: nvcc failed:\n%s" % log[-4000:])
+    fns = {}
+    for name, path in paths.items():
+        fn = getattr(ctypes.CDLL(str(path)), "pmc_fused_transform")
+        fn.argtypes, fn.restype = _build.signatures()["pmc_fused_transform"], ctypes.c_int
+        fns[name] = fn
+    result = {}
+    for shape in SPLIT_SHAPES:
+        K, _, D, N = shape
+        a = tiled_inputs(device, shape)
+        ops = a["ops"]
+        zT, latent, scale = a["zT"], a["latent"], a["scale"]
+        operands = k._transform_operands(ops)
+        scratch = k._draw_scratch("tiled", N, K, D, device)
+        n_blocks = k._draw_blocks("fused_transform", device, N, K, D, "tiled")
+        xT = k._transform_output(D, N, K, "tiled", device)
+
+        def call(fn):
+            err = fn(zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(), xT.data_ptr(), N, K, D,
+                     2, n_blocks, torch.cuda.current_stream(device).cuda_stream)
+            require(err == 0, "transform_split: CUDA error %d" % err)
+
+        call(fns["all"])
+        want = k.fused_transform(zT, latent, scale, ops, variant="tiled")
+        require(bool(torch.equal(xT, want)), "transform_split: the whole pair's build differs "
+                "from the library's at K=%d D=%d" % (K, D))
+        ms = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                ms[name].append(graph_ms(lambda i, fn=fns[name]: call(fn)))
+        row = {name: sum(t) / len(t) for name, t in ms.items()}
+        row["bucket"] = graph_ms(lambda i: k._transform_buckets(latent, K)) if K > 1 else 0.0
+        result["%d,%d" % (K, D)] = row
+        print("  fused_transform K=%d D=%d N=%d: device ms %s" % (
+            K, D, N, ", ".join("%s %.4f" % (name, v) for name, v in row.items())), flush=True)
+        del a, zT, latent, scale, operands, scratch, xT, want
+        torch.cuda.empty_cache()
+    return result
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes a second
@@ -7562,14 +7724,19 @@ def gram_kernels(log):
             "ptxas reported the Gram pass's kernels %s" % [n for n, _, _, _ in out])
     return out
 # the tiled engine's kernels (csrc/tiled.cuh), by their names' mangled
-# spelling: the evaluations', fused_transform's product, the bucket kernel
-# (two instantiations: the components given, GivenLatents, and drawn,
-# DrawnLatents) and the drawn products of fused_transform_rng and
-# fused_propose_logq (eight: OFF 0 and 1, the seed by value and by pointer,
-# BucketTiles and ParticleTiles)
+# spelling: the evaluations', fused_transform's product (two: ParticleTiles
+# at K = 1, RunTiles), the bucket pass's two kernels (two each: the
+# components given, GivenLatents, and drawn, DrawnLatents), the order of
+# the moves into and out of bucket order (rank: transform.cu's and
+# propose_logq.cu's) and the moves (in, and out in both), and the drawn
+# products of fused_transform_rng and fused_propose_logq (eight: OFF 0 and
+# 1, the seed by value and by pointer, RunTiles and ParticleTiles)
 TILED_KERNELS = ("maha_tiled_kernel", "logq_tiled_kernel", "rho_tiled_kernel",
-                 "transform_tiled_kernel", "transform_bucket_kernel", "draw_tiled_kernel")
-TILED_INSTANTIATIONS = {"transform_bucket_kernel": 2, "draw_tiled_kernel": 8}
+                 "transform_tiled_kernel", "bucket_count_kernel", "bucket_scatter_kernel",
+                 "bucket_rank_kernel", "bucket_permute_kernel", "draw_tiled_kernel")
+TILED_INSTANTIATIONS = {"transform_tiled_kernel": 2, "bucket_count_kernel": 2,
+                        "bucket_scatter_kernel": 2, "bucket_rank_kernel": 2,
+                        "bucket_permute_kernel": 3, "draw_tiled_kernel": 8}
 
 
 def tiled_kernels(log):
@@ -7810,8 +7977,8 @@ def phase_build():
     require(tuple(plan) + (smem,) == _build.tiled_plan(),
             "the tiled plan differs from the kernel's: %s, %s"
             % (tuple(plan) + (smem,), _build.tiled_plan()))
-    # the tiled kernels and fused_transform's bucket kernel: registers,
-    # spills (none), stack frames
+    # the tiled kernels, the bucket pass and the moves: registers, spills
+    # (none), stack frames
     for name, regs, spilled, stack in tiled_kernels(log):
         print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
               % (name, regs, spilled, stack))
@@ -7845,6 +8012,14 @@ def phase_build():
         require(got == _build.transform_bucket_plan(K),
                 "the bucket plan differs from the kernel's (K=%d): %s, %s"
                 % (K, got, _build.transform_bucket_plan(K)))
+    # the bucket pass's scratch and fused_transform's pair's
+    for N, K, D in ((1, 2, 65), (4099, 60, 65), (1 << 16, 19, 200), (N_WIDE, 30, 129),
+                    (1 << 20, 4, 200), ((1 << 20) + 3, 7, 96), (1 << 24, 3, 65)):
+        out = (ctypes.c_longlong * 7)()
+        lib.pmc_transform_layout(N, K, D, out)
+        require(tuple(out) == _build.transform_layout(N, K, D),
+                "the bucket layout differs from the kernel's (N=%d, K=%d, D=%d): %s, %s"
+                % (N, K, D, tuple(out), _build.transform_layout(N, K, D)))
     # the record kernels' occupancy where the main paths run them (fused_maha's
     # tensor-core kernel's, where it is elected, above)
     for K, D in ((32, 40), (200, 10)):
@@ -8068,9 +8243,12 @@ def main():
             # past D = 16 the Gram pass: its launches on the main paths
             entry["launches_gram"] = counts["variant:%s=gram" % kname]
         if kname == "fused_transform":
-            # the tiled pair's first launch, one a tiled launch; its device
-            # time is the shapes' bucket_device_ms
-            entry["bucket_kernel"] = {"name": "transform_bucket_kernel", "source": src,
+            # at K > 1 the tiled pair's bucket pass and moves, one each a
+            # tiled launch; the bucket pass's device time is the shapes'
+            # bucket_device_ms
+            entry["bucket_kernel"] = {"name": "bucket_count_kernel, bucket_scatter_kernel, "
+                                              "bucket_rank_kernel, bucket_permute_kernel",
+                                      "source": "pypmc_tpu_torch/csrc/tiled.cuh",
                                       "launches": counts["variant:fused_transform=tiled"]}
         if (kname, n, "looped") in times:
             # a draw kernel's elected kernel at the shape, and the looped
@@ -8120,10 +8298,13 @@ def main():
           "D=200, N=2^16 (the draws' draw_issue_floor_ms there: N / 32 x D x "
           "draw_sass_a_normal, the record draws' SASS instructions a normal at D=40, over "
           "4 x SMs x the largest SM clock; launches_tiled their drawn products' launches); "
-          "fused_maha and fused_logq past D=64 at TILED_SHAPES (N=2^16): ms the "
-          "elected kernel's, tiled_ms the tiled kernel's, "
-          "library_ms one torch.bmm of the pre-centred operand (the product alone, FP32, never "
-          "called by the port), fused_maha at K=32, D=40, 2^20 also mma_ms, rec_ms and tiled_ms, "
+          "fused_maha, fused_logq, fused_rho and fused_transform past D=64 at TILED_SHAPES "
+          "(N=2^16): ms the elected kernel's, tiled_ms the tiled kernel's, "
+          "library_ms one torch.bmm of the pre-centred operand (fused_transform: of L on "
+          "pre-bucketed normals; the product alone, FP32, never called by the port), "
+          "fused_transform's device times in CUDA graphs (bucket_device_ms its bucket pass, 0 "
+          "at K=1, product_device_ms the rest: the moves into and out of bucket order and the "
+          "product; library_device_ms torch.bmm's), fused_maha at K=32, D=40, 2^20 also mma_ms, rec_ms and tiled_ms, "
           "its three kernels forced, and their and torch.bmm's device times in CUDA graphs "
           "(*_device_ms; variant: the one it elects; bound_ms the tensor-core bound, "
           "three split TF32 products at D (not padded) over %.3g op/s, where that is the "
@@ -8251,6 +8432,14 @@ if __name__ == "__main__":
                 {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
                                              in tiled_shape_ms(dev, sh).items()}
                  for sh in TILED_SHAPES}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--transform-split"]:
+            # fused_transform's pair with parts of its data movement left out
+            import torch
+
+            print(card_line())
+            print("TRANSFORM_SPLIT " + json.dumps(transform_split(torch.device("cuda", 0))),
+                  flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--wide-is-profile"]:
             import torch

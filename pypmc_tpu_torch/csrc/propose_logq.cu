@@ -36,10 +36,10 @@
 // mixture_logpdf; no shape elects it, and it runs anywhere to D = 128,
 // forced, as the bit-exact yardstick of the draws.
 //
-// From D = kDrawTiledDMin (tiled.cuh), three or four launches, all
-// graph-capturable: the bucket kernel on components drawn from word 0 of
-// each particle's stream against the tail-sum thresholds (DrawnLatents; no
-// bucket kernel at K = 1), the drawn tiled product (draw_tiled_kernel<1>:
+// From D = kDrawTiledDMin (tiled.cuh), two to five launches, all
+// graph-capturable: the bucket pass (two launches) on components drawn
+// from word 0 of each particle's stream against the tail-sum thresholds
+// (DrawnLatents; none at K = 1), the drawn tiled product (draw_tiled_kernel<1>:
 // the normals from word 1 on drawn in shared memory, the Student-t scale
 // after them, x written and each particle's component with it), then
 // fused_logq's tiled kernel on the x just written for log q and, with a
@@ -182,7 +182,7 @@ struct ProposeRecKernels {
   static auto get() { return &propose_logq_rec_kernel<DMAX, STAGED, SEED_PTR>; }
 };
 
-// The tiled route on stream s: the bucket kernel on the drawn components
+// The tiled route on stream s: the bucket pass on the drawn components
 // (K > 1), the drawn product (n_blocks blocks), then fused_logq's tiled
 // kernel for log q and, with a target, log p (eval_blocks blocks each).
 int launch_propose_tiled(const Seed& seed, const float* mix, const float* tmix, float* xT,
@@ -190,9 +190,9 @@ int launch_propose_tiled(const Seed& seed, const float* mix, const float* tmix, 
                          int K, int Kt, int D, int student_t, int t_student_t, int n_blocks,
                          int eval_blocks, cudaStream_t s) {
   const MixLayout L{K, D};
-  int err = launch_draw_tiled<1>(seed, DrawnLatents{seed, mix + L.cumw(), K}, mix + L.mu(),
-                                 mix + L.L(), mix + L.dof(), scratch, xT, latent, N, K, D,
-                                 student_t, n_blocks, s);
+  int err = launch_draw_tiled<1>(seed, DrawnLatents{seed, mix + L.cumw(), K}, latent,
+                                 mix + L.mu(), mix + L.L(), mix + L.dof(), scratch, xT, latent, N,
+                                 K, D, student_t, n_blocks, s);
   if (err != 0 || N == 0) return err;
   err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, kEvalTiled, eval_blocks, s);
   if (err != 0 || log_p == nullptr) return err;
@@ -215,7 +215,7 @@ extern "C" int pmc_propose_per_sm(int K, int Kt, int D) {
 
 // seed_words: null (the words s0, s1) or two int64 on the card, read in the
 // kernel (Seed); tmix/log_p are null without a target; scratch: the tiled
-// route's transform_scratch_words(N, K) int32 at K > 1 (else may be null);
+// route's PairLayout(N, K, D).words int32 at K > 1 (else may be null);
 // variant: -1 the plan's kernel, 0 the looped kernel (D <= 128), 1 the
 // record kernel (an error where the plan does not take it), 2 the tiled
 // route (any D to kWideDMax); n_blocks <= 0: one wave of the record or

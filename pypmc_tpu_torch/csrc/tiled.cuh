@@ -44,12 +44,13 @@
 //
 // Two tile sources.  ParticleTiles (the evaluations): tile t holds 128
 // consecutive particles and all K components (the drawn products at K = 1:
-// one).  BucketTiles (the draws at K > 1): tile t holds one component k and
-// a run of up to 128 entries of a
-// permutation of the particles that lists each component's particles
-// together (transform.cu transform_bucket_kernel), its X panel gathered,
-// Xs[kk][pc] = zT[(j0 + kk) N + perm[start + pc]] by 4-byte cp.async: each
-// particle uses its own component, so only a tile of one component shares
+// one).  RunTiles (the draws at K > 1): tile t holds one component k and a
+// run of up to 128 consecutive positions of the bucket order, the
+// particles sorted by component (the bucket pass, below): fused_transform
+// reads its X panel from z moved into that order first (contiguous
+// columns, as ParticleTiles'), the drawn products draw each position's
+// particle (perm): each particle uses its own component, so only a tile of
+// one component shares
 // L_k's panels, where the JAX kernel computes all K products and keeps one.
 //
 // Two X sources.  LoadedX (the evaluations, fused_transform) copies the
@@ -72,14 +73,15 @@
 // triangular kernel at 128); at a component's end thread p sums column p of
 // the 16 threads that share particle p, ty ascending, a fixed order with no
 // atomics, so one input gives one output.  A row-tile epilogue of the
-// caller's (fused_transform's StoreEpi) takes the thread's 8 x 8
-// accumulators with their rows and the tile's particles instead.
+// caller's (the draws' StoreEpi) takes the thread's 8 x 8 accumulators
+// with their rows and the tile's particles instead.
 //
-// The bucket kernel (transform_bucket_kernel, below) writes BucketTiles'
-// slots: a counting sort of the particles by component, a chunk of
-// kBucketChunk particles a block, on components given (fused_transform,
-// fused_transform_rng) or drawn from word 0 of each particle's stream
-// (fused_propose_logq).
+// The bucket pass (bucket_count_kernel, bucket_scatter_kernel, below)
+// writes RunTiles' slots: a counting sort of the particles by component
+// over all N, on components given (fused_transform, fused_transform_rng) or
+// drawn from word 0 of each particle's stream (fused_propose_logq); for
+// fused_transform bucket_permute_kernel (transform.cu) moves z into its
+// order and x out of it, both sides coalesced.
 #pragma once
 
 #include "common.cuh"
@@ -135,15 +137,19 @@ struct ParticleTiles {
     const long long n = t * kTileP + threadIdx.x % kTileP;
     return n < N ? n : -1;
   }
+  __device__ long long out(long long t, const Tile& tile) const { return col(t, tile); }
 };
 
-// Tile source of fused_transform: slot t holds {k, start, len, 0} (k < 0:
-// no tile), the tile of component k's particles perm[start .. start + len
-// - 1]; the slots and perm written by transform_bucket_kernel.  A block
-// skips the empty slots of its stride.
-struct BucketTiles {
+// Tile source of the draws at K > 1: slot t holds {k, first, len, 0} (k <
+// 0: no tile), the tile of bucket positions first .. first + len - 1, all
+// of component k (the slots written by bucket_scatter_kernel, below).  A
+// column's particle is perm[position] (the drawn products: the stream to
+// draw from) or, perm null, the position itself (fused_transform, on z and
+// the scales moved into bucket order first); x is stored at the position
+// (out), in bucket order.  A block skips the empty slots of its stride.
+struct RunTiles {
   struct Tile {
-    int k, first, col;
+    int k, first, col, at;
   };
   const int4* slots;
   const int* perm;
@@ -153,7 +159,8 @@ struct BucketTiles {
       const int4 e = slots[t];
       if (e.x < 0) continue;
       const int pc = threadIdx.x % kTileP;
-      tile = {e.x, e.y, pc < e.z ? perm[e.y + pc] : -1};
+      const int p = pc < e.z ? e.y + pc : -1;
+      tile = {e.x, e.y, perm == nullptr || p < 0 ? p : perm[p], p};
       return true;
     }
     return false;
@@ -162,6 +169,8 @@ struct BucketTiles {
   __device__ int k1(const Tile& tile) const { return tile.k + 1; }
   __device__ long long first(long long, const Tile& tile) const { return tile.first; }
   __device__ long long col(long long, const Tile& tile) const { return tile.col; }
+  // where this thread's column's x is stored (-1 past the run)
+  __device__ long long out(long long, const Tile& tile) const { return tile.at; }
 };
 
 // Issue the copies of a step's A panel (As[jj][ii] = A_k[i0 + ii][j0 + jj],
@@ -538,45 +547,84 @@ int eval_variant_per_sm(int K, int D, int variant) {
 
 // ---------------------------------------------------------------------
 // The draws' tiled products: fused_transform's (transform.cu, LoadedX on
-// the given normals), fused_transform_rng's (transform.cu) and
-// fused_propose_logq's (propose_logq.cu), DrawnX.  The bucket kernel sorts
-// the particles by component (BucketTiles' slots); StoreEpi writes x.
+// the normals moved into bucket order), fused_transform_rng's
+// (transform.cu) and fused_propose_logq's (propose_logq.cu), DrawnX.  At
+// K > 1 the bucket pass sorts the particles by component (RunTiles'
+// slots); StoreEpi writes x.
 // ---------------------------------------------------------------------
 
-// The bucket kernel's block: 1,024 threads of 32 particles each.  A thread
-// reads (or draws) its latents again for the scatter rather than keep them
-// in registers: kept, they spilled the 64 registers a thread of 1,024 has
-// (as 32 ints, and as 16 two-latent words, the unrolled loads' addresses
-// beside them), and at 512 threads of 64 the 128 of 512
-constexpr int kBucketThreads = 1024;
-constexpr int kBucketItems = 32;                      // particles a thread
-constexpr int kBucketChunk = kBucketThreads * kBucketItems;
+// The bucket pass: a counting sort of the particles by component over all
+// N, in two launches and with no count read on the host.
+// bucket_count_kernel: block b counts its run of particles (bucket_run(N):
+// kBucketThreads threads of bucket_items(N) particles each) a component into
+// row b of a (bucket_blocks(N), K) table in device memory.
+// bucket_scatter_kernel: block b sums the table's columns (each
+// component's total, and its count in the blocks before b), scans the
+// totals into the buckets' starts and first tiles, counts its run again a
+// warp and a component, and writes pos[n] (particle n's place in bucket
+// order: its bucket's start, then the particles of its component in the
+// blocks before b, in the warps before its own and in the lanes before it)
+// and perm[pos[n]] = n; all blocks write the slots (grid-stride), one tile
+// of up to kTileP positions of one bucket each, the tiles bucket by bucket
+// and then empty slots (k = -1), so that only K tiles of a launch are
+// partial.  The order within a bucket is the particles' own: one input gives
+// one layout.  Each bucket starts at a multiple of 4 positions, so that its
+// tiles' float4 stores stay within its own positions; the positions are
+// bucket_width(N, K) = pad4(N) + 4 K at most, a pad's perm -1.  The runs are
+// 512 particles or more (128 blocks at 2^16: the pass is a chain of
+// latencies, which short runs on many SMs keep short), and a launch's
+// blocks at most kBucketBlocksMax, since each scatter block reads the whole
+// table.
+constexpr int kBucketThreads = 256;
 constexpr int kBucketWarps = kBucketThreads / 32;
+constexpr int kBucketItemsMin = 2;      // particles a thread at least
+constexpr int kBucketPrefetch = 4;      // latents a thread reads (or draws) at once
+constexpr int kBucketBlocksMax = 512;   // blocks of a launch at most
 
-// slots of a full chunk: its tiles, at most one partial a component
-__host__ __device__ constexpr long long bucket_chunk_slots(int K) {
-  return kBucketChunk / kTileP + K;
+// particles a thread of a bucket block, its run, and the blocks of N
+__host__ __device__ inline int bucket_items(long long N) {
+  const long long per = static_cast<long long>(kBucketThreads) * kBucketBlocksMax;
+  const long long items = (N + per - 1) / per;
+  return static_cast<int>(items > kBucketItemsMin ? items : kBucketItemsMin);
 }
-// the slots of N particles: full chunks', then the last chunk's
-// ceil(len / 128) + K
+__host__ __device__ inline long long bucket_run(long long N) {
+  return static_cast<long long>(kBucketThreads) * bucket_items(N);
+}
+__host__ __device__ inline int bucket_blocks(long long N) {
+  return static_cast<int>((N + bucket_run(N) - 1) / bucket_run(N));
+}
+// the slots of N particles: a tile a slot, at most one partial a bucket
 __host__ __device__ inline long long bucket_slots(long long N, int K) {
-  if (N <= 0) return 0;
-  const long long chunks = (N + kBucketChunk - 1) / kBucketChunk;
-  const long long last = N - (chunks - 1) * kBucketChunk;
-  return (chunks - 1) * bucket_chunk_slots(K) + (last + kTileP - 1) / kTileP + K;
+  return N <= 0 ? 0 : (N + kTileP - 1) / kTileP + K;
 }
-// shared memory of a bucket block: a warp's count a component, then the
-// buckets' starts and tiles (K + 1 each)
-__host__ __device__ inline size_t bucket_smem_bytes(int K) {
-  return sizeof(int) * (static_cast<size_t>(kBucketWarps) * K + 2 * (K + 1));
+// the positions of the bucket order: the buckets each padded to 4
+__host__ __device__ inline long long bucket_width(long long N, int K) {
+  return (N + 3) / 4 * 4 + 4LL * K;
 }
-// int32 words of the scratch: perm (N, padded to 4: the slots are int4),
-// then the slots
+// The bucket pass's scratch, int32 words from 16-byte aligned memory: the
+// slots (int4) from word 0, perm (bucket_width), pos (N, padded to 4), the
+// table (bucket_blocks x K); each part starts at a multiple of 4 words
+struct BucketLayout {
+  long long perm, pos, table, words;
+  __host__ __device__ BucketLayout(long long N, int K) {
+    perm = 4 * bucket_slots(N, K);
+    pos = perm + bucket_width(N, K);
+    table = pos + (N + 3) / 4 * 4;
+    words = table + (static_cast<long long>(bucket_blocks(N)) * K + 3) / 4 * 4;
+  }
+};
 __host__ __device__ inline long long transform_scratch_words(long long N, int K) {
-  return (N + 3) / 4 * 4 + 4 * bucket_slots(N, K);
+  return BucketLayout(N, K).words;
+}
+// shared memory of a scatter block: a warp's count a component, then each
+// component's total, start, first tile and first position (K + 1 each),
+// then the warps' partial column sums (two a thread); a count block's is
+// its first part
+__host__ __device__ inline size_t bucket_smem_bytes(int K) {
+  return sizeof(int) * (static_cast<size_t>(kBucketWarps) * K + 4 * (K + 1) + 2 * kBucketThreads);
 }
 
-// The bucket kernel's components: given, latent (N,) (fused_transform,
+// The bucket pass's components: given, latent (N,) (fused_transform,
 // fused_transform_rng) ...
 struct GivenLatents {
   const int* latent;
@@ -602,61 +650,112 @@ struct DrawnLatents {
   }
 };
 
-// The counting sort of chunk blockIdx.x: perm's entries of the chunk list
-// its particles by component (the chunk's bucket k at its start + the
-// counts of the buckets before), each bucket's particles in their order,
-// and the chunk's slots (from blockIdx.x * bucket_chunk_slots(K)) its tiles,
-// bucket by bucket, then empty slots (k = -1).  A latent outside [0, K) is
-// left out (its column of x is not written).
+// Warp w of bucket block blockIdx.x holds the run's particles (w items + r)
+// 32 + lane, r < items, in order: the index of its r-th, and its latent (-1
+// past N or outside [0, K)).  A thread reads (or draws) a latent again
+// where it needs it rather than keep its items' in registers.
+template <typename Latents>
+struct BucketRun {
+  Latents lats;
+  long long N;
+  int K, items;
+  __device__ long long index(int r) const {
+    return blockIdx.x * bucket_run(N) +
+           (static_cast<long long>(threadIdx.x / 32) * items + r) * 32 + threadIdx.x % 32;
+  }
+  __device__ int latent(int r) const {
+    const long long n = index(r);
+    const int v = n < N ? lats(n) : -1;
+    return v >= 0 && v < K ? v : -1;
+  }
+  // the latents of its items r0 .. r0 + kBucketPrefetch - 1 (-1 past
+  // items), read together
+  __device__ void latents(int r0, int (&k)[kBucketPrefetch]) const {
+#pragma unroll
+    for (int u = 0; u < kBucketPrefetch; ++u) k[u] = r0 + u < items ? latent(r0 + u) : -1;
+  }
+  // hist[w K + k] = warp w's particles of component k (hist zeroed here;
+  // __syncthreads() before and after)
+  __device__ void count(int* hist) const {
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    for (int i = threadIdx.x; i < kBucketWarps * K; i += kBucketThreads) hist[i] = 0;
+    __syncthreads();
+    for (int r0 = 0; r0 < items; r0 += kBucketPrefetch) {
+      int ks[kBucketPrefetch];
+      latents(r0, ks);
+#pragma unroll
+      for (int u = 0; u < kBucketPrefetch; ++u) {
+        const unsigned g = __match_any_sync(0xffffffffu, ks[u]);
+        if (ks[u] >= 0 && lane == __ffs(g) - 1) hist[w * K + ks[u]] += __popc(g);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+};
+
 template <typename Latents>
 __global__ void __launch_bounds__(kBucketThreads)
-transform_bucket_kernel(const Latents latents, int* __restrict__ perm, int4* __restrict__ slots,
-                        long long N, int K) {
+bucket_count_kernel(const Latents latents, int* __restrict__ table, long long N, int K) {
   extern __shared__ int bsm[];
-  int* hist = bsm;                          // kBucketWarps x K
-  int* start = hist + kBucketWarps * K;     // K + 1: the chunk's buckets
-  int* tile0 = start + K + 1;               // K + 1: their first tiles
-  const Latents lats = latents.resolved();
-  const long long c0 = static_cast<long long>(blockIdx.x) * kBucketChunk;
-  const int len = static_cast<int>(min(static_cast<long long>(kBucketChunk), N - c0));
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  for (int i = threadIdx.x; i < kBucketWarps * K; i += kBucketThreads) hist[i] = 0;
-  // warp w's particles: chunk positions (w kBucketItems + r) 32 + lane; -1
-  // past the chunk or outside [0, K)
-  const auto lat = [&](int r) {
-    const int i = (w * kBucketItems + r) * 32 + lane;
-    const int v = i < len ? lats(c0 + i) : -1;
-    return v >= 0 && v < K ? v : -1;
-  };
-  __syncthreads();
-#pragma unroll 8
-  for (int r = 0; r < kBucketItems; ++r) {
-    const int k = lat(r);
-    const unsigned g = __match_any_sync(0xffffffffu, k);
-    if (k >= 0 && lane == __ffs(g) - 1) hist[w * K + k] += __popc(g);
-    __syncwarp();
-  }
-  __syncthreads();
-  // each bucket's warps in order: hist[w][k] becomes warp w's first
-  // position in bucket k, start[k] the bucket's count
+  const BucketRun<Latents> run{latents.resolved(), N, K, bucket_items(N)};
+  run.count(bsm);
   for (int k = threadIdx.x; k < K; k += kBucketThreads) {
-    int run = 0;
-    for (int v = 0; v < kBucketWarps; ++v) {
-      const int c = hist[v * K + k];
-      hist[v * K + k] = run;
-      run += c;
-    }
-    start[k] = run;
+    int c = 0;
+    for (int v = 0; v < kBucketWarps; ++v) c += bsm[v * K + k];
+    table[static_cast<long long>(blockIdx.x) * K + k] = c;
   }
-  __syncthreads();
-  // warp 0: the exclusive scans over k of the counts and of their tiles
+}
+
+template <typename Latents>
+__global__ void __launch_bounds__(kBucketThreads)
+bucket_scatter_kernel(const Latents latents, const int* __restrict__ table, int* __restrict__ pos,
+                      int* __restrict__ perm, int4* __restrict__ slots, long long N, int K) {
+  extern __shared__ int bsm[];
+  int* hist = bsm;                        // kBucketWarps x K
+  int* total = hist + kBucketWarps * K;   // K + 1 each: the buckets' totals,
+  int* start = total + K + 1;             // starts,
+  int* tile0 = start + K + 1;             // first tiles
+  int* base = tile0 + K + 1;              // and counts in the blocks before
+  int* red = base + K + 1;                // 2 x kBucketThreads
+  const BucketRun<Latents> run{latents.resolved(), N, K, bucket_items(N)};
+  const int blocks = bucket_blocks(N), lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  // the table's column sums: warp w adds rows w, w + kBucketWarps, ... of
+  // columns k0 .. k0 + 31, all of them and those above row blockIdx.x
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    int all = 0, before = 0;
+    if (k < K) {
+#pragma unroll 4
+      for (int b = w; b < blocks; b += kBucketWarps) {
+        const int c = __ldg(table + static_cast<long long>(b) * K + k);
+        all += c;
+        before += b < static_cast<int>(blockIdx.x) ? c : 0;
+      }
+    }
+    red[threadIdx.x] = all;
+    red[kBucketThreads + threadIdx.x] = before;
+    __syncthreads();
+    if (w == 0 && k < K) {
+      int a = 0, bf = 0;
+      for (int v = 0; v < kBucketWarps; ++v) {
+        a += red[v * 32 + lane];
+        bf += red[kBucketThreads + v * 32 + lane];
+      }
+      total[k] = a;
+      base[k] = bf;
+    }
+    __syncthreads();
+  }
+  // warp 0: the exclusive scans over k of the buckets' positions (each
+  // padded to 4) and of their tiles
   if (w == 0) {
-    int base = 0, tbase = 0;
+    int pbase = 0, tbase = 0;
     for (int k0 = 0; k0 < K; k0 += 32) {
       const int k = k0 + lane;
-      const int n = k < K ? start[k] : 0;
-      const int tiles = (n + kTileP - 1) / kTileP;
-      int sn = n, st = tiles;
+      const int n = k < K ? total[k] : 0;
+      const int width = (n + 3) / 4 * 4, tiles = (n + kTileP - 1) / kTileP;
+      int sn = width, st = tiles;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const int a = __shfl_up_sync(0xffffffffu, sn, o), b = __shfl_up_sync(0xffffffffu, st, o);
@@ -666,22 +765,32 @@ transform_bucket_kernel(const Latents latents, int* __restrict__ perm, int4* __r
         }
       }
       if (k < K) {
-        start[k] = base + sn - n;
+        start[k] = pbase + sn - width;
         tile0[k] = tbase + st - tiles;
       }
-      base += __shfl_sync(0xffffffffu, sn, 31);
+      pbase += __shfl_sync(0xffffffffu, sn, 31);
       tbase += __shfl_sync(0xffffffffu, st, 31);
     }
     if (lane == 0) {
-      start[K] = base;
+      start[K] = pbase;
       tile0[K] = tbase;
     }
   }
-  __syncthreads();
-  // the chunk's slots: tile j of bucket k at slot tile0[k] + j
-  const long long s0 = static_cast<long long>(blockIdx.x) * bucket_chunk_slots(K);
-  const int n_slots = (len + kTileP - 1) / kTileP + K;
-  for (int l = threadIdx.x; l < n_slots; l += kBucketThreads) {
+  run.count(hist);   // its barriers also publish warp 0's scans
+  // each bucket's warps in order: hist[w][k] becomes warp w's first
+  // position in bucket k
+  for (int k = threadIdx.x; k < K; k += kBucketThreads) {
+    int at = start[k] + base[k];
+    for (int v = 0; v < kBucketWarps; ++v) {
+      const int c = hist[v * K + k];
+      hist[v * K + k] = at;
+      at += c;
+    }
+  }
+  // the slots: tile j of bucket k at slot tile0[k] + j
+  const long long n_slots = bucket_slots(N, K);
+  for (long long l = static_cast<long long>(blockIdx.x) * kBucketThreads + threadIdx.x;
+       l < n_slots; l += static_cast<long long>(gridDim.x) * kBucketThreads) {
     int4 e = make_int4(-1, 0, 0, 0);
     if (l < tile0[K]) {
       int lo = 0, hi = K - 1;   // the last bucket whose first tile is at or before l
@@ -690,43 +799,265 @@ transform_bucket_kernel(const Latents latents, int* __restrict__ perm, int4* __r
         if (tile0[mid] <= l) lo = mid;
         else hi = mid - 1;
       }
-      const int first = start[lo] + (l - tile0[lo]) * kTileP;
-      e = make_int4(lo, static_cast<int>(c0 + first), min(kTileP, start[lo + 1] - first), 0);
+      const int j = static_cast<int>(l) - tile0[lo];
+      e = make_int4(lo, start[lo] + j * kTileP, min(kTileP, total[lo] - j * kTileP), 0);
     }
-    slots[s0 + l] = e;
+    slots[l] = e;
   }
-  // the scatter, warp w's particles in order
-#pragma unroll 8
-  for (int r = 0; r < kBucketItems; ++r) {
-    const int k = lat(r);
-    const unsigned g = __match_any_sync(0xffffffffu, k);
-    int pos = 0;
-    if (k >= 0) pos = start[k] + hist[w * K + k] + __popc(g & ((1u << lane) - 1u));
-    __syncwarp();
-    if (k >= 0) {
-      perm[c0 + pos] = static_cast<int>(c0 + (w * kBucketItems + r) * 32 + lane);
-      if (lane == __ffs(g) - 1) hist[w * K + k] += __popc(g);
+  // block 0: the pads' perm
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < 4 * K; i += kBucketThreads) {
+      const int k = i / 4, p = start[k] + total[k] + i % 4;
+      if (p < start[k + 1]) perm[p] = -1;
     }
-    __syncwarp();
+    const long long width = bucket_width(N, K);
+    for (long long p = start[K] + threadIdx.x; p < width; p += kBucketThreads) perm[p] = -1;
+  }
+  __syncthreads();
+  // the scatter, warp w's particles in order
+  for (int r0 = 0; r0 < run.items; r0 += kBucketPrefetch) {
+    int ks[kBucketPrefetch];
+    run.latents(r0, ks);
+#pragma unroll
+    for (int u = 0; u < kBucketPrefetch; ++u) {
+      const int k = ks[u];
+      const long long n = run.index(r0 + u);
+      const unsigned g = __match_any_sync(0xffffffffu, k);
+      if (k >= 0) {
+        const int p = hist[w * K + k] + __popc(g & ((1u << lane) - 1u));
+        pos[n] = p;
+        perm[p] = static_cast<int>(n);
+      } else if (r0 + u < run.items && n < N) {
+        pos[n] = -1;
+      }
+      __syncwarp();
+      if (k >= 0 && lane == __ffs(g) - 1) hist[w * K + k] += __popc(g);
+      __syncwarp();
+    }
   }
 }
 
-// The bucket kernel on stream s, a block a chunk: perm and the slots into
-// scratch, transform_scratch_words(N, K) int32, 16-byte aligned (perm, then
-// the slots).  Its error, or cudaErrorInvalidValue past its limits.
+// The bucket pass on stream s: pos, perm, the slots and the table into
+// scratch, transform_scratch_words(N, K) int32, 16-byte aligned
+// (BucketLayout).  The error of the first launch that fails, or
+// cudaErrorInvalidValue past its limits.
 template <typename Latents>
 int launch_buckets(const Latents& latents, int* scratch, long long N, int K, cudaStream_t s) {
-  const size_t bsmem = bucket_smem_bytes(K);
-  if (K < 1 || N < 1 || N > 0x7fffffffLL || bsmem > kSmemLimit)
+  const size_t bsmem = bucket_smem_bytes(K), csmem = sizeof(int) * kBucketWarps * K;
+  if (K < 1 || N < 1 || bucket_width(N, K) > 0x7fffffffLL || bsmem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = transform_bucket_kernel<Latents>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bsmem));
+  const auto count = bucket_count_kernel<Latents>;
+  const auto scatter = bucket_scatter_kernel<Latents>;
+  cudaError_t err = cudaFuncSetAttribute(count, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(csmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bsmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<int>((N + kBucketChunk - 1) / kBucketChunk), kBucketThreads, bsmem, s>>>(
-      latents, scratch, reinterpret_cast<int4*>(scratch + (N + 3) / 4 * 4), N, K);
+  const BucketLayout at(N, K);
+  const int blocks = bucket_blocks(N);
+  count<<<blocks, kBucketThreads, csmem, s>>>(latents, scratch + at.table, N, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter<<<blocks, kBucketThreads, bsmem, s>>>(latents, scratch + at.table, scratch + at.pos,
+                                                scratch + at.perm, reinterpret_cast<int4*>(scratch),
+                                                N, K);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The moves into and out of bucket order (the draws' tiled products at K >
+// 1): IN (fused_transform's), zb[:, pos[n]] = zT[:, n] and scale_b[pos[n]]
+// = scale[n]; else (all three's) xT[:, n] = xb[:, pos[n]]; D rows, zT and
+// xT N floats apart, zb and xb
+// ``width`` (bucket_width).  A tile of kPermTile particles goes through
+// shared memory so that both sides are coalesced: the particles' side in
+// their order, the buckets' side in the tile's bucket order (the tile's
+// particles of component k hold consecutive positions, since the sort is
+// stable: K runs, kPermTile / K positions each on average, where a move a
+// particle a thread would touch a sector a word).  bucket_rank_kernel
+// writes each tile's order once: rank[n], the place of particle n in its
+// tile's bucket order (-1: not moved), from the tile's count of the
+// components before k + pos[n] - the tile's least position of k (counts
+// and minima by shared atomics, whose results do not depend on their
+// order), and tpos[n0 + i], the position of the tile's i-th (-1 past the
+// tile's particles).  bucket_permute_kernel block (x, y) then moves tile
+// x's rows y kPermRows .. y kPermRows + kPermRows - 1 with no more set-up
+// than those two reads: a grid of many short blocks, so that D = 65 at
+// 2^16 particles fills the card.
+constexpr int kPermTile = 2048;
+constexpr int kPermItems = kPermTile / kBucketThreads;
+constexpr int kPermRows = 4;
+// shared memory of a rank block: the tile's positions in bucket order, and
+// its counts and least positions a component
+__host__ __device__ inline size_t rank_smem_bytes(int K) {
+  return sizeof(int) * (kPermTile + 2 * static_cast<size_t>(K));
+}
+
+template <int TILE>
+__global__ void __launch_bounds__(kBucketThreads)
+bucket_rank_kernel(const int* __restrict__ latent, const int* __restrict__ pos,
+                   int* __restrict__ rank, int* __restrict__ tpos, long long N, int K) {
+  extern __shared__ int rsm[];
+  static_assert(TILE == kPermTile, "the moves' tile");
+  int* at = rsm;               // kPermTile: the i-th's position
+  int* cnt = at + kPermTile;   // K: the tile's counts, then their exclusive scan
+  int* low = cnt + K;          // K: the tile's least positions
+  const int t = threadIdx.x, lane = t % 32;
+  const long long n0 = static_cast<long long>(blockIdx.x) * kPermTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kPermTile), N - n0));
+  for (int k = t; k < K; k += kBucketThreads) {
+    cnt[k] = 0;
+    low[k] = 0x7fffffff;
+  }
+  for (int i = t; i < kPermTile; i += kBucketThreads) at[i] = -1;
+  __syncthreads();
+  int kq[kPermItems], pq[kPermItems];
+#pragma unroll
+  for (int q = 0; q < kPermItems; ++q) {
+    const int i = t + q * kBucketThreads;
+    const int p = i < len ? __ldg(pos + n0 + i) : -1, lat = i < len ? __ldg(latent + n0 + i) : -1;
+    kq[q] = p >= 0 ? lat : -1;
+    pq[q] = p;
+    // the lanes of one component hold increasing positions: the first the least
+    const unsigned g = __match_any_sync(0xffffffffu, kq[q]);
+    if (kq[q] >= 0 && lane == __ffs(g) - 1) {
+      atomicAdd(cnt + kq[q], __popc(g));
+      atomicMin(low + kq[q], p);
+    }
+  }
+  __syncthreads();
+  if (t < 32) {
+    int run = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + t;
+      const int c = k < K ? cnt[k] : 0;
+      int sc = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int a = __shfl_up_sync(0xffffffffu, sc, o);
+        if (t >= o) sc += a;
+      }
+      if (k < K) cnt[k] = run + sc - c;
+      run += __shfl_sync(0xffffffffu, sc, 31);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kPermItems; ++q) {
+    const int i = t + q * kBucketThreads;
+    const int r = kq[q] >= 0 ? cnt[kq[q]] + pq[q] - low[kq[q]] : -1;
+    if (r >= 0) at[r] = pq[q];
+    if (i < len) rank[n0 + i] = r;
+  }
+  __syncthreads();
+  for (int i = t; i < len; i += kBucketThreads) tpos[n0 + i] = at[i];
+}
+
+template <bool IN>
+__global__ void __launch_bounds__(kBucketThreads)
+bucket_permute_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                      const float* __restrict__ scale, float* __restrict__ scale_b,
+                      const int* __restrict__ pos, const int* __restrict__ rank,
+                      const int* __restrict__ tpos, long long N, int D, long long width) {
+  __shared__ float buf[kPermRows * kPermTile];
+  const int t = threadIdx.x;
+  const long long n0 = static_cast<long long>(blockIdx.x) * kPermTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kPermTile), N - n0));
+  // thread t's particles n0 + t + q kBucketThreads (their places iq) and
+  // the positions of the tile's (t + q kBucketThreads)-th in bucket order
+  int iq[kPermItems], aq[kPermItems];
+#pragma unroll
+  for (int q = 0; q < kPermItems; ++q) {
+    const int i = t + q * kBucketThreads;
+    iq[q] = i < len ? __ldg(rank + n0 + i) : -1;
+    aq[q] = i < len ? __ldg(tpos + n0 + i) : -1;
+  }
+  if (IN && blockIdx.y == 0) {
+#pragma unroll
+    for (int q = 0; q < kPermItems; ++q) {
+      const long long n = n0 + t + q * kBucketThreads;
+      if (iq[q] >= 0) scale_b[__ldg(pos + n)] = __ldg(scale + n);
+    }
+  }
+  const int j0 = blockIdx.y * kPermRows;
+#pragma unroll
+  for (int r = 0; r < kPermRows; ++r) {
+    if (j0 + r >= D) continue;
+    float* b = buf + r * kPermTile;
+    if constexpr (IN) {
+      const float* row = src + static_cast<long long>(j0 + r) * N + n0;
+#pragma unroll
+      for (int q = 0; q < kPermItems; ++q)
+        if (iq[q] >= 0) b[iq[q]] = __ldg(row + t + q * kBucketThreads);
+    } else {
+      const float* row = src + static_cast<long long>(j0 + r) * width;
+#pragma unroll
+      for (int q = 0; q < kPermItems; ++q)
+        if (aq[q] >= 0) b[t + q * kBucketThreads] = __ldg(row + aq[q]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPermRows; ++r) {
+    if (j0 + r >= D) continue;
+    const float* b = buf + r * kPermTile;
+    if constexpr (IN) {
+      float* row = dst + static_cast<long long>(j0 + r) * width;
+#pragma unroll
+      for (int q = 0; q < kPermItems; ++q)
+        if (aq[q] >= 0) row[aq[q]] = b[t + q * kBucketThreads];
+    } else {
+      float* row = dst + static_cast<long long>(j0 + r) * N + n0;
+#pragma unroll
+      for (int q = 0; q < kPermItems; ++q)
+        if (iq[q] >= 0) row[t + q * kBucketThreads] = b[iq[q]];
+    }
+  }
+}
+
+// The moves' order on stream s: rank and tpos (N each) from latent and
+// pos; its error (a template, so that only the sources that launch it
+// build its kernel)
+template <int TILE = kPermTile>
+int launch_rank(const int* latent, const int* pos, int* rank, int* tpos, long long N, int K,
+                cudaStream_t s) {
+  const size_t smem = rank_smem_bytes(K);
+  const auto kernel = bucket_rank_kernel<TILE>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>((N + kPermTile - 1) / kPermTile), kBucketThreads,
+                       smem, s>>>(latent, pos, rank, tpos, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A move of bucket_permute_kernel<IN> on stream s (arguments as its); its
+// error
+template <bool IN>
+int launch_permute(const float* src, float* dst, const float* scale, float* scale_b,
+                   const int* pos, const int* rank, const int* tpos, long long N, int D,
+                   long long width, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((N + kPermTile - 1) / kPermTile),
+                  static_cast<unsigned>((D + kPermRows - 1) / kPermRows));
+  bucket_permute_kernel<IN><<<grid, kBucketThreads, 0, s>>>(src, dst, scale, scale_b, pos, rank,
+                                                            tpos, N, D, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The draws' scratch at K > 1, int32 words: the bucket pass's
+// (BucketLayout), then fused_transform's scales in bucket order
+// (bucket_width(N, K) floats), the moves' rank and tpos (N each, padded to
+// 4), and x in bucket order (D rows of bucket_width)
+struct PairLayout {
+  long long scale_b, rank, tpos, xb, words;
+  __host__ __device__ PairLayout(long long N, int K, int D) {
+    scale_b = transform_scratch_words(N, K);
+    rank = scale_b + bucket_width(N, K);
+    tpos = rank + (N + 3) / 4 * 4;
+    xb = tpos + (N + 3) / 4 * 4;
+    words = xb + static_cast<long long>(D) * bucket_width(N, K);
+  }
+};
 
 // the scale of particle n, drawn in component k's tile: given, scale (N,)
 // (fused_transform) ...
@@ -752,13 +1083,19 @@ struct DrawnScales {
   }
 };
 
-// The draws' row-tile epilogue: x_i = fmaf(scale_n, s, mu_k[i]) to particle
-// n's column of xT, for the thread's rows below D and its tile columns that
-// hold a particle (affine_transform's last FMA).  A tile's particles and
-// their scales are kept in shared memory (two tiles' worth, the next
-// written while the last is computed), the scales taken once a particle;
-// with ``latent``, each particle's component is written there too.
-template <typename Scales>
+// The draws' row-tile epilogue: x_i = fmaf(scale_n, s, mu_k[i]) to the
+// tile column's column of xT (rows ``N`` floats apart; the source's out:
+// its particle, or its position in bucket order), scale_n that of its
+// particle n, for the thread's rows below D and its tile columns that hold
+// a particle (affine_transform's last FMA).  A tile's particles and their
+// scales are kept in shared memory (two tiles' worth, the next written
+// while the last is computed), the scales taken once a particle; with
+// ``latent``, each particle's component is written there too.  RUN (a tile
+// of consecutive positions from a multiple of 4, in rows a multiple of 4
+// floats apart): each group of 4 columns whose first holds a particle is
+// one float4 store, its columns past the run (the bucket's pad) written
+// too.
+template <typename Scales, bool RUN = false>
 struct StoreEpi {
   int* cols;       // 2 x kTileP
   float* scales;   // 2 x kTileP
@@ -773,7 +1110,7 @@ struct StoreEpi {
     if (threadIdx.x >= kTileP) return;
     const long long n = src.col(t, tile);
     const int k = src.k0(tile), at = (q & 1) * kTileP + threadIdx.x;
-    cols[at] = static_cast<int>(n);
+    cols[at] = static_cast<int>(src.out(t, tile));
     scales[at] = n >= 0 ? scale_of(k, n) : 0.0f;
     if (latent != nullptr && n >= 0) latent[n] = k;
   }
@@ -794,9 +1131,18 @@ struct StoreEpi {
       if (i < D) {
         const float m = __ldg(mu + static_cast<long long>(s.k) * D + i);
         float* row = xT + static_cast<long long>(i) * N;
+        if constexpr (RUN) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (n[j] >= 0) row[n[j]] = fmaf(sc[j], acc[r][j], m);
+          for (int h = 0; h < 8; h += 4)
+            if (n[h] >= 0)
+              *reinterpret_cast<float4*>(row + n[h]) = make_float4(
+                  fmaf(sc[h], acc[r][h], m), fmaf(sc[h + 1], acc[r][h + 1], m),
+                  fmaf(sc[h + 2], acc[r][h + 2], m), fmaf(sc[h + 3], acc[r][h + 3], m));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (n[j] >= 0) row[n[j]] = fmaf(sc[j], acc[r][j], m);
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
@@ -836,19 +1182,22 @@ __device__ __forceinline__ SeedKey<SEED_PTR> seed_key_of(Seed seed) {
   else return {seed.s0, seed.s1};
 }
 
-// The drawn product: for each tile of ``src`` (BucketTiles of the
-// components' buckets, or ParticleTiles at K = 1), x = mu_k + scale (L_k z)
+// The drawn product: for each tile of ``src`` (RunTiles of the
+// components' buckets, perm giving each column's particle, or
+// ParticleTiles at K = 1), x = mu_k + scale (L_k z)
 // with z drawn by DrawnX from each particle's stream after its first OFF
 // words (0: draw_component's, fused_transform_rng; 1: propose_particle's,
 // word 0 the component's uniform, fused_propose_logq) and the scale by
-// DrawnScales; latent (null: not written) gets each particle's component.
-// mu (K, D), L (K, D, D) lower triangular, dof (K).  Shared memory:
+// DrawnScales, stored to xT (rows ``ld`` floats apart) at the source's out:
+// the particle's column, or (RunTiles) its position in bucket order, as
+// float4s; latent (null: not written) gets each particle's component.  mu
+// (K, D), L (K, D, D) lower triangular, dof (K).  Shared memory:
 // draw_tiled_smem(D).
 template <int OFF, bool SEED_PTR, typename Source>
 __global__ void __launch_bounds__(kTileThreads, 2)
 draw_tiled_kernel(const Seed seed, const float* __restrict__ mu, const float* __restrict__ L,
                   const float* __restrict__ dof, const Source src, float* __restrict__ xT,
-                  int* __restrict__ latent, long long N, int D, int student_t) {
+                  int* __restrict__ latent, long long ld, int D, int student_t) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   if constexpr (SEED_PTR) {
@@ -858,45 +1207,58 @@ draw_tiled_kernel(const Seed seed, const float* __restrict__ mu, const float* __
   const SeedKey<SEED_PTR> key = seed_key_of<SEED_PTR>(seed);
   const DrawnX<OFF, SeedKey<SEED_PTR>> xsrc{
       key, D > kTileM ? smem + kTiledSmem / sizeof(float) : nullptr};
-  StoreEpi<DrawnScales<OFF, SeedKey<SEED_PTR>>> epi{
+  StoreEpi<DrawnScales<OFF, SeedKey<SEED_PTR>>, std::is_same_v<Source, RunTiles>> epi{
       reinterpret_cast<int*>(smem + kStoreColsOffset), smem + kStoreScalesOffset, mu, xT, latent,
-      N, D, {key, dof, D, student_t != 0}};
+      ld, D, {key, dof, D, student_t != 0}};
   tiled_walk<true, false>(smem, xsrc, L, nullptr, D, src, epi);
 }
 
 // The drawn product on stream s: at K = 1 one launch over ParticleTiles;
-// else the bucket kernel on ``latents`` (GivenLatents, DrawnLatents), perm
-// and slots into scratch (transform_scratch_words(N, K) int32), then the
-// product over BucketTiles, n_blocks blocks.  The error of the first launch
-// that fails, or cudaErrorInvalidValue past the limits.
+// else the bucket pass on ``latents`` (GivenLatents, DrawnLatents), the
+// product over RunTiles on n_blocks blocks into x in bucket order, each
+// tile's float4 stores contiguous, then the moves' order from ``lat``
+// (each particle's component: the latents given, or those the product has
+// just written to ``latent``) and x moved out of bucket order to xT;
+// scratch PairLayout(N, K, D).words int32, 16-byte aligned.  The error of
+// the first launch that fails, or cudaErrorInvalidValue past the limits.
 template <int OFF, typename Latents>
-int launch_draw_tiled(const Seed& seed, const Latents& latents, const float* mu, const float* L,
-                      const float* dof, int* scratch, float* xT, int* latent, long long N, int K,
-                      int D, int student_t, int n_blocks, cudaStream_t s) {
+int launch_draw_tiled(const Seed& seed, const Latents& latents, const int* lat, const float* mu,
+                      const float* L, const float* dof, int* scratch, float* xT, int* latent,
+                      long long N, int K, int D, int student_t, int n_blocks, cudaStream_t s) {
   if (D < 1 || D > kWideDMax || K < 1 || N > 0x7fffffffLL || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   const size_t smem = draw_tiled_smem(D);
-  const auto run = [&](auto kernel, const auto& src) {
+  const auto run = [&](auto kernel, const auto& src, float* x, long long ld) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<n_blocks, kTileThreads, smem, s>>>(seed, mu, L, dof, src, xT, latent, N, D,
+    kernel<<<n_blocks, kTileThreads, smem, s>>>(seed, mu, L, dof, src, x, latent, ld, D,
                                                 student_t);
     return static_cast<int>(cudaGetLastError());
   };
   if (K == 1) {
     const ParticleTiles src{N, 1};
-    return seed.words == nullptr ? run(draw_tiled_kernel<OFF, false, ParticleTiles>, src)
-                                 : run(draw_tiled_kernel<OFF, true, ParticleTiles>, src);
+    return seed.words == nullptr ? run(draw_tiled_kernel<OFF, false, ParticleTiles>, src, xT, N)
+                                 : run(draw_tiled_kernel<OFF, true, ParticleTiles>, src, xT, N);
   }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_buckets(latents, scratch, N, K, s);
+  if (scratch == nullptr || lat == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_buckets(latents, scratch, N, K, s);
   if (err != 0) return err;
-  const BucketTiles src{reinterpret_cast<const int4*>(scratch + (N + 3) / 4 * 4), scratch,
-                        bucket_slots(N, K)};
-  return seed.words == nullptr ? run(draw_tiled_kernel<OFF, false, BucketTiles>, src)
-                               : run(draw_tiled_kernel<OFF, true, BucketTiles>, src);
+  const BucketLayout buckets(N, K);
+  const PairLayout at(N, K, D);
+  const long long width = bucket_width(N, K);
+  float* xb = reinterpret_cast<float*>(scratch + at.xb);
+  const RunTiles src{reinterpret_cast<const int4*>(scratch), scratch + buckets.perm,
+                     bucket_slots(N, K)};
+  err = seed.words == nullptr ? run(draw_tiled_kernel<OFF, false, RunTiles>, src, xb, width)
+                              : run(draw_tiled_kernel<OFF, true, RunTiles>, src, xb, width);
+  if (err != 0) return err;
+  const int* pos = scratch + buckets.pos;
+  int *rank = scratch + at.rank, *tpos = scratch + at.tpos;
+  err = launch_rank(lat, pos, rank, tpos, N, K, s);
+  if (err != 0) return err;
+  return launch_permute<false>(xb, xT, nullptr, nullptr, pos, rank, tpos, N, D, width, s);
 }
 
 // blocks of the drawn product (words after the first OFF) that fit on one
@@ -904,7 +1266,7 @@ int launch_draw_tiled(const Seed& seed, const Latents& latents, const float* mu,
 // -1 on an error
 template <int OFF>
 int draw_tiled_per_sm(int D) {
-  const auto kernel = draw_tiled_kernel<OFF, false, BucketTiles>;
+  const auto kernel = draw_tiled_kernel<OFF, false, RunTiles>;
   const size_t smem = draw_tiled_smem(D);
   int n = 0;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

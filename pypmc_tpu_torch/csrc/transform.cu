@@ -56,37 +56,43 @@
 // the launch configuration.
 //
 // fused_transform from D = kTransformTiledDMin and fused_transform_rng from
-// D = kDrawTiledDMin (tiled.cuh): two launches, both graph-capturable (no
-// count is read on the host).  transform_bucket_kernel (tiled.cuh)
-// sorts the particles by component, a counting sort a chunk of
-// kBucketChunk particles a block: warp w counts its 1,024 particles' latents
-// a component (__match_any_sync: one shared add a group of lanes), the
-// block turns the counts into each warp's first position in each bucket
-// and the buckets' starts and tiles, and each particle's index goes to perm
-// at its bucket's start, its warp's position and its rank among the lanes
-// before it.  The order is the particles' within each (chunk, component):
-// one input gives one perm.  The block also writes its chunk's slots, one
-// tile of up to 128 particles of one component each ({k, start, len, 0};
-// ceil(len / 128) + K slots a chunk, the tiles first and k = -1 after), so
-// the slots are ceil(N / 128) + K a chunk at most and no count is needed
-// before the launch.  The buckets are a chunk's because one launch has no
-// barrier across its blocks, which buckets over all N particles would need
-// between the counts and the scatter.  transform_tiled_kernel walks the
-// slots on a grid of one wave, a block skipping the empty slots of its
-// stride, on the tiled engine (tiled.cuh BucketTiles): L_k's panels (those
-// above the diagonal skipped) and the gathered z panel (LoadedX), no m
-// panel, and StoreEpi's row-tile epilogue writes x_i = fmaf(scale_n, s,
-// mu_i) to each particle's own column.  Its accumulators run j ascending
-// from 0 as affine_transform's, and the zeros above the diagonal add
-// fmaf(0, z, s) = s, so its output is the looped kernel's bit for bit (up
-// to the sign of a zero) wherever both run.  What bounds it: the FMA issue
-// of the tile's product, as in the evaluations (PERF.md section 6), beside
-// the gathers of z and the scattered stores of x, 4 bytes a
-// particle-coordinate, whose sectors the other components' tiles share.
-// fused_transform_rng's product (draw_tiled_kernel<0>) draws its z panels
-// in shared memory instead (DrawnX: draw_component's normals, words 0 on)
-// and each particle's Student-t scale once a tile (DrawnScales); at K = 1
-// it walks the particles in order with no bucket kernel (ParticleTiles).
+// D = kDrawTiledDMin run on the tiled engine (tiled.cuh), every launch
+// graph-capturable (no count is read on the host).  At K = 1 each is one
+// launch over the particles in order (ParticleTiles).  At K > 1 the
+// bucket pass (tiled.cuh bucket_count_kernel, bucket_scatter_kernel) sorts
+// the particles by component over all N, stably, in a full wave of blocks;
+// its slots hold one tile of up to 128 consecutive positions of one bucket
+// each, so only K tiles are partial.  fused_transform then writes each
+// tile of 2,048 particles' bucket order (bucket_rank_kernel), moves z and
+// the scales into bucket order (bucket_permute_kernel<true>: zb, in the
+// output's own memory, D rows of bucket_width(N, K) floats), walks the
+// slots on a grid of one wave (transform_tiled_kernel over RunTiles: L_k's
+// panels, those above the diagonal skipped, and the tile's contiguous
+// columns of zb, as the particles' own at K = 1), writes x in bucket order
+// (StoreEpi's float4 stores into xb in the scratch) and moves it out
+// (bucket_permute_kernel<false>): the product's reads and stores are a
+// tile's consecutive columns, and the permutation is paid once in each
+// direction by two streaming passes, each side coalesced, rather than by 4-byte
+// gathers of z and scattered stores of x a sector each inside the product.
+// Its accumulators run j ascending from 0 as affine_transform's, the zeros
+// above the diagonal add fmaf(0, z, s) = s, and the last FMA is fmaf(scale_n,
+// s, mu_i), so its output is the looped kernel's bit for bit (up to the
+// sign of a zero) wherever both run.  What bounds it: the FMA issue of the
+// tile's product, as in the evaluations (PERF.md section 6), beside the two
+// moves' 4 D N floats.  fused_transform_rng's product
+// (draw_tiled_kernel<0>) draws its z panels in shared memory instead
+// (DrawnX: draw_component's normals, words 0 on) for each position's
+// particle (perm) and each particle's Student-t scale once a tile
+// (DrawnScales), stores x in bucket order as fused_transform's does, and
+// only the move out follows (tiled.cuh launch_draw_tiled).
+//
+// PMC_TRANSFORM_OFF (chip_smoke.py --transform-split; 0 in the library) is
+// a mask of fused_transform's moves left out at K > 1, its output then wrong
+// by design: 1 the move of z and the scales into bucket order, 2 the move of
+// x out of it.
+#ifndef PMC_TRANSFORM_OFF
+#define PMC_TRANSFORM_OFF 0
+#endif
 #include "tiled.cuh"
 
 namespace pmc {
@@ -160,42 +166,70 @@ inline DrawPlan transform_plan(int K, int D, bool looped = false, bool rng = fal
 }
 
 // ---------------------------------------------------------------------
-// fused_transform's tiled pair: the bucket kernel (tiled.cuh) and the
-// tiled product
+// fused_transform's tiled pair: the bucket pass (tiled.cuh), the moves
+// into and out of bucket order and the tiled product
 // ---------------------------------------------------------------------
 
-// ops: mu (K, D) | L (K, D, D) | dof (K); the slots and perm of
-// transform_bucket_kernel
+// ops: mu (K, D) | L (K, D, D) | dof (K); zT (D rows, ``ld`` floats apart)
+// read at the tile columns of ``src``, x stored to the same columns of xT
+// (RUN: float4 stores, StoreEpi)
+template <typename Source, bool RUN>
 __global__ void __launch_bounds__(kTileThreads, 2)
 transform_tiled_kernel(const float* __restrict__ zT, const float* __restrict__ scale,
-                       const float* __restrict__ ops, const int* __restrict__ perm,
-                       const int4* __restrict__ slots, float* __restrict__ xT, long long N,
-                       int K, int D, long long n_slots) {
+                       const float* __restrict__ ops, const Source src, float* __restrict__ xT,
+                       long long ld, int K, int D) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  StoreEpi<GivenScales> epi{reinterpret_cast<int*>(smem + kStoreColsOffset),
-                            smem + kStoreScalesOffset, ops, xT, nullptr, N, D, {scale}};
-  tiled_walk<true, false>(smem, LoadedX{zT, N}, ops + static_cast<long long>(K) * D, nullptr, D,
-                          BucketTiles{slots, perm, n_slots}, epi);
+  StoreEpi<GivenScales, RUN> epi{reinterpret_cast<int*>(smem + kStoreColsOffset),
+                                 smem + kStoreScalesOffset, ops, xT, nullptr, ld, D, {scale}};
+  tiled_walk<true, false>(smem, LoadedX{zT, ld}, ops + static_cast<long long>(K) * D, nullptr, D,
+                          src, epi);
 }
 
-// The tiled pair on stream s: the bucket kernel, then the tiled kernel on
-// n_blocks blocks; scratch as launch_buckets' (tiled.cuh).
+// The tiled pair on stream s: at K = 1 the product over the particles in
+// order; else the bucket pass, z and the scales into bucket order (zb in
+// xT's memory, which holds D bucket_width(N, K) floats), the product on
+// n_blocks blocks into xb, and x out of bucket order; scratch
+// PairLayout(N, K, D).words int32, 16-byte aligned (at K > 1).  The
+// error of the first launch that fails, or cudaErrorInvalidValue past the
+// limits.
 int launch_transform_tiled(const float* zT, const int* latent, const float* scale,
                            const float* ops, int* scratch, float* xT, long long N, int K, int D,
                            int n_blocks, cudaStream_t s) {
-  if (D < 1 || D > kWideDMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > kWideDMax || K < 1 || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
+  const auto product = [&](auto kernel, const float* z, const float* sc, const auto& src,
+                           float* x, long long ld) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kTiledSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_blocks, kTileThreads, kTiledSmem, s>>>(z, sc, ops, src, x, ld, K, D);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (K == 1)
+    return product(transform_tiled_kernel<ParticleTiles, false>, zT, scale, ParticleTiles{N, 1},
+                   xT, N);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_buckets(GivenLatents{latent}, scratch, N, K, s);
   if (err != 0) return err;
-  err = static_cast<int>(cudaFuncSetAttribute(transform_tiled_kernel,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              static_cast<int>(kTiledSmem)));
+  const PairLayout at(N, K, D);
+  const long long width = bucket_width(N, K);
+  float* scale_b = reinterpret_cast<float*>(scratch + at.scale_b);
+  float* xb = reinterpret_cast<float*>(scratch + at.xb);
+  const int* pos = scratch + BucketLayout(N, K).pos;
+  int *rank = scratch + at.rank, *tpos = scratch + at.tpos;
+  err = launch_rank(latent, pos, rank, tpos, N, K, s);
   if (err != 0) return err;
-  transform_tiled_kernel<<<n_blocks, kTileThreads, kTiledSmem, s>>>(
-      zT, scale, ops, scratch, reinterpret_cast<const int4*>(scratch + (N + 3) / 4 * 4), xT, N,
-      K, D, bucket_slots(N, K));
-  return static_cast<int>(cudaGetLastError());
+  if (!(PMC_TRANSFORM_OFF & 1)) {
+    err = launch_permute<true>(zT, xT, scale, scale_b, pos, rank, tpos, N, D, width, s);
+    if (err != 0) return err;
+  }
+  err = product(transform_tiled_kernel<RunTiles, true>, xT, scale_b,
+                RunTiles{reinterpret_cast<const int4*>(scratch), nullptr, bucket_slots(N, K)}, xb,
+                width);
+  if (err != 0 || (PMC_TRANSFORM_OFF & 2)) return err;
+  return launch_permute<false>(xb, xT, nullptr, nullptr, pos, rank, tpos, N, D, width, s);
 }
 
 // ops: mu (K, D) | L (K, D, D) | dof (K), the looped kernel's buffer;
@@ -280,32 +314,57 @@ extern "C" long long pmc_transform_plan(int K, int D, int rng, int* out) {
   return pmc::draw_plan_out(pmc::transform_plan(K, D, false, rng != 0), D, out);
 }
 
-// fused_transform's tiled pair: out = {threads of a bucket block,
-// particles a chunk, slots of a full chunk}; the bucket block's shared
-// memory (checked against ops/_build.py transform_bucket_plan)
+// the bucket pass: out = {threads of a block, particles a thread at
+// least, blocks of a launch at most}; the shared memory of its largest
+// block (the scatter's or, fused_transform's, the moves' rank block's),
+// checked against
+// ops/_build.py transform_bucket_plan
 extern "C" long long pmc_transform_bucket_plan(int K, int* out) {
-  out[0] = pmc::kBucketThreads;
-  out[1] = pmc::kBucketChunk;
-  out[2] = static_cast<int>(pmc::bucket_chunk_slots(K));
-  return static_cast<long long>(pmc::bucket_smem_bytes(K));
+  using namespace pmc;
+  out[0] = kBucketThreads;
+  out[1] = kBucketItemsMin;
+  out[2] = kBucketBlocksMax;
+  const size_t scatter = bucket_smem_bytes(K), rank = rank_smem_bytes(K);
+  return static_cast<long long>(scatter > rank ? scatter : rank);
+}
+
+// the scratch of N particles, K components and D rows: out = {perm, pos,
+// the table (BucketLayout's offsets), the bucket pass's words, the pair's
+// words (PairLayout), bucket_width, the bucket blocks}, checked
+// against ops/_build.py transform_layout
+extern "C" void pmc_transform_layout(long long N, int K, int D, long long* out) {
+  using namespace pmc;
+  const BucketLayout at(N, K);
+  out[0] = at.perm;
+  out[1] = at.pos;
+  out[2] = at.table;
+  out[3] = at.words;
+  out[4] = PairLayout(N, K, D).words;
+  out[5] = bucket_width(N, K);
+  out[6] = bucket_blocks(N);
 }
 
 // blocks of fused_transform's tiled kernel that fit on one SM at once (the
-// same at every shape), for the wrapper's grid; -1 on an error
+// fewer of its two instantiations', the same at every shape), for the
+// wrapper's grid; -1 on an error
 extern "C" int pmc_transform_tiled_per_sm() {
   using namespace pmc;
-  int n = 0;
-  cudaError_t err = cudaFuncSetAttribute(transform_tiled_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kTiledSmem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, transform_tiled_kernel, kTileThreads,
-                                                        kTiledSmem);
-  return err == cudaSuccess ? n : -1;
+  const auto per_sm = [&](auto kernel) {
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kTiledSmem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTileThreads, kTiledSmem);
+    return err == cudaSuccess ? n : -1;
+  };
+  const int a = per_sm(transform_tiled_kernel<ParticleTiles, false>);
+  const int b = per_sm(transform_tiled_kernel<RunTiles, true>);
+  return a < b ? a : b;
 }
 
-// The bucket kernel alone (chip_smoke.py holds its perm and slots to
-// ops/_build.py transform_tiles): scratch as pmc_fused_transform's
+// The bucket pass alone (chip_smoke.py holds its pos, perm and slots to
+// ops/_build.py transform_tiles): scratch transform_scratch_words(N, K)
+// int32
 extern "C" int pmc_transform_buckets(const int* latent, int* scratch, long long N, int K,
                                      void* stream) {
   return pmc::launch_buckets(pmc::GivenLatents{latent}, scratch, N, K,
@@ -328,12 +387,13 @@ extern "C" int pmc_transform_per_sm(int K, int D, int rng) {
                   : rec_per_sm<TransformRecKernels<false>>(plan, D);
 }
 
-// ops: mu (K, D) | L (K, D, D) | dof (K); zT, xT: (D, N); latent, scale:
-// (N,); scratch: transform_scratch_words(N, K) int32 (the tiled pair's; may
-// be null for the other kernels); variant: -1 the plan's kernel, 0 the
-// looped kernel (D <= 128), 1 the record kernel (an error where the plan
-// does not take it), 2 the tiled pair (any D to kWideDMax); n_blocks: the
-// grid of the kernel (the tiled pair's second)
+// ops: mu (K, D) | L (K, D, D) | dof (K); zT, xT: (D, N), xT's memory D
+// bucket_width(N, K) floats for the tiled pair at K > 1 (z in bucket order
+// there); latent, scale: (N,); scratch: PairLayout(N, K, D).words int32
+// (the tiled pair's at K > 1; may be null for the other kernels); variant:
+// -1 the plan's kernel, 0 the looped kernel (D <= 128), 1 the record kernel
+// (an error where the plan does not take it), 2 the tiled pair (any D to
+// kWideDMax); n_blocks: the grid of the kernel (the tiled product's)
 extern "C" int pmc_fused_transform(const float* zT, const int* latent,
                                    const float* scale, const float* ops, int* scratch,
                                    float* xT, long long N, int K, int D,
@@ -346,10 +406,8 @@ extern "C" int pmc_fused_transform(const float* zT, const int* latent,
       kernel<<<n_blocks, plan.threads, plan.smem, s>>>(zT, latent, scale, ops, xT, N, K, D);
       return static_cast<int>(cudaGetLastError());
     });
-  if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled)) {
-    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled))
     return launch_transform_tiled(zT, latent, scale, ops, scratch, xT, N, K, D, n_blocks, s);
-  }
   if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = transform_plan(K, D, true).smem;
   PMC_DISPATCH_D(D, PMC_DISPATCH_OPS(smem > 0, {
@@ -387,7 +445,7 @@ extern "C" int pmc_fused_transform_rng(unsigned int s0, unsigned int s1,
   }
   if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled)) {
     const float* L = ops + static_cast<long long>(K) * D;
-    return launch_draw_tiled<0>(seed, GivenLatents{latent}, ops, L,
+    return launch_draw_tiled<0>(seed, GivenLatents{latent}, latent, ops, L,
                                 L + static_cast<long long>(K) * D * D, scratch, xT, nullptr, N,
                                 K, D, student_t, n_blocks, s);
   }

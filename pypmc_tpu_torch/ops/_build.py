@@ -17,11 +17,14 @@ to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 engine of ``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and
 ``fused_rho`` from D = :data:`TILED_D_MIN` (:func:`tiled_plan`,
 :func:`eval_variant`), ``fused_transform`` from D =
-:data:`TRANSFORM_TILED_D_MIN` after a counting sort of its particles by
-component (:func:`transform_plan`, :func:`transform_bucket_plan`,
-:func:`transform_tiles`), ``fused_transform_rng`` and ``fused_propose_logq``
-from D = :data:`DRAW_TILED_D_MIN` with their normals drawn in shared memory
-(:func:`draw_tiled_smem`; ``fused_propose_logq``
+:data:`TRANSFORM_TILED_D_MIN` (at K > 1 after a counting sort of its
+particles by component over all N and a move of z into that order, and x
+moved out of it after: :func:`transform_plan`, :func:`transform_bucket_plan`,
+:func:`transform_layout`, :func:`transform_tiles`,
+:func:`transform_permute`), ``fused_transform_rng`` and
+``fused_propose_logq`` from D = :data:`DRAW_TILED_D_MIN` with their normals
+drawn in shared memory (:func:`draw_tiled_smem`; the same sort at K > 1;
+``fused_propose_logq``
 then evaluates with ``fused_logq``'s tiled kernel).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
@@ -62,7 +65,8 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
            "draw_tiled_smem",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
            "eval_variant", "MAHA_MMA_D_MIN", "mma_plan", "tiled_plan", "transform_bucket_plan",
-           "transform_slots", "transform_scratch_words", "transform_tiles",
+           "transform_bucket_blocks", "transform_slots", "transform_width", "transform_layout",
+           "transform_scratch_words", "transform_tiles", "transform_permute",
            "block_particles", "stats_tile", "dense_plan", "gram_layout", "transform_plan",
            "propose_plan", "draw_plan", "DRAWS", "draw_transform_plan", "pool_variant",
            "pool_smem_bytes", "blocked_plan", "draw_smem_bytes", "limit_reason",
@@ -98,8 +102,8 @@ TILED_D_MIN = 65
 # PERF.md)
 MAHA_MMA_D_MIN = 9
 # csrc/transform.cu kTransformTiledDMin: the smallest D at which
-# fused_transform elects its tiled pair (the bucket kernel, then the tiled
-# product), below it the looped kernel from D = 65 and the record kernel to
+# fused_transform elects its tiled pair (at K > 1 the bucket pass and the
+# moves into and out of bucket order around the tiled product), below it the looped kernel from D = 65 and the record kernel to
 # 64: the first D past 64 at which the pair beat the looped kernel at the
 # shapes timed (PERF.md)
 TRANSFORM_TILED_D_MIN = 65
@@ -111,11 +115,12 @@ DRAW_TILED_D_MIN = 65
 # csrc/tiled.cuh kDrawCachePanels: the panels of row tile 0 a drawn product
 # keeps past D = 128, so that D <= 256 draws each normal once
 _DRAW_CACHE_PANELS = 8
-# csrc/transform.cu: the bucket kernel's threads a block and particles a
-# thread (kBucketThreads, kBucketItems); a block sorts a chunk of their
-# product
-_BUCKET_THREADS, _BUCKET_ITEMS = 1024, 32
-_BUCKET_CHUNK = _BUCKET_THREADS * _BUCKET_ITEMS
+# csrc/tiled.cuh: the bucket pass's threads a block, particles a thread at
+# least and blocks of a launch at most (kBucketThreads, kBucketItemsMin,
+# kBucketBlocksMax); the moves' particles a tile and rows a block (kPermTile,
+# kPermRows)
+_BUCKET_THREADS, _BUCKET_ITEMS_MIN, _BUCKET_BLOCKS_MAX = 256, 2, 512
+_PERM_TILE, _PERM_ROWS = 2048, 4
 
 _lib = None
 build_info = {}
@@ -398,10 +403,10 @@ def transform_plan(K, D, rng=False):
     kernel the operands ``mu | L | dof``; ``fused_transform`` from D =
     :data:`TRANSFORM_TILED_D_MIN` ``"tiled"``, its tiled pair, whose product
     kernel has the tiled engine's threads and shared memory
-    (:func:`tiled_plan`; the bucket kernel's, :func:`transform_bucket_plan`);
-    ``fused_transform_rng`` from D = :data:`DRAW_TILED_D_MIN` ``"tiled"``, its
-    drawn product (:func:`draw_tiled_smem`; the bucket kernel first where K
-    > 1)."""
+    (:func:`tiled_plan`; the bucket pass's and the moves',
+    :func:`transform_bucket_plan`, where K > 1); ``fused_transform_rng`` from
+    D = :data:`DRAW_TILED_D_MIN` ``"tiled"``, its drawn product
+    (:func:`draw_tiled_smem`; the bucket pass first where K > 1)."""
     if D >= (DRAW_TILED_D_MIN if rng else TRANSFORM_TILED_D_MIN):
         return "tiled", False, 0, _TILE_THREADS, draw_tiled_smem(D) if rng else tiled_plan()[4]
     return _record_plan(D, K * (_transform_rec_floats(D) + int(rng)),
@@ -409,64 +414,137 @@ def transform_plan(K, D, rng=False):
 
 
 def transform_bucket_plan(K):
-    """``(threads a block, particles a chunk, slots of a full chunk, shared
-    memory a block)`` of ``fused_transform``'s bucket kernel for K
-    components; mirrors ``csrc/transform.cu`` (``pmc_transform_bucket_plan``):
-    a block sorts a chunk of 32,768 particles, a warp's count of each
-    component and the buckets' starts and first tiles in shared memory; a
-    chunk has a slot for each of its tiles, at most one partial a
-    component."""
-    smem = 4 * ((_BUCKET_THREADS // 32) * K + 2 * (K + 1))
-    return _BUCKET_THREADS, _BUCKET_CHUNK, _BUCKET_CHUNK // _TILE_P + K, smem
+    """``(threads a block, particles a thread at least, blocks of a launch
+    at most, shared memory of its largest block)`` of the draws' bucket pass
+    for K components; mirrors ``csrc/transform.cu``
+    (``pmc_transform_bucket_plan``): each block counts a run of its threads'
+    particles (:func:`transform_bucket_blocks`), a warp's count of each
+    component and each component's total, start, first tile and first
+    position in shared memory, beside the warps' partial column sums of the
+    counts' table; or ``fused_transform``'s rank block (the order of its
+    moves into and out of bucket order), a tile of 2,048 particles'
+    positions and the tile's counts and least positions a component."""
+    scatter = 4 * ((_BUCKET_THREADS // 32) * K + 4 * (K + 1) + 2 * _BUCKET_THREADS)
+    rank = 4 * (_PERM_TILE + 2 * K)
+    return _BUCKET_THREADS, _BUCKET_ITEMS_MIN, _BUCKET_BLOCKS_MAX, max(scatter, rank)
+
+
+def _bucket_items(N):
+    """Particles a thread of a bucket block (``csrc/tiled.cuh``
+    ``bucket_items``): 2, or more where N needs more than 512 blocks."""
+    per = _BUCKET_THREADS * _BUCKET_BLOCKS_MAX
+    return max(_BUCKET_ITEMS_MIN, -(-N // per))
+
+
+def transform_bucket_blocks(N):
+    """The bucket pass's blocks for N particles (``bucket_blocks``): runs of
+    256 threads' :func:`_bucket_items` particles, at least 512 particles a
+    run and at most 512 runs."""
+    run = _BUCKET_THREADS * _bucket_items(N)
+    return -(-N // run)
 
 
 def transform_slots(N, K):
-    """The slots of ``fused_transform``'s tiled pair for N particles
-    (``csrc/transform.cu`` ``bucket_slots``): each full chunk's, then the last
-    chunk's ``ceil(len / 128) + K``; the tiled kernel's grid walks them."""
-    if N <= 0:
-        return 0
-    chunks = -(-N // _BUCKET_CHUNK)
-    last = N - (chunks - 1) * _BUCKET_CHUNK
-    return (chunks - 1) * (_BUCKET_CHUNK // _TILE_P + K) + -(-last // _TILE_P) + K
+    """The slots of the draws' tiled products for N particles at K > 1
+    (``csrc/tiled.cuh`` ``bucket_slots``): a tile of up to 128 positions of
+    one bucket each, at most one partial a bucket, ``ceil(N / 128) + K``;
+    the product's grid walks them."""
+    return 0 if N <= 0 else -(-N // _TILE_P) + K
 
 
-def transform_scratch_words(N, K):
-    """int32 words of the tiled pair's scratch (``transform_scratch_words``):
-    the permutation (N, padded to 4) and the slots, four words each."""
-    return -(-N // 4) * 4 + 4 * transform_slots(N, K)
+def transform_width(N, K):
+    """The positions of the bucket order (``bucket_width``): N padded to 4,
+    and 4 a component, each bucket starting at a multiple of 4."""
+    return -(-N // 4) * 4 + 4 * K
+
+
+def transform_layout(N, K, D=0):
+    """``(perm, pos, table, words, pair words, width, blocks)`` of the int32
+    scratch for N particles and K components (``csrc/transform.cu``
+    ``pmc_transform_layout``): the slots from word 0 (4 words each), then
+    perm (:func:`transform_width`), pos (N padded to 4) and the counts'
+    table (:func:`transform_bucket_blocks` x K, padded to 4), each at its
+    word; the bucket pass's words; ``fused_transform``'s pair's at D, the
+    scales in bucket order, its moves' rank and tpos (N each, padded to 4)
+    and D rows of x in bucket order after them (``PairLayout``)."""
+    width = transform_width(N, K)
+    blocks = transform_bucket_blocks(N)
+    perm = 4 * transform_slots(N, K)
+    pos = perm + width
+    table = pos + -(-N // 4) * 4
+    words = table + -(-blocks * K // 4) * 4
+    pair = words + width + 2 * (-(-N // 4) * 4) + D * width
+    return perm, pos, table, words, pair, width, blocks
+
+
+def transform_scratch_words(N, K, D):
+    """int32 words of a draw's tiled product's scratch at K > 1 and D: the
+    bucket pass's, then ``fused_transform``'s scales, the moves' order and x
+    in bucket order (:func:`transform_layout`)."""
+    return transform_layout(N, K, D)[4]
 
 
 def transform_tiles(latent, K):
-    """``(perm (N,), slots (transform_slots(N, K), 4))``, int32 numpy
-    arrays: what ``fused_transform``'s bucket kernel writes for the
-    components ``latent`` (``csrc/transform.cu`` ``transform_bucket_kernel``),
-    mirrored.  Chunk c (particles 32,768 c ..) lists its particles in perm by
-    component, each component's in their order, the components ascending
-    (a latent outside [0, K) is left out, its entries -1 here); its slots,
-    from ``c * (256 + K)``, hold its tiles ``(k, first entry of perm,
-    length, 0)``, up to 128 of a component's particles each, the
-    components ascending, then ``(-1, 0, 0, 0)``."""
+    """``(perm (transform_width(N, K),), slots (transform_slots(N, K), 4),
+    pos (N,))``, int32 numpy arrays: what the bucket pass writes for the
+    components ``latent`` (``csrc/tiled.cuh`` ``bucket_scatter_kernel``),
+    mirrored.  The particles sorted by component over all N, each
+    component's in their order, the components ascending, each bucket from
+    a multiple of 4 positions: pos[n] is particle n's position (-1 for a
+    latent outside [0, K), which is left out) and perm[pos[n]] = n (-1 at
+    the pads); the slots hold the tiles ``(k, first position, length, 0)``,
+    up to 128 of a bucket's positions each, the buckets ascending, then
+    ``(-1, 0, 0, 0)``."""
     import numpy as np
 
     latent = np.asarray(latent).astype(np.int64).reshape(-1)
     N = latent.shape[0]
-    perm = np.full(N, -1, np.int32)
+    ok = (latent >= 0) & (latent < K)
+    counts = np.bincount(latent[ok], minlength=K)
+    start = np.concatenate([[0], np.cumsum(-(-counts // 4) * 4)])
+    perm = np.full(transform_width(N, K), -1, np.int32)
+    pos = np.full(N, -1, np.int32)
     slots = np.zeros((transform_slots(N, K), 4), np.int32)
     slots[:, 0] = -1
-    for c0 in range(0, N, _BUCKET_CHUNK):
-        lat = latent[c0:c0 + _BUCKET_CHUNK]
-        ok = (lat >= 0) & (lat < K)
-        counts = np.bincount(lat[ok], minlength=K)
-        start = np.concatenate([[0], np.cumsum(counts)])
-        order = np.argsort(np.where(ok, lat, K), kind="stable")[:int(ok.sum())]
-        perm[c0:c0 + order.shape[0]] = c0 + order
-        s = c0 // _BUCKET_CHUNK * (_BUCKET_CHUNK // _TILE_P + K)
-        for k in range(K):
-            for first in range(int(start[k]), int(start[k + 1]), _TILE_P):
-                slots[s] = (k, c0 + first, min(_TILE_P, int(start[k + 1]) - first), 0)
-                s += 1
-    return perm, slots
+    s = 0
+    for k in range(K):
+        members = np.flatnonzero(latent == k)
+        at = start[k] + np.arange(members.shape[0])
+        perm[at] = members
+        pos[members] = at
+        for j in range(0, int(counts[k]), _TILE_P):
+            slots[s] = (k, start[k] + j, min(_TILE_P, int(counts[k]) - j), 0)
+            s += 1
+    return perm, slots, pos
+
+
+def transform_permute(src, pos, width, inverse=False):
+    """``fused_transform``'s moves (``bucket_permute_kernel``) on numpy
+    rows: ``dst[:, pos[n]] = src[:, n]`` into D rows of ``width`` bucket
+    positions (NaN where no particle lands), or with ``inverse`` ``dst[:, n]
+    = src[:, pos[n]]`` (NaN where pos is -1), walked as the kernel walks
+    them: tiles of 2,048 particles, each tile's particles in bucket order (a
+    component's positions in a tile are consecutive), rows 4 a block, the
+    bucket side written (or read) in that order.  Returns dst."""
+    import numpy as np
+
+    src = np.asarray(src)
+    pos = np.asarray(pos)
+    N = pos.shape[0]
+    D = src.shape[0]
+    dst = np.full((D, N if inverse else width), np.nan, src.dtype)
+    for n0 in range(0, N, _PERM_TILE):
+        tile = pos[n0:n0 + _PERM_TILE]
+        live = np.flatnonzero(tile >= 0)
+        order = live[np.argsort(tile[live], kind="stable")]
+        at = tile[order]
+        for j0 in range(0, D, _PERM_ROWS):
+            rows = slice(j0, min(D, j0 + _PERM_ROWS))
+            if inverse:
+                dst[rows, n0 + order] = src[rows][:, at]
+            else:
+                dst[rows][:, at] = src[rows, n0 + order]
+    return dst
 
 
 def propose_plan(K, Kt, D):
@@ -476,7 +554,7 @@ def propose_plan(K, Kt, D):
     kernel stages both mixtures' 16-byte evaluation records, the proposal's
     draw records and its K thresholds, the looped kernel the packed proposal
     and the target's evaluation part; from D = :data:`DRAW_TILED_D_MIN`
-    ``"tiled"``, the tiled route (the bucket kernel on the drawn components
+    ``"tiled"``, the tiled route (the bucket pass on the drawn components
     where K > 1, the drawn product, then ``fused_logq``'s tiled kernel for
     log q and log p), its product's threads and shared memory
     (:func:`draw_tiled_smem`)."""
@@ -722,14 +800,12 @@ def limit_reason(kernel, K, D, Kt=0):
         return ("%s: K=%d, K_target=%d, D=%d needs %d bytes of shared memory "
                 "a block for its statistics tile; the limit is %d"
                 % (kernel, K, Kt, D, need, SMEM_LIMIT))
-    # the tiled products' bucket kernel (fused_transform's always, the drawn
-    # products' where K > 1)
-    if (kernel in DRAWS and draw_plan(kernel, K, D, Kt)[0] == "tiled"
-            and (K > 1 or kernel == "fused_transform")):
+    # the tiled products' bucket pass (where K > 1)
+    if kernel in DRAWS and draw_plan(kernel, K, D, Kt)[0] == "tiled" and K > 1:
         need = transform_bucket_plan(K)[3]
         if need > SMEM_LIMIT:
             return ("%s: K=%d needs %d bytes of shared memory a block for the bucket "
-                    "kernel's counts; the limit is %d" % (kernel, K, need, SMEM_LIMIT))
+                    "pass's counts; the limit is %d" % (kernel, K, need, SMEM_LIMIT))
     table = kernel not in _DENSE or dense_plan(kernel, K, D, Kt)[0] == "table"
     if kernel in _STATS and table and stats_tile(K, D) < THREADS and D > _NARROW_TILE_D_MAX:
         return ("%s: K=%d, D=%d needs the 64-particle statistics tile, whose "
@@ -821,9 +897,10 @@ def signatures():
         "pmc_fused_logq": [P, P, P, L, I, I, I, I, I, P],
         # s0, s1, seed_words (null: s0, s1; else two int64 on the card, read
         # in the kernel), mix, tmix, xT, latent, log_q, log_p, scratch (the
-        # tiled route's transform_scratch_words at K > 1; else null), N, K,
-        # Kt, D, student_t, t_student_t, variant (-1 the plan's, 0 the looped
-        # kernel, 1 the record kernel, 2 the tiled route), n_blocks (<= 0:
+        # tiled route's transform_scratch_words(N, K, D) at K > 1; else
+        # null), N, K, Kt, D, student_t, t_student_t, variant (-1 the
+        # plan's, 0 the looped kernel, 1 the record kernel, 2 the tiled
+        # route), n_blocks (<= 0:
         # one wave of the record or looped kernel, sized by the launcher),
         # eval_blocks (the tiled route's evaluations), stream
         "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I, I,
@@ -848,11 +925,12 @@ def signatures():
         # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
         "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, I, P],
         # zT, latent, scale, ops, scratch (the tiled pair's int32
-        # transform_scratch_words; else null), xT, N, K, D, variant (-1 the
+        # transform_scratch_words(N, K, D) at K > 1; else null), xT (D x
+        # transform_width(N, K) floats there), N, K, D, variant (-1 the
         # plan's, 0 the looped kernel, 1 the record kernel, 2 the tiled
         # pair), n_blocks, stream
         "pmc_fused_transform": [P, P, P, P, P, P, L, I, I, I, I, P],
-        # latent, scratch, N, K, stream: the tiled pair's bucket kernel alone
+        # latent, scratch, N, K, stream: the tiled products' bucket pass alone
         "pmc_transform_buckets": [P, P, L, I, P],
         # s0, s1, seed_words (as pmc_fused_propose_logq's), latent, ops,
         # scratch (the drawn product's at K > 1; else null), xT, N, K, D,
@@ -940,7 +1018,7 @@ def _declare(lib):
     for name in ("pmc_logq_per_sm", "pmc_maha_per_sm", "pmc_rho_per_sm"):
         getattr(lib, name).argtypes = [I, I, I]
         getattr(lib, name).restype = ctypes.c_int
-    # fused_transform's tiled kernel: blocks an SM holds; its bucket kernel's
+    # fused_transform's tiled kernel: blocks an SM holds; the bucket pass's
     # plan: K, int out[3] -> shared memory
     lib.pmc_transform_tiled_per_sm.argtypes = []
     lib.pmc_transform_tiled_per_sm.restype = ctypes.c_int
@@ -950,6 +1028,9 @@ def _declare(lib):
     lib.pmc_draw_tiled_per_sm.restype = ctypes.c_int
     lib.pmc_transform_bucket_plan.argtypes = [I, P]
     lib.pmc_transform_bucket_plan.restype = ctypes.c_longlong
+    # N, K, D, long long out[7]: the scratch's layout (transform_layout)
+    lib.pmc_transform_layout.argtypes = [ctypes.c_longlong, I, I, P]
+    lib.pmc_transform_layout.restype = None
     # K, D -> the statistics tile; C, D -> the pool's variant
     for name in ("pmc_stats_tile", "pmc_mcmc_pool_variant"):
         getattr(lib, name).argtypes = [I, I]

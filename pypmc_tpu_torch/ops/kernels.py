@@ -1153,7 +1153,7 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     latent = torch.empty((n,), dtype=torch.int32, device=device)
     log_q = torch.empty((n,), dtype=torch.float32, device=device)
     log_p = None if target is None else torch.empty_like(log_q)
-    scratch = _draw_scratch("fused_propose_logq", variant, n, ops.K, device)
+    scratch = _draw_scratch(variant, n, ops.K, D, device)
     eval_blocks = _eval_blocks("logq", device, n, ops.K, D, "tiled") if variant == "tiled" else 0
     with torch.cuda.device(device):
         err = lib.pmc_fused_propose_logq(
@@ -1242,7 +1242,7 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     draw_blocks = eval_blocks = 0
     if variant == "gram":
         # the draw's outputs the pass reads, and the grids of its elected
-        # kernels (past D = 64 K = 1: no bucket kernel, no scratch)
+        # kernels (past D = 64 K = 1: no bucket pass, no scratch)
         log_q = torch.empty((n,), dtype=torch.float32, device=device)
         log_p = torch.empty_like(log_q)
         draw = _build.draw_plan("fused_propose_logq", ops.K, D, target.K)[0]
@@ -1438,26 +1438,36 @@ def _tiled_per_sm(kernel, D, index):
 def _draw_blocks(kernel, device, n, K, D, variant, Kt=0):
     """One wave of a draw kernel's ``variant`` for n particles: the record
     kernel's from its occupancy, a tiled product's over the slots of its
-    tiles (``_build.transform_slots``; a drawn product at K = 1 over tiles
-    of 128 particles in order), else 16 blocks an SM of the looped kernel's
-    128 threads."""
+    tiles (``_build.transform_slots``; at K = 1 over tiles of 128 particles
+    in order), else 16 blocks an SM of the looped kernel's 128 threads."""
     if variant == "rec":
         return _blocks(device, n, _rec_per_sm(kernel, K, D, Kt, device.index),
                        _build.EVAL_THREADS)
     if variant == "tiled":
-        tiles = (-(-n // _build.tiled_plan()[0]) if K == 1 and kernel != "fused_transform"
-                 else _build.transform_slots(n, K))
+        tiles = -(-n // _build.tiled_plan()[0]) if K == 1 else _build.transform_slots(n, K)
         return _blocks(device, tiles, _tiled_per_sm(kernel, D, device.index), 1)
     return _blocks(device, n, 16, _build.block_particles(kernel, D, variant))
 
 
-def _draw_scratch(kernel, variant, n, K, device):
-    """The int32 scratch of a tiled product's bucket kernel (perm and slots,
-    ``_build.transform_scratch_words``), or None where the launch has no
-    bucket kernel (another variant; a drawn product at K = 1)."""
-    if variant != "tiled" or (K == 1 and kernel != "fused_transform"):
+def _draw_scratch(variant, n, K, D, device):
+    """The int32 scratch of a draw's tiled product at K > 1 (its bucket
+    pass, the order of its moves and x in bucket order;
+    ``_build.transform_scratch_words``), or None where the launch has none
+    (another variant; K = 1)."""
+    if variant != "tiled" or K == 1:
         return None
-    return torch.empty((_build.transform_scratch_words(n, K),), dtype=torch.int32, device=device)
+    return torch.empty((_build.transform_scratch_words(n, K, D),), dtype=torch.int32,
+                       device=device)
+
+
+def _transform_output(D, N, K, variant, device):
+    """fused_transform's ``(D, N)`` output; for the tiled pair at K > 1 the
+    first D N floats of D ``_build.transform_width(N, K)``, which hold z in
+    bucket order before x is moved there."""
+    if variant != "tiled" or K == 1:
+        return torch.empty((D, N), dtype=torch.float32, device=device)
+    buf = torch.empty((D * _build.transform_width(N, K),), dtype=torch.float32, device=device)
+    return buf[:D * N].view(D, N)
 
 
 def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
@@ -1466,8 +1476,9 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     K)) and scales ``(N,)`` -> ``(D, N)`` (kernel ``csrc/transform.cu``).
     ``variant``: the kernel, ``"rec"`` (the record kernel, to D = 64),
     ``"looped"`` (to D = 128) or ``"tiled"`` (the tiled pair, any D: a
-    counting sort of the particles by component, then a block-tiled product
-    over tiles of one component's particles), as ``_build.transform_plan``
+    block-tiled product over tiles of one component's particles, at K > 1
+    after a counting sort of the particles by component and a move of z
+    into that order, x moved out of it after), as ``_build.transform_plan``
     elects for None; each gives the same output bit for bit where it runs
     (up to the sign of a zero).  Counted as
     ``variant:fused_transform=<variant>``.  The latents are in [0, K)."""
@@ -1483,8 +1494,8 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
     n_blocks = _draw_blocks("fused_transform", zT.device, N, ops.K, D, variant)
     lib = _build.load()
     operands = _transform_operands(ops)
-    xT = torch.empty_like(zT)
-    scratch = _draw_scratch("fused_transform", variant, N, ops.K, zT.device)
+    xT = _transform_output(D, N, ops.K, variant, zT.device)
+    scratch = _draw_scratch(variant, N, ops.K, D, zT.device)
     with torch.cuda.device(zT.device):
         err = lib.pmc_fused_transform(
             zT.data_ptr(), latent.data_ptr(), scale.data_ptr(), operands.data_ptr(),
@@ -1497,19 +1508,20 @@ def fused_transform(zT, latent, scale, ops: MixtureOperands, variant=None):
 
 
 def _transform_buckets(latent, K):
-    """``(perm, slots)`` of fused_transform's bucket kernel alone for the
-    components ``latent`` (``(N,)`` int32 on the card; ``slots`` as (n, 4)),
-    to be held to ``_build.transform_tiles``; not counted as a launch."""
+    """``(perm, slots, pos)`` of the tiled products' bucket pass alone for
+    the components ``latent`` (``(N,)`` int32 on the card; ``slots`` as (n,
+    4)), to be held to ``_build.transform_tiles``; not counted as a
+    launch."""
     N = latent.shape[0]
     _check(latent, (N,), torch.int32)
-    scratch = torch.empty((_build.transform_scratch_words(N, K),), dtype=torch.int32,
-                          device=latent.device)
+    perm, pos, _, words = _build.transform_layout(N, K)[:4]
+    scratch = torch.empty((words,), dtype=torch.int32, device=latent.device)
     with torch.cuda.device(latent.device):
         err = _build.load().pmc_transform_buckets(latent.data_ptr(), scratch.data_ptr(), N, K,
                                                    _stream(latent.device))
-    _raise_on(err, "fused_transform's bucket kernel")
-    words = -(-N // 4) * 4
-    return scratch[:N], scratch[words:].view(-1, 4)
+    _raise_on(err, "the bucket pass")
+    return (scratch[perm:pos], scratch[:perm].view(-1, 4),
+            scratch[pos:pos + N])
 
 
 def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
@@ -1520,7 +1532,7 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     as :func:`fused_propose_logq`'s.  ``variant``: the kernel, as
     :func:`fused_transform`'s (``_build.transform_plan`` with ``rng``;
     ``"tiled"`` the drawn product, its normals drawn in shared memory, after
-    the bucket kernel where K > 1), each the same output bit for bit;
+    the bucket pass where K > 1), each the same output bit for bit;
     counted as ``variant:fused_transform_rng=<variant>``."""
     variant = _elect("fused_transform_rng", ops.K, ops.dim, variant)
     if not use_kernel(ops.packed):
@@ -1534,7 +1546,7 @@ def fused_transform_rng(seed, latent, ops: MixtureOperands, variant=None):
     lib = _build.load()
     operands = _transform_operands(ops)
     xT = torch.empty((D, N), dtype=torch.float32, device=device)
-    scratch = _draw_scratch("fused_transform_rng", variant, N, ops.K, device)
+    scratch = _draw_scratch(variant, N, ops.K, D, device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_transform_rng(
             *_seed_args(seed, device), latent.data_ptr(), operands.data_ptr(),

@@ -189,9 +189,10 @@ def test_the_drawn_products_are_elected_past_d64(D):
 
 def test_the_bucket_kernels_counts_limit_the_drawn_products_past_one_component():
     """The drawn products bucket their particles by component where K > 1
-    (the bucket kernel's counts in a block's shared memory); at K = 1 they
+    (the bucket pass's counts in a block's shared memory); at K = 1 they
     walk the particles in order, so K = 1 has no such limit."""
-    most = max(K for K in range(1, 4000) if _build.transform_bucket_plan(K)[3] <= _build.SMEM_LIMIT)
+    most = max(K for K in range(1, 1 << 13)
+               if _build.transform_bucket_plan(K)[3] <= _build.SMEM_LIMIT)
     for kernel in ("fused_transform_rng", "fused_propose_logq"):
         assert _build.limit_reason(kernel, most, 65) is None
         assert "bucket" in _build.limit_reason(kernel, most + 1, 65)
@@ -293,7 +294,8 @@ def drawn_walk(key, off, latent, scale, mu, L):
     their triangular panels of 16, panel p drawn (or, past D = 128, row tile
     0's panels kept for the row tiles below: the cache) and the product
     accumulated panel by panel, ``x = mu_k + scale (L_k z)`` on each
-    particle of the tile.  Returns x (NaN where no tile writes) and the
+    particle of the tile (at K > 1 stored in bucket order and moved out,
+    ``transform_permute``).  Returns x (NaN where no tile writes) and the
     number of times each (row, particle) normal was drawn."""
     K, D = mu.shape
     N = latent.shape[0]
@@ -301,7 +303,7 @@ def drawn_walk(key, off, latent, scale, mu, L):
         tiles = [(0, np.array([n if n < N else -1 for n in range(t, t + 128)]))
                  for t in range(0, N, 128)]
     else:
-        perm, slots = _build.transform_tiles(latent, K)
+        perm, slots, pos = _build.transform_tiles(latent, K)
         tiles = [(k, np.concatenate([perm[first:first + len_], -np.ones(128 - len_, int)]))
                  for k, first, len_, _ in slots[slots[:, 0] >= 0]]
     x = np.full((D, N), np.nan)
@@ -331,6 +333,12 @@ def drawn_walk(key, off, latent, scale, mu, L):
                 if n >= 0:
                     rows = slice(rt * 128, min(D, rt * 128 + 128))
                     x[rows, n] = mu[k, rows] + scale[n] * acc[:rows.stop - rows.start, c]
+    if K > 1:
+        # stored in bucket order (each particle at pos[n]), then moved out
+        width = _build.transform_width(N, K)
+        xb = np.full((D, width), np.nan)
+        xb[:, pos] = x
+        x = _build.transform_permute(xb, pos, width, inverse=True)
     return x, draws
 
 

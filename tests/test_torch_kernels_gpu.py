@@ -181,9 +181,20 @@ def test_tiled_kernels_past_d64_against_plain_versions(cuda, case):
     (Gaussian, and Student-t with a dead component) on the tiled kernel,
     counted as such, against their float64 plain versions, equal on a second
     run, fused_rho's log q fused_logq's bit for bit; fused_transform's tiled
-    pair on components drawn by weight, its bucket kernel's perm and slots
-    the CPU mirror's, equal to the looped kernel bit for bit to D = 128."""
+    pair on components drawn by weight, its bucket pass's perm, slots and
+    pos the CPU mirror's, equal to the looped kernel bit for bit to D =
+    128."""
     chip_smoke.tiled_case(case, cuda, [])
+
+
+@pytest.mark.parametrize("case", chip_smoke.BUCKET_CASES)
+def test_tiled_bucket_layout_against_its_mirror(cuda, case):
+    """The tiled products' bucket pass over all N (latents outside [0, K)
+    left out): its perm, slots and pos the CPU mirror's
+    (``_build.transform_tiles``) bit for bit and a second run's; to 2^18
+    particles fused_transform's tiled pair on the same components (its
+    moves into and out of bucket order) the looped kernel's bit for bit."""
+    chip_smoke.bucket_case(case, cuda)
 
 
 @pytest.mark.parametrize("case", chip_smoke.TRANSFORM_CASES[1:] + [(10, 10, 200_003, True, 44)])
