@@ -40,8 +40,12 @@ Phases, each of which exits non-zero on failure:
    spill; its plan and blocks an SM at ``GRAM_SHAPES``); ``fused_maha``'s
    tensor-core kernel (``maha_mma_kernel``, D padded to 8 from 8 to 64:
    registers, no spill; its plan against ``_build.mma_plan`` to D=64 at K
-   to 2,040, two blocks an SM at ``MAHA_TIME_SHAPES``' largest K) and
-   ``fused_maha``'s election against ``_build.eval_variant``;
+   to 2,040, two blocks an SM at ``MAHA_TIME_SHAPES``' largest K), its
+   tensor-core kernel past D=64 (``maha_mma_tiled_kernel`` and
+   ``maha_split_kernel``: registers, no spill, one block of 8 warps an SM;
+   its plan and split operand against ``_build.mma_tiled_plan`` and
+   ``mma_scratch_floats``) and ``fused_maha``'s election against
+   ``_build.eval_variant``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -49,7 +53,7 @@ Phases, each of which exits non-zero on failure:
    its record and tensor-core kernels (the tiled one below D=65 at
    ``MAHA_TILED_SEED``'s case), equal on a second run, and
    at the JAX rule's largest K at D=17, 20 and 64, ``MAHA_CASES``; the
-   tensor-core kernel's NaNs and infinities the record kernel's), and past the
+   tensor-core kernels' NaNs and infinities the FP32 arithmetic's, to D=200), and past the
    register kernels (D=40 and D=128, the looped instantiation) and past
    shared memory (operands read from device memory, or, by ``fused_logq``
    and ``fused_maha``, streamed in chunks: K=60, D=32 and K=1, D=128), at
@@ -60,7 +64,9 @@ Phases, each of which exits non-zero on failure:
    D=129), (K=2, D=200) and (K=1, D=1000); the four tiled kernels past D=64
    (``TILED_CASES``: K=1 and the JAX rule's largest K at D=65, 96, 128,
    129 and 200, K=1 at D=1000 and 2040): each against its float64 plain
-   version, counted as tiled, equal on a second run, ``fused_rho``'s log q
+   version, counted as tiled (``fused_maha`` as its tensor-core kernel,
+   with lower, upper and full operands, the tiled kernel forced beside
+   it), equal on a second run, ``fused_rho``'s log q
    ``fused_logq``'s bit for bit, ``fused_transform``'s tiled pair equal to
    its looped kernel bit for bit to D=128 (components drawn by weight, a
    dead component's bucket empty) and its bucket pass's positions,
@@ -350,7 +356,10 @@ Phases, each of which exits non-zero on failure:
     at ``MAHA_TIME_SHAPES`` (each DMAX bucket of the record instantiations
     at K=1 and the JAX rule's largest K, and the pipeline's K=32 at D=40;
     also in CUDA graphs, device times) beside both bounds, and counts the
-    tensor-core kernel's SASS (phase times runs K=32, D=40);
+    tensor-core kernel's SASS (phase times runs K=32, D=40), then, past
+    D=64, its tensor-core and tiled kernels and ``torch.bmm``, device
+    times, at ``MAHA_WIDE_SHAPES`` (``TILED_SHAPES`` and K=1 at D=1,000
+    and 2,040; ``--maha-times wide`` these alone);
     ``--parent-draws DIR`` holds the drawn products to the kernels DIR
     elects past D=128 (an earlier commit's warp kernels) bit for bit.
 
@@ -904,17 +913,31 @@ def maha_case(case, device, report):
 MAHA_CASES = [(225, 17, N_WIDE, 41), (193, 20, N_WIDE, 42), (62, 64, N_WIDE, 43)]
 
 
+def fp32_maha_terms(xT, a, m):
+    """|a_k (x_n - m_k)|^2 of the particles xT (D, n) in float32, each term
+    a_k[i][j] (x_j - m_k[j]) formed on its own (0 x inf = NaN, as the record
+    kernel's FMAs give it) and summed: the NaNs and infinities of the FP32
+    arithmetic, for the few particles of a non-finite check; (K, n)."""
+    y = (a[:, :, :, None] * (xT[None] - m[:, :, None])[:, None]).sum(2)
+    return (y * y).sum(1)
+
+
 def maha_nonfinite_case(device, report):
-    """fused_maha's tensor-core kernel on particles with a NaN, a +inf and a
-    -inf coordinate, lower, upper and full operands at D=20 and 40: NaN and
-    infinite exactly where the record kernel's are (a value that is not
-    finite is recomputed in the record kernel's FP32 arithmetic), the
-    finite outputs within TOL["maha"] of float64."""
+    """fused_maha's tensor-core kernels on particles with a NaN, a +inf and a
+    -inf coordinate, lower, upper and full operands at D=20 and 40 and, past
+    D = 64, at D=96 and 200: NaN and infinite exactly where the FP32
+    arithmetic's are (a value that is not finite is recomputed in the
+    record kernel's FP32 arithmetic): the record kernel's outputs to D = 64
+    and, at every D, fp32_maha_terms on the four particles; the finite
+    outputs within TOL["maha"] of float64.  Past D = 64 the tiled kernel's
+    are printed beside: its rows padded to 128 add fmaf(0, inf, s) = NaN, so
+    where D is not a multiple of 128 a particle whose every row is infinite
+    is NaN there, +inf in the FP32 arithmetic."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
 
-    for K, D in ((4, 20), (3, 40)):
+    for K, D in ((4, 20), (3, 40), (2, 96), (1, 200)):
         rng = np.random.default_rng(K + D)
         params = make_params(random_mixture(rng, K, D, False), device)
         xT = mixture_particles(core._kernel_operands(params), 4099, K + D, device)
@@ -922,22 +945,38 @@ def maha_nonfinite_case(device, report):
         xT[0, 11] = float("inf")
         xT[D - 1, 13] = -float("inf")
         xT[5, 17] = float("inf")
+        finite = torch.isfinite(xT).all(0)
+        bad = (~finite).nonzero().flatten()
+        require(bad.tolist() == [7, 11, 13, 17], "the non-finite particles are %s" % bad.tolist())
         A, m, _ = vb_operands(params)
         full = torch.tensor(rng.normal(0, 1, (K, D, D)), dtype=torch.float32, device=device)
         for tag, a in (("lower", params.inv_chol), ("upper", A), ("full", full)):
             label = "fused_maha non-finite %s K=%d D=%d" % (tag, K, D)
-            rec, mma = (k.fused_maha(xT, a, m, variant=v) for v in ("rec", "mma"))
+            mma = k.fused_maha(xT, a, m, variant="mma")
+            terms = fp32_maha_terms(xT[:, bad], a, m)
+            fp32 = [("the FP32 terms'", mma[:, bad], terms)]
+            if D <= 64:
+                fp32.append(("the record kernel's", mma, k.fused_maha(xT, a, m, variant="rec")))
             for what, f in (("NaN", torch.isnan), ("+inf", lambda t: t == float("inf"))):
-                require(bool(torch.equal(f(rec), f(mma))),
-                        "%s: the tensor-core kernel's %s differ from the record kernel's"
-                        % (label, what))
-            finite = torch.isfinite(xT).all(0)
-            require(bool(torch.isfinite(rec[:, finite]).all()) and int((~finite).sum()) == 4,
+                for whose, got, want in fp32:
+                    require(bool(torch.equal(f(got), f(want))),
+                            "%s: the tensor-core kernel's %s differ from %s: %s, %s"
+                            % (label, what, whose, got[:, :4].tolist() if got is mma else
+                               got.tolist(), want[:, :4].tolist() if want.shape == mma.shape
+                               else want.tolist()))
+            require(bool(torch.isfinite(mma[:, finite]).all()),
                     "%s: a finite particle's output is not finite" % label)
             ref = k.plain_maha(xT[:, finite].double(), a.double(), m.double())
             compare(label, mma[:, finite], ref, "maha", report)
-            print("  %s: NaN at %d outputs, +inf at %d, as the record kernel"
-                  % (label, int(torch.isnan(mma).sum()), int((mma == float("inf")).sum())))
+            line = "  %s: NaN at %d outputs, +inf at %d, as %s" % (
+                label, int(torch.isnan(mma).sum()), int((mma == float("inf")).sum()),
+                " and ".join(whose for whose, _, _ in fp32))
+            if D > 64:
+                tiled = k.fused_maha(xT, a, m, variant="tiled")
+                line += "; the tiled kernel: NaN at %d, +inf at %d (%s at the four)" % (
+                    int(torch.isnan(tiled).sum()), int((tiled == float("inf")).sum()),
+                    tiled[:, bad].tolist())
+            print(line)
 
 
 def vb_stats_case(xT, w, A, m, const, label, report):
@@ -1721,16 +1760,16 @@ def mixture_particles(ops, N, seed, device, spread=1.5):
 
 
 def tiled_case(case, device, report):
-    """fused_maha on lower (U = L^{-1}) and upper (the VB E-step's) operands,
-    fused_logq and fused_rho on a Gaussian mixture and on a Student-t one
-    with a dead component (K > 1), and fused_transform on each, past the
-    record kernels' D = 64.  The evaluations through the kernel the wrapper
-    elects (the tiled kernel, counted as ``variant:...=tiled``) against
-    their float64 plain versions on the same particles (TOL "maha", "log",
-    "rho"), equal on a second run; fused_rho's log q equal to fused_logq's
-    bit for bit, a dead component's rho exactly 0.  fused_transform
-    (transform_tiled_case) on components drawn by weight (a dead component's
-    bucket empty)."""
+    """fused_maha on lower (U = L^{-1}), upper (the VB E-step's) and full
+    operands (maha_wide_check), fused_logq and fused_rho on a Gaussian
+    mixture and on a Student-t one with a dead component (K > 1), and
+    fused_transform on each, past the record kernels' D = 64.  fused_logq
+    and fused_rho through the kernel the wrapper elects (the tiled kernel,
+    counted as ``variant:...=tiled``) against their float64 plain versions
+    on the same particles (TOL "log", "rho"), equal on a second run;
+    fused_rho's log q equal to fused_logq's bit for bit, a dead component's
+    rho exactly 0.  fused_transform (transform_tiled_case) on components
+    drawn by weight (a dead component's bucket empty)."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -1749,11 +1788,7 @@ def tiled_case(case, device, report):
         rho_ref, lq_ref = k.plain_rho(x64, ops64)
         runs = [("fused_logq", lambda v: k.fused_logq(xT, ops, variant=v), lq_ref, "log")]
         if not student:
-            A, m, _ = vb_operands(params)
-            for side, a, mm in (("lower", ops.fields()["U"], ops.fields()["mu"]), ("upper", A, m)):
-                runs.append(("fused_maha " + side,
-                             lambda v, a=a, mm=mm: k.fused_maha(xT, a, mm, variant=v),
-                             k.plain_maha(x64, a.double(), mm.double()), "maha"))
+            maha_wide_check(params, xT, x64, label, rng, report)
         for name, call, ref, kind in runs:
             wrapper = name.split()[0]
             k.reset_launch_counts()
@@ -1786,6 +1821,74 @@ def tiled_case(case, device, report):
         del xT, x64, runs, ref, rho, log_q, rho_ref, lq_ref, again
         transform_tiled_case(params, tag, seed, N, device, report)
         torch.cuda.empty_cache()
+
+
+def maha_wide_check(params, xT, x64, label, rng, report):
+    """fused_maha past D = 64 on particles xT (x64 their float64 copy) of
+    the Gaussian mixture ``params``: its lower (U = L^{-1}), upper (the VB
+    E-step's) and full operands (normal entries over sqrt(D), drawn from
+    ``rng``), each through the wrapper's elected kernel (the tensor-core
+    kernel, counted as ``variant:fused_maha=mma``) and each kernel forced
+    (maha_variants_check: the tiled kernel and the tensor-core one) against
+    the float64 plain version with TOL["maha"], equal on a second run; the
+    tensor-core kernel also against the tiled kernel, within the same
+    tolerance of each other."""
+    import torch
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    from pypmc_tpu_torch.density import core
+
+    K, D, N = params.means.shape[0], params.dim, xT.shape[1]
+    A, m, _ = vb_operands(params)
+    f = core._kernel_operands(params).fields()
+    full = torch.tensor(rng.normal(0, 1, (K, D, D)) / np.sqrt(D), dtype=torch.float32,
+                        device=xT.device)
+    elected = _build.eval_variant("fused_maha", D)
+    for side, a, mm in (("lower", f["U"], f["mu"]), ("upper", A, m), ("full", full, m)):
+        tag = "fused_maha %s %s" % (side, label)
+        k.reset_launch_counts()
+        got = k.fused_maha(xT, a, mm)
+        counts = k.launch_counts()
+        require(counts["variant:fused_maha=" + elected] == counts["fused_maha"] == 1,
+                "%s: the elected launch was not the %s kernel: %s"
+                % (tag, elected, {n: c for n, c in counts.items() if c}))
+        ref = torch.cat([k.plain_maha(x64, a[k0:k1].double(), mm[k0:k1].double())
+                         for k0, k1 in k._chunks(K, D, N)])
+        maha_variants_check(tag, xT, a, mm, ref, report)
+        compare("%s %s vs tiled" % (tag, elected), got,
+                k.fused_maha(xT, a, mm, variant="tiled").double(), "maha", [])
+        del got, ref
+
+
+# maha_wide_case's shapes beside TILED_CASES: N a multiple of 4 (the
+# tensor-core kernel's 16-byte x copies; also from an unaligned xT, its
+# 4-byte ones) and the last particle tile partial: K, D, N, seed
+MAHA_WIDE_CASES = [(3, 96, 4100, 215), (19, 200, 20_012, 216)]
+
+
+def maha_wide_case(case, device, report):
+    """maha_wide_check at one TILED_CASES shape (K, D, N, seed) on its own
+    Gaussian mixture and N particles from it."""
+    from pypmc_tpu_torch.density import core
+
+    K, D, N, seed = case
+    rng = np.random.default_rng(seed + 500)
+    params = make_params(random_mixture(rng, K, D, False), device)
+    xT = mixture_particles(core._kernel_operands(params), N, seed, device)
+    print("case fused_maha past D = 64 K=%d D=%d N=%d" % (K, D, N))
+    maha_wide_check(params, xT, xT.double(), "K=%d D=%d N=%d" % (K, D, N), rng, report)
+    if N % 4 == 0:
+        # the same particles 4 bytes past a 16-byte boundary take the 4-byte
+        # copies: the same outputs bit for bit
+        import torch
+        from pypmc_tpu_torch.ops import kernels as k
+
+        off = torch.empty(D * N + 1, device=device)[1:].view(D, N)
+        off.copy_(xT)
+        A, m, _ = vb_operands(params)
+        require(bool(torch.equal(k.fused_maha(off, A, m), k.fused_maha(xT, A, m))),
+                "fused_maha K=%d D=%d N=%d: an unaligned xT gave other outputs" % (K, D, N))
 
 
 def transform_tiled_case(params, tag, seed, N, device, report):
@@ -2383,6 +2486,8 @@ def phase_kernels(device, cases, eval_cases):
         torch.cuda.empty_cache()
     for case in TILED_CASES:
         tiled_case(case, device, report)
+    for case in MAHA_WIDE_CASES:
+        maha_wide_case(case, device, report)
     for case in BUCKET_CASES:
         bucket_case(case, device)
     torch.cuda.empty_cache()
@@ -4260,16 +4365,18 @@ wide_step_rows = []
 
 def phase_wide(device, report):
     """The wide path through the port's entry points, past D = 128 where
-    fused_logq, fused_maha, fused_rho and fused_transform take their tiled
-    kernels: ``parallel.pmc_run_sharded`` at WIDE_PATH (its steps draw by
-    ``propose_T`` past fused_propose_logq's rule, draw_proposal_inputs then
+    fused_logq, fused_rho and fused_transform take their tiled kernels and
+    fused_maha its tensor-core kernel: ``parallel.pmc_run_sharded`` at
+    WIDE_PATH (its steps draw by ``propose_T`` past fused_propose_logq's
+    rule, draw_proposal_inputs then
     fused_transform, so each step's log q, log p and log-likelihood are
     fused_logq launches, and its unfused update a fused_rho launch), every
     fused_logq and fused_rho launch of the run held to its float64 plain
     version on the same particles, every fused_rho and fused_transform
     launch tiled; a
     ``GaussianInference`` fit at WIDE_PATH's VB size (the unfused E-step, one
-    fused_maha launch an iteration), its first iteration's bilinear term
+    fused_maha launch an iteration, each on the kernel fused_maha elects),
+    its first iteration's bilinear term
     held to the same term in float64 on the CPU.  Each prints ms a step or
     iteration (host clock, synchronized), device ms (torch.profiler) and the
     variant counts; returns the launch counts of the two runs."""
@@ -4372,8 +4479,8 @@ def phase_wide(device, report):
     finally:
         vb_counts = k.launch_counts()
         undo()
-    require(vb_counts["fused_maha"] == vb_counts["variant:fused_maha=tiled"]
-            == WIDE_PATH["vb_iters"] == len(kept),
+    require(vb_counts["fused_maha"] == vb_counts["variant:fused_maha=" + k._elect(
+                "fused_maha", K, D, None)] == WIDE_PATH["vb_iters"] == len(kept),
             "wide vb: fused_maha launches %s for %d iterations"
             % ({c: v for c, v in vb_counts.items() if "maha" in c and v}, WIDE_PATH["vb_iters"]))
     xT, a, m, got = kept[0]
@@ -7247,11 +7354,14 @@ def graph_ms(fn, reps=20, replays=3):
 def tiled_shape_ms(device, shape):
     """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for the wrappers
     of TILED_TIMED on tiled_inputs (fused_maha on the VB E-step's upper
-    operands), CUDA events, in turns (tiled, looped, library, plain, plain,
-    library, looped, tiled; each the mean of its two turns): "tiled", the
-    tiled kernel (fused_transform's pair forced where its plan elects the
-    looped kernel; held to the float64 plain version first), also as "cuda"
-    where it is the elected one; "looped", fused_transform's looped kernel
+    operands), CUDA events, in turns (mma, tiled, looped, library, plain,
+    plain, library, looped, tiled, mma; each the mean of its two turns):
+    "mma", fused_maha's tensor-core kernel, its elected one, beside the tiled
+    kernel forced (and both kernels' and torch.bmm's device times in turns,
+    "<route>_device"); "tiled", the tiled kernel (fused_transform's pair
+    forced where its plan elects the looped kernel; each timed kernel held
+    to the float64 plain version first); "cuda", the elected kernel's;
+    "looped", fused_transform's looped kernel
     to D = 128; "plain", the plain version; "library", one PyTorch call in
     full FP32 (allow_tf32 False), a yardstick the port never calls:
     ``torch.bmm(a, xc)`` on the pre-centred (K, D, N) operand for the
@@ -7284,16 +7394,22 @@ def tiled_shape_ms(device, shape):
     for name in TILED_TIMED:
         elected = k._elect(name, K, D, None)
         call, plain = calls[name]
+        fns = {}
         if name == "fused_transform":
             call = lambda i: k.fused_transform(*tr, ops, variant="tiled")
             kind = "log"
         else:
-            require(elected == "tiled", "%s %s: not the tiled kernel" % (name, label))
+            want = "mma" if name == "fused_maha" else "tiled"
+            require(elected == want, "%s %s: not the %s kernel" % (name, label, want))
             kind = {"fused_maha": "maha", "fused_logq": "log", "fused_rho": "rho"}[name]
-        got = call(0)
-        compare("%s tiled %s" % (name, label), got[0] if name == "fused_rho" else got,
-                refs[name](), kind, [])
-        del got
+        if name == "fused_maha":
+            # the tensor-core kernel elected, the tiled kernel forced beside it
+            fns["mma"], call = call, lambda i: k.fused_maha(xT, a["A"], a["m"], variant="tiled")
+        for route, fn in list(fns.items()) + [("tiled", call)]:
+            got = fn(0)
+            compare("%s %s %s" % (name, route, label), got[0] if name == "fused_rho" else got,
+                    refs[name](), kind, [])
+            del got
         torch.cuda.empty_cache()
         if name == "fused_transform":
             Lk = f["L"].contiguous()
@@ -7303,8 +7419,8 @@ def tiled_shape_ms(device, shape):
             am = {"fused_maha": (a["A"], a["m"])}.get(name, (f["U"], f["mu"]))
             xc = (xT[None] - am[1][:, :, None]).contiguous()
             library = lambda i, am=am, xc=xc: torch.bmm(am[0], xc)
-        fns = {"tiled": call, "library": library, "plain": plain}
-        order = ("tiled", "library", "plain", "plain", "library", "tiled")
+        fns.update({"tiled": call, "library": library, "plain": plain})
+        order = tuple(fns) + tuple(fns)[::-1]
         if name == "fused_transform" and D <= _build._THREAD_D_MAX:
             fns["looped"] = lambda i: k.fused_transform(*tr, ops, variant="looped")
             order = ("tiled", "looped", "library", "plain", "plain", "library", "looped", "tiled")
@@ -7312,14 +7428,22 @@ def tiled_shape_ms(device, shape):
         for route in order:
             ms[route].append(cuda_ms(fns[route], **({"reps": 3, "warmup": 1}
                                                     if route == "plain" else {})))
+        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
+        out[(name, "cuda")] = out[(name, elected)]
+        extra = ""
+        if name == "fused_maha":
+            # device times with no host gaps (graph_ms), in turns
+            dev = {}
+            for route in ("mma", "tiled", "library", "library", "tiled", "mma"):
+                dev.setdefault(route, []).append(graph_ms(fns[route]))
+            out.update({(name, route + "_device"): sum(t) / 2 for route, t in dev.items()})
+            extra = (", mma %s ms; device: mma %.4f ms, tiled %.4f ms, bmm %.4f ms; tensor-core "
+                     "bound %.4f ms; elected %s" % (
+                         " / ".join("%.3f" % t for t in ms["mma"]), out[(name, "mma_device")],
+                         out[(name, "tiled_device")], out[(name, "library_device")],
+                         bound_tc(name, shape)[1], elected))
         fns.clear()
         torch.cuda.empty_cache()
-        out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
-        if elected == "tiled":
-            out[(name, "cuda")] = out[(name, "tiled")]
-        else:
-            out[(name, "cuda")] = out[(name, elected)]
-        extra = ""
         if name == "fused_transform":
             out[(name, "bucket")] = (graph_ms(lambda i: k._transform_buckets(tr[1], K))
                                      if K > 1 else 0.0)
@@ -7491,6 +7615,150 @@ def maha_shape_ms(device, shape, report):
                               for route, ts in ms.items()),
              bound("fused_maha", shape)[1], bound_tc("fused_maha", shape)[1], elected))
     return out
+
+
+# fused_maha past D = 64, timed by --maha-times: TILED_SHAPES, and K = 1 at
+# D = 1,000 and 2,040 (the rule's reach at K = 1), 2^16 particles
+MAHA_WIDE_SHAPES = TILED_SHAPES + [(1, 0, 1000, 1 << 16), (1, 0, 2040, 1 << 16)]
+
+
+def maha_wide_ms(device, shape, report):
+    """``{route: ms}`` of fused_maha at ``shape`` (K, Kt, D > 64, N): each of
+    its kernels at D forced (``kernels._eval_variants``: the tiled kernel
+    and the tensor-core one), held first to the float64 plain version (over
+    component chunks) with TOL["maha"] and equal on a second run, and one
+    FP32 ``torch.bmm`` of the pre-centred (K, D, N) operand ("library", the
+    product alone, never called by the port); device ms in CUDA graphs
+    (graph_ms), in turns (kernels, library, library, kernels reversed), each
+    the mean of its two turns; "cuda" the elected kernel's.  The inputs are
+    maha_shape_ms': a random Student-t mixture (seed K + D), N particles from
+    it, the VB E-step's upper operands of it."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in FP32")
+    K, _, D, N = shape
+    params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+    xT = mixture_particles(core._kernel_operands(params), N, K + D, device)
+    A, m, _ = vb_operands(params)
+    chunks = k._chunks(K, D, N)
+    label = "fused_maha K=%d D=%d N=%d" % (K, D, N)
+    ref = torch.cat([k.plain_maha(xT.double(), A[k0:k1].double(), m[k0:k1].double())
+                     for k0, k1 in chunks])
+    variants = k._eval_variants("fused_maha", D)
+    fns = {v: (lambda i, v=v: k.fused_maha(xT, A, m, variant=v)) for v in variants}
+    for v, fn in fns.items():
+        got = fn(0)
+        compare("%s %s" % (label, v), got, ref, "maha", report)
+        require(bool(torch.equal(got, fn(1))), "%s %s: one input gave two outputs" % (label, v))
+        del got
+    del ref
+    torch.cuda.empty_cache()
+    xc = (xT[None] - m[:, :, None]).contiguous()
+    fns["library"] = lambda i: torch.bmm(A, xc)
+    ms = {}
+    for route in variants + ("library", "library") + variants[::-1]:
+        ms.setdefault(route, []).append(graph_ms(fns[route], reps=5 if D > 200 else 20))
+    del xc, fns
+    torch.cuda.empty_cache()
+    out = {route: sum(t) / 2 for route, t in ms.items()}
+    elected = _build.eval_variant("fused_maha", D)
+    out["cuda"] = out[elected]
+    print("  %s, device ms: %s; bound FP32 %.4f ms, tensor-core %.4f ms; elected %s"
+          % (label, ", ".join("%s %s" % (route, " / ".join("%.4f" % t for t in ts))
+                              for route, ts in ms.items()),
+             bound("fused_maha", shape)[1], bound_tc("fused_maha", shape)[1], elected))
+    return out
+
+
+# fused_maha's tensor-core kernel past D = 64 with parts left out, built
+# from csrc/maha.cu with the PMC_MAHA_OFF mask (csrc/mma_tiled.cuh MahaOff;
+# 0 in the library): 1 the x words' split, 2 the two small products, 4 the
+# step buffers' copies past the first steps, 8 every product; the outputs
+# of a variant with a part left out are wrong by design
+MAHA_OFF = {"all": 0, "no split": 1, "big only": 2, "no copies": 4, "no mma": 8,
+            "big only, no split": 3}
+# the shapes (K, Kt, D, N) of --maha-split: the wide VB path's D=200 at
+# K=1 and the rule's largest K, and the rule's largest K at D=65 and 128
+MAHA_SPLIT_SHAPES = [(K, 0, D, 1 << 16) for K, D in ((1, 200), (19, 200), (60, 65), (30, 128))]
+
+
+def maha_split(device, out_dir="build/maha_split", csrc=None):
+    """``{"K,D": {variant: device ms}}``: fused_maha's tensor-core kernel
+    past D = 64 (its launches through pmc_fused_maha, variant 3: the split
+    of A, then the kernel) built with each MAHA_OFF mask, one nvcc a mask,
+    all at once, on maha_wide_ms' inputs at MAHA_SPLIT_SHAPES, in turns
+    (all, each variant, then in reverse; the mean of the two), device ms in
+    CUDA graphs (graph_ms); the whole kernel's build held to the float64
+    plain version first.  Needs no library build: ~1 min of nvcc.  ``csrc``:
+    the sources' directory (by default the package's; another checkout's
+    ``pypmc_tpu_torch/csrc`` to time its kernel on the same inputs)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
+    from pypmc_tpu_torch.ops import kernels as k
+
+    out = Path(out_dir)
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    paths = {name: out / ("lib_%d.so" % mask) for name, mask in MAHA_OFF.items()}
+    log, rc = _build._run_all(
+        [[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-DPMC_MAHA_OFF=%d" % mask, "-o",
+          str(paths[name]), str(Path(csrc or _build.CSRC) / "maha.cu")]
+         for name, mask in MAHA_OFF.items()])
+    require(rc == 0, "maha_split: nvcc failed:\n%s" % log[-4000:])
+    for part in log.split("Compiling entry function '")[1:]:
+        if "21maha_mma_tiled_kernel" in part.split("'", 1)[0]:
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            print("  ptxas maha_mma_tiled_kernel: %s, %s bytes of spill stores" % (
+                re.search(r"Used \d+ registers", part).group(0), spill.group(1) if spill else 0))
+    fns = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        fn = lib.pmc_fused_maha
+        fn.argtypes, fn.restype = _build.signatures()["pmc_fused_maha"], ctypes.c_int
+        lib.pmc_maha_per_sm.argtypes = [ctypes.c_int] * 3
+        fns[name] = (fn, lib.pmc_maha_per_sm)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    result = {}
+    for shape in MAHA_SPLIT_SHAPES:
+        K, _, D, N = shape
+        params = make_params(random_mixture(np.random.default_rng(K + D), K, D, True), device)
+        xT = mixture_particles(core._kernel_operands(params), N, K + D, device)
+        A, m, _ = vb_operands(params)
+        ops = torch.cat([A.reshape(-1), m.reshape(-1)])
+        scratch = torch.empty(_build.mma_scratch_floats(K, D), device=device)
+        got = torch.empty((K, N), device=device)
+
+        def call(name):
+            fn, per_sm = fns[name]
+            n_blocks = max(1, min(-(-N // _build.mma_tiled_plan()[0]), per_sm(K, D, 3) * n_sm))
+            err = fn(xT.data_ptr(), ops.data_ptr(), scratch.data_ptr(), got.data_ptr(), N, K, D,
+                     3, n_blocks, torch.cuda.current_stream(device).cuda_stream)
+            require(err == 0, "maha_split: CUDA error %d" % err)
+
+        call("all")
+        compare("fused_maha split build K=%d D=%d" % (K, D), got, torch.cat(
+            [k.plain_maha(xT.double(), A[k0:k1].double(), m[k0:k1].double())
+             for k0, k1 in k._chunks(K, D, N)]), "maha", [])
+        ms = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                ms[name].append(graph_ms(lambda i, name=name: call(name)))
+        row = {name: sum(t) / len(t) for name, t in ms.items()}
+        result["%d,%d" % (K, D)] = row
+        print("  fused_maha K=%d D=%d N=%d: device ms %s; tensor-core bound %.4f ms" % (
+            K, D, N, ", ".join("%s %.4f" % kv for kv in row.items()),
+            bound_tc("fused_maha", shape)[1]), flush=True)
+        del xT, A, m, ops, scratch, got
+        torch.cuda.empty_cache()
+    return result
 
 
 def maha_sass():
@@ -7730,10 +7998,13 @@ def gram_kernels(log):
 # the moves into and out of bucket order (rank: transform.cu's and
 # propose_logq.cu's) and the moves (in, and out in both), and the drawn
 # products of fused_transform_rng and fused_propose_logq (eight: OFF 0 and
-# 1, the seed by value and by pointer, RunTiles and ParticleTiles)
+# 1, the seed by value and by pointer, RunTiles and ParticleTiles); and
+# fused_maha's tensor-core kernel past D = 64 and its split of A
+# (csrc/mma_tiled.cuh, maha.cu)
 TILED_KERNELS = ("maha_tiled_kernel", "logq_tiled_kernel", "rho_tiled_kernel",
                  "transform_tiled_kernel", "bucket_count_kernel", "bucket_scatter_kernel",
-                 "bucket_rank_kernel", "bucket_permute_kernel", "draw_tiled_kernel")
+                 "bucket_rank_kernel", "bucket_permute_kernel", "draw_tiled_kernel",
+                 "maha_mma_tiled_kernel", "maha_split_kernel")
 TILED_INSTANTIATIONS = {"transform_tiled_kernel": 2, "bucket_count_kernel": 2,
                         "bucket_scatter_kernel": 2, "bucket_rank_kernel": 2,
                         "bucket_permute_kernel": 3, "draw_tiled_kernel": 8}
@@ -7983,15 +8254,32 @@ def phase_build():
         print("  ptxas %-44s %3d registers, %d bytes of spill stores, %d bytes of stack frame"
               % (name, regs, spilled, stack))
         require(spilled == 0, "%s spills %d bytes" % (name, spilled))
+    # fused_maha's tensor-core kernel past D = 64: its plan and its split
+    # operand's size against _build's
+    mt = (ctypes.c_int * 5)()
+    mt_smem = lib.pmc_maha_mma_tiled_plan(mt)
+    require(tuple(mt) + (mt_smem,) == _build.mma_tiled_plan(),
+            "the tensor-core plan past D = 64 differs from the kernel's: %s, %s"
+            % (tuple(mt) + (mt_smem,), _build.mma_tiled_plan()))
+    for K, D in ((1, 65), (60, 65), (41, 96), (30, 129), (19, 200), (1, 1000), (1, 2040),
+                 (3, 4096)):
+        require(lib.pmc_maha_mma_scratch_floats(K, D) == _build.mma_scratch_floats(K, D),
+                "the split operand's size differs from the kernel's (K=%d, D=%d)" % (K, D))
     for K, D in ((1, 65), (60, 65), (1, 200), (4, 200), (19, 200), (1, 2040)):
-        for kernel, per_sm in (("fused_maha", lib.pmc_maha_per_sm(K, D, -1)),
-                               ("fused_logq", lib.pmc_logq_per_sm(K, D, -1)),
-                               ("fused_rho", lib.pmc_rho_per_sm(K, D, -1))):
+        for kernel, variant, per_sm in (
+                ("fused_maha", _build.eval_variant("fused_maha", D), lib.pmc_maha_per_sm(K, D, -1)),
+                ("fused_maha", "tiled", lib.pmc_maha_per_sm(K, D, 2)),
+                ("fused_logq", _build.eval_variant("fused_logq", D), lib.pmc_logq_per_sm(K, D, -1)),
+                ("fused_rho", _build.eval_variant("fused_rho", D), lib.pmc_rho_per_sm(K, D, -1))):
+            threads = _build.eval_threads(D, variant)
             print("  %s K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
                   "%d B of shared memory a block"
-                  % (kernel, K, D, _build.eval_variant(kernel, D), per_sm, plan[3],
-                     per_sm * plan[3] // 32, smem))
-            require(per_sm >= 2, "%s at K=%d, D=%d: %d blocks an SM" % (kernel, K, D, per_sm))
+                  % (kernel, K, D, variant, per_sm, threads, per_sm * threads // 32,
+                     _build.eval_plan(kernel, K, D, variant)[2]))
+            # the tensor-core kernel: one block of 8 warps an SM (its 128
+            # accumulators a thread)
+            require(per_sm >= (1 if variant == "mma" else 2),
+                    "%s at K=%d, D=%d: %d blocks an SM" % (kernel, K, D, per_sm))
     per_sm = lib.pmc_transform_tiled_per_sm()
     print("  fused_transform from D=%d: the tiled kernel, %d blocks of %d threads an SM (%d "
           "warps), %d B of shared memory a block"
@@ -8156,6 +8444,8 @@ def main():
               for n in counts}
     for kname in SOURCES:
         require(counts[kname] > 0, "%s was launched by no path" % kname)
+    require(wide_counts["variant:fused_maha=mma"] > 0,
+            "fused_maha's tensor-core kernel past D = 64 was launched by no path")
 
     phase("times (%s)" % card)
     times = phase_times(device, report)
@@ -8236,6 +8526,14 @@ def main():
             entry.update(variant=_build.eval_variant(kname, 10), bound_fp32_ms=bound(kname)[1],
                          launches_mma=counts["variant:fused_maha=mma"],
                          mma_d_min=_build.MAHA_MMA_D_MIN)
+            # past D = 64 the paneled tensor-core kernel (and its split of
+            # A, one launch before each): its launches on the wide paths,
+            # which run fused_maha only past D = 64
+            entry["mma_tiled_kernel"] = {
+                "name": "maha_mma_tiled_kernel, maha_split_kernel",
+                "source": "pypmc_tpu_torch/csrc/mma_tiled.cuh",
+                "launches": sum(c["variant:fused_maha=mma"] for c in (wide_counts,
+                                                                      wide_is_counts))}
             for sh, row in zip(shapes, entry["shapes"]):
                 row.update(variant=_build.eval_variant(kname, sh[2]), bound_ms=maha_bound(sh)[1],
                            bound_fp32_ms=bound(kname, sh)[1])
@@ -8308,7 +8606,10 @@ def main():
           "its three kernels forced, and their and torch.bmm's device times in CUDA graphs "
           "(*_device_ms; variant: the one it elects; bound_ms the tensor-core bound, "
           "three split TF32 products at D (not padded) over %.3g op/s, where that is the "
-          "tensor-core kernel, bound_fp32_ms the FP32 one; launches_mma its launches); fused_pmc_stats, fused_is_pmc_step and fused_vb_estep at GRAM_TIME_SHAPES "
+          "tensor-core kernel, bound_fp32_ms the FP32 one; launches_mma its launches; past D=64 "
+          "at TILED_SHAPES mma_ms the tensor-core kernel's, elected, tiled_ms the tiled kernel's, "
+          "forced, *_device_ms both kernels' and torch.bmm's device times; mma_tiled_kernel: the "
+          "paneled tensor-core kernel past D=64, its launches on the wide paths); fused_pmc_stats, fused_is_pmc_step and fused_vb_estep at GRAM_TIME_SHAPES "
           "(K D <= 128, "
           "D = 17-128, a one-component target, N=2^20): ms the Gram pass's, table_ms the "
           "entry table's, launches_gram the Gram pass's launches; "
@@ -8408,16 +8709,21 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--maha-times"]:
             # phase build, then fused_maha's three kernels, torch.bmm and
             # the plain version at MAHA_TIME_SHAPES, and the tensor-core
-            # kernel's SASS
+            # kernel's SASS; then (alone with "wide") its kernels and
+            # torch.bmm past D = 64 at MAHA_WIDE_SHAPES, device times
             import torch
 
             torch.backends.cuda.matmul.allow_tf32 = False
             print(card_line())
             phase_build()
             dev = torch.device("cuda", 0)
-            print("MAHA_SASS " + json.dumps(maha_sass()), flush=True)
-            print("MAHA_MS " + json.dumps(
-                {"%d,%d" % (sh[0], sh[2]): maha_shape_ms(dev, sh, []) for sh in MAHA_TIME_SHAPES}),
+            if sys.argv[2:3] != ["wide"]:
+                print("MAHA_SASS " + json.dumps(maha_sass()), flush=True)
+                print("MAHA_MS " + json.dumps(
+                    {"%d,%d" % (sh[0], sh[2]): maha_shape_ms(dev, sh, [])
+                     for sh in MAHA_TIME_SHAPES}), flush=True)
+            print("MAHA_WIDE_MS " + json.dumps(
+                {"%d,%d" % (sh[0], sh[2]): maha_wide_ms(dev, sh, []) for sh in MAHA_WIDE_SHAPES}),
                 flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--tiled-times"]:
@@ -8432,6 +8738,16 @@ if __name__ == "__main__":
                 {"%d,%d" % (sh[0], sh[2]): {"%s %s" % key: ms for key, ms
                                              in tiled_shape_ms(dev, sh).items()}
                  for sh in TILED_SHAPES}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--maha-split"]:
+            # fused_maha's tensor-core kernel past D = 64 with parts left out
+            import torch
+
+            print(card_line())
+            src = sys.argv[2] if len(sys.argv) > 2 else None
+            out_dir = "build/maha_split" + ("_" + re.sub(r"\W", "_", src) if src else "")
+            print("MAHA_SPLIT " + json.dumps(maha_split(torch.device("cuda", 0), out_dir, src)),
+                  flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--transform-split"]:
             # fused_transform's pair with parts of its data movement left out

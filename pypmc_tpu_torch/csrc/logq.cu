@@ -88,10 +88,11 @@ extern "C" long long pmc_logq_smem_bytes(int K, int D) {
 
 // components a chunk of the elected kernel of fused_logq (kernel 0),
 // fused_maha (1) or fused_rho (2, whose records are fused_logq's): 1 where
-// it is the tiled one (a component at a time)
+// it is the tiled one or fused_maha's tensor-core kernel past D = 64 (a
+// component at a time)
 extern "C" int pmc_eval_chunk(int K, int D, int kernel) {
   const int v = kernel == 1 ? pmc::maha_variant(D) : pmc::eval_variant(D);
-  if (v == pmc::kEvalTiled) return 1;
+  if (v == pmc::kEvalTiled || (v == pmc::kEvalMma && D > pmc::kRecDMax)) return 1;
   return v == pmc::kEvalMma ? pmc::mma_plan(K, D).kc : pmc::eval_plan(K, D, kernel == 1).kc;
 }
 

@@ -17,6 +17,11 @@
 // three split TF32 products, 32 particles a warp (16 past D = 40), the
 // components split once as they are staged; elsewhere to D = 64 it is forced
 // (variant "mma"), as the record kernel is where it is not elected.
+// Design, D > 64 (maha_mma_tiled_kernel, after maha_split_kernel): the
+// paneled tensor-core product of mma_tiled.cuh, A split once a launch into
+// the wrapper's scratch, 128 particles x 128 rows of A_k a block, 64 x 32 a
+// warp, 32-deep panels in a ring of three cp.async buffers; elected at every
+// D past 64, the tiled kernel below forcible (variant "tiled").
 // Design, D <= 64 (maha_kernel, the record kernel): 256 threads a block,
 // one particle a thread,
 // x and x - m_k in registers (DMAX 8 to 64), the components as 16-byte VB
@@ -32,10 +37,13 @@
 // on one H100): a broadcast LDS.128 takes ~4 clocks of the SM's 128 B a
 // clock of shared-memory data path, so each A word read feeds one FMA, ~1/4
 // of the FP32 peak; two particles a thread would halve that but take 2 x
-// 80 registers at D = 40, past the 128 that 16 warps an SM allow.  From D =
-// kTiledDMin (maha_tiled_kernel) the block-tiled product engine of tiled.cuh:
-// A is read whole, a tile of 128 particles shares every panel of A_k that a
-// block stages, and each (k, n) result is written once, coalesced.
+// 80 registers at D = 40, past the 128 that 16 warps an SM allow.  At every
+// D, forced only (variant "tiled"), maha_tiled_kernel, the block-tiled FP32
+// product engine of tiled.cuh: A is read whole, a tile of 128 particles
+// shares every panel of A_k that a block stages, and each (k, n) result is
+// written once, coalesced.
+#include <algorithm>
+
 #include "tiled.cuh"
 
 namespace pmc {
@@ -74,6 +82,28 @@ maha_mma_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
                out, N, K, D);
 }
 
+// A split into its hi and lo TF32 words (mma_tiled.cuh mma_split_operand)
+__global__ void __launch_bounds__(kMtSplitThreads)
+maha_split_kernel(const float* __restrict__ A, float4* __restrict__ split, int K, int D) {
+  mma_split_operand(A, split, K, D);
+}
+
+// split: maha_split_kernel's output for ops' A; one block an SM
+__global__ void __launch_bounds__(kMtThreads, 1)
+maha_mma_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
+                      const float4* __restrict__ split, float* __restrict__ out, long long N,
+                      int K, int D) {
+  extern __shared__ float4 smem4[];
+  const float* m = ops + static_cast<long long>(K) * D * D;
+  mma_tiled_maha(reinterpret_cast<float*>(smem4), xT, ops, m, split, out, N, K, D);
+}
+
+// whether variant (-1 the elected one) at D is the tensor-core kernel past
+// D = 64, launched with the split operand
+inline bool maha_mma_tiled(int D, int variant) {
+  return D > kRecDMax && (variant >= 0 ? variant : maha_variant(D)) == kEvalMma;
+}
+
 __global__ void __launch_bounds__(kTileThreads, 2)
 maha_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
                   float* __restrict__ out, long long N, int K, int D) {
@@ -106,7 +136,18 @@ extern "C" long long pmc_maha_smem_bytes(int K, int D) {
 // (registers, shared memory and threads), for the wrapper's grid; -1 on an
 // error
 extern "C" int pmc_maha_per_sm(int K, int D, int variant) {
-  return pmc::eval_variant_per_sm<pmc::MahaKernels>(K, D, variant);
+  using namespace pmc;
+  if (maha_mma_tiled(D, variant)) {
+    if (!eval_has_variant(D, kEvalMma, true)) return -1;
+    int n = 0;
+    if (cudaFuncSetAttribute(maha_mma_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMmaTiledSmem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, maha_mma_tiled_kernel, kMtThreads,
+                                                      kMmaTiledSmem) != cudaSuccess)
+      return -1;
+    return n;
+  }
+  return eval_variant_per_sm<MahaKernels>(K, D, variant);
 }
 
 // the kernel fused_maha elects at D (1 record, 2 tiled, 3 tensor-core;
@@ -126,13 +167,49 @@ extern "C" long long pmc_maha_mma_plan(int K, int D, int* out) {
   return static_cast<long long>(plan.smem);
 }
 
+// the tensor-core kernel's plan past D = 64: out = {particles a tile, rows
+// a row tile, depth of a panel, threads a block, step buffers}; the shared
+// memory a block
+extern "C" long long pmc_maha_mma_tiled_plan(int* out) {
+  out[0] = pmc::kMtP;
+  out[1] = pmc::kMtM;
+  out[2] = pmc::kMtK;
+  out[3] = pmc::kMtThreads;
+  out[4] = pmc::kMtStages;
+  return static_cast<long long>(pmc::kMmaTiledSmem);
+}
+
+// floats of the split operand the tensor-core kernel past D = 64 takes
+extern "C" long long pmc_maha_mma_scratch_floats(int K, int D) {
+  return pmc::mma_scratch_floats(K, D);
+}
+
 // variant: -1 the elected kernel (maha_variant), 1 the record, 2 the tiled,
-// 3 the tensor-core kernel
-extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* out,
+// 3 the tensor-core kernel; scratch: mma_scratch_floats(K, D) floats, 16-byte
+// aligned, where that is the tensor-core kernel past D = 64 (else unused)
+extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* scratch, float* out,
                               long long N, int K, int D, int variant, int n_blocks,
                               void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (maha_mma_tiled(D, variant)) {
+    if (!eval_has_variant(D, kEvalMma, true) || scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        maha_mma_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMmaTiledSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float4* split = reinterpret_cast<float4*>(scratch);
+    const long long words = mma_scratch_floats(K, D) / 4;
+    const int split_blocks =
+        static_cast<int>(std::min<long long>((words + kMtSplitThreads - 1) / kMtSplitThreads, 4096));
+    maha_split_kernel<<<split_blocks, kMtSplitThreads, 0, s>>>(ops, split, K, D);
+    const cudaError_t split_err = cudaGetLastError();
+    if (split_err != cudaSuccess) return static_cast<int>(split_err);
+    maha_mma_tiled_kernel<<<n_blocks, kMtThreads, kMmaTiledSmem, s>>>(xT, ops, split, out, N, K,
+                                                                       D);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int bad = with_eval_variant<MahaKernels>(K, D, variant, [&](auto kernel, int threads,
                                                                      size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, ops, out, N, K, D);

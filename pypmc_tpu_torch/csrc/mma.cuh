@@ -1,8 +1,9 @@
-// The tensor-core product of fused_maha up to D = 64 (maha.cu
-// maha_mma_kernel): out[k, n] = |A_k (x_n - m_k)|^2 for general (D, D)
-// matrices A_k, lower, upper or full, by mma.sync in three split TF32
-// products (3xTF32).  ops/_build.py mma_plan mirrors the plan and
-// MAHA_MMA_D_MIN the election.
+// The tensor-core product of fused_maha from D = 9 to 64 (maha.cu
+// maha_mma_kernel; past D = 64 mma_tiled.cuh's maha_mma_tiled_kernel, which
+// shares the split, the mma and the FP32 recomputation below): out[k, n] =
+// |A_k (x_n - m_k)|^2 for general (D, D) matrices A_k, lower, upper or
+// full, by mma.sync in three split TF32 products (3xTF32).  ops/_build.py
+// mma_plan mirrors the plan and MAHA_MMA_D_MIN the election.
 //
 // Replaces, where it is elected, maha_kernel (the record kernel, maha.cu)
 // for the Pallas kernel pypmc_tpu/ops/pallas_kernels.py:858 (fused_maha,
@@ -112,11 +113,13 @@ __host__ __device__ inline MmaPlan mma_plan(int K, int D) {
   return {kc, n_chunks, 1, x + kc * comp};
 }
 
-// the smallest D at which fused_maha elects maha_mma_kernel over
-// maha_kernel, to kTiledDMin (ops/_build.py MAHA_MMA_D_MIN): the first past
-// the record kernel's DMAX 8 bucket; in the buckets 16, 32, 40 and 64 its
-// device time beat the record kernel's at every K timed there, in one call,
-// and at DMAX 8, K = 1 it lost by 12% (chip_smoke.py --maha-times, PERF.md)
+// the smallest D at which fused_maha elects its tensor-core kernel
+// (ops/_build.py MAHA_MMA_D_MIN): maha_mma_kernel over maha_kernel to D =
+// 64, the first D past the record kernel's DMAX 8 bucket; in the buckets 16,
+// 32, 40 and 64 its device time beat the record kernel's at every K timed
+// there, in one call, and at DMAX 8, K = 1 it lost by 12%; past D = 64
+// maha_mma_tiled_kernel (mma_tiled.cuh) over maha_tiled_kernel at every D
+// (chip_smoke.py --maha-times, PERF.md)
 constexpr int kMahaMmaDMin = 9;
 
 // v rounded to TF32, to nearest, ties to even (its low 13 bits 0)

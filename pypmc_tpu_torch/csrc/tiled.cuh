@@ -4,7 +4,9 @@
 // fused_transform's product (transform.cu transform_tiled_kernel) and the
 // drawn products of fused_transform_rng and fused_propose_logq
 // (draw_tiled_kernel, below); ops/_build.py tiled_plan and draw_tiled_smem
-// mirror the constants.
+// mirror the constants.  fused_maha elects it nowhere: its tensor-core
+// kernels (mma.cuh to D = 64, mma_tiled.cuh past it) take its every D from
+// kMahaMmaDMin, and maha_tiled_kernel stays forcible as their yardstick.
 //
 // Each is a product in disguise: for component k and a tile of P particles,
 // Y_k = A_k (X - m_k) is a (D x D) (D x P) product.  The evaluations want the
@@ -14,11 +16,12 @@
 //
 // Bound on the H100: FP32 FMAs, D^2 a (particle, component) for a general
 // A_k, D (D + 1) / 2 for a triangular U_k or L_k, against D + K (or D + 1,
-// or the transform's 2 D + 2) floats of a particle moved; no tensor cores,
-// since TF32 keeps ~3 digits and the products here are held to float32
-// tolerances (fused_transform's, bit for bit to its looped kernel); to D =
-// 64 fused_maha has a tensor-core kernel in three split TF32 products
-// (mma.cuh).
+// or the transform's 2 D + 2) floats of a particle moved.  These kernels
+// use no tensor cores: fused_transform's product is held bit for bit to its
+// looped kernel, and fused_logq's and fused_rho's log q to each other and to
+// the kernels that launch logq_tiled_kernel; fused_maha's product has its
+// own tensor-core kernels in three split TF32 products, within the FP32
+// tolerance of float64 (mma.cuh, mma_tiled.cuh).
 //
 // Design.  A block of kTileThreads (256) walks its tiles (grid-stride over
 // slots of a tile source, below) and in each tile the components of the
@@ -85,7 +88,7 @@
 #pragma once
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "mma_tiled.cuh"
 
 namespace pmc {
 
@@ -467,8 +470,9 @@ __device__ __forceinline__ void tiled_eval(float* smem, const float* xT, const f
 // fused_maha's, fused_logq's and fused_rho's variants (the launchers'
 // codes; -1 the elected one) and the one fused_logq and fused_rho elect for
 // D (ops/_build.py eval_variant): the record kernel below kTiledDMin, the
-// tiled kernel from it; fused_maha's third, the tensor-core kernel of
-// mma.cuh (kEvalMma, to D = 64), is maha_variant's
+// tiled kernel from it; fused_maha's third, the tensor-core kernel
+// (kEvalMma: mma.cuh's to D = 64, mma_tiled.cuh's past it), is
+// maha_variant's
 constexpr int kEvalRec = 1, kEvalTiled = 2, kEvalMma = 3;
 static_assert(kTiledDMin <= kRecDMax + 1, "a record kernel below kTiledDMin");
 __host__ __device__ inline int eval_variant(int D) {
@@ -476,34 +480,37 @@ __host__ __device__ inline int eval_variant(int D) {
 }
 
 // fused_maha's elected kernel at D (ops/_build.py eval_variant): the
-// tensor-core kernel from kMahaMmaDMin below kTiledDMin, else eval_variant's
-inline int maha_variant(int D) {
-  return D >= kMahaMmaDMin && D < kTiledDMin ? kEvalMma : eval_variant(D);
-}
+// tensor-core kernel from kMahaMmaDMin (mma.cuh's to D = 64, mma_tiled.cuh's
+// past it), else eval_variant's
+inline int maha_variant(int D) { return D >= kMahaMmaDMin ? kEvalMma : eval_variant(D); }
 
 // whether fused_maha's (maha), fused_logq's and fused_rho's launchers have
-// variant v at D: the record kernel to D = 64 (and fused_maha's tensor-core
-// kernel), the tiled kernel at every D to kWideDMax
+// variant v at D: the record kernel to D = 64, the tiled kernel and
+// fused_maha's tensor-core kernel at every D to kWideDMax
 __host__ __device__ inline bool eval_has_variant(int D, int v, bool maha) {
   if (D < 1 || D > kWideDMax) return false;
-  return v == kEvalTiled || ((v == kEvalRec || (maha && v == kEvalMma)) && D <= kRecDMax);
+  return v == kEvalTiled || (maha && v == kEvalMma) || (v == kEvalRec && D <= kRecDMax);
 }
 
 // The shared memory of fused_maha's (maha) or fused_logq's and fused_rho's
 // elected kernel at (K, D) (ops/_build.py eval_plan): the tiled kernel's,
-// the tensor-core kernel's mma_plan, else eval_plan's.
+// the tensor-core kernel's (mma_plan to D = 64, kMmaTiledSmem past it),
+// else eval_plan's.
 inline size_t eval_variant_smem(int K, int D, bool maha) {
   const int v = maha ? maha_variant(D) : eval_variant(D);
   if (v == kEvalTiled) return kTiledSmem;
-  return v == kEvalMma ? mma_plan(K, D).smem : eval_plan(K, D, maha).smem;
+  if (v == kEvalMma) return D > kRecDMax ? kMmaTiledSmem : mma_plan(K, D).smem;
+  return eval_plan(K, D, maha).smem;
 }
 
 // Call body(kernel, threads, smem) with fused_maha's, fused_logq's or
 // fused_rho's kernel of variant v (-1: the elected one) at (K, D), its shared
 // memory set first as its limit; Kernels has ``maha`` (fused_maha's records
-// and its tensor-core kernel, mma<Dp>(), Dp = D padded to 8) and rec<DMAX>()
-// and tiled(), the kernels.  body's result, the error of setting the limit, or
-// cudaErrorInvalidValue where v has no kernel at D.
+// and its tensor-core kernel to D = 64, mma<Dp>(), Dp = D padded to 8) and
+// rec<DMAX>() and tiled(), the kernels.  body's result, the error of setting
+// the limit, or cudaErrorInvalidValue where v has no kernel at D (and for
+// fused_maha's tensor-core kernel past D = 64, whose launch takes the split
+// operand: maha.cu launches it).
 template <typename Kernels, typename Body>
 int with_eval_variant(int K, int D, int variant, Body&& body) {
   const int v = variant >= 0 ? variant : Kernels::maha ? maha_variant(D) : eval_variant(D);

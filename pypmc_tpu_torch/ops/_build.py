@@ -16,7 +16,9 @@ to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 :data:`WIDE` take D up to :data:`WIDE_D_MAX` on the block-tiled product
 engine of ``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and
 ``fused_rho`` from D = :data:`TILED_D_MIN` (:func:`tiled_plan`,
-:func:`eval_variant`), ``fused_transform`` from D =
+:func:`eval_variant`; ``fused_maha`` elects its tensor-core kernel there
+instead, :func:`mma_tiled_plan`, the tiled kernel forcible beside it),
+``fused_transform`` from D =
 :data:`TRANSFORM_TILED_D_MIN` (at K > 1 after a counting sort of its
 particles by component over all N and a move of z into that order, and x
 moved out of it after: :func:`transform_plan`, :func:`transform_bucket_plan`,
@@ -64,7 +66,8 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
            "DRAW_THREADS", "TILED_D_MIN", "TRANSFORM_TILED_D_MIN", "DRAW_TILED_D_MIN",
            "draw_tiled_smem",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
-           "eval_variant", "MAHA_MMA_D_MIN", "mma_plan", "tiled_plan", "transform_bucket_plan",
+           "eval_variant", "MAHA_MMA_D_MIN", "mma_plan", "mma_tiled_plan",
+           "mma_scratch_floats", "tiled_plan", "transform_bucket_plan",
            "transform_bucket_blocks", "transform_slots", "transform_width", "transform_layout",
            "transform_scratch_words", "transform_tiles", "transform_permute",
            "block_particles", "stats_tile", "dense_plan", "gram_layout", "transform_plan",
@@ -96,11 +99,17 @@ _TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, _TILE_STRIDE = 128, 128, 16, 256, 132
 # it replaced at D = 65, 96 and 128, PERF.md)
 TILED_D_MIN = 65
 # csrc/mma.cuh kMahaMmaDMin: the smallest D at which fused_maha elects its
-# tensor-core kernel (variant "mma") over the record kernel, to TILED_D_MIN:
-# in the record instantiations from DMAX 16 its device time beat the record
-# kernel's at every K timed there, in one call (chip_smoke.py --maha-times,
-# PERF.md)
+# tensor-core kernel (variant "mma"): over the record kernel to D = 64 (in
+# the record instantiations from DMAX 16 its device time beat the record
+# kernel's at every K timed there, in one call), over the tiled kernel past
+# it (chip_smoke.py --maha-times, PERF.md)
 MAHA_MMA_D_MIN = 9
+# csrc/mma_tiled.cuh: fused_maha's tensor-core kernel past D = 64: particles
+# a tile, rows a row tile, depth of a panel, threads a block, step buffers
+# (kMtP, kMtM, kMtK, kMtThreads, kMtStages), an X panel's row stride in
+# floats and an A panel's in float4s (kMtXStride, kMtARow4)
+_MT_P, _MT_M, _MT_K, _MT_THREADS, _MT_STAGES = 128, 128, 32, 256, 3
+_MT_X_STRIDE, _MT_A_ROW4 = 136, 20
 # csrc/transform.cu kTransformTiledDMin: the smallest D at which
 # fused_transform elects its tiled pair (at K > 1 the bucket pass and the
 # moves into and out of bucket order around the tiled product), below it the looped kernel from D = 65 and the record kernel to
@@ -645,8 +654,9 @@ def blocked_plan(kernel, K, D):
 
 def tiled_plan():
     """``(particles a tile, rows a row tile, depth of a panel, threads a
-    block, shared memory a block)`` of ``fused_logq``'s and ``fused_maha``'s
-    tiled kernel; mirrors ``csrc/tiled.cuh``: two A panels of ``_TILE_K``
+    block, shared memory a block)`` of the tiled kernel of ``fused_logq``
+    and ``fused_rho`` (elected past D = 64) and of ``fused_maha`` (forced
+    only, the yardstick of its tensor-core kernel); mirrors ``csrc/tiled.cuh``: two A panels of ``_TILE_K``
     rows of ``_TILE_STRIDE`` floats, two X panels of ``_TILE_K`` x
     ``_TILE_P``, two m panels of ``_TILE_K`` and the partial sums of a
     component, 16 threads a particle column.  The same at every (K, D): a
@@ -661,10 +671,11 @@ def eval_variant(kernel, D):
     dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant`` and
     ``maha_variant``: ``"rec"``, the record kernel, below
     :data:`TILED_D_MIN` and ``"tiled"`` from it; ``fused_maha``'s
-    tensor-core kernel, ``"mma"``, from :data:`MAHA_MMA_D_MIN`."""
-    if D >= TILED_D_MIN:
-        return "tiled"
-    return "mma" if kernel == "fused_maha" and D >= MAHA_MMA_D_MIN else "rec"
+    tensor-core kernel, ``"mma"``, from :data:`MAHA_MMA_D_MIN` at every D
+    (``csrc/mma.cuh``'s to D = 64, ``csrc/mma_tiled.cuh``'s past it)."""
+    if kernel == "fused_maha" and D >= MAHA_MMA_D_MIN:
+        return "mma"
+    return "tiled" if D >= TILED_D_MIN else "rec"
 
 
 def _mma_warps(D):
@@ -696,6 +707,28 @@ def mma_plan(K, D):
     return kc, n_chunks, 1, tile, split, x + kc * comp
 
 
+def mma_tiled_plan():
+    """``(particles a tile, rows a row tile, depth of a panel, threads a
+    block, step buffers, shared memory a block)`` of ``fused_maha``'s
+    tensor-core kernel past D = 64; mirrors ``csrc/mma_tiled.cuh``: each
+    step buffer an A panel of ``_MT_M`` split rows (hi and lo, ``_MT_A_ROW4``
+    float4s apart), an X panel of ``_MT_K`` rows of ``_MT_X_STRIDE`` floats
+    and an m panel of ``_MT_K``; then the four row groups' partial sums of a
+    component.  The same at every (K, D): a block walks the components, the
+    row tiles and the panels."""
+    stage = 4 * _MT_M * _MT_A_ROW4 + _MT_K * _MT_X_STRIDE + _MT_K
+    smem = 4 * (_MT_STAGES * stage + 4 * _MT_P)
+    return _MT_P, _MT_M, _MT_K, _MT_THREADS, _MT_STAGES, smem
+
+
+def mma_scratch_floats(K, D):
+    """Floats of the split operand ``fused_maha``'s tensor-core kernel
+    takes past D = 64 (``csrc/mma_tiled.cuh`` ``mma_scratch_floats``): K
+    components of D padded to 8 rows, each of D padded to a panel hi and lo
+    words."""
+    return 2 * K * (-(-D // 8) * 8) * (-(-D // _MT_K) * _MT_K)
+
+
 def eval_plan(kernel, K, D, variant=None):
     """``(components a chunk, chunk buffers, shared memory a block)`` of
     ``fused_logq``'s, ``fused_rho``'s or ``fused_maha``'s kernel
@@ -707,11 +740,14 @@ def eval_plan(kernel, K, D, variant=None):
     tiled kernel takes a component at a time, its panels in two buffers
     (:func:`tiled_plan`); ``fused_maha``'s tensor-core kernel the chunks of
     :func:`mma_plan`, a chunk's records and its split records the two
-    buffers where there is more than one chunk."""
+    buffers where there is more than one chunk (to D = 64), a component at a
+    time in :func:`mma_tiled_plan`'s step buffers past it."""
     maha = kernel == "fused_maha"
     variant = eval_variant(kernel, D) if variant is None else variant
     if variant == "tiled":
         return 1, 2, tiled_plan()[4]
+    if variant == "mma" and D > _REC_D_MAX:
+        return 1, _MT_STAGES, mma_tiled_plan()[5]
     if variant == "mma":
         kc, n_chunks, _, _, _, smem = mma_plan(K, D)
         return kc, 1 if n_chunks == 1 else 2, smem
@@ -728,9 +764,11 @@ def eval_threads(D, variant=None):
     ``fused_maha`` elect for dimension D (with ``variant``, of that kernel);
     mirrors ``csrc/common.cuh`` ``kEvalThreads``, ``csrc/tiled.cuh``
     ``kTileThreads`` and, for ``fused_maha``'s tensor-core kernel,
-    ``csrc/mma.cuh`` ``mma_threads`` (256 to D = 24, 192 past it)."""
+    ``csrc/mma.cuh`` ``mma_threads`` (256 to D = 24, 192 past it; 256 past
+    D = 64, ``csrc/mma_tiled.cuh`` ``kMtThreads``)."""
     variant = eval_variant("fused_rho", D) if variant is None else variant
-    return {"rec": EVAL_THREADS, "mma": 32 * _mma_warps(D), "tiled": _TILE_THREADS}[variant]
+    mma = _MT_THREADS if D > _REC_D_MAX else 32 * _mma_warps(D)
+    return {"rec": EVAL_THREADS, "mma": mma, "tiled": _TILE_THREADS}[variant]
 
 
 def block_particles(kernel, D, variant=None):
@@ -738,12 +776,12 @@ def block_particles(kernel, D, variant=None):
     grid is one wave of blocks over N / this; ``variant``, a kernel of
     ``fused_logq``, ``fused_rho``, ``fused_maha`` or a draw other than the
     one it elects): a thread a particle, a tile of 128 in the tiled
-    kernels, and of 256 (192 past D = 24, 96 past D = 40) in
-    ``fused_maha``'s tensor-core kernel."""
+    kernels, and of 256 (192 past D = 24, 96 past D = 40, 128 past D = 64)
+    in ``fused_maha``'s tensor-core kernel."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         variant = eval_variant(kernel, D) if variant is None else variant
         if variant == "mma":
-            return mma_plan(1, D)[3]
+            return _MT_P if D > _REC_D_MAX else mma_plan(1, D)[3]
         return _TILE_P if variant == "tiled" else EVAL_THREADS
     if kernel in DRAWS:
         variant = variant or draw_plan(kernel, 1, D)[0]
@@ -917,8 +955,11 @@ def signatures():
         # stream
         "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, P, P, L, I, I, I,
                                   I, I, I, I, I, I, I, P],
-        # xT, ops, out, N, K, D, variant (as pmc_fused_logq's), n_blocks, stream
-        "pmc_fused_maha": [P, P, P, L, I, I, I, I, P],
+        # xT, ops, scratch (mma_scratch_floats(K, D) floats where the
+        # variant is the tensor-core kernel past D = 64, else null), out, N,
+        # K, D, variant (-1 the elected kernel, 1 the record, 2 the tiled, 3
+        # the tensor-core kernel), n_blocks, stream
+        "pmc_fused_maha": [P, P, P, P, L, I, I, I, I, P],
         # xT, mix, rho, log_q, N, K, D, student_t, variant (as
         # pmc_fused_logq's), n_blocks, stream
         "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, I, P],
@@ -1012,6 +1053,10 @@ def _declare(lib):
     lib.pmc_maha_variant.restype = ctypes.c_int
     lib.pmc_maha_mma_plan.argtypes = [I, I, P]   # K, D, int out[5]
     lib.pmc_maha_mma_plan.restype = ctypes.c_longlong
+    lib.pmc_maha_mma_tiled_plan.argtypes = [P]   # int out[5]
+    lib.pmc_maha_mma_tiled_plan.restype = ctypes.c_longlong
+    lib.pmc_maha_mma_scratch_floats.argtypes = [I, I]   # K, D
+    lib.pmc_maha_mma_scratch_floats.restype = ctypes.c_longlong
     lib.pmc_tiled_plan.argtypes = [P]            # int out[4]
     lib.pmc_tiled_plan.restype = ctypes.c_longlong
     # K, D, variant -> blocks an SM holds

@@ -79,9 +79,11 @@ draws ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``: the record, the looped
 or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
 products), ``_build.transform_plan``, ``_build.propose_plan``;
-``fused_logq``, ``fused_maha`` and ``fused_rho``: the record or the tiled
-kernel, and ``fused_maha``'s tensor-core kernel (``"mma"``, three split
-TF32 products to D = 64), ``_build.eval_variant``), each launch's
+``fused_logq`` and ``fused_rho``: the record or the tiled kernel;
+``fused_maha``: the record kernel to D = 8, its tensor-core kernel
+(``"mma"``, three split TF32 products; to D = 64 ``csrc/mma.cuh``'s, past it
+``csrc/mma_tiled.cuh``'s) from D = 9, the record and the tiled kernel
+forcible beside it; ``_build.eval_variant``), each launch's
 variant as ``variant:<kernel>=<variant>``.  Each of these wrappers but
 ``fused_rho`` takes a ``variant=`` that forces another variant where the
 shape has it, as the yardstick of the election.
@@ -443,9 +445,9 @@ def _variant_names(kernel):
 
 def _eval_variants(kernel, D):
     """The kernels of ``fused_logq``, ``fused_maha`` or ``fused_rho`` at D:
-    the record kernel (and fused_maha's tensor-core kernel) to D = 64, the
-    tiled kernel at any D."""
-    return tuple(v for v in _variant_names(kernel) if v == "tiled" or D <= _build._REC_D_MAX)
+    the record kernel to D = 64, the tiled kernel and fused_maha's
+    tensor-core kernel at any D."""
+    return tuple(v for v in _variant_names(kernel) if v != "rec" or D <= _build._REC_D_MAX)
 
 
 def _transform_variants(D):
@@ -1028,9 +1030,10 @@ def fused_maha(xT, a, m, variant=None):
     upper or full) and centers ``m (K, D)`` (kernel ``csrc/maha.cu``).
     ``torch.func.vmap`` maps it over a batch of particle blocks with one
     launch: ``(K, B, N)``.  ``variant``: the kernel, as
-    :func:`fused_logq`'s, or ``"mma"``, the tensor-core kernel (to D = 64;
-    elected from D = ``_build.MAHA_MMA_D_MIN``);
-    counted as ``variant:fused_maha=<variant>``.
+    :func:`fused_logq`'s, or ``"mma"``, the tensor-core kernel (elected from
+    D = ``_build.MAHA_MMA_D_MIN``; past D = 64 it takes A split into a
+    scratch of ``_build.mma_scratch_floats(K, D)`` floats, written by its
+    launch); counted as ``variant:fused_maha=<variant>``.
 
     The TPU kernel takes ``b_k = a_k m_k`` and a coordinate center; the
     port takes the centers and forms ``x - m_k`` before the product."""
@@ -1053,9 +1056,13 @@ def _maha_run(xT, a, m, variant=None):
     _build.check_limits("fused_maha", K, D)
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1)])
+    scratch = (torch.empty(_build.mma_scratch_floats(K, D), dtype=torch.float32, device=xT.device)
+               if variant == "mma" and D > _build._REC_D_MAX else None)
     out = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), out.data_ptr(), N, K, D,
+        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(),
+                                 None if scratch is None else scratch.data_ptr(),
+                                 out.data_ptr(), N, K, D,
                                  _EVAL_VARIANTS[variant],
                                  _eval_blocks("maha", xT.device, N, K, D, variant),
                                  _stream(xT.device))

@@ -87,9 +87,22 @@ def test_maha_kernels_at_the_rules_largest_k(cuda, case):
     chip_smoke.maha_case(case, cuda, [])
 
 
+@pytest.mark.parametrize("case", [(K, D, 4099 if D > 200 else 20_011, seed)
+                                  for K, D, _, seed in chip_smoke.TILED_CASES]
+                         + chip_smoke.MAHA_WIDE_CASES)
+def test_maha_tensor_core_kernel_past_d64(cuda, case):
+    """fused_maha's tensor-core kernel past D = 64 at K = 1 and the JAX
+    rule's largest K to D = 2040, lower, upper and full operands, ragged N
+    (and N a multiple of 4, its 16-byte x copies): elected and counted,
+    within TOL["maha"] of float64 and of the forced tiled kernel, each
+    kernel equal on a second run."""
+    chip_smoke.maha_wide_case(case, cuda, [])
+
+
 def test_maha_non_finite_particles(cuda):
-    """The tensor-core kernel's NaNs and infinities are the record
-    kernel's."""
+    """The tensor-core kernels' NaNs and infinities are the FP32
+    arithmetic's (the record kernel's to D = 64; each term formed on its
+    own at every D)."""
     chip_smoke.maha_nonfinite_case(cuda, [])
 
 

@@ -187,8 +187,10 @@ def test_the_election_mirrors_the_cuda_source():
     """_build.MAHA_MMA_D_MIN is csrc/mma.cuh kMahaMmaDMin, the first D of a
     record instantiation (csrc/common.cuh EvalInsts', _build's), so the
     election takes whole timed buckets; fused_maha elects the tensor-core
-    kernel from it, the record kernel below it and the tiled kernel from
-    kTiledDMin; fused_logq and fused_rho never elect it."""
+    kernel from it at every D (past D = 64 csrc/mma_tiled.cuh's), the record
+    kernel below it, and never the tiled kernel, which fused_logq and
+    fused_rho elect from kTiledDMin; they never elect the tensor-core
+    kernel."""
     assert _build.MAHA_MMA_D_MIN == _cuh_int("kMahaMmaDMin", "mma.cuh") == 9
     assert _build.MAHA_MMA_D_MIN - 1 in _build._EVAL_DMAX
     insts = re.search(r"using EvalInsts = EvalList<(.*?)>;", (CSRC / "common.cuh").read_text(),
@@ -204,8 +206,13 @@ def test_the_election_mirrors_the_cuda_source():
             assert _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_rho", D) \
                 == "rec"
         below = dmax
-    assert all(_build.eval_variant(k, D) == "tiled" for k in ("fused_maha", "fused_logq")
+    assert all(_build.eval_variant("fused_maha", D) == "mma" for D in (65, 200, 2040, 4096))
+    assert all(_build.eval_variant(k, D) == "tiled" for k in ("fused_logq", "fused_rho")
                for D in (65, 200, 4096))
+    # csrc/tiled.cuh maha_variant: the tensor-core kernel from kMahaMmaDMin,
+    # with no upper bound on D
+    assert re.search(r"inline int maha_variant\(int D\) \{ return D >= kMahaMmaDMin \? kEvalMma : "
+                     r"eval_variant\(D\); \}", (CSRC / "tiled.cuh").read_text())
 
 
 def test_the_plan_mirror():
@@ -245,23 +252,34 @@ def test_the_plan_mirror():
                                       ("fused_rho", 40), ("fused_maha", 65),
                                       ("fused_maha", 200)])
 def test_the_mma_variant_raises_where_there_is_none(kernel, D):
-    """variant="mma" names fused_maha's tensor-core kernel, to D = 64 only:
-    fused_logq and fused_rho have none, and past D = 64 fused_maha has the
-    tiled kernel alone (ValueError naming the plan, on the CPU too)."""
+    """variant="mma" names fused_maha's tensor-core kernel, at every D:
+    fused_logq and fused_rho have none (ValueError naming the plan, on the
+    CPU too); past D = 64 fused_maha has it and the tiled kernel, and there
+    its record kernel is the variant that raises, as every variant a shape
+    lacks does."""
+    rng = np.random.default_rng(D)
+    xT = torch.tensor(rng.normal(0, 1, (D, 33)), dtype=torch.float32)
+    if kernel == "fused_maha":
+        a, m = torch.eye(D).expand(3, D, D).contiguous(), torch.zeros(3, D)
+        assert kernels._elect(kernel, 3, D, "mma") == "mma" == kernels._elect(kernel, 3, D, None)
+        assert kernels._eval_variants(kernel, D) == ("tiled", "mma")
+        # the CPU computes the plain version for every variant the shape has
+        for variant in ("mma", "tiled"):
+            assert torch.equal(kernels.fused_maha(xT, a, m, variant=variant),
+                               kernels.plain_maha(xT, a, m))
+        with pytest.raises(ValueError, match="the plan"):
+            kernels._elect(kernel, 3, D, "rec")
+        with pytest.raises(ValueError, match="the plan"):
+            kernels.fused_maha(xT, a, m, variant="rec")
+        return
     with pytest.raises(ValueError, match="the plan"):
         kernels._elect(kernel, 3, D, "mma")
     if kernel != "fused_rho":
-        rng = np.random.default_rng(D)
-        xT = torch.tensor(rng.normal(0, 1, (D, 33)), dtype=torch.float32)
         with pytest.raises(ValueError, match="the plan"):
-            if kernel == "fused_maha":
-                kernels.fused_maha(xT, torch.eye(D).expand(3, D, D).contiguous(),
-                                   torch.zeros(3, D), variant="mma")
-            else:
-                params = chip_smoke.make_params(chip_smoke.random_mixture(rng, 3, D, False),
-                                                torch.device("cpu"))
-                kernels.fused_logq(xT, core._kernel_operands(params), variant="mma")
-    assert kernels._elect("fused_maha", 3, min(D, 64), "mma") == "mma"
+            params = chip_smoke.make_params(chip_smoke.random_mixture(rng, 3, D, False),
+                                            torch.device("cpu"))
+            kernels.fused_logq(xT, core._kernel_operands(params), variant="mma")
+    assert kernels._elect("fused_maha", 3, D, "mma") == "mma"
 
 
 @pytest.mark.parametrize("K,D,N_,by", [(10, 10, 1 << 22, "bytes"), (225, 17, 1 << 20, "operations"),

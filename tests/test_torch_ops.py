@@ -220,7 +220,9 @@ def test_eval_plan_streams_records_in_chunks():
     component records (fused_maha's in the VB layout): the whole mixture in
     one buffer where it fits half an SM's shared memory, else two buffers of
     equal chunks; past D = 64 their tiled kernel takes a component at a time
-    in two panel buffers (41,600 B at every K), and so does fused_rho's."""
+    in two panel buffers (41,600 B at every K), and so does fused_rho's
+    (fused_maha's forced there: it elects its tensor-core kernel, a
+    component at a time in three step buffers, 177,536 B)."""
     rec = _build._rec_floats
     vb = lambda D: _build._rec_floats(D, vb=True)
     assert (4 * rec(40), 4 * vb(40), 4 * rec(10)) == (3696, 6576, 352)
@@ -238,9 +240,9 @@ def test_eval_plan_streams_records_in_chunks():
         ("fused_rho", 1, 128): (1, 2, 41_600),
     }
     for (kernel, K, D), plan in pinned.items():
-        # fused_maha's record kernel, forced where its tensor-core kernel is
-        # elected
-        variant = "rec" if D <= 64 else None
+        # fused_maha's record and tiled kernels, forced where its
+        # tensor-core kernel is elected
+        variant = "rec" if D <= 64 else "tiled" if kernel == "fused_maha" else None
         assert _build.eval_plan(kernel, K, D, variant) == plan, (kernel, K, D)
         assert _build.eval_plan(kernel, K, D)[2] == _build.smem_bytes(kernel, K, D)
         assert plan[2] <= _build.SMEM_LIMIT and _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
@@ -260,6 +262,8 @@ def test_eval_plan_streams_records_in_chunks():
             kc, buffers, smem = _build.eval_plan(kernel, K, D, "rec")
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
     assert _build.eval_plan("fused_rho", 4, 128) == (1, 2, 41_600)
+    assert _build.eval_plan("fused_maha", 1, 128) == (1, 3, 177_536) == (
+        1, _build.mma_tiled_plan()[4], _build.mma_tiled_plan()[5])
     # fused_rho streams fused_logq's records to D = 64 and takes the tiled
     # kernel past it, as fused_logq does
     for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (10, 10), (1, 64)):
@@ -331,7 +335,10 @@ def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
     TILED_D_MIN (fused_transform's tiled pair from TRANSFORM_TILED_D_MIN, its
     looped kernel below), its shared memory and threads are within a block's
     limits (41,600 B, 256 threads, the same at every K; fused_transform's
-    bucket kernel's counts too), and check_limits passes."""
+    bucket kernel's counts too), and check_limits passes.  fused_maha elects
+    its tensor-core kernel there instead (csrc/mma_tiled.cuh: 128 particles
+    a block, 177,536 B, 256 threads at every K), its tiled kernel forcible
+    on the same plan."""
     P, BM, BK, threads, smem = _build.tiled_plan()
     assert (P, BM, BK, threads) == (128, 128, 16, 256)
     assert smem == 4 * (2 * BK * (BM + 4) + 2 * BK * P + 2 * BK + 16 * P) == 41_600
@@ -343,24 +350,32 @@ def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
              else (lambda K, D: _build.eval_variant(kernel, D)))
     below = ["mma" if kernel == "fused_maha" and D >= _build.MAHA_MMA_D_MIN else "rec"
              for D in (1, 64)]
-    assert [elect(1, D) for D in (1, 64, first, 2040)] == below + ["tiled"] * 2
+    past = "mma" if kernel == "fused_maha" else "tiled"
+    mt = _build.mma_tiled_plan()
+    assert mt == (P, 128, 32, threads, 3, 177_536)
+    assert [elect(1, D) for D in (1, 64, first, 2040)] == below + [past] * 2
     admitted = 0
     for K in sorted(set(GRID_K) | {3, 19, 30, 41, 60}):
         for D in range(65, 2041):
             if not kernels.fits(kernel, K, D):
                 break    # the rule only tightens with D at a fixed K
             admitted += 1
-            assert elect(K, D) == ("tiled" if D >= first else "looped")
+            assert elect(K, D) == (past if D >= first else "looped")
             if draw:
                 if D >= first:
                     assert _build.transform_plan(K, D) == ("tiled", False, 0, threads, smem)
                     assert _build.transform_bucket_plan(K)[3] <= _build.SMEM_LIMIT
             else:
-                assert _build.eval_plan(kernel, K, D) == (1, 2, smem)
+                assert _build.eval_plan(kernel, K, D, "tiled") == (1, 2, smem)
                 assert _build.eval_threads(D, "tiled") == threads <= 1024
+                if past == "mma":
+                    assert _build.eval_plan(kernel, K, D) == (1, 3, mt[5])
+                    assert _build.eval_threads(D, "mma") == threads
+                    assert _build.block_particles(kernel, D, "tiled") == P
             assert _build.block_particles(kernel, D) == P
             if D >= first:
-                assert smem == _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
+                assert (mt[5] if past == "mma" else smem) == _build.smem_bytes(kernel, K, D) \
+                    <= _build.SMEM_LIMIT
             _build.check_limits(kernel, K, D)
     # the rule's largest K at D = 65, 96, 128, 200 and its reach at K = 1
     largest = {D: max(K for K in range(1, 200) if kernels.fits(kernel, K, D))
@@ -771,10 +786,11 @@ def _variant_call(kernel, K, D, variant):
     ("fused_maha", 3, 10, "rec", True), ("fused_maha", 3, 10, "tiled", True),
     ("fused_maha", 1, 65, "rec", False), ("fused_maha", 1, 129, "tiled", True),
     ("fused_maha", 1, 129, "warp", False), ("fused_maha", 3, 4, "reg", False),
-    # fused_maha's tensor-core kernel to D = 64, beside the record and the
-    # tiled kernel; fused_logq has none
+    # fused_maha's tensor-core kernel at every D, beside the record kernel
+    # to D = 64 and the tiled kernel; fused_logq has none
     ("fused_maha", 3, 10, "mma", True), ("fused_maha", 1, 64, "mma", True),
-    ("fused_maha", 1, 64, "rec", True), ("fused_maha", 1, 65, "mma", False),
+    ("fused_maha", 1, 64, "rec", True), ("fused_maha", 1, 65, "mma", True),
+    ("fused_maha", 2, 200, "mma", True), ("fused_maha", 2, 200, "rec", False),
     ("fused_logq", 3, 10, "mma", False), ("fused_logq", 1, 65, "mma", False),
 ])
 def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, ok):
