@@ -332,10 +332,15 @@ __device__ __forceinline__ float component_logpdf(float maha, float log_norm,
   return log_norm - 0.5f * maha;
 }
 
-// streaming weighted log-sum-exp, log sum_k w_k exp(v_k)
+// streaming weighted log-sum-exp, log sum_k w_k exp(v_k), as the XLA
+// path's (pypmc_tpu/ops/lse.py logsumexp): a term of -inf adds nothing (it
+// would form exp(-inf - -inf) = NaN while the sum is empty), so an empty
+// sum, or one of -inf terms only, is -inf (logf(0) + -inf); a NaN term makes
+// the sum NaN; a finite term's arithmetic is unchanged
 struct WeightedLse {
   float m = -INFINITY, s = 0.0f;
   __device__ void add(float v, float w) {
+    if (v == -INFINITY) return;
     if (v > m) {
       s = s * expf(m - v) + w;
       m = v;
@@ -558,21 +563,49 @@ __device__ __forceinline__ float project_rec(const float* rec, const float (&x)[
   return maha;
 }
 
+// |A_k (x_n - m_k)|^2 in FP32 FMAs (project's order), every entry of A_k
+// read, from device memory: A_k (D, D), m_k (D), particle n of xT (D, N).
+// The evaluations recompute a squared distance that is not finite with it:
+// their products skip U's upper triangle (or add rows padded past D), where
+// the XLA path's zeros there give 0 x inf = NaN.
+__device__ __forceinline__ float maha_fp32_body(const float* Ak, const float* mk,
+                                                const float* xT, long long N, int D,
+                                                long long n) {
+  float maha = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < D; ++i) {
+    float s = 0.0f;
+#pragma unroll 1
+    for (int j = 0; j < D; ++j)
+      s = fmaf(Ak[i * D + j], xT[static_cast<long long>(j) * N + n] - mk[j], s);
+    maha = fmaf(s, s, maha);
+  }
+  return maha;
+}
+
 // add the weighted component densities of K records to acc, k ascending,
-// handing each component's log-density to each(k, log q_k)
-template <int DMAX, typename Each>
+// handing each component's log-density to each(k, log q_k); full(k, maha)
+// gives the squared distance to use for whiten_rec's (fused_logq's and
+// fused_rho's: maha_fp32_body where it is not finite)
+template <int DMAX, typename Each, typename Full>
 __device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,
                                             bool student_t, const float (&x)[DMAX],
-                                            Each&& each) {
+                                            Each&& each, Full&& full) {
   const int F = rec_floats(D), D4 = pad4(D);
   for (int k = 0; k < K; ++k) {
     const float* r = recs + k * F;
-    const float maha = whiten_rec<DMAX>(r, x, D, [](int, float) {});
+    const float maha = full(k, whiten_rec<DMAX>(r, x, D, [](int, float) {}));
     const float4 p = *reinterpret_cast<const float4*>(r + D4);   // ln, w, dof, .
     const float ind = component_logpdf(maha, p.x, p.z, D, student_t);
     each(k, ind);
     acc.add(ind, p.y);
   }
+}
+template <int DMAX, typename Each>
+__device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,
+                                            bool student_t, const float (&x)[DMAX],
+                                            Each&& each) {
+  records_lse<DMAX>(acc, recs, K, D, student_t, x, each, [](int, float maha) { return maha; });
 }
 template <int DMAX>
 __device__ __forceinline__ void records_lse(WeightedLse& acc, const float* recs, int K, int D,

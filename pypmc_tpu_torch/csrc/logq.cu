@@ -48,7 +48,14 @@ logq_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
       },
       [&](const float* recs, int k0, int kc, const float (&x)[DMAX], long long n) {
         if (k0 == 0) acc = WeightedLse();
-        records_lse<DMAX>(acc, recs, kc, D, student_t != 0, x);
+        records_lse<DMAX>(acc, recs, kc, D, student_t != 0, x, [](int, float) {},
+                          [&](int c, float maha) {
+                            return isfinite(maha) || n >= N
+                                       ? maha
+                                       : maha_fp32_body(mix + L.U() + (k0 + c) * D * D,
+                                                        mix + L.mu() + (k0 + c) * D, xT, N, D,
+                                                        n);
+                          });
         if (k0 + kc == K && n < N) out[n] = acc.value();
       });
 }
@@ -58,16 +65,10 @@ logq_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
                   float* __restrict__ out, long long N, int K, int D, int student_t) {
   extern __shared__ float4 smem4[];
   const MixLayout L{K, D};
-  WeightedLse lse;
+  LogqEpi epi{mix, out, N, K, D, student_t != 0};
   tiled_eval<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), N, K, D,
                    [&](int k, long long n, float maha) {
-                     if (k == 0) lse = WeightedLse();
-                     const float w = mix[L.w() + k];
-                     if (w > 0.0f)
-                       lse.add(component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D,
-                                                student_t != 0),
-                               w);
-                     if (k == K - 1 && n < N) out[n] = lse.value();
+                     epi(k, n, eval_maha(xT, mix, N, K, D, k, n, maha));
                    });
 }
 

@@ -258,14 +258,7 @@ __device__ __forceinline__ void mma_squares(const float (&big)[NT][4],
 // static, as this header is compiled into several objects of one library
 static __device__ __noinline__ float maha_fp32(const float* Ak, const float* mk, const float* xT,
                                         long long N, int D, long long n) {
-  float maha = 0.0f;
-  for (int i = 0; i < D; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < D; ++j)
-      s = fmaf(Ak[i * D + j], xT[static_cast<long long>(j) * N + n] - mk[j], s);
-    maha = fmaf(s, s, maha);
-  }
-  return maha;
+  return maha_fp32_body(Ak, mk, xT, N, D, n);
 }
 
 // One warp's squares of its particles against the kc split components at

@@ -50,9 +50,17 @@ rho_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
       },
       [&](const float* recs, int k0, int kc, const float (&x)[DMAX], long long n) {
         if (k0 == 0) acc = WeightedLse();
-        records_lse<DMAX>(acc, recs, kc, D, student_t != 0, x, [&](int c, float ind) {
-          if (n < N) rho[(k0 + c) * N + n] = ind;
-        });
+        records_lse<DMAX>(
+            acc, recs, kc, D, student_t != 0, x,
+            [&](int c, float ind) {
+              if (n < N) rho[(k0 + c) * N + n] = ind;
+            },
+            [&](int c, float maha) {
+              return isfinite(maha) || n >= N
+                         ? maha
+                         : maha_fp32_body(mix + L.U() + (k0 + c) * D * D,
+                                          mix + L.mu() + (k0 + c) * D, xT, N, D, n);
+            });
         if (k0 + kc == K && n < N) {
           const float lq = acc.value();
           for (int k = 0; k < K; ++k) {
@@ -70,24 +78,10 @@ rho_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
                  int student_t) {
   extern __shared__ float4 smem4[];
   const MixLayout L{K, D};
-  WeightedLse lse;
+  RhoEpi epi{mix, rho, log_q, N, K, D, student_t != 0};
   tiled_eval<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), N, K, D,
                    [&](int k, long long n, float maha) {
-                     if (k == 0) lse = WeightedLse();
-                     const float w = mix[L.w() + k];
-                     const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k],
-                                                        D, student_t != 0);
-                     if (w > 0.0f) lse.add(ind, w);
-                     if (n >= N) return;
-                     rho[k * N + n] = ind;
-                     if (k == K - 1) {
-                       const float lq = lse.value();
-                       for (int j = 0; j < K; ++j) {
-                         const float wj = mix[L.w() + j];
-                         rho[j * N + n] = wj > 0.0f ? expf(rho[j * N + n] - lq) * wj : 0.0f;
-                       }
-                       log_q[n] = lq;
-                     }
+                     epi(k, n, eval_maha(xT, mix, N, K, D, k, n, maha));
                    });
 }
 

@@ -75,7 +75,9 @@
 // keeps in its own words of shared memory (in registers they spilled the
 // triangular kernel at 128); at a component's end thread p sums column p of
 // the 16 threads that share particle p, ty ascending, a fixed order with no
-// atomics, so one input gives one output.  A row-tile epilogue of the
+// atomics, so one input gives one output; rows past D are left out of
+// the squares (they hold A = 0, which gives fmaf(0, inf, s) = NaN on an
+// infinite coordinate, and +0 on a finite one).  A row-tile epilogue of the
 // caller's (the draws' StoreEpi) takes the thread's 8 x 8 accumulators
 // with their rows and the tile's particles instead.
 //
@@ -417,6 +419,7 @@ template <typename F>
 struct SquaresEpi {
   float* red;   // the partials, kTileRedFloats
   F f;
+  int D;
   template <typename Src, typename Tile>
   __device__ void tile(const Src&, long long, const Tile&, int) {}
   // the row tile's squares into this thread's 8 partials (set at the first
@@ -436,7 +439,7 @@ struct SquaresEpi {
     for (int c = 0; c < 8; ++c) {
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        part[c] = fmaf(acc[r][c], acc[r][c], part[c]);
+        if (tile_row(s.rt, ty, r) < D) part[c] = fmaf(acc[r][c], acc[r][c], part[c]);
         acc[r][c] = 0.0f;
       }
     }
@@ -463,7 +466,7 @@ template <bool TRI, typename Epi>
 __device__ __forceinline__ void tiled_eval(float* smem, const float* xT, const float* M,
                                            const float* mu, long long N, int K, int D,
                                            Epi&& epi) {
-  SquaresEpi<Epi&> squares{smem + kTileRedOffset, epi};
+  SquaresEpi<Epi&> squares{smem + kTileRedOffset, epi, D};
   tiled_walk<TRI, true>(smem, LoadedX{xT, N}, M, mu, D, ParticleTiles{N, K}, squares);
 }
 
@@ -491,6 +494,71 @@ __host__ __device__ inline bool eval_has_variant(int D, int v, bool maha) {
   if (D < 1 || D > kWideDMax) return false;
   return v == kEvalTiled || (maha && v == kEvalMma) || (v == kEvalRec && D <= kRecDMax);
 }
+
+// fused_logq's and fused_rho's squared distance of particle n to component
+// k: ``maha`` (the product's, which reads U's lower triangle only, over rows
+// padded past D), or where that is not finite (n < N) maha_fp32 on U_k
+// whole, so that the infinities and NaNs are the XLA path's (an infinite
+// x_j times a zero above the diagonal is NaN there)
+__device__ __forceinline__ float eval_maha(const float* xT, const float* mix, long long N, int K,
+                                           int D, int k, long long n, float maha) {
+  if (n >= N || isfinite(maha)) return maha;
+  const MixLayout L{K, D};
+  return maha_fp32(mix + L.U() + static_cast<long long>(k) * D * D,
+                   mix + L.mu() + static_cast<long long>(k) * D, xT, N, D, n);
+}
+
+// fused_logq's epilogue past D = 64 (logq_tiled_kernel): component k's squared distance of particle n into
+// the thread's weighted log-sum-exp, k ascending (a dead component, w_k =
+// 0, adds nothing); out[n] written at k = K - 1
+struct LogqEpi {
+  const float* mix;
+  float* out;
+  long long N;
+  int K, D;
+  bool student_t;
+  WeightedLse lse;
+  __device__ void operator()(int k, long long n, float maha) {
+    const MixLayout L{K, D};
+    if (k == 0) lse = WeightedLse();
+    const float w = mix[L.w() + k];
+    if (w > 0.0f)
+      lse.add(component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D, student_t), w);
+    if (k == K - 1 && n < N) out[n] = lse.value();
+  }
+};
+
+// fused_rho's epilogue past D = 64 (rho_tiled_kernel):
+// LogqEpi's log-sum-exp, each log q_k stored in the thread's own rho entry,
+// a dead component's too; at k = K - 1 the thread reads its K entries back
+// (its own writes, in order) and writes rho_k = w_k exp(log q_k - log q)
+// (exactly 0 where w_k = 0) and log q
+struct RhoEpi {
+  const float* mix;
+  float* rho;
+  float* log_q;
+  long long N;
+  int K, D;
+  bool student_t;
+  WeightedLse lse;
+  __device__ void operator()(int k, long long n, float maha) {
+    const MixLayout L{K, D};
+    if (k == 0) lse = WeightedLse();
+    const float w = mix[L.w() + k];
+    const float ind = component_logpdf(maha, mix[L.ln() + k], mix[L.dof() + k], D, student_t);
+    if (w > 0.0f) lse.add(ind, w);
+    if (n >= N) return;
+    rho[k * N + n] = ind;
+    if (k == K - 1) {
+      const float lq = lse.value();
+      for (int j = 0; j < K; ++j) {
+        const float wj = mix[L.w() + j];
+        rho[j * N + n] = wj > 0.0f ? expf(rho[j * N + n] - lq) * wj : 0.0f;
+      }
+      log_q[n] = lq;
+    }
+  }
+};
 
 // The shared memory of fused_maha's (maha) or fused_logq's and fused_rho's
 // elected kernel at (K, D) (ops/_build.py eval_plan): the tiled kernel's,
