@@ -42,10 +42,12 @@ Phases, each of which exits non-zero on failure:
    registers, no spill; its plan against ``_build.mma_plan`` to D=64 at K
    to 2,040, two blocks an SM at ``MAHA_TIME_SHAPES``' largest K), its
    tensor-core kernel past D=64 (``maha_mma_tiled_kernel`` and
-   ``maha_split_kernel``: registers, no spill, one block of 8 warps an SM;
+   ``mma_split_kernel``: registers, no spill, one block of 8 warps an SM;
    its plan and split operand against ``_build.mma_tiled_plan`` and
-   ``mma_scratch_floats``) and ``fused_maha``'s election against
-   ``_build.eval_variant``;
+   ``mma_scratch_floats``), ``fused_logq``'s and ``fused_rho``'s on the
+   same walk (``logq_mma_tiled_kernel``, ``rho_mma_tiled_kernel``: no
+   spill, one block an SM) and the three rows'
+   election against ``_build.eval_variant``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship shapes (K=10, D=10, N=2^20; K_target=2) and at the edges
    (K=1, D=1, D=7, D=32, odd N, a dead component, zero weights, Gaussian
@@ -53,7 +55,11 @@ Phases, each of which exits non-zero on failure:
    its record and tensor-core kernels (the tiled one below D=65 at
    ``MAHA_TILED_SEED``'s case), equal on a second run, and
    at the JAX rule's largest K at D=17, 20 and 64, ``MAHA_CASES``; the
-   tensor-core kernels' NaNs and infinities the FP32 arithmetic's, to D=200), and past the
+   tensor-core kernels' NaNs and infinities the FP32 arithmetic's, to D=200, the tiled
+   kernel's past D=64 too; ``evaluation_nonfinite_case``: every kernel of
+   ``fused_logq`` and ``fused_rho`` at D=20, 40, 96 and 200 gives the plain
+   version's NaN, +inf and -inf on particles with an infinite, a NaN and a
+   1e20 coordinate), and past the
    register kernels (D=40 and D=128, the looped instantiation) and past
    shared memory (operands read from device memory, or, by ``fused_logq``
    and ``fused_maha``, streamed in chunks: K=60, D=32 and K=1, D=128), at
@@ -64,10 +70,11 @@ Phases, each of which exits non-zero on failure:
    D=129), (K=2, D=200) and (K=1, D=1000); the four tiled kernels past D=64
    (``TILED_CASES``: K=1 and the JAX rule's largest K at D=65, 96, 128,
    129 and 200, K=1 at D=1000 and 2040): each against its float64 plain
-   version, counted as tiled (``fused_maha`` as its tensor-core kernel,
-   with lower, upper and full operands, the tiled kernel forced beside
-   it), equal on a second run, ``fused_rho``'s log q
-   ``fused_logq``'s bit for bit, ``fused_transform``'s tiled pair equal to
+   version, counted as tiled (``fused_maha``, ``fused_logq`` and
+   ``fused_rho`` as their tensor-core kernels, ``fused_maha`` with lower,
+   upper and full operands, the tiled kernels forced beside them), equal on
+   a second run, ``fused_rho``'s log q ``fused_logq``'s bit for bit on each
+   kernel, ``fused_transform``'s tiled pair equal to
    its looped kernel bit for bit to D=128 (components drawn by weight, a
    dead component's bucket empty) and its bucket pass's positions,
    permutation and tiles equal to ``_build.transform_tiles``' (also at
@@ -323,13 +330,16 @@ Phases, each of which exits non-zero on failure:
     2-component target and ``fused_transform_rng`` K=11, D=40 at N=2^20),
     the pool's two variants
     at the pipeline's shape (C=32, D=40, a 2-component target, 400 steps),
-    the mcmc phase's and on each side of the cut-offs of their election
-    (``POOL_SWEEP``), the six kernels past D=128 at K=1, D=200, N=2^16,
-    the four tiled kernels at ``TILED_SHAPES`` (K=1 and the rule's largest
-    K at D=65, 96, 128 and 200, the wide path's K=4 at D=200; in turns with
-    their plain versions, ``torch.bmm`` yardsticks and ``fused_transform``'s
-    looped kernel; its bucket pass alone, and torch.bmm in CUDA graphs;
-    ``chip_smoke.py --tiled-times`` runs them alone, ``--elected-times
+    the mcmc phase's (both variants on each side of the cut-offs of their
+    election, ``POOL_SWEEP``: ``chip_smoke.py --pool-sweep``), the six
+    kernels past D=128 at K=1, D=200, N=2^16, the four tiled kernels at
+    ``TILED_SHAPES`` (K=1 and the rule's largest K at D=65, 96, 128 and
+    200, the wide path's K=4 at D=200), each held to its float64 plain
+    version, and ``fused_logq``'s and ``fused_rho``'s tensor-core and tiled
+    kernels timed there (in turns with their plain versions and
+    ``torch.bmm``, and in CUDA graphs; ``fused_maha``'s and
+    ``fused_transform``'s, and its looped kernel and bucket pass:
+    ``chip_smoke.py --tiled-times`` runs all four alone, ``--elected-times
     DIR`` times the kernels a checkout elects there, such as an earlier
     commit's, ``--transform-split`` fused_transform's pair with its moves
     left out), and the device time of each launch of the K-blocked kernels
@@ -341,15 +351,20 @@ Phases, each of which exits non-zero on failure:
     ``draw_proposal_inputs`` at K=32, D=40, N=2^20 (Student-t, float32 and
     float64, and the components only) beside its plain version; the two
     fused draws at K=32 and K=11, D=40, N=2^20 and K=10, D=10, N=2^22, each
-    in turns with the two launches it replaces, and the SASS instructions
-    of the DMAX 40 record draws and of ``draw_kernel`` (``cuobjdump``) as an
-    issue floor (and, from them, the draw's floor a normal at K=1, D=200).
+    in turns with the two launches it replaces (the SASS instructions of
+    the DMAX 40 record draws and of ``draw_kernel``, ``cuobjdump``, as an
+    issue floor, and from them the draw's floor a normal at K=1, D=200:
+    ``chip_smoke.py --draw-floor``).  Each part prints its seconds
+    (``times part``); ``--moved-times`` runs the timings the default run
+    leaves to these flags, each with its seconds.
     ``chip_smoke.py --drawn-times`` times the drawn products at
     ``DRAWN_SHAPES`` beside the looped kernels, the composition of other
     rows' launches and the plain versions and the ``torch.bmm`` yardsticks
-    of rows 1-3 and 6 at their first shapes; phase times and ``chip_smoke.py
-    --gram-times`` time rows 7-9 at ``GRAM_TIME_SHAPES`` (the Gram pass,
-    the entry table and the plain version in turns, beside the bound);
+    of rows 1-3 and 6 at their first shapes (``--library-times K,Kt,D,N
+    ...`` the yardsticks alone at the shapes given); ``chip_smoke.py
+    --gram-times`` times rows 7-9 at ``GRAM_TIME_SHAPES`` (the Gram pass,
+    the entry table and the plain version in turns, beside the bound;
+    phase times holds them to float64 there);
     ``--elected-times DIR [drawn]`` the kernels a checkout elects there;
     ``chip_smoke.py --maha-times`` times ``fused_maha``'s tensor-core,
     record and tiled kernels, ``torch.bmm`` and the plain version in turns
@@ -361,7 +376,11 @@ Phases, each of which exits non-zero on failure:
     times, at ``MAHA_WIDE_SHAPES`` (``TILED_SHAPES`` and K=1 at D=1,000
     and 2,040; ``--maha-times wide`` these alone);
     ``--parent-draws DIR`` holds the drawn products to the kernels DIR
-    elects past D=128 (an earlier commit's warp kernels) bit for bit.
+    elects past D=128 (an earlier commit's warp kernels) bit for bit,
+    ``--parent-tiled DIR`` the tiled kernels of rows 1-3, forced, to DIR's
+    bit for bit on finite particles, ``--nonfinite DIR`` reports
+    ``evaluation_nonfinite_case`` in DIR's checkout, and ``--wide-times
+    DIR`` prints the wide paths' device ms there (a fresh process).
 
 Each phase from kernels on prints its seconds (host clock) when it ends.
 The line before the last is the kernels' JSON summary; the last line is
@@ -929,10 +948,11 @@ def maha_nonfinite_case(device, report):
     arithmetic's are (a value that is not finite is recomputed in the
     record kernel's FP32 arithmetic): the record kernel's outputs to D = 64
     and, at every D, fp32_maha_terms on the four particles; the finite
-    outputs within TOL["maha"] of float64.  Past D = 64 the tiled kernel's
-    are printed beside: its rows padded to 128 add fmaf(0, inf, s) = NaN, so
-    where D is not a multiple of 128 a particle whose every row is infinite
-    is NaN there, +inf in the FP32 arithmetic."""
+    outputs within TOL["maha"] of float64.  Past D = 64 the tiled kernel,
+    forced, is held to the FP32 terms too: its rows padded to 128 are left
+    out of the squares (they added fmaf(0, inf, s) = NaN, so that a particle
+    whose every row is infinite was NaN there, +inf in the FP32
+    arithmetic)."""
     import torch
     from pypmc_tpu_torch.density import core
     from pypmc_tpu_torch.ops import kernels as k
@@ -976,7 +996,101 @@ def maha_nonfinite_case(device, report):
                 line += "; the tiled kernel: NaN at %d, +inf at %d (%s at the four)" % (
                     int(torch.isnan(tiled).sum()), int((tiled == float("inf")).sum()),
                     tiled[:, bad].tolist())
+                for what, f in (("NaN", torch.isnan), ("+inf", lambda t: t == float("inf"))):
+                    require(bool(torch.equal(f(tiled[:, bad]), f(terms))),
+                            "%s: the tiled kernel's %s differ from the FP32 terms': %s, %s"
+                            % (label, what, tiled[:, bad].tolist(), terms.tolist()))
             print(line)
+
+
+# the shapes (K, D) of evaluation_nonfinite_case: the record kernels' D = 20
+# and 40, the tensor-core kernels' D = 96 and 200
+EVAL_NONFINITE_SHAPES = [(3, 20), (3, 40), (2, 96), (1, 200)]
+# the particles (column, coordinate, value) it plants: +inf at coordinate 0,
+# +inf at a middle one, -inf at the last, a NaN, and 1e20, whose squared
+# distance overflows float32
+EVAL_NONFINITE = lambda D: [(7, 0, float("inf")), (11, D // 2, float("inf")),
+                            (13, D - 1, -float("inf")), (17, 3, float("nan")), (19, 1, 1e20)]
+
+
+def eval_variant_calls(k, xT, ops):
+    """``[(label, fused_logq call, fused_rho call or None)]``: the kernels
+    the package imported elects for fused_logq and fused_rho at ops' D, and
+    the tiled kernels forced (fused_rho's where its wrapper takes a
+    ``variant``; in an earlier checkout it elected the tiled kernel past D =
+    64 and had no variant)."""
+    import inspect
+
+    calls = [("elected", lambda: k.fused_logq(xT, ops), lambda: k.fused_rho(xT, ops))]
+    rho_variant = "variant" in inspect.signature(k.fused_rho).parameters
+    calls.append(("tiled", lambda: k.fused_logq(xT, ops, variant="tiled"),
+                  (lambda: k.fused_rho(xT, ops, variant="tiled")) if rho_variant else None))
+    return calls
+
+
+def evaluation_nonfinite_case(device, report, strict=True):
+    """fused_logq and fused_rho on particles with EVAL_NONFINITE's
+    coordinates, a Gaussian mixture and a Student-t one with a dead
+    component, at EVAL_NONFINITE_SHAPES: each kernel of the shape (the
+    elected one: the record kernel to D = 64, the tensor-core kernel past it;
+    the tiled kernel forced, at every D) gives exactly the float32 plain
+    version's NaN, +inf and -inf at every output (log q; rho and its log q),
+    the XLA path's rule (a -inf component adds nothing to the log-sum-exp,
+    0 x inf = NaN above U's diagonal); its finite outputs within TOL "log"
+    and "rho" of float64 where the float32 plain version's are finite.
+    Returns the mismatches, ``[(label, output, what)]``; strict: fails on
+    the first."""
+    import torch
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    bad_out = []
+    for K, D in EVAL_NONFINITE_SHAPES:
+        for student in (False, True):
+            rng = np.random.default_rng(K + D + student)
+            params = make_params(random_mixture(rng, K, D, student, K > 1), device)
+            ops = core._kernel_operands(params)
+            ops64 = k.MixtureOperands(ops.packed.double(), K, D, student)
+            xT = mixture_particles(ops, 4099, K + D, device)
+            for col, j, v in EVAL_NONFINITE(D):
+                xT[j, col] = v
+            f = ops.fields()
+            require(bool((torch.triu(f["U"], diagonal=1) == 0).all()),
+                    "U's upper triangle holds a nonzero (K=%d, D=%d)" % (K, D))
+            lq32 = k.plain_logq(xT, ops)
+            rho32, rq32 = k.plain_rho(xT, ops)
+            x64 = xT.double()
+            lq64 = k.plain_logq(x64, ops64)
+            rho64, _ = k.plain_rho(x64, ops64)
+            tag = "K=%d D=%d%s" % (K, D, " t" if student else "")
+            cols = [c for c, _, _ in EVAL_NONFINITE(D)]
+            for label, logq_call, rho_call in eval_variant_calls(k, xT, ops):
+                outs = [("log_q", logq_call(), lq32, lq64, "log")]
+                if rho_call is not None:
+                    rho, rq = rho_call()
+                    outs += [("rho", rho, rho32, rho64, "rho"), ("rho log_q", rq, rq32, lq64, "log")]
+                for out, got, want, ref, kind in outs:
+                    name = "non-finite %s %s %s" % (tag, label, out)
+                    for what, test in (("NaN", torch.isnan), ("+inf", lambda t: t == float("inf")),
+                                       ("-inf", lambda t: t == -float("inf"))):
+                        if not bool(torch.equal(test(got), test(want))):
+                            bad_out.append((name, what, got[..., cols].tolist(),
+                                            want[..., cols].tolist()))
+                            print("  %s: its %s differ from the plain version's: %s, plain %s"
+                                  % bad_out[-1])
+                            require(not strict, "%s: its %s differ from the plain version's: "
+                                    "%s, plain %s" % bad_out[-1])
+                    keep = torch.isfinite(want) & torch.isfinite(ref)
+                    if bool(torch.isfinite(got[keep]).all()):
+                        compare(name, got[keep], ref[keep], kind, report)
+                    else:
+                        bad_out.append((name, "finite", "", ""))
+                        require(not strict, "%s: a finite output of the plain version is not "
+                                "finite here" % name)
+                print("  non-finite %s %s: %s" % (tag, label, ", ".join(
+                    "%s %s" % (out, got[..., cols].tolist() if got.dim() == 1 else
+                               got[:, cols].tolist()) for out, got, _, _, _ in outs[:2])))
+    return bad_out
 
 
 def vb_stats_case(xT, w, A, m, const, label, report):
@@ -1261,6 +1375,21 @@ def gram_case(case, device, report):
     step_weights_case("gram fused_is_pmc_step", w, table[2], D, t_student)
     check_stats("gram fused_is_pmc_step table", table[3], ref, N, report)
     del table
+    if D > _build._REC_D_MAX:
+        # the Gram route's draw is fused_propose_logq's tiled route on the
+        # same seed: its x and latent, and so its log q and log p, which
+        # are fused_logq's bit for bit on them (its elected kernel)
+        px, plat, plq, plp = k.fused_propose_logq(seed_a, ops, N, tops)
+        require(bool(torch.equal(px, xT) and torch.equal(plat, lat)),
+                "gram fused_is_pmc_step: its draw is not fused_propose_logq's")
+        require(bool(torch.equal(plq, k.fused_logq(xT, ops))
+                     and torch.equal(plp, k.fused_logq(xT, tops))),
+                "gram fused_is_pmc_step D=%d: log q or log p is not fused_logq's bit for bit" % D)
+        differ = int((torch.exp(plp - plq) != w).sum())
+        print("  gram fused_is_pmc_step D=%d: x, latent, log q and log p fused_propose_logq's "
+              "and fused_logq's (%s) bit for bit; w and exp(log p - log q) differ at %d of %d"
+              % (D, _build.eval_variant("fused_logq", D), differ, N))
+        del px, plat, plq, plp
     if D <= _build._REC_D_MAX:
         blocked = k.fused_is_pmc_step_blocked(seed_a, ops, tops, N, dof_stats)
         differ = [name for name, a, b in zip(("x", "latent", "w"), (xT, lat, w), blocked)
@@ -1764,14 +1893,16 @@ def tiled_case(case, device, report):
     operands (maha_wide_check), fused_logq and fused_rho on a Gaussian
     mixture and on a Student-t one with a dead component (K > 1), and
     fused_transform on each, past the record kernels' D = 64.  fused_logq
-    and fused_rho through the kernel the wrapper elects (the tiled kernel,
-    counted as ``variant:...=tiled``) against their float64 plain versions
-    on the same particles (TOL "log", "rho"), equal on a second run;
-    fused_rho's log q equal to fused_logq's bit for bit, a dead component's
-    rho exactly 0.  fused_transform (transform_tiled_case) on components
-    drawn by weight (a dead component's bucket empty)."""
+    and fused_rho through the kernel the wrapper elects (the tensor-core
+    kernel, counted as ``variant:...=mma``) and the tiled kernel forced
+    (``=tiled``), each against its float64 plain version on the same
+    particles (TOL "log", "rho"), equal on a second run; fused_rho's log q
+    equal to fused_logq's bit for bit on the same kernel, a dead
+    component's rho exactly 0.  fused_transform (transform_tiled_case) on
+    components drawn by weight (a dead component's bucket empty)."""
     import torch
     from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
 
     K, D, N, seed = case
@@ -1786,39 +1917,41 @@ def tiled_case(case, device, report):
         x64 = xT.double()
         tag = "%s t" % label if student else label
         rho_ref, lq_ref = k.plain_rho(x64, ops64)
-        runs = [("fused_logq", lambda v: k.fused_logq(xT, ops, variant=v), lq_ref, "log")]
         if not student:
             maha_wide_check(params, xT, x64, label, rng, report)
-        for name, call, ref, kind in runs:
-            wrapper = name.split()[0]
+        elected = _build.eval_variant("fused_logq", D)
+        require(elected == _build.eval_variant("fused_rho", D) == "mma",
+                "%s: fused_logq and fused_rho elect %s past D = 64" % (tag, elected))
+        for variant in (None, "tiled"):
+            want = variant or elected
+            vtag = "%s %s" % (tag, want)
             k.reset_launch_counts()
-            got = call(None)
+            got = k.fused_logq(xT, ops, variant=variant)
             counts = k.launch_counts()
-            require(counts["variant:%s=tiled" % wrapper] == counts[wrapper] == 1,
-                    "%s %s: the elected launch was not the tiled kernel: %s"
-                    % (tag, name, {n: c for n, c in counts.items() if c}))
-            compare("%s %s" % (tag, name), got, ref, kind, report)
-            require(bool(torch.equal(got, call(None))),
-                    "%s %s: one input gave two outputs" % (tag, name))
-        if dead:
-            require(bool(torch.isfinite(k.fused_logq(xT, ops)).all()),
-                    "%s: a dead component made log q non-finite" % tag)
-        k.reset_launch_counts()
-        rho, log_q = k.fused_rho(xT, ops)
-        counts = k.launch_counts()
-        require(counts["variant:fused_rho=tiled"] == counts["fused_rho"] == 1,
-                "%s fused_rho: the launch was not the tiled kernel: %s"
-                % (tag, {n: c for n, c in counts.items() if c}))
-        compare("%s fused_rho rho" % tag, rho, rho_ref, "rho", report)
-        compare("%s fused_rho log_q" % tag, log_q, lq_ref, "log", report)
-        require(bool(torch.equal(log_q, k.fused_logq(xT, ops))),
-                "%s: fused_rho's log q is not fused_logq's bit for bit" % tag)
-        if dead:
-            require(bool((rho[K // 2] == 0).all()), "%s: a dead component's rho is not 0" % tag)
-        again = k.fused_rho(xT, ops)
-        require(bool(torch.equal(rho, again[0]) and torch.equal(log_q, again[1])),
-                "%s fused_rho: one input gave two outputs" % tag)
-        del xT, x64, runs, ref, rho, log_q, rho_ref, lq_ref, again
+            require(counts["variant:fused_logq=%s" % want] == counts["fused_logq"] == 1,
+                    "%s fused_logq: the launch was not the %s kernel: %s"
+                    % (vtag, want, {n: c for n, c in counts.items() if c}))
+            compare("%s fused_logq" % vtag, got, lq_ref, "log", report)
+            require(bool(torch.equal(got, k.fused_logq(xT, ops, variant=variant))),
+                    "%s fused_logq: one input gave two outputs" % vtag)
+            k.reset_launch_counts()
+            rho, log_q = k.fused_rho(xT, ops, variant=variant)
+            counts = k.launch_counts()
+            require(counts["variant:fused_rho=%s" % want] == counts["fused_rho"] == 1,
+                    "%s fused_rho: the launch was not the %s kernel: %s"
+                    % (vtag, want, {n: c for n, c in counts.items() if c}))
+            compare("%s fused_rho rho" % vtag, rho, rho_ref, "rho", report)
+            compare("%s fused_rho log_q" % vtag, log_q, lq_ref, "log", report)
+            require(bool(torch.equal(log_q, got)),
+                    "%s: fused_rho's log q is not fused_logq's bit for bit" % vtag)
+            if dead:
+                require(bool((rho[K // 2] == 0).all()),
+                        "%s: a dead component's rho is not 0" % vtag)
+            again = k.fused_rho(xT, ops, variant=variant)
+            require(bool(torch.equal(rho, again[0]) and torch.equal(log_q, again[1])),
+                    "%s fused_rho: one input gave two outputs" % vtag)
+            del got, rho, log_q, again
+        del xT, x64, rho_ref, lq_ref
         transform_tiled_case(params, tag, seed, N, device, report)
         torch.cuda.empty_cache()
 
@@ -2455,6 +2588,7 @@ def phase_kernels(device, cases, eval_cases):
         maha_case(case, device, report)
         torch.cuda.empty_cache()
     maha_nonfinite_case(device, report)
+    evaluation_nonfinite_case(device, report)
     vb_nonfinite_case(device, report)
     for case in PMC_STATS_CASES:
         pmc_stats_weighted_case(case, device, report)
@@ -4365,15 +4499,15 @@ wide_step_rows = []
 
 def phase_wide(device, report):
     """The wide path through the port's entry points, past D = 128 where
-    fused_logq, fused_rho and fused_transform take their tiled kernels and
-    fused_maha its tensor-core kernel: ``parallel.pmc_run_sharded`` at
+    fused_transform takes its tiled pair and fused_logq, fused_rho and
+    fused_maha their tensor-core kernels: ``parallel.pmc_run_sharded`` at
     WIDE_PATH (its steps draw by ``propose_T`` past fused_propose_logq's
     rule, draw_proposal_inputs then
     fused_transform, so each step's log q, log p and log-likelihood are
     fused_logq launches, and its unfused update a fused_rho launch), every
     fused_logq and fused_rho launch of the run held to its float64 plain
-    version on the same particles, every fused_rho and fused_transform
-    launch tiled; a
+    version on the same particles, every fused_logq and fused_rho launch
+    on the kernel elected, every fused_transform launch tiled; a
     ``GaussianInference`` fit at WIDE_PATH's VB size (the unfused E-step, one
     fused_maha launch an iteration, each on the kernel fused_maha elects),
     its first iteration's bilinear term
@@ -4384,6 +4518,7 @@ def phase_wide(device, report):
     from torch.profiler import ProfilerActivity, profile
 
     from pypmc_tpu_torch.mix_adapt import GaussianInference
+    from pypmc_tpu_torch.ops import _build
     from pypmc_tpu_torch.ops import kernels as k
     from pypmc_tpu_torch.parallel import pmc_run_sharded
 
@@ -4404,9 +4539,11 @@ def phase_wide(device, report):
             % (len(kept), pmc_counts["fused_logq"], steps))
     for name, least in (("fused_logq", 2 * steps), ("fused_rho", steps),
                         ("fused_transform", steps)):
-        require(pmc_counts["variant:%s=tiled" % name] == pmc_counts[name] >= least,
-                "wide pmc: %d of %d %s launches took the tiled kernel, for %d steps"
-                % (pmc_counts["variant:%s=tiled" % name], pmc_counts[name], name, steps))
+        want = "tiled" if name == "fused_transform" else _build.eval_variant(name, D)
+        require(pmc_counts["variant:%s=%s" % (name, want)] == pmc_counts[name] >= least,
+                "wide pmc: %d of %d %s launches took the %s kernel, for %d steps"
+                % (pmc_counts["variant:%s=%s" % (name, want)], pmc_counts[name], name, want,
+                   steps))
     require(len(kept_rho) == pmc_counts["fused_rho"],
             "wide pmc: %d fused_rho launches kept of %d" % (len(kept_rho), pmc_counts["fused_rho"]))
     # each step's responsibilities against their float64 plain version,
@@ -4629,7 +4766,8 @@ def phase_wide_is(device, report):
     counts = k.launch_counts()
     require(len(kept) == 1, "wide_is (a): %d proposals recorded" % len(kept))
     require_tiled("(a)", counts, "fused_propose_logq", 1)
-    require(counts["fused_logq"] == 1 and counts["variant:fused_logq=tiled"] == 1,
+    require(counts["fused_logq"] == 1
+            and counts["variant:fused_logq=%s" % _build.eval_variant("fused_logq", D)] == 1,
             "wide_is (a): the target took %s" % {c: v for c, v in counts.items() if v})
     xT, latent, log_q = kept[0]
     params = proposal.stacked_params(device=device)
@@ -4973,6 +5111,92 @@ def parent_draws(device, parent):
                 compare("parent draws %s %s" % (key, out), mine[i], other[i].double(), "log", [])
         require(sum(differ) == 0, "the drawn products differ from the parent's kernels at %s: %s"
                 % (key, differ))
+
+
+# the shapes (K, D, N) at which --parent-tiled holds the forced tiled
+# kernels of fused_logq, fused_rho and fused_maha to an earlier checkout's
+PARENT_TILED_SHAPES = [(1, 65, 4099), (60, 65, N_WIDE), (41, 96, 4099), (1, 200, N_WIDE),
+                       (19, 200, 4099), (4, 200, N_WIDE)]
+
+
+def tiled_outputs(device):
+    """``{shape: (log q, rho, rho's log q, maha)}`` on the host of the
+    package imported, its tiled kernels forced (fused_rho's elected where
+    its wrapper takes no ``variant``: the tiled kernel in an earlier
+    checkout past D = 64), at PARENT_TILED_SHAPES on a Student-t mixture
+    with a dead component and particles from it (finite)."""
+    import inspect
+
+    from pypmc_tpu_torch.density import core
+    from pypmc_tpu_torch.ops import kernels as k
+
+    out = {}
+    rho_variant = "variant" in inspect.signature(k.fused_rho).parameters
+    for K, D, N in PARENT_TILED_SHAPES:
+        rng = np.random.default_rng(K + D)
+        params = make_params(random_mixture(rng, K, D, True, K > 1), device)
+        ops = core._kernel_operands(params)
+        xT = mixture_particles(ops, N, K + D, device)
+        rho, rq = (k.fused_rho(xT, ops, variant="tiled") if rho_variant
+                   else k.fused_rho(xT, ops))
+        maha = k.fused_maha(xT, params.inv_chol, params.means, variant="tiled")
+        out["%d,%d,%d" % (K, D, N)] = [t.cpu() for t in (
+            k.fused_logq(xT, ops, variant="tiled"), rho, rq, maha)]
+    return out
+
+
+def parent_tiled(device, parent):
+    """The tiled kernels of fused_logq, fused_rho and fused_maha, forced,
+    against the checkout ``parent``'s at PARENT_TILED_SHAPES (its outputs
+    made in a child process, ``--tiled-outputs``): every finite output
+    equal bit for bit (the padded rows left out of the squares add +0 on a
+    finite particle); the outputs that differ counted."""
+    import torch
+
+    path = "build/parent_tiled.pt"
+    proc = subprocess.run([sys.executable, __file__, "--tiled-outputs", parent, path],
+                          capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, "the parent's tiled kernels failed: %s"
+            % (proc.stdout[-2000:] + proc.stderr[-2000:]))
+    theirs, ours = torch.load(path), tiled_outputs(device)
+    for key, mine in ours.items():
+        differ = [int((a != b).sum()) for a, b in zip(mine, theirs[key])]
+        print("  parent tiled K,D,N=%s: log q %d, rho %d, rho's log q %d, maha %d differ"
+              % (key, *differ))
+        require(sum(differ) == 0, "the tiled kernels differ from the parent's at %s: %s"
+                % (key, differ))
+
+
+def wide_times(device):
+    """``{path: (device ms, rows)}`` of the wide paths, a fresh process
+    (``--wide-times DIR``, the package at DIR imported; torch.profiler,
+    after a warm-up): the wide PMC step at WIDE_PATH (D=200, K=4, Kt=2,
+    2^16, a step of 5), the wide IS run (wide_is_profile: 2^20 at D=200) and
+    the wide PMC step at D=128, K=1 (wide_pmc_problems (a), 2^20, a step of
+    5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pypmc_tpu_torch.parallel import pmc_run_sharded
+
+    out = {}
+    for label, (params, target), n in (
+            ("pmc D=200 K=4", wide_path_problem(device), WIDE_PATH["n"]),
+            ("pmc D=128 K=1", wide_pmc_problems(device)[0][1:], WIDE_PMC["n"])):
+        steps = 5
+        pmc_run_sharded(target, params, n, 1, key=4)
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pmc_run_sharded(target, params, n, steps, key=5)
+            sync(device)
+        rows = device_rows(prof, steps)
+        out[label] = (sum(r[0] for r in rows), [[t, c, name[:90]] for t, c, name in rows[:6]])
+    prof = wide_is_profile(device)
+    out["is D=200"] = (prof["run_ms"], prof["run_rows"])
+    for label, (ms, rows) in out.items():
+        print("  wide %s: %.4f device ms" % (label, ms))
+        for t, c, name in rows:
+            print("    %8.4f ms  %5.1f x  %s" % (t, c, name))
+    return out
 
 
 def mcmc_problem(device):
@@ -6341,6 +6565,13 @@ def phase_times(device, report):
     params, target, _ = flagship_problem(device)
     ops, tops = core._kernel_operands(params), core._kernel_operands(target)
     times = {}
+    clock = [time.perf_counter()]
+
+    def part(title):
+        """Print the seconds since the last part's end."""
+        now = time.perf_counter()
+        print("  times part %s: %.1f s" % (title, now - clock[0]))
+        clock[0] = now
 
     def pair(name, kernel, plain, sizes):
         for n in sizes:
@@ -6370,6 +6601,7 @@ def phase_times(device, report):
             lambda i: k.fused_pmc_stats(xs[n], ws[n], ops, True, variant="table"))
     del xs, ws, log_q, log_p
     torch.cuda.empty_cache()
+    part("flagship evaluations and statistics")
     # fused_maha and fused_logq at the shapes the main paths give them, each
     # also held to its plain version there
     for name, shapes in MAIN_SHAPES.items():
@@ -6380,19 +6612,18 @@ def phase_times(device, report):
     for shape in POOL_SHAPES:
         for route, ms in pool_shape_ms(device, shape).items():
             times[("fused_mcmc_pool", shape, route)] = ms
-    for shape in POOL_SWEEP:
-        ms = pool_shape_ms(device, shape, plain=False)
-        times.update({("fused_mcmc_pool", shape, v): t for v, t in ms.items()})
-        print("  pool C=%5d D=%d Kt=2 %d steps: thread %.4f ms, warp %.4f ms, elected %s"
-              % (shape[0], shape[2], shape[3], ms["thread"], ms["warp"],
-                 _build.pool_variant(shape[0], shape[2])))
+    part("main shapes and pools")
     for name, (ms, plain_ms) in wide_shape_ms(device).items():
         times[(name, WIDE_SHAPE, "cuda")], times[(name, WIDE_SHAPE, "plain")] = ms, plain_ms
     torch.cuda.empty_cache()
+    part("wide shape")
+    # past D = 64 every TILED_TIMED kernel held to float64; fused_logq's and
+    # fused_rho's kernels timed (the others' A/Bs: --tiled-times)
     for shape in TILED_SHAPES:
-        for (name, route), ms in tiled_shape_ms(device, shape).items():
+        for (name, route), ms in tiled_shape_ms(device, shape, TILED_DEFAULT).items():
             times[(name, shape, route)] = ms
         torch.cuda.empty_cache()
+    part("tiled shapes")
     pair("fused_propose_logq", lambda i, n: k.fused_propose_logq((i, 1), ops, n, tops),
          lambda i, n: k.plain_propose_logq((i, 1), ops, n, tops),
          (N_PLAIN_MAX, N_SLICE, N_BENCH))
@@ -6412,10 +6643,13 @@ def phase_times(device, report):
                                      times[(name, n, "cuda")], times[(name, n, "table")],
                                      bound(name, (10, 2, 10, n))[1]))
     torch.cuda.empty_cache()
-    # rows 7-9 past D = 16: the Gram pass beside the entry table
+    part("flagship draws and step")
+    # rows 7-9 past D = 16: the Gram pass held to float64 (its times beside
+    # the entry table's: --gram-times)
     for shape in GRAM_TIME_SHAPES:
-        times.update(table_shape_ms(device, shape))
+        times.update(table_shape_ms(device, shape, timed=False))
         torch.cuda.empty_cache()
+    part("gram shapes (checks)")
 
     # the transforms on the flagship proposal: normals, components and
     # Student-t scales as propose_T draws them
@@ -6450,6 +6684,7 @@ def phase_times(device, report):
                  bound(name, (10, 2, 10, N_PLAIN_MAX))[1]))
     del zT, latent, scale
     torch.cuda.empty_cache()
+    part("transforms")
 
     # the pool at benchmarks/mcmc_chains.py's fused configuration, one cycle
     ptarget, starts, sigma0, _ = mcmc_problem(device)
@@ -6488,6 +6723,7 @@ def phase_times(device, report):
          (N_PLAIN_MAX, N_SLICE))
     del sops, stops
     torch.cuda.empty_cache()
+    part("pool and K-blocked kernels")
     for K in SOLVE_DOFS_K:
         c, old = dof_problem(K, K, device, torch.float32)
         for variant, route in (("warp", "cuda"), ("serial", "serial")):
@@ -6506,8 +6742,10 @@ def phase_times(device, report):
             times[("solve_dofs", n, route)] = list(split.values())[0]
             continue
         times[(name, n, "split")] = split
+    part("solve_dofs and launch splits")
     times.update(draw_times(device))
     times.update(fused_draw_times(device))
+    part("draws")
     for (name, n, route), ms in times.items():
         if route != "split":
             size = (bound(name, n)[0] if isinstance(n, tuple)
@@ -6991,6 +7229,22 @@ def pool_shape_ms(device, shape, plain=True):
     return out
 
 
+def pool_sweep_ms(device):
+    """``{(shape, variant): ms}``: both pool variants at POOL_SWEEP
+    (chip_smoke.py --pool-sweep; the grid that placed the cut-offs is
+    pool_sweep.py's)."""
+    from pypmc_tpu_torch.ops import _build
+
+    out = {}
+    for shape in POOL_SWEEP:
+        ms = pool_shape_ms(device, shape, plain=False)
+        out.update({(shape, v): t for v, t in ms.items()})
+        print("  pool C=%5d D=%d Kt=2 %d steps: thread %.4f ms, warp %.4f ms, elected %s"
+              % (shape[0], shape[2], shape[3], ms["thread"], ms["warp"],
+                 _build.pool_variant(shape[0], shape[2])))
+    return out
+
+
 def wide_shape_ms(device):
     """``{kernel: (ms, plain ms)}`` of the six kernels past D=128 (all on the
     tiled engine) at WIDE_SHAPE (K=1, D=200, N=2^16; a 1-component target), CUDA events,
@@ -7035,6 +7289,8 @@ def wide_shape_ms(device):
 TILED_SHAPES = [(K, 0, D, 1 << 16) for K, D in ((1, 65), (60, 65), (1, 96), (41, 96), (1, 128),
                                                (30, 128), (1, 200), (19, 200), (4, 200))]
 TILED_TIMED = ("fused_maha", "fused_logq", "fused_rho", "fused_transform")
+# the ones phase times times there (--tiled-times: all of TILED_TIMED)
+TILED_DEFAULT = ("fused_logq", "fused_rho")
 
 
 def tiled_inputs(device, shape):
@@ -7268,9 +7524,10 @@ def library_shape_ms(device, shape):
     return out
 
 
-def table_shape_ms(device, shape):
+def table_shape_ms(device, shape, timed=True):
     """``{(kernel, shape, route): ms}`` of fused_pmc_stats, fused_is_pmc_step
-    and fused_vb_estep at ``shape`` (K, Kt, D, N), a K-component Student-t
+    and fused_vb_estep at ``shape`` (K, Kt, D, N) ({} where not ``timed``:
+    the checks alone), a K-component Student-t
     proposal and a Kt-component Gaussian target near it (gram_mixtures;
     fused_vb_estep on the proposal's vb_operands, the same particles and
     weights): "cuda" the elected pass (the Gram pass past D = 16), "table"
@@ -7296,6 +7553,8 @@ def table_shape_ms(device, shape):
                           ref):
         compare("fused_vb_estep K=%d D=%d %s/N" % (K, D, name), g / N, r / N, "stats", [])
     del ref
+    if not timed:
+        return {}
     calls = {"fused_pmc_stats": (lambda i: k.fused_pmc_stats(xT, w, ops, True),
                                  lambda i: k.fused_pmc_stats(xT, w, ops, True, variant="table"),
                                  lambda i: k.plain_pmc_stats(xT, w, ops, True)),
@@ -7351,14 +7610,16 @@ def graph_ms(fn, reps=20, replays=3):
     return start.elapsed_time(stop) / (reps * replays)
 
 
-def tiled_shape_ms(device, shape):
+def tiled_shape_ms(device, shape, timed=TILED_TIMED):
     """``{(kernel, route): ms}`` at ``shape`` (K, Kt, D, N) for the wrappers
     of TILED_TIMED on tiled_inputs (fused_maha on the VB E-step's upper
-    operands), CUDA events, in turns (mma, tiled, looped, library, plain,
-    plain, library, looped, tiled, mma; each the mean of its two turns):
-    "mma", fused_maha's tensor-core kernel, its elected one, beside the tiled
-    kernel forced (and both kernels' and torch.bmm's device times in turns,
-    "<route>_device"); "tiled", the tiled kernel (fused_transform's pair
+    operands; each held to its float64 plain version, the wrappers not in
+    ``timed`` then left untimed), CUDA events, in turns (mma, tiled, looped,
+    library, plain, plain, library, looped, tiled, mma; each the mean of its
+    two turns): "mma", the evaluations' tensor-core kernel, the one fused_maha,
+    fused_logq and fused_rho elect, beside the tiled kernel forced (and both
+    kernels' and torch.bmm's device times in turns, "<route>_device");
+    "tiled", the tiled kernel (fused_transform's pair
     forced where its plan elects the looped kernel; each timed kernel held
     to the float64 plain version first); "cuda", the elected kernel's;
     "looped", fused_transform's looped kernel
@@ -7391,6 +7652,9 @@ def tiled_shape_ms(device, shape):
             "fused_transform": lambda: k.plain_transform(tr[0].double(), tr[1], tr[2].double(),
                                                          ops64)}
     out = {}
+    forced = {"fused_maha": lambda i: k.fused_maha(xT, a["A"], a["m"], variant="tiled"),
+              "fused_logq": lambda i: k.fused_logq(xT, ops, variant="tiled"),
+              "fused_rho": lambda i: k.fused_rho(xT, ops, variant="tiled")}
     for name in TILED_TIMED:
         elected = k._elect(name, K, D, None)
         call, plain = calls[name]
@@ -7399,18 +7663,18 @@ def tiled_shape_ms(device, shape):
             call = lambda i: k.fused_transform(*tr, ops, variant="tiled")
             kind = "log"
         else:
-            want = "mma" if name == "fused_maha" else "tiled"
-            require(elected == want, "%s %s: not the %s kernel" % (name, label, want))
+            require(elected == "mma", "%s %s: not the tensor-core kernel" % (name, label))
             kind = {"fused_maha": "maha", "fused_logq": "log", "fused_rho": "rho"}[name]
-        if name == "fused_maha":
             # the tensor-core kernel elected, the tiled kernel forced beside it
-            fns["mma"], call = call, lambda i: k.fused_maha(xT, a["A"], a["m"], variant="tiled")
+            fns["mma"], call = call, forced[name]
         for route, fn in list(fns.items()) + [("tiled", call)]:
             got = fn(0)
             compare("%s %s %s" % (name, route, label), got[0] if name == "fused_rho" else got,
                     refs[name](), kind, [])
             del got
         torch.cuda.empty_cache()
+        if name not in timed:
+            continue
         if name == "fused_transform":
             Lk = f["L"].contiguous()
             zb = torch.randn((K, D, N // K), device=device)
@@ -7431,7 +7695,7 @@ def tiled_shape_ms(device, shape):
         out.update({(name, route): sum(t) / 2 for route, t in ms.items()})
         out[(name, "cuda")] = out[(name, elected)]
         extra = ""
-        if name == "fused_maha":
+        if name != "fused_transform":
             # device times with no host gaps (graph_ms), in turns
             dev = {}
             for route in ("mma", "tiled", "library", "library", "tiled", "mma"):
@@ -7442,6 +7706,14 @@ def tiled_shape_ms(device, shape):
                          " / ".join("%.3f" % t for t in ms["mma"]), out[(name, "mma_device")],
                          out[(name, "tiled_device")], out[(name, "library_device")],
                          bound_tc(name, shape)[1], elected))
+            if name == "fused_rho":
+                # the tiled launches of fused_logq and fused_rho, forced, hold
+                # the same log q bit for bit, and so do the tensor-core ones
+                for route in ("mma", "tiled"):
+                    v = route
+                    require(bool(torch.equal(k.fused_rho(xT, ops, variant=v)[1],
+                                             k.fused_logq(xT, ops, variant=v))),
+                            "%s %s: fused_rho's log q is not fused_logq's" % (label, route))
         fns.clear()
         torch.cuda.empty_cache()
         if name == "fused_transform":
@@ -7852,29 +8124,37 @@ def bound(name, shape=None):
 
 
 def bound_tc(name, shape=None):
-    """fused_maha's tensor-core route's :func:`bound`: the larger of its
-    bytes over the memory rate and its TF32 operations over the dense TF32
-    rate, the three split products (hi hi, hi lo, lo hi) of 2 K D^2 N
-    each, at D: the zero products of D's padding to the mma depth of 8 are
-    a cost of the kernel, not work the function needs (K=32, D=40, 2^20:
-    322 GFLOP, 0.65 ms)."""
-    require(name == "fused_maha", "%s has no tensor-core route" % name)
+    """A tensor-core route's :func:`bound`: the larger of its bytes over the
+    memory rate and its TF32 operations over the dense TF32 rate, the three
+    split products (hi hi, hi lo, lo hi) of 2 K D^2 N each for fused_maha's
+    general A, of 2 K D (D + 1) / 2 N each for fused_logq's and fused_rho's
+    triangular U, at D: the zero products of D's padding to the mma depth
+    of 8 (and of the blocks on U's diagonal) are a cost of the kernel, not
+    work the function needs (fused_maha at K=32, D=40, 2^20: 322 GFLOP, 0.65
+    ms; fused_logq at K=19, D=200, 2^16: 150 GFLOP, 0.30 ms)."""
+    require(name in ("fused_maha", "fused_logq", "fused_rho"),
+            "%s has no tensor-core route" % name)
     shape_s, nbytes, _, _ = kernel_work(name, shape)
     K, _, D, N = shape or (10, 2, 10, N_PLAIN_MAX)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 3 * 2 * K * D * D * N / PEAK_TF32 * 1e3
+    pairs = D * D if name == "fused_maha" else D * (D + 1) // 2
+    t_ops = 3 * 2 * K * pairs * N / PEAK_TF32 * 1e3
     return shape_s, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def maha_bound(shape=None):
-    """fused_maha's bound at ``shape`` for the kernel it elects there:
-    :func:`bound_tc` where that is the tensor-core kernel, else
-    :func:`bound`."""
+def eval_bound(name, shape=None):
+    """fused_maha's, fused_logq's or fused_rho's bound at ``shape`` for the
+    kernel it elects there: :func:`bound_tc` where that is a tensor-core
+    kernel, else :func:`bound`."""
     from pypmc_tpu_torch.ops import _build
 
     D = (shape or (10, 2, 10, N_PLAIN_MAX))[2]
-    return (bound_tc if _build.eval_variant("fused_maha", D) == "mma" else bound)("fused_maha",
-                                                                                  shape)
+    return (bound_tc if _build.eval_variant(name, D) == "mma" else bound)(name, shape)
+
+
+def maha_bound(shape=None):
+    """fused_maha's :func:`eval_bound`."""
+    return eval_bound("fused_maha", shape)
 
 
 def solve_dofs_entry(src, replaces, checks, counts, example_counts, times):
@@ -8004,10 +8284,13 @@ def gram_kernels(log):
 TILED_KERNELS = ("maha_tiled_kernel", "logq_tiled_kernel", "rho_tiled_kernel",
                  "transform_tiled_kernel", "bucket_count_kernel", "bucket_scatter_kernel",
                  "bucket_rank_kernel", "bucket_permute_kernel", "draw_tiled_kernel",
-                 "maha_mma_tiled_kernel", "maha_split_kernel")
+                 "maha_mma_tiled_kernel", "logq_mma_tiled_kernel", "rho_mma_tiled_kernel",
+                 "mma_split_kernel")
+# mma_split_kernel: <false> in maha.cu, <true> in logq.cu and in rho.cu
 TILED_INSTANTIATIONS = {"transform_tiled_kernel": 2, "bucket_count_kernel": 2,
                         "bucket_scatter_kernel": 2, "bucket_rank_kernel": 2,
-                        "bucket_permute_kernel": 3, "draw_tiled_kernel": 8}
+                        "bucket_permute_kernel": 3, "draw_tiled_kernel": 8,
+                        "mma_split_kernel": 3}
 
 
 def tiled_kernels(log):
@@ -8209,11 +8492,11 @@ def phase_build():
             require(plan[0] == "gram" and per_sm >= want,
                     "%s at K=%d, D=%d: the %s pass, %d blocks an SM (%d wanted)"
                     % (kernel, K, D, plan[0], per_sm, want))
-    # fused_logq's, fused_maha's and fused_rho's election past D = 64 and the
-    # tiled plan; fused_maha's tensor-core kernel from D = 9 to 64
-    # (csrc/mma.cuh kMahaMmaDMin) and its plan
+    # fused_logq's, fused_maha's and fused_rho's election past D = 64 (the
+    # tensor-core kernels) and the tiled plan; fused_maha's tensor-core
+    # kernel from D = 9 to 64 (csrc/mma.cuh kMahaMmaDMin) and its plan
     for D in range(1, 301):
-        require(("looped", "rec", "tiled")[lib.pmc_eval_variant(D)]
+        require(("looped", "rec", "tiled", "mma")[lib.pmc_eval_variant(D)]
                 == _build.eval_variant("fused_logq", D) == _build.eval_variant("fused_rho", D),
                 "the election differs from the kernel's (fused_logq, fused_rho, D=%d)" % D)
         require(("looped", "rec", "tiled", "mma")[lib.pmc_maha_variant(D)]
@@ -8270,7 +8553,9 @@ def phase_build():
                 ("fused_maha", _build.eval_variant("fused_maha", D), lib.pmc_maha_per_sm(K, D, -1)),
                 ("fused_maha", "tiled", lib.pmc_maha_per_sm(K, D, 2)),
                 ("fused_logq", _build.eval_variant("fused_logq", D), lib.pmc_logq_per_sm(K, D, -1)),
-                ("fused_rho", _build.eval_variant("fused_rho", D), lib.pmc_rho_per_sm(K, D, -1))):
+                ("fused_logq", "tiled", lib.pmc_logq_per_sm(K, D, 2)),
+                ("fused_rho", _build.eval_variant("fused_rho", D), lib.pmc_rho_per_sm(K, D, -1)),
+                ("fused_rho", "tiled", lib.pmc_rho_per_sm(K, D, 2))):
             threads = _build.eval_threads(D, variant)
             print("  %s K=%d D=%d: the %s kernel, %d blocks of %d threads an SM (%d warps), "
                   "%d B of shared memory a block"
@@ -8446,10 +8731,13 @@ def main():
         require(counts[kname] > 0, "%s was launched by no path" % kname)
     require(wide_counts["variant:fused_maha=mma"] > 0,
             "fused_maha's tensor-core kernel past D = 64 was launched by no path")
+    for kname in ("fused_logq", "fused_rho"):
+        require(wide_counts["variant:%s=mma" % kname] > 0,
+                "%s's tensor-core kernel past D = 64 was launched by no path" % kname)
 
     phase("times (%s)" % card)
     times = phase_times(device, report)
-    floors = fused_draw_floor(device)
+    floors = {}   # the SASS issue floors: --draw-floor
     phase("end")
 
     kernels = []
@@ -8507,6 +8795,8 @@ def main():
         shapes = MAIN_SHAPES.get(kname, []) + ([WIDE_SHAPE] if kname in _build.WIDE else [])
         shapes += TILED_SHAPES if kname in _build.TILED else []
         shapes += GRAM_TIME_SHAPES if kname in _build._DENSE else []
+        # the shapes this run timed (the A/Bs of earlier PRs behind flags)
+        shapes = [sh for sh in shapes if (kname, sh, "cuda") in times]
         extra = {"looped": "looped_ms", "tiled": "tiled_ms", "library": "library_ms",
                  "bucket": "bucket_device_ms", "product": "product_device_ms",
                  "table": "table_ms", "mma": "mma_ms", "rec": "rec_ms",
@@ -8530,13 +8820,22 @@ def main():
             # A, one launch before each): its launches on the wide paths,
             # which run fused_maha only past D = 64
             entry["mma_tiled_kernel"] = {
-                "name": "maha_mma_tiled_kernel, maha_split_kernel",
+                "name": "maha_mma_tiled_kernel, mma_split_kernel<false>",
                 "source": "pypmc_tpu_torch/csrc/mma_tiled.cuh",
                 "launches": sum(c["variant:fused_maha=mma"] for c in (wide_counts,
                                                                       wide_is_counts))}
+        if kname in ("fused_logq", "fused_rho"):
+            # past D = 64 the paneled tensor-core kernel on U's lower
+            # triangle (and its split of U, one launch before each): its
+            # launches on the main paths
+            entry["mma_tiled_kernel"] = {
+                "name": "%s_mma_tiled_kernel, mma_split_kernel<true>" % kname[len("fused_"):],
+                "source": "pypmc_tpu_torch/csrc/mma_tiled.cuh",
+                "launches": counts["variant:%s=mma" % kname]}
+        if kname in ("fused_maha", "fused_logq", "fused_rho"):
             for sh, row in zip(shapes, entry["shapes"]):
-                row.update(variant=_build.eval_variant(kname, sh[2]), bound_ms=maha_bound(sh)[1],
-                           bound_fp32_ms=bound(kname, sh)[1])
+                row.update(variant=_build.eval_variant(kname, sh[2]),
+                           bound_ms=eval_bound(kname, sh)[1], bound_fp32_ms=bound(kname, sh)[1])
         if kname in _build._DENSE:
             # past D = 16 the Gram pass: its launches on the main paths
             entry["launches_gram"] = counts["variant:%s=gram" % kname]
@@ -8559,9 +8858,10 @@ def main():
         if kname in DRAWN_TIMED:
             # past D = 64 the drawn product: the draw's issue floor at
             # WIDE_SHAPE beside its time there, and its launches
-            per_normal, floor = floors[("drawn", WIDE_SHAPE)]
-            entry["shapes"][-1].update(draw_issue_floor_ms=floor,
-                                       draw_sass_a_normal=per_normal)
+            if ("drawn", WIDE_SHAPE) in floors:
+                per_normal, floor = floors[("drawn", WIDE_SHAPE)]
+                entry["shapes"][-1].update(draw_issue_floor_ms=floor,
+                                           draw_sass_a_normal=per_normal)
             entry.update(tiled_d_min=_build.DRAW_TILED_D_MIN,
                          launches_tiled=counts["variant:%s=tiled" % kname])
         if kname in FIRST_LAUNCH:
@@ -8578,7 +8878,8 @@ def main():
                                      "plain_ms": times.get((kname, sh, "plain")),
                                      "elected": _build.pool_variant(sh[0], sh[2])},
                                     **{"ms_" + v: times[(kname, sh, v)] for v in POOL_VARIANTS})
-                               for sh in POOL_SHAPES + POOL_SWEEP]
+                               for sh in POOL_SHAPES + POOL_SWEEP
+                               if (kname, sh, "thread") in times]
         if not entry["shapes"]:
             del entry["shapes"]
         if issue_floors:
@@ -8692,6 +8993,21 @@ if __name__ == "__main__":
                                              in library_shape_ms(dev, sh).items()}
                  for sh in LIBRARY_SHAPES}), flush=True)
             sys.exit(0)
+        if sys.argv[1:2] == ["--library-times"]:
+            # phase build, then the library yardsticks at the shapes given
+            # as K,Kt,D,N
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            shapes = [tuple(int(v) for v in arg.split(",")) for arg in sys.argv[2:]]
+            print("LIBRARY_MS " + json.dumps(
+                {"%d,%d,%d" % (sh[0], sh[2], sh[3]): {"%s %s" % key: ms for key, ms
+                                                      in library_shape_ms(dev, sh).items()}
+                 for sh in shapes}), flush=True)
+            sys.exit(0)
         if sys.argv[1:2] == ["--gram-times"]:
             # phase build, then rows 7-9 at GRAM_TIME_SHAPES (the Gram pass,
             # the entry table, the plain version)
@@ -8727,7 +9043,8 @@ if __name__ == "__main__":
                 flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--tiled-times"]:
-            # phase build, then tiled_shape_ms at TILED_SHAPES
+            # phase build, then tiled_shape_ms at TILED_SHAPES, every
+            # TILED_TIMED kernel timed
             import torch
 
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -8778,6 +9095,80 @@ if __name__ == "__main__":
             print(card_line())
             phase_build()
             parent_draws(torch.device("cuda", 0), sys.argv[2])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--pool-sweep"]:
+            # both pool variants at POOL_SWEEP
+            import torch
+
+            print(card_line())
+            phase_build()
+            pool_sweep_ms(torch.device("cuda", 0))
+            sys.exit(0)
+        if sys.argv[1:2] == ["--draw-floor"]:
+            # the SASS issue floors of the record draws (FLOOR_KERNELS)
+            import torch
+
+            print(card_line())
+            phase_build()
+            fused_draw_floor(torch.device("cuda", 0))
+            sys.exit(0)
+        if sys.argv[1:2] == ["--moved-times"]:
+            # the timings phase times leaves to the flags, each part's seconds
+            import torch
+
+            torch.backends.cuda.matmul.allow_tf32 = False
+            print(card_line())
+            phase_build()
+            dev = torch.device("cuda", 0)
+            for title, fn in (
+                    ("pool sweep", lambda: pool_sweep_ms(dev)),
+                    ("gram shapes' times", lambda: [table_shape_ms(dev, sh)
+                                                    for sh in GRAM_TIME_SHAPES]),
+                    ("tiled shapes' fused_maha and fused_transform times",
+                     lambda: [tiled_shape_ms(dev, sh, ("fused_maha", "fused_transform"))
+                              for sh in TILED_SHAPES]),
+                    ("draw floor", lambda: fused_draw_floor(dev))):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.empty_cache()
+                print("MOVED %s: %.1f s" % (title, time.perf_counter() - t0), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--nonfinite"]:
+            # evaluation_nonfinite_case in the checkout at sys.argv[2] (an
+            # earlier commit, or "."), reporting rather than failing
+            sys.path.insert(0, sys.argv[2])
+            import torch
+
+            print(card_line())
+            bad = evaluation_nonfinite_case(torch.device("cuda", 0), [], strict=False)
+            print("NONFINITE " + json.dumps({"checkout": sys.argv[2], "mismatches": len(bad),
+                                             "outputs": sorted({b[0] for b in bad})}), flush=True)
+            sys.exit(0)
+        if sys.argv[1:2] == ["--tiled-outputs"]:
+            # the forced tiled kernels' outputs of the checkout at
+            # sys.argv[2], saved to sys.argv[3]
+            sys.path.insert(0, sys.argv[2])
+            import torch
+
+            torch.save(tiled_outputs(torch.device("cuda", 0)), sys.argv[3])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--parent-tiled"]:
+            # the forced tiled kernels against the checkout at sys.argv[2]'s
+            import torch
+
+            print(card_line())
+            phase_build()
+            parent_tiled(torch.device("cuda", 0), sys.argv[2])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--wide-times"]:
+            # the wide paths' device ms in the checkout at sys.argv[2]
+            sys.path.insert(0, sys.argv[2])
+            import torch
+
+            print(card_line())
+            print("WIDE_TIMES %s " % sys.argv[2] + json.dumps(
+                {key: ms for key, (ms, _) in wide_times(torch.device("cuda", 0)).items()}),
+                flush=True)
             sys.exit(0)
         if sys.argv[1:2] == ["--blocked-splits"]:
             print("BLOCKED_SPLITS " + json.dumps(blocked_splits()), flush=True)

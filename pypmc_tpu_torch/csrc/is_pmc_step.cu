@@ -35,8 +35,8 @@
 // for bit; the entry-table kernel's log p (mixture_logpdf) is the same
 // arithmetic, so its w is too; the Gram route's w is that launch's to D =
 // 64, where both take fused_propose_logq's record kernel (to D = 32 the
-// first launch's own draw, the same arithmetic), and past it the tiled
-// fused_logq's.
+// first launch's own draw, the same arithmetic), and past it fused_logq's
+// tensor-core kernel.
 #include "reg_stats.cuh"
 
 // fused_propose_logq's launcher (propose_logq.cu): the Gram route's draw
@@ -44,8 +44,8 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
-                                      float* log_p, int* scratch, long long N, int K, int Kt,
-                                      int D, int student_t, int t_student_t,
+                                      float* log_p, int* scratch, float* split, long long N,
+                                      int K, int Kt, int D, int student_t, int t_student_t,
                                       int variant, int n_blocks, int eval_blocks,
                                       void* stream);
 
@@ -104,14 +104,15 @@ is_pmc_step_kernel(const Seed seed, const float* __restrict__ mix_src,
 // kernel (Seed); variant: -1 the plan's kernel, 0 the entry-table kernel, 1
 // the register kernel, 2 the Gram route (an error where the plan takes
 // neither it nor the entry table); log_q, log_p: the Gram route's (N,)
-// scratch (else null); draw_blocks, eval_blocks: its draw's grids, as
-// pmc_fused_propose_logq's n_blocks and eval_blocks; n_blocks: the
+// scratch (else null); split: its draw's evaluation scratch past D = 64, as
+// pmc_fused_propose_logq's (else null); draw_blocks, eval_blocks: its draw's
+// grids, as pmc_fused_propose_logq's n_blocks and eval_blocks; n_blocks: the
 // statistics pass's
 extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
                                      const long long* seed_words,
                                      const float* mix, const float* tmix,
                                      float* xT, int* latent, float* w,
-                                     float* log_q, float* log_p,
+                                     float* log_q, float* log_p, float* split,
                                      double* partial, float* stats, long long N,
                                      int K, int Kt, int D, int student_t,
                                      int t_student_t, int dof_stats, int variant,
@@ -126,8 +127,8 @@ extern "C" int pmc_fused_is_pmc_step(unsigned int s0, unsigned int s1,
   if (pass == kPassGram) {
     if (log_q == nullptr || log_p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int err = pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q,
-                                           log_p, nullptr, N, K, Kt, D, student_t, t_student_t,
-                                           -1, draw_blocks, eval_blocks, stream);
+                                           log_p, nullptr, split, N, K, Kt, D, student_t,
+                                           t_student_t, -1, draw_blocks, eval_blocks, stream);
     if (err != 0) return err;
     return launch_gram<kDenseStep>(xT, w, log_q, log_p, mix, partial, stats, N, K, D,
                                    student_t, dof_stats, n_blocks, s);

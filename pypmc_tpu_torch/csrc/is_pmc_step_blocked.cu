@@ -39,8 +39,8 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
-                                      float* log_p, int* scratch, long long N, int K, int Kt,
-                                      int D, int student_t, int t_student_t,
+                                      float* log_p, int* scratch, float* split, long long N,
+                                      int K, int Kt, int D, int student_t, int t_student_t,
                                       int variant, int n_blocks, int eval_blocks,
                                       void* stream);
 
@@ -128,7 +128,7 @@ static int launch_step_draw(unsigned int s0, unsigned int s1, const long long* s
   // sizing its grid
   if (smem == 0)
     return pmc_fused_propose_logq(s0, s1, seed_words, mix, tmix, xT, latent, log_q, log_p,
-                                  nullptr, N, K, Kt, D, student_t, t_student_t,
+                                  nullptr, nullptr, N, K, Kt, D, student_t, t_student_t,
                                   D > kRecDMax ? 0 : -1, 0, 0, stream);
   dispatch_step_draw(D, smem, [&](auto kernel) {
     int per_sm = 0;

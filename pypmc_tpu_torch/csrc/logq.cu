@@ -8,7 +8,9 @@
 // about 560 FMAs for 44 bytes, ~13 FMAs a byte against the card's FP32
 // balance of ~10 (33.5 T FMA/s over 3.35 TB/s, published peaks): FMA-bound,
 // with memory close behind; at K = 32, D = 40 ~26,000 FMAs a particle.
-// No tensor cores: the products are one particle's, in FP32.
+// To D = 64 no tensor cores: the products are one particle's, in FP32.
+// Past D = 64, 3 x 2 K D (D + 1) / 2 N TF32 operations at 495 TFLOP/s: at
+// K = 19, D = 200, 2^16 0.30 ms, where the FP32 bound is 0.76 ms.
 // Design, D <= 64 (logq_kernel): 256 threads a block, one particle a
 // thread, its coordinates and x - mu in registers (DMAX 8 to 64), the
 // components as 16-byte records (common.cuh rec_floats: U's rows padded to
@@ -21,13 +23,21 @@
 // cp.async while the other is read (K = 32, D = 40: 11 components a chunk,
 // 2 blocks an SM).  What holds it (measured on one H100): a broadcast
 // LDS.128 takes ~4 clocks of the SM's 128 B a clock of shared-memory data
-// path, so each U word read feeds one FMA, ~1/4 of the FP32 peak.  From D =
-// kTiledDMin (logq_tiled_kernel) the block-tiled product engine of tiled.cuh
-// on U: the panels above the diagonal are skipped, and each component's
-// squared distance goes through component_logpdf into a WeightedLse a
-// particle, k ascending as in the other kernels (a dead component, w_k = 0,
-// adds nothing), thread n % 128 holding particle n's; out[n] is written
-// once.
+// path, so each U word read feeds one FMA, ~1/4 of the FP32 peak.  A
+// squared distance that whiten_rec gives as not finite is recomputed from
+// device memory with every entry of U read (maha_fp32_body), so a particle
+// with an infinite coordinate gets the XLA path's -inf or NaN.
+// Design, D > 64 (logq_mma_tiled_kernel, after mma_split_kernel<true> has
+// split U's lower triangle into the wrapper's scratch): the paneled
+// tensor-core walk of mma_tiled.cuh, fused_maha's past D = 64 (three split
+// TF32 products, 128 particles x 128 rows a block), with the panels right
+// of a row tile's last row and each warp's blocks wholly above the diagonal
+// skipped; at a component's end thread p holds particle p's squared
+// distance (recomputed by maha_fp32 where it is not finite) and LogqEpi
+// (tiled.cuh) adds component_logpdf into its WeightedLse, k ascending as in
+// the other kernels (a dead component, w_k = 0, adds nothing); out[n] is
+// written once.  logq_tiled_kernel, the block-tiled FP32 engine of tiled.cuh
+// with the same epilogue, is forced only (variant "tiled").
 #include "tiled.cuh"
 
 namespace pmc {
@@ -72,6 +82,18 @@ logq_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
                    });
 }
 
+// split: the split U of mix (mma_split_kernel<true>); one block an SM
+__global__ void __launch_bounds__(kMtThreads, 1)
+logq_mma_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
+                      const float4* __restrict__ split, float* __restrict__ out, long long N,
+                      int K, int D, int student_t) {
+  extern __shared__ float4 smem4[];
+  const MixLayout L{K, D};
+  LogqEpi epi{mix, out, N, K, D, student_t != 0};
+  mma_tiled_walk<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), split, N,
+                       K, D, epi);
+}
+
 // fused_logq's kernels for with_eval_variant
 struct LogqKernels {
   static constexpr bool maha = false;
@@ -89,16 +111,16 @@ extern "C" long long pmc_logq_smem_bytes(int K, int D) {
 
 // components a chunk of the elected kernel of fused_logq (kernel 0),
 // fused_maha (1) or fused_rho (2, whose records are fused_logq's): 1 where
-// it is the tiled one or fused_maha's tensor-core kernel past D = 64 (a
-// component at a time)
+// it is the tiled one or a tensor-core kernel past D = 64 (a component at a
+// time)
 extern "C" int pmc_eval_chunk(int K, int D, int kernel) {
   const int v = kernel == 1 ? pmc::maha_variant(D) : pmc::eval_variant(D);
   if (v == pmc::kEvalTiled || (v == pmc::kEvalMma && D > pmc::kRecDMax)) return 1;
   return v == pmc::kEvalMma ? pmc::mma_plan(K, D).kc : pmc::eval_plan(K, D, kernel == 1).kc;
 }
 
-// the kernel fused_logq and fused_rho elect at D (1 record, 2 tiled; checked
-// against ops/_build.py eval_variant; fused_maha's: pmc_maha_variant)
+// the kernel fused_logq and fused_rho elect at D (1 record, 3 tensor-core;
+// checked against ops/_build.py eval_variant; fused_maha's: pmc_maha_variant)
 extern "C" int pmc_eval_variant(int D) { return pmc::eval_variant(D); }
 
 // the tiled kernels' plan: out = {particles a tile, rows a row tile, depth
@@ -115,15 +137,26 @@ extern "C" long long pmc_tiled_plan(int* out) {
 // (registers, shared memory and threads), for the wrapper's grid; -1 on an
 // error
 extern "C" int pmc_logq_per_sm(int K, int D, int variant) {
-  return pmc::eval_variant_per_sm<pmc::LogqKernels>(K, D, variant);
+  using namespace pmc;
+  if (eval_mma_tiled(D, variant, false)) return mma_tiled_per_sm(logq_mma_tiled_kernel);
+  return eval_variant_per_sm<LogqKernels>(K, D, variant);
 }
 
-// variant: as pmc_fused_maha's
-extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out,
+// variant: as pmc_fused_maha's (the tensor-core kernel past D = 64 only);
+// scratch: mma_scratch_floats(K, D) floats, 16-byte aligned, where that is
+// the kernel (else unused), U split into it first (mma_split_kernel<true>)
+extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* scratch, float* out,
                               long long N, int K, int D, int student_t, int variant,
                               int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (eval_mma_tiled(D, variant, false))
+    return launch_mma_tiled<true>(logq_mma_tiled_kernel, mix + MixLayout{K, D}.U(), scratch, K, D,
+                                  n_blocks, s, [&](const float4* split) {
+                                    logq_mma_tiled_kernel<<<n_blocks, kMtThreads, kMmaTiledSmem,
+                                                            s>>>(xT, mix, split, out, N, K, D,
+                                                                 student_t);
+                                  });
   const int bad = with_eval_variant<LogqKernels>(K, D, variant, [&](auto kernel, int threads,
                                                                      size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, mix, out, N, K, D, student_t);

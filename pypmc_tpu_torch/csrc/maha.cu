@@ -17,8 +17,8 @@
 // three split TF32 products, 32 particles a warp (16 past D = 40), the
 // components split once as they are staged; elsewhere to D = 64 it is forced
 // (variant "mma"), as the record kernel is where it is not elected.
-// Design, D > 64 (maha_mma_tiled_kernel, after maha_split_kernel): the
-// paneled tensor-core product of mma_tiled.cuh, A split once a launch into
+// Design, D > 64 (maha_mma_tiled_kernel, after mma_split_kernel<false>):
+// the paneled tensor-core product of mma_tiled.cuh, A split once a launch into
 // the wrapper's scratch, 128 particles x 128 rows of A_k a block, 64 x 32 a
 // warp, 32-deep panels in a ring of three cp.async buffers; elected at every
 // D past 64, the tiled kernel below forcible (variant "tiled").
@@ -42,8 +42,6 @@
 // product engine of tiled.cuh: A is read whole, a tile of 128 particles
 // shares every panel of A_k that a block stages, and each (k, n) result is
 // written once, coalesced.
-#include <algorithm>
-
 #include "tiled.cuh"
 
 namespace pmc {
@@ -82,13 +80,7 @@ maha_mma_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
                out, N, K, D);
 }
 
-// A split into its hi and lo TF32 words (mma_tiled.cuh mma_split_operand)
-__global__ void __launch_bounds__(kMtSplitThreads)
-maha_split_kernel(const float* __restrict__ A, float4* __restrict__ split, int K, int D) {
-  mma_split_operand(A, split, K, D);
-}
-
-// split: maha_split_kernel's output for ops' A; one block an SM
+// split: mma_split_kernel<false>'s output for ops' A; one block an SM
 __global__ void __launch_bounds__(kMtThreads, 1)
 maha_mma_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ ops,
                       const float4* __restrict__ split, float* __restrict__ out, long long N,
@@ -96,12 +88,6 @@ maha_mma_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ op
   extern __shared__ float4 smem4[];
   const float* m = ops + static_cast<long long>(K) * D * D;
   mma_tiled_maha(reinterpret_cast<float*>(smem4), xT, ops, m, split, out, N, K, D);
-}
-
-// whether variant (-1 the elected one) at D is the tensor-core kernel past
-// D = 64, launched with the split operand
-inline bool maha_mma_tiled(int D, int variant) {
-  return D > kRecDMax && (variant >= 0 ? variant : maha_variant(D)) == kEvalMma;
 }
 
 __global__ void __launch_bounds__(kTileThreads, 2)
@@ -137,15 +123,9 @@ extern "C" long long pmc_maha_smem_bytes(int K, int D) {
 // error
 extern "C" int pmc_maha_per_sm(int K, int D, int variant) {
   using namespace pmc;
-  if (maha_mma_tiled(D, variant)) {
+  if (eval_mma_tiled(D, variant, true)) {
     if (!eval_has_variant(D, kEvalMma, true)) return -1;
-    int n = 0;
-    if (cudaFuncSetAttribute(maha_mma_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kMmaTiledSmem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, maha_mma_tiled_kernel, kMtThreads,
-                                                      kMmaTiledSmem) != cudaSuccess)
-      return -1;
-    return n;
+    return mma_tiled_per_sm(maha_mma_tiled_kernel);
   }
   return eval_variant_per_sm<MahaKernels>(K, D, variant);
 }
@@ -192,24 +172,12 @@ extern "C" int pmc_fused_maha(const float* xT, const float* ops, float* scratch,
                               void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (maha_mma_tiled(D, variant)) {
-    if (!eval_has_variant(D, kEvalMma, true) || scratch == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = cudaFuncSetAttribute(
-        maha_mma_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMmaTiledSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    float4* split = reinterpret_cast<float4*>(scratch);
-    const long long words = mma_scratch_floats(K, D) / 4;
-    const int split_blocks =
-        static_cast<int>(std::min<long long>((words + kMtSplitThreads - 1) / kMtSplitThreads, 4096));
-    maha_split_kernel<<<split_blocks, kMtSplitThreads, 0, s>>>(ops, split, K, D);
-    const cudaError_t split_err = cudaGetLastError();
-    if (split_err != cudaSuccess) return static_cast<int>(split_err);
-    maha_mma_tiled_kernel<<<n_blocks, kMtThreads, kMmaTiledSmem, s>>>(xT, ops, split, out, N, K,
-                                                                       D);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (eval_mma_tiled(D, variant, true))
+    return launch_mma_tiled<false>(maha_mma_tiled_kernel, ops, scratch, K, D, n_blocks, s,
+                                   [&](const float4* split) {
+                                     maha_mma_tiled_kernel<<<n_blocks, kMtThreads, kMmaTiledSmem,
+                                                             s>>>(xT, ops, split, out, N, K, D);
+                                   });
   const int bad = with_eval_variant<MahaKernels>(K, D, variant, [&](auto kernel, int threads,
                                                                      size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, ops, out, N, K, D);

@@ -1,9 +1,14 @@
 // The tensor-core product of fused_maha past D = 64 (maha.cu
-// maha_mma_tiled_kernel, after maha_split_kernel): out[k, n] = |A_k (x_n -
+// maha_mma_tiled_kernel, after mma_split_kernel<false>): out[k, n] = |A_k (x_n -
 // m_k)|^2 for general (D, D) matrices A_k, lower, upper or full, by mma.sync
 // in three split TF32 products (3xTF32), as mma.cuh's kernel computes it to
-// D = 64.  ops/_build.py mma_tiled_plan and mma_scratch_floats mirror the
-// constants.
+// D = 64.  The same walk with TRI on a lower-triangular U_k and an
+// epilogue of the caller's is fused_logq's and fused_rho's past D = 64
+// (logq.cu logq_mma_tiled_kernel, rho.cu rho_mma_tiled_kernel, after
+// mma_split_kernel<true>), which replace logq_tiled_kernel and
+// rho_tiled_kernel for the Pallas kernels pallas_kernels.py:788 and :826.
+// ops/_build.py mma_tiled_plan, mma_tile_panels and mma_scratch_floats
+// mirror the constants.
 //
 // Replaces, where it is elected (from D = 65 to kWideDMax: csrc/tiled.cuh
 // maha_variant), maha_tiled_kernel (the FP32 block-tiled kernel of
@@ -23,7 +28,7 @@
 // copies, barriers and epilogue (~0.7 ms of 2.28 at K = 19, D = 200) overlap
 // it only in part; wgmma with TMA is the next step.
 //
-// Design.  maha_split_kernel first writes every A_k once a launch, split,
+// Design.  mma_split_kernel first writes every A_k once a launch, split,
 // into a scratch the wrapper allocates (mma_scratch_floats: 8 K Dp Dd
 // bytes, Dp = D padded to 8, Dd to a panel), in mma.cuh's B-fragment order:
 // row i as float4s {hi A[i][8s + t], hi A[i][8s + t + 4], lo A[i][8s + t],
@@ -63,7 +68,14 @@
 // particles' sums into registers; at the component's end each warp writes
 // its 64 partials to shared memory and thread p sums particle p's four row
 // groups in order: no atomics, a fixed order, one input gives one output,
-// and each store of a component's 128 particles is coalesced.  Padding is
+// and each store of a component's 128 particles is coalesced (fused_logq's
+// and fused_rho's epilogue, tiled.cuh LogqEpi and RhoEpi, takes the value
+// there instead of the store).  With TRI the steps' blocks above the
+// diagonal, whose split words are 0 (mma_split_operand<true>), are skipped:
+// the panels right of a row tile's last row below D, and within a panel a
+// warp's depth step that starts past its 32 rows and each (n-tile, depth
+// step) whose first column is past the n-tile's last row, ~half the mma of
+// a general A at D = 200.  Padding is
 // exact zeros (A past D in the scratch, m and x past D, x past N).  A value
 // that is not finite is recomputed in the record kernel's FP32 arithmetic
 // from device memory (mma.cuh maha_fp32), which gives the record kernel's
@@ -109,7 +121,7 @@ constexpr int kMtStageFloats = kMtAFloats + kMtXFloats + kMtK;   // A, X and m p
 constexpr int kMtRedFloats = 4 * kMtP;   // the four row groups' partials of a component
 // shared memory of a block: kMtStages step buffers, the partials
 constexpr size_t kMmaTiledSmem = sizeof(float) * (kMtStages * kMtStageFloats + kMtRedFloats);
-constexpr int kMtSplitThreads = 256;     // maha_split_kernel's block
+constexpr int kMtSplitThreads = 256;     // mma_split_kernel's block
 
 static_assert(kMtWarps % 4 == 0 && kMtM == 4 * 32 && kMtMT % 2 == 0 && kMtMT * 16 * kMtWP == kMtP,
               "warps of 16 kMtMT particles x 32 rows");
@@ -122,7 +134,7 @@ static_assert(kMmaTiledSmem <= kSmemLimit, "one block an SM");
 // D padded to a panel: the depth of a split row
 __host__ __device__ constexpr int mma_tiled_depth(int D) { return (D + kMtK - 1) / kMtK * kMtK; }
 
-// floats of maha_split_kernel's output: K components of mma_dpad(D) rows of
+// floats of mma_split_kernel's output: K components of mma_dpad(D) rows of
 // mma_tiled_depth(D) hi and lo words (ops/_build.py mma_scratch_floats)
 __host__ __device__ inline long long mma_scratch_floats(int K, int D) {
   return 2LL * K * mma_dpad(D) * mma_tiled_depth(D);
@@ -136,9 +148,12 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
                ::"r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-// maha_split_kernel's body: A (K, D, D) split into ``split`` (K, Dp, Dd / 2)
+// mma_split_kernel's body: A (K, D, D) split into ``split`` (K, Dp, Dd / 2)
 // float4s, float4 (k, i, 4 s + t) = {hi A[i][j], hi A[i][j + 4], lo A[i][j],
-// lo A[i][j + 4]}, j = 8 s + t; 0 past D.  Grid-stride.
+// lo A[i][j + 4]}, j = 8 s + t; 0 past D and, TRI (a lower-triangular U, of
+// which only the lower triangle is read, as the record and tiled kernels
+// read it), above the diagonal.  Grid-stride.
+template <bool TRI>
 __device__ __forceinline__ void mma_split_operand(const float* A, float4* split, int K, int D) {
   const int Dp = mma_dpad(D), H = mma_tiled_depth(D) / 2;
   const long long total = static_cast<long long>(K) * Dp * H;
@@ -150,8 +165,8 @@ __device__ __forceinline__ void mma_split_operand(const float* A, float4* split,
     float v0 = 0.0f, v1 = 0.0f;
     if (i < D) {
       const float* row = A + (r / Dp * D + i) * D;
-      if (j < D) v0 = row[j];
-      if (j + 4 < D) v1 = row[j + 4];
+      if (j < D && (!TRI || j <= i)) v0 = row[j];
+      if (j + 4 < D && (!TRI || j + 4 <= i)) v1 = row[j + 4];
     }
     uint32_t h0, l0, h1, l1;
     tf32_split(v0, h0, l0);
@@ -161,14 +176,39 @@ __device__ __forceinline__ void mma_split_operand(const float* A, float4* split,
   }
 }
 
-// fused_maha's tensor-core loop past D = 64 (maha_mma_tiled_kernel): xT (D,
-// N), A (K, D, D), m (K, D), split: maha_split_kernel's output for A;
-// smem: kMmaTiledSmem bytes, 16-byte aligned.
-__device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, const float* A,
-                                               const float* m, const float4* split, float* out,
-                                               long long N, int K, int D) {
+// A split once a launch (tiled.cuh launch_mma_tiled): TRI, U of the packed
+// mix (logq.cu, rho.cu); else fused_maha's general A (maha.cu)
+template <bool TRI>
+__global__ void __launch_bounds__(kMtSplitThreads)
+mma_split_kernel(const float* __restrict__ A, float4* __restrict__ split, int K, int D) {
+  mma_split_operand<TRI>(A, split, K, D);
+}
+
+// the depth panels of row tile rt: every panel of a general A; of a
+// lower-triangular U (TRI) those at or left of the row tile's last row
+// below D, as tiled.cuh tile_panels
+__device__ __forceinline__ int mma_tile_panels(int rt, int D, bool tri) {
+  if (!tri) return mma_tiled_depth(D) / kMtK;
+  return (min(D, (rt + 1) * kMtM) - 1) / kMtK + 1;
+}
+
+// The tensor-core walk past D = 64 (maha_mma_tiled_kernel, and with TRI
+// logq_mma_tiled_kernel and rho_mma_tiled_kernel): for every particle n of
+// its tiles and every component k, ascending, hands |A_k (x_n - m_k)|^2 to
+// epi(k, n, value) on thread n % kMtP (threads 0 .. kMtP - 1; n may be past
+// N, and then epi must not write), a value that is not finite recomputed by
+// maha_fp32 on A_k whole first.  xT (D, N), A (K, D, D) (TRI: lower
+// triangular U), m (K, D), split: the split of A (mma_split_kernel<TRI>);
+// TRI skips the panels right of a row tile's last
+// row and, within a panel, each warp's (n-tile, depth step) blocks that lie
+// wholly above the diagonal, whose split words are 0.  smem: kMmaTiledSmem
+// bytes, 16-byte aligned.
+template <bool TRI, typename Epi>
+__device__ __forceinline__ void mma_tiled_walk(float* smem, const float* xT, const float* A,
+                                               const float* m, const float4* split,
+                                               long long N, int K, int D, Epi& epi) {
   const int Dp = mma_dpad(D), H = mma_tiled_depth(D) / 2;
-  const int n_rows = (Dp + kMtM - 1) / kMtM, n_panels = mma_tiled_depth(D) / kMtK;
+  const int n_rows = (Dp + kMtM - 1) / kMtM;
   const long long n_tiles = (N + kMtP - 1) / kMtP;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
   // the warp's row group and particle half: warp w runs on SM sub-partition
@@ -185,7 +225,7 @@ __device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, con
   };
   // the block's next step after s; false past its last
   const auto advance = [&](Step& s) {
-    if (++s.p < n_panels) return true;
+    if (++s.p < mma_tile_panels(s.rt, D, TRI)) return true;
     s.p = 0;
     if (++s.rt < n_rows) return true;
     s.rt = 0;
@@ -262,7 +302,8 @@ __device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, con
     const float* M = buf + kMtAFloats + kMtXFloats + t;
 #pragma unroll
     for (int st = 0; st < kMtK / 8; ++st) {
-      if (s.p * kMtK + 8 * st >= Dp) break;
+      const int j0 = s.p * kMtK + 8 * st;   // the step's first column
+      if (j0 >= Dp || (TRI && j0 >= row0 + 32)) break;
       const float m0 = M[8 * st], m1 = M[8 * st + 4];
       uint32_t ah[kMtMT][4], al[kMtMT][4];
 #pragma unroll
@@ -282,7 +323,7 @@ __device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, con
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        if (maha_on(kMahaOffMma) && row0 + 8 * nt < Dp) {
+        if (maha_on(kMahaOffMma) && row0 + 8 * nt < Dp && (!TRI || j0 < row0 + 8 * nt + 8)) {
           const float4 bv = B[nt * 8 * kMtARow4 + 4 * st];
           const uint32_t bh0 = __float_as_uint(bv.x), bh1 = __float_as_uint(bv.y);
           const uint32_t bl0 = __float_as_uint(bv.z), bl1 = __float_as_uint(bv.w);
@@ -340,12 +381,9 @@ __device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, con
     if (threadIdx.x < kMtP) {
       const int pc = threadIdx.x;
       float value = ((red[pc] + red[kMtP + pc]) + red[2 * kMtP + pc]) + red[3 * kMtP + pc];
-      const long long n = s.tile * kMtP + pc;
-      if (n < N) {
-        const long long k = s.k;
-        if (!isfinite(value)) value = maha_fp32(A + k * D * D, m + k * D, xT, N, D, n);
-        out[k * N + n] = value;
-      }
+      const long long n = s.tile * kMtP + pc, k = s.k;
+      if (n < N && !isfinite(value)) value = maha_fp32(A + k * D * D, m + k * D, xT, N, D, n);
+      epi(s.k, n, value);
     }
     // the partials are written again only after a later step's barrier
   };
@@ -376,13 +414,32 @@ __device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, con
     }
     cp_async_commit();
     compute(b, cur);
-    if (cur.p + 1 == n_panels) {
+    if (cur.p + 1 == mma_tile_panels(cur.rt, D, TRI)) {
       row_end();
       if (cur.rt + 1 == n_rows) k_end(cur);
     }
     if (!advance(cur)) break;
   }
   cp_async_wait<0>();
+}
+
+// fused_maha's epilogue: out[k, n]
+struct MahaStore {
+  float* out;
+  long long N;
+  __device__ void operator()(int k, long long n, float value) const {
+    if (n < N) out[k * N + n] = value;
+  }
+};
+
+// fused_maha's tensor-core loop past D = 64 (maha_mma_tiled_kernel): xT (D,
+// N), A (K, D, D), m (K, D), split: mma_split_kernel<false>'s output for A;
+// smem: kMmaTiledSmem bytes, 16-byte aligned.
+__device__ __forceinline__ void mma_tiled_maha(float* smem, const float* xT, const float* A,
+                                               const float* m, const float4* split, float* out,
+                                               long long N, int K, int D) {
+  MahaStore store{out, N};
+  mma_tiled_walk<false>(smem, xT, A, m, split, N, K, D, store);
 }
 
 }  // namespace pmc

@@ -21,20 +21,21 @@
 // and far from the bytes.
 #include "blocked.cuh"
 
-extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out,
+extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* scratch, float* out,
                               long long N, int K, int D, int student_t, int variant,
                               int n_blocks, void* stream);
 
 // mix: the packed evaluation operands (log q); chunks: the chunk-major
-// operands of blocked.cuh; log_q (N,) scratch; partial (n_blocks, S)
-// float64 scratch; stats (S,) float32 output
+// operands of blocked.cuh; log_q (N,) scratch; split: fused_logq's scratch
+// past D = 64 (pmc_fused_logq's; else null); partial (n_blocks, S) float64
+// scratch; stats (S,) float32 output
 extern "C" int pmc_fused_pmc_stats_blocked(
     const float* xT, const float* w, const float* mix, const float* chunks,
-    float* log_q, double* partial, float* stats, long long N, int K, int D,
+    float* log_q, float* split, double* partial, float* stats, long long N, int K, int D,
     int kc, int student_t, int dof_stats, int n_eval_blocks, int n_blocks,
     void* stream) {
   using namespace pmc;
-  int err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, -1, n_eval_blocks, stream);
+  int err = pmc_fused_logq(xT, mix, split, log_q, N, K, D, student_t, -1, n_eval_blocks, stream);
   if (err != 0) return err;
   return launch_blocked_stats<kBlockedPmc, float>(
       xT, const_cast<float*>(w), log_q, nullptr, chunks, partial, stats, N, K, D,

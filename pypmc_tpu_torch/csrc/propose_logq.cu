@@ -42,16 +42,19 @@
 // (DrawnLatents; none at K = 1), the drawn tiled product (draw_tiled_kernel<1>:
 // the normals from word 1 on drawn in shared memory, the Student-t scale
 // after them, x written and each particle's component with it), then
-// fused_logq's tiled kernel on the x just written for log q and, with a
-// target, for log p (pmc_fused_logq, so both are fused_logq's bit for
-// bit).  x and latent are the looped kernel's bit for bit.  Re-reading x
-// costs 4 D bytes a particle an evaluation (52 MB, ~0.016 ms at D = 200,
-// 2^16), beside the product's and the evaluations' FP32 work.
+// fused_logq's elected kernel on the x just written for log q and, with a
+// target, for log p (pmc_fused_logq: past D = 64 the split of U and the
+// tensor-core kernel, each evaluation's in turn in one scratch; so both are
+// fused_logq's bit for bit).  x and latent are the looped kernel's bit for
+// bit.  Re-reading x costs 4 D bytes a particle an evaluation (52 MB,
+// ~0.016 ms at D = 200, 2^16), beside the product's and the evaluations'
+// work.
 #include "tiled.cuh"
 
 // fused_logq's launcher (logq.cu): the evaluations of the tiled route
-extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* out, long long N, int K,
-                              int D, int student_t, int variant, int n_blocks, void* stream);
+extern "C" int pmc_fused_logq(const float* xT, const float* mix, float* scratch, float* out,
+                              long long N, int K, int D, int student_t, int variant,
+                              int n_blocks, void* stream);
 
 namespace pmc {
 
@@ -183,20 +186,21 @@ struct ProposeRecKernels {
 };
 
 // The tiled route on stream s: the bucket pass on the drawn components
-// (K > 1), the drawn product (n_blocks blocks), then fused_logq's tiled
-// kernel for log q and, with a target, log p (eval_blocks blocks each).
+// (K > 1), the drawn product (n_blocks blocks), then fused_logq's elected
+// kernel for log q and, with a target, log p (eval_blocks blocks each;
+// split: its scratch, mma_scratch_floats(max(K, Kt), D) floats).
 int launch_propose_tiled(const Seed& seed, const float* mix, const float* tmix, float* xT,
-                         int* latent, float* log_q, float* log_p, int* scratch, long long N,
-                         int K, int Kt, int D, int student_t, int t_student_t, int n_blocks,
-                         int eval_blocks, cudaStream_t s) {
+                         int* latent, float* log_q, float* log_p, int* scratch, float* split,
+                         long long N, int K, int Kt, int D, int student_t, int t_student_t,
+                         int n_blocks, int eval_blocks, cudaStream_t s) {
   const MixLayout L{K, D};
   int err = launch_draw_tiled<1>(seed, DrawnLatents{seed, mix + L.cumw(), K}, latent,
                                  mix + L.mu(), mix + L.L(), mix + L.dof(), scratch, xT, latent, N,
                                  K, D, student_t, n_blocks, s);
   if (err != 0 || N == 0) return err;
-  err = pmc_fused_logq(xT, mix, log_q, N, K, D, student_t, kEvalTiled, eval_blocks, s);
+  err = pmc_fused_logq(xT, mix, split, log_q, N, K, D, student_t, -1, eval_blocks, s);
   if (err != 0 || log_p == nullptr) return err;
-  return pmc_fused_logq(xT, tmix, log_p, N, Kt, D, t_student_t, kEvalTiled, eval_blocks, s);
+  return pmc_fused_logq(xT, tmix, split, log_p, N, Kt, D, t_student_t, -1, eval_blocks, s);
 }
 
 }  // namespace pmc
@@ -216,6 +220,9 @@ extern "C" int pmc_propose_per_sm(int K, int Kt, int D) {
 // seed_words: null (the words s0, s1) or two int64 on the card, read in the
 // kernel (Seed); tmix/log_p are null without a target; scratch: the tiled
 // route's PairLayout(N, K, D).words int32 at K > 1 (else may be null);
+// split: the tiled route's evaluations' scratch past D = 64
+// (mma_scratch_floats(max(K, Kt), D) floats, 16-byte aligned; else may be
+// null);
 // variant: -1 the plan's kernel, 0 the looped kernel (D <= 128), 1 the
 // record kernel (an error where the plan does not take it), 2 the tiled
 // route (any D to kWideDMax); n_blocks <= 0: one wave of the record or
@@ -226,8 +233,8 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
                                       const long long* seed_words,
                                       const float* mix, const float* tmix,
                                       float* xT, int* latent, float* log_q,
-                                      float* log_p, int* scratch, long long N, int K, int Kt,
-                                      int D, int student_t, int t_student_t,
+                                      float* log_p, int* scratch, float* split, long long N,
+                                      int K, int Kt, int D, int student_t, int t_student_t,
                                       int variant, int n_blocks, int eval_blocks,
                                       void* stream) {
   using namespace pmc;
@@ -255,8 +262,8 @@ extern "C" int pmc_fused_propose_logq(unsigned int s0, unsigned int s1,
   }
   if (variant == 2 || (variant < 0 && plan.variant == kDrawTiled)) {
     if (eval_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_propose_tiled(seed, mix, tmix, xT, latent, log_q, log_p, scratch, N, K, Kt, D,
-                                student_t, t_student_t, n_blocks, eval_blocks, s);
+    return launch_propose_tiled(seed, mix, tmix, xT, latent, log_q, log_p, scratch, split, N, K,
+                                Kt, D, student_t, t_student_t, n_blocks, eval_blocks, s);
   }
   if (D > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = propose_plan(K, Kt, D, true).smem;

@@ -10,8 +10,9 @@
 // the K whitened evaluations of logq.cu (K D (D + 1) / 2 FMAs) -- at K = 32,
 // D = 40 ~26,000 FMAs a particle: FMA-bound, like logq.cu, with the (K, N)
 // responsibilities written and read back once (~0.08 ms at K = 32, N = 2^20
-// at the card's peak bandwidth) beside it.  At K = 1, D = 200, 2^16 the
-// bound is 0.040 ms of FP32 operations.
+// at the card's peak bandwidth) beside it.  Past D = 64 the products run on
+// the tensor cores: at K = 1, D = 200, 2^16 the bound is 0.016 ms of TF32
+// operations (3 x 2 K D (D + 1) / 2 N at 495 TFLOP/s; 0.040 ms in FP32).
 //
 // Both kernels are fused_logq's with a store: each log q_k goes into the
 // thread's own rho entry while the weighted log-sum-exp runs, k ascending,
@@ -21,14 +22,15 @@
 // coalesced.  D <= 64 (rho_kernel): logq.cu's record kernel -- 256 threads a
 // block, one particle a thread in registers (DMAX 8 to 64), the components
 // as 16-byte records streamed through shared memory in one buffer or two
-// chunk buffers (common.cuh eval_plan, stream_records).  From D =
-// kTiledDMin (rho_tiled_kernel): logq_tiled_kernel, the block-tiled FP32
-// product engine of tiled.cuh on U_k (panels above the diagonal skipped),
-// thread n % 128 holding particle n's log-sum-exp; a dead component's log
-// q_k is stored and skipped in the sum.  What bounds it there is the
-// engine's FMA issue, as for fused_logq (PERF.md section 6): the K (N,)
-// rows of rho move 4 K bytes a particle against the D (D + 1) / 2 FMAs of
-// each component.
+// chunk buffers (common.cuh eval_plan, stream_records); a squared distance
+// that is not finite recomputed with every entry of U read, as logq.cu's.
+// From D = kTiledDMin (rho_mma_tiled_kernel, after mma_split_kernel<true>):
+// logq_mma_tiled_kernel's tensor-core walk with RhoEpi (tiled.cuh), thread n
+// % 128 holding particle n's log-sum-exp; a dead component's log q_k is
+// stored and skipped in the sum.  rho_tiled_kernel, the block-tiled FP32
+// engine with the same epilogue, is forced only (variant "tiled").  The K
+// (N,) rows of rho move 4 K bytes a particle against the D (D + 1) / 2
+// multiply-adds of each component.
 #include "tiled.cuh"
 
 namespace pmc {
@@ -85,6 +87,18 @@ rho_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
                    });
 }
 
+// split: the split U of mix (mma_split_kernel<true>); one block an SM
+__global__ void __launch_bounds__(kMtThreads, 1)
+rho_mma_tiled_kernel(const float* __restrict__ xT, const float* __restrict__ mix,
+                     const float4* __restrict__ split, float* __restrict__ rho,
+                     float* __restrict__ log_q, long long N, int K, int D, int student_t) {
+  extern __shared__ float4 smem4[];
+  const MixLayout L{K, D};
+  RhoEpi epi{mix, rho, log_q, N, K, D, student_t != 0};
+  mma_tiled_walk<true>(reinterpret_cast<float*>(smem4), xT, mix + L.U(), mix + L.mu(), split, N,
+                       K, D, epi);
+}
+
 // fused_rho's kernels for with_eval_variant (the records of fused_logq)
 struct RhoKernels {
   static constexpr bool maha = false;
@@ -104,17 +118,27 @@ extern "C" long long pmc_rho_smem_bytes(int K, int D) {
 // (registers, shared memory and threads), for the wrapper's grid; -1 on an
 // error
 extern "C" int pmc_rho_per_sm(int K, int D, int variant) {
-  return pmc::eval_variant_per_sm<pmc::RhoKernels>(K, D, variant);
+  using namespace pmc;
+  if (eval_mma_tiled(D, variant, false)) return mma_tiled_per_sm(rho_mma_tiled_kernel);
+  return eval_variant_per_sm<RhoKernels>(K, D, variant);
 }
 
-// mix: the packed evaluation operands (MixLayout); rho: (K, N); log_q: (N,);
-// variant: as pmc_fused_logq's (-1 the elected kernel, 1 the record, 2 the
-// tiled kernel)
-extern "C" int pmc_fused_rho(const float* xT, const float* mix, float* rho,
+// mix: the packed evaluation operands (MixLayout); scratch: as
+// pmc_fused_logq's; rho: (K, N); log_q: (N,); variant: as pmc_fused_logq's
+// (-1 the elected kernel, 1 the record, 2 the tiled, 3 the tensor-core
+// kernel past D = 64)
+extern "C" int pmc_fused_rho(const float* xT, const float* mix, float* scratch, float* rho,
                              float* log_q, long long N, int K, int D,
                              int student_t, int variant, int n_blocks, void* stream) {
   using namespace pmc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (eval_mma_tiled(D, variant, false))
+    return launch_mma_tiled<true>(rho_mma_tiled_kernel, mix + MixLayout{K, D}.U(), scratch, K, D,
+                                  n_blocks, s, [&](const float4* split) {
+                                    rho_mma_tiled_kernel<<<n_blocks, kMtThreads, kMmaTiledSmem,
+                                                           s>>>(xT, mix, split, rho, log_q, N, K,
+                                                                D, student_t);
+                                  });
   const int bad = with_eval_variant<RhoKernels>(K, D, variant, [&](auto kernel, int threads,
                                                                      size_t smem) {
     kernel<<<n_blocks, threads, smem, s>>>(xT, mix, rho, log_q, N, K, D, student_t);

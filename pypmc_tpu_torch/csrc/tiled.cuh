@@ -4,9 +4,12 @@
 // fused_transform's product (transform.cu transform_tiled_kernel) and the
 // drawn products of fused_transform_rng and fused_propose_logq
 // (draw_tiled_kernel, below); ops/_build.py tiled_plan and draw_tiled_smem
-// mirror the constants.  fused_maha elects it nowhere: its tensor-core
-// kernels (mma.cuh to D = 64, mma_tiled.cuh past it) take its every D from
-// kMahaMmaDMin, and maha_tiled_kernel stays forcible as their yardstick.
+// mirror the constants.  The evaluations elect it nowhere: fused_maha's
+// tensor-core kernels (mma.cuh to D = 64, mma_tiled.cuh past it) take its
+// every D from kMahaMmaDMin, fused_logq's and fused_rho's (mma_tiled.cuh's
+// walk on U's lower triangle, logq_mma_tiled_kernel, rho_mma_tiled_kernel)
+// every D past the record kernels, and the three tiled kernels stay
+// forcible as their yardsticks.
 //
 // Each is a product in disguise: for component k and a tile of P particles,
 // Y_k = A_k (X - m_k) is a (D x D) (D x P) product.  The evaluations want the
@@ -18,10 +21,10 @@
 // A_k, D (D + 1) / 2 for a triangular U_k or L_k, against D + K (or D + 1,
 // or the transform's 2 D + 2) floats of a particle moved.  These kernels
 // use no tensor cores: fused_transform's product is held bit for bit to its
-// looped kernel, and fused_logq's and fused_rho's log q to each other and to
-// the kernels that launch logq_tiled_kernel; fused_maha's product has its
-// own tensor-core kernels in three split TF32 products, within the FP32
-// tolerance of float64 (mma.cuh, mma_tiled.cuh).
+// looped kernel, and fused_logq's and fused_rho's tiled log q to each other;
+// the evaluations' elected products are tensor-core kernels in three split
+// TF32 products, within the FP32 tolerance of float64 (mma.cuh,
+// mma_tiled.cuh).
 //
 // Design.  A block of kTileThreads (256) walks its tiles (grid-stride over
 // slots of a tile source, below) and in each tile the components of the
@@ -107,11 +110,11 @@ constexpr int kTileRedOffset = 2 * kTileAFloats + 2 * kTileXFloats + 2 * kTileK;
 // shared memory of a tiled block: two A panels, two X panels, two m panels,
 // the partials (fused_transform's tile particles in their place)
 constexpr size_t kTiledSmem = sizeof(float) * (kTileRedOffset + kTileRedFloats);
-// the smallest D at which fused_maha, fused_logq and fused_rho take the
-// tiled kernel (ops/_build.py TILED_D_MIN): the first past the record
-// kernels' 64, since it beat the looped DMAX = 128 kernel, which it
-// replaced, at D = 65, 96 and 128, at K = 1 and at the JAX rule's largest K
-// (PERF.md)
+// the smallest D past the record kernels of fused_logq and fused_rho
+// (ops/_build.py TILED_D_MIN): the first past their 64, where the tiled
+// kernel beat the looped DMAX = 128 kernel it replaced (at D = 65, 96 and
+// 128, at K = 1 and at the JAX rule's largest K) and the tensor-core kernels
+// now take over from it (eval_variant; PERF.md)
 constexpr int kTiledDMin = 65;
 
 static_assert(kTileThreads == (kTileM / 8) * (kTileP / 8), "an 8 x 8 micro-tile a thread");
@@ -473,26 +476,77 @@ __device__ __forceinline__ void tiled_eval(float* smem, const float* xT, const f
 // fused_maha's, fused_logq's and fused_rho's variants (the launchers'
 // codes; -1 the elected one) and the one fused_logq and fused_rho elect for
 // D (ops/_build.py eval_variant): the record kernel below kTiledDMin, the
-// tiled kernel from it; fused_maha's third, the tensor-core kernel
-// (kEvalMma: mma.cuh's to D = 64, mma_tiled.cuh's past it), is
-// maha_variant's
+// tensor-core kernel past D = 64 (mma_tiled.cuh's walk on U's lower
+// triangle, logq_mma_tiled_kernel, rho_mma_tiled_kernel: 1.5-2x the tiled
+// kernel's speed at every shape timed, PERF.md) from it; the tiled kernel
+// forced only; fused_maha's tensor-core kernels (mma.cuh's to D = 64,
+// mma_tiled.cuh's past it) are maha_variant's
 constexpr int kEvalRec = 1, kEvalTiled = 2, kEvalMma = 3;
-static_assert(kTiledDMin <= kRecDMax + 1, "a record kernel below kTiledDMin");
+static_assert(kTiledDMin == kRecDMax + 1, "the tensor-core kernels past the record kernels");
 __host__ __device__ inline int eval_variant(int D) {
-  return D < kTiledDMin ? kEvalRec : kEvalTiled;
+  return D < kTiledDMin ? kEvalRec : kEvalMma;
 }
 
 // fused_maha's elected kernel at D (ops/_build.py eval_variant): the
 // tensor-core kernel from kMahaMmaDMin (mma.cuh's to D = 64, mma_tiled.cuh's
-// past it), else eval_variant's
+// past it), else the record kernel
 inline int maha_variant(int D) { return D >= kMahaMmaDMin ? kEvalMma : eval_variant(D); }
 
 // whether fused_maha's (maha), fused_logq's and fused_rho's launchers have
-// variant v at D: the record kernel to D = 64, the tiled kernel and
-// fused_maha's tensor-core kernel at every D to kWideDMax
+// variant v at D: the record kernel to D = 64, the tiled kernel at every D
+// to kWideDMax, the tensor-core kernels fused_maha's at every D, fused_logq's
+// and fused_rho's past D = 64
 __host__ __device__ inline bool eval_has_variant(int D, int v, bool maha) {
   if (D < 1 || D > kWideDMax) return false;
-  return v == kEvalTiled || (maha && v == kEvalMma) || (v == kEvalRec && D <= kRecDMax);
+  return v == kEvalTiled || (v == kEvalMma && (maha || D > kRecDMax)) ||
+         (v == kEvalRec && D <= kRecDMax);
+}
+
+// whether variant (-1 the elected one) of fused_maha (maha) or of fused_logq
+// and fused_rho at D is the tensor-core kernel past D = 64, launched after
+// the split of its operand (launch_mma_tiled)
+inline bool eval_mma_tiled(int D, int variant, bool maha) {
+  return D > kRecDMax && (variant >= 0 ? variant : maha ? maha_variant(D) : eval_variant(D)) ==
+                             kEvalMma;
+}
+
+// blocks of a tensor-core kernel past D = 64 that fit on one SM at once (-1
+// on an error)
+template <typename Kernel>
+int mma_tiled_per_sm(Kernel kernel) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMmaTiledSmem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kMtThreads, kMmaTiledSmem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+// A tensor-core launch past D = 64 on stream s: the operand A (K, D, D)
+// (TRI: fused_logq's and fused_rho's U of the packed mix; else fused_maha's
+// A) split by mma_split_kernel<TRI> into scratch (mma_scratch_floats(K, D)
+// floats, 16-byte aligned), then launch(split), which launches kernel; an
+// error where the variant is not at D or the scratch is missing
+template <bool TRI, typename Kernel, typename Launch>
+int launch_mma_tiled(Kernel kernel, const float* A, float* scratch, int K, int D, int n_blocks,
+                     cudaStream_t s, Launch&& launch) {
+  if (!eval_has_variant(D, kEvalMma, !TRI) || scratch == nullptr || n_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMmaTiledSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float4* split = reinterpret_cast<float4*>(scratch);
+  const long long words = mma_scratch_floats(K, D) / 4;
+  const int split_blocks = static_cast<int>(
+      (words + kMtSplitThreads - 1) / kMtSplitThreads < 4096
+          ? (words + kMtSplitThreads - 1) / kMtSplitThreads
+          : 4096);
+  mma_split_kernel<TRI><<<split_blocks, kMtSplitThreads, 0, s>>>(A, split, K, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch(static_cast<const float4*>(split));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // fused_logq's and fused_rho's squared distance of particle n to component
@@ -508,7 +562,8 @@ __device__ __forceinline__ float eval_maha(const float* xT, const float* mix, lo
                    mix + L.mu() + static_cast<long long>(k) * D, xT, N, D, n);
 }
 
-// fused_logq's epilogue past D = 64 (logq_tiled_kernel): component k's squared distance of particle n into
+// fused_logq's epilogue past D = 64 (logq_tiled_kernel,
+// logq_mma_tiled_kernel): component k's squared distance of particle n into
 // the thread's weighted log-sum-exp, k ascending (a dead component, w_k =
 // 0, adds nothing); out[n] written at k = K - 1
 struct LogqEpi {
@@ -528,7 +583,7 @@ struct LogqEpi {
   }
 };
 
-// fused_rho's epilogue past D = 64 (rho_tiled_kernel):
+// fused_rho's epilogue past D = 64 (rho_tiled_kernel, rho_mma_tiled_kernel):
 // LogqEpi's log-sum-exp, each log q_k stored in the thread's own rho entry,
 // a dead component's too; at k = K - 1 the thread reads its K entries back
 // (its own writes, in order) and writes rho_k = w_k exp(log q_k - log q)
@@ -562,8 +617,8 @@ struct RhoEpi {
 
 // The shared memory of fused_maha's (maha) or fused_logq's and fused_rho's
 // elected kernel at (K, D) (ops/_build.py eval_plan): the tiled kernel's,
-// the tensor-core kernel's (mma_plan to D = 64, kMmaTiledSmem past it),
-// else eval_plan's.
+// the tensor-core kernels' (fused_maha's mma_plan to D = 64, kMmaTiledSmem
+// past it), else eval_plan's.
 inline size_t eval_variant_smem(int K, int D, bool maha) {
   const int v = maha ? maha_variant(D) : eval_variant(D);
   if (v == kEvalTiled) return kTiledSmem;
@@ -577,8 +632,8 @@ inline size_t eval_variant_smem(int K, int D, bool maha) {
 // and its tensor-core kernel to D = 64, mma<Dp>(), Dp = D padded to 8) and
 // rec<DMAX>() and tiled(), the kernels.  body's result, the error of setting
 // the limit, or cudaErrorInvalidValue where v has no kernel at D (and for
-// fused_maha's tensor-core kernel past D = 64, whose launch takes the split
-// operand: maha.cu launches it).
+// the tensor-core kernels past D = 64, whose launch takes the split operand:
+// the launchers launch them, eval_mma_tiled).
 template <typename Kernels, typename Body>
 int with_eval_variant(int K, int D, int variant, Body&& body) {
   const int v = variant >= 0 ? variant : Kernels::maha ? maha_variant(D) : eval_variant(D);

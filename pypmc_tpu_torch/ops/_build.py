@@ -14,10 +14,12 @@ to D = 64 in the record kernels of ``fused_logq``, ``fused_rho``,
 ``fused_maha``, ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``; local memory above).  The six kernels of
 :data:`WIDE` take D up to :data:`WIDE_D_MAX` on the block-tiled product
-engine of ``csrc/tiled.cuh``: ``fused_logq``, ``fused_maha`` and
-``fused_rho`` from D = :data:`TILED_D_MIN` (:func:`tiled_plan`,
-:func:`eval_variant`; ``fused_maha`` elects its tensor-core kernel there
-instead, :func:`mma_tiled_plan`, the tiled kernel forcible beside it),
+engine of ``csrc/tiled.cuh`` or the tensor-core walk of
+``csrc/mma_tiled.cuh``: ``fused_logq``, ``fused_maha`` and
+``fused_rho`` from D = :data:`TILED_D_MIN` elect the tensor-core walk
+(:func:`eval_variant`, :func:`mma_tiled_plan`, :func:`mma_tile_panels`,
+:func:`mma_scratch_floats`), the tiled kernel forcible beside it
+(:func:`tiled_plan`),
 ``fused_transform`` from D =
 :data:`TRANSFORM_TILED_D_MIN` (at K > 1 after a counting sort of its
 particles by component over all N and a move of z into that order, and x
@@ -27,7 +29,7 @@ moved out of it after: :func:`transform_plan`, :func:`transform_bucket_plan`,
 ``fused_propose_logq`` from D = :data:`DRAW_TILED_D_MIN` with their normals
 drawn in shared memory (:func:`draw_tiled_smem`; the same sort at K > 1;
 ``fused_propose_logq``
-then evaluates with ``fused_logq``'s tiled kernel).  The dense
+then evaluates with ``fused_logq``'s elected kernel).  The dense
 statistics kernels keep a tile of per-particle rows and their accumulators
 in shared memory, which must fit :data:`SMEM_LIMIT`: up to D = 16 the
 register pass's tile of 64 columns and all K components' records
@@ -67,7 +69,7 @@ __all__ = ["D_MAX", "WIDE_D_MAX", "SMEM_LIMIT", "THREADS", "EVAL_THREADS",
            "draw_tiled_smem",
            "KERNELS", "BLOCKED", "WIDE", "TILED", "smem_bytes", "eval_plan", "eval_threads",
            "eval_variant", "MAHA_MMA_D_MIN", "mma_plan", "mma_tiled_plan",
-           "mma_scratch_floats", "tiled_plan", "transform_bucket_plan",
+           "mma_scratch_floats", "mma_tile_panels", "tiled_plan", "transform_bucket_plan",
            "transform_bucket_blocks", "transform_slots", "transform_width", "transform_layout",
            "transform_scratch_words", "transform_tiles", "transform_permute",
            "block_particles", "stats_tile", "dense_plan", "gram_layout", "transform_plan",
@@ -93,10 +95,11 @@ _EVAL_DMAX = (8, 16, 32, 40, 64)   # csrc/common.cuh EvalInsts: the record insta
 # of a panel, threads a block, and A panels' row stride (kTileP, kTileM,
 # kTileK, kTileThreads, kTileStride)
 _TILE_P, _TILE_M, _TILE_K, _TILE_THREADS, _TILE_STRIDE = 128, 128, 16, 256, 132
-# csrc/tiled.cuh kTiledDMin: the smallest D at which fused_logq, fused_maha
-# and fused_rho elect the tiled kernel, below it their record kernel (the
-# first past the record kernels' 64: the tiled kernel beat the looped kernel
-# it replaced at D = 65, 96 and 128, PERF.md)
+# csrc/tiled.cuh kTiledDMin: the smallest D past the record kernels of
+# fused_logq and fused_rho (the first past their 64, where the tiled kernel
+# beat the looped kernel it replaced at D = 65, 96 and 128, PERF.md); from
+# it they elect their tensor-core kernels ("mma", csrc/mma_tiled.cuh's walk
+# on U's lower triangle), the tiled kernel forcible
 TILED_D_MIN = 65
 # csrc/mma.cuh kMahaMmaDMin: the smallest D at which fused_maha elects its
 # tensor-core kernel (variant "mma"): over the record kernel to D = 64 (in
@@ -654,9 +657,9 @@ def blocked_plan(kernel, K, D):
 
 def tiled_plan():
     """``(particles a tile, rows a row tile, depth of a panel, threads a
-    block, shared memory a block)`` of the tiled kernel of ``fused_logq``
-    and ``fused_rho`` (elected past D = 64) and of ``fused_maha`` (forced
-    only, the yardstick of its tensor-core kernel); mirrors ``csrc/tiled.cuh``: two A panels of ``_TILE_K``
+    block, shared memory a block)`` of the tiled kernel of ``fused_logq``,
+    ``fused_rho`` and ``fused_maha`` (forced only, the yardstick of their
+    tensor-core kernels); mirrors ``csrc/tiled.cuh``: two A panels of ``_TILE_K``
     rows of ``_TILE_STRIDE`` floats, two X panels of ``_TILE_K`` x
     ``_TILE_P``, two m panels of ``_TILE_K`` and the partial sums of a
     component, 16 threads a particle column.  The same at every (K, D): a
@@ -670,12 +673,14 @@ def eval_variant(kernel, D):
     """The kernel ``fused_logq``, ``fused_maha`` or ``fused_rho`` elects at
     dimension D; mirrors ``csrc/tiled.cuh`` ``eval_variant`` and
     ``maha_variant``: ``"rec"``, the record kernel, below
-    :data:`TILED_D_MIN` and ``"tiled"`` from it; ``fused_maha``'s
-    tensor-core kernel, ``"mma"``, from :data:`MAHA_MMA_D_MIN` at every D
-    (``csrc/mma.cuh``'s to D = 64, ``csrc/mma_tiled.cuh``'s past it)."""
+    :data:`TILED_D_MIN` and the tensor-core kernel, ``"mma"``, from it
+    (``csrc/mma_tiled.cuh``'s walk, on U's lower triangle for
+    ``fused_logq`` and ``fused_rho``); ``fused_maha``'s from
+    :data:`MAHA_MMA_D_MIN` at every D (``csrc/mma.cuh``'s to D = 64).  The
+    tiled kernel (``"tiled"``) is elected nowhere, forcible at every D."""
     if kernel == "fused_maha" and D >= MAHA_MMA_D_MIN:
         return "mma"
-    return "tiled" if D >= TILED_D_MIN else "rec"
+    return "mma" if D >= TILED_D_MIN else "rec"
 
 
 def _mma_warps(D):
@@ -709,8 +714,9 @@ def mma_plan(K, D):
 
 def mma_tiled_plan():
     """``(particles a tile, rows a row tile, depth of a panel, threads a
-    block, step buffers, shared memory a block)`` of ``fused_maha``'s
-    tensor-core kernel past D = 64; mirrors ``csrc/mma_tiled.cuh``: each
+    block, step buffers, shared memory a block)`` of the tensor-core
+    kernels past D = 64 (``fused_maha``'s, ``fused_logq``'s and
+    ``fused_rho``'s, one walk); mirrors ``csrc/mma_tiled.cuh``: each
     step buffer an A panel of ``_MT_M`` split rows (hi and lo, ``_MT_A_ROW4``
     float4s apart), an X panel of ``_MT_K`` rows of ``_MT_X_STRIDE`` floats
     and an m panel of ``_MT_K``; then the four row groups' partial sums of a
@@ -722,11 +728,23 @@ def mma_tiled_plan():
 
 
 def mma_scratch_floats(K, D):
-    """Floats of the split operand ``fused_maha``'s tensor-core kernel
-    takes past D = 64 (``csrc/mma_tiled.cuh`` ``mma_scratch_floats``): K
+    """Floats of the split operand the tensor-core kernels take past D = 64
+    (``csrc/mma_tiled.cuh`` ``mma_scratch_floats``; ``fused_maha``'s A,
+    ``fused_logq``'s and ``fused_rho``'s U, its upper triangle 0): K
     components of D padded to 8 rows, each of D padded to a panel hi and lo
     words."""
     return 2 * K * (-(-D // 8) * 8) * (-(-D // _MT_K) * _MT_K)
+
+
+def mma_tile_panels(rt, D, tri):
+    """The depth panels row tile ``rt`` of the tensor-core walk past D = 64
+    computes (``csrc/mma_tiled.cuh`` ``mma_tile_panels``): every panel of a
+    general A (``fused_maha``); of a lower-triangular U (``tri``:
+    ``fused_logq``, ``fused_rho``) those at or left of the row tile's last
+    row below D."""
+    if not tri:
+        return -(-D // _MT_K)
+    return (min(D, (rt + 1) * _MT_M) - 1) // _MT_K + 1
 
 
 def eval_plan(kernel, K, D, variant=None):
@@ -740,8 +758,9 @@ def eval_plan(kernel, K, D, variant=None):
     tiled kernel takes a component at a time, its panels in two buffers
     (:func:`tiled_plan`); ``fused_maha``'s tensor-core kernel the chunks of
     :func:`mma_plan`, a chunk's records and its split records the two
-    buffers where there is more than one chunk (to D = 64), a component at a
-    time in :func:`mma_tiled_plan`'s step buffers past it."""
+    buffers where there is more than one chunk (to D = 64); the tensor-core
+    kernels of all three a component at a time in :func:`mma_tiled_plan`'s
+    step buffers past it."""
     maha = kernel == "fused_maha"
     variant = eval_variant(kernel, D) if variant is None else variant
     if variant == "tiled":
@@ -763,9 +782,9 @@ def eval_threads(D, variant=None):
     """Threads of a block of the kernel ``fused_logq``, ``fused_rho`` and
     ``fused_maha`` elect for dimension D (with ``variant``, of that kernel);
     mirrors ``csrc/common.cuh`` ``kEvalThreads``, ``csrc/tiled.cuh``
-    ``kTileThreads`` and, for ``fused_maha``'s tensor-core kernel,
-    ``csrc/mma.cuh`` ``mma_threads`` (256 to D = 24, 192 past it; 256 past
-    D = 64, ``csrc/mma_tiled.cuh`` ``kMtThreads``)."""
+    ``kTileThreads`` and, for the tensor-core kernels, ``csrc/mma.cuh``
+    ``mma_threads`` (``fused_maha``'s: 256 to D = 24, 192 past it) and 256
+    past D = 64 (``csrc/mma_tiled.cuh`` ``kMtThreads``)."""
     variant = eval_variant("fused_rho", D) if variant is None else variant
     mma = _MT_THREADS if D > _REC_D_MAX else 32 * _mma_warps(D)
     return {"rec": EVAL_THREADS, "mma": mma, "tiled": _TILE_THREADS}[variant]
@@ -776,8 +795,9 @@ def block_particles(kernel, D, variant=None):
     grid is one wave of blocks over N / this; ``variant``, a kernel of
     ``fused_logq``, ``fused_rho``, ``fused_maha`` or a draw other than the
     one it elects): a thread a particle, a tile of 128 in the tiled
-    kernels, and of 256 (192 past D = 24, 96 past D = 40, 128 past D = 64)
-    in ``fused_maha``'s tensor-core kernel."""
+    kernels, and of 256 (192 past D = 24, 96 past D = 40) in
+    ``fused_maha``'s tensor-core kernel, of 128 in all three's past D =
+    64."""
     if kernel in ("fused_logq", "fused_rho", "fused_maha"):
         variant = eval_variant(kernel, D) if variant is None else variant
         if variant == "mma":
@@ -930,39 +950,43 @@ def signatures():
     int (0 or a CUDA error code)."""
     P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
     return {
-        # xT, mix, out, N, K, D, student_t, variant (-1 the elected kernel, 0
-        # the looped, 1 the record, 2 the tiled kernel), n_blocks, stream
-        "pmc_fused_logq": [P, P, P, L, I, I, I, I, I, P],
+        # xT, mix, scratch (mma_scratch_floats(K, D) floats where the
+        # variant is the tensor-core kernel past D = 64, else null), out, N,
+        # K, D, student_t, variant (-1 the elected kernel, 1 the record, 2
+        # the tiled, 3 the tensor-core kernel), n_blocks, stream
+        "pmc_fused_logq": [P, P, P, P, L, I, I, I, I, I, P],
         # s0, s1, seed_words (null: s0, s1; else two int64 on the card, read
         # in the kernel), mix, tmix, xT, latent, log_q, log_p, scratch (the
         # tiled route's transform_scratch_words(N, K, D) at K > 1; else
-        # null), N, K, Kt, D, student_t, t_student_t, variant (-1 the
-        # plan's, 0 the looped kernel, 1 the record kernel, 2 the tiled
-        # route), n_blocks (<= 0:
+        # null), split (the tiled route's evaluations' scratch,
+        # mma_scratch_floats(max(K, Kt), D); else null), N, K, Kt, D,
+        # student_t, t_student_t, variant (-1 the plan's, 0 the looped
+        # kernel, 1 the record kernel, 2 the tiled route), n_blocks (<= 0:
         # one wave of the record or looped kernel, sized by the launcher),
         # eval_blocks (the tiled route's evaluations), stream
-        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, P, L, I, I, I, I, I,
-                                   I, I, I, P],
+        "pmc_fused_propose_logq": [U, U, P, P, P, P, P, P, P, P, P, L, I, I, I, I,
+                                   I, I, I, I, P],
         # xT, w, mix, partial, stats, N, K, D, student_t, dof_stats,
         # variant (-1 the plan's, 0 the entry table, 1 the register pass, 2
         # the Gram pass), n_blocks, stream
         "pmc_fused_pmc_stats": [P, P, P, P, P, L, I, I, I, I, I, I, P],
         # s0, s1, seed_words, mix, tmix, xT, latent, w, log_q, log_p (the
-        # Gram route's (N,) scratch, else null), partial, stats, N, K, Kt, D,
+        # Gram route's (N,) scratch, else null), split (its draw's split,
+        # as pmc_fused_propose_logq's), partial, stats, N, K, Kt, D,
         # student_t, t_student_t, dof_stats, variant (as
         # pmc_fused_pmc_stats'), draw_blocks, eval_blocks (the Gram route's
         # draw: fused_propose_logq's n_blocks and eval_blocks), n_blocks,
         # stream
-        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, P, P, L, I, I, I,
-                                  I, I, I, I, I, I, I, P],
+        "pmc_fused_is_pmc_step": [U, U, P, P, P, P, P, P, P, P, P, P, P, L, I, I,
+                                  I, I, I, I, I, I, I, I, P],
         # xT, ops, scratch (mma_scratch_floats(K, D) floats where the
         # variant is the tensor-core kernel past D = 64, else null), out, N,
         # K, D, variant (-1 the elected kernel, 1 the record, 2 the tiled, 3
         # the tensor-core kernel), n_blocks, stream
         "pmc_fused_maha": [P, P, P, P, L, I, I, I, I, P],
-        # xT, mix, rho, log_q, N, K, D, student_t, variant (as
-        # pmc_fused_logq's), n_blocks, stream
-        "pmc_fused_rho": [P, P, P, P, L, I, I, I, I, I, P],
+        # xT, mix, scratch (as pmc_fused_logq's), rho, log_q, N, K, D,
+        # student_t, variant (as pmc_fused_logq's), n_blocks, stream
+        "pmc_fused_rho": [P, P, P, P, P, L, I, I, I, I, I, P],
         # xT, w, ops, partial, stats, N, K, D, variant, n_blocks, stream
         "pmc_fused_vb_estep": [P, P, P, P, P, L, I, I, I, I, P],
         # zT, latent, scale, ops, scratch (the tiled pair's int32
@@ -982,10 +1006,11 @@ def signatures():
         # t_student_t, variant, stream
         "pmc_fused_mcmc_pool": [U, U, P, P, P, ctypes.c_float, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, P],
-        # xT, w, mix, chunks, log_q, partial, stats, N, K, D, kc, student_t,
-        # dof_stats, n_eval_blocks, n_blocks, stream
-        "pmc_fused_pmc_stats_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I,
-                                        P],
+        # xT, w, mix, chunks, log_q, split (fused_logq's scratch past D =
+        # 64, else null), partial, stats, N, K, D, kc, student_t, dof_stats,
+        # n_eval_blocks, n_blocks, stream
+        "pmc_fused_pmc_stats_blocked": [P, P, P, P, P, P, P, P, L, I, I, I, I, I, I,
+                                        I, P],
         # xT, w, ops, chunks, lse, partial, stats, N, K, D, kc, n_eval_blocks,
         # n_blocks, stream
         "pmc_fused_vb_estep_blocked": [P, P, P, P, P, P, P, L, I, I, I, I, I, P],

@@ -79,14 +79,19 @@ draws ``fused_transform``, ``fused_transform_rng`` and
 ``fused_propose_logq``: the record, the looped
 or the tiled kernel (``fused_transform``'s tiled pair, the others' drawn
 products), ``_build.transform_plan``, ``_build.propose_plan``;
-``fused_logq`` and ``fused_rho``: the record or the tiled kernel;
+``fused_logq`` and ``fused_rho``: the record kernel to D = 64, the
+tensor-core kernel (``"mma"``, ``csrc/mma_tiled.cuh``'s walk on U's lower
+triangle) past it, the tiled kernel forcible beside both;
 ``fused_maha``: the record kernel to D = 8, its tensor-core kernel
 (``"mma"``, three split TF32 products; to D = 64 ``csrc/mma.cuh``'s, past it
 ``csrc/mma_tiled.cuh``'s) from D = 9, the record and the tiled kernel
 forcible beside it; ``_build.eval_variant``), each launch's
-variant as ``variant:<kernel>=<variant>``.  Each of these wrappers but
-``fused_rho`` takes a ``variant=`` that forces another variant where the
-shape has it, as the yardstick of the election.
+variant as ``variant:<kernel>=<variant>``.  Each of these wrappers takes a
+``variant=`` that forces another variant where the shape has it, as the
+yardstick of the election.  The evaluations give a particle with an
+infinite or NaN coordinate their plain versions' -inf, +inf and NaN: a
+squared distance that the product gives as not finite is recomputed in
+FP32 with every entry of the matrix read.
 """
 
 import dataclasses
@@ -429,8 +434,8 @@ _DENSE_VARIANTS = ("table", "reg", "gram")   # the launchers' variant codes 0, 1
 # the draws' kernels and the launchers' variant codes (-1: the plan's)
 _DRAW_VARIANTS = {"looped": 0, "rec": 1, "tiled": 2}
 # fused_logq's, fused_maha's and fused_rho's kernels and the launchers'
-# codes (-1: the elected one); "mma", fused_maha's tensor-core kernel, is
-# fused_maha's only
+# codes (-1: the elected one); "mma", the tensor-core kernels: fused_maha's
+# at every D, fused_logq's and fused_rho's past D = 64
 _EVAL_VARIANTS = {"rec": 1, "tiled": 2, "mma": 3}
 
 
@@ -439,15 +444,32 @@ def _variant_names(kernel):
     if kernel in _build.DRAWS:
         return tuple(_DRAW_VARIANTS)
     if kernel in _build.TILED:
-        return tuple(v for v in _EVAL_VARIANTS if v != "mma" or kernel == "fused_maha")
+        return tuple(_EVAL_VARIANTS)
     return _DENSE_VARIANTS
 
 
 def _eval_variants(kernel, D):
     """The kernels of ``fused_logq``, ``fused_maha`` or ``fused_rho`` at D:
-    the record kernel to D = 64, the tiled kernel and fused_maha's
-    tensor-core kernel at any D."""
-    return tuple(v for v in _variant_names(kernel) if v != "rec" or D <= _build._REC_D_MAX)
+    the record kernel to D = 64, the tiled kernel at any D, the tensor-core
+    kernel fused_maha's at any D and fused_logq's and fused_rho's past D =
+    64."""
+    rec = D <= _build._REC_D_MAX
+    return tuple(v for v in _variant_names(kernel)
+                 if (v != "rec" or rec) and (v != "mma" or kernel == "fused_maha" or not rec))
+
+
+def _eval_scratch(K, D, device, variant):
+    """The split operand of a tensor-core kernel past D = 64 (fused_maha's,
+    fused_logq's or fused_rho's ``variant``, written by its launch):
+    ``_build.mma_scratch_floats(K, D)`` floats, or None where the launch has
+    none."""
+    if variant != "mma" or D <= _build._REC_D_MAX:
+        return None
+    return torch.empty(_build.mma_scratch_floats(K, D), dtype=torch.float32, device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _transform_variants(D):
@@ -901,9 +923,12 @@ def fused_logq(xT, ops: MixtureOperands, variant=None):
     """Mixture log-density ``(N,)`` of transposed particles ``xT (D, N)``
     (kernel ``csrc/logq.cu``).  ``torch.func.vmap`` maps it over a batch
     of particle blocks with one launch.  ``variant``: the kernel, ``"rec"``
-    (the record kernel, to D = 64) or ``"tiled"`` (the block-tiled product
-    kernel, any D), as ``_build.eval_variant`` elects for None; counted as
-    ``variant:fused_logq=<variant>``."""
+    (the record kernel, to D = 64), ``"mma"`` (the tensor-core kernel past
+    D = 64, U split first into a scratch of
+    ``_build.mma_scratch_floats(K, D)`` floats) or ``"tiled"`` (the
+    block-tiled FP32 kernel, any D), as ``_build.eval_variant`` elects for
+    None; counted as ``variant:fused_logq=<variant>``.  A particle with an
+    infinite or NaN coordinate gets the plain version's -inf or NaN."""
     variant = _elect("fused_logq", ops.K, ops.dim, variant)
     if not use_kernel(xT, ops.packed):
         return plain_logq(xT, ops)
@@ -924,10 +949,11 @@ def _logq_run(xT, packed, K, student_t, variant=None):
     _check_operands(ops)
     _build.check_limits("fused_logq", K, D)
     lib = _build.load()
+    scratch = _eval_scratch(K, D, xT.device, variant)
     out = torch.empty((N,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_logq(
-            xT.data_ptr(), packed.data_ptr(), out.data_ptr(), N, K, D,
+            xT.data_ptr(), packed.data_ptr(), _ptr(scratch), out.data_ptr(), N, K, D,
             int(student_t), _EVAL_VARIANTS[variant],
             _eval_blocks("logq", xT.device, N, K, D, variant), _stream(xT.device))
     _raise_on(err, "fused_logq")
@@ -958,44 +984,55 @@ def _logq_vmap(info, in_dims, xT, packed, K, student_t):
 _logq_launch.register_vmap(_logq_vmap)
 
 
-def fused_rho(xT, ops: MixtureOperands):
+def fused_rho(xT, ops: MixtureOperands, variant=None):
     """Rao-Blackwellized responsibilities ``rho (K, N)`` (exactly 0 for a
     dead component) and the mixture log-density ``(N,)`` of transposed
     particles ``xT (D, N)`` (kernel ``csrc/rho.cu``: the record kernel below
-    ``_build.TILED_D_MIN``, the tiled kernel from it, as
-    ``_build.eval_variant`` elects; counted as ``variant:fused_rho=<variant>``;
-    its log q is :func:`fused_logq`'s bit for bit).  ``torch.func.vmap`` maps
-    it over a batch of particle blocks with one launch: ``rho (K, B, N)``,
-    ``log_q (B, N)``."""
+    ``_build.TILED_D_MIN``, the tensor-core kernel from it, as
+    ``_build.eval_variant`` elects; ``variant`` forces a kernel, as
+    :func:`fused_logq`'s; counted as ``variant:fused_rho=<variant>``; its log
+    q is :func:`fused_logq`'s bit for bit on the same kernel).
+    ``torch.func.vmap`` maps it over a batch of particle blocks with one
+    launch: ``rho (K, B, N)``, ``log_q (B, N)``."""
+    variant = _elect("fused_rho", ops.K, ops.dim, variant)
     if not use_kernel(xT, ops.packed):
         return plain_rho(xT, ops)
     if xT.shape[0] != ops.dim:
         raise ValueError("expected %d rows, got shape %s" % (ops.dim, tuple(xT.shape)))
+    if variant != _build.eval_variant("fused_rho", ops.dim):
+        return _rho_run(xT, ops.packed, ops.K, bool(ops.student_t), variant)
     return _rho_launch(xT, ops.packed, ops.K, bool(ops.student_t))
+
+
+def _rho_run(xT, packed, K, student_t, variant=None):
+    """One launch of ``fused_rho``'s kernel ``variant`` (None: the elected
+    one) on CUDA tensors."""
+    D, N = xT.shape
+    variant = variant or _build.eval_variant("fused_rho", D)
+    ops = MixtureOperands(packed, K, D, student_t)
+    _check(xT, (D, N))
+    _check_operands(ops)
+    _build.check_limits("fused_rho", K, D)
+    lib = _build.load()
+    scratch = _eval_scratch(K, D, xT.device, variant)
+    rho = torch.empty((K, N), dtype=torch.float32, device=xT.device)
+    log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    with torch.cuda.device(xT.device):
+        err = lib.pmc_fused_rho(
+            xT.data_ptr(), packed.data_ptr(), _ptr(scratch), rho.data_ptr(), log_q.data_ptr(),
+            N, K, D, int(student_t), _EVAL_VARIANTS[variant],
+            _eval_blocks("rho", xT.device, N, K, D, variant), _stream(xT.device))
+    _raise_on(err, "fused_rho")
+    fused_rho.launches += 1
+    _variant_counts["fused_rho=" + variant] += 1
+    return rho, log_q
 
 
 @torch.library.custom_op("pypmc_tpu_torch::fused_rho", mutates_args=(),
                          device_types="cuda")
 def _rho_launch(xT: torch.Tensor, packed: torch.Tensor, K: int,
                 student_t: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    D, N = xT.shape
-    ops = MixtureOperands(packed, K, D, student_t)
-    _check(xT, (D, N))
-    _check_operands(ops)
-    _build.check_limits("fused_rho", K, D)
-    variant = _build.eval_variant("fused_rho", D)
-    lib = _build.load()
-    rho = torch.empty((K, N), dtype=torch.float32, device=xT.device)
-    log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
-    with torch.cuda.device(xT.device):
-        err = lib.pmc_fused_rho(
-            xT.data_ptr(), packed.data_ptr(), rho.data_ptr(), log_q.data_ptr(),
-            N, K, D, int(student_t), _EVAL_VARIANTS[variant],
-            _eval_blocks("rho", xT.device, N, K, D), _stream(xT.device))
-    _raise_on(err, "fused_rho")
-    fused_rho.launches += 1
-    _variant_counts["fused_rho=" + variant] += 1
-    return rho, log_q
+    return _rho_run(xT, packed, K, student_t)
 
 
 def _rho_vmap(info, in_dims, xT, packed, K, student_t):
@@ -1056,12 +1093,10 @@ def _maha_run(xT, a, m, variant=None):
     _build.check_limits("fused_maha", K, D)
     lib = _build.load()
     ops = torch.cat([a.reshape(-1), m.reshape(-1)])
-    scratch = (torch.empty(_build.mma_scratch_floats(K, D), dtype=torch.float32, device=xT.device)
-               if variant == "mma" and D > _build._REC_D_MAX else None)
+    scratch = _eval_scratch(K, D, xT.device, variant)
     out = torch.empty((K, N), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(),
-                                 None if scratch is None else scratch.data_ptr(),
+        err = lib.pmc_fused_maha(xT.data_ptr(), ops.data_ptr(), _ptr(scratch),
                                  out.data_ptr(), N, K, D,
                                  _EVAL_VARIANTS[variant],
                                  _eval_blocks("maha", xT.device, N, K, D, variant),
@@ -1137,11 +1172,12 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     mixture's device (read inside the kernel).  ``variant``: the kernel,
     ``"rec"`` (the record kernel, to D = 64), ``"looped"`` (to D = 128) or
     ``"tiled"`` (any D: the components bucketed, a block-tiled product on
-    normals drawn in shared memory, then ``fused_logq``'s tiled kernel for
-    log q and log p), as ``_build.propose_plan`` elects for None; each draws
-    the same x and latent bit for bit, and the first two the same log q and
-    log p.  Counted as ``variant:fused_propose_logq=<variant>``, one launch
-    a call."""
+    normals drawn in shared memory, then ``fused_logq``'s elected kernel for
+    log q and log p, past D = 64 its tensor-core kernel, bit for bit
+    ``fused_logq``'s on the x drawn), as ``_build.propose_plan`` elects for
+    None; each draws the same x and latent bit for bit, and the first two
+    the same log q and log p.  Counted as
+    ``variant:fused_propose_logq=<variant>``, one launch a call."""
     Kt = 0 if target is None else target.K
     variant = _elect("fused_propose_logq", ops.K, ops.dim, variant, Kt)
     tensors = [ops.packed] + ([] if target is None else [target.packed])
@@ -1161,14 +1197,13 @@ def fused_propose_logq(seed, ops: MixtureOperands, n: int, target=None, variant=
     log_q = torch.empty((n,), dtype=torch.float32, device=device)
     log_p = None if target is None else torch.empty_like(log_q)
     scratch = _draw_scratch(variant, n, ops.K, D, device)
-    eval_blocks = _eval_blocks("logq", device, n, ops.K, D, "tiled") if variant == "tiled" else 0
+    split, eval_blocks = _draw_evaluations(variant, n, ops.K, Kt, D, device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_propose_logq(
             *_seed_args(seed, device), ops.packed.data_ptr(),
             None if target is None else target.packed.data_ptr(),
             xT.data_ptr(), latent.data_ptr(), log_q.data_ptr(),
-            None if log_p is None else log_p.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), n, ops.K, Kt, D,
+            _ptr(log_p), _ptr(scratch), _ptr(split), n, ops.K, Kt, D,
             int(ops.student_t), int(target is not None and target.student_t),
             _DRAW_VARIANTS[variant],
             _draw_blocks("fused_propose_logq", device, n, ops.K, D, variant, Kt), eval_blocks,
@@ -1245,23 +1280,22 @@ def fused_is_pmc_step(seed, ops: MixtureOperands, target: MixtureOperands,
     w = torch.empty((n,), dtype=torch.float32, device=device)
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=device)
     flat = torch.empty((S,), dtype=torch.float32, device=device)
-    log_q = log_p = None
+    log_q = log_p = split = None
     draw_blocks = eval_blocks = 0
     if variant == "gram":
         # the draw's outputs the pass reads, and the grids of its elected
-        # kernels (past D = 64 K = 1: no bucket pass, no scratch)
+        # kernels (past D = 64 K = 1: no bucket pass, no scratch; the
+        # evaluations' split)
         log_q = torch.empty((n,), dtype=torch.float32, device=device)
         log_p = torch.empty_like(log_q)
         draw = _build.draw_plan("fused_propose_logq", ops.K, D, target.K)[0]
         draw_blocks = _draw_blocks("fused_propose_logq", device, n, ops.K, D, draw, target.K)
-        if draw == "tiled":
-            eval_blocks = _eval_blocks("logq", device, n, ops.K, D, "tiled")
+        split, eval_blocks = _draw_evaluations(draw, n, ops.K, target.K, D, device)
     with torch.cuda.device(device):
         err = lib.pmc_fused_is_pmc_step(
             *_seed_args(seed, device), ops.packed.data_ptr(),
             target.packed.data_ptr(), xT.data_ptr(), latent.data_ptr(),
-            w.data_ptr(), None if log_q is None else log_q.data_ptr(),
-            None if log_p is None else log_p.data_ptr(), partial.data_ptr(),
+            w.data_ptr(), _ptr(log_q), _ptr(log_p), _ptr(split), partial.data_ptr(),
             flat.data_ptr(), n, ops.K, target.K, D, int(ops.student_t),
             int(target.student_t), int(dof_stats), _DENSE_VARIANTS.index(variant),
             draw_blocks, eval_blocks, n_blocks, _stream(device))
@@ -1319,12 +1353,13 @@ def fused_pmc_stats_blocked(xT, w, ops: MixtureOperands, dof_stats=False):
                                              [f[name] for name in _PMC_FIELDS])
     S = _entries(ops.K, D)
     log_q = torch.empty((N,), dtype=torch.float32, device=xT.device)
+    split = _eval_scratch(ops.K, D, xT.device, _build.eval_variant("fused_logq", D))
     partial = torch.empty((n_blocks, S), dtype=torch.float64, device=xT.device)
     flat = torch.empty((S,), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
         err = lib.pmc_fused_pmc_stats_blocked(
             xT.data_ptr(), w.data_ptr(), ops.packed.data_ptr(), chunks.data_ptr(),
-            log_q.data_ptr(), partial.data_ptr(), flat.data_ptr(), N, ops.K, D, kc,
+            log_q.data_ptr(), _ptr(split), partial.data_ptr(), flat.data_ptr(), N, ops.K, D, kc,
             int(ops.student_t), int(dof_stats),
             _eval_blocks("logq", xT.device, N, ops.K, D), n_blocks, _stream(xT.device))
     _raise_on(err, "fused_pmc_stats_blocked")
@@ -1465,6 +1500,19 @@ def _draw_scratch(variant, n, K, D, device):
         return None
     return torch.empty((_build.transform_scratch_words(n, K, D),), dtype=torch.int32,
                        device=device)
+
+
+def _draw_evaluations(variant, n, K, Kt, D, device):
+    """``(split, eval_blocks)`` of fused_propose_logq's tiled route: its
+    evaluations are ``fused_logq``'s elected kernel, one wave of its blocks
+    for n particles, past D = 64 its tensor-core kernel with one split
+    scratch for log q and log p in turn (:func:`_eval_scratch` at the larger
+    of K and Kt); ``(None, 0)`` for another variant."""
+    if variant != "tiled":
+        return None, 0
+    elected = _build.eval_variant("fused_logq", D)
+    return (_eval_scratch(max(K, Kt), D, device, elected),
+            _eval_blocks("logq", device, n, K, D, elected))
 
 
 def _transform_output(D, N, K, variant, device):

@@ -106,6 +106,15 @@ def test_maha_non_finite_particles(cuda):
     chip_smoke.maha_nonfinite_case(cuda, [])
 
 
+def test_logq_and_rho_non_finite_particles(cuda):
+    """fused_logq's and fused_rho's kernels (the record kernels to D = 64,
+    the tensor-core ones past it, the tiled ones forced at every D) give
+    exactly the plain version's NaN, +inf and -inf on particles with an
+    infinite, a NaN and a 1e20 coordinate; their finite outputs within TOL
+    of float64."""
+    chip_smoke.evaluation_nonfinite_case(cuda, [])
+
+
 def test_vb_estep_non_finite_particles(cuda):
     chip_smoke.vb_nonfinite_case(cuda, [])
 
@@ -191,9 +200,10 @@ def test_drawn_products_past_d64_against_plain_versions(cuda, case):
 @pytest.mark.parametrize("case", chip_smoke.TILED_CASES)
 def test_tiled_kernels_past_d64_against_plain_versions(cuda, case):
     """fused_maha (lower and upper operands), fused_logq and fused_rho
-    (Gaussian, and Student-t with a dead component) on the tiled kernel,
-    counted as such, against their float64 plain versions, equal on a second
-    run, fused_rho's log q fused_logq's bit for bit; fused_transform's tiled
+    (Gaussian, and Student-t with a dead component) on the tensor-core
+    kernels they elect and the tiled kernels forced, counted as such,
+    against their float64 plain versions, equal on a second run, fused_rho's
+    log q fused_logq's bit for bit; fused_transform's tiled
     pair on components drawn by weight, its bucket pass's perm, slots and
     pos the CPU mirror's, equal to the looped kernel bit for bit to D =
     128."""

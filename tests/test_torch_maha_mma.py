@@ -188,9 +188,9 @@ def test_the_election_mirrors_the_cuda_source():
     record instantiation (csrc/common.cuh EvalInsts', _build's), so the
     election takes whole timed buckets; fused_maha elects the tensor-core
     kernel from it at every D (past D = 64 csrc/mma_tiled.cuh's), the record
-    kernel below it, and never the tiled kernel, which fused_logq and
-    fused_rho elect from kTiledDMin; they never elect the tensor-core
-    kernel."""
+    kernel below it, and never the tiled kernel; fused_logq and fused_rho
+    elect their record kernels to D = 64 and their own tensor-core kernels
+    (csrc/mma_tiled.cuh's walk on U's lower triangle) from kTiledDMin."""
     assert _build.MAHA_MMA_D_MIN == _cuh_int("kMahaMmaDMin", "mma.cuh") == 9
     assert _build.MAHA_MMA_D_MIN - 1 in _build._EVAL_DMAX
     insts = re.search(r"using EvalInsts = EvalList<(.*?)>;", (CSRC / "common.cuh").read_text(),
@@ -207,7 +207,7 @@ def test_the_election_mirrors_the_cuda_source():
                 == "rec"
         below = dmax
     assert all(_build.eval_variant("fused_maha", D) == "mma" for D in (65, 200, 2040, 4096))
-    assert all(_build.eval_variant(k, D) == "tiled" for k in ("fused_logq", "fused_rho")
+    assert all(_build.eval_variant(k, D) == "mma" for k in ("fused_logq", "fused_rho")
                for D in (65, 200, 4096))
     # csrc/tiled.cuh maha_variant: the tensor-core kernel from kMahaMmaDMin,
     # with no upper bound on D

@@ -1,5 +1,5 @@
 """fused_maha's tensor-core kernel past D = 64 (``csrc/mma_tiled.cuh``,
-``maha_mma_tiled_kernel`` after ``maha_split_kernel``) on the CPU: a numpy
+``maha_mma_tiled_kernel`` after ``mma_split_kernel<false>``) on the CPU: a numpy
 mirror of its arithmetic -- x - m_k formed in float32, both operands split
 into TF32 words (``cvt.rn``), three products a depth step of 8 coordinates
 (hi hi into one float32 accumulator, hi lo and lo hi into another) in the
@@ -258,17 +258,22 @@ def test_the_election_past_64_mirrors_the_cuda_source():
     """Past D = 64 fused_maha elects its tensor-core kernel at every D to
     WIDE_D_MAX, as csrc/tiled.cuh maha_variant does (from kMahaMmaDMin, no
     upper bound); the launcher takes the split operand there
-    (csrc/maha.cu maha_mma_tiled), and the wrapper allocates it."""
+    (csrc/tiled.cuh eval_mma_tiled, launch_mma_tiled), and the wrapper
+    allocates it."""
     assert all(_build.eval_variant("fused_maha", D) == "mma"
                for D in (65, 96, 128, 129, 200, 1000, 2040, _build.WIDE_D_MAX))
     tiled = (CSRC / "tiled.cuh").read_text()
     assert "inline int maha_variant(int D) { return D >= kMahaMmaDMin ? kEvalMma : " \
            "eval_variant(D); }" in tiled
     maha = (CSRC / "maha.cu").read_text()
-    assert "return D > kRecDMax && (variant >= 0 ? variant : maha_variant(D)) == kEvalMma;" in maha
+    assert "if (eval_mma_tiled(D, variant, true))" in maha
+    assert "return launch_mma_tiled<false>(maha_mma_tiled_kernel, ops, scratch, K, D, n_blocks" \
+        in maha
+    assert "return D > kRecDMax && (variant >= 0 ? variant : maha ? maha_variant(D) : " \
+        "eval_variant(D)) ==" in tiled
     assert _build._REC_D_MAX == 64
     assert kernels._eval_variants("fused_maha", 65) == ("tiled", "mma")
-    assert kernels._eval_variants("fused_logq", 65) == ("tiled",)
+    assert kernels._eval_variants("fused_logq", 65) == ("tiled", "mma")
     assert _build.signatures()["pmc_fused_maha"][2] is __import__("ctypes").c_void_p
 
 

@@ -200,14 +200,16 @@ def test_limits_are_stated_and_enforced():
     assert _build.smem_bytes("fused_is_pmc_step", 10, 10, 2) < _build.SMEM_LIMIT
     # operands past shared memory: the record kernels of fused_logq and
     # fused_rho stream their records through two chunk buffers up to D = 64;
-    # past it their tiled kernels ask for their panels at every shape, and in
-    # the other evaluation kernels the operands are read from device memory
-    # and the kernel asks for none; the statistics kernels ask for their tile
-    # and accumulators alone
+    # past it their tensor-core kernels ask for their step buffers at every
+    # shape (the tiled kernels, forced, for their panels), and in the other
+    # evaluation kernels the operands are read from device memory and the
+    # kernel asks for none; the statistics kernels ask for their tile and
+    # accumulators alone
     assert _build.smem_bytes("fused_logq", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
-    assert _build.smem_bytes("fused_logq", 4, 128) == _build.tiled_plan()[4] == 41_600
+    assert _build.smem_bytes("fused_logq", 4, 128) == _build.mma_tiled_plan()[5] == 177_536
+    assert _build.eval_plan("fused_logq", 4, 128, "tiled")[2] == _build.tiled_plan()[4] == 41_600
     assert _build.smem_bytes("fused_rho", 60, 32) == 2 * 20 * 4 * _build._rec_floats(32)
-    assert _build.smem_bytes("fused_rho", 4, 128) == 41_600
+    assert _build.smem_bytes("fused_rho", 4, 128) == 177_536
     assert _build.smem_bytes("fused_transform", 60, 32) == 0
     _build.check_limits("fused_logq", 60, 32)
     assert 0 < _build.smem_bytes("fused_vb_estep", 1, 128) <= _build.SMEM_LIMIT
@@ -221,8 +223,8 @@ def test_eval_plan_streams_records_in_chunks():
     one buffer where it fits half an SM's shared memory, else two buffers of
     equal chunks; past D = 64 their tiled kernel takes a component at a time
     in two panel buffers (41,600 B at every K), and so does fused_rho's
-    (fused_maha's forced there: it elects its tensor-core kernel, a
-    component at a time in three step buffers, 177,536 B)."""
+    (forced there: all three elect their tensor-core kernels, a component at
+    a time in three step buffers, 177,536 B)."""
     rec = _build._rec_floats
     vb = lambda D: _build._rec_floats(D, vb=True)
     assert (4 * rec(40), 4 * vb(40), 4 * rec(10)) == (3696, 6576, 352)
@@ -240,10 +242,12 @@ def test_eval_plan_streams_records_in_chunks():
         ("fused_rho", 1, 128): (1, 2, 41_600),
     }
     for (kernel, K, D), plan in pinned.items():
-        # fused_maha's record and tiled kernels, forced where its
-        # tensor-core kernel is elected
-        variant = "rec" if D <= 64 else "tiled" if kernel == "fused_maha" else None
+        # the record and tiled kernels, forced where a tensor-core kernel is
+        # elected (fused_maha's from D = 9, all three past D = 64)
+        variant = "rec" if D <= 64 else "tiled"
         assert _build.eval_plan(kernel, K, D, variant) == plan, (kernel, K, D)
+        if D > 64:
+            assert _build.eval_plan(kernel, K, D) == (1, 3, 177_536), (kernel, K, D)
         assert _build.eval_plan(kernel, K, D)[2] == _build.smem_bytes(kernel, K, D)
         assert plan[2] <= _build.SMEM_LIMIT and _build.smem_bytes(kernel, K, D) <= _build.SMEM_LIMIT
         _build.check_limits(kernel, K, D)
@@ -261,21 +265,24 @@ def test_eval_plan_streams_records_in_chunks():
         for K, D in ((5000, 10), (1000, 64), (100, 33)):
             kc, buffers, smem = _build.eval_plan(kernel, K, D, "rec")
             assert buffers == 2 and kc < K and smem <= _build._HALF_SMEM
-    assert _build.eval_plan("fused_rho", 4, 128) == (1, 2, 41_600)
+    assert _build.eval_plan("fused_rho", 4, 128, "tiled") == (1, 2, 41_600)
     assert _build.eval_plan("fused_maha", 1, 128) == (1, 3, 177_536) == (
         1, _build.mma_tiled_plan()[4], _build.mma_tiled_plan()[5])
-    # fused_rho streams fused_logq's records to D = 64 and takes the tiled
-    # kernel past it, as fused_logq does
+    # fused_rho streams fused_logq's records to D = 64 and takes the
+    # tensor-core kernel past it, as fused_logq does (the tiled kernel
+    # forcible beside it)
     for K, D in ((32, 40), (200, 10), (2, 40), (60, 32), (10, 10), (1, 64)):
         assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
     for K, D in ((1, 65), (1, 128), (2, 200)):
         assert _build.eval_plan("fused_rho", K, D) == _build.eval_plan("fused_logq", K, D)
-        assert _build.eval_plan("fused_logq", K, D) == (1, 2, _build.tiled_plan()[4])
+        assert _build.eval_plan("fused_logq", K, D) == (1, 3, _build.mma_tiled_plan()[5])
+        assert _build.eval_plan("fused_logq", K, D, "tiled") == (1, 2, _build.tiled_plan()[4])
     assert _build.eval_plan("fused_rho", 32, 40) == (11, 2, 2 * 11 * 3696)
     assert _build.eval_plan("fused_rho", 10, 10) == (10, 1, 10 * 352)
-    # past D = 128 the tiled kernel's panels, 256 threads, 128 particles a
-    # block
-    assert _build.eval_plan("fused_rho", 2, 200) == (1, 2, 41_600)
+    # past D = 128 the tensor-core kernel's step buffers (the tiled
+    # kernel's panels, forced), 256 threads, 128 particles a block
+    assert _build.eval_plan("fused_rho", 2, 200) == (1, 3, 177_536)
+    assert _build.eval_plan("fused_rho", 2, 200, "tiled") == (1, 2, 41_600)
     assert _build.eval_threads(200) == 256
     assert [_build.block_particles("fused_rho", D) for D in (10, 100, 200)] == [256, 128, 128]
     # the tiled kernels: 256 threads, 128 particles
@@ -331,14 +338,14 @@ def test_every_shape_the_rule_admits_is_within_the_kernels_limits(kernel):
 def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
     """Where the JAX rule sends fused_logq, fused_maha, fused_rho or
     fused_transform a shape with D = 65-2,040, the mirror of the tiled plan
-    (csrc/tiled.cuh) holds it: the elected kernel is the tiled one from
-    TILED_D_MIN (fused_transform's tiled pair from TRANSFORM_TILED_D_MIN, its
-    looped kernel below), its shared memory and threads are within a block's
-    limits (41,600 B, 256 threads, the same at every K; fused_transform's
-    bucket kernel's counts too), and check_limits passes.  fused_maha elects
-    its tensor-core kernel there instead (csrc/mma_tiled.cuh: 128 particles
-    a block, 177,536 B, 256 threads at every K), its tiled kernel forcible
-    on the same plan."""
+    (csrc/tiled.cuh) holds it: fused_transform's elected kernel is its tiled
+    pair from TRANSFORM_TILED_D_MIN (its looped kernel below), its shared
+    memory and threads are within a block's limits (41,600 B, 256 threads,
+    the same at every K; its bucket kernel's counts too), and check_limits
+    passes.  fused_logq, fused_maha and fused_rho elect their tensor-core
+    kernels there instead from TILED_D_MIN (csrc/mma_tiled.cuh: 128
+    particles a block, 177,536 B, 256 threads at every K), their tiled
+    kernels forcible on the tiled plan."""
     P, BM, BK, threads, smem = _build.tiled_plan()
     assert (P, BM, BK, threads) == (128, 128, 16, 256)
     assert smem == 4 * (2 * BK * (BM + 4) + 2 * BK * P + 2 * BK + 16 * P) == 41_600
@@ -350,7 +357,7 @@ def test_every_shape_the_rule_admits_past_d64_takes_the_tiled_plan(kernel):
              else (lambda K, D: _build.eval_variant(kernel, D)))
     below = ["mma" if kernel == "fused_maha" and D >= _build.MAHA_MMA_D_MIN else "rec"
              for D in (1, 64)]
-    past = "mma" if kernel == "fused_maha" else "tiled"
+    past = "tiled" if draw else "mma"
     mt = _build.mma_tiled_plan()
     assert mt == (P, 128, 32, threads, 3, 177_536)
     assert [elect(1, D) for D in (1, 64, first, 2040)] == below + [past] * 2
@@ -736,6 +743,8 @@ def _variant_call(kernel, K, D, variant):
         return kernels.fused_is_pmc_step((1, 2), ops, ops, N, True, variant=variant)
     if kernel == "fused_logq":
         return kernels.fused_logq(xT, ops, variant=variant)
+    if kernel == "fused_rho":
+        return kernels.fused_rho(xT, ops, variant=variant)
     if kernel == "fused_maha":
         return kernels.fused_maha(xT, tp.inv_chol, tp.means, variant=variant)
     A = torch.linalg.cholesky(torch.eye(D).expand(K, D, D)).transpose(1, 2).contiguous()
@@ -777,7 +786,7 @@ def _variant_call(kernel, K, D, variant):
     ("fused_vb_estep", 3, 4, "gram", False), ("fused_vb_estep", 5, 40, "gram", False),
     ("fused_pmc_stats", 5, 40, "table", True),
     # fused_logq and fused_maha: the record kernel to D = 64, the tiled
-    # kernel beside it and alone past it (they have no looped kernel)
+    # kernel beside it and past it (they have no looped kernel)
     ("fused_logq", 3, 10, "rec", True), ("fused_logq", 3, 10, "tiled", True),
     ("fused_logq", 3, 10, "looped", False), ("fused_logq", 1, 65, "rec", False),
     ("fused_logq", 1, 65, "tiled", True), ("fused_logq", 1, 65, "looped", False),
@@ -787,11 +796,15 @@ def _variant_call(kernel, K, D, variant):
     ("fused_maha", 1, 65, "rec", False), ("fused_maha", 1, 129, "tiled", True),
     ("fused_maha", 1, 129, "warp", False), ("fused_maha", 3, 4, "reg", False),
     # fused_maha's tensor-core kernel at every D, beside the record kernel
-    # to D = 64 and the tiled kernel; fused_logq has none
+    # to D = 64 and the tiled kernel; fused_logq's and fused_rho's past D =
+    # 64 only, beside the tiled kernel
     ("fused_maha", 3, 10, "mma", True), ("fused_maha", 1, 64, "mma", True),
     ("fused_maha", 1, 64, "rec", True), ("fused_maha", 1, 65, "mma", True),
     ("fused_maha", 2, 200, "mma", True), ("fused_maha", 2, 200, "rec", False),
-    ("fused_logq", 3, 10, "mma", False), ("fused_logq", 1, 65, "mma", False),
+    ("fused_logq", 3, 10, "mma", False), ("fused_logq", 1, 65, "mma", True),
+    ("fused_logq", 1, 64, "mma", False), ("fused_rho", 3, 10, "mma", False),
+    ("fused_rho", 2, 96, "mma", True), ("fused_rho", 2, 96, "tiled", True),
+    ("fused_rho", 2, 96, "rec", False), ("fused_rho", 3, 10, "rec", True),
 ])
 def test_variant_raises_where_the_plan_has_no_such_pass(kernel, K, D, variant, ok):
     """A wrapper's variant= names the plan's pass or its yardstick; any
@@ -809,8 +822,8 @@ def test_launch_counts_name_the_variants():
     the three draws' record, looped and tiled kernels (fused_transform's
     tiled pair, the others' drawn products; no warp kernel), the statistics
     kernels' register, Gram and entry-table passes, fused_logq's,
-    fused_maha's and fused_rho's record and tiled kernels (fused_pmc_stats'
-    tile width is no longer a variant)."""
+    fused_maha's and fused_rho's record, tiled and tensor-core kernels
+    (fused_pmc_stats' tile width is no longer a variant)."""
     kernels.reset_launch_counts()
     names = {n for n in kernels.launch_counts() if n.startswith("variant:")}
     for kernel in ("fused_transform", "fused_transform_rng", "fused_propose_logq"):
@@ -821,6 +834,7 @@ def test_launch_counts_name_the_variants():
     for kernel in _build.TILED:
         assert {"variant:%s=%s" % (kernel, v) for v in ("rec", "tiled")} <= names
         assert ("variant:%s=looped" % kernel in names) == (kernel in _build.DRAWS)
+        assert ("variant:%s=mma" % kernel in names) == (kernel not in _build.DRAWS)
     assert not any(n.endswith("=tile") for n in names)
 
 
